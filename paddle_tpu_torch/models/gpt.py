@@ -1,18 +1,23 @@
 """GPT — the flagship decoder-only LM (port of paddle_tpu/models/gpt.py).
 
-The forward of this slice: logits through :meth:`GPT.forward` and the
-causal-LM scoring loss through :func:`gpt_loss`, with the fused linear+CE
-head when ``FLAGS_gpt_fused_ce`` is set.  Both are inference entry points
-(they run under ``torch.no_grad``); the backward comes with the training
-slice.
+Logits through :meth:`GPT.forward` and the causal-LM loss through
+:func:`gpt_loss`, with the fused linear+CE head when ``FLAGS_gpt_fused_ce``
+is set.  Both record on autograd's tape, as the reference's forward
+records on its own: gradients flow through the flash kernels (S >= 128)
+and through the dense fallback (S < 128).  Serving callers wrap their
+calls in ``torch.inference_mode()``.  The fused head has no backward yet:
+a gradient through it raises ``NotImplementedError``, it never falls back
+to the unfused head.
 
 What is the same as the reference: the configuration and presets, the
 stacked (L, ...) parameters with the same names, shapes and numpy draws
 (``np.random.default_rng(seed)`` in the same order), pre-LN layers with
 tanh-GELU, the tied head, and the loss conventions.  What differs: a
-Python loop over layers stands in for ``lax.scan`` (``remat`` and
-``scan_unroll`` are accepted and mean nothing in eval), and there are no
-meshes, shardings, pipeline or ring attention.
+Python loop over layers stands in for ``lax.scan`` (``scan_unroll`` is
+accepted and means nothing in eager PyTorch; ``remat`` is accepted and
+not honoured: activations are kept, as ``bench.py`` runs the reference
+with ``remat=False``), and there are no meshes, shardings, pipeline or
+ring attention.
 
 Attention dispatches by the reference's rule, not by catching errors:
 sequences the blockwise kernel serves (``flash_attention.supported``)
@@ -21,9 +26,10 @@ tensor — and shorter ones (S < 128) take the dense fallback.  The
 reference wraps its kernel in ``try/except Exception: pass`` and falls
 back silently; the port does not: a kernel that cannot run raises.
 
-Mixed precision: ``model.to(torch.bfloat16)`` casts the parameters, as
-AMP O2's ``decorate`` does; activations then run in bf16 and the loss
-casts logits to f32.
+Mixed precision: ``model.to(torch.bfloat16)`` casts the parameters for
+serving; training keeps f32 parameters and casts a copy per step
+(``jit.TrainStep(amp_level="O2")``).  Activations then run in bf16 and
+the loss casts logits to f32.
 """
 from __future__ import annotations
 
@@ -59,8 +65,9 @@ class GPTConfig:
         self.ffn_size = ffn_size or 4 * hidden_size
         self.max_seq_len = max_seq_len
         self.initializer_range = initializer_range
-        # accepted for parity with the reference; eval has nothing to
-        # recompute, unroll, pipeline or schedule
+        # accepted for parity with the reference; the port keeps every
+        # activation (no recompute), runs a Python loop over layers, and
+        # has no pipeline or schedule
         self.remat = remat
         self.n_microbatches = n_microbatches
         self.use_flash_attention = use_flash_attention
@@ -155,7 +162,6 @@ class GPT(nn.Module):
                 p.copy_(t)
         return self
 
-    @torch.no_grad()
     def forward(self, input_ids) -> torch.Tensor:
         """input_ids (B, S) int -> logits (B, S, V)."""
         return _gpt_forward(self, self._ids(input_ids))
@@ -197,8 +203,11 @@ def _gpt_forward(model: GPT, ids, features_only: bool = False):
     cfg = model.config
     S = ids.shape[1]
     x = model.wte[ids] + model.wpe[:S][None, :, :]
+    # one unbind per stacked parameter: its backward is one stack, where
+    # indexing each layer would sum L full-size gradients per parameter
+    per_layer = {n: getattr(model, n).unbind(0) for n in _LAYER_PARAMS}
     for i in range(cfg.num_layers):
-        x = _layer(cfg, x, {n: getattr(model, n)[i] for n in _LAYER_PARAMS})
+        x = _layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS})
     x = _ln(x, model.lnf_w, model.lnf_b)
     if features_only:
         return x
@@ -219,7 +228,6 @@ def _gpt_fused_ce_loss(model: GPT, ids, labels):
     return (loss_n * w).sum() / (B * (S - 1))
 
 
-@torch.no_grad()
 def gpt_loss(model: GPT, input_ids, labels):
     """Causal-LM cross entropy (f32 softmax); labels == input tokens,
     shifted internally.  With ``FLAGS_gpt_fused_ce`` the head and CE run as

@@ -6,6 +6,12 @@ skip.  On a machine with one:
 
 Tolerances: f32 outputs 1e-4 (summation order only); bf16 outputs 2e-2
 (a few bf16 ulps of O(1) values); f32 lse / logz from bf16 inputs 1e-3.
+bf16 gradients: max |got - want| / (|want| + rms(want)) per tensor at most
+0.1, the measure and limit of chip_smoke.py.  Both sides round to bf16, so
+an entry may differ by an ulp of itself; the rms floor keeps an error among
+the many small gradients from hiding behind the few large ones
+(tests/test_torch_flash_attention.py shows the limit flags a dropped tile or
+fragment).
 """
 import math
 
@@ -64,6 +70,62 @@ def test_flash_kernel_rejects_what_it_does_not_take(gen):
     q = _rand(gen, (2, 128, 2, 64), torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(q, q, q, causal=True)
+
+
+TOL_GRAD_BF16 = 0.1
+
+
+def _close_grad(a, b, tol):
+    a, b = a.float().cpu(), b.float().cpu()
+    assert bool(torch.isfinite(a).all())
+    rms = b.pow(2).mean().sqrt()
+    assert float(((a - b).abs() / (b.abs() + rms)).max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (256, 256, 64, True), (200, 200, 128, True), (128, 384, 64, True),
+    (300, 300, 64, False), (256, 256, 128, False), (256, 128, 64, True)])
+def test_flash_bwd_kernels_match_plain(gen, dtype, sq, sk, d, causal):
+    qt = _rand(gen, (6, sq, d), dtype)
+    kt, vt = _rand(gen, (6, sk, d), dtype), _rand(gen, (6, sk, d), dtype)
+    dot = _rand(gen, (6, sq, d), dtype)
+    scale = 1.0 / math.sqrt(d)
+    ot, lse = fa.flash_attention_reference(qt, kt, vt, scale, causal)
+    before = (fa.launches_dq, fa.launches_dkv)
+    got = fa._launch_bwd(qt, kt, vt, ot, lse, dot, scale, causal)
+    want = fa.flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot, scale,
+                                            causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1,
+                                                 before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        if dtype == torch.bfloat16:
+            _close_grad(g, w, TOL_GRAD_BF16)
+        else:
+            _close(g, w, 1e-4)
+    if sq > sk and causal:               # rows with no key: zero dq
+        assert float(got[0][:, :sq - sk].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_card_matches_plain(gen, dtype):
+    q, k, v = (_rand(gen, (2, 256, 4, 64), dtype).requires_grad_()
+               for _ in range(3))
+    w = _rand(gen, (2, 256, 4, 64), dtype)
+    before = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    (fa.flash_attention(q, k, v, causal=True) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == tuple(
+        n + 1 for n in before)
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    (fa.flash_attention(qc, kc, vc, causal=True) * w.cpu()).sum().backward()
+    for g, c in zip((q.grad, k.grad, v.grad), (qc.grad, kc.grad, vc.grad)):
+        if dtype == torch.bfloat16:
+            _close_grad(g, c, TOL_GRAD_BF16)
+        else:
+            _close(g, c, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
