@@ -8,10 +8,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
 1. build   — compile every CUDA kernel of the path from paddle_tpu_torch/csrc
              (one nvcc per source, all started together).
 2. check   — hold each kernel against its plain PyTorch version on the card,
-             at the shapes GPT-2 345M gives it and at tail shapes, and a small
-             GPT on the card against the same model on the CPU: forward,
-             loss, gradients, one f32 TrainStep, and three f32 TrainSteps
-             of the fused configuration.
+             at the shapes GPT-2 345M gives it and at tail shapes; the masked
+             flash kernels at BERT-base's layer with its padding bias, in
+             every bias class, with segment ids and with rows that see no
+             key; the dbias kernel beside the faults dbias_faults plants;
+             a small GPT on the card against the same model on the CPU:
+             forward, loss, gradients, one f32 TrainStep, and three f32
+             TrainSteps of the fused configuration; a small BERT on a padded
+             batch (logits, loss, gradients, one AdamW step) and a small
+             learned-bias encoder (gradients, the bias's included), card
+             against CPU.
 3. serve   — GPT-2 345M at full width and depth in bf16 answers a batch of
              B=8 prompts of S=1024 tokens: logits and next-token argmax, then
              gpt_loss scoring with the fused-CE flag off and on.  The launch
@@ -27,9 +33,25 @@ Phases, in order; any failure ends the script with a non-zero exit:
              bf16, 5 steps.  First the fused Adam kernel is held to its
              plain version on the model's own parameter set and timed.
              Counters set to 0 just before the steps, read after each.
-6. timing  — each kernel, its plain version, the one-call PyTorch yardstick
-             and the least time the card could take for the same work;
-             tokens/s of the forward.
+6. bert-serve — BERT-base (12 layers, H=768, V=30522) in bf16 answers 3
+             requests of B=128 x S=128 on a padded batch under
+             inference_mode: MLM and NSP logits, 12 masked forward launches
+             a request and nothing else.
+7. bert-train — BERT-base, f32 masters, as bench.py:204-250 trains it:
+             TrainStep with AMP O2 bf16, AdamW(learning_rate=1e-4),
+             bert_pretrain_loss, B=128, S=128, 15 % MLM labels; 5 steps
+             unpadded, then 5 on the padded batch (12 forward, dq and dk/dv
+             launches a step, masked on the padded one, no dbias).  An
+             all-ones mask must give the unmasked loss.
+8. encoder-bias — a 12-layer TransformerEncoder (768, 12 heads, 3072,
+             GELU) that trains a learned (1, 12, 128, 128) attention bias
+             as its src_mask: 5 O2 AdamW steps on a mean-square loss at
+             B=128, S=128, 12 launches of each masked kernel and of dbias
+             a step.  Counters set to 0 just before each of phases 6-8.
+9. timing  — each kernel, its plain version, the one-call PyTorch yardstick
+             and the least time the card could take for the same work; the
+             masked kernels and dbias at BERT-base's layer, and the flash
+             kernel against the dense path there; tokens/s of the forward.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -69,11 +91,21 @@ TOL_GRAD_BF16 = 0.1
 # reads every planted fault on each run and fails if one is not above this.
 TOL_CE_GRAD_BF16 = 0.03
 CE_TILE = 32                   # rows a fused_ce_bwd block owns and streams
+# The flash dbias kernel's output (bf16 q, k, v) by the same measure.  A
+# bf16 dbias differs from the plain version's by at most an ulp of itself
+# (2^-8 of |want|); the smallest fault dbias_faults plants, one of 128
+# reduced batch terms dropped, reads far above (PERF.md, Findings).  The
+# check reads every planted fault on each run and fails if one is not
+# above this.
+TOL_DBIAS_BF16 = 0.05
+DBIAS_TILE = 64                # a dbias block's query rows and keys
 TOL_MOVE = 1e-2                # an AdamW move, relative to the move itself
 TOL_ADAM_MOMENT = 1e-6         # fused Adam m', v': the same f32 arithmetic
 TOL_ADAM_MOVE = 1e-3           # fused Adam p' - p, relative to that move
 TRAIN_STEPS = 5
 MICRO = 2                      # train-fused: micro-batches of B x S each
+BERT_B, BERT_S, BERT_HEADS = 128, 128, 12   # bench.py's BERT-base batch
+TOL_ONES_MASK = 2e-2           # all-ones mask vs no mask, bf16 loss
 LR_PEAK = 1.5e-4               # Megatron-LM's GPT-2 345M rate
 CLIP_SMALL = 0.05              # binds on the small GPT's first gradients
 
@@ -145,7 +177,8 @@ def grad_err(a, b):
 
 def rand(g, shape, dtype, scale=1.0):
     import torch
-    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+    return (torch.randn(shape, generator=g, device=g.device)
+            * scale).to(dtype)
 
 
 def check_flash(g, fa, case):
@@ -240,6 +273,27 @@ def check_small_train(GPT, gpt_loss, small, ids, TrainStep, AdamW):
         move_err = max(move_err, float((got - want).abs().max()
                                        / want.abs().max()))
     return err, move_err
+
+
+def dbias_faults(fa, qt, kt, vt, ot, lse, dot, scale, causal, mask):
+    """What a faulty dbias kernel would return, as a list of (name, dbias
+    in the bias's dtype): the plain version's ds with one fault planted.  A
+    block skips the last term of its reduction (the last reduced (b, h)
+    slice; when the bias has one query row, only that slice's last 64-row
+    query tile), or leaves its 64-key output tile unwritten.  Dropping one
+    of many reduced terms is the smallest fault: one of 128 batch terms in
+    the learned-bias encoder.  The measure must read each above its
+    limit."""
+    _, ds = fa._p_ds(qt, kt, vt, ot, lse, dot, scale, causal, mask)
+    bb, hb, sqb, sk = mask.bias.shape
+    skip = ds.view(-1, mask.heads, ds.shape[1], sk).clone()
+    skip[-1 if bb == 1 else slice(None), -1 if hb == 1 else slice(None),
+         slice(-DBIAS_TILE, None) if sqb == 1 else slice(None)] = 0
+    unwritten = fa._reduce_dbias(ds, mask)
+    unwritten.view(-1, sqb, sk)[0, :DBIAS_TILE, :DBIAS_TILE] = 0
+    return [("skips the last reduced term",
+             fa._reduce_dbias(skip.view_as(ds), mask)),
+            ("leaves a 64-key output tile unwritten", unwritten)]
 
 
 def check_ce(g, fused_ce, case):
@@ -409,6 +463,250 @@ def check_adam(g, fused_adam, params, peak):
     return mom_err, move_err, p_err, timing
 
 
+def bert_batch(vocab, b, s, seed=0):
+    """bench.py's BERT batch, drawn in its order: ids, 15 % MLM labels, NSP
+    labels, then per-sample lengths in [S/2, S].  Returns (ids, mlm, nsp,
+    attention mask (1 = real token), mlm with -100 on the padding) as
+    int32 numpy arrays."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    mlm = np.where(rng.random((b, s)) < 0.15, ids, -100).astype(np.int32)
+    nsp = rng.integers(0, 2, (b,)).astype(np.int32)
+    lens = rng.integers(s // 2, s + 1, (b,))
+    amask = np.arange(s)[None, :] < lens[:, None]
+    return (ids, mlm, nsp, amask.astype(np.int32),
+            np.where(amask, mlm, -100).astype(np.int32))
+
+
+def padding_bias(amask):
+    """BERT's additive padding bias, (B, 1, 1, S) f32 of 0 / -1e30."""
+    import torch
+    return torch.where(amask.bool(), 0.0, -1e30)[:, None, None, :]
+
+
+def masked_case(g, fa, case):
+    """Folded q, k, v, do and the mask of a check case (b, h, s, d, dtype,
+    bias shape or None, bias dtype, segment ids?, causal)."""
+    import torch
+    b, h, s, d, dtype, bias_shape, bias_dtype, segs, _ = case
+    qt, kt, vt, dot = (rand(g, (b * h, s, d), dtype) for _ in range(4))
+    bias = None if bias_shape is None else rand(g, bias_shape, bias_dtype)
+    q_seg = kv_seg = None
+    if segs:                        # packed sequences of 96 and 64 tokens
+        pos = torch.arange(s, device=qt.device)
+        q_seg = (pos // 96).int().expand(b, s).contiguous()
+        kv_seg = (pos // 64).int().expand(b, s).contiguous()
+    return qt, kt, vt, dot, fa.Mask(bias, q_seg, kv_seg, h)
+
+
+def check_masked(g, fa, case, mask=None, dbias=True):
+    """The masked forward, dq, dk/dv and, when the case has a bias and
+    ``dbias``, dbias kernels against their plain versions.  ``mask``
+    replaces the case's own.  Returns the largest absolute errors (out,
+    dq, dk/dv, dbias or None)."""
+    import torch
+    b, h, s, d, dtype, _, _, _, causal = case
+    qt, kt, vt, dot, own = masked_case(g, fa, case)
+    mask = own if mask is None else mask
+    sc = 1.0 / math.sqrt(d)
+    bf = dtype == torch.bfloat16
+    want_db = dbias and mask.bias is not None
+    out_k, lse_k = fa._launch(qt, kt, vt, sc, causal, mask)
+    out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, sc, causal, mask)
+    got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
+                         dbias=want_db)
+    want = fa._bwd_reference(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
+                             dbias=want_db)
+    torch.cuda.synchronize()
+    e_out, e_lse = max_err(out_k, out_p), max_err(lse_k, lse_p)
+    ok = e_out <= (TOL_BF16 if bf else TOL_F32) and e_lse <= (
+        TOL_LSE if bf else TOL_F32)
+    names = ("dq", "dk", "dv", "dbias")[:4 if want_db else 3]
+    errs = [grad_err(a, w) for a, w in zip(got[:len(names)], want)]
+    limits = [TOL_GRAD_BF16] * 3 + [TOL_DBIAS_BF16]
+    if bf:
+        ok = ok and all(e[0] <= t for e, t in zip(errs, limits))
+    else:
+        ok = ok and all(e[1] <= TOL_F32 for e in errs)
+    if want_db and (got[3].dtype != mask.bias.dtype
+                    or got[3].shape != mask.bias.shape):
+        ok = False
+    # rows with no visible key: out = 0 and dq = 0 exactly
+    empty = torch.isneginf(lse_p)
+    if bool(empty.any()) and (float(out_k[empty].abs().max()) != 0
+                              or float(got[0][empty].abs().max()) != 0):
+        ok = False
+    what = []
+    if mask.bias is not None:
+        what.append("bias " + "x".join(map(str, mask.bias.shape)) + " "
+                    + str(mask.bias.dtype)[6:])
+    if mask.q_seg is not None:
+        what.append("segment ids")
+    rel = (", relative to |ref| + rms(ref): "
+           + " ".join(f"{n}={e[0]:.3g}" for n, e in zip(names, errs))
+           + f" (tol {TOL_GRAD_BF16:g}, dbias {TOL_DBIAS_BF16:g})"
+           if bf else f" (tol {TOL_F32:g})")
+    log(f"check masked flash bh={b * h} s={s} d={d} {str(dtype)[6:]} "
+        f"{', '.join(what)} causal={causal}: "
+        f"max_abs_err out={e_out:.3g} lse={e_lse:.3g} "
+        + " ".join(f"{n}={e[1]:.3g}" for n, e in zip(names, errs))
+        + f"{rel}{'' if not bool(empty.any()) else ' (rows with no key: 0)'}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("masked flash_attention kernels disagree with their plain "
+             "versions")
+    return (e_out, errs[0][1], max(errs[1][1], errs[2][1]),
+            errs[3][1] if want_db else None)
+
+
+def check_dbias_faults(g, fa, b, h, s):
+    """The dbias kernel at the learned-bias encoder's class, a (1, H, S, S)
+    bf16 bias over B*H slices, read by the bf16 measure beside every fault
+    dbias_faults plants.  Fails unless the kernel reads at most
+    TOL_DBIAS_BF16 and every fault above it.  Returns the kernel's largest
+    absolute error."""
+    import torch
+    qt, kt, vt, dot = (rand(g, (b * h, s, 64), torch.bfloat16)
+                       for _ in range(4))
+    mask = fa.Mask(rand(g, (1, h, s, s), torch.bfloat16), None, None, h)
+    ot, lse = fa.flash_attention_reference(qt, kt, vt, 0.125, False, mask)
+    got = fa._launch_dbias(qt, kt, vt, dot, lse, fa._delta(dot, ot), 0.125,
+                           False, mask)
+    want = fa.flash_attention_dbias_reference(qt, kt, vt, ot, lse, dot,
+                                              0.125, False, mask)
+    torch.cuda.synchronize()
+    rel, err = grad_err(got, want)
+    faults = [(name, grad_err(bad, want)[0]) for name, bad in
+              dbias_faults(fa, qt, kt, vt, ot, lse, dot, 0.125, False, mask)]
+    ok = rel <= TOL_DBIAS_BF16 and min(r for _, r in faults) > TOL_DBIAS_BF16
+    log(f"check flash_attention_dbias bias 1x{h}x{s}x{s} bf16 over "
+        f"bh={b * h} (the learned-bias encoder's class): max_abs_err="
+        f"{err:.3g}, relative to |ref| + rms(ref) {rel:.3g} (planted faults "
+        + ", ".join(f"{name} {r:.3g}" for name, r in faults)
+        + f"; tol {TOL_DBIAS_BF16:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the dbias kernel or its limit fails the fault check")
+    return err
+
+
+def check_small_bert(Bert, BertConfig, bert_pretrain_loss, TrainStep, AdamW,
+                     fa):
+    """A 2-layer BERT (H=128, 2 heads of 64, S=128) on a padded batch, card
+    against CPU, f32: MLM and NSP logits, the loss, every gradient, then
+    one TrainStep with AdamW.  Returns (largest absolute difference of
+    logits, loss and gradients, largest difference of a parameter's move
+    over the size of that move)."""
+    import torch
+    kw = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+              max_seq_len=128, remat=False)
+    ids, _, nsp, amask, mlm = bert_batch(512, 4, 128, seed=5)
+    gpu, cpu = (Bert(BertConfig(**kw), device=d) for d in ("cuda", "cpu"))
+    before = fa.launches_masked
+    with torch.no_grad():
+        outs = [m(ids, attention_mask=amask) for m in (gpu, cpu)]
+    if fa.launches_masked != before + 2:
+        fail("the small BERT did not take the masked kernel")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(*outs))
+    losses = []
+    for m in (gpu, cpu):
+        loss = bert_pretrain_loss(m, ids, mlm, nsp, amask)
+        loss.backward()
+        losses.append(float(loss))
+    err = max(err, abs(losses[0] - losses[1]))
+    for name, p in cpu.named_parameters():
+        err = max(err, float((getattr(gpu, name).grad.cpu() - p.grad)
+                             .abs().max()))
+        p.grad = getattr(gpu, name).grad = None
+    old = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    for m in (gpu, cpu):
+        TrainStep(m, bert_pretrain_loss, AdamW(learning_rate=1e-4))(
+            ids, mlm, nsp, amask)
+    return err, moves_err(gpu, cpu, old, "one AdamW step")
+
+
+def moves_err(gpu, cpu, old, what):
+    """Largest difference of a parameter's move, card against CPU, over
+    the size of that move; fails on a parameter that did not move."""
+    err = 0.0
+    for name, p in cpu.named_parameters():
+        want = p.detach() - old[name]
+        got = dict(gpu.named_parameters())[name].detach().cpu() - old[name]
+        if not bool(want.abs().max() > 0):
+            fail(f"{what} left {name} where it was")
+        err = max(err, float((got - want).abs().max() / want.abs().max()))
+    return err
+
+
+def biased_encoder(nn, d_model, heads, ffn, layers, s, device):
+    """The learned-bias encoder: a TransformerEncoder whose src_mask is a
+    (1, heads, S, S) additive bias parameter, trained with the layers."""
+    import torch
+
+    class BiasedEncoder(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                d_model, heads, ffn, dropout=0.0, activation="gelu",
+                device=device), layers)
+            self.bias = torch.nn.Parameter(torch.zeros(
+                1, heads, s, s,
+                device=next(self.encoder.parameters()).device))
+
+        def forward(self, x):
+            return self.encoder(x, self.bias)
+
+    return BiasedEncoder()
+
+
+def mse_loss(model, x, target):
+    return (model(x).float() - target.float()).pow(2).mean()
+
+
+def check_small_encoder(nn, fa):
+    """A 2-layer learned-bias encoder (d_model 128, 2 heads of 64, S=128),
+    card against CPU, f32: the output and every gradient, the bias's
+    included.  Returns the largest absolute difference."""
+    import copy
+
+    import torch
+    torch.manual_seed(0)
+    cpu = biased_encoder(nn, 128, 2, 256, 2, 128, "cpu")
+    with torch.no_grad():
+        cpu.bias.normal_(0.0, 0.5)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gx = torch.Generator().manual_seed(1)
+    x, target = (torch.randn(2, 128, 128, generator=gx) for _ in range(2))
+    before = fa.launches_dbias
+    outs = []
+    for m in (gpu, cpu):
+        out = m(x.to(m.bias.device))
+        (out - target.to(out.device)).pow(2).mean().backward()
+        outs.append(out.detach().cpu())
+    if fa.launches_dbias != before + 2:
+        fail("the small encoder's backward did not launch the dbias kernel "
+             "once per layer")
+    err = float((outs[0] - outs[1]).abs().max())
+    gp = dict(gpu.named_parameters())
+    for name, p in cpu.named_parameters():
+        err = max(err, float((gp[name].grad.cpu() - p.grad).abs().max()))
+    return err
+
+
+FA_COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_masked",
+               "launches_dq_masked", "launches_dkv_masked", "launches_dbias")
+
+
+def fa_counts(fa):
+    """The flash kernels' launch counts, by FA_COUNTERS."""
+    return tuple(getattr(fa, n) for n in FA_COUNTERS)
+
+
+def reset_fa(fa):
+    for n in FA_COUNTERS:
+        setattr(fa, n, 0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -418,9 +716,13 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    import paddle_tpu_torch.nn as tnn
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep, functional_loss_call
-    from paddle_tpu_torch.models import GPT, gpt2_345m, gpt_loss, gpt_tiny
+    from paddle_tpu_torch.models import (GPT, Bert, BertConfig, bert_base,
+                                         bert_pretrain_loss, gpt2_345m,
+                                         gpt_loss, gpt_tiny)
+    from paddle_tpu_torch.nn.functional.attention import _xla_attention
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import fused_adam
@@ -431,8 +733,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
-    kind = torch.cuda.get_device_name(0)
-    log(f"device: {kind}, torch {torch.__version__}, cuda "
+    card = torch.cuda.get_device_name(0)
+    log(f"device: {card}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}")
 
     # -- 1. build -----------------------------------------------------------
@@ -515,6 +817,52 @@ def main() -> int:
         f"{e_fmove:.3g} (tol {TOL_MOVE:g})")
     if e_fused > TOL_F32 or e_fmove > TOL_MOVE:
         fail("small GPT fused training on the card disagrees with the CPU")
+
+    # the masked kernels: BERT-base's layer with its padding bias, then
+    # each bias class, segment ids, and a bool mask that empties rows
+    amask_l = torch.as_tensor(bert_batch(30522, BERT_B, BERT_S)[3],
+                              device="cuda")
+    bert_case = (BERT_B, BERT_HEADS, BERT_S, 64, bf16, None, None, False,
+                 False)
+    m_errs = check_masked(g, fa, bert_case, fa.Mask(
+        padding_bias(amask_l), None, None, BERT_HEADS), dbias=False)[:3]
+    cases = [(4, 4, 256, 64, bf16, (bb, hb, sqb, 256), bdt, False, causal)
+             for bb, hb in ((1, 1), (1, 4), (4, 1), (4, 4))
+             for sqb in (1, 256) for bdt in (f32, bf16)
+             for causal in (False, True)]
+    cases += [(4, 4, 256, 64, f32, (bb, hb, sqb, 256), f32, False,
+               bool(sqb == 1))
+              for bb, hb in ((1, 1), (1, 4), (4, 1), (4, 4))
+              for sqb in (1, 256)]
+    cases += [(4, 4, 256, d, dt, None, None, True, causal)
+              for dt, d in ((bf16, 64), (f32, 128)) for causal in (False,
+                                                                   True)]
+    cases += [(4, 4, 256, 128, bf16, (1, 4, 256, 256), bf16, True, True)]
+    for c in cases:
+        check_masked(g, fa, c)
+    keep = torch.ones(4, 1, 256, 256, dtype=torch.bool, device="cuda")
+    keep[0, :, :70] = False                  # rows that see no key
+    keep[3, :, 200:] = False
+    for dt in (bf16, f32):
+        check_masked(g, fa, (4, 4, 256, 64, dt, None, None, False, False),
+                     fa.Mask(fa._canon_bias(keep, 4, 4, 256, 256), None,
+                             None, 4))
+    dbias_err = check_dbias_faults(g, fa, BERT_B, BERT_HEADS, BERT_S)
+
+    e_bert, e_bmove = check_small_bert(Bert, BertConfig, bert_pretrain_loss,
+                                       TrainStep, AdamW, fa)
+    log(f"check small BERT (2 layers, H=128, 2 heads of 64, S=128, f32) on "
+        f"a padded batch, card vs CPU: logits, loss and gradients "
+        f"max_abs_err={e_bert:.3g} (tol {TOL_F32:g}), one AdamW step "
+        f"parameter moves max_err/move={e_bmove:.3g} (tol {TOL_MOVE:g})")
+    if e_bert > TOL_F32 or e_bmove > TOL_MOVE:
+        fail("small BERT on the card disagrees with the CPU")
+    e_enc = check_small_encoder(tnn, fa)
+    log(f"check small learned-bias encoder (2 layers, d_model 128, 2 heads "
+        f"of 64, S=128, f32) card vs CPU: output and gradients (the bias's "
+        f"included) max_abs_err={e_enc:.3g} (tol {TOL_F32:g})")
+    if e_enc > TOL_F32:
+        fail("small learned-bias encoder on the card disagrees with the CPU")
 
     # -- 3. serve -----------------------------------------------------------
     cfg = gpt2_345m(max_seq_len=S)
@@ -750,7 +1098,176 @@ def main() -> int:
     del step, tmodel, loss_t, params, named, opt
     torch.cuda.empty_cache()
 
-    # -- 6. timing ----------------------------------------------------------
+    # -- 6. bert-serve ------------------------------------------------------
+    bcfg = bert_base(max_seq_len=BERT_S)
+    BL = bcfg.num_layers
+    t0 = time.perf_counter()
+    bmodel = Bert(bcfg, device="cuda").to(bf16)
+    torch.cuda.synchronize()
+    log(f"bert-serve: BERT-base ({BL} layers, H={bcfg.hidden_size}, "
+        f"{bcfg.num_heads} heads, V={bcfg.vocab_size}) built in bf16 in "
+        f"{time.perf_counter() - t0:.1f} s; B={BERT_B}, S={BERT_S}, padded "
+        f"batch")
+    b_ids, b_mlm, b_nsp, b_amask, b_mlm_pad = (
+        torch.as_tensor(a, device="cuda")
+        for a in bert_batch(bcfg.vocab_size, BERT_B, BERT_S))
+    real = int(b_amask.sum())
+    reset_fa(fa)
+    bserve_counts = []
+    with torch.inference_mode():
+        for _ in range(3):
+            mlm_l, nsp_l = bmodel(b_ids, attention_mask=b_amask)
+            bserve_counts.append(fa_counts(fa))
+    torch.cuda.synchronize()
+    bserve_launches = dict(zip(FA_COUNTERS, bserve_counts[-1]))
+    log(f"bert-serve: MLM logits {tuple(mlm_l.shape)} {mlm_l.dtype}, NSP "
+        f"logits {tuple(nsp_l.shape)}, {real} real tokens of "
+        f"{BERT_B * BERT_S}")
+    log(f"bert-serve: launch counts after each request {FA_COUNTERS}: "
+        f"{bserve_counts}")
+    if tuple(mlm_l.shape) != (BERT_B, BERT_S, bcfg.vocab_size) or \
+            tuple(nsp_l.shape) != (BERT_B, 2) or \
+            not bool(torch.isfinite(mlm_l).all()) or \
+            not bool(torch.isfinite(nsp_l).all()):
+        fail("BERT logits are not finite values of shape (B, S, V), (B, 2)")
+    want = [(0, 0, 0, BL * (i + 1), 0, 0, 0) for i in range(3)]
+    if bserve_counts != want:
+        fail(f"launch counts {bserve_counts} != {BL} masked forward "
+             "launches per request and nothing else")
+    del mlm_l, nsp_l
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        bserve_ms = cuda_ms(lambda: bmodel(b_ids, attention_mask=b_amask),
+                            reps=5, warmup=1)
+        bserve_mem = torch.cuda.max_memory_allocated()
+    log(f"bert-serve: request {bserve_ms:.3f} ms (CUDA events, mean of 5), "
+        f"{BERT_B * BERT_S / bserve_ms * 1e3:.1f} tokens/s "
+        f"({real / bserve_ms * 1e3:.1f} real tokens/s), "
+        f"max_memory_allocated {bserve_mem} bytes")
+    del bmodel
+    torch.cuda.empty_cache()
+
+    # -- 7. bert-train ------------------------------------------------------
+    t0 = time.perf_counter()
+    bt = Bert(bcfg, device="cuda")                    # f32 masters
+    bstep = TrainStep(bt, bert_pretrain_loss, AdamW(learning_rate=1e-4),
+                      amp_level="O2", amp_dtype="bfloat16")
+    torch.cuda.synchronize()
+    log(f"bert-train: BERT-base built in f32 in "
+        f"{time.perf_counter() - t0:.1f} s; TrainStep(amp_level='O2', bf16), "
+        f"AdamW(learning_rate=1e-4), bert_pretrain_loss, B={BERT_B}, "
+        f"S={BERT_S}, {TRAIN_STEPS} steps unpadded then {TRAIN_STEPS} padded "
+        f"on one batch")
+    named = dict(bt.named_parameters())
+    ones = torch.ones_like(b_amask)
+    with torch.inference_mode():
+        l_plain, l_ones = (float(functional_loss_call(
+            bt, bert_pretrain_loss, named, args, amp=True))
+            for args in ([b_ids, b_mlm, b_nsp], [b_ids, b_mlm, b_nsp, ones]))
+    log(f"bert-train: first-batch loss without a mask {l_plain:.6f}, with "
+        f"an all-ones mask {l_ones:.6f} (tol {TOL_ONES_MASK:g})")
+    if abs(l_plain - l_ones) > TOL_ONES_MASK:
+        fail("an all-ones mask does not give the unmasked loss")
+    bert_runs = {}
+    for kind, args in (("unpadded", (b_ids, b_mlm, b_nsp)),
+                       ("padded", (b_ids, b_mlm_pad, b_nsp, b_amask))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_fa(fa)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        loss_t, counts = [], []
+        for i in range(TRAIN_STEPS):
+            if i == 1:                                # after one warm-up
+                e0.record()
+            loss_t.append(bstep(*args))
+            counts.append(fa_counts(fa))
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / (TRAIN_STEPS - 1)
+        losses = [float(x) for x in loss_t]
+        bert_runs[kind] = {"step_ms": ms,
+                           "tokens_per_s": BERT_B * BERT_S / ms * 1e3,
+                           "peak_bytes": torch.cuda.max_memory_allocated(),
+                           "losses": losses,
+                           "launches": dict(zip(FA_COUNTERS, counts[-1]))}
+        log(f"bert-train {kind}: losses {losses}")
+        log(f"bert-train {kind}: launch counts after each step "
+            f"{FA_COUNTERS}: {counts}")
+        log(f"bert-train {kind}: step {ms:.3f} ms (CUDA events, mean of "
+            f"{TRAIN_STEPS - 1} steps after one warm-up), "
+            f"{BERT_B * BERT_S / ms * 1e3:.1f} training tokens/s, "
+            f"max_memory_allocated {bert_runs[kind]['peak_bytes']} bytes")
+        if not all(math.isfinite(x) for x in losses):
+            fail("a BERT training loss is not finite")
+        if not losses[-1] < losses[0]:
+            fail(f"the {kind} BERT training loss did not fall")
+        per = (0, 0, 0, BL, BL, BL) if kind == "padded" else (BL, BL, BL, 0,
+                                                              0, 0)
+        want = [tuple(c * (i + 1) for c in per) + (0,)
+                for i in range(TRAIN_STEPS)]
+        if counts != want:
+            fail(f"{kind} launch counts {counts} != {per} per step and no "
+                 "dbias launch")
+    ln_vn = math.log(bcfg.vocab_size) + math.log(2)
+    if abs(bert_runs["unpadded"]["losses"][0] - ln_vn) > 1.0:
+        fail(f"the first BERT loss is not near ln V + ln 2 = {ln_vn:.4f}")
+    retention = (bert_runs["padded"]["tokens_per_s"]
+                 / bert_runs["unpadded"]["tokens_per_s"])
+    log(f"bert-train: padded / unpadded tokens/s = {retention:.4f} "
+        "(bench.py's bert_padded_mask_tokens_per_sec_per_chip over "
+        "bert_base_pretrain_tokens_per_sec_per_chip)")
+    del bstep, bt, named, loss_t
+    torch.cuda.empty_cache()
+
+    # -- 8. encoder-bias ----------------------------------------------------
+    enc = biased_encoder(tnn, 768, BERT_HEADS, 3072, BL, BERT_S, None)
+    estep = TrainStep(enc, mse_loss, AdamW(learning_rate=1e-4),
+                      amp_level="O2", amp_dtype="bfloat16")
+    ex, etarget = (rand(g, (BERT_B, BERT_S, 768), f32) for _ in range(2))
+    log(f"encoder-bias: TransformerEncoder(TransformerEncoderLayer(768, "
+        f"{BERT_HEADS}, 3072, dropout=0.0, activation='gelu'), {BL}) with a "
+        f"learned (1, {BERT_HEADS}, {BERT_S}, {BERT_S}) src_mask bias, mean "
+        f"square error against a fixed target, TrainStep(amp_level='O2', "
+        f"bf16), AdamW(learning_rate=1e-4), B={BERT_B}, S={BERT_S}, "
+        f"{TRAIN_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa(fa)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    loss_t, enc_counts = [], []
+    for i in range(TRAIN_STEPS):
+        if i == 1:
+            e0.record()
+        loss_t.append(estep(ex, etarget))
+        enc_counts.append(fa_counts(fa))
+    e1.record()
+    torch.cuda.synchronize()
+    enc_ms = e0.elapsed_time(e1) / (TRAIN_STEPS - 1)
+    enc_mem = torch.cuda.max_memory_allocated()
+    enc_losses = [float(x) for x in loss_t]
+    enc_launches = dict(zip(FA_COUNTERS, enc_counts[-1]))
+    bias_move = float(enc.bias.detach().abs().max())
+    log(f"encoder-bias: losses {enc_losses}, the bias moved by at most "
+        f"{bias_move:.3g}")
+    log(f"encoder-bias: launch counts after each step {FA_COUNTERS}: "
+        f"{enc_counts}")
+    log(f"encoder-bias: step {enc_ms:.3f} ms (CUDA events, mean of "
+        f"{TRAIN_STEPS - 1} steps after one warm-up), "
+        f"{BERT_B * BERT_S / enc_ms * 1e3:.1f} training tokens/s, "
+        f"max_memory_allocated {enc_mem} bytes")
+    if not all(math.isfinite(x) for x in enc_losses) or \
+            not enc_losses[-1] < enc_losses[0]:
+        fail("the encoder-bias loss is not finite or did not fall")
+    if not bias_move > 0:
+        fail("the learned bias did not move")
+    want = [(0, 0, 0) + (BL * (i + 1),) * 4 for i in range(TRAIN_STEPS)]
+    if enc_counts != want:
+        fail(f"launch counts {enc_counts} != {BL} masked forward, dq, dk/dv "
+             "and dbias launches per step")
+    del estep, enc, loss_t, ex, etarget
+    torch.cuda.empty_cache()
+
+    # -- 9. timing ----------------------------------------------------------
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -774,7 +1291,8 @@ def main() -> int:
                     "replaces": "paddle_tpu/ops/pallas/flash_attention.py:190",
                     "launches": serve_launches["flash_attention_fwd"]
                     + train_launches["flash_attention_fwd"]
-                    + fused_launches["flash_attention_fwd"],
+                    + fused_launches["flash_attention_fwd"]
+                    + bert_runs["unpadded"]["launches"]["launches"],
                     "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
                     "bound_ms": fa_bound, "bound_by": fa_by,
                     "library_ms": fa_lib})
@@ -826,7 +1344,9 @@ def main() -> int:
                                     + ("py:452" if name.endswith("dq")
                                        else "py:498"),
                         "launches": train_launches[name]
-                        + fused_launches[name],
+                        + fused_launches[name]
+                        + bert_runs["unpadded"]["launches"][
+                            "launches_" + name.rsplit("_", 1)[1]],
                         "max_abs_err": err, "ms": ms,
                         # the plain version and the library call compute
                         # dq, dk and dv in one call: the pair's work
@@ -912,6 +1432,150 @@ def main() -> int:
                     "max_abs_err": adam_err, "ms": adam_ms,
                     "plain_ms": adam_plain, "bound_ms": adam_bound,
                     "bound_by": adam_by, "library_ms": adam_lib})
+
+    # BERT-base's attention layer (B*H = 128*12, S = 128, D = 64, bf16,
+    # non-causal): #1-#3 with the padding bias and without a mask, #4 in
+    # the learned-bias encoder's (1, H, S, S) class.  The work counted for
+    # a bound is what this run's data needs: with the padding bias, the
+    # (query, key) pairs whose key is a real token.
+    bbh = BERT_B * BERT_HEADS
+    bq, bk, bv, bdo = (rand(g, (bbh, BERT_S, 64), bf16) for _ in range(4))
+    bsc = 0.125
+    q4b, k4b, v4b, do4b = (t.view(BERT_B, BERT_HEADS, BERT_S, 64)
+                           for t in (bq, bk, bv, bdo))
+    pmask = fa.Mask(padding_bias(b_amask), None, None, BERT_HEADS)
+    lib_keep = b_amask.bool()[:, None, None, :]
+    tb = bbh * BERT_S * 64 * 2                   # one bf16 tensor
+    rb = bbh * BERT_S * 4                        # one f32 row vector
+    pbb = BERT_B * BERT_S * 4                    # the f32 padding bias
+    bert_att = {}
+    for kind, mask, keep, pairs in (
+            ("masked", pmask, lib_keep, BERT_HEADS * BERT_S * real),
+            ("unmasked", None, None, bbh * BERT_S * BERT_S)):
+        extra = pbb if mask is not None else 0
+        prod = 2 * 64 * pairs                    # one product
+        r = {"fwd_ms": cuda_ms(lambda: fa._launch(bq, bk, bv, bsc, False,
+                                                  mask)),
+             "fwd_plain_ms": cuda_ms(lambda: fa.flash_attention_reference(
+                 bq, bk, bv, bsc, False, mask), reps=3),
+             "fwd_library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                 q4b, k4b, v4b, attn_mask=keep, scale=bsc))}
+        ot_b, lse_b = fa._launch(bq, bk, bv, bsc, False, mask)
+        delta_b = fa._delta(bdo, ot_b)
+        r["dq_ms"] = cuda_ms(lambda: fa._launch_dq(bq, bk, bv, bdo, lse_b,
+                                                   delta_b, bsc, False, mask))
+        r["dkv_ms"] = cuda_ms(lambda: fa._launch_dkv(
+            bq, bk, bv, bdo, lse_b, delta_b, bsc, False, mask))
+        r["bwd_plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+            bq, bk, bv, ot_b, lse_b, bdo, bsc, False, mask), reps=3)
+        ql, kl, vl = (t.detach().clone().requires_grad_()
+                      for t in (q4b, k4b, v4b))
+        out_l = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep,
+                                               scale=bsc)
+        r["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out_l, (ql, kl, vl), do4b, retain_graph=True))
+        r["fwd_bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep,
+                                           scale=bsc), (ql, kl, vl), do4b))
+        # forward: reads q, k, v (and the bias), writes out and lse
+        r["fwd_bound"] = bound(2 * prod, 4 * tb + rb + extra,
+                               PEAK_BF16_FLOPS)
+        # dq: reads q, k, v, do, lse, delta, writes dq: 3 products
+        r["dq_bound"] = bound(3 * prod, 5 * tb + 2 * rb + extra,
+                              PEAK_BF16_FLOPS)
+        # dk/dv: reads q, k, v, do, lse, delta, writes dk, dv: 4 products
+        r["dkv_bound"] = bound(4 * prod, 6 * tb + 2 * rb + extra,
+                               PEAK_BF16_FLOPS)
+        bert_att[kind] = r
+        row = {"kernel": f"flash_attention {kind} (fwd, dq, dk/dv)",
+               "shape": f"bh={bbh} s={BERT_S} d=64 bf16 non-causal"
+               + (f", bias {BERT_B}x1x1x{BERT_S} f32 padding, {real} real "
+                  "tokens" if mask is not None else "")}
+        for k, v in r.items():
+            if isinstance(v, tuple):
+                row[k + "_ms"], row[k + "_by"] = v
+            else:
+                row[k] = v
+        table.append(row)
+        del ot_b, lse_b, delta_b, ql, kl, vl, out_l
+
+    lmask = fa.Mask(rand(g, (1, BERT_HEADS, BERT_S, BERT_S), bf16), None,
+                    None, BERT_HEADS)
+    ot_l, lse_l = fa._launch(bq, bk, bv, bsc, False, lmask)
+    delta_l = fa._delta(bdo, ot_l)
+    db_ms = cuda_ms(lambda: fa._launch_dbias(bq, bk, bv, bdo, lse_l, delta_l,
+                                             bsc, False, lmask))
+    db_plain = cuda_ms(lambda: fa.flash_attention_dbias_reference(
+        bq, bk, bv, ot_l, lse_l, bdo, bsc, False, lmask), reps=3)
+    ql, kl, vl = (t.detach().clone().requires_grad_()
+                  for t in (q4b, k4b, v4b))
+    ml = lmask.bias.detach().clone().requires_grad_()
+    out_m = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ml,
+                                           scale=bsc)
+    db_lib = cuda_ms(lambda: torch.autograd.grad(out_m, (ml,), do4b,
+                                                 retain_graph=True))
+    db_fb_lib = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ml, scale=bsc),
+        (ql, kl, vl, ml), do4b))
+    lbb = BERT_HEADS * BERT_S * BERT_S * 2       # the bf16 bias
+    # dbias: reads q, k, v, do, lse, delta and the bias, writes dbias:
+    # 2 products (s and dp) over every pair
+    db_bound, db_by = bound(2 * 2 * 64 * bbh * BERT_S * BERT_S,
+                            4 * tb + 2 * rb + 2 * lbb, PEAK_BF16_FLOPS)
+    table.append({"kernel": "flash_attention_dbias",
+                  "shape": f"bias 1x{BERT_HEADS}x{BERT_S}x{BERT_S} bf16 "
+                           f"over bh={bbh}, d=64 bf16",
+                  "kernel_ms": db_ms, "plain_ms": db_plain,
+                  "library_ms": db_lib, "fwd_bwd_library_ms": db_fb_lib,
+                  "bound_ms": db_bound, "bound_by": db_by,
+                  "launches_per_step": BL})
+    del ot_l, lse_l, delta_l, ql, kl, vl, ml, out_m
+
+    # the flash kernel against the dense path on BERT-base's layer, at the
+    # public (B, S, H, D) functions with the padding bias: the card's own
+    # reading of the crossover the reference set on the TPU
+    qp, kp, vp, dop = (t.permute(0, 2, 1, 3) for t in (q4b, k4b, v4b, do4b))
+    pb = padding_bias(b_amask)
+    with torch.inference_mode():
+        layer_flash = cuda_ms(lambda: fa.flash_attention(qp, kp, vp,
+                                                         scale=bsc, bias=pb))
+        layer_dense = cuda_ms(lambda: _xla_attention(qp, kp, vp, pb, bsc,
+                                                     False))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (qp, kp, vp))
+    layer_flash_fb = cuda_ms(lambda: torch.autograd.grad(
+        fa.flash_attention(qg, kg, vg, scale=bsc, bias=pb), (qg, kg, vg),
+        dop))
+    layer_dense_fb = cuda_ms(lambda: torch.autograd.grad(
+        _xla_attention(qg, kg, vg, pb, bsc, False), (qg, kg, vg), dop))
+    del bq, bk, bv, bdo, q4b, k4b, v4b, do4b, qg, kg, vg
+
+    m_launch = {n: bserve_launches[n]
+                + bert_runs["padded"]["launches"][n] + enc_launches[n]
+                for n in FA_COUNTERS}
+    ma = bert_att["masked"]
+    for name, counter, src, line, ms, err, bnd, plain, lib in (
+            ("flash_attention_fwd_masked", "launches_masked", "fwd", 190,
+             ma["fwd_ms"], m_errs[0], ma["fwd_bound"], ma["fwd_plain_ms"],
+             ma["fwd_library_ms"]),
+            ("flash_attention_bwd_dq_masked", "launches_dq_masked", "bwd",
+             452, ma["dq_ms"], m_errs[1], ma["dq_bound"],
+             ma["bwd_plain_ms"], ma["bwd_library_ms"]),
+            ("flash_attention_bwd_dkv_masked", "launches_dkv_masked", "bwd",
+             498, ma["dkv_ms"], m_errs[2], ma["dkv_bound"],
+             ma["bwd_plain_ms"], ma["bwd_library_ms"]),
+            ("flash_attention_dbias", "launches_dbias", "dbias", 560, db_ms,
+             dbias_err, (db_bound, db_by), db_plain, db_lib)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"paddle_tpu_torch/csrc/"
+                                  f"flash_attention_{src}.cu",
+                        "replaces": f"paddle_tpu/ops/pallas/flash_attention"
+                                    f".py:{line}",
+                        "launches": m_launch[counter], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                        "bound_by": bnd[1], "library_ms": lib})
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was launched no time on the main path")
     for row in table:
         log(json.dumps(row))
 
@@ -922,7 +1586,24 @@ def main() -> int:
         "loss_unfused_peak_bytes": unfused_mem,
         "loss_fused_peak_bytes": fused_mem, **train_row,
         "attention_bwd_share_of_train_step": L * (dq_ms + dkv_ms)
-        / step_ms}))
+        / step_ms,
+        "bert_serve_ms": bserve_ms,
+        "bert_serve_tokens_per_s": BERT_B * BERT_S / bserve_ms * 1e3,
+        "bert_serve_peak_bytes": bserve_mem,
+        **{f"bert_train_{kind}_{k}": v for kind, run in bert_runs.items()
+           for k, v in run.items() if k != "launches"},
+        "bert_padded_retention": retention,
+        "bert_masked_attention_share_of_padded_step": BL * (
+            ma["fwd_ms"] + ma["dq_ms"] + ma["dkv_ms"])
+        / bert_runs["padded"]["step_ms"],
+        "encoder_bias_step_ms": enc_ms,
+        "encoder_bias_tokens_per_s": BERT_B * BERT_S / enc_ms * 1e3,
+        "encoder_bias_peak_bytes": enc_mem, "encoder_bias_losses": enc_losses,
+        "encoder_bias_dbias_share_of_step": BL * db_ms / enc_ms,
+        "bert_layer_flash_fwd_ms": layer_flash,
+        "bert_layer_dense_fwd_ms": layer_dense,
+        "bert_layer_flash_fwd_bwd_ms": layer_flash_fb,
+        "bert_layer_dense_fwd_bwd_ms": layer_dense_fb}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -930,7 +1611,7 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

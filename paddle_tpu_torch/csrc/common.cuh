@@ -156,4 +156,87 @@ __device__ __forceinline__ void wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The optional masks of the attention kernels (reference
+// flash_attention.py `_mask_tile` :176 and `_bias_g_map` :165): an additive
+// bias in its canonical (Bb, Hb, Sqb, Sk) shape, folded to (Bb*Hb, Sqb, Sk),
+// f32 or bf16; int32 segment ids (B, Sq) and (B, Sk).  A null pointer is an
+// absent mask.  Masked calls take no sequence tails (the wrapper checks).
+struct AttnMask {
+  const void* bias;
+  const int* qseg;
+  const int* kseg;
+  int bias_bf16;     // 1: the bias is bf16, 0: f32
+  int bb, hb, sqb;   // the bias's broadcast extents
+  int heads;         // H of the folded (B*H) axis
+};
+
+// the bias slice a folded (b, h) index reads (reference `_bias_g_map`)
+__device__ __forceinline__ int bias_slice(const AttnMask& m, int bh) {
+  if (m.bb == 1 && m.hb == 1) return 0;
+  if (m.bb == 1) return bh % m.heads;
+  if (m.hb == 1) return bh / m.heads;
+  return bh;
+}
+
+// the mask of one folded (b, h) slice
+struct SliceMask {
+  const float* bf;   // f32 bias rows, or null
+  const bf16* b16;   // bf16 bias rows, or null
+  int ld;            // elements between bias rows: sk, or 0 when Sqb = 1
+  const int* qs;     // segment ids of the slice's batch, or null
+  const int* ks;
+
+  // x = s * scale * unit -> (s * scale + bias) * unit, then -inf where the
+  // segment ids differ: the reference's order.  unit is log2(e) for the
+  // kernels that exponentiate in base 2, 1 for the others.  A finite bias
+  // (BERT's -1e30) stays finite.
+  __device__ __forceinline__ float apply(float x, int q, int k,
+                                         float unit) const {
+    const size_t i = (size_t)q * ld + k;
+    if (bf) x += bf[i] * unit;
+    else if (b16) x += __bfloat162float(b16[i]) * unit;
+    if (qs && qs[q] != ks[k]) x = -CUDART_INF_F;
+    return x;
+  }
+};
+
+__device__ __forceinline__ SliceMask slice_mask(const AttnMask& m, int bh,
+                                                int sq, int sk) {
+  SliceMask s{nullptr, nullptr, 0, nullptr, nullptr};
+  if (m.bias) {
+    const size_t off = (size_t)bias_slice(m, bh) * m.sqb * sk;
+    if (m.bias_bf16)
+      s.b16 = static_cast<const bf16*>(m.bias) + off;
+    else
+      s.bf = static_cast<const float*>(m.bias) + off;
+    s.ld = m.sqb > 1 ? sk : 0;
+  }
+  if (m.qseg) {
+    const int b = bh / m.heads;
+    s.qs = m.qseg + (size_t)b * sq;
+    s.ks = m.kseg + (size_t)b * sk;
+  }
+  return s;
+}
+
+// the host's view: a mask from the C interface's arguments, and whether a
+// call is masked (then both sequence lengths must be multiples of `tile`)
+inline AttnMask make_mask(const void* bias, const int* qseg, const int* kseg,
+                          int bias_bf16, int bb, int hb, int sqb, int heads) {
+  return AttnMask{bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads};
+}
+
+inline bool bad_mask(const AttnMask& m, int bh, int sq, int sk, int tile) {
+  if (!m.bias && !m.qseg) return false;
+  if (sq % tile || sk % tile || m.heads <= 0 || bh % m.heads) return true;
+  if ((m.qseg == nullptr) != (m.kseg == nullptr)) return true;
+  if (m.bias) {
+    const int b = bh / m.heads;
+    if ((m.bb != 1 && m.bb != b) || (m.hb != 1 && m.hb != m.heads) ||
+        (m.sqb != 1 && m.sqb != sq) || (m.bias_bf16 != 0 && m.bias_bf16 != 1))
+      return true;
+  }
+  return false;
+}
+
 }  // namespace pt

@@ -1,5 +1,6 @@
 // Causal / full flash-attention backward for Hopper (sm_90a): the dq kernel
-// and the dk/dv kernel, bound through a plain C interface (ctypes).
+// and the dk/dv kernel, with an optional additive bias and segment ids,
+// bound through a plain C interface (ctypes).
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_bwd_dq_kernel`
 // (:452) and `_bwd_dkv_kernel` (:498), called through `_flash_bwd_folded`
@@ -14,6 +15,12 @@
 // XLA).  Then dq = ds.k * scale, dk = ds^T.q * scale, dv = p^T.do.  As in
 // the TPU kernels, p and ds are rounded to the input dtype before the
 // products that take them, and every product accumulates in f32.
+//
+// Masks (the MASKED instantiations): p is rebuilt from the masked score as
+// the forward builds it (pt::SliceMask::apply: s * scale + bias, -inf where
+// the segment ids differ, then the causal and tail masks), the reference's
+// `_rebuild_p` with `_mask_tile`.  The bias's own gradient is the separate
+// kernel of csrc/flash_attention_dbias.cu.
 //
 // Design.  The TPU grid's sequential reduction axis (kv for dq, q for
 // dk/dv) becomes a loop inside the block, with the accumulator in
@@ -116,7 +123,7 @@ constexpr size_t dq_mma_smem() {
   return sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (D + 8);  // q, do, 2x(k, v)
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(MMA_THREADS)
     fa_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -124,8 +131,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int sq, int sk, int causal,
-                         float scale) {
+                         pt::AttnMask mask, bf16* __restrict__ dq, int sq,
+                         int sk, int causal, float scale) {
   constexpr int LD = D + 8;          // padded row: conflict-free fragments
   constexpr int KD = D / 16;         // k16 steps over the head dim
   constexpr int ND = D / 8;          // n8 tiles over the head dim
@@ -145,6 +152,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bf16* kbp = k + (size_t)bh * sk * D;
   const bf16* vbp = v + (size_t)bh * sk * D;
   const int n_kb = kv_tiles(q0, sk, off, causal);
+  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
 
   auto fetch = [&](int kb) {
     bf16* st = KV + (kb & 1) * STAGE;
@@ -213,7 +221,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
         const int key = k0 + nt * 8 + 2 * t + (e & 1);
         const int hi = e >> 1;
         const bool keep = key < sk && !(causal && qrow[hi] + off < key);
-        const float p = keep ? pt::ex2(s[nt][e] * scale2 - lse2[hi]) : 0.f;
+        float x = s[nt][e] * scale2;
+        if (MASKED) x = sm.apply(x, qrow[hi], key, LOG2E);
+        const float p = keep ? pt::ex2(x - lse2[hi]) : 0.f;
         s[nt][e] = p * (dp[nt][e] - dl[hi]);
       }
 
@@ -256,7 +266,7 @@ constexpr size_t dkv_mma_smem() {
          sizeof(float) * 2 * DKV_QT<D>;          // k, v, 2x(q, do), lse, delta
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(MMA_THREADS)
     fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -264,8 +274,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
                           const bf16* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int sq, int sk, int causal, float scale) {
+                          pt::AttnMask mask, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int sq, int sk, int causal,
+                          float scale) {
   constexpr int QT = DKV_QT<D>;
   constexpr int LD = D + 8;
   constexpr int KD = D / 16;
@@ -290,6 +301,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const float* db = delta + (size_t)bh * sq;
   const int first = first_q_tile(k0, off, causal, QT);
   const int n_qb = (sq + QT - 1) / QT;
+  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
 
   auto fetch = [&](int qi) {
     bf16* st = QO + (qi & 1) * STAGE;
@@ -355,7 +367,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
         const int c = nt * 8 + 2 * t + (e & 1);   // query within the tile
         const int key = krow[e >> 1];
         const bool keep = key < sk && !(causal && q0 + c + off < key);
-        const float p = keep ? pt::ex2(s[nt][e] * scale2 - Ls[c]) : 0.f;
+        float x = s[nt][e] * scale2;
+        if (MASKED) x = sm.apply(x, q0 + c, key, LOG2E);
+        const float p = keep ? pt::ex2(x - Ls[c]) : 0.f;
         s[nt][e] = p;
         dp[nt][e] = p * (dp[nt][e] - Ls[QT + c]);
       }
@@ -405,7 +419,7 @@ constexpr size_t dq_fma_smem() {   // q, do, k, v, ds
   return sizeof(float) * (size_t)(4 * BQ * (D + 1) + BQ * (BK + 1));
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(FMA_THREADS)
     fa_bwd_dq_fma_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -413,8 +427,8 @@ __global__ void __launch_bounds__(FMA_THREADS)
                          const float* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         float* __restrict__ dq, int sq, int sk, int causal,
-                         float scale) {
+                         pt::AttnMask mask, float* __restrict__ dq, int sq,
+                         int sk, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int CD = D / 16;            // output columns per thread
@@ -432,6 +446,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   const int off = sk - sq;
   const size_t qbase = (size_t)bh * sq * D;
   const size_t kbase = (size_t)bh * sk * D;
+  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
 
   for (int e = tid; e < BQ * D; e += FMA_THREADS) {
     const int r = e / D, c = e % D, row = q0 + r;
@@ -499,7 +514,9 @@ __global__ void __launch_bounds__(FMA_THREADS)
       for (int j = 0; j < 4; ++j) {
         const int kc = k0 + tx + 16 * j;
         const bool keep = kc < sk && !(causal && qrow + off < kc);
-        const float p = keep ? expf(s[i][j] * scale - lr[i]) : 0.f;
+        float x = s[i][j] * scale;
+        if (MASKED) x = sm.apply(x, qrow, kc, 1.f);
+        const float p = keep ? expf(x - lr[i]) : 0.f;
         Ps[(ty + 16 * i) * PP + tx + 16 * j] = p * (dp[i][j] - dl[i]);
       }
     }
@@ -536,7 +553,7 @@ constexpr size_t dkv_fma_smem() {  // k, v, q, do, p^T, ds^T, lse, delta
                   2 * BQ);
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(FMA_THREADS)
     fa_bwd_dkv_fma_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -544,8 +561,9 @@ __global__ void __launch_bounds__(FMA_THREADS)
                           const float* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int sq, int sk, int causal, float scale) {
+                          pt::AttnMask mask, float* __restrict__ dk,
+                          float* __restrict__ dv, int sq, int sk, int causal,
+                          float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BQ + 1;
   constexpr int CD = D / 16;
@@ -565,6 +583,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   const int off = sk - sq;
   const size_t qbase = (size_t)bh * sq * D;
   const size_t kbase = (size_t)bh * sk * D;
+  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
 
   for (int e = tid; e < BK * D; e += FMA_THREADS) {
     const int r = e / D, c = e % D, row = k0 + r;
@@ -629,7 +648,9 @@ __global__ void __launch_bounds__(FMA_THREADS)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         const bool keep = key < sk && !(causal && q0 + c + off < key);
-        const float p = keep ? expf(s[i][j] * scale - Ls[c]) : 0.f;
+        float x = s[i][j] * scale;
+        if (MASKED) x = sm.apply(x, q0 + c, key, 1.f);
+        const float p = keep ? expf(x - Ls[c]) : 0.f;
         PT[(ty + 16 * i) * PP + c] = p;
         DS[(ty + 16 * i) * PP + c] = p * (dp[i][j] - Ls[BQ + c]);
       }
@@ -676,103 +697,120 @@ __global__ void __launch_bounds__(FMA_THREADS)
 template <typename T>
 using cptr = const T*;
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch_dq(bool mma, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int bh, int sq, int sk, int causal,
-                      float scale, cudaStream_t stream) {
+                      const pt::AttnMask& mask, void* dq, int bh, int sq,
+                      int sk, int causal, float scale, cudaStream_t stream) {
   const size_t smem = mma ? dq_mma_smem<D>() : dq_fma_smem<D>();
-  const void* fn = mma ? (const void*)fa_bwd_dq_mma_kernel<D>
-                       : (const void*)fa_bwd_dq_fma_kernel<D>;
+  const void* fn = mma ? (const void*)fa_bwd_dq_mma_kernel<D, MASKED>
+                       : (const void*)fa_bwd_dq_fma_kernel<D, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, bh);
   if (mma)
-    fa_bwd_dq_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+    fa_bwd_dq_mma_kernel<D, MASKED><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<cptr<bf16>>(q), static_cast<cptr<bf16>>(k),
         static_cast<cptr<bf16>>(v), static_cast<cptr<bf16>>(dout), lse,
-        delta, static_cast<bf16*>(dq), sq, sk, causal, scale);
+        delta, mask, static_cast<bf16*>(dq), sq, sk, causal, scale);
   else
-    fa_bwd_dq_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
+    fa_bwd_dq_fma_kernel<D, MASKED><<<grid, FMA_THREADS, smem, stream>>>(
         static_cast<cptr<float>>(q), static_cast<cptr<float>>(k),
         static_cast<cptr<float>>(v), static_cast<cptr<float>>(dout), lse,
-        delta, static_cast<float*>(dq), sq, sk, causal, scale);
+        delta, mask, static_cast<float*>(dq), sq, sk, causal, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch_dkv(bool mma, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int bh,
-                       int sq, int sk, int causal, float scale,
-                       cudaStream_t stream) {
+                       const float* delta, const pt::AttnMask& mask,
+                       void* dk, void* dv, int bh, int sq, int sk,
+                       int causal, float scale, cudaStream_t stream) {
   const size_t smem = mma ? dkv_mma_smem<D>() : dkv_fma_smem<D>();
-  const void* fn = mma ? (const void*)fa_bwd_dkv_mma_kernel<D>
-                       : (const void*)fa_bwd_dkv_fma_kernel<D>;
+  const void* fn = mma ? (const void*)fa_bwd_dkv_mma_kernel<D, MASKED>
+                       : (const void*)fa_bwd_dkv_fma_kernel<D, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sk + BK - 1) / BK, bh);
   if (mma)
-    fa_bwd_dkv_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+    fa_bwd_dkv_mma_kernel<D, MASKED><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<cptr<bf16>>(q), static_cast<cptr<bf16>>(k),
         static_cast<cptr<bf16>>(v), static_cast<cptr<bf16>>(dout), lse,
-        delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
+        delta, mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
         causal, scale);
   else
-    fa_bwd_dkv_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
+    fa_bwd_dkv_fma_kernel<D, MASKED><<<grid, FMA_THREADS, smem, stream>>>(
         static_cast<cptr<float>>(q), static_cast<cptr<float>>(k),
         static_cast<cptr<float>>(v), static_cast<cptr<float>>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), sq, sk,
-        causal, scale);
+        delta, mask, static_cast<float*>(dk), static_cast<float*>(dv), sq,
+        sk, causal, scale);
   return cudaGetLastError();
 }
 
-bool bad_args(int bh, int sq, int sk, int dtype) {
+bool bad_args(int bh, int sq, int sk, int dtype, const pt::AttnMask& mask) {
   return bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 ||
-         (dtype != 0 && dtype != 1);
+         (dtype != 0 && dtype != 1) || pt::bad_mask(mask, bh, sq, sk, BQ);
 }
+
+bool masked(const pt::AttnMask& m) { return m.bias || m.qseg; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the outputs); lse and
-// delta are (bh, sq) f32.  bf16 pointers must be 16-byte aligned.  Each
-// returns a cudaError_t as int.
-extern "C" int pt_flash_attention_bwd_dq(const void* q, const void* k,
-                                         const void* v, const void* dout,
-                                         const float* lse,
-                                         const float* delta, void* dq,
-                                         int bh, int sq, int sk, int d,
-                                         int dtype, int causal, float scale,
-                                         void* stream) {
-  if (bad_args(bh, sq, sk, dtype)) return (int)cudaErrorInvalidValue;
+// delta are (bh, sq) f32.  bias, qseg, kseg: the masks (null when absent),
+// as pt::AttnMask describes them, with bias_bf16, bb, hb, sqb and heads.
+// bf16 pointers must be 16-byte aligned.  Each returns a cudaError_t as int.
+extern "C" int pt_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const void* bias, const int* qseg,
+    const int* kseg, void* dq, int bh, int sq, int sk, int d, int dtype,
+    int causal, int bias_bf16, int bb, int hb, int sqb, int heads,
+    float scale, void* stream) {
+  const pt::AttnMask mask =
+      pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
+  if (bad_args(bh, sq, sk, dtype, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == 1;
-  if (d == 64)
-    return (int)launch_dq<64>(mma, q, k, v, dout, lse, delta, dq, bh, sq, sk,
-                              causal, scale, s);
-  if (d == 128)
-    return (int)launch_dq<128>(mma, q, k, v, dout, lse, delta, dq, bh, sq,
-                               sk, causal, scale, s);
+#define PT_DQ(D, M)                                                        \
+  return (int)launch_dq<D, M>(mma, q, k, v, dout, lse, delta, mask, dq, bh, \
+                              sq, sk, causal, scale, s)
+  if (d == 64) {
+    if (masked(mask)) PT_DQ(64, true);
+    PT_DQ(64, false);
+  }
+  if (d == 128) {
+    if (masked(mask)) PT_DQ(128, true);
+    PT_DQ(128, false);
+  }
+#undef PT_DQ
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int pt_flash_attention_bwd_dkv(const void* q, const void* k,
-                                          const void* v, const void* dout,
-                                          const float* lse,
-                                          const float* delta, void* dk,
-                                          void* dv, int bh, int sq, int sk,
-                                          int d, int dtype, int causal,
-                                          float scale, void* stream) {
-  if (bad_args(bh, sq, sk, dtype)) return (int)cudaErrorInvalidValue;
+extern "C" int pt_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const void* bias, const int* qseg,
+    const int* kseg, void* dk, void* dv, int bh, int sq, int sk, int d,
+    int dtype, int causal, int bias_bf16, int bb, int hb, int sqb, int heads,
+    float scale, void* stream) {
+  const pt::AttnMask mask =
+      pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
+  if (bad_args(bh, sq, sk, dtype, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == 1;
-  if (d == 64)
-    return (int)launch_dkv<64>(mma, q, k, v, dout, lse, delta, dk, dv, bh,
-                               sq, sk, causal, scale, s);
-  if (d == 128)
-    return (int)launch_dkv<128>(mma, q, k, v, dout, lse, delta, dk, dv, bh,
-                                sq, sk, causal, scale, s);
+#define PT_DKV(D, M)                                                       \
+  return (int)launch_dkv<D, M>(mma, q, k, v, dout, lse, delta, mask, dk,   \
+                               dv, bh, sq, sk, causal, scale, s)
+  if (d == 64) {
+    if (masked(mask)) PT_DKV(64, true);
+    PT_DKV(64, false);
+  }
+  if (d == 128) {
+    if (masked(mask)) PT_DKV(128, true);
+    PT_DKV(128, false);
+  }
+#undef PT_DKV
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-// Causal / full flash-attention forward for Hopper (sm_90a), bound through
-// a plain C interface (ctypes).
+// Causal / full flash-attention forward for Hopper (sm_90a), with an
+// optional additive bias and segment ids, bound through a plain C interface
+// (ctypes).
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (:190),
 // called through `_flash_fwd_folded` (:324).  Same function: blockwise
@@ -10,6 +11,14 @@
 // (B*H, Sq, D) in the input dtype and `lse` (B*H, Sq) f32.  As in the TPU
 // kernel, p is rounded to the value dtype before the p.v product and the
 // row sum l adds the unrounded p.
+//
+// Masks (the MASKED instantiations; reference `_mask_tile` :176): block bh
+// reads bias slice g(bh) of the folded (Bb*Hb, Sqb, Sk) bias, at row q when
+// Sqb = Sq and row 0 when Sqb = 1, and the segment ids of batch bh / H.
+// The score becomes s * scale + bias in f32, then -inf where the segment
+// ids differ, then the causal and tail masks, as in the reference.  A bool
+// mask arrives as a 0 / -inf bias; a finite bias such as BERT's -1e30
+// stays finite.  Masked calls take no sequence tails.
 //
 // Design.  One block per (bh, 64-row query tile); the TPU kernel's
 // sequential kv grid axis becomes a loop inside the block over 64-key
@@ -45,6 +54,7 @@ using pt::bf16;
 
 constexpr int BQ = 64;    // query rows per block
 constexpr int BK = 64;    // keys per tile
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ int kv_tiles(int q0, int sk, int off,
                                         int causal) {
@@ -69,12 +79,12 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8);   // q + 2 x (k, v)
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(MMA_THREADS)
     fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int sq, int sk, int causal,
-                      float scale) {
+                      float* __restrict__ lse, pt::AttnMask mask, int sq,
+                      int sk, int causal, float scale) {
   constexpr int LD = D + 8;          // padded row: conflict-free fragments
   constexpr int KD = D / 16;         // k16 steps over the head dim
   constexpr int ND = D / 8;          // n8 tiles over the head dim
@@ -93,6 +103,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bf16* kbp = k + (size_t)bh * sk * D;
   const bf16* vbp = v + (size_t)bh * sk * D;
   const int n_kb = kv_tiles(q0, sk, off, causal);
+  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
 
   // the next tile's copies run while the current tile's products do
   auto fetch = [&](int kb) {
@@ -127,7 +138,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   float l[2] = {0.f, 0.f};
   const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
   // scores, m and the exponentials in base 2: p = 2^(x log2e - m log2e)
-  const float scale2 = scale * 1.4426950408889634f;
+  const float scale2 = scale * LOG2E;
 
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * BK;
@@ -158,6 +169,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
         const int key = k0 + nt * 8 + 2 * t + (e & 1);
         const int hi = e >> 1;
         float x = s[nt][e] * scale2;
+        if (MASKED) x = sm.apply(x, qrow[hi], key, LOG2E);
         if (key >= sk || (causal && qrow[hi] + off < key)) x = -CUDART_INF_F;
         s[nt][e] = x;
         mx[hi] = fmaxf(mx[hi], x);
@@ -238,13 +250,13 @@ constexpr size_t fma_smem_bytes() {
          (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(FMA_THREADS)
     fa_fwd_fma_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int sq, int sk, int causal,
-                      float scale) {
+                      float* __restrict__ lse, pt::AttnMask mask, int sq,
+                      int sk, int causal, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int CD = D / 16;            // output columns per thread
@@ -261,6 +273,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
   const int off = sk - sq;
   const size_t qbase = (size_t)bh * sq * D;
   const size_t kbase = (size_t)bh * sk * D;
+  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
 
   for (int e = tid; e < BQ * D; e += FMA_THREADS) {
     const int r = e / D, c = e % D, row = q0 + r;
@@ -316,6 +329,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
       for (int j = 0; j < 4; ++j) {
         const int kc = k0 + tx + 16 * j;
         float x = s[i][j] * scale;
+        if (MASKED) x = sm.apply(x, qrow, kc, 1.f);
         if (kc >= sk || (causal && qrow + off < kc)) x = -CUDART_INF_F;
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -365,46 +379,68 @@ __global__ void __launch_bounds__(FMA_THREADS)
   }
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch(bool mma, const void* q, const void* k, const void* v,
-                   void* o, float* lse, int bh, int sq, int sk, int causal,
-                   float scale, cudaStream_t stream) {
+                   void* o, float* lse, const pt::AttnMask& mask, int bh,
+                   int sq, int sk, int causal, float scale,
+                   cudaStream_t stream) {
   const size_t smem = mma ? mma_smem_bytes<D>() : fma_smem_bytes<D>();
-  const void* fn = mma ? (const void*)fa_fwd_mma_kernel<D>
-                       : (const void*)fa_fwd_fma_kernel<D>;
+  const void* fn = mma ? (const void*)fa_fwd_mma_kernel<D, MASKED>
+                       : (const void*)fa_fwd_fma_kernel<D, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, bh);
   if (mma)
-    fa_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+    fa_fwd_mma_kernel<D, MASKED><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, sk,
-        causal, scale);
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, mask, sq,
+        sk, causal, scale);
   else
-    fa_fwd_fma_kernel<D><<<grid, FMA_THREADS, smem, stream>>>(
+    fa_fwd_fma_kernel<D, MASKED><<<grid, FMA_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
-        causal, scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, mask, sq,
+        sk, causal, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(bool mma, const void* q, const void* k, const void* v,
+                     void* o, float* lse, const pt::AttnMask& mask, int bh,
+                     int sq, int sk, int causal, float scale,
+                     cudaStream_t stream) {
+  if (mask.bias || mask.qseg)
+    return launch<D, true>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
+                           scale, stream);
+  return launch<D, false>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
+                          scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  bf16 pointers must be 16-byte aligned.
-// Returns a cudaError_t as int.
+// bias, qseg, kseg: the masks (null when absent), as pt::AttnMask describes
+// them; bias_bf16, bb, hb, sqb and heads describe the bias and the folded
+// axis.  Returns a cudaError_t as int.
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, void* o, float* lse,
-                                      int bh, int sq, int sk, int d,
-                                      int dtype, int causal, float scale,
-                                      void* stream) {
-  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 || (dtype != 0 && dtype != 1))
+                                      const void* v, const void* bias,
+                                      const int* qseg, const int* kseg,
+                                      void* o, float* lse, int bh, int sq,
+                                      int sk, int d, int dtype, int causal,
+                                      int bias_bf16, int bb, int hb, int sqb,
+                                      int heads, float scale, void* stream) {
+  const pt::AttnMask mask =
+      pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
+  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 ||
+      (dtype != 0 && dtype != 1) || pt::bad_mask(mask, bh, sq, sk, BQ))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == 1;
   if (d == 64)
-    return (int)launch<64>(mma, q, k, v, o, lse, bh, sq, sk, causal, scale, s);
+    return (int)launch_d<64>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
+                             scale, s);
   if (d == 128)
-    return (int)launch<128>(mma, q, k, v, o, lse, bh, sq, sk, causal, scale, s);
+    return (int)launch_d<128>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
+                              scale, s);
   return (int)cudaErrorInvalidValue;
 }

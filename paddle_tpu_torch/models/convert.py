@@ -1,13 +1,16 @@
 """Carry the reference model's parameters and optimizer state into the
 port.
 
-The JAX package keeps GPT's parameters as stacked arrays named by
-``_PARAM_ORDER``; the port keeps the same names and shapes, so the
+The JAX package keeps GPT's and BERT's parameters as stacked arrays named
+by their ``_PARAM_ORDER``; the port keeps the same names and shapes, so the
 conversion is a checked copy.  Take the arrays from a reference model as
-``{n: np.asarray(model._parameters[n]._data) for n in _PARAM_ORDER}``,
-and the optimizer state from a reference ``TrainStep`` as
+``{n: np.asarray(model._parameters[n]._data) for n in _PARAM_ORDER}``, and
+the optimizer state from a reference ``TrainStep`` as
 ``{n: {k: np.asarray(a) for k, a in st.items()} for n, st in
-step._opt_states.items()}``.
+step._opt_states.items()}``.  The ``nn.Module`` layers (Linear, LayerNorm,
+the transformer encoder) keep the reference's dotted parameter names:
+take their arrays as ``{n: np.asarray(p._data) for n, p in
+ref.named_parameters()}`` and load them with :func:`load_named_params`.
 """
 from __future__ import annotations
 
@@ -16,21 +19,43 @@ import torch
 
 from paddle_tpu_torch.models.gpt import _PARAM_ORDER
 
-__all__ = ["params_from_jax", "opt_states_from_jax"]
+__all__ = ["params_from_jax", "opt_states_from_jax", "load_named_params"]
 
 _ADAM_KEYS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
 
 
-def params_from_jax(np_params: dict) -> dict:
-    """{name: np.ndarray} keyed by ``_PARAM_ORDER`` -> {name: torch.Tensor}
-    (CPU, same dtype; copies, so the caller's arrays stay untouched)."""
-    missing = [n for n in _PARAM_ORDER if n not in np_params]
-    extra = [n for n in np_params if n not in _PARAM_ORDER]
+def params_from_jax(np_params: dict, order=_PARAM_ORDER) -> dict:
+    """{name: np.ndarray} keyed by the model's ``order`` (GPT's
+    ``_PARAM_ORDER`` by default, or BERT's) -> {name: torch.Tensor} (CPU,
+    same dtype; copies, so the caller's arrays stay untouched)."""
+    missing = [n for n in order if n not in np_params]
+    extra = [n for n in np_params if n not in order]
     if missing or extra:
         raise ValueError(f"params_from_jax: missing {missing}, unexpected "
                          f"{extra}")
     return {n: torch.from_numpy(np.array(np_params[n], copy=True))
-            for n in _PARAM_ORDER}
+            for n in order}
+
+
+def load_named_params(module: torch.nn.Module, np_named: dict):
+    """Copy {dotted name: np.ndarray}, keyed as the reference layer's
+    ``named_parameters()``, into the port module's parameters of the same
+    names, in place.  Raises unless the names and shapes match exactly.
+    Returns the module."""
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(np_named))
+    extra = sorted(set(np_named) - set(params))
+    if missing or extra:
+        raise ValueError(f"load_named_params: missing {missing}, unexpected "
+                         f"{extra}")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = torch.from_numpy(np.array(np_named[name], copy=True))
+            if p.shape != t.shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} does not "
+                                 f"match {tuple(p.shape)}")
+            p.copy_(t)
+    return module
 
 
 def opt_states_from_jax(states: dict) -> dict:

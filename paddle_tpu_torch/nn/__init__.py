@@ -1,3 +1,7 @@
-"""Neural-network functionals and gradient clipping of the port."""
+"""Neural-network layers, functionals and gradient clipping of the port."""
+from paddle_tpu_torch.nn import functional  # noqa: F401
 from paddle_tpu_torch.nn.clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_)
+from paddle_tpu_torch.nn.layer import (  # noqa: F401
+    Dropout, LayerNorm, Linear, MultiHeadAttention, TransformerEncoder,
+    TransformerEncoderLayer)

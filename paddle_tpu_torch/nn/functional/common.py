@@ -1,0 +1,37 @@
+"""``linear`` and ``dropout`` (port of paddle_tpu/nn/functional/common.py,
+what nn/layer/transformer.py needs)."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["linear", "dropout"]
+
+
+def linear(x, weight, bias=None, name=None):
+    """x @ weight + bias with weight (in_features, out_features), the
+    reference's layout (``:19``)."""
+    out = x @ weight
+    return out if bias is None else out + bias
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, generator=None):
+    """Dropout (reference ``:27``): keeps each entry (or each slice along
+    ``axis``) with probability 1 - p, drawn from ``generator`` (the
+    default generator of x's device when None); ``upscale_in_train``
+    divides the kept entries by 1 - p.  The reference's bits come from
+    jax.random and are not reproduced: only the distribution is."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode {mode!r}")
+    if not training or p == 0:
+        return x
+    if p == 1:
+        return torch.zeros_like(x)
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)

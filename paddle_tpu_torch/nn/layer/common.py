@@ -1,0 +1,75 @@
+"""``Linear`` and ``Dropout`` (port of paddle_tpu/nn/layer/common.py, what
+nn/layer/transformer.py needs).
+
+``Linear`` keeps the reference's ``(in_features, out_features)`` weight
+layout, so a reference layer's weights carry across as a copy
+(models/convert.py ``load_named_params``).  Parameters are created on the
+card unless ``device="cpu"`` is asked for.  ``weight_attr`` and
+``bias_attr`` take None (the defaults: Xavier-uniform weight, zero bias)
+or ``bias_attr=False`` (no bias); a ``ParamAttr`` is not ported and
+raises.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.nn import functional as F
+
+__all__ = ["Linear", "Dropout"]
+
+
+def _check_attr(attr, what):
+    if attr is not None and attr is not False:
+        raise NotImplementedError(
+            f"{what}={attr!r}: ParamAttr is not ported; pass None (the "
+            "default initializer) or, for a bias, False")
+
+
+class Linear(nn.Module):
+    """y = x @ W + b with W (in_features, out_features) (reference
+    ``:60``)."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, device=None):
+        super().__init__()
+        _check_attr(weight_attr, "weight_attr")
+        if weight_attr is False:
+            raise ValueError("Linear needs a weight")
+        _check_attr(bias_attr, "bias_attr")
+        dev = resolve_device(device)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(nn.init.xavier_uniform_(
+            torch.empty(in_features, out_features, device=dev)))
+        self.bias = (None if bias_attr is False else
+                     nn.Parameter(torch.zeros(out_features, device=dev)))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}")
+
+
+class Dropout(nn.Module):
+    """Dropout (reference ``:95``) in training mode, the identity in
+    evaluation mode; the keep mask is drawn from ``generator`` (the default
+    generator of the input's device when None)."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 generator=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"

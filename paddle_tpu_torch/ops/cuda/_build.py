@@ -22,8 +22,9 @@ __all__ = ["KERNELS", "build_all", "load", "nvcc_path"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_ce_fwd",
-           "fused_ce_bwd", "fused_adam")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+           "flash_attention_dbias", "fused_ce_fwd", "fused_ce_bwd",
+           "fused_adam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

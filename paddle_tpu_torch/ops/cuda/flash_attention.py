@@ -1,67 +1,130 @@
-"""Flash attention, forward and backward (port of
-paddle_tpu/ops/pallas/flash_attention.py).
+"""Flash attention, forward and backward, with an optional additive bias
+and segment ids (port of paddle_tpu/ops/pallas/flash_attention.py).
 
-No bias and no segment ids: the path of the GPT slices.  The kernels are
-hand-written CUDA for sm_90a: ``csrc/flash_attention_fwd.cu`` replaces the
-Pallas ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.  :class:`_FlashAttention`
-ties them together as ``_flash`` / ``_fa_fwd`` / ``_fa_bwd`` do in the
-reference: the forward saves the folded q, k, v, the folded output and
-lse; the backward computes ``delta = rowsum(do * o)`` in f32 and runs the
-dq and dk/dv passes.
+The kernels are hand-written CUDA for sm_90a: ``csrc/flash_attention_fwd.cu``
+replaces the Pallas ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, ``csrc/flash_attention_dbias.cu``
+the ``_bwd_dbias_kernel``.  :class:`_FlashAttention` ties them together as
+``_flash`` / ``_fa_fwd`` / ``_fa_bwd`` do in the reference: the forward
+saves the folded q, k, v, the folded output, lse and the masks; the
+backward computes ``delta = rowsum(do * o)`` in f32 and runs the dq and
+dk/dv passes, and the dbias pass only when the bias needs a gradient
+(``ctx.needs_input_grad``), as the reference's ``_flash`` and
+``_flash_nodbias`` split it: a padding mask never launches it.
+
+Masks (reference ``flash_attention`` :846): ``bias`` broadcastable to
+(B, H, Sq, Sk), each leading dim full or 1 and the key dim full, is
+canonicalised to (Bb, Hb, Sqb, Sk); a bool mask (True = attend) becomes a
+0 / -inf f32 bias, any other dtype but bf16 becomes f32.  Segment ids
+(B, Sq) / (B, Sk), both or neither, hide the pairs whose ids differ.  The
+score is ``s * scale + bias``, then -inf where the ids differ, then the
+causal mask.
 
 Dispatch is by the device of the tensors it is given:
 
 - a CPU tensor takes the plain PyTorch versions,
-  :func:`flash_attention_reference` and
-  :func:`flash_attention_bwd_reference`;
+  :func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`
+  and :func:`flash_attention_dbias_reference`;
 - a CUDA tensor launches the kernels, or raises: on a shape or dtype the
-  kernels do not take, on a failed build, on a failed launch.
+  kernels do not take (a masked call whose sequences are not multiples of
+  128 among them), on a failed build, on a failed launch.
 
 Semantics held from the reference: end-aligned causal masking (query i
 sees key j iff j <= i + sk - sq), and a row with no visible key gives
-out = 0, lse = -inf and zero gradients.  Layout at the public functions
-is (B, S, H, D); the kernels work on the folded (B*H, S, D) layout.
+out = 0, lse = -inf and zero gradients (a bool mask's -inf rows included;
+a finite bias such as BERT's -1e30 is not -inf).  Layout at the public
+functions is (B, S, H, D); the kernels work on the folded (B*H, S, D)
+layout.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = ["supported", "flash_attention", "flash_attention_fwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
-           "launches", "launches_dq", "launches_dkv"]
+           "flash_attention_dbias_reference", "Mask", "launches",
+           "launches_dq", "launches_dkv", "launches_masked",
+           "launches_dq_masked", "launches_dkv_masked", "launches_dbias"]
 
 _MIN_BLOCK = 128           # the reference's smallest block (flash_attention.py)
 _KERNEL_D = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches made by this process (read by chip_smoke.py): the
-# forward, the backward's dq pass and its dk/dv pass
+# forward, the backward's dq pass and its dk/dv pass without a mask; the
+# same three with a bias or segment ids (the MASKED instantiations); the
+# dbias pass
 launches = 0
 launches_dq = 0
 launches_dkv = 0
+launches_masked = 0
+launches_dq_masked = 0
+launches_dkv_masked = 0
+launches_dbias = 0
 
 _fns: dict = {}
 
 
-def supported(q_shape, k_shape, causal: bool = False) -> bool:
-    """The reference's dispatch rule (``supported`` :93, no mask): the
-    blockwise kernel serves sequences of at least one block and, when
-    causal, no more queries than keys; shorter sequences go to the dense
-    fallback (nn/functional/attention.py).  Head dims the CUDA kernel
-    does not take (other than 64 and 128) pass this rule and then raise
-    in the wrapper."""
+class Mask(NamedTuple):
+    """The masks of one call in the kernels' form: ``bias`` canonical
+    (Bb, Hb, Sqb, Sk) f32 or bf16, or None; ``q_seg`` (B, Sq) and
+    ``kv_seg`` (B, Sk) int32, or None; ``heads`` the H of the folded
+    (B*H) axis."""
+    bias: Optional[torch.Tensor]
+    q_seg: Optional[torch.Tensor]
+    kv_seg: Optional[torch.Tensor]
+    heads: int
+
+
+def _canon_bias_shape(bias_shape, b, h, sq, sk):
+    """(Bb, Hb, Sqb, Sk) of a broadcastable bias shape, or None when it
+    cannot ride the kernel (reference ``:75``): each leading dim 1 or
+    full, the key dim full."""
+    s = tuple(int(d) for d in bias_shape)
+    if len(s) > 4 or len(s) < 1:
+        return None
+    s = (1,) * (4 - len(s)) + s
+    bb, hb, sqb, skb = s
+    if skb != sk:
+        return None
+    if bb not in (1, b) or hb not in (1, h) or sqb not in (1, sq):
+        return None
+    return s
+
+
+def supported(q_shape, k_shape, no_mask: bool = True, causal: bool = False,
+              bias_shape=None, segments: bool = False) -> bool:
+    """The reference's dispatch rule (``supported`` :93) without its TPU
+    backend test and without its TPU crossover (``:113-120``, non-causal
+    S < 1024 sent to XLA): that crossover is a TPU timing, not a semantic,
+    and does not set the card's dispatch.  The blockwise kernel serves
+    sequences of at least one block and, when causal, no more queries than
+    keys; a mask must be a canonical bias (``bias_shape``) and/or segment
+    ids, and then both lengths must be multiples of 128 (the reference's
+    bias tiles are not tail-masked).  Everything else goes to the dense
+    fallback (nn/functional/attention.py).  Head dims the CUDA kernel does
+    not take (other than 64 and 128) pass this rule and then raise in the
+    wrapper."""
+    if not no_mask and bias_shape is None and not segments:
+        return False
     if len(q_shape) != 4 or len(k_shape) != 4:
         return False
-    _, sq, _, d = q_shape
+    b, sq, h, d = q_shape
     sk = k_shape[1]
     if causal and sq > sk:
         return False
     if d % 128 != 0 and d != 64:
         return False
+    if bias_shape is not None and \
+            _canon_bias_shape(bias_shape, b, h, sq, sk) is None:
+        return False
+    if bias_shape is not None or segments:
+        return (sq % _MIN_BLOCK == 0 and sk % _MIN_BLOCK == 0
+                and sq >= _MIN_BLOCK and sk >= _MIN_BLOCK)
     return sq >= _MIN_BLOCK and sk >= _MIN_BLOCK
 
 
@@ -77,11 +140,26 @@ def _unfold(x, b, h):
     return x.view(b, h, s, d).permute(0, 2, 1, 3)
 
 
-def _scores(qt, kt, scale: float, causal: bool):
-    """f32 scores of the input-dtype products, masked to -inf where the
-    end-aligned causal mask hides the key."""
-    sq, sk = qt.shape[1], kt.shape[1]
+def _dense_bias(mask: Mask, bh: int, sq: int, sk: int):
+    """The canonical bias broadcast to every folded slice: (B*H, Sq, Sk)
+    f32."""
+    b = bh // mask.heads
+    return mask.bias.float().expand(b, mask.heads, sq, sk).reshape(bh, sq,
+                                                                    sk)
+
+
+def _scores(qt, kt, scale: float, causal: bool, mask: Optional[Mask] = None):
+    """f32 scores of the input-dtype products, ``s * scale + bias``, then
+    -inf where the segment ids differ or the end-aligned causal mask hides
+    the key (reference ``_mask_tile`` :176 and ``:231-247``)."""
+    bh, sq, sk = qt.shape[0], qt.shape[1], kt.shape[1]
     s = torch.einsum("bqd,bkd->bqk", qt.float(), kt.float()) * scale
+    if mask is not None and mask.bias is not None:
+        s = s + _dense_bias(mask, bh, sq, sk)
+    if mask is not None and mask.q_seg is not None:
+        qs = mask.q_seg.repeat_interleave(mask.heads, 0)
+        ks = mask.kv_seg.repeat_interleave(mask.heads, 0)
+        s = s.masked_fill(qs[:, :, None] != ks[:, None, :], float("-inf"))
     if causal:
         keep = torch.ones(sq, sk, dtype=torch.bool, device=qt.device).tril(
             sk - sq)
@@ -89,12 +167,13 @@ def _scores(qt, kt, scale: float, causal: bool):
     return s
 
 
-def flash_attention_reference(qt, kt, vt, scale: float, causal: bool):
+def flash_attention_reference(qt, kt, vt, scale: float, causal: bool,
+                              mask: Optional[Mask] = None):
     """Plain PyTorch version on folded (B*H, S, D) operands: the kernel's
     arithmetic, dense.  Scores in f32, p rounded to the value dtype for the
     p.v product, the row sum over the unrounded p.  Returns (out (B*H, Sq,
     D) in the input dtype, lse (B*H, Sq) f32)."""
-    s = _scores(qt, kt, scale, causal)
+    s = _scores(qt, kt, scale, causal, mask)
     m = s.amax(-1, keepdim=True)
     live = torch.isfinite(m)
     p = torch.where(live, torch.exp(s - torch.where(live, m, 0.0)), 0.0)
@@ -112,25 +191,55 @@ def _delta(dot, ot):
     return (dot.float() * ot.float()).sum(-1)
 
 
-def flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot, scale: float,
-                                  causal: bool):
-    """Plain PyTorch version of the backward on folded operands, dense:
-    p rebuilt from lse (0 on a row with lse = -inf, reference
-    ``_rebuild_p`` :396), ``ds = p * (dp - delta)``; p and ds rounded to
-    the input dtype before the products that take them, every product
-    accumulated in f32.  Returns (dq, dk, dv) in the input dtype."""
-    dt = qt.dtype
-    s = _scores(qt, kt, scale, causal)
+def _p_ds(qt, kt, vt, ot, lse, dot, scale, causal, mask):
+    """p rebuilt from lse (0 on a row with lse = -inf, reference
+    ``_rebuild_p`` :396) and ``ds = p * (dp - delta)``, both f32."""
+    s = _scores(qt, kt, scale, causal, mask)
     live = torch.isfinite(lse)[..., None]
     p = torch.where(live, torch.exp(s - torch.where(live, lse[..., None],
                                                     0.0)), 0.0)
     dp = torch.einsum("bqd,bkd->bqk", dot.float(), vt.float())
-    ds = p * (dp - _delta(dot, ot)[..., None])
+    return p, p * (dp - _delta(dot, ot)[..., None])
+
+
+def flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot, scale: float,
+                                  causal: bool, mask: Optional[Mask] = None):
+    """Plain PyTorch version of the backward on folded operands, dense:
+    p and ds as :func:`_p_ds` gives them, rounded to the input dtype
+    before the products that take them, every product accumulated in f32.
+    Returns (dq, dk, dv) in the input dtype."""
+    dt = qt.dtype
+    p, ds = _p_ds(qt, kt, vt, ot, lse, dot, scale, causal, mask)
     ds_r = ds.to(dt).float()
     dq = torch.einsum("bqk,bkd->bqd", ds_r, kt.float()) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds_r, qt.float()) * scale
     dv = torch.einsum("bqk,bqd->bkd", p.to(dt).float(), dot.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_dbias_reference(qt, kt, vt, ot, lse, dot, scale: float,
+                                    causal: bool, mask: Mask):
+    """Plain PyTorch version of the bias gradient (reference
+    ``_bwd_dbias_kernel`` :560): the unrounded f32 ds summed over the
+    bias's broadcast extent (the batch and head dims where the canonical
+    bias has 1, and the query rows when Sqb = 1), in the bias's dtype,
+    shaped as the canonical bias."""
+    _, ds = _p_ds(qt, kt, vt, ot, lse, dot, scale, causal, mask)
+    return _reduce_dbias(ds, mask)
+
+
+def _reduce_dbias(ds, mask: Mask):
+    """f32 ds (B*H, Sq, Sk) summed over the bias's broadcast extent, in the
+    bias's dtype and canonical shape."""
+    bb, hb, sqb, sk = mask.bias.shape
+    ds = ds.view(-1, mask.heads, ds.shape[1], sk)
+    dims = [i for i, n in enumerate((bb, hb, sqb)) if n == 1]
+    if dims:
+        ds = ds.sum(dims, keepdim=True)
+    return ds.reshape(bb, hb, sqb, sk).to(mask.bias.dtype)
+
+
+_PTRS = {"fwd": 8, "dq": 10, "dkv": 11, "dbias": 10}
 
 
 def _kernel(name: str):
@@ -140,12 +249,12 @@ def _kernel(name: str):
         from paddle_tpu_torch.ops.cuda import _build
         if name == "fwd":
             fn = _build.load("flash_attention_fwd").pt_flash_attention_fwd
-            ptrs = 5
+        elif name == "dbias":
+            fn = _build.load("flash_attention_dbias").pt_flash_attention_dbias
         else:
             lib = _build.load("flash_attention_bwd")
             fn = getattr(lib, f"pt_flash_attention_bwd_{name}")
-            ptrs = 7 if name == "dq" else 8
-        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * _PTRS[name] + [ctypes.c_int] * 11 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -185,6 +294,53 @@ def _check(qt, kt, vt, dot=None):
     return bh, sq, sk, d
 
 
+def _mask_args(mask: Optional[Mask], qt, sq: int, sk: int):
+    """Raise on a mask the kernels do not take; returns its pointers'
+    tensors (bias, q_seg, kv_seg; None where absent) and the ints
+    (bias_bf16, bb, hb, sqb, heads) of the C interface."""
+    if mask is None:
+        return (None, None, None), (0, 1, 1, 1, 1)
+    bh = qt.shape[0]
+    if mask.heads <= 0 or bh % mask.heads:
+        raise ValueError(f"flash_attention: B*H={bh} is not a multiple of "
+                         f"heads={mask.heads}")
+    if sq % _MIN_BLOCK or sk % _MIN_BLOCK:
+        raise ValueError(f"flash_attention: a masked call takes sequence "
+                         f"lengths that are multiples of {_MIN_BLOCK}, got "
+                         f"sq={sq} sk={sk} (supported() sends them to the "
+                         "dense fallback)")
+    b = bh // mask.heads
+    named = [("bias", mask.bias), ("q_segment_ids", mask.q_seg),
+             ("kv_segment_ids", mask.kv_seg)]
+    for name, t in named:
+        if t is not None and (t.device != qt.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"flash_attention: {name} must be contiguous "
+                             f"on {qt.device}, got {t.device}")
+    ints = (0, 1, 1, 1, mask.heads)
+    if mask.bias is not None:
+        if mask.bias.dtype not in _DTYPES:
+            raise ValueError(f"flash_attention: the kernel takes a float32 "
+                             f"or bfloat16 bias, got {mask.bias.dtype}")
+        if _canon_bias_shape(mask.bias.shape, b, mask.heads, sq, sk) != \
+                tuple(mask.bias.shape):
+            raise ValueError(f"flash_attention: bias {tuple(mask.bias.shape)}"
+                             f" is not canonical for B={b} H={mask.heads} "
+                             f"sq={sq} sk={sk}")
+        bb, hb, sqb, _ = mask.bias.shape
+        ints = (_DTYPES[mask.bias.dtype], bb, hb, sqb, mask.heads)
+    if (mask.q_seg is None) != (mask.kv_seg is None):
+        raise ValueError("flash_attention: pass both segment-id arrays or "
+                         "neither")
+    if mask.q_seg is not None:
+        if (mask.q_seg.dtype != torch.int32 or mask.kv_seg.dtype != torch.int32
+                or tuple(mask.q_seg.shape) != (b, sq)
+                or tuple(mask.kv_seg.shape) != (b, sk)):
+            raise ValueError(f"flash_attention: segment ids must be int32 "
+                             f"({b}, {sq}) and ({b}, {sk})")
+    return (mask.bias, mask.q_seg, mask.kv_seg), ints
+
+
 def _rows(name, t, bh, sq):
     """lse / delta: contiguous (bh, sq) f32 on the card."""
     if t.dtype != torch.float32 or tuple(t.shape) != (bh, sq) or \
@@ -195,59 +351,108 @@ def _rows(name, t, bh, sq):
 
 def _call(name, tensors, ints, scale: float):
     """Launch kernel ``name`` on the current stream of the tensors' card;
-    raise if the launch is refused."""
+    raise if the launch is refused.  A None tensor is a null pointer."""
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(*(t.data_ptr() for t in tensors), *ints,
-                            float(scale), stream)
+        err = _kernel(name)(*(None if t is None else t.data_ptr()
+                              for t in tensors), *ints, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: {name} kernel launch failed "
                            f"with cudaError {err}")
 
 
-def _launch(qt, kt, vt, scale: float, causal: bool):
+def _launch(qt, kt, vt, scale: float, causal: bool,
+            mask: Optional[Mask] = None):
     """Forward kernel: (out, lse) of folded q, k, v on the card."""
-    global launches
+    global launches, launches_masked
     bh, sq, sk, d = _check(qt, kt, vt)
+    mptr, mint = _mask_args(mask, qt, sq, sk)
     out = torch.empty_like(qt)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=qt.device)
-    _call("fwd", (qt, kt, vt, out, lse),
-          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal)), scale)
-    launches += 1
+    _call("fwd", (qt, kt, vt, *mptr, out, lse),
+          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
+    if mask is None:
+        launches += 1
+    else:
+        launches_masked += 1
     return out, lse
 
 
-def _launch_dq(qt, kt, vt, dot, lse, delta, scale: float, causal: bool):
-    """dq kernel on the card (reference ``_bwd_dq_kernel`` :452)."""
-    global launches_dq
+def _bwd_args(qt, kt, vt, dot, lse, delta, mask):
     bh, sq, sk, d = _check(qt, kt, vt, dot)
     _rows("lse", lse, bh, sq)
     _rows("delta", delta, bh, sq)
+    return (bh, sq, sk, d), _mask_args(mask, qt, sq, sk)
+
+
+def _launch_dq(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
+               mask: Optional[Mask] = None):
+    """dq kernel on the card (reference ``_bwd_dq_kernel`` :452)."""
+    global launches_dq, launches_dq_masked
+    (bh, sq, sk, d), (mptr, mint) = _bwd_args(qt, kt, vt, dot, lse, delta,
+                                              mask)
     dq = torch.empty_like(qt)
-    _call("dq", (qt, kt, vt, dot, lse, delta, dq),
-          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal)), scale)
-    launches_dq += 1
+    _call("dq", (qt, kt, vt, dot, lse, delta, *mptr, dq),
+          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
+    if mask is None:
+        launches_dq += 1
+    else:
+        launches_dq_masked += 1
     return dq
 
 
-def _launch_dkv(qt, kt, vt, dot, lse, delta, scale: float, causal: bool):
+def _launch_dkv(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
+                mask: Optional[Mask] = None):
     """dk/dv kernel on the card (reference ``_bwd_dkv_kernel`` :498)."""
-    global launches_dkv
-    bh, sq, sk, d = _check(qt, kt, vt, dot)
-    _rows("lse", lse, bh, sq)
-    _rows("delta", delta, bh, sq)
+    global launches_dkv, launches_dkv_masked
+    (bh, sq, sk, d), (mptr, mint) = _bwd_args(qt, kt, vt, dot, lse, delta,
+                                              mask)
     dk, dv = torch.empty_like(kt), torch.empty_like(vt)
-    _call("dkv", (qt, kt, vt, dot, lse, delta, dk, dv),
-          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal)), scale)
-    launches_dkv += 1
+    _call("dkv", (qt, kt, vt, dot, lse, delta, *mptr, dk, dv),
+          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
+    if mask is None:
+        launches_dkv += 1
+    else:
+        launches_dkv_masked += 1
     return dk, dv
 
 
-def _launch_bwd(qt, kt, vt, ot, lse, dot, scale: float, causal: bool):
-    """Both backward kernels on the card: (dq, dk, dv)."""
+def _launch_dbias(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
+                  mask: Mask):
+    """dbias kernel on the card (reference ``_bwd_dbias_kernel`` :560):
+    the canonical bias's gradient, in its dtype."""
+    global launches_dbias
+    if mask is None or mask.bias is None:
+        raise ValueError("flash_attention: the dbias kernel needs a bias")
+    (bh, sq, sk, d), (mptr, mint) = _bwd_args(qt, kt, vt, dot, lse, delta,
+                                              mask)
+    db = torch.empty_like(mask.bias)
+    _call("dbias", (qt, kt, vt, dot, lse, delta, *mptr, db),
+          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
+    launches_dbias += 1
+    return db
+
+
+def _launch_bwd(qt, kt, vt, ot, lse, dot, scale: float, causal: bool,
+                mask: Optional[Mask] = None, dbias: bool = False):
+    """The backward kernels on the card: (dq, dk, dv, dbias or None); the
+    dbias kernel runs only when asked."""
     delta = _delta(dot, ot)
-    dq = _launch_dq(qt, kt, vt, dot, lse, delta, scale, causal)
-    return (dq, *_launch_dkv(qt, kt, vt, dot, lse, delta, scale, causal))
+    dq = _launch_dq(qt, kt, vt, dot, lse, delta, scale, causal, mask)
+    dk, dv = _launch_dkv(qt, kt, vt, dot, lse, delta, scale, causal, mask)
+    db = (_launch_dbias(qt, kt, vt, dot, lse, delta, scale, causal, mask)
+          if dbias else None)
+    return dq, dk, dv, db
+
+
+def _bwd_reference(qt, kt, vt, ot, lse, dot, scale: float, causal: bool,
+                   mask: Optional[Mask] = None, dbias: bool = False):
+    """The plain backward, in :func:`_launch_bwd`'s form."""
+    dq, dk, dv = flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot,
+                                               scale, causal, mask)
+    db = (flash_attention_dbias_reference(qt, kt, vt, ot, lse, dot, scale,
+                                          causal, mask) if dbias else None)
+    return dq, dk, dv, db
 
 
 def _by_device(t, cpu, cuda):
@@ -258,42 +463,90 @@ def _by_device(t, cpu, cuda):
     raise ValueError(f"flash_attention: unsupported device {t.device}")
 
 
+def _mask(bias, q_seg, kv_seg, heads) -> Optional[Mask]:
+    if bias is None and q_seg is None:
+        return None
+    return Mask(bias, q_seg, kv_seg, heads)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Folded flash attention with its backward (reference ``_flash``
-    :783, ``_fa_fwd`` :789, ``_fa_bwd`` :808)."""
+    :783, ``_fa_fwd`` :789, ``_fa_bwd`` :808; ``_flash_nodbias`` :826
+    when the bias needs no gradient)."""
 
     @staticmethod
-    def forward(ctx, qt, kt, vt, scale, causal):
+    def forward(ctx, qt, kt, vt, bias, q_seg, kv_seg, heads, scale, causal):
+        mask = _mask(bias, q_seg, kv_seg, heads)
         fwd = _by_device(qt, flash_attention_reference, _launch)
-        out, lse = fwd(qt, kt, vt, scale, causal)
-        ctx.save_for_backward(qt, kt, vt, out, lse)
-        ctx.scale, ctx.causal = scale, causal
+        out, lse = fwd(qt, kt, vt, scale, causal, mask)
+        ctx.save_for_backward(qt, kt, vt, out, lse, bias, q_seg, kv_seg)
+        ctx.heads, ctx.scale, ctx.causal = heads, scale, causal
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout, _dlse):
-        qt, kt, vt, ot, lse = ctx.saved_tensors
-        bwd = _by_device(qt, flash_attention_bwd_reference, _launch_bwd)
-        dq, dk, dv = bwd(qt, kt, vt, ot, lse, dout.contiguous(), ctx.scale,
-                         ctx.causal)
-        return dq, dk, dv, None, None
+        qt, kt, vt, ot, lse, bias, q_seg, kv_seg = ctx.saved_tensors
+        mask = _mask(bias, q_seg, kv_seg, ctx.heads)
+        bwd = _by_device(qt, _bwd_reference, _launch_bwd)
+        dq, dk, dv, db = bwd(qt, kt, vt, ot, lse, dout.contiguous(),
+                             ctx.scale, ctx.causal, mask,
+                             dbias=bias is not None
+                             and ctx.needs_input_grad[3])
+        return dq, dk, dv, db, None, None, None, None, None
 
 
-def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
+def _canon_bias(bias, b, h, sq, sk):
+    """The bias in the kernels' form (reference ``:864-877``): canonical
+    (Bb, Hb, Sqb, Sk), bool -> 0 / -inf f32, any other dtype but bf16 ->
+    f32, contiguous.  Raises on a shape that cannot be made canonical."""
+    canon = _canon_bias_shape(bias.shape, b, h, sq, sk)
+    if canon is None:
+        raise ValueError(f"flash_attention: bias shape {tuple(bias.shape)} "
+                         f"is not broadcastable-canonical for "
+                         f"q({b}, {sq}, {h}, .) / k(., {sk}, ., .)")
+    if bias.dtype == torch.bool:
+        bias = torch.zeros(bias.shape, dtype=torch.float32,
+                           device=bias.device).masked_fill(~bias,
+                                                           float("-inf"))
+    elif bias.dtype != torch.bfloat16:
+        bias = bias.to(torch.float32)
+    return bias.reshape(canon).contiguous()
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False, scale=None,
+                        bias=None, q_segment_ids=None, kv_segment_ids=None):
     """(B, S, H, D) q, k, v → (out (B, Sq, H, D), lse (B*H, Sq) f32).
-    Differentiable in q, k, v; under no_grad or inference_mode nothing is
-    recorded and the residuals are dropped."""
+    Differentiable in q, k, v and the bias; under no_grad or
+    inference_mode nothing is recorded and the residuals are dropped."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    b, _, h, _ = q.shape
-    out, lse = _FlashAttention.apply(_fold(q), _fold(k), _fold(v),
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    if bias is not None:
+        bias = _canon_bias(bias, b, h, sq, sk)
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("flash_attention: pass both segment-id arrays or "
+                         "neither")
+    if q_segment_ids is not None:
+        q_segment_ids = torch.as_tensor(q_segment_ids, device=q.device).to(
+            torch.int32).contiguous()
+        kv_segment_ids = torch.as_tensor(kv_segment_ids,
+                                         device=q.device).to(
+            torch.int32).contiguous()
+    out, lse = _FlashAttention.apply(_fold(q), _fold(k), _fold(v), bias,
+                                     q_segment_ids, kv_segment_ids, h,
                                      float(scale), bool(causal))
     return _unfold(out, b, h), lse
 
 
-def flash_attention(q, k, v, causal: bool = False, scale=None):
-    """Blockwise attention, (B, S, H, D) layout (reference ``:846``, no bias
-    and no segment ids)."""
-    return flash_attention_fwd(q, k, v, causal, scale)[0]
+def flash_attention(q, k, v, causal: bool = False, scale=None, bias=None,
+                    q_segment_ids=None, kv_segment_ids=None):
+    """Blockwise attention, (B, S, H, D) layout, with an optional additive
+    or bool ``bias`` broadcastable to (B, H, Sq, Sk) and optional segment
+    ids (reference ``:846``).  The bias receives a gradient when it
+    requires one (the dbias kernel); a padding mask, which does not, never
+    launches it."""
+    return flash_attention_fwd(q, k, v, causal, scale, bias, q_segment_ids,
+                               kv_segment_ids)[0]

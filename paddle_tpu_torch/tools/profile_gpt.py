@@ -1,9 +1,11 @@
-"""Where the time of a GPT-2 345M serving request, or training step, goes
-on the card.
+"""Where the time of a GPT-2 345M serving request, or training step, or of
+a BERT-base training step, goes on the card.
 
     python -m paddle_tpu_torch.tools.profile_gpt [--batch 8] [--seq 1024]
     python -m paddle_tpu_torch.tools.profile_gpt --train
     python -m paddle_tpu_torch.tools.profile_gpt --train --fused
+    python -m paddle_tpu_torch.tools.profile_gpt --bert
+    python -m paddle_tpu_torch.tools.profile_gpt --encoder-bias
 
 Builds GPT-2 345M at full width and depth on the card and warms up.
 Serving (the default): bf16 parameters, and one JSON line for each request
@@ -13,7 +15,14 @@ as bench.py trains, and one JSON line for a training step.  ``--train
 --fused``: the fused training path instead (FLAGS_gpt_fused_ce,
 AdamW(use_fused=True, weight_decay=0.01) with ClipGradByGlobalNorm(1.0) and
 a warmup-then-cosine rate, accumulate_steps=2 over a global batch of twice
---batch).  Each line
+--batch).  ``--bert``: one BERT-base pretraining step as bench.py trains
+it on its padded batch (f32 parameters, TrainStep with AMP O2 bf16,
+AdamW(learning_rate=1e-4), bert_pretrain_loss, B=128, S=128 unless
+--batch / --seq say otherwise, lengths in [S/2, S]).  ``--encoder-bias``:
+one step of a 12-layer TransformerEncoder (768, 12 heads, 3072, GELU)
+that trains a learned (1, 12, S, S) attention bias as its src_mask, mean
+square error against a fixed target, the same TrainStep and AdamW, B=128,
+S=128 by default.  Each line
 holds the wall time between synchronisations (mean of a few runs), the
 device time of the kernels grouped by kind (from torch.profiler; under
 --train the kernels launched inside the ``TrainStep.update`` range form
@@ -35,6 +44,7 @@ _GROUPS = (
     ("flash_attention_fwd", ("fa_fwd",)),
     ("flash_attention_bwd_dq", ("fa_bwd_dq",)),
     ("flash_attention_bwd_dkv", ("fa_bwd_dkv",)),
+    ("flash_attention_dbias", ("dbias_",)),
     ("fused_ce_fwd", ("ce_partial", "ce_merge")),
     ("fused_ce_bwd_dh", ("ce_bwd_mma_kernel<true>",
                          "ce_bwd_fma_kernel<true>")),
@@ -117,14 +127,23 @@ def _request(fn, reps: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch (8, or 128 with --bert)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="sequence length (1024, or 128 with --bert)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of serving")
     ap.add_argument("--fused", action="store_true",
                     help="with --train: the fused training path")
+    ap.add_argument("--bert", action="store_true",
+                    help="a BERT-base training step on a padded batch")
+    ap.add_argument("--encoder-bias", action="store_true",
+                    help="a training step of an encoder with a learned "
+                         "attention bias")
     args = ap.parse_args(argv)
+    small = args.bert or args.encoder_bias      # BERT-base's batch
+    seq = args.seq or (128 if small else 1024)
 
     import numpy as np
     import torch
@@ -134,7 +153,9 @@ def main(argv=None) -> int:
         return 2
     from paddle_tpu_torch.framework.flags import set_flags
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import GPT, gpt2_345m, gpt_loss
+    from paddle_tpu_torch.models import (GPT, Bert, bert_base,
+                                         bert_pretrain_loss, gpt2_345m,
+                                         gpt_loss)
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer import lr as sched_lr
@@ -143,12 +164,45 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    cfg = gpt2_345m(max_seq_len=args.seq)
+    cfg = gpt2_345m(max_seq_len=seq)
     micro = 2 if args.train and args.fused else 1
-    batch = micro * args.batch
+    batch = micro * (args.batch or (128 if small else 8))
     ids = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, args.seq)), device="cuda")
-    if args.train and args.fused:
+        0, cfg.vocab_size, (batch, seq)), device="cuda")
+    training = args.train or small
+    if args.encoder_bias:
+        import paddle_tpu_torch.nn as tnn
+        enc = tnn.TransformerEncoder(tnn.TransformerEncoderLayer(
+            768, 12, 3072, dropout=0.0, activation="gelu"), 12)
+        enc.register_parameter("attn_bias", torch.nn.Parameter(
+            torch.zeros(1, 12, seq, seq, device="cuda")))
+
+        def mse(m, x, target):
+            return (m(x, m.attn_bias).float() - target.float()).pow(2).mean()
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x, target = (torch.randn(batch, seq, 768, generator=gen,
+                                 device="cuda") for _ in range(2))
+        step = TrainStep(enc, mse, AdamW(learning_rate=1e-4),
+                         amp_level="O2", amp_dtype="bfloat16")
+        requests = {"encoder_bias_train_step": lambda: step(x, target)}
+    elif args.bert:
+        # bench.py's batch: 15 % MLM labels, lengths in [S/2, S], the MLM
+        # labels -100 on the padding
+        bcfg = bert_base(max_seq_len=seq)
+        rng = np.random.default_rng(0)
+        b_ids = rng.integers(0, bcfg.vocab_size, (batch, seq))
+        mlm = np.where(rng.random((batch, seq)) < 0.15, b_ids, -100)
+        nsp = rng.integers(0, 2, (batch,))
+        lens = rng.integers(seq // 2, seq + 1, (batch,))
+        amask = np.arange(seq)[None, :] < lens[:, None]
+        inputs = [torch.as_tensor(a, device="cuda") for a in (
+            b_ids, np.where(amask, mlm, -100), nsp, amask.astype(np.int32))]
+        step = TrainStep(Bert(bcfg, device="cuda"), bert_pretrain_loss,
+                         AdamW(learning_rate=1e-4), amp_level="O2",
+                         amp_dtype="bfloat16")
+        requests = {"bert_train_step_padded": lambda: step(*inputs)}
+    elif args.train and args.fused:
         set_flags({"gpt_fused_ce": True})
         sched = sched_lr.LinearWarmup(
             sched_lr.CosineAnnealingDecay(1.5e-4, T_max=100),
@@ -181,7 +235,7 @@ def main(argv=None) -> int:
                     "loss_unfused": lambda: loss(False),
                     "loss_fused": lambda: loss(True)}
     # serving records no tape; training needs it
-    with contextlib.nullcontext() if args.train else torch.inference_mode():
+    with contextlib.nullcontext() if training else torch.inference_mode():
         for fn in requests.values():      # builds the kernels, warms up
             fn()
             fn()
@@ -189,8 +243,8 @@ def main(argv=None) -> int:
                    for name, fn in requests.items()}
     for name, (wall, traced, groups, busy, top) in results.items():
         print(json.dumps({
-            "request": name, "batch": batch, "seq": args.seq,
-            "wall_ms": wall, "tokens_per_s": batch * args.seq / wall
+            "request": name, "batch": batch, "seq": seq,
+            "wall_ms": wall, "tokens_per_s": batch * seq / wall
             * 1e3, "traced_wall_ms": traced, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / traced),
             "device_ms_by_group": dict(sorted(groups.items(),

@@ -7,12 +7,13 @@ skip.  On a machine with one:
 Tolerances: f32 outputs 1e-4 (summation order only); bf16 outputs 2e-2
 (a few bf16 ulps of O(1) values); f32 lse / logz from bf16 inputs 1e-3.
 bf16 gradients: max |got - want| / (|want| + rms(want)) per tensor at most
-0.1 for the flash backward and 0.03 for the fused CE backward, the measure
-and limits of chip_smoke.py.  Both sides round to bf16, so an entry may
-differ by an ulp of itself; the rms floor keeps an error among the many
-small gradients from hiding behind the few large ones
-(tests/test_torch_flash_attention.py and tests/test_torch_fused_ce.py show
-each limit flags a dropped tile or fragment).  The fused Adam kernel repeats its plain version's f32
+0.1 for the flash backward, 0.05 for the flash dbias and 0.03 for the fused
+CE backward, the measure and limits of chip_smoke.py.  Both sides round to
+bf16, so an entry may differ by an ulp of itself; the rms floor keeps an
+error among the many small gradients from hiding behind the few large ones
+(tests/test_torch_flash_attention.py, tests/test_torch_flash_mask.py and
+tests/test_torch_fused_ce.py show each limit flags a dropped tile, term or
+fragment).  The fused Adam kernel repeats its plain version's f32
 arithmetic: moments to 1e-6 relative, each parameter's move to 1e-3 of the
 move.
 """
@@ -131,6 +132,148 @@ def test_flash_autograd_on_card_matches_plain(gen, dtype):
             _close_grad(g, c, TOL_GRAD_BF16)
         else:
             _close(g, c, 1e-4)
+
+
+TOL_DBIAS_BF16 = 0.05
+
+
+def _masked_case(gen, dtype, bias_shape, bias_dtype, segs, b=2, h=3, s=256,
+                 d=64):
+    """Folded q, k, v, do and the mask of one masked call."""
+    qt, kt, vt, dot = (_rand(gen, (b * h, s, d), dtype) for _ in range(4))
+    bias = None if bias_shape is None else _rand(gen, bias_shape, bias_dtype)
+    q_seg = kv_seg = None
+    if segs:
+        pos = torch.arange(s, device="cuda")
+        q_seg = (pos // 96).int().expand(b, s).contiguous()
+        kv_seg = (pos // 64).int().expand(b, s).contiguous()
+    return qt, kt, vt, dot, fa.Mask(bias, q_seg, kv_seg, h)
+
+
+# each bias class, f32 and bf16 biases, segment ids, and both together
+_MASKED = [((1, 1, 1, 256), torch.float32, False, False),
+           ((1, 3, 256, 256), torch.bfloat16, False, True),
+           ((2, 1, 1, 256), torch.float32, False, True),
+           ((2, 3, 256, 256), torch.float32, False, False),
+           ((1, 1, 256, 256), torch.bfloat16, False, False),
+           ((2, 3, 1, 256), torch.bfloat16, False, True),
+           ((1, 3, 1, 256), torch.float32, False, False),
+           ((2, 1, 256, 256), torch.bfloat16, False, True),
+           (None, None, True, False), (None, None, True, True),
+           ((1, 3, 256, 256), torch.float32, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias_shape,bias_dtype,segs,causal", _MASKED)
+def test_masked_flash_kernels_match_plain(gen, dtype, bias_shape, bias_dtype,
+                                          segs, causal):
+    qt, kt, vt, dot, mask = _masked_case(gen, dtype, bias_shape, bias_dtype,
+                                         segs)
+    bf16 = dtype == torch.bfloat16
+    before = (fa.launches_masked, fa.launches_dq_masked,
+              fa.launches_dkv_masked, fa.launches_dbias)
+    out, lse = fa._launch(qt, kt, vt, 0.125, causal, mask)
+    out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, 0.125, causal,
+                                                mask)
+    got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, 0.125, causal, mask,
+                         dbias=mask.bias is not None)
+    want = fa._bwd_reference(qt, kt, vt, out_p, lse_p, dot, 0.125, causal,
+                             mask, dbias=mask.bias is not None)
+    torch.cuda.synchronize()
+    has_bias = int(mask.bias is not None)
+    assert (fa.launches_masked, fa.launches_dq_masked,
+            fa.launches_dkv_masked, fa.launches_dbias) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + has_bias)
+    _close(out, out_p, 2e-2 if bf16 else 1e-4)
+    _close(lse, lse_p, 1e-3 if bf16 else 1e-4)
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == dtype and g.shape == w.shape
+        if bf16:
+            _close_grad(g, w, TOL_GRAD_BF16)
+        else:
+            _close(g, w, 1e-4)
+    if has_bias:
+        assert got[3].dtype == bias_dtype and got[3].shape == bias_shape
+        if bf16:
+            _close_grad(got[3], want[3], TOL_DBIAS_BF16)
+        else:
+            _close(got[3], want[3], 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bool_mask_rows_with_no_key_are_exact_zeros(gen, dtype):
+    qt, kt, vt, dot, _ = _masked_case(gen, dtype, None, None, False)
+    keep = torch.ones(2, 1, 256, 256, dtype=torch.bool, device="cuda")
+    keep[0, :, :70] = False
+    keep[1, :, 200:] = False
+    bias = fa._canon_bias(keep, 2, 3, 256, 256)
+    mask = fa.Mask(bias, None, None, 3)
+    out, lse = fa._launch(qt, kt, vt, 0.125, False, mask)
+    dq, dk, dv, db = fa._launch_bwd(qt, kt, vt, out, lse, dot, 0.125, False,
+                                    mask, dbias=True)
+    torch.cuda.synchronize()
+    for t in (out, dq):
+        assert float(t[:3, :70].abs().max()) == 0.0
+        assert float(t[3:, 200:].abs().max()) == 0.0
+    assert bool(torch.isneginf(lse[:3, :70]).all())
+    assert bool(torch.isfinite(dk).all() and torch.isfinite(dv).all())
+    assert float(db[0, 0, :70].abs().max()) == 0.0
+    out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, 0.125, False,
+                                                mask)
+    _close(out, out_p, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+    _close(lse, lse_p, 1e-3 if dtype == torch.bfloat16 else 1e-4)
+
+
+def test_masked_kernels_reject_what_they_do_not_take(gen):
+    qt, kt, vt, _, mask = _masked_case(gen, torch.bfloat16, (2, 1, 1, 256),
+                                       torch.float32, False)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fa._launch(qt[:, :192].contiguous(), kt[:, :192].contiguous(),
+                   vt[:, :192].contiguous(), 0.125, False,
+                   fa.Mask(mask.bias[..., :192].contiguous(), None, None, 3))
+    with pytest.raises(ValueError, match="not canonical"):
+        fa._launch(qt, kt, vt, 0.125, False,
+                   fa.Mask(mask.bias[:1, :1, :1, :128].contiguous(), None,
+                           None, 3))
+    with pytest.raises(ValueError, match="float32 or bfloat16 bias"):
+        fa._launch(qt, kt, vt, 0.125, False,
+                   fa.Mask(mask.bias.half(), None, None, 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_learned_bias_autograd_on_card_matches_cpu(gen, dtype):
+    q, k, v = (_rand(gen, (2, 256, 4, 64), dtype).requires_grad_()
+               for _ in range(3))
+    bias = _rand(gen, (1, 4, 256, 256), dtype).requires_grad_()
+    w = _rand(gen, (2, 256, 4, 64), dtype)
+    before = fa.launches_dbias
+    (fa.flash_attention(q, k, v, bias=bias) * w).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches_dbias == before + 1
+    qc, kc, vc, bc = (t.detach().cpu().requires_grad_()
+                      for t in (q, k, v, bias))
+    (fa.flash_attention(qc, kc, vc, bias=bc) * w.cpu()).sum().backward()
+    for g, c in zip((q.grad, k.grad, v.grad), (qc.grad, kc.grad, vc.grad)):
+        if dtype == torch.bfloat16:
+            _close_grad(g, c, TOL_GRAD_BF16)
+        else:
+            _close(g, c, 1e-4)
+    if dtype == torch.bfloat16:
+        _close_grad(bias.grad, bc.grad, TOL_DBIAS_BF16)
+    else:
+        _close(bias.grad, bc.grad, 1e-4)
+
+
+def test_padding_mask_never_launches_dbias(gen):
+    q, k, v = (_rand(gen, (2, 256, 4, 64), torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    keep = torch.ones(2, 1, 1, 256, dtype=torch.bool, device="cuda")
+    keep[1, ..., 150:] = False
+    before = (fa.launches_dq_masked, fa.launches_dbias)
+    fa.flash_attention(q, k, v, bias=keep).sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches_dq_masked, fa.launches_dbias) == (before[0] + 1,
+                                                          before[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -96,7 +96,7 @@ def test_dense_fallback_matches_reference(causal):
     ((2, 256, 4, 256), (2, 256, 4, 256), False, True),
 ])
 def test_supported_follows_reference_rule(q_shape, k_shape, causal, want):
-    assert tfa.supported(q_shape, k_shape, causal) is want
+    assert tfa.supported(q_shape, k_shape, causal=causal) is want
     jfa._INTERPRET = True                # the reference rule, sans backend
     assert jfa.supported(q_shape, k_shape, True, causal=causal) is want
 
