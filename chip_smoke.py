@@ -48,10 +48,32 @@ Phases, in order; any failure ends the script with a non-zero exit:
              as its src_mask: 5 O2 AdamW steps on a mean-square loss at
              B=128, S=128, 12 launches of each masked kernel and of dbias
              a step.  Counters set to 0 just before each of phases 6-8.
-9. timing  — each kernel, its plain version, the one-call PyTorch yardstick
+9. zero    — the row quantizer #9 bitwise against its plain codec over a
+             boundary corpus (widths 1 to 1024, 1 to 100k rows, ties, zero
+             and NaN/inf rows) and on GPT-2 345M's gradient in 256-wide
+             rows; then bench.py's bench_gpt2_zero step, GPT-2 345M at full
+             width and depth, B=8, S=1024, O2 bf16, AdamW(1e-4), through
+             ShardedUpdateTrainStep at world size 1 over NCCL: TrainStep
+             against itself, then the f32 wire (bitwise TrainStep), bf16,
+             int8 and int4 (32 #9 launches a step) and the int4 ring (none:
+             dp = 1 returns before encoding; bitwise the f32 wire), and the
+             int8 step through the plain codec (bitwise the kernel's); then
+             the int8 / int4 ring primitives at dp = 2 and 4 (ranks as
+             threads, a 1024 x 4096 leaf a rank) bitwise the same ring on
+             the CPU and within the codec's envelope of the exact sum, a
+             mis-seated hop planted outside it; then dp = 2 simulated as two
+             threads at GPT-2 345M's width and 2 layers: f32 ZeRO bitwise
+             the replicated step, int8 and the int4 ring with exact per-rank
+             #9 counts, bitwise the same steps through the plain codec,
+             replicas bitwise equal after every step, losses within
+             TOL_ZERO_LOSS of the f32 run and planted faults (parameters
+             left unchanged, a mis-seated hop, a wrong qmax) read beside it.
+             Counters set to 0 before each run.
+10. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
              masked kernels and dbias at BERT-base's layer, and the flash
-             kernel against the dense path there; tokens/s of the forward.
+             kernel against the dense path there; #9 on GPT-2 345M's
+             gradient; tokens/s of the forward.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -108,6 +130,26 @@ BERT_B, BERT_S, BERT_HEADS = 128, 128, 12   # bench.py's BERT-base batch
 TOL_ONES_MASK = 2e-2           # all-ones mask vs no mask, bf16 loss
 LR_PEAK = 1.5e-4               # Megatron-LM's GPT-2 345M rate
 CLIP_SMALL = 0.05              # binds on the small GPT's first gradients
+QUANT_WIDTHS = (1, 8, 13, 127, 128, 255, 256, 384, 1024)
+QUANT_ROWS = (1, 7, 300, 100_000)
+ZERO_STEPS = 5                 # zero at world size 1: steps per run
+ZERO_DP2_STEPS = 3             # simulated dp = 2: steps per run
+# zero: the wires of bench.py's bench_gpt2_zero step, (wire, ring)
+ZERO_WIRES = (("f32", False), ("bf16", False), ("int8", False),
+              ("int4", False), ("int4", True))
+ZERO_LEAVES = 16               # GPT's parameter tensors: #9 launches a leg
+ZERO_DP2_LAYERS = 2            # simulated dp = 2: GPT-2 345M's width, 2 layers
+# simulated dp = 2: |loss(quantized wire) - loss(f32 wire)| at every step.
+# The quantized all-gather re-encodes the parameters each step, so at lr
+# 1e-4 most moves round back onto the grid and the quantized runs partly
+# stall while the f32 run falls (0.884 over the 3 steps; the int8 run left
+# it by 0.333, the int4 ring by 0.451, H100 80GB HBM3 at 700 W).  The limit
+# sits midway between the int4 ring and the smallest planted fault, a ring
+# hop one seat off (0.647); parameters no step changes read 0.884 (PERF.md,
+# Findings).  Every run is bitwise reproducible on the card.  The check
+# reads the faults on each run and fails if one is not above this.
+TOL_ZERO_LOSS = 0.55
+RING_LEAF = 1024 * 4096        # ring primitives: values a rank, one MLP leaf
 
 
 def log(msg):
@@ -693,6 +735,209 @@ def check_small_encoder(nn, fa):
     return err
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def quant_rows(g, r, d):
+    """(r, d) f32 rows for the row quantizer: a zero row (scale 1) and, in
+    the last row, 127 beside .5 ties (scale 1 on the int8 wire)."""
+    import torch
+    x = torch.randn(r, d, generator=g, device="cuda") * 3
+    x[0] = 0.0
+    if d >= 4:
+        x[-1, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5])
+    return x
+
+
+def check_ring_quant(g, rq):
+    """#9 against its plain codec, bitwise, over the boundary corpus (every
+    width of QUANT_WIDTHS at every row count of QUANT_ROWS, both wires),
+    then rows holding NaN or inf (their scale, and the finite rows)."""
+    import torch
+    n = 0
+    for wire in ("int8", "int4"):
+        for d in QUANT_WIDTHS:
+            for r in QUANT_ROWS:
+                x = quant_rows(g, r, d)
+                q, s = rq._launch(x, wire)
+                qp, sp = rq.ring_quant_rows_reference(x, wire)
+                if not (torch.equal(q, qp) and torch.equal(s, sp)):
+                    fail(f"ring_quant {wire} rows={r} d={d} differs from "
+                         "its plain codec")
+                n += 1
+        x = quant_rows(g, 300, 256)
+        x[1, 5], x[2, 7], x[3, 0] = float("nan"), float("inf"), -float("inf")
+        q, s = rq._launch(x, wire)
+        qp, sp = rq.ring_quant_rows_reference(x, wire)
+        if not (torch.equal(s, sp) and torch.equal(q[4:], qp[4:])
+                and torch.equal(q[0], qp[0]) and float(s[1]) == 1.0):
+            fail(f"ring_quant {wire} rows with NaN or inf: scales or finite "
+                 "rows differ from the plain codec")
+        n += 1
+    log(f"check ring_quant int8 and int4, widths {QUANT_WIDTHS} x rows "
+        f"{QUANT_ROWS}, ties, zero rows, NaN/inf rows: {n} calls bitwise "
+        "equal to the plain codec ok")
+
+
+def misseated_reduce_scatter(gflat, mesh, *, chunk=256, wire="f32"):
+    """A planted fault: parallel/ring.py's quantized reduce-scatter with
+    every hop adding the local block one seat off."""
+    import torch
+    from paddle_tpu_torch.distributed.wire import (dequantize_rows_torch,
+                                                   quantize_rows_torch)
+    n, idx, group = mesh.shape["dp"], mesh.rank, mesh.group
+    blocks = gflat.to(torch.float32).reshape(n, -1, chunk)
+    q = quantize_rows_torch(blocks[(idx - 1) % n], wire)
+    for t in range(n - 1):
+        part = dequantize_rows_torch(group.ring_shift(q), wire) + blocks[
+            (idx - t - 1) % n]
+        q = quantize_rows_torch(part, wire)
+    return dequantize_rows_torch(q, wire).reshape(-1)
+
+
+def ring_excess(x, s, g, qmax):
+    """How far the ring's reduce-scattered sums ``s`` (rank order) and a
+    rank's gathered vector ``g`` exceed their envelopes, in 256-wide rows
+    of the ranks' vectors ``x`` (n, L): a sum within n codec steps of the
+    largest partial, n * max|row of sum_r |x_r|| / qmax (the bound of the
+    reference's test_quantized_rs_tracks_exact_sum, row by row), and the
+    gathered copy within one codec step of the sums.  <= 0 is sound."""
+    import torch
+    want = x.sum(0).view(-1, 256)
+    env = x.abs().sum(0).view(-1, 256).amax(1, keepdim=True) \
+        * x.shape[0] / qmax
+    got = torch.cat(s).view(-1, 256)
+    step = got.abs().amax(1, keepdim=True) / qmax
+    return max(float(((got - want).abs() - env).max()),
+               float(((g.view(-1, 256) - got).abs() - step).max()))
+
+
+def check_ring_primitives(g, rq, World):
+    """The int8 / int4 ring_reduce_scatter and ring_all_gather at dp = 2
+    and 4, ranks simulated as threads, RING_LEAF values a rank: through #9
+    bitwise the same ring on the CPU (the plain codec), every rank's
+    gathered copy the same bits, within ring_excess's envelopes; a
+    mis-seated hop planted outside them.  Returns the largest sound and the
+    smallest faulty excess."""
+    import torch
+    from paddle_tpu_torch.parallel.ring import (ring_all_gather,
+                                                ring_reduce_scatter)
+    sound, fault = -math.inf, math.inf
+    for n in (2, 4):
+        x = torch.randn(n, RING_LEAF, generator=g, device="cuda")
+        for wire, qmax in (("int8", 127.0), ("int4", 7.0)):
+            def pair(xs, rs=ring_reduce_scatter):
+                def fn(rank, mesh):
+                    s = rs(xs[rank], mesh, wire=wire)
+                    return s, ring_all_gather(s, mesh, wire=wire)
+                return World(n).run(fn)
+            got, cpu = pair(x), pair(x.cpu())
+            for (s, a), (sc, ac) in zip(got, cpu):
+                if not (torch.equal(s.cpu(), sc) and torch.equal(a.cpu(), ac)
+                        and torch.equal(a, got[0][1])):
+                    fail(f"ring dp={n} {wire}: the card's ring differs from "
+                         "the CPU's or its ranks gathered different bits")
+            ex = ring_excess(x, [s for s, _ in got], got[0][1], qmax)
+            bad = pair(x, misseated_reduce_scatter)
+            ex_bad = ring_excess(x, [s for s, _ in bad], bad[0][1], qmax)
+            log(f"check ring dp={n} {wire}, {RING_LEAF} values a rank: "
+                f"bitwise the CPU ring, gathered copies equal; excess over "
+                f"the envelope {ex:.4g} (a mis-seated hop {ex_bad:.4g})")
+            if ex > 0 or not ex_bad > 0:
+                fail(f"ring dp={n} {wire}: outside its envelope, or the "
+                     "envelope holds a mis-seated hop")
+            sound, fault = max(sound, ex), min(fault, ex_bad)
+        del x
+    return sound, fault
+
+
+def gradient_rows(GPT, gpt_loss, cfg, ids_t, functional_loss_call):
+    """GPT-2 345M's O2 gradient of gpt_loss on one batch, each leaf flat
+    and cut into 256-wide rows, as the ZeRO legs cut it: (R, 256) f32."""
+    import torch
+    model = GPT(cfg, device="cuda")
+    params = dict(model.named_parameters())
+    loss = functional_loss_call(model, gpt_loss, params, [ids_t, ids_t],
+                                amp=True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if any(g.numel() % 256 for g in grads):
+        fail("a GPT-2 345M leaf is not a multiple of 256 values")
+    return torch.cat([g.reshape(-1) for g in grads]).view(-1, 256)
+
+
+def params_diff(a, b):
+    """max |a - b| over every parameter of two {name: tensor} maps."""
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def zero_run(model, init, make_step, ids_t, rq, fa, steps=ZERO_STEPS):
+    """``steps`` steps of ``make_step()`` from the parameters ``init`` on
+    one batch: losses, the #9 and flash launch counts after each step, the
+    step ms (CUDA events, the steps after the first), the peak bytes of the
+    model and its step and the final parameters."""
+    import torch
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    step = make_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # peak bytes of the model and its step alone: the snapshots this phase
+    # holds beside them are left out
+    held = torch.cuda.memory_allocated() - sum(
+        p.numel() * p.element_size() for p in model.parameters())
+    rq.launches = 0
+    reset_fa(fa)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    losses, quant, flash = [], [], []
+    for i in range(steps):
+        if i == 1:
+            e0.record()
+        losses.append(step(ids_t, ids_t))
+        quant.append(rq.launches)
+        flash.append(fa_counts(fa)[:3])
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (steps - 1)
+    return {"losses": [float(x) for x in losses], "quant": quant,
+            "flash": flash, "step_ms": ms,
+            "peak_bytes": torch.cuda.max_memory_allocated() - held,
+            "params": {n: p.detach().clone()
+                       for n, p in model.named_parameters()},
+            "step": step}
+
+
+def zero_dp2_run(models, init, make_step, ids_t, rq, World):
+    """ZERO_DP2_STEPS steps on two ranks simulated as threads, each on its
+    own replica: per rank, the losses, its own #9 launch count and its
+    parameters after every step."""
+    import torch
+    with torch.no_grad():
+        for m in models:
+            for n, p in m.named_parameters():
+                p.copy_(init[n])
+
+    def rank_fn(rank, mesh):
+        step = make_step(models[rank], mesh)
+        losses, quant, snaps = [], [], []
+        for _ in range(ZERO_DP2_STEPS):
+            losses.append(float(step(ids_t, ids_t)))
+            quant.append(rq.thread_launches())
+            snaps.append({n: p.detach().clone()
+                          for n, p in models[rank].named_parameters()})
+        return {"losses": losses, "quant": quant, "snaps": snaps,
+                "wire_bytes": getattr(step, "collective_wire_bytes",
+                                      lambda: None)(),
+                "opt_bytes": getattr(step, "opt_state_bytes_per_replica",
+                                     lambda: None)()}
+    return World(2).run(rank_fn)
+
+
 FA_COUNTERS = ("launches", "launches_dq", "launches_dkv", "launches_masked",
                "launches_dq_masked", "launches_dkv_masked", "launches_dbias")
 
@@ -705,6 +950,296 @@ def fa_counts(fa):
 def reset_fa(fa):
     for n in FA_COUNTERS:
         setattr(fa, n, 0)
+
+
+def zero_phase(g, cfg, ids_t, fa):
+    """Phase 9: the row quantizer #9 against its plain codec, bench.py's
+    bench_gpt2_zero step at world size 1 over NCCL on every wire, and dp = 2
+    simulated as two threads at GPT-2 345M's width.  Returns the readings,
+    the gradient rows #9 is timed on (``grows``) and #9's launches on the
+    main path by wire (``launches``)."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed.wire import wire_nbytes
+    from paddle_tpu_torch.jit import TrainStep, functional_loss_call
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss
+    from paddle_tpu_torch.ops.cuda import ring_quant
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import init_process_group, make_mesh
+    from paddle_tpu_torch.parallel.dp_meta import \
+        CompressedAllReduceTrainStep
+    from paddle_tpu_torch.parallel.mesh import LoopbackWorld
+    from paddle_tpu_torch.parallel.zero import (ShardedUpdateTrainStep,
+                                                build_shard_specs)
+    L = cfg.num_layers
+
+    check_ring_quant(g, ring_quant)
+    ring_ex = dict(zip(("sound", "misseated"),
+                       check_ring_primitives(g, ring_quant, LoopbackWorld)))
+    grows = gradient_rows(GPT, gpt_loss, cfg, ids_t, functional_loss_call)
+    quant_err = 0.0
+    for wire in ("int8", "int4"):
+        q, s = ring_quant._launch(grows, wire)
+        qp, sp = ring_quant.ring_quant_rows_reference(grows, wire)
+        quant_err = max(quant_err, max_err(q, qp), max_err(s, sp))
+        if not (torch.equal(q, qp) and torch.equal(s, sp)):
+            fail(f"ring_quant {wire} on GPT-2 345M's gradient differs from "
+                 f"its plain codec by {quant_err:.3g}")
+    del q, s, qp, sp
+    log(f"check ring_quant int8 and int4 on GPT-2 345M's O2 gradient in "
+        f"{grows.shape[0]} rows of 256: bitwise equal to the plain codec ok")
+
+    amp = dict(amp_level="O2", amp_dtype="bfloat16")
+    init_process_group("cuda", rank=0, world_size=1,
+                       init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = make_mesh({"dp": 1})
+        zmodel = GPT(cfg, device="cuda")              # f32 masters
+        zinit = {n: p.detach().clone() for n, p in zmodel.named_parameters()}
+        log(f"zero: GPT-2 345M, world size 1 over NCCL ({dist.get_backend()}"
+            f"), AdamW(learning_rate=1e-4), O2 bf16, B={B}, S={S}, "
+            f"{ZERO_STEPS} steps on one batch per run, timed after the "
+            "first")
+
+        def trainstep():
+            return TrainStep(zmodel, gpt_loss, AdamW(learning_rate=1e-4),
+                             **amp)
+
+        def sharded(wire, ring):
+            return lambda: ShardedUpdateTrainStep(
+                zmodel, gpt_loss, AdamW(learning_rate=1e-4), mesh=mesh,
+                wire_dtype=wire, ring=ring, **amp)
+
+        ref = zero_run(zmodel, zinit, trainstep, ids_t, ring_quant, fa)
+        again = zero_run(zmodel, zinit, trainstep, ids_t, ring_quant, fa)
+        repro = max(params_diff(again["params"], ref["params"]),
+                    max(abs(a - b) for a, b in zip(again["losses"],
+                                                   ref["losses"])))
+        log(f"zero: TrainStep against itself, {ZERO_STEPS} steps: losses "
+            f"{ref['losses']}, max |difference| of losses and parameters "
+            f"{repro:.3g} ({'bitwise' if repro == 0 else 'not bitwise'})")
+        del again
+        zero_runs, zero_launch = {}, {}
+        for wire, ring in ZERO_WIRES:
+            key = f"{wire}{'-ring' if ring else ''}"
+            r = zero_run(zmodel, zinit, sharded(wire, ring), ids_t,
+                         ring_quant, fa)
+            per = 0 if wire in ("f32", "bf16") or ring else 2 * ZERO_LEAVES
+            want_q = [per * (i + 1) for i in range(ZERO_STEPS)]
+            want_f = [(L * (i + 1),) * 3 for i in range(ZERO_STEPS)]
+            if r["quant"] != want_q or r["flash"] != want_f:
+                fail(f"zero {key}: ring_quant launches {r['quant']} != "
+                     f"{want_q}, flash (fwd, dq, dk/dv) {r['flash']} != "
+                     f"{want_f}")
+            if not all(math.isfinite(x) for x in r["losses"]):
+                fail(f"zero {key}: a loss is not finite")
+            if r["losses"][0] != ref["losses"][0]:
+                fail(f"zero {key}: the first loss {r['losses'][0]} is not "
+                     f"the TrainStep's {ref['losses'][0]}")
+            if key in ("f32", "int4-ring"):
+                d = max(params_diff(r["params"], ref["params"]),
+                        max(abs(a - b) for a, b in zip(r["losses"],
+                                                       ref["losses"])))
+                if d > repro:
+                    fail(f"zero {key}: differs from TrainStep by {d:.3g}, "
+                         f"more than TrainStep from itself ({repro:.3g})")
+            zero_launch[key] = r["quant"][-1]
+            zero_runs[key] = {
+                "losses": r["losses"], "step_ms": r["step_ms"],
+                "tokens_per_s": B * S / r["step_ms"] * 1e3,
+                "peak_bytes": r["peak_bytes"],
+                "opt_state_bytes_per_replica":
+                    r["step"].opt_state_bytes_per_replica()}
+            log(f"zero {key}: losses {r['losses']}, ring_quant launches "
+                f"{r['quant']}, step {r['step_ms']:.3f} ms, "
+                f"{B * S / r['step_ms'] * 1e3:.1f} training tokens/s, "
+                f"max_memory_allocated {r['peak_bytes']} bytes")
+            del r
+        zero_runs["trainstep"] = {
+            "losses": ref["losses"], "step_ms": ref["step_ms"],
+            "tokens_per_s": B * S / ref["step_ms"] * 1e3,
+            "peak_bytes": ref["peak_bytes"]}
+        # the int8 step with the plain codec in place of #9: the same bits
+        plain_rq = ring_quant.ring_quant_rows
+        ring_quant.ring_quant_rows = ring_quant.ring_quant_rows_reference
+        try:
+            plain = zero_run(zmodel, zinit, sharded("int8", False), ids_t,
+                             ring_quant, fa)
+        finally:
+            ring_quant.ring_quant_rows = plain_rq
+        kern = zero_run(zmodel, zinit, sharded("int8", False), ids_t,
+                        ring_quant, fa)
+        d_plain = max(params_diff(kern["params"], plain["params"]),
+                      max(abs(a - b) for a, b in zip(kern["losses"],
+                                                     plain["losses"])))
+        log(f"zero int8: the step through #9 against the step through the "
+            f"plain codec, {ZERO_STEPS} steps: max |difference| of losses and "
+            f"parameters {d_plain:.3g} (TrainStep against itself "
+            f"{repro:.3g})")
+        if plain["quant"][-1] != 0 or d_plain > repro:
+            fail("zero int8 through #9 differs from the plain codec's step")
+        zero_launch["int8"] += kern["quant"][-1]
+        specs = build_shard_specs(zinit, 2)
+        del ref, plain, kern, zmodel, zinit
+        torch.cuda.empty_cache()
+        wire_bytes_dp2 = {
+            w: sum(wire_nbytes(s.shard_len, w, row=256)
+                   for s in specs.values()) for w in ("f32", "bf16", "int8",
+                                                      "int4")}
+        log(f"zero: analytic wire bytes a rank ships per leg per step at "
+            f"dp = 2, GPT-2 345M: {wire_bytes_dp2}")
+    finally:
+        dist.destroy_process_group()
+
+    # simulated dp = 2: two ranks as threads, each on its own replica
+    cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+                     vocab_size=cfg.vocab_size, max_seq_len=S,
+                     num_layers=ZERO_DP2_LAYERS)
+    models2 = [GPT(cfg2, device="cuda") for _ in range(2)]
+    init2 = {n: p.detach().clone() for n, p in models2[0].named_parameters()}
+    log(f"zero dp=2 (simulated: two ranks as threads on one card): GPT-2 "
+        f"345M's width, {ZERO_DP2_LAYERS} layers, global batch {B} x {S}, "
+        f"AdamW(learning_rate=1e-4), O2 bf16, {ZERO_DP2_STEPS} steps")
+
+    def dp2(kind, wire="f32", ring=False, cls=ShardedUpdateTrainStep):
+        def make(model, m2):
+            opt = AdamW(learning_rate=1e-4)
+            if kind == "replicated":
+                return CompressedAllReduceTrainStep(
+                    model, gpt_loss, opt, mesh=m2, compress_dtype="float32",
+                    **amp)
+            return cls(model, gpt_loss, opt, mesh=m2, wire_dtype=wire,
+                       ring=ring, **amp)
+        reset_fa(fa)
+        out = zero_dp2_run(models2, init2, make, ids_t, ring_quant,
+                           LoopbackWorld)
+        if fa_counts(fa)[:3] != (2 * ZERO_DP2_STEPS * ZERO_DP2_LAYERS,) * 3:
+            fail(f"zero dp=2 {kind} {wire}: flash launches "
+                 f"{fa_counts(fa)[:3]}")
+        return out
+
+    class FaultyGather(ShardedUpdateTrainStep):
+        """A planted fault: the all-gather decodes int8 with int4's qmax."""
+
+        def _all_gather(self, shard):
+            return super()._all_gather(shard) * (127.0 / 7.0)
+
+    class StalledGather(ShardedUpdateTrainStep):
+        """A planted fault: the all-gather leaves the parameters as they
+        were, so no step changes them."""
+
+        def __call__(self, *inputs):
+            keep = [p.detach().clone() for p in self.model.parameters()]
+            loss = super().__call__(*inputs)
+            with torch.no_grad():
+                for p, k in zip(self.model.parameters(), keep):
+                    p.copy_(k)
+            return loss
+
+    class MisseatedRing(ShardedUpdateTrainStep):
+        """A planted fault: the ring reduce-scatter's hops add the local
+        block one seat off."""
+
+        def _reduce_scatter(self, gflat):
+            return misseated_reduce_scatter(gflat, self.mesh,
+                                            chunk=self.chunk,
+                                            wire=self.wire) / self.dp
+
+    rep = dp2("replicated")
+    rep_again = dp2("replicated")
+    repro2 = max(params_diff(a["snaps"][-1], b["snaps"][-1])
+                 for a, b in zip(rep, rep_again))
+    z32 = dp2("zero")
+    d32 = max(params_diff(a["snaps"][-1], b["snaps"][-1])
+              for a, b in zip(z32, rep))
+    d32 = max([d32] + [abs(x - y) for a, b in zip(z32, rep)
+                       for x, y in zip(a["losses"], b["losses"])])
+    log(f"zero dp=2 f32: losses {z32[0]['losses']}; against the replicated "
+        f"step max |difference| {d32:.3g} (replicated against itself "
+        f"{repro2:.3g})")
+    if d32 > repro2:
+        fail("zero dp=2 f32 differs from the replicated step by more than "
+             "the replicated step from itself")
+    del rep, rep_again
+    dp2_rows = {"f32": {"losses": z32[0]["losses"],
+                        "opt_state_bytes_per_replica": z32[0]["opt_bytes"],
+                        "wire_bytes": z32[0]["wire_bytes"]}}
+    drift, plain_d = {}, {}
+    # (key, wire, ring, #9 launches a step per rank, step class)
+    runs = (("int8", "int8", False, 2 * ZERO_LEAVES, ShardedUpdateTrainStep),
+            ("int4-ring", "int4", True, 3 * ZERO_LEAVES,
+             ShardedUpdateTrainStep),
+            ("int8-stalled", "int8", False, 2 * ZERO_LEAVES, StalledGather),
+            ("int4-ring-misseated", "int4", True, 3 * ZERO_LEAVES,
+             MisseatedRing),
+            ("int8-qmax", "int8", False, 2 * ZERO_LEAVES, FaultyGather))
+    faults = [key for key, *_, cls in runs
+              if cls is not ShardedUpdateTrainStep]
+    for key, wire, ring, per, cls in runs:
+        ranks = dp2("zero", wire, ring, cls)
+        want = [per * (i + 1) for i in range(ZERO_DP2_STEPS)]
+        for r, got in enumerate(ranks):
+            if got["quant"] != want:
+                fail(f"zero dp=2 {key}: rank {r} launched ring_quant "
+                     f"{got['quant']} != {want}")
+        for i in range(ZERO_DP2_STEPS):
+            if params_diff(ranks[0]["snaps"][i], ranks[1]["snaps"][i]) != 0:
+                fail(f"zero dp=2 {key}: the replicas differ after step {i}")
+        drift[key] = max(abs(x - y) for x, y in zip(ranks[0]["losses"],
+                                                    z32[0]["losses"]))
+        log(f"zero dp=2 {key}: losses {ranks[0]['losses']}, ring_quant "
+            f"launches per rank {[got['quant'] for got in ranks]}, replicas "
+            f"bitwise equal after every step, max |loss - f32 loss| "
+            f"{drift[key]:.4g} (limit {TOL_ZERO_LOSS:g})")
+        if key in faults:
+            del ranks
+            continue
+        # the same steps with the plain codec in place of #9: the same bits
+        plain_rq = ring_quant.ring_quant_rows
+        ring_quant.ring_quant_rows = ring_quant.ring_quant_rows_reference
+        try:
+            plain = dp2("zero", wire, ring)
+        finally:
+            ring_quant.ring_quant_rows = plain_rq
+        plain_d[key] = max(
+            max(params_diff(a["snaps"][i], b["snaps"][i])
+                for i in range(ZERO_DP2_STEPS)) for a, b in zip(ranks, plain))
+        plain_d[key] = max([plain_d[key]] + [
+            abs(x - y) for a, b in zip(ranks, plain)
+            for x, y in zip(a["losses"], b["losses"])])
+        log(f"zero dp=2 {key}: through #9 against through the plain codec, "
+            f"max |difference| of losses and parameters {plain_d[key]:.3g} "
+            f"(replicated against itself {repro2:.3g}); plain codec "
+            f"launches {[got['quant'][-1] for got in plain]}")
+        if plain_d[key] > repro2 or any(got["quant"][-1] for got in plain):
+            fail(f"zero dp=2 {key} through #9 differs from the plain "
+                 "codec's steps")
+        zero_launch[key] = zero_launch.get(key, 0) + sum(
+            got["quant"][-1] for got in ranks)
+        dp2_rows[key] = {"losses": ranks[0]["losses"],
+                         "wire_bytes": ranks[0]["wire_bytes"]}
+        del ranks, plain
+    if drift["int8"] > TOL_ZERO_LOSS or drift["int4-ring"] > TOL_ZERO_LOSS:
+        fail("zero dp=2: a quantized wire's loss left the f32 loss by more "
+             f"than {TOL_ZERO_LOSS}")
+    for key in faults:
+        if not drift[key] > TOL_ZERO_LOSS:
+            fail(f"zero dp=2: the planted fault {key} reads "
+                 f"{drift[key]:.4g}, not above the limit {TOL_ZERO_LOSS}")
+    del models2, init2, z32
+    torch.cuda.empty_cache()
+
+    return {"grows": grows, "quant_err": quant_err, "launches": zero_launch,
+            "summary": {
+                "zero_world1": zero_runs, "zero_trainstep_repro": repro,
+                "zero_int8_kernel_vs_plain_codec": d_plain,
+                "zero_wire_bytes_per_leg_dp2": wire_bytes_dp2,
+                "zero_dp2_simulated": dp2_rows,
+                "zero_dp2_f32_vs_replicated": d32,
+                "zero_dp2_replicated_repro": repro2,
+                "zero_dp2_loss_drift": drift,
+                "zero_dp2_kernel_vs_plain_codec": plain_d,
+                "zero_ring_envelope_excess": ring_ex}}
 
 
 def main() -> int:
@@ -727,6 +1262,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import fused_adam
     from paddle_tpu_torch.ops.cuda import fused_ce
+    from paddle_tpu_torch.ops.cuda import ring_quant
     from paddle_tpu_torch.optimizer import AdamW
 
     # f32 products in full f32 on both sides of every comparison
@@ -1267,7 +1803,11 @@ def main() -> int:
     del estep, enc, loss_t, ex, etarget
     torch.cuda.empty_cache()
 
-    # -- 9. timing ----------------------------------------------------------
+    # -- 9. zero ------------------------------------------------------------
+    z = zero_phase(g, cfg, ids_t, fa)
+    grows, quant_err, zero_launch = z["grows"], z["quant_err"], z["launches"]
+
+    # -- 10. timing ---------------------------------------------------------
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -1432,6 +1972,33 @@ def main() -> int:
                     "max_abs_err": adam_err, "ms": adam_ms,
                     "plain_ms": adam_plain, "bound_ms": adam_bound,
                     "bound_by": adam_by, "library_ms": adam_lib})
+
+    # the row quantizer #9 on GPT-2 345M's gradient in 256-wide rows: reads
+    # 4 B a value, writes 1 B (int8) or 0.5 B (int4) a value and 4 B a row.
+    # No one PyTorch call computes the codec: no library time.
+    nq, rq_n = grows.numel(), grows.shape[0]
+    for wire, out_b, launches in (
+            ("int8", 1.0, zero_launch["int8"]),
+            ("int4", 0.5, zero_launch["int4"] + zero_launch["int4-ring"])):
+        q_ms = cuda_ms(lambda: ring_quant._launch(grows, wire))
+        q_plain = cuda_ms(lambda: ring_quant.ring_quant_rows_reference(
+            grows, wire), reps=3)
+        q_bound, q_by = bound(5 * nq, (4 + out_b) * nq + 4 * rq_n,
+                              PEAK_F32_FLOPS)
+        table.append({"kernel": f"ring_quant {wire}",
+                      "shape": f"{rq_n} rows x 256 f32 (GPT-2 345M's "
+                               "gradient)",
+                      "kernel_ms": q_ms, "plain_ms": q_plain,
+                      "library_ms": None, "bound_ms": q_bound,
+                      "bound_by": q_by,
+                      "launches_per_step": 2 * ZERO_LEAVES})
+        kernels.append({"name": f"ring_quant_{wire}", "route": "cuda",
+                        "source": "paddle_tpu_torch/csrc/ring_quant.cu",
+                        "replaces": "paddle_tpu/ops/pallas/ring_quant.py:51",
+                        "launches": launches, "max_abs_err": quant_err,
+                        "ms": q_ms, "plain_ms": q_plain, "bound_ms": q_bound,
+                        "bound_by": q_by, "library_ms": None})
+    del grows
 
     # BERT-base's attention layer (B*H = 128*12, S = 128, D = 64, bf16,
     # non-causal): #1-#3 with the padding bias and without a mask, #4 in
@@ -1603,7 +2170,7 @@ def main() -> int:
         "bert_layer_flash_fwd_ms": layer_flash,
         "bert_layer_dense_fwd_ms": layer_dense,
         "bert_layer_flash_fwd_bwd_ms": layer_flash_fb,
-        "bert_layer_dense_fwd_bwd_ms": layer_dense_fb}))
+        "bert_layer_dense_fwd_bwd_ms": layer_dense_fb, **z["summary"]}))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

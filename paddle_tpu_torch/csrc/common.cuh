@@ -226,6 +226,65 @@ inline AttnMask make_mask(const void* bias, const int* qseg, const int* kseg,
   return AttnMask{bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads};
 }
 
+// Grid y holds the folded B*H axis, at most MAX_GRID_Y slices a launch.  A
+// call with more runs as several launches, each over a chunk of whole batch
+// entries (a multiple of `heads` slices, so the mask indices the kernels
+// derive from a slice stay right); the chunk's tensors start at its first
+// slice and its mask at that slice's batch entry (mask_at).  0: no chunk
+// fits (more than MAX_GRID_Y heads).
+constexpr int MAX_GRID_Y = 65535;
+
+inline int slice_chunk(const AttnMask& m) {
+  const int heads = m.heads > 0 ? m.heads : 1;
+  return MAX_GRID_Y / heads * heads;
+}
+
+// the mask of the chunk that starts at folded slice bh0, a multiple of heads
+inline AttnMask mask_at(const AttnMask& m, int bh0, int sq, int sk) {
+  AttnMask c = m;
+  if (bh0 == 0) return c;
+  const size_t b0 = (size_t)(bh0 / m.heads);
+  if (m.bias) {
+    const size_t first = (m.bb != 1 && m.hb != 1) ? (size_t)bh0
+                         : m.bb != 1                ? b0
+                                                    : 0;
+    const size_t off = first * m.sqb * sk;
+    c.bias = m.bias_bf16
+                 ? static_cast<const void*>(static_cast<const bf16*>(m.bias) +
+                                            off)
+                 : static_cast<const void*>(
+                       static_cast<const float*>(m.bias) + off);
+  }
+  if (m.qseg) {
+    c.qseg = m.qseg + b0 * sq;
+    c.kseg = m.kseg + b0 * sk;
+  }
+  return c;
+}
+
+// Calls fn(i0, n, m) for the chunks [i0, i0 + n) of [0, total), n at most
+// `chunk`: unit i0 starts at folded slice i0 * stride, m is the mask of that
+// slice's chunk (mask_at).  fn launches the chunk and returns its
+// cudaError_t; the first error stops the loop and is returned.
+template <class Fn>
+inline int for_each_chunk(const AttnMask& mask, int total, int chunk,
+                          int stride, int sq, int sk, Fn fn) {
+  for (int i0 = 0; i0 < total; i0 += chunk) {
+    const int n = total - i0 < chunk ? total - i0 : chunk;
+    const cudaError_t err = fn(i0, n, mask_at(mask, i0 * stride, sq, sk));
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// p advanced by n elements of `bytes` bytes each
+inline const void* advance(const void* p, size_t n, size_t bytes) {
+  return static_cast<const char*>(p) + n * bytes;
+}
+inline void* advance(void* p, size_t n, size_t bytes) {
+  return static_cast<char*>(p) + n * bytes;
+}
+
 inline bool bad_mask(const AttnMask& m, int bh, int sq, int sk, int tile) {
   if (!m.bias && !m.qseg) return false;
   if (sq % tile || sk % tile || m.heads <= 0 || bh % m.heads) return true;

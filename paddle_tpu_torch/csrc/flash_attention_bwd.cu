@@ -750,9 +750,11 @@ cudaError_t launch_dkv(bool mma, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-bool bad_args(int bh, int sq, int sk, int dtype, const pt::AttnMask& mask) {
-  return bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 ||
-         (dtype != 0 && dtype != 1) || pt::bad_mask(mask, bh, sq, sk, BQ);
+bool bad_args(int bh, int sq, int sk, int d, int dtype,
+              const pt::AttnMask& mask) {
+  return bh <= 0 || sq <= 0 || sk <= 0 || (d != 64 && d != 128) ||
+         (dtype != 0 && dtype != 1) || pt::slice_chunk(mask) <= 0 ||
+         pt::bad_mask(mask, bh, sq, sk, BQ);
 }
 
 bool masked(const pt::AttnMask& m) { return m.bias || m.qseg; }
@@ -771,22 +773,26 @@ extern "C" int pt_flash_attention_bwd_dq(
     float scale, void* stream) {
   const pt::AttnMask mask =
       pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
-  if (bad_args(bh, sq, sk, dtype, mask)) return (int)cudaErrorInvalidValue;
+  if (bad_args(bh, sq, sk, d, dtype, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = dtype == 1;
-#define PT_DQ(D, M)                                                        \
-  return (int)launch_dq<D, M>(mma, q, k, v, dout, lse, delta, mask, dq, bh, \
-                              sq, sk, causal, scale, s)
-  if (d == 64) {
-    if (masked(mask)) PT_DQ(64, true);
-    PT_DQ(64, false);
-  }
-  if (d == 128) {
-    if (masked(mask)) PT_DQ(128, true);
-    PT_DQ(128, false);
-  }
-#undef PT_DQ
-  return (int)cudaErrorInvalidValue;
+  const bool mma = dtype == 1, msk = masked(mask);
+  const size_t es = mma ? 2 : 4;
+  // B*H past grid y: chunks
+  return pt::for_each_chunk(mask, bh, pt::slice_chunk(mask), 1, sq, sk,
+                            [&](int bh0, int n, const pt::AttnMask& m) {
+    const size_t qo = (size_t)bh0 * sq * d, ko = (size_t)bh0 * sk * d;
+    const void *qc = pt::advance(q, qo, es), *kc = pt::advance(k, ko, es),
+               *vc = pt::advance(v, ko, es), *oc = pt::advance(dout, qo, es);
+    const float *lc = lse + (size_t)bh0 * sq, *dc = delta + (size_t)bh0 * sq;
+    void* gc = pt::advance(dq, qo, es);
+    return d == 64
+               ? (msk ? launch_dq<64, true> : launch_dq<64, false>)(
+                     mma, qc, kc, vc, oc, lc, dc, m, gc, n, sq, sk, causal,
+                     scale, s)
+               : (msk ? launch_dq<128, true> : launch_dq<128, false>)(
+                     mma, qc, kc, vc, oc, lc, dc, m, gc, n, sq, sk, causal,
+                     scale, s);
+  });
 }
 
 extern "C" int pt_flash_attention_bwd_dkv(
@@ -797,20 +803,24 @@ extern "C" int pt_flash_attention_bwd_dkv(
     float scale, void* stream) {
   const pt::AttnMask mask =
       pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
-  if (bad_args(bh, sq, sk, dtype, mask)) return (int)cudaErrorInvalidValue;
+  if (bad_args(bh, sq, sk, d, dtype, mask)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = dtype == 1;
-#define PT_DKV(D, M)                                                       \
-  return (int)launch_dkv<D, M>(mma, q, k, v, dout, lse, delta, mask, dk,   \
-                               dv, bh, sq, sk, causal, scale, s)
-  if (d == 64) {
-    if (masked(mask)) PT_DKV(64, true);
-    PT_DKV(64, false);
-  }
-  if (d == 128) {
-    if (masked(mask)) PT_DKV(128, true);
-    PT_DKV(128, false);
-  }
-#undef PT_DKV
-  return (int)cudaErrorInvalidValue;
+  const bool mma = dtype == 1, msk = masked(mask);
+  const size_t es = mma ? 2 : 4;
+  // B*H past grid y: chunks
+  return pt::for_each_chunk(mask, bh, pt::slice_chunk(mask), 1, sq, sk,
+                            [&](int bh0, int n, const pt::AttnMask& m) {
+    const size_t qo = (size_t)bh0 * sq * d, ko = (size_t)bh0 * sk * d;
+    const void *qc = pt::advance(q, qo, es), *kc = pt::advance(k, ko, es),
+               *vc = pt::advance(v, ko, es), *oc = pt::advance(dout, qo, es);
+    const float *lc = lse + (size_t)bh0 * sq, *dc = delta + (size_t)bh0 * sq;
+    void *kg = pt::advance(dk, ko, es), *vg = pt::advance(dv, ko, es);
+    return d == 64
+               ? (msk ? launch_dkv<64, true> : launch_dkv<64, false>)(
+                     mma, qc, kc, vc, oc, lc, dc, m, kg, vg, n, sq, sk,
+                     causal, scale, s)
+               : (msk ? launch_dkv<128, true> : launch_dkv<128, false>)(
+                     mma, qc, kc, vc, oc, lc, dc, m, kg, vg, n, sq, sk,
+                     causal, scale, s);
+  });
 }

@@ -406,8 +406,9 @@ extern "C" int pt_flash_attention_dbias(
   const pt::AttnMask mask =
       pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
   if (bias == nullptr || bh <= 0 || sq <= 0 || sk <= 0 ||
-      (dtype != 0 && dtype != 1) || pt::bad_mask(mask, bh, sq, sk, BQ) ||
-      bb * hb > 65535 || sk / BK > 65535)
+      (dtype != 0 && dtype != 1) || (d != 64 && d != 128) ||
+      pt::bad_mask(mask, bh, sq, sk, BQ) || pt::slice_chunk(mask) <= 0 ||
+      (bb == 1 && hb > pt::MAX_GRID_Y) || sk / BK > 65535)
     return (int)cudaErrorInvalidValue;
   // the folded slices one bias slice g sums (reference `_dbias_call`)
   const int b = bh / heads;
@@ -422,11 +423,24 @@ extern "C" int pt_flash_attention_dbias(
     red = Reduce{1, 0, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == 1;
-  if (d == 64)
-    return (int)launch_d<64>(mma, q, k, v, dout, lse, delta, mask, db, red,
-                             bb * hb, sq, sk, causal, scale, s);
-  if (d == 128)
-    return (int)launch_d<128>(mma, q, k, v, dout, lse, delta, mask, db, red,
-                              bb * hb, sq, sk, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const size_t es = mma ? 2 : 4, bs = bias_bf16 ? 2 : 4;
+  // more than MAX_GRID_Y bias slices (grid z) only when each slice is one
+  // folded slice (g = bh) or one batch entry (g = b): chunks of them, the
+  // first slice a multiple of heads
+  const int n_g = bb * hb;
+  const int chunk = red.mg == 1 && red.mr == 0 ? pt::slice_chunk(mask)
+                                               : pt::MAX_GRID_Y;
+  return pt::for_each_chunk(mask, n_g, chunk, red.mg, sq, sk,
+                            [&](int g0, int n, const pt::AttnMask& m) {
+    const int bh0 = g0 * red.mg;
+    const size_t qo = (size_t)bh0 * sq * d, ko = (size_t)bh0 * sk * d;
+    const void *qc = pt::advance(q, qo, es), *kc = pt::advance(k, ko, es),
+               *vc = pt::advance(v, ko, es), *oc = pt::advance(dout, qo, es);
+    const float *lc = lse + (size_t)bh0 * sq, *dc = delta + (size_t)bh0 * sq;
+    void* gc = pt::advance(db, (size_t)g0 * sqb * sk, bs);
+    return d == 64 ? launch_d<64>(mma, qc, kc, vc, oc, lc, dc, m, gc, red,
+                                  n, sq, sk, causal, scale, s)
+                   : launch_d<128>(mma, qc, kc, vc, oc, lc, dc, m, gc, red,
+                                   n, sq, sk, causal, scale, s);
+  });
 }

@@ -431,16 +431,25 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       int heads, float scale, void* stream) {
   const pt::AttnMask mask =
       pt::make_mask(bias, qseg, kseg, bias_bf16, bb, hb, sqb, heads);
-  if (bh <= 0 || bh > 65535 || sq <= 0 || sk <= 0 ||
-      (dtype != 0 && dtype != 1) || pt::bad_mask(mask, bh, sq, sk, BQ))
+  const int chunk = pt::slice_chunk(mask);
+  if (bh <= 0 || sq <= 0 || sk <= 0 || (dtype != 0 && dtype != 1) ||
+      (d != 64 && d != 128) || chunk <= 0 ||
+      pt::bad_mask(mask, bh, sq, sk, BQ))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = dtype == 1;
-  if (d == 64)
-    return (int)launch_d<64>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
-                             scale, s);
-  if (d == 128)
-    return (int)launch_d<128>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
-                              scale, s);
-  return (int)cudaErrorInvalidValue;
+  const size_t es = mma ? 2 : 4;
+  // B*H past grid y: chunks
+  return pt::for_each_chunk(mask, bh, chunk, 1, sq, sk,
+                            [&](int bh0, int n, const pt::AttnMask& m) {
+    const size_t qo = (size_t)bh0 * sq * d, ko = (size_t)bh0 * sk * d;
+    const void *qc = pt::advance(q, qo, es), *kc = pt::advance(k, ko, es),
+               *vc = pt::advance(v, ko, es);
+    void* oc = pt::advance(o, qo, es);
+    float* lc = lse + (size_t)bh0 * sq;
+    return d == 64 ? launch_d<64>(mma, qc, kc, vc, oc, lc, m, n, sq, sk,
+                                  causal, scale, s)
+                   : launch_d<128>(mma, qc, kc, vc, oc, lc, m, n, sq, sk,
+                                   causal, scale, s);
+  });
 }

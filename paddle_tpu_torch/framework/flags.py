@@ -60,3 +60,18 @@ define_flag("gpt_fused_ce", False,
             "route gpt_loss through the fused linear+cross-entropy kernel "
             "(ops/cuda/fused_ce.py): the (B, S, V) logits never reach "
             "device memory")
+define_flag("zero_wire_dtype", "bf16",
+            "wire encoding of the ZeRO sharded-update collectives "
+            "(parallel/zero.py ShardedUpdateTrainStep reduce-scatter and "
+            "all-gather legs): 'bf16' (half the f32 bytes), 'int8' (a "
+            "quarter, plus one f32 scale a chunk), 'int4' (an eighth, "
+            "packed nibbles plus one scale a chunk) or 'f32' (the exact "
+            "leg).  The default of ShardedUpdateTrainStep(wire_dtype=None), "
+            "kept as the reference's name for it; callers pass wire_dtype")
+define_flag("zero_ring_collectives", False,
+            "run the dp collective legs as the quantized ring "
+            "(parallel/ring.py): one neighbour hop a step, the encode and "
+            "decode between hops.  ShardedUpdateTrainStep and "
+            "CompressedAllReduceTrainStep; the f32 wire keeps the plain "
+            "collectives.  The default of ring=None, kept as the "
+            "reference's name for it; callers pass ring")

@@ -19,8 +19,8 @@ and device and never by catching an error (the reference's ``try/except``
 around its rule is not copied): a padding ``attention_mask`` (B, S),
 1 = real token, becomes a (B, 1, 1, S) f32 bias of 0 / -1e30 that takes no
 gradient, so the dbias kernel never runs; shapes the flash kernel serves
-(``flash_attention.supported``, head dim 64 or 128, S a multiple of 128
-when masked) take it, the CUDA kernel on a CUDA tensor and its plain
+(``flash_attention.supported``, head dim 64 or 128, f32 or bf16, S a
+multiple of 128 when masked) take it, the CUDA kernel on a CUDA tensor and its plain
 version on a CPU tensor, and the others take the dense ``_xla_attention``.
 The reference's TPU crossover (non-causal S < 1024 to XLA) is a TPU timing
 and is not part of the rule.
@@ -170,11 +170,11 @@ def _ln(x, w, b, eps=1e-12):
     return (x - mu) * torch.rsqrt(var + eps) * w + b
 
 
-def _flash_ok(cfg: BertConfig, b, s, bias) -> bool:
+def _flash_ok(cfg: BertConfig, b, s, bias, dtype=None) -> bool:
     shape = (b, s, cfg.num_heads, cfg.head_dim)
     return cfg.use_flash_attention and _fa.supported(
         shape, shape, bias is None,
-        bias_shape=None if bias is None else tuple(bias.shape))
+        bias_shape=None if bias is None else tuple(bias.shape), dtype=dtype)
 
 
 def _layer(cfg: BertConfig, x, lp, bias):
@@ -183,7 +183,7 @@ def _layer(cfg: BertConfig, x, lp, bias):
     scale = 1.0 / math.sqrt(hd)
     qkv = x @ lp["qkv_w"] + lp["qkv_b"]
     q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(H, dim=-1))
-    if _flash_ok(cfg, b, s, bias):
+    if _flash_ok(cfg, b, s, bias, q.dtype):
         a = _fa.flash_attention(q, k, v, scale=scale, bias=bias)
     else:
         a = _xla_attention(q, k, v, bias, scale, False)

@@ -19,10 +19,11 @@ not honoured: activations are kept, as ``bench.py`` runs the reference
 with ``remat=False``), and there are no meshes, shardings, pipeline or
 ring attention.
 
-Attention dispatches by the reference's rule, not by catching errors:
-sequences the blockwise kernel serves (``flash_attention.supported``)
-take it — the CUDA kernel on a CUDA tensor, its plain version on a CPU
-tensor — and shorter ones (S < 128) take the dense fallback.  The
+Attention dispatches by rule, not by catching errors: sequences the
+blockwise kernel serves (``flash_attention.supported``: head dim 64 or
+128, f32 or bf16) take it — the CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor — and the rest (S < 128, f16, other head dims)
+take the dense fallback.  The
 reference wraps its kernel in ``try/except Exception: pass`` and falls
 back silently; the port does not: a kernel that cannot run raises.
 
@@ -180,8 +181,8 @@ def _attention(cfg: GPTConfig, q, k, v):
     """(B, S, nh, hd) causal attention: the blockwise kernel where the
     reference's rule sends it, else the dense fallback."""
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    if cfg.use_flash_attention and _fa.supported(tuple(q.shape),
-                                                 tuple(k.shape), causal=True):
+    if cfg.use_flash_attention and _fa.supported(
+            tuple(q.shape), tuple(k.shape), causal=True, dtype=q.dtype):
         return _fa.flash_attention(q, k, v, causal=True, scale=scale)
     return _xla_attention(q, k, v, None, scale, True)
 
@@ -231,11 +232,15 @@ def _gpt_fused_ce_loss(model: GPT, ids, labels):
 def gpt_loss(model: GPT, input_ids, labels):
     """Causal-LM cross entropy (f32 softmax); labels == input tokens,
     shifted internally.  With ``FLAGS_gpt_fused_ce`` the head and CE run as
-    the fused kernel, and the (B, S, V) logits are never materialised."""
+    the fused kernel where its rule takes the head (``fused_ce.supported``:
+    f32 or bf16, and a bf16 width of at most 1024 under grad), and the
+    (B, S, V) logits are never materialised."""
     cfg = model.config
     ids, labels = model._ids(input_ids), model._ids(labels)
     B, S = ids.shape
-    if flag("gpt_fused_ce") and fused_ce.supported(B * S, cfg.hidden_size):
+    if flag("gpt_fused_ce") and fused_ce.supported(
+            B * S, cfg.hidden_size, model.wte.dtype,
+            grad=torch.is_grad_enabled() and model.wte.requires_grad):
         return _gpt_fused_ce_loss(model, ids, labels)
     lg = _gpt_forward(model, ids)[:, :-1].float()
     tg = labels[:, 1:]

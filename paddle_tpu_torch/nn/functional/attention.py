@@ -24,9 +24,11 @@ def _xla_attention(q, k, v, mask, scale, causal):
     """Dense attention on (B, S, H, D) q, k, v (reference ``:24-42``).
 
     Masked scores are clamped to -1e30, not -inf, so a row with no
-    visible key attends uniformly, as the reference's fallback does."""
+    visible key attends uniformly, as the reference's fallback does.  The
+    scores are masked and normalised in f32 (where f16 cannot hold
+    -1e30)."""
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    scores = torch.einsum("bhsd,bhtd->bhst", qh, kh) * scale
+    scores = (torch.einsum("bhsd,bhtd->bhst", qh, kh) * scale).float()
     if causal:
         s_q, s_k = scores.shape[-2], scores.shape[-1]
         keep = torch.ones(s_q, s_k, dtype=torch.bool,
@@ -37,7 +39,7 @@ def _xla_attention(q, k, v, mask, scale, causal):
             scores = scores.masked_fill(~mask, -1e30)
         else:
             scores = scores + mask
-    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhst,bhtd->bhsd", probs, vh)
     return out.permute(0, 2, 1, 3)
 
@@ -56,7 +58,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if _fa.supported(tuple(query.shape), tuple(key.shape), attn_mask is None,
                      causal=is_causal,
                      bias_shape=None if attn_mask is None
-                     else tuple(attn_mask.shape)):
+                     else tuple(attn_mask.shape), dtype=query.dtype):
         out = _fa.flash_attention(query, key, value, causal=is_causal,
                                   scale=scale, bias=attn_mask)
     else:
@@ -91,7 +93,8 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     mask = None if attn_mask is None else attn_mask.detach()
     if _fa.supported(tuple(query.shape), tuple(key.shape), mask is None,
                      causal=causal, segments=True,
-                     bias_shape=None if mask is None else tuple(mask.shape)):
+                     bias_shape=None if mask is None else tuple(mask.shape),
+                     dtype=query.dtype):
         out = _fa.flash_attention(query, key, value, causal=causal,
                                   scale=scale, bias=mask, q_segment_ids=qs,
                                   kv_segment_ids=ks)

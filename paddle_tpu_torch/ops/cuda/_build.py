@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_dbias", "fused_ce_fwd", "fused_ce_bwd",
-           "fused_adam")
+           "fused_adam", "ring_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

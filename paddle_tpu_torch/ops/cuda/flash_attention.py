@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -65,6 +66,7 @@ launches_masked = 0
 launches_dq_masked = 0
 launches_dkv_masked = 0
 launches_dbias = 0
+_count_lock = threading.Lock()   # ranks simulated as threads launch too
 
 _fns: dict = {}
 
@@ -97,7 +99,7 @@ def _canon_bias_shape(bias_shape, b, h, sq, sk):
 
 
 def supported(q_shape, k_shape, no_mask: bool = True, causal: bool = False,
-              bias_shape=None, segments: bool = False) -> bool:
+              bias_shape=None, segments: bool = False, dtype=None) -> bool:
     """The reference's dispatch rule (``supported`` :93) without its TPU
     backend test and without its TPU crossover (``:113-120``, non-causal
     S < 1024 sent to XLA): that crossover is a TPU timing, not a semantic,
@@ -105,10 +107,13 @@ def supported(q_shape, k_shape, no_mask: bool = True, causal: bool = False,
     sequences of at least one block and, when causal, no more queries than
     keys; a mask must be a canonical bias (``bias_shape``) and/or segment
     ids, and then both lengths must be multiples of 128 (the reference's
-    bias tiles are not tail-masked).  Everything else goes to the dense
-    fallback (nn/functional/attention.py).  Head dims the CUDA kernel does
-    not take (other than 64 and 128) pass this rule and then raise in the
-    wrapper."""
+    bias tiles are not tail-masked).  The head dim must be 64 or 128 and
+    ``dtype`` (q's, when given) float32 or bfloat16: the kernels' own rule,
+    narrower than the reference's (``:121`` admits any multiple of 128, and
+    its kernels are dtype-generic).  Everything else, head dim 256 and f16
+    among it, goes to the dense fallback (nn/functional/attention.py), on
+    every device.  What this rule admits runs on the card, any B * H
+    included."""
     if not no_mask and bias_shape is None and not segments:
         return False
     if len(q_shape) != 4 or len(k_shape) != 4:
@@ -117,7 +122,7 @@ def supported(q_shape, k_shape, no_mask: bool = True, causal: bool = False,
     sk = k_shape[1]
     if causal and sq > sk:
         return False
-    if d % 128 != 0 and d != 64:
+    if d not in _KERNEL_D or (dtype is not None and dtype not in _DTYPES):
         return False
     if bias_shape is not None and \
             _canon_bias_shape(bias_shape, b, h, sq, sk) is None:
@@ -288,9 +293,6 @@ def _check(qt, kt, vt, dot=None):
     if dot is not None and dot.shape != qt.shape:
         raise ValueError(f"flash_attention: do {tuple(dot.shape)} does not "
                          f"match q {tuple(qt.shape)}")
-    if bh > 65535:
-        raise ValueError(f"flash_attention: B*H={bh} exceeds the kernel's "
-                         "grid (65535)")
     return bh, sq, sk, d
 
 
@@ -371,10 +373,11 @@ def _launch(qt, kt, vt, scale: float, causal: bool,
     lse = torch.empty(bh, sq, dtype=torch.float32, device=qt.device)
     _call("fwd", (qt, kt, vt, *mptr, out, lse),
           (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
-    if mask is None:
-        launches += 1
-    else:
-        launches_masked += 1
+    with _count_lock:
+        if mask is None:
+            launches += 1
+        else:
+            launches_masked += 1
     return out, lse
 
 
@@ -394,10 +397,11 @@ def _launch_dq(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
     dq = torch.empty_like(qt)
     _call("dq", (qt, kt, vt, dot, lse, delta, *mptr, dq),
           (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
-    if mask is None:
-        launches_dq += 1
-    else:
-        launches_dq_masked += 1
+    with _count_lock:
+        if mask is None:
+            launches_dq += 1
+        else:
+            launches_dq_masked += 1
     return dq
 
 
@@ -410,10 +414,11 @@ def _launch_dkv(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
     dk, dv = torch.empty_like(kt), torch.empty_like(vt)
     _call("dkv", (qt, kt, vt, dot, lse, delta, *mptr, dk, dv),
           (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
-    if mask is None:
-        launches_dkv += 1
-    else:
-        launches_dkv_masked += 1
+    with _count_lock:
+        if mask is None:
+            launches_dkv += 1
+        else:
+            launches_dkv_masked += 1
     return dk, dv
 
 
@@ -429,7 +434,8 @@ def _launch_dbias(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
     db = torch.empty_like(mask.bias)
     _call("dbias", (qt, kt, vt, dot, lse, delta, *mptr, db),
           (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
-    launches_dbias += 1
+    with _count_lock:
+        launches_dbias += 1
     return db
 
 

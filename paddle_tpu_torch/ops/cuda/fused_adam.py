@@ -29,6 +29,7 @@ CUDA tensors the kernel, or a raise.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -38,6 +39,7 @@ _MAX_TENSORS = 32          # tensors per launch (the kernel's table)
 
 # kernel launches made by this process (read by chip_smoke.py)
 launches = 0
+_count_lock = threading.Lock()   # ranks simulated as threads launch too
 
 _fn = None
 
@@ -125,7 +127,8 @@ def _launch(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
             if err != 0:
                 raise RuntimeError(f"fused_adam: kernel launch failed with "
                                    f"cudaError {err}")
-            launches += 1
+            with _count_lock:
+                launches += 1
     return po, mo, vo
 
 

@@ -17,11 +17,13 @@ Dispatch is by the device of the tensors it is given: a CPU tensor takes
 the plain PyTorch versions, :func:`ce_logz_reference` and
 :func:`ce_bwd_reference`; a CUDA tensor launches the kernels or raises.
 The bf16 backward kernels take a hidden width of at most 1024 (their
-shared memory holds 96 rows of it).
+shared memory holds 96 rows of it); :func:`supported` sends wider bf16
+heads under grad, and f16, to the unfused head by rule.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,14 +42,23 @@ _MAX_H_BWD_BF16 = 1024
 launches = 0
 launches_dh = 0
 launches_dw = 0
+_count_lock = threading.Lock()   # ranks simulated as threads launch too
 
 _fns: dict = {}
 
 
-def supported(n: int, h: int) -> bool:
-    """The reference's rule (``supported`` :52): any token count, a hidden
-    width that is a multiple of 128."""
-    return n >= 0 and h % 128 == 0
+def supported(n: int, h: int, dtype=None, grad: bool = False) -> bool:
+    """The reference's rule (``supported`` :52), any token count and a
+    hidden width that is a multiple of 128, narrowed to what the kernels
+    take: ``dtype`` (the head's, when given) float32 or bfloat16, and under
+    ``grad`` (a backward will run) a bf16 width of at most 1024.  The
+    reference's kernels are dtype-generic and take any width; here the
+    rest goes to the unfused head, on every device."""
+    if n < 0 or h % 128:
+        return False
+    if dtype is not None and dtype not in _DTYPES:
+        return False
+    return not (grad and dtype == torch.bfloat16 and h > _MAX_H_BWD_BF16)
 
 
 def ce_logz_reference(h, w):
@@ -144,7 +155,8 @@ def _launch(h, w):
     part = torch.empty(2, n_split, n, dtype=torch.float32, device=h.device)
     _call("fwd", (h, w, logz, part[0], part[1]),
           (n, hd, v, n_split, _DTYPES[h.dtype]))
-    launches += 1
+    with _count_lock:
+        launches += 1
     return logz
 
 
@@ -167,7 +179,8 @@ def _launch_dh(h, w, logz, g):
     n, hd, v = _check_bwd(h, w, logz, g)
     dh = torch.empty_like(h)
     _call("dh", (h, w, logz, g, dh), (n, hd, v, _DTYPES[h.dtype]))
-    launches_dh += 1
+    with _count_lock:
+        launches_dh += 1
     return dh
 
 
@@ -177,7 +190,8 @@ def _launch_dw(h, w, logz, g):
     n, hd, v = _check_bwd(h, w, logz, g)
     dw = torch.empty_like(w)
     _call("dw", (h, w, logz, g, dw), (n, hd, v, _DTYPES[h.dtype]))
-    launches_dw += 1
+    with _count_lock:
+        launches_dw += 1
     return dw
 
 

@@ -1,9 +1,10 @@
-"""Adam and AdamW, the functional path (port of
+"""SGD, Momentum, Adam and AdamW, the functional path (port of
 paddle_tpu/optimizer/optimizer.py).
 
-What ``jit.TrainStep`` runs: ``functional_init_states`` and
-``functional_update`` over {name: tensor} dictionaries, the reference's
-pure update rules (``:181-206``, ``:350-368``, ``:422-428``).
+What ``jit.TrainStep`` and the data-parallel steps of ``parallel/`` run:
+``functional_init_states`` and ``functional_update`` over {name: tensor}
+dictionaries, the reference's pure update rules (``:181-206``,
+``:209-240``, ``:350-368``, ``:422-428``).
 
 - Unfused (the default): plain PyTorch tensor arithmetic per parameter,
   as the reference's unfused update is plain XLA.
@@ -15,9 +16,10 @@ pure update rules (``:181-206``, ``:350-368``, ``:422-428``).
   kernel or raises.
 
 State per parameter is keyed by the parameter's name, with the
-reference's keys ``moment1``, ``moment2``, ``beta1_pow`` and
+reference's keys: Adam's ``moment1``, ``moment2``, ``beta1_pow`` and
 ``beta2_pow``, all float32 (the beta pows are 0-d tensors on the
-parameter's device, so a step never reads a number back to the host).
+parameter's device, so a step never reads a number back to the host);
+Momentum's ``velocity``; none for SGD.
 
 ``learning_rate`` is a float or an ``optimizer.lr.LRScheduler``, whose
 current rate ``get_lr`` returns; ``grad_clip`` is kept for
@@ -35,7 +37,7 @@ import torch
 
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 
 def _check_lr(value):
@@ -114,6 +116,42 @@ class Optimizer:
             new_params[name], new_states[name] = self.update(
                 p, self._coupled_grad(p, g), dict(states.get(name, {})), lr)
         return new_params, new_states
+
+
+class SGD(Optimizer):
+    """``p - lr * g`` (reference ``SGD`` :209)."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def update(self, param, grad, state, lr):
+        return param - lr * grad, {}
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum, optionally Nesterov's (reference ``Momentum``
+    :224): ``v' = mu v + g``, ``p' = p - lr v'`` or, with
+    ``use_nesterov``, ``p' = p - lr (g + mu v')``.  State: ``velocity``,
+    in the parameter's dtype."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def init_state(self, value) -> dict:
+        return {"velocity": torch.zeros_like(value)}
+
+    def update(self, param, grad, state, lr):
+        v = self._momentum * state["velocity"] + grad
+        if self._nesterov:
+            new_p = param - lr * (grad + self._momentum * v)
+        else:
+            new_p = param - lr * v
+        return new_p, {"velocity": v}
 
 
 class Adam(Optimizer):

@@ -1,0 +1,279 @@
+"""ZeRO-style sharded weight update over the ``dp`` axis (port of
+paddle_tpu/parallel/zero.py).
+
+Plain data parallelism all-reduces full gradients and then applies the
+same update to the same full parameters on every replica, each holding a
+full copy of the optimizer's moments.  :class:`ShardedUpdateTrainStep`
+removes both redundancies:
+
+1. **reduce-scatter**: each rank runs forward and backward on its slice
+   of the global batch; every gradient is flattened, padded to a multiple
+   of ``dp * chunk`` and reduce-scattered, so a rank receives the mean of
+   the 1/dp chunk it owns;
+2. **sharded update**: the optimizer's update (global-norm clip, decay,
+   moments) runs on the owned chunk only, and the moments live as flat
+   per-rank shards: optimizer-state bytes per replica fall to about 1/dp;
+3. **all-gather**: the updated chunks are gathered back into the full
+   parameters of every rank.
+
+``wire_dtype`` (``FLAGS_zero_wire_dtype``, default bf16) sets what both
+legs ship (``distributed/wire.py``): ``f32``, the exact leg, whose
+trajectory is element for element the replicated step's (the update is
+elementwise); ``bf16``; ``int8`` (a scale per ``chunk`` values) and
+``int4`` (two nibbles a byte, a scale per chunk).  A quantized
+reduce-scatter is encode, all-to-all, decode, then a local sum (a
+collective cannot add encoded payloads); a quantized all-gather decodes
+every chunk, the rank's own included, so the ranks' parameters stay
+bitwise equal.  The quantized all-gather re-encodes the parameters
+themselves every step, with no f32 master: a move smaller than half the
+grid step rounds back (reference semantics).
+
+``ring=True`` (``FLAGS_zero_ring_collectives``) runs both legs as the
+quantized ring of ``parallel/ring.py``: the same wire bytes, one
+neighbour hop at a time.  The f32 wire keeps the plain legs either way.
+
+Exactness: the f32 reduce-scatter is an all-to-all then the ascending sum
+over the ranks divided by dp (``ring.ordered_sum``), the replicated step's
+mean (``dp_meta.CompressedAllReduceTrainStep``) an all-gather then the same
+sum: the two agree bitwise on gloo and NCCL alike, whose own
+``reduce_scatter`` and ``all_reduce`` choose their order.  On a CUDA tensor
+every int8 / int4 encode runs kernel #9 (``ops/cuda/ring_quant.py``): one
+launch a parameter in each unfused leg.
+
+Not ported, each raising or absent: LARS (``LarsMomentum``, rejected by
+name: its per-parameter norms would be taken over 1/dp chunks), a grad clip
+without ``functional_clip`` (the reference skips it), floating buffers and
+``recompute=True`` (``dp_meta._loss_closure``), checkpoint interop
+(``checkpoint_extra_meta``, ``adopt_opt_state``), the chaos, tracer,
+monitor and parity hooks, and ``analyze``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
+                                               dequantize_rows_torch,
+                                               normalize_wire,
+                                               quantize_rows_torch,
+                                               wire_nbytes)
+from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, _loss_closure,
+                                               local_batch, loss_and_grads,
+                                               mean_over_ranks)
+from paddle_tpu_torch.parallel.mesh import _require_pure_dp, get_mesh
+from paddle_tpu_torch.parallel.ring import (ordered_sum, ring_all_gather,
+                                            ring_reduce_scatter)
+
+__all__ = ["ShardSpec", "ShardedUpdateTrainStep", "build_shard_specs"]
+
+
+class ShardSpec(NamedTuple):
+    """Flat-shard bookkeeping of one parameter: logical ``size``,
+    ``padded`` length (a multiple of dp * chunk) and ``shard_len =
+    padded // dp`` (reference ``:101``)."""
+    size: int
+    padded: int
+    shard_len: int
+
+
+def build_shard_specs(params: Dict[str, torch.Tensor], dp: int,
+                      chunk: int = 256) -> Dict[str, ShardSpec]:
+    """{name: ShardSpec}: each leaf flattens to ``size`` values, padded to
+    a multiple of ``dp * chunk``, whatever the wire (reference ``:111``)."""
+    specs = {}
+    q = dp * chunk
+    for n, p in params.items():
+        size = max(1, p.numel())
+        padded = int(math.ceil(size / q) * q)
+        specs[n] = ShardSpec(size=size, padded=padded, shard_len=padded // dp)
+    return specs
+
+
+class ShardedUpdateTrainStep:
+    """``TrainStep`` with a dp-sharded weight update and, optionally,
+    quantized collectives (reference ``:127``): construct with ``(model,
+    loss_fn, optimizer)``, call with the global batch (each rank takes its
+    slice), read back the f32 loss, the mean over the ranks."""
+
+    def __init__(self, model, loss_fn: Callable, optimizer, mesh=None,
+                 wire_dtype: Optional[str] = None, chunk: int = 256,
+                 amp_level=None, amp_dtype="bfloat16",
+                 recompute: bool = False, donate: bool = True,
+                 ring: Optional[bool] = None):
+        from paddle_tpu_torch.framework.flags import flag
+        if type(optimizer).__name__ == "LarsMomentum":
+            # LARS takes a trust ratio from per-parameter norms; over 1/dp
+            # chunks those norms are wrong and training silently diverges
+            raise TypeError(
+                "ShardedUpdateTrainStep cannot shard a norm-per-"
+                "parameter optimizer (LarsMomentum): the trust-ratio "
+                "norms would be computed over 1/dp chunks.  Use the "
+                "replicated TrainStep/CompressedAllReduceTrainStep.")
+        clip = getattr(optimizer, "_grad_clip", None)
+        if clip is not None and not hasattr(clip, "functional_clip"):
+            raise NotImplementedError(
+                f"grad_clip {type(clip).__name__} has no functional_clip: "
+                "the reference's sharded step skips it silently, the port "
+                "does not train without it")
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.mesh = mesh or get_mesh()
+        _require_pure_dp(self.mesh, "the sharded weight update")
+        self.dp = self.mesh.shape.get("dp", 1)
+        self.wire = normalize_wire(
+            flag("zero_wire_dtype") if wire_dtype is None else wire_dtype,
+            known=COLLECTIVE_WIRE_DTYPES)
+        self.ring = bool(flag("zero_ring_collectives")
+                         if ring is None else ring)
+        if int(chunk) < 1:
+            raise ValueError("chunk must be >= 1")
+        self.chunk = int(chunk)
+        self.amp_level = amp_level
+        self.amp_dtype = _amp_dtype(amp_dtype)
+        self.donate = donate
+        self._loss_from = _loss_closure(model, loss_fn, amp_level,
+                                        self.amp_dtype, recompute)
+        self._specs: Optional[Dict[str, ShardSpec]] = None
+        self._opt_shards: Optional[dict] = None
+
+    def _params(self) -> dict:
+        return {n: p for n, p in self.model.named_parameters()
+                if p.requires_grad}
+
+    # -- sharded optimizer state --------------------------------------------
+    def _ensure_specs(self):
+        if self._specs is None:
+            self._specs = build_shard_specs(self._params(), self.dp,
+                                            self.chunk)
+
+    def _ensure_state(self):
+        if self._opt_shards is not None:
+            return
+        params = self._params()
+        for n, p in params.items():
+            if not p.is_floating_point():
+                raise TypeError(f"sharded update needs floating params; "
+                                f"{n!r} is {p.dtype}")
+        self._ensure_specs()
+        lo = self.mesh.rank
+        shards = {}
+        for n, p in params.items():
+            spec = self._specs[n]
+            flat = F.pad(p.detach().reshape(-1), (0, spec.padded - spec.size))
+            slots = {}
+            # the in-tree optimizers' states are elementwise or scalars, so
+            # the flat init is the flattened full init
+            for k, v in self.optimizer.init_state(flat).items():
+                if v.dim() == 1 and v.shape[0] == spec.padded:
+                    slots[k] = v[lo * spec.shard_len:
+                                 (lo + 1) * spec.shard_len].clone()
+                elif v.dim() == 0:
+                    slots[k] = v
+                else:
+                    raise TypeError(
+                        f"optimizer slot {k!r} for {n!r} has shape "
+                        f"{tuple(v.shape)}: neither elementwise nor scalar; "
+                        "the sharded update cannot place it")
+            shards[n] = slots
+        self._opt_shards = shards
+
+    @property
+    def _opt_states(self):
+        """This rank's optimizer state: {name: {slot: tensor}}, each
+        elementwise slot the (shard_len,) chunk the rank owns."""
+        return self._opt_shards
+
+    def opt_state_bytes_per_replica(self) -> int:
+        """Bytes of optimizer state one rank holds: its shards of the
+        elementwise slots and the scalars whole (reference ``:244``)."""
+        self._ensure_state()
+        return sum(v.numel() * v.element_size()
+                   for slots in self._opt_shards.values()
+                   for v in slots.values())
+
+    def collective_wire_bytes(self, wire: Optional[str] = None
+                              ) -> Dict[str, int]:
+        """Per-rank wire bytes a step for each leg: ``(dp - 1)`` encoded
+        shards of every padded leaf, on :attr:`wire` or the ``wire`` given
+        (reference ``:256``)."""
+        self._ensure_specs()
+        wire = self.wire if wire is None else normalize_wire(
+            wire, known=COLLECTIVE_WIRE_DTYPES)
+        per = sum(wire_nbytes(s.shard_len, wire, row=self.chunk)
+                  for s in self._specs.values()) * (self.dp - 1)
+        return {"reduce_scatter": per, "all_gather": per}
+
+    # -- the legs (reference :290-319) --------------------------------------
+    def _reduce_scatter(self, gflat: torch.Tensor) -> torch.Tensor:
+        """(padded,) local gradient -> (shard_len,) owned mean chunk."""
+        dp, mesh, wire = self.dp, self.mesh, self.wire
+        if self.ring:
+            return ring_reduce_scatter(gflat, mesh, chunk=self.chunk,
+                                       wire=wire) / dp
+        if wire == "f32":
+            return ordered_sum(mesh.group.all_to_all(gflat.reshape(dp, -1))
+                               ) / dp
+        bufs = quantize_rows_torch(gflat.reshape(dp, -1, self.chunk), wire)
+        ex = tuple(mesh.group.all_to_all(b) for b in bufs)
+        return ordered_sum(dequantize_rows_torch(ex, wire)).reshape(-1) / dp
+
+    def _all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """(shard_len,) updated chunk -> (padded,) full leaf, the same bits
+        on every rank."""
+        mesh, wire = self.mesh, self.wire
+        if self.ring:
+            return ring_all_gather(shard, mesh, chunk=self.chunk, wire=wire)
+        if wire == "f32":
+            return mesh.group.all_gather(shard).reshape(-1)
+        bufs = quantize_rows_torch(shard.reshape(-1, self.chunk), wire)
+        got = tuple(mesh.group.all_gather(b) for b in bufs)
+        return dequantize_rows_torch(got, wire).reshape(-1)
+
+    def _clip(self, gshards: dict) -> dict:
+        """The optimizer's global-norm clip over the sharded gradients: the
+        ranks' sums of squares added in rank order (padding adds exact
+        zeros), reference ``:340-354``."""
+        clip = getattr(self.optimizer, "_grad_clip", None)
+        if clip is None:
+            return gshards
+        if not hasattr(clip, "clip_norm"):
+            return clip.functional_clip(gshards)
+        sq = sum(torch.sum(g.float() ** 2) for g in gshards.values())
+        gn = torch.sqrt(ordered_sum(self.mesh.group.all_gather(sq)))
+        scale = torch.clamp(clip.clip_norm / torch.clamp(gn, min=1e-12),
+                            max=1.0)
+        return {n: (g * scale).to(g.dtype) for n, g in gshards.items()}
+
+    # -- the step -----------------------------------------------------------
+    def __call__(self, *inputs):
+        params = self._params()
+        self._ensure_state()
+        dev = next(iter(params.values())).device
+        lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
+                        device=dev)
+        loss, grads = loss_and_grads(self._loss_from, params,
+                                     local_batch(inputs, self.mesh, dev))
+        lo = self.mesh.rank
+        with torch.no_grad():
+            gshards, pshards = {}, {}
+            for n, p in params.items():
+                spec = self._specs[n]
+                pad = (0, spec.padded - spec.size)
+                g = grads.pop(n)
+                gshards[n] = self._reduce_scatter(
+                    F.pad(g.reshape(-1), pad)).to(g.dtype)
+                pshards[n] = F.pad(p.detach().reshape(-1), pad)[
+                    lo * spec.shard_len:(lo + 1) * spec.shard_len]
+            new_pshards, self._opt_shards = self.optimizer.functional_update(
+                pshards, self._clip(gshards), self._opt_shards, lr=lr,
+                donate=self.donate)
+            for n, p in params.items():
+                full = self._all_gather(new_pshards[n].to(p.dtype))
+                p.copy_(full[:self._specs[n].size].view_as(p))
+            loss = mean_over_ranks(loss, self.mesh)
+        self.optimizer._global_step += 1
+        return loss

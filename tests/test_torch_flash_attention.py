@@ -96,9 +96,45 @@ def test_dense_fallback_matches_reference(causal):
     ((2, 256, 4, 256), (2, 256, 4, 256), False, True),
 ])
 def test_supported_follows_reference_rule(q_shape, k_shape, causal, want):
-    assert tfa.supported(q_shape, k_shape, causal=causal) is want
+    # the port's rule is the reference's narrowed to the kernels' head
+    # dims, 64 and 128: head dim 256 goes to the dense path
+    assert tfa.supported(q_shape, k_shape, causal=causal) is (
+        want and q_shape[-1] in (64, 128))
     jfa._INTERPRET = True                # the reference rule, sans backend
     assert jfa.supported(q_shape, k_shape, True, causal=causal) is want
+
+
+@pytest.mark.parametrize("q_shape,kw,want", [
+    ((2, 128, 4, 256), {}, False),                      # head dim 256
+    ((2, 128, 4, 128), {}, True),
+    ((1, 128, 70000, 64), {}, True),                    # B*H = 70,000
+    ((700, 128, 100, 64), {"bias_shape": (700, 100, 128, 128)}, True),
+    ((2, 128, 4, 64), {"dtype": torch.float16}, False),  # f16: dense
+    ((2, 128, 4, 64), {"dtype": torch.bfloat16}, True),
+    ((2, 128, 4, 64), {"dtype": torch.float32}, True),
+])
+def test_supported_admits_only_what_the_kernels_run(q_shape, kw, want):
+    assert tfa.supported(q_shape, q_shape, "bias_shape" not in kw,
+                         causal=True, **kw) is want
+
+
+def test_models_pass_their_dtype_to_the_rule(monkeypatch):
+    seen = []
+    real = tfa.supported
+
+    def spy(*a, **kw):
+        seen.append(kw.get("dtype"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tfa, "supported", spy)
+    from paddle_tpu_torch.models import GPT, gpt_tiny
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+    m = GPT(gpt_tiny(num_layers=1, max_seq_len=128), device="cpu").to(
+        torch.float16)
+    m(np.zeros((1, 128), np.int64))
+    q = torch.zeros(1, 128, 2, 64, dtype=torch.float16)
+    scaled_dot_product_attention(q, q, q)
+    assert seen == [torch.float16, torch.float16]
 
 
 def _jax_grads(q, k, v, w, causal, scale):

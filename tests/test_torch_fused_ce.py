@@ -156,6 +156,38 @@ def test_supported_follows_reference_rule():
         assert tce.supported(n, h) is jce.supported(n, h)
 
 
+@pytest.mark.parametrize("h,dtype,grad,want", [
+    (1280, torch.bfloat16, True, False),   # bf16 backward: H <= 1024
+    (1280, torch.bfloat16, False, True),   # the forward takes it
+    (1280, torch.float32, True, True),
+    (1024, torch.bfloat16, True, True),
+    (1024, torch.float16, False, False),   # f16: the unfused head
+])
+def test_supported_admits_only_what_the_kernels_run(h, dtype, grad, want):
+    assert tce.supported(8192, h, dtype, grad=grad) is want
+
+
+def test_gpt_loss_takes_the_unfused_head_where_the_rule_refuses(monkeypatch):
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import GPT, gpt_loss, gpt_tiny
+    from paddle_tpu_torch.models import gpt as tgpt
+    called = []
+    monkeypatch.setattr(tgpt, "_gpt_fused_ce_loss",
+                        lambda *a: called.append(1) or torch.zeros(()))
+    m = GPT(gpt_tiny(num_layers=1, hidden_size=1280, num_heads=20,
+                     max_seq_len=128), device="cpu").to(torch.bfloat16)
+    ids = np.zeros((1, 128), np.int64)
+    set_flags({"gpt_fused_ce": True})
+    try:
+        gpt_loss(m, ids, ids)                      # under grad: unfused
+        assert called == []
+        with torch.no_grad():
+            gpt_loss(m, ids, ids)                  # no backward: fused
+        assert called == [1]
+    finally:
+        set_flags({"gpt_fused_ce": False})
+
+
 def test_vocab_split_covers_every_tile():
     # the CUDA grid splits the vocabulary into k runs of ceil(tiles / k)
     # tiles; together they must cover every tile

@@ -361,6 +361,25 @@ def test_o1_equals_o2():
     assert runs[0] == runs[1]
 
 
+def test_o2_float16_matches_reference():
+    # neither package scales the loss: both give the same first loss, and
+    # both read NaN after the first update of gpt_tiny at lr 1e-3
+    ref = jgpt.GPT(jgpt.gpt_tiny(**TINY))
+    init = _np_params(ref)
+    step = JTrainStep(ref, jgpt.gpt_loss,
+                      jopt.AdamW(learning_rate=1e-3,
+                                 parameters=ref.parameters()),
+                      amp_level="O2", amp_dtype="float16")
+    ids = paddle.to_tensor(_ids(10))
+    want = [float(step(ids, ids)) for _ in range(2)]
+    port = TrainStep(_port(init), gpt_loss, AdamW(learning_rate=1e-3),
+                     amp_level="O2", amp_dtype="float16")
+    got = [float(port(_ids(10), _ids(10))) for _ in range(2)]
+    assert abs(got[0] - want[0]) <= ATOL_O2_LOSS
+    assert [np.isfinite(x) for x in got] == [np.isfinite(x) for x in want]
+    assert np.isfinite(got[0]) and not np.isfinite(got[1])
+
+
 class _Callable:
     def __call__(self):
         return 1e-4
