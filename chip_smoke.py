@@ -12,7 +12,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
              flash kernels at BERT-base's layer with its padding bias, in
              every bias class, with segment ids and with rows that see no
              key; the dbias kernel beside the faults dbias_faults plants;
-             a small GPT on the card against the same model on the CPU:
+             the fused CE backward in vocabulary chunks (two calls bitwise
+             equal) beside the faults ce_bwd_faults plants; a small GPT on the card against the same model on the CPU:
              forward, loss, gradients, one f32 TrainStep, and three f32
              TrainSteps of the fused configuration; a small BERT on a padded
              batch (logits, loss, gradients, one AdamW step) and a small
@@ -72,8 +73,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
 10. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
              masked kernels and dbias at BERT-base's layer, and the flash
-             kernel against the dense path there; #9 on GPT-2 345M's
-             gradient; tokens/s of the forward.
+             kernel against the dense path there; the fused CE backward's
+             three passes (profiler device time) beside the pair's time;
+             #9 on GPT-2 345M's gradient; tokens/s of the forward.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -106,13 +108,16 @@ TOL_LOSS_BF16 = 2e-2           # fused vs unfused loss in bf16 (logits rounding)
 # the rounding control's (p and ds left in f32), well below what a dropped
 # tile or fragment gives (PERF.md, Findings)
 TOL_GRAD_BF16 = 0.1
-# The fused CE backward (dh, dW) by the same measure.  One dropped 32-row W
-# tile moves dh by sqrt(32 / V) of its rms, the smallest of the faults
-# ce_bwd_faults plants (about 0.06 at a 256-token slice of the 345M head,
-# tests/test_torch_fused_ce.py); p left in f32 reads about 0.01.  The check
-# reads every planted fault on each run and fails if one is not above this.
+# The fused CE backward (dh, dW) by the same measure.  The smallest of the
+# faults ce_bwd_faults plants is one K-step missing from one 128 x 256
+# score tile (tests/test_torch_fused_ce.py reads them at a 256-token slice
+# of the 345M head); p left in f32 reads about 0.01.  The check reads every
+# planted fault on each run and fails if one is not above this.
 TOL_CE_GRAD_BF16 = 0.03
-CE_TILE = 32                   # rows a fused_ce_bwd block owns and streams
+CE_BM, CE_BN, CE_BK = 128, 256, 64   # fused_ce_bwd's output tile and K-step
+# P's scratch at the tail shape (300 tokens): 256-row chunks, so V = 1000
+# runs in four chunks, the last one short
+CE_TAIL_BUDGET = 2 * 300 * 256
 # The flash dbias kernel's output (bf16 q, k, v) by the same measure.  A
 # bf16 dbias differs from the plain version's by at most an ulp of itself
 # (2^-8 of |want|); the smallest fault dbias_faults plants, one of 128
@@ -179,6 +184,28 @@ def cuda_ms(fn, reps=10, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def ce_bwd_pass_ms(fn, calls=3):
+    """Device ms of each pass of the bf16 fused CE backward ("p", "dw",
+    "dh": its kernels ce_bwd_<pass>_pass summed over the chunks), mean of
+    ``calls`` calls of fn traced by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = {"p": 0.0, "dw": 0.0, "dh": 0.0}
+    for evt in prof.key_averages():
+        for k in ms:
+            if f"ce_bwd_{k}_pass" in evt.key:
+                ms[k] += evt.self_device_time_total / 1e3 / calls
+    if not all(ms.values()):
+        fail(f"the profiler saw no time in a fused_ce_bwd pass: {ms}")
+    return ms
 
 
 def bound(flops, nbytes, peak_flops):
@@ -355,79 +382,119 @@ def check_ce(g, fused_ce, case):
     return e
 
 
-def ce_bwd_faults(h, w, logz, g):
-    """What a faulty dh or dW kernel would return, as a list of (name, 0
-    for dh or 1 for dW, the gradient in the kernel's output dtype): the
-    plain version's arithmetic with one fault planted.  A block skips one
-    streamed 32-row tile (the smallest fault of all); one warp's quarter
-    of H is missing from the scores of one 16-row half of every streamed
-    tile; and, where N or V is not a multiple of 32, p is left unmasked
-    on the rows past the end, which read the rows at the start.  The
-    measure must read each above its limit."""
+def ce_bwd_faults(h, w, logz, g, vc):
+    """What a faulty bf16 backward would return, as a list of (name, dh,
+    dW) in the kernels' output dtypes: the plain version's arithmetic with
+    one fault of the chunked design planted, the vocabulary in chunks of
+    vc rows.  In the middle chunk (the first when there is one) and the
+    middle 128-token tile: the P pass skips a 128 x 256 tile of p; the dW
+    pass skips a 128 x 256 tile of dW; the dh pass skips a 128 x 256 tile
+    (the chunk's share is missing from it); one score tile misses one
+    64-column K-step of H; the chunk overwrites dh's f32 sum instead of
+    adding to it (with two chunks or more); its dW rows land one tile
+    late.  Where N or V is not a multiple of 128, p is left unmasked on
+    the rows past the end, which read the rows at the start (the kernels
+    read zeros there).  The measure must read each above its limit on dh
+    or on dW."""
     import torch
     hf, wf, gf = h.float(), w.float(), g.float()[:, None]
 
     def probs(s, lz, gg):
         return (torch.exp(s - lz[:, None]) * gg).to(w.dtype).float()
 
-    (n, hd), v, q = h.shape, w.shape[0], h.shape[1] * 3 // 4
+    (n, hd), v = h.shape, w.shape[0]
+    chunks = -(-v // vc)
+    v0 = chunks // 2 * vc                    # the middle chunk
+    ch = slice(v0, min(v, v0 + vc))
+    tn = -(-n // CE_BM) // 2 * CE_BM         # the middle token tile
+    rows = slice(tn, min(n, tn + CE_BM))
+    tile = slice(v0, min(v, v0 + vc, v0 + CE_BN))   # the chunk's first
+    cols = slice(0, min(hd, CE_BN))
     p = probs(hf @ wf.T, logz, gf)
     dh, dw = p @ wf, p.T @ hf
-    tv = slice(v // CE_TILE // 2 * CE_TILE, v // CE_TILE // 2 * CE_TILE
-               + CE_TILE)
-    tn = slice(n // CE_TILE // 2 * CE_TILE, n // CE_TILE // 2 * CE_TILE
-               + CE_TILE)
-    hv = torch.arange(v, device=w.device) % CE_TILE < CE_TILE // 2
-    hn = torch.arange(n, device=h.device) % CE_TILE < CE_TILE // 2
-    pv = probs(hf[:, :q] @ wf[hv, :q].T, logz, gf) - p[:, hv]
-    pn = probs(hf[hn, :q] @ wf[:, :q].T, logz[hn], gf[hn]) - p[hn]
-    out = [("dh skips a W tile", 0, dh - p[:, tv] @ wf[tv]),
-           ("dW skips an h tile", 1, dw - p[tn].T @ hf[tn]),
-           ("dh scores miss a quarter of H", 0, dh + pv @ wf[hv]),
-           ("dW scores miss a quarter of H", 1, dw + pn.T @ hf[hn])]
-    if v % CE_TILE:
-        e = CE_TILE - v % CE_TILE
-        out.append(("dh p unmasked past V", 0,
-                    dh + probs(hf @ wf[:e].T, logz, gf) @ wf[:e]))
-    if n % CE_TILE:
-        e = CE_TILE - n % CE_TILE
-        out.append(("dW p unmasked past N", 1,
-                    dw + probs(hf[:e] @ wf.T, logz[:e], gf[:e]).T @ hf[:e]))
-    return [(name, i, t.to((h.dtype, w.dtype)[i])) for name, i, t in out]
+    out = []
+
+    def add(name, bad_dh=None, bad_dw=None):
+        out.append((name, dh if bad_dh is None else bad_dh,
+                    dw if bad_dw is None else bad_dw))
+
+    pt = p[rows, tile]
+    a, b = dh.clone(), dw.clone()
+    a[rows] -= pt @ wf[tile]
+    b[tile] -= pt.T @ hf[rows]
+    add("P pass skips a tile", a, b)
+    b = dw.clone()
+    b[v0:min(v, v0 + vc, v0 + CE_BM), cols] = 0.0
+    add("dW pass skips a tile", bad_dw=b)
+    a = dh.clone()
+    a[rows, cols] -= p[rows, ch] @ wf[ch, cols]
+    add("dh pass skips a tile", a)
+    k0 = hd // CE_BK // 2 * CE_BK
+    hk = hf[rows].clone()
+    hk[:, k0:k0 + CE_BK] = 0.0
+    d = probs(hk @ wf[tile].T, logz[rows], gf[rows]) - pt
+    a, b = dh.clone(), dw.clone()
+    a[rows] += d @ wf[tile]
+    b[tile] += d.T @ hf[rows]
+    add("a score tile misses a K-step", a, b)
+    if v0 > 0:
+        add("a chunk overwrites dh's sum", p[:, v0:] @ wf[v0:])
+    b = dw.clone()
+    nv = ch.stop - v0
+    b[v0:v0 + min(CE_BM, nv)] = 0.0
+    b[v0 + CE_BM:v0 + nv] = dw[v0:v0 + nv - CE_BM]
+    add("a dW chunk lands a tile late", bad_dw=b)
+    if v % CE_BM:
+        e = CE_BM - v % CE_BM
+        add("p unmasked past V", dh + probs(hf @ wf[:e].T, logz, gf)
+            @ wf[:e])
+    if n % CE_BM:
+        e = CE_BM - n % CE_BM
+        add("p unmasked past N", bad_dw=dw + probs(
+            hf[:e] @ wf.T, logz[:e], gf[:e]).T @ hf[:e])
+    return [(name, x.to(h.dtype), y.to(w.dtype)) for name, x, y in out]
 
 
 def check_ce_bwd(g, fused_ce, case):
-    """dh and dW kernels against ce_bwd_reference; a random g with zeros
-    on every seventh (sentinel) row.  Returns the largest absolute
-    error of (dh, dW)."""
+    """The backward kernels against ce_bwd_reference, the bf16 ones with
+    P's scratch held to ``budget`` bytes (several vocabulary chunks); a
+    random g with zeros on every seventh (sentinel) row.  Two calls must
+    be bitwise equal.  Returns the largest absolute error of (dh, dW)."""
     import torch
-    n, hd, v, dtype = case
+    n, hd, v, dtype, budget = case
     h = rand(g, (n, hd), dtype)
     w = rand(g, (v, hd), dtype, 0.02)
     logz = fused_ce.ce_logz_reference(h, w)
     gv = torch.randn(n, generator=g, device="cuda")
     gv[::7] = 0.0
-    got = fused_ce._launch_bwd(h, w, logz, gv)
+    got = fused_ce._launch_bwd(h, w, logz, gv, budget)
+    again = fused_ce._launch_bwd(h, w, logz, gv, budget)
     want = fused_ce.ce_bwd_reference(h, w, logz, gv)
     torch.cuda.synchronize()
     errs = [grad_err(a, b) for a, b in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     if dtype == torch.bfloat16:
-        ok = all(e[0] <= TOL_CE_GRAD_BF16 for e in errs)
+        vc = fused_ce.chunk_width(n, v, budget)
+        ok = same and v > vc and all(e[0] <= TOL_CE_GRAD_BF16 for e in errs)
         # rounding control: the plain version with p left in f32
         ctl = fused_ce.ce_bwd_reference(h.float(), w.float(), logz, gv)
         ctl = [grad_err(c.to(dtype), b)[0] for c, b in zip(ctl, want)]
-        faults = [(name, grad_err(bad, want[i])[0])
-                  for name, i, bad in ce_bwd_faults(h, w, logz, gv)]
+        faults = [(name, max(grad_err(x, want[0])[0],
+                             grad_err(y, want[1])[0]))
+                  for name, x, y in ce_bwd_faults(h, w, logz, gv, vc)]
         if min(r for _, r in faults) <= TOL_CE_GRAD_BF16:
             ok = False                    # the limit would pass a fault
-        detail = (f", relative to |ref| + rms(ref): dh={errs[0][0]:.3g} "
+        detail = (f", {-(-v // vc)} chunks of {vc}, bitwise repeat "
+                  f"{'yes' if same else 'NO'}, relative to |ref| + rms(ref): "
+                  f"dh={errs[0][0]:.3g} "
                   f"dW={errs[1][0]:.3g} (rounding control dh={ctl[0]:.3g} "
                   f"dW={ctl[1]:.3g}; planted faults "
                   + ", ".join(f"{name} {r:.3g}" for name, r in faults)
                   + f"; tol {TOL_CE_GRAD_BF16:g})")
     else:
-        ok = all(e[1] <= TOL_F32 for e in errs)
-        detail = f" (tol {TOL_F32:g})"
+        ok = same and all(e[1] <= TOL_F32 for e in errs)
+        detail = f" (bitwise repeat {'yes' if same else 'NO'}; tol " \
+                 f"{TOL_F32:g})"
     log(f"check fused_ce_bwd n={n} h={hd} v={v} {str(dtype)[6:]}: "
         f"max_abs_err dh={errs[0][1]:.3g} dW={errs[1][1]:.3g}{detail} "
         f"{'ok' if ok else 'FAIL'}")
@@ -1308,14 +1375,16 @@ def main() -> int:
         (8000, 1024, 50304, bf16),             # token tail
     ])
     check_ce(g, fused_ce, (300, 256, 1000, f32))
+    pb = fused_ce.P_BUDGET
     ce_bwd_errs = [check_ce_bwd(g, fused_ce, c) for c in [
-        (B * S, 1024, 50304, bf16),            # GPT-2 345M training head
-        (8000, 1024, 50304, bf16),             # token tail
-        (300, 256, 1000, bf16),                # token and vocabulary tails
+        (B * S, 1024, 50304, bf16, pb),        # GPT-2 345M training head
+        (8000, 1024, 50304, bf16, pb),         # token tail
+        (300, 256, 1000, bf16, CE_TAIL_BUDGET),   # token, vocabulary tails
+        (300, 1280, 1025, bf16, CE_TAIL_BUDGET),  # a last chunk of 1 row
     ]]
     dh_err = max(e[0] for e in ce_bwd_errs)
     dw_err = max(e[1] for e in ce_bwd_errs)
-    check_ce_bwd(g, fused_ce, (300, 256, 1000, f32))
+    check_ce_bwd(g, fused_ce, (300, 256, 1000, f32, pb))
 
     small = gpt_tiny(num_layers=2, hidden_size=128, num_heads=2,
                      max_seq_len=256)
@@ -1916,14 +1985,14 @@ def main() -> int:
                     "bound_ms": ce_bound, "bound_by": ce_by,
                     "library_ms": ce_lib})
 
-    # backward: the dh and dW kernels alone and as a pair; the plain
-    # backward and the library's three products each compute both
+    # backward: one call computes dh and dW (three passes a vocabulary
+    # chunk); the plain backward and the library's three products each
+    # compute both.  Each pass's device time comes from the profiler.
     logz = fused_ce._launch(h, w)
     gv = torch.randn(n, generator=g, device="cuda") / n
     gv[S - 1::S] = 0.0                       # the sentinel of each sequence
-    dh_ms = cuda_ms(lambda: fused_ce._launch_dh(h, w, logz, gv), reps=5)
-    dw_ms = cuda_ms(lambda: fused_ce._launch_dw(h, w, logz, gv), reps=5)
     pair_ms = cuda_ms(lambda: fused_ce._launch_bwd(h, w, logz, gv), reps=5)
+    pass_ms = ce_bwd_pass_ms(lambda: fused_ce._launch_bwd(h, w, logz, gv))
     bwd_plain = cuda_ms(lambda: fused_ce.ce_bwd_reference(h, w, logz, gv),
                         reps=3)
 
@@ -1934,14 +2003,22 @@ def main() -> int:
     ce_bwd_lib = cuda_ms(ce_bwd_library, reps=3)
     prod = 2 * n * v * hd                    # one product
     io = (n * hd + v * hd) * 2 + 2 * n * 4   # h, W, logz, g
+    # dh's row holds the P pass (the scores) and the dh pass: 2 products;
+    # dW's row the dW pass: 1 product, reading h and writing dW.  The two
+    # rows' times and bounds sum to the pair's.
     dh_bound, dh_by = bound(2 * prod, io + n * hd * 2, PEAK_BF16_FLOPS)
-    dw_bound, dw_by = bound(2 * prod, io + v * hd * 2, PEAK_BF16_FLOPS)
-    # the pair: scores once, then the two products
+    dw_bound, dw_by = bound(prod, (n * hd + v * hd) * 2, PEAK_BF16_FLOPS)
     ce_pair_bound, ce_pair_by = bound(3 * prod, io + (n + v) * hd * 2,
                                       PEAK_BF16_FLOPS)
+    dh_ms = pass_ms["p"] + pass_ms["dh"]
+    dw_ms = pass_ms["dw"]
+    vc = fused_ce.chunk_width(n, v)
     table.append({"kernel": "fused_ce_bwd (dh + dW)",
-                  "shape": f"n={n} h={hd} v={v} bf16",
-                  "kernel_ms": pair_ms, "dh_ms": dh_ms, "dw_ms": dw_ms,
+                  "shape": f"n={n} h={hd} v={v} bf16, {-(-v // vc)} chunks "
+                           f"of {vc}",
+                  "kernel_ms": pair_ms, "p_pass_ms": pass_ms["p"],
+                  "dw_pass_ms": pass_ms["dw"], "dh_pass_ms": pass_ms["dh"],
+                  "pass_bound_ms": bound(prod, 0, PEAK_BF16_FLOPS)[0],
                   "plain_ms": bwd_plain, "library_ms": ce_bwd_lib,
                   "bound_ms": ce_pair_bound, "bound_by": ce_pair_by,
                   "launches_per_step": MICRO})

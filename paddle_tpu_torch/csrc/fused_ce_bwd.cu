@@ -1,5 +1,5 @@
-// Fused linear + cross-entropy backward for Hopper (sm_90a): the dh kernel
-// and the dW kernel, bound through a plain C interface (ctypes).
+// Fused linear + cross-entropy backward for Hopper (sm_90a): dh and dW,
+// bound through a plain C interface (ctypes).
 //
 // Replaces: paddle_tpu/ops/pallas/fused_ce.py `_dh_kernel` (:138) and
 // `_dw_kernel` (:161), called through `_ce_bwd_kernels` (:186).  Same
@@ -7,226 +7,316 @@
 // rounded to the input dtype before the second product,
 //    dh = p.W      (N x H, written in h's dtype)
 //    dW = p^T.h    (V x H, written in W's dtype)
-// both accumulated in f32.  The (N, V) scores never reach device memory:
-// each block rebuilds its tiles of s from h, W and the forward's logz.
-// Vocabulary rows past V and token rows past N give p = 0, as the TPU
-// kernels' iota mask and zero-g padding do; the tile loads mask both edges
-// (zero-filled), so neither h nor W is copied into a padded buffer.  The
-// gold-label terms stay outside, in PyTorch, as in the reference.
+// both accumulated in f32.  Vocabulary rows past V and token rows past N
+// give p = 0.  The gold-label terms stay outside, in PyTorch, as in the
+// reference.
 //
-// Design.  The TPU kernels carry a (1024 x H) and a (2048 x H) f32
-// accumulator in VMEM across a sequential grid axis; a Hopper block has at
-// most 227 KB of shared memory and nothing carries between blocks.  So a
-// block owns few output rows and the whole width H, loops over the other
-// axis, and writes its rows once: no atomics, the result is deterministic.
-//  - dh: a block owns 32 tokens and streams the vocabulary in tiles of 32
-//    rows of W; dW: a block owns 32 vocabulary rows and streams the tokens
-//    in tiles of 32 rows of h.  One kernel body serves both: it owns 32
-//    rows X of one matrix and streams tiles Y of the other, and
-//    TOKEN_OWNER says on which side logz and g live.
-//  - bf16 (the model's path), 8 warps.  Per tile, phase 1 builds the
-//    32 x 32 scores X.Y^T on the tensor cores (mma.sync m16n8k16, bf16 in,
-//    f32 accumulate), the warps splitting them into two row halves times
-//    four quarters of H whose partial sums meet in shared memory in a
-//    fixed order; p = g * 2^(s log2e - logz log2e), rounded to bf16, goes
-//    to shared memory.  Phase 2 adds p.Y into the 32 x H accumulator, each
-//    warp owning 16 rows x 256 columns in registers (128 f32 a thread).
-//    X stays in shared memory; the Y tiles are double-buffered with
-//    cp.async, so tile j + 1 loads while tile j is computed.  Operands are
-//    read with ldmatrix (.trans for Y in the second product).  H is at
-//    most 1024: X and two Y tiles take 198 KB of shared memory there.
-//  - f32 (tests and the small reference model): 16 owned rows and 256
-//    columns per block (a wider H takes more blocks, each rebuilding the
-//    scores), products on the FMA units, exp() as in the reference.
+// Design (bf16, the model's path).  Three GEMMs over chunks of the
+// vocabulary: the (N, V) scores never reach device memory, only the
+// (N, V_c) probabilities of one chunk, in a bf16 scratch buffer the caller
+// allocates (P, its row length V_c a multiple of 128).  For the chunk
+// W_c = W[v0 : v0 + nv], in order:
+//  1. P pass:  P = bf16(g * 2^(s log2e - logz log2e)), s = h.W_c^T, an
+//     N x V_c GEMM over K = H; the exponential, g and the mask past V
+//     are its epilogue, which stages the bf16 tile in shared memory (the
+//     128-byte swizzle of P's tensor map) for one TMA store.
+//  2. dW pass: dW[v0 : v0 + nv] = P^T.h, M = V_c, N = H, K = tokens; A is
+//     P read MN-major, B is h read MN-major.
+//  3. dh pass: acc += P.W_c, M = tokens, N = H, K = V_c; B is W_c read
+//     MN-major.  acc is an f32 (N, H) buffer: the first chunk writes its
+//     product there, a later one adds the buffer to its product in the
+//     epilogue, the last writes dh in bf16 (one chunk touches no buffer).
+// Each output tile is owned by one block and written once per pass, and
+// the chunks run in a fixed order: no atomics, the result is deterministic.
+// One mainloop serves the three passes: a block of three warpgroups owns
+// a 128 x 256 output tile; warpgroup 0 is the producer (one thread keeps
+// TMA loads of 64-deep K slices in flight through a ring of 4 stages of
+// 48 KB, each with a "full" and an "empty" mbarrier), warpgroups 1 and 2
+// each multiply 64 of the rows with wgmma.mma_async m64n256k16 (f32
+// accumulators in registers, 128 a thread) and keep one k-slice of
+// products in flight.  TMA zero-fills reads past the tensors and clips
+// stores, so ragged N, V, V_c and H need no padded copies; the dW and dh
+// epilogues mask their stores.
 //
-// What bounds it.  At N = 8192, H = 1024, V = 50304 each kernel makes two
-// products of 2 N V H = 844 GFLOP: 1.69 TFLOP, 1.71 ms at the card's 989
-// TFLOP/s bf16 peak; its bytes (h and W read once, dh or dW written) take
-// 0.06 ms, so operations bound it.  Owning 32 rows, a block reads each Y
-// tile from L2 for 64 FLOP per byte, and mma.sync reaches a part of the
-// peak; owning more rows needs the accumulator spread over warpgroups
-// (wgmma), the next step.
+// What bounds it.  At N = 8192, H = 1024, V = 50304 the three products
+// are 3 x 2 N V H = 2.53 TFLOP, 2.56 ms at the card's 989 TFLOP/s bf16
+// peak; P's round trip (write once, read twice, 2.5 GB) and the f32
+// accumulator's read-modify-writes (0.4 GB) take about 0.9 ms at 3.35
+// TB/s where L2 does not hold them.  Building the scores once saves a
+// fourth product; keeping dh's sum in device memory leaves the tile
+// (128 x 256, 128 FLOP per byte read) and H free of any register cap.
+//
+// f32 (tests and the small reference model): two kernels on the FMA
+// units, each rebuilding the scores: 16 owned rows and 256 columns per
+// block (a wider H takes more blocks), exp() as in the reference.
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
 using pt::bf16;
+namespace sm = pt::sm90;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: three wgmma GEMMs a chunk
 // ---------------------------------------------------------------------------
 
-constexpr int OR = 32;          // owned rows per block
-constexpr int YT = 32;          // streamed rows per tile
-constexpr int MT = 256;         // threads: 8 warps
-constexpr int MAX_H = 1024;     // columns one block accumulates
-constexpr int WC = MAX_H / 4;   // accumulator columns per warp
-constexpr int SP_LD = YT + 8;   // padded row of a warp's partial scores
-constexpr int P_LD = YT + 8;    // padded row of p
+constexpr int BM = 128;              // output rows a block owns
+constexpr int BN = 256;              // output columns a block owns
+constexpr int BK = 64;               // K per stage: one 128-byte swizzle span
+constexpr int STAGES = 4;
+constexpr int GT = 384;              // a producer and two consumer warpgroups
+constexpr int A_BYTES = BM * BK * 2;                 // 16 KB
+constexpr int B_BYTES = BN * BK * 2;                 // 32 KB
+constexpr int BOX_BYTES = 64 * BK * 2;               // one MN-major box
+constexpr size_t GEMM_SMEM =
+    STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * sizeof(uint64_t) + 1024;
 
-size_t mma_smem(int hd) {
-  const size_t ld = hd + 8;
-  return sizeof(bf16) * (OR + 2 * YT) * ld     // X, two Y tiles
-         + sizeof(float) * 8 * 16 * SP_LD      // partial scores of 8 warps
-         + sizeof(bf16) * OR * P_LD            // p
-         + sizeof(float) * 2 * 2 * YT;         // (logz, g) of two tiles
+enum Pass { P_PASS, DW_PASS, DH_PASS };
+
+// One chunk of the vocabulary and the tensors its passes touch.
+struct Chunk {
+  int n, hd;            // tokens, hidden width
+  int v0, nv;           // the chunk's first vocabulary row, its rows
+  int ld;               // P's row length (V_c)
+  int first, last;      // the chunk's place in the loop (dh pass)
+  const float* logz;    // (n,) f32
+  const float* g;       // (n,) f32
+  bf16* p;              // P scratch (n, ld)
+  bf16* dw;             // (V, hd)
+  float* acc;           // (n, hd) f32 between chunks, or null
+  bf16* dh;             // (n, hd)
+};
+
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The producer's loads of k-slice kb into stage (a, b).  Operand majors:
+//   P pass:  A = h (K-major), B = W_c (K-major)
+//   dW pass: A = P^T (P read MN-major), B = h (MN-major)
+//   dh pass: A = P (K-major), B = W_c (MN-major)
+template <int PASS>
+__device__ __forceinline__ void load_slice(unsigned char* a, unsigned char* b,
+                                           const CUtensorMap* ta,
+                                           const CUtensorMap* tb,
+                                           uint64_t* bar, const Chunk& c,
+                                           int m0, int n0, int k0) {
+  if (PASS == P_PASS) {
+    sm::tma_load_2d(a, ta, bar, k0, m0);
+    sm::tma_load_2d(b, tb, bar, k0, c.v0 + n0);
+  } else if (PASS == DW_PASS) {
+#pragma unroll
+    for (int i = 0; i < BM / 64; ++i)
+      sm::tma_load_2d(a + i * BOX_BYTES, ta, bar, m0 + 64 * i, k0);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      sm::tma_load_2d(b + j * BOX_BYTES, tb, bar, n0 + 64 * j, k0);
+  } else {
+    sm::tma_load_2d(a, ta, bar, k0, m0);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      sm::tma_load_2d(b + j * BOX_BYTES, tb, bar, n0 + 64 * j, c.v0 + k0);
+  }
 }
 
-template <bool TOKEN_OWNER>
-__global__ void __launch_bounds__(MT, 1)
-    ce_bwd_mma_kernel(const bf16* __restrict__ x, int nx,
-                      const bf16* __restrict__ y, int ny,
-                      const float* __restrict__ logz,
-                      const float* __restrict__ gvec,
-                      bf16* __restrict__ out, int hd) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = hd + 8;             // padded row: conflict-free ldmatrix
-  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ys = Xs + OR * ld;           // two stages
-  float* Sp = reinterpret_cast<float*>(Ys + 2 * YT * ld);
-  bf16* Ps = reinterpret_cast<bf16*>(Sp + 8 * 16 * SP_LD);
-  // logz * log2e and g: of the owned tokens (dh, stage 0 only) or of each
-  // stage's streamed tokens (dW); +inf and 0 past the last token
-  float* Lg = reinterpret_cast<float*>(Ps + OR * P_LD);
-
-  const int r0 = blockIdx.x * OR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_tiles = (ny + YT - 1) / YT;
-
-  auto stage_rows = [&](float* L, int row0, int nrows, int count) {
-    for (int i = threadIdx.x; i < count; i += MT) {
-      const int row = row0 + i;
-      L[i] = row < nrows ? logz[row] * LOG2E : CUDART_INF_F;
-      L[YT + i] = row < nrows ? gvec[row] : 0.f;
-    }
-  };
-  auto fetch = [&](int j) {
-    pt::load_rows_async<YT, MT>(Ys + (j & 1) * YT * ld, ld, y, j * YT, ny,
-                                hd, hd);
-    if (!TOKEN_OWNER) stage_rows(Lg + (j & 1) * 2 * YT, j * YT, ny, YT);
-  };
-  // the owned rows, those past nx zero-filled
-  pt::load_rows_async<OR, MT>(Xs, ld, x, r0, nx, hd, hd);
-  pt::commit();
-  if (TOKEN_OWNER) stage_rows(Lg, r0, nx, OR);
-  fetch(0);
-  pt::commit();
-
-  // phase 1: row half rh of the scores over quarter kq of H; phase 2: row
-  // half rh of the accumulator, columns [c0, c0 + WC)
-  const int rh = warp & 1, kq = warp >> 1;
-  const int kw = hd / 4;
-  const int c0 = kq * WC;
-  float acc[WC / 8][4];
+// acc += this warpgroup's 64 rows of A . B over one k-slice in stage (a, b)
+template <int PASS>
+__device__ __forceinline__ void mma_slice(float (&acc)[128],
+                                          const unsigned char* a,
+                                          const unsigned char* b, int cw) {
+  constexpr int TA = PASS == DW_PASS;          // A MN-major
+  constexpr int TB = PASS != P_PASS;           // B MN-major
 #pragma unroll
-  for (int nt = 0; nt < WC / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) fetch(j + 1);
-    pt::commit();
-    pt::wait<1>();                   // X and tile j have landed
-    __syncthreads();
-    const bf16* Yt = Ys + (j & 1) * YT * ld;
-    const float* L = TOKEN_OWNER ? Lg : Lg + (j & 1) * 2 * YT;
-
-    // phase 1: partial scores X.Y^T, 16 rows x 32 streamed rows per warp
-    float sacc[YT / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < YT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[nt][e] = 0.f;
-#pragma unroll 4
-    for (int k = kq * kw; k < (kq + 1) * kw; k += 16) {
-      uint32_t a[4];
-      pt::ldsm_x4(a, Xs + (rh * 16 + (lane & 15)) * ld + k + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < YT / 16; ++np) {
-        uint32_t b[4];
-        pt::ldsm_x4(b, Yt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
-                           k + ((lane >> 3) & 1) * 8);
-        pt::mma_bf16(sacc[2 * np], a, b[0], b[1]);
-        pt::mma_bf16(sacc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-    float* sp = Sp + warp * 16 * SP_LD;
-#pragma unroll
-    for (int nt = 0; nt < YT / 8; ++nt)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi)
-        *reinterpret_cast<float2*>(sp + (g + 8 * hi) * SP_LD + nt * 8 +
-                                   2 * t) =
-            make_float2(sacc[nt][2 * hi], sacc[nt][2 * hi + 1]);
-    __syncthreads();
-
-    // p of four scores a thread: the quarters summed in order, masked past
-    // the last streamed row, rounded to bf16
-    {
-      const int r = threadIdx.x >> 3, c = (threadIdx.x & 7) * 4;
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            Sp + ((q * 2 + (r >> 4)) * 16 + (r & 15)) * SP_LD + c);
-        s[0] += v.x;
-        s[1] += v.y;
-        s[2] += v.z;
-        s[3] += v.w;
-      }
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int li = TOKEN_OWNER ? r : c + e;
-        p[e] = j * YT + c + e < ny
-                   ? L[YT + li] * pt::ex2(s[e] * LOG2E - L[li])
-                   : 0.f;
-      }
-      uint32_t* pd = reinterpret_cast<uint32_t*>(Ps + r * P_LD + c);
-      pd[0] = pt::pack_bf16(p[0], p[1]);
-      pd[1] = pt::pack_bf16(p[2], p[3]);
-    }
-    __syncthreads();
-
-    // phase 2: acc += p.Y over the tile's streamed rows
-    if (c0 < hd) {
-#pragma unroll
-      for (int kk = 0; kk < YT / 16; ++kk) {
-        uint32_t a[4];
-        pt::ldsm_x4(a, Ps + (rh * 16 + (lane & 15)) * P_LD + kk * 16 +
-                           (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < WC / 16; ++np) {
-          if (c0 + np * 16 < hd) {
-            uint32_t b[4];
-            pt::ldsm_x4_trans(
-                b, Yt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                       c0 + np * 16 + (lane >> 4) * 8);
-            pt::mma_bf16(acc[2 * np], a, b[0], b[1]);
-            pt::mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();                 // stage j & 1, Sp and Ps free
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    // K-major: the warpgroup's 64 rows start 64 x 128 bytes in, each 16
+    // of K 32 bytes on; MN-major: its 64 columns are box cw, each 16 of
+    // K 16 rows of 128 bytes on
+    const uint64_t da =
+        TA ? sm::desc_sw128(a + cw * BOX_BYTES + kk * 2048, BOX_BYTES, 1024)
+           : sm::desc_sw128(a + cw * 64 * 128 + kk * 32, 16, 1024);
+    const uint64_t db =
+        TB ? sm::desc_sw128(b + kk * 2048, BOX_BYTES, 1024)
+           : sm::desc_sw128(b + kk * 32, 16, 1024);
+    sm::wgmma_m64n256k16<TA, TB>(acc, da, db);
   }
-  pt::wait<0>();
+}
+
+template <int PASS>
+__device__ __forceinline__ void gemm_body(const CUtensorMap* ta,
+                                          const CUtensorMap* tb,
+                                          const CUtensorMap* tp,
+                                          const Chunk& c) {
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
+  unsigned char* base =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* as = base;
+  unsigned char* bs = base + STAGES * A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * B_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = cdiv(PASS == P_PASS ? c.hd : PASS == DW_PASS ? c.n : c.nv,
+                      BK);
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm::mbar_init(&full[s], 1);
+      sm::mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
+    }
+    sm::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % STAGES;
+        sm::mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        sm::mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+        load_slice<PASS>(as + s * A_BYTES, bs + s * B_BYTES, ta, tb,
+                         &full[s], c, m0, n0, kb * BK);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1, t = threadIdx.x % 128;
+  const int lane = t % 32;
+  // this thread's first row in the block and its column in each 8-block
+  const int r0 = cw * 64 + (t / 32) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+
+  // the products start from 0: registers loaded from memory here would
+  // serialise the products in flight (ptxas C7515, and 7 % of the dh
+  // pass); the dh pass adds the earlier chunks' sum in its epilogue
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % STAGES;
+    sm::mbar_wait(&full[s], (kb / STAGES) & 1);
+    sm::fence_acc(acc);
+    sm::wgmma_fence();
+    mma_slice<PASS>(acc, as + s * A_BYTES, bs + s * B_BYTES, cw);
+    sm::wgmma_commit();
+    // the previous slice's products are done: its stage may refill
+    sm::wgmma_wait<1>();
+    sm::fence_acc(acc);
+    if (kb > 0 && t == 0) sm::mbar_arrive(&empty[(kb - 1) % STAGES]);
+  }
+  sm::wgmma_wait<0>();
+  sm::fence_acc(acc);
+
+  if (PASS == P_PASS) {
+    // p goes out through shared memory: the A stages (both warpgroups'
+    // products are done with them) hold the tile as 4 boxes of 128 rows
+    // x 64 columns in the 128-byte swizzle of P's map, and one thread
+    // stores them with TMA, which clips rows past N and columns past V_c
+    sm::named_barrier(1, 256);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int tr = r0 + 8 * hi, row = m0 + tr;
+      const float lz = row < c.n ? c.logz[row] * LOG2E : 0.f;
+      const float gg = row < c.n ? c.g[row] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = n0 + 8 * j + cq;
+        const float p0 =
+            col < c.nv ? gg * pt::ex2(acc[4 * j + 2 * hi] * LOG2E - lz)
+                       : 0.f;
+        const float p1 =
+            col + 1 < c.nv
+                ? gg * pt::ex2(acc[4 * j + 2 * hi + 1] * LOG2E - lz)
+                : 0.f;
+        // box j / 8; the 16-byte chunk j % 8 of row tr, swizzled by tr % 8
+        *reinterpret_cast<uint32_t*>(
+            as + (j / 8) * BOX_BYTES * 2 + tr * 128 +
+            (((j % 8) ^ (tr % 8)) * 16) + cq * 2) = pt::pack_bf16(p0, p1);
+      }
+    }
+    sm::fence_proxy_async();
+    sm::named_barrier(1, 256);
+    if (threadIdx.x == 128) {
+#pragma unroll
+      for (int b = 0; b < BN / 64; ++b)
+        if (n0 + 64 * b < c.ld)
+          sm::tma_store_2d(tp, as + b * BOX_BYTES * 2, n0 + 64 * b, m0);
+      sm::bulk_commit_and_wait_read();
+    }
+    return;
+  }
 
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
-    const int row = r0 + rh * 16 + g + 8 * hi;
-    if (row >= nx) continue;
+    const int row = m0 + r0 + 8 * hi;
+    if (PASS == DW_PASS) {
+      if (row >= c.nv) continue;
+      bf16* out = c.dw + (size_t)(c.v0 + row) * c.hd;
 #pragma unroll
-    for (int nt = 0; nt < WC / 8; ++nt) {
-      const int col = c0 + nt * 8 + 2 * t;
-      if (col < hd)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * hd + col) =
-            pt::pack_bf16(acc[nt][2 * hi], acc[nt][2 * hi + 1]);
+      for (int j = 0; j < 32; ++j) {
+        const int col = n0 + 8 * j + cq;   // even, and hd is a multiple of 64
+        if (col < c.hd)
+          *reinterpret_cast<uint32_t*>(out + col) =
+              pt::pack_bf16(acc[4 * j + 2 * hi], acc[4 * j + 2 * hi + 1]);
+      }
+    } else {
+      if (row >= c.n) continue;
+      const float* sum = c.acc + (size_t)row * c.hd;
+#pragma unroll
+      for (int j0 = 0; j0 < 32; j0 += 8) {
+        // the earlier chunks' sums of 8 column pairs, loaded together
+        float2 e[8];
+#pragma unroll
+        for (int j = j0; j < j0 + 8; ++j) {
+          const int col = n0 + 8 * j + cq;
+          e[j - j0] = !c.first && col < c.hd
+                          ? *reinterpret_cast<const float2*>(sum + col)
+                          : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int j = j0; j < j0 + 8; ++j) {
+          const int col = n0 + 8 * j + cq;
+          if (col >= c.hd) continue;
+          const float x = acc[4 * j + 2 * hi] + e[j - j0].x;
+          const float y = acc[4 * j + 2 * hi + 1] + e[j - j0].y;
+          if (c.last)
+            *reinterpret_cast<uint32_t*>(c.dh + (size_t)row * c.hd + col) =
+                pt::pack_bf16(x, y);
+          else
+            *reinterpret_cast<float2*>(c.acc + (size_t)row * c.hd + col) =
+                make_float2(x, y);
+        }
+      }
     }
   }
+}
+
+// ta, tb: the operands' maps; tp: P's map (the P pass stores through it)
+__global__ void __launch_bounds__(GT, 1)
+    ce_bwd_p_pass(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tp, const Chunk c) {
+  gemm_body<P_PASS>(&ta, &tb, &tp, c);
+}
+
+__global__ void __launch_bounds__(GT, 1)
+    ce_bwd_dw_pass(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tp, const Chunk c) {
+  gemm_body<DW_PASS>(&ta, &tb, &tp, c);
+}
+
+__global__ void __launch_bounds__(GT, 1)
+    ce_bwd_dh_pass(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tp, const Chunk c) {
+  gemm_body<DH_PASS>(&ta, &tb, &tp, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -320,50 +410,98 @@ __global__ void __launch_bounds__(FT)
 }
 
 // ---------------------------------------------------------------------------
-// launcher
+// launchers
 // ---------------------------------------------------------------------------
 
-// out (nx, hd) = p.Y with p = exp(X.Y^T - logz) * g: TOKEN_OWNER = true
-// is dh (X = h, Y = W), false is dW (X = W, Y = h)
-template <bool TOKEN_OWNER>
-int launch(const void* x, int nx, const void* y, int ny, const float* logz,
-           const float* g, void* out, int hd, int dtype, void* stream) {
-  if (nx <= 0 || ny <= 0 || hd <= 0 || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && (hd % 64 != 0 || hd > MAX_H)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const size_t smem = mma_smem(hd);
-    cudaError_t err = cudaFuncSetAttribute(
-        (const void*)ce_bwd_mma_kernel<TOKEN_OWNER>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    ce_bwd_mma_kernel<TOKEN_OWNER><<<(nx + OR - 1) / OR, MT, smem, s>>>(
-        static_cast<const bf16*>(x), nx, static_cast<const bf16*>(y), ny,
-        logz, g, static_cast<bf16*>(out), hd);
-  } else {
-    dim3 grid((nx + FR - 1) / FR, (hd + FC - 1) / FC);
-    ce_bwd_fma_kernel<TOKEN_OWNER><<<grid, FT, 0, s>>>(
-        static_cast<const float*>(x), nx, static_cast<const float*>(y), ny,
-        logz, g, static_cast<float*>(out), hd);
-  }
-  return (int)cudaGetLastError();
+template <int PASS>
+cudaError_t launch_pass(dim3 grid, const CUtensorMap& ta,
+                        const CUtensorMap& tb, const CUtensorMap& tp,
+                        const Chunk& c, cudaStream_t s) {
+  const void* fn = PASS == P_PASS    ? (const void*)ce_bwd_p_pass
+                   : PASS == DW_PASS ? (const void*)ce_bwd_dw_pass
+                                     : (const void*)ce_bwd_dh_pass;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GEMM_SMEM);
+  if (err != cudaSuccess) return err;
+  if (PASS == P_PASS)
+    ce_bwd_p_pass<<<grid, GT, GEMM_SMEM, s>>>(ta, tb, tp, c);
+  else if (PASS == DW_PASS)
+    ce_bwd_dw_pass<<<grid, GT, GEMM_SMEM, s>>>(ta, tb, tp, c);
+  else
+    ce_bwd_dh_pass<<<grid, GT, GEMM_SMEM, s>>>(ta, tb, tp, c);
+  return cudaGetLastError();
 }
+
+int cdiv_h(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// dh (n, hd) in the input dtype, from h (n, hd), w (v, hd), logz and g (n,)
-// f32.  dtype: 0 = float32, 1 = bfloat16 (hd a multiple of 64 and at most
-// 1024; pointers 16-byte aligned).  Returns a cudaError_t as int.
-extern "C" int pt_ce_bwd_dh(const void* h, const void* w, const float* logz,
-                            const float* g, void* dh, int n, int hd, int v,
-                            int dtype, void* stream) {
-  return launch<true>(h, n, w, v, logz, g, dh, hd, dtype, stream);
+// bf16 dh (n, hd) and dW (v, hd) from h (n, hd), w (v, hd), logz and g (n,)
+// f32, over the vocabulary in chunks of vc rows (a multiple of 128).  p is
+// an (n, vc) bf16 scratch buffer; acc an (n, hd) f32 one, needed when
+// there is more than one chunk (else it may be null).  hd is a multiple of
+// 64; pointers are 16-byte aligned.  Launches 3 kernels a chunk on
+// `stream`; returns a cudaError_t as int (cudaErrorInvalidValue for
+// arguments it does not take or a tensor map that cannot be encoded).
+extern "C" int pt_ce_bwd_bf16(const void* h, const void* w, const float* logz,
+                              const float* g, void* dh, void* dw, void* p,
+                              float* acc, int n, int hd, int v, int vc,
+                              void* stream) {
+  const int chunks = vc > 0 ? cdiv_h(v, vc) : 0;
+  if (n <= 0 || v <= 0 || hd <= 0 || hd % 64 || vc <= 0 || vc % 128 ||
+      (chunks > 1 && acc == nullptr) || cdiv_h(n, BM) > 65535 ||
+      cdiv_h(vc, BM) > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap h_k, h_mn, w_k, w_mn, p_k, p_mn;
+  if (!pt::sm90::bf16_map(&h_k, h, n, hd, BM) ||
+      !pt::sm90::bf16_map(&h_mn, h, n, hd, BK) ||
+      !pt::sm90::bf16_map(&w_k, w, v, hd, BN) ||
+      !pt::sm90::bf16_map(&w_mn, w, v, hd, BK) ||
+      !pt::sm90::bf16_map(&p_k, p, n, vc, BM) ||
+      !pt::sm90::bf16_map(&p_mn, p, n, vc, BK))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int i = 0; i < chunks; ++i) {
+    Chunk c;
+    c.n = n;
+    c.hd = hd;
+    c.v0 = i * vc;
+    c.nv = v - c.v0 < vc ? v - c.v0 : vc;
+    c.ld = vc;
+    c.first = i == 0;
+    c.last = i == chunks - 1;
+    c.logz = logz;
+    c.g = g;
+    c.p = static_cast<bf16*>(p);
+    c.dw = static_cast<bf16*>(dw);
+    c.acc = acc;
+    c.dh = static_cast<bf16*>(dh);
+    cudaError_t err;
+    err = launch_pass<P_PASS>(dim3(cdiv_h(c.nv, BN), cdiv_h(n, BM)), h_k,
+                              w_k, p_k, c, s);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_pass<DW_PASS>(dim3(cdiv_h(hd, BN), cdiv_h(c.nv, BM)), p_mn,
+                               h_mn, p_k, c, s);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_pass<DH_PASS>(dim3(cdiv_h(hd, BN), cdiv_h(n, BM)), p_k,
+                               w_mn, p_k, c, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
-// dW (v, hd) in the input dtype; arguments as for pt_ce_bwd_dh.
-extern "C" int pt_ce_bwd_dw(const void* h, const void* w, const float* logz,
-                            const float* g, void* dw, int n, int hd, int v,
-                            int dtype, void* stream) {
-  return launch<false>(w, v, h, n, logz, g, dw, hd, dtype, stream);
+// f32 dh (n, hd) and dW (v, hd): the FMA kernels, two launches.  Returns a
+// cudaError_t as int.
+extern "C" int pt_ce_bwd_f32(const float* h, const float* w,
+                             const float* logz, const float* g, float* dh,
+                             float* dw, int n, int hd, int v, void* stream) {
+  if (n <= 0 || v <= 0 || hd <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ce_bwd_fma_kernel<true><<<dim3(cdiv_h(n, FR), cdiv_h(hd, FC)), FT, 0, s>>>(
+      h, n, w, v, logz, g, dh, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ce_bwd_fma_kernel<false><<<dim3(cdiv_h(v, FR), cdiv_h(hd, FC)), FT, 0, s>>>(
+      w, v, h, n, logz, g, dw, hd);
+  return (int)cudaGetLastError();
 }

@@ -233,14 +233,12 @@ def gpt_loss(model: GPT, input_ids, labels):
     """Causal-LM cross entropy (f32 softmax); labels == input tokens,
     shifted internally.  With ``FLAGS_gpt_fused_ce`` the head and CE run as
     the fused kernel where its rule takes the head (``fused_ce.supported``:
-    f32 or bf16, and a bf16 width of at most 1024 under grad), and the
-    (B, S, V) logits are never materialised."""
+    f32 or bf16), and the (B, S, V) logits are never materialised."""
     cfg = model.config
     ids, labels = model._ids(input_ids), model._ids(labels)
     B, S = ids.shape
     if flag("gpt_fused_ce") and fused_ce.supported(
-            B * S, cfg.hidden_size, model.wte.dtype,
-            grad=torch.is_grad_enabled() and model.wte.requires_grad):
+            B * S, cfg.hidden_size, model.wte.dtype):
         return _gpt_fused_ce_loss(model, ids, labels)
     lg = _gpt_forward(model, ids)[:, :-1].float()
     tg = labels[:, 1:]

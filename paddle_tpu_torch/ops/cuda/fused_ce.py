@@ -4,10 +4,12 @@ paddle_tpu/ops/pallas/fused_ce.py).
 Per-token ``-log softmax(h @ W.T)[label]`` and its gradients without the
 (N, V) logits in device memory.  The kernels are hand-written CUDA for
 sm_90a: ``csrc/fused_ce_fwd.cu`` replaces the Pallas ``_fwd_kernel`` (the
-logz pass), ``csrc/fused_ce_bwd.cu`` the ``_dh_kernel`` and ``_dw_kernel``.
+logz pass), ``csrc/fused_ce_bwd.cu`` the ``_dh_kernel`` and ``_dw_kernel``
+(in bf16, three wgmma GEMMs over chunks of the vocabulary, whose (N, V_c)
+probabilities live in a scratch buffer this module allocates).
 :class:`_FusedCE` ties them together as the reference's ``custom_vjp``
 does (``_fused_ce`` :259-309): the forward saves h, W, the labels and
-logz; the backward launches the dh and dW kernels, then adds the
+logz; the backward makes one call that computes dh and dW, then adds the
 gold-label terms in PyTorch, O(N*H) as the reference's XLA gather and
 scatter are: ``-g * W[label]`` into dh in dh's dtype, and ``-g * h``
 scattered into dW through an f32 ``index_add_`` (repeated labels would
@@ -16,9 +18,7 @@ round to nothing in a bf16 sum).
 Dispatch is by the device of the tensors it is given: a CPU tensor takes
 the plain PyTorch versions, :func:`ce_logz_reference` and
 :func:`ce_bwd_reference`; a CUDA tensor launches the kernels or raises.
-The bf16 backward kernels take a hidden width of at most 1024 (their
-shared memory holds 96 rows of it); :func:`supported` sends wider bf16
-heads under grad, and f16, to the unfused head by rule.
+:func:`supported` sends f16 heads to the unfused head by rule.
 """
 from __future__ import annotations
 
@@ -28,17 +28,21 @@ import threading
 import torch
 
 __all__ = ["supported", "ce_logz", "ce_logz_reference", "ce_bwd_reference",
-           "fused_linear_cross_entropy", "xla_reference", "launches",
-           "launches_dh", "launches_dw"]
+           "chunk_width", "fused_linear_cross_entropy", "xla_reference",
+           "launches", "launches_dh", "launches_dw"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (tokens per block, vocab rows per tile) of the forward kernel, by dtype
 _BLOCKS = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 _TARGET_BLOCKS = 4 * 132   # a few resident 256-thread blocks on each SM
-_MAX_H_BWD_BF16 = 1024
+# The bf16 backward's scratch: the (N, V_c) bf16 probabilities of one
+# vocabulary chunk take at most this many bytes (V_c a multiple of _V_TILE)
+P_BUDGET = 128 << 20
+_V_TILE = 128
 
 # kernel launches made by this process (read by chip_smoke.py): the logz
-# forward, the backward's dh pass and its dW pass
+# forward, and for each backward call one dh and one dW (in bf16 the
+# call's P and dh passes, and its dW passes, over every chunk)
 launches = 0
 launches_dh = 0
 launches_dw = 0
@@ -47,18 +51,16 @@ _count_lock = threading.Lock()   # ranks simulated as threads launch too
 _fns: dict = {}
 
 
-def supported(n: int, h: int, dtype=None, grad: bool = False) -> bool:
+def supported(n: int, h: int, dtype=None) -> bool:
     """The reference's rule (``supported`` :52), any token count and a
     hidden width that is a multiple of 128, narrowed to what the kernels
-    take: ``dtype`` (the head's, when given) float32 or bfloat16, and under
-    ``grad`` (a backward will run) a bf16 width of at most 1024.  The
-    reference's kernels are dtype-generic and take any width; here the
-    rest goes to the unfused head, on every device."""
+    take: ``dtype`` (the head's, when given) float32 or bfloat16, for the
+    forward and the backward alike.  The reference's kernels are
+    dtype-generic; here an f16 head goes to the unfused head, on every
+    device."""
     if n < 0 or h % 128:
         return False
-    if dtype is not None and dtype not in _DTYPES:
-        return False
-    return not (grad and dtype == torch.bfloat16 and h > _MAX_H_BWD_BF16)
+    return dtype is None or dtype in _DTYPES
 
 
 def ce_logz_reference(h, w):
@@ -81,6 +83,17 @@ def ce_bwd_reference(h, w, logz, g):
     return dh, dw
 
 
+def chunk_width(n: int, v: int, budget: int = P_BUDGET) -> int:
+    """V_c of the bf16 backward for N tokens and V vocabulary rows: the
+    vocabulary runs in ``ceil(V / V_c)`` chunks of V_c rows, the last one
+    shorter where V_c does not divide V.  V_c is a multiple of 128, the
+    (N, V_c) bf16 probabilities fit in ``budget`` bytes (or V_c is 128),
+    and the chunks are as even as that allows."""
+    cap = max(_V_TILE, budget // (2 * max(n, 1)) // _V_TILE * _V_TILE)
+    rows = -(-v // -(-v // cap))          # V over the fewest chunks
+    return -(-rows // _V_TILE) * _V_TILE
+
+
 def _n_split(n: int, v: int, dtype) -> int:
     """Vocab splits of the forward grid: enough blocks to fill the card."""
     block_n, block_v = _BLOCKS[dtype]
@@ -90,18 +103,19 @@ def _n_split(n: int, v: int, dtype) -> int:
 
 
 def _kernel(name: str):
-    """The ctypes function of kernel ``name`` ('fwd', 'dh', 'dw'), typed."""
+    """The ctypes function of kernel ``name`` ('fwd', 'bwd_bf16',
+    'bwd_f32'), typed."""
     fn = _fns.get(name)
     if fn is None:
         from paddle_tpu_torch.ops.cuda import _build
-        if name == "fwd":
-            fn = _build.load("fused_ce_fwd").pt_ce_logz_fwd
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
-        else:
-            fn = getattr(_build.load("fused_ce_bwd"), f"pt_ce_bwd_{name}")
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
+        # (library, symbol, pointers, ints); the stream comes last
+        lib, sym, ptrs, ints = {
+            "fwd": ("fused_ce_fwd", "pt_ce_logz_fwd", 5, 5),
+            "bwd_bf16": ("fused_ce_bwd", "pt_ce_bwd_bf16", 8, 4),
+            "bwd_f32": ("fused_ce_bwd", "pt_ce_bwd_f32", 6, 3)}[name]
+        fn = getattr(_build.load(lib), sym)
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -136,11 +150,13 @@ def _check(h, w):
 
 
 def _call(name, tensors, ints):
-    """Launch kernel ``name`` on the current stream of the tensors' card;
-    raise if the launch is refused."""
+    """Launch kernel ``name`` on the current stream of the tensors' card
+    (a tensor given as None passes a null pointer); raise if a launch is
+    refused."""
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel(name)(*(t.data_ptr() for t in tensors), *ints, stream)
+        err = _kernel(name)(*(None if t is None else t.data_ptr()
+                              for t in tensors), *ints, stream)
     if err != 0:
         raise RuntimeError(f"fused_ce: {name} kernel launch failed with "
                            f"cudaError {err}")
@@ -167,38 +183,30 @@ def _check_bwd(h, w, logz, g):
                 not t.is_contiguous() or t.device != h.device:
             raise ValueError(f"fused_ce: {name} must be a contiguous ({n},) "
                              "float32 tensor on h's device")
-    if h.dtype == torch.bfloat16 and hd > _MAX_H_BWD_BF16:
-        raise ValueError(f"fused_ce: the bf16 backward kernels take a hidden "
-                         f"width of at most {_MAX_H_BWD_BF16}, got {hd}")
     return n, hd, v
 
 
-def _launch_dh(h, w, logz, g):
-    """dh kernel on the card (reference ``_dh_kernel`` :138)."""
-    global launches_dh
+def _launch_bwd(h, w, logz, g, budget=P_BUDGET):
+    """The backward kernels on the card (reference ``_dh_kernel`` :138 and
+    ``_dw_kernel`` :161): (dh, dW) without the gold terms, in one call.
+    In bf16 the vocabulary runs in chunks of :func:`chunk_width` rows
+    (``budget`` bounds the probabilities' scratch), three kernels a chunk;
+    more than one chunk also takes an (N, H) f32 accumulator."""
+    global launches_dh, launches_dw
     n, hd, v = _check_bwd(h, w, logz, g)
-    dh = torch.empty_like(h)
-    _call("dh", (h, w, logz, g, dh), (n, hd, v, _DTYPES[h.dtype]))
+    dh, dw = torch.empty_like(h), torch.empty_like(w)
+    if h.dtype == torch.bfloat16:
+        vc = chunk_width(n, v, budget)
+        p = torch.empty(n, vc, dtype=h.dtype, device=h.device)
+        acc = torch.empty(n, hd, dtype=torch.float32,
+                          device=h.device) if v > vc else None
+        _call("bwd_bf16", (h, w, logz, g, dh, dw, p, acc), (n, hd, v, vc))
+    else:
+        _call("bwd_f32", (h, w, logz, g, dh, dw), (n, hd, v))
     with _count_lock:
         launches_dh += 1
-    return dh
-
-
-def _launch_dw(h, w, logz, g):
-    """dW kernel on the card (reference ``_dw_kernel`` :161)."""
-    global launches_dw
-    n, hd, v = _check_bwd(h, w, logz, g)
-    dw = torch.empty_like(w)
-    _call("dw", (h, w, logz, g, dw), (n, hd, v, _DTYPES[h.dtype]))
-    with _count_lock:
         launches_dw += 1
-    return dw
-
-
-def _launch_bwd(h, w, logz, g):
-    """Both backward kernels on the card: (dh, dW) without the gold
-    terms."""
-    return _launch_dh(h, w, logz, g), _launch_dw(h, w, logz, g)
+    return dh, dw
 
 
 def _by_device(t, cpu, cuda):

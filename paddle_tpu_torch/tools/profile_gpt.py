@@ -46,10 +46,11 @@ _GROUPS = (
     ("flash_attention_bwd_dkv", ("fa_bwd_dkv",)),
     ("flash_attention_dbias", ("dbias_",)),
     ("fused_ce_fwd", ("ce_partial", "ce_merge")),
-    ("fused_ce_bwd_dh", ("ce_bwd_mma_kernel<true>",
+    # the bf16 backward's P pass builds the probabilities both use: it
+    # counts with dh, as the chip_smoke.py kernel table counts it
+    ("fused_ce_bwd_dh", ("ce_bwd_p_pass", "ce_bwd_dh_pass",
                          "ce_bwd_fma_kernel<true>")),
-    ("fused_ce_bwd_dw", ("ce_bwd_mma_kernel<false>",
-                         "ce_bwd_fma_kernel<false>")),
+    ("fused_ce_bwd_dw", ("ce_bwd_dw_pass", "ce_bwd_fma_kernel<false>")),
     # launched through ctypes, the fused Adam kernel has no PyTorch op to
     # tie it to the TrainStep.update range: its name puts it there
     ("optimizer", ("adam_kernel",)),

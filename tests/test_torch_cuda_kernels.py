@@ -355,15 +355,53 @@ def test_ce_bwd_kernels_reject_what_they_do_not_take(gen):
     hs = _rand(gen, (64, 2048), torch.bfloat16)
     w = _rand(gen, (100, 2048), torch.bfloat16)
     logz = torch.zeros(64, device="cuda")
-    # the rule sends this width under grad to the unfused head; a caller
-    # that bypasses it meets the wrapper's raise
-    assert not fused_ce.supported(64, 2048, torch.bfloat16, grad=True)
+    # any width that is a multiple of 128 runs, under grad too
     assert fused_ce.supported(64, 2048, torch.bfloat16)
-    with pytest.raises(ValueError, match="at most 1024"):
-        fused_ce._launch_dh(hs, w, logz, logz)
-    hs, w = hs[:, :1024].contiguous(), w[:, :1024].contiguous()
     with pytest.raises(ValueError, match="logz"):
-        fused_ce._launch_dw(hs, w, logz[:32], logz)
+        fused_ce._launch_bwd(hs, w, logz[:32], logz)
+    with pytest.raises(ValueError, match="one dtype"):
+        fused_ce._launch_bwd(hs, w.float(), logz, logz)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fused_ce._launch_bwd(hs[:, :96].contiguous(),
+                             w[:, :96].contiguous(), logz, logz)
+
+
+# The bf16 backward over vocabulary chunks (P's scratch held to `budget`
+# bytes; None: the default): N = 300, 8000 and 8192; V = 1000, 50304, a V
+# that is an exact multiple of the chunk and one that is a multiple plus
+# 1; H = 256, 1024 and 1280.  Two calls are bitwise equal.
+_TAIL = 2 * 300 * 256                      # 256-row chunks at 300 tokens
+
+
+@pytest.mark.parametrize("n,h,v,budget", [
+    (300, 256, 1000, None), (300, 256, 1000, _TAIL), (300, 1280, 1000, _TAIL),
+    (300, 256, 1024, _TAIL), (300, 1024, 1025, _TAIL),
+    (8000, 1024, 50304, None), (8192, 1024, 50304, None),
+    (8192, 1280, 50304, None), (8192, 256, 7296 * 3, None),
+    (8192, 1024, 3 * 512 + 1, 2 * 8192 * 512)])
+def test_ce_bwd_chunks_match_plain_and_repeat(gen, n, h, v, budget):
+    hs = _rand(gen, (n, h), torch.bfloat16)
+    w = _rand(gen, (v, h), torch.bfloat16, 0.02)
+    logz = fused_ce.ce_logz_reference(hs, w)
+    g = torch.randn(n, generator=gen, device="cuda")
+    g[::7] = 0.0
+    args = (hs, w, logz, g) + (() if budget is None else (budget,))
+    vc = fused_ce.chunk_width(n, v, *args[4:])
+    if v in (1024, 7296 * 3):
+        assert v % vc == 0                # an exact multiple of the chunk
+    if v in (1025, 3 * 512 + 1):
+        assert v % vc == 1                # a last chunk of one row
+    before = (fused_ce.launches_dh, fused_ce.launches_dw)
+    got = fused_ce._launch_bwd(*args)
+    again = fused_ce._launch_bwd(*args)
+    want = fused_ce.ce_bwd_reference(hs, w, logz, g)
+    torch.cuda.synchronize()
+    assert (fused_ce.launches_dh, fused_ce.launches_dw) == (before[0] + 2,
+                                                            before[1] + 2)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == c.shape
+        assert torch.equal(a, b)
+        _close_grad(a, c, TOL_CE_GRAD_BF16)
 
 
 def _adam_inputs(gen, sizes):
@@ -559,17 +597,25 @@ def test_fused_ce_head_1280_under_grad_runs(gen):
     ids = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda")
     set_flags({"gpt_fused_ce": True})
     try:
-        before = (fused_ce.launches, fused_ce.launches_dh)
+        before = (fused_ce.launches, fused_ce.launches_dh,
+                  fused_ce.launches_dw)
         loss = gpt_loss(m, ids, ids)
         loss.backward()
         torch.cuda.synchronize()
-        assert (fused_ce.launches, fused_ce.launches_dh) == before
-        with torch.inference_mode():        # no backward: the kernel
-            assert math.isfinite(float(gpt_loss(m, ids, ids)))
-        assert fused_ce.launches == before[0] + 1
+        # the fused head under grad: one forward, one dh and one dW
+        assert (fused_ce.launches, fused_ce.launches_dh,
+                fused_ce.launches_dw) == tuple(c + 1 for c in before)
     finally:
         set_flags({"gpt_fused_ce": False})
     assert math.isfinite(float(loss.detach())) and m.wte.grad is not None
+    # the kernels at this width against the plain version
+    hs = _rand(gen, (256, 1280), torch.bfloat16)
+    w = _rand(gen, (cfg.vocab_size, 1280), torch.bfloat16, 0.02)
+    logz = fused_ce.ce_logz_reference(hs, w)
+    g = torch.randn(256, generator=gen, device="cuda")
+    got = fused_ce._launch_bwd(hs, w, logz, g)
+    for a, b in zip(got, fused_ce.ce_bwd_reference(hs, w, logz, g)):
+        _close_grad(a, b, TOL_CE_GRAD_BF16)
 
 
 def test_o2_float16_train_step_runs(gen):

@@ -156,15 +156,15 @@ def test_supported_follows_reference_rule():
         assert tce.supported(n, h) is jce.supported(n, h)
 
 
-@pytest.mark.parametrize("h,dtype,grad,want", [
-    (1280, torch.bfloat16, True, False),   # bf16 backward: H <= 1024
-    (1280, torch.bfloat16, False, True),   # the forward takes it
-    (1280, torch.float32, True, True),
-    (1024, torch.bfloat16, True, True),
-    (1024, torch.float16, False, False),   # f16: the unfused head
+@pytest.mark.parametrize("h,dtype,want", [
+    (1280, torch.bfloat16, True),    # forward and backward: any width
+    (2048, torch.bfloat16, True),
+    (1280, torch.float32, True),
+    (1024, torch.bfloat16, True),
+    (1024, torch.float16, False),    # f16: the unfused head
 ])
-def test_supported_admits_only_what_the_kernels_run(h, dtype, grad, want):
-    assert tce.supported(8192, h, dtype, grad=grad) is want
+def test_supported_admits_only_what_the_kernels_run(h, dtype, want):
+    assert tce.supported(8192, h, dtype) is want
 
 
 def test_gpt_loss_takes_the_unfused_head_where_the_rule_refuses(monkeypatch):
@@ -174,15 +174,16 @@ def test_gpt_loss_takes_the_unfused_head_where_the_rule_refuses(monkeypatch):
     called = []
     monkeypatch.setattr(tgpt, "_gpt_fused_ce_loss",
                         lambda *a: called.append(1) or torch.zeros(()))
-    m = GPT(gpt_tiny(num_layers=1, hidden_size=1280, num_heads=20,
-                     max_seq_len=128), device="cpu").to(torch.bfloat16)
+    cfg = gpt_tiny(num_layers=1, hidden_size=128, num_heads=2,
+                   max_seq_len=128)
     ids = np.zeros((1, 128), np.int64)
     set_flags({"gpt_fused_ce": True})
     try:
-        gpt_loss(m, ids, ids)                      # under grad: unfused
+        m = GPT(cfg, device="cpu").to(torch.float16)
+        gpt_loss(m, ids, ids)                      # f16: unfused
         assert called == []
-        with torch.no_grad():
-            gpt_loss(m, ids, ids)                  # no backward: fused
+        m = GPT(cfg, device="cpu").to(torch.bfloat16)
+        gpt_loss(m, ids, ids)                      # bf16 under grad: fused
         assert called == [1]
     finally:
         set_flags({"gpt_fused_ce": False})
@@ -199,6 +200,27 @@ def test_vocab_split_covers_every_tile():
             assert k * -(-n_vt // k) >= n_vt
 
 
+@pytest.mark.parametrize("n,v,budget", [
+    (8192, 50304, None), (8000, 50304, None), (300, 1000, 2 * 300 * 256),
+    (300, 1024, 2 * 300 * 256), (300, 1025, 2 * 300 * 256),
+    (1, 64, None), (10**6, 50304, None), (256, 50304, 1)])
+def test_chunk_width_covers_every_vocab_row_once(n, v, budget):
+    # the C launcher runs chunk i over rows [i vc, min(V, (i + 1) vc))
+    vc = tce.chunk_width(n, v, *(() if budget is None else (budget,)))
+    cap = tce.P_BUDGET if budget is None else budget
+    assert vc % 128 == 0 and (2 * n * vc <= cap or vc == 128)
+    seen = np.zeros(v, np.int64)
+    for i in range(-(-v // vc)):
+        seen[i * vc:min(v, (i + 1) * vc)] += 1
+    assert (seen == 1).all()
+    assert v - (-(-v // vc) - 1) * vc > 0          # no empty last chunk
+
+
+def test_chunk_width_of_the_345m_head():
+    # 7 even chunks: P's scratch 114 MiB, the last chunk 6528 rows
+    assert tce.chunk_width(8192, 50304) == 7296
+
+
 def test_other_devices_raise():
     h = torch.empty(4, 128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -208,20 +230,20 @@ def test_other_devices_raise():
 # The card check's measure of the bf16 dh and dW (chip_smoke.py and
 # tests/test_torch_cuda_kernels.py): max |got - want| / (|want| + rms(want))
 # per tensor, held to TOL_CE_GRAD_BF16.  chip_smoke.ce_bwd_faults plants the
-# faults a tiled kernel can make into the plain backward; each must read
-# above the limit, and leaving p unrounded must read well below it, at the
-# tail shapes and at the GPT-2 345M head's width (a 256-token slice: a
-# dh row depends on its own token only, and fewer rows can only lower the
-# largest reading).  chip_smoke.py reads the same faults at the full head.
+# faults the chunked kernels can make into the plain backward; each must
+# read above the limit on dh or dW, and leaving p unrounded must read well
+# below it, at the tail shape in 256-row chunks (as the card check runs it)
+# and at the GPT-2 345M head's width in the chunks of the full head (a
+# 256-token slice: a dh row depends on its own token only, and fewer rows
+# can only lower the largest reading).  chip_smoke.py reads the same faults
+# at the full head.
 TOL_CE_GRAD_BF16 = 0.03
 _FAULT_CASES = {"tails": (300, 256, 1000), "345m_width": (256, 1024, 50304)}
-_FAULTS = {
-    "tails": ["dh skips a W tile", "dW skips an h tile",
-              "dh scores miss a quarter of H", "dW scores miss a quarter of H",
-              "dh p unmasked past V", "dW p unmasked past N"],
-    "345m_width": ["dh skips a W tile", "dW skips an h tile",
-                   "dh scores miss a quarter of H",
-                   "dW scores miss a quarter of H"]}
+_COMMON = ["P pass skips a tile", "dW pass skips a tile",
+           "dh pass skips a tile", "a score tile misses a K-step",
+           "a chunk overwrites dh's sum", "a dW chunk lands a tile late"]
+_FAULTS = {"tails": _COMMON + ["p unmasked past V", "p unmasked past N"],
+           "345m_width": _COMMON}
 
 
 def _grad_err(a, b):
@@ -252,8 +274,12 @@ def bf16_ce_case(request):
     logz = tce.ce_logz_reference(hs, w)
     want = tce.ce_bwd_reference(hs, w, logz, g)
     ctl = tce.ce_bwd_reference(hs.float(), w.float(), logz, g)
-    faults = {name: _grad_err(bad, want[i]) for name, i, bad in
-              _chip_smoke().ce_bwd_faults(hs, w, logz, g)}
+    cs = _chip_smoke()
+    vc = (tce.chunk_width(n, v, cs.CE_TAIL_BUDGET) if request.param == "tails"
+          else tce.chunk_width(8192, v))
+    assert -(-v // vc) >= 4
+    faults = {name: max(_grad_err(x, want[0]), _grad_err(y, want[1]))
+              for name, x, y in cs.ce_bwd_faults(hs, w, logz, g, vc)}
     return request.param, [_grad_err(c.bfloat16(), x)
                            for c, x in zip(ctl, want)], faults
 
