@@ -6,14 +6,20 @@
 Phases, in order; any failure ends the script with a non-zero exit:
 
 1. build   — compile every CUDA kernel of the path from paddle_tpu_torch/csrc
-             (one nvcc per source, all started together).
+             (one nvcc per source, all started together); fail if ptxas
+             serialised the flash forward's wgmma products.
 2. check   — hold each kernel against its plain PyTorch version on the card,
-             at the shapes GPT-2 345M gives it and at tail shapes; the masked
+             at the shapes GPT-2 345M gives it and at tail shapes; the bf16
+             flash forward also by a relative measure beside its rounding
+             control and the faults flash_fwd_faults plants, two calls
+             bitwise equal, at its tile edges (sequences ending inside a
+             128 tile, sq > sk, D = 128) and past B*H = 65,535; the masked
              flash kernels at BERT-base's layer with its padding bias, in
              every bias class, with segment ids and with rows that see no
              key; the dbias kernel beside the faults dbias_faults plants;
              the fused CE backward in vocabulary chunks (two calls bitwise
-             equal) beside the faults ce_bwd_faults plants; a small GPT on the card against the same model on the CPU:
+             equal) beside the faults ce_bwd_faults plants; a small GPT on
+             the card against the same model on the CPU:
              forward, loss, gradients, one f32 TrainStep, and three f32
              TrainSteps of the fused configuration; a small BERT on a padded
              batch (logits, loss, gradients, one AdamW step) and a small
@@ -101,6 +107,17 @@ TOL_BF16 = 2e-2                # bf16 outputs: a few bf16 ulps of O(1) values
 TOL_F32 = 1e-4                 # f32 outputs: summation order only
 TOL_LSE = 1e-3                 # f32 lse / logz from bf16 inputs
 TOL_LOSS_BF16 = 2e-2           # fused vs unfused loss in bf16 (logits rounding)
+# The bf16 flash forward's output by the gradients' relative measure below
+# (grad_err).  On an H100 the kernel reads 0.003-0.013 at the checked
+# shapes and the plain version with p left in f32 0.006-0.024; the faults
+# flash_fwd_faults plants (a skipped key tile, 8 columns of v read from the
+# wrong place, the causal edge moved by one key) read 0.79 and more
+# (PERF.md, Findings; tests/test_torch_flash_attention.py reads them on
+# the CPU).  The check reads every planted fault on each run and fails if
+# one is not above this.
+TOL_FWD_BF16 = 0.05
+FA_TILE = 128                  # the bf16 forward's query rows and keys a tile
+FA_SEAM = 65535                # the folded B*H past which grid y once split
 # bf16 gradients: max |got - want| / (|want| + rms(want)) per tensor.  Both
 # sides round to bf16, so an entry may differ by an ulp of itself (2^-7 of
 # |want|); the rms floor keeps an error among small gradients from hiding
@@ -250,22 +267,99 @@ def rand(g, shape, dtype, scale=1.0):
             * scale).to(dtype)
 
 
-def check_flash(g, fa, case):
+def flash_fwd_faults(fa, qt, kt, vt, scale, causal, mask=None):
+    """What a faulty bf16 forward would return, as a list of (name, out):
+    the plain version with one fault of the tiled design planted, in the
+    middle folded slice and the middle of the FA_TILE-row query tiles that
+    see a key: the tile skips its first key tile; the first key tile's v
+    columns 8..15 are read from columns 16..23 (for every query row of the
+    slice); and, causal only, every row's causal edge moves one key on.
+    The measure must read each above its limit."""
+    import torch
+    s = fa._scores(qt, kt, scale, causal, mask)
+    bh, sq, sk = s.shape
+    b0 = bh // 2
+    first = max(0, sq - sk) // FA_TILE if causal else 0
+    r0 = (first + -(-sq // FA_TILE)) // 2 * FA_TILE
+    bad = s.clone()
+    bad[b0, r0:r0 + FA_TILE, :FA_TILE] = float("-inf")
+    out = [("skips a key tile", fa._attend(bad, vt, qt.dtype)[0])]
+    vb = vt.clone()
+    vb[b0, :FA_TILE, 8:16] = vt[b0, :FA_TILE, 16:24]
+    out.append(("reads 8 columns of v from the wrong place",
+                fa._attend(s, vb, qt.dtype)[0]))
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(
+            sk - sq + 1)
+        moved = fa._scores(qt, kt, scale, False, mask).masked_fill(
+            ~keep, float("-inf"))
+        out.append(("moves the causal edge by one key",
+                    fa._attend(moved, vt, qt.dtype)[0]))
+    return out
+
+
+def fwd_err(fa, out_k, out_p, qt, kt, vt, scale, causal, mask=None):
+    """The bf16 forward's output by the relative measure: (the kernel's
+    reading, the rounding control's (the plain version with p left in
+    f32), [(fault, its reading)]).  Fails if the limit would pass a
+    planted fault."""
+    rel = grad_err(out_k, out_p)[0]
+    ctl = fa.flash_attention_reference(qt.float(), kt.float(), vt.float(),
+                                       scale, causal, mask)[0]
+    ctl = grad_err(ctl.to(out_p.dtype), out_p)[0]
+    faults = [(name, grad_err(bad, out_p)[0]) for name, bad in
+              flash_fwd_faults(fa, qt, kt, vt, scale, causal, mask)]
+    if min(r for _, r in faults) <= TOL_FWD_BF16:
+        fail("the forward's limit would pass a planted fault: "
+             + ", ".join(f"{n} {r:.3g}" for n, r in faults))
+    return rel, ctl, faults
+
+
+def check_flash(g, fa, case, slices=None):
+    """The forward kernel against flash_attention_reference: out and lse
+    by their absolute limits; in bf16 also out by the relative measure
+    beside its rounding control and planted faults, and two calls bitwise
+    equal.  ``slices``: compare only these folded slices (B*H past the
+    seam), without faults.  Returns the largest absolute error of out."""
     import torch
     bh, sq, sk, d, dtype, causal = case
     qt = rand(g, (bh, sq, d), dtype)
     kt, vt = rand(g, (bh, sk, d), dtype), rand(g, (bh, sk, d), dtype)
     scale = 1.0 / math.sqrt(d)
     out_k, lse_k = fa._launch(qt, kt, vt, scale, causal)
+    again = fa._launch(qt, kt, vt, scale, causal)
+    torch.cuda.synchronize()
+    same = torch.equal(out_k, again[0]) and torch.equal(lse_k, again[1])
+    del again
+    if slices is not None:
+        idx = torch.tensor(slices, device=qt.device)
+        qt, kt, vt, out_k, lse_k = (t[idx] for t in (qt, kt, vt, out_k,
+                                                     lse_k))
     out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, scale, causal)
     torch.cuda.synchronize()
-    tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+    bf = dtype == torch.bfloat16
+    tol = TOL_BF16 if bf else TOL_F32
     e_out, e_lse = max_err(out_k, out_p), max_err(lse_k, lse_p)
-    ok = e_out <= tol and e_lse <= (TOL_LSE if dtype == torch.bfloat16
-                                    else TOL_F32)
+    ok = same and e_out <= tol and e_lse <= (TOL_LSE if bf else TOL_F32)
+    detail = ""
+    if bf:
+        rel, ctl = grad_err(out_k, out_p)[0], None
+        if slices is None:
+            rel, ctl, faults = fwd_err(fa, out_k, out_p, qt, kt, vt, scale,
+                                       causal)
+        ok = ok and rel <= TOL_FWD_BF16
+        detail = (f", relative to |ref| + rms(ref) {rel:.3g}"
+                  + (f" (rounding control {ctl:.3g}; planted faults "
+                     + ", ".join(f"{n} {r:.3g}" for n, r in faults) + ")"
+                     if ctl is not None else "")
+                  + f" (tol {TOL_FWD_BF16:g})")
+    if causal and sq > sk and float(out_k[:, :sq - sk].abs().max()) != 0:
+        ok = False                        # rows with no key: out = 0
+    where = "" if slices is None else f" slices {list(slices)}"
     log(f"check flash_attention bh={bh} sq={sq} sk={sk} d={d} "
-        f"{str(dtype)[6:]} causal={causal}: max_abs_err out={e_out:.3g} "
-        f"lse={e_lse:.3g} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        f"{str(dtype)[6:]} causal={causal}{where}: max_abs_err "
+        f"out={e_out:.3g} lse={e_lse:.3g} (tol {tol:g}){detail}, bitwise "
+        f"repeat {'yes' if same else 'NO'} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("flash_attention kernel disagrees with its plain version")
     return e_out
@@ -596,22 +690,28 @@ def padding_bias(amask):
 
 def masked_case(g, fa, case):
     """Folded q, k, v, do and the mask of a check case (b, h, s, d, dtype,
-    bias shape or None, bias dtype, segment ids?, causal)."""
+    bias shape or None, bias dtype, segment ids?, causal); s is the
+    sequence length of both, or (sq, sk)."""
     import torch
     b, h, s, d, dtype, bias_shape, bias_dtype, segs, _ = case
-    qt, kt, vt, dot = (rand(g, (b * h, s, d), dtype) for _ in range(4))
+    sq, sk = (s, s) if isinstance(s, int) else s
+    qt, dot = (rand(g, (b * h, sq, d), dtype) for _ in range(2))
+    kt, vt = (rand(g, (b * h, sk, d), dtype) for _ in range(2))
     bias = None if bias_shape is None else rand(g, bias_shape, bias_dtype)
     q_seg = kv_seg = None
     if segs:                        # packed sequences of 96 and 64 tokens
-        pos = torch.arange(s, device=qt.device)
-        q_seg = (pos // 96).int().expand(b, s).contiguous()
-        kv_seg = (pos // 64).int().expand(b, s).contiguous()
+        q_seg = (torch.arange(sq, device=qt.device) // 96).int().expand(
+            b, sq).contiguous()
+        kv_seg = (torch.arange(sk, device=qt.device) // 64).int().expand(
+            b, sk).contiguous()
     return qt, kt, vt, dot, fa.Mask(bias, q_seg, kv_seg, h)
 
 
 def check_masked(g, fa, case, mask=None, dbias=True):
     """The masked forward, dq, dk/dv and, when the case has a bias and
-    ``dbias``, dbias kernels against their plain versions.  ``mask``
+    ``dbias``, dbias kernels against their plain versions; the forward in
+    bf16 also by the relative measure beside its rounding control and
+    planted faults, and two forward calls bitwise equal.  ``mask``
     replaces the case's own.  Returns the largest absolute errors (out,
     dq, dk/dv, dbias or None)."""
     import torch
@@ -622,6 +722,10 @@ def check_masked(g, fa, case, mask=None, dbias=True):
     bf = dtype == torch.bfloat16
     want_db = dbias and mask.bias is not None
     out_k, lse_k = fa._launch(qt, kt, vt, sc, causal, mask)
+    again = fa._launch(qt, kt, vt, sc, causal, mask)
+    torch.cuda.synchronize()
+    same = torch.equal(out_k, again[0]) and torch.equal(lse_k, again[1])
+    del again
     out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, sc, causal, mask)
     got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
                          dbias=want_db)
@@ -629,8 +733,17 @@ def check_masked(g, fa, case, mask=None, dbias=True):
                              dbias=want_db)
     torch.cuda.synchronize()
     e_out, e_lse = max_err(out_k, out_p), max_err(lse_k, lse_p)
-    ok = e_out <= (TOL_BF16 if bf else TOL_F32) and e_lse <= (
+    ok = same and e_out <= (TOL_BF16 if bf else TOL_F32) and e_lse <= (
         TOL_LSE if bf else TOL_F32)
+    fwd = ""
+    if bf:
+        r_out, ctl, faults = fwd_err(fa, out_k, out_p, qt, kt, vt, sc,
+                                     causal, mask)
+        ok = ok and r_out <= TOL_FWD_BF16
+        fwd = (f", out relative {r_out:.3g} (rounding control {ctl:.3g}; "
+               "planted faults " + ", ".join(f"{n} {r:.3g}" for n, r in
+                                             faults)
+               + f"; tol {TOL_FWD_BF16:g})")
     names = ("dq", "dk", "dv", "dbias")[:4 if want_db else 3]
     errs = [grad_err(a, w) for a, w in zip(got[:len(names)], want)]
     limits = [TOL_GRAD_BF16] * 3 + [TOL_DBIAS_BF16]
@@ -660,7 +773,8 @@ def check_masked(g, fa, case, mask=None, dbias=True):
         f"{', '.join(what)} causal={causal}: "
         f"max_abs_err out={e_out:.3g} lse={e_lse:.3g} "
         + " ".join(f"{n}={e[1]:.3g}" for n, e in zip(names, errs))
-        + f"{rel}{'' if not bool(empty.any()) else ' (rows with no key: 0)'}"
+        + f"{rel}{fwd}, bitwise repeat {'yes' if same else 'NO'}"
+        f"{'' if not bool(empty.any()) else ' (rows with no key: 0)'}"
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("masked flash_attention kernels disagree with their plain "
@@ -697,6 +811,38 @@ def check_dbias_faults(g, fa, b, h, s):
     if not ok:
         fail("the dbias kernel or its limit fails the fault check")
     return err
+
+
+def check_masked_seam(g, fa):
+    """The masked forward with BERT's padding bias at B*H = 70,000 (5,000
+    x 14 heads), past the seam where grid y once split the launches: the
+    slices at both ends and on both sides of the seam against the plain
+    version."""
+    import torch
+    b, h, s = 5000, 14, 128
+    qt, kt, vt = (rand(g, (b * h, s, 64), torch.bfloat16) for _ in range(3))
+    keep = torch.arange(s, device="cuda")[None] < torch.randint(
+        s // 2, s + 1, (b, 1), generator=g, device="cuda")
+    mask = fa.Mask(padding_bias(keep), None, None, h)
+    out_k, lse_k = fa._launch(qt, kt, vt, 0.125, False, mask)
+    ent = (0, FA_SEAM // h - 1, FA_SEAM // h, FA_SEAM // h + 1, b - 1)
+    e_out = e_lse = rel = 0.0
+    for e in ent:
+        sl = slice(e * h, (e + 1) * h)
+        sub = fa.Mask(mask.bias[e:e + 1], None, None, h)
+        out_p, lse_p = fa.flash_attention_reference(qt[sl], kt[sl], vt[sl],
+                                                    0.125, False, sub)
+        e_out = max(e_out, max_err(out_k[sl], out_p))
+        e_lse = max(e_lse, max_err(lse_k[sl], lse_p))
+        rel = max(rel, grad_err(out_k[sl], out_p)[0])
+    ok = e_out <= TOL_BF16 and e_lse <= TOL_LSE and rel <= TOL_FWD_BF16
+    log(f"check masked flash bh={b * h} s={s} d=64 bfloat16 bias {b}x1x1x{s} "
+        f"float32 padding, batch entries {list(ent)} across the seam: "
+        f"max_abs_err out={e_out:.3g} lse={e_lse:.3g}, relative {rel:.3g} "
+        f"(tol {TOL_BF16:g}, {TOL_LSE:g}, {TOL_FWD_BF16:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the masked forward disagrees past the seam")
 
 
 def check_small_bert(Bert, BertConfig, bert_pretrain_loss, TrainStep, AdamW,
@@ -1345,9 +1491,20 @@ def main() -> int:
     logs = _build.build_all()
     log(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        if not text and (_build.BUILD_DIR / f"{name}.log").exists():
+            text = logs[name] = (_build.BUILD_DIR / f"{name}.log").read_text()
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    # ptxas serialises a kernel's wgmma products when it cannot keep them
+    # in flight (warning C7515 and its kin): the forward must not have it
+    serial = [line.strip() for line in logs["flash_attention_fwd"]
+              .splitlines() if "wgmma" in line and "serializ" in line]
+    log(f"build: wgmma serialisation warnings in flash_attention_fwd: "
+        f"{len(serial)}")
+    if serial:
+        fail("ptxas serialised the forward's wgmma products: "
+             + " | ".join(serial))
 
     # -- 2. check -----------------------------------------------------------
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1355,8 +1512,19 @@ def main() -> int:
     fa_err = max(check_flash(g, fa, c) for c in [
         (B * H_, S, S, 64, bf16, True),        # GPT-2 345M layer shape
         (B * H_, S, S, 128, bf16, True),
-        (B * H_, 1000, 1000, 64, bf16, True),  # key/query tails
+        (B * H_, 1000, 1000, 64, bf16, True),  # tails inside a 128 tile
+        (B * H_, 1088, 1088, 128, bf16, True),  # tails of 64 rows / keys
+        (16, 1088, 1088, 64, bf16, False),
+        (16, 1088, 1000, 64, bf16, True),      # sq > sk: rows with no key
+        (16, 320, 128, 128, bf16, True),
+        (16, 128, 384, 64, bf16, True),        # sq < sk
+        (BERT_B * BERT_HEADS, BERT_S, BERT_S, 64, bf16, False),
     ])
+    # B*H across the seam where grid y once split the launches
+    fa_err = max(fa_err, check_flash(g, fa, (FA_SEAM + 4465, 128, 128, 64,
+                                             bf16, True),
+                                     slices=(0, FA_SEAM - 1, FA_SEAM,
+                                             FA_SEAM + 4464)))
     for c in [(4, 256, 256, 64, f32, True), (4, 200, 200, 128, f32, False),
               (4, 200, 128, 64, f32, True)]:   # sq > sk: rows with no key
         check_flash(g, fa, c)
@@ -1443,8 +1611,17 @@ def main() -> int:
               for dt, d in ((bf16, 64), (f32, 128)) for causal in (False,
                                                                    True)]
     cases += [(4, 4, 256, 128, bf16, (1, 4, 256, 256), bf16, True, True)]
+    # several key tiles with the diagonal, D = 128, and sq > sk (rows with
+    # no key) under a mask
+    cases += [(4, 4, 384, 64, bf16, (4, 1, 1, 384), f32, False, True),
+              (4, 4, 384, 128, bf16, (4, 1, 1, 384), f32, True, False),
+              (4, 4, (256, 128), 64, bf16, (1, 4, 256, 128), bf16, False,
+               True),
+              (4, 4, (384, 128), 128, bf16, (4, 1, 1, 128), f32, False,
+               True)]
     for c in cases:
         check_masked(g, fa, c)
+    check_masked_seam(g, fa)
     keep = torch.ones(4, 1, 256, 256, dtype=torch.bool, device="cuda")
     keep[0, :, :70] = False                  # rows that see no key
     keep[3, :, 200:] = False
@@ -1890,10 +2067,24 @@ def main() -> int:
     fa_bound, fa_by = bound(4 * B * H_ * 64 * visible_pairs(S, S, True),
                             4 * B * H_ * S * 64 * 2 + B * H_ * S * 4,
                             PEAK_BF16_FLOPS)
+    # the same layer at head dim 128 (the kernel's other width)
+    q8, k8, v8 = (rand(g, (B, H_, S, 128), bf16) for _ in range(3))
+    q8t, k8t, v8t = (t.view(B * H_, S, 128) for t in (q8, k8, v8))
+    d128 = {"ms": cuda_ms(lambda: fa._launch(q8t, k8t, v8t, 128 ** -0.5,
+                                            True)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q8, k8, v8, is_causal=True, scale=128 ** -0.5)),
+            "bound_ms": bound(4 * B * H_ * 128 * visible_pairs(S, S, True),
+                              4 * B * H_ * S * 128 * 2 + B * H_ * S * 4,
+                              PEAK_BF16_FLOPS)[0]}
+    del q8, k8, v8, q8t, k8t, v8t
     table.append({"kernel": "flash_attention_fwd",
                   "shape": f"bh={B * H_} s={S} d=64 bf16 causal",
                   "kernel_ms": fa_ms, "plain_ms": fa_plain,
                   "library_ms": fa_lib, "bound_ms": fa_bound,
+                  "d128_kernel_ms": d128["ms"],
+                  "d128_library_ms": d128["library_ms"],
+                  "d128_bound_ms": d128["bound_ms"],
                   "launches_per_forward": L})
     kernels.append({"name": "flash_attention_fwd", "route": "cuda",
                     "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",

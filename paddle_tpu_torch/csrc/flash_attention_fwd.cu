@@ -12,230 +12,641 @@
 // kernel, p is rounded to the value dtype before the p.v product and the
 // row sum l adds the unrounded p.
 //
-// Masks (the MASKED instantiations; reference `_mask_tile` :176): block bh
+// Masks (the MASKED instantiations; reference `_mask_tile` :176): slice bh
 // reads bias slice g(bh) of the folded (Bb*Hb, Sqb, Sk) bias, at row q when
 // Sqb = Sq and row 0 when Sqb = 1, and the segment ids of batch bh / H.
 // The score becomes s * scale + bias in f32, then -inf where the segment
 // ids differ, then the causal and tail masks, as in the reference.  A bool
 // mask arrives as a 0 / -inf bias; a finite bias such as BERT's -1e30
-// stays finite.  Masked calls take no sequence tails.
+// stays finite.  Masked calls take no sequence tails (both lengths are
+// multiples of 128).
 //
-// Design.  One block per (bh, 64-row query tile); the TPU kernel's
-// sequential kv grid axis becomes a loop inside the block over 64-key
-// tiles, with the running (max, sum, acc) of each row in registers.
-//  - bf16 (the model's path): 4 warps, each owning 16 query rows.  Both
-//    products run on the tensor cores as mma.sync m16n8k16 (bf16 in, f32
-//    accumulate).  q's fragments stay in registers for the whole loop; k
-//    and v tiles are staged in shared memory by cp.async in two stages, so
-//    the next tile's copies overlap the current tile's products.  The
-//    score fragment of one tile becomes, rounded to bf16, the A operand of
-//    the p.v product without leaving registers (the C layout of two
-//    adjacent n8 tiles is the A layout of one k16 step).  Row max and sum
-//    reduce over the 4 lanes that share a row.  The softmax runs in base 2
-//    on the special-function unit (ex2.approx), as FlashAttention-2 does:
-//    with 16 exponentials per thread for every 64 products per warp, the
-//    accurate expf would cost about as much as the products.
-//  - f32 (tests and the small reference model): 256 threads, tiles staged
-//    as f32, each thread a 4x4 patch of the score tile and a 4 x D/16 patch
-//    of the output, products on the f32 FMA units.
+// Design (bf16, the model's path): a persistent, warp-specialised kernel
+// fed by TMA and multiplying on wgmma.  One block per SM walks work items
+// (bh, 128-row query tile).  A block takes two items at a time, a slice's
+// query tiles paired heaviest with lightest (n_qt - 1 with 0, ...), so
+// under the causal mask every pair costs the same, and the blocks walk
+// the slices together, which keeps the k and v of the slices in flight in
+// L2.  A block is three warpgroups:
+//  - the producer (one thread) loads an item's q once into one of two q
+//    buffers, then its k and v tiles of 128 keys into a ring of stages
+//    (four at D = 64, two at D = 128), with a "full" and an "empty"
+//    mbarrier for each of k and v; it runs ahead into the next item while
+//    the consumers finish this one.  The tensor maps are 3-D over
+//    (D, S, B*H), so a tile never reads into the next head: rows past S
+//    read 0 and stores past Sq are dropped.  With a mask, the bias row of
+//    a one-row bias (BERT's padding) and the key segment ids of each key
+//    tile ride the k stage as bulk copies;
+//  - two consumer warpgroups own 64 query rows each and take turns to
+//    issue their products (named barriers), so that one's softmax runs
+//    while the other's products keep the tensor cores busy.  S_j = q.k_j^T
+//    is wgmma m64n128k16 with both operands in shared memory (K-major: D
+//    contiguous), issued beside O += p_{j-1}.v_{j-1}, wgmma m64nDk16 with
+//    A, the bf16 p, taken from registers (the f32 accumulator of two n8
+//    blocks is the A fragment of one k16 step) and v read MN-major through
+//    the transpose bit.  The softmax of tile j runs on S_j in registers
+//    while p_{j-1}.v_{j-1} is in flight, in base 2 on ex2.approx; O is
+//    rescaled before the next products are issued.  The causal and key-end
+//    masks cost only the tiles that cross the diagonal or the end (a
+//    separate instantiation of the tile step).  The epilogue writes O / l
+//    in bf16 into the item's q buffer (its q is no longer read) in the
+//    swizzle of the output's map, and one thread a warpgroup stores it
+//    with TMA; lse is written by row.
+//  - masks are instantiations: none; one f32 bias row a slice and no
+//    segment ids (BERT's padding bias, one FFMA a score); any other bias
+//    class or segment ids, read by kind at run time (a full bias from
+//    device memory).
+// Each row of an item is computed by one block in a fixed key order, no
+// atomics: two calls are bitwise equal.
+//
+// f32 (tests and the small reference model): one block per (bh, 64-row
+// query tile), 256 threads, tiles staged as f32, each thread a 4x4 patch
+// of the score tile and a 4 x D/16 patch of the output, products on the
+// f32 FMA units.
 //
 // What bounds it.  The causal work at GPT-2 345M shapes (B*H = 8*16,
 // S = 1024, D = 64) is 4*B*H*D*S(S+1)/2 = 17.2 GFLOP per layer: 17 us at
 // the card's 989 TFLOP/s bf16 tensor-core peak; its bytes (q, k, v, out in
 // bf16 plus lse: 67 MB) take 20 us at 3.35 TB/s, so bytes bound it by a
-// hair.  mma.sync reaches only part of the tensor-core peak; wgmma fed by
-// TMA, with warp-specialised producers, is the full-rate path and the next
-// step.
+// hair.  128 x 128 tiles compute the diagonal tiles whole (19.3 GFLOP),
+// and a tile's 64 exponentials a thread take the special-function units
+// (16 a cycle an SM) as long as its products take the tensor cores; at
+// D = 64 the softmax's instruction latency, more than those units, keeps
+// a warpgroup from its next products (PERF.md, Findings).  BERT-base's
+// layer (S = 128) has one key tile an item and is bound by its bytes: the
+// persistent loop loads the next item while this one computes.
+#include <limits.h>
+
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper_gemm.cuh"
 
 namespace {
 
 using pt::bf16;
+namespace sm = pt::sm90;
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per tile
+constexpr int BQ = 64;    // f32: query rows per block
+constexpr int BK = 64;    // f32: keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
+// key tiles of TK keys that the query tile [q0, q0 + TQ) needs
+template <int TQ, int TK>
 __device__ __forceinline__ int kv_tiles(int q0, int sk, int off,
                                         int causal) {
-  int n_kb = (sk + BK - 1) / BK;
+  int n_kb = (sk + TK - 1) / TK;
   if (causal) {
-    // end-aligned diagonal: tile kb is needed iff kb*BK < q0 + BQ + off
-    const int lim = q0 + BQ + off;
-    const int need = lim <= 0 ? 0 : (lim + BK - 1) / BK;
+    // end-aligned diagonal: tile kb is needed iff kb*TK < q0 + TQ + off
+    const int lim = q0 + TQ + off;
+    const int need = lim <= 0 ? 0 : (lim + TK - 1) / TK;
     n_kb = need < n_kb ? need : n_kb;
   }
   return n_kb;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: warp-specialised, TMA and wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;   // 4 warps x 16 query rows
+constexpr int WQ = 128;          // query rows per work item
+constexpr int WK = 128;          // keys per tile
+constexpr int WT = 384;          // a producer and two consumer warpgroups
+constexpr int QBUF = 2;          // q buffers: the next item's q loads early
+constexpr int MASK_BYTES = 1024; // a stage's bias row (<= 512 B) and key ids
+constexpr int KSEG_AT = 512;     // the key segment ids' offset in it
 
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + 8);   // q + 2 x (k, v)
+struct Cfg {
+  static constexpr int STAGES = D == 64 ? 4 : 2;   // (k, v) tiles in flight
+  static constexpr int QBOX = WQ * 128;      // one 64-column box of q
+  static constexpr int Q_BYTES = WQ * D * 2;
+  static constexpr int KBOX = WK * 128;      // one 64-column box of k or v
+  static constexpr int KV_BYTES = WK * D * 2;
+  static constexpr size_t SMEM =
+      1024 + QBUF * Q_BYTES + STAGES * (2 * KV_BYTES + MASK_BYTES) +
+      (2 * QBUF + 4 * STAGES) * sizeof(uint64_t);
+};
+
+// the mask of a call as the wgmma kernel reads it
+enum BiasKind { NO_BIAS, ROW_F32, ROW_BF16, FULL_F32, FULL_BF16 };
+// the kernel's instantiations: no mask; one f32 bias row a slice and no
+// segment ids (BERT's padding bias, a bool padding mask); any other mask,
+// read by the kinds above
+enum MaskKind { MK_NONE, MK_ROW, MK_ANY };
+
+struct FwdArgs {
+  float* lse;
+  pt::AttnMask mask;
+  int bias_kind;     // BiasKind
+  int bh, sq, sk, causal;
+  int n_qt;          // query tiles of WQ rows a slice
+  int items;         // bh * n_qt
+  float scale2;      // scale * log2(e)
+};
+
+// Work item i: slice bh = i / n_qt, and in a slice the query tiles
+// paired heaviest with lightest, n_qt - 1, 0, n_qt - 2, 1, ...  A block
+// takes two consecutive items at a time (block b the pairs b, b + grid,
+// ...), so under the causal mask every pair costs the same n_qt + 1 key
+// tiles, and the blocks walk the slices together: the k and v of the few
+// dozen slices in flight stay in L2.
+__device__ __forceinline__ void decode(const FwdArgs& a, int i, int& bh,
+                                       int& qt) {
+  bh = i / a.n_qt;
+  const int r = i - bh * a.n_qt;
+  qt = r & 1 ? r >> 1 : a.n_qt - 1 - (r >> 1);
 }
 
-template <int D, bool MASKED>
-__global__ void __launch_bounds__(MMA_THREADS)
-    fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, pt::AttnMask mask, int sq,
-                      int sk, int causal, float scale) {
-  constexpr int LD = D + 8;          // padded row: conflict-free fragments
-  constexpr int KD = D / 16;         // k16 steps over the head dim
-  constexpr int ND = D / 8;          // n8 tiles over the head dim
-  constexpr int NK = BK / 8;         // n8 tiles over a key tile
-  constexpr int STAGE = 2 * BK * LD; // one (k, v) tile pair
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KV = Qs + BQ * LD;           // two stages of (k, v)
+// the item after i in block blockIdx.x's walk
+__device__ __forceinline__ int next_item(int i) {
+  return i & 1 ? i + 2 * gridDim.x - 1 : i + 1;
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int off = sk - sq;
-  const bf16* qb = q + (size_t)bh * sq * D;
-  const bf16* kbp = k + (size_t)bh * sk * D;
-  const bf16* vbp = v + (size_t)bh * sk * D;
-  const int n_kb = kv_tiles(q0, sk, off, causal);
-  const pt::SliceMask sm = pt::slice_mask(mask, bh, sq, sk);
+template <int D, int MK>
+__global__ void __launch_bounds__(WT, 1)
+    fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap to,
+                        const FwdArgs a) {
+  using C = Cfg<D>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* qs =
+      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = qs + QBUF * C::Q_BYTES;
+  unsigned char* vs = ks + ST * C::KV_BYTES;
+  unsigned char* ms = vs + ST * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ms + ST * MASK_BYTES);
+  uint64_t* q_empty = q_full + QBUF;
+  uint64_t* k_full = q_empty + QBUF;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* k_empty = v_full + ST;
+  uint64_t* v_empty = k_empty + ST;
 
-  // the next tile's copies run while the current tile's products do
-  auto fetch = [&](int kb) {
-    bf16* st = KV + (kb & 1) * STAGE;
-    pt::load_tile_async<BK, D, LD, MMA_THREADS>(st, kbp, kb * BK, sk, D, 0);
-    pt::load_tile_async<BK, D, LD, MMA_THREADS>(st + BK * LD, vbp, kb * BK,
-                                                sk, D, 0);
-  };
-  pt::load_tile_async<BQ, D, LD, MMA_THREADS>(Qs, qb, q0, sq, D, 0);
-  pt::commit();
-  if (n_kb > 0) fetch(0);
-  pt::commit();
-  pt::wait<1>();                     // q has landed
-  __syncthreads();
-  const int r0 = warp * 16;
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const bf16* p = Qs + (r0 + g) * LD + kk * 16 + 2 * t;
-    qa[kk][0] = pt::ld32(p);
-    qa[kk][1] = pt::ld32(p + 8 * LD);
-    qa[kk][2] = pt::ld32(p + 8);
-    qa[kk][3] = pt::ld32(p + 8 * LD + 8);
+  const int off = a.sk - a.sq;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < QBUF; ++b) {
+      sm::mbar_init(&q_full[b], 1);
+      sm::mbar_init(&q_empty[b], 2);   // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < ST; ++s) {
+      sm::mbar_init(&k_full[s], 1);
+      sm::mbar_init(&v_full[s], 1);
+      sm::mbar_init(&k_empty[s], 2);
+      sm::mbar_init(&v_empty[s], 2);
+    }
+    sm::fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[ND][4];
+  if (wg == 0) {
+    // producer: one thread keeps the q buffers and the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x != 0) return;
+    const int es = a.bias_kind == ROW_F32 ? 4 : 2;
+    int kc = 0, it = 0;
+    for (int i = 2 * blockIdx.x; i < a.items; i = next_item(i), ++it) {
+      int bh, qt;
+      decode(a, i, bh, qt);
+      const int q0 = qt * WQ;
+      const int n_kb = kv_tiles<WQ, WK>(q0, a.sk, off, a.causal);
+      const int b = it % QBUF;
+      sm::mbar_wait(&q_empty[b], ((it / QBUF) & 1) ^ 1);
+      sm::mbar_expect_tx(&q_full[b], C::Q_BYTES);
 #pragma unroll
-  for (int dn = 0; dn < ND; ++dn)
+      for (int c = 0; c < D / 64; ++c)
+        sm::tma_load_3d(qs + b * C::Q_BYTES + c * C::QBOX, &tq, &q_full[b],
+                        c * 64, q0, bh);
+      const char* brow = nullptr;
+      const int* kseg = nullptr;
+      if (MK != MK_NONE) {
+        if (a.bias_kind == ROW_F32 || a.bias_kind == ROW_BF16)
+          brow = static_cast<const char*>(a.mask.bias) +
+                 (size_t)pt::bias_slice(a.mask, bh) * a.sk * es;
+        if (a.mask.kseg)
+          kseg = a.mask.kseg + (size_t)(bh / a.mask.heads) * a.sk;
+      }
+      const uint32_t k_bytes = C::KV_BYTES + (brow ? WK * es : 0) +
+                               (kseg ? WK * 4 : 0);
+      for (int kb = 0; kb < n_kb; ++kb, ++kc) {
+        const int s = kc % ST;
+        const uint32_t ph = ((kc / ST) & 1) ^ 1;
+        sm::mbar_wait(&k_empty[s], ph);
+        sm::mbar_expect_tx(&k_full[s], k_bytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // rows g, g + 8
-  float l[2] = {0.f, 0.f};
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  // scores, m and the exponentials in base 2: p = 2^(x log2e - m log2e)
-  const float scale2 = scale * LOG2E;
-
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    if (kb + 1 < n_kb) fetch(kb + 1);
-    pt::commit();
-    pt::wait<1>();                   // tile kb has landed
-    __syncthreads();
-    const bf16* Ks = KV + (kb & 1) * STAGE;
-    const bf16* Vs = Ks + BK * LD;
-
-    float s[NK][4];
+        for (int c = 0; c < D / 64; ++c)
+          sm::tma_load_3d(ks + s * C::KV_BYTES + c * C::KBOX, &tk, &k_full[s],
+                          c * 64, kb * WK, bh);
+        if (brow)
+          sm::bulk_load(ms + s * MASK_BYTES, brow + (size_t)kb * WK * es,
+                        WK * es, &k_full[s]);
+        if (kseg)
+          sm::bulk_load(ms + s * MASK_BYTES + KSEG_AT, kseg + kb * WK, WK * 4,
+                        &k_full[s]);
+        sm::mbar_wait(&v_empty[s], ph);
+        sm::mbar_expect_tx(&v_full[s], C::KV_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const bf16* p = Ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        pt::mma_bf16(s[nt], qa[kk], pt::ld32(p), pt::ld32(p + 8));
+        for (int c = 0; c < D / 64; ++c)
+          sm::tma_load_3d(vs + s * C::KV_BYTES + c * C::KBOX, &tv, &v_full[s],
+                          c * 64, kb * WK, bh);
       }
     }
+    return;
+  }
 
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1, t = threadIdx.x % 128;
+  const int lane = t % 32, g = lane / 4, tl = lane % 4;
+  // this thread's first row in the item's 128 (and the row 8 below)
+  const int r0 = cw * 64 + (t / 32) * 16 + g;
+
+  // The two consumer warpgroups take turns to issue their products
+  // (named barriers 3 and 4), so that one's softmax runs while the
+  // other's products keep the tensor cores busy; warpgroup 0 goes first.
+  auto turn = [&]() { sm::named_barrier(3 + cw, 256); };
+  auto pass = [&]() { sm::named_barrier_arrive(3 + (cw ^ 1), 256); };
+  if (cw == 1) sm::named_barrier_arrive(3, 256);
+
+  float o[D / 2];                  // O: 64 x D f32, D/8 n8 blocks
+  float s[WK / 2];                 // S, then p: 64 x 128 f32
+  uint32_t pa[WK / 16][4];         // p in bf16: the A operand of p . v
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
+  for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + 2 * t + (e & 1);
-        const int hi = e >> 1;
-        float x = s[nt][e] * scale2;
-        if (MASKED) x = sm.apply(x, qrow[hi], key, LOG2E);
-        if (key >= sk || (causal && qrow[hi] + off < key)) x = -CUDART_INF_F;
-        s[nt][e] = x;
-        mx[hi] = fmaxf(mx[hi], x);
+  for (int e = 0; e < WK / 2; ++e) s[e] = 0.f;
+
+  int kc = 0, it = 0;
+  int pending = -1;                // the q buffer whose O store is in flight
+  // the previous item's store has read its q buffer: it may take a new q
+  auto release_q = [&]() {
+    if (pending >= 0 && t == 0) {
+      sm::bulk_wait_read();
+      sm::mbar_arrive(&q_empty[pending]);
+    }
+    pending = -1;
+  };
+  for (int i = 2 * blockIdx.x; i < a.items; i = next_item(i), ++it) {
+    int bh, qt;
+    decode(a, i, bh, qt);
+    const int q0 = qt * WQ;
+    const int n_kb = kv_tiles<WQ, WK>(q0, a.sk, off, a.causal);
+    const int b = it % QBUF;
+    const int row[2] = {q0 + r0, q0 + r0 + 8};
+    // the first row of this warpgroup sees keys up to q0 + cw * 64 + off
+    const int diag = q0 + cw * 64 + off;
+    // masks: this thread's rows' segment ids, a full bias's rows
+    int qseg[2] = {0, 0};
+    const float* bf_rows[2] = {nullptr, nullptr};
+    const bf16* bh_rows[2] = {nullptr, nullptr};
+    if (MK == MK_ANY) {
+      const size_t batch = (size_t)(bh / a.mask.heads);
+      if (a.mask.qseg) {
+        qseg[0] = a.mask.qseg[batch * a.sq + row[0]];
+        qseg[1] = a.mask.qseg[batch * a.sq + row[1]];
       }
-    float alpha[2];
-    bool live[2];
+      if (a.bias_kind == FULL_F32 || a.bias_kind == FULL_BF16) {
+        const size_t sl = (size_t)pt::bias_slice(a.mask, bh) * a.sq;
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const size_t at = (sl + row[hi]) * a.sk;
+          if (a.bias_kind == FULL_F32)
+            bf_rows[hi] = static_cast<const float*>(a.mask.bias) + at;
+          else
+            bh_rows[hi] = static_cast<const bf16*>(a.mask.bias) + at;
+        }
+      }
+    }
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // in base 2
+    float l[2] = {0.f, 0.f};
+    float alpha[2] = {0.f, 0.f};
+    const unsigned char* qb = qs + b * C::Q_BYTES;
+    sm::mbar_wait(&q_full[b], (it / QBUF) & 1);
+
+    // S_j = q . k_j^T over D (K-major operands; 16 of D are 32 bytes on)
+    auto issue_s = [&](int st) {
+      const unsigned char* kt = ks + st * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, kin = (kk % 4) * 32;
+        const uint64_t da =
+            sm::desc_sw128(qb + c * C::QBOX + cw * 64 * 128 + kin, 16, 1024);
+        const uint64_t db = sm::desc_sw128(kt + c * C::KBOX + kin, 16, 1024);
+        sm::wgmma_m64n128k16_ss<0, 0>(s, da, db, kk > 0);
+      }
+    };
+    // O = alpha O + p_j . v_j: v is MN-major (D contiguous), 16 keys are
+    // 2048 bytes on, the second 64 columns of D a box (WK x 128 B) on
+    auto issue_pv = [&](int st, bool first) {
+      const unsigned char* vt = vs + st * C::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) {
+        const uint64_t db = sm::desc_sw128(vt + kk * 2048, C::KBOX, 1024);
+        if constexpr (D == 64)
+          sm::wgmma_m64n64k16_rs<1>(o, pa[kk], db, !first || kk > 0);
+        else
+          sm::wgmma_m64n128k16_rs<1>(o, pa[kk], db, !first || kk > 0);
+      }
+    };
+    // the online softmax of tile j on S in registers: p = 2^(x - m) with
+    // x = s * scale * log2e (+ bias * log2e); the row max and sum over the
+    // 4 lanes of a quad.  Without a mask x is never formed: p =
+    // 2^(s * scale2 - m), one FFMA.  EDGE (a std::bool_constant): the tile
+    // crosses the diagonal or the end of the keys, and the keys past a
+    // row's last visible one score -inf; the other tiles compile without
+    // that code.
+    auto softmax = [&](auto edge, int j, int st) {
+      const int k0 = j * WK;
+      if constexpr (MK == MK_ROW) {
+        const unsigned char* mt = ms + st * MASK_BYTES;
+        // x = s * scale2 + bias * log2e: one FFMA a score
+#pragma unroll
+        for (int jn = 0; jn < WK / 8; ++jn) {
+          const float2 b2 =
+              *reinterpret_cast<const float2*>(mt + (8 * jn + 2 * tl) * 4);
+          const float b0 = b2.x * LOG2E, b1 = b2.y * LOG2E;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * jn + e] = fmaf(s[4 * jn + e], a.scale2, e & 1 ? b1 : b0);
+        }
+      } else if constexpr (MK == MK_ANY) {
+        const unsigned char* mt = ms + st * MASK_BYTES;
+#pragma unroll
+        for (int jn = 0; jn < WK / 8; ++jn) {
+          const int kl = 8 * jn + 2 * tl;          // the pair's first key
+          float bias[2] = {0.f, 0.f};
+          int kseg[2] = {0, 0};
+          if (a.bias_kind == ROW_F32) {
+            const float2 v2 = *reinterpret_cast<const float2*>(mt + kl * 4);
+            bias[0] = v2.x * LOG2E;
+            bias[1] = v2.y * LOG2E;
+          } else if (a.bias_kind == ROW_BF16) {
+            const __nv_bfloat162 v2 =
+                *reinterpret_cast<const __nv_bfloat162*>(mt + kl * 2);
+            bias[0] = __low2float(v2) * LOG2E;
+            bias[1] = __high2float(v2) * LOG2E;
+          }
+          if (a.mask.qseg) {
+            const int2 k2 =
+                *reinterpret_cast<const int2*>(mt + KSEG_AT + kl * 4);
+            kseg[0] = k2.x;
+            kseg[1] = k2.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hi = e >> 1, lo = e & 1;
+            const int key = k0 + kl + lo;
+            float x = s[4 * jn + e] * a.scale2;
+            if (a.bias_kind == FULL_F32)
+              x += bf_rows[hi][key] * LOG2E;
+            else if (a.bias_kind == FULL_BF16)
+              x += __bfloat162float(bh_rows[hi][key]) * LOG2E;
+            else
+              x += bias[lo];
+            if (a.mask.qseg && qseg[hi] != kseg[lo]) x = -CUDART_INF_F;
+            s[4 * jn + e] = x;
+          }
+        }
+      }
+      // without a mask s stays in its own units (-inf is -inf in both)
+      if constexpr (decltype(edge)::value) {
+        // row hi sees the keys below min(sk, row + off + 1): counted from
+        // this thread's first key of the tile, k0 + 2 tl
+        int vis[2];
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int end = a.causal ? min(a.sk, row[hi] + off + 1) : a.sk;
+          vis[hi] = end - k0 - 2 * tl;
+        }
+#pragma unroll
+        for (int e = 0; e < WK / 2; ++e)
+          if (8 * (e >> 2) + (e & 1) >= vis[(e >> 1) & 1])
+            s[e] = -CUDART_INF_F;
+      }
+      // four partial maxima and sums a row, so that no chain of dependent
+      // operations runs the length of the tile
+      float mx[2][4];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx[e >> 2][e & 3] = -CUDART_INF_F;
+#pragma unroll
+      for (int e = 0; e < WK / 2; ++e)
+        mx[(e >> 1) & 1][(e >> 2) & 3] =
+            fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], s[e]);
+      const float unit = MK == MK_NONE ? a.scale2 : 1.f;  // s to base 2
+      float mu[2];                                 // the max subtracted
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const float mr = fmaxf(fmaxf(mx[hi][0], mx[hi][1]),
+                               fmaxf(mx[hi][2], mx[hi][3]));
+        const float m_new = fmaxf(m[hi], pt::group_max<4>(mr) * unit);
+        alpha[hi] = m[hi] != -CUDART_INF_F ? pt::ex2(m[hi] - m_new) : 0.f;
+        m[hi] = m_new;
+        // a row with no key yet: 2^(-inf - 0) = 0
+        mu[hi] = m_new != -CUDART_INF_F ? m_new : 0.f;
+      }
+      float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int e = 0; e < WK / 2; ++e) {
+        const int hi = (e >> 1) & 1;
+        const float p = pt::ex2(fmaf(s[e], unit, -mu[hi]));
+        s[e] = p;
+        rs[hi][(e >> 2) & 3] += p;
+      }
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi)
+        l[hi] = alpha[hi] * l[hi] +
+                pt::group_sum<4>((rs[hi][0] + rs[hi][1]) +
+                                 (rs[hi][2] + rs[hi][3]));
+    };
+    // p in bf16 is the A operand of O += p . v, k16 step kk from the n8
+    // blocks 2kk and 2kk + 1
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) {
+        pa[kk][0] = pt::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+    };
+
+    // Tile j's S_j is issued beside p_{j-1} . v_{j-1}; the softmax of
+    // tile j runs while that product is in flight, and p_j is packed once
+    // it has completed (it reads the packed p_{j-1}).  Tile 0 is peeled
+    // off, so that every wait in the loop is the same: ptxas keeps the
+    // products in flight only where it can tell which have completed.
+    // The operand fences pin the softmax's results before the wait, so the
+    // compiler cannot sink its exponentials below it.
+    auto first_tile = [&](auto edge) {
+      const int st = kc % ST;
+      sm::mbar_wait(&k_full[st], (kc / ST) & 1);
+      turn();
+      sm::fence_acc(s);
+      sm::wgmma_fence();
+      issue_s(st);
+      sm::wgmma_commit();
+      pass();
+      release_q();
+      sm::wgmma_wait<0>();
+      sm::fence_acc(s);
+      if (MK == MK_NONE && t == 0) sm::mbar_arrive(&k_empty[st]);
+      softmax(edge, 0, st);
+      if (MK != MK_NONE && t == 0) sm::mbar_arrive(&k_empty[st]);  // its mask
+      pack();
+      ++kc;
+    };
+    auto next_tile = [&](auto edge, int j) {
+      const int st = kc % ST;
+      const int sp = (kc + ST - 1) % ST;        // tile j - 1's stage
+      sm::mbar_wait(&k_full[st], (kc / ST) & 1);
+      sm::mbar_wait(&v_full[sp], ((kc - 1) / ST) & 1);
+      turn();
+      // O holds p . v up to tile j - 2 (complete): rescale it before any
+      // product is in flight, so no register of an asynchronous product
+      // is read while it runs (ptxas would serialise them, C7514)
+      if (j > 1) rescale();
+      sm::fence_acc(s);
+      sm::fence_acc(o);
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) sm::fence_acc(pa[kk]);
+      sm::wgmma_fence();
+      issue_s(st);
+      sm::wgmma_commit();
+      sm::wgmma_fence();
+      issue_pv(sp, j == 1);
+      sm::wgmma_commit();
+      pass();
+      sm::wgmma_wait<1>();             // S_j; p_{j-1} . v_{j-1} runs on
+      sm::fence_acc(s);
+      if (MK == MK_NONE && t == 0) sm::mbar_arrive(&k_empty[st]);
+      softmax(edge, j, st);
+      if (MK != MK_NONE && t == 0) sm::mbar_arrive(&k_empty[st]);
+      sm::fence_acc(s);
+      sm::fence_acc(l);
+      sm::wgmma_wait<0>();
+      sm::fence_acc(o);
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) sm::fence_acc(pa[kk]);
+      if (t == 0) sm::mbar_arrive(&v_empty[sp]);
+      pack();
+      ++kc;
+    };
+    // the tiles crossing the diagonal or the key end are a suffix: from
+    // the first whose last key is past the first row's (or the keys') end
+    int edge0 = (a.sk - WK) / WK + 1;       // the first tile past sk - WK
+    if (a.sk < WK) edge0 = 0;
+    if (a.causal) {
+      const int lim = diag + 1 - WK;         // k0 + WK - 1 > diag
+      const int first = lim < 0 ? 0 : lim / WK + 1;
+      edge0 = min(edge0, first);
+    }
+    if (n_kb > 0) {
+      if (edge0 <= 0)
+        first_tile(std::true_type{});
+      else
+        first_tile(std::false_type{});
+    }
+    int j = 1;
+    for (; j < min(edge0, n_kb); ++j) next_tile(std::false_type{}, j);
+    for (; j < n_kb; ++j) next_tile(std::true_type{}, j);
+    if (n_kb > 0) {
+      const int sp = (kc + ST - 1) % ST;
+      sm::mbar_wait(&v_full[sp], ((kc - 1) / ST) & 1);
+      turn();
+      if (n_kb > 1) rescale();
+      sm::fence_acc(o);
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) sm::fence_acc(pa[kk]);
+      sm::wgmma_fence();
+      issue_pv(sp, n_kb == 1);
+      sm::wgmma_commit();
+      pass();
+      sm::wgmma_wait<0>();
+      sm::fence_acc(o);
+      if (t == 0) sm::mbar_arrive(&v_empty[sp]);
+    }
+    release_q();
+
+    // epilogue: O / l in bf16 into this warpgroup's 64 rows of the q
+    // buffer, in the 128-byte swizzle of the output's map (box c holds
+    // columns 64c..64c+63: the 16-byte chunk jn % 8 of row tr sits at
+    // chunk (jn % 8) ^ (tr % 8)), then one TMA store per 64 columns, which
+    // drops rows past Sq
+    unsigned char* ob = qs + b * C::Q_BYTES;
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const float m_new = fmaxf(m[hi], pt::group_max<4>(mx[hi]));
-      live[hi] = m_new != -CUDART_INF_F;
-      alpha[hi] = m[hi] != -CUDART_INF_F ? pt::ex2(m[hi] - m_new) : 0.f;
-      m[hi] = m_new;
+      const int tr = r0 + 8 * hi;
+      const bool any = l[hi] > 0.f;
+      const float inv = any ? 1.f / l[hi] : 0.f;
+#pragma unroll
+      for (int jn = 0; jn < D / 8; ++jn)
+        *reinterpret_cast<uint32_t*>(ob + (jn / 8) * C::QBOX + tr * 128 +
+                                     (((jn % 8) ^ (tr % 8)) * 16) + tl * 4) =
+            pt::pack_bf16(o[4 * jn + 2 * hi] * inv,
+                          o[4 * jn + 2 * hi + 1] * inv);
+      if (tl == 0 && row[hi] < a.sq)
+        a.lse[(size_t)bh * a.sq + row[hi]] =
+            any ? (m[hi] + log2f(l[hi])) * LN2 : -CUDART_INF_F;
     }
-    float rs[2] = {0.f, 0.f};
+    sm::fence_proxy_async();
+    sm::named_barrier(1 + cw, 128);
+    if (t == 0) {
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        const float p = live[hi] ? pt::ex2(s[nt][e] - m[hi]) : 0.f;
-        s[nt][e] = p;
-        rs[hi] += p;
-      }
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi)
-      l[hi] = alpha[hi] * l[hi] + pt::group_sum<4>(rs[hi]);
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
+      for (int c = 0; c < D / 64; ++c)
+        sm::tma_store_3d(&to, ob + c * C::QBOX + cw * 64 * 128, c * 64,
+                         q0 + cw * 64, bh);
+      sm::bulk_commit();
     }
-
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = pt::pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = pt::pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = pt::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = pt::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        const bf16* p = Vs + (j * 16 + 2 * t) * LD + dn * 8 + g;
-        pt::mma_bf16(acc[dn], pa, pt::pack_col(p, LD),
-                     pt::pack_col(p + 8 * LD, LD));
-      }
-    }
-    __syncthreads();                 // stage kb & 1 free for tile kb + 2
+    pending = b;
   }
+  release_q();
+  // the last turn warpgroup 1 passed to warpgroup 0
+  if (cw == 0) sm::named_barrier(3, 256);
+}
 
-  bf16* ob = o + (size_t)bh * sq * D;
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    if (qrow[hi] >= sq) continue;
-    const float den = fmaxf(l[hi], 1e-30f);
-#pragma unroll
-    for (int dn = 0; dn < ND; ++dn)
-      *reinterpret_cast<uint32_t*>(ob + (size_t)qrow[hi] * D + dn * 8 +
-                                   2 * t) =
-          pt::pack_bf16(acc[dn][2 * hi] / den, acc[dn][2 * hi + 1] / den);
-    if (t == 0)
-      lse[(size_t)bh * sq + qrow[hi]] =
-          l[hi] > 0.f ? (m[hi] + log2f(den)) * 0.6931471805599453f
-                      : -CUDART_INF_F;
-  }
+template <int D, int MK>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* lse, const pt::AttnMask& mask,
+                         int bh, int sq, int sk, int causal, float scale,
+                         cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv, to;
+  if (!sm::bf16_map_3d(&tq, q, bh, sq, D, WQ) ||
+      !sm::bf16_map_3d(&tk, k, bh, sk, D, WK) ||
+      !sm::bf16_map_3d(&tv, v, bh, sk, D, WK) ||
+      !sm::bf16_map_3d(&to, o, bh, sq, D, 64))
+    return cudaErrorInvalidValue;
+  const int n_qt = (sq + WQ - 1) / WQ;
+  const long long items = (long long)bh * n_qt;
+  if (items > INT_MAX / 2) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int kind = NO_BIAS;
+  if (mask.bias)
+    kind = mask.sqb == 1 ? (mask.bias_bf16 ? ROW_BF16 : ROW_F32)
+                         : (mask.bias_bf16 ? FULL_BF16 : FULL_F32);
+  const FwdArgs a{lse, mask, kind, bh, sq, sk, causal, n_qt, (int)items,
+                  scale * LOG2E};
+  const void* fn = (const void*)fa_fwd_wgmma_kernel<D, MK>;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long pairs = (items + 1) / 2;
+  const int grid = pairs < sms ? (int)pairs : sms;
+  fa_fwd_wgmma_kernel<D, MK><<<grid, WT, C::SMEM, stream>>>(tq, tk, tv,
+                                                                 to, a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -290,7 +701,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kb = kv_tiles(q0, sk, off, causal);
+  const int n_kb = kv_tiles<BQ, BK>(q0, sk, off, causal);
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();                    // previous tile fully consumed
@@ -380,48 +791,56 @@ __global__ void __launch_bounds__(FMA_THREADS)
 }
 
 template <int D, bool MASKED>
-cudaError_t launch(bool mma, const void* q, const void* k, const void* v,
-                   void* o, float* lse, const pt::AttnMask& mask, int bh,
-                   int sq, int sk, int causal, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = mma ? mma_smem_bytes<D>() : fma_smem_bytes<D>();
-  const void* fn = mma ? (const void*)fa_fwd_mma_kernel<D, MASKED>
-                       : (const void*)fa_fwd_fma_kernel<D, MASKED>;
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
+                       float* lse, const pt::AttnMask& mask, int bh, int sq,
+                       int sk, int causal, float scale, cudaStream_t stream) {
+  const size_t smem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      (const void*)fa_fwd_fma_kernel<D, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, bh);
-  if (mma)
-    fa_fwd_mma_kernel<D, MASKED><<<grid, MMA_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, mask, sq,
-        sk, causal, scale);
-  else
-    fa_fwd_fma_kernel<D, MASKED><<<grid, FMA_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, mask, sq,
-        sk, causal, scale);
+  fa_fwd_fma_kernel<D, MASKED><<<grid, FMA_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, mask, sq,
+      sk, causal, scale);
   return cudaGetLastError();
 }
 
+// the instantiation of a call: bf16 or f32, masked or not, D
 template <int D>
-cudaError_t launch_d(bool mma, const void* q, const void* k, const void* v,
+cudaError_t launch_d(bool bf, const void* q, const void* k, const void* v,
                      void* o, float* lse, const pt::AttnMask& mask, int bh,
                      int sq, int sk, int causal, float scale,
                      cudaStream_t stream) {
-  if (mask.bias || mask.qseg)
-    return launch<D, true>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
-                           scale, stream);
-  return launch<D, false>(mma, q, k, v, o, lse, mask, bh, sq, sk, causal,
-                          scale, stream);
+  const bool masked = mask.bias || mask.qseg;
+  if (bf) {
+    if (!masked)
+      return launch_wgmma<D, MK_NONE>(q, k, v, o, lse, mask, bh, sq, sk,
+                                      causal, scale, stream);
+    if (mask.bias && !mask.qseg && mask.sqb == 1 && !mask.bias_bf16)
+      return launch_wgmma<D, MK_ROW>(q, k, v, o, lse, mask, bh, sq, sk,
+                                     causal, scale, stream);
+    return launch_wgmma<D, MK_ANY>(q, k, v, o, lse, mask, bh, sq, sk, causal,
+                                   scale, stream);
+  }
+  return masked ? launch_fma<D, true>(q, k, v, o, lse, mask, bh, sq, sk,
+                                      causal, scale, stream)
+                : launch_fma<D, false>(q, k, v, o, lse, mask, bh, sq, sk,
+                                       causal, scale, stream);
+}
+
+bool misaligned(const void* p) {
+  return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  bf16 pointers must be 16-byte aligned.
-// bias, qseg, kseg: the masks (null when absent), as pt::AttnMask describes
-// them; bias_bf16, bb, hb, sqb and heads describe the bias and the folded
-// axis.  Returns a cudaError_t as int.
+// dtype: 0 = float32, 1 = bfloat16.  q, k, v, o and, for bf16, the bias
+// and segment ids must be 16-byte aligned.  bias, qseg, kseg: the masks
+// (null when absent), as pt::AttnMask describes them; bias_bf16, bb, hb,
+// sqb and heads describe the bias and the folded axis.  Returns a
+// cudaError_t as int.
 extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, const void* bias,
                                       const int* qseg, const int* kseg,
@@ -434,22 +853,30 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   const int chunk = pt::slice_chunk(mask);
   if (bh <= 0 || sq <= 0 || sk <= 0 || (dtype != 0 && dtype != 1) ||
       (d != 64 && d != 128) || chunk <= 0 ||
-      pt::bad_mask(mask, bh, sq, sk, BQ))
+      pt::bad_mask(mask, bh, sq, sk, WQ) || misaligned(q) || misaligned(k) ||
+      misaligned(v) || misaligned(o))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool mma = dtype == 1;
-  const size_t es = mma ? 2 : 4;
-  // B*H past grid y: chunks
+  if (dtype == 1) {
+    // the persistent kernel walks any B*H in one launch
+    if (misaligned(bias) || misaligned(qseg) || misaligned(kseg))
+      return (int)cudaErrorInvalidValue;
+    return d == 64 ? launch_d<64>(true, q, k, v, o, lse, mask, bh, sq, sk,
+                                  causal, scale, s)
+                   : launch_d<128>(true, q, k, v, o, lse, mask, bh, sq, sk,
+                                   causal, scale, s);
+  }
+  // f32: B*H past grid y runs in chunks
   return pt::for_each_chunk(mask, bh, chunk, 1, sq, sk,
                             [&](int bh0, int n, const pt::AttnMask& m) {
     const size_t qo = (size_t)bh0 * sq * d, ko = (size_t)bh0 * sk * d;
-    const void *qc = pt::advance(q, qo, es), *kc = pt::advance(k, ko, es),
-               *vc = pt::advance(v, ko, es);
-    void* oc = pt::advance(o, qo, es);
+    const void *qc = pt::advance(q, qo, 4), *kc = pt::advance(k, ko, 4),
+               *vc = pt::advance(v, ko, 4);
+    void* oc = pt::advance(o, qo, 4);
     float* lc = lse + (size_t)bh0 * sq;
-    return d == 64 ? launch_d<64>(mma, qc, kc, vc, oc, lc, m, n, sq, sk,
+    return d == 64 ? launch_d<64>(false, qc, kc, vc, oc, lc, m, n, sq, sk,
                                   causal, scale, s)
-                   : launch_d<128>(mma, qc, kc, vc, oc, lc, m, n, sq, sk,
+                   : launch_d<128>(false, qc, kc, vc, oc, lc, m, n, sq, sk,
                                    causal, scale, s);
   });
 }

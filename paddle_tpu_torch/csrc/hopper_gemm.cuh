@@ -1,21 +1,36 @@
-// Hopper (sm_90a) building blocks of the port's wgmma GEMMs: mbarriers,
-// TMA tile loads that complete on them and TMA tile stores, a named
-// barrier, the warpgroup product
-// wgmma.mma_async m64n256k16 (bf16 in, f32 accumulate) on shared-memory
-// tiles in the 128-byte swizzle, its operand descriptors, and the host's
-// encoding of a 2-D bf16 tensor map.
+// Hopper (sm_90a) building blocks of the port's wgmma kernels: mbarriers,
+// TMA tile loads that complete on them (2-D and 3-D tensor maps, and plain
+// bulk copies) and TMA tile stores, a named barrier, the warpgroup products
+// wgmma.mma_async (bf16 in, f32 accumulate) m64n256k16 on shared-memory
+// tiles, m64n128k16 with A in shared memory and m64n64k16 / m64n128k16
+// with A in registers, their operand descriptors for tiles in the 128-byte
+// swizzle, and the host's encoding of 2-D and 3-D bf16 tensor maps.
 //
 // Tile layout.  Every operand tile is made of TMA boxes whose inner
 // extent is 64 bf16 (128 bytes, one swizzle span), stored as 128-byte
 // rows, 1024-byte aligned:
 //  - K-major (K contiguous in memory): one box of R rows x 64 K.  Rows
 //    of 8 are 1024 bytes apart (SBO); the next 16 K start 32 bytes on.
-//  - MN-major (M or N contiguous): boxes of 64 K rows x 64 MN, one per
-//    64 columns of MN, 8192 bytes apart (LBO); rows of 8 K are 1024
-//    bytes apart (SBO); the next 16 K start 2048 bytes on.  wgmma reads
-//    such a tile through its transpose bit, so nothing is copied
-//    transposed (CUTLASS's canonical GMMA layouts, cute/atom/
+//    A K wider than 64 takes one box per 64 of K.
+//  - MN-major (M or N contiguous): boxes of R K rows x 64 MN, one per
+//    64 columns of MN, R x 128 bytes apart (LBO: 8192 for R = 64); rows
+//    of 8 K are 1024 bytes apart (SBO); the next 16 K start 2048 bytes
+//    on.  wgmma reads such a tile through its transpose bit, so nothing
+//    is copied transposed (CUTLASS's canonical GMMA layouts, cute/atom/
 //    mma_traits_sm90_gmma.hpp).
+//
+// Register fragments (PTX ISA, wgmma .m64nNk16), with w the thread's warp
+// in its warpgroup, g = lane / 4 and t = lane % 4:
+//  - the accumulator d: for each n8 column block j, d[4j], d[4j+1] at row
+//    16w + g, columns 8j + 2t + {0, 1}, and d[4j+2], d[4j+3] eight rows
+//    below;
+//  - A from registers (k16): a0 = A[16w+g][2t..2t+1], a1 = A[16w+g+8]
+//    [2t..2t+1], a2 = A[16w+g][2t+8..2t+9], a3 = A[16w+g+8][2t+8..2t+9],
+//    two bf16 each, the lower index in the lower half.  So the f32
+//    accumulator of two adjacent n8 blocks 2i, 2i+1, packed to bf16 pairs
+//    (d[8i], d[8i+1]), (d[8i+2], d[8i+3]), (d[8i+4], d[8i+5]),
+//    (d[8i+6], d[8i+7]), is the A fragment of k16 step i: a product's
+//    result feeds the next product without leaving the registers.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums
@@ -95,11 +110,19 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       : "memory");
 }
 
-// close this thread's bulk group; wait until its stores have read
-// shared memory
-__device__ __forceinline__ void bulk_commit_and_wait_read() {
+// close this thread's bulk group of stores
+__device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until this thread's committed stores have read shared memory
+__device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit_and_wait_read() {
+  bulk_commit();
+  bulk_wait_read();
 }
 
 // make this thread's shared-memory writes visible to TMA
@@ -110,6 +133,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (not 0, which __syncthreads uses) over `count` threads
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive at barrier `id` of `count` threads without waiting for it
+__device__ __forceinline__ void named_barrier_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // descriptor of a 128-byte-swizzled tile at p (1024-byte aligned, or a
@@ -135,11 +163,17 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// keep the compiler from moving accesses of the accumulator across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+// keep the compiler from moving accesses of registers that asynchronous
+// products read or write (accumulators, A fragments) across them
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 256, f32) += A (64 x 16) . B (16 x 256), bf16 operands in shared
@@ -198,6 +232,146 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+// TMA: the box at (c0 inner, c1, c2 outer) of a 3-D `map` into shared
+// memory; the box's bytes complete on `bar`.  Elements outside the tensor
+// read 0, so a box never reads into the next plane.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA: shared memory into the box at (c0, c1, c2) of a 3-D `map`; elements
+// outside the tensor are not written.  Completes as a bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// bulk copy of `bytes` contiguous bytes (a multiple of 16; both addresses
+// 16-byte aligned) into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d (64 x N, f32) = A (64 x 16) . B (16 x N) + (scale_d ? d : 0), bf16
+// operands, N = 64 or 128.  _ss: A and B in shared memory (descriptors;
+// TA / TB = 1: read MN-major through the transpose bit); _rs: A from
+// registers in the fragment layout above, B in shared memory.  scale_d = 0
+// overwrites d, so a product that starts a sum needs no zeroed registers.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
 // ---------------------------------------------------------------------------
 // host
 // ---------------------------------------------------------------------------
@@ -243,6 +417,25 @@ inline bool bf16_map(CUtensorMap* map, const void* base, uint64_t rows,
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a (planes, rows, cols) bf16 tensor, row-major in each plane,
+// read in boxes of box_rows x 64 columns of one plane, 128-byte swizzled;
+// reads outside it give 0 and stores outside it are dropped.  cols * 2 must
+// be a multiple of 16.  False if it cannot be encoded.
+inline bool bf16_map_3d(CUtensorMap* map, const void* base, uint64_t planes,
+                        uint64_t rows, uint64_t cols, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

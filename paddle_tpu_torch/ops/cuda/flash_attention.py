@@ -178,7 +178,13 @@ def flash_attention_reference(qt, kt, vt, scale: float, causal: bool,
     arithmetic, dense.  Scores in f32, p rounded to the value dtype for the
     p.v product, the row sum over the unrounded p.  Returns (out (B*H, Sq,
     D) in the input dtype, lse (B*H, Sq) f32)."""
-    s = _scores(qt, kt, scale, causal, mask)
+    return _attend(_scores(qt, kt, scale, causal, mask), vt, qt.dtype)
+
+
+def _attend(s, vt, dtype):
+    """(out in ``dtype``, lse) of the f32 masked scores s: the softmax's p
+    rounded to v's dtype for the p.v product, the row sum over the
+    unrounded p, a row with no visible key 0 and -inf."""
     m = s.amax(-1, keepdim=True)
     live = torch.isfinite(m)
     p = torch.where(live, torch.exp(s - torch.where(live, m, 0.0)), 0.0)
@@ -187,7 +193,7 @@ def flash_attention_reference(qt, kt, vt, scale: float, causal: bool,
     out = acc / l.clamp_min(1e-30)
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
                       float("-inf"))
-    return out.to(qt.dtype), lse[..., 0]
+    return out.to(dtype), lse[..., 0]
 
 
 def _delta(dot, ot):
@@ -340,7 +346,10 @@ def _mask_args(mask: Optional[Mask], qt, sq: int, sk: int):
                 or tuple(mask.kv_seg.shape) != (b, sk)):
             raise ValueError(f"flash_attention: segment ids must be int32 "
                              f"({b}, {sq}) and ({b}, {sk})")
-    return (mask.bias, mask.q_seg, mask.kv_seg), ints
+    # the bf16 forward copies bias rows and key ids into shared memory in
+    # 16-byte units: a view that starts off that grain rides as a copy
+    return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                 for _, t in named), ints
 
 
 def _rows(name, t, bh, sq):

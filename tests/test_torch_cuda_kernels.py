@@ -54,22 +54,31 @@ def _close(a, b, tol):
         assert float((a[fin] - b[fin]).abs().max()) <= tol
 
 
+# the bf16 kernel's edges: sequences ending inside a 128 tile (1000) and 64
+# rows into one (1088), sq > sk (rows with no key), D = 128
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,d,causal", [
     (256, 256, 64, True), (200, 200, 128, True), (128, 384, 64, True),
-    (300, 300, 64, False), (256, 128, 64, True)])
+    (300, 300, 64, False), (256, 128, 64, True), (1000, 1000, 64, True),
+    (1088, 1088, 128, True), (1088, 1088, 64, False), (1088, 1000, 64, True),
+    (320, 128, 128, True), (1000, 1000, 128, False)])
 def test_flash_kernel_matches_plain(gen, dtype, sq, sk, d, causal):
     qt = _rand(gen, (6, sq, d), dtype)
     kt, vt = _rand(gen, (6, sk, d), dtype), _rand(gen, (6, sk, d), dtype)
     scale = 1.0 / math.sqrt(d)
     before = fa.launches
     out, lse = fa._launch(qt, kt, vt, scale, causal)
+    again = fa._launch(qt, kt, vt, scale, causal)
     out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, scale, causal)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     bf16 = dtype == torch.bfloat16
     _close(out, out_p, 2e-2 if bf16 else 1e-4)
     _close(lse, lse_p, 1e-3 if bf16 else 1e-4)
+    if sq > sk and causal:               # rows with no key: exact zeros
+        assert float(out[:, :sq - sk].abs().max()) == 0.0
+        assert bool(torch.isneginf(lse[:, :sq - sk]).all())
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(gen):
@@ -146,41 +155,56 @@ TOL_DBIAS_BF16 = 0.05
 
 
 def _masked_case(gen, dtype, bias_shape, bias_dtype, segs, b=2, h=3, s=256,
-                 d=64):
-    """Folded q, k, v, do and the mask of one masked call."""
-    qt, kt, vt, dot = (_rand(gen, (b * h, s, d), dtype) for _ in range(4))
+                 d=64, sk=None):
+    """Folded q, k, v, do and the mask of one masked call (sk keys, s by
+    default)."""
+    sk = s if sk is None else sk
+    qt, dot = (_rand(gen, (b * h, s, d), dtype) for _ in range(2))
+    kt, vt = (_rand(gen, (b * h, sk, d), dtype) for _ in range(2))
     bias = None if bias_shape is None else _rand(gen, bias_shape, bias_dtype)
     q_seg = kv_seg = None
     if segs:
-        pos = torch.arange(s, device="cuda")
-        q_seg = (pos // 96).int().expand(b, s).contiguous()
-        kv_seg = (pos // 64).int().expand(b, s).contiguous()
+        q_seg = (torch.arange(s, device="cuda") // 96).int().expand(
+            b, s).contiguous()
+        kv_seg = (torch.arange(sk, device="cuda") // 64).int().expand(
+            b, sk).contiguous()
     return qt, kt, vt, dot, fa.Mask(bias, q_seg, kv_seg, h)
 
 
-# each bias class, f32 and bf16 biases, segment ids, and both together
-_MASKED = [((1, 1, 1, 256), torch.float32, False, False),
-           ((1, 3, 256, 256), torch.bfloat16, False, True),
-           ((2, 1, 1, 256), torch.float32, False, True),
-           ((2, 3, 256, 256), torch.float32, False, False),
-           ((1, 1, 256, 256), torch.bfloat16, False, False),
-           ((2, 3, 1, 256), torch.bfloat16, False, True),
-           ((1, 3, 1, 256), torch.float32, False, False),
-           ((2, 1, 256, 256), torch.bfloat16, False, True),
-           (None, None, True, False), (None, None, True, True),
-           ((1, 3, 256, 256), torch.float32, True, True)]
+# each bias class, f32 and bf16 biases, segment ids, and both together, at
+# (sq, sk, d) = (256, 256, 64); then the bf16 kernel's edges under a mask:
+# D = 128, three key tiles crossed by the diagonal, sq > sk (rows with no
+# key)
+_MASKED = [((1, 1, 1, 256), torch.float32, False, False, 256, 256, 64),
+           ((1, 3, 256, 256), torch.bfloat16, False, True, 256, 256, 64),
+           ((2, 1, 1, 256), torch.float32, False, True, 256, 256, 64),
+           ((2, 3, 256, 256), torch.float32, False, False, 256, 256, 64),
+           ((1, 1, 256, 256), torch.bfloat16, False, False, 256, 256, 64),
+           ((2, 3, 1, 256), torch.bfloat16, False, True, 256, 256, 64),
+           ((1, 3, 1, 256), torch.float32, False, False, 256, 256, 64),
+           ((2, 1, 256, 256), torch.bfloat16, False, True, 256, 256, 64),
+           (None, None, True, False, 256, 256, 64),
+           (None, None, True, True, 256, 256, 64),
+           ((1, 3, 256, 256), torch.float32, True, True, 256, 256, 64),
+           ((2, 1, 1, 256), torch.float32, False, True, 256, 256, 128),
+           ((1, 3, 256, 256), torch.bfloat16, True, False, 256, 256, 128),
+           ((2, 1, 1, 384), torch.float32, False, True, 384, 384, 64),
+           ((2, 3, 384, 128), torch.bfloat16, False, True, 384, 128, 64),
+           ((2, 1, 1, 128), torch.float32, False, True, 256, 128, 128)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bias_shape,bias_dtype,segs,causal", _MASKED)
+@pytest.mark.parametrize("bias_shape,bias_dtype,segs,causal,sq,sk,d",
+                         _MASKED)
 def test_masked_flash_kernels_match_plain(gen, dtype, bias_shape, bias_dtype,
-                                          segs, causal):
+                                          segs, causal, sq, sk, d):
     qt, kt, vt, dot, mask = _masked_case(gen, dtype, bias_shape, bias_dtype,
-                                         segs)
+                                         segs, s=sq, d=d, sk=sk)
     bf16 = dtype == torch.bfloat16
     before = (fa.launches_masked, fa.launches_dq_masked,
               fa.launches_dkv_masked, fa.launches_dbias)
     out, lse = fa._launch(qt, kt, vt, 0.125, causal, mask)
+    again = fa._launch(qt, kt, vt, 0.125, causal, mask)
     out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, 0.125, causal,
                                                 mask)
     got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, 0.125, causal, mask,
@@ -191,7 +215,8 @@ def test_masked_flash_kernels_match_plain(gen, dtype, bias_shape, bias_dtype,
     has_bias = int(mask.bias is not None)
     assert (fa.launches_masked, fa.launches_dq_masked,
             fa.launches_dkv_masked, fa.launches_dbias) == (
-        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + has_bias)
+        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + has_bias)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     _close(out, out_p, 2e-2 if bf16 else 1e-4)
     _close(lse, lse_p, 1e-3 if bf16 else 1e-4)
     for g, w in zip(got[:3], want[:3]):

@@ -39,8 +39,10 @@ def _qkv(sq, sk, d, seed=0, b=1, h=2):
     return q, k, v
 
 
+# 1000 and 1088 end inside the bf16 kernel's 128-row tiles and 64 rows
+# into one
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [128, 200, 256])
+@pytest.mark.parametrize("s", [128, 200, 256, 1000, 1088])
 @pytest.mark.parametrize("causal", [True, False])
 def test_forward_matches_interpret_kernel(causal, s, d):
     q, k, v = _qkv(s, s, d)
@@ -137,6 +139,33 @@ def test_models_pass_their_dtype_to_the_rule(monkeypatch):
     assert seen == [torch.float16, torch.float16]
 
 
+@pytest.mark.parametrize("sq,sk,d", [(320, 128, 128), (1088, 1000, 64),
+                                     (128, 384, 64)])
+def test_causal_tile_edges_match_kernel(sq, sk, d):
+    # causal with sq != sk: the end-aligned diagonal crosses the tiles off
+    # their corners; with sq > sk whole 128-row tiles and parts of others
+    # see no key (out = 0, lse = -inf)
+    q, k, v = _qkv(sq, sk, d, seed=4)
+    scale = 1.0 / np.sqrt(d)
+    out_j, lse_j = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), None, None, None, scale,
+                                  True)
+    out_t, lse_t = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, scale=scale)
+    lse_j = np.asarray(lse_j)[..., 0]
+    empty = max(sq - sk, 0)
+    assert np.all(out_t.numpy()[:, :empty] == 0)
+    assert np.all(np.isneginf(lse_t.numpy()[:, :empty]))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_array_equal(np.isneginf(lse_t.numpy()),
+                                  np.isneginf(lse_j))
+    fin = np.isfinite(lse_j)
+    np.testing.assert_allclose(lse_t.numpy()[fin], lse_j[fin], atol=ATOL,
+                               rtol=0)
+
+
 def _jax_grads(q, k, v, w, causal, scale):
     """jax.grad of sum(flash_attention(q, k, v) * w): the vjp with do = w,
     through the reference's _bwd_dq_kernel and _bwd_dkv_kernel."""
@@ -156,7 +185,7 @@ def _port_grads(q, k, v, w, causal, scale):
 
 
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [128, 200, 256])
+@pytest.mark.parametrize("s", [128, 200, 256, 1000, 1088])
 @pytest.mark.parametrize("causal", [True, False])
 def test_backward_matches_interpret_kernel(causal, s, d):
     q, k, v = _qkv(s, s, d, seed=5)
@@ -285,6 +314,64 @@ def test_bf16_gradient_measure_passes_rounding_control(bf16_case):
         *(t.float() for t in (qt, kt, vt, ot)), lse, dot.float(), 0.125, True)
     for c, w in zip(ctl, want):
         assert _grad_err(c.bfloat16(), w) < TOL_GRAD_BF16 / 2
+
+
+# The card check's measure of the bf16 forward's output (chip_smoke.py):
+# the same relative measure, held to TOL_FWD_BF16.  chip_smoke.
+# flash_fwd_faults plants the faults a tiled forward can make into the
+# plain version; each must read far above the limit, and the plain
+# version with p left in f32 (the rounding control) below it: at GPT-2
+# 345M's layer (two slices), at a sequence tail, at D = 128 and at
+# BERT-base's padded layer.
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fwd_case(kind):
+    rng = np.random.default_rng(12)
+    mask = None
+    if kind == "bert_padding":
+        b, h, sq, d, causal = 2, 12, 128, 64, False
+        lens = np.array([100, 71])
+        keep = torch.from_numpy(np.arange(sq)[None] < lens[:, None])
+        mask = tfa.Mask(torch.where(keep, 0.0, -1e30)[:, None, None, :],
+                        None, None, h)
+        bh = b * h
+    else:
+        sq, d = {"gpt": (1024, 64), "tail": (1000, 64),
+                 "d128": (1024, 128)}[kind]
+        bh, causal = 2, True
+    qt, kt, vt = (torch.from_numpy(rng.standard_normal(
+        (bh, sq, d)).astype(np.float32)).bfloat16() for _ in range(3))
+    scale = 1.0 / np.sqrt(d)
+    want = tfa.flash_attention_reference(qt, kt, vt, scale, causal, mask)[0]
+    return qt, kt, vt, scale, causal, mask, want
+
+
+@pytest.mark.parametrize("kind", ["gpt", "tail", "d128", "bert_padding"])
+def test_bf16_forward_measure_flags_faults(kind):
+    cs = _chip_smoke()
+    qt, kt, vt, scale, causal, mask, want = _fwd_case(kind)
+    faults = cs.flash_fwd_faults(tfa, qt, kt, vt, scale, causal, mask)
+    assert len(faults) == (3 if causal else 2)
+    for name, bad in faults:
+        assert bad.dtype == want.dtype and bad.shape == want.shape
+        assert _grad_err(bad, want) > 10 * cs.TOL_FWD_BF16, name
+
+
+@pytest.mark.parametrize("kind", ["gpt", "tail", "d128", "bert_padding"])
+def test_bf16_forward_measure_passes_rounding_control(kind):
+    cs = _chip_smoke()
+    qt, kt, vt, scale, causal, mask, want = _fwd_case(kind)
+    ctl = tfa.flash_attention_reference(qt.float(), kt.float(), vt.float(),
+                                        scale, causal, mask)[0]
+    assert _grad_err(ctl.bfloat16(), want) < cs.TOL_FWD_BF16 / 2
 
 
 def test_other_devices_raise():

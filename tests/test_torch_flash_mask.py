@@ -60,7 +60,8 @@ def _ref(q, k, v, w, causal, bias=None, segs=None):
     grads = jax.grad(loss, argnums=tuple(range(n)))(*args)
     canon = None
     if jb is not None:
-        canon = jfa._canon_bias_shape(jb.shape, B, H, S, S)
+        b, sq, h, _ = q.shape
+        canon = jfa._canon_bias_shape(jb.shape, b, h, sq, k.shape[1])
         canon = (jnp.where(jb, 0.0, -jnp.inf) if jb.dtype == jnp.bool_
                  else jb).astype(jnp.float32).reshape(canon)
     qf = None if qs is None else qs.astype(jnp.float32)
@@ -193,6 +194,55 @@ def test_finite_large_negative_bias_is_not_minus_inf():
     np.testing.assert_allclose(out[0, :16], np.broadcast_to(
         v[0].mean(0), out[0, :16].shape), atol=ATOL, rtol=0)
     _compare(got, _ref(q, k, v, w, False, bias=bias))
+
+
+# Shapes where the bf16 kernel's 128 x 128 tiles meet the masks: several
+# key tiles crossed by the causal diagonal under a bias row, D = 128 with a
+# full bias and with segment ids, and causal sq > sk under a bias (rows
+# with no key).
+_EDGES = {
+    "row_bias_384_causal": (384, 384, 64, (B, 1, 1, 384), False, True),
+    "full_bias_d128": (256, 256, 128, (1, H, 256, 256), False, False),
+    "segments_d128_causal": (256, 256, 128, None, True, True),
+    "bias_sq_gt_sk_causal": (256, 128, 64, (B, H, 256, 128), False, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_EDGES))
+def test_masked_tile_edges_match_interpret_kernels(name):
+    sq, sk, d, bias_shape, segs, causal = _EDGES[name]
+    rng = np.random.default_rng(22)
+    q = rng.standard_normal((B, sq, H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, sk, H, d)).astype(np.float32)
+            for _ in range(2))
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    bias = (None if bias_shape is None
+            else rng.standard_normal(bias_shape).astype(np.float32))
+    ids = (np.stack([np.repeat(np.arange(4), sq // 4)] * B).astype(np.int32)
+           if segs else None)
+    got = _port(q, k, v, w, causal, bias=bias, segs=ids)
+    if sq > sk:
+        assert np.all(got[0][:, :sq - sk] == 0)
+        assert np.all(np.isneginf(got[1][:, :sq - sk]))
+    _compare(got, _ref(q, k, v, w, causal, bias=bias, segs=ids))
+
+
+def test_mask_args_keep_aligned_tensors_and_copy_the_others():
+    # the bf16 forward reads bias rows and key ids in 16-byte units: the
+    # wrapper passes an aligned mask as it is and a view off that grain as
+    # an aligned copy
+    qt = torch.zeros(B * H, S, D)
+    base = torch.randn(B * S + 1)
+    ids = torch.zeros(B * S + 1, dtype=torch.int32)
+    for off in (0, 1):
+        bias = base[off:off + B * S].view(B, 1, 1, S)
+        seg = ids[off:off + B * S].view(B, S)
+        mask = tfa.Mask(bias, seg, seg, H)
+        (tb, tq, tk), ints = tfa._mask_args(mask, qt, S, S)
+        assert ints == (0, B, 1, 1, H)
+        for got, given in ((tb, bias), (tq, seg), (tk, seg)):
+            assert got.data_ptr() % 16 == 0 and torch.equal(got, given)
+            assert (got is given) == (off == 0)
 
 
 def test_plain_dbias_reduces_like_the_kernel_grid():
