@@ -7,16 +7,19 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 1. build   — compile every CUDA kernel of the path from paddle_tpu_torch/csrc
              (one nvcc per source, all started together); fail if ptxas
-             serialised the flash forward's wgmma products.
+             serialised the wgmma products of the flash forward or
+             backward.
 2. check   — hold each kernel against its plain PyTorch version on the card,
              at the shapes GPT-2 345M gives it and at tail shapes; the bf16
-             flash forward also by a relative measure beside its rounding
-             control and the faults flash_fwd_faults plants, two calls
-             bitwise equal, at its tile edges (sequences ending inside a
-             128 tile, sq > sk, D = 128) and past B*H = 65,535; the masked
-             flash kernels at BERT-base's layer with its padding bias, in
-             every bias class, with segment ids and with rows that see no
-             key; the dbias kernel beside the faults dbias_faults plants;
+             flash forward and backward also by a relative measure beside
+             its rounding control and the faults flash_fwd_faults and
+             flash_bwd_faults plant, two calls bitwise equal, at their tile
+             edges (sequences ending inside a 128 tile, sq > sk, sq < sk,
+             D = 128) and past B*H = 65,535; the masked flash kernels at
+             BERT-base's layer with its padding bias (past B*H = 65,535
+             too), in every bias class, with segment ids and with rows that
+             see no key; the dbias kernel beside the faults dbias_faults
+             plants;
              the fused CE backward in vocabulary chunks (two calls bitwise
              equal) beside the faults ce_bwd_faults plants; a small GPT on
              the card against the same model on the CPU:
@@ -123,7 +126,10 @@ FA_SEAM = 65535                # the folded B*H past which grid y once split
 # |want|); the rms floor keeps an error among small gradients from hiding
 # behind the few large ones.  The limit sits above the kernels' readings and
 # the rounding control's (p and ds left in f32), well below what a dropped
-# tile or fragment gives (PERF.md, Findings)
+# tile or fragment gives (PERF.md, Findings).  The bf16 flash backward's
+# checks read every fault flash_bwd_faults plants on each run and fail if
+# one is not above this (tests/test_torch_flash_attention.py reads them on
+# the CPU).
 TOL_GRAD_BF16 = 0.1
 # The fused CE backward (dh, dW) by the same measure.  The smallest of the
 # faults ce_bwd_faults plants is one K-step missing from one 128 x 256
@@ -365,44 +371,154 @@ def check_flash(g, fa, case, slices=None):
     return e_out
 
 
-def check_flash_bwd(g, fa, case):
-    """dq, dk, dv kernels against flash_attention_bwd_reference; returns
-    the largest absolute error."""
+def _bwd_grads(fa, s, lse, delta, qt, kt, vt, dot, scale):
+    """(dq, dk, dv) of the plain backward from the f32 masked scores s and
+    the given lse and delta rows, as flash_attention_bwd_reference computes
+    them; with p and ds (f32)."""
+    import torch
+    dt = qt.dtype
+    live = torch.isfinite(lse)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, lse[..., None],
+                                                    0.0)), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", dot.float(), vt.float())
+    ds = p * (dp - delta[..., None])
+    return _grads_of(p, ds, qt, kt, dot, scale, dt), p, ds
+
+
+def _grads_of(p, ds, qt, kt, dot, scale, dt):
+    import torch
+    ds_r = ds.to(dt).float()
+    return (
+        (torch.einsum("bqk,bkd->bqd", ds_r, kt.float()) * scale).to(dt),
+        (torch.einsum("bqk,bqd->bkd", ds_r, qt.float()) * scale).to(dt),
+        torch.einsum("bqk,bqd->bkd", p.to(dt).float(), dot.float()).to(dt))
+
+
+def flash_bwd_faults(fa, qt, kt, vt, ot, lse, dot, scale, causal, mask=None):
+    """What a faulty bf16 backward would return, as a list of (name, (dq,
+    dk, dv)): the plain version with one fault of the tiled design planted,
+    in the middle folded slice and the middle of the FA_TILE-row query
+    tiles that see a key: that query tile's dq skips the first 128-key
+    tile; the first key tile's dk and dv skip that query tile of their
+    walk; that key tile's dv reads do's columns 8..15 from columns 16..23
+    for the tile's rows; the last query tile's lse and delta rows are read
+    from the next slice (a tail copy that does not clip at Sq); and, causal
+    only, every row's causal edge moves one key on.  The measure must read
+    each above its limit."""
+    import torch
+    s = fa._scores(qt, kt, scale, causal, mask)
+    bh, sq, sk = s.shape
+    delta = fa._delta(dot, ot)
+    want, p, ds = _bwd_grads(fa, s, lse, delta, qt, kt, vt, dot, scale)
+    dt = qt.dtype
+    b0 = bh // 2
+    first = max(0, sq - sk) // FA_TILE if causal else 0
+    r0 = (first + -(-sq // FA_TILE)) // 2 * FA_TILE
+    rows, keys = slice(r0, r0 + FA_TILE), slice(0, FA_TILE)
+    ds_skip, p_skip = ds.clone(), p.clone()
+    ds_skip[b0, rows, keys] = 0
+    p_skip[b0, rows, keys] = 0
+    skip = _grads_of(p_skip, ds_skip, qt, kt, dot, scale, dt)
+    out = [("dq skips a key tile", (skip[0], want[1], want[2])),
+           ("dk/dv skip a query tile", (want[0], skip[1], skip[2]))]
+    dob = dot.clone()
+    dob[b0, rows, 8:16] = dot[b0, rows, 16:24]
+    dv_bad = _grads_of(p, ds, qt, kt, dob, scale, dt)[2]
+    out.append(("dv reads 8 columns of do from the wrong place",
+                (want[0], want[1], dv_bad)))
+    tail = slice((sq - 1) // FA_TILE * FA_TILE, sq)
+    nxt = (b0 + 1) % bh
+    lse_b, delta_b = lse.clone(), delta.clone()
+    lse_b[b0, tail], delta_b[b0, tail] = lse[nxt, tail], delta[nxt, tail]
+    out.append(("reads the tail's lse / delta from the next slice",
+                _bwd_grads(fa, s, lse_b, delta_b, qt, kt, vt, dot,
+                           scale)[0]))
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(
+            sk - sq + 1)
+        moved = fa._scores(qt, kt, scale, False, mask).masked_fill(
+            ~keep, float("-inf"))
+        out.append(("moves the causal edge by one key",
+                    _bwd_grads(fa, moved, lse, delta, qt, kt, vt, dot,
+                               scale)[0]))
+    return out
+
+
+def bwd_faults_err(fa, want, qt, kt, vt, ot, lse, dot, scale, causal,
+                   mask=None):
+    """[(fault, its reading)] of every fault flash_bwd_faults plants, by
+    the gradients' measure (the largest over dq, dk, dv); fails if
+    TOL_GRAD_BF16 would pass one."""
+    faults = [(name, max(grad_err(b, w)[0] for b, w in zip(bad, want)))
+              for name, bad in flash_bwd_faults(fa, qt, kt, vt, ot, lse, dot,
+                                                scale, causal, mask)]
+    if min(r for _, r in faults) <= TOL_GRAD_BF16:
+        fail("the backward's limit would pass a planted fault: "
+             + ", ".join(f"{n} {r:.3g}" for n, r in faults))
+    return faults
+
+
+def check_flash_bwd(g, fa, case, slices=None):
+    """dq, dk, dv kernels against flash_attention_bwd_reference; in bf16
+    by the relative measure beside the rounding control and the faults
+    flash_bwd_faults plants, and two calls bitwise equal.  ``slices``:
+    compare only these folded slices (B*H past the seam), without faults
+    or control.  Returns the largest absolute errors (dq, dk/dv)."""
     import torch
     bh, sq, sk, d, dtype, causal = case
     qt, dot = rand(g, (bh, sq, d), dtype), rand(g, (bh, sq, d), dtype)
     kt, vt = rand(g, (bh, sk, d), dtype), rand(g, (bh, sk, d), dtype)
     scale = 1.0 / math.sqrt(d)
-    ot, lse = fa.flash_attention_reference(qt, kt, vt, scale, causal)
+    if slices is None:
+        ot, lse = fa.flash_attention_reference(qt, kt, vt, scale, causal)
+    else:
+        ot, lse = fa._launch(qt, kt, vt, scale, causal)
     got = fa._launch_bwd(qt, kt, vt, ot, lse, dot, scale, causal)
+    again = fa._launch_bwd(qt, kt, vt, ot, lse, dot, scale, causal)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    del again
+    if slices is not None:
+        idx = torch.tensor(slices, device=qt.device)
+        qt, kt, vt, ot, lse, dot = (t[idx] for t in (qt, kt, vt, ot, lse,
+                                                     dot))
+        got = tuple(t[idx] for t in got[:3])
     want = fa.flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot, scale,
                                             causal)
     torch.cuda.synchronize()
     bf = dtype == torch.bfloat16
     errs = [grad_err(a, b) for a, b in zip(got, want)]
     names = ("dq", "dk", "dv")
+    ok = same
     if bf:
-        ok = all(e[0] <= TOL_GRAD_BF16 for e in errs)
-        # rounding control: the plain version with p and ds left in f32,
-        # read by the same measure
-        ctl = fa.flash_attention_bwd_reference(
-            *(t.float() for t in (qt, kt, vt, ot)), lse, dot.float(), scale,
-            causal)
-        ctl = [grad_err(c.to(dtype), w)[0] for c, w in zip(ctl, want)]
+        ok = ok and all(e[0] <= TOL_GRAD_BF16 for e in errs)
         detail = (", relative to |ref| + rms(ref): "
-                  + " ".join(f"{n}={e[0]:.3g}" for n, e in zip(names, errs))
-                  + " (rounding control "
-                  + " ".join(f"{n}={c:.3g}" for n, c in zip(names, ctl))
-                  + f"; tol {TOL_GRAD_BF16:g})")
+                  + " ".join(f"{n}={e[0]:.3g}" for n, e in zip(names, errs)))
+        if slices is None:
+            # rounding control: the plain version with p and ds left in
+            # f32, read by the same measure
+            ctl = fa.flash_attention_bwd_reference(
+                *(t.float() for t in (qt, kt, vt, ot)), lse, dot.float(),
+                scale, causal)
+            ctl = [grad_err(c.to(dtype), w)[0] for c, w in zip(ctl, want)]
+            faults = bwd_faults_err(fa, want, qt, kt, vt, ot, lse, dot,
+                                    scale, causal)
+            detail += (" (rounding control "
+                       + " ".join(f"{n}={c:.3g}" for n, c in zip(names, ctl))
+                       + "; planted faults "
+                       + ", ".join(f"{n} {r:.3g}" for n, r in faults) + ")")
+        detail += f" (tol {TOL_GRAD_BF16:g})"
     else:
-        ok = all(e[1] <= TOL_F32 for e in errs)
+        ok = ok and all(e[1] <= TOL_F32 for e in errs)
         detail = f" (tol {TOL_F32:g})"
     if causal and sq > sk and float(got[0][:, :sq - sk].abs().max()) != 0:
         ok = False                        # rows with no key: dq = 0
+    where = "" if slices is None else f" slices {list(slices)}"
     log(f"check flash_attention_bwd bh={bh} sq={sq} sk={sk} d={d} "
-        f"{str(dtype)[6:]} causal={causal}: max_abs_err "
+        f"{str(dtype)[6:]} causal={causal}{where}: max_abs_err "
         + " ".join(f"{n}={e[1]:.3g}" for n, e in zip(names, errs))
-        + detail + f" {'ok' if ok else 'FAIL'}")
+        + detail + f", bitwise repeat {'yes' if same else 'NO'} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail("flash_attention backward kernels disagree with their plain "
              "version")
@@ -709,9 +825,10 @@ def masked_case(g, fa, case):
 
 def check_masked(g, fa, case, mask=None, dbias=True):
     """The masked forward, dq, dk/dv and, when the case has a bias and
-    ``dbias``, dbias kernels against their plain versions; the forward in
-    bf16 also by the relative measure beside its rounding control and
-    planted faults, and two forward calls bitwise equal.  ``mask``
+    ``dbias``, dbias kernels against their plain versions; in bf16 the
+    forward also by the relative measure beside its rounding control and
+    planted faults, and the backward beside the faults flash_bwd_faults
+    plants; two forward calls and two backward calls bitwise equal.  ``mask``
     replaces the case's own.  Returns the largest absolute errors (out,
     dq, dk/dv, dbias or None)."""
     import torch
@@ -729,12 +846,15 @@ def check_masked(g, fa, case, mask=None, dbias=True):
     out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, sc, causal, mask)
     got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
                          dbias=want_db)
+    again = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask)
     want = fa._bwd_reference(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
                              dbias=want_db)
     torch.cuda.synchronize()
+    same_bwd = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    del again
     e_out, e_lse = max_err(out_k, out_p), max_err(lse_k, lse_p)
-    ok = same and e_out <= (TOL_BF16 if bf else TOL_F32) and e_lse <= (
-        TOL_LSE if bf else TOL_F32)
+    ok = same and same_bwd and e_out <= (TOL_BF16 if bf else TOL_F32) \
+        and e_lse <= (TOL_LSE if bf else TOL_F32)
     fwd = ""
     if bf:
         r_out, ctl, faults = fwd_err(fa, out_k, out_p, qt, kt, vt, sc,
@@ -744,6 +864,10 @@ def check_masked(g, fa, case, mask=None, dbias=True):
                "planted faults " + ", ".join(f"{n} {r:.3g}" for n, r in
                                              faults)
                + f"; tol {TOL_FWD_BF16:g})")
+        faults = bwd_faults_err(fa, want[:3], qt, kt, vt, out_p, lse_p, dot,
+                                sc, causal, mask)
+        fwd += (", backward's planted faults "
+                + ", ".join(f"{n} {r:.3g}" for n, r in faults))
     names = ("dq", "dk", "dv", "dbias")[:4 if want_db else 3]
     errs = [grad_err(a, w) for a, w in zip(got[:len(names)], want)]
     limits = [TOL_GRAD_BF16] * 3 + [TOL_DBIAS_BF16]
@@ -773,7 +897,8 @@ def check_masked(g, fa, case, mask=None, dbias=True):
         f"{', '.join(what)} causal={causal}: "
         f"max_abs_err out={e_out:.3g} lse={e_lse:.3g} "
         + " ".join(f"{n}={e[1]:.3g}" for n, e in zip(names, errs))
-        + f"{rel}{fwd}, bitwise repeat {'yes' if same else 'NO'}"
+        + f"{rel}{fwd}, bitwise repeat {'yes' if same else 'NO'} "
+        f"(backward {'yes' if same_bwd else 'NO'})"
         f"{'' if not bool(empty.any()) else ' (rows with no key: 0)'}"
         f" {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -814,19 +939,22 @@ def check_dbias_faults(g, fa, b, h, s):
 
 
 def check_masked_seam(g, fa):
-    """The masked forward with BERT's padding bias at B*H = 70,000 (5,000
-    x 14 heads), past the seam where grid y once split the launches: the
-    slices at both ends and on both sides of the seam against the plain
-    version."""
+    """The masked forward and backward with BERT's padding bias at B*H =
+    70,000 (5,000 x 14 heads), past the seam where grid y once split the
+    launches: the slices at both ends and on both sides of the seam
+    against the plain versions."""
     import torch
     b, h, s = 5000, 14, 128
-    qt, kt, vt = (rand(g, (b * h, s, 64), torch.bfloat16) for _ in range(3))
+    qt, kt, vt, dot = (rand(g, (b * h, s, 64), torch.bfloat16)
+                       for _ in range(4))
     keep = torch.arange(s, device="cuda")[None] < torch.randint(
         s // 2, s + 1, (b, 1), generator=g, device="cuda")
     mask = fa.Mask(padding_bias(keep), None, None, h)
     out_k, lse_k = fa._launch(qt, kt, vt, 0.125, False, mask)
+    grads = fa._launch_bwd(qt, kt, vt, out_k, lse_k, dot, 0.125, False,
+                           mask)[:3]
     ent = (0, FA_SEAM // h - 1, FA_SEAM // h, FA_SEAM // h + 1, b - 1)
-    e_out = e_lse = rel = 0.0
+    e_out = e_lse = rel = e_grad = rel_grad = 0.0
     for e in ent:
         sl = slice(e * h, (e + 1) * h)
         sub = fa.Mask(mask.bias[e:e + 1], None, None, h)
@@ -835,14 +963,22 @@ def check_masked_seam(g, fa):
         e_out = max(e_out, max_err(out_k[sl], out_p))
         e_lse = max(e_lse, max_err(lse_k[sl], lse_p))
         rel = max(rel, grad_err(out_k[sl], out_p)[0])
-    ok = e_out <= TOL_BF16 and e_lse <= TOL_LSE and rel <= TOL_FWD_BF16
+        want = fa.flash_attention_bwd_reference(
+            qt[sl], kt[sl], vt[sl], out_k[sl], lse_k[sl], dot[sl], 0.125,
+            False, sub)
+        for a, w in zip(grads, want):
+            r, err = grad_err(a[sl], w)
+            rel_grad, e_grad = max(rel_grad, r), max(e_grad, err)
+    ok = e_out <= TOL_BF16 and e_lse <= TOL_LSE and rel <= TOL_FWD_BF16 \
+        and rel_grad <= TOL_GRAD_BF16
     log(f"check masked flash bh={b * h} s={s} d=64 bfloat16 bias {b}x1x1x{s} "
         f"float32 padding, batch entries {list(ent)} across the seam: "
-        f"max_abs_err out={e_out:.3g} lse={e_lse:.3g}, relative {rel:.3g} "
-        f"(tol {TOL_BF16:g}, {TOL_LSE:g}, {TOL_FWD_BF16:g}) "
+        f"max_abs_err out={e_out:.3g} lse={e_lse:.3g} dq/dk/dv={e_grad:.3g},"
+        f" relative out {rel:.3g}, dq/dk/dv {rel_grad:.3g} (tol "
+        f"{TOL_BF16:g}, {TOL_LSE:g}, {TOL_FWD_BF16:g}, {TOL_GRAD_BF16:g}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("the masked forward disagrees past the seam")
+        fail("the masked forward or backward disagrees past the seam")
 
 
 def check_small_bert(Bert, BertConfig, bert_pretrain_loss, TrainStep, AdamW,
@@ -1497,14 +1633,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     # ptxas serialises a kernel's wgmma products when it cannot keep them
-    # in flight (warning C7515 and its kin): the forward must not have it
-    serial = [line.strip() for line in logs["flash_attention_fwd"]
-              .splitlines() if "wgmma" in line and "serializ" in line]
-    log(f"build: wgmma serialisation warnings in flash_attention_fwd: "
-        f"{len(serial)}")
-    if serial:
-        fail("ptxas serialised the forward's wgmma products: "
-             + " | ".join(serial))
+    # in flight (warning C7515 and its kin): the flash kernels must not
+    # have it
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        serial = [line.strip() for line in logs[name].splitlines()
+                  if "wgmma" in line and "serializ" in line]
+        log(f"build: wgmma serialisation warnings in {name}: {len(serial)}")
+        if serial:
+            fail(f"ptxas serialised the wgmma products of {name}: "
+                 + " | ".join(serial))
 
     # -- 2. check -----------------------------------------------------------
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1531,8 +1668,19 @@ def main() -> int:
     bwd_errs = [check_flash_bwd(g, fa, c) for c in [
         (B * H_, S, S, 64, bf16, True),        # GPT-2 345M layer shape
         (B * H_, S, S, 128, bf16, True),
-        (B * H_, 1000, 1000, 64, bf16, True),  # key/query tails
+        (B * H_, 1000, 1000, 64, bf16, True),  # tails inside a 128 tile
+        (B * H_, 1088, 1088, 128, bf16, True),  # tails of 64 rows / keys
+        (16, 1088, 1088, 64, bf16, False),
+        (16, 1088, 1000, 64, bf16, True),      # sq > sk: rows with no key
+        (16, 320, 128, 128, bf16, True),
+        (16, 128, 384, 64, bf16, True),        # sq < sk
+        (BERT_B * BERT_HEADS, BERT_S, BERT_S, 64, bf16, False),
     ]]
+    # B*H across the seam where grid y once split the launches
+    bwd_errs.append(check_flash_bwd(g, fa, (FA_SEAM + 4465, 128, 128, 64,
+                                            bf16, True),
+                                    slices=(0, FA_SEAM - 1, FA_SEAM,
+                                            FA_SEAM + 4464)))
     dq_err = max(e[0] for e in bwd_errs)
     dkv_err = max(e[1] for e in bwd_errs)
     for c in [(4, 256, 256, 64, f32, True), (4, 200, 200, 128, f32, False),

@@ -1,7 +1,6 @@
 // Device helpers shared by the port's kernels: dtype conversion, warp
-// reductions, the bf16 tensor-core product mma.sync.m16n8k16, its operand
-// loads from shared memory (ldmatrix), and asynchronous (cp.async) tile
-// copies into shared memory.
+// reductions, the bf16 tensor-core product mma.sync.m16n8k16, and
+// asynchronous (cp.async) tile copies into shared memory.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA, "matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 and t = lane % 4:
@@ -22,9 +21,6 @@
 namespace pt {
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) {
@@ -58,12 +54,6 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two bf16 at p[0], p[stride] -> one register (for B read down a column)
-__device__ __forceinline__ uint32_t pack_col(const bf16* p, int stride) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-  return (uint32_t)u[0] | ((uint32_t)u[stride] << 16);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -100,50 +90,6 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                  "l"(g), "r"(ok ? 16 : 0));
   }
-}
-
-// As load_tile_async, with the column count `cols` (a multiple of 8) and
-// the destination row length `lds` given at run time.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_rows_async(bf16* dst, int lds,
-                                                const bf16* src, int row0,
-                                                int nrows, size_t ld,
-                                                int cols) {
-  const int vpr = cols / 8;
-  int r = threadIdx.x / vpr, c = threadIdx.x % vpr;
-  for (; r < ROWS;) {
-    const int row = row0 + r;
-    const bool ok = row < nrows;
-    const bf16* g = ok ? src + (size_t)row * ld + c * 8 : src;
-    const unsigned s =
-        (unsigned)__cvta_generic_to_shared(dst + r * lds + c * 8);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(g), "r"(ok ? 16 : 0));
-    c += NTHREADS;
-    while (c >= vpr) {
-      c -= vpr;
-      ++r;
-    }
-  }
-}
-
-// ldmatrix: four 8x8 bf16 matrices from shared memory, lane i giving the
-// address of row i % 8 of matrix i / 8 (16-byte aligned).  Register j holds
-// matrix j: without .trans, lane (g, t) gets row g, columns 2t..2t+1; with
-// .trans, rows 2t..2t+1 of column g.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
 }
 
 __device__ __forceinline__ void commit() {
@@ -296,6 +242,113 @@ inline bool bad_mask(const AttnMask& m, int bh, int sq, int sk, int tile) {
       return true;
   }
   return false;
+}
+
+// the key tiles of TK keys that the query tile [q0, q0 + TQ) needs (off =
+// sk - sq): under the end-aligned causal mask tile kb is needed iff kb TK
+// < q0 + TQ + off
+template <int TQ, int TK>
+__device__ __forceinline__ int kv_tiles(int q0, int sk, int off,
+                                        int causal) {
+  int n_kb = (sk + TK - 1) / TK;
+  if (causal) {
+    const int lim = q0 + TQ + off;
+    const int need = lim <= 0 ? 0 : (lim + TK - 1) / TK;
+    n_kb = need < n_kb ? need : n_kb;
+  }
+  return n_kb;
+}
+
+inline bool misaligned(const void* p) {
+  return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+}
+
+// The bf16 flash kernels' view of a mask: the bias by kind, and their
+// instantiations: no mask; one f32 bias row a slice and no segment ids
+// (BERT's padding bias, a bool padding mask); any other mask, read by kind
+// at run time.
+enum BiasKind { NO_BIAS, ROW_F32, ROW_BF16, FULL_F32, FULL_BF16 };
+enum MaskKind { MK_NONE, MK_ROW, MK_ANY };
+
+inline int bias_kind(const AttnMask& m) {
+  if (!m.bias) return NO_BIAS;
+  return m.sqb == 1 ? (m.bias_bf16 ? ROW_BF16 : ROW_F32)
+                    : (m.bias_bf16 ? FULL_BF16 : FULL_F32);
+}
+
+inline int mask_kind(const AttnMask& m) {
+  if (!m.bias && !m.qseg) return MK_NONE;
+  if (m.bias && !m.qseg && m.sqb == 1 && !m.bias_bf16) return MK_ROW;
+  return MK_ANY;
+}
+
+// A 128-key tile's mask as the producer stages it beside the keys (bulk
+// copies): a one-row bias's 128 values at 0, the key segment ids at
+// KSEG_AT.
+constexpr int MASK_BYTES = 1024;
+constexpr int KSEG_AT = 512;
+
+// The scores of a 128-key tile in a thread's fragment of a 64 x 128 wgmma
+// accumulator (s[4 jn + 2 hi + lo] at the thread's row hi and key k0 +
+// 8 jn + 2 tl + lo) in base-2 units with the mask applied: s * scale2 +
+// bias * log2(e), then -inf where the segment ids differ.  mt: the tile's
+// staged mask; qseg: the query segment ids of the thread's two rows;
+// bf_rows / bh_rows: a full bias's two rows (f32 / bf16).  MK_NONE leaves
+// s in its own units.
+template <int MK>
+__device__ __forceinline__ void mask_tile(
+    float (&s)[64], const unsigned char* mt, const AttnMask& m, int kind,
+    float scale2, int k0, int tl, const int (&qseg)[2],
+    const float* const (&bf_rows)[2], const bf16* const (&bh_rows)[2]) {
+  constexpr float log2e = 1.4426950408889634f;
+  if constexpr (MK == MK_ROW) {
+    // one FFMA a score
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      const float2 b2 =
+          *reinterpret_cast<const float2*>(mt + (8 * jn + 2 * tl) * 4);
+      const float b0 = b2.x * log2e, b1 = b2.y * log2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * jn + e] = fmaf(s[4 * jn + e], scale2, e & 1 ? b1 : b0);
+    }
+  } else if constexpr (MK == MK_ANY) {
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      const int kl = 8 * jn + 2 * tl;          // the pair's first key
+      float bias[2] = {0.f, 0.f};
+      int kseg[2] = {0, 0};
+      if (kind == ROW_F32) {
+        const float2 v2 = *reinterpret_cast<const float2*>(mt + kl * 4);
+        bias[0] = v2.x * log2e;
+        bias[1] = v2.y * log2e;
+      } else if (kind == ROW_BF16) {
+        const __nv_bfloat162 v2 =
+            *reinterpret_cast<const __nv_bfloat162*>(mt + kl * 2);
+        bias[0] = __low2float(v2) * log2e;
+        bias[1] = __high2float(v2) * log2e;
+      }
+      if (m.qseg) {
+        const int2 k2 = *reinterpret_cast<const int2*>(mt + KSEG_AT + kl * 4);
+        kseg[0] = k2.x;
+        kseg[1] = k2.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = e >> 1, lo = e & 1;
+        const int key = k0 + kl + lo;
+        float x = s[4 * jn + e] * scale2;
+        if (kind == FULL_F32)
+          x += bf_rows[hi][key] * log2e;
+        else if (kind == FULL_BF16)
+          x += __bfloat162float(bh_rows[hi][key]) * log2e;
+        else
+          x += bias[lo];
+        if (m.qseg && qseg[hi] != kseg[lo]) x = -CUDART_INF_F;
+        s[4 * jn + e] = x;
+      }
+    }
+  }
 }
 
 }  // namespace pt

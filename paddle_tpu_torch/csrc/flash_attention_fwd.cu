@@ -92,20 +92,6 @@ constexpr int BK = 64;    // f32: keys per tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// key tiles of TK keys that the query tile [q0, q0 + TQ) needs
-template <int TQ, int TK>
-__device__ __forceinline__ int kv_tiles(int q0, int sk, int off,
-                                        int causal) {
-  int n_kb = (sk + TK - 1) / TK;
-  if (causal) {
-    // end-aligned diagonal: tile kb is needed iff kb*TK < q0 + TQ + off
-    const int lim = q0 + TQ + off;
-    const int need = lim <= 0 ? 0 : (lim + TK - 1) / TK;
-    n_kb = need < n_kb ? need : n_kb;
-  }
-  return n_kb;
-}
-
 // ---------------------------------------------------------------------------
 // bf16: warp-specialised, TMA and wgmma
 // ---------------------------------------------------------------------------
@@ -114,8 +100,14 @@ constexpr int WQ = 128;          // query rows per work item
 constexpr int WK = 128;          // keys per tile
 constexpr int WT = 384;          // a producer and two consumer warpgroups
 constexpr int QBUF = 2;          // q buffers: the next item's q loads early
-constexpr int MASK_BYTES = 1024; // a stage's bias row (<= 512 B) and key ids
-constexpr int KSEG_AT = 512;     // the key segment ids' offset in it
+using pt::MASK_BYTES;            // a stage's bias row and key ids
+using pt::MK_ANY;
+using pt::MK_NONE;
+using pt::MK_ROW;
+using pt::ROW_BF16;
+using pt::ROW_F32;
+using pt::FULL_BF16;
+using pt::FULL_F32;
 
 template <int D>
 struct Cfg {
@@ -129,40 +121,15 @@ struct Cfg {
       (2 * QBUF + 4 * STAGES) * sizeof(uint64_t);
 };
 
-// the mask of a call as the wgmma kernel reads it
-enum BiasKind { NO_BIAS, ROW_F32, ROW_BF16, FULL_F32, FULL_BF16 };
-// the kernel's instantiations: no mask; one f32 bias row a slice and no
-// segment ids (BERT's padding bias, a bool padding mask); any other mask,
-// read by the kinds above
-enum MaskKind { MK_NONE, MK_ROW, MK_ANY };
-
 struct FwdArgs {
   float* lse;
   pt::AttnMask mask;
-  int bias_kind;     // BiasKind
+  int bias_kind;     // pt::BiasKind
   int bh, sq, sk, causal;
   int n_qt;          // query tiles of WQ rows a slice
   int items;         // bh * n_qt
   float scale2;      // scale * log2(e)
 };
-
-// Work item i: slice bh = i / n_qt, and in a slice the query tiles
-// paired heaviest with lightest, n_qt - 1, 0, n_qt - 2, 1, ...  A block
-// takes two consecutive items at a time (block b the pairs b, b + grid,
-// ...), so under the causal mask every pair costs the same n_qt + 1 key
-// tiles, and the blocks walk the slices together: the k and v of the few
-// dozen slices in flight stay in L2.
-__device__ __forceinline__ void decode(const FwdArgs& a, int i, int& bh,
-                                       int& qt) {
-  bh = i / a.n_qt;
-  const int r = i - bh * a.n_qt;
-  qt = r & 1 ? r >> 1 : a.n_qt - 1 - (r >> 1);
-}
-
-// the item after i in block blockIdx.x's walk
-__device__ __forceinline__ int next_item(int i) {
-  return i & 1 ? i + 2 * gridDim.x - 1 : i + 1;
-}
 
 template <int D, int MK>
 __global__ void __launch_bounds__(WT, 1)
@@ -210,11 +177,11 @@ __global__ void __launch_bounds__(WT, 1)
     if (threadIdx.x != 0) return;
     const int es = a.bias_kind == ROW_F32 ? 4 : 2;
     int kc = 0, it = 0;
-    for (int i = 2 * blockIdx.x; i < a.items; i = next_item(i), ++it) {
+    for (int i = 2 * blockIdx.x; i < a.items; i = sm::walk_next(i), ++it) {
       int bh, qt;
-      decode(a, i, bh, qt);
+      sm::walk_item(i, a.n_qt, true, bh, qt);
       const int q0 = qt * WQ;
-      const int n_kb = kv_tiles<WQ, WK>(q0, a.sk, off, a.causal);
+      const int n_kb = pt::kv_tiles<WQ, WK>(q0, a.sk, off, a.causal);
       const int b = it % QBUF;
       sm::mbar_wait(&q_empty[b], ((it / QBUF) & 1) ^ 1);
       sm::mbar_expect_tx(&q_full[b], C::Q_BYTES);
@@ -246,8 +213,8 @@ __global__ void __launch_bounds__(WT, 1)
           sm::bulk_load(ms + s * MASK_BYTES, brow + (size_t)kb * WK * es,
                         WK * es, &k_full[s]);
         if (kseg)
-          sm::bulk_load(ms + s * MASK_BYTES + KSEG_AT, kseg + kb * WK, WK * 4,
-                        &k_full[s]);
+          sm::bulk_load(ms + s * MASK_BYTES + pt::KSEG_AT, kseg + kb * WK,
+                        WK * 4, &k_full[s]);
         sm::mbar_wait(&v_empty[s], ph);
         sm::mbar_expect_tx(&v_full[s], C::KV_BYTES);
 #pragma unroll
@@ -290,11 +257,11 @@ __global__ void __launch_bounds__(WT, 1)
     }
     pending = -1;
   };
-  for (int i = 2 * blockIdx.x; i < a.items; i = next_item(i), ++it) {
+  for (int i = 2 * blockIdx.x; i < a.items; i = sm::walk_next(i), ++it) {
     int bh, qt;
-    decode(a, i, bh, qt);
+    sm::walk_item(i, a.n_qt, true, bh, qt);
     const int q0 = qt * WQ;
-    const int n_kb = kv_tiles<WQ, WK>(q0, a.sk, off, a.causal);
+    const int n_kb = pt::kv_tiles<WQ, WK>(q0, a.sk, off, a.causal);
     const int b = it % QBUF;
     const int row[2] = {q0 + r0, q0 + r0 + 8};
     // the first row of this warpgroup sees keys up to q0 + cw * 64 + off
@@ -361,57 +328,8 @@ __global__ void __launch_bounds__(WT, 1)
     // that code.
     auto softmax = [&](auto edge, int j, int st) {
       const int k0 = j * WK;
-      if constexpr (MK == MK_ROW) {
-        const unsigned char* mt = ms + st * MASK_BYTES;
-        // x = s * scale2 + bias * log2e: one FFMA a score
-#pragma unroll
-        for (int jn = 0; jn < WK / 8; ++jn) {
-          const float2 b2 =
-              *reinterpret_cast<const float2*>(mt + (8 * jn + 2 * tl) * 4);
-          const float b0 = b2.x * LOG2E, b1 = b2.y * LOG2E;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[4 * jn + e] = fmaf(s[4 * jn + e], a.scale2, e & 1 ? b1 : b0);
-        }
-      } else if constexpr (MK == MK_ANY) {
-        const unsigned char* mt = ms + st * MASK_BYTES;
-#pragma unroll
-        for (int jn = 0; jn < WK / 8; ++jn) {
-          const int kl = 8 * jn + 2 * tl;          // the pair's first key
-          float bias[2] = {0.f, 0.f};
-          int kseg[2] = {0, 0};
-          if (a.bias_kind == ROW_F32) {
-            const float2 v2 = *reinterpret_cast<const float2*>(mt + kl * 4);
-            bias[0] = v2.x * LOG2E;
-            bias[1] = v2.y * LOG2E;
-          } else if (a.bias_kind == ROW_BF16) {
-            const __nv_bfloat162 v2 =
-                *reinterpret_cast<const __nv_bfloat162*>(mt + kl * 2);
-            bias[0] = __low2float(v2) * LOG2E;
-            bias[1] = __high2float(v2) * LOG2E;
-          }
-          if (a.mask.qseg) {
-            const int2 k2 =
-                *reinterpret_cast<const int2*>(mt + KSEG_AT + kl * 4);
-            kseg[0] = k2.x;
-            kseg[1] = k2.y;
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hi = e >> 1, lo = e & 1;
-            const int key = k0 + kl + lo;
-            float x = s[4 * jn + e] * a.scale2;
-            if (a.bias_kind == FULL_F32)
-              x += bf_rows[hi][key] * LOG2E;
-            else if (a.bias_kind == FULL_BF16)
-              x += __bfloat162float(bh_rows[hi][key]) * LOG2E;
-            else
-              x += bias[lo];
-            if (a.mask.qseg && qseg[hi] != kseg[lo]) x = -CUDART_INF_F;
-            s[4 * jn + e] = x;
-          }
-        }
-      }
+      pt::mask_tile<MK>(s, ms + st * MASK_BYTES, a.mask, a.bias_kind,
+                        a.scale2, k0, tl, qseg, bf_rows, bh_rows);
       // without a mask s stays in its own units (-inf is -inf in both)
       if constexpr (decltype(edge)::value) {
         // row hi sees the keys below min(sk, row + off + 1): counted from
@@ -462,17 +380,8 @@ __global__ void __launch_bounds__(WT, 1)
                 pt::group_sum<4>((rs[hi][0] + rs[hi][1]) +
                                  (rs[hi][2] + rs[hi][3]));
     };
-    // p in bf16 is the A operand of O += p . v, k16 step kk from the n8
-    // blocks 2kk and 2kk + 1
-    auto pack = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk) {
-        pa[kk][0] = pt::pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pt::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pt::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pt::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
-    };
+    // p in bf16 is the A operand of O += p . v
+    auto pack = [&]() { sm::pack_a<WK>(pa, s); };
     auto rescale = [&]() {
 #pragma unroll
       for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
@@ -576,26 +485,19 @@ __global__ void __launch_bounds__(WT, 1)
     release_q();
 
     // epilogue: O / l in bf16 into this warpgroup's 64 rows of the q
-    // buffer, in the 128-byte swizzle of the output's map (box c holds
-    // columns 64c..64c+63: the 16-byte chunk jn % 8 of row tr sits at
-    // chunk (jn % 8) ^ (tr % 8)), then one TMA store per 64 columns, which
-    // drops rows past Sq
+    // buffer (box c holds columns 64c..64c+63), then one TMA store per 64
+    // columns, which drops rows past Sq
     unsigned char* ob = qs + b * C::Q_BYTES;
+    float inv[2];
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const int tr = r0 + 8 * hi;
       const bool any = l[hi] > 0.f;
-      const float inv = any ? 1.f / l[hi] : 0.f;
-#pragma unroll
-      for (int jn = 0; jn < D / 8; ++jn)
-        *reinterpret_cast<uint32_t*>(ob + (jn / 8) * C::QBOX + tr * 128 +
-                                     (((jn % 8) ^ (tr % 8)) * 16) + tl * 4) =
-            pt::pack_bf16(o[4 * jn + 2 * hi] * inv,
-                          o[4 * jn + 2 * hi + 1] * inv);
+      inv[hi] = any ? 1.f / l[hi] : 0.f;
       if (tl == 0 && row[hi] < a.sq)
         a.lse[(size_t)bh * a.sq + row[hi]] =
             any ? (m[hi] + log2f(l[hi])) * LN2 : -CUDART_INF_F;
     }
+    sm::stage_rows<D>(ob, C::QBOX, o, inv, r0, tl);
     sm::fence_proxy_async();
     sm::named_barrier(1 + cw, 128);
     if (t == 0) {
@@ -632,12 +534,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  int kind = NO_BIAS;
-  if (mask.bias)
-    kind = mask.sqb == 1 ? (mask.bias_bf16 ? ROW_BF16 : ROW_F32)
-                         : (mask.bias_bf16 ? FULL_BF16 : FULL_F32);
-  const FwdArgs a{lse, mask, kind, bh, sq, sk, causal, n_qt, (int)items,
-                  scale * LOG2E};
+  const FwdArgs a{lse,  mask,  pt::bias_kind(mask), bh, sq, sk, causal,
+                  n_qt, (int)items, scale * LOG2E};
   const void* fn = (const void*)fa_fwd_wgmma_kernel<D, MK>;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM);
@@ -701,7 +599,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
     for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kb = kv_tiles<BQ, BK>(q0, sk, off, causal);
+  const int n_kb = pt::kv_tiles<BQ, BK>(q0, sk, off, causal);
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();                    // previous tile fully consumed
@@ -815,23 +713,22 @@ cudaError_t launch_d(bool bf, const void* q, const void* k, const void* v,
                      cudaStream_t stream) {
   const bool masked = mask.bias || mask.qseg;
   if (bf) {
-    if (!masked)
-      return launch_wgmma<D, MK_NONE>(q, k, v, o, lse, mask, bh, sq, sk,
-                                      causal, scale, stream);
-    if (mask.bias && !mask.qseg && mask.sqb == 1 && !mask.bias_bf16)
-      return launch_wgmma<D, MK_ROW>(q, k, v, o, lse, mask, bh, sq, sk,
-                                     causal, scale, stream);
-    return launch_wgmma<D, MK_ANY>(q, k, v, o, lse, mask, bh, sq, sk, causal,
-                                   scale, stream);
+    switch (pt::mask_kind(mask)) {
+      case MK_NONE:
+        return launch_wgmma<D, MK_NONE>(q, k, v, o, lse, mask, bh, sq, sk,
+                                        causal, scale, stream);
+      case MK_ROW:
+        return launch_wgmma<D, MK_ROW>(q, k, v, o, lse, mask, bh, sq, sk,
+                                       causal, scale, stream);
+      default:
+        return launch_wgmma<D, MK_ANY>(q, k, v, o, lse, mask, bh, sq, sk,
+                                       causal, scale, stream);
+    }
   }
   return masked ? launch_fma<D, true>(q, k, v, o, lse, mask, bh, sq, sk,
                                       causal, scale, stream)
                 : launch_fma<D, false>(q, k, v, o, lse, mask, bh, sq, sk,
                                        causal, scale, stream);
-}
-
-bool misaligned(const void* p) {
-  return p != nullptr && (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
 }  // namespace
@@ -853,13 +750,13 @@ extern "C" int pt_flash_attention_fwd(const void* q, const void* k,
   const int chunk = pt::slice_chunk(mask);
   if (bh <= 0 || sq <= 0 || sk <= 0 || (dtype != 0 && dtype != 1) ||
       (d != 64 && d != 128) || chunk <= 0 ||
-      pt::bad_mask(mask, bh, sq, sk, WQ) || misaligned(q) || misaligned(k) ||
-      misaligned(v) || misaligned(o))
+      pt::bad_mask(mask, bh, sq, sk, WQ) || pt::misaligned(q) ||
+      pt::misaligned(k) || pt::misaligned(v) || pt::misaligned(o))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     // the persistent kernel walks any B*H in one launch
-    if (misaligned(bias) || misaligned(qseg) || misaligned(kseg))
+    if (pt::misaligned(bias) || pt::misaligned(qseg) || pt::misaligned(kseg))
       return (int)cudaErrorInvalidValue;
     return d == 64 ? launch_d<64>(true, q, k, v, o, lse, mask, bh, sq, sk,
                                   causal, scale, s)

@@ -2,9 +2,14 @@
 // TMA tile loads that complete on them (2-D and 3-D tensor maps, and plain
 // bulk copies) and TMA tile stores, a named barrier, the warpgroup products
 // wgmma.mma_async (bf16 in, f32 accumulate) m64n256k16 on shared-memory
-// tiles, m64n128k16 with A in shared memory and m64n64k16 / m64n128k16
-// with A in registers, their operand descriptors for tiles in the 128-byte
-// swizzle, and the host's encoding of 2-D and 3-D bf16 tensor maps.
+// tiles, m64n64k16 / m64n128k16 with A in shared memory or in registers,
+// their operand descriptors for tiles in the 128-byte swizzle, the
+// accumulator's repacking as an A operand (pack_a) and its staging for a
+// TMA store (stage_rows), the persistent walk of the flash kernels
+// (walk_item, walk_next), and the
+// host's encoding of 2-D and 3-D bf16 tensor maps.  Users: the fused CE
+// backward (csrc/fused_ce_bwd.cu), the flash forward and backward
+// (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu).
 //
 // Tile layout.  Every operand tile is made of TMA boxes whose inner
 // extent is 64 bf16 (128 bytes, one swizzle span), stored as 128-byte
@@ -37,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "common.cuh"              // pt::pack_bf16
 
 namespace pt {
 namespace sm90 {
@@ -310,6 +317,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                  uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                    const uint32_t (&a)[4],
@@ -370,6 +402,64 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// The f32 accumulator (64 x K) of one product, in bf16, as the A operand
+// of the next (A from registers): k16 step kk from the n8 blocks 2kk and
+// 2kk + 1
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K / 16][4],
+                                       const float (&c)[K / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    a[kk][0] = pt::pack_bf16(c[8 * kk], c[8 * kk + 1]);
+    a[kk][1] = pt::pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pt::pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pt::pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// The thread's rows tr and tr + 8 of a 64 x D accumulator, row hi times
+// mul[hi], in bf16 into a 128-row tile of 64-column boxes `box` bytes
+// apart, in the 128-byte swizzle of an output map (the 16-byte chunk
+// jn % 8 of row r sits at chunk (jn % 8) ^ (r % 8)), for a TMA store
+template <int D>
+__device__ __forceinline__ void stage_rows(unsigned char* buf, int box,
+                                           const float (&acc)[D / 2],
+                                           const float (&mul)[2], int tr,
+                                           int tl) {
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = tr + 8 * hi;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+      *reinterpret_cast<uint32_t*>(buf + (jn / 8) * box + r * 128 +
+                                   (((jn % 8) ^ (r % 8)) * 16) + tl * 4) =
+          pt::pack_bf16(acc[4 * jn + 2 * hi] * mul[hi],
+                        acc[4 * jn + 2 * hi + 1] * mul[hi]);
+  }
+}
+
+// The persistent walk of the flash kernels over work items (slice, tile),
+// n tiles a slice.  Item i is slice i / n and, in the slice, the tiles
+// paired heaviest with lightest: heavy_last (query tiles under the causal
+// mask, which see the most keys last) gives n - 1, 0, n - 2, 1, ...;
+// otherwise (key tiles, which the most queries see first) 0, n - 1, 1,
+// n - 2, ...  Block b takes two consecutive items at a time (the pairs b,
+// b + grid, ...), so under the causal mask every pair costs about the
+// same, and the blocks walk the slices together, which keeps the operands
+// of the few dozen slices in flight in L2.
+__device__ __forceinline__ void walk_item(int i, int n, bool heavy_last,
+                                          int& bh, int& tile) {
+  bh = i / n;
+  const int r = i - bh * n;
+  const bool heavy = (r & 1) == 0;
+  tile = heavy == heavy_last ? n - 1 - (r >> 1) : r >> 1;
+}
+
+// the item after i in block blockIdx.x's walk
+__device__ __forceinline__ int walk_next(int i) {
+  return i & 1 ? i + 2 * gridDim.x - 1 : i + 1;
 }
 
 // ---------------------------------------------------------------------------

@@ -346,8 +346,9 @@ def _mask_args(mask: Optional[Mask], qt, sq: int, sk: int):
                 or tuple(mask.kv_seg.shape) != (b, sk)):
             raise ValueError(f"flash_attention: segment ids must be int32 "
                              f"({b}, {sq}) and ({b}, {sk})")
-    # the bf16 forward copies bias rows and key ids into shared memory in
-    # 16-byte units: a view that starts off that grain rides as a copy
+    # the bf16 forward and dq kernels copy bias rows and key ids into
+    # shared memory in 16-byte units: a view that starts off that grain
+    # rides as a copy
     return tuple(t if t is None or t.data_ptr() % 16 == 0 else t.clone()
                  for _, t in named), ints
 

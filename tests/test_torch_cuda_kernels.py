@@ -105,10 +105,15 @@ def _close_grad(a, b, tol):
     assert float(((a - b).abs() / (b.abs() + rms)).max()) <= tol
 
 
+# the bf16 kernels' edges: sequences ending inside a 128 tile (1000) and 64
+# rows into one (1088), at D = 64 and 128, sq > sk (rows with no key), sq <
+# sk; every case also holds two calls bitwise equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk,d,causal", [
     (256, 256, 64, True), (200, 200, 128, True), (128, 384, 64, True),
-    (300, 300, 64, False), (256, 256, 128, False), (256, 128, 64, True)])
+    (300, 300, 64, False), (256, 256, 128, False), (256, 128, 64, True),
+    (1000, 1000, 64, True), (1088, 1088, 64, True), (1088, 1000, 64, True),
+    (1000, 1000, 128, True), (1088, 1088, 128, False), (320, 128, 128, True)])
 def test_flash_bwd_kernels_match_plain(gen, dtype, sq, sk, d, causal):
     qt = _rand(gen, (6, sq, d), dtype)
     kt, vt = _rand(gen, (6, sk, d), dtype), _rand(gen, (6, sk, d), dtype)
@@ -117,11 +122,14 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, sq, sk, d, causal):
     ot, lse = fa.flash_attention_reference(qt, kt, vt, scale, causal)
     before = (fa.launches_dq, fa.launches_dkv)
     got = fa._launch_bwd(qt, kt, vt, ot, lse, dot, scale, causal)
+    again = fa._launch_bwd(qt, kt, vt, ot, lse, dot, scale, causal)
     want = fa.flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot, scale,
                                             causal)
     torch.cuda.synchronize()
-    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 1,
-                                                 before[1] + 1)
+    assert (fa.launches_dq, fa.launches_dkv) == (before[0] + 2,
+                                                 before[1] + 2)
+    for a, b in zip(got[:3], again[:3]):
+        assert torch.equal(a, b)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         if dtype == torch.bfloat16:
@@ -190,7 +198,10 @@ _MASKED = [((1, 1, 1, 256), torch.float32, False, False, 256, 256, 64),
            ((1, 3, 256, 256), torch.bfloat16, True, False, 256, 256, 128),
            ((2, 1, 1, 384), torch.float32, False, True, 384, 384, 64),
            ((2, 3, 384, 128), torch.bfloat16, False, True, 384, 128, 64),
-           ((2, 1, 1, 128), torch.float32, False, True, 256, 128, 128)]
+           ((2, 1, 1, 128), torch.float32, False, True, 256, 128, 128),
+           ((2, 1, 1, 512), torch.float32, False, True, 512, 512, 128),
+           ((2, 1, 1, 128), torch.float32, False, False, 128, 128, 64),
+           ((2, 3, 128, 384), torch.bfloat16, False, True, 128, 384, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -209,14 +220,18 @@ def test_masked_flash_kernels_match_plain(gen, dtype, bias_shape, bias_dtype,
                                                 mask)
     got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, 0.125, causal, mask,
                          dbias=mask.bias is not None)
+    again_bwd = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, 0.125, causal,
+                               mask)
     want = fa._bwd_reference(qt, kt, vt, out_p, lse_p, dot, 0.125, causal,
                              mask, dbias=mask.bias is not None)
     torch.cuda.synchronize()
     has_bias = int(mask.bias is not None)
     assert (fa.launches_masked, fa.launches_dq_masked,
             fa.launches_dkv_masked, fa.launches_dbias) == (
-        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + has_bias)
+        before[0] + 2, before[1] + 2, before[2] + 2, before[3] + has_bias)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for a, b in zip(got[:3], again_bwd[:3]):
+        assert torch.equal(a, b)
     _close(out, out_p, 2e-2 if bf16 else 1e-4)
     _close(lse, lse_p, 1e-3 if bf16 else 1e-4)
     for g, w in zip(got[:3], want[:3]):

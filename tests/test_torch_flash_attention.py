@@ -374,6 +374,72 @@ def test_bf16_forward_measure_passes_rounding_control(kind):
     assert _grad_err(ctl.bfloat16(), want) < cs.TOL_FWD_BF16 / 2
 
 
+# The card check's measure of the bf16 backward (chip_smoke.py): each
+# fault chip_smoke.flash_bwd_faults plants (a key tile skipped by dq, a
+# query tile skipped by dk/dv, 8 columns of do read from the wrong place by
+# dv, the tail's lse / delta read from the next slice, the causal edge
+# moved by one key) must read far above TOL_GRAD_BF16, and the plain
+# version with p and ds left in f32 (the rounding control) below it: at
+# GPT-2 345M's layer (two slices), at a sequence tail, at D = 128, with
+# rows that see no key (sq > sk) and at BERT-base's padded layer.
+def _bwd_case(kind):
+    rng = np.random.default_rng(13)
+    mask = None
+    if kind == "bert_padding":
+        b, h, sq, sk, d, causal = 2, 12, 128, 128, 64, False
+        lens = np.array([100, 71])
+        keep = torch.from_numpy(np.arange(sk)[None] < lens[:, None])
+        mask = tfa.Mask(torch.where(keep, 0.0, -1e30)[:, None, None, :],
+                        None, None, h)
+        bh = b * h
+    else:
+        sq, sk, d = {"gpt": (1024, 1024, 64), "tail": (1000, 1000, 64),
+                     "d128": (1024, 1024, 128),
+                     "sq_gt_sk": (1088, 1000, 64)}[kind]
+        bh, causal = 2, True
+    qt, dot = (torch.from_numpy(rng.standard_normal(
+        (bh, sq, d)).astype(np.float32)).bfloat16() for _ in range(2))
+    kt, vt = (torch.from_numpy(rng.standard_normal(
+        (bh, sk, d)).astype(np.float32)).bfloat16() for _ in range(2))
+    scale = 1.0 / np.sqrt(d)
+    ot, lse = tfa.flash_attention_reference(qt, kt, vt, scale, causal, mask)
+    want = tfa.flash_attention_bwd_reference(qt, kt, vt, ot, lse, dot, scale,
+                                             causal, mask)
+    return qt, kt, vt, ot, lse, dot, scale, causal, mask, want
+
+
+_BWD_KINDS = ["gpt", "tail", "d128", "sq_gt_sk", "bert_padding"]
+
+
+@pytest.mark.parametrize("kind", _BWD_KINDS)
+def test_bf16_backward_measure_flags_faults(kind):
+    cs = _chip_smoke()
+    qt, kt, vt, ot, lse, dot, scale, causal, mask, want = _bwd_case(kind)
+    faults = cs.flash_bwd_faults(tfa, qt, kt, vt, ot, lse, dot, scale,
+                                 causal, mask)
+    assert len(faults) == (5 if causal else 4)
+    for name, bad in faults:
+        for b, w in zip(bad, want):
+            assert b.dtype == w.dtype and b.shape == w.shape
+        assert max(_grad_err(b, w) for b, w in zip(bad, want)) > \
+            3 * cs.TOL_GRAD_BF16, name
+    # the card check's own reading of them
+    assert min(r for _, r in cs.bwd_faults_err(
+        tfa, want, qt, kt, vt, ot, lse, dot, scale, causal, mask)) > \
+        cs.TOL_GRAD_BF16
+
+
+@pytest.mark.parametrize("kind", _BWD_KINDS)
+def test_bf16_backward_measure_passes_rounding_control(kind):
+    cs = _chip_smoke()
+    qt, kt, vt, ot, lse, dot, scale, causal, mask, want = _bwd_case(kind)
+    ctl = tfa.flash_attention_bwd_reference(
+        *(t.float() for t in (qt, kt, vt, ot)), lse, dot.float(), scale,
+        causal, mask)
+    for c, w in zip(ctl, want):
+        assert _grad_err(c.bfloat16(), w) < cs.TOL_GRAD_BF16 / 2
+
+
 def test_other_devices_raise():
     q = torch.empty(1, 128, 2, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
