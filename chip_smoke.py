@@ -7,8 +7,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
 
 1. build   — compile every CUDA kernel of the path from paddle_tpu_torch/csrc
              (one nvcc per source, all started together); fail if ptxas
-             serialised the wgmma products of the flash forward or
-             backward.
+             serialised the wgmma products of any wgmma kernel (flash
+             forward, backward and dbias, fused CE forward and backward).
 2. check   — hold each kernel against its plain PyTorch version on the card,
              at the shapes GPT-2 345M gives it and at tail shapes; the bf16
              flash forward and backward also by a relative measure beside
@@ -18,8 +18,10 @@ Phases, in order; any failure ends the script with a non-zero exit:
              D = 128) and past B*H = 65,535; the masked flash kernels at
              BERT-base's layer with its padding bias (past B*H = 65,535
              too), in every bias class, with segment ids and with rows that
-             see no key; the dbias kernel beside the faults dbias_faults
-             plants;
+             see no key; the dbias kernel (two calls bitwise equal, splits
+             whose last run is short) beside the faults dbias_faults
+             plants; the fused CE forward (two calls bitwise equal, token
+             and vocabulary tails) beside the faults ce_fwd_faults plants;
              the fused CE backward in vocabulary chunks (two calls bitwise
              equal) beside the faults ce_bwd_faults plants; a small GPT on
              the card against the same model on the CPU:
@@ -138,6 +140,7 @@ TOL_GRAD_BF16 = 0.1
 # planted fault on each run and fails if one is not above this.
 TOL_CE_GRAD_BF16 = 0.03
 CE_BM, CE_BN, CE_BK = 128, 256, 64   # fused_ce_bwd's output tile and K-step
+CE_FWD_BN = 256                # fused_ce_fwd's vocabulary tile (bf16)
 # P's scratch at the tail shape (300 tokens): 256-row chunks, so V = 1000
 # runs in four chunks, the last one short
 CE_TAIL_BUDGET = 2 * 300 * 256
@@ -148,7 +151,6 @@ CE_TAIL_BUDGET = 2 * 300 * 256
 # check reads every planted fault on each run and fails if one is not
 # above this.
 TOL_DBIAS_BF16 = 0.05
-DBIAS_TILE = 64                # a dbias block's query rows and keys
 TOL_MOVE = 1e-2                # an AdamW move, relative to the move itself
 TOL_ADAM_MOMENT = 1e-6         # fused Adam m', v': the same f32 arithmetic
 TOL_ADAM_MOVE = 1e-3           # fused Adam p' - p, relative to that move
@@ -554,41 +556,192 @@ def check_small_train(GPT, gpt_loss, small, ids, TrainStep, AdamW):
     return err, move_err
 
 
+def _heaviest_tile(x, tq, tk, tiles=None):
+    """(row slice, key slice) of the tq x tk tile of the 2-D x with the
+    largest sum of |x|, among ``tiles`` ((row, key) corners) when given."""
+    rows, keys = x.shape
+    tq = min(tq, rows)
+    if tiles is None:
+        tiles = [(r, c) for r in range(0, rows, tq)
+                 for c in range(0, keys, tk)]
+    mass = [float(x[r:r + tq, c:c + tk].abs().sum()) for r, c in tiles]
+    r, c = tiles[mass.index(max(mass))]
+    return slice(r, r + tq), slice(c, c + tk)
+
+
 def dbias_faults(fa, qt, kt, vt, ot, lse, dot, scale, causal, mask):
     """What a faulty dbias kernel would return, as a list of (name, dbias
-    in the bias's dtype): the plain version's ds with one fault planted.  A
-    block skips the last term of its reduction (the last reduced (b, h)
-    slice; when the bias has one query row, only that slice's last 64-row
-    query tile), or leaves its 64-key output tile unwritten.  Dropping one
-    of many reduced terms is the smallest fault: one of 128 batch terms in
-    the learned-bias encoder.  The measure must read each above its
-    limit."""
+    in the bias's dtype): the plain version's ds with one fault of the
+    split design planted, at the bf16 kernel's tile (fa.DBIAS_TILES) and
+    splits (fa.dbias_plan).  A block skips the last term of its run (the
+    last reduced (b, h) slice; when the bias has one query row, only that
+    slice's last query tile), or leaves an output tile unwritten; with
+    more than one split, the ordered pass drops the middle split; with
+    more than one bias slice, a tile of the middle slice reads the next
+    slice's bias; under the causal mask a tile that crosses the diagonal
+    is skipped.  Each tile fault takes the tile of its kind that the
+    masks leave the most gradient in.  Dropping one of many reduced terms
+    is the smallest fault: one of 128 batch terms in the learned-bias
+    encoder.  The measure must read each above its limit."""
+    import torch
+    bh, sq, d = qt.shape
+    sk = kt.shape[1]
+    tq, tk = fa.DBIAS_TILES[d]
+    n_r, _, per, n_split = fa.dbias_plan(mask, bh, sq, sk, d)
     _, ds = fa._p_ds(qt, kt, vt, ot, lse, dot, scale, causal, mask)
-    bb, hb, sqb, sk = mask.bias.shape
-    skip = ds.view(-1, mask.heads, ds.shape[1], sk).clone()
+    bb, hb, sqb, _ = mask.bias.shape
+    h, n_g = mask.heads, bb * hb
+    good = fa._reduce_dbias(ds, mask)
+    out = []
+    skip = ds.view(-1, h, sq, sk).clone()
     skip[-1 if bb == 1 else slice(None), -1 if hb == 1 else slice(None),
-         slice(-DBIAS_TILE, None) if sqb == 1 else slice(None)] = 0
-    unwritten = fa._reduce_dbias(ds, mask)
-    unwritten.view(-1, sqb, sk)[0, :DBIAS_TILE, :DBIAS_TILE] = 0
-    return [("skips the last reduced term",
-             fa._reduce_dbias(skip.view_as(ds), mask)),
-            ("leaves a 64-key output tile unwritten", unwritten)]
+         slice(-tq, None) if sqb == 1 else slice(None)] = 0
+    out.append(("skips the last reduced term",
+                fa._reduce_dbias(skip.view_as(ds), mask)))
+    unwritten = good.clone()
+    flat = unwritten.view(-1, sqb, sk)
+    flat[0][_heaviest_tile(flat[0].float(), tq, tk)] = 0
+    out.append((f"leaves a {tq}x{tk} output tile unwritten", unwritten))
+    if n_split > 1:
+        # the folded slices of the middle split's run of r
+        m = n_split // 2
+        r = torch.arange(bh, device=ds.device)
+        r = r if bb == 1 and hb == 1 else r // h if bb == 1 else r % h
+        drop = ds.clone()
+        drop[(r >= m * per) & (r < min(n_r, (m + 1) * per))] = 0
+        out.append((f"drops split {m} of {n_split} from the ordered pass",
+                    fa._reduce_dbias(drop, mask)))
+    if n_g > 1:
+        g0 = n_g // 2
+        wrong = mask.bias.clone()
+        wrong.view(-1, sqb, sk)[g0] = mask.bias.view(-1, sqb, sk)[
+            (g0 + 1) % n_g]
+        _, ds_w = fa._p_ds(qt, kt, vt, ot, lse, dot, scale, causal,
+                           mask._replace(bias=wrong))
+        bad_g = fa._reduce_dbias(ds_w, mask).view(-1, sqb, sk)[g0]
+        good_g = good.view(-1, sqb, sk)[g0]
+        tile = _heaviest_tile(bad_g.float() - good_g.float(), tq, tk)
+        bad = good.clone()
+        bad.view(-1, sqb, sk)[g0][tile] = bad_g[tile]
+        out.append(("a tile reads the next bias slice", bad))
+    if causal:
+        # the (query tile, key tile) pairs with keys on both sides of the
+        # end-aligned diagonal
+        off = sk - sq
+        cross = [(q0, k0) for q0 in range(0, sq, tq)
+                 for k0 in range(0, sk, tk)
+                 if k0 <= q0 + tq - 1 + off and k0 + tk - 1 > q0 + off]
+        rows, keys = _heaviest_tile(ds.abs().sum(0), tq, tk, cross)
+        diag = ds.clone()
+        diag[:, rows, keys] = 0
+        out.append(("skips a causal diagonal tile",
+                    fa._reduce_dbias(diag, mask)))
+    return out
+
+
+def ce_peak_tile(v):
+    """The vocabulary tile of CE_FWD_BN rows that ce_fwd_inputs fills with
+    every row's largest logits: the middle one."""
+    return -(-v // CE_FWD_BN) // 2
+
+
+def ce_fwd_inputs(g, n, hd, v, dtype):
+    """h (n, hd) and W (v, hd) whose logits put each fault ce_fwd_faults
+    plants where it shows (random logits hide them: a tile is 256 of
+    50,304 columns).  Every row's largest logit lies in the middle
+    vocabulary tile: row i carries a code c_(i mod 256), W's row j of that
+    tile 0.02 c_j, so the logit is about 0.02 |c|^2 = 20, and the rows'
+    logz differ by about 1.  Every fifth row is -64 u against a component
+    0.5 u of every W row (u a unit vector): its logits lie near -32, so the
+    columns past V, which read zeros and score 0 unless masked, would
+    dominate its sum."""
+    import torch
+    dev = g.device
+    u = torch.randn(hd, generator=g, device=dev)
+    u = u / u.norm()
+    code = torch.randn(CE_FWD_BN, hd, generator=g, device=dev)
+    rows = torch.arange(n, device=dev)
+    h = torch.randn(n, hd, generator=g, device=dev) + code[rows % CE_FWD_BN]
+    h[rows % 5 == 4] = -64.0 * u
+    w = 0.02 * torch.randn(v, hd, generator=g, device=dev) + 0.5 * u
+    v0 = ce_peak_tile(v) * CE_FWD_BN
+    v1 = min(v, v0 + CE_FWD_BN)
+    w[v0:v1] += 0.02 * code[:v1 - v0]
+    return h.to(dtype), w.to(dtype)
+
+
+def ce_fwd_faults(h, w):
+    """What a faulty bf16 logz kernel would return, as a list of (name,
+    logz): the plain version with one fault of the tiled design planted.
+    In the middle 128-token tile, its 128 x 256 tile of the middle
+    vocabulary tile misses the middle 64-column K-slice; the columns past
+    V (which read zeros) score 0 instead of -inf; the merge drops the
+    middle vocabulary tile; where N is not a multiple of 128, the rows of
+    the last token tile read the next row (the last one, past N, zeros).
+    The measure must read each above TOL_LSE."""
+    import torch
+    hf, wf = h.float(), w.float()
+    (n, hd), v = h.shape, w.shape[0]
+    s = hf @ wf.T
+    logz = torch.logsumexp(s, -1)
+    v0 = ce_peak_tile(v) * CE_FWD_BN
+    v1 = min(v, v0 + CE_FWD_BN)
+    tn = -(-n // CE_BM) // 2 * CE_BM            # the middle token tile
+    rows = slice(tn, min(n, tn + CE_BM))
+    k0 = hd // CE_BK // 2 * CE_BK
+    sk = s[rows].clone()
+    sk[:, v0:v1] -= hf[rows, k0:k0 + CE_BK] @ wf[v0:v1, k0:k0 + CE_BK].T
+    bad = logz.clone()
+    bad[rows] = torch.logsumexp(sk, -1)
+    out = [("a tile misses a K-slice", bad)]
+    pad = -(-v // CE_FWD_BN) * CE_FWD_BN - v
+    if pad:
+        out.append(("columns past V unmasked", torch.logaddexp(
+            logz, torch.full_like(logz, math.log(pad)))))
+    out.append(("the merge drops a vocabulary tile", torch.logaddexp(
+        torch.logsumexp(s[:, :v0], -1), torch.logsumexp(s[:, v1:], -1))))
+    if n % CE_BM:
+        t0 = n // CE_BM * CE_BM
+        nxt = torch.cat([hf[t0 + 1:], hf.new_zeros(1, hd)])
+        bad = logz.clone()
+        bad[t0:] = torch.logsumexp(nxt @ wf.T, -1)
+        out.append(("a tail row reads the next row", bad))
+    return out
 
 
 def check_ce(g, fused_ce, case):
+    """The logz kernel against ce_logz_reference; two calls must be
+    bitwise equal.  bf16 runs on ce_fwd_inputs, and every fault
+    ce_fwd_faults plants must read above TOL_LSE.  Returns the largest
+    absolute error."""
     import torch
     n, hd, v, dtype = case
-    h = rand(g, (n, hd), dtype)
-    w = rand(g, (v, hd), dtype, 0.02)
+    bf = dtype == torch.bfloat16
+    if bf:
+        h, w = ce_fwd_inputs(g, n, hd, v, dtype)
+    else:
+        h, w = rand(g, (n, hd), dtype), rand(g, (v, hd), dtype, 0.02)
     lz_k = fused_ce._launch(h, w)
+    again = fused_ce._launch(h, w)
     lz_p = fused_ce.ce_logz_reference(h, w)
     torch.cuda.synchronize()
-    tol = TOL_LSE if dtype == torch.bfloat16 else TOL_F32
+    same = torch.equal(lz_k, again)
+    tol = TOL_LSE if bf else TOL_F32
     e = max_err(lz_k, lz_p)
+    ok = same and e <= tol
+    detail = ""
+    if bf:
+        faults = [(name, max_err(bad, lz_p))
+                  for name, bad in ce_fwd_faults(h, w)]
+        ok = ok and min(r for _, r in faults) > tol
+        detail = (" (planted faults " + ", ".join(
+            f"{name} {r:.3g}" for name, r in faults) + ")")
     log(f"check fused_ce logz n={n} h={hd} v={v} {str(dtype)[6:]}: "
-        f"max_abs_err={e:.3g} (tol {tol:g}) {'ok' if e <= tol else 'FAIL'}")
-    if e > tol:
-        fail("fused_ce kernel disagrees with its plain version")
+        f"max_abs_err={e:.3g} (tol {tol:g}){detail}, bitwise repeat "
+        f"{'yes' if same else 'NO'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("fused_ce kernel disagrees with its plain version, or its "
+             "limit fails the fault check")
     return e
 
 
@@ -828,7 +981,8 @@ def check_masked(g, fa, case, mask=None, dbias=True):
     ``dbias``, dbias kernels against their plain versions; in bf16 the
     forward also by the relative measure beside its rounding control and
     planted faults, and the backward beside the faults flash_bwd_faults
-    plants; two forward calls and two backward calls bitwise equal.  ``mask``
+    and dbias_faults plant; two forward calls and two backward calls (dbias
+    included) bitwise equal.  ``mask``
     replaces the case's own.  Returns the largest absolute errors (out,
     dq, dk/dv, dbias or None)."""
     import torch
@@ -846,11 +1000,14 @@ def check_masked(g, fa, case, mask=None, dbias=True):
     out_p, lse_p = fa.flash_attention_reference(qt, kt, vt, sc, causal, mask)
     got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
                          dbias=want_db)
-    again = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask)
+    again = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
+                           dbias=want_db)
     want = fa._bwd_reference(qt, kt, vt, out_p, lse_p, dot, sc, causal, mask,
                              dbias=want_db)
     torch.cuda.synchronize()
-    same_bwd = all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    n_out = 4 if want_db else 3
+    same_bwd = all(torch.equal(a, b) for a, b in zip(got[:n_out],
+                                                     again[:n_out]))
     del again
     e_out, e_lse = max_err(out_k, out_p), max_err(lse_k, lse_p)
     ok = same and same_bwd and e_out <= (TOL_BF16 if bf else TOL_F32) \
@@ -868,6 +1025,12 @@ def check_masked(g, fa, case, mask=None, dbias=True):
                                 sc, causal, mask)
         fwd += (", backward's planted faults "
                 + ", ".join(f"{n} {r:.3g}" for n, r in faults))
+        if want_db:
+            faults = [(n, grad_err(x, want[3])[0]) for n, x in dbias_faults(
+                fa, qt, kt, vt, out_p, lse_p, dot, sc, causal, mask)]
+            ok = ok and min(r for _, r in faults) > TOL_DBIAS_BF16
+            fwd += (", dbias's planted faults "
+                    + ", ".join(f"{n} {r:.3g}" for n, r in faults))
     names = ("dq", "dk", "dv", "dbias")[:4 if want_db else 3]
     errs = [grad_err(a, w) for a, w in zip(got[:len(names)], want)]
     limits = [TOL_GRAD_BF16] * 3 + [TOL_DBIAS_BF16]
@@ -911,28 +1074,34 @@ def check_masked(g, fa, case, mask=None, dbias=True):
 def check_dbias_faults(g, fa, b, h, s):
     """The dbias kernel at the learned-bias encoder's class, a (1, H, S, S)
     bf16 bias over B*H slices, read by the bf16 measure beside every fault
-    dbias_faults plants.  Fails unless the kernel reads at most
-    TOL_DBIAS_BF16 and every fault above it.  Returns the kernel's largest
-    absolute error."""
+    dbias_faults plants.  Fails unless two calls are bitwise equal, the
+    kernel reads at most TOL_DBIAS_BF16 and every fault above it.  Returns
+    the kernel's largest absolute error."""
     import torch
     qt, kt, vt, dot = (rand(g, (b * h, s, 64), torch.bfloat16)
                        for _ in range(4))
     mask = fa.Mask(rand(g, (1, h, s, s), torch.bfloat16), None, None, h)
     ot, lse = fa.flash_attention_reference(qt, kt, vt, 0.125, False, mask)
-    got = fa._launch_dbias(qt, kt, vt, dot, lse, fa._delta(dot, ot), 0.125,
-                           False, mask)
+    delta = fa._delta(dot, ot)
+    got = fa._launch_dbias(qt, kt, vt, dot, lse, delta, 0.125, False, mask)
+    again = fa._launch_dbias(qt, kt, vt, dot, lse, delta, 0.125, False, mask)
     want = fa.flash_attention_dbias_reference(qt, kt, vt, ot, lse, dot,
                                               0.125, False, mask)
     torch.cuda.synchronize()
+    same = torch.equal(got, again)
     rel, err = grad_err(got, want)
     faults = [(name, grad_err(bad, want)[0]) for name, bad in
               dbias_faults(fa, qt, kt, vt, ot, lse, dot, 0.125, False, mask)]
-    ok = rel <= TOL_DBIAS_BF16 and min(r for _, r in faults) > TOL_DBIAS_BF16
+    ok = same and rel <= TOL_DBIAS_BF16 and \
+        min(r for _, r in faults) > TOL_DBIAS_BF16
+    _, _, per, n_split = fa.dbias_plan(mask, b * h, s, s, 64)
     log(f"check flash_attention_dbias bias 1x{h}x{s}x{s} bf16 over "
-        f"bh={b * h} (the learned-bias encoder's class): max_abs_err="
+        f"bh={b * h} (the learned-bias encoder's class, {n_split} splits of "
+        f"{per} slices, the last {b - (n_split - 1) * per}): max_abs_err="
         f"{err:.3g}, relative to |ref| + rms(ref) {rel:.3g} (planted faults "
         + ", ".join(f"{name} {r:.3g}" for name, r in faults)
-        + f"; tol {TOL_DBIAS_BF16:g}) {'ok' if ok else 'FAIL'}")
+        + f"; tol {TOL_DBIAS_BF16:g}), bitwise repeat "
+        f"{'yes' if same else 'NO'} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the dbias kernel or its limit fails the fault check")
     return err
@@ -1633,9 +1802,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     # ptxas serialises a kernel's wgmma products when it cannot keep them
-    # in flight (warning C7515 and its kin): the flash kernels must not
-    # have it
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    # in flight (warning C7515 and its kin): no wgmma kernel may have it
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "flash_attention_dbias", "fused_ce_fwd", "fused_ce_bwd"):
         serial = [line.strip() for line in logs[name].splitlines()
                   if "wgmma" in line and "serializ" in line]
         log(f"build: wgmma serialisation warnings in {name}: {len(serial)}")
@@ -1689,6 +1858,7 @@ def main() -> int:
     ce_err = max(check_ce(g, fused_ce, c) for c in [
         (B * S, 1024, 50304, bf16),            # GPT-2 345M scoring head
         (8000, 1024, 50304, bf16),             # token tail
+        (300, 256, 1000, bf16),                # token and vocabulary tails
     ])
     check_ce(g, fused_ce, (300, 256, 1000, f32))
     pb = fused_ce.P_BUDGET
@@ -1767,6 +1937,13 @@ def main() -> int:
                True),
               (4, 4, (384, 128), 128, bf16, (4, 1, 1, 128), f32, False,
                True)]
+    # dbias splits whose last run is short (fa.dbias_plan): 20 batch terms
+    # in 7 runs of 3; 80 slices in 27 runs of 3; with one query row, 69
+    # slices in 35 runs of 2; at D = 128 with segment ids, 21 in 2 of 11
+    cases += [(20, 4, 256, 64, bf16, (1, 4, 256, 256), bf16, False, True),
+              (20, 4, 256, 64, bf16, (1, 1, 256, 256), f32, False, False),
+              (23, 3, 256, 64, bf16, (1, 1, 1, 256), bf16, False, True),
+              (21, 4, 256, 128, bf16, (1, 4, 256, 256), f32, True, True)]
     for c in cases:
         check_masked(g, fa, c)
     check_masked_seam(g, fa)

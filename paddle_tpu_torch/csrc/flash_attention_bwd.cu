@@ -102,15 +102,6 @@ constexpr int BQ = 64;    // f32: query rows per dq block (and per q tile)
 constexpr int BK = 64;    // f32: keys per tile (dq loop) and per dk/dv block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// first query tile of QT rows that sees a key of the tile starting at k0:
-// tile i is needed iff k0 < (i + 1) * QT + off
-__device__ __forceinline__ int first_q_tile(int k0, int off, int causal,
-                                            int qt) {
-  if (!causal) return 0;
-  const int lim = k0 - off - qt + 1;
-  return lim <= 0 ? 0 : (lim + qt - 1) / qt;
-}
-
 // lse of a row in the exponent's units, with +inf marking a row that must
 // give p = 0 (no visible key, or past sq): exp(s - inf) = 0 without a NaN
 __device__ __forceinline__ float lse_or_inf(const float* lse, int row,
@@ -175,15 +166,8 @@ struct DkvCfg {
                                  (2 * KVBUF + 2 * ST) * sizeof(uint64_t);
 };
 
-// d (64 x N) op= A . B over one k16 step, N = 64 or 128 by d's size
-template <int N2>
-__device__ __forceinline__ void mma_ss(float (&d)[N2], uint64_t da,
-                                       uint64_t db, int scale_d) {
-  if constexpr (N2 == 32)
-    sm::wgmma_m64n64k16_ss<0, 0>(d, da, db, scale_d);
-  else
-    sm::wgmma_m64n128k16_ss<0, 0>(d, da, db, scale_d);
-}
+// d (64 x N) += A . B over one k16 step, A from registers, N = 64 or 128
+// by d's size
 template <int N2>
 __device__ __forceinline__ void mma_rs(float (&d)[N2], const uint32_t (&a)[4],
                                        uint64_t db) {
@@ -193,22 +177,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[N2], const uint32_t (&a)[4],
     sm::wgmma_m64n128k16_rs<1>(d, a, db, 1);
 }
 
-// d (64 x N) = A . B^T over D: A's 64 rows at a, B's N rows at b, both
-// K-major (D contiguous) in boxes of 64 columns, abox / bbox bytes apart;
-// the next 16 of D start 32 bytes on
-template <int D, int N2>
-__device__ __forceinline__ void issue_scores(float (&d)[N2],
-                                             const unsigned char* a,
-                                             int abox,
-                                             const unsigned char* b,
-                                             int bbox) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk / 4, kin = (kk % 4) * 32;
-    mma_ss(d, sm::desc_sw128(a + c * abox + kin, 16, 1024),
-           sm::desc_sw128(b + c * bbox + kin, 16, 1024), kk > 0);
-  }
-}
+using sm::issue_scores;
 
 // d (64 x D) += A . B over K rows: A in bf16 fragments (one a k16 step),
 // B (K x D) at b MN-major (D contiguous), 16 rows 2048 bytes on, the
@@ -531,7 +500,7 @@ __global__ void __launch_bounds__(WT, 1)
         sm::tma_load_3d(kb + KBY + c * BOX, &tv, &kv_full[b], c * 64, k0,
                         bh);
       }
-      for (int qi = first_q_tile(k0, off, a.causal, TQ); qi < n_qt;
+      for (int qi = pt::first_q_tile(k0, off, a.causal, TQ); qi < n_qt;
            ++qi, ++qc) {
         const int s = qc % ST;
         sm::mbar_wait(&empty[s], ((qc / ST) & 1) ^ 1);
@@ -575,7 +544,7 @@ __global__ void __launch_bounds__(WT, 1)
     int bh, kt;
     sm::walk_item(i, a.n_t, false, bh, kt);
     const int k0 = kt * TILE;
-    const int first = first_q_tile(k0, off, a.causal, TQ);
+    const int first = pt::first_q_tile(k0, off, a.causal, TQ);
     const int b = it % KB;
     const int krow[2] = {k0 + r0, k0 + r0 + 8};
     const float* lse = a.lse + (size_t)bh * a.sq;
@@ -943,7 +912,7 @@ __global__ void __launch_bounds__(FMA_THREADS)
     for (int c = 0; c < CD; ++c) dka[i][c] = dva[i][c] = 0.f;
 
   const int n_qb = (sq + BQ - 1) / BQ;
-  for (int qi = first_q_tile(k0, off, causal, BQ); qi < n_qb; ++qi) {
+  for (int qi = pt::first_q_tile(k0, off, causal, BQ); qi < n_qb; ++qi) {
     const int q0 = qi * BQ;
     __syncthreads();                    // previous tile fully consumed
     for (int e = tid; e < BQ * D; e += FMA_THREADS) {

@@ -28,15 +28,13 @@
 //     epilogue, the last writes dh in bf16 (one chunk touches no buffer).
 // Each output tile is owned by one block and written once per pass, and
 // the chunks run in a fixed order: no atomics, the result is deterministic.
-// One mainloop serves the three passes: a block of three warpgroups owns
-// a 128 x 256 output tile; warpgroup 0 is the producer (one thread keeps
-// TMA loads of 64-deep K slices in flight through a ring of 4 stages of
-// 48 KB, each with a "full" and an "empty" mbarrier), warpgroups 1 and 2
-// each multiply 64 of the rows with wgmma.mma_async m64n256k16 (f32
-// accumulators in registers, 128 a thread) and keep one k-slice of
-// products in flight.  TMA zero-fills reads past the tensors and clips
-// stores, so ragged N, V, V_c and H need no padded copies; the dW and dh
-// epilogues mask their stores.
+// One mainloop (csrc/ce_gemm.cuh, shared with the forward's logz pass)
+// serves the three passes: a block of three warpgroups owns a 128 x 256
+// output tile, a producer warpgroup keeps TMA loads of 64-deep K slices in
+// a 4-stage ring and two consumer warpgroups multiply on wgmma m64n256k16.
+// TMA zero-fills reads past the tensors and clips stores, so ragged N, V,
+// V_c and H need no padded copies; the dW and dh epilogues mask their
+// stores.
 //
 // What bounds it.  At N = 8192, H = 1024, V = 50304 the three products
 // are 3 x 2 N V H = 2.53 TFLOP, 2.56 ms at the card's 989 TFLOP/s bf16
@@ -49,6 +47,7 @@
 // f32 (tests and the small reference model): two kernels on the FMA
 // units, each rebuilding the scores: 16 owned rows and 256 columns per
 // block (a wider H takes more blocks), exp() as in the reference.
+#include "ce_gemm.cuh"
 #include "common.cuh"
 #include "hopper_gemm.cuh"
 
@@ -56,25 +55,13 @@ namespace {
 
 using pt::bf16;
 namespace sm = pt::sm90;
+using namespace pt::ce;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // bf16: three wgmma GEMMs a chunk
 // ---------------------------------------------------------------------------
-
-constexpr int BM = 128;              // output rows a block owns
-constexpr int BN = 256;              // output columns a block owns
-constexpr int BK = 64;               // K per stage: one 128-byte swizzle span
-constexpr int STAGES = 4;
-constexpr int GT = 384;              // a producer and two consumer warpgroups
-constexpr int A_BYTES = BM * BK * 2;                 // 16 KB
-constexpr int B_BYTES = BN * BK * 2;                 // 32 KB
-constexpr int BOX_BYTES = 64 * BK * 2;               // one MN-major box
-constexpr size_t GEMM_SMEM =
-    STAGES * (A_BYTES + B_BYTES) + 2 * STAGES * sizeof(uint64_t) + 1024;
-
-enum Pass { P_PASS, DW_PASS, DH_PASS };
 
 // One chunk of the vocabulary and the tensors its passes touch.
 struct Chunk {
@@ -90,128 +77,25 @@ struct Chunk {
   bf16* dh;             // (n, hd)
 };
 
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// The producer's loads of k-slice kb into stage (a, b).  Operand majors:
-//   P pass:  A = h (K-major), B = W_c (K-major)
-//   dW pass: A = P^T (P read MN-major), B = h (MN-major)
-//   dh pass: A = P (K-major), B = W_c (MN-major)
-template <int PASS>
-__device__ __forceinline__ void load_slice(unsigned char* a, unsigned char* b,
-                                           const CUtensorMap* ta,
-                                           const CUtensorMap* tb,
-                                           uint64_t* bar, const Chunk& c,
-                                           int m0, int n0, int k0) {
-  if (PASS == P_PASS) {
-    sm::tma_load_2d(a, ta, bar, k0, m0);
-    sm::tma_load_2d(b, tb, bar, k0, c.v0 + n0);
-  } else if (PASS == DW_PASS) {
-#pragma unroll
-    for (int i = 0; i < BM / 64; ++i)
-      sm::tma_load_2d(a + i * BOX_BYTES, ta, bar, m0 + 64 * i, k0);
-#pragma unroll
-    for (int j = 0; j < BN / 64; ++j)
-      sm::tma_load_2d(b + j * BOX_BYTES, tb, bar, n0 + 64 * j, k0);
-  } else {
-    sm::tma_load_2d(a, ta, bar, k0, m0);
-#pragma unroll
-    for (int j = 0; j < BN / 64; ++j)
-      sm::tma_load_2d(b + j * BOX_BYTES, tb, bar, n0 + 64 * j, c.v0 + k0);
-  }
-}
-
-// acc += this warpgroup's 64 rows of A . B over one k-slice in stage (a, b)
-template <int PASS>
-__device__ __forceinline__ void mma_slice(float (&acc)[128],
-                                          const unsigned char* a,
-                                          const unsigned char* b, int cw) {
-  constexpr int TA = PASS == DW_PASS;          // A MN-major
-  constexpr int TB = PASS != P_PASS;           // B MN-major
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    // K-major: the warpgroup's 64 rows start 64 x 128 bytes in, each 16
-    // of K 32 bytes on; MN-major: its 64 columns are box cw, each 16 of
-    // K 16 rows of 128 bytes on
-    const uint64_t da =
-        TA ? sm::desc_sw128(a + cw * BOX_BYTES + kk * 2048, BOX_BYTES, 1024)
-           : sm::desc_sw128(a + cw * 64 * 128 + kk * 32, 16, 1024);
-    const uint64_t db =
-        TB ? sm::desc_sw128(b + kk * 2048, BOX_BYTES, 1024)
-           : sm::desc_sw128(b + kk * 32, 16, 1024);
-    sm::wgmma_m64n256k16<TA, TB>(acc, da, db);
-  }
-}
-
 template <int PASS>
 __device__ __forceinline__ void gemm_body(const CUtensorMap* ta,
                                           const CUtensorMap* tb,
                                           const CUtensorMap* tp,
                                           const Chunk& c) {
   extern __shared__ unsigned char smem_raw[];
-  // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
-  unsigned char* base =
-      smem_raw + ((1024 - (sm::smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* as = base;
-  unsigned char* bs = base + STAGES * A_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(bs + STAGES * B_BYTES);
-  uint64_t* empty = full + STAGES;
-
+  const Smem sh = smem_layout(smem_raw);
+  unsigned char* as = sh.as;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = cdiv(PASS == P_PASS ? c.hd : PASS == DW_PASS ? c.n : c.nv,
                       BK);
-  const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      sm::mbar_init(&full[s], 1);
-      sm::mbar_init(&empty[s], 2);   // one arrival per consumer warpgroup
-    }
-    sm::fence_barrier_init();
-  }
-  __syncthreads();
+  float acc[128];
+  if (!mainloop<PASS>(acc, sh, ta, tb, c.v0, m0, n0, nk)) return;
 
-  if (wg == 0) {
-    // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      for (int kb = 0; kb < nk; ++kb) {
-        const int s = kb % STAGES;
-        sm::mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
-        sm::mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
-        load_slice<PASS>(as + s * A_BYTES, bs + s * B_BYTES, ta, tb,
-                         &full[s], c, m0, n0, kb * BK);
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int cw = wg - 1, t = threadIdx.x % 128;
+  const int cw = threadIdx.x / 128 - 1, t = threadIdx.x % 128;
   const int lane = t % 32;
   // this thread's first row in the block and its column in each 8-block
   const int r0 = cw * 64 + (t / 32) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
-
-  // the products start from 0: registers loaded from memory here would
-  // serialise the products in flight (ptxas C7515, and 7 % of the dh
-  // pass); the dh pass adds the earlier chunks' sum in its epilogue
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-
-  for (int kb = 0; kb < nk; ++kb) {
-    const int s = kb % STAGES;
-    sm::mbar_wait(&full[s], (kb / STAGES) & 1);
-    sm::fence_acc(acc);
-    sm::wgmma_fence();
-    mma_slice<PASS>(acc, as + s * A_BYTES, bs + s * B_BYTES, cw);
-    sm::wgmma_commit();
-    // the previous slice's products are done: its stage may refill
-    sm::wgmma_wait<1>();
-    sm::fence_acc(acc);
-    if (kb > 0 && t == 0) sm::mbar_arrive(&empty[(kb - 1) % STAGES]);
-  }
-  sm::wgmma_wait<0>();
-  sm::fence_acc(acc);
 
   if (PASS == P_PASS) {
     // p goes out through shared memory: the A stages (both warpgroups'

@@ -3,13 +3,13 @@
 // bulk copies) and TMA tile stores, a named barrier, the warpgroup products
 // wgmma.mma_async (bf16 in, f32 accumulate) m64n256k16 on shared-memory
 // tiles, m64n64k16 / m64n128k16 with A in shared memory or in registers,
-// their operand descriptors for tiles in the 128-byte swizzle, the
-// accumulator's repacking as an A operand (pack_a) and its staging for a
-// TMA store (stage_rows), the persistent walk of the flash kernels
-// (walk_item, walk_next), and the
-// host's encoding of 2-D and 3-D bf16 tensor maps.  Users: the fused CE
-// backward (csrc/fused_ce_bwd.cu), the flash forward and backward
-// (csrc/flash_attention_fwd.cu, csrc/flash_attention_bwd.cu).
+// their operand descriptors for tiles in the 128-byte swizzle, the score
+// product of two K-major tiles (issue_scores), the accumulator's
+// repacking as an A operand (pack_a) and its staging for a TMA store
+// (stage_rows), the persistent walk of the flash kernels (walk_item,
+// walk_next), and the host's encoding of 2-D and 3-D bf16 tensor maps.
+// Users: the fused CE forward and backward (csrc/ce_gemm.cuh), the flash
+// forward, backward and dbias (csrc/flash_attention_{fwd,bwd,dbias}.cu).
 //
 // Tile layout.  Every operand tile is made of TMA boxes whose inner
 // extent is 64 bf16 (128 bytes, one swizzle span), stored as 128-byte
@@ -402,6 +402,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
         "n"(TB));
+}
+
+// d (64 x N) op= A . B over one k16 step, N = 64 or 128 by d's size, both
+// operands K-major in shared memory
+template <int N2>
+__device__ __forceinline__ void mma_ss(float (&d)[N2], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  if constexpr (N2 == 32)
+    wgmma_m64n64k16_ss<0, 0>(d, da, db, scale_d);
+  else
+    wgmma_m64n128k16_ss<0, 0>(d, da, db, scale_d);
+}
+
+// d (64 x N) = A . B^T over D: A's 64 rows at a, B's N rows at b, both
+// K-major (D contiguous) in boxes of 64 columns, abox / bbox bytes apart;
+// the next 16 of D start 32 bytes on
+template <int D, int N2>
+__device__ __forceinline__ void issue_scores(float (&d)[N2],
+                                             const unsigned char* a,
+                                             int abox,
+                                             const unsigned char* b,
+                                             int bbox) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, kin = (kk % 4) * 32;
+    mma_ss(d, desc_sw128(a + c * abox + kin, 16, 1024),
+           desc_sw128(b + c * bbox + kin, 16, 1024), kk > 0);
+  }
 }
 
 // The f32 accumulator (64 x K) of one product, in bf16, as the A operand

@@ -47,8 +47,8 @@ import torch
 
 __all__ = ["supported", "flash_attention", "flash_attention_fwd",
            "flash_attention_reference", "flash_attention_bwd_reference",
-           "flash_attention_dbias_reference", "Mask", "launches",
-           "launches_dq", "launches_dkv", "launches_masked",
+           "flash_attention_dbias_reference", "Mask", "dbias_plan",
+           "launches", "launches_dq", "launches_dkv", "launches_masked",
            "launches_dq_masked", "launches_dkv_masked", "launches_dbias"]
 
 _MIN_BLOCK = 128           # the reference's smallest block (flash_attention.py)
@@ -250,7 +250,13 @@ def _reduce_dbias(ds, mask: Mask):
     return ds.reshape(bb, hb, sqb, sk).to(mask.bias.dtype)
 
 
-_PTRS = {"fwd": 8, "dq": 10, "dkv": 11, "dbias": 10}
+# (pointers, ints) of each C entry point; a float scale and the stream
+# follow
+_ARGS = {"fwd": (8, 11), "dq": (10, 11), "dkv": (11, 11), "dbias": (11, 12)}
+# The bf16 dbias kernel's output tile, (query rows, keys), by head dim, and
+# the card's SMs: one block of that kernel is resident on each
+DBIAS_TILES = {64: (128, 128), 128: (64, 64)}
+_SMS = 132
 
 
 def _kernel(name: str):
@@ -265,7 +271,8 @@ def _kernel(name: str):
         else:
             lib = _build.load("flash_attention_bwd")
             fn = getattr(lib, f"pt_flash_attention_bwd_{name}")
-        fn.argtypes = [ctypes.c_void_p] * _PTRS[name] + [ctypes.c_int] * 11 + [
+        ptrs, ints = _ARGS[name]
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -432,18 +439,46 @@ def _launch_dkv(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
     return dk, dv
 
 
+def dbias_plan(mask: Mask, bh: int, sq: int, sk: int, d: int):
+    """The splits of a bf16 dbias call: (n_r, n_tiles, per, n_split).
+    Each of the n_tiles output tiles sums its n_r reduced folded slices
+    (the C launcher's ``Reduce``) in n_split contiguous runs of ``per``
+    slices, the last one shorter where per does not divide n_r, a block
+    for each (tile, run); the runs are as many as fill the card's SMs once
+    (one block an SM is resident)."""
+    bb, hb, sqb, _ = mask.bias.shape
+    n_r = (bh if bb == 1 and hb == 1 else bh // mask.heads if bb == 1
+           else mask.heads if hb == 1 else 1)
+    tq, tk = DBIAS_TILES[d]
+    n_tiles = bb * hb * (sq // tq if sqb > 1 else 1) * (sk // tk)
+    runs = max(1, min(n_r, _SMS // n_tiles))
+    per = -(-n_r // runs)
+    return n_r, n_tiles, per, -(-n_r // per)
+
+
 def _launch_dbias(qt, kt, vt, dot, lse, delta, scale: float, causal: bool,
                   mask: Mask):
     """dbias kernel on the card (reference ``_bwd_dbias_kernel`` :560):
-    the canonical bias's gradient, in its dtype."""
+    the canonical bias's gradient, in its dtype.  In bf16 the reduced
+    slices run in splits (:func:`dbias_plan`); with more than one, an f32
+    scratch buffer holds each split's partial sums."""
     global launches_dbias
     if mask is None or mask.bias is None:
         raise ValueError("flash_attention: the dbias kernel needs a bias")
     (bh, sq, sk, d), (mptr, mint) = _bwd_args(qt, kt, vt, dot, lse, delta,
                                               mask)
+    # lse and delta ride bulk copies in 16-byte units
+    lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (lse, delta))
     db = torch.empty_like(mask.bias)
-    _call("dbias", (qt, kt, vt, dot, lse, delta, *mptr, db),
-          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint), scale)
+    part, per = None, 1
+    if qt.dtype == torch.bfloat16:
+        _, _, per, n_split = dbias_plan(mask, bh, sq, sk, d)
+        if n_split > 1:
+            part = torch.empty((n_split,) + tuple(mask.bias.shape),
+                               dtype=torch.float32, device=qt.device)
+    _call("dbias", (qt, kt, vt, dot, lse, delta, *mptr, db, part),
+          (bh, sq, sk, d, _DTYPES[qt.dtype], int(causal), *mint, per), scale)
     with _count_lock:
         launches_dbias += 1
     return db

@@ -4,9 +4,12 @@ paddle_tpu/ops/pallas/fused_ce.py).
 Per-token ``-log softmax(h @ W.T)[label]`` and its gradients without the
 (N, V) logits in device memory.  The kernels are hand-written CUDA for
 sm_90a: ``csrc/fused_ce_fwd.cu`` replaces the Pallas ``_fwd_kernel`` (the
-logz pass), ``csrc/fused_ce_bwd.cu`` the ``_dh_kernel`` and ``_dw_kernel``
-(in bf16, three wgmma GEMMs over chunks of the vocabulary, whose (N, V_c)
-probabilities live in a scratch buffer this module allocates).
+logz pass; in bf16 a wgmma GEMM whose epilogue writes a (max, sum) pair per
+token and vocabulary tile into a scratch buffer this module allocates,
+merged by a second kernel), ``csrc/fused_ce_bwd.cu`` the ``_dh_kernel``
+and ``_dw_kernel`` (in bf16, three wgmma GEMMs over chunks of the
+vocabulary on the same mainloop, whose (N, V_c) probabilities live in a
+scratch buffer this module allocates).
 :class:`_FusedCE` ties them together as the reference's ``custom_vjp``
 does (``_fused_ce`` :259-309): the forward saves h, W, the labels and
 logz; the backward makes one call that computes dh and dW, then adds the
@@ -33,8 +36,8 @@ __all__ = ["supported", "ce_logz", "ce_logz_reference", "ce_bwd_reference",
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (tokens per block, vocab rows per tile) of the forward kernel, by dtype
-_BLOCKS = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
-_TARGET_BLOCKS = 4 * 132   # a few resident 256-thread blocks on each SM
+_BLOCKS = {torch.float32: (64, 64), torch.bfloat16: (128, 256)}
+_TARGET_BLOCKS = 4 * 132   # f32: a few resident 256-thread blocks an SM
 # The bf16 backward's scratch: the (N, V_c) bf16 probabilities of one
 # vocabulary chunk take at most this many bytes (V_c a multiple of _V_TILE)
 P_BUDGET = 128 << 20
@@ -95,10 +98,15 @@ def chunk_width(n: int, v: int, budget: int = P_BUDGET) -> int:
 
 
 def _n_split(n: int, v: int, dtype) -> int:
-    """Vocab splits of the forward grid: enough blocks to fill the card."""
+    """Vocab splits of the forward grid, each a run of ceil(tiles / splits)
+    vocab tiles that writes one (max, sum) pair per token.  bf16: one split
+    per 256-row tile, a block for each (token tile, vocab tile); f32:
+    enough splits to fill the card."""
     block_n, block_v = _BLOCKS[dtype]
-    n_tiles = -(-n // block_n)
     n_vt = -(-v // block_v)
+    if dtype == torch.bfloat16:
+        return n_vt
+    n_tiles = -(-n // block_n)
     return max(1, min(n_vt, -(-_TARGET_BLOCKS // n_tiles)))
 
 
@@ -110,7 +118,7 @@ def _kernel(name: str):
         from paddle_tpu_torch.ops.cuda import _build
         # (library, symbol, pointers, ints); the stream comes last
         lib, sym, ptrs, ints = {
-            "fwd": ("fused_ce_fwd", "pt_ce_logz_fwd", 5, 5),
+            "fwd": ("fused_ce_fwd", "pt_ce_logz_fwd", 4, 5),
             "bwd_bf16": ("fused_ce_bwd", "pt_ce_bwd_bf16", 8, 4),
             "bwd_f32": ("fused_ce_bwd", "pt_ce_bwd_f32", 6, 3)}[name]
         fn = getattr(_build.load(lib), sym)
@@ -168,9 +176,9 @@ def _launch(h, w):
     n, hd, v = _check(h, w)
     n_split = _n_split(n, v, h.dtype)
     logz = torch.empty(n, dtype=torch.float32, device=h.device)
-    part = torch.empty(2, n_split, n, dtype=torch.float32, device=h.device)
-    _call("fwd", (h, w, logz, part[0], part[1]),
-          (n, hd, v, n_split, _DTYPES[h.dtype]))
+    # each token's (max, sum) pair of each split
+    part = torch.empty(n, n_split, 2, dtype=torch.float32, device=h.device)
+    _call("fwd", (h, w, logz, part), (n, hd, v, n_split, _DTYPES[h.dtype]))
     with _count_lock:
         launches += 1
     return logz

@@ -45,7 +45,7 @@ _GROUPS = (
     ("flash_attention_bwd_dq", ("fa_bwd_dq",)),
     ("flash_attention_bwd_dkv", ("fa_bwd_dkv",)),
     ("flash_attention_dbias", ("dbias_",)),
-    ("fused_ce_fwd", ("ce_partial", "ce_merge")),
+    ("fused_ce_fwd", ("ce_logz_pass", "ce_partial", "ce_merge")),
     # the bf16 backward's P pass builds the probabilities both use: it
     # counts with dh, as the chip_smoke.py kernel table counts it
     ("fused_ce_bwd_dh", ("ce_bwd_p_pass", "ce_bwd_dh_pass",

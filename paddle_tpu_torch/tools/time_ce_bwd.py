@@ -8,14 +8,17 @@ the mean ms of one backward call (``fused_ce._launch_bwd``: dh and dW
 without the gold terms; CUDA events, the calls queued behind a sleeping
 kernel), the device ms of each of its kernels by name (torch.profiler over
 3 calls), the library's ms for the same function (softmax and the bf16
-products in PyTorch), the pair's bound (3 products at 989 TFLOP/s), and
-the bytes one call allocates beyond its inputs at its peak.  It times the
+products in PyTorch), the pair's bound (3 products at 989 TFLOP/s),
+the bytes one call allocates beyond its inputs at its peak, and the
+SHA-256 of the bits of (dh, dW), so that two checkouts' outputs on the
+same inputs compare bitwise.  It times the
 ``paddle_tpu_torch`` that the path imports, so two checkouts compare in
 one run, each on PYTHONPATH in turn.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -77,6 +80,11 @@ def main(argv=None) -> int:
     out = pair()
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated() - base
+    # the outputs' bits: two checkouts whose kernels agree bitwise print
+    # the same digest
+    digest = hashlib.sha256(b"".join(
+        t.contiguous().view(torch.int16).cpu().numpy().tobytes()
+        for t in out)).hexdigest()
     del out
     pair_ms = _ms(pair, args.reps)
     lib_ms = _ms(library, 3)
@@ -93,7 +101,8 @@ def main(argv=None) -> int:
         "pair_ms": pair_ms, "kernel_device_ms": kernels,
         "library_ms": lib_ms,
         "pair_bound_ms": 3 * 2 * n * v * hd / PEAK_BF16_FLOPS * 1e3,
-        "call_extra_peak_bytes": extra}), flush=True)
+        "call_extra_peak_bytes": extra, "outputs_sha256": digest}),
+        flush=True)
     return 0
 
 

@@ -221,16 +221,16 @@ def test_masked_flash_kernels_match_plain(gen, dtype, bias_shape, bias_dtype,
     got = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, 0.125, causal, mask,
                          dbias=mask.bias is not None)
     again_bwd = fa._launch_bwd(qt, kt, vt, out_p, lse_p, dot, 0.125, causal,
-                               mask)
+                               mask, dbias=mask.bias is not None)
     want = fa._bwd_reference(qt, kt, vt, out_p, lse_p, dot, 0.125, causal,
                              mask, dbias=mask.bias is not None)
     torch.cuda.synchronize()
     has_bias = int(mask.bias is not None)
     assert (fa.launches_masked, fa.launches_dq_masked,
             fa.launches_dkv_masked, fa.launches_dbias) == (
-        before[0] + 2, before[1] + 2, before[2] + 2, before[3] + has_bias)
+        before[0] + 2, before[1] + 2, before[2] + 2, before[3] + 2 * has_bias)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
-    for a, b in zip(got[:3], again_bwd[:3]):
+    for a, b in zip(got[:3 + has_bias], again_bwd[:3 + has_bias]):
         assert torch.equal(a, b)
     _close(out, out_p, 2e-2 if bf16 else 1e-4)
     _close(lse, lse_p, 1e-3 if bf16 else 1e-4)
@@ -246,6 +246,33 @@ def test_masked_flash_kernels_match_plain(gen, dtype, bias_shape, bias_dtype,
             _close_grad(got[3], want[3], TOL_DBIAS_BF16)
         else:
             _close(got[3], want[3], 1e-4)
+
+
+# the bf16 dbias kernel's splits (fa.dbias_plan) whose last run is short:
+# 21 batch terms in 11 runs of 2; with one query row, 69 slices in 35 runs
+# of 2; at D = 128, 60 slices in 8 runs of 8
+@pytest.mark.parametrize("bias_shape,b,h,d,causal", [
+    ((1, 3, 256, 256), 21, 3, 64, True),
+    ((1, 1, 1, 256), 23, 3, 64, False),
+    ((1, 1, 256, 256), 20, 3, 128, True)])
+def test_dbias_kernel_across_split_seams(gen, bias_shape, b, h, d, causal):
+    qt, kt, vt, dot, mask = _masked_case(gen, torch.bfloat16, bias_shape,
+                                         torch.bfloat16, False, b=b, h=h,
+                                         d=d)
+    n_r, _, per, n_split = fa.dbias_plan(mask, b * h, 256, 256, d)
+    assert n_split > 1 and n_r - (n_split - 1) * per < per
+    scale = 1.0 / math.sqrt(d)
+    ot, lse = fa.flash_attention_reference(qt, kt, vt, scale, causal, mask)
+    delta = fa._delta(dot, ot)
+    got = fa._launch_dbias(qt, kt, vt, dot, lse, delta, scale, causal, mask)
+    again = fa._launch_dbias(qt, kt, vt, dot, lse, delta, scale, causal,
+                             mask)
+    want = fa.flash_attention_dbias_reference(qt, kt, vt, ot, lse, dot,
+                                              scale, causal, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _close_grad(got, want, TOL_DBIAS_BF16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -324,16 +351,20 @@ def test_padding_mask_never_launches_dbias(gen):
                                                           before[1])
 
 
+# V ragged against the bf16 kernel's 256-row vocabulary tile in every case
+# (GPT-2's 50,304 is 196.5 tiles); every case holds two calls bitwise equal
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,v", [(256, 256, 1000), (300, 128, 777),
-                                   (1, 128, 64)])
+                                   (1, 128, 64), (300, 1024, 50304)])
 def test_ce_kernel_matches_plain(gen, dtype, n, h, v):
     hs = _rand(gen, (n, h), dtype)
     w = _rand(gen, (v, h), dtype, 0.05)
     before = fused_ce.launches
     logz = fused_ce._launch(hs, w)
+    again = fused_ce._launch(hs, w)
     torch.cuda.synchronize()
-    assert fused_ce.launches == before + 1
+    assert fused_ce.launches == before + 2
+    assert torch.equal(logz, again)
     _close(logz, fused_ce.ce_logz_reference(hs, w),
            1e-3 if dtype == torch.bfloat16 else 1e-4)
 

@@ -331,27 +331,71 @@ def _grad_err(a, b):
     return float(((a - b).abs() / (b.abs() + rms)).max())
 
 
-@pytest.mark.parametrize("b,bias_shape", [
-    (128, (1, 2, 128, 128)),         # the encoder's class, 128 batch terms
-    (4, (1, 1, 1, 128)),             # one query row: q tiles reduced too
-    (4, (4, 2, 128, 128)),           # nothing reduced
+_DBIAS_FAULTS = ["skips the last reduced term",
+                 "leaves a 128x128 output tile unwritten"]
+
+
+@pytest.mark.parametrize("b,bias_shape,causal,extra", [
+    # the encoder's class (two heads here), 128 batch terms in 64 runs
+    (128, (1, 2, 128, 128), False,
+     ["drops split 32 of 64 from the ordered pass",
+      "a tile reads the next bias slice"]),
+    # one query row: q tiles reduced too; 8 slices in 8 runs of 1
+    (4, (1, 1, 1, 128), False, ["drops split 4 of 8 from the ordered pass"]),
+    # nothing reduced; causal
+    (4, (4, 2, 128, 128), True, ["a tile reads the next bias slice",
+                                 "skips a causal diagonal tile"]),
+    # one query row per batch entry, heads reduced, causal
+    (4, (4, 1, 1, 256), True, ["drops split 1 of 2 from the ordered pass",
+                               "a tile reads the next bias slice",
+                               "skips a causal diagonal tile"]),
 ])
-def test_dbias_measure_flags_planted_faults(b, bias_shape):
+def test_dbias_measure_flags_planted_faults(b, bias_shape, causal, extra):
     cs = _chip_smoke()
     rng = np.random.default_rng(18)
+    s = bias_shape[-1]
     qt, kt, vt, dot = (torch.from_numpy(rng.standard_normal(
-        (b * 2, 128, 64)).astype(np.float32)).bfloat16() for _ in range(4))
+        (b * 2, s, 64)).astype(np.float32)).bfloat16() for _ in range(4))
     mask = tfa.Mask(torch.from_numpy(rng.standard_normal(bias_shape).astype(
         np.float32)).bfloat16(), None, None, 2)
-    ot, lse = tfa.flash_attention_reference(qt, kt, vt, SCALE, False, mask)
+    ot, lse = tfa.flash_attention_reference(qt, kt, vt, SCALE, causal, mask)
     want = tfa.flash_attention_dbias_reference(qt, kt, vt, ot, lse, dot,
-                                               SCALE, False, mask)
-    faults = cs.dbias_faults(tfa, qt, kt, vt, ot, lse, dot, SCALE, False,
+                                               SCALE, causal, mask)
+    faults = cs.dbias_faults(tfa, qt, kt, vt, ot, lse, dot, SCALE, causal,
                              mask)
-    assert len(faults) == 2
+    assert [name for name, _ in faults] == _DBIAS_FAULTS + extra
     for name, bad in faults:
         assert bad.dtype == want.dtype and bad.shape == want.shape
         assert _grad_err(bad, want) > cs.TOL_DBIAS_BF16, name
+
+
+# The bf16 dbias kernel sums each output tile's reduced slices in
+# contiguous runs, one block a (tile, run), the runs then summed in order:
+# every slice in exactly one run, in order, and the blocks fill the card
+# once where the tiles alone do not.
+@pytest.mark.parametrize("b,h,s,d,bias_shape", [
+    (128, 12, 128, 64, (1, 12, 128, 128)),      # the learned-bias encoder
+    (128, 12, 128, 64, (1, 1, 128, 128)),
+    (128, 12, 128, 64, (128, 1, 1, 128)),
+    (128, 12, 128, 64, (128, 12, 128, 128)),
+    (4, 4, 256, 64, (1, 1, 1, 256)),
+    (20, 4, 256, 64, (1, 4, 256, 256)),
+    (23, 3, 256, 64, (1, 1, 1, 256)),
+    (21, 4, 256, 128, (1, 4, 256, 256)),
+    (5000, 14, 128, 64, (5000, 14, 128, 128)),
+    (1, 1, 128, 64, (1, 1, 1, 128)),
+])
+def test_dbias_split_covers_every_reduced_slice_once(b, h, s, d, bias_shape):
+    mask = tfa.Mask(torch.zeros(bias_shape), None, None, h)
+    n_r, n_tiles, per, n_split = tfa.dbias_plan(mask, b * h, s, s, d)
+    bb, hb, _, _ = bias_shape
+    assert n_r * bb * hb == b * h          # every folded slice in one sum
+    runs = [range(i * per, min(n_r, (i + 1) * per)) for i in range(n_split)]
+    assert [r for run in runs for r in run] == list(range(n_r))
+    assert all(len(run) > 0 for run in runs) and n_split <= 65535
+    if n_tiles <= 132:
+        assert n_tiles * n_split <= 132
+        assert 2 * n_split >= min(n_r, 132 // n_tiles)
 
 
 # The functionals of nn/functional/attention.py on both sides: the kernel

@@ -189,6 +189,27 @@ def test_gpt_loss_takes_the_unfused_head_where_the_rule_refuses(monkeypatch):
         set_flags({"gpt_fused_ce": False})
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,v", [(8192, 50304), (8000, 50304), (300, 1000),
+                                 (64, 1000), (300, 64), (10, 5), (1, 256),
+                                 (1, 257), (10**6, 50304)])
+def test_vocab_split_runs_cover_every_tile_once_in_order(dtype, n, v):
+    # split s of the forward's grid walks tiles [s per, (s + 1) per) of the
+    # dtype's vocabulary tile, per = ceil(tiles / splits), and writes one
+    # (max, sum) pair per token: every row in exactly one non-empty run,
+    # in order; in bf16 one run per 256-row tile
+    block_v = tce._BLOCKS[dtype][1]
+    k = tce._n_split(n, v, dtype)
+    n_vt = -(-v // block_v)
+    per = -(-n_vt // k)
+    runs = [range(s * per * block_v, min(v, (s + 1) * per * block_v))
+            for s in range(k)]
+    assert [r for run in runs for r in run] == list(range(v))
+    assert all(len(run) > 0 for run in runs) and k <= 65535
+    if dtype == torch.bfloat16:
+        assert per == 1 and k == n_vt
+
+
 def test_vocab_split_covers_every_tile():
     # the CUDA grid splits the vocabulary into k runs of ceil(tiles / k)
     # tiles; together they must cover every tile
@@ -295,3 +316,30 @@ def test_bf16_gradient_measure_passes_rounding_control(bf16_ce_case):
     # p left in f32: the size of an honest rounding difference
     _, ctl, _ = bf16_ce_case
     assert max(ctl) < TOL_CE_GRAD_BF16 / 2
+
+
+# The card check of the bf16 logz kernel (chip_smoke.check_ce): max |got -
+# want| held to TOL_LSE on chip_smoke.ce_fwd_inputs, whose logits put each
+# fault chip_smoke.ce_fwd_faults plants where it shows; each must read
+# above the limit, and logz in float64 from the same bf16 inputs (the size
+# of an honest difference of summation order) well below it.  At the tail
+# shape and at the 345M head's width and vocabulary (200 tokens: a tail
+# token tile).
+_LOGZ_FAULTS = ["a tile misses a K-slice", "columns past V unmasked",
+                "the merge drops a vocabulary tile",
+                "a tail row reads the next row"]
+
+
+@pytest.mark.parametrize("n,h,v", [(300, 256, 1000), (200, 1024, 50304)])
+def test_logz_measure_flags_faults_and_passes_rounding_control(n, h, v):
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(13)
+    hs, w = cs.ce_fwd_inputs(g, n, h, v, torch.bfloat16)
+    want = tce.ce_logz_reference(hs, w)
+    ctl = torch.logsumexp(hs.double() @ w.double().T, -1).float()
+    assert float((ctl - want).abs().max()) < cs.TOL_LSE / 10
+    faults = cs.ce_fwd_faults(hs, w)
+    assert [name for name, _ in faults] == _LOGZ_FAULTS
+    for name, bad in faults:
+        assert bad.shape == want.shape
+        assert float((bad - want).abs().max()) > cs.TOL_LSE, name
