@@ -29,7 +29,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
              TrainSteps of the fused configuration; a small BERT on a padded
              batch (logits, loss, gradients, one AdamW step) and a small
              learned-bias encoder (gradients, the bias's included), card
-             against CPU.
+             against CPU; bench.py's small ResNet (resnet18, B=8, 64x64),
+             card against CPU: an f32 training forward's loss, logits and
+             every running stat beside two planted batch-norm faults
+             (PyTorch's momentum convention, the biased variance), every
+             gradient and one Momentum step's moves in f64 and eval mode,
+             and the port's f32 convolution (TF32 switched on around it,
+             cuDNN's TF32 read beside it) and batch norm alone.
 3. serve   — GPT-2 345M at full width and depth in bf16 answers a batch of
              B=8 prompts of S=1024 tokens: logits and next-token argmax, then
              gpt_loss scoring with the fused-CE flag off and on.  The launch
@@ -81,7 +87,19 @@ Phases, in order; any failure ends the script with a non-zero exit:
              TOL_ZERO_LOSS of the f32 run and planted faults (parameters
              left unchanged, a mis-seated hop, a wrong qmax) read beside it.
              Counters set to 0 before each run.
-10. timing — each kernel, its plain version, the one-call PyTorch yardstick
+10. resnet50-train — bench.py's bench_resnet50: resnet50(num_classes=1000),
+             NCHW, f32 masters, TrainStep with AMP O2 bf16, Momentum(0.1,
+             0.9), B=128 at 224x224 from default_rng(0), one warm-up then 5
+             steps: step ms, samples/s, peak bytes; losses finite, every
+             running stat finite and moved, every parameter moved.
+11. resnet50-eval — the same model's eval() forward under the O2 cast:
+             samples/s; finite logits that differ from the training-mode
+             forward's on the same batch.
+12. lenet-train — bench.py's bench_lenet: LeNet, f32, Adam(1e-3), B=256,
+             2 warm-ups then 50 steps: samples/s; the last loss below the
+             first.  Phases 10-12 print the card's name and power limit
+             beside their numbers; no hand-written kernel is on their path.
+13. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
              masked kernels and dbias at BERT-base's layer, and the flash
              kernel against the dense path there; the fused CE backward's
@@ -180,6 +198,28 @@ ZERO_DP2_LAYERS = 2            # simulated dp = 2: GPT-2 345M's width, 2 layers
 # reads the faults on each run and fails if one is not above this.
 TOL_ZERO_LOSS = 0.55
 RING_LEAF = 1024 * 4096        # ring primitives: values a rank, one MLP leaf
+# bench.py's bench_resnet50 (accelerator leg) and bench_lenet
+VISION_B, VISION_HW, VISION_STEPS = 128, 224, 5
+LENET_B, LENET_WARMUP, LENET_STEPS = 256, 2, 50
+SMALL_VISION_B, SMALL_VISION_HW = 8, 64     # bench_resnet50's CPU leg
+# Small vision, card against CPU, by max |got - want| / (|want| + rms(want))
+# (grad_err).  f32 where the comparison is continuous: a training-mode
+# forward (loss, logits, every running stat) and the port's convolution and
+# batch norm alone, forward and backward.  A deep ReLU network's f32
+# gradients are not comparable across two implementations: a pre-activation
+# within rounding of 0 takes the other side of the kink in one of them
+# (5 of 24 random resnet18 states on the CPU, tools/f32_gradient_spread.py),
+# so the model's gradients and one TrainStep's moves are held in f64 in
+# evaluation mode, where the norms are affine and nothing rounds near a
+# kink.  TOL_VISION_F32 sits above f32 summation order and below both
+# faults bn_faults plants (PyTorch's momentum convention, the biased
+# variance: 0.1 v / (n - 1) at the last stage's n = 32).  TOL_CONV_F32 sits
+# above cuDNN's f32 algorithms (3.3e-5 at a 64-channel 3x3 stage, forward
+# and backward) and below what TF32 gives there (1.3e-3; H100 80GB HBM3 at
+# 700 W).  The check reads the faults and TF32 on each run.
+TOL_VISION_F32 = 1e-4
+TOL_VISION_F64 = 1e-9
+TOL_CONV_F32 = 2e-4
 
 
 def log(msg):
@@ -1253,6 +1293,176 @@ def check_small_encoder(nn, fa):
     return err
 
 
+def card_power():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def scaled_err(a, b):
+    """max |a - b| / (|b| + rms(b)), grad_err's measure; a must be
+    finite."""
+    return grad_err(a, b)[0]
+
+
+def vision_loss(m, x, y):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    return cross_entropy(m(x), y).mean()
+
+
+def vision_batch(b, c, hw, classes, seed=0):
+    """bench.py's inputs: standard normal images, then integer labels,
+    from one default_rng(seed)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, c, hw, hw)).astype(np.float32),
+            rng.integers(0, classes, size=(b,)))
+
+
+def bn_faults():
+    """Faulty batch norms for check_small_vision, by name: PyTorch's
+    momentum convention (0.1 keeps 10 %) and the biased variance in the
+    running update.  Each wraps the port's functional batch_norm."""
+    import paddle_tpu_torch.nn.functional as PF
+    real = PF.batch_norm
+
+    def torch_momentum(x, rm, rv, *a, momentum=0.9, **kw):
+        return real(x, rm, rv, *a, momentum=1 - momentum, **kw)
+
+    def biased(x, rm, rv, *a, momentum=0.9, training=False, **kw):
+        old = rv.clone()
+        out = real(x, rm, rv, *a, momentum=momentum, training=training, **kw)
+        if training:
+            n = x.numel() // x.shape[1]
+            # the unbiased statistic the update added, times (n - 1) / n
+            rv.copy_(momentum * old + (rv - momentum * old) * (n - 1) / n)
+        return out
+    return {"torch_momentum": torch_momentum, "biased_variance": biased}
+
+
+def _train_forward(model, x, y, batch_norm=None):
+    """(loss, logits, {buffer: tensor}) of one training-mode forward, on
+    the CPU; the port's batch_norm is replaced by ``batch_norm`` for the
+    call if one is given."""
+    import torch
+
+    import paddle_tpu_torch.nn.functional as PF
+    real = PF.batch_norm
+    if batch_norm is not None:
+        PF.batch_norm = batch_norm
+    try:
+        with torch.no_grad():
+            out = model(x)
+            loss = PF.cross_entropy(out, y).mean()
+    finally:
+        PF.batch_norm = real
+    return loss.cpu(), out.cpu(), {n: b.cpu()
+                                   for n, b in model.named_buffers()}
+
+
+def _conv_bn_checks(g):
+    """The port's f32 conv2d (with cuDNN's TF32 switched on around it) and
+    batch_norm in training mode, forward and backward, card against CPU at
+    a ResNet stage's shape; and cuDNN's own TF32 convolution, which the
+    tolerance must catch.  Returns (conv, batch norm, TF32) errors."""
+    import torch
+    import torch.nn.functional as TF
+
+    import paddle_tpu_torch.nn.functional as PF
+    x = torch.randn(8, 64, 32, 32, generator=g, device="cuda")
+    w = torch.randn(64, 64, 3, 3, generator=g, device="cuda") * 0.05
+    dy = torch.randn(8, 64, 32, 32, generator=g, device="cuda")
+
+    def run(fn, dev, *ts):
+        ts = [t.detach().to(dev).requires_grad_() for t in ts]
+        out = fn(*ts)
+        out.backward(dy.to(dev))
+        return [out.detach().cpu()] + [t.grad.cpu() for t in ts]
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv = lambda a, b: PF.conv2d(a, b, padding=1)         # noqa: E731
+        want = run(conv, "cpu", x, w)
+        conv_err = max(scaled_err(a, b) for a, b in zip(run(conv, "cuda", x, w),
+                                                     want))
+        tf32 = lambda a, b: TF.conv2d(a, b, padding=1)         # noqa: E731
+        tf32_err = max(scaled_err(a, b) for a, b in zip(run(tf32, "cuda", x, w),
+                                                     want))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    wb = torch.rand(64, generator=g, device="cuda") + 0.5
+    bb = torch.randn(64, generator=g, device="cuda")
+    stats = {}
+
+    def bn(dev):
+        def f(a, w_, b_):
+            rm, rv = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+            out = PF.batch_norm(a, rm, rv, w_, b_, training=True)
+            stats[dev] = (rm.cpu(), rv.cpu())
+            return out
+        return f
+    want = run(bn("cpu"), "cpu", x * 2 + 1, wb, bb)
+    got = run(bn("cuda"), "cuda", x * 2 + 1, wb, bb)
+    bn_err = max(scaled_err(a, b) for a, b in zip(
+        got + list(stats["cuda"]), want + list(stats["cpu"])))
+    return conv_err, bn_err, tf32_err
+
+
+def check_small_vision(g, resnet18, TrainStep, Momentum):
+    """bench_resnet50's CPU leg, resnet18(num_classes=10) at B=8, 64x64,
+    card against CPU from one state: a training-mode f32 forward (loss,
+    logits, every running stat), with each of bn_faults read beside it;
+    then in f64 and evaluation mode every parameter's gradient and one
+    TrainStep(Momentum(0.1, 0.9)) step's parameter moves; and the port's
+    convolution and batch norm alone (_conv_bn_checks).  Returns the
+    readings by name."""
+    import copy
+
+    import torch
+    x, y = vision_batch(SMALL_VISION_B, 3, SMALL_VISION_HW, 10, seed=2)
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    torch.manual_seed(0)
+    cpu = resnet18(num_classes=10, device="cpu")
+    init = copy.deepcopy(cpu.state_dict())
+
+    def on_card():
+        m = resnet18(num_classes=10, device="cuda")
+        m.load_state_dict(init)
+        return m
+
+    loss_c, out_c, bufs_c = _train_forward(cpu, x, y)
+    loss_g, out_g, bufs_g = _train_forward(on_card(), x.cuda(), y.cuda())
+    r = {"train_f32": max([scaled_err(out_g, out_c), scaled_err(loss_g, loss_c)]
+                          + [scaled_err(bufs_g[n], bufs_c[n]) for n in bufs_c])}
+    for name, fault in bn_faults().items():
+        _, _, bufs_f = _train_forward(on_card(), x.cuda(), y.cuda(), fault)
+        r[name] = max(scaled_err(bufs_f[n], bufs_c[n]) for n in bufs_c)
+    # f64, evaluation mode, on the running stats the CPU forward left
+    state = copy.deepcopy(cpu.state_dict())
+    models = []
+    for dev in ("cuda", "cpu"):
+        m = resnet18(num_classes=10, device=dev).double()
+        m.load_state_dict(state)
+        m.eval()
+        vision_loss(m, x.double().to(dev), y.to(dev)).backward()
+        models.append(m)
+    gp = dict(models[0].named_parameters())
+    r["eval_grads_f64"] = max(scaled_err(gp[n].grad.cpu(), p.grad)
+                              for n, p in models[1].named_parameters())
+    old = {n: p.detach().clone() for n, p in models[1].named_parameters()}
+    for m in models:
+        dev = next(m.parameters()).device
+        TrainStep(m, vision_loss, Momentum(learning_rate=0.1, momentum=0.9))(
+            x.double().to(dev), y.to(dev))
+    r["eval_moves_f64"] = moves_err(models[0], models[1], old,
+                                    "one Momentum step")
+    r["conv_f32"], r["bn_f32"], r["tf32_conv"] = _conv_bn_checks(g)
+    return r
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -1781,15 +1991,17 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import fused_adam
     from paddle_tpu_torch.ops.cuda import fused_ce
     from paddle_tpu_torch.ops.cuda import ring_quant
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
+    from paddle_tpu_torch.vision.models import LeNet, resnet18, resnet50
 
     # f32 products in full f32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
     card = torch.cuda.get_device_name(0)
+    power = card_power()
     log(f"device: {card}, torch {torch.__version__}, cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; nvidia-smi: {power}")
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1970,6 +2182,32 @@ def main() -> int:
         f"included) max_abs_err={e_enc:.3g} (tol {TOL_F32:g})")
     if e_enc > TOL_F32:
         fail("small learned-bias encoder on the card disagrees with the CPU")
+    t_vision = time.perf_counter()
+    sv = check_small_vision(g, resnet18, TrainStep, Momentum)
+    log(f"check small vision (resnet18, B={SMALL_VISION_B}, "
+        f"{SMALL_VISION_HW}x{SMALL_VISION_HW}) card vs CPU: training-mode "
+        f"f32 forward (loss, logits, every running stat) err="
+        f"{sv['train_f32']:.3g} (tol {TOL_VISION_F32:g}); planted faults "
+        f"torch_momentum={sv['torch_momentum']:.3g}, biased_variance="
+        f"{sv['biased_variance']:.3g}; f64 eval-mode gradients err="
+        f"{sv['eval_grads_f64']:.3g}, one Momentum step's moves "
+        f"max_err/move={sv['eval_moves_f64']:.3g} (tol "
+        f"{TOL_VISION_F64:g}); f32 conv2d forward and backward with cuDNN's "
+        f"TF32 switched on err={sv['conv_f32']:.3g} (tol {TOL_CONV_F32:g}; "
+        f"cuDNN's TF32 convolution reads {sv['tf32_conv']:.3g}), batch_norm "
+        f"err={sv['bn_f32']:.3g} (tol {TOL_VISION_F32:g})")
+    if sv["train_f32"] > TOL_VISION_F32 or sv["bn_f32"] > TOL_VISION_F32:
+        fail("small vision training forward on the card disagrees with the "
+             "CPU")
+    if min(sv["torch_momentum"], sv["biased_variance"]) <= TOL_VISION_F32:
+        fail("a planted batch-norm fault is not above TOL_VISION_F32")
+    if max(sv["eval_grads_f64"], sv["eval_moves_f64"]) > TOL_VISION_F64:
+        fail("small vision gradients or moves on the card disagree with the "
+             "CPU")
+    if sv["conv_f32"] > TOL_CONV_F32 or sv["tf32_conv"] <= TOL_CONV_F32:
+        fail("the port's f32 convolution is not IEEE f32 on the card, or "
+             "TF32 would pass TOL_CONV_F32")
+    t_vision = time.perf_counter() - t_vision
 
     # -- 3. serve -----------------------------------------------------------
     cfg = gpt2_345m(max_seq_len=S)
@@ -2378,7 +2616,119 @@ def main() -> int:
     z = zero_phase(g, cfg, ids_t, fa)
     grows, quant_err, zero_launch = z["grows"], z["quant_err"], z["launches"]
 
-    # -- 10. timing ---------------------------------------------------------
+    # -- 10. resnet50-train ------------------------------------------------
+    t_phases = time.perf_counter()
+    rmodel = resnet50(num_classes=1000)             # f32 masters, NCHW
+    rstep = TrainStep(rmodel, vision_loss, Momentum(learning_rate=0.1,
+                                                    momentum=0.9),
+                      amp_level="O2", amp_dtype="bfloat16")
+    rx, ry = (torch.as_tensor(a, device="cuda") for a in vision_batch(
+        VISION_B, 3, VISION_HW, 1000))
+    p0 = {n: p.detach().clone() for n, p in rmodel.named_parameters()}
+    b0 = {n: b.clone() for n, b in rmodel.named_buffers()}
+    log(f"resnet50-train: resnet50(num_classes=1000), NCHW, "
+        f"{sum(p.numel() for p in p0.values())} parameters, {len(b0)} "
+        f"BatchNorm buffers; TrainStep(amp_level='O2', bf16), "
+        f"Momentum(0.1, 0.9), B={VISION_B} at {VISION_HW}x{VISION_HW}, one "
+        f"warm-up then {VISION_STEPS} steps on one batch")
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    loss_t = [rstep(rx, ry)]
+    e0.record()
+    for _ in range(VISION_STEPS):
+        loss_t.append(rstep(rx, ry))
+    e1.record()
+    torch.cuda.synchronize()
+    r_ms = e0.elapsed_time(e1) / VISION_STEPS
+    r_mem = torch.cuda.max_memory_allocated()
+    r_losses = [float(v) for v in loss_t]
+    log(f"resnet50-train: losses {r_losses}")
+    log(f"resnet50-train: step {r_ms:.3f} ms (CUDA events, mean of "
+        f"{VISION_STEPS} steps after one warm-up), "
+        f"{VISION_B / r_ms * 1e3:.1f} samples/s, max_memory_allocated "
+        f"{r_mem} bytes [{power}]")
+    if not all(math.isfinite(v) for v in r_losses):
+        fail("a resnet50 training loss is not finite")
+    for n, b in rmodel.named_buffers():
+        if not bool(torch.isfinite(b).all()) or torch.equal(b, b0[n]):
+            fail(f"running stat {n} is not finite or did not move")
+    for n, p in rmodel.named_parameters():
+        if torch.equal(p.detach(), p0[n]):
+            fail(f"resnet50 parameter {n} did not move")
+    del rstep, p0, b0, loss_t
+    torch.cuda.empty_cache()
+
+    # -- 11. resnet50-eval --------------------------------------------------
+    rnamed = dict(rmodel.named_parameters())
+
+    def r_forward():
+        return functional_loss_call(rmodel, lambda m, x: m(x), rnamed, [rx],
+                                    amp=True)
+    rmodel.eval()
+    with torch.inference_mode():
+        r_eval = r_forward()
+        rev_ms = cuda_ms(r_forward, reps=5, warmup=1)
+    rmodel.train()
+    stats = {n: b.clone() for n, b in rmodel.named_buffers()}
+    with torch.no_grad():
+        r_train_out = r_forward()
+    for n, b in rmodel.named_buffers():
+        b.copy_(stats[n])
+    r_gap = float((r_eval - r_train_out).abs().max())
+    log(f"resnet50-eval: model.eval() forward under the O2 cast, logits "
+        f"{tuple(r_eval.shape)}, {rev_ms:.3f} ms a batch of {VISION_B} (CUDA "
+        f"events, mean of 5), {VISION_B / rev_ms * 1e3:.1f} samples/s "
+        f"[{power}]; max |eval - training-mode logits| = {r_gap:.4g}")
+    if tuple(r_eval.shape) != (VISION_B, 1000) or \
+            not bool(torch.isfinite(r_eval).all()):
+        fail("resnet50 eval logits are not finite values of shape (B, 1000)")
+    if not r_gap > 0:
+        fail("the eval forward does not read the running stats")
+    del rmodel, rnamed, r_eval, r_train_out, stats, rx, ry
+    torch.cuda.empty_cache()
+
+    # -- 12. lenet-train ----------------------------------------------------
+    lmodel = LeNet(num_classes=10)
+    lstep = TrainStep(lmodel, vision_loss, Adam(learning_rate=1e-3))
+    lx, ly = (torch.as_tensor(a, device="cuda")
+              for a in vision_batch(LENET_B, 1, 28, 10))
+    l_first = float(lstep(lx, ly))
+    for _ in range(LENET_WARMUP):
+        lstep(lx, ly)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(LENET_STEPS):
+        l_last = lstep(lx, ly)
+    e1.record()
+    torch.cuda.synchronize()
+    l_ms = e0.elapsed_time(e1) / LENET_STEPS
+    l_last = float(l_last)
+    log(f"lenet-train: LeNet, f32, Adam(1e-3), B={LENET_B} at 1x28x28: "
+        f"first loss {l_first:.6f}, last {l_last:.6f} after "
+        f"{LENET_WARMUP} warm-ups and {LENET_STEPS} steps; step {l_ms:.4f} "
+        f"ms (CUDA events), {LENET_B / l_ms * 1e3:.1f} samples/s [{power}]")
+    if not (math.isfinite(l_last) and l_last < l_first):
+        fail("LeNet did not train: the last loss is not below the first")
+    del lstep, lmodel, lx, ly
+    torch.cuda.empty_cache()
+    t_phases = time.perf_counter() - t_phases
+    log(f"vision: the new phases took {t_vision + t_phases:.1f} s of wall "
+        f"time (small-vision check {t_vision:.1f} s, resnet50-train, -eval "
+        f"and lenet-train {t_phases:.1f} s)")
+    vision_row = {"resnet50_train_step_ms": r_ms,
+                  "resnet50_train_samples_per_s": VISION_B / r_ms * 1e3,
+                  "resnet50_train_peak_bytes": r_mem,
+                  "resnet50_train_losses": r_losses,
+                  "resnet50_eval_ms": rev_ms,
+                  "resnet50_eval_samples_per_s": VISION_B / rev_ms * 1e3,
+                  "lenet_train_step_ms": l_ms,
+                  "lenet_train_samples_per_s": LENET_B / l_ms * 1e3,
+                  "lenet_train_first_last_loss": [l_first, l_last],
+                  "small_vision": sv}
+
+    # -- 13. timing ---------------------------------------------------------
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -2763,12 +3113,10 @@ def main() -> int:
         "bert_layer_flash_fwd_ms": layer_flash,
         "bert_layer_dense_fwd_ms": layer_dense,
         "bert_layer_flash_fwd_bwd_ms": layer_flash_fb,
-        "bert_layer_dense_fwd_bwd_ms": layer_dense_fb, **z["summary"]}))
+        "bert_layer_dense_fwd_bwd_ms": layer_dense_fb, **z["summary"],
+        **vision_row}))
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_power())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

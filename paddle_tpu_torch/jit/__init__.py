@@ -17,6 +17,15 @@ as in the reference's ``functional_loss_call``.  The reference's
 TrainStep treats O1 as O2 (``amp = self.amp_level in ("O1", "O2")``,
 :363), and so does the port.
 
+Buffers (BatchNorm's running statistics) are the module's own tensors:
+``functional_call`` is handed the cast parameters only, so a training
+forward updates the buffers in place, off autograd's tape, where the
+reference threads them through the step as functional outputs
+(``functional_loss_call`` :270-297).  They are never cast by AMP and take
+no gradient; with ``accumulate_steps = k`` micro-batch j normalises by its
+own statistics and leaves the running stats for micro-batch j + 1, as the
+reference's scan carries them (:385-396).
+
 ``donate`` (the default) lets the optimizer write the new parameters and
 moments into their own storage where it can (the fused Adam): one copy of
 them stays live, as the reference's donation keeps one.  Not ported, and
@@ -51,7 +60,8 @@ def functional_loss_call(model, loss_fn, params: dict, inputs,
     """``loss_fn(model, *inputs)`` as an f32 scalar on autograd's tape.
     With ``amp``, floating parameters of ``ndim >= 1`` and floating inputs
     are cast to ``amp_dtype`` for the call; ``params`` ({name: parameter})
-    stay the leaves that receive the gradient."""
+    stay the leaves that receive the gradient.  The module's buffers are
+    used, and updated by a training forward, as they are: never cast."""
     if not amp:
         loss = loss_fn(model, *inputs)
     else:

@@ -10,7 +10,9 @@ the optimizer state from a reference ``TrainStep`` as
 step._opt_states.items()}``.  The ``nn.Module`` layers (Linear, LayerNorm,
 the transformer encoder) keep the reference's dotted parameter names:
 take their arrays as ``{n: np.asarray(p._data) for n, p in
-ref.named_parameters()}`` and load them with :func:`load_named_params`.
+ref.named_parameters()}`` and load them with :func:`load_named_params`;
+their buffers (BatchNorm's ``_mean`` and ``_variance``) likewise from
+``ref.named_buffers()`` with :func:`load_named_buffers`.
 """
 from __future__ import annotations
 
@@ -19,9 +21,12 @@ import torch
 
 from paddle_tpu_torch.models.gpt import _PARAM_ORDER
 
-__all__ = ["params_from_jax", "opt_states_from_jax", "load_named_params"]
+__all__ = ["params_from_jax", "opt_states_from_jax", "load_named_params",
+           "load_named_buffers"]
 
-_ADAM_KEYS = ("moment1", "moment2", "beta1_pow", "beta2_pow")
+# each in-tree optimizer's state keys: Adam and AdamW, Momentum
+_STATE_KEYS = (("moment1", "moment2", "beta1_pow", "beta2_pow"),
+               ("velocity",))
 
 
 def params_from_jax(np_params: dict, order=_PARAM_ORDER) -> dict:
@@ -37,38 +42,52 @@ def params_from_jax(np_params: dict, order=_PARAM_ORDER) -> dict:
             for n in order}
 
 
-def load_named_params(module: torch.nn.Module, np_named: dict):
-    """Copy {dotted name: np.ndarray}, keyed as the reference layer's
-    ``named_parameters()``, into the port module's parameters of the same
-    names, in place.  Raises unless the names and shapes match exactly.
-    Returns the module."""
-    params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(np_named))
-    extra = sorted(set(np_named) - set(params))
+def _load_named(kind, tensors: dict, np_named: dict):
+    missing = sorted(set(tensors) - set(np_named))
+    extra = sorted(set(np_named) - set(tensors))
     if missing or extra:
-        raise ValueError(f"load_named_params: missing {missing}, unexpected "
+        raise ValueError(f"load_named_{kind}: missing {missing}, unexpected "
                          f"{extra}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, p in tensors.items():
             t = torch.from_numpy(np.array(np_named[name], copy=True))
             if p.shape != t.shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} does not "
                                  f"match {tuple(p.shape)}")
             p.copy_(t)
+
+
+def load_named_params(module: torch.nn.Module, np_named: dict):
+    """Copy {dotted name: np.ndarray}, keyed as the reference layer's
+    ``named_parameters()``, into the port module's parameters of the same
+    names, in place.  Raises unless the names and shapes match exactly.
+    Returns the module."""
+    _load_named("params", dict(module.named_parameters()), np_named)
+    return module
+
+
+def load_named_buffers(module: torch.nn.Module, np_named: dict):
+    """Copy {dotted name: np.ndarray}, keyed as the reference layer's
+    ``named_buffers()`` (``bn1._mean``, ...), into the port module's
+    buffers of the same names, in place, with the same exact check of
+    names and shapes.  Returns the module."""
+    _load_named("buffers", dict(module.named_buffers()), np_named)
     return module
 
 
 def opt_states_from_jax(states: dict) -> dict:
-    """{name: {moment1, moment2, beta1_pow, beta2_pow} as numpy} (the
-    reference TrainStep's ``_opt_states``) -> the same structure as f32
-    CPU tensors, for ``TrainStep.set_opt_states``: a run continues from
-    the reference's state."""
+    """{name: state as numpy} (the reference TrainStep's ``_opt_states``:
+    Adam's {moment1, moment2, beta1_pow, beta2_pow} or Momentum's
+    {velocity}) -> the same structure as f32 CPU tensors, for
+    ``TrainStep.set_opt_states``: a run continues from the reference's
+    state."""
     out = {}
     for name, st in states.items():
-        if set(st) != set(_ADAM_KEYS):
+        if not any(set(st) == set(keys) for keys in _STATE_KEYS):
             raise ValueError(f"opt_states_from_jax: {name} has keys "
-                             f"{sorted(st)}, expected {list(_ADAM_KEYS)}")
-        out[name] = {k: torch.from_numpy(np.array(st[k], dtype=np.float32,
+                             f"{sorted(st)}, expected one of "
+                             f"{[list(k) for k in _STATE_KEYS]}")
+        out[name] = {k: torch.from_numpy(np.array(a, dtype=np.float32,
                                                   copy=True))
-                     for k in _ADAM_KEYS}
+                     for k, a in st.items()}
     return out

@@ -3,5 +3,7 @@ from paddle_tpu_torch.nn import functional  # noqa: F401
 from paddle_tpu_torch.nn.clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_)
 from paddle_tpu_torch.nn.layer import (  # noqa: F401
-    Dropout, LayerNorm, Linear, MultiHeadAttention, TransformerEncoder,
+    AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D, BatchNorm2D,
+    BatchNorm3D, Conv1D, Conv2D, Conv3D, Dropout, Flatten, LayerNorm, Linear,
+    MaxPool2D, MultiHeadAttention, ReLU, Sequential, TransformerEncoder,
     TransformerEncoderLayer)

@@ -1,5 +1,5 @@
 """``relu`` and ``gelu`` (port of paddle_tpu/nn/functional/activation.py,
-what nn/layer/transformer.py needs)."""
+what the transformer and vision layers need)."""
 from __future__ import annotations
 
 import torch.nn.functional as F

@@ -1,5 +1,5 @@
-"""``Linear`` and ``Dropout`` (port of paddle_tpu/nn/layer/common.py, what
-nn/layer/transformer.py needs).
+"""``Linear``, ``Dropout`` and ``Flatten`` (port of
+paddle_tpu/nn/layer/common.py).
 
 ``Linear`` keeps the reference's ``(in_features, out_features)`` weight
 layout, so a reference layer's weights carry across as a copy
@@ -17,7 +17,7 @@ from torch import nn
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 
-__all__ = ["Linear", "Dropout"]
+__all__ = ["Linear", "Dropout", "Flatten"]
 
 
 def _check_attr(attr, what):
@@ -73,3 +73,16 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Flatten(nn.Module):
+    """Flattens dims ``start_axis`` to ``stop_axis`` into one (reference
+    ``:167``)."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)

@@ -20,10 +20,12 @@ replicated.
   (``parallel/ring.py``) reduce-scatter then all-gather of each padded
   flat gradient, which admits int8 and int4 too.
 
-The loss is the mean of the ranks' losses.  Not ported, and raising:
-``recompute=True`` (activation recompute), a model with floating buffers
-(the steps do not thread buffers yet), and a ``grad_clip``, which the
-reference's step ignores.  LocalSGD and DGC are not ported yet.
+The loss is the mean of the ranks' losses.  Floating buffers
+(BatchNorm's running statistics, which each rank updates from its own
+slice of the batch) are averaged over the ranks after the step, in f32
+and cast back (:338-346), never on the gradients' wire.  Not ported, and
+raising: ``recompute=True`` (activation recompute) and a ``grad_clip``,
+which the reference's step ignores.  LocalSGD and DGC are not ported yet.
 """
 from __future__ import annotations
 
@@ -56,11 +58,6 @@ def _loss_closure(model, loss_fn: Callable, amp_level=None,
     if recompute:
         raise NotImplementedError(
             "recompute=True: activation recompute is not ported")
-    for n, b in model.named_buffers():
-        if b is not None and b.is_floating_point():
-            raise NotImplementedError(
-                f"floating buffer {n!r}: the data-parallel steps do not "
-                "thread buffers yet (the BatchNorm slice does)")
     amp = amp_level in ("O1", "O2")
 
     def loss_from(params, inputs):
@@ -99,6 +96,17 @@ def mean_over_ranks(x: torch.Tensor, mesh) -> torch.Tensor:
     ``pmean``)."""
     n = mesh.shape["dp"]
     return ordered_sum(mesh.group.all_gather(x)) / n
+
+
+def average_buffers(model, mesh):
+    """Every floating buffer of ``model`` replaced by its mean over the
+    ranks, taken in f32 and cast back (the reference's ``pmean`` of the
+    new buffers); nothing to do at world size 1."""
+    if mesh.shape.get("dp", 1) == 1:
+        return
+    for b in model.buffers():
+        if b.is_floating_point():
+            b.copy_(mean_over_ranks(b.float(), mesh).to(b.dtype))
 
 
 class CompressedAllReduceTrainStep:
@@ -170,5 +178,6 @@ class CompressedAllReduceTrainStep:
                 self._opt_states, lr=lr)
             for n, p in params.items():
                 p.copy_(new_params[n])
+            average_buffers(self.model, self.mesh)
         self.optimizer._global_step += 1
         return loss

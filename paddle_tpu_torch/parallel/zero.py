@@ -40,10 +40,14 @@ sum: the two agree bitwise on gloo and NCCL alike, whose own
 every int8 / int4 encode runs kernel #9 (``ops/cuda/ring_quant.py``): one
 launch a parameter in each unfused leg.
 
+Floating buffers (BatchNorm's running statistics) are averaged over the
+ranks after the update, in f32 and cast back, never on the wire
+(reference ``:363-369``; ``dp_meta.average_buffers``).
+
 Not ported, each raising or absent: LARS (``LarsMomentum``, rejected by
 name: its per-parameter norms would be taken over 1/dp chunks), a grad clip
-without ``functional_clip`` (the reference skips it), floating buffers and
-``recompute=True`` (``dp_meta._loss_closure``), checkpoint interop
+without ``functional_clip`` (the reference skips it), ``recompute=True``
+(``dp_meta._loss_closure``), checkpoint interop
 (``checkpoint_extra_meta``, ``adopt_opt_state``), the chaos, tracer,
 monitor and parity hooks, and ``analyze``.
 """
@@ -61,7 +65,8 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                quantize_rows_torch,
                                                wire_nbytes)
 from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, _loss_closure,
-                                               local_batch, loss_and_grads,
+                                               average_buffers, local_batch,
+                                               loss_and_grads,
                                                mean_over_ranks)
 from paddle_tpu_torch.parallel.mesh import _require_pure_dp, get_mesh
 from paddle_tpu_torch.parallel.ring import (ordered_sum, ring_all_gather,
@@ -274,6 +279,7 @@ class ShardedUpdateTrainStep:
             for n, p in params.items():
                 full = self._all_gather(new_pshards[n].to(p.dtype))
                 p.copy_(full[:self._specs[n].size].view_as(p))
+            average_buffers(self.model, self.mesh)
             loss = mean_over_ranks(loss, self.mesh)
         self.optimizer._global_step += 1
         return loss
