@@ -36,8 +36,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
              gradient and one Momentum step's moves in f64 and eval mode,
              and the port's f32 convolution (TF32 switched on around it,
              cuDNN's TF32 read beside it) and batch norm alone.
-3. serve   — GPT-2 345M at full width and depth in bf16 answers a batch of
-             B=8 prompts of S=1024 tokens: logits and next-token argmax, then
+3. serve   — GPT-2 345M (remat=False in phases 3-5 and 10, as bench.py's
+             GPT-2 legs run it) at full width and depth in bf16 answers a
+             batch of B=8 prompts of S=1024 tokens: logits and next-token argmax, then
              gpt_loss scoring with the fused-CE flag off and on.  The launch
              counters are set to 0 just before and read just after.
 4. train   — GPT-2 345M at full width and depth, f32 masters, trains as
@@ -51,22 +52,36 @@ Phases, in order; any failure ends the script with a non-zero exit:
              bf16, 5 steps.  First the fused Adam kernel is held to its
              plain version on the model's own parameter set and timed.
              Counters set to 0 just before the steps, read after each.
-6. bert-serve — BERT-base (12 layers, H=768, V=30522) in bf16 answers 3
+6. remat   — a small f32 GPT and a small f32 BERT (padded) on the card:
+             loss and gradients with per-layer remat, with the whole loss
+             recomputed and with both bitwise those without, and within
+             1e-4 of the CPU; then the train phase's GPT-2 345M step in four
+             forms from the same parameters (remat=False, remat=True,
+             TrainStep(recompute=True), both): step ms, peak bytes, the bf16
+             losses and final parameters bitwise equal across the forms
+             and remat=False's losses bitwise the train phase's, 1 + remat
+             + recompute flash forward launches a layer a step; beside each
+             form the host's side of a step (until step() returns, process
+             CPU, allocator calls, the Python collector) and the host time
+             of its replays in one more step traced on the host.
+7. bert-serve — BERT-base (12 layers, H=768, V=30522) in bf16 answers 3
              requests of B=128 x S=128 on a padded batch under
              inference_mode: MLM and NSP logits, 12 masked forward launches
              a request and nothing else.
-7. bert-train — BERT-base, f32 masters, as bench.py:204-250 trains it:
-             TrainStep with AMP O2 bf16, AdamW(learning_rate=1e-4),
-             bert_pretrain_loss, B=128, S=128, 15 % MLM labels; 5 steps
-             unpadded, then 5 on the padded batch (12 forward, dq and dk/dv
-             launches a step, masked on the padded one, no dbias).  An
+8. bert-train — BERT-base, f32 masters, as bench.py:204-250 trains it
+             (remat=True): TrainStep with AMP O2 bf16,
+             AdamW(learning_rate=1e-4), bert_pretrain_loss, B=128, S=128,
+             15 % MLM labels; 5 steps unpadded, then 5 on the padded batch
+             (24 forward, 12 dq and 12 dk/dv launches a step, masked on the
+             padded one, no dbias); then the same with remat=False (12
+             forward launches), whose losses must be bitwise the same.  An
              all-ones mask must give the unmasked loss.
-8. encoder-bias — a 12-layer TransformerEncoder (768, 12 heads, 3072,
+9. encoder-bias — a 12-layer TransformerEncoder (768, 12 heads, 3072,
              GELU) that trains a learned (1, 12, 128, 128) attention bias
              as its src_mask: 5 O2 AdamW steps on a mean-square loss at
              B=128, S=128, 12 launches of each masked kernel and of dbias
-             a step.  Counters set to 0 just before each of phases 6-8.
-9. zero    — the row quantizer #9 bitwise against its plain codec over a
+             a step.  Counters set to 0 just before each of phases 6-9.
+10. zero   — the row quantizer #9 bitwise against its plain codec over a
              boundary corpus (widths 1 to 1024, 1 to 100k rows, ties, zero
              and NaN/inf rows) and on GPT-2 345M's gradient in 256-wide
              rows; then bench.py's bench_gpt2_zero step, GPT-2 345M at full
@@ -87,19 +102,34 @@ Phases, in order; any failure ends the script with a non-zero exit:
              TOL_ZERO_LOSS of the f32 run and planted faults (parameters
              left unchanged, a mis-seated hop, a wrong qmax) read beside it.
              Counters set to 0 before each run.
-10. resnet50-train — bench.py's bench_resnet50: resnet50(num_classes=1000),
+11. longseq — bench.py's bench_longseq_flash: first the flash forward
+             and backward at its layer (B*H=8, S=2048 and 8192, D=128,
+             causal, bf16) against their plain versions, beside planted
+             faults, and timed beside SDPA at S=8192; then gpt_tiny(4
+             layers, H=1024, 8 heads, V=8192, remat=True), TrainStep(O2
+             bf16), AdamW(1e-4), B=1: S=2048 for
+             6 timed steps and S=8192 for 3, each after 2 warm-ups;
+             tokens/s at both lengths and their ratio, 8 forward, 4 dq and
+             4 dk/dv launches a step, the first loss near ln V.
+12. masked-flash — bench.py's bench_masked_flash: B=4, S=2048, 16 heads
+             of 64, bf16, a (B, 1, 1, S) padding bias from its lengths; the
+             masked kernels against their plain versions, then fwd+bwd
+             through flash_attention masked and unmasked (one launch of
+             each kernel), their times and the retention, and each
+             kernel's time beside SDPA's.
+13. resnet50-train — bench.py's bench_resnet50: resnet50(num_classes=1000),
              NCHW, f32 masters, TrainStep with AMP O2 bf16, Momentum(0.1,
              0.9), B=128 at 224x224 from default_rng(0), one warm-up then 5
              steps: step ms, samples/s, peak bytes; losses finite, every
              running stat finite and moved, every parameter moved.
-11. resnet50-eval — the same model's eval() forward under the O2 cast:
+14. resnet50-eval — the same model's eval() forward under the O2 cast:
              samples/s; finite logits that differ from the training-mode
              forward's on the same batch.
-12. lenet-train — bench.py's bench_lenet: LeNet, f32, Adam(1e-3), B=256,
+15. lenet-train — bench.py's bench_lenet: LeNet, f32, Adam(1e-3), B=256,
              2 warm-ups then 50 steps: samples/s; the last loss below the
-             first.  Phases 10-12 print the card's name and power limit
+             first.  Phases 13-15 print the card's name and power limit
              beside their numbers; no hand-written kernel is on their path.
-13. timing — each kernel, its plain version, the one-call PyTorch yardstick
+16. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
              masked kernels and dbias at BERT-base's layer, and the flash
              kernel against the dense path there; the fused CE backward's
@@ -198,6 +228,18 @@ ZERO_DP2_LAYERS = 2            # simulated dp = 2: GPT-2 345M's width, 2 layers
 # reads the faults on each run and fails if one is not above this.
 TOL_ZERO_LOSS = 0.55
 RING_LEAF = 1024 * 4096        # ring primitives: values a rank, one MLP leaf
+# the remat phase's forms of GPT-2 345M training: (name, the model's remat,
+# TrainStep's recompute); a layer's attention runs 1 + remat + recompute
+# times a step
+REMAT_FORMS = (("remat=False", False, False), ("remat=True", True, False),
+               ("recompute=True", False, True),
+               ("remat=True, recompute=True", True, True))
+# bench.py's bench_longseq_flash (accelerator leg): 8 heads of 128
+LONG_B, LONG_S, LONG_S_REF = 1, 8192, 2048
+LONG_LAYERS, LONG_WIDTH, LONG_HEADS, LONG_VOCAB = 4, 1024, 8, 8192
+LONG_WARMUP, LONG_ITERS, LONG_ITERS_REF = 2, 3, 6
+# bench.py's bench_masked_flash: (B, S, H, D), bf16, a (B, 1, 1, S) bias
+MASKED_B, MASKED_S, MASKED_H, MASKED_D = 4, 2048, 16, 64
 # bench.py's bench_resnet50 (accelerator leg) and bench_lenet
 VISION_B, VISION_HW, VISION_STEPS = 128, 224, 5
 LENET_B, LENET_WARMUP, LENET_STEPS = 256, 2, 50
@@ -1225,6 +1267,37 @@ def check_small_bert(Bert, BertConfig, bert_pretrain_loss, TrainStep, AdamW,
     return err, moves_err(gpu, cpu, old, "one AdamW step")
 
 
+def check_small_remat(models, loss_closure, loss_and_grads):
+    """Small f32 models on the card with each form of recompute (per-layer
+    remat, the whole loss as one region, both): the loss and every
+    gradient bitwise those of the same model without recompute; and the
+    remat model on the CPU within TOL_F32 of the card.  ``models``: [(name,
+    make(remat, device), loss_fn, inputs)].  Returns (the forms that were
+    not bitwise, the largest card-CPU difference)."""
+    import torch
+
+    def grads(model, loss_fn, args, recompute):
+        params = dict(model.named_parameters())
+        dev = next(iter(params.values())).device
+        return loss_and_grads(loss_closure(model, loss_fn,
+                                           recompute=recompute), params,
+                              [torch.as_tensor(a, device=dev) for a in args])
+
+    bad, err = [], 0.0
+    for name, make, loss_fn, args in models:
+        loss_p, g_p = grads(make(False, "cuda"), loss_fn, args, False)
+        for form, remat, rc in REMAT_FORMS[1:]:
+            loss_r, g_r = grads(make(remat, "cuda"), loss_fn, args, rc)
+            if not torch.equal(loss_r, loss_p) or not all(
+                    torch.equal(g_r[n], g_p[n]) for n in g_p):
+                bad.append(f"{name} {form}")
+        loss_c, g_c = grads(make(True, "cpu"), loss_fn, args, False)
+        err = max([err, abs(float(loss_c) - float(loss_p))]
+                  + [float((g_p[n].cpu() - g_c[n]).abs().max())
+                     for n in g_c])
+    return bad, err
+
+
 def moves_err(gpu, cpu, old, what):
     """Largest difference of a parameter's move, card against CPU, over
     the size of that move; fails on a parameter that did not move."""
@@ -1680,6 +1753,54 @@ def reset_fa(fa):
         setattr(fa, n, 0)
 
 
+def attention_times(g, fa, F, b, h, s, d, causal, amask=None):
+    """The bf16 flash kernels #1 (forward), #2 (dq) and #3 (dk/dv) at (b, h,
+    s, d) on random inputs, with BERT's padding bias of ``amask`` (B, S)
+    when given: each kernel's ms (CUDA events), SDPA's forward and backward
+    ms on the same work (a bool mask of the real keys), and each kernel's
+    bound.  The work counted for a bound is what this data needs: the
+    (query, key) pairs the causal edge or the padding leaves visible."""
+    import torch
+    bh, sc = b * h, d ** -0.5
+    qt, kt, vt, dot = (rand(g, (bh, s, d), torch.bfloat16)
+                       for _ in range(4))
+    mask = keep = None
+    extra = 0
+    pairs = bh * (visible_pairs(s, s, True) if causal else s * s)
+    if amask is not None:
+        mask = fa.Mask(padding_bias(amask), None, None, h)
+        keep = amask.bool()[:, None, None, :]
+        extra = b * s * 4                            # the f32 bias
+        pairs = h * s * int(amask.sum())
+    ot, lse = fa._launch(qt, kt, vt, sc, causal, mask)
+    delta = fa._delta(dot, ot)
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (qt, kt, vt, dot))
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    out_l = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep,
+                                           is_causal=causal, scale=sc)
+    prod = 2 * d * pairs                             # one product
+    tb, rb = bh * s * d * 2, bh * s * 4              # a bf16 tensor, a row
+    r = {"fwd_ms": cuda_ms(lambda: fa._launch(qt, kt, vt, sc, causal,
+                                              mask)),
+         "dq_ms": cuda_ms(lambda: fa._launch_dq(qt, kt, vt, dot, lse, delta,
+                                                sc, causal, mask)),
+         "dkv_ms": cuda_ms(lambda: fa._launch_dkv(qt, kt, vt, dot, lse,
+                                                  delta, sc, causal, mask)),
+         "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             q4, k4, v4, attn_mask=keep, is_causal=causal, scale=sc)),
+         "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+             out_l, (ql, kl, vl), do4, retain_graph=True))}
+    # forward: 2 products, reads q, k, v (and the bias), writes out and
+    # lse; dq: 3, reads q, k, v, do, lse, delta, writes dq; dk/dv: 4,
+    # writes dk and dv
+    for name, n_prod, nbytes in (("fwd", 2, 4 * tb + rb),
+                                 ("dq", 3, 5 * tb + 2 * rb),
+                                 ("dkv", 4, 6 * tb + 2 * rb)):
+        r[name + "_bound_ms"], r[name + "_bound_by"] = bound(
+            n_prod * prod, nbytes + extra, PEAK_BF16_FLOPS)
+    return r
+
+
 def zero_phase(g, cfg, ids_t, fa):
     """Phase 9: the row quantizer #9 against its plain codec, bench.py's
     bench_gpt2_zero step at world size 1 over NCCL on every wire, and dp = 2
@@ -1822,7 +1943,7 @@ def zero_phase(g, cfg, ids_t, fa):
     # simulated dp = 2: two ranks as threads, each on its own replica
     cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
                      vocab_size=cfg.vocab_size, max_seq_len=S,
-                     num_layers=ZERO_DP2_LAYERS)
+                     num_layers=ZERO_DP2_LAYERS, remat=False)
     models2 = [GPT(cfg2, device="cuda") for _ in range(2)]
     init2 = {n: p.detach().clone() for n, p in models2[0].named_parameters()}
     log(f"zero dp=2 (simulated: two ranks as threads on one card): GPT-2 "
@@ -1981,7 +2102,8 @@ def main() -> int:
 
     import paddle_tpu_torch.nn as tnn
     from paddle_tpu_torch.framework.flags import set_flags
-    from paddle_tpu_torch.jit import TrainStep, functional_loss_call
+    from paddle_tpu_torch.jit import (TrainStep, functional_loss_call,
+                                      loss_and_grads, loss_closure)
     from paddle_tpu_torch.models import (GPT, Bert, BertConfig, bert_base,
                                          bert_pretrain_loss, gpt2_345m,
                                          gpt_loss, gpt_tiny)
@@ -1992,6 +2114,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import fused_ce
     from paddle_tpu_torch.ops.cuda import ring_quant
     from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
+    from paddle_tpu_torch.tools.profile_gpt import gc_time
     from paddle_tpu_torch.vision.models import LeNet, resnet18, resnet50
 
     # f32 products in full f32 on both sides of every comparison
@@ -2210,7 +2333,10 @@ def main() -> int:
     t_vision = time.perf_counter() - t_vision
 
     # -- 3. serve -----------------------------------------------------------
-    cfg = gpt2_345m(max_seq_len=S)
+    # bench.py's GPT-2 legs run remat=False (bench.py:299, :345): serve,
+    # train, train-fused and zero measure what they measured before the
+    # port honoured remat; the remat phase runs the other forms
+    cfg = gpt2_345m(max_seq_len=S, remat=False)
     t0 = time.perf_counter()
     model = GPT(cfg, device="cuda").to(bf16)
     torch.cuda.synchronize()
@@ -2443,7 +2569,134 @@ def main() -> int:
     del step, tmodel, loss_t, params, named, opt
     torch.cuda.empty_cache()
 
-    # -- 6. bert-serve ------------------------------------------------------
+    # -- 6. remat -----------------------------------------------------------
+    sb_ids, _, sb_nsp, sb_amask, sb_mlm = bert_batch(512, 4, 128, seed=5)
+    small_models = [
+        ("GPT", lambda r, d: GPT(gpt_tiny(
+            num_layers=2, hidden_size=128, num_heads=2, max_seq_len=256,
+            remat=r), device=d), gpt_loss, [ids_s, ids_s]),
+        ("BERT", lambda r, d: Bert(BertConfig(
+            vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+            max_seq_len=128, remat=r), device=d), bert_pretrain_loss,
+         [sb_ids, sb_mlm, sb_nsp, sb_amask])]
+    rc_bad, rc_err = check_small_remat(small_models, loss_closure,
+                                       loss_and_grads)
+    log(f"remat: small GPT (2 layers, H=128, S=256) and small BERT (padded, "
+        f"S=128), f32 on the card: loss and gradients with "
+        f"{', '.join(f for f, _, _ in REMAT_FORMS[1:])} bitwise those "
+        f"without: {'no: ' + ', '.join(rc_bad) if rc_bad else 'yes'}; the "
+        f"remat model on the CPU max_abs_err={rc_err:.3g} (tol {TOL_F32:g})")
+    if rc_bad or rc_err > TOL_F32:
+        fail("recompute changed a small model's gradients on the card, or "
+             "the card disagrees with the CPU")
+    rcfg = gpt2_345m(max_seq_len=S)        # the reference's default remat
+    rmodel = GPT(rcfg, device="cuda")
+    init = {n: p.detach().cpu() for n, p in rmodel.named_parameters()}
+    log(f"remat: GPT-2 345M trained as the train phase trains it (O2 bf16, "
+        f"AdamW(1e-4), B={B}, S={S}, {TRAIN_STEPS} steps on one batch), "
+        f"in {len(REMAT_FORMS)} forms from the same parameters")
+    remat_runs, final0 = {}, None
+    for form, remat, rc in REMAT_FORMS:
+        with torch.no_grad():
+            for n, p in rmodel.named_parameters():
+                p.copy_(init[n])
+        rcfg.remat = remat
+        step = TrainStep(rmodel, gpt_loss, AdamW(learning_rate=1e-4),
+                         amp_level="O2", amp_dtype="bfloat16", recompute=rc)
+        # each form starts from an empty allocator cache, as a fresh
+        # process would
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_fa(fa)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        loss_t, counts, host = [], [], []
+        with gc_time() as gc_run:
+            for i in range(TRAIN_STEPS):
+                if i == 1:                            # after one warm-up
+                    e0.record()
+                    cpu0 = time.process_time()
+                    alloc0 = torch.cuda.memory_stats()
+                t0 = time.perf_counter()
+                loss_t.append(step(ids_t, ids_t))
+                host.append((time.perf_counter() - t0) * 1e3)
+                counts.append((fa.launches, fa.launches_dq,
+                               fa.launches_dkv))
+            e1.record()
+            torch.cuda.synchronize()
+        cpu_ms = (time.process_time() - cpu0) * 1e3 / (TRAIN_STEPS - 1)
+        alloc1 = torch.cuda.memory_stats()
+        ms = e0.elapsed_time(e1) / (TRAIN_STEPS - 1)
+        run = {"step_ms": ms, "tokens_per_s": B * S / ms * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "losses": [float(x) for x in loss_t],
+               "launches": dict(zip(("flash_attention_fwd",
+                                     "flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv"),
+                                    counts[-1])),
+               "gc_per_step": {k: v / TRAIN_STEPS
+                               for k, v in gc_run.items()},
+               # the host's side of a step: the time step() takes to
+               # return (it queues the kernels and reads nothing back),
+               # the process's CPU time (all threads), and the caching
+               # allocator's calls to the driver, over the timed steps
+               "host_return_ms": sum(host[1:]) / (TRAIN_STEPS - 1),
+               "process_cpu_ms": cpu_ms,
+               "allocator": {k: alloc1.get(k, 0) - alloc0.get(k, 0)
+                             for k in ("num_device_alloc", "num_device_free",
+                                       "num_alloc_retries")}}
+        final = {n: p.detach().cpu() for n, p in rmodel.named_parameters()}
+        final0 = final if final0 is None else final0
+        run["params_bitwise_remat_false"] = all(
+            torch.equal(final[n], final0[n]) for n in final)
+        # one more step with the host's ranges traced (after the reads
+        # above; the next form starts from init again)
+        t0 = time.perf_counter()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            step(ids_t, ids_t)
+            torch.cuda.synchronize()
+        run["traced_step_ms"] = (time.perf_counter() - t0) * 1e3
+        run["host_ms_by_range"] = {
+            e.key: e.cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.key == "recompute.replay"}
+        del prof
+        remat_runs[form] = run
+        log(f"remat {form}: losses {run['losses']}; launch counts after "
+            f"each step (flash fwd, dq, dk/dv): {counts}; step {ms:.3f} ms "
+            f"(CUDA events, mean of {TRAIN_STEPS - 1} after one warm-up), "
+            f"{run['tokens_per_s']:.1f} training tokens/s, "
+            f"max_memory_allocated {run['peak_bytes']} bytes; the host a "
+            f"step: step() returns after {run['host_return_ms']:.3f} ms, "
+            f"process CPU {run['process_cpu_ms']:.3f} ms, the allocator "
+            f"{run['allocator']}, the Python "
+            f"collector {run['gc_per_step']}; one more step traced "
+            f"on the host (torch.profiler, CPU): "
+            f"{run['traced_step_ms']:.3f} ms wall, host ms by range "
+            f"{run['host_ms_by_range']} [{power}]")
+        per = L * (1 + remat + rc)
+        want = [(per * (i + 1), L * (i + 1), L * (i + 1))
+                for i in range(TRAIN_STEPS)]
+        if counts != want:
+            fail(f"remat {form}: launch counts {counts} != {per} forward, "
+                 f"{L} dq and {L} dk/dv launches per step")
+        del step, loss_t, final
+    first = remat_runs["remat=False"]["losses"]
+    log(f"remat: the remat=False trajectory is the train phase's bitwise: "
+        f"{'yes' if first == train_row['train_losses'] else 'no'}")
+    if first != train_row["train_losses"]:
+        fail("remat: the remat=False losses are not bitwise the train "
+             "phase's, from the same seeded model, batch and optimizer")
+    for form, run in remat_runs.items():
+        if run["losses"] != first or not run["params_bitwise_remat_false"]:
+            fail(f"remat {form}: the bf16 losses or parameters are not "
+                 "bitwise those of remat=False")
+    rcfg.remat = False
+    del rmodel, init, final0
+    torch.cuda.empty_cache()
+
+    # -- 7. bert-serve ------------------------------------------------------
     bcfg = bert_base(max_seq_len=BERT_S)
     BL = bcfg.num_layers
     t0 = time.perf_counter()
@@ -2492,79 +2745,103 @@ def main() -> int:
     del bmodel
     torch.cuda.empty_cache()
 
-    # -- 7. bert-train ------------------------------------------------------
-    t0 = time.perf_counter()
-    bt = Bert(bcfg, device="cuda")                    # f32 masters
-    bstep = TrainStep(bt, bert_pretrain_loss, AdamW(learning_rate=1e-4),
-                      amp_level="O2", amp_dtype="bfloat16")
-    torch.cuda.synchronize()
-    log(f"bert-train: BERT-base built in f32 in "
-        f"{time.perf_counter() - t0:.1f} s; TrainStep(amp_level='O2', bf16), "
-        f"AdamW(learning_rate=1e-4), bert_pretrain_loss, B={BERT_B}, "
-        f"S={BERT_S}, {TRAIN_STEPS} steps unpadded then {TRAIN_STEPS} padded "
-        f"on one batch")
-    named = dict(bt.named_parameters())
-    ones = torch.ones_like(b_amask)
-    with torch.inference_mode():
-        l_plain, l_ones = (float(functional_loss_call(
-            bt, bert_pretrain_loss, named, args, amp=True))
-            for args in ([b_ids, b_mlm, b_nsp], [b_ids, b_mlm, b_nsp, ones]))
-    log(f"bert-train: first-batch loss without a mask {l_plain:.6f}, with "
-        f"an all-ones mask {l_ones:.6f} (tol {TOL_ONES_MASK:g})")
-    if abs(l_plain - l_ones) > TOL_ONES_MASK:
-        fail("an all-ones mask does not give the unmasked loss")
-    bert_runs = {}
-    for kind, args in (("unpadded", (b_ids, b_mlm, b_nsp)),
-                       ("padded", (b_ids, b_mlm_pad, b_nsp, b_amask))):
-        torch.cuda.reset_peak_memory_stats()
-        reset_fa(fa)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        loss_t, counts = [], []
-        for i in range(TRAIN_STEPS):
-            if i == 1:                                # after one warm-up
-                e0.record()
-            loss_t.append(bstep(*args))
-            counts.append(fa_counts(fa))
-        e1.record()
+    # -- 8. bert-train ------------------------------------------------------
+    # bench_bert's configuration (remat=True, the default; bench.py:214),
+    # then, in the same call, the remat=False run this phase measured
+    # before the port honoured remat
+    bert_sets = {}
+    for remat in (True, False):
+        t0 = time.perf_counter()
+        bt = Bert(bert_base(max_seq_len=BERT_S, remat=remat),
+                  device="cuda")                      # f32 masters
+        bstep = TrainStep(bt, bert_pretrain_loss, AdamW(learning_rate=1e-4),
+                          amp_level="O2", amp_dtype="bfloat16")
         torch.cuda.synchronize()
-        ms = e0.elapsed_time(e1) / (TRAIN_STEPS - 1)
-        losses = [float(x) for x in loss_t]
-        bert_runs[kind] = {"step_ms": ms,
-                           "tokens_per_s": BERT_B * BERT_S / ms * 1e3,
-                           "peak_bytes": torch.cuda.max_memory_allocated(),
-                           "losses": losses,
-                           "launches": dict(zip(FA_COUNTERS, counts[-1]))}
-        log(f"bert-train {kind}: losses {losses}")
-        log(f"bert-train {kind}: launch counts after each step "
-            f"{FA_COUNTERS}: {counts}")
-        log(f"bert-train {kind}: step {ms:.3f} ms (CUDA events, mean of "
-            f"{TRAIN_STEPS - 1} steps after one warm-up), "
-            f"{BERT_B * BERT_S / ms * 1e3:.1f} training tokens/s, "
-            f"max_memory_allocated {bert_runs[kind]['peak_bytes']} bytes")
-        if not all(math.isfinite(x) for x in losses):
-            fail("a BERT training loss is not finite")
-        if not losses[-1] < losses[0]:
-            fail(f"the {kind} BERT training loss did not fall")
-        per = (0, 0, 0, BL, BL, BL) if kind == "padded" else (BL, BL, BL, 0,
-                                                              0, 0)
-        want = [tuple(c * (i + 1) for c in per) + (0,)
-                for i in range(TRAIN_STEPS)]
-        if counts != want:
-            fail(f"{kind} launch counts {counts} != {per} per step and no "
-                 "dbias launch")
+        log(f"bert-train remat={remat}: BERT-base built in f32 in "
+            f"{time.perf_counter() - t0:.1f} s; TrainStep(amp_level='O2', "
+            f"bf16), AdamW(learning_rate=1e-4), bert_pretrain_loss, "
+            f"B={BERT_B}, S={BERT_S}, {TRAIN_STEPS} steps unpadded then "
+            f"{TRAIN_STEPS} padded on one batch")
+        if remat:
+            named = dict(bt.named_parameters())
+            ones = torch.ones_like(b_amask)
+            with torch.inference_mode():
+                l_plain, l_ones = (float(functional_loss_call(
+                    bt, bert_pretrain_loss, named, args, amp=True))
+                    for args in ([b_ids, b_mlm, b_nsp],
+                                 [b_ids, b_mlm, b_nsp, ones]))
+            log(f"bert-train: first-batch loss without a mask "
+                f"{l_plain:.6f}, with an all-ones mask {l_ones:.6f} (tol "
+                f"{TOL_ONES_MASK:g})")
+            if abs(l_plain - l_ones) > TOL_ONES_MASK:
+                fail("an all-ones mask does not give the unmasked loss")
+            del named
+        runs = bert_sets[remat] = {}
+        for kind, args in (("unpadded", (b_ids, b_mlm, b_nsp)),
+                           ("padded", (b_ids, b_mlm_pad, b_nsp, b_amask))):
+            torch.cuda.reset_peak_memory_stats()
+            reset_fa(fa)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            loss_t, counts = [], []
+            for i in range(TRAIN_STEPS):
+                if i == 1:                            # after one warm-up
+                    e0.record()
+                loss_t.append(bstep(*args))
+                counts.append(fa_counts(fa))
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / (TRAIN_STEPS - 1)
+            losses = [float(x) for x in loss_t]
+            runs[kind] = {"step_ms": ms,
+                          "tokens_per_s": BERT_B * BERT_S / ms * 1e3,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "losses": losses,
+                          "launches": dict(zip(FA_COUNTERS, counts[-1]))}
+            what = f"bert-train remat={remat} {kind}"
+            log(f"{what}: losses {losses}")
+            log(f"{what}: launch counts after each step {FA_COUNTERS}: "
+                f"{counts}")
+            log(f"{what}: step {ms:.3f} ms (CUDA events, mean of "
+                f"{TRAIN_STEPS - 1} steps after one warm-up), "
+                f"{BERT_B * BERT_S / ms * 1e3:.1f} training tokens/s, "
+                f"max_memory_allocated {runs[kind]['peak_bytes']} bytes "
+                f"[{power}]")
+            if not all(math.isfinite(x) for x in losses):
+                fail("a BERT training loss is not finite")
+            if not losses[-1] < losses[0]:
+                fail(f"the {what} training loss did not fall")
+            fwd = BL * (1 + remat)            # a remat layer's replay
+            per = ((0, 0, 0, fwd, BL, BL) if kind == "padded"
+                   else (fwd, BL, BL, 0, 0, 0))
+            want = [tuple(c * (i + 1) for c in per) + (0,)
+                    for i in range(TRAIN_STEPS)]
+            if counts != want:
+                fail(f"{what} launch counts {counts} != {per} per step and "
+                     "no dbias launch")
+        del bstep, bt, loss_t
+        torch.cuda.empty_cache()
+    bert_runs, bert_plain = bert_sets[True], bert_sets[False]
     ln_vn = math.log(bcfg.vocab_size) + math.log(2)
     if abs(bert_runs["unpadded"]["losses"][0] - ln_vn) > 1.0:
         fail(f"the first BERT loss is not near ln V + ln 2 = {ln_vn:.4f}")
+    for kind in ("unpadded", "padded"):
+        if bert_runs[kind]["losses"] != bert_plain[kind]["losses"]:
+            fail(f"bert-train {kind}: the remat=True losses are not bitwise "
+                 "those of remat=False")
     retention = (bert_runs["padded"]["tokens_per_s"]
                  / bert_runs["unpadded"]["tokens_per_s"])
+    ratios = {k: (bert_runs[k]["step_ms"] / bert_plain[k]["step_ms"],
+                  bert_runs[k]["peak_bytes"] / bert_plain[k]["peak_bytes"])
+              for k in ("unpadded", "padded")}
     log(f"bert-train: padded / unpadded tokens/s = {retention:.4f} "
         "(bench.py's bert_padded_mask_tokens_per_sec_per_chip over "
-        "bert_base_pretrain_tokens_per_sec_per_chip)")
-    del bstep, bt, named, loss_t
-    torch.cuda.empty_cache()
+        "bert_base_pretrain_tokens_per_sec_per_chip), remat=True; "
+        "remat=True / remat=False: "
+        + ", ".join(f"{k} step {r[0]:.4f}, peak bytes {r[1]:.4f}"
+                    for k, r in ratios.items()))
 
-    # -- 8. encoder-bias ----------------------------------------------------
+    # -- 9. encoder-bias ----------------------------------------------------
     enc = biased_encoder(tnn, 768, BERT_HEADS, 3072, BL, BERT_S, None)
     estep = TrainStep(enc, mse_loss, AdamW(learning_rate=1e-4),
                       amp_level="O2", amp_dtype="bfloat16")
@@ -2612,11 +2889,145 @@ def main() -> int:
     del estep, enc, loss_t, ex, etarget
     torch.cuda.empty_cache()
 
-    # -- 9. zero ------------------------------------------------------------
+    # -- 10. zero -----------------------------------------------------------
     z = zero_phase(g, cfg, ids_t, fa)
     grows, quant_err, zero_launch = z["grows"], z["quant_err"], z["launches"]
 
-    # -- 10. resnet50-train ------------------------------------------------
+    # -- 11. longseq --------------------------------------------------------
+    # bench_longseq_flash's accelerator leg.  First one layer's flash
+    # kernels at both of its shapes against their plain versions (at
+    # S=8192 the f32 scores, 2.1 GB, fit), with the planted faults: at
+    # S=2048 the persistent walk has 128 items for 132 SMs, at S=8192 512.
+    # Then each kernel's time beside SDPA's and its bound at S=8192.
+    long_errs = {}
+    for s_len in (LONG_S_REF, LONG_S):
+        lcase = (LONG_B * LONG_HEADS, s_len, s_len,
+                 LONG_WIDTH // LONG_HEADS, bf16, True)
+        long_errs[s_len] = (check_flash(g, fa, lcase),
+                            *check_flash_bwd(g, fa, lcase))
+    log(f"longseq: #1, #2, #3 at bh={LONG_B * LONG_HEADS} d="
+        f"{LONG_WIDTH // LONG_HEADS} bf16 causal against their plain "
+        f"versions, max_abs_err (out, dq, dk/dv) by S: {long_errs}")
+    long_k = attention_times(g, fa, F, LONG_B, LONG_HEADS, LONG_S,
+                             LONG_WIDTH // LONG_HEADS, True)
+    log(f"longseq: kernels at bh={LONG_B * LONG_HEADS} s={LONG_S} d="
+        f"{LONG_WIDTH // LONG_HEADS} bf16 causal: {json.dumps(long_k)} "
+        f"[{power}]")
+    rng_l = np.random.default_rng(0)
+    longseq = {}
+    for s_len, iters in ((LONG_S_REF, LONG_ITERS_REF), (LONG_S, LONG_ITERS)):
+        lcfg = gpt_tiny(num_layers=LONG_LAYERS, hidden_size=LONG_WIDTH,
+                        num_heads=LONG_HEADS, vocab_size=LONG_VOCAB,
+                        max_seq_len=s_len, remat=True)
+        lmodel = GPT(lcfg, device="cuda")
+        lstep = TrainStep(lmodel, gpt_loss, AdamW(learning_rate=1e-4),
+                          amp_level="O2", amp_dtype="bfloat16")
+        lids = torch.as_tensor(rng_l.integers(0, LONG_VOCAB, (LONG_B, s_len)),
+                               device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_fa(fa)
+        loss_t, counts = [], []
+        for _ in range(LONG_WARMUP):
+            loss_t.append(lstep(lids, lids))
+            counts.append(fa_counts(fa)[:3])
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            loss_t.append(lstep(lids, lids))
+            counts.append(fa_counts(fa)[:3])
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / iters
+        run = {"step_ms": ms, "tokens_per_s": LONG_B * s_len / ms * 1e3,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "losses": [float(x) for x in loss_t],
+               "launches": dict(zip(("flash_attention_fwd",
+                                     "flash_attention_bwd_dq",
+                                     "flash_attention_bwd_dkv"),
+                                    counts[-1]))}
+        longseq[s_len] = run
+        log(f"longseq S={s_len}: gpt_tiny({LONG_LAYERS} layers, "
+            f"H={LONG_WIDTH}, {LONG_HEADS} heads, V={LONG_VOCAB}, "
+            f"remat=True), TrainStep(O2 bf16), AdamW(1e-4), B={LONG_B}: "
+            f"losses {run['losses']}; launch counts after each step "
+            f"(flash fwd, dq, dk/dv): {counts}; step {ms:.3f} ms (CUDA "
+            f"events, mean of {iters} after {LONG_WARMUP} warm-ups), "
+            f"{run['tokens_per_s']:.1f} training tokens/s, "
+            f"max_memory_allocated {run['peak_bytes']} bytes [{power}]")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            fail(f"a longseq S={s_len} loss is not finite")
+        if abs(run["losses"][0] - math.log(LONG_VOCAB)) > 1.0:
+            fail(f"the first longseq S={s_len} loss is not near ln V")
+        want = [(2 * LONG_LAYERS * i, LONG_LAYERS * i, LONG_LAYERS * i)
+                for i in range(1, LONG_WARMUP + iters + 1)]
+        if counts != want:
+            fail(f"longseq S={s_len}: launch counts {counts} != "
+                 f"{2 * LONG_LAYERS} forward (remat), {LONG_LAYERS} dq and "
+                 f"{LONG_LAYERS} dk/dv launches per step")
+        del lstep, lmodel, loss_t
+        torch.cuda.empty_cache()
+    long_ratio = longseq[LONG_S]["tokens_per_s"] / longseq[LONG_S_REF][
+        "tokens_per_s"]
+    log(f"longseq: tokens/s at S={LONG_S} / S={LONG_S_REF} = "
+        f"{long_ratio:.4f} (bench.py's "
+        f"gpt_longseq8k_flashattn_train_tokens_per_sec and its vs_baseline)")
+
+    # -- 12. masked-flash ---------------------------------------------------
+    # bench_masked_flash: q, k, v and the lengths drawn in its order
+    rng_m = np.random.default_rng(0)
+    mq, mk, mv = (torch.as_tensor(rng_m.standard_normal(
+        (MASKED_B, MASKED_S, MASKED_H, MASKED_D)), device="cuda").to(bf16)
+        for _ in range(3))
+    m_lens = rng_m.integers(MASKED_S // 2, MASKED_S + 1, size=(MASKED_B,))
+    m_amask = torch.as_tensor(np.arange(MASKED_S)[None, :]
+                              < m_lens[:, None], device="cuda")
+    m_bias = padding_bias(m_amask)
+    if not fa.supported(tuple(mq.shape), tuple(mk.shape), False,
+                        bias_shape=tuple(m_bias.shape), dtype=bf16):
+        fail("the flash kernel does not serve bench_masked_flash's shape")
+    mflash_err = check_masked(
+        g, fa, (MASKED_B, MASKED_H, MASKED_S, MASKED_D, bf16, None, None,
+                False, False),
+        fa.Mask(m_bias, None, None, MASKED_H), dbias=False)[:3]
+    m_sc = MASKED_D ** -0.5
+    mg = [t.detach().clone().requires_grad_() for t in (mq, mk, mv)]
+
+    def masked_fwd_bwd(bias):
+        return torch.autograd.grad(fa.flash_attention(
+            *mg, scale=m_sc, bias=bias).float().sum(), mg)
+
+    reset_fa(fa)
+    for bias in (m_bias, None):
+        masked_fwd_bwd(bias)
+    torch.cuda.synchronize()
+    mflash_launches = dict(zip(FA_COUNTERS, fa_counts(fa)))
+    if fa_counts(fa) != (1, 1, 1, 1, 1, 1, 0):
+        fail(f"masked-flash: launch counts {fa_counts(fa)} != one of each "
+             "unmasked and masked kernel, no dbias")
+    t_masked = cuda_ms(lambda: masked_fwd_bwd(m_bias), reps=20)
+    t_plain = cuda_ms(lambda: masked_fwd_bwd(None), reps=20)
+    mflash = {"fwd_bwd_masked_ms": t_masked, "fwd_bwd_unmasked_ms": t_plain,
+              "tokens_per_s": MASKED_B * MASKED_S / t_masked * 1e3,
+              "retention": t_plain / t_masked,
+              "real_tokens": int(m_lens.sum())}
+    mflash["kernels"] = attention_times(
+        g, fa, F, MASKED_B, MASKED_H, MASKED_S, MASKED_D, False,
+        amask=m_amask)
+    log(f"masked-flash: B={MASKED_B}, S={MASKED_S}, {MASKED_H} heads of "
+        f"{MASKED_D}, bf16, padding bias with {mflash['real_tokens']} real "
+        f"tokens of {MASKED_B * MASKED_S}: fwd+bwd masked {t_masked:.4f} ms, "
+        f"unmasked {t_plain:.4f} ms (CUDA events, mean of 20), "
+        f"{mflash['tokens_per_s']:.1f} tokens/s, retention unmasked / "
+        f"masked {mflash['retention']:.4f} (bench.py's "
+        f"masked_flash_kernel_s2048_tokens_per_sec and its vs_baseline); "
+        f"kernels {json.dumps(mflash['kernels'])} [{power}]")
+    del mq, mk, mv, mg
+    torch.cuda.empty_cache()
+
+    # -- 13. resnet50-train ------------------------------------------------
     t_phases = time.perf_counter()
     rmodel = resnet50(num_classes=1000)             # f32 masters, NCHW
     rstep = TrainStep(rmodel, vision_loss, Momentum(learning_rate=0.1,
@@ -2659,7 +3070,7 @@ def main() -> int:
     del rstep, p0, b0, loss_t
     torch.cuda.empty_cache()
 
-    # -- 11. resnet50-eval --------------------------------------------------
+    # -- 14. resnet50-eval --------------------------------------------------
     rnamed = dict(rmodel.named_parameters())
 
     def r_forward():
@@ -2688,7 +3099,7 @@ def main() -> int:
     del rmodel, rnamed, r_eval, r_train_out, stats, rx, ry
     torch.cuda.empty_cache()
 
-    # -- 12. lenet-train ----------------------------------------------------
+    # -- 15. lenet-train ----------------------------------------------------
     lmodel = LeNet(num_classes=10)
     lstep = TrainStep(lmodel, vision_loss, Adam(learning_rate=1e-3))
     lx, ly = (torch.as_tensor(a, device="cuda")
@@ -2728,7 +3139,7 @@ def main() -> int:
                   "lenet_train_first_last_loss": [l_first, l_last],
                   "small_vision": sv}
 
-    # -- 13. timing ---------------------------------------------------------
+    # -- 16. timing ---------------------------------------------------------
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -2767,7 +3178,12 @@ def main() -> int:
                     "launches": serve_launches["flash_attention_fwd"]
                     + train_launches["flash_attention_fwd"]
                     + fused_launches["flash_attention_fwd"]
-                    + bert_runs["unpadded"]["launches"]["launches"],
+                    + sum(r["launches"]["flash_attention_fwd"]
+                          for r in (*remat_runs.values(),
+                                    *longseq.values()))
+                    + sum(r["unpadded"]["launches"]["launches"]
+                          for r in (bert_runs, bert_plain))
+                    + mflash_launches["launches"],
                     "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
                     "bound_ms": fa_bound, "bound_by": fa_by,
                     "library_ms": fa_lib})
@@ -2820,7 +3236,13 @@ def main() -> int:
                                        else "py:498"),
                         "launches": train_launches[name]
                         + fused_launches[name]
-                        + bert_runs["unpadded"]["launches"][
+                        + sum(r["launches"][name]
+                              for r in (*remat_runs.values(),
+                                        *longseq.values()))
+                        + sum(r["unpadded"]["launches"][
+                            "launches_" + name.rsplit("_", 1)[1]]
+                            for r in (bert_runs, bert_plain))
+                        + mflash_launches[
                             "launches_" + name.rsplit("_", 1)[1]],
                         "max_abs_err": err, "ms": ms,
                         # the plain version and the library call compute
@@ -3059,9 +3481,9 @@ def main() -> int:
         _xla_attention(qg, kg, vg, pb, bsc, False), (qg, kg, vg), dop))
     del bq, bk, bv, bdo, q4b, k4b, v4b, do4b, qg, kg, vg
 
-    m_launch = {n: bserve_launches[n]
-                + bert_runs["padded"]["launches"][n] + enc_launches[n]
-                for n in FA_COUNTERS}
+    m_launch = {n: bserve_launches[n] + bert_runs["padded"]["launches"][n]
+                + bert_plain["padded"]["launches"][n] + enc_launches[n]
+                + mflash_launches[n] for n in FA_COUNTERS}
     ma = bert_att["masked"]
     for name, counter, src, line, ms, err, bnd, plain, lib in (
             ("flash_attention_fwd_masked", "launches_masked", "fwd", 190,
@@ -3102,6 +3524,22 @@ def main() -> int:
         "bert_serve_peak_bytes": bserve_mem,
         **{f"bert_train_{kind}_{k}": v for kind, run in bert_runs.items()
            for k, v in run.items() if k != "launches"},
+        **{f"bert_train_remat_false_{kind}_{k}": v
+           for kind, run in bert_plain.items()
+           for k, v in run.items() if k not in ("launches", "losses")},
+        **{f"remat[{form}]_{k}": v for form, run in remat_runs.items()
+           for k, v in run.items() if k in ("step_ms", "tokens_per_s",
+                                            "peak_bytes")},
+        **{f"longseq_s{s_len}_{k}": v for s_len, run in longseq.items()
+           for k, v in run.items() if k != "launches"},
+        "gpt_longseq8k_flashattn_train_tokens_per_sec":
+            longseq[LONG_S]["tokens_per_s"],
+        "longseq_vs_baseline": long_ratio,
+        "longseq_kernels": long_k,
+        "longseq_check_max_abs_err": {str(k): list(v)
+                                      for k, v in long_errs.items()},
+        **{f"masked_flash_{k}": v for k, v in mflash.items()},
+        "masked_flash_check_max_abs_err": list(mflash_err),
         "bert_padded_retention": retention,
         "bert_masked_attention_share_of_padded_step": BL * (
             ma["fwd_ms"] + ma["dq_ms"] + ma["dkv_ms"])

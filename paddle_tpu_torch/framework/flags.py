@@ -75,3 +75,9 @@ define_flag("zero_ring_collectives", False,
             "CompressedAllReduceTrainStep; the f32 wire keeps the plain "
             "collectives.  The default of ring=None, kept as the "
             "reference's name for it; callers pass ring")
+define_flag("check_nan_inf", False,
+            "jit.TrainStep (__call__ and multi_step) raises "
+            "FloatingPointError on a non-finite loss: before any state is "
+            "left changed without donation, after the write-back with it.  "
+            "One read of the losses from the device a call when armed, "
+            "none when not")

@@ -28,31 +28,40 @@ reference's scan carries them (:385-396).
 
 ``donate`` (the default) lets the optimizer write the new parameters and
 moments into their own storage where it can (the fused Adam): one copy of
-them stays live, as the reference's donation keeps one.  Not ported, and
-raising ``NotImplementedError``: ``recompute=True``, and a gradient clip
-without ``functional_clip``, which the reference's step silently skips.
+them stays live, as the reference's donation keeps one.
+
+``recompute=True`` makes the whole ``functional_loss_call`` one recompute
+region (``jit/recompute.py``; the reference's ``jax.checkpoint`` over
+``loss_from``, :371-376): the backward replays the forward, the O2 cast
+included, and the gradients are bitwise those without it.
+
+``FLAGS_check_nan_inf`` (reference ``_commit_step`` :437-460): armed, a
+non-finite loss raises ``FloatingPointError`` after one read of the losses
+from the device.  With ``donate=False`` the raise comes before any
+parameter, moment or buffer is written: the new parameters and moments go
+from step to step as new tensors and are written only after the check,
+and the buffers, which a training forward updates in place, are copied
+first and put back.  With ``donate=True`` the raise comes after the
+write-back, as the reference's donated buffers force.  Disarmed, the step
+reads nothing back.
+
+Not ported, and raising ``NotImplementedError``: a gradient clip without
+``functional_clip``, which the reference's step silently skips.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-__all__ = ["TrainStep", "functional_loss_call", "apply_functional_update"]
+from paddle_tpu_torch.framework.flags import flag
+from paddle_tpu_torch.jit import recompute as _recompute
+from paddle_tpu_torch.jit.recompute import substituted_call
 
-
-class _Bound(nn.Module):
-    """``loss_fn(model, *inputs)`` as a module, so that
-    ``torch.func.functional_call`` can swap the model's parameters."""
-
-    def __init__(self, model: nn.Module, loss_fn: Callable):
-        super().__init__()
-        self.model = model
-        self.loss_fn = loss_fn
-
-    def forward(self, *inputs):
-        return self.loss_fn(self.model, *inputs)
+__all__ = ["TrainStep", "functional_loss_call", "apply_functional_update",
+           "loss_closure", "loss_and_grads"]
 
 
 def functional_loss_call(model, loss_fn, params: dict, inputs,
@@ -60,10 +69,17 @@ def functional_loss_call(model, loss_fn, params: dict, inputs,
     """``loss_fn(model, *inputs)`` as an f32 scalar on autograd's tape.
     With ``amp``, floating parameters of ``ndim >= 1`` and floating inputs
     are cast to ``amp_dtype`` for the call; ``params`` ({name: parameter})
-    stay the leaves that receive the gradient.  The module's buffers are
-    used, and updated by a training forward, as they are: never cast."""
-    if not amp:
+    stay the leaves that receive the gradient.  Without it, ``params``
+    that are not the module's own parameters (new parameters carried from
+    step to step, ``TrainStep`` under ``check_nan_inf``) stand in for
+    them.  The module's buffers are used, and updated by a training
+    forward, as they are: never cast."""
+    if not amp and all(isinstance(p, nn.Parameter) for p in params.values()):
         loss = loss_fn(model, *inputs)
+    elif not amp:
+        loss = substituted_call(
+            model, loss_fn, {f"model.{n}": p for n, p in params.items()},
+            inputs)
     else:
         cast = {f"model.{n}": (p.to(amp_dtype)
                                if p.is_floating_point() and p.dim() >= 1
@@ -71,9 +87,36 @@ def functional_loss_call(model, loss_fn, params: dict, inputs,
                 for n, p in params.items()}
         inputs = [i.to(amp_dtype) if i.is_floating_point() else i
                   for i in inputs]
-        loss = torch.func.functional_call(_Bound(model, loss_fn), cast,
-                                          tuple(inputs))
+        loss = substituted_call(model, loss_fn, cast, inputs)
     return loss.float()
+
+
+def loss_closure(model, loss_fn: Callable, amp_level=None,
+                 amp_dtype=torch.bfloat16, recompute: bool = False):
+    """(params {name: parameter}, inputs) -> f32 loss on autograd's tape:
+    ``functional_loss_call`` with the AMP cast for O1 and O2 alike (the
+    reference's ``TrainStep`` and ``dp_meta._loss_closure`` :80-81 treat
+    them so), and with ``recompute`` the whole call as one recompute
+    region."""
+    amp = amp_level in ("O1", "O2")
+
+    def loss_from(params, inputs):
+        return functional_loss_call(model, loss_fn, params, inputs, amp=amp,
+                                    amp_dtype=amp_dtype)
+    if recompute:
+        return functools.partial(_recompute.recompute, loss_from)
+    return loss_from
+
+
+def loss_and_grads(loss_from, params: dict, inputs):
+    """(detached f32 loss, {name: gradient}) of one batch; an unused
+    parameter gets a zero gradient, as jax.grad gives it."""
+    with torch.enable_grad():
+        loss = loss_from(params, inputs)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(params.items(), grads)}
 
 
 def apply_functional_update(opt, grads: dict, params: dict, opt_states, lr,
@@ -97,10 +140,11 @@ class TrainStep:
     """One training step per call: forward, backward, optimizer update.
 
     ``loss_fn(model, *inputs) -> scalar``.  ``step(*inputs)`` returns the
-    f32 scalar loss (detached) and advances ``optimizer._global_step``.
-    With ``accumulate_steps = k > 1`` each input is split along its first
-    axis into k micro-batches (reference ``:378-396``): their gradients
-    are summed in f32 in order and divided by k, the loss is the mean of
+    f32 scalar loss (detached) and advances ``optimizer._global_step``;
+    :meth:`multi_step` makes K steps in one call.  With
+    ``accumulate_steps = k > 1`` each input is split along its first axis
+    into k micro-batches (reference ``:378-396``): their gradients are
+    summed in f32 in order and divided by k, the loss is the mean of
     theirs, and one update follows.  The optimizer's state lives here, in
     ``_opt_states`` ({parameter name: {moment1, moment2, beta1_pow,
     beta2_pow}}), created at the first call; :meth:`set_opt_states`
@@ -120,9 +164,6 @@ class TrainStep:
         if int(accumulate_steps) != accumulate_steps or accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be a positive integer, "
                              f"got {accumulate_steps!r}")
-        if recompute:
-            raise NotImplementedError(
-                "recompute=True: activation recompute is not ported")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -132,6 +173,8 @@ class TrainStep:
         self.accumulate_steps = int(accumulate_steps)
         self.donate = donate
         self.recompute = recompute
+        self._loss_from = loss_closure(model, loss_fn, amp_level,
+                                       self.amp_dtype, recompute)
         self._opt_states: Optional[dict] = None
 
     def _params(self) -> dict:
@@ -149,18 +192,44 @@ class TrainStep:
             n: {k: t.to(params[n].device) for k, t in st.items()}
             for n, st in states.items()}
 
-    def _loss_and_grads(self, params: dict, inputs):
-        """(f32 loss, [gradient of each parameter]) of one batch; an unused
-        parameter gets a zero gradient, as jax.grad gives it."""
-        loss = functional_loss_call(
-            self.model, self.loss_fn, params, inputs,
-            amp=self.amp_level in ("O1", "O2"), amp_dtype=self.amp_dtype)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(params.values(), grads)]
+    def _one_step(self, params: dict, inputs, lr, states):
+        """The step body of ``__call__`` and ``multi_step`` (the reference's
+        ``_build_one_step`` :347-410): the loss and gradients of each
+        micro-batch, their mean, the clip and the update.  Returns the f32
+        loss, the new parameters and the new optimizer state; the caller
+        writes them."""
+        micro = self.accumulate_steps
+        parts = [i.reshape((micro, -1) + tuple(i.shape[1:])) for i in inputs]
+        losses, grads = [], None
+        for k in range(micro):
+            loss_k, g_k = loss_and_grads(self._loss_from, params,
+                                         [p[k] for p in parts])
+            losses.append(loss_k)
+            grads = g_k if grads is None else {
+                n: grads[n] + g_k[n] for n in grads}
+        if micro > 1:
+            grads = {n: g / micro for n, g in grads.items()}
+        with torch.no_grad(), torch.profiler.record_function(
+                "TrainStep.update"):
+            new_params, states = apply_functional_update(
+                self.optimizer, grads,
+                {n: p.detach() for n, p in params.items()}, states, lr,
+                donate=self.donate)
+        return torch.stack(losses).mean(), new_params, states
 
-    def __call__(self, *inputs):
+    @staticmethod
+    def _write(params: dict, new_params: dict):
+        with torch.no_grad():
+            for n, p in params.items():
+                if new_params[n].data_ptr() != p.data_ptr():
+                    p.copy_(new_params[n])
+
+    def _run(self, inputs, steps: Optional[int], what: str) -> torch.Tensor:
+        """The dispatch shared by ``__call__`` (``steps`` None) and
+        ``multi_step`` (``steps`` = K, a leading axis on every input): the
+        learning rate read once, the step bodies, then the check_nan_inf
+        sweep over their losses (reference ``_commit_step``) and the
+        global step.  Returns the (K,) f32 losses, or the one loss."""
         params = self._params()
         dev = next(iter(params.values())).device
         if self._opt_states is None:
@@ -170,28 +239,60 @@ class TrainStep:
         # a fill kernel: the rate reaches the card as a launch argument
         lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
                         device=dev)
-        micro = self.accumulate_steps
-        parts = [i.reshape((micro, -1) + tuple(i.shape[1:])) for i in inputs]
-        losses, grads = [], None
-        with torch.enable_grad():
-            for k in range(micro):
-                loss_k, g_k = self._loss_and_grads(params,
-                                                   [p[k] for p in parts])
-                losses.append(loss_k)
-                grads = g_k if grads is None else [
-                    a + b for a, b in zip(grads, g_k)]
-        if micro > 1:
-            grads = [g / micro for g in grads]
-        loss = torch.stack(losses).mean()
-        grads = dict(zip(params, grads))
-        with torch.no_grad(), torch.profiler.record_function(
-                "TrainStep.update"):
-            new_params, self._opt_states = apply_functional_update(
-                self.optimizer, grads,
-                {n: p.detach() for n, p in params.items()},
-                self._opt_states, lr, donate=self.donate)
-            for n, p in params.items():
-                if new_params[n].data_ptr() != p.data_ptr():
-                    p.copy_(new_params[n])
-        self.optimizer._global_step += 1
-        return loss
+        check = flag("check_nan_inf")
+        # armed without donation, nothing is written before the check: the
+        # parameters go from step to step as new leaves, the state as new
+        # dicts; the buffers, updated in place by the forward, are copied
+        hold = check and not self.donate
+        buffers = ({n: b.clone() for n, b in self.model.named_buffers()}
+                   if hold else None)
+        batches = ([inputs] if steps is None else
+                   [[i[j] for i in inputs] for j in range(steps)])
+        cur, states, losses = params, self._opt_states, []
+        for batch in batches:
+            loss, new_params, states = self._one_step(cur, batch, lr, states)
+            losses.append(loss)
+            if hold:
+                cur = {n: t.requires_grad_() for n, t in new_params.items()}
+            else:
+                self._write(params, new_params)
+                self._opt_states = states
+        losses = losses[0] if steps is None else torch.stack(losses)
+        if check and not bool(torch.isfinite(losses).all()):
+            if hold:
+                with torch.no_grad():
+                    for n, b in self.model.named_buffers():
+                        b.copy_(buffers[n])
+            raise FloatingPointError(f"{what} produced a non-finite loss "
+                                     "(FLAGS_check_nan_inf is set)")
+        if hold:
+            self._write(params, cur)
+            self._opt_states = states
+        self.optimizer._global_step += 1 if steps is None else steps
+        return losses
+
+    def __call__(self, *inputs):
+        return self._run(inputs, None, "TrainStep")
+
+    def multi_step(self, *inputs, unroll: bool = False):
+        """K optimizer steps in one call (reference ``:473-571``): every
+        input carries a leading K axis, (K, B, ...), and step j trains on
+        slice j through the body of ``__call__`` (``accumulate_steps``,
+        AMP, recompute and buffers as there).  Returns the K losses as one
+        (K,) f32 tensor and adds K to ``optimizer._global_step``.
+
+        The learning rate is read once, at the call, and held for all K
+        steps, as the reference's loop holds it: keep K within one
+        scheduler interval, or step the scheduler once per call.
+        ``FLAGS_check_nan_inf`` sweeps the K losses once, after the last
+        step, ordered by donation as in ``__call__``.  ``unroll`` chooses
+        between the reference's ``lax.scan`` and its straight-line loop;
+        in eager PyTorch the two forms are one loop, and the result is the
+        same either way."""
+        if not inputs:
+            raise ValueError("multi_step needs at least one input")
+        ks = {int(torch.as_tensor(i).shape[0]) for i in inputs}
+        if len(ks) != 1:
+            raise ValueError(f"multi_step inputs disagree on the leading "
+                             f"steps axis: {sorted(ks)}")
+        return self._run(inputs, ks.pop(), "TrainStep.multi_step")

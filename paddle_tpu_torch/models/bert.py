@@ -10,9 +10,11 @@ draws (``np.random.default_rng(seed)`` in the same order), token, position
 and token-type embeddings with their layer norm, post-LN layers with
 eps 1e-12 and tanh-GELU, the pooler, the MLM head tied to ``wte`` plus
 ``mlm_bias``, the NSP head, and the loss conventions (MLM labels -100 are
-ignored).  What differs, as in the GPT port: a Python loop over layers
-stands in for ``lax.scan``, ``remat`` is accepted and not honoured
-(activations are kept), and there are no meshes or shardings.
+ignored), and ``remat`` (the default): each layer, the padding bias
+passed in, is one recompute region under autograd (``jit/recompute.py``,
+the reference's ``jax.checkpoint(layer)``, ``:219``).  What differs, as in
+the GPT port: a Python loop over layers stands in for ``lax.scan``, and
+there are no meshes or shardings.
 
 Attention dispatches as the reference's ``_bert_forward`` does, by rule
 and device and never by catching an error (the reference's ``try/except``
@@ -27,6 +29,7 @@ and is not part of the rule.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 
@@ -57,8 +61,7 @@ class BertConfig:
         self.max_seq_len = max_seq_len
         self.type_vocab_size = type_vocab_size
         self.initializer_range = initializer_range
-        # accepted for parity with the reference; the port keeps every
-        # activation (no recompute)
+        # recompute each layer in the backward (jit/recompute.py)
         self.remat = remat
         self.seed = seed
         self.use_flash_attention = use_flash_attention
@@ -206,9 +209,9 @@ def _bert_forward(model: Bert, ids, tt, mask):
         bias = torch.where(mask.bool(), 0.0, -1e30)[:, None, None, :]
     # one unbind per stacked parameter: its backward is one stack
     per_layer = {n: getattr(model, n).unbind(0) for n in _LAYER_PARAMS}
+    layer = functools.partial(recompute, _layer) if cfg.remat else _layer
     for i in range(cfg.num_layers):
-        x = _layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS},
-                   bias)
+        x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS}, bias)
     pooled = torch.tanh(x[:, 0] @ model.pool_w + model.pool_b)
     nsp_logits = pooled @ model.nsp_w + model.nsp_b
     h = F.gelu(x @ model.mlm_w + model.mlm_b, approximate="tanh")

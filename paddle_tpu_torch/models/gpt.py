@@ -12,12 +12,15 @@ autograd sums.  Serving callers wrap their calls in
 What is the same as the reference: the configuration and presets, the
 stacked (L, ...) parameters with the same names, shapes and numpy draws
 (``np.random.default_rng(seed)`` in the same order), pre-LN layers with
-tanh-GELU, the tied head, and the loss conventions.  What differs: a
-Python loop over layers stands in for ``lax.scan`` (``scan_unroll`` is
-accepted and means nothing in eager PyTorch; ``remat`` is accepted and
-not honoured: activations are kept, as ``bench.py`` runs the reference
-with ``remat=False``), and there are no meshes, shardings, pipeline or
-ring attention.
+tanh-GELU, the tied head, the loss conventions, and ``remat`` (the
+default): each layer is one recompute region under autograd
+(``jit/recompute.py``, the reference's ``jax.checkpoint(layer)``,
+``:218``), its activations rebuilt in the backward, while the embedding,
+the final LN and the head keep theirs.  ``bench.py``'s GPT-2 legs run
+``remat=False``.  What differs: a Python loop over layers stands in for
+``lax.scan`` (``scan_unroll`` is accepted and means nothing in eager
+PyTorch), and there are no meshes, shardings, pipeline or ring
+attention.
 
 Attention dispatches by rule, not by catching errors: sequences the
 blockwise kernel serves (``flash_attention.supported``: head dim 64 or
@@ -34,6 +37,7 @@ the loss casts logits to f32.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -44,6 +48,7 @@ from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.framework.flags import flag
+from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 from paddle_tpu_torch.ops.cuda import fused_ce
@@ -66,10 +71,10 @@ class GPTConfig:
         self.ffn_size = ffn_size or 4 * hidden_size
         self.max_seq_len = max_seq_len
         self.initializer_range = initializer_range
-        # accepted for parity with the reference; the port keeps every
-        # activation (no recompute), runs a Python loop over layers, and
-        # has no pipeline or schedule
+        # recompute each layer in the backward (jit/recompute.py)
         self.remat = remat
+        # accepted for parity with the reference; the port runs a Python
+        # loop over layers and has no pipeline or schedule
         self.n_microbatches = n_microbatches
         self.use_flash_attention = use_flash_attention
         self.seed = seed
@@ -207,8 +212,9 @@ def _gpt_forward(model: GPT, ids, features_only: bool = False):
     # one unbind per stacked parameter: its backward is one stack, where
     # indexing each layer would sum L full-size gradients per parameter
     per_layer = {n: getattr(model, n).unbind(0) for n in _LAYER_PARAMS}
+    layer = functools.partial(recompute, _layer) if cfg.remat else _layer
     for i in range(cfg.num_layers):
-        x = _layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS})
+        x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS})
     x = _ln(x, model.lnf_w, model.lnf_b)
     if features_only:
         return x

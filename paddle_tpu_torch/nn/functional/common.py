@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.framework.replay import note_generator
+
 __all__ = ["linear", "dropout"]
 
 
@@ -20,7 +22,9 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     ``axis``) with probability 1 - p, drawn from ``generator`` (the
     default generator of x's device when None); ``upscale_in_train``
     divides the kept entries by 1 - p.  The reference's bits come from
-    jax.random and are not reproduced: only the distribution is."""
+    jax.random and are not reproduced: only the distribution is.  Inside
+    a recompute region the replay draws the forward's mask
+    (``framework.replay.note_generator``)."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout mode {mode!r}")
     if not training or p == 0:
@@ -31,6 +35,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if axis is not None:
         axes = [axis] if isinstance(axis, int) else list(axis)
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    if generator is not None:
+        note_generator(generator)
     keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)

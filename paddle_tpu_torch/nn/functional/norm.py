@@ -26,6 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.framework.replay import replaying
+
 __all__ = ["layer_norm", "batch_norm"]
 
 
@@ -59,7 +61,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     """Batch normalisation over every dim but the channel's (the last one
     for NHWC, NLC and NDHWC, else dim 1); updates ``running_mean`` and
     ``running_var`` in place when it normalises by the batch's
-    statistics."""
+    statistics, once: not again in the backward's replay of a recompute
+    region (``framework.replay.replaying``)."""
     channel_last = data_format in ("NHWC", "NLC", "NDHWC")
     use_batch_stats = training and not use_global_stats
     c_axis = x.dim() - 1 if channel_last else (1 if x.dim() > 1 else 0)
@@ -75,7 +78,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         out = out * weight.reshape(shape)
     if bias is not None:
         out = out + bias.reshape(shape)
-    if use_batch_stats and running_mean is not None:
+    if use_batch_stats and running_mean is not None and not replaying():
         n = 1
         for ax in axes:
             n *= x.shape[ax]

@@ -1,6 +1,6 @@
 """The replicated data-parallel step with a compressed gradient all-reduce
-(port of paddle_tpu/parallel/dp_meta.py ``_loss_closure`` :53 and
-``CompressedAllReduceTrainStep`` :236).
+(port of paddle_tpu/parallel/dp_meta.py ``CompressedAllReduceTrainStep``
+:236; its ``_loss_closure`` :53 is ``jit.loss_closure``).
 
 Each rank takes its slice of the global batch (the reference's
 ``shard_map`` with ``P("dp")`` inputs), computes its loss and gradients,
@@ -23,9 +23,10 @@ replicated.
 The loss is the mean of the ranks' losses.  Floating buffers
 (BatchNorm's running statistics, which each rank updates from its own
 slice of the batch) are averaged over the ranks after the step, in f32
-and cast back (:338-346), never on the gradients' wire.  Not ported, and
-raising: ``recompute=True`` (activation recompute) and a ``grad_clip``,
-which the reference's step ignores.  LocalSGD and DGC are not ported yet.
+and cast back (:338-346), never on the gradients' wire.  ``recompute=True``
+makes the rank's whole loss one recompute region (reference :80-81), as in
+``jit.TrainStep``.  Not ported, and raising: a ``grad_clip``, which the
+reference's step ignores.  LocalSGD and DGC are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                dequantize_rows_torch,
                                                normalize_wire,
                                                quantize_rows_torch)
+from paddle_tpu_torch.jit import loss_and_grads, loss_closure
 from paddle_tpu_torch.parallel.mesh import _require_pure_dp, get_mesh
 from paddle_tpu_torch.parallel.ring import (ordered_sum, ring_all_gather,
                                             ring_reduce_scatter)
@@ -47,23 +49,6 @@ __all__ = ["CompressedAllReduceTrainStep"]
 def _amp_dtype(amp_dtype):
     return (torch.bfloat16 if str(amp_dtype) in (
         "bfloat16", "bf16", "torch.bfloat16") else torch.float16)
-
-
-def _loss_closure(model, loss_fn: Callable, amp_level=None,
-                  amp_dtype=torch.bfloat16, recompute: bool = False):
-    """(params {name: parameter}, inputs) -> f32 loss on autograd's tape,
-    with the AMP cast of ``jit.functional_loss_call`` (O1 as O2, as the
-    reference's ``TrainStep`` and this closure treat it)."""
-    from paddle_tpu_torch.jit import functional_loss_call
-    if recompute:
-        raise NotImplementedError(
-            "recompute=True: activation recompute is not ported")
-    amp = amp_level in ("O1", "O2")
-
-    def loss_from(params, inputs):
-        return functional_loss_call(model, loss_fn, params, inputs, amp=amp,
-                                    amp_dtype=amp_dtype)
-    return loss_from
 
 
 def local_batch(inputs, mesh, device):
@@ -78,17 +63,6 @@ def local_batch(inputs, mesh, device):
                              f"by dp={n}")
         out.append(t.reshape((n, -1) + tuple(t.shape[1:]))[idx].to(device))
     return out
-
-
-def loss_and_grads(loss_from, params: dict, inputs):
-    """(detached f32 loss, {name: gradient}); an unused parameter gets a
-    zero gradient, as jax.grad gives it."""
-    with torch.enable_grad():
-        loss = loss_from(params, inputs)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
-                           for (n, p), g in zip(params.items(), grads)}
 
 
 def mean_over_ranks(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -140,8 +114,8 @@ class CompressedAllReduceTrainStep:
                 "train without it")
         self.amp_level = amp_level
         self.amp_dtype = _amp_dtype(amp_dtype)
-        self._loss_from = _loss_closure(model, loss_fn, amp_level,
-                                        self.amp_dtype, recompute)
+        self._loss_from = loss_closure(model, loss_fn, amp_level,
+                                       self.amp_dtype, recompute)
         self._opt_states = None
 
     def _reduce(self, g: torch.Tensor) -> torch.Tensor:

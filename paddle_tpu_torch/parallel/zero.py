@@ -42,12 +42,13 @@ launch a parameter in each unfused leg.
 
 Floating buffers (BatchNorm's running statistics) are averaged over the
 ranks after the update, in f32 and cast back, never on the wire
-(reference ``:363-369``; ``dp_meta.average_buffers``).
+(reference ``:363-369``; ``dp_meta.average_buffers``).  ``recompute=True``
+makes each rank's loss one recompute region, as in ``jit.TrainStep``
+(``jit.loss_closure``; reference ``:139``, ``:174``, ``:287``).
 
 Not ported, each raising or absent: LARS (``LarsMomentum``, rejected by
 name: its per-parameter norms would be taken over 1/dp chunks), a grad clip
-without ``functional_clip`` (the reference skips it), ``recompute=True``
-(``dp_meta._loss_closure``), checkpoint interop
+without ``functional_clip`` (the reference skips it), checkpoint interop
 (``checkpoint_extra_meta``, ``adopt_opt_state``), the chaos, tracer,
 monitor and parity hooks, and ``analyze``.
 """
@@ -64,10 +65,9 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                normalize_wire,
                                                quantize_rows_torch,
                                                wire_nbytes)
-from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, _loss_closure,
-                                               average_buffers, local_batch,
-                                               loss_and_grads,
-                                               mean_over_ranks)
+from paddle_tpu_torch.jit import loss_and_grads, loss_closure
+from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, average_buffers,
+                                               local_batch, mean_over_ranks)
 from paddle_tpu_torch.parallel.mesh import _require_pure_dp, get_mesh
 from paddle_tpu_torch.parallel.ring import (ordered_sum, ring_all_gather,
                                             ring_reduce_scatter)
@@ -140,8 +140,8 @@ class ShardedUpdateTrainStep:
         self.amp_level = amp_level
         self.amp_dtype = _amp_dtype(amp_dtype)
         self.donate = donate
-        self._loss_from = _loss_closure(model, loss_fn, amp_level,
-                                        self.amp_dtype, recompute)
+        self._loss_from = loss_closure(model, loss_fn, amp_level,
+                                       self.amp_dtype, recompute)
         self._specs: Optional[Dict[str, ShardSpec]] = None
         self._opt_shards: Optional[dict] = None
 

@@ -1,9 +1,12 @@
-"""Where the time of a GPT-2 345M serving request, or training step, or of
-a BERT-base training step, goes on the card.
+"""Where the time of a GPT-2 345M serving request or training step, of a
+BERT-base training step, or of a long-sequence training step goes on the
+card.
 
     python -m paddle_tpu_torch.tools.profile_gpt [--batch 8] [--seq 1024]
     python -m paddle_tpu_torch.tools.profile_gpt --train
     python -m paddle_tpu_torch.tools.profile_gpt --train --fused
+    python -m paddle_tpu_torch.tools.profile_gpt --train --remat --recompute
+    python -m paddle_tpu_torch.tools.profile_gpt --longseq [--seq 8192]
     python -m paddle_tpu_torch.tools.profile_gpt --bert
     python -m paddle_tpu_torch.tools.profile_gpt --encoder-bias
 
@@ -15,8 +18,14 @@ as bench.py trains, and one JSON line for a training step.  ``--train
 --fused``: the fused training path instead (FLAGS_gpt_fused_ce,
 AdamW(use_fused=True, weight_decay=0.01) with ClipGradByGlobalNorm(1.0) and
 a warmup-then-cosine rate, accumulate_steps=2 over a global batch of twice
---batch).  ``--bert``: one BERT-base pretraining step as bench.py trains
-it on its padded batch (f32 parameters, TrainStep with AMP O2 bf16,
+--batch).  ``--remat`` / ``--recompute`` (with ``--train``): the model's
+per-layer remat, TrainStep(recompute=True).  ``--longseq``: one step of
+bench.py's bench_longseq_flash model (4 layers, H=1024, 8 heads of 128,
+V=8192, remat=True, O2 bf16, AdamW(1e-4)) at B=1, S=8192 unless
+--batch / --seq say otherwise.  ``--bert``: one BERT-base pretraining
+step as bench.py trains it on its padded batch (f32 parameters, each
+layer recomputed in the backward as bench_bert's remat=True asks,
+TrainStep with AMP O2 bf16,
 AdamW(learning_rate=1e-4), bert_pretrain_loss, B=128, S=128 unless
 --batch / --seq say otherwise, lengths in [S/2, S]).  ``--encoder-bias``:
 one step of a 12-layer TransformerEncoder (768, 12 heads, 3072, GELU)
@@ -27,13 +36,16 @@ holds the wall time between synchronisations (mean of a few runs), the
 device time of the kernels grouped by kind (from torch.profiler; under
 --train the kernels launched inside the ``TrainStep.update`` range form
 the "optimizer" group), the device's busy and idle share of the wall time,
-and the kernels that took most device time.  The card's name and power
-limit (nvidia-smi) come first.  Needs a CUDA device.
+the kernels that took most device time, the host (CPU) time of the
+``TrainStep.update`` and ``recompute.replay`` ranges in the traced run,
+and the Python collector's runs and ms per untraced run.  The card's
+name and power limit (nvidia-smi) come first.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -72,6 +84,9 @@ def _group(name: str) -> str:
 
 
 _UPDATE_RANGE = "TrainStep.update"
+# host-side ranges whose CPU time each line reports: the update and a
+# recompute region's replay (jit/recompute.py)
+_HOST_RANGES = (_UPDATE_RANGE, "recompute.replay")
 
 
 def _in_range(evt, name: str) -> bool:
@@ -82,19 +97,42 @@ def _in_range(evt, name: str) -> bool:
     return False
 
 
+@contextlib.contextmanager
+def gc_time():
+    """{"collections": n, "ms": host ms} of the Python garbage collector's
+    runs inside the block (``gc.callbacks``)."""
+    out, start = {"collections": 0, "ms": 0.0}, []
+
+    def cb(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            out["collections"] += 1
+            out["ms"] += (time.perf_counter() - start.pop()) * 1e3
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
 def _request(fn, reps: int):
-    """(mean wall ms, traced ms, {group: device ms}, busy ms, top kernels)
-    of fn().  Kernels launched by an op inside a ``TrainStep.update`` range
-    count as the "optimizer" group."""
+    """(mean wall ms, traced ms, {group: device ms}, busy ms, top kernels,
+    {host range: CPU ms}, the collector's time a run) of fn().  Kernels
+    launched by an op inside a ``TrainStep.update`` range count as the
+    "optimizer" group."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with gc_time() as gc_run:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    gc_run = {"collections": gc_run["collections"] / reps,
+              "ms": gc_run["ms"] / reps}
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -107,13 +145,16 @@ def _request(fn, reps: int):
         if evt.kernels and _in_range(evt, _UPDATE_RANGE):
             for k in evt.kernels:
                 opt_ms[k.name] = opt_ms.get(k.name, 0.0) + k.duration / 1e3
+    host = {evt.key: evt.cpu_time_total / 1e3 for evt in prof.key_averages()
+            if evt.key in _HOST_RANGES
+            and evt.device_type == torch.autograd.DeviceType.CPU}
     groups, kernels = {}, []
     if opt_ms:
         groups["optimizer"] = sum(opt_ms.values())
     for evt in prof.key_averages():
-        # the update range shows on the device's timeline too: not a kernel
+        # the host's ranges show on the device's timeline too: not kernels
         if evt.device_type != torch.autograd.DeviceType.CUDA or \
-                evt.key == _UPDATE_RANGE:
+                evt.key in _HOST_RANGES:
             continue
         ms = evt.self_device_time_total / 1e3
         kernels.append((ms, evt.count, evt.key[:90]))
@@ -123,7 +164,7 @@ def _request(fn, reps: int):
         groups[_group(evt.key)] = groups.get(_group(evt.key), 0.0) + ms
     busy = sum(groups.values())
     kernels.sort(reverse=True)
-    return wall_ms, traced_ms, groups, busy, kernels[:8]
+    return wall_ms, traced_ms, groups, busy, kernels[:8], host, gc_run
 
 
 def main(argv=None) -> int:
@@ -137,6 +178,12 @@ def main(argv=None) -> int:
                     help="profile a training step instead of serving")
     ap.add_argument("--fused", action="store_true",
                     help="with --train: the fused training path")
+    ap.add_argument("--remat", action="store_true",
+                    help="with --train: recompute each layer")
+    ap.add_argument("--recompute", action="store_true",
+                    help="with --train: TrainStep(recompute=True)")
+    ap.add_argument("--longseq", action="store_true",
+                    help="a step of bench_longseq_flash's model")
     ap.add_argument("--bert", action="store_true",
                     help="a BERT-base training step on a padded batch")
     ap.add_argument("--encoder-bias", action="store_true",
@@ -144,7 +191,7 @@ def main(argv=None) -> int:
                          "attention bias")
     args = ap.parse_args(argv)
     small = args.bert or args.encoder_bias      # BERT-base's batch
-    seq = args.seq or (128 if small else 1024)
+    seq = args.seq or (128 if small else 8192 if args.longseq else 1024)
 
     import numpy as np
     import torch
@@ -156,7 +203,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPT, Bert, bert_base,
                                          bert_pretrain_loss, gpt2_345m,
-                                         gpt_loss)
+                                         gpt_loss, gpt_tiny)
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer import lr as sched_lr
@@ -165,12 +212,17 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    cfg = gpt2_345m(max_seq_len=seq)
+    # bench.py's GPT-2 legs run remat=False (bench.py:299, :345)
+    cfg = gpt2_345m(max_seq_len=seq, remat=args.remat)
+    if args.longseq:
+        cfg = gpt_tiny(num_layers=4, hidden_size=1024, num_heads=8,
+                       vocab_size=8192, max_seq_len=seq, remat=True)
     micro = 2 if args.train and args.fused else 1
-    batch = micro * (args.batch or (128 if small else 8))
+    batch = micro * (args.batch or (128 if small else 1 if args.longseq
+                                    else 8))
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, seq)), device="cuda")
-    training = args.train or small
+    training = args.train or small or args.longseq
     if args.encoder_bias:
         import paddle_tpu_torch.nn as tnn
         enc = tnn.TransformerEncoder(tnn.TransformerEncoderLayer(
@@ -190,6 +242,7 @@ def main(argv=None) -> int:
     elif args.bert:
         # bench.py's batch: 15 % MLM labels, lengths in [S/2, S], the MLM
         # labels -100 on the padding
+        # bench_bert's configuration: remat=True, the default (bench.py:214)
         bcfg = bert_base(max_seq_len=seq)
         rng = np.random.default_rng(0)
         b_ids = rng.integers(0, bcfg.vocab_size, (batch, seq))
@@ -220,11 +273,12 @@ def main(argv=None) -> int:
             return loss
 
         requests = {"train_fused_step": train_step}
-    elif args.train:
+    elif args.train or args.longseq:
         step = TrainStep(GPT(cfg, device="cuda"), gpt_loss,
                          AdamW(learning_rate=1e-4), amp_level="O2",
-                         amp_dtype="bfloat16")
-        requests = {"train_step": lambda: step(ids, ids)}
+                         amp_dtype="bfloat16", recompute=args.recompute)
+        name = "longseq_train_step" if args.longseq else "train_step"
+        requests = {name: lambda: step(ids, ids)}
     else:
         model = GPT(cfg, device="cuda").to(torch.bfloat16)
 
@@ -242,16 +296,20 @@ def main(argv=None) -> int:
             fn()
         results = {name: _request(fn, args.reps)
                    for name, fn in requests.items()}
-    for name, (wall, traced, groups, busy, top) in results.items():
+    for name, (wall, traced, groups, busy, top, host, gc_run) in \
+            results.items():
         print(json.dumps({
             "request": name, "batch": batch, "seq": seq,
+            "options": {k: v for k, v in vars(args).items()
+                        if v is True},
             "wall_ms": wall, "tokens_per_s": batch * seq / wall
             * 1e3, "traced_wall_ms": traced, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / traced),
             "device_ms_by_group": dict(sorted(groups.items(),
                                               key=lambda kv: -kv[1])),
             "top_kernels": [{"ms": ms, "count": n, "name": k}
-                            for ms, n, k in top]}), flush=True)
+                            for ms, n, k in top],
+            "host_ms_by_range": host, "gc_per_run": gc_run}), flush=True)
     set_flags({"gpt_fused_ce": False})
     return 0
 

@@ -42,7 +42,9 @@ def test_every_module_imports_with_jax_blocked():
         paddle_tpu_torch.__path__, "paddle_tpu_torch.")]
     for m in ("models.gpt", "distributed.wire", "ops.cuda.ring_quant",
               "parallel.mesh", "parallel.ring", "parallel.dp_meta",
-              "parallel.zero"):
+              "parallel.zero", "jit.recompute", "framework.replay",
+              "distributed.fleet",
+              "distributed.fleet.utils"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -64,6 +66,20 @@ def test_gpt_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         tdevice.set_device("cuda")
     assert GPT(gpt_tiny(num_layers=1), device="cpu").wte.device.type == "cpu"
+
+
+def test_fleet_recompute_runs_where_its_inputs_are(monkeypatch):
+    """fleet.utils.recompute picks no device: a remat model still defaults
+    to the card (and raises without it), and a block on CPU tensors
+    recomputes on the CPU."""
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        GPT(gpt_tiny(num_layers=1, remat=True))
+    x = torch.ones(2, 3, requires_grad=True)
+    out = recompute(lambda t: (t * t).sum(), x)
+    out.backward()
+    assert out.device.type == "cpu" and torch.equal(x.grad, 2 * x.detach())
 
 
 def test_set_device_round_trip():

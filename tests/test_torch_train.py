@@ -385,16 +385,14 @@ class _Callable:
         return 1e-4
 
 
-@pytest.mark.parametrize("what", ["recompute", "decay_fun", "lr_ratio",
+@pytest.mark.parametrize("what", ["decay_fun", "lr_ratio",
                                   "clip_without_functional_clip",
                                   "callable_rate"])
 def test_unported_options_raise(what):
     model = GPT(gpt_tiny(**TINY), device="cpu")
     ids = _ids(2)
     with pytest.raises(NotImplementedError):
-        if what == "recompute":
-            TrainStep(model, gpt_loss, AdamW(), recompute=True)
-        elif what == "decay_fun":
+        if what == "decay_fun":
             AdamW(apply_decay_param_fun=lambda n: True)
         elif what == "lr_ratio":
             AdamW(lr_ratio=lambda p: 1.0)

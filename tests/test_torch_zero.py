@@ -491,9 +491,6 @@ def test_sharded_step_refuses_what_it_cannot_shard():
         with pytest.raises(NotImplementedError, match="functional_clip"):
             ShardedUpdateTrainStep(m, _loss_fn, SGD(
                 grad_clip=ClipGradByNorm(1.0)), mesh=mesh)
-        with pytest.raises(NotImplementedError, match="recompute"):
-            ShardedUpdateTrainStep(m, _loss_fn, SGD(), mesh=mesh,
-                                   recompute=True)
         with pytest.raises(NotImplementedError, match="grad_clip"):
             CompressedAllReduceTrainStep(m, _loss_fn, SGD(
                 grad_clip=ClipGradByGlobalNorm(1.0)), mesh=mesh)
