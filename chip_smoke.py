@@ -129,9 +129,42 @@ Phases, in order; any failure ends the script with a non-zero exit:
              2 warm-ups then 50 steps: samples/s; the last loss below the
              first.  Phases 13-15 print the card's name and power limit
              beside their numbers; no hand-written kernel is on their path.
-16. timing — each kernel, its plain version, the one-call PyTorch yardstick
+16. seq2seq-small — the seq2seq composition (source and target
+             Embeddings, learned positions, the Transformer, a Linear head)
+             at 2 + 2 layers, d_model 128, 2 heads of 64, V=512, S=256 ->
+             128, f32, card against CPU: logits, the label-smoothed loss,
+             every gradient, one Adam step; 20 steps of one batch whose
+             loss must fall; a beam decode whose invariants hold.
+17. seq2seq-train — #1-#3 first against their plain versions beside the
+             planted faults at the path's three mask shapes (cross-attention
+             128 queries over 256 keys under the source's bias row, the
+             decoder's full (1, 1, 128, 128) causal bias, the encoder at
+             S=256), then Transformer-base (6 + 6 layers, d_model 512, 8
+             heads, FFN 2048, V=30000 + 30000) trained as the translation
+             recipe trains it: TrainStep with AMP O2 bf16, Adam(beta2 0.98,
+             epsilon 1e-9) under NoamDecay(512, 4000, 2.0), dropout 0.1,
+             label smoothing 0.1, B=32 sources of 256 and targets of 128
+             ids, 2 warm-ups and 8 timed steps: step ms, target tokens/s,
+             peak bytes, 18 launches of each masked kernel a step and no
+             other, the first loss near ln V, every parameter moved.
+18. seq2seq-serve — the trained model in bf16, eval mode: 4 requests of 8
+             sources of 256 ids, the encoder once (6 masked forward
+             launches) and beam search (beam 4, at most 128 steps) through
+             BeamSearchDecoder + dynamic_decode over the decoder's caches
+             (no kernel launch: one query row takes the dense path);
+             latency, generated tokens/s, log-probs falling across the
+             beams, the best beam's log-prob equal to its teacher-forced
+             rescoring, gather_tree's sequences following the parents.
+19. rnn — LSTM and GRU (2 layers, bidirect, hidden 512, input 512),
+             B=128, T=50 with sequence lengths, f32, card against CPU
+             (outputs, states, every gradient); forward + backward ms.
+             Counters set to 0 just before each of phases 17 and 18's
+             runs.
+20. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
-             masked kernels and dbias at BERT-base's layer, and the flash
+             masked kernels and dbias at BERT-base's layer, #1-#3 at the
+             seq2seq path's three mask shapes beside SDPA (and the decoder's
+             self-attention through the unmasked causal kernel), the flash
              kernel against the dense path there; the fused CE backward's
              three passes (profiler device time) beside the pair's time;
              #9 on GPT-2 345M's gradient; tokens/s of the forward.
@@ -262,6 +295,31 @@ SMALL_VISION_B, SMALL_VISION_HW = 8, 64     # bench_resnet50's CPU leg
 TOL_VISION_F32 = 1e-4
 TOL_VISION_F64 = 1e-9
 TOL_CONV_F32 = 2e-4
+# The seq2seq slice: Transformer-base as the reference's nn.Transformer
+# builds it at its defaults (transformer.py:288-292), the 30,000-id
+# vocabularies of PaddlePaddle's WMT14 translation example (dict_size),
+# trained by its recipe: label smoothing 0.1, Adam(beta2 0.98, epsilon
+# 1e-9) under NoamDecay(512, 4000); 32 sources of 256 and targets of 128
+# ids, 4,096 target tokens a batch
+S2S_V, S2S_D, S2S_HEADS, S2S_LAYERS, S2S_FFN = 30000, 512, 8, 6, 2048
+S2S_B, S2S_SRC, S2S_TGT = 32, 256, 128
+S2S_WARMUP, S2S_STEPS = 2, 8
+S2S_PAD, S2S_START, S2S_END, S2S_EPS = 0, 1, 2, 0.1
+# seq2seq-serve: requests of 8 sources, beam 4, at most 128 steps
+SERVE_REQUESTS, SERVE_B, BEAM, MAX_STEP = 4, 8, 4, 128
+# seq2seq-small: 2 + 2 layers, d_model 128, 2 heads of 64, f32
+S2S_SMALL = dict(vocab=512, d_model=128, nhead=2, layers=2, ffn=256)
+S2S_SMALL_STEPS, S2S_SMALL_BEAM_STEPS = 20, 16
+# the best beam's log-prob against the teacher-forced rescoring of its
+# tokens by the same model: f32 absolute; bf16 relative to |log-prob| (the
+# incremental decode's dense attention and the full forward's kernels
+# round bf16 logits at different places: 2.3e-5 to 7.3e-5 over 128 steps,
+# H100 80GB HBM3 at 700 W)
+TOL_RESCORE_F32 = 1e-3
+TOL_RESCORE_BF16 = 1e-3
+GRAD_FLOOR = 1e-4          # below: Adam normalises f32 gradient noise
+# rnn: 2 layers, bidirect, hidden 512 over inputs of 512, B=128, T=50
+RNN_B, RNN_T, RNN_IN, RNN_H, RNN_LAYERS = 128, 50, 512, 512, 2
 
 
 def log(msg):
@@ -1754,16 +1812,12 @@ def reset_fa(fa):
 
 
 def attention_times(g, fa, F, b, h, s, d, causal, amask=None):
-    """The bf16 flash kernels #1 (forward), #2 (dq) and #3 (dk/dv) at (b, h,
-    s, d) on random inputs, with BERT's padding bias of ``amask`` (B, S)
-    when given: each kernel's ms (CUDA events), SDPA's forward and backward
-    ms on the same work (a bool mask of the real keys), and each kernel's
-    bound.  The work counted for a bound is what this data needs: the
-    (query, key) pairs the causal edge or the padding leaves visible."""
-    import torch
-    bh, sc = b * h, d ** -0.5
-    qt, kt, vt, dot = (rand(g, (bh, s, d), torch.bfloat16)
-                       for _ in range(4))
+    """masked_times at a square (b, h, s, d), causal or not, with BERT's
+    padding bias of ``amask`` (B, S) when given (SDPA takes a bool mask of
+    the real keys).  The work counted for a bound is what this data needs:
+    the (query, key) pairs the causal edge or the padding leaves
+    visible."""
+    bh = b * h
     mask = keep = None
     extra = 0
     pairs = bh * (visible_pairs(s, s, True) if causal else s * s)
@@ -1772,33 +1826,8 @@ def attention_times(g, fa, F, b, h, s, d, causal, amask=None):
         keep = amask.bool()[:, None, None, :]
         extra = b * s * 4                            # the f32 bias
         pairs = h * s * int(amask.sum())
-    ot, lse = fa._launch(qt, kt, vt, sc, causal, mask)
-    delta = fa._delta(dot, ot)
-    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (qt, kt, vt, dot))
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-    out_l = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=keep,
-                                           is_causal=causal, scale=sc)
-    prod = 2 * d * pairs                             # one product
-    tb, rb = bh * s * d * 2, bh * s * 4              # a bf16 tensor, a row
-    r = {"fwd_ms": cuda_ms(lambda: fa._launch(qt, kt, vt, sc, causal,
-                                              mask)),
-         "dq_ms": cuda_ms(lambda: fa._launch_dq(qt, kt, vt, dot, lse, delta,
-                                                sc, causal, mask)),
-         "dkv_ms": cuda_ms(lambda: fa._launch_dkv(qt, kt, vt, dot, lse,
-                                                  delta, sc, causal, mask)),
-         "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-             q4, k4, v4, attn_mask=keep, is_causal=causal, scale=sc)),
-         "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
-             out_l, (ql, kl, vl), do4, retain_graph=True))}
-    # forward: 2 products, reads q, k, v (and the bias), writes out and
-    # lse; dq: 3, reads q, k, v, do, lse, delta, writes dq; dk/dv: 4,
-    # writes dk and dv
-    for name, n_prod, nbytes in (("fwd", 2, 4 * tb + rb),
-                                 ("dq", 3, 5 * tb + 2 * rb),
-                                 ("dkv", 4, 6 * tb + 2 * rb)):
-        r[name + "_bound_ms"], r[name + "_bound_by"] = bound(
-            n_prod * prod, nbytes + extra, PEAK_BF16_FLOPS)
-    return r
+    return masked_times(g, fa, F, b, h, s, s, d, mask, keep, pairs, extra,
+                        causal=causal)
 
 
 def zero_phase(g, cfg, ids_t, fa):
@@ -2091,7 +2120,470 @@ def zero_phase(g, cfg, ids_t, fa):
                 "zero_ring_envelope_excess": ring_ex}}
 
 
+def seq2seq_model(nn, vocab, d_model, nhead, layers, ffn, max_len,
+                  dropout=0.0, device="cuda", generator=None):
+    """The seq2seq composition of public layers (the JAX package has no
+    seq2seq model class, so neither has the port): source and target
+    Embeddings, learned position Embeddings, the Transformer, a Linear
+    head.  tests/torch_seq2seq_common.py builds the same in both
+    packages."""
+    import torch
+
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.src_emb = nn.Embedding(vocab, d_model, device=device)
+            self.tgt_emb = nn.Embedding(vocab, d_model, device=device)
+            self.src_pos = nn.Embedding(max_len, d_model, device=device)
+            self.tgt_pos = nn.Embedding(max_len, d_model, device=device)
+            self.transformer = nn.Transformer(
+                d_model, nhead, layers, layers, ffn, dropout, device=device,
+                generator=generator)
+            self.head = nn.Linear(d_model, vocab, device=device)
+
+        def embed(self, emb, pos, ids):
+            return emb(ids) + pos(torch.arange(ids.shape[1],
+                                               device=ids.device))
+
+        def forward(self, src, tgt, src_mask, tgt_mask, memory_mask):
+            out = self.transformer(
+                self.embed(self.src_emb, self.src_pos, src),
+                self.embed(self.tgt_emb, self.tgt_pos, tgt), src_mask,
+                tgt_mask, memory_mask)
+            return self.head(out)
+
+    return Seq2Seq()
+
+
+def seq2seq_loss(model, src, tgt, label, src_mask, tgt_mask, memory_mask):
+    """Label-smoothed soft-label cross-entropy over the target tokens, the
+    padding weighted out, as the translation example's criterion."""
+    from paddle_tpu_torch.nn import functional as F
+    logits = model(src, tgt, src_mask, tgt_mask, memory_mask)
+    soft = F.label_smooth(F.one_hot(label, logits.shape[-1]),
+                          epsilon=S2S_EPS)
+    ce = F.cross_entropy(logits, soft, soft_label=True, reduction="none")
+    w = (label != S2S_PAD).to(ce.dtype)
+    return (ce * w).sum() / w.sum()
+
+
+def seq2seq_batch(vocab, b, s_src, s_tgt, seed=0):
+    """(src, tgt, label, src bias) as numpy from default_rng(seed): source
+    lengths in [S/2, S], target lengths in [T/2, T], S2S_PAD past a
+    length; tgt is the label shifted right behind S2S_START; the bias
+    (B, 1, 1, S) f32 is 0 on real keys and -1e9 on padding."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    src_len = rng.integers(s_src // 2, s_src + 1, (b,))
+    tgt_len = rng.integers(s_tgt // 2, s_tgt + 1, (b,))
+    src = rng.integers(3, vocab, (b, s_src))
+    label = rng.integers(3, vocab, (b, s_tgt))
+    src = np.where(np.arange(s_src) < src_len[:, None], src, S2S_PAD)
+    label = np.where(np.arange(s_tgt) < tgt_len[:, None], label, S2S_PAD)
+    tgt = np.concatenate([np.full((b, 1), S2S_START), label[:, :-1]], 1)
+    bias = np.where(np.arange(s_src) < src_len[:, None], 0.0, -1e9)
+    return (src.astype(np.int64), tgt.astype(np.int64),
+            label.astype(np.int64), bias[:, None, None, :].astype(np.float32))
+
+
+def seq2seq_inputs(nn, arrays, device):
+    """TrainStep's inputs from seq2seq_batch's arrays: src, tgt, label,
+    the src bias, the causal (T, T) target mask and the memory mask (the
+    src bias again), on ``device``."""
+    import torch
+    src, tgt, label, bias = (torch.as_tensor(a, device=device)
+                             for a in arrays)
+    causal = nn.Transformer.generate_square_subsequent_mask(tgt.shape[1],
+                                                            device=device)
+    return [src, tgt, label, bias, causal, bias]
+
+
+def beam_cell(nn, model, memory, memory_mask, beam):
+    """The beam-search cell over the composition's decoder: (token
+    embedding, (caches, positions)) -> (decoder output, new states).  The
+    position of each (B * beam) row is in the states, so the beam gather
+    reorders it; memory and its mask are tiled once."""
+    mem = nn.BeamSearchDecoder.tile_beam_merge_with_batch(memory, beam)
+    mask = nn.BeamSearchDecoder.tile_beam_merge_with_batch(memory_mask, beam)
+
+    def cell(inputs, states):
+        caches, pos = states
+        x = (inputs + model.tgt_pos(pos))[:, None]
+        out, caches = model.transformer.decoder(x, mem, None, mask, caches)
+        return out[:, 0], (caches, pos + 1)
+    return cell
+
+
+def beam_request(nn, fa, model, src, bias, beam, max_step):
+    """One serving request through the entry points: the encoder once, then
+    BeamSearchDecoder + dynamic_decode over the decoder's caches.  Returns
+    (memory, predicted (B, T, W), final state, lengths, the steps'
+    {token, parent}, the flash counts after the encoder)."""
+    import torch
+
+    class Recording(nn.BeamSearchDecoder):
+        def finalize(self, outputs, final_state, sequence_lengths):
+            self.outputs = outputs
+            return super().finalize(outputs, final_state, sequence_lengths)
+
+    memory = model.transformer.encoder(
+        model.embed(model.src_emb, model.src_pos, src), bias)
+    enc_counts = fa_counts(fa)
+    dec = Recording(beam_cell(nn, model, memory, bias, beam), S2S_START,
+                    S2S_END, beam, embedding_fn=model.tgt_emb,
+                    output_fn=model.head)
+    pos = torch.zeros(src.shape[0], dtype=torch.int64, device=src.device)
+    pred, state, lengths = nn.dynamic_decode(
+        dec, (model.transformer.decoder.gen_cache(memory), pos),
+        max_step_num=max_step, return_length=True)
+    return memory, pred, state, lengths, dec.outputs, enc_counts
+
+
+def beam_invariants(nn, model, memory, bias, pred, state, lengths, outputs,
+                    tol_abs, tol_rel):
+    """Fails unless each request's final beam log-probs fall across the
+    beams, the best beam's log-prob is the teacher-forced rescoring of its
+    tokens (to its length) by the same model within tol_abs + tol_rel *
+    |log-prob|, and gather_tree's sequences follow the recorded parents.
+    Returns the rescoring's largest absolute and relative errors."""
+    import numpy as np
+    import torch
+    lp = state.log_probs
+    if not bool((lp[:, :-1] >= lp[:, 1:]).all()):
+        fail(f"beam log-probs do not fall across the beams: {lp.tolist()}")
+    best = pred[:, :, 0]
+    b, t = best.shape
+    tgt = torch.cat([torch.full((b, 1), S2S_START, device=best.device),
+                     best[:, :-1]], 1)
+    out = model.transformer.decoder(
+        model.embed(model.tgt_emb, model.tgt_pos, tgt), memory,
+        nn.Transformer.generate_square_subsequent_mask(t,
+                                                       device=best.device),
+        bias)
+    step_lp = torch.log_softmax(model.head(out).float(), -1).gather(
+        2, best[..., None])[..., 0]
+    live = torch.arange(t, device=best.device)[None, :] < lengths[:, :1]
+    got = (step_lp * live).sum(1)
+    err = (got - lp[:, 0]).abs()
+    if not bool((err <= tol_abs + tol_rel * lp[:, 0].abs()).all()):
+        fail(f"the best beam's log-prob {lp[:, 0].tolist()} is not its "
+             f"teacher-forced rescoring {got.tolist()}")
+    tok = np.stack([o["token"].cpu().numpy() for o in outputs])
+    par = np.stack([o["parent"].cpu().numpy() for o in outputs])
+    want = np.empty_like(tok)
+    for bi in range(tok.shape[1]):
+        for w in range(tok.shape[2]):
+            p = w
+            for s in range(tok.shape[0] - 1, -1, -1):
+                want[s, bi, w] = tok[s, bi, p]
+                p = par[s, bi, p]
+    if not np.array_equal(want.transpose(1, 0, 2), pred.cpu().numpy()):
+        fail("gather_tree's sequences do not follow the recorded parents")
+    return float(err.max()), float((err / lp[:, 0].abs()).max())
+
+
+def masked_times(g, fa, F, b, h, sq, sk, d, mask, sdpa_mask, pairs,
+                 bias_bytes, causal=False):
+    """The bf16 flash kernels #1 (forward), #2 (dq) and #3 (dk/dv) at (b,
+    h, sq, sk, d) with ``mask`` (a Mask or None) on random inputs: each
+    kernel's ms (CUDA events), SDPA's forward and backward ms on the same
+    work (with ``sdpa_mask``), and each kernel's bound from the (query,
+    key) ``pairs`` the work takes and the mask's ``bias_bytes``."""
+    import torch
+    bh, sc = b * h, d ** -0.5
+    qt, kt, vt, dot = (rand(g, (bh, n, d), torch.bfloat16)
+                       for n in (sq, sk, sk, sq))
+    ot, lse = fa._launch(qt, kt, vt, sc, causal, mask)
+    delta = fa._delta(dot, ot)
+    q4, do4 = (t.view(b, h, sq, d) for t in (qt, dot))
+    k4, v4 = (t.view(b, h, sk, d) for t in (kt, vt))
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    out_l = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=sdpa_mask,
+                                           is_causal=causal, scale=sc)
+    r = {"fwd_ms": cuda_ms(lambda: fa._launch(qt, kt, vt, sc, causal,
+                                              mask)),
+         "dq_ms": cuda_ms(lambda: fa._launch_dq(qt, kt, vt, dot, lse, delta,
+                                                sc, causal, mask)),
+         "dkv_ms": cuda_ms(lambda: fa._launch_dkv(qt, kt, vt, dot, lse,
+                                                  delta, sc, causal, mask)),
+         "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             q4, k4, v4, attn_mask=sdpa_mask, is_causal=causal, scale=sc)),
+         "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+             out_l, (ql, kl, vl), do4, retain_graph=True))}
+    prod = 2 * d * pairs                             # one product
+    tq, tk, rb = bh * sq * d * 2, bh * sk * d * 2, bh * sq * 4
+    # forward: 2 products, reads q, k, v (and the bias), writes out and
+    # lse; dq: 3, reads q, k, v, do, lse, delta, writes dq; dk/dv: 4,
+    # writes dk and dv
+    for name, n_prod, nbytes in (("fwd", 2, 2 * tq + 2 * tk + rb),
+                                 ("dq", 3, 3 * tq + 2 * tk + 2 * rb),
+                                 ("dkv", 4, 2 * tq + 4 * tk + 2 * rb)):
+        r[name + "_bound_ms"], r[name + "_bound_by"] = bound(
+            n_prod * prod, nbytes + bias_bytes, PEAK_BF16_FLOPS)
+    return r
+
+
+def seq2seq_kernel_checks(g, fa, bias):
+    """#1-#3 against their plain versions, beside the planted faults, at
+    the three mask shapes of the seq2seq path on seq2seq-train's batch
+    (``bias``: its (B, 1, 1, S) f32 source bias): cross-attention (128
+    queries, 256 keys) under the bias row, the decoder's self-attention
+    under the full (1, 1, 128, 128) causal bias, the encoder at S = 256
+    under the bias row; each bias in bf16 (TrainStep's O2 cast) and the
+    rows in f32 too (serving).  Returns (out, dq, dk/dv) max errors."""
+    import torch
+    from paddle_tpu_torch.nn import Transformer
+    bf16 = torch.bfloat16
+    causal = Transformer.generate_square_subsequent_mask(S2S_TGT).view(
+        1, 1, S2S_TGT, S2S_TGT)
+    errs = []
+    for s, m in (((S2S_TGT, S2S_SRC), bias), ((S2S_TGT, S2S_TGT), causal),
+                 ((S2S_SRC, S2S_SRC), bias)):
+        for dt in ((bf16, torch.float32) if m is bias else (bf16,)):
+            errs.append(check_masked(
+                g, fa, (S2S_B, S2S_HEADS, s, 64, bf16, None, None, False,
+                        False),
+                fa.Mask(m.to(dt).contiguous(), None, None, S2S_HEADS),
+                dbias=False)[:3])
+    return tuple(max(e[i] for e in errs) for i in range(3))
+
+
+def seq2seq_small(nn, fa, TrainStep, Adam):
+    """seq2seq-small: the small composition (2 + 2 layers, d_model 128, 2
+    heads of 64, V = 512, S = 256 / 128), f32, card against CPU: logits,
+    the loss and every gradient; one TrainStep with Adam(1e-3), the
+    parameters where the CPU's gradient is above GRAD_FLOOR (elsewhere each
+    move within Adam's bound); then 20 card steps of one batch at the same
+    constant rate, whose loss must fall; then a beam decode (4 beams, 16
+    steps) whose invariants hold at TOL_RESCORE_F32.  Returns the
+    errors."""
+    import copy
+
+    import torch
+    torch.manual_seed(0)
+    cpu = seq2seq_model(nn, max_len=S2S_SRC, device="cpu", **S2S_SMALL)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    arrays = seq2seq_batch(S2S_SMALL["vocab"], 2, S2S_SRC, S2S_TGT, seed=3)
+    ins = {m: seq2seq_inputs(nn, arrays, d) for m, d in ((gpu, "cuda"),
+                                                         (cpu, "cpu"))}
+    before = fa_counts(fa)
+    with torch.no_grad():
+        logits = [m(*ins[m][:2], *ins[m][3:]).cpu() for m in (gpu, cpu)]
+    launched = [a - b for a, b in zip(fa_counts(fa), before)]
+    if launched != [0, 0, 0, 6, 0, 0, 0]:
+        fail(f"the small seq2seq forward launched {launched}, not 6 masked "
+             "forward kernels (2 encoder, 2 decoder, 2 cross)")
+    err = {"logits": float((logits[0] - logits[1]).abs().max())}
+    losses = []
+    for m in (gpu, cpu):
+        loss = seq2seq_loss(m, *ins[m])
+        loss.backward()
+        losses.append(float(loss.detach()))
+    err["loss"] = abs(losses[0] - losses[1])
+    gp = dict(gpu.named_parameters())
+    err["grads"] = max(float((gp[n].grad.cpu() - p.grad).abs().max())
+                       for n, p in cpu.named_parameters())
+    floor = {n: p.grad.abs() > GRAD_FLOOR for n, p in cpu.named_parameters()}
+    old = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    for m in (gpu, cpu):
+        m.zero_grad()
+        TrainStep(m, seq2seq_loss, Adam(learning_rate=1e-3))(*ins[m])
+    err["params"] = 0.0
+    for n, p in cpu.named_parameters():
+        got = gp[n].detach().cpu()
+        err["params"] = max(err["params"], float(torch.where(
+            floor[n], got - p.detach(), 0.0).abs().max()))
+        for moved in (got - old[n], p.detach() - old[n]):
+            if float(moved.abs().max()) > 1e-3 * 1.01:
+                fail(f"one Adam(1e-3) step moved {n} past Adam's bound")
+    step = TrainStep(gpu, seq2seq_loss, Adam(learning_rate=1e-3))
+    falls = [float(step(*ins[gpu])) for _ in range(S2S_SMALL_STEPS)]
+    gpu.eval()
+    with torch.no_grad():
+        src, bias = ins[gpu][0], ins[gpu][3]
+        memory, pred, state, lengths, outs, _ = beam_request(
+            nn, fa, gpu, src, bias, BEAM, S2S_SMALL_BEAM_STEPS)
+        err["rescore"] = beam_invariants(nn, gpu, memory, bias, pred, state,
+                                         lengths, outs, TOL_RESCORE_F32,
+                                         0.0)[0]
+    return err, falls, lengths.tolist()
+
+
+def seq2seq_train(nn, fa, TrainStep, Adam, power):
+    """seq2seq-train: Transformer-base at full width and depth, f32
+    masters, TrainStep with AMP O2 bf16, Adam(beta2=0.98, epsilon=1e-9)
+    under NoamDecay(512, 4000, learning_rate=2.0), dropout 0.1 from an
+    explicit generator, label smoothing 0.1, B=32, sources of 256 and
+    targets of 128; S2S_WARMUP then S2S_STEPS timed steps.  Fails unless
+    each step launches 18 of each masked flash kernel (#1-#3: 6 encoder,
+    6 decoder self, 6 cross) and nothing else, the losses are finite and
+    the first near ln V, and every parameter moved.  Returns (the model,
+    the phase's row, its launches by counter)."""
+    import torch
+
+    from paddle_tpu_torch.optimizer import lr
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    torch.manual_seed(0)
+    model = seq2seq_model(nn, S2S_V, S2S_D, S2S_HEADS, S2S_LAYERS, S2S_FFN,
+                          S2S_SRC, dropout=0.1, generator=gen)
+    sched = lr.NoamDecay(S2S_D, 4000, learning_rate=2.0)
+    step = TrainStep(model, seq2seq_loss,
+                     Adam(learning_rate=sched, beta2=0.98, epsilon=1e-9),
+                     amp_level="O2", amp_dtype="bfloat16")
+    arrays = seq2seq_batch(S2S_V, S2S_B, S2S_SRC, S2S_TGT)
+    inputs = seq2seq_inputs(nn, arrays, "cuda")
+    old = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset_fa(fa)
+    losses, counts = [], []
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for i in range(S2S_WARMUP + S2S_STEPS):
+        if i == S2S_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e0.record()
+        losses.append(step(*inputs))
+        sched.step()
+        counts.append(fa_counts(fa))
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / S2S_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    launches = dict(zip(FA_COUNTERS, counts[-1]))
+    real = int((arrays[2] != S2S_PAD).sum())
+    row = {"step_ms": step_ms,
+           "tokens_per_s": S2S_B * S2S_TGT / step_ms * 1e3,
+           "real_target_tokens": real,
+           "real_tokens_per_s": real / step_ms * 1e3, "peak_bytes": peak,
+           "losses": losses, "lr_last": sched()}
+    log(f"seq2seq-train: Transformer-base ({S2S_LAYERS} + {S2S_LAYERS} "
+        f"layers, d_model {S2S_D}, {S2S_HEADS} heads, FFN {S2S_FFN}, V "
+        f"{S2S_V} + {S2S_V}), O2 bf16, Adam(0.98, 1e-9) under "
+        f"NoamDecay(512, 4000, 2.0), dropout 0.1, label smoothing 0.1, "
+        f"B={S2S_B} x {S2S_SRC} -> {S2S_TGT} ({real} real target tokens): "
+        f"step {step_ms:.4f} ms (CUDA events, mean of {S2S_STEPS} after "
+        f"{S2S_WARMUP} warm-ups), {row['tokens_per_s']:.1f} target "
+        f"tokens/s, peak {peak} bytes; losses {losses} (ln V = "
+        f"{math.log(S2S_V):.4f}); launches after each step {counts} "
+        f"[{power}]")
+    per_step = (0, 0, 0, 3 * S2S_LAYERS, 3 * S2S_LAYERS, 3 * S2S_LAYERS, 0)
+    want = [tuple(k * (i + 1) for k in per_step) for i in range(len(counts))]
+    if counts != want:
+        fail(f"seq2seq-train launch counts {counts} != {per_step} a step")
+    if not all(math.isfinite(x) for x in losses):
+        fail("a seq2seq-train loss is not finite")
+    if abs(losses[0] - math.log(S2S_V)) > 1.0:
+        fail("the first seq2seq-train loss is not near ln V")
+    still = [n for n, p in model.named_parameters()
+             if not bool((p.detach() != old[n]).any())]
+    if still:
+        fail(f"seq2seq-train left parameters where they were: {still}")
+    del old, step, inputs
+    torch.cuda.empty_cache()
+    return model, row, launches
+
+
+def seq2seq_serve(nn, fa, model, power):
+    """seq2seq-serve: the trained model's weights cast to bf16, eval mode,
+    SERVE_REQUESTS requests of SERVE_B sources of S2S_SRC (lengths in
+    [S/2, S], an f32 bias row) under inference_mode, beam BEAM, at most
+    MAX_STEP steps, through beam_request.  Fails unless each request's
+    encoder launches S2S_LAYERS masked forward kernels and nothing else,
+    its decode steps none, and beam_invariants hold at TOL_RESCORE_BF16.
+    Returns (the phase's row, its launches by counter)."""
+    import torch
+    model.to(torch.bfloat16).eval()
+    lat, steps, errs, total = [], [], [], [0] * len(FA_COUNTERS)
+    for r in range(SERVE_REQUESTS):
+        src, _, _, bias = (torch.as_tensor(a, device="cuda") for a in
+                           seq2seq_batch(S2S_V, SERVE_B, S2S_SRC, S2S_TGT,
+                                         seed=10 + r))
+        reset_fa(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            memory, pred, state, lengths, outs, enc = beam_request(
+                nn, fa, model, src, bias, BEAM, MAX_STEP)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            after = fa_counts(fa)
+            steps.append(pred.shape[1])
+            if enc != (0, 0, 0, S2S_LAYERS, 0, 0, 0) or after != enc:
+                fail(f"seq2seq-serve request {r}: launches {enc} after the "
+                     f"encoder and {after} after the decode, not "
+                     f"{S2S_LAYERS} masked forward kernels and then none")
+            total = [a + b for a, b in zip(total, after)]
+            errs.append(beam_invariants(nn, model, memory, bias, pred, state,
+                                        lengths, outs, 0.0,
+                                        TOL_RESCORE_BF16))
+    row = {"latency_ms": lat, "steps": steps,
+           "tokens_per_s": [SERVE_B * n / ms * 1e3
+                            for n, ms in zip(steps, lat)],
+           "beam_step_ms": [ms / n for n, ms in zip(steps, lat)],
+           "rescore_abs_rel_err": errs}
+    log(f"seq2seq-serve: the model in bf16, {SERVE_REQUESTS} requests of "
+        f"{SERVE_B} x {S2S_SRC} (f32 bias rows), beam {BEAM}, at most "
+        f"{MAX_STEP} steps: latency ms {lat}, steps {steps}, generated "
+        f"tokens/s (one sequence a source) {row['tokens_per_s']}; beam "
+        f"invariants hold, best-beam rescoring |err| and |err| / |log-prob| "
+        f"{errs} (tol {TOL_RESCORE_BF16:g} relative) [{power}]")
+    return row, dict(zip(FA_COUNTERS, total))
+
+
+def rnn_phase(nn, power):
+    """rnn: LSTM and GRU (RNN_LAYERS layers, bidirect, hidden RNN_H over
+    inputs of RNN_IN), B=RNN_B, T=RNN_T, sequence lengths in [T/2, T], f32,
+    card against CPU: outputs and final states by max |difference|, every
+    gradient of sum(out * w) / B by max |difference| / max |CPU's|, both
+    within TOL_F32; and the forward + backward's ms on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((RNN_B, RNN_T, RNN_IN)).astype(np.float32)
+    lens = rng.integers(RNN_T // 2, RNN_T + 1, (RNN_B,))
+    w = rng.standard_normal((RNN_B, RNN_T, 2 * RNN_H)).astype(np.float32)
+    rows = {}
+    for kind in ("LSTM", "GRU"):
+        torch.manual_seed(0)
+        cpu = getattr(nn, kind)(RNN_IN, RNN_H, RNN_LAYERS,
+                                direction="bidirect", device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+
+        def run(m):
+            dev = next(m.parameters()).device
+            xt = torch.as_tensor(x, device=dev).requires_grad_()
+            out, st = m(xt, sequence_length=torch.as_tensor(lens,
+                                                            device=dev))
+            loss = (out * torch.as_tensor(w, device=dev)).sum() / RNN_B
+            grads = torch.autograd.grad(loss, [xt, *m.parameters()])
+            st = st if isinstance(st, tuple) else (st,)
+            return [out, *st], grads
+
+        (fo_g, gr_g), (fo_c, gr_c) = run(gpu), run(cpu)
+        e_out = max(float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(fo_g, fo_c))
+        e_grad = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                     for a, b in zip(gr_g, gr_c))
+        ms = cuda_ms(lambda: run(gpu), reps=3, warmup=1)
+        rows[kind] = {"fwd_bwd_ms": ms, "out_state_err": e_out,
+                      "grad_scaled_err": e_grad}
+        log(f"rnn: {kind} ({RNN_LAYERS} layers, bidirect, hidden {RNN_H}, "
+            f"input {RNN_IN}), B={RNN_B}, T={RNN_T} with sequence_length, "
+            f"f32, card vs CPU: outputs and states max_abs_err={e_out:.3g}, "
+            f"gradients max_err / max |CPU's|={e_grad:.3g} (tol "
+            f"{TOL_F32:g}); forward + backward {ms:.4f} ms (CUDA events) "
+            f"[{power}]")
+        if e_out > TOL_F32 or e_grad > TOL_F32:
+            fail(f"{kind} on the card disagrees with the CPU")
+        del cpu, gpu
+    return rows
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3139,7 +3631,42 @@ def main() -> int:
                   "lenet_train_first_last_loss": [l_first, l_last],
                   "small_vision": sv}
 
-    # -- 16. timing ---------------------------------------------------------
+    # -- 16. seq2seq-small --------------------------------------------------
+    t_s2s = time.perf_counter()
+    s_err, s_falls, s_lens = seq2seq_small(tnn, fa, TrainStep, Adam)
+    log(f"seq2seq-small (2 + 2 layers, d_model 128, 2 heads of 64, V=512, "
+        f"S={S2S_SRC} -> {S2S_TGT}, f32) card vs CPU: max_abs_err logits="
+        f"{s_err['logits']:.3g} loss={s_err['loss']:.3g} gradients="
+        f"{s_err['grads']:.3g}, one Adam(1e-3) step's parameters (where "
+        f"the gradient is above {GRAD_FLOOR:g})={s_err['params']:.3g} (tol "
+        f"{TOL_F32:g}); {S2S_SMALL_STEPS} steps of one batch: losses "
+        f"{s_falls[0]:.6f} -> {s_falls[-1]:.6f}; beam {BEAM} over "
+        f"{S2S_SMALL_BEAM_STEPS} steps, lengths {s_lens}, best-beam "
+        f"rescoring |err| {s_err['rescore']:.3g} (tol {TOL_RESCORE_F32:g})")
+    if max(s_err["logits"], s_err["loss"], s_err["grads"],
+           s_err["params"]) > TOL_F32:
+        fail("the small seq2seq model on the card disagrees with the CPU")
+    if not s_falls[-1] < s_falls[0]:
+        fail("the small seq2seq model's loss did not fall")
+
+    # -- 17. seq2seq-train --------------------------------------------------
+    s2s_bias = torch.as_tensor(seq2seq_batch(S2S_V, S2S_B, S2S_SRC,
+                                             S2S_TGT)[3], device="cuda")
+    s2s_err = seq2seq_kernel_checks(g, fa, s2s_bias)
+    s2s_model, s2s_row, s2s_launch = seq2seq_train(tnn, fa, TrainStep, Adam,
+                                                   power)
+
+    # -- 18. seq2seq-serve --------------------------------------------------
+    serve_row, serve_launch = seq2seq_serve(tnn, fa, s2s_model, power)
+    del s2s_model
+    torch.cuda.empty_cache()
+
+    # -- 19. rnn ------------------------------------------------------------
+    rnn_rows = rnn_phase(tnn, power)
+    t_s2s = time.perf_counter() - t_s2s
+    log(f"seq2seq and rnn: the new phases took {t_s2s:.1f} s of wall time")
+
+    # -- 20. timing ---------------------------------------------------------
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -3481,10 +4008,44 @@ def main() -> int:
         _xla_attention(qg, kg, vg, pb, bsc, False), (qg, kg, vg), dop))
     del bq, bk, bv, bdo, q4b, k4b, v4b, do4b, qg, kg, vg
 
+    # #1-#3 at the seq2seq path's three mask shapes, the biases in bf16 as
+    # TrainStep's O2 cast gives them.  The work counted for a bound: under
+    # a bias row the pairs whose key is real; under the full causal bias
+    # every pair, since the kernels walk every key tile; and the same
+    # decoder self-attention through the unmasked causal kernel beside it
+    real_src = int((s2s_bias == 0).sum())
+    row_b = s2s_bias.to(bf16)
+    keep_s = (s2s_bias == 0)
+    causal_b = tnn.Transformer.generate_square_subsequent_mask(
+        S2S_TGT).to(bf16).view(1, 1, S2S_TGT, S2S_TGT)
+    s2s_att = {}
+    for name, sq, sk, bias_t, sdpa_m, pairs in (
+            ("cross", S2S_TGT, S2S_SRC, row_b, keep_s,
+             S2S_HEADS * S2S_TGT * real_src),
+            ("decoder_self", S2S_TGT, S2S_TGT, causal_b, causal_b,
+             S2S_B * S2S_HEADS * S2S_TGT * S2S_TGT),
+            ("encoder", S2S_SRC, S2S_SRC, row_b, keep_s,
+             S2S_HEADS * S2S_SRC * real_src)):
+        s2s_att[name] = masked_times(
+            g, fa, F, S2S_B, S2S_HEADS, sq, sk, 64,
+            fa.Mask(bias_t.contiguous(), None, None, S2S_HEADS), sdpa_m,
+            pairs, bias_t.numel() * 2)
+    s2s_att["decoder_self_is_causal"] = masked_times(
+        g, fa, F, S2S_B, S2S_HEADS, S2S_TGT, S2S_TGT, 64, None, None,
+        S2S_B * S2S_HEADS * visible_pairs(S2S_TGT, S2S_TGT, True), 0,
+        causal=True)
+    for name, r in s2s_att.items():
+        table.append({"kernel": f"flash_attention seq2seq {name} (fwd, dq, "
+                                "dk/dv)",
+                      "shape": f"b={S2S_B} h={S2S_HEADS} d=64 bf16, "
+                               f"{real_src} real source keys", **r})
+
     m_launch = {n: bserve_launches[n] + bert_runs["padded"]["launches"][n]
                 + bert_plain["padded"]["launches"][n] + enc_launches[n]
-                + mflash_launches[n] for n in FA_COUNTERS}
+                + mflash_launches[n] + s2s_launch[n] + serve_launch[n]
+                for n in FA_COUNTERS}
     ma = bert_att["masked"]
+    m_errs = [max(a, b) for a, b in zip(m_errs, s2s_err)]
     for name, counter, src, line, ms, err, bnd, plain, lib in (
             ("flash_attention_fwd_masked", "launches_masked", "fwd", 190,
              ma["fwd_ms"], m_errs[0], ma["fwd_bound"], ma["fwd_plain_ms"],
@@ -3552,7 +4113,14 @@ def main() -> int:
         "bert_layer_dense_fwd_ms": layer_dense,
         "bert_layer_flash_fwd_bwd_ms": layer_flash_fb,
         "bert_layer_dense_fwd_bwd_ms": layer_dense_fb, **z["summary"],
-        **vision_row}))
+        **vision_row,
+        **{f"seq2seq_train_{k}": v for k, v in s2s_row.items()},
+        **{f"seq2seq_serve_{k}": v for k, v in serve_row.items()},
+        "seq2seq_small_err": s_err, "seq2seq_small_losses": s_falls,
+        "seq2seq_check_max_abs_err": list(s2s_err),
+        "seq2seq_attention": s2s_att, "rnn": rnn_rows,
+        "seq2seq_rnn_phases_s": t_s2s,
+        "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())
     log(json.dumps({"kernels": kernels}))

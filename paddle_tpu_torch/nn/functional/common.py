@@ -1,12 +1,13 @@
-"""``linear`` and ``dropout`` (port of paddle_tpu/nn/functional/common.py,
-what nn/layer/transformer.py needs)."""
+"""``linear``, ``dropout``, ``embedding``, ``one_hot`` and
+``label_smooth`` (port of paddle_tpu/nn/functional/common.py, what the
+transformer layers and a label-smoothed seq2seq loss need)."""
 from __future__ import annotations
 
 import torch
 
 from paddle_tpu_torch.framework.replay import note_generator
 
-__all__ = ["linear", "dropout"]
+__all__ = ["linear", "dropout", "embedding", "one_hot", "label_smooth"]
 
 
 def linear(x, weight, bias=None, name=None):
@@ -41,3 +42,34 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` looked up by the integer ids ``x`` (reference
+    ``:77``, the dense path); the rows of ids equal to ``padding_idx`` are
+    zero and pass no gradient.  ``sparse=True``, the reference's
+    SelectedRows gradient (``:98``), has no counterpart in the port and
+    raises."""
+    if sparse:
+        raise NotImplementedError(
+            "embedding(sparse=True): the SelectedRows gradient is not "
+            "ported; use sparse=False")
+    out = torch.nn.functional.embedding(x.long(), weight)
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
+    return out
+
+
+def one_hot(x, num_classes, name=None):
+    """f32 one-hot rows of the integer ids ``x`` (reference ``:143``, as
+    ``jax.nn.one_hot``: an id outside [0, num_classes) gives a zero row)."""
+    classes = torch.arange(num_classes, device=x.device)
+    return (x[..., None] == classes).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """(1 - epsilon) * label + epsilon * prior_dist, the prior uniform over
+    the last axis when not given (reference ``:376``)."""
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * prior_dist
+    return (1 - epsilon) * label + epsilon / label.shape[-1]

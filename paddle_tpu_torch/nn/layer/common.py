@@ -1,4 +1,4 @@
-"""``Linear``, ``Dropout`` and ``Flatten`` (port of
+"""``Linear``, ``Dropout``, ``Embedding`` and ``Flatten`` (port of
 paddle_tpu/nn/layer/common.py).
 
 ``Linear`` keeps the reference's ``(in_features, out_features)`` weight
@@ -17,7 +17,7 @@ from torch import nn
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 
-__all__ = ["Linear", "Dropout", "Flatten"]
+__all__ = ["Linear", "Dropout", "Embedding", "Flatten"]
 
 
 def _check_attr(attr, what):
@@ -73,6 +73,39 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Embedding(nn.Module):
+    """A (num_embeddings, embedding_dim) table looked up by integer ids
+    (reference ``:141``): Xavier-uniform, the ``padding_idx`` row zeroed at
+    construction (a negative one counts from the end) and its lookups zero.
+    ``sparse=True`` is not ported and raises."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, device=None):
+        super().__init__()
+        _check_attr(weight_attr, "weight_attr")
+        if weight_attr is False:
+            raise ValueError("Embedding needs a weight")
+        if sparse:
+            raise NotImplementedError(
+                "Embedding(sparse=True): the SelectedRows gradient is not "
+                "ported; use sparse=False")
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = (padding_idx if padding_idx is None or
+                             padding_idx >= 0 else num_embeddings + padding_idx)
+        weight = nn.init.xavier_uniform_(torch.empty(
+            num_embeddings, embedding_dim, device=resolve_device(device)))
+        if self._padding_idx is not None:
+            weight[self._padding_idx] = 0.0
+        self.weight = nn.Parameter(weight)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
 class Flatten(nn.Module):

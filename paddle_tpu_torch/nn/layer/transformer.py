@@ -1,7 +1,8 @@
-"""Transformer encoder layers (port of paddle_tpu/nn/layer/transformer.py
-:28-170 and ``_clone_layer`` :271): ``MultiHeadAttention`` with its
-``Cache`` / ``StaticCache`` and ``gen_cache``, ``TransformerEncoderLayer``
-and ``TransformerEncoder``.  The decoder side is not ported yet.
+"""Transformer layers (port of paddle_tpu/nn/layer/transformer.py):
+``MultiHeadAttention`` with its ``Cache`` / ``StaticCache`` and
+``gen_cache``, ``TransformerEncoderLayer``, ``TransformerEncoder``,
+``TransformerDecoderLayer``, ``TransformerDecoder`` and ``Transformer``
+with ``generate_square_subsequent_mask``.
 
 Attention goes through ``nn.functional.scaled_dot_product_attention``:
 the flash kernel where its rule serves the call (masked calls included),
@@ -11,6 +12,11 @@ never launches it.  Dotted parameter names are the reference's
 ``named_parameters()`` names (``layers.0.self_attn.q_proj.weight``, ...),
 so its weights carry across with models/convert.py ``load_named_params``.
 Layers are created on the card unless ``device="cpu"`` is asked for.
+
+An incremental ``Cache`` starts empty in the dtype of the key projection's
+weight, so a bf16 model's keys and values stay bf16 as they are appended;
+the reference starts it f32 (``:66-69``) and its concatenation promotes
+them.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from paddle_tpu_torch.nn.layer.common import Dropout, Linear
 from paddle_tpu_torch.nn.layer.norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
 class MultiHeadAttention(nn.Module):
@@ -188,6 +195,182 @@ class TransformerEncoder(nn.Module):
 
     def gen_cache(self, src):
         return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-attention, cross-attention over ``memory`` and a feed-forward
+    block, each with a residual and a layer norm, post-norm unless
+    ``normalize_before`` (reference ``:173``).  With ``cache`` (the pair
+    :meth:`gen_cache` returns) the self-attention appends to its
+    incremental ``Cache`` and the cross-attention reads its
+    ``StaticCache``, and the new pair is returned beside the output."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 device=None, generator=None):
+        super().__init__()
+        if not hasattr(F, activation):
+            raise ValueError(f"activation {activation!r} is not a function "
+                             "of paddle_tpu_torch.nn.functional")
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        dev = resolve_device(device)
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, device=dev, generator=generator)
+        self.cross_attn = MultiHeadAttention(
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, device=dev, generator=generator)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, device=dev)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, device=dev)
+        self.norm1 = LayerNorm(d_model, device=dev)
+        self.norm2 = LayerNorm(d_model, device=dev)
+        self.norm3 = LayerNorm(d_model, device=dev)
+        self.dropout1 = Dropout(dropout, generator=generator)
+        self.dropout2 = Dropout(dropout, generator=generator)
+        self.dropout3 = Dropout(dropout, generator=generator)
+        self.act_dropout = Dropout(act_dropout, generator=generator)
+        self.activation = activation
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incr_cache = self.self_attn(tgt, tgt, tgt, tgt_mask,
+                                             cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        if cache is None:
+            tgt = self.cross_attn(tgt, memory, memory, memory_mask)
+        else:
+            tgt, static_cache = self.cross_attn(tgt, memory, memory,
+                                                memory_mask, cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        act = getattr(F, self.activation)
+        tgt = self.linear2(self.act_dropout(act(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        if cache is None:
+            return tgt
+        return tgt, (incr_cache, static_cache)
+
+    def gen_cache(self, memory):
+        """(an empty incremental ``Cache``, the ``StaticCache`` of
+        ``memory``'s projected keys and values) (reference ``:234``)."""
+        incr = self.self_attn.gen_cache(memory)
+        static = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incr, static
+
+
+class TransformerDecoder(nn.Module):
+    """``num_layers`` decoder layers: the one given and fresh clones of it
+    (reference ``:241``), then an optional final norm."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList([decoder_layer] + [
+            _clone_layer(decoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output = tgt
+        new_caches = []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, c = mod(output, memory, tgt_mask, memory_mask,
+                                cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        """Each layer's (incremental, static) cache pair; with ``do_zip``
+        the pairs zipped into (incremental caches, static caches)
+        (reference ``:264``)."""
+        caches = [layer.gen_cache(memory) for layer in self.layers]
+        if do_zip:
+            caches = list(zip(*caches))
+        return caches
+
+
+class Transformer(nn.Module):
+    """An encoder-decoder Transformer (reference ``:288``): by default
+    Transformer-base (d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
+    dropout 0.1, ReLU, post-norm), with a final norm on each side only when
+    ``normalize_before``; ``custom_encoder`` / ``custom_decoder`` replace
+    either side."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, device=None,
+                 generator=None):
+        super().__init__()
+        self.d_model = d_model
+        self.nhead = nhead
+        dev = resolve_device(device)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            enc_layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, device=dev, generator=generator)
+            enc_norm = (LayerNorm(d_model, device=dev) if normalize_before
+                        else None)
+            self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
+                                              enc_norm)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            dec_layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, device=dev, generator=generator)
+            dec_norm = (LayerNorm(d_model, device=dev) if normalize_before
+                        else None)
+            self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
+                                              dec_norm)
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length, device=None):
+        """(length, length) f32: 0 on and below the diagonal, -1e9 above
+        (reference ``:324``), on the card unless ``device`` says
+        otherwise.  An additive bias, not ``is_causal``: attention adds it
+        to every score."""
+        keep = torch.ones(length, length, dtype=torch.bool,
+                          device=resolve_device(device)).tril()
+        return torch.where(keep, 0.0, -1e9)
 
 
 def _clone_layer(layer):

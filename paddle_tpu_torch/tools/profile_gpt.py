@@ -1,6 +1,7 @@
 """Where the time of a GPT-2 345M serving request or training step, of a
-BERT-base training step, or of a long-sequence training step goes on the
-card.
+BERT-base training step, of a long-sequence training step, or of a
+Transformer-base translation training step or beam-search request goes
+on the card.
 
     python -m paddle_tpu_torch.tools.profile_gpt [--batch 8] [--seq 1024]
     python -m paddle_tpu_torch.tools.profile_gpt --train
@@ -9,6 +10,7 @@ card.
     python -m paddle_tpu_torch.tools.profile_gpt --longseq [--seq 8192]
     python -m paddle_tpu_torch.tools.profile_gpt --bert
     python -m paddle_tpu_torch.tools.profile_gpt --encoder-bias
+    python -m paddle_tpu_torch.tools.profile_gpt --seq2seq [--serve]
 
 Builds GPT-2 345M at full width and depth on the card and warms up.
 Serving (the default): bf16 parameters, and one JSON line for each request
@@ -31,7 +33,14 @@ AdamW(learning_rate=1e-4), bert_pretrain_loss, B=128, S=128 unless
 one step of a 12-layer TransformerEncoder (768, 12 heads, 3072, GELU)
 that trains a learned (1, 12, S, S) attention bias as its src_mask, mean
 square error against a fixed target, the same TrainStep and AdamW, B=128,
-S=128 by default.  Each line
+S=128 by default.  ``--seq2seq``: one step of chip_smoke.py's
+seq2seq-train (Transformer-base, V=30000 + 30000, O2 bf16, Adam(beta2
+0.98, epsilon 1e-9) under NoamDecay(512, 4000, 2.0), dropout 0.1,
+label-smoothed loss, B=32 sources of 256 and targets of 128); with
+``--serve``, one seq2seq-serve request instead (the model in bf16, 8
+sources, the encoder and a beam-4 search of 128 steps), whose line adds
+the mean ms of a beam step.  The composition, its batch and its beam cell
+are chip_smoke.py's (run from the repository's root).  Each line
 holds the wall time between synchronisations (mean of a few runs), the
 device time of the kernels grouped by kind (from torch.profiler; under
 --train the kernels launched inside the ``TrainStep.update`` range form
@@ -189,6 +198,10 @@ def main(argv=None) -> int:
     ap.add_argument("--encoder-bias", action="store_true",
                     help="a training step of an encoder with a learned "
                          "attention bias")
+    ap.add_argument("--seq2seq", action="store_true",
+                    help="a Transformer-base translation training step")
+    ap.add_argument("--serve", action="store_true",
+                    help="with --seq2seq: a beam-search request instead")
     args = ap.parse_args(argv)
     small = args.bert or args.encoder_bias      # BERT-base's batch
     seq = args.seq or (128 if small else 8192 if args.longseq else 1024)
@@ -223,7 +236,50 @@ def main(argv=None) -> int:
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, seq)), device="cuda")
     training = args.train or small or args.longseq
-    if args.encoder_bias:
+    beam_steps = None
+    if args.seq2seq:
+        # the composition lives in chip_smoke.py (the JAX package has no
+        # seq2seq model class, so neither has the port)
+        import chip_smoke as cs
+        import paddle_tpu_torch.nn as tnn
+        from paddle_tpu_torch.optimizer import Adam
+        from paddle_tpu_torch.ops.cuda import flash_attention as fa
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        torch.manual_seed(0)
+        s2s = cs.seq2seq_model(tnn, cs.S2S_V, cs.S2S_D, cs.S2S_HEADS,
+                               cs.S2S_LAYERS, cs.S2S_FFN, cs.S2S_SRC,
+                               dropout=0.1, generator=gen)
+        training = not args.serve
+        if args.serve:
+            batch, seq = cs.SERVE_B, cs.MAX_STEP
+            s2s.to(torch.bfloat16).eval()
+            src, _, _, bias = (torch.as_tensor(a, device="cuda") for a in
+                               cs.seq2seq_batch(cs.S2S_V, batch, cs.S2S_SRC,
+                                                cs.S2S_TGT))
+            beam_steps = cs.MAX_STEP
+
+            def serve():
+                return cs.beam_request(tnn, fa, s2s, src, bias, cs.BEAM,
+                                       cs.MAX_STEP)[1]
+
+            requests = {"seq2seq_beam_request": serve}
+        else:
+            batch, seq = cs.S2S_B, cs.S2S_TGT
+            sched = sched_lr.NoamDecay(cs.S2S_D, 4000, learning_rate=2.0)
+            step = TrainStep(s2s, cs.seq2seq_loss,
+                             Adam(learning_rate=sched, beta2=0.98,
+                                  epsilon=1e-9),
+                             amp_level="O2", amp_dtype="bfloat16")
+            inputs = cs.seq2seq_inputs(tnn, cs.seq2seq_batch(
+                cs.S2S_V, batch, cs.S2S_SRC, seq), "cuda")
+
+            def train_step():
+                loss = step(*inputs)
+                sched.step()
+                return loss
+
+            requests = {"seq2seq_train_step": train_step}
+    elif args.encoder_bias:
         import paddle_tpu_torch.nn as tnn
         enc = tnn.TransformerEncoder(tnn.TransformerEncoderLayer(
             768, 12, 3072, dropout=0.0, activation="gelu"), 12)
@@ -309,7 +365,9 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1])),
             "top_kernels": [{"ms": ms, "count": n, "name": k}
                             for ms, n, k in top],
-            "host_ms_by_range": host, "gc_per_run": gc_run}), flush=True)
+            "host_ms_by_range": host, "gc_per_run": gc_run,
+            **({} if beam_steps is None else
+               {"beam_step_ms": wall / beam_steps})}), flush=True)
     set_flags({"gpt_fused_ce": False})
     return 0
 

@@ -44,7 +44,8 @@ def test_every_module_imports_with_jax_blocked():
               "parallel.mesh", "parallel.ring", "parallel.dp_meta",
               "parallel.zero", "jit.recompute", "framework.replay",
               "distributed.fleet",
-              "distributed.fleet.utils"):
+              "distributed.fleet.utils", "nn.decode", "nn.layer.rnn",
+              "nn.layer.loss"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -66,6 +67,22 @@ def test_gpt_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         tdevice.set_device("cuda")
     assert GPT(gpt_tiny(num_layers=1), device="cpu").wte.device.type == "cpu"
+
+
+def test_seq2seq_entry_points_default_to_cuda(monkeypatch):
+    """The causal mask and the recurrent layers land on the card unless
+    asked otherwise, and raise without it."""
+    import paddle_tpu_torch.nn as tnn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tnn.Transformer.generate_square_subsequent_mask(8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tnn.LSTM(4, 8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tnn.Embedding(10, 4)
+    assert tnn.Transformer.generate_square_subsequent_mask(
+        8, device="cpu").device.type == "cpu"
+    assert tnn.LSTM(4, 8, device="cpu").weight_ih_l0.device.type == "cpu"
 
 
 def test_fleet_recompute_runs_where_its_inputs_are(monkeypatch):
