@@ -35,7 +35,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
              (PyTorch's momentum convention, the biased variance), every
              gradient and one Momentum step's moves in f64 and eval mode,
              and the port's f32 convolution (TF32 switched on around it,
-             cuDNN's TF32 read beside it) and batch norm alone.
+             cuDNN's TF32 read beside it) and batch norm alone; #8's bf16
+             instantiation at GPT-2 345M's 16 stacked tensors (354,871,296
+             values) bitwise its plain version, two calls bitwise equal,
+             beside three planted faults (a truncating store, the step
+             taken from the rounded m' and v', the rate formed from f32
+             beta pows), then bitwise at tails (lengths no multiple of 8,
+             starts off a 16-byte boundary, tensors misaligned
+             differently, 40 tensors).
 3. serve   — GPT-2 345M (remat=False in phases 3-5 and 10, as bench.py's
              GPT-2 legs run it) at full width and depth in bf16 answers a
              batch of B=8 prompts of S=1024 tokens: logits and next-token argmax, then
@@ -160,14 +167,42 @@ Phases, in order; any failure ends the script with a non-zero exit:
              (outputs, states, every gradient); forward + backward ms.
              Counters set to 0 just before each of phases 17 and 18's
              runs.
-20. timing — each kernel, its plain version, the one-call PyTorch yardstick
+20. eager-small — the dygraph loop (loss.backward(); opt.step();
+             opt.clear_grad()) of each of the ten optimizers on a small MLP
+             whose parameters carry ParamAttrs (a rate scale, L1 and L2
+             regularisers, a frozen bias), f32, card against CPU, and
+             state_dict -> set_state_dict resuming bitwise; a small GPT and
+             MobileNetV2 (scale 0.25, 64x64) under auto_cast O1 and O2
+             (GPT's O2 after decorate): each op's input dtypes, one
+             GradScaler step.
+21. eager-gpt — GPT-2 345M at full width and depth, B=8, S=1024, trained
+             by the dygraph loop: decorate O2, auto_cast O2, GradScaler(),
+             AdamW(1e-4, use_fused=True) (#8 in bf16, one launch a step),
+             2 warm-ups and 8 timed steps: tokens/s, peak bytes, the
+             device's idle share and the host ms until a step returns,
+             beside the train phase's TrainStep; #1-#3 24 launches each a
+             step.  As in the reference, beta2 = 0.999 rounds to 1.0 in
+             bf16, lr_t is 0 and no parameter moves: the check holds the
+             parameters bitwise, the loss repeating, the moments moving.
+22. eager-vision — MobileNetV2 (1.0, 1000 classes), B=96 at 224x224, under
+             auto_cast O1 with RMSProp(0.045, rho 0.9, momentum 0.9) and
+             L2Decay(4e-5) (Sandler et al. 2018, §6.1): convolution inputs
+             bf16, batch-norm inputs f32, finite losses, samples/s, peak
+             bytes, idle share; then one Momentum step of VGG-16 and
+             MobileNetV1 at 224x224, B=2, card against CPU in f64 and
+             evaluation mode (f32 ReLU and max-pool kinks flip between
+             devices; training-mode batch norms keep f32 statistics).  Counters set
+             to 0 just before each of phases 21 and 22's runs.
+23. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
              masked kernels and dbias at BERT-base's layer, #1-#3 at the
              seq2seq path's three mask shapes beside SDPA (and the decoder's
              self-attention through the unmasked causal kernel), the flash
              kernel against the dense path there; the fused CE backward's
              three passes (profiler device time) beside the pair's time;
-             #9 on GPT-2 345M's gradient; tokens/s of the forward.
+             #8 in f32 and in bf16 (beside torch.optim.AdamW(fused=True)
+             over bf16 parameters); #9 on GPT-2 345M's gradient; tokens/s
+             of the forward.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -320,6 +355,16 @@ TOL_RESCORE_BF16 = 1e-3
 GRAD_FLOOR = 1e-4          # below: Adam normalises f32 gradient noise
 # rnn: 2 layers, bidirect, hidden 512 over inputs of 512, B=128, T=50
 RNN_B, RNN_T, RNN_IN, RNN_H, RNN_LAYERS = 128, 50, 512, 512, 2
+# the dygraph loop (eager-small, eager-gpt, eager-vision): GPT-2 345M under
+# decorate O2 with AdamW(1e-4, use_fused=True), 2 warm-ups and 8 timed
+# steps; MobileNetV2 as Sandler et al. 2018 (§6.1) train it: RMSProp(0.045,
+# rho 0.9, momentum 0.9), weight decay 4e-5, batch 96 at 224x224, under O1
+EAGER_LR = 1e-4
+EAGER_WARM, EAGER_TIMED = 2, 8
+MB_BATCH, MB_HW, MB_LR, MB_WD = 96, 224, 0.045, 4e-5
+# eager-small: a 32 -> 64 -> 10 tanh MLP whose parameters carry ParamAttrs
+# (a rate scale, an L1 and an L2 regulariser, a frozen bias), B=16, 3 steps
+MLP_IN, MLP_HID, MLP_OUT, MLP_B, MLP_STEPS = 32, 64, 10, 16, 3
 
 
 def log(msg):
@@ -2582,6 +2627,559 @@ def rnn_phase(nn, power):
     return rows
 
 
+def gpt_param_shapes(cfg):
+    """The shapes of GPT's 16 stacked parameter tensors (models/gpt.py
+    ``init_params``), in ``_PARAM_ORDER``."""
+    L, H, F_, V, S_ = (cfg.num_layers, cfg.hidden_size, cfg.ffn_size,
+                       cfg.vocab_size, cfg.max_seq_len)
+    return [(V, H), (S_, H), (L, H), (L, H), (L, H, 3 * H), (L, 3 * H),
+            (L, H, H), (L, H), (L, H), (L, H), (L, H, F_), (L, F_),
+            (L, F_, H), (L, H), (H,), (H,)]
+
+
+def adam_bf16_inputs(g, shapes, offsets=None):
+    """bf16 (p, g, m, v) at ``shapes``, each tensor ``offsets[i]`` elements
+    into its own buffer (0: 16-byte aligned); moments as after a few
+    steps."""
+    import torch
+    offsets = offsets or [0] * len(shapes)
+
+    def t(scale, square=False):
+        out = []
+        for s, off in zip(shapes, offsets):
+            n = math.prod(s)
+            x = torch.randn(n + off, generator=g, device="cuda") * scale
+            x = x.square() if square else x
+            out.append(x.bfloat16()[off:].view(s))
+        return out
+    return t(0.02), t(1e-3), t(1e-4), t(1e-4, square=True)
+
+
+def adam_bf16_rates(AdamW, n, steps=3):
+    """lr_t ``steps`` steps in, widened to f32: as the optimizer forms it
+    under decorate O2, from bf16 beta pows (``Adam._pows_and_rate``, the
+    reference's rounding: beta2 = 0.999 is 1.0 in bf16, so the rate is 0),
+    and from f32 beta pows (as TrainStep's f32 state forms it)."""
+    import torch
+    opt = AdamW(LR_PEAK)
+    rates = []
+    for dt in (torch.bfloat16, torch.float32):
+        b1p = b2p = torch.ones(n, dtype=dt, device="cuda")
+        for _ in range(steps):
+            b1p, b2p, lr_t = opt._pows_and_rate(b1p, b2p, LR_PEAK)
+        rates.append(lr_t.float())
+    return rates
+
+
+def adam_bf16_faults(p, gr, m, v, lr_t, lr_bf16, wd_lr, b1, b2, eps):
+    """The bf16 update with one fault planted, as (name, (p', m', v')): a
+    store that truncates instead of rounding; p' stepped from the rounded
+    bf16 m' and v' instead of the f32 values; the rate formed from f32 beta
+    pows where the optimizer forms it from bf16 ones (``lr_t`` is the f32
+    one, ``lr_bf16`` the optimizer's)."""
+    import torch
+
+    def run(lr, trunc=False, step_rounded=False):
+        out = ([], [], [])
+        for i, (pi, gi, mi, vi) in enumerate(zip(p, gr, m, v)):
+            g32, p32 = gi.float(), pi.float()
+            m2 = b1 * mi.float() + (1 - b1) * g32
+            v2 = b2 * vi.float() + (1 - b2) * g32 * g32
+            ms, vs = ((m2.bfloat16().float(), v2.bfloat16().float())
+                      if step_rounded else (m2, v2))
+            np_ = p32 - lr[i] * ms / (torch.sqrt(vs) + eps) - wd_lr * p32
+            for o, x in zip(out, (np_, m2, v2)):
+                o.append((x.view(torch.int32) & -65536).view(
+                    torch.float32).bfloat16() if trunc else x.bfloat16())
+        return out
+    return [("truncating store", lr_t, run(lr_t, trunc=True)),
+            ("step from the rounded m', v'", lr_t,
+             run(lr_t, step_rounded=True)),
+            ("lr_t from f32 beta pows", lr_bf16, run(lr_t))]
+
+
+def check_adam_bf16(g, fused_adam, AdamW, shapes, offsets=None,
+                    faults=True):
+    """#8's bf16 instantiation against its plain version at ``shapes``
+    with lr_t from f32 beta pows (a rate above 0): bitwise, and two calls
+    bitwise equal; each planted fault unequal to the kernel (the last one
+    against the kernel at the optimizer's own rate).  Returns (elements,
+    the inputs for timing)."""
+    import torch
+    p, gr, m, v = adam_bf16_inputs(g, shapes, offsets)
+    lr_bf16, lr_t = adam_bf16_rates(AdamW, len(shapes))
+    wd_lr = torch.tensor(LR_PEAK * 0.01, device="cuda")
+    consts = (0.9, 0.999, 1e-8)
+    args = (lr_t, wd_lr) + consts
+    got = fused_adam._launch(p, gr, m, v, *args)
+    again = fused_adam._launch(p, gr, m, v, *args)
+    want = fused_adam.fused_adam_reference(p, gr, m, v, *args)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in p)
+    for what, a_l, b_l in (("plain version", got, want),
+                           ("second call", got, again)):
+        for a, b in zip(sum(a_l, []), sum(b_l, [])):
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                fail(f"fused_adam bf16 is not bitwise its {what} at "
+                     f"shapes {shapes}")
+    del again, want
+    if faults:
+        for name, rate, out in adam_bf16_faults(p, gr, m, v, lr_t, lr_bf16,
+                                                wd_lr, *consts):
+            kern = got if rate is lr_t else fused_adam._launch(
+                p, gr, m, v, rate, wd_lr, *consts)
+            diff = sum(int((a.view(torch.int16) != b.view(torch.int16))
+                           .sum()) for a, b in zip(sum(out, []),
+                                                   sum(kern, [])))
+            log(f"check fused_adam bf16 planted fault '{name}': "
+                f"{diff} of {3 * n} stored values differ")
+            if diff == 0:
+                fail(f"the planted fault '{name}' went unseen")
+            del out, kern
+    return n, (p, gr, m, v, args)
+
+
+def mlp_pair(tnn, ParamAttr, treg):
+    """The eager-small MLP on the card and on the CPU with the same
+    weights: fc1's weight at half the rate with an L1 regulariser, fc2's
+    weight with an L2 regulariser, fc1's bias frozen."""
+    import torch
+
+    class MLP(torch.nn.Module):
+        def __init__(self, device):
+            super().__init__()
+            self.fc1 = tnn.Linear(
+                MLP_IN, MLP_HID, ParamAttr("fc1.w", learning_rate=0.5,
+                                           regularizer=treg.L1Decay(1e-3)),
+                ParamAttr("fc1.b", trainable=False), device=device)
+            self.fc2 = tnn.Linear(
+                MLP_HID, MLP_OUT,
+                ParamAttr("fc2.w", regularizer=treg.L2Decay(1e-2)),
+                ParamAttr("fc2.b"), device=device)
+
+        def forward(self, x):
+            return self.fc2(torch.tanh(self.fc1(x)))
+    gpu, cpu = MLP("cuda"), MLP("cpu")
+    with torch.no_grad():
+        for a, b in zip(gpu.parameters(), cpu.parameters()):
+            b.copy_(a.cpu())
+    return gpu, cpu
+
+
+def eager_optimizers(topt, treg):
+    """The ten optimizers of the eager loop, each as a factory of its
+    parameter list (some with the options only the eager step honours)."""
+    return {
+        "SGD": lambda P: topt.SGD(0.1, parameters=P, weight_decay=1e-3),
+        "Momentum": lambda P: topt.Momentum(0.1, 0.9, parameters=P,
+                                            use_nesterov=True),
+        "LarsMomentum": lambda P: topt.LarsMomentum(
+            0.1, 0.9, parameters=P, exclude_from_weight_decay=["fc2"]),
+        "Adam": lambda P: topt.Adam(0.01, parameters=P, use_fused=True,
+                                    weight_decay=treg.L2Decay(1e-3)),
+        "AdamW": lambda P: topt.AdamW(
+            0.01, parameters=P, weight_decay=0.1,
+            apply_decay_param_fun=lambda n: n.endswith(".w")),
+        "Adamax": lambda P: topt.Adamax(0.01, parameters=P),
+        "Adagrad": lambda P: topt.Adagrad(0.1, parameters=P,
+                                          initial_accumulator_value=0.1),
+        "Adadelta": lambda P: topt.Adadelta(1.0, parameters=P),
+        "RMSProp": lambda P: topt.RMSProp(0.01, rho=0.9, momentum=0.9,
+                                          centered=True, parameters=P),
+        "Lamb": lambda P: topt.Lamb(
+            0.01, parameters=P,
+            exclude_from_weight_decay_fn=lambda p: p.name.endswith(".b")),
+    }
+
+
+def mlp_train(model, opt, batches):
+    import torch
+    dev = next(model.parameters()).device
+    for x, y in batches:
+        loss = ((model(torch.from_numpy(x).to(dev))
+                 - torch.from_numpy(y).to(dev)) ** 2).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+
+
+def eager_small_optimizers(tnn, topt, treg, ParamAttr):
+    """Every optimizer's eager step on the card against the CPU (f32,
+    MLP_STEPS steps of the ParamAttr MLP): the largest parameter and state
+    error over its scale; then state_dict -> set_state_dict resumes
+    bitwise on the card.  Returns {optimizer: error}."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(7)
+    batches = [(rng.standard_normal((MLP_B, MLP_IN)).astype(np.float32),
+                rng.standard_normal((MLP_B, MLP_OUT)).astype(np.float32))
+               for _ in range(MLP_STEPS + 1)]
+    errs = {}
+    for name, make in eager_optimizers(topt, treg).items():
+        gpu, cpu = mlp_pair(tnn, ParamAttr, treg)
+        frozen = gpu.fc1.bias.detach().clone()
+        og, oc = make(list(gpu.parameters())), make(list(cpu.parameters()))
+        mlp_train(gpu, og, batches[:MLP_STEPS])
+        mlp_train(cpu, oc, batches[:MLP_STEPS])
+        err = 0.0
+        sg, sc = og.state_dict(), oc.state_dict()
+        if sorted(sg) != sorted(sc):
+            fail(f"{name}: state_dict keys differ, card {sorted(sg)} CPU "
+                 f"{sorted(sc)}")
+        pairs = [(a.detach(), b.detach()) for a, b in
+                 zip(gpu.parameters(), cpu.parameters())] + [
+            (sg[k], sc[k]) for k in sc if isinstance(sc[k], torch.Tensor)]
+        for a, b in pairs:
+            err = max(err, float((a.cpu() - b).abs().max())
+                      / (float(b.abs().max()) + 0.1))
+        if not torch.equal(gpu.fc1.bias, frozen):
+            fail(f"{name} moved the frozen bias")
+        errs[name] = err
+        # resume: a fresh model and optimizer from the state after the
+        # steps take the next step bitwise as the running ones do
+        again, _ = mlp_pair(tnn, ParamAttr, treg)
+        with torch.no_grad():
+            for a, b in zip(again.parameters(), gpu.parameters()):
+                a.copy_(b)
+        oa = make(list(again.parameters()))
+        oa.set_state_dict(og.state_dict())
+        mlp_train(gpu, og, batches[MLP_STEPS:])
+        mlp_train(again, oa, batches[MLP_STEPS:])
+        for a, b in zip(again.parameters(), gpu.parameters()):
+            if not torch.equal(a, b):
+                fail(f"{name}: set_state_dict did not resume bitwise")
+    return errs
+
+
+def amp_dtypes(trace, names):
+    """{op: sorted set of its input-dtype tuples} of an amp.trace_ops
+    record, for the ops named."""
+    out = {}
+    for n, ds in trace:
+        if n in names:
+            out.setdefault(n, set()).add(
+                tuple(str(d).replace("torch.", "") for d in ds))
+    return {n: sorted(v) for n, v in out.items()}
+
+
+def eager_small_amp(amp, F, topt, treg, GPT, gpt_loss, gpt_tiny,
+                    mobilenet_v2):
+    """A small GPT and MobileNetV2 (scale 0.25, 64x64) under auto_cast O1
+    and O2 on the card: each op's input dtypes by amp.trace_ops against
+    the lists' rule, and one scaled step each.  Returns {case: dtypes}."""
+    import numpy as np
+    import torch
+    bf, f32 = ("bfloat16",), ("float32",)
+    rng = np.random.default_rng(8)
+    ids = torch.as_tensor(rng.integers(0, 256, (2, 256)), device="cuda")
+    x = torch.as_tensor(rng.standard_normal((4, 3, 64, 64)),
+                        dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 10, (4,)), device="cuda")
+    seen = {}
+    for level in ("O1", "O2"):
+        model = GPT(gpt_tiny(num_layers=2, hidden_size=128, num_heads=2,
+                             max_seq_len=256, remat=False), device="cuda")
+        opt = topt.AdamW(1e-3, parameters=list(model.parameters()),
+                         use_fused=True)
+        if level == "O2":
+            amp.decorate(model, opt, level="O2")
+        scaler = amp.GradScaler()
+        p0 = [p.detach().clone() for p in model.parameters()]
+        with amp.auto_cast(level=level), amp.trace_ops() as trace:
+            loss = gpt_loss(model, ids, ids)
+        scaler.minimize(opt, scaler.scale(loss))
+        got = amp_dtypes(trace, ("gpt_forward", "gpt_loss"))
+        dt = bf if level == "O2" else f32
+        if got != {"gpt_forward": [dt * 16], "gpt_loss": [dt]} or \
+                loss.dtype != torch.float32:
+            fail(f"small GPT under {level}: op input dtypes {got}")
+        # O2 reproduces the reference's bf16 beta pows: beta2 = 0.999 is
+        # 1.0 in bf16, lr_t is 0 and the decay is below half an ulp, so no
+        # parameter moves (see eager-gpt); O1's f32 state moves them all
+        moved = [bool((a != b).any()) for a, b in
+                 zip(model.parameters(), p0)]
+        if moved != [level == "O1"] * len(moved) or opt._global_step != 1:
+            fail(f"small GPT under {level}: parameters moved {moved} by the "
+                 "scaled step")
+        seen[f"gpt_{level}"] = got
+        m = mobilenet_v2(scale=0.25, num_classes=10)
+        opt = topt.RMSProp(0.01, rho=0.9, momentum=0.9,
+                           parameters=list(m.parameters()),
+                           weight_decay=treg.L2Decay(MB_WD))
+        scaler = amp.GradScaler()
+        with amp.auto_cast(level=level), amp.trace_ops() as trace:
+            loss = F.cross_entropy(m(x), y).mean()
+        scaler.minimize(opt, scaler.scale(loss))
+        got = amp_dtypes(trace, ("conv2d", "batch_norm", "relu6", "linear",
+                                 "cross_entropy"))
+        want = {"conv2d": [bf * 2], "batch_norm": [f32 * 5],
+                "relu6": [bf if level == "O2" else f32],
+                "linear": [bf * 3], "cross_entropy": [f32]}
+        if got != want or not bool(torch.isfinite(loss)) or \
+                opt._global_step != 1:
+            fail(f"small MobileNetV2 under {level}: op input dtypes {got}, "
+                 f"want {want}; loss {float(loss)}")
+        seen[f"mobilenet_v2_{level}"] = got
+    return seen
+
+
+def device_busy_ms(fn):
+    """(device ms, wall ms) of one fn() traced by torch.profiler: the sum
+    of its kernels' times and the wall time to a synchronize, which the
+    profiler lengthens (the idle share divides the busy time by the
+    untraced step's, as tools/profile_gpt.py does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        fail("the profiler saw no device time")
+    return busy, wall
+
+
+def eager_loop(step, steps):
+    """``steps`` calls of step() (each returns its loss, on the card):
+    (losses, CUDA-event ms a step, host ms a step until step() returns)."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    losses, host = [], 0.0
+    e0.record()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        host += time.perf_counter() - t0
+    e1.record()
+    torch.cuda.synchronize()
+    return ([float(x) for x in losses], e0.elapsed_time(e1) / steps,
+            host * 1e3 / steps)
+
+
+def eager_gpt(GPT, cfg, gpt_loss, amp, AdamW, fa, fused_adam, ids_t,
+              power):
+    """GPT-2 345M trained by the dygraph loop under decorate O2 with
+    AdamW(use_fused=True), GradScaler and auto_cast O2: EAGER_WARM +
+    EAGER_TIMED steps on one batch, the launch counters set to 0 just
+    before and read after each step.  Returns the row of numbers and the
+    launch counts."""
+    import torch
+    L = cfg.num_layers
+    model = GPT(cfg, device="cuda")
+    opt = AdamW(EAGER_LR, parameters=list(model.parameters()),
+                use_fused=True)
+    model, opt = amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler()
+    p0 = [p.detach().clone() for p in model.parameters()]
+    b, s = ids_t.shape
+
+    def step():
+        with amp.auto_cast(level="O2"):
+            loss = gpt_loss(model, ids_t, ids_t)
+        scaler.minimize(opt, scaler.scale(loss))
+        opt.clear_grad()
+        return loss.detach()
+    counters = ((fa, "launches"), (fa, "launches_dq"), (fa, "launches_dkv"),
+                (fused_adam, "launches_bf16"), (fused_adam, "launches"))
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    counts, losses = [], []
+    for _ in range(EAGER_WARM):
+        losses.append(float(step()))
+        counts.append(tuple(getattr(m, a) for m, a in counters))
+    torch.cuda.reset_peak_memory_stats()
+    timed, step_ms, host_ms = [], 0.0, 0.0
+    for _ in range(EAGER_TIMED):
+        l_, ms, h = eager_loop(step, 1)
+        timed += l_
+        step_ms += ms / EAGER_TIMED
+        host_ms += h / EAGER_TIMED
+        counts.append(tuple(getattr(m, a) for m, a in counters))
+    launches = dict(zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv", "fused_adam_bf16",
+                         "fused_adam"), counts[-1]))
+    peak = torch.cuda.max_memory_allocated()
+    losses += timed
+    busy, wall = device_busy_ms(step)
+    log(f"eager-gpt: decorate(O2), AdamW({EAGER_LR:g}, use_fused=True), "
+        f"GradScaler(), auto_cast(O2), B={b}, S={s}: losses {losses}")
+    log(f"eager-gpt: launch counts after each step (flash fwd, dq, dk/dv, "
+        f"fused_adam bf16, fused_adam f32): {counts}")
+    steps = EAGER_WARM + EAGER_TIMED
+    want = [(L * (i + 1),) * 3 + (i + 1, 0) for i in range(steps)]
+    if counts != want:
+        fail(f"eager-gpt launch counts {counts} != {L} forward, dq and dk/dv "
+             "and one bf16 fused_adam launch a step")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"eager-gpt: a loss is not finite: {losses}")
+    if scaler._scale != 2.0 ** 15 or opt._global_step != steps + 1:
+        fail(f"eager-gpt: the scaler skipped a step (scale {scaler._scale},"
+             f" {opt._global_step} optimizer steps of {steps + 1})")
+    # the reference's semantics, reproduced: in bf16 beta2 = 0.999 is 1.0,
+    # so beta2^t stays 1 and lr_t = lr sqrt(1 - beta2^t) / (1 - beta1^t) is
+    # 0; the decoupled decay (lr coeff p, 1e-6 of p) is below half a bf16
+    # ulp.  No parameter moves, the loss of the one batch repeats bitwise,
+    # and the moments move
+    b1 = b2 = torch.ones((), dtype=torch.bfloat16, device="cuda")
+    for _ in range(steps + 1):
+        b1, b2, _ = opt._pows_and_rate(b1, b2, EAGER_LR)
+    for (n, p), q in zip(model.named_parameters(), p0):
+        st = opt._state_for(p)
+        if p.dtype != torch.bfloat16 or st["moment1"].dtype != p.dtype:
+            fail(f"eager-gpt: {n} or its moments are not bf16")
+        if float(st["beta2_pow"]) != 1.0 or not torch.equal(
+                st["beta1_pow"], b1.reshape(st["beta1_pow"].shape)):
+            fail(f"eager-gpt: {n}'s beta pows are not the bf16 chain")
+        if not torch.equal(p, q) or not bool(st["moment1"].any()):
+            fail(f"eager-gpt: {n} moved, or its moment did not")
+    if len(set(losses)) != 1:
+        fail(f"eager-gpt: the losses of one batch with unmoved parameters "
+             f"differ: {losses}")
+    log("eager-gpt: as in the reference, bf16 beta2 = 1.0 makes lr_t = 0: "
+        "every parameter bf16 and bitwise where it started, the moments "
+        "updated, the loss repeating bitwise")
+    row = {"eager_gpt_step_ms": step_ms,
+           "eager_gpt_tokens_per_s": b * s / step_ms * 1e3,
+           "eager_gpt_peak_bytes": peak,
+           "eager_gpt_host_ms_until_step_returns": host_ms,
+           "eager_gpt_device_busy_ms": busy,
+           "eager_gpt_traced_wall_ms": wall,
+           "eager_gpt_device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "eager_gpt_losses": losses}
+    log(f"eager-gpt: step {step_ms:.3f} ms (CUDA events, mean of "
+        f"{EAGER_TIMED} after {EAGER_WARM} warm-ups), "
+        f"{row['eager_gpt_tokens_per_s']:.1f} training tokens/s, "
+        f"max_memory_allocated {peak} bytes, host {host_ms:.3f} ms until "
+        f"the step returns, device busy {busy:.3f} ms in a traced step "
+        f"({wall:.3f} ms with the profiler; idle share 1 - busy / step "
+        f"{row['eager_gpt_device_idle_share']:.3f}); {power}")
+    del model, opt, p0
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def eager_vision(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt, treg,
+                 power):
+    """MobileNetV2 at full width trained by the dygraph loop under O1 with
+    RMSProp and L2Decay as Sandler et al. train it, B=MB_BATCH at
+    MB_HW^2; then one eager Momentum step of VGG-16 and MobileNetV1
+    at 224^2, B=2, card against CPU (in f64 and evaluation mode).
+    Returns the row of numbers."""
+    import numpy as np
+    import torch
+    model = mobilenet_v2(scale=1.0, num_classes=1000)
+    opt = topt.RMSProp(MB_LR, rho=0.9, momentum=0.9,
+                       parameters=list(model.parameters()),
+                       weight_decay=treg.L2Decay(MB_WD))
+    scaler = amp.GradScaler()
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((MB_BATCH, 3, MB_HW, MB_HW)),
+                        dtype=torch.float32, device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (MB_BATCH,)), device="cuda")
+
+    def step():
+        with amp.auto_cast(level="O1"):
+            loss = F.cross_entropy(model(x), y).mean()
+        scaler.minimize(opt, scaler.scale(loss))
+        opt.clear_grad()
+        return loss.detach()
+    with amp.trace_ops() as trace:
+        losses = [float(step())]
+    got = amp_dtypes(trace, ("conv2d", "batch_norm", "relu6", "linear",
+                             "cross_entropy"))
+    want = {"conv2d": [("bfloat16",) * 2], "batch_norm": [("float32",) * 5],
+            "relu6": [("float32",)], "linear": [("bfloat16",) * 3],
+            "cross_entropy": [("float32",)]}
+    log(f"eager-vision: MobileNetV2 O1 op input dtypes {got}")
+    if got != want:
+        fail(f"eager-vision: op input dtypes {got}, want {want}")
+    for _ in range(EAGER_WARM - 1):
+        losses.append(float(step()))
+    torch.cuda.reset_peak_memory_stats()
+    timed, step_ms, host_ms = eager_loop(step, EAGER_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    losses += timed
+    busy, wall = device_busy_ms(step)
+    log(f"eager-vision: MobileNetV2 (1.0, 1000 classes), auto_cast(O1), "
+        f"RMSProp({MB_LR:g}, rho=0.9, momentum=0.9, weight_decay="
+        f"L2Decay({MB_WD:g})), GradScaler(), B={MB_BATCH} at {MB_HW}x"
+        f"{MB_HW}: losses {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"eager-vision: a loss is not finite: {losses}")
+    if scaler._scale != 2.0 ** 15 or opt._global_step != len(losses) + 1:
+        fail(f"eager-vision: the scaler skipped a step (scale "
+             f"{scaler._scale}, {opt._global_step} optimizer steps)")
+    row = {"eager_vision_step_ms": step_ms,
+           "eager_vision_samples_per_s": MB_BATCH / step_ms * 1e3,
+           "eager_vision_peak_bytes": peak,
+           "eager_vision_host_ms_until_step_returns": host_ms,
+           "eager_vision_device_busy_ms": busy,
+           "eager_vision_traced_wall_ms": wall,
+           "eager_vision_device_idle_share": max(0.0, 1.0 - busy / step_ms),
+           "eager_vision_losses": losses,
+           "eager_vision_loss_fell": losses[-1] < losses[0]}
+    log(f"eager-vision: step {step_ms:.3f} ms (CUDA events, mean of "
+        f"{EAGER_TIMED} after {EAGER_WARM} warm-ups), "
+        f"{row['eager_vision_samples_per_s']:.1f} samples/s, "
+        f"max_memory_allocated {peak} bytes, host {host_ms:.3f} ms until "
+        f"the step returns, device busy {busy:.3f} ms in a traced step "
+        f"({wall:.3f} ms with the profiler; idle share 1 - busy / step "
+        f"{row['eager_vision_device_idle_share']:.3f}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {power}")
+    del model, opt, x
+    torch.cuda.empty_cache()
+    # one eager Momentum step, card against CPU, in f64 and evaluation mode:
+    # in f32 a ReLU or max-pool input within rounding of its kink takes the
+    # other side on one device and moves the gradients behind it (VGG-16's
+    # f32 moves differ by 2.7e-2 of a move, H100 against the CPU); in
+    # training mode MobileNetV1's batch norms take f32 statistics (the
+    # reference's rule, in f64 too) over 98 values a channel at the last
+    # stage, summed in another order on each device (8.9e-2 of a move)
+    r = np.random.default_rng(1)
+    xs = r.standard_normal((2, 3, 224, 224))
+    ys = r.integers(0, 1000, (2,))
+    for name, make in (("vgg16", vgg16), ("mobilenet_v1", mobilenet_v1)):
+        gpu = make(num_classes=1000).double()
+        cpu = make(num_classes=1000, device="cpu").double()
+        with torch.no_grad():
+            for a, b in zip(gpu.parameters(), cpu.parameters()):
+                b.copy_(a.cpu())
+        # running stats of this batch (one training forward with the
+        # momentum at 0), so that the evaluation-mode activations keep
+        # their scale through the 27 layers
+        with torch.no_grad():
+            for sub in cpu.modules():
+                if hasattr(sub, "_momentum"):
+                    sub._momentum = 0.0
+            cpu(torch.from_numpy(xs))
+            for a, b in zip(gpu.buffers(), cpu.buffers()):
+                a.copy_(b)
+        old = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+        for m in (gpu, cpu):
+            m.eval()
+            opt = topt.Momentum(1e-2, 0.9, parameters=list(m.parameters()))
+            dev = next(m.parameters()).device
+            loss = F.cross_entropy(m(torch.from_numpy(xs).to(dev)),
+                                   torch.from_numpy(ys).to(dev)).mean()
+            opt.minimize(loss)
+        err = moves_err(gpu, cpu, old, f"{name}'s Momentum step")
+        log(f"eager-vision: {name} one f64 Momentum(1e-2, 0.9) step in "
+            f"evaluation mode, B=2 at 224x224, card vs CPU: parameter "
+            f"moves max_err/move={err:.3g} (tol {TOL_MOVE:g})")
+        if err > TOL_MOVE:
+            fail(f"{name}'s eager step on the card disagrees with the CPU")
+        row[f"eager_vision_{name}_move_err"] = err
+        del gpu, cpu, old
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2605,9 +3203,13 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import fused_adam
     from paddle_tpu_torch.ops.cuda import fused_ce
     from paddle_tpu_torch.ops.cuda import ring_quant
+    from paddle_tpu_torch import amp, regularizer
+    from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
     from paddle_tpu_torch.tools.profile_gpt import gc_time
-    from paddle_tpu_torch.vision.models import LeNet, resnet18, resnet50
+    from paddle_tpu_torch.vision.models import (LeNet, mobilenet_v1,
+                                                mobilenet_v2, resnet18,
+                                                resnet50, vgg16)
 
     # f32 products in full f32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2698,6 +3300,19 @@ def main() -> int:
     dh_err = max(e[0] for e in ce_bwd_errs)
     dw_err = max(e[1] for e in ce_bwd_errs)
     check_ce_bwd(g, fused_ce, (300, 256, 1000, f32, pb))
+    # #8 in bf16 at GPT-2 345M's 16 stacked tensors, beside three planted
+    # faults, then at tails: lengths no multiple of 8, starts off a 16-byte
+    # boundary, tensors misaligned differently, more than 32 tensors
+    adam_shapes = gpt_param_shapes(gpt2_345m(max_seq_len=S))
+    adam_n, _ = check_adam_bf16(g, fused_adam, AdamW, adam_shapes)
+    for shapes, offsets in (
+            ([(100003,), (2048 * 3 + 5,), (13,), (1,)], [1, 3, 0, 5]),
+            ([(4099,), (77,)], [3, 3]),
+            ([(7,)] * 40, [5] * 40)):
+        check_adam_bf16(g, fused_adam, AdamW, shapes, offsets, faults=False)
+    log(f"check fused_adam bf16 over GPT-2 345M's 16 tensors ({adam_n} "
+        f"values) and at tail shapes and unaligned starts: bitwise its "
+        f"plain version, two calls bitwise equal, every planted fault seen")
 
     small = gpt_tiny(num_layers=2, hidden_size=128, num_heads=2,
                      max_seq_len=256)
@@ -3666,7 +4281,39 @@ def main() -> int:
     t_s2s = time.perf_counter() - t_s2s
     log(f"seq2seq and rnn: the new phases took {t_s2s:.1f} s of wall time")
 
-    # -- 20. timing ---------------------------------------------------------
+    # -- 20. eager-small ----------------------------------------------------
+    t_eager = time.perf_counter()
+    opt_errs = eager_small_optimizers(tnn, topt, regularizer, tnn.ParamAttr)
+    log(f"eager-small: every optimizer's eager step, {MLP_STEPS} f32 steps "
+        f"of a ParamAttr MLP (rate scale, L1 and L2 regularisers, a frozen "
+        f"bias), card vs CPU, max err over scale of parameters and state "
+        f"{json.dumps(opt_errs)} (tol {TOL_F32:g}); state_dict -> "
+        f"set_state_dict resumes bitwise")
+    if max(opt_errs.values()) > TOL_F32:
+        fail("an eager optimizer step on the card disagrees with the CPU")
+    amp_seen = eager_small_amp(amp, tnn.functional, topt, regularizer, GPT,
+                               gpt_loss, gpt_tiny, mobilenet_v2)
+    log(f"eager-small: op input dtypes under auto_cast, one scaled step "
+        f"each: {json.dumps(amp_seen)}")
+
+    # -- 21. eager-gpt ------------------------------------------------------
+    eager_row, eager_launch = eager_gpt(GPT, cfg, gpt_loss, amp, AdamW, fa,
+                                        fused_adam, ids_t, power)
+    log(f"eager-gpt beside the train phase's TrainStep O2 step (same "
+        f"process): eager {eager_row['eager_gpt_step_ms']:.3f} ms, "
+        f"{eager_row['eager_gpt_tokens_per_s']:.1f} tokens/s, peak "
+        f"{eager_row['eager_gpt_peak_bytes']} bytes; TrainStep "
+        f"{train_row['train_step_ms']:.3f} ms, "
+        f"{train_row['train_tokens_per_s']:.1f} tokens/s, peak "
+        f"{train_row['train_peak_bytes']} bytes")
+
+    # -- 22. eager-vision ---------------------------------------------------
+    eager_row.update(eager_vision(mobilenet_v1, mobilenet_v2, vgg16, amp,
+                                  tnn.functional, topt, regularizer, power))
+    eager_row["eager_phases_s"] = time.perf_counter() - t_eager
+    log(f"eager phases: {eager_row['eager_phases_s']:.1f} s of wall time")
+
+    # -- 23. timing ---------------------------------------------------------
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -3710,7 +4357,8 @@ def main() -> int:
                                     *longseq.values()))
                     + sum(r["unpadded"]["launches"]["launches"]
                           for r in (bert_runs, bert_plain))
-                    + mflash_launches["launches"],
+                    + mflash_launches["launches"]
+                    + eager_launch["flash_attention_fwd"],
                     "max_abs_err": fa_err, "ms": fa_ms, "plain_ms": fa_plain,
                     "bound_ms": fa_bound, "bound_by": fa_by,
                     "library_ms": fa_lib})
@@ -3770,7 +4418,8 @@ def main() -> int:
                             "launches_" + name.rsplit("_", 1)[1]]
                             for r in (bert_runs, bert_plain))
                         + mflash_launches[
-                            "launches_" + name.rsplit("_", 1)[1]],
+                            "launches_" + name.rsplit("_", 1)[1]]
+                        + eager_launch[name],
                         "max_abs_err": err, "ms": ms,
                         # the plain version and the library call compute
                         # dq, dk and dv in one call: the pair's work
@@ -3864,6 +4513,41 @@ def main() -> int:
                     "max_abs_err": adam_err, "ms": adam_ms,
                     "plain_ms": adam_plain, "bound_ms": adam_bound,
                     "bound_by": adam_by, "library_ms": adam_lib})
+    # the bf16 instantiation at GPT-2 345M's 16 stacked tensors: reads p,
+    # g, m, v and writes p, m, v in bf16, 14 bytes and 11 f32 operations a
+    # value; the yardstick is torch.optim.AdamW(fused=True) over bf16
+    # parameters (another formula: a time only)
+    a16_n, (a_p, a_g, a_m, a_v, a_args) = check_adam_bf16(
+        g, fused_adam, AdamW, adam_shapes, faults=False)
+    a16_ms = cuda_ms(lambda: fused_adam._launch(a_p, a_g, a_m, a_v,
+                                                *a_args))
+    a16_plain = cuda_ms(lambda: fused_adam.fused_adam_reference(
+        a_p, a_g, a_m, a_v, *a_args), reps=3)
+    a16_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        fused_adam._launch(a_p, a_g, a_m, a_v, *a_args)[0],
+        fused_adam.fused_adam_reference(a_p, a_g, a_m, a_v, *a_args)[0]))
+    lib_params = [p.detach().clone().requires_grad_() for p in a_p]
+    for lp, gr in zip(lib_params, a_g):
+        lp.grad = gr
+    lib_opt = torch.optim.AdamW(lib_params, lr=LR_PEAK, weight_decay=0.01,
+                                fused=True)
+    a16_lib = cuda_ms(lib_opt.step)
+    a16_bound, a16_by = bound(11 * a16_n, 14 * a16_n, PEAK_F32_FLOPS)
+    del lib_params, lib_opt, a_p, a_g, a_m, a_v
+    torch.cuda.empty_cache()
+    table.append({"kernel": "fused_adam_bf16",
+                  "shape": f"{a16_n} bf16 elements in 16 tensors",
+                  "kernel_ms": a16_ms, "plain_ms": a16_plain,
+                  "library_ms": a16_lib, "bound_ms": a16_bound,
+                  "bound_by": a16_by, "launches_per_step": 1,
+                  "f32_kernel_ms": adam_ms})
+    kernels.append({"name": "fused_adam_bf16", "route": "cuda",
+                    "source": "paddle_tpu_torch/csrc/fused_adam.cu",
+                    "replaces": "paddle_tpu/ops/pallas/fused_adam.py:47",
+                    "launches": eager_launch["fused_adam_bf16"],
+                    "max_abs_err": a16_err, "ms": a16_ms,
+                    "plain_ms": a16_plain, "bound_ms": a16_bound,
+                    "bound_by": a16_by, "library_ms": a16_lib})
 
     # the row quantizer #9 on GPT-2 345M's gradient in 256-wide rows: reads
     # 4 B a value, writes 1 B (int8) or 0.5 B (int4) a value and 4 B a row.
@@ -4119,7 +4803,8 @@ def main() -> int:
         "seq2seq_small_err": s_err, "seq2seq_small_losses": s_falls,
         "seq2seq_check_max_abs_err": list(s2s_err),
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
-        "seq2seq_rnn_phases_s": t_s2s,
+        "seq2seq_rnn_phases_s": t_s2s, **eager_row,
+        "eager_small_optimizer_err": opt_errs,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

@@ -6,4 +6,4 @@ from paddle_tpu_torch.models.bert import (  # noqa: F401
     bert_tiny)
 from paddle_tpu_torch.models.convert import (  # noqa: F401
     load_named_buffers, load_named_params, opt_states_from_jax,
-    params_from_jax)
+    params_from_jax, state_dict_from_jax)

@@ -38,7 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paddle_tpu_torch.amp import _op_scope, amp_cast_for_op
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.framework.parameter import Parameter
 from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
@@ -139,7 +141,8 @@ class Bert(nn.Module):
         dev = resolve_device(device)
         for name, value in init_params(config).items():
             self.register_parameter(
-                name, nn.Parameter(torch.from_numpy(value).to(dev)))
+                name, Parameter(torch.from_numpy(value).to(dev),
+                                name=f"bert.{name}"))
 
     def load_jax_params(self, np_params: dict) -> "Bert":
         """Copy the reference model's parameters in (``np.asarray`` of
@@ -164,7 +167,12 @@ class Bert(nn.Module):
               torch.as_tensor(token_type_ids, device=dev).long())
         mask = (None if attention_mask is None else
                 torch.as_tensor(attention_mask, device=dev))
-        return _bert_forward(self, ids, tt, mask)
+        # one op for amp.auto_cast, as the reference's ``bert_forward``
+        cast = amp_cast_for_op("bert_forward", [getattr(self, n) for n in
+                                                _PARAM_ORDER] + [mask])
+        with _op_scope():
+            return _bert_forward(self.config, dict(zip(_PARAM_ORDER, cast)),
+                                 ids, tt, cast[-1])
 
 
 def _ln(x, w, b, eps=1e-12):
@@ -197,26 +205,27 @@ def _layer(cfg: BertConfig, x, lp, bias):
     return _ln(x + ff @ lp["out_w"] + lp["out_b"], lp["ln2_w"], lp["ln2_b"])
 
 
-def _bert_forward(model: Bert, ids, tt, mask):
-    cfg = model.config
+def _bert_forward(cfg: BertConfig, p: dict, ids, tt, mask):
+    """The forward over the parameters ``p`` ({name in _PARAM_ORDER:
+    tensor})."""
     S = ids.shape[1]
-    x = model.wte[ids] + model.wpe[:S][None] + model.wtt[tt]
-    x = _ln(x, model.emb_ln_w, model.emb_ln_b)
+    x = p["wte"][ids] + p["wpe"][:S][None] + p["wtt"][tt]
+    x = _ln(x, p["emb_ln_w"], p["emb_ln_b"])
     # the padding mask as an additive (B, 1, 1, S) f32 bias (reference
     # :162-166); it takes no gradient, so the dbias kernel never runs
     bias = None
     if mask is not None:
         bias = torch.where(mask.bool(), 0.0, -1e30)[:, None, None, :]
     # one unbind per stacked parameter: its backward is one stack
-    per_layer = {n: getattr(model, n).unbind(0) for n in _LAYER_PARAMS}
+    per_layer = {n: p[n].unbind(0) for n in _LAYER_PARAMS}
     layer = functools.partial(recompute, _layer) if cfg.remat else _layer
     for i in range(cfg.num_layers):
         x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS}, bias)
-    pooled = torch.tanh(x[:, 0] @ model.pool_w + model.pool_b)
-    nsp_logits = pooled @ model.nsp_w + model.nsp_b
-    h = F.gelu(x @ model.mlm_w + model.mlm_b, approximate="tanh")
-    h = _ln(h, model.mlm_ln_w, model.mlm_ln_b)
-    return h @ model.wte.T + model.mlm_bias, nsp_logits
+    pooled = torch.tanh(x[:, 0] @ p["pool_w"] + p["pool_b"])
+    nsp_logits = pooled @ p["nsp_w"] + p["nsp_b"]
+    h = F.gelu(x @ p["mlm_w"] + p["mlm_b"], approximate="tanh")
+    h = _ln(h, p["mlm_ln_w"], p["mlm_ln_b"])
+    return h @ p["wte"].T + p["mlm_bias"], nsp_logits
 
 
 def bert_pretrain_loss(model, input_ids, mlm_labels, nsp_labels,
@@ -225,6 +234,8 @@ def bert_pretrain_loss(model, input_ids, mlm_labels, nsp_labels,
     ``attention_mask`` (B, S), 1 = real token: the padded-batch pretrain
     layout."""
     mlm_logits, nsp_logits = model(input_ids, attention_mask=attention_mask)
+    mlm_logits, nsp_logits = amp_cast_for_op("bert_pretrain_loss",
+                                             [mlm_logits, nsp_logits])
     dev = mlm_logits.device
     labels = torch.as_tensor(mlm_labels, device=dev).long()
     nsp_labels = torch.as_tensor(nsp_labels, device=dev).long()

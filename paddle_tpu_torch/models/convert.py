@@ -12,7 +12,8 @@ the transformer encoder) keep the reference's dotted parameter names:
 take their arrays as ``{n: np.asarray(p._data) for n, p in
 ref.named_parameters()}`` and load them with :func:`load_named_params`;
 their buffers (BatchNorm's ``_mean`` and ``_variance``) likewise from
-``ref.named_buffers()`` with :func:`load_named_buffers`.
+``ref.named_buffers()`` with :func:`load_named_buffers`.  An eager
+optimizer's ``state_dict()`` comes across with :func:`state_dict_from_jax`.
 """
 from __future__ import annotations
 
@@ -21,12 +22,25 @@ import torch
 
 from paddle_tpu_torch.models.gpt import _PARAM_ORDER
 
-__all__ = ["params_from_jax", "opt_states_from_jax", "load_named_params",
-           "load_named_buffers"]
+__all__ = ["params_from_jax", "opt_states_from_jax", "state_dict_from_jax",
+           "load_named_params", "load_named_buffers"]
 
-# each in-tree optimizer's state keys: Adam and AdamW, Momentum
+# each in-tree optimizer's state keys: Adam and AdamW; Momentum and
+# LarsMomentum; Adamax; Adagrad; Adadelta; RMSProp, centred and not; Lamb's
+# are Adam's
 _STATE_KEYS = (("moment1", "moment2", "beta1_pow", "beta2_pow"),
-               ("velocity",))
+               ("velocity",), ("moment", "inf_norm", "beta1_pow"),
+               ("moment",), ("avg_squared_grad", "avg_squared_update"),
+               ("mean_square", "momentum"),
+               ("mean_square", "momentum", "mean_grad"))
+
+
+def _to_torch(a) -> torch.Tensor:
+    """A CPU tensor copy of an array, bf16 (``ml_dtypes``) included."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_jax(np_params: dict, order=_PARAM_ORDER) -> dict:
@@ -76,18 +90,25 @@ def load_named_buffers(module: torch.nn.Module, np_named: dict):
 
 
 def opt_states_from_jax(states: dict) -> dict:
-    """{name: state as numpy} (the reference TrainStep's ``_opt_states``:
-    Adam's {moment1, moment2, beta1_pow, beta2_pow} or Momentum's
-    {velocity}) -> the same structure as f32 CPU tensors, for
-    ``TrainStep.set_opt_states``: a run continues from the reference's
-    state."""
+    """{name: state as numpy} (the reference TrainStep's ``_opt_states``,
+    keyed as one of its optimizers' ``init_state``) -> the same structure
+    as CPU tensors of the same dtypes, for ``TrainStep.set_opt_states``:
+    a run continues from the reference's state."""
     out = {}
     for name, st in states.items():
         if not any(set(st) == set(keys) for keys in _STATE_KEYS):
             raise ValueError(f"opt_states_from_jax: {name} has keys "
                              f"{sorted(st)}, expected one of "
                              f"{[list(k) for k in _STATE_KEYS]}")
-        out[name] = {k: torch.from_numpy(np.array(a, dtype=np.float32,
-                                                  copy=True))
-                     for k, a in st.items()}
+        out[name] = {k: _to_torch(a) for k, a in st.items()}
     return out
+
+
+def state_dict_from_jax(state_dict: dict) -> dict:
+    """A reference optimizer's eager ``state_dict()`` with each tensor
+    taken as numpy (``{k: v.numpy()}``; ``LR_Scheduler`` and
+    ``@global_step`` as they are) -> the port's, for
+    ``Optimizer.set_state_dict``: arrays become CPU tensors of the same
+    dtype."""
+    return {k: _to_torch(v) if isinstance(v, np.ndarray) else v
+            for k, v in state_dict.items()}

@@ -32,8 +32,12 @@ back silently; the port does not: a kernel that cannot run raises.
 
 Mixed precision: ``model.to(torch.bfloat16)`` casts the parameters for
 serving; training keeps f32 parameters and casts a copy per step
-(``jit.TrainStep(amp_level="O2")``).  Activations then run in bf16 and
-the loss casts logits to f32.
+(``jit.TrainStep(amp_level="O2")``), or trains bf16 parameters eagerly
+after ``amp.decorate(level="O2")``.  Activations then run in bf16 and the
+loss casts logits to f32.  Under ``amp.auto_cast`` the forward is one op,
+``gpt_forward``, in neither list (O1 runs it as it comes, O2 casts the
+parameters at its boundary), as are ``gpt_loss`` over the logits and
+``gpt_loss_fused``.
 """
 from __future__ import annotations
 
@@ -46,7 +50,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paddle_tpu_torch.amp import _op_scope, amp_cast_for_op
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.framework.parameter import Parameter
 from paddle_tpu_torch.framework.flags import flag
 from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
@@ -153,7 +159,8 @@ class GPT(nn.Module):
         dev = resolve_device(device)
         for name, value in init_params(config).items():
             self.register_parameter(
-                name, nn.Parameter(torch.from_numpy(value).to(dev)))
+                name, Parameter(torch.from_numpy(value).to(dev),
+                                name=f"gpt.{name}"))
 
     def load_jax_params(self, np_params: dict) -> "GPT":
         """Copy the reference model's parameters in (``np.asarray`` of
@@ -169,8 +176,16 @@ class GPT(nn.Module):
         return self
 
     def forward(self, input_ids) -> torch.Tensor:
-        """input_ids (B, S) int -> logits (B, S, V)."""
-        return _gpt_forward(self, self._ids(input_ids))
+        """input_ids (B, S) int -> logits (B, S, V).  One op for
+        ``amp.auto_cast``, as the reference's ``gpt_forward``."""
+        ids = self._ids(input_ids)
+        params = amp_cast_for_op("gpt_forward", self._param_list())
+        with _op_scope():
+            return _gpt_forward(self.config, dict(zip(_PARAM_ORDER, params)),
+                                ids)
+
+    def _param_list(self) -> list:
+        return [getattr(self, n) for n in _PARAM_ORDER]
 
     def _ids(self, input_ids) -> torch.Tensor:
         return torch.as_tensor(input_ids, device=self.wte.device).long()
@@ -205,32 +220,33 @@ def _layer(cfg: GPTConfig, x, lp):
     return x + ff @ lp["out_w"] + lp["out_b"]
 
 
-def _gpt_forward(model: GPT, ids, features_only: bool = False):
-    cfg = model.config
+def _gpt_forward(cfg: GPTConfig, p: dict, ids, features_only: bool = False):
+    """The forward over the parameters ``p`` ({name in _PARAM_ORDER:
+    tensor})."""
     S = ids.shape[1]
-    x = model.wte[ids] + model.wpe[:S][None, :, :]
+    x = p["wte"][ids] + p["wpe"][:S][None, :, :]
     # one unbind per stacked parameter: its backward is one stack, where
     # indexing each layer would sum L full-size gradients per parameter
-    per_layer = {n: getattr(model, n).unbind(0) for n in _LAYER_PARAMS}
+    per_layer = {n: p[n].unbind(0) for n in _LAYER_PARAMS}
     layer = functools.partial(recompute, _layer) if cfg.remat else _layer
     for i in range(cfg.num_layers):
         x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS})
-    x = _ln(x, model.lnf_w, model.lnf_b)
+    x = _ln(x, p["lnf_w"], p["lnf_b"])
     if features_only:
         return x
-    return x @ model.wte.T                             # tied head
+    return x @ p["wte"].T                              # tied head
 
 
-def _gpt_fused_ce_loss(model: GPT, ids, labels):
+def _gpt_fused_ce_loss(cfg: GPTConfig, p: dict, ids, labels):
     """Forward to the final LN, then the fused linear+CE head against the
     tied embedding (reference ``:335-353``)."""
     B, S = ids.shape
-    h = _gpt_forward(model, ids, features_only=True)   # (B,S,H)
+    h = _gpt_forward(cfg, p, ids, features_only=True)  # (B,S,H)
     # next-token labels with a -1 sentinel on the final position
     lab = torch.cat([labels[:, 1:], labels.new_full((B, 1), -1)], dim=1)
     lab_flat = lab.reshape(B * S)
     loss_n = fused_ce.fused_linear_cross_entropy(
-        h.reshape(B * S, h.shape[-1]), model.wte, lab_flat)
+        h.reshape(B * S, h.shape[-1]), p["wte"], lab_flat)
     w = (lab_flat >= 0).float()
     return (loss_n * w).sum() / (B * (S - 1))
 
@@ -245,8 +261,12 @@ def gpt_loss(model: GPT, input_ids, labels):
     B, S = ids.shape
     if flag("gpt_fused_ce") and fused_ce.supported(
             B * S, cfg.hidden_size, model.wte.dtype):
-        return _gpt_fused_ce_loss(model, ids, labels)
-    lg = _gpt_forward(model, ids)[:, :-1].float()
+        params = amp_cast_for_op("gpt_loss_fused", model._param_list())
+        with _op_scope():
+            return _gpt_fused_ce_loss(
+                cfg, dict(zip(_PARAM_ORDER, params)), ids, labels)
+    (logits,) = amp_cast_for_op("gpt_loss", [model(ids)])
+    lg = logits[:, :-1].float()
     tg = labels[:, 1:]
     logz = torch.logsumexp(lg, dim=-1)
     gold = lg.gather(-1, tg[..., None])[..., 0]

@@ -1,8 +1,11 @@
 """Functional ops of the port: attention, linear, dropout, embedding,
-one-hot and label smoothing, activations and softmaxes, layer and batch
+one-hot and label smoothing, the activations and softmaxes, layer and batch
 norm, convolutions, pooling and the losses."""
 from paddle_tpu_torch.nn.functional.activation import (  # noqa: F401
-    gelu, log_softmax, relu, sigmoid, softmax, tanh)
+    celu, elu, gelu, glu, gumbel_softmax, hardshrink, hardsigmoid, hardswish,
+    hardtanh, leaky_relu, log_sigmoid, log_softmax, maxout, mish, prelu,
+    relu, relu6, relu_, rrelu, selu, sigmoid, silu, softmax, softplus,
+    softshrink, softsign, swish, tanh, tanh_, tanhshrink, thresholded_relu)
 from paddle_tpu_torch.nn.functional.attention import (  # noqa: F401
     flash_attention, scaled_dot_product_attention)
 from paddle_tpu_torch.nn.functional.common import (  # noqa: F401

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from paddle_tpu_torch.amp import amp_op
 from paddle_tpu_torch.nn.functional.common import dropout as _dropout
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 
@@ -44,6 +45,7 @@ def _xla_attention(q, k, v, mask, scale, causal):
     return out.permute(0, 2, 1, 3)
 
 
+@amp_op("sdp_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, generator=None):
@@ -68,6 +70,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return out
 
 
+@amp_op("flash_attention")
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     return_softmax=False, attn_mask=None,
                     q_segment_ids=None, kv_segment_ids=None, name=None,

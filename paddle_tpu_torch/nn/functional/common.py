@@ -5,11 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.amp import amp_cast_for_op, amp_op
 from paddle_tpu_torch.framework.replay import note_generator
 
 __all__ = ["linear", "dropout", "embedding", "one_hot", "label_smooth"]
 
 
+@amp_op("linear")
 def linear(x, weight, bias=None, name=None):
     """x @ weight + bias with weight (in_features, out_features), the
     reference's layout (``:19``)."""
@@ -30,6 +32,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         raise ValueError(f"dropout mode {mode!r}")
     if not training or p == 0:
         return x
+    (x,) = amp_cast_for_op("dropout", [x])
     if p == 1:
         return torch.zeros_like(x)
     shape = list(x.shape)
@@ -44,6 +47,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     return torch.where(keep, x, 0.0).to(x.dtype)
 
 
+@amp_op("embedding")
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` looked up by the integer ids ``x`` (reference
     ``:77``, the dense path); the rows of ids equal to ``padding_idx`` are
@@ -60,6 +64,7 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     return out
 
 
+@amp_op("one_hot")
 def one_hot(x, num_classes, name=None):
     """f32 one-hot rows of the integer ids ``x`` (reference ``:143``, as
     ``jax.nn.one_hot``: an id outside [0, num_classes) gives a zero row)."""
@@ -67,6 +72,7 @@ def one_hot(x, num_classes, name=None):
     return (x[..., None] == classes).to(torch.float32)
 
 
+@amp_op("label_smooth")
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     """(1 - epsilon) * label + epsilon * prior_dist, the prior uniform over
     the last axis when not given (reference ``:376``)."""

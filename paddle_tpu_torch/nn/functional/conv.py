@@ -30,6 +30,8 @@ import numbers
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.amp import amp_op
+
 __all__ = ["conv1d", "conv2d", "conv3d"]
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -155,18 +157,21 @@ def _conv_nd(x, weight, bias, stride, padding, dilation, groups, n,
     return channels_last(out, n) if channel_last else out
 
 
+@amp_op("conv1d")
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL", name=None):
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 1,
                     data_format == "NLC")
 
 
+@amp_op("conv2d")
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW", name=None):
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 2,
                     data_format == "NHWC")
 
 
+@amp_op("conv3d")
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW", name=None):
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups, 3,

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.amp import amp_op
+
 __all__ = ["cross_entropy", "softmax_with_cross_entropy", "nll_loss"]
 
 
@@ -26,6 +28,7 @@ def _reduce(out, reduction):
     return out
 
 
+@amp_op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, name=None):
@@ -74,6 +77,7 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return loss
 
 
+@amp_op("nll_loss")
 def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
              name=None):
     """Negative log-likelihood of (N, C) log-probabilities at (N,) labels

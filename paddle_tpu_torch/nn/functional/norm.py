@@ -26,11 +26,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.amp import amp_op
 from paddle_tpu_torch.framework.replay import replaying
 
 __all__ = ["layer_norm", "batch_norm"]
 
 
+@amp_op("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                name=None):
     """Layer normalisation over the trailing ``normalized_shape`` dims
@@ -55,6 +57,7 @@ def _mean_var(a, axes):
     return m.squeeze(axes).to(a.dtype), v.squeeze(axes).to(a.dtype)
 
 
+@amp_op("batch_norm")
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None, name=None):

@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.amp import amp_op
 from paddle_tpu_torch.nn.functional.conv import (_tuplify, channels_first,
                                                  channels_last, flat_pad,
                                                  resolve_pads)
@@ -79,6 +80,7 @@ def _pool2d(x, kernel, stride, padding, channel_last, mode, ceil_mode,
     return channels_last(out, 2) if channel_last else out
 
 
+@amp_op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
     if return_mask:
@@ -88,6 +90,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                    "max", ceil_mode, True)
 
 
+@amp_op("avg_pool2d")
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW",
                name=None):
@@ -99,6 +102,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                    "avg", ceil_mode, exclusive)
 
 
+@amp_op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """Mean over adaptive bins, height then width (reference ``:276``); an
     output size of None keeps that dim."""

@@ -1,12 +1,17 @@
-"""Layers of the port: linear, dropout, embedding, flatten, activations,
+"""Layers of the port: ``ParamAttr``, linear, dropout, embedding, flatten,
+the activations,
 norms, convolutions, pooling, the loss layers, the recurrent layers and
 the transformer.  ``Sequential`` is ``torch.nn.Sequential``, whose
 children are named ``0``, ``1``, ... as the reference's are."""
 from torch.nn import Sequential  # noqa: F401
 
-from paddle_tpu_torch.nn.layer.activation import ReLU  # noqa: F401
+from paddle_tpu_torch.nn.layer.activation import (  # noqa: F401
+    CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
+    Sigmoid, Silu, Softmax, Softplus, Softshrink, Softsign, Swish, Tanh,
+    Tanhshrink, ThresholdedReLU)
 from paddle_tpu_torch.nn.layer.common import (  # noqa: F401
-    Dropout, Embedding, Flatten, Linear)
+    Dropout, Embedding, Flatten, Linear, ParamAttr)
 from paddle_tpu_torch.nn.layer.conv import Conv1D, Conv2D, Conv3D  # noqa: F401
 from paddle_tpu_torch.nn.layer.loss import (  # noqa: F401
     CrossEntropyLoss, NLLLoss)

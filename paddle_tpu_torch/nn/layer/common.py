@@ -1,13 +1,14 @@
-"""``Linear``, ``Dropout``, ``Embedding`` and ``Flatten`` (port of
-paddle_tpu/nn/layer/common.py).
+"""``ParamAttr``, ``Linear``, ``Dropout``, ``Embedding`` and ``Flatten``
+(port of paddle_tpu/nn/layer/common.py).
 
 ``Linear`` keeps the reference's ``(in_features, out_features)`` weight
 layout, so a reference layer's weights carry across as a copy
 (models/convert.py ``load_named_params``).  Parameters are created on the
-card unless ``device="cpu"`` is asked for.  ``weight_attr`` and
-``bias_attr`` take None (the defaults: Xavier-uniform weight, zero bias)
-or ``bias_attr=False`` (no bias); a ``ParamAttr`` is not ported and
-raises.
+card unless ``device="cpu"`` is asked for.  Every layer's ``weight_attr``
+and ``bias_attr`` take what the reference's ``ParamAttr._to_attr`` takes:
+None (the layer's default initializer), False (no bias), a ``ParamAttr``,
+an ``nn.initializer`` instance or a ``str`` name; the parameter is made by
+``nn.initializer._create_param``.
 """
 from __future__ import annotations
 
@@ -16,15 +17,52 @@ from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.initializer import (Initializer, XavierUniform,
+                                             _create_param)
 
-__all__ = ["Linear", "Dropout", "Embedding", "Flatten"]
+__all__ = ["ParamAttr", "Linear", "Dropout", "Embedding", "Flatten"]
 
 
-def _check_attr(attr, what):
-    if attr is not None and attr is not False:
-        raise NotImplementedError(
-            f"{what}={attr!r}: ParamAttr is not ported; pass None (the "
-            "default initializer) or, for a bias, False")
+class ParamAttr:
+    """How a layer makes one parameter (reference ``:33-59``): its name,
+    initializer, learning-rate scale, regularizer and whether it trains.
+    ``do_model_average`` and ``need_clip`` are kept and read by nothing,
+    as in the reference."""
+
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.do_model_average = do_model_average
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(attr):
+        if attr is None or isinstance(attr, ParamAttr):
+            return attr
+        if attr is False:
+            return False
+        if isinstance(attr, Initializer):
+            return ParamAttr(initializer=attr)
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
+        raise TypeError(f"bad ParamAttr spec {attr!r}")
+
+
+def make_param(shape, attr, default_initializer=None, is_bias=False,
+               device=None, what="weight"):
+    """The layers' one way to a parameter: ``attr`` as ``_to_attr`` reads
+    it, None when it is False (no parameter), on ``device``."""
+    attr = ParamAttr._to_attr(attr)
+    if attr is False:
+        return None
+    return _create_param(shape, "float32", attr=attr, is_bias=is_bias,
+                         default_initializer=default_initializer,
+                         device=resolve_device(device))
 
 
 class Linear(nn.Module):
@@ -34,17 +72,14 @@ class Linear(nn.Module):
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, device=None):
         super().__init__()
-        _check_attr(weight_attr, "weight_attr")
         if weight_attr is False:
             raise ValueError("Linear needs a weight")
-        _check_attr(bias_attr, "bias_attr")
-        dev = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(nn.init.xavier_uniform_(
-            torch.empty(in_features, out_features, device=dev)))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(out_features, device=dev)))
+        self.weight = make_param([in_features, out_features], weight_attr,
+                                 XavierUniform(), device=device)
+        self.bias = make_param([out_features], bias_attr, is_bias=True,
+                               device=device)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -84,7 +119,6 @@ class Embedding(nn.Module):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
-        _check_attr(weight_attr, "weight_attr")
         if weight_attr is False:
             raise ValueError("Embedding needs a weight")
         if sparse:
@@ -95,11 +129,11 @@ class Embedding(nn.Module):
         self._embedding_dim = embedding_dim
         self._padding_idx = (padding_idx if padding_idx is None or
                              padding_idx >= 0 else num_embeddings + padding_idx)
-        weight = nn.init.xavier_uniform_(torch.empty(
-            num_embeddings, embedding_dim, device=resolve_device(device)))
+        self.weight = make_param([num_embeddings, embedding_dim],
+                                 weight_attr, XavierUniform(), device=device)
         if self._padding_idx is not None:
-            weight[self._padding_idx] = 0.0
-        self.weight = nn.Parameter(weight)
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
         return F.embedding(x, self.weight, padding_idx=self._padding_idx)

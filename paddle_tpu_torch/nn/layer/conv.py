@@ -4,19 +4,19 @@ paddle_tpu/nn/layer/conv.py ``_ConvNd`` :23-100).
 The weight is (out, in / groups) + kernel, drawn Xavier-uniform with
 ``fan_in = in / groups * prod(kernel)`` and ``fan_out = out *
 prod(kernel)`` (reference nn/initializer/__init__.py:39-51), the bias is
-zero (``bias_attr=False``: none).  Parameters are created on the card
-unless ``device="cpu"``.  Only ``padding_mode="zeros"`` is ported; the
+zero (``bias_attr=False``: none); a ``ParamAttr`` or an initializer
+overrides either (``nn.layer.common.make_param``).  Parameters are created
+on the card unless ``device="cpu"``.  Only ``padding_mode="zeros"`` is ported; the
 transposed convolutions are not.
 """
 from __future__ import annotations
 
-import torch
 from torch import nn
 
-from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional.conv import _tuplify
-from paddle_tpu_torch.nn.layer.common import _check_attr
+from paddle_tpu_torch.nn.initializer import XavierUniform
+from paddle_tpu_torch.nn.layer.common import make_param
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D"]
 
@@ -29,10 +29,8 @@ class _ConvNd(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  device=None):
         super().__init__()
-        _check_attr(weight_attr, "weight_attr")
         if weight_attr is False:
             raise ValueError("a convolution needs a weight")
-        _check_attr(bias_attr, "bias_attr")
         if padding_mode != "zeros":
             raise NotImplementedError(
                 f"padding_mode={padding_mode!r}: only 'zeros' is ported")
@@ -44,12 +42,11 @@ class _ConvNd(nn.Module):
         self._dilation = dilation
         self._groups = groups
         self._data_format = data_format
-        dev = resolve_device(device)
-        self.weight = nn.Parameter(nn.init.xavier_uniform_(torch.empty(
+        self.weight = make_param(
             [out_channels, in_channels // groups] + self._kernel_size,
-            device=dev)))
-        self.bias = (None if bias_attr is False else
-                     nn.Parameter(torch.zeros(out_channels, device=dev)))
+            weight_attr, XavierUniform(), device=device)
+        self.bias = make_param([out_channels], bias_attr, is_bias=True,
+                               device=device)
 
     def forward(self, x):
         return self._fn(x, self.weight, self.bias, self._stride,

@@ -15,7 +15,8 @@ from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.layer.common import _check_attr
+from paddle_tpu_torch.nn.initializer import Constant
+from paddle_tpu_torch.nn.layer.common import make_param
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D"]
@@ -24,22 +25,20 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
 class LayerNorm(nn.Module):
     """Layer normalisation over the trailing ``normalized_shape`` dims with
     a weight of ones and a bias of zeros (``weight_attr`` / ``bias_attr``
-    False drop them), created on the card unless ``device="cpu"``."""
+    False drop them, a ``ParamAttr`` overrides them), created on the card
+    unless ``device="cpu"``."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, device=None):
         super().__init__()
-        _check_attr(weight_attr, "weight_attr")
-        _check_attr(bias_attr, "bias_attr")
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        dev = resolve_device(device)
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(self._normalized_shape, device=dev)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(self._normalized_shape, device=dev)))
+        self.weight = make_param(self._normalized_shape, weight_attr,
+                                 Constant(1.0), device=device)
+        self.bias = make_param(self._normalized_shape, bias_attr,
+                               is_bias=True, device=device)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -57,18 +56,16 @@ class _BatchNormBase(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, device=None):
         super().__init__()
-        _check_attr(weight_attr, "weight_attr")
-        _check_attr(bias_attr, "bias_attr")
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         dev = resolve_device(device)
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(num_features, device=dev)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(num_features, device=dev)))
+        self.weight = make_param([num_features], weight_attr, Constant(1.0),
+                                 device=dev)
+        self.bias = make_param([num_features], bias_attr, is_bias=True,
+                               device=dev)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance",
                              torch.ones(num_features, device=dev))

@@ -31,7 +31,8 @@ from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.layer.common import _check_attr
+from paddle_tpu_torch.nn.initializer import Uniform
+from paddle_tpu_torch.nn.layer.common import make_param
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
            "BiRNN", "SimpleRNN", "LSTM", "GRU"]
@@ -43,28 +44,20 @@ _ACTIVATIONS = {"tanh": "RNN_TANH", "relu": "RNN_RELU"}
 def _add_params(module, suffix, input_size, hidden_size, gates, device,
                 weight_ih_attr, weight_hh_attr, bias_ih_attr, bias_hh_attr):
     """Register weight_ih, weight_hh, bias_ih, bias_hh (+ ``suffix``),
-    uniform in ±1/sqrt(hidden_size); a bias whose attr is False is None."""
-    for attr, what in ((weight_ih_attr, "weight_ih_attr"),
-                       (weight_hh_attr, "weight_hh_attr"),
-                       (bias_ih_attr, "bias_ih_attr"),
-                       (bias_hh_attr, "bias_hh_attr")):
-        _check_attr(attr, what)
+    uniform in ±1/sqrt(hidden_size) unless an attr says otherwise; a bias
+    whose attr is False is None."""
     if weight_ih_attr is False or weight_hh_attr is False:
         raise ValueError("a recurrent cell needs its weights")
     std = 1.0 / math.sqrt(hidden_size)
-
-    def param(*shape):
-        return nn.Parameter(torch.empty(shape, device=device).uniform_(
-            -std, std))
+    init = Uniform(-std, std)
     rows = gates * hidden_size
-    module.register_parameter("weight_ih" + suffix,
-                              param(rows, input_size))
-    module.register_parameter("weight_hh" + suffix,
-                              param(rows, hidden_size))
-    module.register_parameter("bias_ih" + suffix, None
-                              if bias_ih_attr is False else param(rows))
-    module.register_parameter("bias_hh" + suffix, None
-                              if bias_hh_attr is False else param(rows))
+    for name, shape, attr, is_bias in (
+            ("weight_ih", [rows, input_size], weight_ih_attr, False),
+            ("weight_hh", [rows, hidden_size], weight_hh_attr, False),
+            ("bias_ih", [rows], bias_ih_attr, True),
+            ("bias_hh", [rows], bias_hh_attr, True)):
+        module.register_parameter(name + suffix, make_param(
+            shape, attr, init, is_bias=is_bias, device=device))
 
 
 def _project(x, w, b):

@@ -1,7 +1,8 @@
 """Fused Adam / AdamW update over many tensors (port of
 paddle_tpu/ops/pallas/fused_adam.py).
 
-One pass over (p, g, m, v) of every parameter gives (p', m', v') in f32:
+One pass over (p, g, m, v) of every parameter gives (p', m', v'),
+computed in f32 from the values widened to f32:
 
     m' = b1 m + (1 - b1) g
     v' = b2 v + (1 - b2) g g
@@ -12,7 +13,12 @@ pows) and ``wd_lr = lr * coeff`` for AdamW's decoupled decay (0 for Adam).
 The kernel is ``csrc/fused_adam.cu`` (hand-written CUDA for sm_90a), which
 replaces the Pallas ``_adam_kernel``: where the reference launches it once
 per tensor, one launch here updates up to 32 tensors (a multi-tensor
-apply).  lr_t and wd_lr stay on the device, as the reference passes them as
+apply).  It has two instantiations: f32 storage, and bf16 storage (the
+parameters and moments that ``amp.decorate(level="O2")`` leaves), which
+reads bf16, computes in f32 and stores p', m', v' rounded to nearest even,
+as the reference's wrapper reads any dtype as f32 and writes each output
+back in its input's dtype (``:83-116``).  The dispatch takes all-f32 or
+all-bf16 (p, g, m, v) and raises on any other mix.  lr_t and wd_lr stay on the device, as the reference passes them as
 data: a new rate never recompiles, never goes through the host, and
 nothing synchronises.
 
@@ -33,15 +39,19 @@ import threading
 
 import torch
 
-__all__ = ["fused_adam", "fused_adam_reference", "launches"]
+__all__ = ["fused_adam", "fused_adam_reference", "launches",
+           "launches_bf16"]
 
 _MAX_TENSORS = 32          # tensors per launch (the kernel's table)
 
-# kernel launches made by this process (read by chip_smoke.py)
+# kernel launches made by this process, f32 and bf16 (read by chip_smoke.py)
 launches = 0
+launches_bf16 = 0
 _count_lock = threading.Lock()   # ranks simulated as threads launch too
 
-_fn = None
+_fns: dict = {}
+_ENTRY = {torch.float32: "pt_fused_adam",
+          torch.bfloat16: "pt_fused_adam_bf16"}
 
 
 def _outputs(params, moments1, moments2, out):
@@ -55,13 +65,13 @@ def _outputs(params, moments1, moments2, out):
 def fused_adam_reference(params, grads, moments1, moments2, lr_t, wd_lr,
                          beta1, beta2, eps, out=None):
     """Plain PyTorch version: the reference's ``xla_reference`` (:119) once
-    per tensor.  ``lr_t`` is a (T,) f32 tensor, ``wd_lr`` a 0-d one.
-    Returns (new params, new moments1, new moments2) as lists, written into
-    ``out`` when given."""
+    per tensor, every input widened to f32 and every output rounded (to
+    nearest even) to its input's dtype.  ``lr_t`` is a (T,) f32 tensor,
+    ``wd_lr`` a 0-d one.  Returns (new params, new moments1, new moments2)
+    as lists, written into ``out`` when given."""
     po, mo, vo = _outputs(params, moments1, moments2, out)
     for i, (p, g, m, v) in enumerate(zip(params, grads, moments1, moments2)):
-        g = g.float()
-        pf = p.float()
+        g, pf, m, v = g.float(), p.float(), m.float(), v.float()
         m2 = beta1 * m + (1 - beta1) * g
         v2 = beta2 * v + (1 - beta2) * g * g
         new_p = pf - lr_t[i] * m2 / (torch.sqrt(v2) + eps) - wd_lr * pf
@@ -71,24 +81,29 @@ def fused_adam_reference(params, grads, moments1, moments2, lr_t, wd_lr,
     return po, mo, vo
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
         from paddle_tpu_torch.ops.cuda import _build
-        fn = _build.load("fused_adam").pt_fused_adam
+        fn = getattr(_build.load("fused_adam"), _ENTRY[dtype])
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def _launch(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
             eps, out=None):
-    """The kernel on the card, one launch per 32 tensors."""
-    global launches
+    """The kernel on the card, one launch per 32 tensors: the f32
+    instantiation (16-byte aligned tensors) or the bf16 one (any start)."""
+    global launches, launches_bf16
     n = len(params)
     dev = params[0].device
+    dtype = params[0].dtype
+    if dtype not in _ENTRY:
+        raise ValueError(f"fused_adam: parameters of {dtype}: the kernel "
+                         "takes float32 or bfloat16 storage")
     for name, t in (("lr_t", lr_t), ("wd_lr", wd_lr)):
         if t.dtype != torch.float32 or t.device != dev or \
                 not t.is_contiguous():
@@ -103,15 +118,16 @@ def _launch(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
         numel = ts[0].numel()
         for name, t in zip(("p", "g", "m", "v", "p_out", "m_out", "v_out"),
                            ts):
-            if t.device != dev or t.dtype != torch.float32:
+            if t.device != dev or t.dtype != dtype:
                 raise ValueError(f"fused_adam: tensor {i} {name} must be "
-                                 f"float32 on {dev}, got {t.dtype} on "
-                                 f"{t.device}")
-            if not t.is_contiguous() or t.data_ptr() % 16 or \
-                    t.numel() != numel:
+                                 f"{dtype} on {dev} as the parameters are, "
+                                 f"got {t.dtype} on {t.device}: the kernel "
+                                 "takes all-f32 or all-bf16 (p, g, m, v)")
+            if not t.is_contiguous() or t.numel() != numel or (
+                    dtype == torch.float32 and t.data_ptr() % 16):
                 raise ValueError(f"fused_adam: tensor {i} {name} must be "
-                                 "contiguous, 16-byte aligned and of its "
-                                 "parameter's size")
+                                 "contiguous and of its parameter's size "
+                                 "(16-byte aligned in f32)")
     consts = (float(beta1), float(1 - beta1), float(beta2),
               float(1 - beta2), float(eps))
     with torch.cuda.device(dev):
@@ -122,13 +138,16 @@ def _launch(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
             ptrs = [(ctypes.c_void_p * k)(*(ts[j].data_ptr() for ts in grp))
                     for j in range(7)]
             numels = (ctypes.c_longlong * k)(*(ts[0].numel() for ts in grp))
-            err = _kernel()(k, *ptrs, numels, lr_t.data_ptr() + 4 * s,
-                            wd_lr.data_ptr(), *consts, stream)
+            err = _kernel(dtype)(k, *ptrs, numels, lr_t.data_ptr() + 4 * s,
+                                 wd_lr.data_ptr(), *consts, stream)
             if err != 0:
                 raise RuntimeError(f"fused_adam: kernel launch failed with "
                                    f"cudaError {err}")
             with _count_lock:
-                launches += 1
+                if dtype == torch.float32:
+                    launches += 1
+                else:
+                    launches_bf16 += 1
     return po, mo, vo
 
 
@@ -136,12 +155,21 @@ def fused_adam(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
                eps, out=None):
     """One Adam / AdamW step of every tensor in the lists, by device.
 
-    ``lr_t``: (T,) f32 tensor of bias-corrected rates; ``wd_lr``: 0-d f32
-    tensor; ``beta1``, ``beta2``, ``eps``: floats.  ``out``: optional
+    ``params``, ``grads``, ``moments1``, ``moments2``: lists of tensors,
+    all f32 or all bf16.  ``lr_t``: (T,) f32 tensor of bias-corrected
+    rates; ``wd_lr``: 0-d f32 tensor; ``beta1``, ``beta2``, ``eps``:
+    floats.  ``out``: optional
     (params, moments1, moments2) lists to write into (they may be the
     inputs).  Returns the three lists of new values."""
     if not params:
         return [], [], []
+    dtype = params[0].dtype
+    mixed = sorted({str(t.dtype) for ts in (params, grads, moments1, moments2)
+                    for t in ts} - {str(dtype)})
+    if dtype not in _ENTRY or mixed:
+        raise ValueError(f"fused_adam: (p, g, m, v) must be all float32 or "
+                         f"all bfloat16, got parameters of {dtype} beside "
+                         f"{mixed}")
     dev = params[0].device
     if dev.type == "cpu":
         return fused_adam_reference(params, grads, moments1, moments2, lr_t,

@@ -15,7 +15,7 @@ error among the many small gradients from hiding behind the few large ones
 tests/test_torch_fused_ce.py show each limit flags a dropped tile, term or
 fragment).  The fused Adam kernel repeats its plain version's f32
 arithmetic: moments to 1e-6 relative, each parameter's move to 1e-3 of the
-move.  The row quantizer is bitwise its plain codec (the scale and the
+move; its bf16 instantiation is bitwise its plain version.  The row quantizer is bitwise its plain codec (the scale and the
 finite entries of rows holding NaN or inf).  The last tests drive, on the
 card, shapes and dtypes that the dispatch rules admit or send elsewhere:
 each must run.
@@ -524,6 +524,77 @@ def test_adam_kernel_rejects_what_it_does_not_take(gen):
         fused_adam._launch([p[0].bfloat16()], g, m, v, *args)
     with pytest.raises(ValueError, match="aligned"):
         fused_adam._launch([p[0][1:]], [g[0][1:]], [m[0][1:]], [v[0][1:]],
+                           *args)
+
+
+def _adam_bf16_inputs(gen, sizes, offset=0):
+    """bf16 (p, g, m, v), each tensor a view ``offset`` elements into its
+    own buffer (offset 0: 16-byte aligned)."""
+    def t(scale, off=offset):
+        return [(torch.randn(s + off, generator=gen, device="cuda")
+                 * scale).bfloat16()[off:] for s in sizes]
+    return t(0.02), t(1e-2), t(1e-3), [x.abs() for x in t(1e-3)]
+
+
+def _adam_bf16_check(p, g, m, v, lr_t):
+    wd_lr = torch.tensor(1e-5, device="cuda")
+    before = fused_adam.launches_bf16
+    got = fused_adam._launch(p, g, m, v, lr_t, wd_lr, 0.9, 0.999, 1e-8)
+    again = fused_adam._launch(p, g, m, v, lr_t, wd_lr, 0.9, 0.999, 1e-8)
+    want = fused_adam.fused_adam_reference(p, g, m, v, lr_t, wd_lr, 0.9,
+                                           0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert fused_adam.launches_bf16 == before + 2 * -(-len(p) // 32)
+    for a, b, c in zip(got[0] + got[1] + got[2], want[0] + want[1] + want[2],
+                       again[0] + again[1] + again[2]):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# the bf16 instantiation: bitwise its plain version (the same f32 operations
+# in the same order, rounded to nearest even on the store) at whole chunks,
+# tails that are no multiple of 8, starts off a 16-byte boundary, and more
+# tensors than one launch takes
+@pytest.mark.parametrize("sizes,offset", [
+    ([4096, 128, 8, 1], 0), ([100003, 2048 * 3 + 5, 13], 0),
+    ([100003, 2048 * 3 + 5, 13, 1], 1), ([4099, 77], 3), ([7] * 40, 5)])
+def test_adam_bf16_kernel_is_bitwise_plain(gen, sizes, offset):
+    p, g, m, v = _adam_bf16_inputs(gen, sizes, offset)
+    lr_t = torch.rand(len(sizes), generator=gen, device="cuda") * 1e-3
+    _adam_bf16_check(p, g, m, v, lr_t)
+
+
+def test_adam_bf16_kernel_takes_differently_aligned_tensors(gen):
+    """p starting 2 bytes off a boundary, m 6 bytes off, g and v on it:
+    the tensor goes element by element, still bitwise."""
+    p, _, _, _ = _adam_bf16_inputs(gen, [5000], 1)
+    _, g, _, v = _adam_bf16_inputs(gen, [5000], 0)
+    _, _, m, _ = _adam_bf16_inputs(gen, [5000], 3)
+    _adam_bf16_check(p, g, m, v, torch.full((1,), 1e-3, device="cuda"))
+
+
+def test_adam_bf16_kernel_writes_into_its_inputs(gen):
+    p, g, m, v = _adam_bf16_inputs(gen, [3000, 64], 1)
+    args = (torch.full((2,), 1e-3, device="cuda"),
+            torch.tensor(1e-5, device="cuda"), 0.9, 0.999, 1e-8)
+    fresh = fused_adam._launch(p, g, m, v, *args)
+    got = fused_adam._launch(p, g, m, v, *args, out=(p, m, v))
+    torch.cuda.synchronize()
+    for a, b in zip(got[0] + got[1] + got[2],
+                    fresh[0] + fresh[1] + fresh[2]):
+        assert torch.equal(a, b)
+    assert got[0][0].data_ptr() == p[0].data_ptr()
+
+
+def test_adam_rejects_mixed_dtypes_on_the_card(gen):
+    p, g, m, v = _adam_bf16_inputs(gen, [64])
+    args = (torch.ones(1, device="cuda"), torch.zeros((), device="cuda"),
+            0.9, 0.999, 1e-8)
+    with pytest.raises(ValueError, match="all-f32 or all-bf16"):
+        fused_adam._launch(p, g, [m[0].float()], v, *args)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_adam._launch([x.half() for x in p], [x.half() for x in g],
+                           [x.half() for x in m], [x.half() for x in v],
                            *args)
 
 

@@ -45,7 +45,9 @@ def test_every_module_imports_with_jax_blocked():
               "parallel.zero", "jit.recompute", "framework.replay",
               "distributed.fleet",
               "distributed.fleet.utils", "nn.decode", "nn.layer.rnn",
-              "nn.layer.loss"):
+              "nn.layer.loss", "amp", "regularizer", "nn.initializer",
+              "framework.parameter", "nn.layer.activation",
+              "vision.models.mobilenet", "vision.models.vgg"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -83,6 +85,32 @@ def test_seq2seq_entry_points_default_to_cuda(monkeypatch):
     assert tnn.Transformer.generate_square_subsequent_mask(
         8, device="cpu").device.type == "cpu"
     assert tnn.LSTM(4, 8, device="cpu").weight_ih_l0.device.type == "cpu"
+
+
+def test_eager_slice_entry_points_default_to_cuda(monkeypatch):
+    """The layers that take a ParamAttr, the initializers, the parameter
+    factory, MobileNet and VGG land on the card unless asked otherwise,
+    and raise without it; amp.decorate keeps parameters where they are."""
+    import paddle_tpu_torch.amp as tamp
+    import paddle_tpu_torch.nn as tnn
+    import paddle_tpu_torch.nn.initializer as tinit
+    from paddle_tpu_torch.vision.models import (mobilenet_v1, mobilenet_v2,
+                                                vgg11)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: tnn.PReLU(3), lambda: tnn.Conv2D(3, 4, 3),
+                 lambda: tnn.Linear(3, 4, weight_attr=tnn.ParamAttr("w")),
+                 lambda: tnn.BatchNorm2D(3), lambda: tnn.LayerNorm(3),
+                 lambda: tinit.XavierUniform()((3, 4)),
+                 lambda: tinit.Dirac()((3, 3, 3)),
+                 lambda: tinit._create_param([3]),
+                 lambda: mobilenet_v1(scale=0.25, num_classes=2),
+                 lambda: mobilenet_v2(scale=0.25, num_classes=2),
+                 lambda: vgg11(num_classes=2)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    lin = tamp.decorate(tnn.Linear(3, 4, device="cpu"), level="O2")
+    assert lin.weight.device.type == "cpu"
+    assert lin.weight.dtype == torch.bfloat16
 
 
 def test_fleet_recompute_runs_where_its_inputs_are(monkeypatch):

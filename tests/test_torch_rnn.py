@@ -325,7 +325,7 @@ def test_bad_arguments_raise():
         tnn.GRU(IN, H, direction="sideways", device="cpu")
     with pytest.raises(ValueError, match="activation"):
         tnn.SimpleRNN(IN, H, activation="gelu", device="cpu")
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         tnn.LSTMCell(IN, H, weight_ih_attr=object(), device="cpu")
     cell = tnn.GRUCell(IN, H, bias_ih_attr=False, bias_hh_attr=False,
                        device="cpu")

@@ -159,8 +159,11 @@ def test_dropout_draws_from_its_generator():
 
 
 def test_param_attr_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
-        tnn.Linear(4, 4, weight_attr="w", device="cpu")
+    # ParamAttr is ported now: a str names the weight, anything else that
+    # is not an attr or an initializer raises as the reference's _to_attr
+    assert tnn.Linear(4, 4, weight_attr="w", device="cpu").weight.name == "w"
+    with pytest.raises(TypeError, match="ParamAttr"):
+        tnn.Linear(4, 4, weight_attr=object(), device="cpu")
     assert tnn.Linear(4, 4, bias_attr=False, device="cpu").bias is None
 
 
