@@ -41,8 +41,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
              beside three planted faults (a truncating store, the step
              taken from the rounded m' and v', the rate formed from f32
              beta pows), then bitwise at tails (lengths no multiple of 8,
-             starts off a 16-byte boundary, tensors misaligned
-             differently, 40 tensors).
+             40 tensors); a start off a 16-byte boundary is refused.
 3. serve   — GPT-2 345M (remat=False in phases 3-5 and 10, as bench.py's
              GPT-2 legs run it) at full width and depth in bf16 answers a
              batch of B=8 prompts of S=1024 tokens: logits and next-token argmax, then
@@ -183,16 +182,21 @@ Phases, in order; any failure ends the script with a non-zero exit:
              beside the train phase's TrainStep; #1-#3 24 launches each a
              step.  As in the reference, beta2 = 0.999 rounds to 1.0 in
              bf16, lr_t is 0 and no parameter moves: the check holds the
-             parameters bitwise, the loss repeating, the moments moving.
+             parameters bitwise, the loss repeating, the moments moving;
+             then 3 steps at beta2 = 0.99, where the loss must fall and the
+             parameters move.
 22. eager-vision — MobileNetV2 (1.0, 1000 classes), B=96 at 224x224, under
              auto_cast O1 with RMSProp(0.045, rho 0.9, momentum 0.9) and
              L2Decay(4e-5) (Sandler et al. 2018, §6.1): convolution inputs
              bf16, batch-norm inputs f32, finite losses, samples/s, peak
-             bytes, idle share; then one Momentum step of VGG-16 and
-             MobileNetV1 at 224x224, B=2, card against CPU in f64 and
-             evaluation mode (f32 ReLU and max-pool kinks flip between
-             devices; training-mode batch norms keep f32 statistics).  Counters set
-             to 0 just before each of phases 21 and 22's runs.
+             bytes, idle share; then one step at 224x224, B=2, card
+             against CPU in f64 and evaluation mode (f32 ReLU and max-pool
+             kinks flip between devices; training-mode batch norms keep
+             f32 statistics): Momentum for VGG-16 and MobileNetV1, the
+             recipe above for MobileNetV2 (GradScaler().minimize, without
+             auto_cast); MobileNetV2's O1 loss, card against CPU.
+             Counters set to 0 just before each of phases 21 and 22's
+             runs.
 23. timing — each kernel, its plain version, the one-call PyTorch yardstick
              and the least time the card could take for the same work; the
              masked kernels and dbias at BERT-base's layer, #1-#3 at the
@@ -361,7 +365,9 @@ RNN_B, RNN_T, RNN_IN, RNN_H, RNN_LAYERS = 128, 50, 512, 512, 2
 # rho 0.9, momentum 0.9), weight decay 4e-5, batch 96 at 224x224, under O1
 EAGER_LR = 1e-4
 EAGER_WARM, EAGER_TIMED = 2, 8
+EAGER_MOVING = 3               # eager-gpt's steps at beta2 = 0.99
 MB_BATCH, MB_HW, MB_LR, MB_WD = 96, 224, 0.045, 4e-5
+TOL_LOSS_BF16_REL = 3.2e-2     # a loss through bf16 layers, card vs CPU
 # eager-small: a 32 -> 64 -> 10 tanh MLP whose parameters carry ParamAttrs
 # (a rate scale, an L1 and an L2 regulariser, a frozen bias), B=16, 3 steps
 MLP_IN, MLP_HID, MLP_OUT, MLP_B, MLP_STEPS = 32, 64, 10, 16, 3
@@ -2678,13 +2684,15 @@ def adam_bf16_faults(p, gr, m, v, lr_t, lr_bf16, wd_lr, b1, b2, eps):
     pows where the optimizer forms it from bf16 ones (``lr_t`` is the f32
     one, ``lr_bf16`` the optimizer's)."""
     import torch
+    from paddle_tpu_torch.ops.cuda.fused_adam import one_minus
+    c1, c2 = one_minus(b1), one_minus(b2)
 
     def run(lr, trunc=False, step_rounded=False):
         out = ([], [], [])
         for i, (pi, gi, mi, vi) in enumerate(zip(p, gr, m, v)):
             g32, p32 = gi.float(), pi.float()
-            m2 = b1 * mi.float() + (1 - b1) * g32
-            v2 = b2 * vi.float() + (1 - b2) * g32 * g32
+            m2 = b1 * mi.float() + c1 * g32
+            v2 = b2 * vi.float() + c2 * g32 * g32
             ms, vs = ((m2.bfloat16().float(), v2.bfloat16().float())
                       if step_rounded else (m2, v2))
             np_ = p32 - lr[i] * ms / (torch.sqrt(vs) + eps) - wd_lr * p32
@@ -2698,15 +2706,14 @@ def adam_bf16_faults(p, gr, m, v, lr_t, lr_bf16, wd_lr, b1, b2, eps):
             ("lr_t from f32 beta pows", lr_bf16, run(lr_t))]
 
 
-def check_adam_bf16(g, fused_adam, AdamW, shapes, offsets=None,
-                    faults=True):
+def check_adam_bf16(g, fused_adam, AdamW, shapes, faults=True):
     """#8's bf16 instantiation against its plain version at ``shapes``
     with lr_t from f32 beta pows (a rate above 0): bitwise, and two calls
     bitwise equal; each planted fault unequal to the kernel (the last one
     against the kernel at the optimizer's own rate).  Returns (elements,
     the inputs for timing)."""
     import torch
-    p, gr, m, v = adam_bf16_inputs(g, shapes, offsets)
+    p, gr, m, v = adam_bf16_inputs(g, shapes)
     lr_bf16, lr_t = adam_bf16_rates(AdamW, len(shapes))
     wd_lr = torch.tensor(LR_PEAK * 0.01, device="cuda")
     consts = (0.9, 0.999, 1e-8)
@@ -3044,6 +3051,26 @@ def eager_gpt(GPT, cfg, gpt_loss, amp, AdamW, fa, fused_adam, ids_t,
     log("eager-gpt: as in the reference, bf16 beta2 = 1.0 makes lr_t = 0: "
         "every parameter bf16 and bitwise where it started, the moments "
         "updated, the loss repeating bitwise")
+    # the same loop with beta2 = 0.99 (0.98828125 in bf16): lr_t is above
+    # 0, so the loss falls and every tensor holding an entry below 2^-5
+    # moves (its half ulp, 6.1e-5 or less, is below the first step's move
+    # of about lr_t = 1.1e-4; a layer norm's unit weights stay)
+    del opt
+    opt = AdamW(EAGER_LR, beta2=0.99, parameters=list(model.parameters()),
+                use_fused=True)
+    fused_adam.launches_bf16 = 0
+    moving = [float(step()) for _ in range(EAGER_MOVING)]
+    log(f"eager-gpt: the loop with AdamW({EAGER_LR:g}, beta2=0.99, "
+        f"use_fused=True): losses {moving}")
+    if fused_adam.launches_bf16 != EAGER_MOVING or not all(
+            math.isfinite(x) for x in moving) or \
+            not moving[-1] < moving[0]:
+        fail(f"eager-gpt with beta2 = 0.99: losses {moving} do not fall, or "
+             f"{fused_adam.launches_bf16} bf16 fused_adam launches in "
+             f"{EAGER_MOVING} steps")
+    for (n, p), q in zip(model.named_parameters(), p0):
+        if bool((q.abs() < 2.0 ** -5).any()) and torch.equal(p, q):
+            fail(f"eager-gpt with beta2 = 0.99: {n} did not move")
     row = {"eager_gpt_step_ms": step_ms,
            "eager_gpt_tokens_per_s": b * s / step_ms * 1e3,
            "eager_gpt_peak_bytes": peak,
@@ -3051,7 +3078,8 @@ def eager_gpt(GPT, cfg, gpt_loss, amp, AdamW, fa, fused_adam, ids_t,
            "eager_gpt_device_busy_ms": busy,
            "eager_gpt_traced_wall_ms": wall,
            "eager_gpt_device_idle_share": max(0.0, 1.0 - busy / step_ms),
-           "eager_gpt_losses": losses}
+           "eager_gpt_losses": losses,
+           "eager_gpt_beta2_0.99_losses": moving}
     log(f"eager-gpt: step {step_ms:.3f} ms (CUDA events, mean of "
         f"{EAGER_TIMED} after {EAGER_WARM} warm-ups), "
         f"{row['eager_gpt_tokens_per_s']:.1f} training tokens/s, "
@@ -3068,8 +3096,9 @@ def eager_vision(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt, treg,
                  power):
     """MobileNetV2 at full width trained by the dygraph loop under O1 with
     RMSProp and L2Decay as Sandler et al. train it, B=MB_BATCH at
-    MB_HW^2; then one eager Momentum step of VGG-16 and MobileNetV1
-    at 224^2, B=2, card against CPU (in f64 and evaluation mode).
+    MB_HW^2; then one eager step at 224^2, B=2, card against CPU (in f64
+    and evaluation mode): Momentum for VGG-16 and MobileNetV1, the recipe
+    for MobileNetV2; then MobileNetV2's O1 loss, card against CPU.
     Returns the row of numbers."""
     import numpy as np
     import torch
@@ -3134,50 +3163,110 @@ def eager_vision(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt, treg,
         f"{losses[0]:.4f} -> {losses[-1]:.4f}; {power}")
     del model, opt, x
     torch.cuda.empty_cache()
-    # one eager Momentum step, card against CPU, in f64 and evaluation mode:
-    # in f32 a ReLU or max-pool input within rounding of its kink takes the
+    row.update(eager_vision_vs_cpu(mobilenet_v1, mobilenet_v2, vgg16, amp, F,
+                                   topt, treg))
+    torch.cuda.empty_cache()
+    return row
+
+
+def eager_vision_vs_cpu(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt,
+                        treg):
+    """eager-vision's steps card against CPU at 224^2, B=2.  Returns the
+    row of numbers."""
+    import numpy as np
+    import torch
+    row = {}
+    # one eager step, card against CPU, in f64 and evaluation mode: VGG-16
+    # and MobileNetV1 by Momentum, MobileNetV2 by the recipe above (RMSProp,
+    # L2Decay, GradScaler.minimize) without auto_cast, whose bf16
+    # convolutions round differently on each device (logged below).  In
+    # f32 a ReLU or max-pool input within rounding of its kink takes the
     # other side on one device and moves the gradients behind it (VGG-16's
     # f32 moves differ by 2.7e-2 of a move, H100 against the CPU); in
     # training mode MobileNetV1's batch norms take f32 statistics (the
     # reference's rule, in f64 too) over 98 values a channel at the last
     # stage, summed in another order on each device (8.9e-2 of a move)
     r = np.random.default_rng(1)
-    xs = r.standard_normal((2, 3, 224, 224))
-    ys = r.integers(0, 1000, (2,))
-    for name, make in (("vgg16", vgg16), ("mobilenet_v1", mobilenet_v1)):
-        gpu = make(num_classes=1000).double()
-        cpu = make(num_classes=1000, device="cpu").double()
-        with torch.no_grad():
-            for a, b in zip(gpu.parameters(), cpu.parameters()):
-                b.copy_(a.cpu())
-        # running stats of this batch (one training forward with the
-        # momentum at 0), so that the evaluation-mode activations keep
-        # their scale through the 27 layers
-        with torch.no_grad():
-            for sub in cpu.modules():
-                if hasattr(sub, "_momentum"):
-                    sub._momentum = 0.0
-            cpu(torch.from_numpy(xs))
-            for a, b in zip(gpu.buffers(), cpu.buffers()):
-                a.copy_(b)
+    xs = torch.from_numpy(r.standard_normal((2, 3, 224, 224)))
+    ys = torch.from_numpy(r.integers(0, 1000, (2,)))
+
+    def momentum(m):
+        topt.Momentum(1e-2, 0.9, parameters=list(m.parameters())).minimize(
+            F.cross_entropy(m(xs.to(dev)), ys.to(dev)).mean())
+
+    def recipe(m):
+        opt = topt.RMSProp(MB_LR, rho=0.9, momentum=0.9,
+                           parameters=list(m.parameters()),
+                           weight_decay=treg.L2Decay(MB_WD))
+        sc = amp.GradScaler()
+        sc.minimize(opt, sc.scale(F.cross_entropy(m(xs.to(dev)),
+                                                  ys.to(dev)).mean()))
+        if sc._scale != 2.0 ** 15 or opt._global_step != 1:
+            fail("eager-vision: the recipe's f64 step was skipped")
+    for name, make, step, what in (
+            ("vgg16", vgg16, momentum, "Momentum(1e-2, 0.9)"),
+            ("mobilenet_v1", mobilenet_v1, momentum, "Momentum(1e-2, 0.9)"),
+            ("mobilenet_v2", mobilenet_v2, recipe,
+             f"RMSProp({MB_LR:g}, rho=0.9, momentum=0.9, weight_decay="
+             f"L2Decay({MB_WD:g})) by GradScaler().minimize")):
+        gpu, cpu = eval_pair(make, xs, torch.float64)
         old = {n: p.detach().clone() for n, p in cpu.named_parameters()}
         for m in (gpu, cpu):
-            m.eval()
-            opt = topt.Momentum(1e-2, 0.9, parameters=list(m.parameters()))
             dev = next(m.parameters()).device
-            loss = F.cross_entropy(m(torch.from_numpy(xs).to(dev)),
-                                   torch.from_numpy(ys).to(dev)).mean()
-            opt.minimize(loss)
-        err = moves_err(gpu, cpu, old, f"{name}'s Momentum step")
-        log(f"eager-vision: {name} one f64 Momentum(1e-2, 0.9) step in "
-            f"evaluation mode, B=2 at 224x224, card vs CPU: parameter "
-            f"moves max_err/move={err:.3g} (tol {TOL_MOVE:g})")
+            step(m)
+        err = moves_err(gpu, cpu, old, f"{name}'s eager step")
+        log(f"eager-vision: {name} one f64 {what} step in evaluation "
+            f"mode, B=2 at 224x224, card vs CPU: parameter moves "
+            f"max_err/move={err:.3g} (tol {TOL_MOVE:g})")
         if err > TOL_MOVE:
             fail(f"{name}'s eager step on the card disagrees with the CPU")
         row[f"eager_vision_{name}_move_err"] = err
         del gpu, cpu, old
-    torch.cuda.empty_cache()
+    # MobileNetV2's first O1 forward and backward, card against CPU (f32
+    # parameters, bf16 convolutions and linear): the loss within bf16
+    # rounding; the gradients' difference is logged, not held, as the
+    # rounding of the 52 bf16 convolutions dominates some of them
+    gpu, cpu = eval_pair(mobilenet_v2, xs, torch.float32)
+    out = []
+    for m in (gpu, cpu):
+        dev = next(m.parameters()).device
+        with amp.auto_cast(level="O1"):
+            loss = F.cross_entropy(m(xs.to(dev).float()), ys.to(dev)).mean()
+        loss.backward()
+        out.append((float(loss.detach()), torch.cat([p.grad.flatten().cpu()
+                                            for p in m.parameters()])))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    g_err = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    log(f"eager-vision: mobilenet_v2 O1 forward and backward in evaluation "
+        f"mode, B=2 at 224x224, card vs CPU: loss {l_gpu:.6f} vs "
+        f"{l_cpu:.6f} (tol {TOL_LOSS_BF16_REL:g} relative), gradients "
+        f"|g_card - g_cpu| / |g_cpu| = {g_err:.3g} (not held)")
+    if not abs(l_gpu - l_cpu) <= TOL_LOSS_BF16_REL * abs(l_cpu):
+        fail("eager-vision: MobileNetV2's O1 loss on the card disagrees "
+             "with the CPU")
+    row["eager_vision_mobilenet_v2_o1_loss_err"] = abs(l_gpu - l_cpu)
+    row["eager_vision_mobilenet_v2_o1_grad_rel_diff"] = g_err
     return row
+
+
+def eval_pair(make, xs, dtype):
+    """``make(num_classes=1000)`` on the card and on the CPU in ``dtype``
+    with the card's weights, in evaluation mode with the running stats of
+    ``xs`` (one training forward with the momentum at 0), so that the
+    activations keep their scale through the layers."""
+    import torch
+    gpu = make(num_classes=1000).to(dtype)
+    cpu = make(num_classes=1000, device="cpu").to(dtype)
+    with torch.no_grad():
+        for a, b in zip(gpu.parameters(), cpu.parameters()):
+            b.copy_(a.cpu())
+        for sub in cpu.modules():
+            if hasattr(sub, "_momentum"):
+                sub._momentum = 0.0
+        cpu(xs.to(dtype))
+        for a, b in zip(gpu.buffers(), cpu.buffers()):
+            a.copy_(b)
+    return gpu.eval(), cpu.eval()
 
 
 def main() -> int:
@@ -3301,18 +3390,26 @@ def main() -> int:
     dw_err = max(e[1] for e in ce_bwd_errs)
     check_ce_bwd(g, fused_ce, (300, 256, 1000, f32, pb))
     # #8 in bf16 at GPT-2 345M's 16 stacked tensors, beside three planted
-    # faults, then at tails: lengths no multiple of 8, starts off a 16-byte
-    # boundary, tensors misaligned differently, more than 32 tensors
+    # faults, then at tails: lengths no multiple of 8, more than 32
+    # tensors; a start off a 16-byte boundary is refused
     adam_shapes = gpt_param_shapes(gpt2_345m(max_seq_len=S))
     adam_n, _ = check_adam_bf16(g, fused_adam, AdamW, adam_shapes)
-    for shapes, offsets in (
-            ([(100003,), (2048 * 3 + 5,), (13,), (1,)], [1, 3, 0, 5]),
-            ([(4099,), (77,)], [3, 3]),
-            ([(7,)] * 40, [5] * 40)):
-        check_adam_bf16(g, fused_adam, AdamW, shapes, offsets, faults=False)
+    for shapes in ([(100003,), (2048 * 3 + 5,), (13,), (1,)],
+                   [(4099,), (77,)], [(7,)] * 40):
+        check_adam_bf16(g, fused_adam, AdamW, shapes, faults=False)
+    odd = adam_bf16_inputs(g, [(4099,), (77,)], [0, 3])
+    try:
+        fused_adam.fused_adam(*odd, *adam_bf16_rates(AdamW, 2)[1:],
+                              torch.tensor(0.0, device="cuda"), 0.9, 0.999,
+                              1e-8)
+    except ValueError as e:
+        log(f"check fused_adam bf16 refuses a start off a 16-byte "
+            f"boundary: {e}")
+    else:
+        fail("fused_adam bf16 took a start off a 16-byte boundary")
     log(f"check fused_adam bf16 over GPT-2 345M's 16 tensors ({adam_n} "
-        f"values) and at tail shapes and unaligned starts: bitwise its "
-        f"plain version, two calls bitwise equal, every planted fault seen")
+        f"values) and at tail shapes: bitwise its plain version, two calls "
+        f"bitwise equal, every planted fault seen")
 
     small = gpt_tiny(num_layers=2, hidden_size=128, num_heads=2,
                      max_seq_len=256)

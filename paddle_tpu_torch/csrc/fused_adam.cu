@@ -24,13 +24,11 @@
 // sizes is the kernel's argument (read from the constant bank, no copy to
 // the device), each tensor is cut into chunks of 2048 elements, and the
 // blocks walk the chunks of all tensors in a grid-stride loop, with 16-byte
-// loads and stores (4 f32 or 8 bf16 values) on the chunk's aligned body.
-// A chunk whose tensor starts off a 16-byte boundary takes a scalar head up
-// to the first aligned element and a scalar tail after the last whole
-// vector; a tensor whose seven pointers are misaligned differently goes
-// element by element.  The f32 wrapper requires 16-byte alignment, so its
-// chunks are whole vectors.  The outputs may alias the inputs: each element
-// is read before it is written, by one thread.
+// loads and stores (4 f32 or 8 bf16 values); the wrapper requires every
+// tensor to start on a 16-byte boundary, so a chunk is whole vectors but
+// for a scalar tail where the tensor's length is no multiple of the
+// vector.  The outputs may alias the inputs: each element is read before
+// it is written, by one thread.
 //
 // What bounds it.  Bytes: an element reads p, g, m, v and writes p, m, v,
 // 28 bytes in f32 and 14 in bf16, for 11 operations.  At GPT-2 345M's
@@ -55,8 +53,6 @@ struct Table {
   T* vo[MAXT];
   long long numel[MAXT];
   long long chunk0[MAXT + 1];   // first chunk of each tensor; [n] = total
-  int head[MAXT];               // elements before the first 16-byte boundary
-  int vec[MAXT];                // all seven pointers share that boundary
   int n;
 };
 
@@ -141,17 +137,9 @@ __global__ void __launch_bounds__(THREADS)
     const long long e0 = (c - tab.chunk0[i]) * CHUNK;
     const long long e1 = e0 + CHUNK < n ? e0 + CHUNK : n;
     const float lr = lr_t[i];
-    // [e0, a) scalar head, [a, b) whole vectors, [b, e1) scalar tail
-    long long a = e1, b = e1;
-    if (tab.vec[i]) {
-      const long long skew = ((e0 - tab.head[i]) % N + N) % N;
-      a = e0 + (skew ? N - skew : 0);
-      if (a > e1) a = e1;
-      b = a + (e1 - a) / N * N;
-    }
-    for (long long e = e0 + threadIdx.x; e < a; e += THREADS)
-      adam_one(tab, i, e, lr, wd, k);
-    for (long long e = a + (long long)threadIdx.x * N; e < b;
+    // [e0, b) whole vectors, [b, e1) scalar tail
+    const long long b = e0 + (e1 - e0) / N * N;
+    for (long long e = e0 + (long long)threadIdx.x * N; e < b;
          e += (long long)THREADS * N)
       adam_vec(tab, i, e, lr, wd, k);
     for (long long e = b + threadIdx.x; e < e1; e += THREADS)
@@ -166,7 +154,6 @@ int launch(int n, const void* const* p, const void* const* g,
            const float* lr_t, const float* wd_lr, float b1, float c1,
            float b2, float c2, float eps, void* stream) {
   if (n <= 0 || n > MAXT) return (int)cudaErrorInvalidValue;
-  constexpr int N = 16 / sizeof(T);
   Table<T> tab;
   tab.n = n;
   tab.chunk0[0] = 0;
@@ -181,13 +168,10 @@ int launch(int n, const void* const* p, const void* const* g,
     tab.vo[i] = static_cast<T*>(vo[i]);
     tab.numel[i] = numel[i];
     tab.chunk0[i + 1] = tab.chunk0[i] + (numel[i] + CHUNK - 1) / CHUNK;
-    const uintptr_t off = reinterpret_cast<uintptr_t>(p[i]) % 16;
     const void* const all[7] = {p[i], g[i], m[i], v[i], po[i], mo[i], vo[i]};
-    int same = off % sizeof(T) == 0;
-    for (int j = 1; j < 7; ++j)
-      same &= reinterpret_cast<uintptr_t>(all[j]) % 16 == off;
-    tab.vec[i] = same;
-    tab.head[i] = same ? (int)(((16 - off) % 16) / sizeof(T)) % N : 0;
+    for (int j = 0; j < 7; ++j)
+      if (reinterpret_cast<uintptr_t>(all[j]) % 16)
+        return (int)cudaErrorMisalignedAddress;
   }
   const long long total = tab.chunk0[n];
   if (total == 0) return (int)cudaSuccess;
@@ -208,8 +192,7 @@ int launch(int n, const void* const* p, const void* const* g,
 
 // One launch over n <= 32 tensors of one storage type: p, g, m, v and the
 // outputs po, mo, vo are arrays of n device pointers (an output may equal
-// its input; the f32 entry needs them 16-byte aligned, the bf16 entry
-// takes any 2-byte aligned start), numel their sizes; lr_t points to n f32
+// its input; every pointer 16-byte aligned), numel their sizes; lr_t points to n f32
 // rates on the device and wd_lr to one.  c1 = 1 - b1 and c2 = 1 - b2 as
 // the caller rounds them.  Returns a cudaError_t as int.
 extern "C" int pt_fused_adam(int n, const void* const* p,

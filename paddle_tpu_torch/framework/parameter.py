@@ -11,12 +11,16 @@
 - ``is_bias``.
 
 Arithmetic on a ``Parameter`` gives plain tensors, as on any
-``nn.Parameter``.
+``nn.Parameter``.  A deep copy or a pickled copy keeps every attribute,
+the name included, as the reference's ``copy.deepcopy`` does (so the
+layers ``TransformerEncoder`` clones share their template's names).
 """
 from __future__ import annotations
 
+import copy
 import itertools
 
+import torch
 from torch import nn
 
 __all__ = ["Parameter"]
@@ -37,3 +41,24 @@ class Parameter(nn.Parameter):
         p.regularizer = regularizer
         p.is_bias = is_bias
         return p
+
+    def __deepcopy__(self, memo):
+        if id(self) not in memo:
+            memo[id(self)] = _rebuild(
+                type(self), self.data.clone(
+                    memory_format=torch.preserve_format),
+                self.requires_grad, copy.deepcopy(self.__dict__, memo))
+        return memo[id(self)]
+
+    def __reduce_ex__(self, proto):
+        # nn.Parameter's would rebuild a plain nn.Parameter, on which the
+        # name cannot be set
+        return (_rebuild, (type(self), self.data, self.requires_grad,
+                           self.__dict__))
+
+
+def _rebuild(cls, data, requires_grad, attrs):
+    p = cls(data, name=attrs["name"])
+    p.__dict__.update(attrs)
+    p.requires_grad_(requires_grad)
+    return p

@@ -18,9 +18,12 @@ parameters and moments that ``amp.decorate(level="O2")`` leaves), which
 reads bf16, computes in f32 and stores p', m', v' rounded to nearest even,
 as the reference's wrapper reads any dtype as f32 and writes each output
 back in its input's dtype (``:83-116``).  The dispatch takes all-f32 or
-all-bf16 (p, g, m, v) and raises on any other mix.  lr_t and wd_lr stay on the device, as the reference passes them as
-data: a new rate never recompiles, never goes through the host, and
-nothing synchronises.
+all-bf16 (p, g, m, v) and raises on any other mix; both take tensors
+that start on a 16-byte boundary, as every allocation does.  ``1 - b1``
+and ``1 - b2`` are rounded as the Pallas kernel forms them, in f32 from
+the f32 betas (:53-57).  lr_t and wd_lr stay on the device, as the
+reference passes them as data: a new rate never recompiles, never goes
+through the host, and nothing synchronises.
 
 Outputs: fresh tensors by default, so that ``Optimizer.functional_update``
 stays pure as the reference's is; or, with ``out=``, tensors the caller
@@ -35,12 +38,13 @@ CUDA tensors the kernel, or a raise.
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 
 import torch
 
 __all__ = ["fused_adam", "fused_adam_reference", "launches",
-           "launches_bf16"]
+           "launches_bf16", "one_minus"]
 
 _MAX_TENSORS = 32          # tensors per launch (the kernel's table)
 
@@ -52,6 +56,16 @@ _count_lock = threading.Lock()   # ranks simulated as threads launch too
 _fns: dict = {}
 _ENTRY = {torch.float32: "pt_fused_adam",
           torch.bfloat16: "pt_fused_adam_bf16"}
+
+
+def _f32(x):
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def one_minus(beta):
+    """``1 - beta`` as the Pallas kernel forms it: both in f32, the
+    difference rounded to f32 (exact where beta lies in [0.5, 1])."""
+    return _f32(1.0 - _f32(beta))
 
 
 def _outputs(params, moments1, moments2, out):
@@ -70,10 +84,11 @@ def fused_adam_reference(params, grads, moments1, moments2, lr_t, wd_lr,
     ``wd_lr`` a 0-d one.  Returns (new params, new moments1, new moments2)
     as lists, written into ``out`` when given."""
     po, mo, vo = _outputs(params, moments1, moments2, out)
+    c1, c2 = one_minus(beta1), one_minus(beta2)
     for i, (p, g, m, v) in enumerate(zip(params, grads, moments1, moments2)):
         g, pf, m, v = g.float(), p.float(), m.float(), v.float()
-        m2 = beta1 * m + (1 - beta1) * g
-        v2 = beta2 * v + (1 - beta2) * g * g
+        m2 = beta1 * m + c1 * g
+        v2 = beta2 * v + c2 * g * g
         new_p = pf - lr_t[i] * m2 / (torch.sqrt(v2) + eps) - wd_lr * pf
         po[i].copy_(new_p)
         mo[i].copy_(m2)
@@ -95,8 +110,8 @@ def _kernel(dtype):
 
 def _launch(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
             eps, out=None):
-    """The kernel on the card, one launch per 32 tensors: the f32
-    instantiation (16-byte aligned tensors) or the bf16 one (any start)."""
+    """The kernel on the card, one launch per 32 tensors of 16-byte
+    aligned starts: the f32 instantiation or the bf16 one."""
     global launches, launches_bf16
     n = len(params)
     dev = params[0].device
@@ -123,13 +138,13 @@ def _launch(params, grads, moments1, moments2, lr_t, wd_lr, beta1, beta2,
                                  f"{dtype} on {dev} as the parameters are, "
                                  f"got {t.dtype} on {t.device}: the kernel "
                                  "takes all-f32 or all-bf16 (p, g, m, v)")
-            if not t.is_contiguous() or t.numel() != numel or (
-                    dtype == torch.float32 and t.data_ptr() % 16):
+            if not t.is_contiguous() or t.numel() != numel or \
+                    t.data_ptr() % 16:
                 raise ValueError(f"fused_adam: tensor {i} {name} must be "
-                                 "contiguous and of its parameter's size "
-                                 "(16-byte aligned in f32)")
-    consts = (float(beta1), float(1 - beta1), float(beta2),
-              float(1 - beta2), float(eps))
+                                 "contiguous, of its parameter's size and "
+                                 "16-byte aligned")
+    consts = (float(beta1), one_minus(beta1), float(beta2),
+              one_minus(beta2), float(eps))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         for s in range(0, n, _MAX_TENSORS):

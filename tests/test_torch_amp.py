@@ -13,9 +13,12 @@ CPU.
   the halving after ``decr_every_n_nan_or_inf`` bad steps, the growth after
   ``incr_every_n_steps`` good ones, parameters 1e-6.
 - The dygraph loop of the card's eager-gpt phase at ``gpt_tiny``:
-  ``decorate`` O2, ``auto_cast`` O2, ``GradScaler().minimize`` and
+  ``decorate`` O2, ``auto_cast`` O2, ``GradScaler`` and
   ``AdamW(use_fused=True)``, 2 steps against the reference with its fused
-  Adam in interpret mode: every bf16 parameter within 1 bf16 ulp.
+  Adam in interpret mode, at beta2 = 0.999 (lr_t 0 in bf16) and 0.99: the
+  gradients within 2e-2 of their norm; stepped on the reference's
+  gradients from its state, every bf16 parameter and moment within 1 bf16
+  ulp (plus 1 f32 ulp of the sum's largest input, for XLA's multiply-add).
 - The reproduced reference semantics: ``decorate``'s f32 master copy
   that nothing reads, ``minimize``'s own backward, 2^15 loss scaling in
   bf16.
@@ -41,7 +44,8 @@ import paddle_tpu_torch.nn as tnn
 import paddle_tpu_torch.nn.functional as TF
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.models import (GPT, gpt_loss, gpt_tiny,
-                                     load_named_buffers, load_named_params)
+                                     load_named_buffers, load_named_params,
+                                     state_dict_from_jax)
 from paddle_tpu_torch.vision.models import mobilenet_v2
 
 TINY = dict(num_layers=2, hidden_size=128, num_heads=2, max_seq_len=128,
@@ -352,44 +356,109 @@ def _bf16_ulp(x):
     return np.ldexp(np.float32(1), e - 8)
 
 
-def test_eager_decorate_o2_fused_adamw_gpt_tiny():
+def _f32_ulp(x):
+    _, e = np.frexp(np.abs(x).astype(np.float32))
+    return np.ldexp(np.float32(1), e - 24)
+
+
+def _assert_within_bf16_ulp(name, got, want, terms):
+    """Within 1 bf16 ulp of the larger side, plus 1 f32 ulp of ``terms``
+    (the largest input of the sum): the reference's kernel in interpret
+    mode runs on XLA's CPU backend, which fuses b1 m + (1 - b1) g into a
+    multiply-add, where the port rounds each product as the card's kernel
+    does; the two differ by more than a bf16 ulp only where the sum
+    cancels."""
+    got = got.detach().float().numpy()
+    want = np.asarray(want).astype(np.float32)
+    tol = _bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + _f32_ulp(terms)
+    bad = np.abs(got - want) > tol
+    assert not bad.any(), (name, int(bad.sum()), float(
+        np.abs(got - want).max()))
+
+
+def _f32(t):
+    return np.asarray(t.numpy() if hasattr(t, "numpy") else t).astype(
+        np.float32)
+
+
+# beta2 = 0.999 rounds to 1.0 in bf16, so the reference's lr_t is 0 and
+# the parameters stay put (reproduced); 0.99 rounds to 0.98828125 and they
+# move
+@pytest.mark.parametrize("beta2", [0.999, 0.99])
+def test_eager_decorate_o2_fused_adamw_gpt_tiny(beta2):
     """The card's eager-gpt loop at gpt_tiny, 2 steps: bf16 parameters and
     state, the bf16 fused Adam (plain version here; the reference's Pallas
-    kernel in interpret mode), every parameter within 1 bf16 ulp."""
+    kernel in interpret mode).  Each package's own scaled gradients agree
+    within 2e-2 of their norm (two bf16 backwards).  The port then steps on
+    the reference's gradients from the reference's parameters and state
+    (loaded with ``state_dict_from_jax`` before the second step), so that
+    every parameter, moment1 and moment2 is held to the reference's update
+    within 1 bf16 ulp (see ``_assert_within_bf16_ulp``)."""
     ref, port = _gpt_pair()
-    jo = jopt.AdamW(1e-3, parameters=ref.parameters(), use_fused=True)
+    init = {n: getattr(port, n).detach().clone() for n in jgpt._PARAM_ORDER}
+    jo = jopt.AdamW(1e-3, beta2=beta2, parameters=ref.parameters(),
+                    use_fused=True)
     ref, jo = jamp.decorate(ref, jo, level="O2")
     jsc = jamp.GradScaler()
-    to = topt.AdamW(1e-3, parameters=list(port.parameters()), use_fused=True)
+    to = topt.AdamW(1e-3, beta2=beta2, parameters=list(port.parameters()),
+                    use_fused=True)
     port, to = tamp.decorate(port, to, level="O2")
     tsc = tamp.GradScaler()
     assert {p.dtype for p in port.parameters()} == {torch.bfloat16}
+    moved = 0
     for step in range(2):
+        jsd = {k: v for k, v in jo.state_dict().items()}
+        prev = {n: _f32(ref._parameters[n]._data) for n in jgpt._PARAM_ORDER}
+        if step:
+            with torch.no_grad():
+                for n in jgpt._PARAM_ORDER:
+                    getattr(port, n).copy_(torch.from_numpy(prev[n]))
+            to.set_state_dict(state_dict_from_jax(
+                {k: (v.numpy() if hasattr(v, "numpy") else v)
+                 for k, v in jsd.items()}))
         ids = _ids(10 + step)
         with jamp.auto_cast(level="O2"):
             jl = jgpt.gpt_loss(ref, paddle.to_tensor(ids),
                                paddle.to_tensor(ids))
-        jsc.minimize(jo, jsc.scale(jl))
+        jsc.scale(jl).backward()
+        jg = {n: _f32(ref._parameters[n]._grad._data)
+              for n in jgpt._PARAM_ORDER}
+        jsc.step(jo)
+        jsc.update()
         jo.clear_grad()
         with tamp.auto_cast(level="O2"):
             tl = gpt_loss(port, ids, ids)
-        tsc.minimize(to, tsc.scale(tl))
+        tsc.scale(tl).backward()
+        for n in jgpt._PARAM_ORDER:
+            p = getattr(port, n)
+            assert p.grad.dtype == torch.bfloat16
+            got = p.grad.float().numpy()
+            assert np.linalg.norm(got - jg[n]) <= 2e-2 * np.linalg.norm(
+                jg[n]), n
+            p.grad = torch.from_numpy(jg[n]).bfloat16()
+        tsc.step(to)
+        tsc.update()
         to.clear_grad()
         assert abs(float(tl) - float(jl)) <= TOL_LOSS_BF16
+        sd, new = to.state_dict(), jo.state_dict()
+        for n in jgpt._PARAM_ORDER:
+            p = getattr(port, n)
+            assert p.dtype == torch.bfloat16
+            _assert_within_bf16_ulp(n, p, ref._parameters[n]._data, prev[n])
+            moved += int((p.detach() != init[n].bfloat16()).sum())
+            g = jg[n] / np.float32(2.0 ** 15)
+            for s, terms in (("moment1", g), ("moment2", g * g)):
+                key = f"gpt.{n}_{s}"
+                assert sd[key].dtype == torch.bfloat16
+                old = _f32(jsd[key]) if key in jsd else 0.0
+                _assert_within_bf16_ulp(key, sd[key], _f32(new[key]),
+                                        np.maximum(np.abs(old),
+                                                   np.abs(terms)))
     assert tsc._scale == jsc._scale == 2.0 ** 15
-    for n in jgpt._PARAM_ORDER:
-        got = getattr(port, n).detach().float().numpy()
-        want = np.asarray(ref._parameters[n]._data).astype(np.float32)
-        assert getattr(port, n).dtype == torch.bfloat16
-        ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
-        bad = np.abs(got - want) > ulp
-        assert not bad.any(), (n, int(bad.sum()), float(
-            np.abs(got - want).max()))
-    sd = to.state_dict()
-    assert sd["gpt.wte_moment1"].dtype == torch.bfloat16
+    assert (moved > 0) == (beta2 == 0.99), moved
     assert sd["gpt.wte_beta1_pow"].dtype == torch.bfloat16
-    assert float(sd["gpt.wte_beta1_pow"]) == float(
-        jo.state_dict()["gpt.wte_beta1_pow"].numpy().astype(np.float32))
+    for s in ("beta1_pow", "beta2_pow"):
+        assert float(sd[f"gpt.wte_{s}"]) == float(_f32(new[f"gpt.wte_{s}"]))
 
 
 def test_decorate_keeps_no_master_copy():

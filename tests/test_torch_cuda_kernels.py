@@ -15,7 +15,8 @@ error among the many small gradients from hiding behind the few large ones
 tests/test_torch_fused_ce.py show each limit flags a dropped tile, term or
 fragment).  The fused Adam kernel repeats its plain version's f32
 arithmetic: moments to 1e-6 relative, each parameter's move to 1e-3 of the
-move; its bf16 instantiation is bitwise its plain version.  The row quantizer is bitwise its plain codec (the scale and the
+move; its bf16 instantiation is bitwise its plain version.  The row
+quantizer is bitwise its plain codec (the scale and the
 finite entries of rows holding NaN or inf).  The last tests drive, on the
 card, shapes and dtypes that the dispatch rules admit or send elsewhere:
 each must run.
@@ -553,28 +554,33 @@ def _adam_bf16_check(p, g, m, v, lr_t):
 
 # the bf16 instantiation: bitwise its plain version (the same f32 operations
 # in the same order, rounded to nearest even on the store) at whole chunks,
-# tails that are no multiple of 8, starts off a 16-byte boundary, and more
-# tensors than one launch takes
-@pytest.mark.parametrize("sizes,offset", [
-    ([4096, 128, 8, 1], 0), ([100003, 2048 * 3 + 5, 13], 0),
-    ([100003, 2048 * 3 + 5, 13, 1], 1), ([4099, 77], 3), ([7] * 40, 5)])
-def test_adam_bf16_kernel_is_bitwise_plain(gen, sizes, offset):
-    p, g, m, v = _adam_bf16_inputs(gen, sizes, offset)
+# tails that are no multiple of 8, and more tensors than one launch takes
+@pytest.mark.parametrize("sizes", [
+    [4096, 128, 8, 1], [100003, 2048 * 3 + 5, 13],
+    [100003, 2048 * 3 + 5, 13, 1], [4099, 77], [7] * 40])
+def test_adam_bf16_kernel_is_bitwise_plain(gen, sizes):
+    p, g, m, v = _adam_bf16_inputs(gen, sizes)
     lr_t = torch.rand(len(sizes), generator=gen, device="cuda") * 1e-3
     _adam_bf16_check(p, g, m, v, lr_t)
 
 
-def test_adam_bf16_kernel_takes_differently_aligned_tensors(gen):
+def test_adam_bf16_kernel_refuses_a_start_off_16_bytes(gen):
     """p starting 2 bytes off a boundary, m 6 bytes off, g and v on it:
-    the tensor goes element by element, still bitwise."""
+    refused, as the f32 instantiation refuses it (the optimizers' tensors
+    are allocations of their own, each on a boundary)."""
     p, _, _, _ = _adam_bf16_inputs(gen, [5000], 1)
     _, g, _, v = _adam_bf16_inputs(gen, [5000], 0)
     _, _, m, _ = _adam_bf16_inputs(gen, [5000], 3)
-    _adam_bf16_check(p, g, m, v, torch.full((1,), 1e-3, device="cuda"))
+    before = fused_adam.launches_bf16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_adam._launch(p, g, m, v, torch.full((1,), 1e-3, device="cuda"),
+                           torch.tensor(1e-5, device="cuda"), 0.9, 0.999,
+                           1e-8)
+    assert fused_adam.launches_bf16 == before
 
 
 def test_adam_bf16_kernel_writes_into_its_inputs(gen):
-    p, g, m, v = _adam_bf16_inputs(gen, [3000, 64], 1)
+    p, g, m, v = _adam_bf16_inputs(gen, [3000, 64])
     args = (torch.full((2,), 1e-3, device="cuda"),
             torch.tensor(1e-5, device="cuda"), 0.9, 0.999, 1e-8)
     fresh = fused_adam._launch(p, g, m, v, *args)

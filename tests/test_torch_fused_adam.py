@@ -5,8 +5,16 @@ multi-tensor version over all of them at once; then the optimizers'
 ``use_fused=True`` update against the reference's.
 
 The same numpy draws feed both.  Tolerance 1e-6 (absolute and relative):
-the rules are the same f32 arithmetic, except that the Pallas kernel rounds
-1 - beta in f32 where the plain versions take it from a Python float.
+the rules are the same f32 arithmetic, except that ``xla_reference``
+rounds 1 - beta from a Python float where the Pallas kernel and the port
+round it in f32, and the kernel squares g before it scales it.  In bf16
+storage (``decorate(level="O2")``'s parameters and moments) every output
+of a step from the same inputs is within 1 bf16 ulp of the Pallas
+kernel's, plus 1 f32 ulp of the sum's largest input: in interpret mode
+XLA's CPU backend fuses b1 m + (1 - b1) g into a multiply-add, where the
+port rounds each product as its CUDA kernel does, and the two differ by
+more than a bf16 ulp only where the sum cancels.  At most 1 % of those
+values may differ at all (0.3 % do).
 """
 import numpy as np
 import pytest
@@ -76,6 +84,56 @@ def test_plain_matches_reference_over_steps(shapes):
                 assert g.dtype == torch.float32
                 np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                            atol=TOL, rtol=TOL, err_msg=name)
+
+
+def _ulp(x, bits):
+    _, e = np.frexp(np.abs(x).astype(np.float32))
+    return np.ldexp(np.float32(1), e - bits)
+
+
+# beta2 = 0.99 (0.98828125 in bf16) so that lr_t is above 0, as under
+# decorate O2 with the default 0.999 it is not
+@pytest.mark.parametrize("shapes", [[(256, 128), (128,)],
+                                    [(1000,), (3, 7, 5), (129, 3)]])
+def test_plain_bf16_matches_reference_kernel(shapes):
+    b2 = 0.99
+    bf = jnp.bfloat16
+    ps = [jnp.asarray(p * 0.02, bf) for p in _draw(shapes, 0)]
+    ms = [jnp.zeros(s, bf) for s in shapes]
+    vs = [jnp.zeros(s, bf) for s in shapes]
+    wd_lr = np.float32(LR) * np.float32(COEFF)
+    moved = 0
+    for step in range(1, STEPS + 1):
+        gs = [jnp.asarray(g * 1e-2, bf) for g in _draw(shapes, step)]
+        b1p, b2p = np.float32(B1) ** step, np.float32(b2) ** step
+        lr_t = np.float32(LR) * np.sqrt(np.float32(1) - b2p) / (
+            np.float32(1) - b1p)
+        want = [jfadam.fused_adam_update(p, g, m, v, lr_t=lr_t, beta1=B1,
+                                         beta2=b2, eps=EPS, wd_lr=wd_lr)
+                for p, g, m, v in zip(ps, gs, ms, vs)]
+        port = [[torch.from_numpy(np.asarray(a).astype(np.float32))
+                 .bfloat16() for a in x] for x in (ps, gs, ms, vs)]
+        got = tfadam.fused_adam(*port, torch.full((len(shapes),),
+                                                  float(lr_t)),
+                                torch.tensor(wd_lr), B1, b2, EPS)
+        for i, w in enumerate(want):
+            f32 = [np.asarray(x[i]).astype(np.float32)
+                   for x in (ps, gs, ms, vs)]
+            terms = (np.abs(f32[0]), np.maximum(np.abs(f32[2]),
+                                                np.abs(f32[1])),
+                     np.maximum(f32[3], f32[1] * f32[1]))
+            for name, a, b, t in zip("pmv", (x[i] for x in got), w, terms):
+                assert a.dtype == torch.bfloat16 and b.dtype == bf
+                a = a.float().numpy()
+                b = np.asarray(b).astype(np.float32)
+                tol = _ulp(np.maximum(np.abs(a), np.abs(b)), 8) + _ulp(t, 24)
+                assert (np.abs(a - b) <= tol).all(), (step, i, name)
+                # and bitwise equal but for a few: a store that truncates
+                # instead of rounding to nearest would miss half
+                assert (a != b).mean() <= 1e-2, (step, i, name)
+            moved += int((np.asarray(w[0]) != np.asarray(ps[i])).sum())
+        ps, ms, vs = (list(x) for x in zip(*want))
+    assert moved > 0
 
 
 def test_out_writes_into_the_given_storage():

@@ -6,7 +6,8 @@ the reference on the CPU.
   the ``state_dict`` key set of named parameters, each after eager steps
   of both packages from the same weights (1e-6 absolute and relative);
   ``_to_attr``'s forms (None, False, an initializer, a name); every layer
-  of the slice takes an attr.
+  of the slice takes an attr; ``TransformerEncoder``'s clones keep their
+  template's attrs and names, and a ``Parameter`` pickles with them.
 - Initializers: ``Constant``, ``Assign`` and ``Dirac`` exactly; the random
   ones by the reference's fans, bounds and moments (the draws are
   torch's); ``Orthogonal`` by QᵀQ = I (1e-5).
@@ -14,6 +15,7 @@ the reference on the CPU.
   reference's functional path decays it with AdamW, the port's step
   leaves it (``test_frozen_parameter_under_trainstep``).
 """
+import io
 import math
 
 import numpy as np
@@ -236,6 +238,56 @@ def test_every_layer_takes_an_attr():
 
 
 # -- initializers -------------------------------------------------------------
+
+def _carried(p):
+    reg = p.regularizer
+    return (p.trainable, dict(p.optimize_attr), bool(p.is_bias),
+            None if reg is None else (type(reg).__name__, float(reg.coeff)))
+
+
+def test_transformer_encoder_clones_keep_param_carried():
+    """TransformerEncoder deep-copies its template layer: every clone
+    keeps each parameter's rate scale, regularizer, is_bias and trainable,
+    and the clones share the template's names, as in the reference."""
+    jw = paddle.ParamAttr(learning_rate=0.5, regularizer=jreg.L2Decay(0.1))
+    tw = tnn.ParamAttr(learning_rate=0.5, regularizer=treg.L2Decay(0.1))
+    jlayer = jnn.TransformerEncoderLayer(16, 2, 32, weight_attr=jw)
+    tlayer = tnn.TransformerEncoderLayer(16, 2, 32, weight_attr=tw,
+                                         device="cpu")
+    jenc = jnn.TransformerEncoder(jlayer, 2)
+    tenc = tnn.TransformerEncoder(tlayer, 2)
+    jp, tp = dict(jenc.named_parameters()), dict(tenc.named_parameters())
+    assert set(jp) == set(tp)
+    decayed = 0
+    for n in jp:
+        assert _carried(tp[n]) == _carried(jp[n]), n
+        decayed += tp[n].regularizer is not None
+        # layers.0.x and layers.1.x carry the template's x's name
+        rest = n.split(".", 2)[2]
+        for pkg, layer in (("ref", jlayer), ("port", tlayer)):
+            tmpl = dict(layer.named_parameters())[rest].name
+            assert (jp if pkg == "ref" else tp)[n].name == tmpl, (pkg, n)
+    assert decayed == 2 * 6        # q, k, v, out, linear1, linear2 weights
+    # layer 0 is the template; layer 1 a clone with fresh storage, drawn
+    # anew, not tied to it
+    assert tenc.layers[0] is tlayer
+    w1 = tenc.layers[1].linear1.weight
+    assert w1.data_ptr() != tlayer.linear1.weight.data_ptr()
+    assert not torch.equal(w1, tlayer.linear1.weight)
+
+
+def test_parameter_pickles_with_its_carried():
+    p = pt.framework.parameter.Parameter(
+        torch.ones(3), trainable=False, name="w",
+        regularizer=treg.L1Decay(0.25), learning_rate=0.5, is_bias=True)
+    buf = io.BytesIO()
+    torch.save({"p": p}, buf)
+    buf.seek(0)
+    q = torch.load(buf, weights_only=False)["p"]
+    assert type(q) is type(p) and q.name == "w"
+    assert _carried(q) == _carried(p) and not q.requires_grad
+    assert torch.equal(q, p)
+
 
 def test_calculate_gain_and_fans_match():
     for nl in ("sigmoid", "linear", "conv2d", "tanh", "relu", "selu"):

@@ -159,8 +159,10 @@ def test_dropout_draws_from_its_generator():
 
 
 def test_param_attr_is_not_ported():
-    # ParamAttr is ported now: a str names the weight, anything else that
-    # is not an attr or an initializer raises as the reference's _to_attr
+    """The name dates from before ParamAttr was ported; the test now
+    checks the ported form: a str names the weight, and anything that is
+    not an attr, an initializer, a name or False raises, as the
+    reference's _to_attr does."""
     assert tnn.Linear(4, 4, weight_attr="w", device="cpu").weight.name == "w"
     with pytest.raises(TypeError, match="ParamAttr"):
         tnn.Linear(4, 4, weight_attr=object(), device="cpu")
