@@ -207,6 +207,43 @@ Phases, in order; any failure ends the script with a non-zero exit:
              #8 in f32 and in bf16 (beside torch.optim.AdamW(fused=True)
              over bf16 parameters); #9 on GPT-2 345M's gradient; tokens/s
              of the forward.
+24. transforms-resnet50 — bench.py's file-fed ResNet-50 recipe without its
+             ingest plane: 512 uint8 images of 256x256x3 from
+             default_rng(0) through vision.transforms' Compose([
+             RandomResizedCrop(224), RandomHorizontalFlip()]) drawing from
+             random.Random(0), on the host batch by batch (the resize route,
+             PIL or numpy, logged), collated as _filefed_collate (/255,
+             ImageNet mean and std, NCHW), moved to the card and fed to the
+             resnet50-train phase's TrainStep (O2 bf16, Momentum(0.1, 0.9))
+             at B=128: one warm-up, then 3 steps.  Host ms a batch of the
+             transforms, the collate and the copy, step ms, the input's
+             share of the loop's wall; finite losses, every parameter moved,
+             the first batch's transforms bitwise equal when run again
+             from the seed.
+25. dcgan — DCGAN (Radford et al., arXiv:1511.06434) of the port's
+             public layers (Conv2DTranspose, Conv2D, BatchNorm2D, ReLU,
+             LeakyReLU, Tanh, BCEWithLogitsLoss; N(0, 0.02) weights by
+             ParamAttr), trained by the eager loop with Adam(2e-4,
+             beta1=0.5) for each network, a D step on real and fake then a
+             G step: at ngf = ndf = 16, B=8 card against CPU in IEEE f32
+             (both losses, every gradient, one step of each optimizer from
+             the CPU's gradients); then at ngf = ndf = 128, B=128, 64x64,
+             f32: 2 warm-ups and 10 timed iterations, ms an iteration,
+             images/s, peak bytes, finite losses, every parameter of both
+             networks moved.
+26. nn-breadth — the new functionals on the card against the CPU in f32
+             at shapes their users run, each with its forward + backward ms:
+             max_pool2d(3, 2, 1, return_mask=True) -> max_unpool2d on
+             ResNet's stem output (32, 64, 112, 112) ReLU'd (mask and pooled
+             values bitwise, the tie-splitting gradient), interpolate
+             bilinear x2 up and down and bicubic x2 up at (8, 256, 64, 64),
+             ctc_loss at DeepSpeech2's 29 classes (B=32, T=400, labels up to
+             100), grid_sample at (8, 64, 56, 56), linear_chain_crf and
+             viterbi_decode at a BiLSTM-CRF's B=64, T=50, 9 tags (paths
+             bitwise), unfold / fold at (8, 64, 56, 56) k3 and pixel_shuffle
+             at (8, 256, 56, 56).  No hand-written kernel lies on phases
+             24-26; they print the card's name and power limit beside their
+             numbers.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -371,6 +408,30 @@ TOL_LOSS_BF16_REL = 3.2e-2     # a loss through bf16 layers, card vs CPU
 # eager-small: a 32 -> 64 -> 10 tanh MLP whose parameters carry ParamAttrs
 # (a rate scale, an L1 and an L2 regulariser, a frozen bias), B=16, 3 steps
 MLP_IN, MLP_HID, MLP_OUT, MLP_B, MLP_STEPS = 32, 64, 10, 16, 3
+# transforms-resnet50: bench.py's file-fed recipe (bench_resnet50_filefed)
+# without its ingest plane: 512 images of HW + 32 = 256 a side, one warm-up
+# and 3 steps of B=128; _filefed_collate's mean and std
+TF_IMAGES, TF_HW, TF_STEPS = 512, 256, 3
+FF_MEAN = (0.485, 0.456, 0.406)
+FF_STD = (0.229, 0.224, 0.225)
+# dcgan: Radford, Metz and Chintala (arXiv:1511.06434): z of 100,
+# ngf = ndf = 128 (1024 channels at 4x4), 64x64, Adam(2e-4, beta1=0.5),
+# B=128; the card-vs-CPU check at ngf = ndf = 16, B=8
+DCGAN_Z, DCGAN_WIDTH, DCGAN_B, DCGAN_LR = 100, 128, 128, 2e-4
+DCGAN_SMALL, DCGAN_SMALL_B = 16, 8
+DCGAN_WARM, DCGAN_ITERS = 2, 10
+# nn-breadth: DeepSpeech2's character CTC (29 classes, B=32, T=400,
+# labels up to 100) and a BiLSTM-CRF's tagging (B=64, T=50, CoNLL-03's 9
+# tags); f32 values card vs CPU by scaled_err (summation order only)
+CTC_B, CTC_T, CTC_C, CTC_S = 32, 400, 29, 100
+CRF_B, CRF_T, CRF_TAGS = 64, 50, 9
+TOL_BREADTH = 1e-5
+# CTC's gradient card vs CPU at T=400: the log-domain alphas and betas
+# reach about -1400, where one f32 ulp is 1.2e-4 absolute, and the gradient
+# is exp(alpha + beta - logZ) - softmax, so each ulp the two devices' exp /
+# log1p differ by moves it by 1.2e-4 of itself (1.24e-4 read on an H100 80GB
+# HBM3 at 700 W); the limit allows 8 such ulps
+TOL_CTC_GRAD = 1e-3
 
 
 def log(msg):
@@ -2171,6 +2232,40 @@ def zero_phase(g, cfg, ids_t, fa):
                 "zero_ring_envelope_excess": ring_ex}}
 
 
+def dcgan_models(nn, ngf, ndf, device="cuda"):
+    """DCGAN (Radford, Metz and Chintala, arXiv:1511.06434, section 3 and
+    figure 1) of public layers (the JAX package has no GAN class, so
+    neither has the port): G projects z (B, 100, 1, 1) to 4 x 4 by
+    Conv2DTranspose(100, 8 ngf, 4, 1, 0), then Conv2DTranspose(k4, s2, p1)
+    to 4 ngf, 2 ngf, ngf and 3 channels, BatchNorm2D + ReLU after each but
+    the last, Tanh after it; D mirrors it with Conv2D(k4, s2, p1) 3 -> ndf
+    -> 8 ndf, LeakyReLU(0.2) after each and BatchNorm2D after all but the
+    first, then Conv2D(8 ndf, 1, 4).  Weights N(0, 0.02) by ParamAttr;
+    no bias where a BatchNorm follows.  tests/torch_dcgan_common.py builds
+    the same in both packages."""
+    def attr():
+        return nn.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+    widths = [8 * ngf, 4 * ngf, 2 * ngf, ngf]
+    g = [nn.Conv2DTranspose(DCGAN_Z, widths[0], 4, 1, 0, weight_attr=attr(),
+                            bias_attr=False, device=device),
+         nn.BatchNorm2D(widths[0], device=device), nn.ReLU()]
+    for cin, cout in zip(widths, widths[1:]):
+        g += [nn.Conv2DTranspose(cin, cout, 4, 2, 1, weight_attr=attr(),
+                                 bias_attr=False, device=device),
+              nn.BatchNorm2D(cout, device=device), nn.ReLU()]
+    g += [nn.Conv2DTranspose(ngf, 3, 4, 2, 1, weight_attr=attr(),
+                             device=device), nn.Tanh()]
+    widths = [ndf, 2 * ndf, 4 * ndf, 8 * ndf]
+    d = [nn.Conv2D(3, ndf, 4, 2, 1, weight_attr=attr(), device=device),
+         nn.LeakyReLU(0.2)]
+    for cin, cout in zip(widths, widths[1:]):
+        d += [nn.Conv2D(cin, cout, 4, 2, 1, weight_attr=attr(),
+                        bias_attr=False, device=device),
+              nn.BatchNorm2D(cout, device=device), nn.LeakyReLU(0.2)]
+    d.append(nn.Conv2D(8 * ndf, 1, 4, weight_attr=attr(), device=device))
+    return nn.Sequential(*g), nn.Sequential(*d)
+
+
 def seq2seq_model(nn, vocab, d_model, nhead, layers, ffn, max_len,
                   dropout=0.0, device="cuda", generator=None):
     """The seq2seq composition of public layers (the JAX package has no
@@ -3249,6 +3344,350 @@ def eager_vision_vs_cpu(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt,
     return row
 
 
+def dcgan_batch(b, device, seed=0):
+    """Seeded noise images in [-1, 1] (the point is the path, not the
+    data), z ~ N(0, 1), and the real / fake labels."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    real = r.uniform(-1, 1, (b, 3, 64, 64)).astype(np.float32)
+    z = r.standard_normal((b, DCGAN_Z, 1, 1)).astype(np.float32)
+    ones = torch.ones(b, 1, 1, 1, device=device)
+    return (torch.as_tensor(real, device=device),
+            torch.as_tensor(z, device=device), ones, torch.zeros_like(ones))
+
+
+def dcgan_iteration(g, d, opt_g, opt_d, loss_fn, real, z, ones, zeros,
+                    between=None):
+    """One iteration of the eager loop: fake = G(z); a D step on real and
+    (detached) fake; a G step on D's verdict on the same fake.
+    ``between(stage)`` runs after each backward ("d", "g"), before its
+    step.  Returns the two losses (tensors)."""
+    fake = g(z)
+    d_loss = loss_fn(d(real), ones) + loss_fn(d(fake.detach()), zeros)
+    d_loss.backward()
+    if between:
+        between("d")
+    opt_d.step()
+    opt_d.clear_grad()
+    g_loss = loss_fn(d(fake), ones)
+    g_loss.backward()
+    if between:
+        between("g")
+    opt_g.step()
+    opt_g.clear_grad()
+    opt_d.clear_grad()
+    return d_loss, g_loss
+
+
+def dcgan_phase(nn, topt, power):
+    """dcgan: the small model (ngf = ndf = DCGAN_SMALL, B=DCGAN_SMALL_B)
+    card against CPU in IEEE f32: both losses, every gradient (grad_err's
+    measure), and one Adam step of each network from the CPU's gradients
+    (the moves by max |got - want| / (max |want| + lr)); then the published
+    widths (ngf = ndf = 128) at B=DCGAN_B, 64 x 64, f32: DCGAN_WARM
+    warm-ups and DCGAN_ITERS timed iterations, ms an iteration, images/s,
+    peak bytes; losses finite and every parameter of both moved."""
+    import copy
+
+    import torch
+    torch.manual_seed(0)
+    cpu = dcgan_models(nn, DCGAN_SMALL, DCGAN_SMALL, device="cpu")
+    gpu = copy.deepcopy(cpu)
+    for m in gpu:
+        m.to("cuda")
+    bce = nn.BCEWithLogitsLoss()
+
+    def adam(m):
+        return topt.Adam(learning_rate=DCGAN_LR, beta1=0.5,
+                         parameters=m.parameters())
+    runs = {}
+    for name, (gm, dm) in (("cpu", cpu), ("cuda", gpu)):
+        before = {f"{w}.{n}": p.detach().clone()
+                  for w, m in (("g", gm), ("d", dm))
+                  for n, p in m.named_parameters()}
+        grads = {}
+
+        def between(stage, gm=gm, dm=dm, grads=grads, name=name):
+            m = dm if stage == "d" else gm
+            for n, p in m.named_parameters():
+                key = f"{stage}.{n}"
+                grads[key] = p.grad.detach().clone()
+                if name == "cuda":    # step from the CPU's gradients
+                    p.grad.copy_(runs["cpu"]["grads"][key])
+        losses = dcgan_iteration(gm, dm, adam(gm), adam(dm), bce,
+                                 *dcgan_batch(DCGAN_SMALL_B, name),
+                                 between=between)
+        runs[name] = {
+            "losses": [float(v.detach()) for v in losses], "grads": grads,
+            "moves": {f"{w}.{n}": p.detach() - before[f"{w}.{n}"]
+                      for w, m in (("g", gm), ("d", dm))
+                      for n, p in m.named_parameters()}}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["cuda"]["losses"], runs["cpu"]["losses"]))
+    grad_e = max(scaled_err(runs["cuda"]["grads"][k].cpu(), v)
+                 for k, v in runs["cpu"]["grads"].items())
+    move_e = max(float((runs["cuda"]["moves"][k].cpu() - v).abs().max()
+                       / (v.abs().max() + DCGAN_LR))
+                 for k, v in runs["cpu"]["moves"].items())
+    log(f"dcgan small (ngf = ndf = {DCGAN_SMALL}, B={DCGAN_SMALL_B}, 64x64, "
+        f"IEEE f32) card vs CPU: losses (D, G) {runs['cuda']['losses']} vs "
+        f"{runs['cpu']['losses']}, relative err {loss_err:.3g}; gradients "
+        f"{len(runs['cpu']['grads'])} tensors, max scaled err {grad_e:.3g}; "
+        f"one Adam step of each from the CPU's gradients, max move err "
+        f"{move_e:.3g} (tol {TOL_F32:g})")
+    if max(loss_err, grad_e, move_e) > TOL_F32:
+        fail("the small DCGAN on the card disagrees with the CPU")
+    del cpu, gpu, runs
+
+    torch.manual_seed(0)
+    gm, dm = dcgan_models(nn, DCGAN_WIDTH, DCGAN_WIDTH)
+    opt_g, opt_d = adam(gm), adam(dm)
+    n_g = sum(p.numel() for p in gm.parameters())
+    n_d = sum(p.numel() for p in dm.parameters())
+    p0 = {f"{w}.{n}": p.detach().clone() for w, m in (("g", gm), ("d", dm))
+          for n, p in m.named_parameters()}
+    batch = dcgan_batch(DCGAN_B, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses = [dcgan_iteration(gm, dm, opt_g, opt_d, bce, *batch)
+              for _ in range(DCGAN_WARM)]
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(DCGAN_ITERS):
+        losses.append(dcgan_iteration(gm, dm, opt_g, opt_d, bce, *batch))
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / DCGAN_ITERS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [[float(v.detach()) for v in pair] for pair in losses]
+    log(f"dcgan: ngf = ndf = {DCGAN_WIDTH} (G {n_g}, D {n_d} parameters), "
+        f"B={DCGAN_B} at 64x64, f32, Adam({DCGAN_LR}, beta1=0.5) each, "
+        f"{DCGAN_WARM} warm-ups then {DCGAN_ITERS} iterations: "
+        f"{ms:.3f} ms an iteration (CUDA events), "
+        f"{DCGAN_B / ms * 1e3:.1f} images/s, max_memory_allocated {peak} "
+        f"bytes [{power}]; (D, G) losses first {losses[0]}, last "
+        f"{losses[-1]}")
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail("a DCGAN loss is not finite")
+    for w, m in (("g", gm), ("d", dm)):
+        for n, p in m.named_parameters():
+            if torch.equal(p.detach(), p0[f"{w}.{n}"]):
+                fail(f"DCGAN parameter {w}.{n} did not move")
+    del gm, dm, opt_g, opt_d, p0, batch
+    torch.cuda.empty_cache()
+    return {"dcgan_iteration_ms": ms, "dcgan_images_per_s":
+            DCGAN_B / ms * 1e3, "dcgan_peak_bytes": peak,
+            "dcgan_small_errs": [loss_err, grad_e, move_e],
+            "dcgan_first_last_losses": [losses[0], losses[-1]]}
+
+
+def filefed_collate(imgs, labels):
+    """bench.py's _filefed_collate: uint8 HWC images -> /255, the ImageNet
+    mean and std, NCHW float32; int64 labels."""
+    import numpy as np
+    x = np.stack(imgs).astype(np.float32) / 255.0
+    x = (x - np.asarray(FF_MEAN, np.float32)) / np.asarray(FF_STD,
+                                                           np.float32)
+    return (np.ascontiguousarray(x.transpose(0, 3, 1, 2)),
+            np.asarray(labels, np.int64))
+
+
+def transforms_resnet50(T, resnet50, TrainStep, Momentum, power):
+    """transforms-resnet50: bench.py's file-fed ResNet-50 recipe without
+    its ingest plane.  TF_IMAGES uint8 images of TF_HW x TF_HW x 3 from
+    default_rng(0) go through Compose([RandomResizedCrop(224),
+    RandomHorizontalFlip()]) drawing from random.Random(0), batch by batch
+    on the host in the loop (no worker, no prefetch: the card waits while
+    the host prepares), collated as _filefed_collate, moved to the card and
+    fed to ResNet-50's TrainStep (O2 bf16, Momentum(0.1, 0.9)) at
+    B=VISION_B: one warm-up, then TF_STEPS steps.  The host ms of the
+    transforms and the collate a batch, the step ms, the share of the loop's
+    wall spent on input; finite losses, every parameter moved, the first
+    batch's transforms bitwise equal when run again from the same seed."""
+    import random
+
+    import numpy as np
+    import torch
+    r = np.random.default_rng(0)
+    images = r.integers(0, 256, (TF_IMAGES, TF_HW, TF_HW, 3), dtype=np.uint8)
+    labels = r.integers(0, 1000, TF_IMAGES)
+
+    def pipeline(seed):
+        g = random.Random(seed)
+        return T.Compose([T.RandomResizedCrop(VISION_HW, generator=g),
+                          T.RandomHorizontalFlip(generator=g)])
+    aug = pipeline(0)
+    model = resnet50(num_classes=1000)
+    step = TrainStep(model, vision_loss, Momentum(learning_rate=0.1,
+                                                  momentum=0.9),
+                     amp_level="O2", amp_dtype="bfloat16")
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    used, rows = [], []
+    for i in range(1 + TF_STEPS):
+        lo = i * VISION_B
+        t0 = time.perf_counter()
+        crops = [aug(im) for im in images[lo:lo + VISION_B]]
+        t1 = time.perf_counter()
+        x, y = filefed_collate(crops, labels[lo:lo + VISION_B])
+        t2 = time.perf_counter()
+        xt = torch.as_tensor(x).to("cuda")
+        yt = torch.as_tensor(y).to("cuda")
+        t3 = time.perf_counter()
+        loss = step(xt, yt)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        used.append(x)
+        rows.append({"transforms_ms": (t1 - t0) * 1e3,
+                     "collate_ms": (t2 - t1) * 1e3,
+                     "to_card_ms": (t3 - t2) * 1e3,
+                     "step_ms": (t4 - t3) * 1e3, "loss": float(loss)})
+    timed = rows[1:]
+    mean = {k: sum(r[k] for r in timed) / TF_STEPS for k in timed[0]
+            if k != "loss"}
+    wall = sum(mean.values())
+    wait = (mean["transforms_ms"] + mean["collate_ms"]
+            + mean["to_card_ms"]) / wall
+    again = pipeline(0)
+    same = np.array_equal(filefed_collate(
+        [again(im) for im in images[:VISION_B]], labels[:VISION_B])[0],
+        used[0])
+    log(f"transforms-resnet50: {TF_IMAGES} uint8 images {TF_HW}x{TF_HW}x3, "
+        f"RandomResizedCrop({VISION_HW}) + RandomHorizontalFlip from "
+        f"random.Random(0), resize route {T.resize_route()}; B={VISION_B}, "
+        f"resnet50 TrainStep O2 bf16, Momentum(0.1, 0.9), one warm-up then "
+        f"{TF_STEPS} steps: host transforms {mean['transforms_ms']:.2f} ms, "
+        f"collate {mean['collate_ms']:.2f} ms, to the card "
+        f"{mean['to_card_ms']:.2f} ms a batch; step "
+        f"{mean['step_ms']:.3f} ms (host clock to synchronize); input "
+        f"{wait:.3f} of the loop's wall; "
+        f"{VISION_B / wall * 1e3:.1f} samples/s end to end [{power}]; "
+        f"losses {[r['loss'] for r in rows]}; the first batch's transforms "
+        f"run again from the same seed bitwise equal: {same}")
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        fail("a transforms-resnet50 loss is not finite")
+    for n, p in model.named_parameters():
+        if torch.equal(p.detach(), p0[n]):
+            fail(f"transforms-resnet50 parameter {n} did not move")
+    if not same:
+        fail("the transforms are not bitwise repeatable from one seed")
+    del model, step, p0, used
+    torch.cuda.empty_cache()
+    return {"transforms_resnet50_" + k: v for k, v in mean.items()} | {
+        "transforms_resnet50_input_share": wait,
+        "transforms_resnet50_samples_per_s": VISION_B / wall * 1e3,
+        "transforms_resize_route": T.resize_route()}
+
+
+def breadth_run(fn, inputs, w=None):
+    """fn(*inputs): its outputs (detached), the gradients of sum(out[0] *
+    w) over the floating inputs (None where out[0] does not reach one) and
+    w, drawn from a seeded CPU generator when not given."""
+    import torch
+    ins = [t.requires_grad_() if t.is_floating_point() else t
+           for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if w is None:
+        w = torch.randn(outs[0].shape,
+                        generator=torch.Generator().manual_seed(1))
+    grads = torch.autograd.grad((outs[0] * w).sum(),
+                                [t for t in ins if t.requires_grad],
+                                allow_unused=True)
+    return [o.detach() for o in outs], grads, w
+
+
+def breadth_cases(F):
+    """nn-breadth's (name, shape, fn, inputs, gradient limit): each new
+    functional at a shape its users run, inputs from default_rng(0) on the
+    CPU."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(0)
+
+    def n(*shape):
+        return torch.as_tensor(r.standard_normal(shape).astype(np.float32))
+
+    def pool_unpool(x):
+        out, mask = F.max_pool2d(x, 3, 2, 1, return_mask=True)
+        return (F.max_unpool2d(out, mask, 3, 2, 1, output_size=[112, 112]),
+                mask, out.detach())
+    b, t, c, s = CTC_B, CTC_T, CTC_C, CTC_S
+    lab_len = r.integers(1, s + 1, b)
+    labels = np.zeros((b, s), np.int64)
+    for i, ln in enumerate(lab_len):
+        labels[i, :ln] = r.integers(1, c, ln)
+    in_len = r.integers(t // 2, t + 1, b)
+    k = CRF_TAGS
+    crf = [n(CRF_B, CRF_T, k), n(k + 2, k),
+           torch.as_tensor(r.integers(0, k, (CRF_B, CRF_T))),
+           torch.as_tensor(r.integers(CRF_T // 2, CRF_T + 1, CRF_B))]
+    up = dict(scale_factor=2, mode="bilinear")
+    cases = [
+        ("max_pool2d(3, 2, 1, return_mask) + max_unpool2d", "32x64x112x112"
+         " ReLU'd", pool_unpool, [torch.relu(n(32, 64, 112, 112))]),
+        ("interpolate bilinear x2 up", "8x256x64x64",
+         lambda x: F.interpolate(x, **up), [n(8, 256, 64, 64)]),
+        ("interpolate bilinear x2 down (antialiased)", "8x256x64x64",
+         lambda x: F.interpolate(x, scale_factor=0.5, mode="bilinear"),
+         [n(8, 256, 64, 64)]),
+        ("interpolate bicubic x2 up", "8x256x64x64",
+         lambda x: F.interpolate(x, scale_factor=2, mode="bicubic"),
+         [n(8, 256, 64, 64)]),
+        ("ctc_loss", f"{c} classes, B={b}, T={t}, labels up to {s}",
+         lambda lg, lb, il, ll: F.ctc_loss(lg, lb, il, ll, reduction="none"),
+         [n(t, b, c), torch.as_tensor(labels), torch.as_tensor(in_len),
+          torch.as_tensor(lab_len)], TOL_CTC_GRAD),
+        ("grid_sample", "8x64x56x56, grid 8x56x56x2",
+         lambda x, g: F.grid_sample(x, g),
+         [n(8, 64, 56, 56), torch.as_tensor(r.uniform(
+             -1.1, 1.1, (8, 56, 56, 2)).astype(np.float32))]),
+        ("linear_chain_crf", f"B={CRF_B}, T={CRF_T}, {k} tags",
+         F.linear_chain_crf, crf),
+        ("viterbi_decode", f"B={CRF_B}, T={CRF_T}, {k} tags",
+         lambda em, tr, ln: F.viterbi_decode(em, tr, ln),
+         [crf[0], crf[1], crf[3]]),
+        ("unfold", "8x64x56x56, k3 p1",
+         lambda x: F.unfold(x, 3, paddings=1), [n(8, 64, 56, 56)]),
+        ("fold", "8x576x3136 -> 56x56, k3 p1",
+         lambda x: F.fold(x, 56, 3, paddings=1), [n(8, 576, 56 * 56)]),
+        ("pixel_shuffle", "8x256x56x56, r=2",
+         lambda x: F.pixel_shuffle(x, 2), [n(8, 256, 56, 56)]),
+    ]
+    return [c if len(c) == 5 else c + (TOL_F32,) for c in cases]
+
+
+def nn_breadth(F, power):
+    """nn-breadth: each case of breadth_cases on the card against the CPU
+    in f32 (values by scaled_err within TOL_BREADTH, gradients within the
+    case's limit, every other output bitwise: the pool's mask and values,
+    the Viterbi paths), then its forward + backward ms on the card."""
+    import torch
+    rows = {}
+    for name, shape, fn, inputs, tol in breadth_cases(F):
+        cpu_out, cpu_grads, w = breadth_run(fn, inputs)
+        ins = [t.detach().to("cuda") for t in inputs]
+        wg = w.to("cuda")
+        outs, grads, _ = breadth_run(fn, ins, wg)
+        val = scaled_err(outs[0].cpu(), cpu_out[0])
+        exact = all(torch.equal(a.cpu(), b)
+                    for a, b in zip(outs[1:], cpu_out[1:]))
+        grad = max((scaled_err(a.cpu(), b) for a, b in zip(grads, cpu_grads)
+                    if b is not None), default=0.0)
+        ms = cuda_ms(lambda: breadth_run(fn, ins, wg), reps=3, warmup=1)
+        rows[name] = {"fwd_bwd_ms": ms, "value_err": val, "grad_err": grad,
+                      "exact_outputs_equal": exact}
+        log(f"nn-breadth: {name} at {shape}, f32, card vs CPU: values "
+            f"scaled err {val:.3g} (tol {TOL_BREADTH:g}), gradients "
+            f"{grad:.3g} (tol {tol:g}), other outputs bitwise: {exact}; "
+            f"forward + backward {ms:.4f} ms (CUDA events) [{power}]")
+        if val > TOL_BREADTH or grad > tol or not exact:
+            fail(f"nn-breadth: {name} on the card disagrees with the CPU")
+        del ins, outs, grads, cpu_out, cpu_grads, wg
+    torch.cuda.empty_cache()
+    return rows
+
+
 def eval_pair(make, xs, dtype):
     """``make(num_classes=1000)`` on the card and on the CPU in ``dtype``
     with the card's weights, in evaluation mode with the running stats of
@@ -3296,6 +3735,7 @@ def main() -> int:
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
     from paddle_tpu_torch.tools.profile_gpt import gc_time
+    from paddle_tpu_torch.vision import transforms as T
     from paddle_tpu_torch.vision.models import (LeNet, mobilenet_v1,
                                                 mobilenet_v2, resnet18,
                                                 resnet50, vgg16)
@@ -4850,6 +5290,19 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was launched no time on the main path")
+
+    # -- 24. transforms-resnet50 --------------------------------------------
+    # -- 25. dcgan ----------------------------------------------------------
+    # -- 26. nn-breadth -----------------------------------------------------
+    # no hand-written kernel lies on these paths; the launch counters stay
+    # as the main path left them
+    t_dense = time.perf_counter()
+    dense_row = transforms_resnet50(T, resnet50, TrainStep, Momentum, power)
+    dense_row.update(dcgan_phase(tnn, topt, power))
+    dense_row["nn_breadth"] = nn_breadth(tnn.functional, power)
+    dense_row["dense_phases_s"] = time.perf_counter() - t_dense
+    log(f"dense nn phases (24-26): {dense_row['dense_phases_s']:.1f} s of "
+        "wall time")
     for row in table:
         log(json.dumps(row))
 
@@ -4901,7 +5354,7 @@ def main() -> int:
         "seq2seq_check_max_abs_err": list(s2s_err),
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
-        "eager_small_optimizer_err": opt_errs,
+        "eager_small_optimizer_err": opt_errs, **dense_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

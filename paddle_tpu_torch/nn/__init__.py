@@ -6,13 +6,23 @@ from paddle_tpu_torch.nn.clip import (  # noqa: F401
 from paddle_tpu_torch.nn.decode import (  # noqa: F401
     BeamSearchDecoder, Decoder, dynamic_decode, gather_tree)
 from paddle_tpu_torch.nn.layer import (  # noqa: F401
-    CELU, ELU, GELU, GLU, GRU, LSTM, RNN, SELU, AdaptiveAvgPool2D, AvgPool2D,
-    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, BiRNN, Conv1D, Conv2D,
-    Conv3D, CrossEntropyLoss, Dropout, Embedding, Flatten, GRUCell,
-    Hardshrink, Hardsigmoid, Hardswish, Hardtanh, LayerNorm, LeakyReLU,
-    Linear, LogSigmoid, LogSoftmax, LSTMCell, Maxout, MaxPool2D, Mish,
-    MultiHeadAttention, NLLLoss, ParamAttr, PReLU, ReLU, ReLU6, RNNCellBase,
-    Sequential, Sigmoid, Silu, SimpleRNN, SimpleRNNCell, Softmax, Softplus,
-    Softshrink, Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU,
-    Transformer, TransformerDecoder, TransformerDecoderLayer,
-    TransformerEncoder, TransformerEncoderLayer)
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AlphaDropout,
+    AvgPool1D, AvgPool2D, AvgPool3D, BatchNorm, BatchNorm1D, BatchNorm2D,
+    BatchNorm3D, BCELoss, BCEWithLogitsLoss, Bilinear, BiRNN, CELU, Conv1D,
+    Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose,
+    CosineEmbeddingLoss, CosineSimilarity, CrossEntropyLoss, CTCLoss,
+    Dropout, Dropout2D, Dropout3D, ELU, Embedding, Flatten, Fold, GELU, GLU,
+    GRU, GRUCell, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    HingeEmbeddingLoss, HSigmoidLoss, Identity, KLDivLoss, L1Loss,
+    LayerNorm, LeakyReLU, Linear, LogSigmoid, LogSoftmax, LSTM, LSTMCell,
+    MarginRankingLoss, Maxout, MaxPool1D, MaxPool2D, MaxPool3D, Mish,
+    MSELoss, MultiHeadAttention, NCELoss, NLLLoss, Pad1D, Pad2D, Pad3D,
+    PairwiseDistance, ParamAttr, PixelShuffle, PReLU, ReLU, ReLU6, RNN,
+    RNNCellBase, SELU, Sequential, Sigmoid, SigmoidFocalLoss, Silu,
+    SimpleRNN, SimpleRNNCell, SmoothL1Loss, SoftMarginLoss, Softmax,
+    Softplus, Softshrink, Softsign, Swish, Tanh, Tanhshrink,
+    ThresholdedReLU, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
+    TripletMarginLoss, Unfold, Upsample, UpsamplingBilinear2D,
+    UpsamplingNearest2D, ZeroPad2D)

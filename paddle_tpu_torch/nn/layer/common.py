@@ -1,5 +1,7 @@
-"""``ParamAttr``, ``Linear``, ``Dropout``, ``Embedding`` and ``Flatten``
-(port of paddle_tpu/nn/layer/common.py).
+"""``ParamAttr`` and the common layers (port of
+paddle_tpu/nn/layer/common.py): ``Linear``, ``Identity``, the dropouts,
+``Embedding``, ``Flatten``, the upsampling layers, ``Bilinear``, the
+distances, the pads, ``Unfold``, ``Fold`` and ``PixelShuffle``.
 
 ``Linear`` keeps the reference's ``(in_features, out_features)`` weight
 layout, so a reference layer's weights carry across as a copy
@@ -20,7 +22,11 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.initializer import (Initializer, XavierUniform,
                                              _create_param)
 
-__all__ = ["ParamAttr", "Linear", "Dropout", "Embedding", "Flatten"]
+__all__ = ["ParamAttr", "Linear", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Embedding", "Flatten", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "Bilinear",
+           "CosineSimilarity", "PairwiseDistance", "Pad1D", "Pad2D", "Pad3D",
+           "ZeroPad2D", "Identity", "Unfold", "Fold", "PixelShuffle"]
 
 
 class ParamAttr:
@@ -110,6 +116,51 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
+class Identity(nn.Module):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
+
+
+class Dropout2D(nn.Module):
+    """Drops whole channels in training mode (reference ``:108``)."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None, generator=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format,
+                           generator=self.generator)
+
+
+class Dropout3D(Dropout2D):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None,
+                 generator=None):
+        super().__init__(p, data_format, name, generator)
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format,
+                           generator=self.generator)
+
+
+class AlphaDropout(nn.Module):
+    def __init__(self, p=0.5, name=None, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training,
+                               generator=self.generator)
+
+
 class Embedding(nn.Module):
     """A (num_embeddings, embedding_dim) table looked up by integer ids
     (reference ``:141``): Xavier-uniform, the ``padding_idx`` row zeroed at
@@ -153,3 +204,145 @@ class Flatten(nn.Module):
 
     def forward(self, x):
         return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Upsample(nn.Module):
+    """``F.interpolate`` with its arguments held (reference ``:176``)."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class Bilinear(nn.Module):
+    """out = x1 @ W[o] @ x2 + b with W (out, in1, in2), Xavier-uniform, and
+    a zero bias (reference ``:209``)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, device=None):
+        super().__init__()
+        if weight_attr is False:
+            raise ValueError("Bilinear needs a weight")
+        self.weight = make_param([out_features, in1_features, in2_features],
+                                 weight_attr, XavierUniform(), device=device)
+        self.bias = make_param([out_features], bias_attr, is_bias=True,
+                               device=device)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(nn.Module):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class PairwiseDistance(nn.Module):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class _PadNd(nn.Module):
+    _width = 1
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = ([padding] * 2 * self._width
+                        if isinstance(padding, int) else list(padding))
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    _width = 2
+
+
+class Pad3D(_PadNd):
+    _width = 3
+
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Unfold(nn.Module):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(nn.Module):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PixelShuffle(nn.Module):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)

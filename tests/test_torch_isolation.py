@@ -47,7 +47,10 @@ def test_every_module_imports_with_jax_blocked():
               "distributed.fleet.utils", "nn.decode", "nn.layer.rnn",
               "nn.layer.loss", "amp", "regularizer", "nn.initializer",
               "framework.parameter", "nn.layer.activation",
-              "vision.models.mobilenet", "vision.models.vgg"):
+              "vision.models.mobilenet", "vision.models.vgg",
+              "nn.functional.extras", "nn.functional.pooling",
+              "nn.functional.common", "nn.functional.loss",
+              "nn.layer.pooling", "nn.layer.conv", "vision.transforms"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -111,6 +114,30 @@ def test_eager_slice_entry_points_default_to_cuda(monkeypatch):
     lin = tamp.decorate(tnn.Linear(3, 4, device="cpu"), level="O2")
     assert lin.weight.device.type == "cpu"
     assert lin.weight.dtype == torch.bfloat16
+
+
+def test_dense_nn_slice_entry_points_default_to_cuda(monkeypatch):
+    """The transposed convolutions, Bilinear and the loss heads with
+    parameters land on the card unless asked otherwise, and raise without
+    it; the transforms stay on the host whatever the card."""
+    import numpy as np
+
+    import paddle_tpu_torch.nn as tnn
+    import paddle_tpu_torch.vision.transforms as T
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: tnn.Conv1DTranspose(3, 4, 3),
+                 lambda: tnn.Conv2DTranspose(3, 4, 3),
+                 lambda: tnn.Conv3DTranspose(3, 4, 3),
+                 lambda: tnn.Bilinear(3, 4, 5),
+                 lambda: tnn.HSigmoidLoss(4, 6),
+                 lambda: tnn.NCELoss(10, 4)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    assert tnn.Conv2DTranspose(3, 4, 3, device="cpu").weight.shape == (
+        3, 4, 3, 3)
+    img = np.zeros((8, 8, 3), np.uint8)
+    out = T.to_tensor(T.RandomResizedCrop(4)(img), out="tensor")
+    assert out.device.type == "cpu" and tuple(out.shape) == (3, 4, 4)
 
 
 def test_fleet_recompute_runs_where_its_inputs_are(monkeypatch):

@@ -186,9 +186,14 @@ def test_pool2d_bf16():
 
 
 def test_pool2d_refuses_what_it_does_not_port():
+    """``return_mask`` is ported (tests/test_torch_pooling.py) and refuses
+    only what the reference refuses (NHWC); ``divisor_override``, which
+    the reference ignores, still raises."""
     x = torch.zeros(1, 1, 4, 4)
-    with pytest.raises(NotImplementedError, match="return_mask"):
-        TF.max_pool2d(x, 2, return_mask=True)
+    out, mask = TF.max_pool2d(x, 2, return_mask=True)
+    assert tuple(out.shape) == (1, 1, 2, 2) and mask.dtype == torch.int32
+    with pytest.raises(ValueError, match="return_mask"):
+        TF.max_pool2d(x, 2, return_mask=True, data_format="NHWC")
     with pytest.raises(NotImplementedError, match="divisor_override"):
         TF.avg_pool2d(x, 2, divisor_override=3)
 
