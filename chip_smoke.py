@@ -244,6 +244,41 @@ Phases, in order; any failure ends the script with a non-zero exit:
              at (8, 256, 56, 56).  No hand-written kernel lies on phases
              24-26; they print the card's name and power limit beside their
              numbers.
+27. resnet50-gn — Wu and He's ResNet-50 with GroupNorm(32, C) in place of
+             every BatchNorm2D (swapped after construction through the
+             Layer API: named_sublayers, then setattr on the parent), first
+             resnet18-GN at B=8, 64x64 card against CPU (a training-mode
+             f32 forward's loss and logits beside a planted 16-group fault,
+             and group_norm alone forward and backward, TOL_VISION_F32);
+             then trained as resnet50-train: TrainStep O2 bf16, Momentum(
+             0.1, 0.9), B=128 at 224x224, one warm-up then 5 steps: step ms
+             beside resnet50-train's, samples/s, peak bytes, the device's
+             busy ms and idle share of one traced step; finite losses,
+             every parameter moved.
+28. sn-dcgan — phase 25's DCGAN with nn.utils.spectral_norm on each of
+             D's five convolutions (SN-GAN, Miyato et al. 2018): the small
+             model card against CPU at phase 25's limits (the spectral
+             vectors take no gradient on either and do not move), then the
+             published widths at B=128: ms an iteration beside dcgan's,
+             images/s, peak bytes.
+29. sparse-embedding — a (50304, 1024) f32 Embedding(sparse=True) fed one
+             GPT-2 batch of 8 x 1024 ids a step, trained eagerly by SGD and
+             by Adam(lazy_mode=True), each beside the same table with
+             sparse=False: ms a step and the host's ms until a step
+             returns, the merged rows, the sparse table within 1e-6 of the
+             dense one; first a 1000 x 64 table (padding_idx, repeated ids)
+             card against CPU within 1e-6, table and states.
+30. norm-breadth and rnn-amp — instance_norm, group_norm (NCHW, NHWC),
+             local_response_norm, normalize and a weight_norm'd 1x1
+             Conv2D(256, 64) at ResNet-50 stage 2's activation (128, 256,
+             56, 56), f32 and bf16, forward and backward card against CPU
+             (f32 values within TOL_BREADTH and gradients TOL_F32, bf16 by
+             scaled_err within TOL_BF16 and TOL_GRAD_BF16) beside a planted
+             fault in each dtype; then phase 19's LSTM and GRU and an RNN
+             over one LSTMCell under auto_cast O2 and under O1 with
+             custom_white_list={"lstm_cell"}: each op's input dtypes
+             (required), card against CPU, forward + backward ms.  No
+             hand-written kernel lies on phases 27-30.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -432,6 +467,28 @@ TOL_BREADTH = 1e-5
 # log1p differ by moves it by 1.2e-4 of itself (1.24e-4 read on an H100 80GB
 # HBM3 at 700 W); the limit allows 8 such ulps
 TOL_CTC_GRAD = 1e-3
+# resnet50-gn: Wu and He (ECCV 2018) ResNet-50 with GroupNorm(32, C) in
+# place of every BatchNorm2D, at bench_resnet50's shape
+GN_GROUPS = 32
+# sparse-embedding: a table of GPT-2 345M's padded vocabulary and width fed
+# one GPT-2 batch (B x S ids) a step; the card-vs-CPU table, 1000 x 64
+SPARSE_V, SPARSE_D = 50304, 1024
+SPARSE_WARM, SPARSE_STEPS = 2, 10
+SPARSE_SMALL_V, SPARSE_SMALL_D, SPARSE_SMALL_STEPS = 1000, 64, 3
+TOL_SPARSE = 1e-6
+# norm-breadth: ResNet-50 stage 2's activation (conv2_x's output), and a
+# weight-normed 1x1 convolution to the stage's 64-channel bottleneck
+NB_SHAPE = (128, 256, 56, 56)
+NB_CONV_OUT = 64
+# rnn-amp: the recurrent layers in bf16, card vs CPU by scaled_err.  Each
+# step's state is rounded to bf16 and carried through T=50 steps and 2
+# layers, so the devices' 1-ulp differences in a bf16 product compound:
+# 0.024-0.030 in outputs and states, 0.035-0.077 in gradients, LSTM, GRU
+# and the LSTMCell, where a forget (update) gate's bias off by RNN_FAULT
+# reads 1.19-2.10 (H100 80GB HBM3 at 700 W)
+TOL_RNN_BF16 = 0.1
+TOL_RNN_GRAD_BF16 = 0.2
+RNN_FAULT = 0.5
 
 
 def log(msg):
@@ -1494,7 +1551,7 @@ def biased_encoder(nn, d_model, heads, ffn, layers, s, device):
                 device=device), layers)
             self.bias = torch.nn.Parameter(torch.zeros(
                 1, heads, s, s,
-                device=next(self.encoder.parameters()).device))
+                device=next(iter(self.encoder.parameters())).device))
 
         def forward(self, x):
             return self.encoder(x, self.bias)
@@ -1697,7 +1754,7 @@ def check_small_vision(g, resnet18, TrainStep, Momentum):
                               for n, p in models[1].named_parameters())
     old = {n: p.detach().clone() for n, p in models[1].named_parameters()}
     for m in models:
-        dev = next(m.parameters()).device
+        dev = next(iter(m.parameters())).device
         TrainStep(m, vision_loss, Momentum(learning_rate=0.1, momentum=0.9))(
             x.double().to(dev), y.to(dev))
     r["eval_moves_f64"] = moves_err(models[0], models[1], old,
@@ -2699,7 +2756,7 @@ def rnn_phase(nn, power):
         gpu = copy.deepcopy(cpu).to("cuda")
 
         def run(m):
-            dev = next(m.parameters()).device
+            dev = next(iter(m.parameters())).device
             xt = torch.as_tensor(x, device=dev).requires_grad_()
             out, st = m(xt, sequence_length=torch.as_tensor(lens,
                                                             device=dev))
@@ -2896,7 +2953,7 @@ def eager_optimizers(topt, treg):
 
 def mlp_train(model, opt, batches):
     import torch
-    dev = next(model.parameters()).device
+    dev = next(iter(model.parameters())).device
     for x, y in batches:
         loss = ((model(torch.from_numpy(x).to(dev))
                  - torch.from_numpy(y).to(dev)) ** 2).mean()
@@ -3307,7 +3364,7 @@ def eager_vision_vs_cpu(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt,
         gpu, cpu = eval_pair(make, xs, torch.float64)
         old = {n: p.detach().clone() for n, p in cpu.named_parameters()}
         for m in (gpu, cpu):
-            dev = next(m.parameters()).device
+            dev = next(iter(m.parameters())).device
             step(m)
         err = moves_err(gpu, cpu, old, f"{name}'s eager step")
         log(f"eager-vision: {name} one f64 {what} step in evaluation "
@@ -3324,7 +3381,7 @@ def eager_vision_vs_cpu(mobilenet_v1, mobilenet_v2, vgg16, amp, F, topt,
     gpu, cpu = eval_pair(mobilenet_v2, xs, torch.float32)
     out = []
     for m in (gpu, cpu):
-        dev = next(m.parameters()).device
+        dev = next(iter(m.parameters())).device
         with amp.auto_cast(level="O1"):
             loss = F.cross_entropy(m(xs.to(dev).float()), ys.to(dev)).mean()
         loss.backward()
@@ -3380,6 +3437,96 @@ def dcgan_iteration(g, d, opt_g, opt_d, loss_fn, real, z, ones, zeros,
     return d_loss, g_loss
 
 
+def dcgan_card_vs_cpu(cpu, gpu, adam, loss_fn, batch_size):
+    """One iteration of (G, D) on the CPU and of the same models on the
+    card, the card's optimizers stepping from the CPU's gradients:
+    (relative loss error, max scaled gradient error, max move error by
+    max |got - want| / (max |want| + lr), the names whose gradient was None
+    on both).  A parameter without a gradient (spectral norm's vectors)
+    is compared by its move, which must be none."""
+    import torch
+    runs = {}
+    for name, (gm, dm) in (("cpu", cpu), ("cuda", gpu)):
+        before = {f"{w}.{n}": p.detach().clone()
+                  for w, m in (("g", gm), ("d", dm))
+                  for n, p in m.named_parameters()}
+        grads = {}
+
+        def between(stage, gm=gm, dm=dm, grads=grads, name=name):
+            m = dm if stage == "d" else gm
+            for n, p in m.named_parameters():
+                key = f"{stage}.{n}"
+                grads[key] = (None if p.grad is None
+                              else p.grad.detach().clone())
+                if name == "cuda" and p.grad is not None:
+                    # step from the CPU's gradients
+                    p.grad.copy_(runs["cpu"]["grads"][key])
+        losses = dcgan_iteration(gm, dm, adam(gm), adam(dm), loss_fn,
+                                 *dcgan_batch(batch_size, name),
+                                 between=between)
+        runs[name] = {
+            "losses": [float(v.detach()) for v in losses], "grads": grads,
+            "moves": {f"{w}.{n}": p.detach() - before[f"{w}.{n}"]
+                      for w, m in (("g", gm), ("d", dm))
+                      for n, p in m.named_parameters()}}
+    got, want = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                        want["losses"]))
+    none = sorted(k for k, v in want["grads"].items() if v is None)
+    if none != sorted(k for k, v in got["grads"].items() if v is None):
+        fail("the card and the CPU disagree on which parameters have no "
+             "gradient")
+    grad_e = max(scaled_err(got["grads"][k].cpu(), v)
+                 for k, v in want["grads"].items() if v is not None)
+    move_e = max(float((got["moves"][k].cpu() - v).abs().max()
+                       / (v.abs().max() + DCGAN_LR))
+                 for k, v in want["moves"].items())
+    return loss_err, grad_e, move_e, none, want
+
+
+def dcgan_timed(gm, dm, opt_g, opt_d, loss_fn, what, power, still=()):
+    """DCGAN_WARM warm-ups and DCGAN_ITERS timed iterations at B=DCGAN_B:
+    (ms an iteration, peak bytes, (D, G) losses of each iteration); the
+    losses finite, every parameter moved but those named in ``still``
+    ("g.<name>" / "d.<name>"), which must not move."""
+    import torch
+    p0 = {f"{w}.{n}": p.detach().clone() for w, m in (("g", gm), ("d", dm))
+          for n, p in m.named_parameters()}
+    batch = dcgan_batch(DCGAN_B, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses = [dcgan_iteration(gm, dm, opt_g, opt_d, loss_fn, *batch)
+              for _ in range(DCGAN_WARM)]
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(DCGAN_ITERS):
+        losses.append(dcgan_iteration(gm, dm, opt_g, opt_d, loss_fn,
+                                      *batch))
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / DCGAN_ITERS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [[float(v.detach()) for v in pair] for pair in losses]
+    n_g = sum(p.numel() for p in gm.parameters())
+    n_d = sum(p.numel() for p in dm.parameters())
+    log(f"{what}: ngf = ndf = {DCGAN_WIDTH} (G {n_g}, D {n_d} parameters), "
+        f"B={DCGAN_B} at 64x64, f32, Adam({DCGAN_LR}, beta1=0.5) each, "
+        f"{DCGAN_WARM} warm-ups then {DCGAN_ITERS} iterations: "
+        f"{ms:.3f} ms an iteration (CUDA events), "
+        f"{DCGAN_B / ms * 1e3:.1f} images/s, max_memory_allocated {peak} "
+        f"bytes [{power}]; (D, G) losses first {losses[0]}, last "
+        f"{losses[-1]}")
+    if not all(math.isfinite(v) for pair in losses for v in pair):
+        fail(f"a {what} loss is not finite")
+    for w, m in (("g", gm), ("d", dm)):
+        for n, p in m.named_parameters():
+            key = f"{w}.{n}"
+            if torch.equal(p.detach(), p0[key]) != (key in still):
+                fail(f"{what} parameter {key} moved: "
+                     f"{not torch.equal(p.detach(), p0[key])}")
+    return ms, peak, losses
+
+
 def dcgan_phase(nn, topt, power):
     """dcgan: the small model (ngf = ndf = DCGAN_SMALL, B=DCGAN_SMALL_B)
     card against CPU in IEEE f32: both losses, every gradient (grad_err's
@@ -3401,80 +3548,22 @@ def dcgan_phase(nn, topt, power):
     def adam(m):
         return topt.Adam(learning_rate=DCGAN_LR, beta1=0.5,
                          parameters=m.parameters())
-    runs = {}
-    for name, (gm, dm) in (("cpu", cpu), ("cuda", gpu)):
-        before = {f"{w}.{n}": p.detach().clone()
-                  for w, m in (("g", gm), ("d", dm))
-                  for n, p in m.named_parameters()}
-        grads = {}
-
-        def between(stage, gm=gm, dm=dm, grads=grads, name=name):
-            m = dm if stage == "d" else gm
-            for n, p in m.named_parameters():
-                key = f"{stage}.{n}"
-                grads[key] = p.grad.detach().clone()
-                if name == "cuda":    # step from the CPU's gradients
-                    p.grad.copy_(runs["cpu"]["grads"][key])
-        losses = dcgan_iteration(gm, dm, adam(gm), adam(dm), bce,
-                                 *dcgan_batch(DCGAN_SMALL_B, name),
-                                 between=between)
-        runs[name] = {
-            "losses": [float(v.detach()) for v in losses], "grads": grads,
-            "moves": {f"{w}.{n}": p.detach() - before[f"{w}.{n}"]
-                      for w, m in (("g", gm), ("d", dm))
-                      for n, p in m.named_parameters()}}
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
-        runs["cuda"]["losses"], runs["cpu"]["losses"]))
-    grad_e = max(scaled_err(runs["cuda"]["grads"][k].cpu(), v)
-                 for k, v in runs["cpu"]["grads"].items())
-    move_e = max(float((runs["cuda"]["moves"][k].cpu() - v).abs().max()
-                       / (v.abs().max() + DCGAN_LR))
-                 for k, v in runs["cpu"]["moves"].items())
+    loss_err, grad_e, move_e, _, want = dcgan_card_vs_cpu(
+        cpu, gpu, adam, bce, DCGAN_SMALL_B)
     log(f"dcgan small (ngf = ndf = {DCGAN_SMALL}, B={DCGAN_SMALL_B}, 64x64, "
-        f"IEEE f32) card vs CPU: losses (D, G) {runs['cuda']['losses']} vs "
-        f"{runs['cpu']['losses']}, relative err {loss_err:.3g}; gradients "
-        f"{len(runs['cpu']['grads'])} tensors, max scaled err {grad_e:.3g}; "
-        f"one Adam step of each from the CPU's gradients, max move err "
-        f"{move_e:.3g} (tol {TOL_F32:g})")
+        f"IEEE f32) card vs CPU: losses (D, G) relative err {loss_err:.3g} "
+        f"(CPU {want['losses']}); gradients {len(want['grads'])} tensors, "
+        f"max scaled err {grad_e:.3g}; one Adam step of each from the CPU's "
+        f"gradients, max move err {move_e:.3g} (tol {TOL_F32:g})")
     if max(loss_err, grad_e, move_e) > TOL_F32:
         fail("the small DCGAN on the card disagrees with the CPU")
-    del cpu, gpu, runs
+    del cpu, gpu, want
 
     torch.manual_seed(0)
     gm, dm = dcgan_models(nn, DCGAN_WIDTH, DCGAN_WIDTH)
-    opt_g, opt_d = adam(gm), adam(dm)
-    n_g = sum(p.numel() for p in gm.parameters())
-    n_d = sum(p.numel() for p in dm.parameters())
-    p0 = {f"{w}.{n}": p.detach().clone() for w, m in (("g", gm), ("d", dm))
-          for n, p in m.named_parameters()}
-    batch = dcgan_batch(DCGAN_B, "cuda")
-    torch.cuda.reset_peak_memory_stats()
-    losses = [dcgan_iteration(gm, dm, opt_g, opt_d, bce, *batch)
-              for _ in range(DCGAN_WARM)]
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(DCGAN_ITERS):
-        losses.append(dcgan_iteration(gm, dm, opt_g, opt_d, bce, *batch))
-    e1.record()
-    torch.cuda.synchronize()
-    ms = e0.elapsed_time(e1) / DCGAN_ITERS
-    peak = torch.cuda.max_memory_allocated()
-    losses = [[float(v.detach()) for v in pair] for pair in losses]
-    log(f"dcgan: ngf = ndf = {DCGAN_WIDTH} (G {n_g}, D {n_d} parameters), "
-        f"B={DCGAN_B} at 64x64, f32, Adam({DCGAN_LR}, beta1=0.5) each, "
-        f"{DCGAN_WARM} warm-ups then {DCGAN_ITERS} iterations: "
-        f"{ms:.3f} ms an iteration (CUDA events), "
-        f"{DCGAN_B / ms * 1e3:.1f} images/s, max_memory_allocated {peak} "
-        f"bytes [{power}]; (D, G) losses first {losses[0]}, last "
-        f"{losses[-1]}")
-    if not all(math.isfinite(v) for pair in losses for v in pair):
-        fail("a DCGAN loss is not finite")
-    for w, m in (("g", gm), ("d", dm)):
-        for n, p in m.named_parameters():
-            if torch.equal(p.detach(), p0[f"{w}.{n}"]):
-                fail(f"DCGAN parameter {w}.{n} did not move")
-    del gm, dm, opt_g, opt_d, p0, batch
+    ms, peak, losses = dcgan_timed(gm, dm, adam(gm), adam(dm), bce, "dcgan",
+                                   power)
+    del gm, dm
     torch.cuda.empty_cache()
     return {"dcgan_iteration_ms": ms, "dcgan_images_per_s":
             DCGAN_B / ms * 1e3, "dcgan_peak_bytes": peak,
@@ -3688,6 +3777,521 @@ def nn_breadth(F, power):
     return rows
 
 
+def group_norm_swap(nn, model, groups=None, **kw):
+    """Every BatchNorm2D sublayer of ``model`` replaced, by name, with
+    GroupNorm(groups, its channels), GN_GROUPS by default (Wu and He,
+    Group Normalization, ECCV 2018): the port's ResNet takes no norm
+    layer, as the reference's does not, so the swap goes through the Layer
+    API, ``named_sublayers`` and then ``setattr`` on the parent."""
+    layers = dict(model.named_sublayers(include_self=True))
+    for name, layer in list(layers.items()):
+        if isinstance(layer, nn.BatchNorm2D):
+            parent, _, attr = name.rpartition(".")
+            setattr(layers[parent], attr, nn.GroupNorm(
+                groups or GN_GROUPS, layer.weight.shape[0],
+                device=layer.weight.device, **kw))
+    return model
+
+
+def check_small_gn(nn, F, resnet18):
+    """resnet18-GN (num_classes=10) at B=SMALL_VISION_B, 64x64, card
+    against CPU from one state: a training-mode f32 forward's loss and
+    logits within TOL_VISION_F32, beside a planted fault (16 groups in
+    place of 32) that must be above it; and the port's group_norm alone at
+    a ResNet stage's shape, forward and backward (input, weight, bias),
+    f32, within TOL_VISION_F32.  The model's gradients are not compared:
+    GroupNorm's statistics are f32 in f64 too (the reference's rule), so a
+    ReLU kink within their rounding of 0 can flip between the devices (the
+    reason phase 13 compares its gradients in f64 evaluation mode, where
+    BatchNorm is affine).  Returns the readings by name."""
+    import torch
+    x, y = (torch.from_numpy(a) for a in vision_batch(
+        SMALL_VISION_B, 3, SMALL_VISION_HW, 10, seed=2))
+    torch.manual_seed(0)
+    cpu = group_norm_swap(nn, resnet18(num_classes=10, device="cpu"))
+    state = cpu.state_dict()
+
+    def card(groups=None):
+        m = group_norm_swap(nn, resnet18(num_classes=10), groups)
+        missing, unexpected = m.set_state_dict(state)
+        if missing or unexpected:
+            fail(f"resnet18-GN state: missing {missing}, unexpected "
+                 f"{unexpected}")
+        return m
+
+    def forward(m, dev):
+        with torch.no_grad():
+            out = m(x.to(dev))
+            return out.cpu(), F.cross_entropy(out, y.to(dev)).mean().cpu()
+    out_c, loss_c = forward(cpu, "cpu")
+    out_g, loss_g = forward(card(), "cuda")
+    r = {"train_f32": max(scaled_err(out_g, out_c),
+                          scaled_err(loss_g, loss_c))}
+    r["fault_16_groups"] = scaled_err(forward(card(16), "cuda")[0], out_c)
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(8, 256, 16, 16, generator=g) * 2 + 1
+    wb = [torch.rand(256, generator=g) + 0.5, torch.randn(256, generator=g)]
+    dy = torch.randn(8, 256, 16, 16, generator=g)
+
+    def run(dev):
+        ts = [t.to(dev).requires_grad_() for t in [a] + wb]
+        out = F.group_norm(ts[0], GN_GROUPS, 1e-5, ts[1], ts[2])
+        out.backward(dy.to(dev))
+        return [out.detach().cpu()] + [t.grad.cpu() for t in ts]
+    r["group_norm_f32"] = max(scaled_err(p, q) for p, q in zip(
+        run("cuda"), run("cpu")))
+    return r
+
+
+def resnet50_gn_phase(nn, F, resnet18, resnet50, TrainStep, Momentum, power,
+                      bn_step_ms):
+    """resnet50-gn: check_small_gn, then ResNet-50 with every BatchNorm2D a
+    GroupNorm(32, C) trained as bench_resnet50 trains resnet50-train:
+    TrainStep O2 bf16, Momentum(0.1, 0.9), B=VISION_B at 224x224 from
+    default_rng(0), one warm-up then VISION_STEPS steps: step ms,
+    samples/s, peak bytes, and the device's busy and idle split of one more
+    step (torch.profiler); losses finite, every parameter moved, no buffer
+    left (GroupNorm keeps no running statistics)."""
+    import torch
+    sv = check_small_gn(nn, F, resnet18)
+    log(f"resnet50-gn small check (resnet18-GN, B={SMALL_VISION_B}, "
+        f"{SMALL_VISION_HW}x{SMALL_VISION_HW}) card vs CPU: training-mode "
+        f"f32 loss and logits err={sv['train_f32']:.3g} (tol "
+        f"{TOL_VISION_F32:g}); planted fault (16 groups) "
+        f"{sv['fault_16_groups']:.3g}; group_norm alone at 8x256x16x16, "
+        f"forward and backward, err={sv['group_norm_f32']:.3g} (tol "
+        f"{TOL_VISION_F32:g})")
+    if max(sv["train_f32"], sv["group_norm_f32"]) > TOL_VISION_F32:
+        fail("resnet18-GN or group_norm on the card disagrees with the CPU")
+    if sv["fault_16_groups"] <= TOL_VISION_F32:
+        fail("the planted GroupNorm fault is not above TOL_VISION_F32")
+    model = group_norm_swap(nn, resnet50(num_classes=1000))
+    n_gn = sum(isinstance(m, nn.GroupNorm) for m in model.sublayers())
+    if n_gn != 53 or any(isinstance(m, nn.BatchNorm2D)
+                         for m in model.sublayers()) or model.buffers():
+        fail(f"resnet50-GN has {n_gn} GroupNorms of 53, a BatchNorm2D or "
+             "a buffer left")
+    step = TrainStep(model, vision_loss, Momentum(learning_rate=0.1,
+                                                  momentum=0.9),
+                     amp_level="O2", amp_dtype="bfloat16")
+    x, y = (torch.as_tensor(a, device="cuda") for a in vision_batch(
+        VISION_B, 3, VISION_HW, 1000))
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    losses = [step(x, y)]
+    e0.record()
+    for _ in range(VISION_STEPS):
+        losses.append(step(x, y))
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / VISION_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    busy, traced = device_busy_ms(lambda: step(x, y))
+    losses = [float(v) for v in losses]
+    log(f"resnet50-gn: resnet50(num_classes=1000) with {n_gn} "
+        f"GroupNorm({GN_GROUPS}, C), {len(p0)} parameter tensors; "
+        f"TrainStep(amp_level='O2', bf16), Momentum(0.1, 0.9), B={VISION_B} "
+        f"at {VISION_HW}x{VISION_HW}, one warm-up then {VISION_STEPS} steps:"
+        f" step {ms:.3f} ms (CUDA events; resnet50-train's BatchNorm step "
+        f"in this run {bn_step_ms:.3f} ms), {VISION_B / ms * 1e3:.1f} "
+        f"samples/s, max_memory_allocated {peak} bytes; one traced step: "
+        f"device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f} of the "
+        f"untraced step [{power}]; losses {losses}")
+    if not all(math.isfinite(v) for v in losses):
+        fail("a resnet50-gn training loss is not finite")
+    for n, p in model.named_parameters():
+        if torch.equal(p.detach(), p0[n]):
+            fail(f"resnet50-gn parameter {n} did not move")
+    del model, step, p0, x, y
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "samples_per_s": VISION_B / ms * 1e3,
+            "peak_bytes": peak, "busy_ms": busy, "traced_wall_ms": traced,
+            "idle_share": 1 - busy / ms, "bn_step_ms": bn_step_ms,
+            "losses": losses, "small": sv}
+
+
+def sn_dcgan_models(nn, ngf, ndf, device="cuda"):
+    """dcgan_models with nn.utils.spectral_norm on each of D's five
+    convolutions, as SN-GAN (Miyato et al., ICLR 2018) normalises its
+    discriminator."""
+    g, d = dcgan_models(nn, ngf, ndf, device=device)
+    for layer in d.sublayers():
+        if isinstance(layer, nn.Conv2D):
+            nn.utils.spectral_norm(layer)
+    return g, d
+
+
+def sn_dcgan_phase(nn, topt, power, dcgan_ms):
+    """sn-dcgan: the small SN-DCGAN (ngf = ndf = DCGAN_SMALL,
+    B=DCGAN_SMALL_B) card against CPU at phase 25's limits (losses,
+    gradients, one Adam step's moves; the spectral vectors take no
+    gradient on either and do not move), then the published widths at
+    B=DCGAN_B: ms an iteration beside dcgan's in this run, images/s, peak
+    bytes; every parameter moved but the spectral vectors, which stay."""
+    import torch
+    torch.manual_seed(0)
+    cpu = sn_dcgan_models(nn, DCGAN_SMALL, DCGAN_SMALL, device="cpu")
+    gpu = sn_dcgan_models(nn, DCGAN_SMALL, DCGAN_SMALL)
+    for a, b in zip(gpu, cpu):
+        missing, unexpected = a.set_state_dict(b.state_dict())
+        if missing or unexpected:
+            fail(f"sn-dcgan state: missing {missing}, unexpected "
+                 f"{unexpected}")
+    bce = nn.BCEWithLogitsLoss()
+
+    def adam(m):
+        return topt.Adam(learning_rate=DCGAN_LR, beta1=0.5,
+                         parameters=m.parameters())
+    loss_err, grad_e, move_e, none, want = dcgan_card_vs_cpu(
+        cpu, gpu, adam, bce, DCGAN_SMALL_B)
+    log(f"sn-dcgan small (ngf = ndf = {DCGAN_SMALL}, B={DCGAN_SMALL_B}, "
+        f"spectral_norm on D's 5 convolutions, IEEE f32) card vs CPU: "
+        f"losses relative err {loss_err:.3g}; gradients max scaled err "
+        f"{grad_e:.3g}; one Adam step's moves err {move_e:.3g} (tol "
+        f"{TOL_F32:g}); no gradient on either: {len(none)} tensors")
+    if max(loss_err, grad_e, move_e) > TOL_F32:
+        fail("the small SN-DCGAN on the card disagrees with the CPU")
+    if len(none) != 10 or not all("_spectral_norm.weight_" in k
+                                  for k in none):
+        fail(f"sn-dcgan: the tensors without a gradient are {none}")
+    del cpu, gpu, want
+    torch.manual_seed(0)
+    gm, dm = sn_dcgan_models(nn, DCGAN_WIDTH, DCGAN_WIDTH)
+    still = {f"d.{n}" for n, _ in dm.named_parameters()
+             if "_spectral_norm.weight_" in n}
+    ms, peak, losses = dcgan_timed(gm, dm, adam(gm), adam(dm), bce,
+                                   "sn-dcgan", power, still)
+    log(f"sn-dcgan: {ms:.3f} ms an iteration against dcgan's {dcgan_ms:.3f}"
+        f" in this run ({ms / dcgan_ms:.3f}x)")
+    del gm, dm
+    torch.cuda.empty_cache()
+    return {"iteration_ms": ms, "images_per_s": DCGAN_B / ms * 1e3,
+            "peak_bytes": peak, "dcgan_iteration_ms": dcgan_ms,
+            "small_errs": [loss_err, grad_e, move_e],
+            "first_last_losses": [losses[0], losses[-1]]}
+
+
+def sparse_loss(emb, ids):
+    """Half the sum of squares of the rows looked up: each id's gradient
+    is its row, so SGD at lr 0.1 shrinks a row seen k times by 1 - 0.1 k."""
+    return (emb(ids) ** 2).sum() * 0.5
+
+
+def sparse_small_check(nn, topt, make_opt):
+    """A (SPARSE_SMALL_V, SPARSE_SMALL_D) Embedding(sparse=True,
+    padding_idx=0), card against CPU from one state: SPARSE_SMALL_STEPS
+    eager steps on ids with repeats and the padding id; max |card - CPU|
+    over the table and every optimizer state."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(1)
+    ids = r.integers(0, SPARSE_SMALL_V // 5, (8, 64))
+    ids[0, :7] = 0
+    ids[1, :9] = 3
+    runs = []
+    for dev in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        emb = nn.Embedding(SPARSE_SMALL_V, SPARSE_SMALL_D, padding_idx=0,
+                           sparse=True, device="cpu").to(dev)
+        opt = make_opt(topt, emb.parameters())
+        t = torch.as_tensor(ids, device=dev)
+        for _ in range(SPARSE_SMALL_STEPS):
+            sparse_loss(emb, t).backward()
+            if not emb.weight.grad.is_sparse:
+                fail("Embedding(sparse=True) gave a dense gradient")
+            opt.step()
+            opt.clear_grad()
+        runs.append([emb.weight.detach().cpu()] + [
+            v.cpu() for v in opt._accumulators[id(emb.weight)].values()])
+    return max(float((a - b).abs().max()) for a, b in zip(*runs))
+
+
+def sparse_embedding_phase(nn, topt, SelectedRows, power):
+    """sparse-embedding: sparse_small_check for SGD and Adam(lazy_mode=
+    True) within TOL_SPARSE; then a (SPARSE_V, SPARSE_D) f32 table at GPT-2
+    345M's vocabulary fed one GPT-2 batch of B x S ids (default_rng(0)) a
+    step, trained eagerly by each optimizer with sparse=True and beside it
+    the same table with sparse=False: SPARSE_WARM warm-ups, then
+    SPARSE_STEPS steps, ms a step (CUDA events) and the host's ms until a
+    step returns; the merged rows of a step; losses finite; the sparse
+    table within TOL_SPARSE of the dense one (one batch: the rows the
+    dense update moves are the rows the sparse one does)."""
+    import numpy as np
+    import torch
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, SPARSE_V, (B, S)), device="cuda")
+    opts = {"SGD": lambda O, P: O.SGD(learning_rate=0.1, parameters=P),
+            "Adam(lazy_mode=True)": lambda O, P: O.Adam(
+                learning_rate=1e-3, lazy_mode=True, parameters=P)}
+    rows = {}
+    for name, make in opts.items():
+        err = sparse_small_check(nn, topt, make)
+        log(f"sparse-embedding small ({SPARSE_SMALL_V}x{SPARSE_SMALL_D}, "
+            f"padding_idx=0, repeated ids) {name}, {SPARSE_SMALL_STEPS} "
+            f"steps card vs CPU: table and states max_abs_err {err:.3g} "
+            f"(tol {TOL_SPARSE:g})")
+        if err > TOL_SPARSE:
+            fail(f"sparse-embedding {name} on the card disagrees with the "
+                 "CPU")
+        row = {"small_err": err}
+        tables = {}
+        for sparse in (True, False):
+            torch.manual_seed(0)
+            emb = nn.Embedding(SPARSE_V, SPARSE_D, sparse=sparse)
+            opt = make(topt, emb.parameters())
+
+            def step(emb=emb, opt=opt):
+                loss = sparse_loss(emb, ids)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss.detach()
+            if sparse:
+                sparse_loss(emb, ids).backward()
+                row["merged_rows"] = int(SelectedRows.from_grad(
+                    emb.weight.grad).merge().rows.numel())
+                opt.clear_grad()
+            for _ in range(SPARSE_WARM):
+                step()
+            losses, ms, host = eager_loop(step, SPARSE_STEPS)
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"sparse-embedding {name} sparse={sparse}: a loss is "
+                     "not finite")
+            key = "sparse" if sparse else "dense"
+            row[f"{key}_step_ms"], row[f"{key}_host_ms"] = ms, host
+            row[f"{key}_losses"] = [losses[0], losses[-1]]
+            tables[key] = emb.weight.detach()
+            del emb, opt
+        row["sparse_vs_dense_err"] = float(
+            (tables["sparse"] - tables["dense"]).abs().max())
+        log(f"sparse-embedding: ({SPARSE_V}, {SPARSE_D}) f32, ids "
+            f"{B}x{S} a step ({row['merged_rows']} merged rows), {name}: "
+            f"sparse {row['sparse_step_ms']:.4f} ms a step (host "
+            f"{row['sparse_host_ms']:.4f} ms), dense "
+            f"{row['dense_step_ms']:.4f} ms (host {row['dense_host_ms']:.4f}"
+            f" ms), CUDA events over {SPARSE_STEPS} steps after "
+            f"{SPARSE_WARM} warm-ups [{power}]; tables after "
+            f"{SPARSE_WARM + SPARSE_STEPS} steps max |sparse - dense| "
+            f"{row['sparse_vs_dense_err']:.3g} (tol {TOL_SPARSE:g})")
+        if row["sparse_vs_dense_err"] > TOL_SPARSE:
+            fail(f"sparse-embedding {name}: the sparse table left the dense "
+                 "one")
+        rows[name] = row
+        del tables
+    torch.cuda.empty_cache()
+    return rows
+
+
+def norm_cases(nn, F, dev, dtype):
+    """norm-breadth's (name, fn, inputs) at ResNet-50 stage 2's
+    activation NB_SHAPE in ``dtype`` on ``dev``, inputs from
+    default_rng(0): each fn returns its output and the tensors whose
+    gradient is compared."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(0)
+    c = NB_SHAPE[1]
+
+    def n(*shape, scale=1.0, shift=0.0):
+        a = r.standard_normal(shape).astype(np.float32) * scale + shift
+        return torch.as_tensor(a, device=dev).to(dtype)
+    x = n(*NB_SHAPE, shift=0.5)
+    w, b = n(c, scale=0.2, shift=1.0), n(c)
+    xh = x.permute(0, 2, 3, 1).contiguous()
+    conv = nn.Conv2D(c, NB_CONV_OUT, 1, device="cpu")
+    with torch.no_grad():
+        conv.weight.copy_(torch.as_tensor(r.standard_normal(
+            (NB_CONV_OUT, c, 1, 1)).astype(np.float32) * 0.05))
+    conv = nn.utils.weight_norm(conv.to(dev, dtype))
+
+    def wn_conv(a):
+        return conv(a), [conv.weight_g, conv.weight_v, conv.bias]
+    return [
+        ("instance_norm", lambda a, ww, bb: F.instance_norm(
+            a, weight=ww, bias=bb), [x, w, b]),
+        ("group_norm NCHW", lambda a, ww, bb: F.group_norm(
+            a, GN_GROUPS, 1e-5, ww, bb), [x, w, b]),
+        ("group_norm NHWC", lambda a, ww, bb: F.group_norm(
+            a, GN_GROUPS, 1e-5, ww, bb, "NHWC"), [xh, w, b]),
+        ("local_response_norm", lambda a: F.local_response_norm(
+            a, 5, 1e-4, 0.75, 2.0), [x]),
+        ("normalize", lambda a: F.normalize(a, axis=1), [x]),
+        (f"weight_norm Conv2D({c}, {NB_CONV_OUT}, 1)", wn_conv, [x]),
+    ]
+
+
+def norm_run(fn, inputs, w=None):
+    """fn(*inputs) with every input differentiated: (output, gradients of
+    sum(out * w) over the inputs and the tensors fn names, w)."""
+    import torch
+    ins = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ins)
+    out, extra = out if isinstance(out, tuple) else (out, [])
+    if w is None:
+        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            1)).to(out.dtype)
+    grads = torch.autograd.grad((out * w.to(out.device)).sum(),
+                                ins + extra)
+    return out.detach(), grads, w
+
+
+def norm_breadth(nn, F, power):
+    """norm-breadth: each norm_cases case at NB_SHAPE, f32 and bf16, on
+    the card against the CPU: values within TOL_BREADTH (f32) or TOL_BF16
+    (bf16) and every gradient within TOL_F32 (f32) or TOL_GRAD_BF16 (bf16)
+    by scaled_err, and the forward + backward ms on the card; a planted
+    fault must be above each dtype's limit: PyTorch's own LRN (alpha over
+    size) in f32, group_norm over 16 groups in bf16."""
+    import torch
+    rows = {}
+    for dt, (tv, tg) in ((torch.float32, (TOL_BREADTH, TOL_F32)),
+                         (torch.bfloat16, (TOL_BF16, TOL_GRAD_BF16))):
+        tag = str(dt).replace("torch.", "")
+        want_cases = norm_cases(nn, F, "cpu", dt)
+        for (name, fn, ins), (_, gfn, gins) in zip(
+                want_cases, norm_cases(nn, F, "cuda", dt)):
+            want, wgrads, w = norm_run(fn, ins)
+            wg = w.to("cuda")
+            got, grads, _ = norm_run(gfn, gins, wg)
+            val = scaled_err(got.float().cpu(), want.float())
+            grad = max(scaled_err(a.float().cpu(), b.float())
+                       for a, b in zip(grads, wgrads))
+            ms = cuda_ms(lambda: norm_run(gfn, gins, wg), reps=3, warmup=1)
+            rows[f"{name} {tag}"] = {"fwd_bwd_ms": ms, "value_err": val,
+                                     "grad_err": grad}
+            log(f"norm-breadth: {name} at {'x'.join(map(str, NB_SHAPE))} "
+                f"{tag}, card vs CPU: values scaled err {val:.3g} (tol "
+                f"{tv:g}), gradients {grad:.3g} (tol {tg:g}); forward + "
+                f"backward {ms:.4f} ms (CUDA events) [{power}]")
+            if val > tv or grad > tg:
+                fail(f"norm-breadth: {name} {tag} on the card disagrees "
+                     "with the CPU")
+            if name == "group_norm NCHW":
+                gn_want = want
+            if name == "local_response_norm":
+                lrn_want = want
+            del want, wgrads, got, grads, wg
+        x, w_, b_ = norm_cases(nn, F, "cuda", dt)[1][2]
+        with torch.no_grad():
+            if dt == torch.float32:
+                fault = "torch.nn.functional.local_response_norm"
+                err = scaled_err(torch.nn.functional.local_response_norm(
+                    x, 5, 1e-4, 0.75, 2.0).cpu(), lrn_want)
+            else:
+                fault = "group_norm over 16 groups"
+                err = scaled_err(F.group_norm(x, 16, 1e-5, w_, b_).float()
+                                 .cpu(), gn_want.float())
+        rows[f"fault {tag}"] = err
+        log(f"norm-breadth: planted fault ({fault}) {tag}: {err:.3g} (tol "
+            f"{tv:g})")
+        if err <= tv:
+            fail(f"norm-breadth: the planted {tag} fault is within the "
+                 "limit")
+        del x, w_, b_, want_cases
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rnn_amp_phase(nn, amp, power):
+    """rnn-amp: phase 19's LSTM and GRU (RNN_LAYERS layers, bidirect,
+    hidden RNN_H over inputs RNN_IN, B=RNN_B, T=RNN_T with sequence
+    lengths) and an RNN over one LSTMCell(RNN_IN, RNN_H), card against CPU
+    from one state under auto_cast O2 and under O1 with
+    custom_white_list={"lstm_cell"}: each op's input dtypes (amp.trace_ops,
+    logged and required: the layers' ops LSTM / GRU bf16 under O2 and f32
+    under that O1, whose list names only the cell; the cell's op lstm_cell
+    bf16 under both); outputs and states, and every gradient, by
+    scaled_err within TOL_RNN_BF16 and TOL_RNN_GRAD_BF16 where the op runs
+    in bf16 (TOL_F32 where it stays f32), beside a planted fault under O2
+    (a forget or update gate's bias off by RNN_FAULT on the card) that
+    must be above TOL_RNN_BF16; forward + backward ms on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    r = np.random.default_rng(0)
+    x = torch.as_tensor(r.standard_normal((RNN_B, RNN_T, RNN_IN)).astype(
+        np.float32))
+    lens = torch.as_tensor(r.integers(RNN_T // 2, RNN_T + 1, (RNN_B,)))
+    w = torch.as_tensor(r.standard_normal((RNN_B, RNN_T, 2 * RNN_H))
+                        .astype(np.float32))
+    rows, bad = {}, []
+    for kind in ("LSTM", "GRU", "RNN(LSTMCell)"):
+        torch.manual_seed(0)
+        if kind == "RNN(LSTMCell)":
+            cpu = nn.RNN(nn.LSTMCell(RNN_IN, RNN_H, device="cpu"))
+        else:
+            cpu = getattr(nn, kind)(RNN_IN, RNN_H, RNN_LAYERS,
+                                    direction="bidirect", device="cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        faulty = copy.deepcopy(gpu)
+        with torch.no_grad():
+            for n, p in faulty.named_parameters():
+                if "bias_hh" in n:            # gates i, f, g, o / r, z, c
+                    p.view(-1, RNN_H)[1] += RNN_FAULT
+        op = {"RNN(LSTMCell)": "lstm_cell"}.get(kind, kind)
+
+        def run(m, level, white):
+            dev = next(iter(m.parameters())).device
+            xt = x.to(dev).requires_grad_()
+            with amp.auto_cast(level=level, custom_white_list=white), \
+                    amp.trace_ops() as trace:
+                if kind == "RNN(LSTMCell)":
+                    out, st = m(xt)
+                else:
+                    out, st = m(xt, sequence_length=lens.to(dev))
+            loss = (out.float() * w[..., :out.shape[-1]].to(dev)).sum()
+            grads = torch.autograd.grad(loss / RNN_B, [xt, *m.parameters()])
+            st = st if isinstance(st, tuple) else (st,)
+            return [out.detach(), *(s.detach() for s in st)], grads, trace
+        for level, white in (("O2", None), ("O1", {"lstm_cell"})):
+            outs_g, grads_g, trace = run(gpu, level, white)
+            outs_c, grads_c, trace_c = run(cpu, level, white)
+            bf = level == "O2" or kind == "RNN(LSTMCell)"
+            dt = torch.bfloat16 if bf else torch.float32
+            ops = sorted({(n, len(ds), ",".join(sorted({
+                str(d).replace("torch.", "") for d in ds})))
+                for n, ds in trace})
+            if ({n for n, _ in trace} != {op} or any(
+                    set(ds) != {dt} for _, ds in trace)
+                    or trace != trace_c):
+                fail(f"rnn-amp {kind} {level}: ops and dtypes {ops}, "
+                     f"expected {op} in {dt}")
+            tv, tg = ((TOL_RNN_BF16, TOL_RNN_GRAD_BF16) if bf
+                      else (TOL_F32, TOL_F32))
+            e_out = max(scaled_err(a.float().cpu(), b.float())
+                        for a, b in zip(outs_g, outs_c))
+            e_grad = max(scaled_err(a.cpu(), b)
+                         for a, b in zip(grads_g, grads_c))
+            ms = cuda_ms(lambda: run(gpu, level, white), reps=3, warmup=1)
+            name = f"{kind} {level}" + (" +lstm_cell" if white else "")
+            row = rows[name] = {
+                "fwd_bwd_ms": ms, "out_err": e_out, "grad_err": e_grad,
+                "ops": [list(o) for o in ops], "op_calls": len(trace)}
+            if level == "O2":
+                row["fault_out_err"] = max(
+                    scaled_err(a.float().cpu(), b.float())
+                    for a, b in zip(run(faulty, level, white)[0], outs_c))
+            log(f"rnn-amp: {name} (B={RNN_B}, T={RNN_T}, hidden {RNN_H}), "
+                f"ops {ops} x{len(trace)}; card vs CPU: outputs and states "
+                f"{e_out:.3g} (tol {tv:g}), gradients {e_grad:.3g} (tol "
+                f"{tg:g})" + (f", planted fault {row['fault_out_err']:.3g}"
+                              if "fault_out_err" in row else "")
+                + f"; forward + backward {ms:.4f} ms (CUDA events) "
+                f"[{power}]")
+            if e_out > tv or e_grad > tg:
+                bad.append(f"{name} disagrees with the CPU")
+            if row.get("fault_out_err", tv + 1) <= tv:
+                bad.append(f"{name}: the planted fault is within the limit")
+        del cpu, gpu, faulty
+    torch.cuda.empty_cache()
+    if bad:
+        fail("rnn-amp: " + "; ".join(bad))
+    return rows
+
+
 def eval_pair(make, xs, dtype):
     """``make(num_classes=1000)`` on the card and on the CPU in ``dtype``
     with the card's weights, in evaluation mode with the running stats of
@@ -3720,6 +4324,7 @@ def main() -> int:
 
     import paddle_tpu_torch.nn as tnn
     from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
     from paddle_tpu_torch.jit import (TrainStep, functional_loss_call,
                                       loss_and_grads, loss_closure)
     from paddle_tpu_torch.models import (GPT, Bert, BertConfig, bert_base,
@@ -5303,6 +5908,26 @@ def main() -> int:
     dense_row["dense_phases_s"] = time.perf_counter() - t_dense
     log(f"dense nn phases (24-26): {dense_row['dense_phases_s']:.1f} s of "
         "wall time")
+
+    # -- 27. resnet50-gn ----------------------------------------------------
+    # -- 28. sn-dcgan -------------------------------------------------------
+    # -- 29. sparse-embedding -----------------------------------------------
+    # -- 30. norm-breadth and rnn-amp ---------------------------------------
+    # the Layer slice: no hand-written kernel lies on these paths either
+    t_layer = time.perf_counter()
+    layer_row = {
+        "resnet50_gn": resnet50_gn_phase(tnn, tnn.functional, resnet18,
+                                         resnet50, TrainStep, Momentum,
+                                         power, r_ms),
+        "sn_dcgan": sn_dcgan_phase(tnn, topt, power,
+                                   dense_row["dcgan_iteration_ms"]),
+        "sparse_embedding": sparse_embedding_phase(tnn, topt, SelectedRows,
+                                                   power),
+        "norm_breadth": norm_breadth(tnn, tnn.functional, power),
+        "rnn_amp": rnn_amp_phase(tnn, amp, power)}
+    layer_row["layer_phases_s"] = time.perf_counter() - t_layer
+    log(f"layer phases (27-30): {layer_row['layer_phases_s']:.1f} s of "
+        "wall time")
     for row in table:
         log(json.dumps(row))
 
@@ -5354,7 +5979,7 @@ def main() -> int:
         "seq2seq_check_max_abs_err": list(s2s_err),
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
-        "eager_small_optimizer_err": opt_errs, **dense_row,
+        "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

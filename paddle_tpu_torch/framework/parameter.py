@@ -10,6 +10,11 @@
 - ``regularizer``: a coupled decay that wins over the optimizer's;
 - ``is_bias``.
 
+``gradient()`` gives the gradient as a numpy array (None without one)
+and ``clear_gradient(set_to_zero=False)`` drops it or makes it zeros; a
+row-sparse gradient (``embedding(sparse=True)``) is densified by both,
+as the reference's are (``core.py:490-502``).
+
 Arithmetic on a ``Parameter`` gives plain tensors, as on any
 ``nn.Parameter``.  A deep copy or a pickled copy keeps every attribute,
 the name included, as the reference's ``copy.deepcopy`` does (so the
@@ -23,7 +28,7 @@ import itertools
 import torch
 from torch import nn
 
-__all__ = ["Parameter"]
+__all__ = ["Parameter", "clear_gradient"]
 
 _count = itertools.count(1)
 
@@ -41,6 +46,17 @@ class Parameter(nn.Parameter):
         p.regularizer = regularizer
         p.is_bias = is_bias
         return p
+
+    def gradient(self):
+        if self.grad is None:
+            return None
+        from paddle_tpu_torch.framework.selected_rows import dense
+        return dense(self.grad).detach().cpu().numpy()
+
+    def clear_gradient(self, set_to_zero=False):
+        clear_gradient(self, set_to_zero)
+
+    clear_grad = clear_gradient
 
     def __deepcopy__(self, memo):
         if id(self) not in memo:
@@ -62,3 +78,15 @@ def _rebuild(cls, data, requires_grad, attrs):
     p.__dict__.update(attrs)
     p.requires_grad_(requires_grad)
     return p
+
+
+def clear_gradient(p, set_to_zero=False):
+    """Drop ``p``'s gradient, or with ``set_to_zero`` make it dense
+    zeros."""
+    if set_to_zero and p.grad is not None:
+        if p.grad.is_sparse:
+            p.grad = torch.zeros_like(p)
+        else:
+            p.grad.zero_()
+    else:
+        p.grad = None

@@ -57,6 +57,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.framework.flags import flag
+from paddle_tpu_torch.framework.selected_rows import dense_gradients
 from paddle_tpu_torch.jit import recompute as _recompute
 from paddle_tpu_torch.jit.recompute import substituted_call
 
@@ -73,21 +74,25 @@ def functional_loss_call(model, loss_fn, params: dict, inputs,
     that are not the module's own parameters (new parameters carried from
     step to step, ``TrainStep`` under ``check_nan_inf``) stand in for
     them.  The module's buffers are used, and updated by a training
-    forward, as they are: never cast."""
-    if not amp and all(isinstance(p, nn.Parameter) for p in params.values()):
-        loss = loss_fn(model, *inputs)
-    elif not amp:
-        loss = substituted_call(
-            model, loss_fn, {f"model.{n}": p for n, p in params.items()},
-            inputs)
-    else:
-        cast = {f"model.{n}": (p.to(amp_dtype)
-                               if p.is_floating_point() and p.dim() >= 1
-                               else p)
-                for n, p in params.items()}
-        inputs = [i.to(amp_dtype) if i.is_floating_point() else i
-                  for i in inputs]
-        loss = substituted_call(model, loss_fn, cast, inputs)
+    forward, as they are: never cast.  Every gradient is dense,
+    ``embedding(sparse=True)``'s included, as under the reference's
+    trace."""
+    with dense_gradients():
+        if not amp and all(isinstance(p, nn.Parameter)
+                           for p in params.values()):
+            loss = loss_fn(model, *inputs)
+        elif not amp:
+            loss = substituted_call(
+                model, loss_fn, {f"model.{n}": p for n, p in params.items()},
+                inputs)
+        else:
+            cast = {f"model.{n}": (p.to(amp_dtype)
+                                   if p.is_floating_point() and p.dim() >= 1
+                                   else p)
+                    for n, p in params.items()}
+            inputs = [i.to(amp_dtype) if i.is_floating_point() else i
+                      for i in inputs]
+            loss = substituted_call(model, loss_fn, cast, inputs)
     return loss.float()
 
 
@@ -110,8 +115,9 @@ def loss_closure(model, loss_fn: Callable, amp_level=None,
 
 def loss_and_grads(loss_from, params: dict, inputs):
     """(detached f32 loss, {name: gradient}) of one batch; an unused
-    parameter gets a zero gradient, as jax.grad gives it."""
-    with torch.enable_grad():
+    parameter gets a zero gradient, as jax.grad gives it.  Every gradient
+    is dense, a recompute region's replay included."""
+    with torch.enable_grad(), dense_gradients():
         loss = loss_from(params, inputs)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)

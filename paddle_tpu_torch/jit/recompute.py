@@ -48,6 +48,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.framework.replay import regions
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["recompute", "recompute_capturing", "substituted_call"]
 
@@ -62,7 +63,7 @@ def _subs() -> list:
     return st
 
 
-class _Bound(nn.Module):
+class _Bound(Layer):
     """``fn(model, *inputs)`` as a module, so that
     ``torch.func.functional_call`` can swap the model's parameters."""
 

@@ -36,13 +36,13 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from paddle_tpu_torch.amp import _op_scope, amp_cast_for_op
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.framework.parameter import Parameter
 from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
+from paddle_tpu_torch.nn.layer.layers import Layer
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 
 __all__ = ["BertConfig", "Bert", "bert_base", "bert_tiny",
@@ -134,7 +134,7 @@ def init_params(c: BertConfig) -> dict:
     return {n: p[n] for n in _PARAM_ORDER}
 
 
-class Bert(nn.Module):
+class Bert(Layer):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
         self.config = config

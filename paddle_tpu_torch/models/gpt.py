@@ -48,7 +48,6 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from paddle_tpu_torch.amp import _op_scope, amp_cast_for_op
 from paddle_tpu_torch.device import resolve_device
@@ -56,6 +55,7 @@ from paddle_tpu_torch.framework.parameter import Parameter
 from paddle_tpu_torch.framework.flags import flag
 from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
+from paddle_tpu_torch.nn.layer.layers import Layer
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 from paddle_tpu_torch.ops.cuda import fused_ce
 
@@ -152,7 +152,7 @@ def init_params(c: GPTConfig) -> dict:
     return p
 
 
-class GPT(nn.Module):
+class GPT(Layer):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config

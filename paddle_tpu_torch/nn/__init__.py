@@ -1,6 +1,6 @@
-"""Neural-network layers, functionals, initializers, decoding and
-gradient clipping of the port."""
-from paddle_tpu_torch.nn import functional, initializer  # noqa: F401
+"""Neural-network layers (on the base class ``Layer``), functionals,
+initializers, ``utils``, decoding and gradient clipping of the port."""
+from paddle_tpu_torch.nn import functional, initializer, utils  # noqa: F401
 from paddle_tpu_torch.nn.clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_)
 from paddle_tpu_torch.nn.decode import (  # noqa: F401
@@ -12,16 +12,18 @@ from paddle_tpu_torch.nn.layer import (  # noqa: F401
     BatchNorm3D, BCELoss, BCEWithLogitsLoss, Bilinear, BiRNN, CELU, Conv1D,
     Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose,
     CosineEmbeddingLoss, CosineSimilarity, CrossEntropyLoss, CTCLoss,
-    Dropout, Dropout2D, Dropout3D, ELU, Embedding, Flatten, Fold, GELU, GLU,
-    GRU, GRUCell, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
-    HingeEmbeddingLoss, HSigmoidLoss, Identity, KLDivLoss, L1Loss,
-    LayerNorm, LeakyReLU, Linear, LogSigmoid, LogSoftmax, LSTM, LSTMCell,
-    MarginRankingLoss, Maxout, MaxPool1D, MaxPool2D, MaxPool3D, Mish,
-    MSELoss, MultiHeadAttention, NCELoss, NLLLoss, Pad1D, Pad2D, Pad3D,
-    PairwiseDistance, ParamAttr, PixelShuffle, PReLU, ReLU, ReLU6, RNN,
-    RNNCellBase, SELU, Sequential, Sigmoid, SigmoidFocalLoss, Silu,
-    SimpleRNN, SimpleRNNCell, SmoothL1Loss, SoftMarginLoss, Softmax,
-    Softplus, Softshrink, Softsign, Swish, Tanh, Tanhshrink,
+    Dropout, Dropout2D, Dropout3D, ELU, Embedding, Flatten, Fold, GELU,
+    GLU, GroupNorm, GRU, GRUCell, Hardshrink, Hardsigmoid, Hardswish,
+    Hardtanh, HingeEmbeddingLoss, HookRemoveHelper, HSigmoidLoss, Identity,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, KLDivLoss, L1Loss,
+    Layer, LayerList, LayerNorm, LeakyReLU, Linear, LocalResponseNorm,
+    LogSigmoid, LogSoftmax, LSTM, LSTMCell, MarginRankingLoss, Maxout,
+    MaxPool1D, MaxPool2D, MaxPool3D, Mish, MSELoss, MultiHeadAttention,
+    NCELoss, NLLLoss, Pad1D, Pad2D, Pad3D, PairwiseDistance, ParamAttr,
+    ParameterList, PixelShuffle, PReLU, ReLU, ReLU6, RNN, RNNCellBase,
+    SELU, Sequential, Sigmoid, SigmoidFocalLoss, Silu, SimpleRNN,
+    SimpleRNNCell, SmoothL1Loss, SoftMarginLoss, Softmax, Softplus,
+    Softshrink, Softsign, SpectralNorm, Swish, Tanh, Tanhshrink,
     ThresholdedReLU, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
     TripletMarginLoss, Unfold, Upsample, UpsamplingBilinear2D,

@@ -1,8 +1,8 @@
 """Functional ops of the port: attention, linear, the dropouts, embedding,
 one-hot and label smoothing, padding, interpolation, fold / unfold, the
-distances and shuffles, the activations and softmaxes, layer and batch
-norm, convolutions and their transposes, pooling, the losses and the
-long tail of ``extras.py``."""
+distances and shuffles, the activations and softmaxes, the norms,
+convolutions and their transposes, pooling, the losses and the long tail
+of ``extras.py``."""
 from paddle_tpu_torch.nn.functional.activation import (  # noqa: F401
     celu, elu, gelu, glu, gumbel_softmax, hardshrink, hardsigmoid, hardswish,
     hardtanh, leaky_relu, log_sigmoid, log_softmax, maxout, mish, prelu,
@@ -32,7 +32,8 @@ from paddle_tpu_torch.nn.functional.loss import (  # noqa: F401
     soft_margin_loss, softmax_with_cross_entropy, square_error_cost,
     triplet_margin_loss)
 from paddle_tpu_torch.nn.functional.norm import (  # noqa: F401
-    batch_norm, layer_norm)
+    batch_norm, group_norm, instance_norm, layer_norm, local_response_norm,
+    normalize)
 from paddle_tpu_torch.nn.functional.pooling import (  # noqa: F401
     adaptive_avg_pool1d, adaptive_avg_pool2d, adaptive_avg_pool3d,
     adaptive_max_pool1d, adaptive_max_pool2d, adaptive_max_pool3d,

@@ -25,7 +25,9 @@ when None); only the distribution matches the reference's ``jax.random``
 bits.  ``pixel_shuffle``, ``pixel_unshuffle`` and ``channel_shuffle`` take
 NCHW: the reference reads every input as NCHW whatever ``data_format``
 says, and the port raises ``NotImplementedError`` on another.
-``class_center_sample`` raises, as in the reference."""
+``class_center_sample`` raises, as in the reference.
+``embedding(sparse=True)`` gives a row-sparse gradient
+(``framework/selected_rows.py``)."""
 from __future__ import annotations
 
 import torch
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.amp import amp_cast_for_op, amp_op
 from paddle_tpu_torch.framework.replay import note_generator
+from paddle_tpu_torch.framework.selected_rows import sparse_allowed
 
 __all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "embedding", "one_hot", "pad", "zeropad2d", "interpolate",
@@ -64,7 +67,11 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x
     (x,) = amp_cast_for_op("dropout", [x])
     if p == 1:
-        return torch.zeros_like(x)
+        # zeros on autograd's tape, whatever x holds: x gets a zero
+        # gradient, as through the reference's zeros_like (x * 0 would
+        # give NaN at an infinite x)
+        return torch.where(torch.zeros((), dtype=torch.bool,
+                                       device=x.device), x, 0.0)
     shape = list(x.shape)
     if axis is not None:
         axes = [axis] if isinstance(axis, int) else list(axis)
@@ -113,21 +120,50 @@ def alpha_dropout(x, p=0.5, training=True, name=None, generator=None):
     return a_coef * torch.where(keep, x, alpha_p) + b_coef
 
 
+class _SparseEmbedding(torch.autograd.Function):
+    """The lookup whose backward gives the table a row-sparse gradient
+    (reference ``_sparse_embedding`` :95-140): an uncoalesced sparse COO
+    tensor with one row a looked-up id, the rows of ``padding_idx`` zero
+    (``framework/selected_rows.py``)."""
+
+    @staticmethod
+    def forward(ctx, ids, weight, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.padding_idx = padding_idx
+        ctx.table = tuple(weight.shape)
+        return _lookup(ids, weight, padding_idx)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (ids,) = ctx.saved_tensors
+        rows = ids.reshape(-1)
+        flat = cot.reshape(rows.shape[0], ctx.table[1])
+        if ctx.padding_idx is not None:
+            flat = flat.masked_fill((rows == ctx.padding_idx)[:, None], 0.0)
+        return None, torch.sparse_coo_tensor(
+            rows[None], flat, ctx.table, check_invariants=False), None
+
+
+def _lookup(ids, weight, padding_idx):
+    out = torch.nn.functional.embedding(ids, weight)
+    if padding_idx is not None:
+        out = out.masked_fill((ids == padding_idx)[..., None], 0.0)
+    return out
+
+
 @amp_op("embedding")
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of ``weight`` looked up by the integer ids ``x`` (reference
-    ``:77``, the dense path); the rows of ids equal to ``padding_idx`` are
-    zero and pass no gradient.  ``sparse=True``, the reference's
-    SelectedRows gradient (``:98``), has no counterpart in the port and
-    raises."""
-    if sparse:
-        raise NotImplementedError(
-            "embedding(sparse=True): the SelectedRows gradient is not "
-            "ported; use sparse=False")
-    out = torch.nn.functional.embedding(x.long(), weight)
-    if padding_idx is not None:
-        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
-    return out
+    ``:77``); the rows of ids equal to ``padding_idx`` are zero and pass
+    no gradient.  ``sparse=True`` gives a leaf table that requires grad a
+    row-sparse gradient (reference ``:98``); the dense path is taken
+    otherwise, and inside ``framework.selected_rows.dense_gradients``
+    (the functional step), as the reference takes it under a trace."""
+    ids = x.long()
+    if (sparse and sparse_allowed() and torch.is_grad_enabled()
+            and weight.is_leaf and weight.requires_grad):
+        return _SparseEmbedding.apply(ids, weight, padding_idx)
+    return _lookup(ids, weight, padding_idx)
 
 
 @amp_op("one_hot")

@@ -1,9 +1,10 @@
-"""Layers of the port: ``ParamAttr``, linear, the dropouts, embedding,
-flatten, upsampling, bilinear, the distances, pads, fold / unfold, pixel
-shuffle, the activations, norms, convolutions and their transposes,
-pooling, the loss layers, the recurrent layers and the transformer.  ``Sequential`` is ``torch.nn.Sequential``, whose
-children are named ``0``, ``1``, ... as the reference's are."""
-from torch.nn import Sequential  # noqa: F401
+"""Layers of the port: the base class ``Layer`` and the containers
+``Sequential``, ``LayerList`` and ``ParameterList``; ``ParamAttr``,
+linear, the dropouts, embedding, flatten, upsampling, bilinear, the
+distances, pads, fold / unfold, pixel shuffle, the activations, norms,
+convolutions and their transposes, pooling, the loss layers, the
+recurrent layers and the transformer.  Every layer derives from
+``Layer``."""
 
 from paddle_tpu_torch.nn.layer.activation import (  # noqa: F401
     CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
@@ -18,13 +19,17 @@ from paddle_tpu_torch.nn.layer.common import (  # noqa: F401
 from paddle_tpu_torch.nn.layer.conv import (  # noqa: F401
     Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
     Conv3DTranspose)
+from paddle_tpu_torch.nn.layer.layers import (  # noqa: F401
+    HookRemoveHelper, Layer, LayerList, ParameterList, Sequential)
 from paddle_tpu_torch.nn.layer.loss import (  # noqa: F401
     BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
     CTCLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss, L1Loss,
     MarginRankingLoss, MSELoss, NCELoss, NLLLoss, SigmoidFocalLoss,
     SmoothL1Loss, SoftMarginLoss, TripletMarginLoss)
 from paddle_tpu_torch.nn.layer.norm import (  # noqa: F401
-    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm)
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, SpectralNorm)
 from paddle_tpu_torch.nn.layer.pooling import (  # noqa: F401
     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,

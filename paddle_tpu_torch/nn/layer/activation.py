@@ -4,10 +4,10 @@ weight (``init`` 0.25, one or ``num_parameters``), created on the card
 unless ``device="cpu"``."""
 from __future__ import annotations
 
-from torch import nn
 
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.initializer import Constant
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["ReLU", "ReLU6", "ELU", "SELU", "CELU", "GELU", "Sigmoid",
            "Hardsigmoid", "Hardswish", "Hardtanh", "Hardshrink", "Softshrink",
@@ -19,7 +19,7 @@ __all__ = ["ReLU", "ReLU6", "ELU", "SELU", "CELU", "GELU", "Sigmoid",
 def _simple(fname, cls_name, **defaults):
     """A layer that calls ``F.<fname>`` with its keyword arguments (the
     reference's ``_simple`` :15)."""
-    class _Act(nn.Module):
+    class _Act(Layer):
         def __init__(self, **kwargs):
             super().__init__()
             self._kwargs = {**defaults, **{k: v for k, v in kwargs.items()
@@ -45,7 +45,7 @@ Softsign = _simple("softsign", "Softsign")
 Tanh = _simple("tanh", "Tanh")
 
 
-class ELU(nn.Module):
+class ELU(Layer):
     def __init__(self, alpha=1.0, name=None):
         super().__init__()
         self.alpha = alpha
@@ -54,7 +54,7 @@ class ELU(nn.Module):
         return F.elu(x, self.alpha)
 
 
-class SELU(nn.Module):
+class SELU(Layer):
     def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
                  name=None):
         super().__init__()
@@ -64,7 +64,7 @@ class SELU(nn.Module):
         return F.selu(x, self.scale, self.alpha)
 
 
-class CELU(nn.Module):
+class CELU(Layer):
     def __init__(self, alpha=1.0, name=None):
         super().__init__()
         self.alpha = alpha
@@ -73,7 +73,7 @@ class CELU(nn.Module):
         return F.celu(x, self.alpha)
 
 
-class GELU(nn.Module):
+class GELU(Layer):
     def __init__(self, approximate=False, name=None):
         super().__init__()
         self.approximate = approximate
@@ -82,7 +82,7 @@ class GELU(nn.Module):
         return F.gelu(x, self.approximate)
 
 
-class Hardsigmoid(nn.Module):
+class Hardsigmoid(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -90,7 +90,7 @@ class Hardsigmoid(nn.Module):
         return F.hardsigmoid(x)
 
 
-class Hardtanh(nn.Module):
+class Hardtanh(Layer):
     def __init__(self, min=-1.0, max=1.0, name=None):
         super().__init__()
         self.min, self.max = min, max
@@ -99,7 +99,7 @@ class Hardtanh(nn.Module):
         return F.hardtanh(x, self.min, self.max)
 
 
-class Hardshrink(nn.Module):
+class Hardshrink(Layer):
     def __init__(self, threshold=0.5, name=None):
         super().__init__()
         self.threshold = threshold
@@ -108,7 +108,7 @@ class Hardshrink(nn.Module):
         return F.hardshrink(x, self.threshold)
 
 
-class Softshrink(nn.Module):
+class Softshrink(Layer):
     def __init__(self, threshold=0.5, name=None):
         super().__init__()
         self.threshold = threshold
@@ -117,7 +117,7 @@ class Softshrink(nn.Module):
         return F.softshrink(x, self.threshold)
 
 
-class LeakyReLU(nn.Module):
+class LeakyReLU(Layer):
     def __init__(self, negative_slope=0.01, name=None):
         super().__init__()
         self.negative_slope = negative_slope
@@ -126,7 +126,7 @@ class LeakyReLU(nn.Module):
         return F.leaky_relu(x, self.negative_slope)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format="NCHW", name=None, device=None):
         super().__init__()
@@ -139,7 +139,7 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight, self._data_format)
 
 
-class Maxout(nn.Module):
+class Maxout(Layer):
     def __init__(self, groups, axis=1, name=None):
         super().__init__()
         self.groups, self.axis = groups, axis
@@ -148,7 +148,7 @@ class Maxout(nn.Module):
         return F.maxout(x, self.groups, self.axis)
 
 
-class Softmax(nn.Module):
+class Softmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self.axis = axis
@@ -157,7 +157,7 @@ class Softmax(nn.Module):
         return F.softmax(x, self.axis)
 
 
-class LogSoftmax(nn.Module):
+class LogSoftmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self.axis = axis
@@ -166,7 +166,7 @@ class LogSoftmax(nn.Module):
         return F.log_softmax(x, self.axis)
 
 
-class Softplus(nn.Module):
+class Softplus(Layer):
     def __init__(self, beta=1.0, threshold=20.0, name=None):
         super().__init__()
         self.beta, self.threshold = beta, threshold
@@ -175,7 +175,7 @@ class Softplus(nn.Module):
         return F.softplus(x, self.beta, self.threshold)
 
 
-class ThresholdedReLU(nn.Module):
+class ThresholdedReLU(Layer):
     def __init__(self, threshold=1.0, name=None):
         super().__init__()
         self.threshold = threshold
@@ -184,7 +184,7 @@ class ThresholdedReLU(nn.Module):
         return F.thresholded_relu(x, self.threshold)
 
 
-class GLU(nn.Module):
+class GLU(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self.axis = axis

@@ -15,12 +15,12 @@ an ``nn.initializer`` instance or a ``str`` name; the parameter is made by
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.initializer import (Initializer, XavierUniform,
                                              _create_param)
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["ParamAttr", "Linear", "Dropout", "Dropout2D", "Dropout3D",
            "AlphaDropout", "Embedding", "Flatten", "Upsample",
@@ -71,7 +71,7 @@ def make_param(shape, attr, default_initializer=None, is_bias=False,
                          device=resolve_device(device))
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x @ W + b with W (in_features, out_features) (reference
     ``:60``)."""
 
@@ -95,7 +95,7 @@ class Linear(nn.Module):
                 f"out_features={self.out_features}")
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Dropout (reference ``:95``) in training mode, the identity in
     evaluation mode; the keep mask is drawn from ``generator`` (the default
     generator of the input's device when None)."""
@@ -116,7 +116,7 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
 
@@ -124,7 +124,7 @@ class Identity(nn.Module):
         return x
 
 
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     """Drops whole channels in training mode (reference ``:108``)."""
 
     def __init__(self, p=0.5, data_format="NCHW", name=None, generator=None):
@@ -150,7 +150,7 @@ class Dropout3D(Dropout2D):
                            generator=self.generator)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p=0.5, name=None, generator=None):
         super().__init__()
         self.p = p
@@ -161,23 +161,21 @@ class AlphaDropout(nn.Module):
                                generator=self.generator)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """A (num_embeddings, embedding_dim) table looked up by integer ids
     (reference ``:141``): Xavier-uniform, the ``padding_idx`` row zeroed at
     construction (a negative one counts from the end) and its lookups zero.
-    ``sparse=True`` is not ported and raises."""
+    ``sparse=True`` gives the table a row-sparse gradient in the eager
+    loop (``F.embedding``)."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, device=None):
         super().__init__()
         if weight_attr is False:
             raise ValueError("Embedding needs a weight")
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True): the SelectedRows gradient is not "
-                "ported; use sparse=False")
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
+        self._sparse = sparse
         self._padding_idx = (padding_idx if padding_idx is None or
                              padding_idx >= 0 else num_embeddings + padding_idx)
         self.weight = make_param([num_embeddings, embedding_dim],
@@ -187,13 +185,14 @@ class Embedding(nn.Module):
                 self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Flattens dims ``start_axis`` to ``stop_axis`` into one (reference
     ``:167``)."""
 
@@ -206,7 +205,7 @@ class Flatten(nn.Module):
         return torch.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     """``F.interpolate`` with its arguments held (reference ``:176``)."""
 
     def __init__(self, size=None, scale_factor=None, mode="nearest",
@@ -238,7 +237,7 @@ class UpsamplingBilinear2D(Upsample):
         super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
 
 
-class Bilinear(nn.Module):
+class Bilinear(Layer):
     """out = x1 @ W[o] @ x2 + b with W (out, in1, in2), Xavier-uniform, and
     a zero bias (reference ``:209``)."""
 
@@ -256,7 +255,7 @@ class Bilinear(nn.Module):
         return F.bilinear(x1, x2, self.weight, self.bias)
 
 
-class CosineSimilarity(nn.Module):
+class CosineSimilarity(Layer):
     def __init__(self, axis=1, eps=1e-8):
         super().__init__()
         self.axis = axis
@@ -266,7 +265,7 @@ class CosineSimilarity(nn.Module):
         return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
 
 
-class PairwiseDistance(nn.Module):
+class PairwiseDistance(Layer):
     def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
         super().__init__()
         self.p = p
@@ -277,7 +276,7 @@ class PairwiseDistance(nn.Module):
         return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
 
 
-class _PadNd(nn.Module):
+class _PadNd(Layer):
     _width = 1
 
     def __init__(self, padding, mode="constant", value=0.0,
@@ -317,7 +316,7 @@ class ZeroPad2D(Pad2D):
         super().__init__(padding, "constant", 0.0, data_format)
 
 
-class Unfold(nn.Module):
+class Unfold(Layer):
     def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
                  name=None):
         super().__init__()
@@ -327,7 +326,7 @@ class Unfold(nn.Module):
         return F.unfold(x, *self.args)
 
 
-class Fold(nn.Module):
+class Fold(Layer):
     def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
                  dilations=1, name=None):
         super().__init__()
@@ -338,7 +337,7 @@ class Fold(nn.Module):
         return F.fold(x, self.output_sizes, *self.args)
 
 
-class PixelShuffle(nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor, data_format="NCHW", name=None):
         super().__init__()
         self.upscale_factor = upscale_factor

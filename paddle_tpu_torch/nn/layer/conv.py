@@ -14,18 +14,18 @@ ported.  A transposed layer's ``forward(x, output_size=None)`` passes
 """
 from __future__ import annotations
 
-from torch import nn
 
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional.conv import _tuplify
 from paddle_tpu_torch.nn.initializer import XavierUniform
 from paddle_tpu_torch.nn.layer.common import make_param
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose"]
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _fn = None
 
     def __init__(self, in_channels, out_channels, kernel_size, n, stride=1,

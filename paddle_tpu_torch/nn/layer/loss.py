@@ -13,11 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.framework.parameter import Parameter
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
@@ -26,7 +26,7 @@ __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "SoftMarginLoss", "HSigmoidLoss", "NCELoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True, name=None):
         super().__init__()
@@ -45,7 +45,7 @@ class CrossEntropyLoss(nn.Module):
                                use_softmax=self.use_softmax)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -58,7 +58,7 @@ class NLLLoss(nn.Module):
                           self.reduction)
 
 
-class _Reduced(nn.Module):
+class _Reduced(Layer):
     """A loss functional of (input, label) and a reduction."""
     _fn = None
 
@@ -86,7 +86,7 @@ class KLDivLoss(_Reduced):
     _fn = staticmethod(F.kl_div)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -97,7 +97,7 @@ class BCELoss(nn.Module):
                                       self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -110,7 +110,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -120,7 +120,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -131,7 +131,7 @@ class MarginRankingLoss(nn.Module):
                                      self.reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin=1.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -142,7 +142,7 @@ class HingeEmbeddingLoss(nn.Module):
                                       self.reduction)
 
 
-class CosineEmbeddingLoss(nn.Module):
+class CosineEmbeddingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin
@@ -153,7 +153,7 @@ class CosineEmbeddingLoss(nn.Module):
                                        self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         self.blank = blank
@@ -165,7 +165,7 @@ class CTCLoss(nn.Module):
                           self.blank, self.reduction, norm_by_times)
 
 
-class SigmoidFocalLoss(nn.Module):
+class SigmoidFocalLoss(Layer):
     def __init__(self, alpha=0.25, gamma=2.0, normalizer=None,
                  reduction="sum", name=None):
         super().__init__()
@@ -178,7 +178,7 @@ class SigmoidFocalLoss(nn.Module):
                                     self.gamma, self.reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
                  reduction="mean", name=None):
         super().__init__()
@@ -200,7 +200,7 @@ def _uniform_head(rng, rows, dim, bias, prefix, device):
                              name=f"{prefix}_b")
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """Hierarchical sigmoid head over the complete binary tree of
     ``num_classes`` leaves (reference ``:185-216``), or over a custom tree
     given to ``forward`` as ``path_table`` / ``path_code``."""
@@ -221,7 +221,7 @@ class HSigmoidLoss(nn.Module):
                                path_code=path_code)
 
 
-class NCELoss(nn.Module):
+class NCELoss(Layer):
     """Noise-contrastive estimation head (reference ``:217-277``): the
     true class against ``num_neg_samples`` uniform noise ids, scores
     corrected by log(k / V); returns the (B, 1) losses."""

@@ -1,5 +1,7 @@
-"""``LayerNorm`` and the batch norms (port of paddle_tpu/nn/layer/norm.py
-``_BatchNormBase`` :23-90 and ``LayerNorm`` :119).
+"""The norm layers (port of paddle_tpu/nn/layer/norm.py): ``LayerNorm``
+(:119), the batch norms (``_BatchNormBase`` :23-90), ``GroupNorm``,
+``InstanceNorm1D/2D/3D``, ``LocalResponseNorm`` and ``SpectralNorm``
+(:149-260).
 
 A batch norm keeps its running statistics as the buffers ``_mean``
 (zeros) and ``_variance`` (ones), the reference's state-dict keys
@@ -7,22 +9,36 @@ A batch norm keeps its running statistics as the buffers ``_mean``
 is ones and its bias zeros.  ``train()`` and ``eval()`` (PyTorch's
 ``training`` flag) choose the batch's statistics, which update the
 buffers in place, or the running ones.  ``SyncBatchNorm`` is not ported.
+
+``GroupNorm`` and the instance norms hold a weight of ones and a bias of
+zeros (``weight_attr`` / ``bias_attr`` False drop them) and no running
+statistics.  ``SpectralNorm(weight_shape)`` divides the weight it is
+called on by its largest singular value, estimated by ``power_iters``
+steps of the power iteration along ``dim`` from the vectors ``weight_u``
+and ``weight_v``: Xavier-uniform parameters that take no gradient and
+are never updated, as in the reference (each call starts from them and
+drops its result); the gradient flows through the iteration to the
+weight.
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
+import math
 
+import torch
+
+from paddle_tpu_torch.amp import _op_scope, amp_cast_for_op
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.initializer import Constant
+from paddle_tpu_torch.nn.initializer import Constant, _create_param
 from paddle_tpu_torch.nn.layer.common import make_param
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D"]
+           "BatchNorm3D", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+           "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Layer normalisation over the trailing ``normalized_shape`` dims with
     a weight of ones and a bias of zeros (``weight_attr`` / ``bias_attr``
     False drop them, a ``ParamAttr`` overrides them), created on the card
@@ -48,7 +64,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self._normalized_shape}"
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """Batch normalisation over ``num_features`` channels (Paddle's
     ``momentum``: the share of the running statistics kept each step)."""
 
@@ -113,3 +129,116 @@ class BatchNorm2D(_BatchNormBase):
 
 class BatchNorm3D(_BatchNormBase):
     pass
+
+
+class GroupNorm(Layer):
+    """``F.group_norm`` over ``num_groups`` groups of ``num_channels``
+    (reference ``:149``), created on the card unless ``device="cpu"``."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, device=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._num_channels = num_channels
+        self._epsilon = epsilon
+        self._data_format = data_format
+        dev = resolve_device(device)
+        self.weight = make_param([num_channels], weight_attr, Constant(1.0),
+                                 device=dev)
+        self.bias = make_param([num_channels], bias_attr, is_bias=True,
+                               device=dev)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+    def extra_repr(self):
+        return (f"num_groups={self._num_groups}, "
+                f"num_channels={self._num_channels}")
+
+
+class _InstanceNormBase(Layer):
+    """``F.instance_norm`` with ``num_features`` channels (reference
+    ``:176``); ``momentum`` and ``data_format`` are read by nothing, as in
+    the reference."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        dev = resolve_device(device)
+        self.weight = make_param([num_features], weight_attr, Constant(1.0),
+                                 device=dev)
+        self.bias = make_param([num_features], bias_attr, is_bias=True,
+                               device=dev)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    """``F.local_response_norm`` with its arguments held (reference
+    ``:212``)."""
+
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k, self.data_format)
+
+
+def _l2(t):
+    return torch.sqrt(torch.sum(t * t))
+
+
+class SpectralNorm(Layer):
+    """The weight it is called on divided by its spectral norm (reference
+    ``:227-260``); one op ``spectral_norm`` for ``amp.auto_cast``."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, dtype="float32", device=None):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = eps
+        dev = resolve_device(device)
+        h = weight_shape[dim]
+        w = math.prod(weight_shape) // h
+        self.weight_u = _create_param([h], dtype, device=dev)
+        self.weight_v = _create_param([w], dtype, device=dev)
+
+    def forward(self, weight):
+        weight, u, v = amp_cast_for_op(
+            "spectral_norm", [weight, self.weight_u.detach(),
+                              self.weight_v.detach()])
+        with _op_scope():
+            wm = weight.movedim(self._dim, 0).reshape(weight.shape[self._dim],
+                                                      -1)
+            for _ in range(self._power_iters):
+                v = wm.T @ u
+                v = v / (_l2(v) + self._eps)
+                u = wm @ v
+                u = u / (_l2(u) + self._eps)
+            return weight / (u @ wm @ v)

@@ -4,9 +4,9 @@
 raises instead of being dropped."""
 from __future__ import annotations
 
-from torch import nn
 
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
@@ -22,7 +22,7 @@ def _check_kwargs(layer, kwargs):
     return {k: v for k, v in kwargs.items() if k != "name"}
 
 
-class _PoolNd(nn.Module):
+class _PoolNd(Layer):
     _fn = None
     _allowed = ("name",)
 
@@ -73,7 +73,7 @@ class MaxPool3D(_PoolNd):
     _allowed = MaxPool1D._allowed
 
 
-class _AdaptivePool(nn.Module):
+class _AdaptivePool(Layer):
     _fn = None
     _allowed = ("name",)
 

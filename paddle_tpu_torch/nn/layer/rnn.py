@@ -12,6 +12,14 @@ step in one product before it, as the reference's scan does
 (``:206-216``).  Layers are created on the card unless ``device="cpu"`` is
 asked for.
 
+Under ``amp.auto_cast`` each cell call is one op, cast by the reference's
+names ``simple_rnn_cell``, ``lstm_cell`` and ``gru_cell`` (its inputs,
+states, weights and biases), and each multi-layer call one op named by the
+layer's mode, ``RNN_TANH``, ``RNN_RELU``, ``LSTM`` or ``GRU`` (its inputs,
+every weight and bias, the initial states); none of these names is on a
+list, so O2 casts them to the AMP dtype and O1 leaves them unless a custom
+list names them.
+
 Where the reference ignores an argument, the port does what PaddlePaddle
 documents for it:
 - ``sequence_length`` ((B,) ints): a sequence's state stops changing after
@@ -27,12 +35,13 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
+from paddle_tpu_torch.amp import _op_scope, amp_cast_for_op
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.initializer import Uniform
 from paddle_tpu_torch.nn.layer.common import make_param
+from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
            "BiRNN", "SimpleRNN", "LSTM", "GRU"]
@@ -113,7 +122,7 @@ def _scan(step, xs, state, sequence_length, reverse):
     return torch.stack(outs), state
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     """A cell's initial states (reference ``:24``)."""
 
     def get_initial_states(self, batch_ref, shape=None, dtype=None,
@@ -138,14 +147,22 @@ class RNNCellBase(nn.Module):
     def forward(self, inputs, states=None):
         if states is None:
             states = self.get_initial_states(inputs)
-        return _recur(self.mode, _project(inputs, self.weight_ih,
-                                          self.bias_ih),
-                      states, self.weight_hh, self.bias_hh)
+        flat = list(states) if isinstance(states, tuple) else [states]
+        x, *cast = amp_cast_for_op(self.OP, [
+            inputs, *flat, self.weight_ih, self.weight_hh, self.bias_ih,
+            self.bias_hh])
+        n = len(flat)
+        w_ih, w_hh, b_ih, b_hh = cast[n:]
+        with _op_scope():
+            return _recur(self.mode, _project(x, w_ih, b_ih),
+                          tuple(cast[:n]) if n > 1 else cast[0], w_hh, b_hh)
 
 
 class SimpleRNNCell(RNNCellBase):
     """h' = act(x W_ih^T + b_ih + h W_hh^T + b_hh), act tanh or relu
     (reference ``:55``)."""
+
+    OP = "simple_rnn_cell"
 
     def __init__(self, input_size, hidden_size, activation="tanh",
                  weight_ih_attr=None, weight_hh_attr=None, bias_ih_attr=None,
@@ -171,6 +188,8 @@ class LSTMCell(RNNCellBase):
     """The LSTM step, gates i, f, g, o; states (h, c) (reference
     ``:92``)."""
 
+    OP = "lstm_cell"
+
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
                  name=None, device=None):
@@ -191,6 +210,8 @@ class GRUCell(RNNCellBase):
     """The GRU step, gates r, z, c, h' = (1 - z) c + z h (reference
     ``:132``)."""
 
+    OP = "gru_cell"
+
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
                  name=None, device=None):
@@ -207,7 +228,7 @@ class GRUCell(RNNCellBase):
         return (self.hidden_size,)
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """A cell run over time, last step first when ``is_reverse``
     (reference ``:175``).  Returns (outputs, final states)."""
 
@@ -227,7 +248,7 @@ class RNN(nn.Module):
         return (out if self.time_major else out.transpose(0, 1)), states
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """A forward and a reverse ``RNN``, outputs concatenated on the last
     axis, states (forward's, reverse's) (reference ``:202``)."""
 
@@ -245,7 +266,7 @@ class BiRNN(nn.Module):
         return torch.cat([out_fw, out_bw], dim=-1), (st_fw, st_bw)
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     """``num_layers`` recurrent layers, one or two directions each
     (reference ``:218``).  States are (num_layers * directions, B, H),
     (h, c) for the LSTM; zeros when not given."""
@@ -286,13 +307,26 @@ class _RNNBase(nn.Module):
 
     def forward(self, inputs, initial_states=None, sequence_length=None):
         lstm = self.mode == "LSTM"
+        names = [n + self._suffix(layer, d) for layer in range(self.num_layers)
+                 for d in range(self._num_dirs)
+                 for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        states = ([] if initial_states is None else
+                  list(initial_states) if lstm else [initial_states])
+        cast = amp_cast_for_op(self.mode, [inputs] + [
+            getattr(self, n) for n in names] + states)
+        with _op_scope():
+            return self._run(cast[0], dict(zip(names, cast[1:len(names) + 1])),
+                             cast[len(names) + 1:], sequence_length)
+
+    def _run(self, inputs, params, states, sequence_length):
+        lstm = self.mode == "LSTM"
         xs = inputs if self.time_major else inputs.transpose(0, 1)
-        if initial_states is None:
+        if not states:
             zero = xs.new_zeros(self.num_layers * self._num_dirs,
                                 xs.shape[1], self.hidden_size)
             h0, c0 = zero, zero
         else:
-            h0, c0 = initial_states if lstm else (initial_states, None)
+            h0, c0 = states if lstm else (states[0], None)
         out, h_n, c_n = xs, [], []
         for layer in range(self.num_layers):
             if layer > 0:
@@ -301,10 +335,10 @@ class _RNNBase(nn.Module):
             outs = []
             for d in range(self._num_dirs):
                 k, sfx = layer * self._num_dirs + d, self._suffix(layer, d)
-                w_hh = getattr(self, "weight_hh" + sfx)
-                b_hh = getattr(self, "bias_hh" + sfx)
-                gi = _project(out, getattr(self, "weight_ih" + sfx),
-                              getattr(self, "bias_ih" + sfx))
+                w_hh = params["weight_hh" + sfx]
+                b_hh = params["bias_hh" + sfx]
+                gi = _project(out, params["weight_ih" + sfx],
+                              params["bias_ih" + sfx])
 
                 def step(g, s, w_hh=w_hh, b_hh=b_hh):
                     return _recur(self.mode, g, s, w_hh, b_hh)

@@ -29,6 +29,7 @@ from torch import nn
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer.common import Dropout, Linear
+from paddle_tpu_torch.nn.layer.layers import Layer, LayerList
 from paddle_tpu_torch.nn.layer.norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
@@ -36,7 +37,7 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerDecoder", "Transformer"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """(B, S, E) multi-head attention with q, k, v and output projections
     (reference ``:36``).  ``dropout`` applies to the attention output in
     training mode, drawn from ``generator``."""
@@ -112,7 +113,7 @@ class MultiHeadAttention(nn.Module):
         return out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention and a feed-forward block, each with a residual and a
     layer norm, post-norm unless ``normalize_before`` (reference
     ``:100``).  ``activation`` names a function of nn.functional ("relu"
@@ -169,13 +170,13 @@ class TransformerEncoderLayer(nn.Module):
         return self.self_attn.gen_cache(src)
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` encoder layers: the one given and fresh clones of it
     (reference ``:147``), then an optional final norm."""
 
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([encoder_layer] + [
+        self.layers = LayerList([encoder_layer] + [
             _clone_layer(encoder_layer) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
         self.norm = norm
@@ -197,7 +198,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory`` and a feed-forward
     block, each with a residual and a layer norm, post-norm unless
     ``normalize_before`` (reference ``:173``).  With ``cache`` (the pair
@@ -281,13 +282,13 @@ class TransformerDecoderLayer(nn.Module):
         return incr, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` decoder layers: the one given and fresh clones of it
     (reference ``:241``), then an optional final norm."""
 
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([decoder_layer] + [
+        self.layers = LayerList([decoder_layer] + [
             _clone_layer(decoder_layer) for _ in range(num_layers - 1)])
         self.num_layers = num_layers
         self.norm = norm
@@ -317,7 +318,7 @@ class TransformerDecoder(nn.Module):
         return caches
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """An encoder-decoder Transformer (reference ``:288``): by default
     Transformer-base (d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
     dropout 0.1, ReLU, post-norm), with a final norm on each side only when

@@ -40,6 +40,18 @@ both paths.  The reference falls back to the unfused update where its
 Pallas kernel is not supported; the port does not: a CUDA tensor takes
 the kernel or raises.
 
+Row-sparse gradients (``embedding(sparse=True)``, a sparse COO ``.grad``;
+``framework/selected_rows.py``) take the reference's sparse branch of the
+eager ``step()`` (``:98-131``): the rows are merged (sorted, a repeated
+row's values summed); ``SGD`` and ``Adam`` update only those rows
+(``update_sparse``; Adam's moments too with ``lazy_mode``, while without
+it the merged rows are densified and take Adam's dense update), with no
+weight decay or regularizer either way; every other optimizer densifies
+the merged rows and takes its dense update, decay included.  A
+``grad_clip`` densifies every gradient first, and the dense update
+follows.  ``AdamW`` is never lazy: it hands its ``lazy_mode`` on to
+nothing, as the reference's ``AdamW`` does.
+
 Not ported, raising ``NotImplementedError`` rather than being ignored:
 ``AdamW(lr_ratio=...)``, AdamW's ``apply_decay_param_fun`` and Lamb's
 ``exclude_from_weight_decay_fn`` on the functional path (the reference's
@@ -54,6 +66,8 @@ import numbers
 
 import torch
 
+from paddle_tpu_torch.framework.parameter import clear_gradient
+from paddle_tpu_torch.framework.selected_rows import SelectedRows, dense
 from paddle_tpu_torch.optimizer.lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "LarsMomentum", "Adam", "AdamW",
@@ -151,13 +165,16 @@ class Optimizer:
         raise NotImplementedError
 
     # -- eager ---------------------------------------------------------------
-    def _grads_and_params(self) -> list:
+    def _grads_and_params(self, densify: bool = False) -> list:
         """(parameter, gradient) of every trainable parameter that has a
-        gradient, clipped by ``grad_clip``."""
+        gradient, clipped by ``grad_clip``; a sparse gradient is merged and
+        densified before a clip, or everywhere with ``densify``."""
         if self._parameter_list is None:
             raise ValueError("Optimizer created without parameters")
         pairs = [(p, p.grad) for p in self._parameter_list
                  if p.grad is not None and _trainable(p)]
+        if densify or self._grad_clip is not None:
+            pairs = [(p, dense(g)) for p, g in pairs]
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
         return pairs
@@ -171,6 +188,20 @@ class Optimizer:
             return grad + reg(p.detach())
         return self._coupled_grad(p.detach(), grad)
 
+    def _step_sparse(self, p, grad, lr):
+        """The sparse branch (reference ``:118-131``): the merged rows
+        through ``update_sparse`` where the optimizer has one, without
+        decay, else densified through the dense update, with it."""
+        state = self._state_for(p)
+        rows = SelectedRows.from_grad(grad).merge()
+        if hasattr(self, "update_sparse"):
+            new_p, new_state = self.update_sparse(p.detach(), rows, state, lr)
+        else:
+            new_p, new_state = self.update(
+                p.detach(), self._apply_decay(p, rows.to_dense()), state, lr)
+        p.copy_(new_p)
+        state.update(new_state)
+
     @torch.no_grad()
     def step(self):
         """One update of every trainable parameter with a gradient, in
@@ -179,6 +210,9 @@ class Optimizer:
         pairs = self._grads_and_params()
         self._global_step += 1
         for p, g in pairs:
+            if g.is_sparse:
+                self._step_sparse(p, g, lr * _lr_scale(p))
+                continue
             state = self._state_for(p)
             new_p, new_state = self.update(
                 p.detach(), self._apply_decay(p, g), state,
@@ -197,11 +231,10 @@ class Optimizer:
 
     @torch.no_grad()
     def clear_grad(self, set_to_zero=False):
+        """Drop every gradient, or with ``set_to_zero`` make it zeros (a
+        sparse one dense zeros, as the reference's ``clear_gradient``)."""
         for p in self._parameter_list or []:
-            if set_to_zero and p.grad is not None:
-                p.grad.zero_()
-            else:
-                p.grad = None
+            clear_gradient(p, set_to_zero)
 
     clear_gradients = clear_grad
 
@@ -280,6 +313,11 @@ class SGD(Optimizer):
     def update(self, param, grad, state, lr):
         return param - _rounded(param.dtype, lr) * grad, {}
 
+    def update_sparse(self, param, rows, state, lr):
+        """Only the merged ``rows`` move (reference ``:219-221``)."""
+        return param.index_add(0, rows.rows, -_rounded(param.dtype, lr)
+                               * rows.values.to(param.dtype)), {}
+
 
 class Momentum(Optimizer):
     """Heavy-ball momentum, optionally Nesterov's (reference ``Momentum``
@@ -353,7 +391,7 @@ class LarsMomentum(Optimizer):
     @torch.no_grad()
     def step(self):
         lr = self.get_lr()
-        pairs = self._grads_and_params()
+        pairs = self._grads_and_params(densify=True)
         self._global_step += 1
         for p, g in pairs:
             state = self._state_for(p)
@@ -381,9 +419,9 @@ class LarsMomentum(Optimizer):
 class Adam(Optimizer):
     """Adam with beta-pow accumulators (reference ``Adam`` :328):
     ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``, formed in the
-    state's dtype.  ``lazy_mode`` concerns sparse gradients, which the port
-    does not produce, and ``multi_precision`` is accepted and, as in the
-    reference, read by nothing."""
+    state's dtype.  ``lazy_mode`` moves only a sparse gradient's rows, and
+    their moments (``update_sparse``); ``multi_precision`` is accepted
+    and, as in the reference, read by nothing."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -393,6 +431,7 @@ class Adam(Optimizer):
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._lazy_mode = bool(lazy_mode)
         self._use_fused = bool(use_fused)
 
     def init_state(self, value) -> dict:
@@ -421,6 +460,32 @@ class Adam(Optimizer):
         new_p = param - lr_t * m / (torch.sqrt(v) + eps)
         return new_p, {"moment1": m, "moment2": v, "beta1_pow": b1p,
                        "beta2_pow": b2p}
+
+    def update_sparse(self, param, rows, state, lr):
+        """The merged ``rows`` of a sparse gradient (reference
+        ``:379-400``): with ``lazy_mode`` the parameter and both moments
+        move on those rows only (the beta pows advance); without it the
+        rows are densified and take the dense update (the fused pass's
+        with ``use_fused``)."""
+        if not self._lazy_mode:
+            g = rows.to_dense()
+            if self._use_fused:
+                (new_p,), (new_state,) = self._fused([param], [g], [state],
+                                                     lr, out=False)
+                return new_p, new_state
+            return self.update(param, g, state, lr)
+        b1p, b2p, lr_t = self._pows_and_rate(state["beta1_pow"],
+                                             state["beta2_pow"], lr)
+        b1, c1, b2, c2, eps = _rounded(
+            param.dtype, self._beta1, 1 - self._beta1, self._beta2,
+            1 - self._beta2, self._epsilon)
+        idx, vals = rows.rows, rows.values.to(param.dtype)
+        m_r = b1 * state["moment1"][idx] + c1 * vals
+        v_r = b2 * state["moment2"][idx] + c2 * vals * vals
+        new_p = param.index_add(0, idx, -lr_t * m_r / (torch.sqrt(v_r) + eps))
+        return new_p, {"moment1": state["moment1"].index_copy(0, idx, m_r),
+                       "moment2": state["moment2"].index_copy(0, idx, v_r),
+                       "beta1_pow": b1p, "beta2_pow": b2p}
 
     def _fused_wd(self):
         """The decoupled decay coefficient of the fused pass: none for
@@ -460,6 +525,9 @@ class Adam(Optimizer):
         # one pass for each learning-rate scale: the kernel takes one decay
         groups: dict = {}
         for p, g in pairs:
+            if g.is_sparse:
+                self._step_sparse(p, g, lr * _lr_scale(p))
+                continue
             groups.setdefault(_lr_scale(p), []).append((p, g))
         for scale, grp in groups.items():
             ps = [p.detach() for p, _ in grp]
@@ -509,8 +577,7 @@ class AdamW(Adam):
             raise NotImplementedError("AdamW lr_ratio: per-parameter rates "
                                       "are not ported")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, lazy_mode, multi_precision,
-                         use_fused)
+                         None, grad_clip, False, multi_precision, use_fused)
         self._coeff = float(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
 
@@ -531,7 +598,7 @@ class AdamW(Adam):
             return super().step()
         lr = self.get_lr()
         self._global_step += 1
-        for p, g in self._grads_and_params():
+        for p, g in self._grads_and_params(densify=True):
             state = self._state_for(p)
             new_p, new_state = Adam.update(self, p.detach(), g, state, lr)
             if self._apply_decay_param_fun(p.name):
@@ -708,7 +775,7 @@ class Lamb(Optimizer):
             return super().step()
         lr = self.get_lr()
         self._global_step += 1
-        for p, g in self._grads_and_params():
+        for p, g in self._grads_and_params(densify=True):
             state = self._state_for(p)
             new_p, new_state = self.update(p.detach(), g, state, lr,
                                            decay=not self._exclude_fn(p))

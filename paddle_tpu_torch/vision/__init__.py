@@ -1,6 +1,17 @@
-"""Vision of the port (port of paddle_tpu/vision): the models and the
-image transforms.  ``vision.ops`` is not ported yet (ROADMAP Queue 1 item
-2b)."""
+"""Vision of the port (port of paddle_tpu/vision): the models, the image
+transforms and the image-backend switch.  ``vision.ops`` is not ported
+yet (ROADMAP Queue 1 item 2b)."""
 from paddle_tpu_torch.vision import models, transforms  # noqa: F401
 
-__all__ = ["models", "transforms"]
+__all__ = ["models", "transforms", "set_image_backend", "get_image_backend"]
+
+
+def set_image_backend(backend):
+    """Checks the name ("pil", "cv2", "tensor" or "numpy") and keeps
+    nothing, as the reference (``:12-15``): the backend stays numpy."""
+    if backend not in ("pil", "cv2", "tensor", "numpy"):
+        raise ValueError(f"unsupported backend {backend}")
+
+
+def get_image_backend():
+    return "numpy"

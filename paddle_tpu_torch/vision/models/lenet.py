@@ -4,14 +4,13 @@ between them, as in the reference), on 1 x 28 x 28 inputs."""
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from paddle_tpu_torch import nn
 
 __all__ = ["LeNet"]
 
 
-class LeNet(tnn.Module):
+class LeNet(nn.Layer):
     def __init__(self, num_classes: int = 10, device=None):
         super().__init__()
         self.num_classes = num_classes

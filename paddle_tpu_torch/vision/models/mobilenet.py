@@ -14,14 +14,13 @@ raises: nothing is downloaded.
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from paddle_tpu_torch import nn
 
 __all__ = ["MobileNetV1", "MobileNetV2", "mobilenet_v1", "mobilenet_v2"]
 
 
-class _ConvBNRelu(tnn.Module):
+class _ConvBNRelu(nn.Layer):
     def __init__(self, in_c, out_c, kernel=3, stride=1, padding=0,
                  groups=1, relu6=False, device=None):
         super().__init__()
@@ -35,7 +34,7 @@ class _ConvBNRelu(tnn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
-class _DepthwiseSeparable(tnn.Module):
+class _DepthwiseSeparable(nn.Layer):
     def __init__(self, in_c, out_c1, out_c2, stride, scale, device=None):
         super().__init__()
         c1 = int(out_c1 * scale)
@@ -48,7 +47,7 @@ class _DepthwiseSeparable(tnn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(tnn.Module):
+class MobileNetV1(nn.Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  device=None):
         super().__init__()
@@ -82,7 +81,7 @@ class MobileNetV1(tnn.Module):
         return x
 
 
-class _InvertedResidual(tnn.Module):
+class _InvertedResidual(nn.Layer):
     def __init__(self, inp, oup, stride, expand_ratio, device=None):
         super().__init__()
         self.stride = stride
@@ -104,7 +103,7 @@ class _InvertedResidual(tnn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV2(tnn.Module):
+class MobileNetV2(nn.Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
                  device=None, generator=None):
         super().__init__()

@@ -14,7 +14,6 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch import nn as tnn
 
 from paddle_tpu_torch import nn
 
@@ -22,7 +21,7 @@ __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152"]
 
 
-class BasicBlock(tnn.Module):
+class BasicBlock(nn.Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -50,7 +49,7 @@ class BasicBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(tnn.Module):
+class BottleneckBlock(nn.Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -82,7 +81,7 @@ class BottleneckBlock(tnn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(tnn.Module):
+class ResNet(nn.Layer):
     """The stem (7x7/2 convolution, BN, ReLU, 3x3/2 max pool), four stages
     of ``block`` and, with ``with_pool``, a global average pool, then a
     ``num_classes`` linear head when ``num_classes > 0``."""

@@ -8,7 +8,6 @@ from ``generator``.  ``pretrained=True`` raises: nothing is downloaded.
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.vision.models.mobilenet import _no_pretrained
@@ -42,7 +41,7 @@ def _make_layers(cfg, batch_norm=False, device=None):
     return nn.Sequential(*layers)
 
 
-class VGG(tnn.Module):
+class VGG(nn.Layer):
     """``features``, then a 7x7 adaptive average pool and the
     4096-4096-``num_classes`` head with ReLUs and dropouts."""
 

@@ -50,7 +50,9 @@ def test_every_module_imports_with_jax_blocked():
               "vision.models.mobilenet", "vision.models.vgg",
               "nn.functional.extras", "nn.functional.pooling",
               "nn.functional.common", "nn.functional.loss",
-              "nn.layer.pooling", "nn.layer.conv", "vision.transforms"):
+              "nn.layer.pooling", "nn.layer.conv", "vision.transforms",
+              "nn.layer.layers", "nn.layer.norm", "nn.functional.norm",
+              "nn.utils", "framework.selected_rows"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -138,6 +140,26 @@ def test_dense_nn_slice_entry_points_default_to_cuda(monkeypatch):
     img = np.zeros((8, 8, 3), np.uint8)
     out = T.to_tensor(T.RandomResizedCrop(4)(img), out="tensor")
     assert out.device.type == "cpu" and tuple(out.shape) == (3, 4, 4)
+
+
+def test_layer_slice_entry_points_default_to_cuda(monkeypatch):
+    """GroupNorm, the instance norms, SpectralNorm, Embedding(sparse=True)
+    and Layer.create_parameter land on the card unless asked otherwise,
+    and raise without it; spectral_norm's vectors follow the wrapped
+    weight."""
+    import paddle_tpu_torch.nn as tnn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: tnn.GroupNorm(2, 4),
+                 lambda: tnn.InstanceNorm2D(4),
+                 lambda: tnn.SpectralNorm([4, 3]),
+                 lambda: tnn.Embedding(10, 4, sparse=True),
+                 lambda: tnn.Layer().create_parameter([3])):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    assert tnn.Layer().create_parameter([3], device="cpu").device.type == (
+        "cpu")
+    conv = tnn.utils.spectral_norm(tnn.Conv2D(3, 4, 3, device="cpu"))
+    assert conv.weight_spectral_norm.weight_u.device.type == "cpu"
 
 
 def test_fleet_recompute_runs_where_its_inputs_are(monkeypatch):

@@ -113,11 +113,20 @@ def test_embedding_matches_reference(padding_idx):
 
 
 def test_sparse_embedding_raises():
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tnn.Embedding(4, 3, sparse=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tF.embedding(torch.zeros(2, dtype=torch.long), torch.ones(4, 3),
-                     sparse=True)
+    """sparse=True raised until the sparse path was ported; now the layer
+    builds, looks up as the dense one does and gives its table a sparse
+    gradient, and a table without grad (or not a leaf) takes the dense
+    path (test_torch_sparse_embedding.py holds it to the reference)."""
+    ids = torch.tensor([[1, 3], [3, 0]])
+    sparse = tnn.Embedding(4, 3, padding_idx=0, sparse=True, device="cpu")
+    dense = tnn.Embedding(4, 3, padding_idx=0, device="cpu")
+    with torch.no_grad():
+        dense.weight.copy_(sparse.weight)
+    assert torch.equal(sparse(ids), dense(ids))
+    sparse(ids).sum().backward()
+    assert sparse.weight.grad.is_sparse
+    out = tF.embedding(ids, torch.ones(4, 3) * 2, sparse=True)
+    assert torch.equal(out, torch.full((2, 2, 3), 2.0))
 
 
 def test_one_hot_matches_reference():

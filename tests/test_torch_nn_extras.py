@@ -247,6 +247,22 @@ def test_dropouts_distribution_and_identity():
     assert abs(float(ref.mean())) < 1e-2 and abs(float(ref.var()) - 1) < 1e-2
 
 
+@pytest.mark.parametrize("name", ["dropout", "dropout2d", "dropout3d",
+                                  "Dropout", "Dropout2D", "Dropout3D"])
+def test_dropout_p1_keeps_the_graph(name):
+    """p = 1 gives zeros on autograd's tape: the input's gradient is zero,
+    as through the reference's zeros_like, infinite and NaN entries
+    included (their output is 0 too)."""
+    x = _x(2, 3, 4, 5, 2) if name.lower().endswith("3d") else _x(2, 3, 4, 5)
+    x.reshape(-1)[:2] = [np.inf, np.nan]
+    if name[0].isupper():
+        fns = (getattr(jnn, name)(1.0), getattr(tnn, name)(1.0))
+    else:
+        fns = _both(name, 1.0)
+    out = _run(*fns, [x])
+    assert out.requires_grad and not out.detach().any()
+
+
 # -- layers -------------------------------------------------------------------
 
 LAYERS = [

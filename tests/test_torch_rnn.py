@@ -333,3 +333,78 @@ def test_bad_arguments_raise():
                                                        "weight_hh"]
     out, h = cell(torch.zeros(2, IN))
     assert out.shape == (2, H) and torch.equal(out, h)
+
+
+# -- AMP ----------------------------------------------------------------------
+
+TOL_BF16 = 2e-2
+CELL_OPS = {"simple_tanh": "simple_rnn_cell", "LSTMCell": "lstm_cell",
+            "GRUCell": "gru_cell"}
+
+
+def _bf16_close(got, want, what):
+    """max |got - want| / (|want| + rms(want)) <= 2e-2, the bf16 measure
+    of test_torch_vision_functional.py."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = np.abs(want) + np.sqrt(np.mean(np.square(want)))
+    err = float(np.max(np.abs(got - want) / np.maximum(scale, 1e-30)))
+    assert err <= TOL_BF16, f"{what}: bf16 error {err:.3g}"
+
+
+def _leaves(tree):
+    return [np.asarray(t._data if hasattr(t, "_data") else
+                       t.detach().float(), np.float32) for t in _flat(tree)]
+
+
+@pytest.mark.parametrize("kind", list(CELL_OPS))
+def test_cells_under_auto_cast_o1_custom_white_list(kind):
+    """O1 leaves a cell as it comes; naming its op in custom_white_list
+    casts its inputs, states, weights and biases to bf16, in both."""
+    import paddle_tpu.amp as jamp
+    import paddle_tpu_torch.amp as tamp
+    op = CELL_OPS[kind]
+    ref, port = _cell_pair(kind)
+    x = _rng(1).standard_normal((B, IN)).astype(np.float32)
+    for white in (None, {op}):
+        with jamp.auto_cast(custom_white_list=white):
+            want = ref(paddle.to_tensor(x))
+        with tamp.auto_cast(custom_white_list=white), \
+                tamp.trace_ops() as trace:
+            got = port(torch.from_numpy(x))
+        dt = torch.bfloat16 if white else torch.float32
+        n = 7 if kind == "LSTMCell" else 6
+        assert trace == [(op, [dt] * n)]
+        for g, w in zip(_leaves(got), _leaves(want)):
+            if white:
+                _bf16_close(g, w, op)
+            else:
+                np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)
+        assert all(t.dtype == dt for t in _flat(got))
+
+
+@pytest.mark.parametrize("kind,mode", [("SimpleRNN", "RNN_TANH"),
+                                       ("LSTM", "LSTM"), ("GRU", "GRU")])
+def test_layers_under_auto_cast_o2(kind, mode):
+    """O2 casts a layer's call, op ``mode``, to bf16: the port's f32 layer
+    on an f32 input against the reference decorated to bf16 on the same
+    input in bf16 (the reference's O2 cannot take an f32 tensor); O1 with
+    the mode in custom_white_list casts the same way."""
+    import jax.numpy as jnp
+
+    import paddle_tpu.amp as jamp
+    import paddle_tpu_torch.amp as tamp
+    ref = getattr(jnn, kind)(IN, H, num_layers=2, direction="bidirect")
+    port = load_named_params(getattr(tnn, kind)(
+        IN, H, num_layers=2, direction="bidirect", device="cpu"),
+        _named(ref))
+    x = _rng(3).standard_normal((B, T, IN)).astype(np.float32)
+    jamp.decorate(ref, level="O2")
+    with jamp.auto_cast(level="O2"):
+        want = ref(paddle.to_tensor(jnp.asarray(x, jnp.bfloat16)))
+    for level, white in (("O2", None), ("O1", {mode})):
+        with tamp.auto_cast(level=level, custom_white_list=white), \
+                tamp.trace_ops() as trace:
+            got = port(torch.from_numpy(x))
+        assert trace == [(mode, [torch.bfloat16] * 17)]
+        for g, w in zip(_leaves(got), _leaves(want)):
+            _bf16_close(g, w, f"{kind} {level}")
