@@ -279,6 +279,42 @@ Phases, in order; any failure ends the script with a non-zero exit:
              custom_white_list={"lstm_cell"}: each op's input dtypes
              (required), card against CPU, forward + backward ms.  No
              hand-written kernel lies on phases 27-30.
+31. yolov3-dcn train — PaddleDetection's yolov3_r50vd_dcn_270e_coco
+             composed of the port's pieces (yolov3_dcn): resnet50 (not the
+             vd variant) whose layer4.{0,1,2}.conv2 are swapped through
+             named_sublayers for DCNv2 (a zero-initialised 3x3 convolution
+             making 18 offsets and 9 sigmoid masks, and vision.ops'
+             DeformConv2D with the block's stride), the YOLOv3 FPN
+             (detection blocks of 512, 256 and 128 channels, 1x1 routes, x2
+             nearest upsampling, concatenation, 255-channel heads) and
+             yolo_loss at 19x19, 38x38 and 76x76 (COCO's anchors and masks,
+             ignore_thresh 0.7, no label smoothing).  First the same
+             composition at resnet18, 128x128, B=2, 4 classes card against
+             CPU: a training-mode f32 loss, then in f64 evaluation mode the
+             loss, every gradient and one Momentum step's moves, beside a
+             planted fault (offsets read as (dx, dy)) that must exceed the
+             limit.  Then at full width, f32, B=8 at 608x608 with 50 gt rows
+             an image (20 boxes), Momentum(1e-3, 0.9) + L2Decay(5e-4), the
+             eager loop: one warm-up and 5 steps, ms a step, images/s, peak
+             bytes, the idle share of one traced step, finite losses; then
+             deform_conv2d beside Conv2D at layer4.1.conv2's shape (zero
+             offsets, masks of 1: equal within TOL_F32), forward + backward.
+32. yolov3-dcn serve — the trained composition in evaluation mode, B=8 at
+             608x608, then yolo_box at each head (conf_thresh 0.005): ms a
+             batch, images/s, finite boxes and scores of the expected
+             shapes; the small composition's eval-mode decode held to the
+             CPU within TOL_F32 (boxes and scores).
+33. det-ops — roi_align at 7 and 14, aligned and not, and roi_pool at 7 on
+             Mask R-CNN R50-FPN's P2 map (2, 256, 200, 336) f32 with 512
+             RoIs an image (16-160 pixel boxes), spatial_scale 0.25: card
+             against CPU on 64 RoIs (values within TOL_BREADTH, gradients
+             within TOL_F32) beside a planted fault (aligned flipped; the far
+             corner floored), forward + backward ms over every RoI, and the
+             peak bytes each needs, roi_pool's beside the reference's
+             (R, oh, C, H, W) masked max; then yolo_box, box_coder,
+             prior_box and density_prior_box at SSD300's 38x38 map card
+             against CPU (the priors bitwise), ms each.  No hand-written
+             kernel lies on phases 31-33.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -489,6 +525,25 @@ NB_CONV_OUT = 64
 TOL_RNN_BF16 = 0.1
 TOL_RNN_GRAD_BF16 = 0.2
 RNN_FAULT = 0.5
+# yolov3-dcn: PaddleDetection's yolov3_r50vd_dcn_270e_coco (the port's
+# resnet50 stands for ResNet-50-vd): COCO's 9 anchors and 80 classes,
+# 608x608, B=8, 50 gt rows an image of which 20 are boxes, Momentum(1e-3,
+# 0.9) with L2 5e-4, f32; the card-vs-CPU check at resnet18, 128x128, B=2,
+# 4 classes
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_MASKS = ([6, 7, 8], [3, 4, 5], [0, 1, 2])
+YOLO_DOWN = (32, 16, 8)
+YOLO_CLASSES, YOLO_B, YOLO_HW, YOLO_STEPS = 80, 8, 608, 5
+YOLO_GT, YOLO_REAL = 50, 20
+YOLO_IGNORE, YOLO_LR, YOLO_DECAY, YOLO_CONF = 0.7, 1e-3, 5e-4, 0.005
+YOLO_SMALL_B, YOLO_SMALL_HW, YOLO_SMALL_CLASSES = 2, 128, 4
+# det-ops: Mask R-CNN R50-FPN's P2 (stride 4) of two 800x1344 images, 512
+# RoIs an image (its RoI heads' sample); SSD300's 38x38 map
+DET_MAP = (2, 256, 200, 336)
+DET_IMG = (800, 1344)
+DET_ROIS, DET_SCALE, DET_CHECK = 512, 0.25, 64
+SSD_MAP = 38
 
 
 def log(msg):
@@ -4312,6 +4367,537 @@ def eval_pair(make, xs, dtype):
     return gpu.eval(), cpu.eval()
 
 
+def dcn_v2_swap(nn, F, ops, model, device="cuda"):
+    """Each ``layer4.<i>.conv2`` of a ResNet replaced, by name, with
+    PaddleDetection's DeformableConvV2 (``dcn_v2_stages: [3]``): a 3x3
+    convolution, zero-initialised, making 2 * 9 offsets ((dy, dx) a tap)
+    and 9 masks (sigmoid), and a ``DeformConv2D`` with the block's stride
+    and no bias.  Setting a block's ``swap_offsets`` plants a fault: the
+    offsets read as (dx, dy).  Returns the model."""
+    import torch
+    zero = nn.ParamAttr(initializer=nn.initializer.Constant(0.0))
+
+    class DeformableConvV2(nn.Layer):
+        def __init__(self, conv):
+            super().__init__()
+            cout, cin = conv.weight.shape[:2]
+            self.conv_offset = nn.Conv2D(cin, 27, 3, stride=conv._stride,
+                                         padding=1, weight_attr=zero,
+                                         bias_attr=zero, device=device)
+            self.dcn = ops.DeformConv2D(cin, cout, 3, stride=conv._stride,
+                                        padding=1, bias_attr=False,
+                                        device=device)
+            self.swap_offsets = False
+
+        def forward(self, x):
+            om = self.conv_offset(x)
+            off = om[:, :18]
+            if self.swap_offsets:
+                off = torch.flip(off.reshape(off.shape[0], 9, 2,
+                                             *off.shape[2:]), [2]).reshape(
+                    off.shape)
+            return self.dcn(x, off, F.sigmoid(om[:, 18:]))
+    layers = dict(model.named_sublayers())
+    for name, layer in list(layers.items()):
+        parts = name.split(".")
+        if len(parts) == 3 and parts[0] == "layer4" and parts[2] == "conv2":
+            setattr(layers[f"layer4.{parts[1]}"], "conv2",
+                    DeformableConvV2(layer))
+    return model
+
+
+def yolov3_dcn(nn, F, ops, backbone, classes, device="cuda"):
+    """YOLOv3 with DCNv2 in the backbone's last stage (PaddleDetection's
+    ``yolov3_r50vd_dcn_270e_coco``; the JAX package has no detector, so
+    neither has the port, and tests/torch_yolov3_common.py builds a tiny
+    one in both packages): ``backbone`` (the port's ResNet, without pool or
+    head) with ``dcn_v2_swap`` gives C3, C4 and C5 (strides 8, 16, 32);
+    the YOLOv3 FPN runs detection blocks of 512, 256 and 128 channels on
+    C5, then on C4 and C3 each concatenated after the previous block's
+    route (a 1x1 ConvBN to half its channels, upsampled x2, nearest).  A
+    block is five ConvBN-LeakyReLU(0.1) layers (1x1, 3x3, 1x1, 3x3, 1x1),
+    its tip a 3x3 ConvBN to twice its channels, and its head a 1x1
+    convolution with bias to 3 (5 + classes).  forward(x) returns the
+    three heads, stride 32 first."""
+    import torch
+    body = dcn_v2_swap(nn, F, ops, backbone(num_classes=0, with_pool=False,
+                                            device=device), device)
+    c5 = body.inplanes
+
+    def conv_bn(cin, cout, k):
+        return nn.Sequential(
+            nn.Conv2D(cin, cout, k, padding=k // 2, bias_attr=False,
+                      device=device),
+            nn.BatchNorm2D(cout, device=device), nn.LeakyReLU(0.1))
+
+    class YOLOv3(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.backbone = body
+            self.blocks = nn.LayerList()
+            self.tips = nn.LayerList()
+            self.heads = nn.LayerList()
+            self.routes = nn.LayerList()
+            for i, c in enumerate((512, 256, 128)):
+                cin = c5 if i == 0 else c5 // 2 ** i + c
+                self.blocks.append(nn.Sequential(
+                    conv_bn(cin, c, 1), conv_bn(c, 2 * c, 3),
+                    conv_bn(2 * c, c, 1), conv_bn(c, 2 * c, 3),
+                    conv_bn(2 * c, c, 1)))
+                self.tips.append(conv_bn(c, 2 * c, 3))
+                self.heads.append(nn.Conv2D(2 * c, 3 * (5 + classes), 1,
+                                            device=device))
+                if i < 2:
+                    self.routes.append(conv_bn(c, c // 2, 1))
+
+        def forward(self, x):
+            b = self.backbone
+            x = b.maxpool(b.relu(b.bn1(b.conv1(x))))
+            c3 = b.layer2(b.layer1(x))
+            c4 = b.layer3(c3)
+            outs, route = [], None
+            for i, feat in enumerate((b.layer4(c4), c4, c3)):
+                if route is not None:
+                    feat = torch.cat([route, feat], 1)
+                r = self.blocks[i](feat)
+                outs.append(self.heads[i](self.tips[i](r)))
+                if i < 2:
+                    route = F.interpolate(self.routes[i](r), scale_factor=2,
+                                          mode="nearest")
+            return outs
+    return YOLOv3()
+
+
+def yolo_loss_sum(ops, outs, gt_box, gt_label, classes):
+    """PaddleDetection's YOLOv3Loss over the three heads: yolo_loss at
+    each (COCO's anchors and masks, downsample 32, 16, 8, ignore_thresh
+    0.7, no label smoothing), averaged over the batch, summed."""
+    total = 0
+    for out, mask, down in zip(outs, YOLO_MASKS, YOLO_DOWN):
+        total = total + ops.yolo_loss(out, gt_box, gt_label, YOLO_ANCHORS,
+                                      mask, classes, YOLO_IGNORE, down,
+                                      use_label_smooth=False).mean()
+    return total
+
+
+def yolo_batch(b, hw, classes, seed=0):
+    """Images N(0, 1), then YOLO_GT gt rows an image of which YOLO_REAL
+    are boxes (centres uniform over the image, w and h uniform in 2-60 %
+    of it, xywh pixels) and the rest padding (w = h = 0), and labels, from
+    one default_rng(seed)."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((b, 3, hw, hw)).astype(np.float32)
+    box = np.zeros((b, YOLO_GT, 4), np.float32)
+    box[:, :YOLO_REAL, :2] = r.uniform(0, hw, (b, YOLO_REAL, 2))
+    box[:, :YOLO_REAL, 2:] = r.uniform(0.02, 0.6, (b, YOLO_REAL, 2)) * hw
+    label = r.integers(0, classes, (b, YOLO_GT)).astype(np.int32)
+    return x, box, label
+
+
+def yolo_train_step(ops, model, opt, classes, x, box, label):
+    """One step of PaddleDetection's eager loop: the loss, backward,
+    opt.step(), opt.clear_grad(); returns the loss, detached."""
+    loss = yolo_loss_sum(ops, model(x), box, label, classes)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def yolo_decode(ops, outs, img_size, classes):
+    """yolo_box at each head (its three anchors, conf_thresh YOLO_CONF):
+    [(boxes, scores)], stride 32 first."""
+    res = []
+    for out, mask, down in zip(outs, YOLO_MASKS, YOLO_DOWN):
+        anchors = [a for i in mask for a in YOLO_ANCHORS[2 * i:2 * i + 2]]
+        res.append(ops.yolo_box(out, img_size, anchors, classes, YOLO_CONF,
+                                down))
+    return res
+
+
+def yolo_small_pair(nn, F, ops, resnet18):
+    """The composition at YOLO_SMALL's size (resnet18 backbone with the
+    same swap, 4 classes) on the CPU and on the card from one state; the
+    offset convolutions drawn N(0, 0.01) instead of zeros, so that every
+    sample moves (about a third of a pixel) and the offset layout
+    matters."""
+    import torch
+    torch.manual_seed(0)
+    cpu = yolov3_dcn(nn, F, ops, resnet18, YOLO_SMALL_CLASSES, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "conv_offset.weight" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.01)
+    card = yolov3_dcn(nn, F, ops, resnet18, YOLO_SMALL_CLASSES)
+    missing, unexpected = card.set_state_dict(cpu.state_dict())
+    if missing or unexpected:
+        fail(f"yolov3-dcn state: missing {missing}, unexpected {unexpected}")
+    return cpu, card
+
+
+def check_small_yolo(nn, F, ops, resnet18, Momentum, L2Decay):
+    """yolov3-dcn's card-vs-CPU check at YOLO_SMALL's size: a training-mode
+    f32 loss; then in f64 and evaluation mode (f32 ReLU and LeakyReLU kinks
+    flip between devices, and training-mode batch norms keep f32
+    statistics, as phase 13 explains) the loss, every gradient and the
+    moves of one Momentum(YOLO_LR, 0.9, L2Decay(5e-4)) step, by scaled_err;
+    beside them the planted fault (every block's offsets read as (dx, dy)),
+    whose loss or gradients must be off by more than TOL_F32; then, for
+    yolov3-dcn-serve, the f32 model in evaluation mode decoded by yolo_box,
+    boxes and scores.  Returns the readings by name."""
+    import torch
+    b, hw, k = YOLO_SMALL_B, YOLO_SMALL_HW, YOLO_SMALL_CLASSES
+    x, box, label = (torch.from_numpy(a) for a in yolo_batch(b, hw, k,
+                                                             seed=3))
+    cpu, card = yolo_small_pair(nn, F, ops, resnet18)
+    r = {}
+
+    def loss_on(m, dev, dtype=torch.float32):
+        return yolo_loss_sum(ops, m(x.to(dev, dtype)), box.to(dev, dtype),
+                             label.to(dev), k)
+    with torch.no_grad():
+        r["train_loss_f32"] = scaled_err(loss_on(card, "cuda").cpu(),
+                                         loss_on(cpu, "cpu"))
+        # the running stats that forward left, the CPU's on both
+        for mine, theirs in zip(card.buffers(), cpu.buffers()):
+            mine.copy_(theirs)
+    cpu.eval()
+    card.eval()
+    img = torch.tensor([[hw, hw]] * b, dtype=torch.int32)
+    with torch.no_grad():
+        want = yolo_decode(ops, cpu(x), img, k)
+        got = yolo_decode(ops, card(x.cuda()), img.cuda(), k)
+    r["serve_f32"] = max(scaled_err(g.cpu(), w) for gs, ws in zip(got, want)
+                         for g, w in zip(gs, ws))
+    r["serve_kept"] = sum(int((w[1].abs().sum(-1) > 0).sum()) for w in want)
+    cpu64, card64 = cpu.double(), card.double()
+
+    def step(m, dev):
+        old = {n: p.detach().clone() for n, p in m.named_parameters()}
+        opt = Momentum(learning_rate=YOLO_LR, momentum=0.9,
+                       parameters=m.parameters(),
+                       weight_decay=L2Decay(YOLO_DECAY))
+        loss = loss_on(m, dev, torch.float64)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        return loss.detach().cpu(), grads, old
+    old = {n: p.detach().clone() for n, p in cpu64.named_parameters()}
+    lc, gc, _ = step(cpu64, "cpu")
+    for blk in card64.sublayers():
+        if hasattr(blk, "swap_offsets"):
+            blk.swap_offsets = True
+    lf = loss_on(card64, "cuda", torch.float64)
+    lf.backward()
+    r["fault_loss"] = scaled_err(lf.detach().cpu(), lc)
+    r["fault_grad"] = max(scaled_err(p.grad.cpu(), gc[n])
+                          for n, p in card64.named_parameters())
+    for blk in card64.sublayers():
+        if hasattr(blk, "swap_offsets"):
+            blk.swap_offsets = False
+    card64.clear_gradients()
+    lg, gg, _ = step(card64, "cuda")
+    r["loss_f64"] = scaled_err(lg, lc)
+    r["grad_f64"] = max(scaled_err(gg[n], gc[n]) for n in gc)
+    r["moves_f64"] = moves_err(card64, cpu64, old, "yolov3-dcn small")
+    return r
+
+
+def yolov3_train_phase(nn, F, ops, resnet18, resnet50, Momentum, L2Decay,
+                       power):
+    """yolov3-dcn train: check_small_yolo, then the composition at full
+    width (resnet50 backbone, 80 classes) trained as PaddleDetection's
+    recipe: f32, Momentum(YOLO_LR, 0.9) with L2Decay(5e-4), B=YOLO_B at
+    YOLO_HW, one warm-up then YOLO_STEPS eager steps: ms a step, images/s,
+    peak bytes, the device's busy ms and idle share of one more step;
+    every loss finite.  Then deform_conv2d beside Conv2D at
+    layer4.1.conv2's shape (zero offsets, masks of 1: the same function)
+    forward + backward.  Returns (the model, the readings by name)."""
+    import torch
+    sv = check_small_yolo(nn, F, ops, resnet18, Momentum, L2Decay)
+    log(f"yolov3-dcn small check (resnet18 backbone, B={YOLO_SMALL_B}, "
+        f"{YOLO_SMALL_HW}x{YOLO_SMALL_HW}, {YOLO_SMALL_CLASSES} classes) card"
+        f" vs CPU: training-mode f32 loss err={sv['train_loss_f32']:.3g}; "
+        f"f64 eval mode loss {sv['loss_f64']:.3g}, gradients "
+        f"{sv['grad_f64']:.3g}, Momentum moves {sv['moves_f64']:.3g} (tol "
+        f"{TOL_F32:g}); planted fault (offsets read as (dx, dy)) loss "
+        f"{sv['fault_loss']:.3g}, gradients {sv['fault_grad']:.3g}")
+    if max(sv["train_loss_f32"], sv["loss_f64"], sv["grad_f64"],
+           sv["moves_f64"]) > TOL_F32:
+        fail("the small yolov3-dcn on the card disagrees with the CPU")
+    if max(sv["fault_loss"], sv["fault_grad"]) <= TOL_F32:
+        fail("the planted offset-layout fault is not above TOL_F32")
+    model = yolov3_dcn(nn, F, ops, resnet50, YOLO_CLASSES)
+    n_dcn = sum(hasattr(m, "swap_offsets") for m in model.sublayers())
+    if n_dcn != 3:
+        fail(f"yolov3-dcn has {n_dcn} DCNv2 blocks, not 3")
+    opt = Momentum(learning_rate=YOLO_LR, momentum=0.9,
+                   parameters=model.parameters(),
+                   weight_decay=L2Decay(YOLO_DECAY))
+    x, box, label = (torch.as_tensor(a, device="cuda") for a in yolo_batch(
+        YOLO_B, YOLO_HW, YOLO_CLASSES))
+
+    def step():
+        return yolo_train_step(ops, model, opt, YOLO_CLASSES, x, box, label)
+    torch.cuda.reset_peak_memory_stats()
+    warm = float(step())
+    losses, ms, host = eager_loop(step, YOLO_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    busy, traced = device_busy_ms(step)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"yolov3-dcn train: resnet50 + DCNv2 in layer4 + YOLOv3 FPN, "
+        f"{n_params} parameters, {YOLO_CLASSES} classes, f32, Momentum("
+        f"{YOLO_LR:g}, 0.9) + L2Decay({YOLO_DECAY:g}), B={YOLO_B} at "
+        f"{YOLO_HW}x{YOLO_HW}, {YOLO_GT} gt rows ({YOLO_REAL} real), one "
+        f"warm-up then {YOLO_STEPS} eager steps: step {ms:.3f} ms (CUDA "
+        f"events; host until step() returns {host:.3f} ms), "
+        f"{YOLO_B / ms * 1e3:.2f} images/s, max_memory_allocated {peak} "
+        f"bytes; one traced step: device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / ms:.3f} [{power}]; losses {[warm] + losses}")
+    if not all(math.isfinite(v) for v in [warm] + losses):
+        fail("a yolov3-dcn training loss is not finite")
+    # deform_conv2d beside the convolution it replaces, layer4.1.conv2
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = torch.randn(YOLO_B, 512, YOLO_HW // 32, YOLO_HW // 32,
+                     generator=g, device="cuda").requires_grad_()
+    conv = nn.Conv2D(512, 512, 3, padding=1, bias_attr=False)
+    off = torch.zeros(YOLO_B, 18, *xs.shape[2:], device="cuda",
+                      requires_grad=True)
+    ones = torch.ones(YOLO_B, 9, *xs.shape[2:], device="cuda",
+                      requires_grad=True)
+    dy = torch.randn(xs.shape, generator=g, device="cuda")
+
+    def dcn():
+        out = ops.deform_conv2d(xs, off, conv.weight, padding=1, mask=ones)
+        out.backward(dy)
+        return out
+
+    def plain():
+        out = conv(xs)
+        out.backward(dy)
+        return out
+    same = scaled_err(dcn().detach().cpu(), plain().detach().cpu())
+    dcn_ms = cuda_ms(dcn, reps=5)
+    conv_ms = cuda_ms(plain, reps=5)
+    log(f"yolov3-dcn: deform_conv2d at layer4.1.conv2 ({YOLO_B}x512x"
+        f"{xs.shape[2]}x{xs.shape[3]}, 3x3, zero offsets, masks of 1), "
+        f"forward + backward {dcn_ms:.4f} ms against Conv2D's "
+        f"{conv_ms:.4f} ms ({dcn_ms / conv_ms:.2f}x); outputs equal within "
+        f"{same:.3g} (tol {TOL_F32:g}) [{power}]")
+    if same > TOL_F32:
+        fail("deform_conv2d at zero offsets is not the convolution")
+    del xs, off, ones, dy, conv, opt, x, box, label
+    torch.cuda.empty_cache()
+    return model, {"step_ms": ms, "images_per_s": YOLO_B / ms * 1e3,
+                   "host_ms": host, "peak_bytes": peak, "busy_ms": busy,
+                   "traced_wall_ms": traced, "idle_share": 1 - busy / ms,
+                   "losses": [warm] + losses, "params": n_params,
+                   "dcn_fwd_bwd_ms": dcn_ms, "conv_fwd_bwd_ms": conv_ms,
+                   "dcn_vs_conv": dcn_ms / conv_ms, "small": sv}
+
+
+def yolov3_serve_phase(ops, model, power, small_err, small_kept):
+    """yolov3-dcn serve: the trained composition in evaluation mode, B=
+    YOLO_B at YOLO_HW, forward then yolo_box at each head (YOLO_CONF,
+    image YOLO_HW): ms a batch, images/s; finite boxes and scores of the
+    expected shapes.  small_err is check_small_yolo's card-vs-CPU reading
+    of the same decode at the small size."""
+    import torch
+    model.eval()
+    x = torch.as_tensor(yolo_batch(YOLO_B, YOLO_HW, YOLO_CLASSES, seed=7)[0],
+                        device="cuda")
+    img = torch.full((YOLO_B, 2), YOLO_HW, dtype=torch.int32, device="cuda")
+
+    def serve():
+        with torch.no_grad():
+            return yolo_decode(ops, model(x), img, YOLO_CLASSES)
+    res = serve()
+    for (boxes, scores), down in zip(res, YOLO_DOWN):
+        n = 3 * (YOLO_HW // down) ** 2
+        if tuple(boxes.shape) != (YOLO_B, n, 4) or tuple(scores.shape) != (
+                YOLO_B, n, YOLO_CLASSES):
+            fail(f"yolo_box at stride {down}: {tuple(boxes.shape)}, "
+                 f"{tuple(scores.shape)}")
+        if not bool(torch.isfinite(boxes).all() & torch.isfinite(
+                scores).all()):
+            fail("yolov3-dcn serve: a box or score is not finite")
+    kept = sum(int((s.abs().sum(-1) > 0).sum()) for _, s in res)
+    ms = cuda_ms(serve, reps=5, warmup=1)
+    log(f"yolov3-dcn serve: eval(), B={YOLO_B} at {YOLO_HW}x{YOLO_HW}, "
+        f"forward + yolo_box at 3 heads (conf_thresh {YOLO_CONF:g}): "
+        f"{ms:.3f} ms a batch (CUDA events), {YOLO_B / ms * 1e3:.2f} "
+        f"images/s, {kept} boxes above the threshold [{power}]; small "
+        f"composition in eval mode card vs CPU, boxes and scores err="
+        f"{small_err:.3g} (tol {TOL_F32:g}, {small_kept} boxes kept)")
+    if small_err > TOL_F32:
+        fail("the small yolov3-dcn's yolo_box on the card disagrees with "
+             "the CPU")
+    del model, x, res
+    torch.cuda.empty_cache()
+    return {"batch_ms": ms, "images_per_s": YOLO_B / ms * 1e3,
+            "boxes_kept": kept}
+
+
+def det_rois(n_img, per_img, seed=0):
+    """Mask R-CNN R50-FPN's RoIs on P2: per_img boxes an image of
+    DET_IMG, corners uniform over it, w and h uniform in 16-160 pixels
+    (what FPN routes to P2), clipped to the image; xyxy f32."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    ih, iw = DET_IMG
+    n = n_img * per_img
+    x1 = r.uniform(0, iw - 16, n)
+    y1 = r.uniform(0, ih - 16, n)
+    x2 = np.minimum(x1 + r.uniform(16, 160, n), iw)
+    y2 = np.minimum(y1 + r.uniform(16, 160, n), ih)
+    return np.stack([x1, y1, x2, y2], 1).astype(np.float32)
+
+
+def det_ops_phase(ops, power):
+    """det-ops: roi_align at Mask R-CNN R50-FPN's P2 map (DET_MAP f32,
+    DET_ROIS RoIs an image, spatial_scale DET_SCALE) at 7 and 14, aligned
+    and not, and roi_pool at 7 on the same map (ReLU'd: ties): each card
+    against the CPU on DET_CHECK RoIs (values by scaled_err within
+    TOL_BREADTH, gradients within TOL_F32) beside a planted fault
+    (aligned flipped; the far corner floored instead of ceiled), then
+    forward + backward ms at every RoI; roi_pool's peak bytes beside what
+    the reference's (R, oh, C, H, W) masked max would hold.  Then
+    yolo_box, box_coder, prior_box and density_prior_box at SSD300's 38x38
+    map, card against CPU (the priors bitwise), ms each.  Returns the
+    readings by name."""
+    import numpy as np
+    import torch
+    n_img = DET_MAP[0]
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        DET_MAP).astype(np.float32))
+    boxes = torch.as_tensor(det_rois(n_img, DET_ROIS))
+    bn = torch.tensor([DET_ROIS] * n_img)
+    per = DET_CHECK // n_img
+    pick = torch.cat([torch.arange(per) + i * DET_ROIS
+                      for i in range(n_img)])
+    sub, sub_bn = boxes[pick], torch.tensor([per] * n_img)
+    far_floor = torch.cat([sub[:, :2], torch.floor(
+        sub[:, 2:] * DET_SCALE) / DET_SCALE], 1)
+    rows = {}
+    cases = [(f"roi_align {o}x{o} aligned={al}", x,
+              lambda a, b, n, o=o, al=al: ops.roi_align(
+                  a, b, n, o, DET_SCALE, aligned=al),
+              lambda a, b, n, o=o, al=al: ops.roi_align(
+                  a, b, n, o, DET_SCALE, aligned=not al), sub)
+             for o in (7, 14) for al in (True, False)]
+    cases.append(("roi_pool 7x7", torch.relu(x),
+                  lambda a, b, n: ops.roi_pool(a, b, n, 7, DET_SCALE),
+                  lambda a, b, n: ops.roi_pool(a, b, n, 7, DET_SCALE),
+                  far_floor))
+    for name, xm, fn, fault_fn, fault_boxes in cases:
+        want, wgrad, w = breadth_run(fn, [xm.clone(), sub.clone(), sub_bn])
+        xg, bg = xm.cuda(), sub.cuda()
+        got, ggrad, _ = breadth_run(fn, [xg, bg, sub_bn.cuda()], w.cuda())
+        xg = xg.detach()
+        val = scaled_err(got[0].cpu(), want[0])
+        grad = max(scaled_err(a.cpu(), b) for a, b in zip(ggrad, wgrad)
+                   if b is not None)
+        fault = scaled_err(fault_fn(xg, fault_boxes.cuda(),
+                                    sub_bn.cuda()).detach().cpu(), want[0])
+        xf, bf = xm.cuda().requires_grad_(), boxes.cuda()
+        if name.startswith("roi_align"):
+            bf.requires_grad_()
+        bnc = bn.cuda()
+        dy = torch.randn(fn(xf, bf, bnc).shape, device="cuda")
+
+        def fwd_bwd():
+            fn(xf, bf, bnc).backward(dy)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = cuda_ms(fwd_bwd, reps=3, warmup=1)
+        rows[name] = {"fwd_bwd_ms": ms, "value_err": val, "grad_err": grad,
+                      "fault": fault, "peak_bytes_over_inputs": peak}
+        log(f"det-ops: {name} at {'x'.join(map(str, DET_MAP))} f32, "
+            f"{DET_ROIS * n_img} RoIs, scale {DET_SCALE:g}: card vs CPU on "
+            f"{DET_CHECK} RoIs values {val:.3g} (tol {TOL_BREADTH:g}), "
+            f"gradients {grad:.3g} (tol {TOL_F32:g}), planted fault "
+            f"{fault:.3g}; forward + backward {ms:.4f} ms (CUDA events), "
+            f"peak {peak} bytes above the inputs [{power}]")
+        if val > TOL_BREADTH or grad > TOL_F32:
+            fail(f"det-ops: {name} on the card disagrees with the CPU")
+        if fault <= TOL_BREADTH:
+            fail(f"det-ops: the planted fault of {name} is not above "
+                 "TOL_BREADTH")
+        del xg, bg, xf, bf, dy
+    r_all = DET_ROIS * n_img
+    naive = r_all * 7 * DET_MAP[1] * DET_MAP[2] * DET_MAP[3] * 4
+    rows["roi_pool 7x7"]["reference_intermediate_bytes"] = naive
+    pool_peak = rows["roi_pool 7x7"]["peak_bytes_over_inputs"]
+    log(f"det-ops: roi_pool's peak {pool_peak} bytes against the {naive} "
+        "bytes of the reference's (R, oh, C, H, W) masked max")
+    rows.update(ssd_ops(ops, power))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_ops(ops, power):
+    """yolo_box (B=8, 3 anchors, 80 classes), box_coder (decode of every
+    prior of the map against N(0, 1) deltas) and SSD300's prior_box
+    (min 30, max 60, ratio 2, flipped) and a density_prior_box (FaceBoxes'
+    densities 4, 2, 1 at 32, 64, 128) at SSD300's 38x38 map: card against
+    CPU (values within TOL_BREADTH, the priors bitwise), ms each."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(2)
+    hw = SSD_MAP
+    feat = torch.zeros(1, 512, hw, hw)
+    img = torch.zeros(1, 3, 300, 300)
+    head = torch.as_tensor(r.standard_normal(
+        (YOLO_B, 3 * (5 + YOLO_CLASSES), hw, hw)).astype(np.float32))
+    size = torch.full((YOLO_B, 2), 300, dtype=torch.int32)
+    anchors = YOLO_ANCHORS[12:18]
+    cases = {
+        "yolo_box": (lambda h, s: ops.yolo_box(h, s, anchors, YOLO_CLASSES,
+                                               YOLO_CONF, 8), [head, size]),
+        "prior_box": (lambda f, i: ops.prior_box(
+            f, i, [30.0], [60.0], [2.0], flip=True, clip=True), [feat, img]),
+        "density_prior_box": (lambda f, i: ops.density_prior_box(
+            f, i, [4, 2, 1], [32.0, 64.0, 128.0], [1.0], clip=True),
+            [feat, img])}
+    pb = ops.prior_box(feat, img, [30.0], [60.0], [2.0], flip=True)
+    m = pb[0].reshape(-1, 4).shape[0]
+    cases["box_coder"] = (lambda p, v, t: ops.box_coder(
+        p, v, t, "decode_center_size"), [pb[0].reshape(-1, 4),
+                                         pb[1].reshape(-1, 4),
+                                         torch.as_tensor(r.standard_normal(
+                                             (m, 4)).astype(np.float32))])
+    rows = {}
+    for name, (fn, ins) in cases.items():
+        want = fn(*ins)
+        gins = [t.cuda() for t in ins]
+        got = fn(*gins)
+        bitwise = name.endswith("prior_box")
+        if bitwise:
+            err = 0.0 if all(torch.equal(a.cpu(), b)
+                             and a.device.type == "cuda"
+                             for a, b in zip(got, want)) else math.inf
+        else:
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(scaled_err(a.cpu(), b) for a, b in zip(got, want))
+        ms = cuda_ms(lambda: fn(*gins), reps=5, warmup=1)
+        rows[f"ssd38 {name}"] = {"ms": ms, "err": err}
+        limit = "bitwise" if bitwise else f"tol {TOL_BREADTH:g}"
+        log(f"det-ops: {name} at SSD300's {hw}x{hw} map, card vs CPU err "
+            f"{err:.3g} ({limit}); {ms:.4f} ms a call (CUDA events) "
+            f"[{power}]")
+        if err > TOL_BREADTH:
+            fail(f"det-ops: {name} on the card disagrees with the CPU")
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4340,6 +4926,7 @@ def main() -> int:
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
     from paddle_tpu_torch.tools.profile_gpt import gc_time
+    from paddle_tpu_torch.vision import ops as vops
     from paddle_tpu_torch.vision import transforms as T
     from paddle_tpu_torch.vision.models import (LeNet, mobilenet_v1,
                                                 mobilenet_v2, resnet18,
@@ -5928,6 +6515,25 @@ def main() -> int:
     layer_row["layer_phases_s"] = time.perf_counter() - t_layer
     log(f"layer phases (27-30): {layer_row['layer_phases_s']:.1f} s of "
         "wall time")
+
+    # -- 31. yolov3-dcn train -----------------------------------------------
+    # -- 32. yolov3-dcn serve -----------------------------------------------
+    # -- 33. det-ops --------------------------------------------------------
+    # vision.ops: no hand-written kernel lies on these paths either
+    t_det = time.perf_counter()
+    yolo, yolo_train = yolov3_train_phase(tnn, tnn.functional, vops,
+                                          resnet18, resnet50, Momentum,
+                                          regularizer.L2Decay, power)
+    small = yolo_train["small"]
+    det_row = {"yolov3_dcn_train": yolo_train,
+               "yolov3_dcn_serve": yolov3_serve_phase(
+                   vops, yolo, power, small["serve_f32"],
+                   small["serve_kept"])}
+    del yolo
+    det_row["det_ops"] = det_ops_phase(vops, power)
+    det_row["det_phases_s"] = time.perf_counter() - t_det
+    log(f"detection phases (31-33): {det_row['det_phases_s']:.1f} s of "
+        "wall time")
     for row in table:
         log(json.dumps(row))
 
@@ -5980,6 +6586,7 @@ def main() -> int:
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
+        **det_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

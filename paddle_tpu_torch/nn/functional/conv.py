@@ -120,13 +120,17 @@ def channels_last(x, n):
 
 @contextlib.contextmanager
 def _ieee_f32():
-    """cuDNN's f32 convolutions in full f32 inside the block."""
-    prev = torch.backends.cudnn.allow_tf32
+    """cuDNN's f32 convolutions and cuBLAS's f32 products in full f32
+    inside the block."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 class _F32Conv(torch.autograd.Function):

@@ -18,8 +18,8 @@ fluid-era aliases.
   log-likelihoods.  ``viterbi_decode`` returns (scores (B,), int32 paths
   (B, T)), zero past each length; the first maximum wins a tie.
 - ``roi_align``, ``roi_pool``, ``yolo_box``, ``prior_box`` and
-  ``box_coder`` alias ``vision.ops``, which is not ported yet (ROADMAP
-  Queue 1 item 2b): they raise ``NotImplementedError``.
+  ``box_coder`` call ``vision.ops``, imported at the first call as the
+  reference's ``_alias`` does.
 """
 from __future__ import annotations
 
@@ -194,11 +194,10 @@ def hsigmoid_loss(input, label, num_classes, weight, bias=None,
 
 def _vision_op(name):
     def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: an alias of vision.ops.{name}, which is not ported "
-            "yet (ROADMAP Queue 1 item 2b)")
+        from paddle_tpu_torch.vision import ops
+        return getattr(ops, name)(*args, **kwargs)
     fn.__name__ = name
-    fn.__doc__ = f"alias of vision.ops.{name} (not ported yet: raises)"
+    fn.__doc__ = f"alias of vision.ops.{name}"
     return fn
 
 

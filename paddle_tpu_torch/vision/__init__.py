@@ -1,9 +1,11 @@
 """Vision of the port (port of paddle_tpu/vision): the models, the image
-transforms and the image-backend switch.  ``vision.ops`` is not ported
-yet (ROADMAP Queue 1 item 2b)."""
-from paddle_tpu_torch.vision import models, transforms  # noqa: F401
+transforms, the detection ops (``ops``: its dense half; ``nms`` and the
+target stages are ROADMAP Queue 1 item 2b's next part) and the
+image-backend switch."""
+from paddle_tpu_torch.vision import models, ops, transforms  # noqa: F401
 
-__all__ = ["models", "transforms", "set_image_backend", "get_image_backend"]
+__all__ = ["models", "transforms", "ops", "set_image_backend",
+           "get_image_backend"]
 
 
 def set_image_backend(backend):

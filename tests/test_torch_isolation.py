@@ -52,7 +52,7 @@ def test_every_module_imports_with_jax_blocked():
               "nn.functional.common", "nn.functional.loss",
               "nn.layer.pooling", "nn.layer.conv", "vision.transforms",
               "nn.layer.layers", "nn.layer.norm", "nn.functional.norm",
-              "nn.utils", "framework.selected_rows"):
+              "nn.utils", "framework.selected_rows", "vision.ops"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
@@ -160,6 +160,28 @@ def test_layer_slice_entry_points_default_to_cuda(monkeypatch):
         "cpu")
     conv = tnn.utils.spectral_norm(tnn.Conv2D(3, 4, 3, device="cpu"))
     assert conv.weight_spectral_norm.weight_u.device.type == "cpu"
+
+
+def test_vision_ops_entry_points_default_to_cuda(monkeypatch):
+    """DeformConv2D lands on the card unless asked otherwise and raises
+    without it; the priors and anchors go to their input's device, and
+    the ops compute where their inputs are."""
+    from paddle_tpu_torch.vision import ops as tops
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        tops.DeformConv2D(4, 4, 3)
+    assert tops.DeformConv2D(4, 4, 3, device="cpu").weight.device.type == (
+        "cpu")
+    img = torch.zeros(1, 3, 24, 32)
+    for dev in ("cpu", "meta"):
+        feat = torch.zeros(1, 2, 3, 4, device=dev)
+        for made in (tops.prior_box(feat, img, [8.0]),
+                     tops.anchor_generator(feat, [16.0], [1.0]),
+                     tops.density_prior_box(feat, img, [2], [8.0], [1.0])):
+            assert all(t.device.type == dev for t in made)
+    feat = torch.zeros(1, 2, 3, 4)
+    boxes = torch.tensor([[0.0, 0.0, 2.0, 2.0]])
+    assert tops.roi_align(feat, boxes, None, 2).device.type == "cpu"
 
 
 def test_fleet_recompute_runs_where_its_inputs_are(monkeypatch):

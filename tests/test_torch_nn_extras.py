@@ -431,8 +431,35 @@ def test_sequence_conv_matches_reference():
          [_x(3, 5, 4), lens, _x(12, 6, seed=1), _x(6, seed=2)])
 
 
+def _alias_args(name):
+    """Arguments of each aliased vision op, from a seed."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 3, 8, 8, generator=g)
+    boxes = torch.tensor([[0.5, 1.0, 6.0, 7.5], [2.0, 2.0, 5.0, 4.0]])
+    return {
+        "roi_align": ((x, boxes, torch.tensor([1, 1]), 2), {}),
+        "roi_pool": ((x, boxes, None, 3), {"spatial_scale": 0.5}),
+        "yolo_box": ((torch.randn(2, 2 * 7, 4, 4, generator=g),
+                      torch.tensor([[32, 32], [32, 40]]), [10, 13, 16, 30],
+                      2), {"conf_thresh": 0.2, "downsample_ratio": 8}),
+        "prior_box": ((x, torch.zeros(1, 3, 32, 32), [8.0]),
+                      {"aspect_ratios": [2.0], "flip": True}),
+        "box_coder": ((boxes, torch.full((2, 4), 0.1),
+                       torch.randn(2, 4, generator=g)),
+                      {"code_type": "decode_center_size"}),
+    }[name]
+
+
 @pytest.mark.parametrize("name", ["roi_align", "roi_pool", "yolo_box",
                                   "prior_box", "box_coder"])
-def test_vision_op_aliases_raise_until_vision_ops_is_ported(name):
-    with pytest.raises(NotImplementedError, match="2b"):
-        getattr(TF, name)(torch.zeros(1, 1, 4, 4))
+def test_vision_op_aliases_call_vision_ops(name):
+    """Each fluid-era alias is vision.ops' function of that name: the
+    same outputs, bitwise."""
+    from paddle_tpu_torch.vision import ops as tops
+    args, kw = _alias_args(name)
+    fn = getattr(TF, name)
+    assert fn.__name__ == name
+    got, want = fn(*args, **kw), getattr(tops, name)(*args, **kw)
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        assert torch.equal(a, b)
