@@ -303,7 +303,17 @@ Phases, in order; any failure ends the script with a non-zero exit:
              608x608, then yolo_box at each head (conf_thresh 0.005): ms a
              batch, images/s, finite boxes and scores of the expected
              shapes; the small composition's eval-mode decode held to the
-             CPU within TOL_F32 (boxes and scores).
+             CPU within TOL_F32 (boxes and scores).  Then multiclass_nms at
+             PaddleDetection's YOLOv3 settings (YOLO_NMS) over the three
+             heads' (8, 22743, 4) boxes and (8, 80, 22743) scores: ms beside
+             the forward's, peak bytes, detections an image (at most 100,
+             finite, each class's kept boxes pairwise at most 0.45 IoU), how
+             many the planted one-pass NMS fault (one_pass_keep) changes;
+             matrix_nms linear and Gaussian (YOLO_MATRIX), ms; the small
+             composition's multiclass_nms and matrix_nms on the card bitwise
+             the CPU's on the CPU's yolo_box output, and a chain (A over B
+             over C, A clear of C) that greedy NMS keeps whole and the
+             fault cuts.
 33. det-ops — roi_align at 7 and 14, aligned and not, and roi_pool at 7 on
              Mask R-CNN R50-FPN's P2 map (2, 256, 200, 336) f32 with 512
              RoIs an image (16-160 pixel boxes), spatial_scale 0.25: card
@@ -315,6 +325,44 @@ Phases, in order; any failure ends the script with a non-zero exit:
              prior_box and density_prior_box at SSD300's 38x38 map card
              against CPU (the priors bitwise), ms each.  No hand-written
              kernel lies on phases 31-33.
+34. faster-rcnn train — PaddleDetection's faster_rcnn_r50_fpn_1x_coco
+             composed of the port's pieces (faster_rcnn_fpn, FRCNN_FULL):
+             resnet50's C2-C5, an FPN of 256 with P6, the RPN head, anchors
+             32-512 (268,569 an image), rpn_target_assign, generate_proposals
+             at every level, collect_fpn_proposals, generate_proposal_labels
+             (512 RoIs an image, 81 classes), distribute_fpn_proposals,
+             roi_align 7x7 at P2-P5, two FC of 1024, the RPN's and the RoI
+             head's losses.  First the same composition at resnet18, P4-P5,
+             128x128, B=2, 4 classes card against CPU (check_small_frcnn):
+             f64 in evaluation mode, the RPN and RoI samples bitwise, the
+             loss, every gradient and one Momentum step's moves within
+             TOL_F32, the chain through generate_proposals beside the
+             planted fault, the f32 serve's multiclass_nms bitwise on the
+             CPU's decoded boxes.  Then B=2 at 800x1344, f32, Momentum(0.01,
+             0.9) + L2Decay(1e-4), one warm-up and 5 eager steps: ms a
+             step, images/s, peak bytes, the idle share of one traced step,
+             then one step with its stages synchronized: host ms of the
+             target stages and of the proposal stages, fg / bg counts of
+             each stage; every loss finite.
+35. faster-rcnn serve — the trained composition in evaluation mode, B=2 at
+             800x1344: proposals 1000 / 1000 a level, 1000 collected an
+             image, the RoI head, softmax, box_decoder_and_assign, box_clip
+             and multiclass_nms (background 0, 0.05, NMS 0.5, 100 kept) per
+             image: ms a batch, images/s, the proposal stage's and the NMS's
+             ms; the detections within NMS's invariants.
+36. det-tail — the rest of vision.ops' second half card against CPU on
+             identical inputs (indices, labels, kept sets bitwise; values and
+             gradients within TOL_F32), each timed at its model's shape:
+             SSD300's target stage (bipartite_match, target_assign,
+             mine_hard_examples), RetinaNet R50-FPN's retinanet_target_assign
+             and retinanet_detection_output (bitwise on zero deltas, whose
+             decode is exact; its invariants on random ones), Mask R-CNN's
+             generate_mask_labels over phase 34's samples,
+             locality_aware_nms on EAST's 128x128 map,
+             roi_perspective_transform at FOTS's RoIRotate (PERSP) and
+             box_decoder_and_assign at Faster R-CNN serve's 2,000 RoIs,
+             forward and backward.  No hand-written kernel lies on phases
+             34-36.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -544,6 +592,64 @@ DET_MAP = (2, 256, 200, 336)
 DET_IMG = (800, 1344)
 DET_ROIS, DET_SCALE, DET_CHECK = 512, 0.25, 64
 SSD_MAP = 38
+# yolov3-dcn serve's NMS: PaddleDetection's YOLOv3 MultiClassNMS; the
+# reference's matrix_nms defaults but score_threshold (PP-YOLO serves
+# YOLOv3-DCN through Matrix NMS)
+YOLO_NMS = dict(score_threshold=0.01, nms_top_k=1000, keep_top_k=100,
+                nms_threshold=0.45, background_label=-1)
+YOLO_MATRIX = dict(score_threshold=0.01, nms_top_k=400, keep_top_k=100)
+# faster-rcnn: PaddleDetection's faster_rcnn_r50_fpn_1x_coco
+# (configs/faster_rcnn/_base_/faster_rcnn_r50_fpn.yml): ResNet-50, FPN of
+# 256 channels on C2-C5 with P6 by a stride-2 max pool, anchors 32-512 at
+# strides 4-64 and ratios 0.5 / 1 / 2, RPN 256 an image (fg 0.5, 0.7 /
+# 0.3), proposals pre 2000 / post 1000 a level in training and 1000 /
+# 1000 in test (NMS 0.7), 1000 collected an image, 512 RoIs an image (fg
+# 0.25, 0.5 / 0.5 / 0.0, weights 0.1, 0.1, 0.2, 0.2), RoIAlign 7x7 at P2-P5
+# (refer level 4 at 224), TwoFCHead of 1024, 81 classes, 800x1344;
+# Momentum(0.01, 0.9) with L2 1e-4 after a linear warmup from 0.1 x over
+# 1000 steps (optimizer_1x.yml), B=2 (the recipe: one image a card on 8
+# cards), f32; the serve's MultiClassNMS (background 0, 0.05, NMS 0.5,
+# 100 kept).  The card-vs-CPU check at resnet18, P4-P5, 128x128, 4
+# classes
+FRCNN_RATIOS = (0.5, 1.0, 2.0)
+FRCNN_ROI = 7
+FRCNN_REG_W = (0.1, 0.1, 0.2, 0.2)
+FRCNN_RPN_BATCH, FRCNN_COLLECT = 256, 1000
+FRCNN_SERVE = dict(score_threshold=0.05, nms_threshold=0.5, keep_top_k=100,
+                   background_label=0)
+FRCNN_FULL = dict(img=(800, 1344), gt=20, classes=81, stages=(2, 3, 4, 5),
+                  p6=True, fpn=256, fc=1024, sizes=(32, 64, 128, 256, 512),
+                  strides=(4, 8, 16, 32, 64), roi_levels=(2, 5),
+                  refer=(4, 224), train_proposals=(2000, 1000),
+                  test_proposals=(1000, 1000), roi_batch=512)
+FRCNN_SMALL = dict(img=(128, 128), gt=6, classes=5, stages=(4, 5), p6=False,
+                   fpn=64, fc=128, sizes=(32, 64), strides=(16, 32),
+                   roi_levels=(4, 5), refer=(5, 64),
+                   train_proposals=(200, 100), test_proposals=(100, 100),
+                   roi_batch=64)
+FRCNN_B, FRCNN_SMALL_B, FRCNN_STEPS = 2, 2, 5
+FRCNN_LR, FRCNN_DECAY, FRCNN_WARMUP = 0.01, 1e-4, 1000
+FRCNN_ANCHORS = 268_569
+# det-tail: SSD300 (ssd_vgg16_300_240e_voc: maps 38-1, min / max sizes,
+# ratios, steps; 21 VOC classes; B=8, 20 gt boxes an image), RetinaNet
+# R50-FPN (Lin et al. 2017: P3-P7, 3 octave scales from 4 x the stride,
+# 3 ratios, 80 classes; inference at 0.05, 1,000 a level, NMS 0.5, 100
+# kept), Mask R-CNN's mask targets (resolution 28), EAST (a 512x512 image
+# at stride 4), FOTS's RoIRotate (Liu et al. 2018: the shared features at
+# 1/4 of a 640x640 image, 32 channels, text warped to height 8; this
+# script's reading, 64 quads warped to 8 x 64), Faster R-CNN serve's
+# 2,000 RoIs for box_decoder_and_assign
+SSD_MAPS = ((38, 30.0, 60.0, (2.0,), 8), (19, 60.0, 111.0, (2.0, 3.0), 16),
+            (10, 111.0, 162.0, (2.0, 3.0), 32),
+            (5, 162.0, 213.0, (2.0, 3.0), 64), (3, 213.0, 264.0, (2.0,), 100),
+            (1, 264.0, 315.0, (2.0,), 300))
+SSD_PRIORS, SSD_CLASSES, SSD_B, SSD_GT = 8732, 21, 8, 20
+RETINA_IMG, RETINA_STRIDES = (800, 1344), (8, 16, 32, 64, 128)
+RETINA_ANCHORS, RETINA_CLASSES = 201_600, 80
+RETINA_OUT = dict(score_threshold=0.05, nms_top_k=1000, keep_top_k=100,
+                  nms_threshold=0.5)
+MASK_RES, EAST_MAP, DEC_ROIS = 28, 128, 2000
+PERSP = dict(map=(1, 32, 160, 160), rois=64, out=(8, 64), scale=0.25)
 
 
 def log(msg):
@@ -4572,6 +4678,8 @@ def check_small_yolo(nn, F, ops, resnet18, Momentum, L2Decay):
     r["serve_f32"] = max(scaled_err(g.cpu(), w) for gs, ws in zip(got, want)
                          for g, w in zip(gs, ws))
     r["serve_kept"] = sum(int((w[1].abs().sum(-1) > 0).sum()) for w in want)
+    (r["nms_bitwise"], r["nms_detections"], r["chain_kept"],
+     r["chain_kept_fault"]) = check_small_yolo_nms(ops, want)
     cpu64, card64 = cpu.double(), card.double()
 
     def step(m, dev):
@@ -4699,13 +4807,18 @@ def yolov3_train_phase(nn, F, ops, resnet18, resnet50, Momentum, L2Decay,
                    "dcn_vs_conv": dcn_ms / conv_ms, "small": sv}
 
 
-def yolov3_serve_phase(ops, model, power, small_err, small_kept):
+def yolov3_serve_phase(ops, model, power, small, fresh_model):
     """yolov3-dcn serve: the trained composition in evaluation mode, B=
     YOLO_B at YOLO_HW, forward then yolo_box at each head (YOLO_CONF,
     image YOLO_HW): ms a batch, images/s; finite boxes and scores of the
-    expected shapes.  small_err is check_small_yolo's card-vs-CPU reading
-    of the same decode at the small size."""
+    expected shapes.  Then yolo_nms_readings over the three heads' boxes,
+    of this composition and of ``fresh_model()`` (a freshly initialised
+    one, its running stats from this batch, so that every box is a
+    candidate: the training on random boxes leaves few or none above
+    conf_thresh).  ``small`` is check_small_yolo's readings: the same
+    decode card vs CPU at the small size, its NMS bitwise and the chain."""
     import torch
+    small_err, small_kept = small["serve_f32"], small["serve_kept"]
     model.eval()
     x = torch.as_tensor(yolo_batch(YOLO_B, YOLO_HW, YOLO_CLASSES, seed=7)[0],
                         device="cuda")
@@ -4735,10 +4848,101 @@ def yolov3_serve_phase(ops, model, power, small_err, small_kept):
     if small_err > TOL_F32:
         fail("the small yolov3-dcn's yolo_box on the card disagrees with "
              "the CPU")
-    del model, x, res
+    boxes, scores = yolo_nms_inputs(res)
+    del model, res
+    torch.cuda.empty_cache()
+    nms = {"trained": yolo_nms_readings(ops, boxes, scores)}
+    # the same decode from a freshly initialised composition (running stats
+    # of this batch): every box a candidate, 1,000 a class after the cap
+    fresh = fresh_model()
+    with torch.no_grad():
+        for sub in fresh.sublayers():
+            if hasattr(sub, "_momentum"):
+                sub._momentum = 0.0
+        fresh(x)
+        fresh.eval()
+        boxes, scores = yolo_nms_inputs(yolo_decode(ops, fresh(x), img,
+                                                    YOLO_CLASSES))
+    del fresh, x
+    torch.cuda.empty_cache()
+    nms["fresh"] = yolo_nms_readings(ops, boxes, scores)
+    for kind, v in nms.items():
+        log(f"yolov3-dcn serve, {kind} composition: multiclass_nms over "
+            f"{boxes.shape[1]} boxes and {scores.shape[1]} classes an image "
+            f"({v['candidates']} candidates; score "
+            f"{YOLO_NMS['score_threshold']:g}, nms_top_k "
+            f"{YOLO_NMS['nms_top_k']}, keep {YOLO_NMS['keep_top_k']}, NMS "
+            f"{YOLO_NMS['nms_threshold']:g}): {v['nms_ms']:.3f} ms (host to a "
+            f"synchronize) beside the forward + yolo_box's {ms:.3f} ms, peak "
+            f"{v['nms_peak_bytes']} bytes above its inputs; detections an "
+            f"image {v['detections']}, largest same-class IoU "
+            f"{v['worst_iou']:.3g}; the planted one-pass fault changes "
+            f"{v['fault_changes']} detections; matrix_nms linear "
+            f"{v['matrix_nms_linear_ms']:.3f} ms ({v['matrix_linear']}), "
+            f"Gaussian {v['matrix_nms_gaussian_ms']:.3f} ms "
+            f"({v['matrix_gaussian']}) [{power}]")
+    log(f"yolov3-dcn serve, small composition: multiclass_nms on the CPU's "
+        f"decode, card vs CPU bitwise {small['nms_bitwise']} "
+        f"({small['nms_detections']} detections), the chain kept "
+        f"{small['chain_kept']} of 3, under the planted fault "
+        f"{small['chain_kept_fault']}")
+    if not small["nms_bitwise"]:
+        fail("the small yolov3-dcn's NMS on the card differs from the CPU's")
+    if small["chain_kept"] != 2 or small["chain_kept_fault"] != 1:
+        fail("multiclass_nms: the chain is not kept whole, or the planted "
+             "one-pass fault does not cut it")
+    del boxes, scores
     torch.cuda.empty_cache()
     return {"batch_ms": ms, "images_per_s": YOLO_B / ms * 1e3,
-            "boxes_kept": kept}
+            "boxes_kept": kept, "nms": nms}
+
+
+def yolo_nms_readings(ops, boxes, scores):
+    """multiclass_nms (YOLO_NMS) over yolo_box's boxes and scores: ms, peak
+    bytes above its inputs, candidates, detections an image (failing
+    unless within keep_top_k, finite, and each class's kept boxes pairwise
+    at most the NMS threshold), how many the planted one-pass fault
+    changes; matrix_nms (YOLO_MATRIX) linear and Gaussian, ms and
+    detections an image."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, num, _ = yolo_nms(ops, boxes, scores)
+    peak = torch.cuda.max_memory_allocated() - base
+    r = {"nms_ms": wall_ms(lambda: yolo_nms(ops, boxes, scores)),
+         "nms_peak_bytes": peak, "detections": num.tolist(),
+         "candidates": int((scores > YOLO_NMS["score_threshold"]).sum()),
+         "fault_changes": detections_changed(
+             ops, lambda: yolo_nms(ops, boxes, scores))}
+    start, worst = 0, 0.0
+    for k in r["detections"]:
+        worst = max(worst, nms_overlap(ops, out[start:start + k]))
+        start += k
+    r["worst_iou"] = worst
+    if (max(r["detections"]) > YOLO_NMS["keep_top_k"]
+            or worst > YOLO_NMS["nms_threshold"]
+            or not bool(torch.isfinite(out).all())):
+        fail("yolov3-dcn serve: the detections break NMS's invariants")
+    for kind, gauss in (("linear", False), ("gaussian", True)):
+        r[f"matrix_{kind}"] = ops.matrix_nms(
+            boxes, scores, use_gaussian=gauss, gaussian_sigma=2.0,
+            **YOLO_MATRIX)[1].tolist()
+        r[f"matrix_nms_{kind}_ms"] = wall_ms(lambda: ops.matrix_nms(
+            boxes, scores, use_gaussian=gauss, gaussian_sigma=2.0,
+            **YOLO_MATRIX))
+    return r
+
+
+def one_pass_keep(boxes, valid, thresh, eta=1.0):
+    """The planted NMS fault, in place of vision.ops._greedy_keep: one pass
+    in which every better candidate suppresses, kept or not
+    (``triu(iou > t, 1).any(0)``).  Greedy NMS differs wherever overlaps
+    chain: A over B over C with A clear of C keeps C; this drops it."""
+    import torch
+    from paddle_tpu_torch.vision.ops import _pair_iou
+    over = torch.triu((_pair_iou(boxes) > thresh) & valid[:, :, None], 1)
+    return valid & ~over.any(1)
 
 
 def det_rois(n_img, per_img, seed=0):
@@ -4895,6 +5099,841 @@ def ssd_ops(ops, power):
             f"[{power}]")
         if err > TOL_BREADTH:
             fail(f"det-ops: {name} on the card disagrees with the CPU")
+    return rows
+
+
+def wall_ms(fn, reps=3, warmup=1):
+    """Mean host milliseconds of fn() to a synchronize, for work that reads
+    back to the host inside (the NMS and target stages), where launches
+    queued behind a sleeping kernel (cuda_ms) would wait on themselves."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def yolo_nms_inputs(res):
+    """yolo_box's heads, concatenated: boxes (N, M, 4), scores (N, C, M)."""
+    import torch
+    return (torch.cat([b for b, _ in res], 1),
+            torch.cat([s for _, s in res], 1).transpose(1, 2).contiguous())
+
+
+def yolo_nms(ops, boxes, scores):
+    """multiclass_nms at PaddleDetection's YOLOv3 settings (YOLO_NMS)."""
+    return ops.multiclass_nms(boxes, scores, return_index=True, **YOLO_NMS)
+
+
+def chain_case(dev):
+    """Three boxes in a chain: A over B (IoU 1/3), B over C, A clear of C;
+    scores A > B > C.  Greedy NMS at 0.3 keeps A and C, the one-pass
+    fault only A."""
+    import torch
+    b = torch.tensor([[0, 0, 10, 10], [5, 0, 15, 10], [10, 0, 20, 10]],
+                     dtype=torch.float32, device=dev)
+    return b, torch.tensor([0.9, 0.8, 0.7], device=dev)
+
+
+class planted_nms:
+    """Within it, vision.ops runs one_pass_keep in place of its greedy
+    scan (the planted fault)."""
+
+    def __init__(self, ops):
+        self.ops = ops
+
+    def __enter__(self):
+        self.saved = self.ops._greedy_keep
+        self.ops._greedy_keep = one_pass_keep
+
+    def __exit__(self, *exc):
+        self.ops._greedy_keep = self.saved
+
+
+def check_small_yolo_nms(ops, want):
+    """The small composition's multiclass_nms on the card, bitwise against
+    the same call on the CPU fed the CPU's yolo_box output ``want``; then
+    the chain, which greedy NMS keeps whole and the planted fault cuts.
+    Returns (bitwise, detections, chain kept, chain kept under the
+    fault)."""
+    import torch
+    boxes, scores = yolo_nms_inputs(want)
+    c = yolo_nms(ops, boxes, scores)
+    g = yolo_nms(ops, boxes.cuda(), scores.cuda())
+    same = all(torch.equal(a.cpu(), b) and a.device.type == "cuda"
+               for a, b in zip(g, c))
+    b, s = chain_case("cuda")
+    keep = ops.multiclass_nms(b[None], s[None, None], 0.0, -1, -1, 0.3)[1]
+    with planted_nms(ops):
+        cut = ops.multiclass_nms(b[None], s[None, None], 0.0, -1, -1, 0.3)[1]
+    return same, int(c[1].sum()), int(keep[0]), int(cut[0])
+
+
+def detections_changed(ops, run):
+    """How many detections ``run()`` (returning (out, rois_num, index))
+    gives that it does not give under the planted fault, and the
+    reverse."""
+    base = run()
+    with planted_nms(ops):
+        faulty = run()
+    a = set(base[2].tolist())
+    b = set(faulty[2].tolist())
+    return len(a - b) + len(b - a)
+
+
+def faster_rcnn_fpn(nn, F, backbone, cfg, device="cuda"):
+    """Faster R-CNN with an FPN (PaddleDetection's
+    ``faster_rcnn_r50_fpn_1x_coco``; the JAX package has no detector, so
+    neither has the port, and tests/torch_faster_rcnn_common.py builds a
+    tiny one in both packages): ``backbone`` (the port's ResNet, without
+    pool or head) gives C2-C5 (strides 4-32); the FPN takes the stages
+    ``cfg["stages"]`` through 1x1 laterals of ``cfg["fpn"]`` channels, the
+    top-down path by nearest x2 upsampling and 3x3 outputs, and with
+    ``cfg["p6"]`` P6 by a stride-2 max pool of the last; the RPN head is a
+    3x3 convolution and ReLU, then 1x1 to A = 3 objectness logits and 4 A
+    deltas; the RoI head (``roi_head``) two FC of ``cfg["fc"]`` (ReLU) to
+    ``cfg["classes"]`` logits and 4 x as many deltas.  forward(x) returns
+    ([(logits, deltas)] and the maps, one per level)."""
+    body = backbone(num_classes=0, with_pool=False, device=device)
+    widths = [c * body.inplanes // 512 for c in (64, 128, 256, 512)]
+    stages = cfg["stages"]
+    ch, A = cfg["fpn"], len(FRCNN_RATIOS)
+
+    class FasterRCNN(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.backbone = body
+            self.laterals = nn.LayerList([nn.Conv2D(
+                widths[s - 2], ch, 1, device=device) for s in stages])
+            self.outputs = nn.LayerList([nn.Conv2D(
+                ch, ch, 3, padding=1, device=device) for _ in stages])
+            self.rpn = nn.Conv2D(ch, ch, 3, padding=1, device=device)
+            self.rpn_obj = nn.Conv2D(ch, A, 1, device=device)
+            self.rpn_reg = nn.Conv2D(ch, 4 * A, 1, device=device)
+            n = cfg["classes"]
+            self.fc1 = nn.Linear(ch * FRCNN_ROI * FRCNN_ROI, cfg["fc"],
+                                 device=device)
+            self.fc2 = nn.Linear(cfg["fc"], cfg["fc"], device=device)
+            self.cls = nn.Linear(cfg["fc"], n, device=device)
+            self.reg = nn.Linear(cfg["fc"], 4 * n, device=device)
+
+        def forward(self, x):
+            b = self.backbone
+            c = [b.layer1(b.maxpool(b.relu(b.bn1(b.conv1(x)))))]
+            for layer in (b.layer2, b.layer3, b.layer4)[:max(stages) - 2]:
+                c.append(layer(c[-1]))
+            lat = [m(c[s - 2]) for m, s in zip(self.laterals, stages)]
+            for i in range(len(lat) - 2, -1, -1):
+                lat[i] = lat[i] + F.interpolate(lat[i + 1], scale_factor=2,
+                                                mode="nearest")
+            feats = [m(t) for m, t in zip(self.outputs, lat)]
+            if cfg["p6"]:
+                feats.append(F.max_pool2d(feats[-1], 1, stride=2))
+            heads = []
+            for f in feats:
+                h = F.relu(self.rpn(f))
+                heads.append((self.rpn_obj(h), self.rpn_reg(h)))
+            return heads, feats
+
+        def roi_head(self, r):
+            h = F.relu(self.fc2(F.relu(self.fc1(r.flatten(1)))))
+            return self.cls(h), self.reg(h)
+    return FasterRCNN()
+
+
+class StageClock:
+    """Host ms of the proposal and target stages: each call synchronizes
+    before and after the stage (only in the one step it times)."""
+
+    def __init__(self):
+        self.ms = {"targets": 0.0, "proposals": 0.0}
+
+    def __call__(self, kind, fn, *args, **kw):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.ms[kind] += (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def _run_stage(clock, kind, fn, *args, **kw):
+    return clock(kind, fn, *args, **kw) if clock else fn(*args, **kw)
+
+
+def frcnn_anchors(ops, feats, cfg):
+    return [ops.anchor_generator(f, [s], list(FRCNN_RATIOS),
+                                 stride=(float(st), float(st)))
+            for f, s, st in zip(feats, cfg["sizes"], cfg["strides"])]
+
+
+def frcnn_proposals(ops, heads, levels, im_shape, n, pre, post, clock=None):
+    """generate_proposals at every level (NMS 0.7, min_size 0), then
+    collect_fpn_proposals to FRCNN_COLLECT an image: [(R_i, 4) f32]."""
+    import torch
+    per_level = []
+    for (o, d), (a, v) in zip(heads, levels):
+        rois, sc, num = _run_stage(
+            clock, "proposals", ops.generate_proposals, torch.sigmoid(o), d,
+            im_shape, a, v, pre, post, 0.7, 0.0, return_rois_num=True)
+        per_level.append((rois.split(num.tolist()), sc.split(num.tolist())))
+    return [_run_stage(clock, "proposals", ops.collect_fpn_proposals,
+                       [r[i] for r, _ in per_level],
+                       [s[i] for _, s in per_level], FRCNN_COLLECT)
+            for i in range(n)]
+
+
+def frcnn_roi_features(ops, feats, rois, nums, cfg, clock=None):
+    """distribute_fpn_proposals of each image's RoIs to the RoI levels,
+    roi_align (FRCNN_ROI, aligned) of every image's RoIs of a level in one
+    call with boxes_num, the rows put back in the RoIs' order."""
+    import torch
+    lo, hi = cfg["roi_levels"]
+    per_img, start = [], 0
+    for n in nums:
+        multi, restore, _ = _run_stage(
+            clock, "proposals", ops.distribute_fpn_proposals,
+            rois[start:start + n], lo, hi, cfg["refer"][0], cfg["refer"][1])
+        per_img.append((multi, start + torch.argsort(restore)))
+        start += n
+    out, src = [], []
+    for k in range(hi - lo + 1):
+        f, st = feats[k], cfg["strides"][k]
+        sizes = [len(m[k]) for m, _ in per_img]
+        if not sum(sizes):
+            continue
+        out.append(ops.roi_align(f, torch.cat([m[k] for m, _ in per_img]),
+                                 sizes, FRCNN_ROI, 1.0 / st, aligned=True))
+        for m, order in per_img:
+            lens = [len(t) for t in m]
+            src.append(order[sum(lens[:k]):sum(lens[:k + 1])])
+    if not out:
+        return feats[0].new_zeros(0, feats[0].shape[1], FRCNN_ROI, FRCNN_ROI)
+    feat = torch.cat(out)
+    return feat[torch.argsort(torch.cat(src))]
+
+
+def frcnn_loss(ops, F, model, x, gts, classes, crowd, im_info, cfg,
+               clock=None):
+    """The training loss of the composition on one batch: the RPN's
+    sigmoid BCE on the sampled anchors and smooth L1 on the fg anchors
+    over the sample's size (rpn_target_assign over every level's anchors),
+    the proposals (FRCNN_TRAIN), generate_proposal_labels, RoIAlign at the
+    levels distribute_fpn_proposals picks, softmax CE over the sampled
+    RoIs and smooth L1 on their fg class slots over the RoIs' count.
+    Returns (loss, the named samples)."""
+    import torch
+    n = x.shape[0]
+    heads, feats = model(x)
+    levels = frcnn_anchors(ops, feats, cfg)
+    an_all = torch.cat([a.reshape(-1, 4) for a, _ in levels])
+    logit = torch.cat([o.permute(0, 2, 3, 1).reshape(n, -1)
+                       for o, _ in heads], 1)
+    delta = torch.cat([d.reshape(n, len(FRCNN_RATIOS), 4, *d.shape[2:])
+                       .permute(0, 3, 4, 1, 2).reshape(n, -1, 4)
+                       for _, d in heads], 1)
+    loc, score, tbox, tlab, _ = _run_stage(
+        clock, "targets", ops.rpn_target_assign, an_all, gts, crowd,
+        im_info, FRCNN_RPN_BATCH, 0.0, 0.5, 0.7, 0.3, use_random=True)
+    l_cls = F.binary_cross_entropy_with_logits(
+        logit.reshape(-1)[score.long()], tlab.to(logit.dtype))
+    l_reg = F.smooth_l1_loss(delta.reshape(-1, 4)[loc.long()], tbox,
+                             reduction="sum") / max(len(score), 1)
+    pre, post = cfg["train_proposals"]
+    props = frcnn_proposals(ops, [(o.detach(), d.detach())
+                                  for o, d in heads], levels,
+                            im_info[:, :2], n, pre, post, clock)
+    rois, labels, tgts, inw, _, nums = _run_stage(
+        clock, "targets", ops.generate_proposal_labels, props, classes,
+        crowd, gts, batch_size_per_im=cfg["roi_batch"], fg_fraction=0.25,
+        fg_thresh=0.5, bg_thresh_hi=0.5, bg_thresh_lo=0.0,
+        bbox_reg_weights=FRCNN_REG_W, class_nums=cfg["classes"],
+        use_random=True)
+    feat = frcnn_roi_features(ops, feats, rois, nums.tolist(), cfg, clock)
+    cls, reg = model.roi_head(feat)
+    l_rcnn = F.cross_entropy(cls, labels.long())
+    l_box = F.smooth_l1_loss(reg * inw, tgts * inw,
+                             reduction="sum") / len(labels)
+    samples = {"score_index": score, "loc_index": loc, "tgt_label": tlab,
+               "rois": rois, "labels": labels, "nums": nums,
+               "anchors": torch.tensor(len(an_all))}
+    return l_cls + l_reg + l_rcnn + l_box, samples
+
+
+def frcnn_serve(ops, F, model, x, im_info, cfg, clock=None, nms=None):
+    """One request: test proposals (FRCNN_TEST), the RoI head, softmax,
+    box_decoder_and_assign with FRCNN_REG_W as the variances, box_clip of
+    each RoI's best-class box, then per image multiclass_nms (background
+    0, FRCNN_SERVE).  Returns ([(out, rois_num, index)] an image, the
+    decode's (boxes, probabilities) an image)."""
+    import torch
+    n = x.shape[0]
+    with torch.no_grad():
+        heads, feats = model(x)
+        levels = frcnn_anchors(ops, feats, cfg)
+        pre, post = cfg["test_proposals"]
+        props = frcnn_proposals(ops, heads, levels, im_info[:, :2], n, pre,
+                                post, clock)
+        nums = [len(p) for p in props]
+        rois = torch.cat(props)
+        cls, reg = model.roi_head(frcnn_roi_features(ops, feats, rois, nums,
+                                                     cfg, clock))
+        prob = F.softmax(cls, -1)
+        var = torch.tensor(FRCNN_REG_W, device=x.device).expand(len(rois), 4)
+        _, assigned = ops.box_decoder_and_assign(rois, var, reg, prob)
+        decoded, dets, start = [], [], 0
+        for i, k in enumerate(nums):
+            boxes = ops.box_clip(assigned[start:start + k], im_info[i, :2])
+            p = prob[start:start + k].t()
+            decoded.append((boxes, p))
+            dets.append(_run_stage(nms, "nms", ops.multiclass_nms,
+                                   boxes[None], p[None], return_index=True,
+                                   **FRCNN_SERVE))
+            start += k
+    return dets, decoded
+
+
+def frcnn_batch(b, img, gt, classes, seed=0, dtype=None):
+    """Images N(0, 1) of ``img`` (h, w), and per image ``gt`` boxes (xyxy
+    pixels inside the image, w and h uniform in 5-40 % of its sides,
+    classes 1 .. classes - 1, none crowd), from one default_rng(seed), as
+    yolo_batch draws YOLOv3's; im_info rows (h, w, 1)."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    h, w = img
+    x = r.standard_normal((b, 3, h, w)).astype(dtype or np.float32)
+    gts, cls, crowd = [], [], []
+    for _ in range(b):
+        wh = r.uniform(0.05, 0.4, (gt, 2)) * [w, h]
+        xy = r.uniform(0, 1, (gt, 2)) * ([w, h] - wh)
+        gts.append(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+        cls.append(r.integers(1, classes, gt).astype(np.int64))
+        crowd.append(np.zeros(gt, bool))
+    im_info = np.array([[h, w, 1.0]] * b, np.float32)
+    return x, gts, cls, crowd, im_info
+
+
+def frcnn_small_pair(nn, F, resnet18):
+    """The composition at FRCNN_SMALL's size on the CPU and on the card
+    from one state, with the CPU's running stats of one training forward
+    (as check_small_yolo)."""
+    import torch
+    torch.manual_seed(0)
+    cpu = faster_rcnn_fpn(nn, F, resnet18, FRCNN_SMALL, device="cpu")
+    card = faster_rcnn_fpn(nn, F, resnet18, FRCNN_SMALL)
+    missing, unexpected = card.set_state_dict(cpu.state_dict())
+    if missing or unexpected:
+        fail(f"faster-rcnn state: missing {missing}, unexpected {unexpected}")
+    return cpu, card
+
+
+def check_small_frcnn(nn, F, ops, resnet18, Momentum, L2Decay):
+    """faster-rcnn's card-vs-CPU check at FRCNN_SMALL's size: in f64 and
+    evaluation mode (as check_small_yolo), with the training targets
+    computed all the same, the RPN and RoI samples bitwise on both devices
+    (the RoIs are f32 after the proposals, so the f64 decodes' last bits do
+    not reach them), the loss, every gradient and one Momentum step's moves
+    by scaled_err; the planted one-pass NMS fault through
+    generate_proposals on the chain; then the f32 serve on the CPU and the
+    card's multiclass_nms on the CPU's decoded boxes and probabilities,
+    bitwise.  Returns the readings by name."""
+    import torch
+    cfg = FRCNN_SMALL
+    x, gts, classes, crowd, im_info = frcnn_batch(
+        FRCNN_SMALL_B, cfg["img"], cfg["gt"], cfg["classes"], seed=3)
+    x = torch.from_numpy(x)
+    cpu, card = frcnn_small_pair(nn, F, resnet18)
+    with torch.no_grad():
+        cpu(x)                                        # running stats
+        for mine, theirs in zip(card.buffers(), cpu.buffers()):
+            mine.copy_(theirs)
+    cpu.eval()
+    card.eval()
+    r = {}
+    info_c = torch.from_numpy(im_info)
+    dets_c, dec_c = frcnn_serve(ops, F, cpu, x, info_c, cfg)
+    same = True
+    for (boxes, p), want in zip(dec_c, dets_c):
+        got = ops.multiclass_nms(boxes.cuda()[None], p.cuda()[None],
+                                 return_index=True, **FRCNN_SERVE)
+        same &= all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    r["serve_nms_bitwise"] = same
+    r["serve_detections"] = sum(int(d[1].sum()) for d in dets_c)
+    dets_g, _ = frcnn_serve(ops, F, card, x.cuda(), info_c.cuda(), cfg)
+    r["serve_detections_card"] = sum(int(d[1].sum()) for d in dets_g)
+    cpu64, card64 = cpu.double(), card.double()
+    old = {n: p.detach().clone() for n, p in cpu64.named_parameters()}
+
+    def step(m, dev):
+        opt = Momentum(learning_rate=FRCNN_LR, momentum=0.9,
+                       parameters=m.parameters(),
+                       weight_decay=L2Decay(FRCNN_DECAY))
+        loss, s = frcnn_loss(ops, F, m, x.to(dev, torch.float64), gts,
+                             classes, crowd, info_c.to(dev), cfg)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        return loss.detach().cpu(), grads, {k: v.cpu() for k, v in s.items()}
+    lc, gc, sc = step(cpu64, "cpu")
+    lg, gg, sg = step(card64, "cuda")
+    r["samples_bitwise"] = all(torch.equal(sg[k], sc[k]) for k in sc)
+    r["rpn_fg_bg"] = [int((sc["tgt_label"] == 1).sum()),
+                      int((sc["tgt_label"] == 0).sum())]
+    r["roi_fg_bg"] = [int((sc["labels"] > 0).sum()),
+                      int((sc["labels"] == 0).sum())]
+    r["loss_f64"] = scaled_err(lg, lc)
+    r["grad_f64"] = max(scaled_err(gg[n], gc[n]) for n in gc)
+    r["moves_f64"] = moves_err(card64, cpu64, old, "faster-rcnn small")
+    # the planted fault through the proposal stage: three anchors in a
+    # chain at one level, zero deltas (the decode is exact)
+    b, s = chain_case("cuda")
+    args = (s.reshape(1, 1, 1, 3), torch.zeros(1, 4, 1, 3, device="cuda"),
+            torch.tensor([[100.0, 100.0]], device="cuda"),
+            b.reshape(1, 3, 1, 4), torch.ones(1, 3, 1, 4, device="cuda"),
+            10, 10, 0.3, 0.0)
+    r["chain_kept"] = len(ops.generate_proposals(*args)[0])
+    with planted_nms(ops):
+        r["chain_kept_fault"] = len(ops.generate_proposals(*args)[0])
+    r["small_loss"] = float(lc)
+    return r
+
+
+def frcnn_train_phase(nn, F, ops, resnet18, resnet50, Momentum, L2Decay,
+                      LinearWarmup, power):
+    """faster-rcnn train: check_small_frcnn, then the composition at
+    PaddleDetection's widths (resnet50, FPN 256, P2-P6, 81 classes), f32,
+    Momentum(FRCNN_LR, 0.9) with L2Decay(FRCNN_DECAY) from the first steps
+    of its LinearWarmup (0.1 x FRCNN_LR to FRCNN_LR over FRCNN_WARMUP
+    steps), B=FRCNN_B at
+    FRCNN_IMG, one warm-up then FRCNN_STEPS eager steps: ms a step,
+    images/s, peak bytes, the device's busy ms and idle share of one more
+    step; then one step with the stages timed on the host
+    (StageClock) and each stage's fg / bg counts; every loss finite.
+    Returns (the model, its last samples, the readings by name)."""
+    import torch
+    sv = check_small_frcnn(nn, F, ops, resnet18, Momentum, L2Decay)
+    log(f"faster-rcnn small check (resnet18 backbone, P"
+        f"{FRCNN_SMALL['stages'][0]}-P{FRCNN_SMALL['stages'][-1]}, B="
+        f"{FRCNN_SMALL_B}, {FRCNN_SMALL['img'][0]}x{FRCNN_SMALL['img'][1]}, "
+        f"{FRCNN_SMALL['classes'] - 1} classes) card vs CPU in f64, eval "
+        f"mode: RPN / RoI samples bitwise {sv['samples_bitwise']} (RPN fg/bg "
+        f"{sv['rpn_fg_bg']}, RoI fg/bg {sv['roi_fg_bg']}), loss "
+        f"{sv['loss_f64']:.3g}, gradients {sv['grad_f64']:.3g}, Momentum "
+        f"moves {sv['moves_f64']:.3g} (tol {TOL_F32:g}); the chain through "
+        f"generate_proposals keeps {sv['chain_kept']} boxes, the planted "
+        f"one-pass fault {sv['chain_kept_fault']}; f32 serve: card "
+        f"multiclass_nms on the CPU's decoded boxes bitwise "
+        f"{sv['serve_nms_bitwise']} ({sv['serve_detections']} detections; "
+        f"{sv['serve_detections_card']} on the card end to end)")
+    if not sv["samples_bitwise"] or not sv["serve_nms_bitwise"]:
+        fail("the small faster-rcnn's samples or detections differ between "
+             "the card and the CPU")
+    if max(sv["loss_f64"], sv["grad_f64"], sv["moves_f64"]) > TOL_F32:
+        fail("the small faster-rcnn on the card disagrees with the CPU")
+    if sv["chain_kept"] != 2 or sv["chain_kept_fault"] != 1:
+        fail("generate_proposals: the chain is not kept whole, or the "
+             "planted one-pass fault does not cut it")
+    cfg = FRCNN_FULL
+    model = faster_rcnn_fpn(nn, F, resnet50, cfg)
+    sched = LinearWarmup(FRCNN_LR, FRCNN_WARMUP, 0.1 * FRCNN_LR, FRCNN_LR)
+    opt = Momentum(learning_rate=sched, momentum=0.9,
+                   parameters=model.parameters(),
+                   weight_decay=L2Decay(FRCNN_DECAY))
+    x, gts, classes, crowd, im_info = frcnn_batch(
+        FRCNN_B, cfg["img"], cfg["gt"], cfg["classes"])
+    x = torch.as_tensor(x, device="cuda")
+    gts = [torch.as_tensor(g, device="cuda") for g in gts]
+    classes = [torch.as_tensor(c, device="cuda") for c in classes]
+    info = torch.as_tensor(im_info, device="cuda")
+    last = {}
+
+    def step(clock=None):
+        loss, s = frcnn_loss(ops, F, model, x, gts, classes, crowd, info,
+                             cfg, clock)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        last.update(s)
+        return loss.detach()
+    torch.cuda.reset_peak_memory_stats()
+    warm = float(step())
+    losses, ms, host = eager_loop(step, FRCNN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    busy, traced = device_busy_ms(step)
+    clock = StageClock()
+    t0 = time.perf_counter()
+    step(clock)
+    torch.cuda.synchronize()
+    clocked = (time.perf_counter() - t0) * 1e3
+    counts = {"rpn_fg": int((last["tgt_label"] == 1).sum()),
+              "rpn_bg": int((last["tgt_label"] == 0).sum()),
+              "roi_fg": int((last["labels"] > 0).sum()),
+              "roi_bg": int((last["labels"] == 0).sum())}
+    n_anchors = int(last["anchors"])
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"faster-rcnn train: resnet50 + FPN {cfg['fpn']} (P2-P6) + RPN + "
+        f"two FC of {cfg['fc']}, {n_params} parameters, {cfg['classes']} "
+        f"classes, {n_anchors} anchors an image, f32, Momentum({FRCNN_LR:g}, "
+        f"0.9) + L2Decay({FRCNN_DECAY:g}) in the first steps of a "
+        f"{FRCNN_WARMUP}-step warmup from {0.1 * FRCNN_LR:g}, B={FRCNN_B} at "
+        f"{cfg['img'][0]}x"
+        f"{cfg['img'][1]}, {cfg['gt']} gt boxes an image, one warm-up then "
+        f"{FRCNN_STEPS} eager steps: step {ms:.3f} ms (CUDA events; host "
+        f"until step() returns {host:.3f} ms), {FRCNN_B / ms * 1e3:.3f} "
+        f"images/s, max_memory_allocated {peak} bytes; one traced step: "
+        f"device busy {busy:.3f} ms, idle share {1 - busy / ms:.3f} [{power}]"
+        f"; losses {[warm] + losses}")
+    log(f"faster-rcnn train: one step with its stages synchronized "
+        f"({clocked:.3f} ms): host ms in the target stages (rpn_target_assign"
+        f", generate_proposal_labels) {clock.ms['targets']:.3f}, in the "
+        f"proposal stages (generate_proposals x5, collect_fpn_proposals, "
+        f"distribute_fpn_proposals) {clock.ms['proposals']:.3f}; RPN fg / bg "
+        f"{counts['rpn_fg']} / {counts['rpn_bg']}, RoI fg / bg "
+        f"{counts['roi_fg']} / {counts['roi_bg']} [{power}]")
+    if not all(math.isfinite(v) for v in [warm] + losses):
+        fail("a faster-rcnn training loss is not finite")
+    if n_anchors != FRCNN_ANCHORS:
+        fail(f"faster-rcnn: {n_anchors} anchors an image, not "
+             f"{FRCNN_ANCHORS}")
+    del opt
+    torch.cuda.empty_cache()
+    return model, last, (gts, classes), {
+        "step_ms": ms, "images_per_s": FRCNN_B / ms * 1e3, "host_ms": host,
+        "peak_bytes": peak, "busy_ms": busy, "traced_wall_ms": traced,
+        "idle_share": 1 - busy / ms, "losses": [warm] + losses,
+        "params": n_params, "clocked_step_ms": clocked,
+        "target_stages_host_ms": clock.ms["targets"],
+        "proposal_stages_host_ms": clock.ms["proposals"], **counts,
+        "small": sv}
+
+
+def frcnn_serve_phase(ops, F, model, power):
+    """faster-rcnn serve: the trained composition in evaluation mode, B=
+    FRCNN_B at FRCNN_IMG: ms a batch, images/s, the host ms of the proposal
+    stage and of the NMS (one request with them synchronized); the
+    detections of each image within keep_top_k, finite, each class's kept
+    boxes pairwise at most the NMS threshold."""
+    import torch
+    cfg = FRCNN_FULL
+    model.eval()
+    x = torch.as_tensor(frcnn_batch(FRCNN_B, cfg["img"], cfg["gt"],
+                                    cfg["classes"], seed=7)[0],
+                        device="cuda")
+    info = torch.tensor([[*cfg["img"], 1.0]] * FRCNN_B, device="cuda")
+    dets, _ = frcnn_serve(ops, F, model, x, info, cfg)
+    ms = wall_ms(lambda: frcnn_serve(ops, F, model, x, info, cfg), reps=3)
+    clock = StageClock()
+    clock.ms["nms"] = 0.0
+    frcnn_serve(ops, F, model, x, info, cfg, clock, clock)
+    per_img = [int(d[1].sum()) for d in dets]
+    for out, _, _ in dets:
+        if len(out) > FRCNN_SERVE["keep_top_k"] or not bool(
+                torch.isfinite(out).all()):
+            fail("faster-rcnn serve: too many or non-finite detections")
+        worst = nms_overlap(ops, out)
+        if worst > FRCNN_SERVE["nms_threshold"]:
+            fail(f"faster-rcnn serve: two kept boxes of a class overlap "
+                 f"{worst:.3g}")
+    log(f"faster-rcnn serve: eval(), B={FRCNN_B} at {cfg['img'][0]}x"
+        f"{cfg['img'][1]}, proposals {cfg['test_proposals'][0]} / "
+        f"{cfg['test_proposals'][1]} a level, {FRCNN_COLLECT} an image, "
+        f"box_decoder_and_assign, box_clip, multiclass_nms (background 0, "
+        f"{FRCNN_SERVE['score_threshold']:g}, NMS "
+        f"{FRCNN_SERVE['nms_threshold']:g}, keep {FRCNN_SERVE['keep_top_k']})"
+        f": {ms:.3f} ms a batch (host to a synchronize), "
+        f"{FRCNN_B / ms * 1e3:.3f} images/s; one request synchronized: "
+        f"proposal stage {clock.ms['proposals']:.3f} ms, NMS "
+        f"{clock.ms['nms']:.3f} ms; detections an image {per_img} [{power}]")
+    return {"batch_ms": ms, "images_per_s": FRCNN_B / ms * 1e3,
+            "proposal_stage_ms": clock.ms["proposals"],
+            "nms_ms": clock.ms["nms"], "detections": per_img}
+
+
+def nms_overlap(ops, out):
+    """The largest IoU between two rows of one class of a detection output
+    (D, 6) (0 without a pair)."""
+    worst = 0.0
+    for c in out[:, 0].unique():
+        b = out[out[:, 0] == c, 2:]
+        if len(b) > 1:
+            iou = ops.box_iou(b, b).triu(1)
+            worst = max(worst, float(iou.max()))
+    return worst
+
+
+def ssd_priors(ops):
+    """SSD300's 8,732 priors (ssd_vgg16_300_240e_voc: six maps, min and max
+    sizes, ratios, steps, flipped, clipped), (P, 4) normalised xyxy."""
+    import torch
+    img = torch.zeros(1, 3, 300, 300)
+    return torch.cat([ops.prior_box(torch.zeros(1, 1, m, m), img, [lo], [hi],
+                                    list(ar), flip=True, clip=True,
+                                    steps=(float(st), float(st)))[0]
+                      .reshape(-1, 4) for m, lo, hi, ar, st in SSD_MAPS])
+
+
+def ssd_targets(ops, priors, gt, lab, loss):
+    """SSD's target stage of a batch: iou_similarity, then per image
+    bipartite_match (per_prediction, 0.5); mine_hard_examples (ratio 3)
+    and target_assign of the locations and of the labels with the mined
+    negatives."""
+    import torch
+    m, d = zip(*(ops.bipartite_match(ops.iou_similarity(g, priors),
+                                     "per_prediction", 0.5) for g in gt))
+    mi = torch.stack(m)
+    neg, mi2 = ops.mine_hard_examples(loss, mi, 3.0)
+    loc, loc_w = ops.target_assign(gt, mi)
+    cls, cls_w = ops.target_assign(lab, mi, neg, 0)
+    return [mi, torch.stack(d), mi2, loc, loc_w, cls, cls_w] + list(neg)
+
+
+def retina_anchors(ops):
+    """RetinaNet's 9 anchors a place (3 octave scales from 4 x the stride,
+    ratios 0.5, 1, 2) on P3-P7 of an RETINA_IMG image: [(A_l, 4)]."""
+    import torch
+    h, w = RETINA_IMG
+    out = []
+    for st in RETINA_STRIDES:
+        feat = torch.zeros(1, 1, -(-h // st), -(-w // st))
+        out.append(ops.anchor_generator(
+            feat, [4.0 * st * 2 ** (k / 3) for k in range(3)],
+            [0.5, 1.0, 2.0], stride=(float(st), float(st)))[0].reshape(-1, 4))
+    return out
+
+
+def east_map(seed=0):
+    """EAST's per-pixel boxes of a 512x512 image at stride 4 (128 x 128 =
+    16,384 boxes in raster order): pixels inside one of 12 text boxes
+    predict it (jittered by N(0, 1) pixels) with scores U(0.6, 1), the
+    others a small box below the 0.05 threshold."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    n = EAST_MAP
+    wh = r.uniform([60, 14], [220, 40], (12, 2))
+    xy = r.uniform(0, 1, (12, 2)) * (4 * n - wh)
+    text = np.concatenate([xy, xy + wh], 1)
+    cy, cx = np.meshgrid(np.arange(n) * 4 + 2.0, np.arange(n) * 4 + 2.0,
+                         indexing="ij")
+    cx, cy = cx.reshape(-1), cy.reshape(-1)
+    boxes = np.stack([cx - 2, cy - 2, cx + 2, cy + 2], 1)
+    scores = r.uniform(0, 0.04, n * n)
+    for t in text:
+        inside = (cx >= t[0]) & (cx <= t[2]) & (cy >= t[1]) & (cy <= t[3])
+        boxes[inside] = t + r.normal(0, 1, (int(inside.sum()), 4))
+        scores[inside] = r.uniform(0.6, 1, int(inside.sum()))
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def fots_quads(seed=0):
+    """PERSP's text quads: centres in a 640x640 image, w 60-200, h 16-40
+    pixels, turned by up to 30 degrees, corners clockwise from the top
+    left: (R, 8) f32."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    n = PERSP["rois"]
+    c = r.uniform(100, 540, (n, 2))
+    wh = r.uniform([60, 16], [200, 40], (n, 2))
+    a = r.uniform(-np.pi / 6, np.pi / 6, n)
+    corner = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]]) / 2
+    pts = corner[None] * wh[:, None]
+    rot = np.stack([np.cos(a), -np.sin(a), np.sin(a), np.cos(a)],
+                   1).reshape(n, 2, 2)
+    return (np.einsum("nij,nkj->nki", rot, pts) + c[:, None]).reshape(
+        n, 8).astype(np.float32)
+
+
+def polygons_in(box, r, k=10):
+    """A star-shaped polygon of k vertices inside ``box``."""
+    import numpy as np
+    x1, y1, x2, y2 = (float(v) for v in box)
+    a = np.sort(r.uniform(0, 2 * np.pi, k))
+    rad = r.uniform(0.5, 1.0, k)
+    return [np.stack([(x1 + x2) / 2 + rad * (x2 - x1) / 2 * np.cos(a),
+                      (y1 + y2) / 2 + rad * (y2 - y1) / 2 * np.sin(a)],
+                     1).astype(np.float32)]
+
+
+def same_outputs(a, b):
+    """Bitwise equality of two (nested) outputs, the first on the card."""
+    import torch
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_outputs(x, y)
+                                        for x, y in zip(a, b))
+    return a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def det_tail_phase(ops, power, frcnn_last, frcnn_gts):
+    """det-tail: each function of vision.ops' second half that phases 32,
+    34 and 35 do not run, card against CPU on identical inputs (indices,
+    labels and kept sets bitwise, values and gradients within TOL_F32),
+    timed at the shape of the model it serves: SSD300's target stage,
+    RetinaNet R50-FPN's targets and detection output, Mask R-CNN's mask
+    targets over faster-rcnn's last samples, EAST's locality-aware NMS,
+    FOTS's RoI perspective transform and Faster R-CNN's
+    box_decoder_and_assign (forward and backward).  Returns the readings
+    by name."""
+    import numpy as np
+    import torch
+    rows = {}
+    r = np.random.default_rng(36)
+
+    def held(name, same, ms, what, extra="", how="host to a synchronize"):
+        rows[name] = {"ms": ms, "card_vs_cpu": same}
+        log(f"det-tail: {name} at {what}: card vs CPU {same}; {ms:.3f} ms a "
+            f"call ({how}){extra} [{power}]")
+    # SSD300 (8,732 priors, 21 VOC classes), B=8, 20 gt boxes an image
+    priors = ssd_priors(ops)
+    if len(priors) != SSD_PRIORS:
+        fail(f"SSD300 has {len(priors)} priors, not {SSD_PRIORS}")
+    xy = r.uniform(0, 0.7, (SSD_B, SSD_GT, 2))
+    gt = np.concatenate([xy, xy + r.uniform(0.05, 0.3, (SSD_B, SSD_GT, 2))],
+                        2).astype(np.float32)
+    lab = r.integers(1, SSD_CLASSES, (SSD_B, SSD_GT, 1)).astype(np.int32)
+    loss = r.random((SSD_B, SSD_PRIORS)).astype(np.float32)
+    cpu = [priors, torch.from_numpy(gt), torch.from_numpy(lab),
+           torch.from_numpy(loss)]
+    gpu = [t.cuda() for t in cpu]
+    want = ssd_targets(ops, *cpu)
+    got = ssd_targets(ops, *gpu)
+    held("ssd_targets", same_outputs(got, want),
+         wall_ms(lambda: ssd_targets(ops, *gpu)),
+         f"SSD300 ({SSD_PRIORS} priors, B={SSD_B}, {SSD_GT} gt boxes an "
+         "image): iou_similarity, bipartite_match x8, mine_hard_examples, "
+         "target_assign x2", f"; {int((want[0] >= 0).sum())} matched priors")
+    # RetinaNet R50-FPN at 800x1344: 201,600 anchors
+    anchors = retina_anchors(ops)
+    an_all = torch.cat(anchors)
+    if len(an_all) != RETINA_ANCHORS:
+        fail(f"RetinaNet has {len(an_all)} anchors, not {RETINA_ANCHORS}")
+    gts, labels = frcnn_gts
+    gts_c = [g.cpu() for g in gts]
+    labels_c = [c.cpu() for c in labels]
+    want = ops.retinanet_target_assign(an_all, gts_c, labels_c, None, 0.5,
+                                       0.4)
+    an_g = an_all.cuda()
+    got = ops.retinanet_target_assign(an_g, gts, labels, None, 0.5, 0.4)
+    same = (same_outputs([got[i] for i in (0, 1, 3, 4, 5)],
+                         [want[i] for i in (0, 1, 3, 4, 5)])
+            and scaled_err(got[2].cpu(), want[2]) <= TOL_F32)
+    held("retinanet_target_assign", same, wall_ms(
+        lambda: ops.retinanet_target_assign(an_g, gts, labels, None, 0.5,
+                                            0.4)),
+         f"RetinaNet R50-FPN ({RETINA_ANCHORS} anchors, B={len(gts)}, 0.5 / "
+         "0.4)", f"; fg {got[5].tolist()}")
+    deltas = [torch.from_numpy(r.normal(0, 0.1, (len(a), 4)).astype(
+        np.float32)) for a in anchors]
+    scores = [torch.sigmoid(torch.from_numpy(r.normal(
+        -4, 1, (len(a), RETINA_CLASSES)).astype(np.float32)))
+        for a in anchors]
+    info = torch.tensor([[*RETINA_IMG, 1.0]])
+    zeros = [torch.zeros_like(d) for d in deltas]
+    want = ops.retinanet_detection_output(zeros, scores, anchors, info,
+                                          **RETINA_OUT)
+    sc_g = [s.cuda() for s in scores]
+    an_l = [a.cuda() for a in anchors]
+    got = ops.retinanet_detection_output([z.cuda() for z in zeros], sc_g,
+                                         an_l, info.cuda(), **RETINA_OUT)
+    same = same_outputs(got, want)
+    dl_g = [d.cuda() for d in deltas]
+    out = ops.retinanet_detection_output(dl_g, sc_g, an_l, info.cuda(),
+                                         **RETINA_OUT)
+    worst = nms_overlap(ops, out)
+    sane = (len(out) <= RETINA_OUT["keep_top_k"]
+            and bool(torch.isfinite(out).all())
+            and worst <= RETINA_OUT["nms_threshold"]
+            and bool((out[1:, 1] <= out[:-1, 1]).all()))
+    held("retinanet_detection_output", same and sane, wall_ms(
+        lambda: ops.retinanet_detection_output(dl_g, sc_g, an_l, info.cuda(),
+                                               **RETINA_OUT)),
+         f"RetinaNet R50-FPN (P3-P7, {RETINA_CLASSES} classes, 0.05, 1,000 a "
+         "level, NMS 0.5, 100 kept)",
+         f"; bitwise on zero deltas (exact decode), and with N(0, 0.1) "
+         f"deltas {len(out)} detections, scores falling, largest same-class "
+         f"IoU {worst:.3g}")
+    # Mask R-CNN's mask targets over faster-rcnn's last sampled RoIs
+    nums = frcnn_last["nums"].tolist()
+    rois = list(frcnn_last["rois"].split(nums))
+    labs = list(frcnn_last["labels"].split(nums))
+    segms = [[polygons_in(b, r) for b in g.cpu().numpy()] for g in gts]
+    crowd = [np.zeros(len(g), bool) for g in gts]
+
+    def masks(rs, ls, cls):
+        return ops.generate_mask_labels(None, cls, crowd, segms, rs, ls,
+                                        num_classes=FRCNN_FULL["classes"],
+                                        resolution=MASK_RES)
+    want = masks([t.cpu() for t in rois], [t.cpu() for t in labs], labels_c)
+    got = masks(rois, labs, labels)
+    held("generate_mask_labels", same_outputs(got, want),
+         wall_ms(lambda: masks(rois, labs, labels)),
+         f"Mask R-CNN (resolution {MASK_RES}, {FRCNN_FULL['classes']} "
+         f"classes, {sum(nums)} sampled RoIs)",
+         f"; {len(want[0])} fg RoIs, mask_int32 {tuple(want[2].shape)}")
+    # EAST's locality-aware NMS on a 512x512 image's 128x128 map
+    b, s = (torch.from_numpy(a) for a in east_map())
+    want = ops.locality_aware_nms(b, s)
+    bg, sg = b.cuda(), s.cuda()
+    got = ops.locality_aware_nms(bg, sg)
+    held("locality_aware_nms", same_outputs(got, want),
+         wall_ms(lambda: ops.locality_aware_nms(bg, sg)),
+         f"EAST ({EAST_MAP}x{EAST_MAP} = {EAST_MAP ** 2} boxes, defaults)",
+         f"; {len(want)} boxes kept")
+    # FOTS's RoI rotate: text quads warped to 8 x 64 from the 1/4 map
+    x = torch.from_numpy(r.standard_normal(PERSP["map"]).astype(np.float32))
+    quads = torch.from_numpy(fots_quads())
+    th, tw = PERSP["out"]
+    dy = torch.from_numpy(r.standard_normal(
+        (len(quads), PERSP["map"][1], th, tw)).astype(np.float32))
+
+    def warp(xx, q, g):
+        xx = xx.detach().requires_grad_()
+        out = ops.roi_perspective_transform(xx, q, th, tw, PERSP["scale"])
+        out.backward(g)
+        return out.detach(), xx.grad
+    want = warp(x, quads, dy)
+    xg, qg, dg = x.cuda(), quads.cuda(), dy.cuda()
+    got = warp(xg, qg, dg)
+    errs = [scaled_err(a.cpu(), b_) for a, b_ in zip(got, want)]
+    held("roi_perspective_transform", max(errs) <= TOL_F32,
+         wall_ms(lambda: warp(xg, qg, dg)),
+         f"FOTS's RoIRotate ({PERSP['rois']} quads, map "
+         f"{'x'.join(map(str, PERSP['map']))}, {th}x{tw}, scale "
+         f"{PERSP['scale']:g}), forward + backward",
+         f"; values {errs[0]:.3g}, gradients {errs[1]:.3g} (tol "
+         f"{TOL_F32:g})")
+    # box_decoder_and_assign at faster-rcnn serve's 2,000 RoIs, 81 classes
+    n, c = DEC_ROIS, FRCNN_FULL["classes"]
+    pb = torch.from_numpy(det_rois(1, n))
+    pbv = torch.tensor(FRCNN_REG_W).expand(n, 4).contiguous()
+    tb = torch.from_numpy(r.normal(0, 1, (n, 4 * c)).astype(np.float32))
+    sc = torch.softmax(torch.from_numpy(r.normal(0, 1, (n, c)).astype(
+        np.float32)), -1)
+    w = [torch.from_numpy(r.standard_normal(s_).astype(np.float32))
+         for s_ in ((n, 4 * c), (n, 4))]
+
+    def dec(ins, ws):
+        ins = [t.detach().requires_grad_() for t in ins]
+        outs = ops.box_decoder_and_assign(*ins)
+        sum((o * wi).sum() for o, wi in zip(outs, ws)).backward()
+        return [o.detach() for o in outs] + [t.grad for t in ins[:3]]
+    want = dec([pb, pbv, tb, sc], w)
+    gins, gw = [t.cuda() for t in (pb, pbv, tb, sc)], [t.cuda() for t in w]
+    got = dec(gins, gw)
+    errs = [scaled_err(a.cpu(), b_) for a, b_ in zip(got, want)]
+    ms = cuda_ms(lambda: dec(gins, gw), reps=5, warmup=1)
+    held("box_decoder_and_assign", max(errs) <= TOL_F32, ms,
+         f"Faster R-CNN serve ({n} RoIs, {c} classes), forward + backward",
+         f"; values and gradients {max(errs):.3g} (tol {TOL_F32:g})",
+         how="CUDA events")
+    bad = [k for k, v in rows.items() if not v["card_vs_cpu"]]
+    if bad:
+        fail("det-tail: the card disagrees with the CPU in " + ", ".join(bad))
     return rows
 
 
@@ -6527,13 +7566,30 @@ def main() -> int:
     small = yolo_train["small"]
     det_row = {"yolov3_dcn_train": yolo_train,
                "yolov3_dcn_serve": yolov3_serve_phase(
-                   vops, yolo, power, small["serve_f32"],
-                   small["serve_kept"])}
+                   vops, yolo, power, small, lambda: yolov3_dcn(
+                       tnn, tnn.functional, vops, resnet50, YOLO_CLASSES))}
     del yolo
     det_row["det_ops"] = det_ops_phase(vops, power)
     det_row["det_phases_s"] = time.perf_counter() - t_det
     log(f"detection phases (31-33): {det_row['det_phases_s']:.1f} s of "
         "wall time")
+
+    # -- 34. faster-rcnn train ----------------------------------------------
+    # -- 35. faster-rcnn serve ----------------------------------------------
+    # -- 36. det-tail -------------------------------------------------------
+    # vision.ops' second half: no hand-written kernel lies on these paths
+    t_two = time.perf_counter()
+    frcnn, last, frcnn_gts, det_row["faster_rcnn_train"] = frcnn_train_phase(
+        tnn, tnn.functional, vops, resnet18, resnet50, Momentum,
+        regularizer.L2Decay, topt.lr.LinearWarmup, power)
+    det_row["faster_rcnn_serve"] = frcnn_serve_phase(vops, tnn.functional,
+                                                     frcnn, power)
+    del frcnn
+    torch.cuda.empty_cache()
+    det_row["det_tail"] = det_tail_phase(vops, power, last, frcnn_gts)
+    det_row["two_stage_phases_s"] = time.perf_counter() - t_two
+    log(f"two-stage detection phases (34-36): "
+        f"{det_row['two_stage_phases_s']:.1f} s of wall time")
     for row in table:
         log(json.dumps(row))
 

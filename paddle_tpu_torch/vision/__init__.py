@@ -1,7 +1,6 @@
 """Vision of the port (port of paddle_tpu/vision): the models, the image
-transforms, the detection ops (``ops``: its dense half; ``nms`` and the
-target stages are ROADMAP Queue 1 item 2b's next part) and the
-image-backend switch."""
+transforms, the detection ops (``ops``: box utilities, RoI ops, the NMS
+family, the proposal and target stages) and the image-backend switch."""
 from paddle_tpu_torch.vision import models, ops, transforms  # noqa: F401
 
 __all__ = ["models", "transforms", "ops", "set_image_backend",
