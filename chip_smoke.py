@@ -225,9 +225,12 @@ Phases, in order; any failure ends the script with a non-zero exit:
              LeakyReLU, Tanh, BCEWithLogitsLoss; N(0, 0.02) weights by
              ParamAttr), trained by the eager loop with Adam(2e-4,
              beta1=0.5) for each network, a D step on real and fake then a
-             G step: at ngf = ndf = 16, B=8 card against CPU in IEEE f32
-             (both losses, every gradient, one step of each optimizer from
-             the CPU's gradients); then at ngf = ndf = 128, B=128, 64x64,
+             G step: at ngf = ndf = 16, B=8 card against CPU, in IEEE f32
+             each convolution alone (output and gradients) and a
+             training-mode forward (both losses, every running stat), then
+             in f64 and evaluation mode one iteration (both losses, every
+             gradient, one step of each optimizer from the CPU's
+             gradients); then at ngf = ndf = 128, B=128, 64x64,
              f32: 2 warm-ups and 10 timed iterations, ms an iteration,
              images/s, peak bytes, finite losses, every parameter of both
              networks moved.
@@ -363,6 +366,42 @@ Phases, in order; any failure ends the script with a non-zero exit:
              box_decoder_and_assign at Faster R-CNN serve's 2,000 RoIs,
              forward and backward.  No hand-written kernel lies on phases
              34-36.
+37. gpt-eval — phase 3's GPT-2 345M (bf16, the same seed and B=8 x 1024
+             batch) evaluated through paddle_tpu_torch.tensor on the f32
+             logits of its unfused head (8,184 x 50,304, as gpt_loss forms
+             them): next-token NLL (logsumexp minus index_sample), its mean
+             against gpt_loss's and perplexity; accuracy at k=1 and 5,
+             argmax agreement; topk(40); the nucleus cut at p = 0.9
+             (argsort descending, softmax, cumsum, searchsorted row by row);
+             quantile 0.5 / 0.9 / 0.99 and median over the model's
+             354,871,296 parameter magnitudes, each against the sorted
+             values it interpolates between.  The same calls on a CPU copy
+             of 64 rows (of 2**20 parameter values): indices bitwise (the
+             bf16 logits are full of ties), values within TOL_F32; the naive
+             torch.topk (on the CPU copy), torch.argsort(descending=True,
+             stable=True) and torch.median are run beside and must be told
+             apart; the rows where the card's torch.topk orders ties
+             otherwise than lax.top_k are counted.  Each call
+             group's ms at the full shape after a warm-up, the peak bytes
+             and the wall seconds.
+38. tensor-probe — a ridge probe from phase 37's final hidden states
+             (X: 8,184 x 1,024, f32) to the next token's embedding (wte[y]):
+             A = X^T X / N + lambda I, solved by cholesky + cholesky_solve
+             (and + two triangular_solves), solve, inverse, lstsq (of X
+             stacked on sqrt(lambda) I) and pinv,
+             the solutions held to one another and to their residuals;
+             svd, eigh / eigvalsh, qr, lu (0-based pivots, beside
+             torch.linalg.lu_factor's 1-based ones), slogdet, cond,
+             matrix_rank, cov / corrcoef, the norms and multi_dot by their
+             invariants; det and matrix_power on a 64 x 64 block; the probe
+             again on 64 rows, card against CPU.  Then every other name of
+             the tensor library once (breadth) on GPT-2's activation
+             (8 x 1,024 x 1,024) in f32 and bf16 and on the token ids, card
+             against a CPU copy of 64 rows (TOL_F32 / TOL_BF16 by the
+             scaled measure, integers and linspace bitwise), beside the
+             naive torch.linspace, torch.hypot at 1e20, torch.digamma(0)
+             and an int32 + 1.5 in float32, which must be told apart.  No
+             hand-written kernel lies on phases 37-38.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -650,6 +689,20 @@ RETINA_OUT = dict(score_threshold=0.05, nms_top_k=1000, keep_top_k=100,
                   nms_threshold=0.5)
 MASK_RES, EAST_MAP, DEC_ROIS = 28, 128, 2000
 PERSP = dict(map=(1, 32, 160, 160), rois=64, out=(8, 64), scale=0.25)
+# gpt-eval (37): the evaluation's cut-offs, and the CPU copy's rows and
+# parameter values
+EVAL_TOPK, EVAL_P, EVAL_Q = 40, 0.9, (0.5, 0.9, 0.99)
+CPU_ROWS, CPU_PARAMS = 64, 1 << 20
+# tensor-probe (38): the ridge's lambda is PROBE_LAMBDA times the mean
+# eigenvalue of X^T X / N; the 64-row CPU copy takes a larger lambda, which
+# keeps its rank-64 system's condition number near 10^2
+PROBE_LAMBDA, PROBE_LAMBDA_64 = 1e-3, 1e-1
+# f32 bounds of the probe's invariants: a backward-stable solve or
+# decomposition leaves a residual of a few n * eps (n = 1,024, eps =
+# 6e-8); two solutions of A W = B agree to about cond(A) * eps
+TOL_RESID = 1e-4               # ||A W - B|| / (||A|| ||W||), reconstructions
+TOL_ORTHO = 1e-4               # max |Q^T Q - I|
+TOL_AGREE = 1e-2               # ||W_i - W_solve|| / ||W_solve||
 
 
 def log(msg):
@@ -3598,16 +3651,85 @@ def dcgan_iteration(g, d, opt_g, opt_d, loss_fn, real, z, ones, zeros,
     return d_loss, g_loss
 
 
-def dcgan_card_vs_cpu(cpu, gpu, adam, loss_fn, batch_size):
-    """One iteration of (G, D) on the CPU and of the same models on the
-    card, the card's optimizers stepping from the CPU's gradients:
-    (relative loss error, max scaled gradient error, max move error by
-    max |got - want| / (max |want| + lr), the names whose gradient was None
-    on both).  A parameter without a gradient (spectral norm's vectors)
-    is compared by its move, which must be none."""
+def dcgan_layers_f32(nn, cpu, gpu, real, z):
+    """Each convolution and transposed convolution of the small pair alone
+    in f32, card against CPU, on the input that the CPU pair's training
+    forward gives it (its running stats restored after): the output and
+    the gradients of its input and parameters for a seeded upstream
+    gradient, max scaled_err.  The gradients are cleared after."""
     import torch
+    gen = torch.Generator().manual_seed(0)
+    stats = [b.clone() for m in cpu for b in m.buffers()]
+
+    def alone(layer, x, dy):
+        x = x.detach().clone().requires_grad_()
+        out = layer(x)
+        out.backward(dy)
+        ps = [p for p in layer.parameters() if p.grad is not None]
+        res = [out.detach().cpu(), x.grad.cpu()] + [p.grad.cpu() for p in ps]
+        for p in ps:
+            p.grad = None
+        return res
+    err = 0.0
+    for i, x in ((0, z), (1, real)):
+        for theirs, card in zip(cpu[i].children(), gpu[i].children()):
+            if isinstance(theirs, (nn.Conv2D, nn.Conv2DTranspose)):
+                dy = torch.randn(theirs(x).shape, generator=gen)
+                want = alone(theirs, x, dy)
+                got = alone(card, x.cuda(), dy.cuda())
+                err = max([err] + [scaled_err(a, b)
+                                   for a, b in zip(got, want)])
+            with torch.no_grad():
+                x = theirs(x)
+    with torch.no_grad():
+        for b, old in zip((b for m in cpu for b in m.buffers()), stats):
+            b.copy_(old)
+    return err
+
+
+def dcgan_card_vs_cpu(nn, cpu, gpu, adam, loss_fn, batch_size):
+    """The small (G, D) pair, card against CPU from one state.  In f32:
+    each convolution alone (dcgan_layers_f32), then a training-mode
+    forward (G on z, D on the real and the fake batch): both losses and
+    every running stat, by scaled_err.  The training-mode gradients of a
+    DCGAN are not comparable across two implementations in f32: batch
+    norm over B=8 and the ReLU kinks move them by up to 0.2 of their scale
+    between two roundings of the same model (tools/f32_gradient_spread.py
+    --model dcgan, f32 against f64, 12 seeds: 3 past 1e-3 on the CPU, 2 on
+    an H100; in evaluation mode 0 and 1), and at this seed the CPU's own
+    f32 gradients sit 0.128 from f64 on 1 or 4 threads, 7.5e-6 on 8 (its
+    --threads), so a reading depends on the machine's CPU count.  So, as
+    phase 13 does, one iteration is then held in f64 and evaluation mode,
+    on the running stats the CPU's forward left: both losses, every
+    gradient, and one Adam step of each network, the card's optimizers
+    stepping from the CPU's gradients.  Returns the readings by name:
+    "layers_f32", "train_f32", "loss_f64" (max relative), "grad_f64" (max
+    scaled_err), "moves_f64" (max |got - want| / (max |want| + lr)),
+    "none" (the names whose gradient was None on both: such a parameter,
+    spectral norm's vectors, is compared by its move, which must be none)
+    and "losses" (the CPU's f64 losses)."""
+    import torch
+    real, z, ones, zeros = dcgan_batch(batch_size, "cpu")
+    r = {"layers_f32": dcgan_layers_f32(nn, cpu, gpu, real, z)}
+    outs = {}
+    with torch.no_grad():
+        for name, (gm, dm) in (("cpu", cpu), ("cuda", gpu)):
+            fake = gm(z.to(name))
+            out_r, out_f = dm(real.to(name)), dm(fake)
+            outs[name] = [
+                loss_fn(out_r, ones.to(name)) + loss_fn(out_f, zeros.to(name)),
+                loss_fn(out_f, ones.to(name))] + [
+                b for m in (gm, dm) for b in m.buffers()]
+        r["train_f32"] = max(scaled_err(a.cpu(), b) for a, b in
+                             zip(outs["cuda"], outs["cpu"]))
+        # the running stats that forward left, the CPU's on both
+        for mine, theirs in zip(outs["cuda"][2:], outs["cpu"][2:]):
+            mine.copy_(theirs)
     runs = {}
     for name, (gm, dm) in (("cpu", cpu), ("cuda", gpu)):
+        for m in (gm, dm):
+            m.double()
+            m.eval()
         before = {f"{w}.{n}": p.detach().clone()
                   for w, m in (("g", gm), ("d", dm))
                   for n, p in m.named_parameters()}
@@ -3622,27 +3744,38 @@ def dcgan_card_vs_cpu(cpu, gpu, adam, loss_fn, batch_size):
                 if name == "cuda" and p.grad is not None:
                     # step from the CPU's gradients
                     p.grad.copy_(runs["cpu"]["grads"][key])
-        losses = dcgan_iteration(gm, dm, adam(gm), adam(dm), loss_fn,
-                                 *dcgan_batch(batch_size, name),
-                                 between=between)
+        losses = dcgan_iteration(
+            gm, dm, adam(gm), adam(dm), loss_fn,
+            *(t.to(name, torch.float64) for t in (real, z, ones, zeros)),
+            between=between)
         runs[name] = {
             "losses": [float(v.detach()) for v in losses], "grads": grads,
             "moves": {f"{w}.{n}": p.detach() - before[f"{w}.{n}"]
                       for w, m in (("g", gm), ("d", dm))
                       for n, p in m.named_parameters()}}
     got, want = runs["cuda"], runs["cpu"]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
-                                                        want["losses"]))
-    none = sorted(k for k, v in want["grads"].items() if v is None)
-    if none != sorted(k for k, v in got["grads"].items() if v is None):
+    r["loss_f64"] = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                            want["losses"]))
+    r["none"] = sorted(k for k, v in want["grads"].items() if v is None)
+    if r["none"] != sorted(k for k, v in got["grads"].items() if v is None):
         fail("the card and the CPU disagree on which parameters have no "
              "gradient")
-    grad_e = max(scaled_err(got["grads"][k].cpu(), v)
-                 for k, v in want["grads"].items() if v is not None)
-    move_e = max(float((got["moves"][k].cpu() - v).abs().max()
-                       / (v.abs().max() + DCGAN_LR))
-                 for k, v in want["moves"].items())
-    return loss_err, grad_e, move_e, none, want
+    r["grad_f64"] = max(scaled_err(got["grads"][k].cpu(), v)
+                        for k, v in want["grads"].items() if v is not None)
+    r["moves_f64"] = max(float((got["moves"][k].cpu() - v).abs().max()
+                               / (v.abs().max() + DCGAN_LR))
+                         for k, v in want["moves"].items())
+    r["losses"] = want["losses"]
+    return r
+
+
+DCGAN_CHECKS = ("layers_f32", "train_f32", "loss_f64", "grad_f64",
+                "moves_f64")
+
+
+def dcgan_check_line(r):
+    """The readings of dcgan_card_vs_cpu, for a log line."""
+    return ", ".join(f"{k} {r[k]:.3g}" for k in DCGAN_CHECKS)
 
 
 def dcgan_timed(gm, dm, opt_g, opt_d, loss_fn, what, power, still=()):
@@ -3690,9 +3823,9 @@ def dcgan_timed(gm, dm, opt_g, opt_d, loss_fn, what, power, still=()):
 
 def dcgan_phase(nn, topt, power):
     """dcgan: the small model (ngf = ndf = DCGAN_SMALL, B=DCGAN_SMALL_B)
-    card against CPU in IEEE f32: both losses, every gradient (grad_err's
-    measure), and one Adam step of each network from the CPU's gradients
-    (the moves by max |got - want| / (max |want| + lr)); then the published
+    card against CPU by dcgan_card_vs_cpu (f32 convolutions alone and a
+    training-mode forward, then one f64 evaluation-mode iteration with an
+    Adam step of each network from the CPU's gradients); then the published
     widths (ngf = ndf = 128) at B=DCGAN_B, 64 x 64, f32: DCGAN_WARM
     warm-ups and DCGAN_ITERS timed iterations, ms an iteration, images/s,
     peak bytes; losses finite and every parameter of both moved."""
@@ -3709,16 +3842,16 @@ def dcgan_phase(nn, topt, power):
     def adam(m):
         return topt.Adam(learning_rate=DCGAN_LR, beta1=0.5,
                          parameters=m.parameters())
-    loss_err, grad_e, move_e, _, want = dcgan_card_vs_cpu(
-        cpu, gpu, adam, bce, DCGAN_SMALL_B)
-    log(f"dcgan small (ngf = ndf = {DCGAN_SMALL}, B={DCGAN_SMALL_B}, 64x64, "
-        f"IEEE f32) card vs CPU: losses (D, G) relative err {loss_err:.3g} "
-        f"(CPU {want['losses']}); gradients {len(want['grads'])} tensors, "
-        f"max scaled err {grad_e:.3g}; one Adam step of each from the CPU's "
-        f"gradients, max move err {move_e:.3g} (tol {TOL_F32:g})")
-    if max(loss_err, grad_e, move_e) > TOL_F32:
-        fail("the small DCGAN on the card disagrees with the CPU")
-    del cpu, gpu, want
+    r = dcgan_card_vs_cpu(nn, cpu, gpu, adam, bce, DCGAN_SMALL_B)
+    log(f"dcgan small (ngf = ndf = {DCGAN_SMALL}, B={DCGAN_SMALL_B}, 64x64) "
+        f"card vs CPU: f32 convolutions alone and training-mode forward, "
+        f"then f64 evaluation-mode iteration (CPU losses {r['losses']}, "
+        f"gradients, one Adam step of each from the CPU's gradients): "
+        f"{dcgan_check_line(r)} (tol {TOL_F32:g})")
+    if max(r[k] for k in DCGAN_CHECKS) > TOL_F32:
+        fail(f"the small DCGAN on the card disagrees with the CPU: "
+             f"{dcgan_check_line(r)} (tol {TOL_F32:g})")
+    del cpu, gpu
 
     torch.manual_seed(0)
     gm, dm = dcgan_models(nn, DCGAN_WIDTH, DCGAN_WIDTH)
@@ -3728,7 +3861,7 @@ def dcgan_phase(nn, topt, power):
     torch.cuda.empty_cache()
     return {"dcgan_iteration_ms": ms, "dcgan_images_per_s":
             DCGAN_B / ms * 1e3, "dcgan_peak_bytes": peak,
-            "dcgan_small_errs": [loss_err, grad_e, move_e],
+            "dcgan_small_errs": [r[k] for k in DCGAN_CHECKS],
             "dcgan_first_last_losses": [losses[0], losses[-1]]}
 
 
@@ -4105,19 +4238,18 @@ def sn_dcgan_phase(nn, topt, power, dcgan_ms):
     def adam(m):
         return topt.Adam(learning_rate=DCGAN_LR, beta1=0.5,
                          parameters=m.parameters())
-    loss_err, grad_e, move_e, none, want = dcgan_card_vs_cpu(
-        cpu, gpu, adam, bce, DCGAN_SMALL_B)
+    r = dcgan_card_vs_cpu(nn, cpu, gpu, adam, bce, DCGAN_SMALL_B)
     log(f"sn-dcgan small (ngf = ndf = {DCGAN_SMALL}, B={DCGAN_SMALL_B}, "
-        f"spectral_norm on D's 5 convolutions, IEEE f32) card vs CPU: "
-        f"losses relative err {loss_err:.3g}; gradients max scaled err "
-        f"{grad_e:.3g}; one Adam step's moves err {move_e:.3g} (tol "
-        f"{TOL_F32:g}); no gradient on either: {len(none)} tensors")
-    if max(loss_err, grad_e, move_e) > TOL_F32:
-        fail("the small SN-DCGAN on the card disagrees with the CPU")
-    if len(none) != 10 or not all("_spectral_norm.weight_" in k
-                                  for k in none):
-        fail(f"sn-dcgan: the tensors without a gradient are {none}")
-    del cpu, gpu, want
+        f"spectral_norm on D's 5 convolutions) card vs CPU as dcgan's: "
+        f"{dcgan_check_line(r)} (tol {TOL_F32:g}); no gradient on either: "
+        f"{len(r['none'])} tensors")
+    if max(r[k] for k in DCGAN_CHECKS) > TOL_F32:
+        fail(f"the small SN-DCGAN on the card disagrees with the CPU: "
+             f"{dcgan_check_line(r)} (tol {TOL_F32:g})")
+    if len(r["none"]) != 10 or not all("_spectral_norm.weight_" in k
+                                       for k in r["none"]):
+        fail(f"sn-dcgan: the tensors without a gradient are {r['none']}")
+    del cpu, gpu
     torch.manual_seed(0)
     gm, dm = sn_dcgan_models(nn, DCGAN_WIDTH, DCGAN_WIDTH)
     still = {f"d.{n}" for n, _ in dm.named_parameters()
@@ -4130,7 +4262,7 @@ def sn_dcgan_phase(nn, topt, power, dcgan_ms):
     torch.cuda.empty_cache()
     return {"iteration_ms": ms, "images_per_s": DCGAN_B / ms * 1e3,
             "peak_bytes": peak, "dcgan_iteration_ms": dcgan_ms,
-            "small_errs": [loss_err, grad_e, move_e],
+            "small_errs": [r[k] for k in DCGAN_CHECKS],
             "first_last_losses": [losses[0], losses[-1]]}
 
 
@@ -5937,6 +6069,645 @@ def det_tail_phase(ops, power, frcnn_last, frcnn_gts):
     return rows
 
 
+def outputs_err(card, cpu):
+    """(True if every integer and bool output is bitwise the CPU's and
+    every dtype and shape agrees, the largest scaled error of the float
+    outputs) of two (nested) outputs, the first from the card.
+    Non-finite float entries must sit in the same places with the same
+    values; finite ones are measured as grad_err measures."""
+    import torch
+    if isinstance(card, (list, tuple)):
+        if not isinstance(cpu, (list, tuple)) or len(card) != len(cpu):
+            return False, float("inf")
+        pairs = [outputs_err(a, b) for a, b in zip(card, cpu)]
+        return all(p[0] for p in pairs), max((p[1] for p in pairs),
+                                             default=0.0)
+    a, b = card.detach().cpu(), cpu.detach()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False, float("inf")
+    if not (a.is_floating_point() or a.is_complex()):
+        return bool(torch.equal(a, b)), 0.0
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    a, b = a.double(), b.double()
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(
+            a[~fa].nan_to_num(nan=0.0), b[~fb].nan_to_num(nan=0.0)):
+        return False, float("inf")
+    if not bool(fa.any()):
+        return True, 0.0
+    a, b = a[fa], b[fb]
+    rms = b.pow(2).mean().sqrt()
+    return True, float(((a - b).abs() / (b.abs() + rms).clamp_min(1e-30))
+                       .max())
+
+
+def eval_nll(T, lg, lab):
+    """Next-token NLL of logits lg (N, V) at labels lab (N, 1): logsumexp
+    minus the label's logit, its mean and exp."""
+    lse = T.logsumexp(lg, axis=-1)
+    gold = T.index_sample(lg, lab)[:, 0]
+    nll = T.mean(T.subtract(lse, gold))
+    return {"lse": lse, "gold": gold, "nll": nll, "ppl": T.exp(nll)}
+
+
+def eval_accuracy(T, lg, lab):
+    pred = T.argmax(lg, axis=-1)
+    return {"acc1": T.accuracy(lg, lab, k=1),
+            "acc5": T.accuracy(lg, lab, k=5), "pred": pred,
+            "agree": T.mean(T.equal(pred, lab[:, 0]))}
+
+
+def eval_topk(T, lg):
+    return {"topk": T.topk(lg, k=EVAL_TOPK)}
+
+
+def eval_nucleus(T, lg, lse):
+    """The nucleus cut at EVAL_P: each row's probabilities in descending
+    order (its argsort), their running sum, and where it passes EVAL_P."""
+    order = T.argsort(lg, axis=-1, descending=True)
+    probs = T.exp(T.subtract(lg, lse[:, None]))
+    cum = T.cumsum(T.index_sample(probs, order), axis=1)
+    cut = T.searchsorted(cum, T.full_like(lse[:, None], EVAL_P))
+    return {"order": order, "cum": cum, "cut": cut}
+
+
+def eval_quantiles(T, values):
+    return {"q": T.quantile(values, list(EVAL_Q)), "median": T.median(values)}
+
+
+def eval_all(T, lg, lab, values):
+    out = eval_nll(T, lg, lab)
+    out.update(eval_accuracy(T, lg, lab))
+    out.update(eval_topk(T, lg))
+    out.update(eval_nucleus(T, lg, out["lse"]))
+    out.update(eval_quantiles(T, values))
+    return out
+
+
+def final_hidden(model, ids):
+    """GPT's final-LN hidden states (B, S, H), the head's input."""
+    from paddle_tpu_torch.models.gpt import _PARAM_ORDER, _gpt_forward
+    return _gpt_forward(model.config, dict(zip(_PARAM_ORDER,
+                                               model._param_list())),
+                        model._ids(ids), features_only=True)
+
+
+def gpt_eval_phase(T, GPT, cfg, gpt_loss, set_flags, gpt_forward, power):
+    """gpt-eval (37).  Returns (the phase's row, the final hidden states
+    (B, S, H) bf16, the embedding wte in f32, the token ids)."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPT(cfg, device="cuda").to(torch.bfloat16)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+    with torch.inference_mode():
+        set_flags({"gpt_fused_ce": False})
+        loss_ref = float(gpt_loss(model, ids, ids))
+        lg = model(ids)[:, :-1].float().reshape(-1, cfg.vocab_size)
+        hidden = gpt_forward(model, ids)
+    lab = ids[:, 1:].reshape(-1, 1)
+    values = torch.cat([p.detach().float().abs().reshape(-1)
+                        for p in model.parameters()])
+    wte = model.wte.detach().float()
+    del model
+    torch.cuda.empty_cache()
+    n, v = lg.shape
+    log(f"gpt-eval: GPT-2 345M (bf16) logits {n} x {v} f32 "
+        f"({lg.numel() * 4 / 1e9:.2f} GB), {values.numel()} parameter "
+        f"values")
+    if values.numel() != 354_871_296:
+        fail(f"GPT-2 345M has {values.numel()} parameter values")
+    with torch.inference_mode():
+        out = eval_all(T, lg, lab, values)
+        # card against a CPU copy: 64 rows, 2**20 parameter values
+        rows = {"lg": lg[:CPU_ROWS], "lab": lab[:CPU_ROWS],
+                "values": values[:CPU_PARAMS]}
+        card = eval_all(T, *rows.values())
+        cpu = eval_all(T, *(t.cpu() for t in rows.values()))
+        cpu["cut"] = T.searchsorted(card["cum"].cpu(), T.full_like(
+            cpu["lse"][:, None], EVAL_P))
+        s_full = torch.sort(values).values
+    errs = {k: outputs_err(card[k], cpu[k]) for k in card}
+    bad = [k for k, (same, err) in errs.items()
+           if not same or err > TOL_F32]
+    log(f"gpt-eval: card vs CPU ({CPU_ROWS} rows, {CPU_PARAMS} parameter "
+        f"values): indices and counts bitwise, values max scaled err "
+        f"{max(e for _, e in errs.values()):.3g} (tol {TOL_F32:g})"
+        + (f"; differ: {bad}" if bad else ""))
+    if bad:
+        fail(f"gpt-eval card vs CPU differ in {bad}")
+    # invariants at the full shape
+    nll, ppl = float(out["nll"]), float(out["ppl"])
+    acc1, acc5, agree = (float(out[k]) for k in ("acc1", "acc5", "agree"))
+    topv, topi = out["topk"]
+    desc = torch.sort(lg, dim=-1, descending=True).values[:, :EVAL_TOPK]
+    q = out["q"].tolist()
+    cnt = values.numel()
+    q_ok = all(float(s_full[math.floor(qq * (cnt - 1))]) <= got
+               <= float(s_full[math.ceil(qq * (cnt - 1))])
+               for qq, got in zip(EVAL_Q, q))
+    mid = float((s_full[(cnt - 1) // 2] + s_full[cnt // 2]) * 0.5)
+    cut = out["cut"]
+    log(f"gpt-eval: NLL {nll:.6f} (gpt_loss {loss_ref:.6f}, ln V "
+        f"{math.log(v):.6f}), perplexity {ppl:.1f}; accuracy@1 {acc1:.6f} "
+        f"@5 {acc5:.6f}, argmax agreement {agree:.6f}; nucleus p={EVAL_P}: "
+        f"{float(cut.float().mean()) + 1:.1f} tokens a row on average; "
+        f"|w| quantiles {dict(zip(EVAL_Q, q))}, median {float(out['median'])}"
+        f" (the sorted midpoint {mid})")
+    if abs(nll - loss_ref) > TOL_F32 or abs(nll - math.log(v)) > 1.0 or \
+            not math.isfinite(ppl):
+        fail("gpt-eval NLL disagrees with gpt_loss or is not near ln V")
+    if acc1 != agree or not 0 <= acc1 <= acc5 <= 1:
+        fail("accuracy@1 is not the argmax agreement, or @5 below @1")
+    if not torch.equal(topv, desc) or not torch.equal(
+            lg.gather(1, topi), topv):
+        fail("topk values are not the sorted logits")
+    if float((out["cum"][:, -1] - 1).abs().max()) > 1e-3 or \
+            int(cut.min()) < 0 or int(cut.max()) > v:
+        fail("the nucleus's running sums do not end at 1")
+    if not q_ok or float(out["median"]) != mid:
+        fail("a quantile lies outside the sorted values it interpolates")
+    lg64 = rows["lg"]
+    # planted faults, told apart by the same check.  torch.topk's order
+    # among ties is not documented: on the CPU it is not lax.top_k's (the
+    # fault is rejected); the card's result is read and reported
+    naive = {
+        "torch.topk (CPU)": (torch.topk(lg64.cpu(), EVAL_TOPK).indices,
+                             cpu["topk"][1]),
+        "torch.argsort(descending=True, stable=True)": (
+            torch.argsort(lg64, dim=-1, descending=True, stable=True),
+            cpu["order"]),
+        "torch.median": (torch.median(torch.tensor(
+            [1.0, 2.0, 3.0, 4.0], device="cuda")),
+            T.median(torch.tensor([1.0, 2.0, 3.0, 4.0])))}
+    caught = {k: not (s and e <= TOL_F32)
+              for k, (s, e) in ((k, outputs_err(*p))
+                                for k, p in naive.items())}
+    with torch.inference_mode():
+        card_topk_rows = int((torch.topk(lg, EVAL_TOPK).indices
+                              != out["topk"][1]).any(-1).sum())
+    ties = int(sum(int((r[:EVAL_TOPK + 1].diff() == 0).any())
+                   for r in torch.sort(lg64, dim=-1,
+                                       descending=True).values))
+    log(f"gpt-eval: planted faults told apart {caught} ({ties} of "
+        f"{CPU_ROWS} rows tie within their top {EVAL_TOPK + 1}); "
+        f"torch.topk on the card orders ties otherwise than lax.top_k in "
+        f"{card_topk_rows} of {n} rows")
+    if not all(caught.values()):
+        fail(f"a naive call passes the gpt-eval check: {caught}")
+    # ms of each call group at the full shape, after a warm-up
+    groups = {"nll": lambda: eval_nll(T, lg, lab),
+              "accuracy": lambda: eval_accuracy(T, lg, lab),
+              "topk": lambda: eval_topk(T, lg),
+              "nucleus": lambda: eval_nucleus(T, lg, out["lse"]),
+              "quantiles": lambda: eval_quantiles(T, values)}
+    with torch.inference_mode():
+        ms = {k: cuda_ms(fn, reps=3, warmup=1) for k, fn in groups.items()}
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    log(f"gpt-eval: ms a call group at the full shape {ms}; "
+        f"{n / sum(ms[k] for k in ('nll', 'accuracy')) * 1e3:.0f} scored "
+        f"tokens/s (nll + accuracy); peak {peak} bytes; {wall:.1f} s of "
+        f"wall time [{power}]")
+    row = {"ms": ms, "peak_bytes": peak, "wall_s": wall, "nll": nll,
+           "gpt_loss": loss_ref, "perplexity": ppl, "accuracy1": acc1,
+           "accuracy5": acc5, "quantiles": q, "median": float(out["median"]),
+           "cpu_max_scaled_err": max(e for _, e in errs.values()),
+           "planted_faults_caught": caught, "tied_rows": ties,
+           "card_topk_rows_differing": card_topk_rows}
+    del lg, values, s_full, out, card
+    torch.cuda.empty_cache()
+    return row, hidden, wte, ids
+
+
+def ridge_system(T, X, Y, scale):
+    """A = X^T X / N + lambda I with lambda = scale * trace(X^T X / N) /
+    H, and B = X^T Y / N."""
+    n, h = X.shape
+    G = T.divide(T.matmul(X, X, transpose_x=True), n)
+    lam = T.multiply(scale / h, T.trace(G))
+    A = T.add(G, T.multiply(lam, T.eye(h, device=X.device)))
+    return G, A, T.divide(T.matmul(X, Y, transpose_x=True), n), lam
+
+
+def ridge_solutions(T, X, Y, A, B, lam):
+    """The probe's six solutions of A W = B: through the Cholesky factor
+    (cholesky_solve, and two triangular solves), solve, inverse, lstsq (of
+    X stacked on sqrt(lambda) I, and Y on zeros: its normal equations are
+    A W = B) and pinv."""
+    import torch
+    n, h = X.shape
+    xa = torch.cat([T.divide(X, math.sqrt(n)),
+                    T.multiply(T.sqrt(lam), T.eye(h, device=X.device))])
+    ya = torch.cat([T.divide(Y, math.sqrt(n)),
+                    T.zeros([h, Y.shape[1]], device=X.device)])
+    low = T.cholesky(A)
+    return {"cholesky": T.cholesky_solve(B, low),
+            "triangular": T.triangular_solve(
+                low, T.triangular_solve(low, B, upper=False), upper=False,
+                transpose=True),
+            "solve": T.solve(A, B),
+            "inverse": T.matmul(T.inverse(A), B),
+            "lstsq": T.lstsq(xa, ya)[0],
+            "pinv": T.matmul(T.pinv(A), B)}
+
+
+def rel(a, b):
+    """||a - b|| / ||b||, Frobenius."""
+    import torch
+    return float(torch.linalg.norm((a - b).double())
+                 / torch.linalg.norm(b.double()).clamp_min(1e-300))
+
+
+def ortho_err(q):
+    import torch
+    eye = torch.eye(q.shape[-1], dtype=q.dtype, device=q.device)
+    return float((q.transpose(-1, -2) @ q - eye).abs().max())
+
+
+def lu_err(lu, piv, a):
+    """||A[perm] - L U|| / ||A|| from packed LU and 0-based pivots
+    (LAPACK's row swaps, applied in order); inf if a pivot is out of
+    range."""
+    import torch
+    h = a.shape[0]
+    swaps = piv.tolist()
+    if min(swaps) < 0 or max(swaps) >= h:
+        return float("inf")
+    perm = list(range(h))
+    for i, p in enumerate(swaps):
+        perm[i], perm[p] = perm[p], perm[i]
+    low = torch.tril(lu, -1) + torch.eye(h, dtype=lu.dtype, device=lu.device)
+    return rel(low @ torch.triu(lu), a[perm])
+
+
+def breadth_env(T, x, ids):
+    """The breadth cases' inputs from GPT-2's activation x (f32) and the
+    token ids, on x's device."""
+    import numpy as np
+    import torch
+    dev = x.device
+    y = x.flip(-1)
+    special = x.clone()
+    special[..., 0], special[..., 1], special[..., 2] = (
+        float("inf"), float("-inf"), float("nan"))
+    return {"dev": str(dev), "x": x, "xb": x.to(torch.bfloat16), "y": y,
+            "yb": y.to(torch.bfloat16), "pos": x.abs() + 0.1,
+            "unit": torch.tanh(x) * 0.9, "ge1": x.abs() + 1.1,
+            "mask": x > 0, "special": special, "ids": ids,
+            "row": x[0, 0], "mat": x[0, :64, :64], "x3": x[..., :3],
+            "y3": y[..., :3], "host": np.random.default_rng(38)
+            .standard_normal(1024), "gather": torch.tensor(
+                [0, 5, -1, 2000, 1023], device=dev),
+            "i32": (x * 4).to(torch.int32)}
+
+
+def tensor_breadth_cases(T, Constant):
+    """(group, names, fn(env)) for every name of the tensor library that
+    phases 37 and 38's probe do not run."""
+    import torch
+    unary = ("exp", "expm1", "log", "log2", "log10", "log1p", "sqrt",
+             "rsqrt", "square", "abs", "sign", "ceil", "floor", "round",
+             "trunc", "frac", "sin", "cos", "tan", "asin", "acos", "atan",
+             "sinh", "cosh", "tanh", "asinh", "acosh", "atanh", "erf",
+             "erfinv", "reciprocal", "neg", "digamma", "lgamma", "sigmoid",
+             "conj", "angle", "deg2rad", "rad2deg")
+    domain = {"log": "pos", "log2": "pos", "log10": "pos", "log1p": "pos",
+              "sqrt": "pos", "rsqrt": "pos", "reciprocal": "pos",
+              "digamma": "pos", "lgamma": "pos", "tan": "unit",
+              "asin": "unit", "acos": "unit", "atanh": "unit",
+              "erfinv": "unit", "acosh": "ge1"}
+    cases = []
+    for n in unary:
+        d = domain.get(n, "x")
+        cases.append(("elementwise_f32", (n,),
+                      lambda e, n=n, d=d: getattr(T, n)(e[d])))
+        cases.append(("elementwise_bf16", (n,),
+                      lambda e, n=n, d=d: getattr(T, n)(
+                          e[d].to(torch.bfloat16))))
+    for n in ("add", "subtract", "multiply", "divide", "pow", "maximum",
+              "minimum", "fmax", "fmin", "atan2", "hypot", "logaddexp",
+              "divide_no_nan", "floor_divide", "remainder", "mod",
+              "floor_mod"):
+        second = "pos" if n in ("pow",) else "y"
+        cases.append(("elementwise_f32", (n,),
+                      lambda e, n=n, s=second: getattr(T, n)(e["x"], e[s])))
+        cases.append(("elementwise_bf16", (n,),
+                      lambda e, n=n, s=second: getattr(T, n)(
+                          e["xb"], e[s].to(torch.bfloat16))))
+    cases += [
+        ("elementwise_int", ("floor_divide", "remainder", "bitwise_and",
+                             "bitwise_or", "bitwise_xor", "bitwise_not"),
+         lambda e: (T.floor_divide(e["ids"], 7), T.remainder(e["ids"], 7),
+                    T.bitwise_and(e["ids"], 255), T.bitwise_or(e["ids"], 3),
+                    T.bitwise_xor(e["ids"], e["ids"].flip(-1)),
+                    T.bitwise_not(e["ids"]))),
+        ("elementwise_f32", ("scale", "clip", "lerp", "stanh"),
+         lambda e: (T.scale(e["x"], 2.0, 0.5), T.clip(e["x"], -1.0, 1.0),
+                    T.lerp(e["x"], e["y"], 0.3), T.stanh(e["x"]))),
+        ("elementwise_f32", ("cross", "dot", "isclose", "allclose",
+                             "equal_all", "diff"),
+         lambda e: (T.cross(e["x3"], e["y3"]), T.dot(e["x"], e["y"]),
+                    T.isclose(e["x"], T.add(e["x"], 1e-6)),
+                    T.allclose(e["x"], e["x"].clone()),
+                    T.equal_all(e["x"], e["y"]), T.diff(e["x"], axis=-1))),
+        ("elementwise_f32", ("isfinite", "isinf", "isnan"),
+         lambda e: (T.isfinite(e["special"]), T.isinf(e["special"]),
+                    T.isnan(e["special"]))),
+        ("elementwise_f32", ("increment",),
+         lambda e: T.increment(e["x"].clone(), 1.0)),
+        ("matrix", ("addmm", "multiplex", "kron", "inner", "outer", "bmm",
+                    "mm", "mv"),
+         lambda e: (T.addmm(e["mat"], e["mat"], e["mat"], 0.5, 2.0),
+                    T.multiplex([e["mat"], T.neg(e["mat"])],
+                                T.remainder(T.arange(
+                                    64, device=e["dev"]), 2)[:, None]),
+                    T.kron(e["mat"][:8, :8], e["mat"][:8, :8]),
+                    T.inner(e["mat"], e["mat"]),
+                    T.outer(e["row"], e["row"]),
+                    T.bmm(e["x"][:, :64, :64], e["x"][:, :64, :64]),
+                    T.mm(e["mat"], e["mat"]), T.mv(e["mat"], e["mat"][0]))),
+        ("matrix", ("dist", "einsum", "add_n"),
+         lambda e: (T.dist(e["x"], e["y"]),
+                    T.einsum("bsh,bth->bst", e["x"][:, :64],
+                             e["y"][:, :64]),
+                    T.add_n([e["x"], e["y"], e["x"]]))),
+    ]
+    for n in ("sum", "prod", "max", "min", "amax", "amin", "nanmean",
+              "nansum", "logsumexp", "std", "var"):
+        for group, key in (("reductions", "x"), ("reductions_bf16", "xb")):
+            cases.append((group, (n,), lambda e, n=n, k=key: getattr(T, n)(
+                e[k][..., :16] if n == "prod" else e[k], axis=-1)))
+    cases += [
+        ("reductions", ("all", "any", "count_nonzero"),
+         lambda e: (T.all(e["mask"], axis=-1), T.any(e["mask"], axis=-1),
+                    T.count_nonzero(e["mask"], axis=-1))),
+        ("reductions", ("cumprod", "cummax", "cummin"),
+         lambda e: (T.cumprod(e["unit"][..., :64], dim=-1),
+                    T.cummax(e["x"], axis=-1), T.cummin(e["x"], axis=-1))),
+        ("reductions", ("nanmedian", "nanquantile", "numel"),
+         lambda e: (T.nanmedian(e["special"], axis=-1),
+                    T.nanquantile(e["special"], [0.1, 0.9], axis=-1),
+                    T.numel(e["x"]))),
+        ("logic", ("not_equal", "greater_than", "greater_equal",
+                   "less_than", "less_equal", "logical_and", "logical_or",
+                   "logical_xor", "logical_not", "is_empty", "is_tensor"),
+         lambda e: (T.not_equal(e["ids"], e["ids"].flip(-1)),
+                    T.greater_than(e["x"], e["y"]),
+                    T.greater_equal(e["x"], e["y"]),
+                    T.less_than(e["x"], 0.5), T.less_equal(e["i32"], 1.5),
+                    T.logical_and(e["mask"], e["y"] > 0),
+                    T.logical_or(e["mask"], e["y"] > 0),
+                    T.logical_xor(e["mask"], e["y"] > 0),
+                    T.logical_not(e["mask"]), T.is_empty(e["x"]),
+                    T.full([1], T.is_tensor(e["x"]), device=e["dev"]))),
+        ("search", ("argmin", "sort", "where", "index_select", "kthvalue"),
+         lambda e: (T.argmin(e["x"], axis=-1),
+                    T.sort(e["x"], axis=-1, descending=True),
+                    T.where(e["mask"], e["x"], 0.0),
+                    T.index_select(e["x"], e["gather"], axis=-1),
+                    T.kthvalue(e["x"], 3, axis=-1))),
+        ("search", ("mode", "bincount", "histogram", "histogramdd"),
+         lambda e: (T.mode(e["ids"], axis=-1),
+                    T.bincount(e["ids"].reshape(-1), minlength=50304),
+                    T.histogram(e["x"], bins=100),
+                    T.histogramdd(e["x"].reshape(-1, 1024)[:, :2],
+                                  bins=[8, 8], ranges=[(-2, 2), (-2, 2)]))),
+        ("host_read", ("nonzero", "masked_select"),
+         lambda e: (T.nonzero(e["mask"][0, :4]),
+                    T.masked_select(e["x"][0, :4], e["mask"][0, :4]))),
+        ("creation", ("to_tensor", "as_tensor", "zeros", "ones", "full",
+                      "empty", "zeros_like", "ones_like", "full_like",
+                      "empty_like"),
+         lambda e: (T.to_tensor(e["host"], device=e["dev"]),
+                    T.as_tensor(e["host"].tolist(), device=e["dev"]),
+                    T.zeros(list(e["x"].shape), device=e["dev"]),
+                    T.ones([64, 3], "int32", device=e["dev"]),
+                    T.full([64, 64], 1.5, device=e["dev"]),
+                    T.empty([64], device=e["dev"]), T.zeros_like(e["x"]),
+                    T.ones_like(e["x"], "int64"), T.full_like(e["x"], 2),
+                    T.empty_like(e["x"]))),
+        ("creation", ("arange", "linspace", "logspace", "eye", "meshgrid",
+                      "diag", "diagflat", "tril", "triu"),
+         lambda e: (T.arange(0, 1024, device=e["dev"]),
+                    T.arange(0.0, 1.0, 1 / 1024, device=e["dev"]),
+                    T.linspace(-2.5, 3.1, 1024, device=e["dev"]),
+                    T.logspace(0, 2, 64, device=e["dev"]),
+                    T.eye(64, device=e["dev"]),
+                    T.meshgrid(e["row"][:64], e["row"][:32]),
+                    T.diag(e["row"][:64], padding_value=-1.0, offset=1),
+                    T.diag(e["mat"]), T.diagflat(e["row"][:64]),
+                    T.tril(e["mat"]), T.triu(e["mat"], 1))),
+        ("creation", ("assign", "clone", "tolist", "create_parameter",
+                      "create_tensor", "complex"),
+         lambda e: (T.assign(e["x"]), T.clone(e["x"]),
+                    T.to_tensor(T.tolist(e["row"][:16]), device="cpu"),
+                    T.create_parameter(
+                        [64, 64], "float32",
+                        default_initializer=Constant(0.5),
+                        device=e["dev"]).detach(),
+                    T.create_tensor("int32", device=e["dev"]),
+                    T.complex(e["row"], e["row"].flip(0)))),
+    ]
+    return cases
+
+
+LINSPACE_SPANS = ((0, 1, 7), (-2.5, 3.1, 13), (-1.7, 4.3, 33))
+
+
+def breadth_faults(T):
+    """The naive PyTorch calls on the card beside the port's on the CPU,
+    as {name: (naive, port's)}.  linspace is held bitwise (jnp's formula
+    is exact in the port; torch.linspace's is an ulp away)."""
+    import torch
+    big = torch.tensor([1e20, 3.0])
+    return {
+        "torch.linspace": (
+            [torch.linspace(*a, device="cuda") for a in LINSPACE_SPANS],
+            [T.linspace(*a, device="cpu") for a in LINSPACE_SPANS]),
+        "torch.hypot(1e20)": (torch.hypot(big.cuda(), big.cuda()),
+                              T.hypot(big, big)),
+        "torch.digamma(0)": (torch.digamma(torch.zeros(3, device="cuda")),
+                             T.digamma(torch.zeros(3))),
+        "int32 + 1.5 in float32": (
+            torch.arange(4, dtype=torch.int32, device="cuda") + 1.5,
+            T.add(torch.arange(4, dtype=torch.int32), 1.5))}
+
+
+def tensor_probe_phase(T, Constant, hidden, wte, ids, power):
+    """tensor-probe (38).  Returns the phase's row."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    H = hidden.shape[-1]
+    X = hidden[:, :-1].reshape(-1, H).float()
+    Y = wte[ids[:, 1:].reshape(-1)]
+    ms = {}
+    with torch.inference_mode():
+        G, A, Bm, lam = ridge_system(T, X, Y, PROBE_LAMBDA)
+        W = ridge_solutions(T, X, Y, A, Bm, lam)
+        ms["ridge_solves"] = wall_ms(
+            lambda: ridge_solutions(T, X, Y, A, Bm, lam), reps=1)
+        U, Sv, Vh = T.svd(X)
+        w, V = T.eigh(A)
+        Q, R = T.qr(X)
+        lu, piv = T.lu(A)
+        sld = T.slogdet(A)
+        cond = float(T.cond(A))
+        rank = int(T.matrix_rank(X))
+        C, Cc = T.cov(X, rowvar=False), T.corrcoef(X, rowvar=False)
+        a64 = A[:64, :64]
+        a64n = T.divide(a64, T.norm(a64, p=2, axis=[0, 1]))
+        inv = {
+            "svd": (rel((U * Sv) @ Vh, X), max(ortho_err(U),
+                                               ortho_err(Vh.T))),
+            "eigh": (rel(A @ V, V * w), ortho_err(V)),
+            "qr": (rel(Q @ R, X), ortho_err(Q)),
+        }
+        checks = {
+            "svd_vs_eigvalsh": rel(Sv.flip(0) ** 2 / X.shape[0],
+                                   T.eigvalsh(G)),
+            "eigvalsh_vs_eigh": rel(T.eigvalsh(A), w),
+            "qr_r": rel(T.qr(X, mode="r"), R),
+            "lu": lu_err(lu, piv, A),
+            "slogdet": abs(float(sld[1]) - float(torch.log(w).sum()))
+            / abs(float(sld[1])),
+            "cond": abs(cond - float(w[-1] / w[0])) * float(w[0] / w[-1]),
+            "cov": rel(C, (X - X.mean(0)).T @ (X - X.mean(0))
+                       / (X.shape[0] - 1)),
+            "corrcoef_diag": float((torch.diagonal(Cc) - 1).abs().max()),
+            "norm_fro": rel(T.norm(X), Sv.pow(2).sum().sqrt()),
+            "norm_nuc": rel(T.norm(X, p="nuc", axis=[0, 1]), Sv.sum()),
+            "norm_2": rel(T.norm(X, p=2, axis=[0, 1]), Sv[0]),
+            "norm_1": rel(T.norm(X, p=1, axis=[0, 1]),
+                          X.abs().sum(0).max()),
+            "norm_inf_rows": rel(T.norm(X, p=float("inf"), axis=1),
+                                 X.abs().amax(1)),
+            "multi_dot": rel(T.multi_dot([X.T, X, W["solve"]]),
+                             (X.T @ X) @ W["solve"]),
+            "det": rel(T.det(a64), torch.exp(T.slogdet(a64)[1])
+                       * T.slogdet(a64)[0]),
+            "matrix_power": rel(T.matrix_power(a64n, 3),
+                                a64n @ a64n @ a64n),
+        }
+        resid = {k: float(torch.linalg.norm(A @ v - Bm)
+                          / (torch.linalg.norm(A) * torch.linalg.norm(v)))
+                 for k, v in W.items()}
+        agree = {k: rel(v, W["solve"]) for k, v in W.items()
+                 if k != "solve"}
+        rank_want = int((Sv > Sv.max() * max(X.shape)
+                         * torch.finfo(Sv.dtype).eps).sum())
+        naive_lu = lu_err(lu, torch.linalg.lu_factor(A).pivots.int(), A)
+        # the probe again on 64 rows, card against CPU
+        x64, y64 = X[:CPU_ROWS], Y[:CPU_ROWS]
+        sys_card = ridge_system(T, x64, y64, PROBE_LAMBDA_64)
+        w_card = ridge_solutions(T, x64, y64, *sys_card[1:])
+        sys_cpu = ridge_system(T, x64.cpu(), y64.cpu(), PROBE_LAMBDA_64)
+        w_cpu = ridge_solutions(T, x64.cpu(), y64.cpu(), *sys_cpu[1:])
+        cpu64 = {k: rel(w_card[k].cpu(), w_cpu[k]) for k in w_card}
+    log(f"tensor-probe: ridge from {X.shape[0]} x {H} hidden states to the "
+        f"next token's embedding, lambda {float(lam):.4g}, cond(A) "
+        f"{cond:.4g}, rank(X) {rank}; residual ||AW - B|| / (||A|| ||W||) "
+        f"{resid}; agreement with solve {agree} (tol {TOL_AGREE:g})")
+    log(f"tensor-probe: invariants (reconstruction, orthogonality) {inv}; "
+        f"relative checks {checks}; 64 rows card vs CPU {cpu64}; the naive "
+        f"lu_factor pivots reconstruct to {naive_lu:.3g}")
+    stable = ("cholesky", "triangular", "solve", "lstsq")
+    if any(resid[k] > TOL_RESID for k in stable) or \
+            any(v > TOL_AGREE for v in agree.values()):
+        fail("the probe's solutions disagree or leave a residual")
+    if any(r > TOL_RESID or o > TOL_ORTHO for r, o in inv.values()):
+        fail("a decomposition does not reconstruct or is not orthogonal")
+    loose = {"cond": TOL_AGREE, "svd_vs_eigvalsh": TOL_AGREE}
+    bad = [k for k, v in checks.items() if not v <= loose.get(k, TOL_RESID)]
+    if bad or rank != rank_want or int(sld[0]) != 1:
+        fail(f"probe checks failed: {bad}, rank {rank} vs {rank_want}")
+    if any(v > TOL_AGREE for v in cpu64.values()):
+        fail("the 64-row probe on the card disagrees with the CPU")
+    if not naive_lu > TOL_RESID:
+        fail("torch.linalg.lu_factor's 1-based pivots pass the lu check")
+    # breadth: every other name once, card against a CPU copy of 64 rows
+    cases = tensor_breadth_cases(T, Constant)
+    covered = {n for _, names, _ in cases for n in names}
+    probe_names = {"matmul", "divide", "add", "multiply", "eye", "trace",
+                   "sqrt", "cholesky", "cholesky_solve", "triangular_solve",
+                   "solve", "inverse",
+                   "lstsq", "pinv", "svd", "eigh", "eigvalsh", "qr", "lu",
+                   "slogdet", "cond", "matrix_rank", "cov", "corrcoef",
+                   "norm", "multi_dot", "det", "matrix_power", "zeros",
+                   "logsumexp", "index_sample", "mean", "subtract", "exp",
+                   "accuracy", "argmax", "equal", "topk", "argsort",
+                   "cumsum", "searchsorted", "quantile", "median",
+                   "full_like", "eig", "eigvals", "mode"}
+    full = breadth_env(T, hidden.float(), ids)
+    small = breadth_env(T, hidden[:1, :CPU_ROWS].float(), ids[:, :CPU_ROWS])
+    small_cpu = breadth_env(T, hidden[:1, :CPU_ROWS].float().cpu(),
+                            ids[:, :CPU_ROWS].cpu())
+    worst, bad = {}, []
+    with torch.inference_mode():
+        for group, names, fn in cases:
+            tol = TOL_BF16 if group.endswith("bf16") else TOL_F32
+            same, err = outputs_err(fn(small), fn(small_cpu))
+            worst[group] = max(worst.get(group, 0.0), err)
+            if not same or err > tol:
+                bad.append((names, same, err))
+        # eig / eigvals: complex, in no defined order; held by A V = V w
+        # and the same set from both calls
+        ew, ev = T.eig(small["mat"])
+        ewc = T.eigvals(small["mat"])
+        eig_res = float(torch.linalg.norm(small["mat"].to(ev.dtype) @ ev
+                                          - ev * ew)
+                        / torch.linalg.norm(small["mat"]))
+        key = (lambda z: torch.sort(z.real * 1e6 + z.imag).values)
+        eig_set = float((key(ew) - key(ewc)).abs().max())
+        try:
+            T.linalg.mode(small["x"])
+        except NotImplementedError:
+            mode_raises = True
+        else:
+            mode_raises = False
+        for group in sorted({g for g, _, _ in cases}):
+            calls = [fn for g, _, fn in cases if g == group]
+            ms[f"breadth_{group}"] = wall_ms(
+                lambda calls=calls: [f(full) for f in calls], reps=1)
+        faults = {k: outputs_err(*p) for k, p in breadth_faults(T).items()}
+        linspace_card = outputs_err(
+            [T.linspace(*a, device="cuda") for a in LINSPACE_SPANS],
+            [T.linspace(*a, device="cpu") for a in LINSPACE_SPANS])
+    caught = {k: not (s and e <= (0.0 if k == "torch.linspace" else TOL_F32))
+              for k, (s, e) in faults.items()}
+    names_all = set(T.__all__) - {"gather", "histogramdd", "sum_arrays",
+                                  "einsum", "add_n"}
+    missing = sorted(names_all - covered - probe_names)
+    log(f"tensor-probe breadth: {len(cases)} cases over {len(covered)} "
+        f"names, card vs CPU ({CPU_ROWS} rows) max scaled err by group "
+        f"{worst}; eig A V = V w {eig_res:.3g}, eigvals vs eig {eig_set:.3g}"
+        f"; linalg.mode raises {mode_raises}; planted faults told apart "
+        f"{caught}; linspace card vs CPU {linspace_card}"
+        + (f"; differ: {bad}" if bad else ""))
+    if bad or linspace_card != (True, 0.0):
+        fail(f"breadth card vs CPU differ: {bad}, linspace {linspace_card}")
+    if missing:
+        fail(f"names of the tensor library no phase runs: {missing}")
+    if eig_res > TOL_RESID * 10 or eig_set > TOL_RESID or not mode_raises:
+        fail("eig / eigvals / linalg.mode do not hold")
+    if not all(caught.values()):
+        fail(f"a naive call passes the breadth check: {caught}")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    log(f"tensor-probe: ms a call group at the full shape {ms}; peak "
+        f"{peak} bytes; {wall:.1f} s of wall time [{power}]")
+    return {"ms": ms, "peak_bytes": peak, "wall_s": wall,
+            "lambda": float(lam), "cond": cond, "rank": rank,
+            "residual": resid, "agreement": agree, "invariants": inv,
+            "checks": checks, "cpu64": cpu64, "breadth_err": worst,
+            "planted_faults_caught": {**caught, "torch lu_factor pivots":
+                                      naive_lu > TOL_RESID}}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5955,6 +6726,8 @@ def main() -> int:
     from paddle_tpu_torch.models import (GPT, Bert, BertConfig, bert_base,
                                          bert_pretrain_loss, gpt2_345m,
                                          gpt_loss, gpt_tiny)
+    from paddle_tpu_torch.nn.initializer import Constant
+    from paddle_tpu_torch import tensor as ttensor
     from paddle_tpu_torch.nn.functional.attention import _xla_attention
     from paddle_tpu_torch.ops.cuda import _build
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -7590,6 +8363,20 @@ def main() -> int:
     det_row["two_stage_phases_s"] = time.perf_counter() - t_two
     log(f"two-stage detection phases (34-36): "
         f"{det_row['two_stage_phases_s']:.1f} s of wall time")
+
+    # -- 37. gpt-eval ---------------------------------------------------------
+    # -- 38. tensor-probe -----------------------------------------------------
+    # the tensor library: no hand-written kernel lies on these paths
+    t_tensor = time.perf_counter()
+    tensor_row = {}
+    tensor_row["gpt_eval"], hidden, wte, eval_ids = gpt_eval_phase(
+        ttensor, GPT, cfg, gpt_loss, set_flags, final_hidden, power)
+    tensor_row["tensor_probe"] = tensor_probe_phase(
+        ttensor, Constant, hidden, wte, eval_ids, power)
+    del hidden, wte
+    tensor_row["tensor_phases_s"] = time.perf_counter() - t_tensor
+    log(f"tensor phases (37-38): {tensor_row['tensor_phases_s']:.1f} s of "
+        "wall time")
     for row in table:
         log(json.dumps(row))
 
@@ -7642,7 +8429,7 @@ def main() -> int:
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
-        **det_row,
+        **det_row, **tensor_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.framework.dtype import convert_dtype
 from paddle_tpu_torch.framework.parameter import Parameter
 
 __all__ = [
@@ -34,12 +35,9 @@ __all__ = [
 
 
 def _dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    found = getattr(torch, str(dtype).lower().replace("paddle.", ""), None)
-    if not isinstance(found, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return found
+    if dtype is None:
+        raise ValueError("unknown dtype None")
+    return convert_dtype(dtype)
 
 
 def calculate_gain(nonlinearity: str, param=None) -> float:

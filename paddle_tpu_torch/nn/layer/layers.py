@@ -39,6 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from paddle_tpu_torch.framework.dtype import convert_dtype
+
 __all__ = ["Layer", "HookRemoveHelper", "Sequential", "LayerList",
            "ParameterList"]
 
@@ -71,8 +73,7 @@ def _run_post_hooks(layer, inputs, outputs):
 
 
 def _torch_dtype(dtype) -> torch.dtype:
-    return dtype if isinstance(dtype, torch.dtype) else getattr(
-        torch, str(dtype))
+    return convert_dtype(dtype)
 
 
 def _is_dtype(value) -> bool:

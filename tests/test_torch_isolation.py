@@ -52,7 +52,10 @@ def test_every_module_imports_with_jax_blocked():
               "nn.functional.common", "nn.functional.loss",
               "nn.layer.pooling", "nn.layer.conv", "vision.transforms",
               "nn.layer.layers", "nn.layer.norm", "nn.functional.norm",
-              "nn.utils", "framework.selected_rows", "vision.ops"):
+              "nn.utils", "framework.selected_rows", "vision.ops",
+              "framework.dtype", "tensor", "tensor.creation",
+              "tensor.math", "tensor.linalg", "tensor.logic", "tensor.stat",
+              "tensor.search", "tensor.manipulation"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"

@@ -51,10 +51,20 @@ B, E, NH, FFN, SQ, SK = 2, 128, 2, 256, 128, 256
 
 @pytest.fixture(autouse=True)
 def _reference_env():
+    """One mesh, and the reference's global generator seeded for each
+    test and restored after it.  The reference draws its layers'
+    initial weights from that generator, so without the seed they
+    depend on which tests ran before in the process; some of those
+    weights put a ReLU pre-activation of the decoder's first layer
+    within f32 rounding of 0, where the two packages round to opposite
+    sides of the kink and that unit's gradients differ by O(1)."""
     prev = get_mesh()
+    state = paddle.get_rng_state()
     set_mesh(make_mesh({"dp": 1}, devices=jax.devices()[:1]))
+    paddle.seed(0)
     yield
     jfa._INTERPRET = False
+    paddle.set_rng_state(state)
     set_mesh(prev)
 
 
