@@ -402,6 +402,51 @@ Phases, in order; any failure ends the script with a non-zero exit:
              naive torch.linspace, torch.hypot at 1e20, torch.digamma(0)
              and an int32 + 1.5 in float32, which must be told apart.  No
              hand-written kernel lies on phases 37-38.
+39. gpt-checkpoint — eager-gpt's loop (GPT-2 345M, B=8, S=1024, decorate
+             O2, GradScaler, auto_cast O2, AdamW(use_fused=True), #8 in
+             bf16) at beta2 = 0.99 under CosineAnnealingDecay(1e-4): two
+             steps, then save(model.state_dict()) and save(opt.state_dict())
+             into a temporary directory, a fresh pair load +
+             set_state_dict, and one more step on both: every loaded
+             tensor bitwise the saved one with its dtype (bf16 parameters
+             and moments, beta pows, @global_step, the scheduler), through
+             the files and through dumps / loads, beside a planted state
+             dict missing one moment; the resumed step's loss, parameters
+             and moments bitwise the original's, or within 4x the spread
+             of the original repeating its step from memory.  File bytes,
+             seconds to save and to load.
+40. gpt-sample — phase 3's GPT-2 345M (bf16): from an 8 x 992 prompt, 32
+             tokens a row by full re-forward under no_grad, each step
+             topk(40), the nucleus at 0.9 (softmax, cumsum, a mask),
+             multinomial and concat: the same seed bitwise the same
+             tokens, another seed others, every token within its step's
+             kept set recomputed by torch.sort (beside the planted sampler
+             that ignores the nucleus), set_rng_state(get_rng_state())
+             replaying a step; ms a step, generated tokens/s, 24 #1
+             launches a forward.
+41. bert-ragged and breadth — BERT-base (bf16) over 128 sentences of
+             8-128 tokens in the flat encoding: lengths_to_segment_ids,
+             sequence_pad to 128 x 128, the masked forward (12 launches of
+             masked #1), sequence_unpad, every sequence_pool type,
+             first / last step, segment_softmax attention pooling,
+             embedding_bag over the 30,522 x 768 word table (sum, mean,
+             max, padding_idx 0), one backward of a pooled loss (12 masked
+             dq and dk/dv, 12 forwards replayed by remat), sequence_reverse
+             / concat / enumerate / expand_as / mask: card against a CPU
+             copy of the same inputs, unpad(pad(x)) bitwise, the mean bag
+             equal to the pooled lookup, beside planted torch.max(dim) tie
+             gradients, scatter_reduce's include_self on an empty segment,
+             a first-wins scatter and torch.multinomial refusing a row of
+             zeros.  Then every manipulation name once at GPT-2's
+             activation (8 x 1,024 x 1,024, f32 and bf16; each gather and
+             scatter given indices past its axis and negative ones),
+             card against a 64-row CPU copy; every sampler on 10^7 draws
+             (mean and variance within 6 sigma, randperm a permutation,
+             multinomial distinct); grad(create_graph=True) twice and the
+             top-level aliases, card against CPU; one more launch and a
+             synchronize so no device-side assert hides.  The launch
+             counters are set to 0 before each of phases 39-41 and their
+             launches join the kernel table's.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -697,6 +742,15 @@ CPU_ROWS, CPU_PARAMS = 64, 1 << 20
 # eigenvalue of X^T X / N; the 64-row CPU copy takes a larger lambda, which
 # keeps its rank-64 system's condition number near 10^2
 PROBE_LAMBDA, PROBE_LAMBDA_64 = 1e-3, 1e-1
+# gpt-checkpoint (39): eager-gpt's loop under CosineAnnealingDecay(EAGER_LR,
+# T_max); gpt-sample (40): an 8 x 992 prompt, 32 new tokens a row,
+# topk(40) then the nucleus at 0.9; bert-ragged (41): 128 sentences of
+# 8-128 tokens; the samplers' draws in its breadth
+CKPT_T_MAX = 100
+SAMPLE_PROMPT, SAMPLE_NEW, SAMPLE_TOPK, SAMPLE_P = 992, 32, 40, 0.9
+SAMPLE_SEED = 40
+RAGGED_MIN = 8
+SAMPLER_DRAWS = 10 ** 7
 # f32 bounds of the probe's invariants: a backward-stable solve or
 # decomposition leaves a residual of a few n * eps (n = 1,024, eps =
 # 6e-8); two solutions of A W = B agree to about cond(A) * eps
@@ -6153,14 +6207,14 @@ def final_hidden(model, ids):
                         model._ids(ids), features_only=True)
 
 
-def gpt_eval_phase(T, GPT, cfg, gpt_loss, set_flags, gpt_forward, power):
-    """gpt-eval (37).  Returns (the phase's row, the final hidden states
-    (B, S, H) bf16, the embedding wte in f32, the token ids)."""
+def gpt_eval_phase(T, model, cfg, gpt_loss, set_flags, gpt_forward, power):
+    """gpt-eval (37) of ``model``, phase 3's GPT-2 345M in bf16.  Returns
+    (the phase's row, the final hidden states (B, S, H) bf16, the
+    embedding wte in f32, the token ids)."""
     import numpy as np
     import torch
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model = GPT(cfg, device="cuda").to(torch.bfloat16)
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S)), device="cuda")
     with torch.inference_mode():
@@ -6679,8 +6733,8 @@ def tensor_probe_phase(T, Constant, hidden, wte, ids, power):
             [T.linspace(*a, device="cpu") for a in LINSPACE_SPANS])
     caught = {k: not (s and e <= (0.0 if k == "torch.linspace" else TOL_F32))
               for k, (s, e) in faults.items()}
-    names_all = set(T.__all__) - {"gather", "histogramdd", "sum_arrays",
-                                  "einsum", "add_n"}
+    first_half = (T.creation, T.math, T.linalg, T.logic, T.stat, T.search)
+    names_all = {n for m in first_half for n in m.__all__}
     missing = sorted(names_all - covered - probe_names)
     log(f"tensor-probe breadth: {len(cases)} cases over {len(covered)} "
         f"names, card vs CPU ({CPU_ROWS} rows) max scaled err by group "
@@ -6706,6 +6760,728 @@ def tensor_probe_phase(T, Constant, hidden, wte, ids, power):
             "checks": checks, "cpu64": cpu64, "breadth_err": worst,
             "planted_faults_caught": {**caught, "torch lu_factor pivots":
                                       naive_lu > TOL_RESID}}
+
+
+# -- phases 39-41: the tensor library's second half and the namespace --------
+
+def _bits(t):
+    """t's bits as an integer tensor of the same width (bool and integer
+    tensors as they are)."""
+    import torch
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if t.is_floating_point():
+        return t.contiguous().view(width[t.element_size()])
+    return t
+
+
+def state_mismatches(saved, loaded, prefix=""):
+    """The keys (dotted) whose loaded value is not the saved one: missing,
+    extra, another type, dtype or shape, or other bits."""
+    import torch
+    if isinstance(saved, dict):
+        if not isinstance(loaded, dict):
+            return [prefix.rstrip(".") or "."]
+        bad = [f"{prefix}{k}" for k in set(saved) ^ set(loaded)]
+        for k in set(saved) & set(loaded):
+            bad += state_mismatches(saved[k], loaded[k], f"{prefix}{k}.")
+        return bad
+    if isinstance(saved, torch.Tensor):
+        same = (isinstance(loaded, torch.Tensor)
+                and loaded.dtype == saved.dtype
+                and loaded.shape == saved.shape
+                and torch.equal(_bits(saved), _bits(loaded.to(
+                    saved.device))))
+        return [] if same else [prefix.rstrip(".")]
+    same = type(saved) is type(loaded) and saved == loaded
+    return [] if same else [prefix.rstrip(".")]
+
+
+def _optimizer_tensors(opt, model):
+    """(name, tensor) of every parameter and every tensor of its
+    optimizer state."""
+    out = []
+    for i, p in enumerate(model.parameters()):
+        out.append((f"param_{i}", p.detach()))
+        for k, v in opt._state_for(p).items():
+            if hasattr(v, "dtype"):
+                out.append((f"param_{i}.{k}", v.detach()))
+    return out
+
+
+def _pair_diff(a, b):
+    """(entries that differ, the largest |a - b| over max |b|) of two
+    lists of (name, tensor)."""
+    n, worst = 0, 0.0
+    for (_, x), (_, y) in zip(a, b):
+        d = (x.float() - y.float()).abs()
+        n += int((_bits(x) != _bits(y)).sum())
+        worst = max(worst, float(d.max()) / max(float(y.float().abs().max()),
+                                                1e-30))
+    return n, worst
+
+
+def gpt_checkpoint_phase(base, gpt_loss, amp, AdamW, CosineAnnealingDecay, fa,
+                         fused_adam, ids_t, io, power):
+    """gpt-checkpoint (39): two pairs of (copy of ``base``, GPT-2 345M,
+    decorated O2; its fused AdamW), one resumed from the other's files.
+    Returns (the phase's row, launch counts)."""
+    import copy
+    import os
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    def make():
+        model = copy.deepcopy(base)
+        sched = CosineAnnealingDecay(EAGER_LR, T_max=CKPT_T_MAX)
+        opt = AdamW(sched, beta2=0.99, parameters=list(model.parameters()),
+                    use_fused=True)
+        model, opt = amp.decorate(model, opt, level="O2")
+        return model, opt, sched, amp.GradScaler()
+
+    def step(pair):
+        model, opt, sched, scaler = pair
+        with amp.auto_cast(level="O2"):
+            loss = gpt_loss(model, ids_t, ids_t)
+        scaler.minimize(opt, scaler.scale(loss))
+        opt.clear_grad()
+        sched.step()
+        return float(loss.detach())
+
+    reset_fa(fa)
+    fused_adam.launches_bf16 = 0
+    orig = make()
+    losses = [step(orig) for _ in range(2)]
+    saved_m = {k: v.clone() for k, v in orig[0].state_dict().items()}
+    saved_o = orig[1].state_dict()
+    saved_s = orig[3].state_dict()
+    if any(v.dtype != torch.bfloat16 for v in saved_m.values()):
+        fail("gpt-checkpoint: a decorated parameter is not bf16")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, "gpt.pdparams"),
+                 os.path.join(tmp, "gpt.pdopt")]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for obj, path in zip((saved_m, saved_o), paths):
+            io.save(obj, path)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        t0 = time.perf_counter()
+        loaded_m, loaded_o = (io.load(p) for p in paths)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blobs = [io.dumps(saved_m), io.dumps(saved_o)]
+    t_dumps = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mem_m, mem_o = (io.loads(b) for b in blobs)
+    torch.cuda.synchronize()
+    t_loads = time.perf_counter() - t0
+    del blobs
+    bad = {"file": state_mismatches(saved_m, loaded_m)
+           + state_mismatches(saved_o, loaded_o),
+           "memory": state_mismatches(saved_m, mem_m)
+           + state_mismatches(saved_o, mem_o)}
+    dropped = sorted(k for k in loaded_o if k.endswith("_moment2"))[0]
+    planted = {k: v for k, v in loaded_o.items() if k != dropped}
+    caught = {"state dict missing one moment": bool(
+        state_mismatches(saved_o, planted))}
+    del mem_m, mem_o, planted
+    resumed = make()
+    resumed[0].set_state_dict(loaded_m)
+    resumed[1].set_state_dict(loaded_o)
+    resumed[3].set_state_dict(io.loads(io.dumps(saved_s)))
+    bad["set_state_dict"] = state_mismatches(saved_o,
+                                             resumed[1].state_dict())
+    del loaded_m, loaded_o
+    # step 3 on both pairs, then the original again from its step-2 state
+    # (in memory, no file): the spread a repeat of the step has
+    loss_o = step(orig)
+    after_o = [(n, t.clone()) for n, t in _optimizer_tensors(orig[1],
+                                                             orig[0])]
+    loss_r = step(resumed)
+    after_r = _optimizer_tensors(resumed[1], resumed[0])
+    orig[0].set_state_dict(saved_m)
+    orig[1].set_state_dict(saved_o)
+    orig[3].set_state_dict(saved_s)
+    loss_rep = step(orig)
+    after_rep = _optimizer_tensors(orig[1], orig[0])
+    diff_r = _pair_diff(after_r, after_o)
+    diff_rep = _pair_diff(after_rep, after_o)
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_bwd_dq": fa.launches_dq,
+                "flash_attention_bwd_dkv": fa.launches_dkv,
+                "fused_adam_bf16": fused_adam.launches_bf16}
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    log(f"gpt-checkpoint: GPT-2 345M decorate(O2), AdamW(CosineAnnealing"
+        f"Decay({EAGER_LR:g}), beta2=0.99, use_fused=True), GradScaler, "
+        f"B={ids_t.shape[0]}, S={ids_t.shape[1]}: losses {losses}; "
+        f"{len(saved_m)} parameters, {len(saved_o)} optimizer entries, "
+        f"{nbytes} file bytes: save {t_save:.3f} s "
+        f"({nbytes / t_save / 1e9:.3f} GB/s), load {t_load:.3f} s "
+        f"({nbytes / t_load / 1e9:.3f} GB/s); dumps {t_dumps:.3f} s, "
+        f"loads {t_loads:.3f} s; mismatches {bad}; planted faults told "
+        f"apart {caught}")
+    log(f"gpt-checkpoint: step 3 losses original {loss_o!r}, resumed "
+        f"{loss_r!r}, the original repeated {loss_rep!r}; entries that "
+        f"differ and the largest difference over scale: resumed "
+        f"{diff_r}, repeat {diff_rep}; launches {launches}; peak {peak} "
+        f"bytes; {wall:.1f} s of wall time [{power}]")
+    if any(bad.values()):
+        fail(f"gpt-checkpoint: a loaded tensor is not the saved one: {bad}")
+    if not all(caught.values()):
+        fail(f"gpt-checkpoint: a planted fault passes the check: {caught}")
+    if diff_rep[0] == 0 and loss_rep == loss_o:
+        if diff_r[0] or loss_r != loss_o:
+            fail("gpt-checkpoint: the resumed step is not bitwise the "
+                 "original's")
+    elif diff_r[1] > 4 * diff_rep[1] or \
+            abs(loss_r - loss_o) > 4 * abs(loss_rep - loss_o):
+        fail("gpt-checkpoint: the resumed step is outside the repeat's "
+             "spread")
+    if not all(math.isfinite(x) for x in losses + [loss_o]):
+        fail("gpt-checkpoint: a loss is not finite")
+    row = {"file_bytes": nbytes, "save_s": t_save, "load_s": t_load,
+           "dumps_s": t_dumps, "loads_s": t_loads,
+           "save_gb_per_s": nbytes / t_save / 1e9,
+           "load_gb_per_s": nbytes / t_load / 1e9, "losses": losses,
+           "step3_losses": [loss_o, loss_r, loss_rep],
+           "resumed_diff": list(diff_r), "repeat_diff": list(diff_rep),
+           "planted_faults_caught": caught, "peak_bytes": peak,
+           "wall_s": wall}
+    del orig, resumed, saved_m, saved_o, after_o
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def nucleus_step(T, F, last):
+    """One sampled token a row of the f32 logits ``last`` (B, V): topk,
+    the nucleus at SAMPLE_P (softmax, cumsum, a mask), multinomial."""
+    vals, idx = T.topk(last, SAMPLE_TOPK)
+    probs = F.softmax(vals, axis=-1)
+    before = T.subtract(T.cumsum(probs, axis=-1), probs)
+    probs = T.where(T.less_than(before, T.full_like(probs, SAMPLE_P)), probs,
+                    T.zeros_like(probs))
+    return T.take_along_axis(idx, T.multinomial(probs, 1), axis=1)
+
+
+def topk_only_step(T, F, last):
+    """The planted fault: the nucleus ignored."""
+    vals, idx = T.topk(last, SAMPLE_TOPK)
+    return T.take_along_axis(idx, T.multinomial(F.softmax(vals, axis=-1),
+                                                1), axis=1)
+
+
+def outside_nucleus(lasts, toks):
+    """How many sampled tokens have a logit below their step's smallest
+    kept logit, the kept set recomputed by torch.sort and torch.softmax
+    (tie-proof: by value, not index)."""
+    import torch
+    n = 0
+    for last, tok in zip(lasts, toks):
+        v = torch.sort(last, dim=-1, descending=True).values[:, :SAMPLE_TOPK]
+        p = torch.softmax(v, dim=-1)
+        kept = (torch.cumsum(p, dim=-1) - p) < SAMPLE_P
+        floor = torch.where(kept, v, torch.full_like(v, float("inf"))).amin(-1)
+        n += int((last.gather(1, tok)[:, 0] < floor).sum())
+    return n
+
+
+def gpt_sample_phase(tpt, F, base, fa, power):
+    """gpt-sample (40) on a copy of ``base``, phase 3's GPT-2 345M in
+    bf16.  Returns (the phase's row, launch counts)."""
+    import copy
+    import numpy as np
+    import torch
+    T = tpt.tensor
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = copy.deepcopy(base)
+    v = model.config.vocab_size
+    prompt = torch.as_tensor(np.random.default_rng(40).integers(
+        0, v, (B, SAMPLE_PROMPT)), device=model.wte.device)
+
+    @tpt.no_grad()
+    def generate(seed):
+        tpt.seed(seed)
+        seq, lasts, toks = prompt, [], []
+        for _ in range(SAMPLE_NEW):
+            last = model(seq)[:, -1].float()
+            tok = nucleus_step(T, F, last)
+            lasts.append(last)
+            toks.append(tok)
+            seq = T.concat([seq, tok], axis=1)
+        return seq[:, SAMPLE_PROMPT:], lasts, toks
+
+    reset_fa(fa)
+    first, lasts, toks = generate(SAMPLE_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, _, _ = generate(SAMPLE_SEED)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    other, _, _ = generate(SAMPLE_SEED + 1)
+    launches = {"flash_attention_fwd": fa.launches}
+    with torch.no_grad():
+        state = tpt.get_rng_state()
+        a = nucleus_step(T, F, lasts[5])
+        tpt.set_rng_state(state)
+        replay = bool(torch.equal(a, nucleus_step(T, F, lasts[5])))
+        outside = outside_nucleus(lasts, toks)
+        tpt.seed(SAMPLE_SEED)
+        naive = [topk_only_step(T, F, last) for last in lasts]
+        naive_outside = outside_nucleus(lasts, naive)
+    caught = {"sampler ignoring the nucleus": naive_outside > 0}
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    step_ms = gen_s / SAMPLE_NEW * 1e3
+    log(f"gpt-sample: GPT-2 345M (bf16), {B} x {SAMPLE_PROMPT} prompt, "
+        f"{SAMPLE_NEW} tokens a row by full re-forward, topk({SAMPLE_TOPK}) "
+        f"then the nucleus at {SAMPLE_P}: first row {first[0, :8].tolist()}"
+        f"...; same seed bitwise {bool(torch.equal(first, again))}, another "
+        f"seed differs {not bool(torch.equal(first, other))}, "
+        f"set_rng_state replays {replay}; tokens outside the kept set "
+        f"{outside} (the nucleus ignored: {naive_outside}); {step_ms:.3f} ms "
+        f"a step of {B} tokens, {B * SAMPLE_NEW / gen_s:.1f} generated "
+        f"tokens/s; launches {launches}; peak {peak} bytes; {wall:.1f} s "
+        f"of wall time [{power}]")
+    if not torch.equal(first, again) or torch.equal(first, other):
+        fail("gpt-sample: a seed does not fix the tokens")
+    if not replay or outside:
+        fail("gpt-sample: a replay differs, or a token lies outside the "
+             "nucleus")
+    if not all(caught.values()):
+        fail(f"gpt-sample: a planted fault passes the check: {caught}")
+    if launches["flash_attention_fwd"] != 3 * SAMPLE_NEW * \
+            model.config.num_layers:
+        fail(f"gpt-sample: {launches} flash forward launches")
+    row = {"ms_a_step": step_ms, "generated_tokens_per_s":
+           B * SAMPLE_NEW / gen_s, "peak_bytes": peak, "wall_s": wall,
+           "planted_faults_caught": caught,
+           "naive_tokens_outside": naive_outside}
+    del model
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def bert_hidden(model, ids, mask):
+    """BERT's last-layer hidden states (B, S, H)."""
+    import torch
+    from paddle_tpu_torch.models.bert import _PARAM_ORDER, _bert_forward
+    return _bert_forward(model.config, {n: getattr(model, n)
+                                        for n in _PARAM_ORDER},
+                         ids, torch.zeros_like(ids), mask,
+                         features_only=True)
+
+
+SEQ_POOLS = ("average", "sum", "sqrt", "max", "min", "first", "last")
+
+
+def ragged_ops(T, F, hf, lens, ids_pad, table, w_att):
+    """The sequence calls of phase 41 on the padded hidden states hf (B,
+    S, H) f32 with lengths lens, ids_pad (B, S) and a word table."""
+    b, s = ids_pad.shape
+    seg = T.lengths_to_segment_ids(lens)
+    flat = F.sequence_unpad(hf, lens)
+    out = {f"pool_{t}": F.sequence_pool(hf, t, lens) for t in SEQ_POOLS}
+    out["pool_max_pad"] = F.sequence_pool(hf, "max", lens, pad_value=-1.0)
+    out["first_step"] = F.sequence_first_step(hf, lens)
+    out["last_step"] = F.sequence_last_step(hf, lens)
+    att = F.segment_softmax(T.matmul(flat, w_att), seg, num_segments=b)
+    out["attention_pool"] = T.segment_sum(T.multiply(att[:, None], flat),
+                                          seg, num_segments=b)
+    out["segment_mean"] = T.segment_mean(flat, seg, num_segments=b + 1)
+    out["segment_max"] = T.segment_max(flat, seg, num_segments=b + 1)
+    out["segment_min"] = T.segment_min(flat, seg)
+    out["segment_ids_to_lengths"] = T.segment_ids_to_lengths(seg, b)
+    for mode in ("sum", "mean", "max"):
+        out[f"bag_{mode}"] = F.embedding_bag(ids_pad, table, lens, mode=mode,
+                                             padding_idx=0)
+    out["bag_flat_max"] = F.embedding_bag(
+        F.sequence_unpad(ids_pad[..., None], lens)[:, 0], table, seg,
+        mode="max")
+    out["softmax"] = F.sequence_softmax(hf[..., 0], lens)
+    out["reverse"] = F.sequence_reverse(hf, lens)
+    half = s // 2
+    out["concat"] = F.sequence_concat(
+        [hf[:, :half], hf[:, half:]],
+        [lens.clamp(max=half), (lens - half).clamp(min=0)])
+    out["enumerate"] = F.sequence_enumerate(ids_pad, 3, pad_value=-1,
+                                            lengths=lens)
+    out["expand_as"] = F.sequence_expand_as(out["pool_average"], lens)
+    out["mask"] = F.sequence_mask(lens, maxlen=s, dtype="float32")
+    return out
+
+
+def manip_env(x, ids):
+    """The manipulation breadth's inputs from an activation x (B, S, H)
+    and ids (B, S): every index holds a negative entry and one past its
+    axis, the overwriting ones duplicates."""
+    import torch
+    dev, (b, s, h) = x.device, x.shape
+    g = torch.Generator().manual_seed(41)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g).to(dev)
+    nd = torch.tensor([[0, 0], [-1, -1], [9, 3], [0, 2000], [-20, 1],
+                       [0, 5]]).to(dev)
+    return {"x": x, "xb": x.to(torch.bfloat16), "ids": ids,
+            "gidx": torch.tensor([0, 5, -1, 2000, 3]).to(dev),
+            "nd": nd, "nd_upd": torch.randn(6, h, generator=g).to(dev),
+            "tidx": ints(-h - 2, h + 2, (b, s, 4)),
+            "tval": torch.randn(b, s, 4, generator=g).to(dev),
+            "sidx": ints(-h - 2, h + 2, (s, 4)),
+            "rows": torch.tensor([0, 3, 3, -1, 10 ** 6, 7, 0]).to(dev),
+            "rows_upd": torch.randn(7, h, generator=g).to(dev),
+            "ia_val": torch.randn(b, 5, h, generator=g).to(dev),
+            "reps": torch.tensor([2, 0, 1, 3]).to(dev),
+            "special": torch.tensor([float("nan"), 1e20, -1e20, 3.7, -3.7,
+                                     2.5e9]).to(dev)}
+
+
+def manip_cases(T):
+    """(group, names, fn(env, dtype key)) for every name of
+    tensor/manipulation.py."""
+    return [
+        ("layout", ("reshape", "reshape_", "flatten", "transpose",
+                    "moveaxis", "swapaxes", "t"),
+         lambda e, d: (T.reshape(e[d], [-1, e[d].shape[-1]]),
+                       T.reshape_(e[d].clone(), [-1]),
+                       T.flatten(e[d], 1), T.transpose(e[d], [2, 0, 1]),
+                       T.moveaxis(e[d], 0, 2), T.swapaxes(e[d], 1, 2),
+                       T.t(e[d][0]))),
+        ("join", ("concat", "stack", "unstack", "split", "chunk", "unbind"),
+         lambda e, d: (T.concat([e[d], e["x"]], axis=1),
+                       T.stack([e[d], e[d]], axis=0),
+                       T.unstack(e[d], axis=0),
+                       T.split(e[d], [256, -1, 256], axis=2),
+                       T.chunk(e[d], 4, axis=2), T.unbind(e[d], 0))),
+        ("shape", ("squeeze", "squeeze_", "unsqueeze", "unsqueeze_", "tile",
+                   "expand", "expand_as", "broadcast_to",
+                   "broadcast_tensors"),
+         lambda e, d: (T.squeeze(T.unsqueeze(e[d], [0, -1]), [0, -1]),
+                       T.squeeze_(e[d][:, :1]), T.unsqueeze_(e[d], 1),
+                       T.tile(e[d][:, :4], [1, 2, 1]),
+                       T.expand(e[d][:, :1], [-1, 4, -1]),
+                       T.expand_as(e[d][:, :1], e[d]),
+                       T.broadcast_to(e[d][:1], list(e[d].shape)),
+                       T.broadcast_tensors([e[d][:, :1], e[d]]))),
+        ("order", ("flip", "rot90", "roll"),
+         lambda e, d: (T.flip(e[d], [0, 2]), T.rot90(e[d], 1, [1, 2]),
+                       T.roll(e[d], [3, -5], [1, 2]))),
+        ("gather", ("gather", "gather_nd", "take_along_axis", "index_select",
+                    "index_sample"),
+         lambda e, d: (T.gather(e[d], e["gidx"], axis=1),
+                       T.gather_nd(e[d], e["nd"]),
+                       T.take_along_axis(e[d], e["tidx"], axis=2),
+                       T.manipulation.index_select(e[d], e["gidx"], axis=2),
+                       T.manipulation.index_sample(e[d][0], e["sidx"]))),
+        ("scatter", ("put_along_axis", "scatter", "scatter_nd_add",
+                     "scatter_nd", "index_add"),
+         lambda e, d: (T.put_along_axis(e[d], e["tidx"], 1.5, 2),
+                       T.put_along_axis(e[d], e["tidx"], e["tval"], 2,
+                                        reduce="add"),
+                       T.scatter(e[d].reshape(-1, e[d].shape[-1]), e["rows"],
+                                 e["rows_upd"]),
+                       T.scatter(e[d].reshape(-1, e[d].shape[-1]), e["rows"],
+                                 e["rows_upd"], overwrite=False),
+                       T.scatter_nd_add(e[d], e["nd"], e["nd_upd"]),
+                       T.scatter_nd(e["nd"], e["nd_upd"].to(e[d].dtype),
+                                    list(e[d].shape)),
+                       T.index_add(e[d], e["gidx"], 1, e["ia_val"]))),
+        ("slice", ("slice", "strided_slice", "crop", "pad"),
+         lambda e, d: (T.slice(e[d], [1, 2], [-100, 3], [2000, -1]),
+                       T.strided_slice(e[d], [1, 2], [-1, 0], [0, 1024],
+                                       [-3, 5]),
+                       T.crop(e[d], [1, 32, -1], [0, 8, 100]),
+                       T.pad(e[d], [2, 3], mode="reflect"))),
+        ("dtype", ("cast", "as_complex", "as_real", "real", "imag",
+                   "tensordot"),
+         lambda e, d: (T.cast(e["special"], "int32"), T.cast(e[d], "bool"),
+                       T.cast(e[d], "float32"), T.real(T.as_complex(
+                           e["x"][..., :64].reshape(-1, 32, 2))),
+                       T.as_real(T.as_complex(e["x"][..., :8].reshape(
+                           -1, 4, 2))),
+                       T.imag(T.as_complex(e["x"][..., :8].reshape(
+                           -1, 4, 2))),
+                       T.tensordot(e[d][0], e[d][0], axes=([1], [1])))),
+        ("host", ("unique", "unique_consecutive", "repeat_interleave"),
+         lambda e, d: (T.unique(e["ids"] % 4096, return_index=True,
+                                return_inverse=True, return_counts=True),
+                       T.unique_consecutive(e["ids"] // 8192,
+                                            return_inverse=True,
+                                            return_counts=True, axis=1),
+                       T.repeat_interleave(e[d][:, :4], e["reps"], axis=1),
+                       T.repeat_interleave(e[d][:, :2], 2))),
+        ("indices", ("tril_indices", "triu_indices", "one_hot",
+                     "shard_index"),
+         lambda e, d: (T.tril_indices(64, 48, -1, device=e["x"].device),
+                       T.triu_indices(64, None, 2, device=e["x"].device),
+                       T.one_hot(e["ids"] % 64, 64),
+                       T.shard_index(e["ids"], 50304, 4, 1, ignore_value=-7))),
+    ]
+
+
+def sampler_stats(T, n):
+    """Each sampler's n draws on the card: (name, ok, mean, var, dtype)
+    against its distribution (mean and variance within 6 sigma)."""
+    import torch
+    dev = "cuda"
+    draws = {
+        "rand": (lambda: T.rand([n], device=dev), 0.5, 1 / 12),
+        "randn": (lambda: T.randn([n], device=dev), 0.0, 1.0),
+        "standard_normal": (lambda: T.standard_normal([n], device=dev), 0.0,
+                            1.0),
+        "randint": (lambda: T.randint(-3, 5, [n], device=dev), 0.5,
+                    63 / 12),
+        "randint_like": (lambda: T.randint_like(torch.zeros(
+            n, dtype=torch.int32, device=dev), 0, 7), 3.0, 48 / 12),
+        "uniform": (lambda: T.uniform([n], min=-2.0, max=3.0, device=dev),
+                    0.5, 25 / 12),
+        "normal": (lambda: T.normal(1.5, 2.0, [n], device=dev), 1.5, 4.0),
+        "poisson": (lambda: T.poisson(torch.full((n,), 3.0, device=dev)),
+                    3.0, 3.0),
+        "bernoulli": (lambda: T.bernoulli(torch.full((n,), 0.3,
+                                                     device=dev)),
+                      0.3, 0.21),
+        "uniform_": (lambda: T.uniform_(torch.empty(n, device=dev), 0.5,
+                                        1.5), 1.0, 1 / 12),
+        "normal_": (lambda: T.normal_(torch.empty(n, device=dev), -1.0,
+                                      0.5), -1.0, 0.25),
+        "exponential_": (lambda: T.exponential_(torch.empty(
+            n, device=dev), 2.0), 0.5, 0.25)}
+    rows = []
+    for name, (fn, mean, var) in draws.items():
+        a = fn()
+        x = a.double()
+        m, vv = float(x.mean()), float(x.var())
+        # the variance's sampling error for an excess kurtosis up to 6
+        # (the exponential's)
+        ok = (abs(m - mean) < 6 * math.sqrt(var / n)
+              and abs(vv - var) < 6 * var * math.sqrt(8.0 / n))
+        rows.append((name, ok, m, vv, str(a.dtype)))
+    perm = T.randperm(n, device=dev)
+    rows.append(("randperm", bool(torch.equal(
+        torch.sort(perm).values, torch.arange(n, device=dev))), 0.0, 0.0,
+        str(perm.dtype)))
+    probs = torch.rand(n // 4, 8, device=dev)
+    probs[:, 5:] = 0                       # fewer non-zeros than samples
+    probs[0] = 0                           # and a row of zeros
+    pick = T.multinomial(probs, 6)
+    distinct = bool((torch.sort(pick, -1).values.diff(dim=-1) > 0).all())
+    rows.append(("multinomial", distinct and bool((pick[1:, :5] < 5).all()),
+                 0.0, 0.0, str(pick.dtype)))
+    return rows
+
+
+def double_backward(tpt, x):
+    """The gradient of |grad f|^2 for f = sum(x^3 sin x), through
+    grad(create_graph=True) twice."""
+    x = x.detach().clone().requires_grad_()
+    g = tpt.grad((x ** 3 * x.sin()).sum(), x, create_graph=True)[0]
+    h = tpt.grad((g * g).sum(), x, create_graph=True)[0]
+    return [g.detach(), h.detach(), tpt.grad(h.sum(), x)[0]]
+
+
+def alias_calls(tpt, x, idx):
+    """The top-level compat names once each on x (N, M) and row indices
+    idx."""
+    y = x.flip(0)
+    t = x.clone()
+    tpt.tanh_(t)
+    s = x.clone()
+    tpt.scatter_(s, idx, y[:idx.shape[0]])
+    return [tpt.elementwise_add(x, y), tpt.elementwise_sub(x, y),
+            tpt.elementwise_div(x, y), tpt.elementwise_floordiv(x, y),
+            tpt.elementwise_mod(x, y), tpt.elementwise_pow(x.abs(), y),
+            tpt.reduce_sum(x, 0), tpt.reduce_mean(x), tpt.reduce_max(x, 1),
+            tpt.reduce_min(x), tpt.reduce_prod(x[:4, :4]),
+            tpt.crop_tensor(x, [4, 4], [1, 2]), tpt.rank(x), tpt.shape(x),
+            tpt.has_nan(x), tpt.has_inf(x), t, s,
+            tpt.fill_constant([3], "int32", 7, force_cpu=x.device.type ==
+                              "cpu").to(x.device)]
+
+
+def bert_ragged_phase(tpt, Bert, bert_base, fa, power):
+    """bert-ragged and breadth (41).  Returns (the phase's row, launch
+    counts)."""
+    import numpy as np
+    import torch
+    T = tpt.tensor
+    F = tpt.nn.functional
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dev, bsz, s_len = "cuda", BERT_B, BERT_S
+    cfg = bert_base(max_seq_len=s_len)
+    model = Bert(cfg, device=dev).to(torch.bfloat16)
+    rng = np.random.default_rng(41)
+    lens_np = rng.integers(RAGGED_MIN, s_len + 1, bsz)
+    lens = torch.as_tensor(lens_np, device=dev)
+    flat_ids = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                            int(lens_np.sum())), device=dev)
+    w_att = torch.as_tensor(rng.standard_normal(cfg.hidden_size) / 28.0,
+                            dtype=torch.float32, device=dev)
+    table = model.wte.detach().float()
+    reset_fa(fa)
+    # 1-2: the flat batch padded to 128 x 128, BERT over it, masked
+    seg = T.lengths_to_segment_ids(lens)
+    ids_pad, _ = F.sequence_pad(flat_ids, 0, lens, maxlen=s_len)
+    mask = F.sequence_mask(lens, maxlen=s_len)
+    hidden = bert_hidden(model, ids_pad, mask)
+    fwd_launches = fa.launches_masked
+    # 3-5: unpad, pool, and one backward of a pooled loss
+    hf = hidden.float()
+    flat = F.sequence_unpad(hf, lens)
+    att = F.segment_softmax(T.matmul(flat, w_att), seg)
+    pooled = T.segment_sum(T.multiply(att[:, None], flat), seg)
+    loss = T.add(T.mean(T.square(F.sequence_pool(hf, "max", lens))),
+                 T.mean(T.square(pooled)))
+    tpt.autograd.backward(loss)
+    grads_finite = all(bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters() if p.grad is not None)
+    launches = {"flash_attention_fwd_masked": fa.launches_masked,
+                "flash_attention_bwd_dq_masked": fa.launches_dq_masked,
+                "flash_attention_bwd_dkv_masked": fa.launches_dkv_masked}
+    hf = hf.detach()
+    with torch.no_grad():
+        # 6: the sequence ops, card against a CPU copy of the same inputs
+        ms = {"ragged_ops": wall_ms(lambda: ragged_ops(
+            T, F, hf, lens, ids_pad, table, w_att), reps=1)}
+        card = ragged_ops(T, F, hf, lens, ids_pad, table, w_att)
+        cpu = ragged_ops(T, F, hf.cpu(), lens.cpu(), ids_pad.cpu(),
+                         table.cpu(), w_att.cpu())
+        errs = {k: outputs_err(card[k], cpu[k]) for k in card}
+        flat = F.sequence_unpad(hf, lens)
+        round_trip = bool(torch.equal(F.sequence_unpad(F.sequence_pad(
+            flat, 0.0, lens, maxlen=s_len)[0], lens), flat))
+        looked = F.sequence_pool(T.gather(table, ids_pad, axis=0) * (
+            ids_pad != 0)[..., None], "sum", lens) / T.maximum(
+            ((ids_pad != 0) & mask.bool()).sum(1, keepdim=True), 1)
+        bag_err = scaled_err(card["bag_mean"], looked)
+        # planted faults, told apart by the same card-vs-CPU measure
+        ties = hf[:4, :16].clone()
+        ties[:, 3] = ties[:, 7]
+        tl = lens[:4].clamp(max=16)
+    control, faults = sequence_faults(T, F, ties, tl, flat, seg)
+    bad = [k for k, (same, e) in errs.items() if not same or e > TOL_F32]
+    if not control[0] or control[1] > TOL_F32:
+        bad.append(f"the tie gradient {control}")
+    caught = {k: not (s and e <= TOL_F32) for k, (s, e) in faults.items()}
+    try:
+        torch.multinomial(torch.zeros(1, 8), 3)
+        caught["torch.multinomial of a row of zeros"] = False
+    except RuntimeError:
+        caught["torch.multinomial of a row of zeros"] = bool(
+            (T.multinomial(torch.zeros(1, 8, device=dev), 3) < 8).all())
+    # breadth: every manipulation name once at GPT-2's activation
+    gen = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(B, S, 1024, device=dev, generator=gen)
+    ids = torch.randint(0, 50304, (B, S), device=dev, generator=gen)
+    full = manip_env(x, ids)
+    small = manip_env(x[:1, :CPU_ROWS].clone(), ids[:1, :CPU_ROWS].clone())
+    small_cpu = manip_env(x[:1, :CPU_ROWS].cpu(), ids[:1, :CPU_ROWS].cpu())
+    cases = manip_cases(T)
+    worst, bad_b = {}, []
+    with torch.no_grad():
+        for group, names, fn in cases:
+            for d in ("x", "xb"):
+                tol = TOL_BF16 if d == "xb" else TOL_F32
+                same, e = outputs_err(fn(small, d), fn(small_cpu, d))
+                worst[f"{group}_{d}"] = e
+                if not same or e > tol:
+                    bad_b.append((group, d, same, e))
+            for d in ("x", "xb"):
+                ms[f"breadth_{group}_{d}"] = wall_ms(
+                    lambda fn=fn, d=d: fn(full, d), reps=1)
+        covered = {n for _, names, _ in cases for n in names}
+        stats = sampler_stats(T, SAMPLER_DRAWS)
+        xs = torch.randn(CPU_ROWS, CPU_ROWS, device=dev, generator=gen)
+    dbl = outputs_err(double_backward(tpt, xs), double_backward(tpt,
+                                                                 xs.cpu()))
+    ridx = torch.tensor([3, 1, 3])
+    with torch.no_grad():
+        alias = outputs_err(alias_calls(tpt, xs, ridx.to(dev)),
+                            alias_calls(tpt, xs.cpu(), ridx))
+    missing = sorted(set(T.manipulation.__all__) - covered)
+    # an assert left behind by any call above would fail this launch
+    torch.cuda.synchronize()
+    float((torch.ones(8, device=dev) * 2).sum())
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    log(f"bert-ragged: BERT-base (bf16) over {bsz} sentences of "
+        f"{RAGGED_MIN}-{s_len} tokens ({int(lens_np.sum())} in all) padded "
+        f"to {bsz} x {s_len}: {fwd_launches} masked forward launches, "
+        f"backward launches {launches}, gradients finite {grads_finite}; "
+        f"card vs CPU max scaled err {max(e for _, e in errs.values()):.3g}"
+        f" (tol {TOL_F32:g}){'; differ: ' + str(bad) if bad else ''}; "
+        f"unpad(pad(x)) bitwise {round_trip}; embedding_bag mean vs the "
+        f"pooled lookup {bag_err:.3g}; planted faults told apart {caught}")
+    log(f"breadth: {len(cases)} groups over {len(covered)} manipulation "
+        f"names, card vs CPU ({CPU_ROWS} rows) max scaled err {worst}"
+        f"{'; differ: ' + str(bad_b) if bad_b else ''}; samplers "
+        f"({SAMPLER_DRAWS} draws) {stats}; double backward card vs CPU "
+        f"{dbl}; top-level aliases card vs CPU {alias}; ms {ms}; peak "
+        f"{peak} bytes; {wall:.1f} s of wall time [{power}]")
+    # the backward replays each remat layer's forward
+    want = {"flash_attention_fwd_masked": cfg.num_layers * (1 + cfg.remat),
+            "flash_attention_bwd_dq_masked": cfg.num_layers,
+            "flash_attention_bwd_dkv_masked": cfg.num_layers}
+    if fwd_launches != cfg.num_layers or launches != want:
+        fail(f"bert-ragged: launches {fwd_launches}, {launches}: want "
+             f"{cfg.num_layers} in the forward, then {want}")
+    if bad or bad_b or not round_trip or bag_err > TOL_F32 or \
+            not grads_finite:
+        fail(f"bert-ragged: card vs CPU {bad} {bad_b}, round trip "
+             f"{round_trip}, bag {bag_err}, gradients {grads_finite}")
+    if not all(caught.values()):
+        fail(f"bert-ragged: a planted fault passes the check: {caught}")
+    if missing or not all(r[1] for r in stats):
+        fail(f"breadth: names not run {missing}, samplers {stats}")
+    if not dbl[0] or dbl[1] > TOL_F32 or not alias[0] or alias[1] > TOL_F32:
+        fail(f"breadth: double backward {dbl}, aliases {alias}")
+    row = {"ms": ms, "peak_bytes": peak, "wall_s": wall,
+           "tokens": int(lens_np.sum()),
+           "cpu_max_scaled_err": max(e for _, e in errs.values()),
+           "breadth_err": worst, "embedding_bag_vs_pooled": bag_err,
+           "planted_faults_caught": caught,
+           "sampler_moments": {r[0]: r[2:4] for r in stats}}
+    del model, hidden, hf, x, full
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def sequence_faults(T, F, ties, tl, flat, seg):
+    """(outputs_err of the port's tie gradient, card against CPU;
+    {fault: outputs_err(the naive call on the card, the port on the
+    CPU)}) for the naive calls phase 41 must tell apart."""
+    import torch
+    n = int(seg.max()) + 2                 # the last segment empty
+    x = ties.clone().requires_grad_()
+    F.sequence_pool(x, "max", tl).sum().backward()
+    xc = ties.cpu().clone().requires_grad_()
+    F.sequence_pool(xc, "max", tl.cpu()).sum().backward()
+    naive = ties.clone().requires_grad_()
+    m = torch.arange(ties.shape[1], device=ties.device)[None, :] < tl[:, None]
+    torch.where(m[..., None], naive, -torch.inf).max(dim=1).values.sum(
+        ).backward()
+    idx = seg[:, None].expand_as(flat)
+    empty = torch.full((n, flat.shape[1]), -torch.inf, device=flat.device)
+    rows = torch.tensor([2, 0, 2, 5, 2])
+    upd = torch.arange(5 * 3, dtype=torch.float32).reshape(5, 3)
+    base = torch.zeros(6, 3)
+    # the first of each duplicate kept: the last-wins scatter of the
+    # reversed updates
+    dev = flat.device
+    first = T.scatter(base.to(dev), rows.flip(0).to(dev), upd.flip(0).to(dev))
+    return outputs_err(x.grad, xc.grad), {
+        "torch.max(dim)'s tie gradient": outputs_err(naive.grad, xc.grad),
+        "scatter_reduce's include_self for an empty segment": outputs_err(
+            empty.scatter_reduce(0, idx, flat, "amax", include_self=True),
+            T.segment_max(flat.cpu(), seg.cpu(), num_segments=n)),
+        "the first of duplicate indices kept": outputs_err(
+            first, T.scatter(base, rows, upd))}
 
 
 def main() -> int:
@@ -8369,14 +9145,46 @@ def main() -> int:
     # the tensor library: no hand-written kernel lies on these paths
     t_tensor = time.perf_counter()
     tensor_row = {}
+    # phase 3's GPT-2 345M in bf16, built once for phases 37, 39 and 40
+    t0 = time.perf_counter()
+    gpt_bf16 = GPT(cfg, device="cuda").to(bf16)
+    log(f"gpt-eval: GPT-2 345M built in bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
     tensor_row["gpt_eval"], hidden, wte, eval_ids = gpt_eval_phase(
-        ttensor, GPT, cfg, gpt_loss, set_flags, final_hidden, power)
+        ttensor, gpt_bf16, cfg, gpt_loss, set_flags, final_hidden, power)
     tensor_row["tensor_probe"] = tensor_probe_phase(
         ttensor, Constant, hidden, wte, eval_ids, power)
     del hidden, wte
     tensor_row["tensor_phases_s"] = time.perf_counter() - t_tensor
     log(f"tensor phases (37-38): {tensor_row['tensor_phases_s']:.1f} s of "
         "wall time")
+
+    # -- 39. gpt-checkpoint ---------------------------------------------------
+    # -- 40. gpt-sample -------------------------------------------------------
+    # -- 41. bert-ragged and breadth ------------------------------------------
+    # the tensor library's second half and the top-level namespace; each
+    # phase sets the counters to 0 and reads them, and its launches join
+    # the kernel table's
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.framework import io as tio
+    t_second = time.perf_counter()
+    second_row = {}
+    second_row["gpt_checkpoint"], ck_launch = gpt_checkpoint_phase(
+        gpt_bf16, gpt_loss, amp, AdamW, topt.lr.CosineAnnealingDecay, fa,
+        fused_adam, ids_t, tio, power)
+    second_row["gpt_sample"], sample_launch = gpt_sample_phase(
+        tpt, tnn.functional, gpt_bf16, fa, power)
+    del gpt_bf16
+    torch.cuda.empty_cache()
+    second_row["bert_ragged"], ragged_launch = bert_ragged_phase(
+        tpt, Bert, bert_base, fa, power)
+    second_row["second_half_phases_s"] = time.perf_counter() - t_second
+    for k in kernels:
+        for extra in (ck_launch, sample_launch, ragged_launch):
+            k["launches"] += extra.get(k["name"], 0)
+    log(f"second-half phases (39-41): "
+        f"{second_row['second_half_phases_s']:.1f} s of wall time; launches "
+        f"{ck_launch}, {sample_launch}, {ragged_launch}")
     for row in table:
         log(json.dumps(row))
 
@@ -8429,7 +9237,7 @@ def main() -> int:
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
-        **det_row, **tensor_row,
+        **det_row, **tensor_row, **second_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

@@ -205,9 +205,11 @@ def _layer(cfg: BertConfig, x, lp, bias):
     return _ln(x + ff @ lp["out_w"] + lp["out_b"], lp["ln2_w"], lp["ln2_b"])
 
 
-def _bert_forward(cfg: BertConfig, p: dict, ids, tt, mask):
+def _bert_forward(cfg: BertConfig, p: dict, ids, tt, mask,
+                  features_only: bool = False):
     """The forward over the parameters ``p`` ({name in _PARAM_ORDER:
-    tensor})."""
+    tensor}); with ``features_only`` the last layer's hidden states (B,
+    S, H)."""
     S = ids.shape[1]
     x = p["wte"][ids] + p["wpe"][:S][None] + p["wtt"][tt]
     x = _ln(x, p["emb_ln_w"], p["emb_ln_b"])
@@ -221,6 +223,8 @@ def _bert_forward(cfg: BertConfig, p: dict, ids, tt, mask):
     layer = functools.partial(recompute, _layer) if cfg.remat else _layer
     for i in range(cfg.num_layers):
         x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS}, bias)
+    if features_only:
+        return x
     pooled = torch.tanh(x[:, 0] @ p["pool_w"] + p["pool_b"])
     nsp_logits = pooled @ p["nsp_w"] + p["nsp_b"]
     h = F.gelu(x @ p["mlm_w"] + p["mlm_b"], approximate="tanh")

@@ -1,8 +1,9 @@
 """Functional ops of the port: attention, linear, the dropouts, embedding,
 one-hot and label smoothing, padding, interpolation, fold / unfold, the
 distances and shuffles, the activations and softmaxes, the norms,
-convolutions and their transposes, pooling, the losses and the long tail
-of ``extras.py``."""
+convolutions and their transposes, pooling, the losses, the long tail
+of ``extras.py``, and ``embedding_bag``, ``segment_softmax`` and the
+``sequence_*`` ops, the same objects as ``tensor.sequence``'s."""
 from paddle_tpu_torch.nn.functional.activation import (  # noqa: F401
     celu, elu, gelu, glu, gumbel_softmax, hardshrink, hardsigmoid, hardswish,
     hardtanh, leaky_relu, log_sigmoid, log_softmax, maxout, mish, prelu,
@@ -39,3 +40,8 @@ from paddle_tpu_torch.nn.functional.pooling import (  # noqa: F401
     adaptive_max_pool1d, adaptive_max_pool2d, adaptive_max_pool3d,
     avg_pool1d, avg_pool2d, avg_pool3d, max_pool1d, max_pool2d, max_pool3d,
     max_unpool2d)
+from paddle_tpu_torch.tensor.sequence import (  # noqa: F401
+    embedding_bag, segment_softmax, sequence_concat, sequence_enumerate,
+    sequence_expand_as, sequence_first_step, sequence_last_step,
+    sequence_mask, sequence_pad, sequence_pool, sequence_reverse,
+    sequence_softmax, sequence_unpad)

@@ -1,40 +1,53 @@
 """paddle_tpu_torch.tensor — the tensor function library (port of
-paddle_tpu/tensor/__init__.py, first half: ``creation``, ``math``,
-``linalg``, ``logic``, ``stat``, ``search``, with ``gather`` /
-``index_sample`` of ``manipulation`` and the package's own ``einsum``,
-``histogramdd``, ``add_n`` and ``sum_arrays``).
+paddle_tpu/tensor/__init__.py: ``creation``, ``math``, ``linalg``,
+``logic``, ``manipulation``, ``random``, ``search``, ``sequence`` and
+``stat``, with the package's own ``einsum``, ``histogramdd``, ``add_n``
+and ``sum_arrays``).
 
 The modules are re-exported with the reference's precedence
 (``:15-25``): where a name sits in two modules the same one wins, so
 ``mean`` is ``stat.mean``, ``mode`` is ``search.mode`` (``linalg.mode``
-raises) and ``numel`` is ``creation.numel``.
+raises), ``numel`` is ``creation.numel`` and ``index_select`` /
+``index_sample`` are ``search``'s.  ``Tensor`` is ``torch.Tensor`` and
+``convert_dtype`` the port's one dtype map.  The reference's ``apply``
+and ``apply1`` are left out: they record an op on its own eager tape
+(``core.py``), which torch's autograd replaces.
 
 Every function takes and returns ``torch.Tensor``s and computes on its
 inputs' device.  ``torch.Tensor`` is not patched: the reference patches
 its own ``Tensor`` class with these functions as methods
 (``:52-183``), which here would change every PyTorch caller in the
-process.
+process; call ``paddle_tpu_torch.<name>(x, ...)`` instead.
 """
 from __future__ import annotations
 
+import builtins
+
 import torch
 
+from paddle_tpu_torch.framework.dtype import convert_dtype
 from paddle_tpu_torch.tensor import (creation, linalg, logic, manipulation,
-                                     math, search, stat)
+                                     math, random, search, sequence, stat)
 from paddle_tpu_torch.tensor._common import inexact, promote
 from paddle_tpu_torch.tensor.creation import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor.linalg import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor.logic import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor.manipulation import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor.math import *  # noqa: F401,F403
+from paddle_tpu_torch.tensor.random import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor.search import *  # noqa: F401,F403
+from paddle_tpu_torch.tensor.sequence import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor.stat import (mean, std, var, median,  # noqa: F401
                                           nanmedian, quantile, nanquantile)
 
+Tensor = torch.Tensor
+
 __all__ = list(dict.fromkeys(
-    creation.__all__ + linalg.__all__ + logic.__all__ + math.__all__
-    + search.__all__ + stat.__all__ + ["gather", "einsum", "histogramdd",
-                                       "add_n", "sum_arrays"]))
+    creation.__all__ + linalg.__all__ + logic.__all__
+    + manipulation.__all__ + math.__all__ + random.__all__ + search.__all__
+    + sequence.__all__ + stat.__all__
+    + ["Tensor", "convert_dtype", "einsum", "histogramdd", "add_n",
+       "sum_arrays"]))
 
 
 def einsum(equation, *operands):
@@ -81,7 +94,7 @@ def histogramdd(x, bins=10, ranges=None, density=False, weights=None,
         else w
     hist = torch.zeros(size, dtype=src.dtype, device=a.device)
     hist.index_add_(0, flat, src)
-    hist = hist.reshape(nbins)[(slice(1, -1),) * d]
+    hist = hist.reshape(nbins)[(builtins.slice(1, -1),) * d]
     if density:
         hist = hist.to(a.dtype)
         hist = hist / hist.sum()

@@ -1,6 +1,6 @@
 """The port stands alone: no module of paddle_tpu_torch, and not
-chip_smoke.py, imports jax or paddle_tpu; the card is the default device
-and its absence raises instead of running on the CPU."""
+chip_smoke.py, imports jax, ml_dtypes or paddle_tpu; the card is the
+default device and its absence raises instead of running on the CPU."""
 import ast
 import os
 import pkgutil
@@ -19,7 +19,7 @@ from paddle_tpu_torch.ops.cuda import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def _imported(path):
@@ -55,10 +55,11 @@ def test_every_module_imports_with_jax_blocked():
               "nn.utils", "framework.selected_rows", "vision.ops",
               "framework.dtype", "tensor", "tensor.creation",
               "tensor.math", "tensor.linalg", "tensor.logic", "tensor.stat",
-              "tensor.search", "tensor.manipulation"):
+              "tensor.search", "tensor.manipulation", "tensor.random",
+              "tensor.sequence", "autograd", "framework.io"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'paddle_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

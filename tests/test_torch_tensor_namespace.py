@@ -1,11 +1,15 @@
 """The port's tensor namespace against the reference's: every name of the
-``__all__`` of ``creation``, ``math``, ``linalg``, ``logic``, ``stat``
-and ``search`` resolves in ``paddle_tpu_torch.tensor`` and at the top
-level, each to the module the reference's precedence picks (``mean`` to
-``stat``, ``mode`` to ``search``, ``numel`` to ``creation``);
-``torch.Tensor`` is not patched; ``einsum``, ``histogramdd``, ``add_n``
-and ``sum_arrays`` match the reference (torch_tensor_common's
-tolerances).
+``__all__`` of ``creation``, ``math``, ``linalg``, ``logic``,
+``manipulation``, ``random``, ``search``, ``sequence`` and ``stat``
+resolves in ``paddle_tpu_torch.tensor`` and at the top level, each to the
+module the reference's precedence picks (``mean`` to ``stat``, ``mode``
+to ``search``, ``numel`` to ``creation``, ``index_select`` to
+``search``); every flat ``paddle_tpu.tensor.<name>`` of API.spec
+resolves but the reference's tape internals ``apply`` / ``apply1``;
+``nn.functional``'s sequence names are ``tensor.sequence``'s objects;
+the top-level names this port fills exist; ``torch.Tensor`` is not
+patched; ``einsum``, ``histogramdd``, ``add_n`` and ``sum_arrays`` match
+the reference (torch_tensor_common's tolerances).
 
 Last, GPT-2's evaluation as chip_smoke.py's phase 37 composes it, on a
 gpt_tiny model's logits (B=2, S=32, V=256) with ties planted by rounding
@@ -15,6 +19,9 @@ a third of the rows to a grid of 1/8: the next-token NLL through
 (``argsort(descending=True)``, ``cumsum``, ``searchsorted`` row by row)
 and the magnitude quantiles of the parameters, in both packages on the
 same logits: every index bitwise."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,14 +30,19 @@ import paddle_tpu as paddle
 import paddle_tpu.tensor as J
 import paddle_tpu_torch
 import paddle_tpu_torch.tensor as T
-from paddle_tpu.tensor import creation, linalg, logic, math, search, stat
+from paddle_tpu.tensor import (creation, linalg, logic, manipulation, math,
+                               random, search, sequence, stat)
 from paddle_tpu_torch.models import GPT, gpt_tiny
 
 from torch_tensor_common import BF16, assert_same, check, port_np, rng
 
 MODULES = {"creation": creation, "math": math, "linalg": linalg,
-           "logic": logic, "stat": stat, "search": search}
+           "logic": logic, "manipulation": manipulation, "random": random,
+           "search": search, "sequence": sequence, "stat": stat}
 NAMES = sorted({n for m in MODULES.values() for n in m.__all__})
+# the reference's own tape (core.py): torch's autograd takes their place
+NOT_PORTED = {"apply": "records an op on the reference's eager tape",
+              "apply1": "records an op on the reference's eager tape"}
 
 
 def _owner(namespace, name, modules):
@@ -48,7 +60,7 @@ def test_every_name_of_the_module_is_ported(module):
 
 
 def test_the_namespace_resolves_as_the_reference_does():
-    assert len(NAMES) == 185
+    assert len(NAMES) == 273
     port_modules = {k: getattr(T, k) for k in MODULES}
     for name in NAMES:
         want = _owner(J, name, MODULES)
@@ -59,12 +71,61 @@ def test_the_namespace_resolves_as_the_reference_does():
     assert T.mean is T.stat.mean and T.mean is not T.math.mean
     assert T.mode is T.search.mode
     assert T.numel is T.creation.numel
-    for name in ("gather", "index_sample"):
-        assert hasattr(T.manipulation, name)
+    assert T.index_select is T.search.index_select
+    assert T.index_sample is T.search.index_sample
+    assert T.one_hot is T.manipulation.one_hot
     for name in ("einsum", "histogramdd", "add_n", "sum_arrays"):
         assert callable(getattr(T, name))
     assert paddle_tpu_torch.add_n is T.add_n
     assert paddle_tpu_torch.einsum is T.einsum
+
+
+def test_every_flat_api_spec_name_resolves():
+    spec = (Path(__file__).resolve().parents[1] / "API.spec").read_text()
+    names = set(re.findall(r"^paddle_tpu\.tensor\.(\w+) ", spec, re.M))
+    assert len(names) == 282
+    missing = sorted(n for n in names if not hasattr(T, n))
+    assert missing == sorted(NOT_PORTED), missing
+    assert T.Tensor is torch.Tensor
+    assert T.convert_dtype("bf16") == torch.bfloat16
+
+
+def test_functional_sequence_names_are_the_tensor_library_s():
+    import paddle_tpu.nn.functional as JF
+    import paddle_tpu_torch.nn.functional as TF
+    names = [n for n in sequence.__all__ if hasattr(JF, n)]
+    assert len(names) == 13
+    for n in names:
+        assert getattr(TF, n) is getattr(T.sequence, n), n
+    assert TF.one_hot is T.one_hot and TF.pad is T.pad
+
+
+TOP_LEVEL = (
+    "float16 bfloat16 float32 float64 int8 uint8 int16 int32 int64 bool "
+    "complex64 complex128 autograd grad no_grad enable_grad "
+    "is_grad_enabled set_grad_enabled set_grad_enabled_ seed get_rng_state "
+    "set_rng_state default_generator Generator get_cuda_rng_state "
+    "set_cuda_rng_state save load get_default_dtype set_default_dtype "
+    "convert_dtype get_flags set_flags Tensor Parameter LoDTensor VarBase "
+    "LoDTensorArray elementwise_add elementwise_sub elementwise_div "
+    "elementwise_floordiv elementwise_mod elementwise_pow reduce_sum "
+    "reduce_mean reduce_max reduce_min reduce_prod crop_tensor "
+    "fill_constant broadcast_shape rank shape has_nan has_inf "
+    "create_global_var get_tensor_from_selected_rows tanh_ scatter_ "
+    "in_dynamic_mode in_dygraph_mode disable_signal_handler "
+    "set_printoptions device_count commit full_version CPUPlace CUDAPlace "
+    "CUDAPinnedPlace is_compiled_with_cuda is_compiled_with_xpu "
+    "is_compiled_with_tpu get_cudnn_version").split()
+
+
+def test_top_level_names():
+    missing = [n for n in TOP_LEVEL if not hasattr(paddle_tpu_torch, n)]
+    assert not missing, missing
+    assert all(hasattr(paddle, n) for n in TOP_LEVEL)
+    for n in ("TPUPlace", "XPUPlace", "static", "DataParallel"):
+        assert hasattr(paddle, n) and not hasattr(paddle_tpu_torch, n), n
+    assert paddle_tpu_torch.float32 is torch.float32
+    assert paddle_tpu_torch.seed is T.random.seed
 
 
 def test_torch_tensor_is_not_patched():
