@@ -447,6 +447,37 @@ Phases, in order; any failure ends the script with a non-zero exit:
              synchronize so no device-side assert hides.  The launch
              counters are set to 0 before each of phases 39-41 and their
              launches join the kernel table's.
+42. int8-resnet18 — bench.py's bench_int8_resnet18 leg: ResNet-18 with
+             1,000 classes, B=128 at 224^2, eval; jit.to_static of the f32
+             net against eager, and of a copy through
+             quantization.convert_to_int8_inference; top-1 agreement of
+             int8 with f32 >= 0.7 before any timing; the stem's and the
+             fc's int32 accumulators bitwise the CPU's on 4 images, the
+             fc's epilogue within 1e-6, beside a flipped stem code and fc
+             scales 1 % off; images/s of f32 and int8 and their ratio.
+43. gpt-deploy — phase 3's GPT-2 345M (bf16): to_static logits at
+             B=8, S=1024 against eager (one capture a signature, B=4 a
+             second; 24 #1 launches from the graph); gpt_loss captured,
+             forward and backward, with FLAGS_gpt_fused_ce off and on
+             (24 #1, #2, #3 and 0 or 1 #5, #6, #7 launches from the
+             graph), gradients against eager; jit.save with
+             InputSpec([None, 1024], "int64"), then
+             inference.create_predictor on the card run at B=8 and B=2
+             (24 #1 launches a run), logits against eager, beside one
+             weight of the artifact 5 % off; the export, save and load
+             seconds and the file bytes.
+44. capture-breadth — tests/test_dy2static.py's tensor if, while and
+             for-range and every static.nn function captured on the card
+             against the CPU; a 2-layer learned-bias encoder at BERT-base's
+             width captured, forward and backward (2 launches each of
+             masked #1-#3 and #4 from the graph), its gradients and dbias
+             against eager; an encrypted jit.save through the Predictor
+             bitwise, a missing key, a wrong key and a tampered byte
+             raising; an artifact captured on the CPU loaded on the card
+             (moved by the load) against the CPU; the host cipher's MB/s;
+             unique of NaNs and the
+             top-level namespace on the card.  The launches of phases
+             43-44 join the kernel table's and are its captured_launches.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -7484,6 +7515,548 @@ def sequence_faults(T, F, ties, tl, flat, seg):
             first, T.scatter(base, rows, upd))}
 
 
+# bench.py's bench_int8_resnet18 leg: B=128 at 224^2, eval, and its gate
+INT8_B, INT8_HW = 128, 224
+INT8_AGREE = 0.7               # top-1 agreement of int8 with f32, first
+INT8_SLICE = 4                 # images of the card-vs-CPU accumulators
+TOL_INT8_EPILOGUE = 1e-6       # the fc's f32 epilogue, card vs CPU (rel.)
+DEPLOY_SMALL_B = 2             # the Predictor's second batch size
+AES_BYTES = 1 << 18            # the host's cipher timed on 256 KiB
+CAPTURE_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv", "fused_ce_fwd",
+                   "fused_ce_bwd_dh", "fused_ce_bwd_dw",
+                   "flash_attention_fwd_masked",
+                   "flash_attention_bwd_dq_masked",
+                   "flash_attention_bwd_dkv_masked", "flash_attention_dbias")
+
+
+def kernel_counts(fa, fused_ce):
+    """The launch counters of #1-#7 by the kernel table's names."""
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.launches_dq,
+            "flash_attention_bwd_dkv": fa.launches_dkv,
+            "flash_attention_fwd_masked": fa.launches_masked,
+            "flash_attention_bwd_dq_masked": fa.launches_dq_masked,
+            "flash_attention_bwd_dkv_masked": fa.launches_dkv_masked,
+            "flash_attention_dbias": fa.launches_dbias,
+            "fused_ce_fwd": fused_ce.launches,
+            "fused_ce_bwd_dh": fused_ce.launches_dh,
+            "fused_ce_bwd_dw": fused_ce.launches_dw}
+
+
+def reset_counts(fa, fused_ce):
+    reset_fa(fa)
+    fused_ce.launches = fused_ce.launches_dh = fused_ce.launches_dw = 0
+
+
+def add_counts(total, fa, fused_ce):
+    for k, v in kernel_counts(fa, fused_ce).items():
+        total[k] = total.get(k, 0) + v
+
+
+def int8_resnet18_phase(resnet18, tjit, quant, power):
+    """int8-resnet18 (42): bench.py's bench_int8_resnet18 leg.  Returns
+    the phase's row."""
+    import copy
+
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
+    net = resnet18(num_classes=1000, device="cuda")
+    net.eval()
+    eager, net_q = copy.deepcopy(net), copy.deepcopy(net)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (INT8_B, 3, INT8_HW, INT8_HW)).astype(np.float32), device="cuda")
+    with torch.no_grad():
+        want = eager(x)
+        t0 = time.perf_counter()
+        f32 = tjit.to_static(net)
+        ref = f32(x)
+        torch.cuda.synchronize()
+        f32_capture_s = time.perf_counter() - t0
+        qnet = quant.convert_to_int8_inference(net_q)
+        t0 = time.perf_counter()
+        q = tjit.to_static(qnet)
+        got = q(x)
+        torch.cuda.synchronize()
+        q_capture_s = time.perf_counter() - t0
+    f32_ok, f32_err = outputs_err(ref, want.cpu())
+    f32_bitwise = bool(torch.equal(ref, want))
+    # the reference's gate, before any timing
+    agree = float((got.argmax(1) == ref.argmax(1)).float().mean())
+    if agree < INT8_AGREE:
+        fail(f"int8-resnet18: top-1 agreement {agree} < {INT8_AGREE}")
+    if not f32_ok or f32_err > TOL_F32:
+        fail(f"int8-resnet18: the captured f32 logits are {f32_err} off "
+             "the eager ones")
+    # the stem's and the fc's int32 accumulators, card against CPU, on a
+    # slice of the batch; the fc's input from the eager int8 forward
+    xs = x[:INT8_SLICE]
+    seen = {}
+
+    def take_fc_input(module, inputs):
+        seen["fc"] = inputs[0].detach()
+    hook = torch.nn.Module.register_forward_pre_hook(qnet.fc, take_fc_input)
+    with torch.no_grad():
+        type(qnet).forward(qnet, xs)
+        hook.remove()
+        stem_cpu, fc_cpu = (copy.deepcopy(m).to("cpu")
+                            for m in (qnet.conv1, qnet.fc))
+        acc = {"stem": (qnet.conv1.accumulate(xs),
+                        stem_cpu.accumulate(xs.cpu())),
+               "fc": (qnet.fc.accumulate(seen["fc"]),
+                      fc_cpu.accumulate(seen["fc"].cpu()))}
+        bitwise = {k: bool(torch.equal(c[0].cpu(), h[0]))
+                   and float(c[1]) == float(h[1])
+                   for k, (c, h) in acc.items()}
+        out_cpu = fc_cpu(seen["fc"].cpu())
+        epi_err = rel(qnet.fc(seen["fc"]).cpu(), out_cpu)
+        # planted faults: a flipped code in the stem, the fc's scales 1 %
+        # off; each must fail the card-vs-CPU check it would slip past
+        bad_stem = copy.deepcopy(qnet.conv1)
+        codes = bad_stem._w_q.clone()
+        codes[0, 0, 3, 3] = -codes[0, 0, 3, 3] if int(
+            codes[0, 0, 3, 3]) else 1
+        bad_stem._w_q = codes
+        bad_fc = copy.deepcopy(qnet.fc)
+        bad_fc._w_scale = bad_fc._w_scale * 1.01
+        caught = {
+            "a flipped stem code": not torch.equal(
+                bad_stem.accumulate(xs)[0].cpu(), acc["stem"][1][0]),
+            "the fc's scales 1 % off": rel(bad_fc(seen["fc"]).cpu(),
+                                           out_cpu) > TOL_INT8_EPILOGUE}
+    if not all(bitwise.values()) or epi_err > TOL_INT8_EPILOGUE:
+        fail(f"int8-resnet18: accumulators card vs CPU {bitwise}, fc "
+             f"epilogue {epi_err}")
+    if not all(caught.values()):
+        fail(f"int8-resnet18: a planted fault passes the check: {caught}")
+    with torch.no_grad():
+        eager_ms = cuda_ms(lambda: eager(x), reps=5, warmup=1)
+        f32_ms = cuda_ms(lambda: f32(x), reps=5, warmup=1)
+        q_ms = cuda_ms(lambda: q(x), reps=5, warmup=1)
+    captures = (f32.forward.captures, q.forward.captures)
+    if captures != (1, 1):
+        fail(f"int8-resnet18: {captures} captures at one signature")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    row = {"top1_agreement": agree, "f32_captured_vs_eager_err": f32_err,
+           "f32_captured_bitwise": f32_bitwise,
+           "accumulators_bitwise": bitwise, "fc_epilogue_err": epi_err,
+           "planted_faults_caught": caught, "eager_f32_ms": eager_ms,
+           "f32_ms": f32_ms, "int8_ms": q_ms,
+           "f32_images_per_s": INT8_B / f32_ms * 1e3,
+           "int8_images_per_s": INT8_B / q_ms * 1e3,
+           "int8_vs_f32": f32_ms / q_ms, "f32_capture_s": f32_capture_s,
+           "int8_capture_s": q_capture_s, "peak_bytes": peak,
+           "wall_s": wall}
+    log(f"int8-resnet18: ResNet-18, 1,000 classes, B={INT8_B} at "
+        f"{INT8_HW}^2, eval; top-1 agreement {agree:.4f} (gate "
+        f"{INT8_AGREE}); captured f32 vs eager {f32_err:.3e} (bitwise "
+        f"{f32_bitwise}); stem / fc int32 accumulators card vs CPU on "
+        f"{INT8_SLICE} images bitwise {bitwise}, fc epilogue {epi_err:.3e}; "
+        f"planted faults told apart {caught}; eager f32 {eager_ms:.3f} ms, "
+        f"captured f32 {f32_ms:.3f} ms ({row['f32_images_per_s']:.1f} "
+        f"images/s), int8 {q_ms:.3f} ms ({row['int8_images_per_s']:.1f} "
+        f"images/s), int8 / f32 speed {row['int8_vs_f32']:.4f}; captures "
+        f"{f32_capture_s:.2f} s / {q_capture_s:.2f} s; peak {peak} bytes; "
+        f"{wall:.1f} s of wall time [{power}]")
+    del net, eager, net_q, qnet, f32, q, x, want, ref, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def loss_layer(tnn, gpt, gpt_loss):
+    """A layer holding ``gpt`` whose forward is ``gpt_loss`` of its batch:
+    a capture of it takes the GPT's parameters as inputs."""
+    class Loss(tnn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gpt = gpt
+
+        def forward(self, ids):
+            return gpt_loss(self.gpt, ids, ids)
+    return Loss()
+
+
+def gpt_deploy_phase(base, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
+                     InputSpec, inference, power):
+    """gpt-deploy (43) on phase 3's GPT-2 345M in bf16 (``base``, left as
+    it is).  Returns (the phase's row, launch counts)."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n_layers = base.config.num_layers
+    ids = torch.as_tensor(np.random.default_rng(43).integers(
+        0, base.config.vocab_size, (B, S)), device=base.wte.device)
+    launches, errs = {}, {}
+    # 1. the eval logits captured, against eager
+    with torch.no_grad():
+        want = base(ids)
+        model = tjit.to_static(copy.deepcopy(base))
+        reset_counts(fa, fused_ce)
+        t0 = time.perf_counter()
+        got = model(ids)
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        cap_fwd = fa.launches
+        add_counts(launches, fa, fused_ce)
+        errs["logits"] = grad_err(got, want)[0]
+        logits_bitwise = bool(torch.equal(got, want))
+        model(ids)
+        one = model.forward.captures
+        half = model(ids[:4])
+        two = model.forward.captures
+        errs["logits_b4"] = grad_err(half, base(ids[:4]))[0]
+        eager_ms = cuda_ms(lambda: base(ids), reps=3, warmup=1)
+        cap_ms = cuda_ms(lambda: model(ids), reps=3, warmup=1)
+    del got, half
+    if cap_fwd != n_layers or (one, two) != (1, 2) or \
+            max(errs.values()) > TOL_BF16:
+        fail(f"gpt-deploy: {cap_fwd} #1 launches in the captured forward, "
+             f"captures {one} then {two}")
+    # 2. gpt_loss forward + backward captured, unfused and fused
+    loss_rows = {}
+    for fused in (False, True):
+        set_flags({"gpt_fused_ce": fused})
+        try:
+            loss_e = gpt_loss(base, ids, ids)
+            loss_e.backward()
+            ge = {n: p.grad for n, p in base.named_parameters()}
+            base.zero_grad(set_to_none=True)
+            net = tjit.to_static(loss_layer(tnn, base, gpt_loss))
+            reset_counts(fa, fused_ce)
+            t0 = time.perf_counter()
+            loss_c = net(ids)
+            loss_c.backward()
+            torch.cuda.synchronize()
+            loss_s = time.perf_counter() - t0
+            got_l = kernel_counts(fa, fused_ce)
+            add_counts(launches, fa, fused_ce)
+        finally:
+            set_flags({"gpt_fused_ce": False})
+        g_err = max(grad_err(p.grad, ge[n])[0]
+                    for n, p in base.named_parameters())
+        base.zero_grad(set_to_none=True)
+        want_l = {"flash_attention_fwd": n_layers,
+                  "flash_attention_bwd_dq": n_layers,
+                  "flash_attention_bwd_dkv": n_layers,
+                  "fused_ce_fwd": int(fused), "fused_ce_bwd_dh": int(fused),
+                  "fused_ce_bwd_dw": int(fused)}
+        if any(got_l[k] != v for k, v in want_l.items()):
+            fail(f"gpt-deploy: launches inside the captured loss "
+                 f"(fused={fused}) {got_l}, want {want_l}")
+        loss_rows[f"fused_{fused}"] = {
+            "loss_eager": float(loss_e.detach()),
+            "loss_captured": float(loss_c.detach()),
+            "loss_bitwise": bool(torch.equal(loss_c.detach(),
+                                             loss_e.detach())),
+            "grad_err": g_err, "capture_and_step_s": loss_s}
+        if g_err > TOL_GRAD_BF16 or abs(float(loss_c) - float(loss_e)) > \
+                TOL_LOSS_BF16:
+            fail(f"gpt-deploy: the captured loss (fused={fused}) "
+                 f"{loss_rows}")
+        del ge, loss_e, loss_c, net
+    # 3. jit.save with a dynamic batch, then the Predictor on the card
+    d = tempfile.mkdtemp(prefix="gpt_deploy_")
+    try:
+        prefix = os.path.join(d, "gpt2_345m")
+        t0 = time.perf_counter()
+        tjit.save(base, prefix, input_spec=[InputSpec([None, S], "int64")])
+        save_s = time.perf_counter() - t0
+        nbytes = {ext: os.path.getsize(prefix + ext)
+                  for ext in (".pdparams", ".pdmodel")}
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    handle = pred.get_input_handle(pred.get_input_names()[0])
+    served = {}
+    with torch.no_grad():
+        for b in (B, DEPLOY_SMALL_B):
+            handle.copy_from_cpu(ids[:b].cpu().numpy())
+            reset_counts(fa, fused_ce)
+            pred.run()
+            torch.cuda.synchronize()
+            n_fwd = fa.launches
+            add_counts(launches, fa, fused_ce)
+            out = pred.get_output_handle(pred.get_output_names()[0])._tensor
+            ref_b = want if b == B else base(ids[:b])
+            served[b] = {"launches": n_fwd,
+                         "err": grad_err(out, ref_b)[0],
+                         "bitwise": bool(torch.equal(out, ref_b))}
+            if n_fwd != n_layers or served[b]["err"] > TOL_BF16:
+                fail(f"gpt-deploy: the Predictor at B={b}: {served[b]}")
+        handle.copy_from_cpu(ids.cpu().numpy())
+        run_ms = cuda_ms(pred.run, reps=3, warmup=1)
+        # planted: one weight of the artifact perturbed
+        layer = pred._layer
+        k = layer._meta["names"].index("lnf_w")
+        params = list(layer._params)
+        params[k] = params[k] * 1.05
+        bad = tjit.TranslatedLayer(layer._program, params, layer._meta)
+        small = ids[:DEPLOY_SMALL_B]
+        caught = {"one weight 5 % off": grad_err(
+            bad(small), base(small))[0] > TOL_BF16}
+    if not all(caught.values()):
+        fail(f"gpt-deploy: a planted fault passes the check: {caught}")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    row = {"export_s": export_s, "save_s": save_s, "load_s": load_s,
+           "file_bytes": nbytes, "logits_err": errs,
+           "logits_bitwise": logits_bitwise, "captures": [one, two],
+           "eager_forward_ms": eager_ms, "captured_forward_ms": cap_ms,
+           "loss": loss_rows, "served": served,
+           "predictor_run_ms": run_ms,
+           "predictor_tokens_per_s": B * S / run_ms * 1e3,
+           "planted_faults_caught": caught, "peak_bytes": peak,
+           "wall_s": wall}
+    log(f"gpt-deploy: GPT-2 345M (bf16), B={B}, S={S}: to_static logits "
+        f"vs eager {errs['logits']:.3e} (bitwise {logits_bitwise}), B=4 "
+        f"{errs['logits_b4']:.3e}, captures {one} then {two}, {cap_fwd} #1 "
+        f"launches in the captured forward; eager {eager_ms:.3f} ms, "
+        f"captured {cap_ms:.3f} ms a forward; gpt_loss captured, forward "
+        f"+ backward: {loss_rows}; jit.save {save_s:.2f} s "
+        f"({nbytes} bytes), export {export_s:.2f} s (the to_static "
+        f"capture), load {load_s:.2f} s; Predictor {served}, "
+        f"{run_ms:.3f} ms a run at B={B}; planted faults told apart "
+        f"{caught}; launches {launches}; peak {peak} bytes; {wall:.1f} s "
+        f"of wall time [{power}]")
+    del model, pred, bad, want
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def dy2static_cases(P):
+    """Three cases of tests/test_dy2static.py over namespace P: a tensor
+    ``if``, a ``while`` bounded by a tensor, a ``for range`` with a tensor
+    bound."""
+    def if_tensor(x):
+        y = x * 2
+        if P.mean(x) > 0:
+            y = y + 1
+        else:
+            y = y - 1
+        return y
+
+    def while_tensor(x):
+        s = P.zeros([1])
+        i = P.zeros([1])
+        while P.sum(s) < 10.0:
+            s = s + x
+            i = i + 1
+        return i
+
+    def for_range(x, n):
+        acc = P.zeros_like(x)
+        for i in range(n):
+            acc = acc + x * float(1.0)
+        return acc
+    return [(if_tensor, ([1.0, 2.0],)), (if_tensor, ([-1.0, -2.0],)),
+            (while_tensor, ([3.0],)), (for_range, ([1.0, 1.0, 1.0], 5))]
+
+
+def control_flow(S, P, x, k):
+    """Every static.nn function on tensor x and index k."""
+    c = S.cond(P.mean(x) > 0, lambda: x * 2, lambda: x - 1)
+    i, acc = S.while_loop(lambda i, a: P.sum(a) < 20.0,
+                          lambda i, a: [i + 1, a + x + 1],
+                          [P.zeros([1]), x * 0])
+    cs = S.case([(P.mean(x) > 5, lambda: x * 10),
+                 (P.mean(x) > 0, lambda: x + 100)], default=lambda: -x)
+    sw = S.switch_case(k, {0: lambda: x + 1, 3: lambda: x * 3},
+                       default=lambda: x * 0)
+    return c, i, acc, cs, sw
+
+
+def capture_breadth_phase(tpt, tnn, tjit, static, inference, crypto, fa,
+                          fused_ce, power):
+    """capture-breadth (44).  Returns (the phase's row, launch counts)."""
+    import copy
+    import functools
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.jit.dy2static import convert_to_static
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = torch.bfloat16
+    launches = {}
+    # 1. dy2static and static.nn, captured on the card against the CPU
+    flow = {}
+    for n_case, (f, args) in enumerate(dy2static_cases(tpt)):
+        card = [torch.tensor(a, device="cuda") if isinstance(a, list)
+                else torch.tensor(a, dtype=torch.int32, device="cuda")
+                for a in args]
+        got = tjit.to_static(f)(*card)
+        tpt.set_device("cpu")
+        try:
+            want = convert_to_static(f)(
+                *[torch.tensor(a) if isinstance(a, list) else a
+                  for a in args])
+        finally:
+            tpt.set_device("cuda")
+        flow[f"{f.__name__}_{n_case}"] = outputs_err(got, want)
+    for k in (0, 3, 7):
+        x = torch.tensor([1.0, 2.0])
+        sf = tjit.to_static(functools.partial(control_flow, static.nn, tpt))
+        got = sf(x.cuda(), torch.tensor(k, dtype=torch.int32, device="cuda"))
+        tpt.set_device("cpu")
+        try:
+            want = control_flow(static.nn, tpt, x, torch.tensor(
+                k, dtype=torch.int32))
+        finally:
+            tpt.set_device("cuda")
+        flow[f"static_nn_{k}"] = outputs_err(list(got), list(want))
+    bad = {k: v for k, v in flow.items() if not v[0] or v[1] > 0}
+    if bad:
+        fail(f"capture-breadth: control flow card vs CPU {bad}")
+    # 2. the learned-bias encoder captured: forward + backward, #4 inside
+    torch.manual_seed(44)
+    enc = biased_encoder(tnn, 768, BERT_HEADS, 3072, 2, BERT_S,
+                         None).to(bf16)
+    with torch.no_grad():
+        enc.bias.normal_(0.0, 0.5)
+    x = torch.randn(8, BERT_S, 768, device="cuda").to(bf16)
+    enc_c = tjit.to_static(copy.deepcopy(enc))
+    enc(x).float().pow(2).mean().backward()
+    reset_counts(fa, fused_ce)
+    enc_c(x).float().pow(2).mean().backward()
+    torch.cuda.synchronize()
+    got_l = kernel_counts(fa, fused_ce)
+    add_counts(launches, fa, fused_ce)
+    want_l = {k: 2 for k in ("flash_attention_fwd_masked",
+                             "flash_attention_bwd_dq_masked",
+                             "flash_attention_bwd_dkv_masked",
+                             "flash_attention_dbias")}
+    if any(got_l[k] != v for k, v in want_l.items()):
+        fail(f"capture-breadth: launches in the captured encoder {got_l}")
+    eg = dict(enc.named_parameters())
+    dbias_err = grad_err(enc_c.bias.grad, enc.bias.grad)[0]
+    enc_err = max(grad_err(p.grad, eg[n].grad)[0]
+                  for n, p in enc_c.named_parameters())
+    if dbias_err > TOL_DBIAS_BF16 or enc_err > TOL_GRAD_BF16:
+        fail(f"capture-breadth: captured encoder gradients {enc_err}, "
+             f"dbias {dbias_err}")
+    del enc, enc_c, x
+    # 3. an encrypted artifact through the Predictor on the card
+    torch.manual_seed(45)
+    mlp = tnn.Sequential(tnn.Linear(64, 256), tnn.ReLU(),
+                         tnn.Linear(256, 10))
+    xm = torch.randn(16, 64)
+    key = "capture-breadth-key"
+    d = tempfile.mkdtemp(prefix="capture_breadth_")
+    raised = {}
+    try:
+        prefix = os.path.join(d, "mlp")
+        tjit.save(mlp, prefix, input_spec=[static.InputSpec([None, 64])],
+                  encrypt_key=key)
+        heads = []
+        for ext in (".pdparams", ".pdmodel"):
+            with open(prefix + ext, "rb") as f:
+                heads.append(f.read(5) == crypto._MAGIC)
+        cfg = inference.Config(prefix + ".pdmodel", prefix + ".pdparams")
+        cfg.set_cipher_key(key)
+        pred = inference.create_predictor(cfg)
+        pred.get_input_handle("input_0").copy_from_cpu(xm.numpy())
+        pred.run()
+        out = pred.get_output_handle("output_0")._tensor
+        with torch.no_grad():
+            enc_bitwise = bool(torch.equal(out, mlp(xm.cuda())))
+        for what, k in (("missing key", None), ("wrong key", "wrong")):
+            try:
+                tjit.load(prefix, decrypt_key=k)
+                raised[what] = False
+            except ValueError:
+                raised[what] = True
+        with open(prefix + ".pdparams", "rb") as f:
+            blob = bytearray(f.read())
+        blob[40] ^= 0xFF
+        with open(prefix + ".pdparams", "wb") as f:
+            f.write(bytes(blob))
+        try:
+            tjit.load(prefix, decrypt_key=key)
+            raised["tampered byte"] = False
+        except ValueError:
+            raised["tampered byte"] = True
+        # an artifact captured on the CPU, moved to the card by the load
+        mlp_cpu = copy.deepcopy(mlp).to("cpu")
+        tjit.save(mlp_cpu, prefix + "_cpu",
+                  input_spec=[static.InputSpec([None, 64])])
+        moved = tjit.load(prefix + "_cpu", device="cuda")
+        with torch.no_grad():
+            moved_ok, moved_err = outputs_err(moved(xm.cuda()), mlp_cpu(xm))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not (all(heads) and enc_bitwise and all(raised.values())):
+        fail(f"capture-breadth: encrypted round trip: ciphertext {heads}, "
+             f"bitwise {enc_bitwise}, raised {raised}")
+    if moved.device.type != "cuda" or not moved_ok or moved_err > TOL_F32:
+        fail(f"capture-breadth: a CPU artifact on the card: {moved_err}")
+    # the pure-Python cipher's rate on the host
+    cipher, kb = tjit._cipher_for(key)
+    payload = os.urandom(AES_BYTES)
+    t0 = time.perf_counter()
+    blob = cipher.encrypt(payload, kb)
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = cipher.decrypt(blob, kb)
+    dec_s = time.perf_counter() - t0
+    if back != payload:
+        fail("capture-breadth: the cipher does not round-trip")
+    # 4. ROADMAP's two repaired faults, on the card
+    nan = float("nan")
+    u = tpt.unique(torch.tensor([3.0, nan, 1.0, nan], device="cuda"),
+                   return_index=True, return_inverse=True,
+                   return_counts=True)
+    unique_ok = (u[0][:2].tolist() == [1.0, 3.0] and bool(u[0][2].isnan())
+                 and u[0].numel() == 3 and u[1].tolist() == [2, 0, 1]
+                 and u[2].tolist() == [1, 2, 0, 2]
+                 and u[3].tolist() == [1, 1, 2])
+    v = torch.randn(4, 5, device="cuda")
+    ns_ok = (tpt.optimizer.AdamW.__name__ == "AdamW"
+             and bool(torch.equal(tpt.linalg.norm(v), torch.linalg.norm(v)))
+             and tpt.framework.save is tpt.save)
+    if not (unique_ok and ns_ok):
+        fail(f"capture-breadth: unique of NaNs {u}, namespace {ns_ok}")
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    row = {"control_flow_err": {k: v[1] for k, v in flow.items()},
+           "encoder_grad_err": enc_err, "encoder_dbias_err": dbias_err,
+           "encrypted_bitwise": enc_bitwise, "raised": raised,
+           "cpu_artifact_on_card_err": moved_err,
+           "aes_encrypt_mb_per_s": AES_BYTES / enc_s / 1e6,
+           "aes_decrypt_mb_per_s": AES_BYTES / dec_s / 1e6,
+           "unique_nan_ok": unique_ok, "namespace_ok": ns_ok,
+           "peak_bytes": peak, "wall_s": wall}
+    log(f"capture-breadth: dy2static and static.nn captured on the card vs "
+        f"the CPU {row['control_flow_err']}; the learned-bias encoder (2 "
+        f"layers of BERT-base's width, bf16, B=8, S={BERT_S}) captured: "
+        f"launches {got_l}, gradients vs eager {enc_err:.3e}, dbias "
+        f"{dbias_err:.3e}; an encrypted artifact through the Predictor "
+        f"bitwise {enc_bitwise}, raised {raised}; a CPU-captured artifact "
+        f"moved to the card at load {moved_err:.3e} off the CPU; the host's "
+        f"AES-CTR + "
+        f"HMAC {row['aes_encrypt_mb_per_s']:.4f} MB/s encrypt, "
+        f"{row['aes_decrypt_mb_per_s']:.4f} MB/s decrypt; unique keeps one "
+        f"NaN {unique_ok}; the namespace {ns_ok}; peak {peak} bytes; "
+        f"{wall:.1f} s of wall time [{power}]")
+    torch.cuda.empty_cache()
+    return row, launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -9174,8 +9747,6 @@ def main() -> int:
         fused_adam, ids_t, tio, power)
     second_row["gpt_sample"], sample_launch = gpt_sample_phase(
         tpt, tnn.functional, gpt_bf16, fa, power)
-    del gpt_bf16
-    torch.cuda.empty_cache()
     second_row["bert_ragged"], ragged_launch = bert_ragged_phase(
         tpt, Bert, bert_base, fa, power)
     second_row["second_half_phases_s"] = time.perf_counter() - t_second
@@ -9185,6 +9756,40 @@ def main() -> int:
     log(f"second-half phases (39-41): "
         f"{second_row['second_half_phases_s']:.1f} s of wall time; launches "
         f"{ck_launch}, {sample_launch}, {ragged_launch}")
+
+    # -- 42. int8-resnet18 ----------------------------------------------------
+    # -- 43. gpt-deploy -------------------------------------------------------
+    # -- 44. capture-breadth --------------------------------------------------
+    # static capture and deployment: #1-#7 run as custom ops inside the
+    # captured and loaded graphs; each phase sets the counters to 0 and
+    # reads them, and its launches join the kernel table's
+    from paddle_tpu_torch import inference, quantization, static
+    from paddle_tpu_torch import jit as tjit
+    from paddle_tpu_torch.framework import crypto
+    t_deploy = time.perf_counter()
+    deploy_row = {"int8_resnet18": int8_resnet18_phase(
+        resnet18, tjit, quantization, power)}
+    deploy_row["gpt_deploy"], deploy_launch = gpt_deploy_phase(
+        gpt_bf16, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
+        static.InputSpec, inference, power)
+    del gpt_bf16
+    torch.cuda.empty_cache()
+    deploy_row["capture_breadth"], breadth_launch = capture_breadth_phase(
+        tpt, tnn, tjit, static, inference, crypto, fa, fused_ce, power)
+    deploy_row["deploy_phases_s"] = time.perf_counter() - t_deploy
+    captured = {}
+    for extra in (deploy_launch, breadth_launch):
+        for name, n in extra.items():
+            captured[name] = captured.get(name, 0) + n
+    for k in kernels:
+        k["launches"] += captured.get(k["name"], 0)
+        k["captured_launches"] = captured.get(k["name"], 0)
+    missing = [n for n in CAPTURE_KERNELS if captured.get(n, 0) <= 0]
+    if missing:
+        fail(f"{missing} launched no time inside a captured or loaded graph")
+    log(f"deployment phases (42-44): {deploy_row['deploy_phases_s']:.1f} s "
+        f"of wall time; launches inside captured and loaded graphs "
+        f"{captured}")
     for row in table:
         log(json.dumps(row))
 
@@ -9237,7 +9842,7 @@ def main() -> int:
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
-        **det_row, **tensor_row, **second_row,
+        **det_row, **tensor_row, **second_row, **deploy_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

@@ -15,8 +15,10 @@ port's: ``is_compiled_with_cuda`` says whether this PyTorch was built
 with CUDA, ``get_cudnn_version`` gives cuDNN's version, and the places
 are ``torch.device``s.  The reference's ``TPUPlace`` and ``XPUPlace``
 name devices the port does not have and are left out; so are the names
-of modules still to port (``static``, ``hapi``, ``io``, ``DataParallel``,
-``monitor``).
+of modules still to port (``distributed``'s, ``hapi``, ``io``,
+``DataParallel``, ``monitor``).  The ported subpackages are bound at
+import, as the reference binds its own (``paddle_tpu/__init__.py:55-77``),
+and so are the nine tensor submodules (``paddle.linalg.norm``).
 """
 from paddle_tpu_torch import amp, autograd, regularizer, tensor  # noqa: F401
 from paddle_tpu_torch.autograd import (  # noqa: F401
@@ -31,6 +33,12 @@ from paddle_tpu_torch.framework.parameter import Parameter  # noqa: F401
 from paddle_tpu_torch.nn.layer.common import ParamAttr  # noqa: F401
 from paddle_tpu_torch.tensor import *  # noqa: F401,F403
 from paddle_tpu_torch.tensor import add_n, einsum  # noqa: F401
+from paddle_tpu_torch.tensor import (  # noqa: F401
+    creation, linalg, logic, manipulation, math, random, search, sequence,
+    stat)
+from paddle_tpu_torch import (  # noqa: F401,E402
+    framework, inference, jit, models, nn, optimizer, parallel,
+    quantization, static, vision)
 
 import torch as _torch
 
@@ -95,8 +103,9 @@ CUDAPinnedPlace = CPUPlace
 
 
 def in_dynamic_mode():
-    """True: the port runs eagerly (the static graph is still to port)."""
-    return True
+    """False between ``static.enable_static()`` and ``disable_static()``
+    (reference ``framework/__init__.py:29-31``)."""
+    return not static._in_static_mode()
 
 
 in_dygraph_mode = in_dynamic_mode

@@ -47,6 +47,13 @@ reads nothing back.
 
 Not ported, and raising ``NotImplementedError``: a gradient clip without
 ``functional_clip``, which the reference's step silently skips.
+
+``to_static`` (reference ``:44-267``) captures a function or a layer's
+forward with ``torch.export`` (non-strict) once per input signature and
+runs the exported graph; ``save`` / ``load`` / ``TranslatedLayer``
+(reference ``:712-887``) write and read the deployment artifact.  Both
+live in ``jit/static.py``; ``analyze`` and ``compiled_text`` are not
+ported and raise.
 """
 from __future__ import annotations
 
@@ -62,7 +69,8 @@ from paddle_tpu_torch.jit import recompute as _recompute
 from paddle_tpu_torch.jit.recompute import substituted_call
 
 __all__ = ["TrainStep", "functional_loss_call", "apply_functional_update",
-           "loss_closure", "loss_and_grads"]
+           "loss_closure", "loss_and_grads", "to_static", "not_to_static",
+           "StaticFunction", "save", "load", "TranslatedLayer"]
 
 
 def functional_loss_call(model, loss_fn, params: dict, inputs,
@@ -280,6 +288,16 @@ class TrainStep:
     def __call__(self, *inputs):
         return self._run(inputs, None, "TrainStep")
 
+    def analyze(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TrainStep.analyze is the reference's jaxpr analysis plane, not "
+            "ported (ROADMAP Queue 1 item 8)")
+
+    def compiled_text(self, *args, **kwargs):
+        raise NotImplementedError(
+            "TrainStep.compiled_text is the reference's XLA text, not "
+            "ported (ROADMAP Queue 1 item 8)")
+
     def multi_step(self, *inputs, unroll: bool = False):
         """K optimizer steps in one call (reference ``:473-571``): every
         input carries a leading K axis, (K, B, ...), and step j trains on
@@ -302,3 +320,8 @@ class TrainStep:
             raise ValueError(f"multi_step inputs disagree on the leading "
                              f"steps axis: {sorted(ks)}")
         return self._run(inputs, ks.pop(), "TrainStep.multi_step")
+
+
+from paddle_tpu_torch.jit.static import (  # noqa: E402,F401
+    StaticFunction, TranslatedLayer, _cipher_for, _read_artifact, load,
+    not_to_static, save, to_static)

@@ -4,13 +4,18 @@ and segment ids (port of paddle_tpu/ops/pallas/flash_attention.py).
 The kernels are hand-written CUDA for sm_90a: ``csrc/flash_attention_fwd.cu``
 replaces the Pallas ``_fwd_kernel``, ``csrc/flash_attention_bwd.cu`` the
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, ``csrc/flash_attention_dbias.cu``
-the ``_bwd_dbias_kernel``.  :class:`_FlashAttention` ties them together as
-``_flash`` / ``_fa_fwd`` / ``_fa_bwd`` do in the reference: the forward
-saves the folded q, k, v, the folded output, lse and the masks; the
-backward computes ``delta = rowsum(do * o)`` in f32 and runs the dq and
+the ``_bwd_dbias_kernel``.  Two ``torch.library`` custom ops tie them
+together as ``_flash`` / ``_fa_fwd`` / ``_fa_bwd`` do in the reference:
+``paddle_tpu_torch::flash_fwd`` (:func:`flash_fwd_op`) gives out and lse
+and saves the folded q, k, v, the folded output, lse and the masks;
+``paddle_tpu_torch::flash_bwd`` (:func:`flash_bwd_op`, its registered
+backward) computes ``delta = rowsum(do * o)`` in f32 and runs the dq and
 dk/dv passes, and the dbias pass only when the bias needs a gradient
 (``ctx.needs_input_grad``), as the reference's ``_flash`` and
-``_flash_nodbias`` split it: a padding mask never launches it.
+``_flash_nodbias`` split it: a padding mask never launches it.  Being
+custom ops with fake (shape) implementations, both stay nodes of a graph
+that ``torch.export`` captures (``jit.to_static``, ``jit.save``), and
+their launches are counted there too.
 
 Masks (reference ``flash_attention`` :846): ``bias`` broadcastable to
 (B, H, Sq, Sk), each leading dim full or 1 and the key dim full, is
@@ -20,7 +25,8 @@ canonicalised to (Bb, Hb, Sqb, Sk); a bool mask (True = attend) becomes a
 score is ``s * scale + bias``, then -inf where the ids differ, then the
 causal mask.
 
-Dispatch is by the device of the tensors it is given:
+Dispatch is by the device of the tensors it is given (each op's kernel
+registered for "cpu" and for "cuda"):
 
 - a CPU tensor takes the plain PyTorch versions,
   :func:`flash_attention_reference`, :func:`flash_attention_bwd_reference`
@@ -41,7 +47,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -506,12 +512,10 @@ def _bwd_reference(qt, kt, vt, ot, lse, dot, scale: float, causal: bool,
     return dq, dk, dv, db
 
 
-def _by_device(t, cpu, cuda):
-    if t.device.type == "cpu":
-        return cpu
-    if t.device.type == "cuda":
-        return cuda
-    raise ValueError(f"flash_attention: unsupported device {t.device}")
+def _check_device(t):
+    """A CPU or CUDA tensor; raise on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {t.device}")
 
 
 def _mask(bias, q_seg, kv_seg, heads) -> Optional[Mask]:
@@ -520,32 +524,91 @@ def _mask(bias, q_seg, kv_seg, heads) -> Optional[Mask]:
     return Mask(bias, q_seg, kv_seg, heads)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Folded flash attention with its backward (reference ``_flash``
-    :783, ``_fa_fwd`` :789, ``_fa_bwd`` :808; ``_flash_nodbias`` :826
-    when the bias needs no gradient)."""
+# The two custom ops that carry #1-#4 through eager calls, captured graphs
+# (torch.export keeps them as nodes) and loaded artifacts.  Each takes the
+# plain version on a CPU tensor and the kernels on a CUDA tensor (their
+# launches counted); the backward op runs the dbias pass only when asked.
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                 bias: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+                 kv_seg: Optional[torch.Tensor], heads: int, scale: float,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of folded (B*H, S, D) q, k, v (reference ``_fa_fwd``
+    :789)."""
+    raise ValueError(f"flash_attention: unsupported device {qt.device}")
 
-    @staticmethod
-    def forward(ctx, qt, kt, vt, bias, q_seg, kv_seg, heads, scale, causal):
-        mask = _mask(bias, q_seg, kv_seg, heads)
-        fwd = _by_device(qt, flash_attention_reference, _launch)
-        out, lse = fwd(qt, kt, vt, scale, causal, mask)
-        ctx.save_for_backward(qt, kt, vt, out, lse, bias, q_seg, kv_seg)
-        ctx.heads, ctx.scale, ctx.causal = heads, scale, causal
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout, _dlse):
-        qt, kt, vt, ot, lse, bias, q_seg, kv_seg = ctx.saved_tensors
-        mask = _mask(bias, q_seg, kv_seg, ctx.heads)
-        bwd = _by_device(qt, _bwd_reference, _launch_bwd)
-        dq, dk, dv, db = bwd(qt, kt, vt, ot, lse, dout.contiguous(),
-                             ctx.scale, ctx.causal, mask,
-                             dbias=bias is not None
-                             and ctx.needs_input_grad[3])
-        return dq, dk, dv, db, None, None, None, None, None
+@flash_fwd_op.register_kernel("cpu")
+def _(qt, kt, vt, bias, q_seg, kv_seg, heads, scale, causal):
+    out, lse = flash_attention_reference(qt, kt, vt, scale, causal,
+                                         _mask(bias, q_seg, kv_seg, heads))
+    return out, lse.contiguous().clone()
+
+
+@flash_fwd_op.register_kernel("cuda")
+def _(qt, kt, vt, bias, q_seg, kv_seg, heads, scale, causal):
+    return _launch(qt, kt, vt, scale, causal,
+                   _mask(bias, q_seg, kv_seg, heads))
+
+
+@flash_fwd_op.register_fake
+def _(qt, kt, vt, bias, q_seg, kv_seg, heads, scale, causal):
+    return (torch.empty_like(qt),
+            qt.new_empty(qt.shape[:2], dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd_op(qt: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+                 ot: torch.Tensor, lse: torch.Tensor, dot: torch.Tensor,
+                 bias: Optional[torch.Tensor], q_seg: Optional[torch.Tensor],
+                 kv_seg: Optional[torch.Tensor], heads: int, scale: float,
+                 causal: bool, dbias: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """(dq, dk, dv, dbias) of the folded operands (reference ``_fa_bwd``
+    :808); dbias is an empty tensor unless ``dbias``."""
+    raise ValueError(f"flash_attention: unsupported device {qt.device}")
+
+
+def _bwd_by(fn):
+    def impl(qt, kt, vt, ot, lse, dot, bias, q_seg, kv_seg, heads, scale,
+             causal, dbias):
+        dq, dk, dv, db = fn(qt, kt, vt, ot, lse, dot, scale, causal,
+                            _mask(bias, q_seg, kv_seg, heads), dbias=dbias)
+        return dq, dk, dv, (qt.new_empty(0) if db is None else db)
+    return impl
+
+
+flash_bwd_op.register_kernel("cpu")(_bwd_by(_bwd_reference))
+flash_bwd_op.register_kernel("cuda")(_bwd_by(_launch_bwd))
+
+
+@flash_bwd_op.register_fake
+def _(qt, kt, vt, ot, lse, dot, bias, q_seg, kv_seg, heads, scale, causal,
+      dbias):
+    db = torch.empty_like(bias) if dbias else qt.new_empty(0)
+    return (torch.empty_like(qt), torch.empty_like(kt),
+            torch.empty_like(vt), db)
+
+
+def _fa_setup(ctx, inputs, output):
+    qt, kt, vt, bias, q_seg, kv_seg, heads, scale, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(qt, kt, vt, out, lse, bias, q_seg, kv_seg)
+    ctx.heads, ctx.scale, ctx.causal = heads, scale, causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _fa_backward(ctx, dout, _dlse):
+    qt, kt, vt, ot, lse, bias, q_seg, kv_seg = ctx.saved_tensors
+    want = bias is not None and ctx.needs_input_grad[3]
+    dq, dk, dv, db = flash_bwd_op(qt, kt, vt, ot, lse, dout.contiguous(),
+                                  bias, q_seg, kv_seg, ctx.heads, ctx.scale,
+                                  ctx.causal, want)
+    return dq, dk, dv, (db if want else None), None, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_fa_backward, setup_context=_fa_setup)
 
 
 def _canon_bias(bias, b, h, sq, sk):
@@ -586,9 +649,10 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None,
         kv_segment_ids = torch.as_tensor(kv_segment_ids,
                                          device=q.device).to(
             torch.int32).contiguous()
-    out, lse = _FlashAttention.apply(_fold(q), _fold(k), _fold(v), bias,
-                                     q_segment_ids, kv_segment_ids, h,
-                                     float(scale), bool(causal))
+    _check_device(q)
+    out, lse = flash_fwd_op(_fold(q), _fold(k), _fold(v), bias,
+                            q_segment_ids, kv_segment_ids, h, float(scale),
+                            bool(causal))
     return _unfold(out, b, h), lse
 
 

@@ -10,16 +10,21 @@ merged by a second kernel), ``csrc/fused_ce_bwd.cu`` the ``_dh_kernel``
 and ``_dw_kernel`` (in bf16, three wgmma GEMMs over chunks of the
 vocabulary on the same mainloop, whose (N, V_c) probabilities live in a
 scratch buffer this module allocates).
-:class:`_FusedCE` ties them together as the reference's ``custom_vjp``
-does (``_fused_ce`` :259-309): the forward saves h, W, the labels and
-logz; the backward makes one call that computes dh and dW, then adds the
-gold-label terms in PyTorch, O(N*H) as the reference's XLA gather and
+Two ``torch.library`` custom ops tie them together as the reference's
+``custom_vjp`` does (``_fused_ce`` :259-309): ``paddle_tpu_torch::
+fused_ce_fwd`` gives the per-token loss and saves h, W, the labels and
+logz; ``paddle_tpu_torch::fused_ce_bwd``, its registered backward, makes
+one call that computes dh and dW, then adds the gold-label terms in
+PyTorch, O(N*H) as the reference's XLA gather and
 scatter are: ``-g * W[label]`` into dh in dh's dtype, and ``-g * h``
 scattered into dW through an f32 ``index_add_`` (repeated labels would
 round to nothing in a bf16 sum).
 
-Dispatch is by the device of the tensors it is given: a CPU tensor takes
-the plain PyTorch versions, :func:`ce_logz_reference` and
+The ops stay nodes of a graph that ``torch.export`` captures
+(``jit.to_static``, ``jit.save``), their launches counted there too.
+Dispatch is by the device of the tensors it is given (each op's kernel
+registered for "cpu" and for "cuda"): a CPU tensor takes the plain
+PyTorch versions, :func:`ce_logz_reference` and
 :func:`ce_bwd_reference`; a CUDA tensor launches the kernels or raises.
 :func:`supported` sends f16 heads to the unfused head by rule.
 """
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Tuple
 
 import torch
 
@@ -217,49 +223,91 @@ def _launch_bwd(h, w, logz, g, budget=P_BUDGET):
     return dh, dw
 
 
-def _by_device(t, cpu, cuda):
-    if t.device.type == "cpu":
-        return cpu
-    if t.device.type == "cuda":
-        return cuda
-    raise ValueError(f"fused_ce: unsupported device {t.device}")
-
-
 def ce_logz(h, w):
     """logz (N,) f32 of ``h @ w.T`` over the V rows of w, by device."""
     if h.shape[0] == 0:
         return torch.zeros(0, dtype=torch.float32, device=h.device)
-    return _by_device(h, ce_logz_reference, _launch)(h, w)
+    if h.device.type == "cpu":
+        return ce_logz_reference(h, w)
+    if h.device.type == "cuda":
+        return _launch(h, w)
+    raise ValueError(f"fused_ce: unsupported device {h.device}")
 
 
-class _FusedCE(torch.autograd.Function):
-    """Per-token loss with its backward (reference ``_fused_ce_fwd`` :265,
+# The two custom ops that carry #5-#7 through eager calls, captured graphs
+# and loaded artifacts: the per-token loss with its logz, and the backward
+# (the kernels' dh and dW, then the gold-label terms).  Each takes the
+# plain version on a CPU tensor and the kernels on a CUDA tensor.
+@torch.library.custom_op("paddle_tpu_torch::fused_ce_fwd", mutates_args=())
+def fused_ce_fwd_op(h: torch.Tensor, w: torch.Tensor, lab: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss (N,) f32, logz (N,) f32) of h (N, H), w (V, H) and in-range
+    int64 labels (reference ``_fused_ce_fwd`` :265)."""
+    raise ValueError(f"fused_ce: unsupported device {h.device}")
+
+
+def _fwd_impl(h, w, lab):
+    logz = ce_logz(h, w)
+    gold = (h.float() * w[lab].float()).sum(-1)
+    return logz - gold, logz.clone()
+
+
+fused_ce_fwd_op.register_kernel("cpu")(_fwd_impl)
+fused_ce_fwd_op.register_kernel("cuda")(_fwd_impl)
+
+
+@fused_ce_fwd_op.register_fake
+def _(h, w, lab):
+    n = h.shape[0]
+    return (h.new_empty(n, dtype=torch.float32),
+            h.new_empty(n, dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_ce_bwd", mutates_args=())
+def fused_ce_bwd_op(h: torch.Tensor, w: torch.Tensor, lab: torch.Tensor,
+                    logz: torch.Tensor, g: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dh, dW) of the per-token loss for its f32 cotangent g (reference
     ``_fused_ce_bwd`` :281)."""
+    raise ValueError(f"fused_ce: unsupported device {h.device}")
 
-    @staticmethod
-    def forward(ctx, h, w, labels):
-        lab = labels.long().clamp(0, w.shape[0] - 1)
-        logz = ce_logz(h, w)
-        gold = (h.float() * w[lab].float()).sum(-1)
-        ctx.save_for_backward(h, w, lab, logz)
-        return logz - gold
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        h, w, lab, logz = ctx.saved_tensors
+def _bwd_by(bwd):
+    def impl(h, w, lab, logz, g):
         if h.shape[0] == 0:
-            return torch.zeros_like(h), torch.zeros_like(w), None
-        g = g.float().contiguous()
-        bwd = _by_device(h, ce_bwd_reference, _launch_bwd)
+            return torch.zeros_like(h), torch.zeros_like(w)
         dh, dw = bwd(h, w, logz, g)
         # the gold-label terms (reference :296-305)
         gf = g[:, None]
         dh = dh - (gf * w[lab].float()).to(dh.dtype)
         gold = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
         gold.index_add_(0, lab, gf * h.float())
-        dw = (dw.float() - gold).to(dw.dtype)
-        return dh, dw, None
+        return dh, (dw.float() - gold).to(dw.dtype)
+    return impl
+
+
+fused_ce_bwd_op.register_kernel("cpu")(_bwd_by(ce_bwd_reference))
+fused_ce_bwd_op.register_kernel("cuda")(_bwd_by(_launch_bwd))
+
+
+@fused_ce_bwd_op.register_fake
+def _(h, w, lab, logz, g):
+    return torch.empty_like(h), torch.empty_like(w)
+
+
+def _ce_setup(ctx, inputs, output):
+    h, w, lab = inputs
+    ctx.save_for_backward(h, w, lab, output[1])
+    ctx.mark_non_differentiable(output[1])
+
+
+def _ce_backward(ctx, g, _dlogz):
+    h, w, lab, logz = ctx.saved_tensors
+    dh, dw = fused_ce_bwd_op(h, w, lab, logz, g.float().contiguous())
+    return dh, dw, None
+
+
+fused_ce_fwd_op.register_autograd(_ce_backward, setup_context=_ce_setup)
 
 
 def fused_linear_cross_entropy(h, w, labels):
@@ -271,7 +319,10 @@ def fused_linear_cross_entropy(h, w, labels):
     to mask (multiply the per-token loss by the mask before summing, so
     that its gradient is zero).  Returns (N,) float32.
     """
-    return _FusedCE.apply(h, w, labels)
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_ce: unsupported device {h.device}")
+    lab = labels.long().clamp(0, w.shape[0] - 1)
+    return fused_ce_fwd_op(h, w, lab)[0]
 
 
 def xla_reference(h, w, labels):

@@ -517,12 +517,24 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
     """``np.unique``: the sorted distinct values (slices along ``axis``),
     with the index of each one's first occurrence, the inverse (x's shape
     without ``axis``, as numpy 2 gives it) and the counts, all int64.
-    Reads the number of distinct values back from the device."""
+    Without ``axis`` every NaN is one value, last, as ``jnp.unique``
+    (``equal_nan``) keeps it (reference ``:379``); slices along an axis
+    keep NaN rows apart, as the reference's do.  Reads the number of
+    distinct values back from the device."""
     if axis is None:
         vals, inv, counts = torch.unique(x.reshape(-1), sorted=True,
                                          return_inverse=True,
                                          return_counts=True)
         dim = 0
+        if vals.is_floating_point() or vals.is_complex():
+            # the sort puts the NaNs last, each a value of its own
+            n_nan = int(torch.isnan(vals).sum())
+            if n_nan > 1:
+                m = vals.shape[0] - n_nan
+                vals = vals[:m + 1]
+                inv = inv.clamp_max(m)
+                counts = torch.cat([counts[:m],
+                                    counts[m:].sum(0, keepdim=True)])
     else:
         dim = axis % x.ndim
         vals, inv, counts = torch.unique(x, sorted=True, return_inverse=True,

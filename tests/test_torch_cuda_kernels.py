@@ -786,3 +786,71 @@ def test_o2_float16_train_step_runs(gen):
     # and both read NaN after the first update (test_torch_train.py
     # test_o2_float16_matches_reference)
     assert math.isfinite(losses[0]) and abs(losses[0] - want) < 1e-2
+
+
+def _tiny_gpt_on_card():
+    from paddle_tpu_torch.models import GPT, gpt_tiny
+    return GPT(gpt_tiny(num_layers=2, hidden_size=128, num_heads=2,
+                        max_seq_len=128, remat=False), device="cuda")
+
+
+def test_custom_ops_launch_inside_a_captured_graph(gen):
+    """#1-#3 and #5-#7 as custom ops: a to_static capture of gpt_loss
+    launches them from its graph, forward and backward; its loss equals
+    the eager call's, its gradients within 1e-6 (the embedding's backward
+    sums by atomics, in no fixed order)."""
+    from paddle_tpu_torch import jit, nn
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.models import gpt_loss
+
+    class Loss(nn.Layer):
+        def __init__(self, gpt):
+            super().__init__()
+            self.gpt = gpt
+
+        def forward(self, ids):
+            return gpt_loss(self.gpt, ids, ids)
+
+    gpt = _tiny_gpt_on_card()
+    ids = torch.randint(0, 256, (2, 128), generator=gen, device="cuda")
+    set_flags({"gpt_fused_ce": True})
+    try:
+        eager = gpt_loss(gpt, ids, ids)
+        eager.backward()
+        want = {n: p.grad.clone() for n, p in gpt.named_parameters()}
+        gpt.clear_gradients()
+        net = jit.to_static(Loss(gpt))
+        before = (fa.launches, fa.launches_dq, fa.launches_dkv,
+                  fused_ce.launches, fused_ce.launches_dh,
+                  fused_ce.launches_dw)
+        loss = net(ids)
+        loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        set_flags({"gpt_fused_ce": False})
+    after = (fa.launches, fa.launches_dq, fa.launches_dkv,
+             fused_ce.launches, fused_ce.launches_dh, fused_ce.launches_dw)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 2, 1, 1, 1)
+    assert torch.equal(loss.detach(), eager.detach())
+    for n, p in gpt.named_parameters():
+        torch.testing.assert_close(p.grad, want[n], rtol=0, atol=1e-6,
+                                   msg=n)
+
+
+def test_loaded_artifact_launches_on_card(gen, tmp_path):
+    """jit.save with a dynamic batch, jit.load on the card: the loaded
+    graph launches #1 once a layer and equals the eager forward at two
+    batch sizes."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import InputSpec
+    gpt = _tiny_gpt_on_card()
+    prefix = str(tmp_path / "gpt")
+    jit.save(gpt, prefix, input_spec=[InputSpec([None, 128], "int64")])
+    loaded = jit.load(prefix, device="cuda")
+    for b in (3, 8):
+        ids = torch.randint(0, 256, (b, 128), generator=gen, device="cuda")
+        before = fa.launches
+        out = loaded(ids)
+        torch.cuda.synchronize()
+        assert fa.launches - before == 2
+        assert torch.equal(out, gpt(ids).detach())

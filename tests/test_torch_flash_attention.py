@@ -177,7 +177,7 @@ def _jax_grads(q, k, v, w, causal, scale):
 
 
 def _port_grads(q, k, v, w, causal, scale):
-    """The same vjp through the port's autograd Function."""
+    """The same vjp through the port's custom ops."""
     qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = tfa.flash_attention(qt, kt, vt, causal=causal, scale=scale)
     (out * torch.from_numpy(w)).sum().backward()

@@ -71,7 +71,7 @@ def _ref(q, k, v, w, causal, bias=None, segs=None):
 
 
 def _port(q, k, v, w, causal, bias=None, segs=None):
-    """The same through the port's autograd Function on the CPU."""
+    """The same through the port's custom ops on the CPU."""
     qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     bt = None
     if bias is not None:

@@ -247,6 +247,23 @@ def test_unique(kw):
     check("unique", [x], kw)
 
 
+@pytest.mark.parametrize("x", [
+    np.array([3, np.nan, 1, np.nan], np.float32),
+    np.array([[np.nan, 2.0], [np.nan, np.nan]], np.float32),
+    np.array([np.nan, 1.0], np.float64)])
+def test_unique_keeps_one_nan(x):
+    """Every NaN is one value, as jnp.unique's equal_nan keeps it: f32
+    [3, nan, 1, nan] gives [1, 3, nan], index [2, 0, 1], inverse
+    [1, 2, 0, 2] and counts [1, 1, 2]."""
+    got, _ = check("unique", [x], {"return_index": True,
+                                   "return_inverse": True,
+                                   "return_counts": True})
+    if x.shape == (4,):
+        np.testing.assert_array_equal(got[1].numpy(), [2, 0, 1])
+        np.testing.assert_array_equal(got[2].numpy(), [1, 2, 0, 2])
+        np.testing.assert_array_equal(got[3].numpy(), [1, 1, 2])
+
+
 def test_unique_axis():
     x = np.array([[1, 2], [0, 5], [1, 2], [0, 5], [0, 1]], np.int32)
     check("unique", [x], {"axis": 0, "return_index": True,

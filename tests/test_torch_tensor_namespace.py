@@ -115,17 +115,55 @@ TOP_LEVEL = (
     "in_dynamic_mode in_dygraph_mode disable_signal_handler "
     "set_printoptions device_count commit full_version CPUPlace CUDAPlace "
     "CUDAPinnedPlace is_compiled_with_cuda is_compiled_with_xpu "
-    "is_compiled_with_tpu get_cudnn_version").split()
+    "is_compiled_with_tpu get_cudnn_version optimizer jit vision models "
+    "parallel nn framework static inference quantization creation math "
+    "linalg logic manipulation random search sequence stat").split()
+# what the reference's paddle_tpu.framework re-exports (:15-30)
+FRAMEWORK = ("save load seed Generator default_generator get_rng_state "
+             "set_rng_state Parameter Tensor no_grad CPUPlace CUDAPlace "
+             "get_default_dtype set_default_dtype in_dygraph_mode").split()
 
 
 def test_top_level_names():
     missing = [n for n in TOP_LEVEL if not hasattr(paddle_tpu_torch, n)]
     assert not missing, missing
     assert all(hasattr(paddle, n) for n in TOP_LEVEL)
-    for n in ("TPUPlace", "XPUPlace", "static", "DataParallel"):
+    for n in ("TPUPlace", "XPUPlace", "DataParallel"):
         assert hasattr(paddle, n) and not hasattr(paddle_tpu_torch, n), n
     assert paddle_tpu_torch.float32 is torch.float32
     assert paddle_tpu_torch.seed is T.random.seed
+
+
+def test_subpackages_resolve_after_the_top_level_import_alone():
+    """A fresh process that imports only the top level reaches the
+    subpackages' names, and the framework's re-exports are the top
+    level's objects."""
+    import subprocess
+    import sys
+    code = ("import paddle_tpu_torch as paddle\n"
+            "print(paddle.optimizer.AdamW.__name__, "
+            "paddle.linalg.norm.__name__, paddle.jit.to_static.__name__, "
+            "paddle.static.InputSpec.__name__, "
+            "paddle.inference.Config.__name__, "
+            "paddle.quantization.convert_to_int8_inference.__name__, "
+            "paddle.vision.models.resnet18.__name__, "
+            "paddle.models.GPT.__name__)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["AdamW", "norm", "to_static", "InputSpec",
+                                  "Config", "convert_to_int8_inference",
+                                  "resnet18", "GPT"]
+    for n in FRAMEWORK:
+        assert hasattr(paddle.framework, n), n
+        assert getattr(paddle_tpu_torch.framework, n) is \
+            getattr(paddle_tpu_torch, n), n
+    paddle_tpu_torch.static.enable_static()
+    try:
+        assert not paddle_tpu_torch.framework.in_dygraph_mode()
+    finally:
+        paddle_tpu_torch.static.disable_static()
 
 
 def test_torch_tensor_is_not_patched():
