@@ -478,6 +478,34 @@ Phases, in order; any failure ends the script with a non-zero exit:
              unique of NaNs and the
              top-level namespace on the card.  The launches of phases
              43-44 join the kernel table's and are its captured_launches.
+45. fleet-gpt — GPT-2 345M (24 layers, B=8, S=1024, remat=False, O2 bf16,
+             AdamW(1e-4)) through fleet.init(is_collective=True),
+             fleet.distributed_optimizer and fleet.train_step at world size
+             1 over NCCL: plain dp and sharding stages 1, 2 and 3, each run
+             bitwise the train phase's TrainStep losses and parameters, 24
+             launches each of #1-#3 a step; step ms, tokens/s, peak bytes,
+             optimizer-state bytes a replica.  Then dp = 2 simulated
+             (LoopbackWorld, GPT-2's width, ZERO_DP2_LAYERS layers, the
+             global 8 x 1024, f32, SGD): stages 0-3 bitwise one another
+             and within TOL_DP2_LOSS / TOL_DP2_MOVE of one-rank TrainStep
+             on the global batch, beside the planted summed gradients.
+46. dp-meta — the same 2-layer model at simulated dp = 2: LocalSGD (k = 2,
+             begin_step = 3) whose replicas differ between syncs and are
+             bitwise equal after one; DGC (SGD, sparsity 0.999 after one
+             dense step): k x dp entries exchanged a tensor, the dense
+             result bitwise the reconstruction from both ranks' (values,
+             indices), the exchanged u and v zeroed, beside the planted DGC
+             that keeps v; losses finite and falling.
+47. syncbn — ResNet-50 converted by convert_sync_batchnorm under
+             ShardedTrainStep at simulated dp = 2 (2 x 32 at 224^2)
+             against BatchNorm over the global 64 on one rank: the f32
+             training forward's loss, logits and every running stat,
+             beside rank-local statistics; resnet18 (2 x 4, 64^2) in f64
+             training mode, every gradient; the same ResNet-50 under
+             LocalSGD keeps each rank's statistics until a sync, beside the
+             planted sync that skips the buffers.  The launch counters are
+             set to 0 before each of phases 45-46 and their launches join
+             the kernel table's.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -8057,6 +8085,662 @@ def capture_breadth_phase(tpt, tnn, tjit, static, inference, crypto, fa,
     return row, launches
 
 
+# -- the data-parallel user surface (phases 45-47) ----------------------------
+# fleet-gpt (45): four runs through fleet at world size 1 (plain dp and
+# sharding stages 1-3); dp = 2 simulated at ZERO_DP2_LAYERS layers in f32
+# with SGD, whose moves scale with the gradients (Adam's do not: a gradient
+# summed over the ranks instead of averaged would move it the same)
+FLEET_RUNS = (("dp", None), ("sharding1", 1), ("sharding2", 2),
+              ("sharding3", 3))
+DP2_LR = 0.1
+# dp = 2 against one-rank TrainStep on the global batch, f32: a loss within
+# TOL_DP2_LOSS, the parameters within TOL_DP2_MOVE of the whole move (max
+# |error| over the largest leaf's largest move).  Each weight gradient sums
+# 8192 tokens' terms, which the two ranks add as two halves of 4096: on
+# the H100 the first step reads 3.2e-6 of the whole move, and the two
+# trajectories then part (2.8e-5 after the second step, 2.2e-5 after the
+# third).  Per leaf the error reaches 5e-4 of the leaf's own move in the
+# LayerNorm gains, whose moves are about 4 % of the largest leaf's and
+# whose gradients cancel over the tokens: the per-leaf reading is logged,
+# not held.  The planted fault (the ranks' gradients summed, not
+# averaged) moves every parameter twice as far, 1.0 of the whole move,
+# and the check reads it on each run
+TOL_DP2_LOSS = 1e-4
+TOL_DP2_MOVE = 1e-3
+# dp-meta (46): LocalSGD k = 2 from begin_step = 3 with AdamW(1e-4); DGC
+# with SGD(0.1) (a CPU run of this model at S=64 fell 11.04 -> 7.43 over
+# four such steps), sparsity 0.999 after one dense step
+LOCALSGD_STEPS, DGC_STEPS, DGC_LR = 6, 4, 0.1
+# syncbn (47): ResNet-50 at 2 x 32 (224^2) against one rank's 64; the
+# small ResNet in f64 at 2 x 4 (64^2).  The two forwards sum each of 53
+# batch norms' statistics in another order (two halves, then their sum)
+# and cuDNN may choose other f32 convolution algorithms at B=32 and B=64,
+# so the logits of a random ResNet-50 carry more rounding than resnet18's
+# card-vs-CPU forward (TOL_VISION_F32's); normalising by each rank's own
+# slice instead moves them by O(1), and the check reads that on each run
+SYNCBN_B, SYNCBN_HW = 32, 224
+TOL_SYNCBN_F32 = 1e-3
+# The small ResNet's f64 gradients (an SGD(1.0) move, per leaf against the
+# leaf's move): batch norm accumulates its statistics in f32 whatever the
+# input's dtype (the reference's _mean_var_1pass), so the global batch's
+# statistics summed over two ranks differ from one rank's in f32 rounding;
+# the H100 read 8.7e-7 (a CPU run 7.5e-7), each rank's own statistics 1.4
+# (1.6), and the check reads the latter on each run
+TOL_SYNCBN_F64 = 1e-4
+
+
+def _snap(model):
+    import torch
+    with torch.no_grad():
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def _reset(model, init):
+    import torch
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+
+
+def _flash_launches(fa):
+    c = fa_counts(fa)
+    return {"flash_attention_fwd": c[0], "flash_attention_bwd_dq": c[1],
+            "flash_attention_bwd_dkv": c[2]}
+
+
+def _add(total, extra):
+    for k, v in extra.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fleet_gpt_phase(cfg, ids_t, fa, want_losses, want_params, power):
+    """Phase 45: GPT-2 345M through fleet (collective mode) at world size 1
+    over NCCL, then dp = 2 simulated.  Returns the readings and #1-#3's
+    launches."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import GPT, gpt_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import ShardedTrainStep, set_mesh
+    L = cfg.num_layers
+    launches, row = {}, {}
+    model = GPT(cfg, device="cuda")                  # f32 masters, seed 0
+    init = _snap(model)
+    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"fleet-gpt: GPT-2 345M, fleet.init(is_collective=True) at world "
+        f"size 1, amp O2 bf16 (use_pure_fp16), AdamW(learning_rate=1e-4), "
+        f"B={B}, S={S}, {TRAIN_STEPS} steps a run, against the train "
+        "phase's TrainStep trajectory")
+    try:
+        for name, stage in FLEET_RUNS:
+            s = fleet.DistributedStrategy()
+            s.amp = True
+            s.amp_configs = {"use_pure_fp16": True}
+            if stage is not None:
+                s.sharding = True
+                s.sharding_configs = {"sharding_degree": 1, "stage": stage}
+            fleet.init(is_collective=True, strategy=s)
+            _reset(model, init)
+            fleet.distributed_optimizer(AdamW(learning_rate=1e-4))
+            step = fleet.train_step(model, gpt_loss)
+            if not isinstance(step, ShardedTrainStep) or \
+                    step.sharding_stage != (stage or 0):
+                fail(f"fleet-gpt {name}: fleet built {type(step).__name__} "
+                     f"stage {getattr(step, 'sharding_stage', None)}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() - pbytes
+            reset_fa(fa)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            losses, counts = [], []
+            for i in range(TRAIN_STEPS):
+                if i == 1:
+                    e0.record()
+                losses.append(step(ids_t, ids_t))
+                counts.append(fa_counts(fa)[:3])
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1) / (TRAIN_STEPS - 1)
+            peak = torch.cuda.max_memory_allocated() - held
+            step.gather_params()
+            losses = [float(x) for x in losses]
+            want = [(L * (i + 1),) * 3 for i in range(TRAIN_STEPS)]
+            if counts != want:
+                fail(f"fleet-gpt {name}: flash launches {counts} != {want}")
+            _add(launches, _flash_launches(fa))
+            if losses != want_losses:
+                fail(f"fleet-gpt {name}: losses {losses} are not the train "
+                     f"phase's {want_losses}")
+            diff = [n for n, p in model.named_parameters()
+                    if not torch.equal(p.detach().cpu(), want_params[n])]
+            if diff:
+                fail(f"fleet-gpt {name}: parameters {diff} differ from the "
+                     "train phase's")
+            row[name] = {"losses": losses, "step_ms": ms,
+                         "tokens_per_s": B * S / ms * 1e3,
+                         "peak_bytes": peak,
+                         "opt_state_bytes_per_replica":
+                             step.opt_state_bytes_per_replica(),
+                         "applied_meta_list": fleet.applied_meta_list()}
+            log(f"fleet-gpt {name}: {fleet.applied_meta_list()}, losses and "
+                f"parameters bitwise the train phase's; step {ms:.3f} ms, "
+                f"{B * S / ms * 1e3:.1f} training tokens/s, "
+                f"max_memory_allocated {peak} bytes, optimizer state "
+                f"{row[name]['opt_state_bytes_per_replica']} bytes a "
+                f"replica; flash launches {counts[-1]} [{power}]")
+            del step
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        set_mesh(None)
+    del model, init
+    torch.cuda.empty_cache()
+
+    dp2_rows, dp2_launch = fleet_dp2(cfg, ids_t, fa, power)
+    row["dp2"] = dp2_rows
+    _add(launches, dp2_launch)
+    return row, launches
+
+
+def _move_errs(got, want, init):
+    """The error of the parameters ``got`` against ``want``, both moved
+    from ``init``: per leaf, max |got - want| over that leaf's max move;
+    and over the whole move, max |got - want| over the largest leaf's max
+    move."""
+    moves = {n: float((want[n] - init[n]).abs().max()) for n in want}
+    diffs = {n: float((got[n] - want[n]).abs().max()) for n in want}
+    per = {n: diffs[n] / max(moves[n], 1e-30) for n in want}
+    return per, max(diffs.values()) / max(moves.values()), moves
+
+
+def fleet_dp2(cfg, ids_t, fa, power):
+    """Phase 45's second part: dp = 2 simulated (LoopbackWorld) at GPT-2's
+    width and ZERO_DP2_LAYERS layers in f32 with SGD, stages 0-3 bitwise
+    one another and against one-rank TrainStep on the global batch, step
+    by step; the planted summed gradients.  Returns the readings and
+    #1-#3's launches."""
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel import LoopbackWorld, ShardedTrainStep
+    launches = {}
+    cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+                     vocab_size=cfg.vocab_size, max_seq_len=cfg.max_seq_len,
+                     num_layers=ZERO_DP2_LAYERS, remat=False)
+    one = GPT(cfg2, device="cuda")
+    init2 = _snap(one)
+    ts = TrainStep(one, gpt_loss, SGD(learning_rate=DP2_LR))
+    want_l, want_steps = [], []
+    for _ in range(ZERO_DP2_STEPS):
+        want_l.append(float(ts(ids_t, ids_t)))
+        want_steps.append(_snap(one))
+    want_p = want_steps[-1]
+    del ts, one
+    models2 = [GPT(cfg2, device="cuda") for _ in range(2)]
+
+    class SummedGrads(ShardedTrainStep):
+        """A planted fault: the ranks' means summed, not averaged."""
+
+        def _mean(self, t):
+            return super()._mean(t) * self._nd
+
+    def dp2(stage, cls=ShardedTrainStep, trace=False):
+        for m in models2:
+            _reset(m, init2)
+
+        def rank_fn(rank, mesh):
+            step = cls(models2[rank], gpt_loss, SGD(learning_rate=DP2_LR),
+                       mesh=mesh, sharding_stage=stage)
+            losses, steps = [], []
+            for _ in range(ZERO_DP2_STEPS):
+                losses.append(float(step(ids_t, ids_t)))
+                if trace and rank == 0:
+                    step.gather_params()
+                    steps.append(_snap(models2[rank]))
+            step.gather_params()
+            return losses, _snap(models2[rank]), steps
+        reset_fa(fa)
+        t0 = time.perf_counter()
+        out = LoopbackWorld(2).run(rank_fn)
+        wall = (time.perf_counter() - t0) / ZERO_DP2_STEPS
+        if fa_counts(fa)[:3] != (2 * ZERO_DP2_STEPS * ZERO_DP2_LAYERS,) * 3:
+            fail(f"fleet-gpt dp=2 stage {stage}: flash launches "
+                 f"{fa_counts(fa)[:3]}")
+        _add(launches, _flash_launches(fa))
+        for n in out[0][1]:
+            if not torch.equal(out[0][1][n], out[1][1][n]):
+                fail(f"fleet-gpt dp=2 stage {stage}: the replicas differ "
+                     f"at {n}")
+        loss_d = max(abs(a - b) for a, b in zip(out[0][0], want_l))
+        per, whole, _ = _move_errs(out[0][1], want_p, init2)
+        return out[0], loss_d, whole, max(per.values()), wall
+
+    rows = {}
+    base = None
+    for stage in range(4):
+        (losses, params, steps), loss_d, move, leaf, wall = dp2(
+            stage, trace=stage == 0)
+        if base is None:
+            base = (losses, params)
+            # where the error sits: per step, the leaf it is largest in
+            # (beside that leaf's move against the largest leaf's) and
+            # the error over the whole move
+            trace_rows = []
+            for t, (got, want) in enumerate(zip(steps, want_steps)):
+                p_t, w_t, moves = _move_errs(got, want, init2)
+                worst = max(p_t, key=p_t.get)
+                trace_rows.append({
+                    "step": t + 1, "whole_move_err": w_t,
+                    "worst_leaf": worst, "worst_leaf_err": p_t[worst],
+                    "worst_leaf_move_share": moves[worst]
+                    / max(moves.values()),
+                    "leaf_errs": p_t})
+                log(f"fleet-gpt dp=2 after step {t + 1}: error over the "
+                    f"whole move {w_t:.3g}; per leaf at most {p_t[worst]:.3g}"
+                    f" in {worst}, whose largest move is "
+                    f"{moves[worst] / max(moves.values()):.3g} of the "
+                    f"largest leaf's; per leaf {_fmt_errs(p_t)}")
+            rows["trace"] = trace_rows
+        elif losses != base[0] or any(not torch.equal(params[n], base[1][n])
+                                      for n in params):
+            fail(f"fleet-gpt dp=2: stage {stage} is not stage 0's bits")
+        if loss_d > TOL_DP2_LOSS or move > TOL_DP2_MOVE:
+            fail(f"fleet-gpt dp=2 stage {stage}: against one-rank TrainStep "
+                 f"on the global batch loss {loss_d:.3g} (limit "
+                 f"{TOL_DP2_LOSS}), move {move:.3g} (limit {TOL_DP2_MOVE})")
+        rows[f"stage{stage}"] = {"losses": losses, "loss_err": loss_d,
+                                 "move_err": move, "worst_leaf_err": leaf,
+                                 "wall_ms": wall * 1e3}
+        log(f"fleet-gpt dp=2 stage {stage} (simulated, {ZERO_DP2_LAYERS} "
+            f"layers, f32, SGD({DP2_LR})): losses {losses}, bitwise stage "
+            f"0's; against one-rank TrainStep on the global batch: loss "
+            f"{loss_d:.3g}, error over the whole move {move:.3g} (per leaf "
+            f"at most {leaf:.3g}); {wall * 1e3:.1f} ms a step (host clock, "
+            f"both ranks: the simulation's cost) [{power}]")
+    _, loss_f, move_f, _, _ = dp2(0, SummedGrads)
+    if not move_f > TOL_DP2_MOVE:
+        fail(f"fleet-gpt dp=2: the planted summed gradients read {move_f:.3g},"
+             f" not above the limit {TOL_DP2_MOVE}")
+    log(f"fleet-gpt dp=2: the planted summed gradients read move "
+        f"{move_f:.3g}, loss {loss_f:.3g}: told apart")
+    rows["summed_fault_move_err"] = move_f
+    del models2, init2, want_p, want_steps
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _fmt_errs(errs):
+    return "{" + ", ".join(f"{n}: {e:.2g}" for n, e in errs.items()) + "}"
+
+
+def dp_meta_phase(cfg, ids_t, fa, power):
+    """Phase 46: LocalSGDTrainStep and DGCTrainStep on two simulated ranks
+    at GPT-2's width (ZERO_DP2_LAYERS layers, f32), with the planted DGC
+    that forgets to zero v.  Returns the readings and #1-#3's launches."""
+    import torch
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    from paddle_tpu_torch.parallel import (DGCTrainStep, LocalSGDTrainStep,
+                                           LoopbackWorld)
+    cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+                     vocab_size=cfg.vocab_size, max_seq_len=S,
+                     num_layers=ZERO_DP2_LAYERS, remat=False)
+    models = [GPT(cfg2, device="cuda") for _ in range(2)]
+    init = _snap(models[0])
+    launches, row = {}, {}
+
+    def run(fn, steps):
+        for m in models:
+            _reset(m, init)
+        reset_fa(fa)
+        t0 = time.perf_counter()
+        out = LoopbackWorld(2).run(fn)
+        wall = (time.perf_counter() - t0) / steps
+        want = (2 * steps * ZERO_DP2_LAYERS,) * 3
+        if fa_counts(fa)[:3] != want:
+            fail(f"dp-meta: flash launches {fa_counts(fa)[:3]} != {want}")
+        _add(launches, _flash_launches(fa))
+        return out, wall
+
+    def localsgd(rank, mesh):
+        step = LocalSGDTrainStep(models[rank], gpt_loss,
+                                 AdamW(learning_rate=1e-4), mesh=mesh,
+                                 k_steps=2, begin_step=3)
+        losses, snaps = [], []
+        for _ in range(LOCALSGD_STEPS):
+            losses.append(float(step(ids_t, ids_t)))
+            snaps.append(_snap(models[rank]))
+        return losses, snaps
+    (r0, r1), wall = run(localsgd, LOCALSGD_STEPS)
+    equal = [all(torch.equal(r0[1][i][n], r1[1][i][n]) for n in init)
+             for i in range(LOCALSGD_STEPS)]
+    # warm-up (step + 1 < 3) averages gradients; then every 2nd step syncs
+    want_eq = [True, True, False, True, False, True]
+    losses = r0[0]
+    if equal != want_eq:
+        fail(f"dp-meta LocalSGD: replicas equal after each step {equal} != "
+             f"{want_eq}")
+    if losses != r1[0] or not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"dp-meta LocalSGD: losses {losses} not finite and falling on "
+             "both ranks")
+    row["localsgd"] = {"losses": losses, "replicas_equal": equal,
+                       "wall_ms": wall * 1e3}
+    log(f"dp-meta LocalSGD (k=2, begin_step=3, AdamW(1e-4), f32): losses "
+        f"{losses}; replicas bitwise equal after each step {equal}; "
+        f"{wall * 1e3:.1f} ms a step (host clock, both ranks) [{power}]")
+    del r0, r1
+
+    class Recording(DGCTrainStep):
+        """Keeps each tensor's dense result of the last call, in call
+        order."""
+
+        def _compress(self, g, u, v, sparsity):
+            out = super()._compress(g, u, v, sparsity)
+            self.dense.append(out[0])
+            return out
+
+    class ForgetsV(Recording):
+        """A planted fault: the exchanged entries of v are not zeroed."""
+
+        def _compress(self, g, u, v, sparsity):
+            out = super()._compress(g, u, v, sparsity)
+            if sparsity <= 0.0:
+                return out
+            return out[0], out[1], v + (self.momentum * u + g.float())
+
+    def dgc(cls, steps):
+        def fn(rank, mesh):
+            step = cls(models[rank], gpt_loss, SGD(learning_rate=DGC_LR),
+                       mesh=mesh, momentum=0.9, sparsity=[0.999],
+                       rampup_begin_step=1)
+            names = [n for n, p in models[rank].named_parameters()
+                     if p.requires_grad]
+            losses, reads = [], []
+            for i in range(steps):
+                step.dense = []
+                losses.append(float(step(ids_t, ids_t)))
+                if i == 0:
+                    continue
+                u, v = step._uv
+                zeroed = all(bool((u[n].reshape(-1)[idx] == 0).all()
+                                  and (v[n].reshape(-1)[idx] == 0).all())
+                             for n, (idx, _) in step.exchanged.items())
+                reads.append({"sent": {n: (idx.clone(), val.clone()) for n, (
+                    idx, val) in step.exchanged.items()},
+                    "dense": dict(zip(names, step.dense)),
+                    "zeroed": zeroed})
+            return losses, reads
+        return run(fn, steps)
+
+    def dgc_faults(ranks):
+        """What the checks read, as a list of what is wrong."""
+        wrong = []
+        for i in range(len(ranks[0][1])):
+            sent = [r[1][i]["sent"] for r in ranks]
+            for n, dense in ranks[0][1][i]["dense"].items():
+                k = DGCTrainStep.top_k(dense.numel(), 0.999)
+                if any(s[n][0].numel() != k for s in sent):
+                    wrong.append(f"{n}: not {k} entries sent a rank")
+                idx = torch.cat([s[n][0] for s in sent])
+                val = torch.cat([s[n][1] for s in sent])
+                want = torch.zeros(dense.numel(), device=dense.device
+                                   ).index_add_(0, idx, val) / 2
+                if not torch.equal(dense.reshape(-1), want) or \
+                        not torch.equal(dense, ranks[1][1][i]["dense"][n]):
+                    wrong.append(f"{n}: dense result not the reconstruction")
+            for r, rk in enumerate(ranks):
+                if not rk[1][i]["zeroed"]:
+                    wrong.append(f"rank {r}: exchanged u or v not zeroed")
+        return sorted(set(wrong))
+
+    ranks, wall = dgc(Recording, DGC_STEPS)
+    wrong = dgc_faults(ranks)
+    losses = ranks[0][0]
+    if wrong:
+        fail(f"dp-meta DGC: {wrong[:4]}")
+    if losses != ranks[1][0] or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"dp-meta DGC: losses {losses} not finite and falling")
+    sent = {n: int(s[0].numel()) * 2
+            for n, s in ranks[0][1][-1]["sent"].items()}
+    row["dgc"] = {"losses": losses, "exchanged_per_step": sent,
+                  "wall_ms": wall * 1e3}
+    log(f"dp-meta DGC (SGD({DGC_LR}), momentum 0.9, sparsity 0.999 after "
+        f"one dense step, f32): losses {losses}; entries exchanged a step "
+        f"(k x dp) {sent}; the dense results bitwise the reconstruction "
+        f"from both ranks' (values, indices), exchanged u and v zeroed; "
+        f"{wall * 1e3:.1f} ms a step [{power}]")
+    del ranks
+    faulty, _ = dgc(ForgetsV, 2)
+    caught = dgc_faults(faulty)
+    if not any("not zeroed" in w for w in caught):
+        fail("dp-meta: the planted DGC that keeps v was not caught")
+    log(f"dp-meta: the planted DGC that forgets to zero v reads {caught}: "
+        "told apart")
+    row["dgc_fault_caught"] = caught
+    del models, init, faulty
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def syncbn_phase(resnet18, resnet50, power):
+    """Phase 47: SyncBatchNorm under ShardedTrainStep at simulated dp = 2
+    against BatchNorm over the global batch on one rank (ResNet-50, f32
+    training forward; resnet18 in f64, gradients); ResNet-50 under
+    LocalSGDTrainStep keeps each rank's statistics until a sync, beside the
+    planted sync that skips the buffers."""
+    import contextlib
+    import copy
+
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import SyncBatchNorm
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel import (LocalSGDTrainStep, LoopbackWorld,
+                                           ShardedTrainStep)
+    from paddle_tpu_torch.parallel.mesh import mean_over
+    row = {}
+    xs, ys = vision_batch(2 * SYNCBN_B, 3, SYNCBN_HW, 1000, seed=3)
+    x, y = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    torch.manual_seed(0)
+    base = resnet50(device="cuda")
+    state = copy.deepcopy(base.state_dict())
+
+    def capture(m, xb, yb):
+        out = m(xb)
+        capture.logits[id(m)] = out.detach()
+        return vision_loss_of(out, yb)
+    capture.logits = {}
+
+    def bufs(m):
+        return {n: b.detach().clone() for n, b in m.named_buffers()}
+
+    # one rank, BatchNorm over the global 64 (lr 0: the forward's state)
+    ts = TrainStep(base, capture, SGD(learning_rate=0.0))
+    t0 = time.perf_counter()
+    want_loss = ts(x, y)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    want_out, want_bufs = capture.logits[id(base)], bufs(base)
+    del ts
+
+    replicas = []
+    for _ in range(2):
+        m = resnet50(device="cuda")
+        m.load_state_dict(state)
+        replicas.append(SyncBatchNorm.convert_sync_batchnorm(m))
+    n_sync = sum(isinstance(mm, SyncBatchNorm) for mm in
+                 replicas[0].modules())
+
+    class LocalStats(ShardedTrainStep):
+        """The counterfactual: each rank normalises by its own slice."""
+
+        def _stats(self):
+            return contextlib.nullcontext()
+
+    def sharded(cls=ShardedTrainStep):
+        for m in replicas:
+            m.load_state_dict(state)
+
+        def fn(rank, mesh):
+            m = replicas[rank]
+            loss = cls(m, capture, SGD(learning_rate=0.0), mesh=mesh)(x, y)
+            return loss, capture.logits[id(m)], bufs(m)
+        t0 = time.perf_counter()
+        out = LoopbackWorld(2).run(fn)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def err(out):
+        """{what: scaled_err} of the loss, the logits and the worst running
+        statistic, against one rank's."""
+        logits = torch.cat([o[1] for o in out])
+        return {"loss": scaled_err(out[0][0].cpu(), want_loss.cpu()),
+                "logits": scaled_err(logits.cpu(), want_out.cpu()),
+                "stats": max(scaled_err(out[0][2][n].cpu(),
+                                        want_bufs[n].cpu())
+                             for n in want_bufs)}
+    out, dp_ms = sharded()
+    for n in want_bufs:
+        if not torch.equal(out[0][2][n], out[1][2][n]):
+            fail(f"syncbn: the ranks' {n} differ")
+    f32_parts = err(out)
+    f32_err = max(f32_parts.values())
+    local, _ = sharded(LocalStats)
+    local_err = max(err(local).values())
+    log(f"syncbn: ResNet-50 with {n_sync} SyncBatchNorm (convert_sync_"
+        f"batchnorm) under ShardedTrainStep at dp=2 (2 x {SYNCBN_B}, "
+        f"{SYNCBN_HW}^2, f32) against BatchNorm over the global "
+        f"{2 * SYNCBN_B} on one rank: loss, logits and every running stat "
+        f"{f32_parts} (limit {TOL_SYNCBN_F32}); each rank's own statistics "
+        f"instead read {local_err:.3g}; a step {dp_ms:.1f} ms on two "
+        f"simulated ranks (the simulation's cost: the statistic sums cross "
+        f"on the host), {one_ms:.1f} ms on one (host clock, first call) "
+        f"[{power}]")
+    if f32_err > TOL_SYNCBN_F32 or not local_err > TOL_SYNCBN_F32:
+        fail("syncbn: the f32 training forward is not the global batch's, "
+             "or the rank-local statistics are not told apart")
+    row.update({"resnet50_f32_err": f32_parts, "local_stats_err": local_err,
+                "resnet50_dp2_step_ms": dp_ms, "resnet50_one_step_ms": one_ms,
+                "sync_layers": n_sync})
+    del out, local
+
+    # f64 gradients on bench.py's small ResNet, 2 x 4 at 64^2
+    xs8, ys8 = vision_batch(2 * 4, 3, SMALL_VISION_HW, 10, seed=4)
+    x8 = torch.from_numpy(xs8).cuda().double()
+    y8 = torch.from_numpy(ys8).cuda()
+    torch.manual_seed(0)
+    small = resnet18(num_classes=10, device="cuda").double()
+    s_state = copy.deepcopy(small.state_dict())
+    old = _snap(small)
+    TrainStep(small, vision_loss, SGD(learning_rate=1.0))(x8, y8)
+    want_move = {n: p.detach() - old[n] for n, p in small.named_parameters()}
+    smalls = []
+    for _ in range(2):
+        m = resnet18(num_classes=10, device="cuda").double()
+        m.load_state_dict(s_state)
+        smalls.append(SyncBatchNorm.convert_sync_batchnorm(m))
+
+    def small_dp2(cls):
+        """The per-leaf error of the dp = 2 move against one rank's."""
+        for m in smalls:
+            m.load_state_dict(s_state)
+        LoopbackWorld(2).run(lambda r, mesh: cls(
+            smalls[r], vision_loss, SGD(learning_rate=1.0), mesh=mesh)(
+                x8, y8))
+        return max(float(((p.detach() - old[n]) - want_move[n]).abs().max()
+                         / want_move[n].abs().max().clamp_min(1e-30))
+                   for n, p in smalls[0].named_parameters())
+    g_err, g_local = small_dp2(ShardedTrainStep), small_dp2(LocalStats)
+
+    def recompute_refused(rank, mesh):
+        try:
+            ShardedTrainStep(smalls[rank], vision_loss, SGD(learning_rate=1.0),
+                             mesh=mesh, recompute=True)
+        except NotImplementedError:
+            return True
+        return False
+    refused = LoopbackWorld(2).run(recompute_refused)
+    log(f"syncbn: resnet18 (2 x 4, {SMALL_VISION_HW}^2) in f64 training "
+        f"mode (f32 statistics), SyncBatchNorm at dp=2 against BatchNorm "
+        f"over 8 on one rank: every gradient (an SGD(1.0) move) within "
+        f"{g_err:.3g} of the move (limit {TOL_SYNCBN_F64}); each rank's own "
+        f"statistics instead read {g_local:.3g}; recompute=True on the "
+        f"simulated ranks refused: {refused}")
+    if g_err > TOL_SYNCBN_F64 or not g_local > TOL_SYNCBN_F64:
+        fail("syncbn: the f64 gradients are not the global batch's, or the "
+             "rank-local statistics are not told apart")
+    if refused != [True, True]:
+        fail("syncbn: ShardedTrainStep(recompute=True) with batch norms on "
+             "simulated ranks on the card was not refused")
+    row["resnet18_f64_local_stats_err"] = g_local
+    row["resnet18_f64_grad_err"] = g_err
+    del small, smalls
+
+    # LocalSGD keeps each rank's statistics until a sync
+    class SkipsBuffers(LocalSGDTrainStep):
+        """A planted fault: the sync averages the parameters only."""
+
+        def _average_params(self):
+            for p in self._params().values():
+                p.copy_(mean_over(self.mesh.group, p.detach().float()).to(
+                    p.dtype))
+
+    def localsgd(cls):
+        for m in replicas:
+            m.load_state_dict(state)
+
+        def fn(rank, mesh):
+            m = replicas[rank]
+            step = cls(m, vision_loss, SGD(learning_rate=0.0), mesh=mesh,
+                       k_steps=2, begin_step=1)
+            step(x, y)
+            first = bufs(m)
+            step(x, y)
+            return first, bufs(m)
+        return LoopbackWorld(2).run(fn)
+    ranks = localsgd(LocalSGDTrainStep)
+    own_err = 0.0
+    for r in range(2):
+        m = resnet50(device="cuda")
+        m.load_state_dict(state)
+        with torch.no_grad():
+            m(x[r * SYNCBN_B:(r + 1) * SYNCBN_B])
+        own_err = max([own_err] + [scaled_err(ranks[r][0][n].cpu(), b.cpu())
+                                   for n, b in m.named_buffers()])
+    differ = any(not torch.equal(ranks[0][0][n], ranks[1][0][n])
+                 for n in want_bufs)
+    synced = all(torch.equal(ranks[0][1][n], ranks[1][1][n])
+                 for n in want_bufs)
+    skipped = localsgd(SkipsBuffers)
+    fault_synced = all(torch.equal(skipped[0][1][n], skipped[1][1][n])
+                       for n in want_bufs)
+    log(f"syncbn: the same ResNet-50 under LocalSGDTrainStep (k=2): after a "
+        f"local step each rank's running stats are its own 32's "
+        f"({own_err:.3g} of a lone forward on its slice; the ranks' "
+        f"{'differ' if differ else 'are equal'}), after the sync bitwise "
+        f"equal: {synced}; the planted sync that skips the buffers leaves "
+        f"them equal: {fault_synced}")
+    if own_err > TOL_VISION_F32 or not differ or not synced or fault_synced:
+        fail("syncbn: LocalSGD's statistics are not the ranks' own until a "
+             "sync, or the planted sync that skips the buffers was not "
+             "caught")
+    row.update({"localsgd_own_stats_err": own_err,
+                "localsgd_buffers_synced": synced})
+    del replicas, ranks, skipped, base
+    torch.cuda.empty_cache()
+    return row
+
+
+def vision_loss_of(out, y):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    return cross_entropy(out, y).mean()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -8451,6 +9135,8 @@ def main() -> int:
     train_row = {"train_step_ms": step_ms,
                  "train_tokens_per_s": B * S / step_ms * 1e3,
                  "train_peak_bytes": train_mem, "train_losses": losses}
+    # the trajectory fleet-gpt (45) must give bitwise, kept on the host
+    train_final = {n: p.detach().cpu() for n, p in tmodel.named_parameters()}
     del step, tmodel, loss_t
     torch.cuda.empty_cache()
 
@@ -9790,6 +10476,27 @@ def main() -> int:
     log(f"deployment phases (42-44): {deploy_row['deploy_phases_s']:.1f} s "
         f"of wall time; launches inside captured and loaded graphs "
         f"{captured}")
+
+    # -- 45. fleet-gpt --------------------------------------------------------
+    # -- 46. dp-meta ----------------------------------------------------------
+    # -- 47. syncbn -----------------------------------------------------------
+    # data parallelism's user surface: fleet, ShardedTrainStep's stages,
+    # LocalSGD, DGC, SyncBatchNorm; #1-#3 run under every GPT step, each
+    # phase sets the counters to 0 and reads them, and its launches join
+    # the kernel table's
+    t_dp = time.perf_counter()
+    dp_row = {}
+    dp_row["fleet_gpt"], fleet_launch = fleet_gpt_phase(
+        cfg, ids_t, fa, train_row["train_losses"], train_final, power)
+    del train_final
+    dp_row["dp_meta"], meta_launch = dp_meta_phase(cfg, ids_t, fa, power)
+    dp_row["syncbn"] = syncbn_phase(resnet18, resnet50, power)
+    dp_row["dp_phases_s"] = time.perf_counter() - t_dp
+    for k in kernels:
+        for extra in (fleet_launch, meta_launch):
+            k["launches"] += extra.get(k["name"], 0)
+    log(f"data-parallel phases (45-47): {dp_row['dp_phases_s']:.1f} s of "
+        f"wall time; launches {fleet_launch}, {meta_launch}")
     for row in table:
         log(json.dumps(row))
 
@@ -9842,7 +10549,7 @@ def main() -> int:
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
-        **det_row, **tensor_row, **second_row, **deploy_row,
+        **det_row, **tensor_row, **second_row, **deploy_row, **dp_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

@@ -15,8 +15,7 @@ port's: ``is_compiled_with_cuda`` says whether this PyTorch was built
 with CUDA, ``get_cudnn_version`` gives cuDNN's version, and the places
 are ``torch.device``s.  The reference's ``TPUPlace`` and ``XPUPlace``
 name devices the port does not have and are left out; so are the names
-of modules still to port (``distributed``'s, ``hapi``, ``io``,
-``DataParallel``, ``monitor``).  The ported subpackages are bound at
+of modules still to port (``hapi``, ``io``, ``monitor``).  The ported subpackages are bound at
 import, as the reference binds its own (``paddle_tpu/__init__.py:55-77``),
 and so are the nine tensor submodules (``paddle.linalg.norm``).
 """
@@ -37,8 +36,9 @@ from paddle_tpu_torch.tensor import (  # noqa: F401
     creation, linalg, logic, manipulation, math, random, search, sequence,
     stat)
 from paddle_tpu_torch import (  # noqa: F401,E402
-    framework, inference, jit, models, nn, optimizer, parallel,
+    distributed, framework, inference, jit, models, nn, optimizer, parallel,
     quantization, static, vision)
+from paddle_tpu_torch.distributed.parallel import DataParallel  # noqa: F401,E402,E501
 
 import torch as _torch
 

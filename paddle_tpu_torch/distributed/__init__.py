@@ -1,1 +1,43 @@
-"""Distributed helpers of the port: the wire codecs of the collectives."""
+"""``paddle.distributed`` of the port (paddle_tpu/distributed/
+__init__.py): the collective API over the mesh's groups
+(``collective.py``), ``ParallelEnv``, ``init_parallel_env`` and
+``DataParallel`` (``parallel.py``), ``spawn``, ``fleet`` in collective
+mode, and the wire codecs of the collectives (``wire.py``).  Not ported
+yet, each raising ``NotImplementedError`` naming its ROADMAP item:
+``split`` and the tensor-parallel layers (item 3b), the parameter server
+``ps`` and the ``dataset`` names (item 4), ``checkpoint`` (item 5),
+``elastic`` and ``launch`` (item 6)."""
+from paddle_tpu_torch.distributed.collective import (  # noqa: F401
+    Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
+    destroy_process_group, get_group, get_rank, get_world_size,
+    is_initialized, new_group, p2p_shift, recv, reduce, reduce_scatter,
+    scatter, send, split, wait)
+from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
+    DataParallel, ParallelEnv, init_parallel_env)
+from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401
+from paddle_tpu_torch.distributed import fleet  # noqa: F401
+from paddle_tpu_torch._pending import pending, pending_modules
+
+ColumnParallelLinear = pending("ColumnParallelLinear", "3b",
+                               "tensor parallelism")
+RowParallelLinear = pending("RowParallelLinear", "3b", "tensor parallelism")
+VocabParallelEmbedding = pending("VocabParallelEmbedding", "3b",
+                                 "tensor parallelism")
+shard_tensor = pending("shard_tensor", "3b", "tensor parallelism")
+DatasetFactory = pending("DatasetFactory", "4", "the PS datasets")
+InMemoryDataset = pending("InMemoryDataset", "4", "the PS datasets")
+QueueDataset = pending("QueueDataset", "4", "the PS datasets")
+train_from_dataset = pending("train_from_dataset", "4", "the PS datasets")
+__getattr__ = pending_modules("paddle_tpu_torch.distributed", {
+    "ps": ("4", "the parameter server"), "checkpoint": ("5", "checkpoints"),
+    "durable": ("5", "checkpoints"), "elastic": ("6", "elastic training"),
+    "launch": ("6", "the launcher")})
+
+__all__ = [
+    "init_parallel_env", "ParallelEnv", "DataParallel", "spawn",
+    "get_rank", "get_world_size", "is_initialized", "new_group", "get_group",
+    "destroy_process_group", "Group", "ReduceOp", "all_reduce", "all_gather",
+    "broadcast", "reduce", "scatter", "reduce_scatter", "alltoall",
+    "barrier", "send", "recv", "wait", "split", "fleet", "shard_tensor",
+    "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
+]

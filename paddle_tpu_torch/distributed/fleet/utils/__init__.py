@@ -12,6 +12,9 @@ pass-through outputs.  Inside
 ``jit.TrainStep`` it replays under the step's AMP cast, so a module called
 in the block reads the same cast weights in both runs.
 """
+from paddle_tpu_torch._pending import pending_modules
 from paddle_tpu_torch.jit.recompute import recompute_capturing as recompute
 
 __all__ = ["recompute"]
+__getattr__ = pending_modules("paddle_tpu_torch.distributed.fleet.utils", {
+    "fs": ("5", "the file systems of checkpoints")})

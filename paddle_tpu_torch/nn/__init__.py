@@ -23,7 +23,8 @@ from paddle_tpu_torch.nn.layer import (  # noqa: F401
     ParameterList, PixelShuffle, PReLU, ReLU, ReLU6, RNN, RNNCellBase,
     SELU, Sequential, Sigmoid, SigmoidFocalLoss, Silu, SimpleRNN,
     SimpleRNNCell, SmoothL1Loss, SoftMarginLoss, Softmax, Softplus,
-    Softshrink, Softsign, SpectralNorm, Swish, Tanh, Tanhshrink,
+    Softshrink, Softsign, SpectralNorm, Swish, SyncBatchNorm, Tanh,
+    Tanhshrink,
     ThresholdedReLU, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
     TripletMarginLoss, Unfold, Upsample, UpsamplingBilinear2D,

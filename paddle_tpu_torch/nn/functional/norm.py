@@ -16,6 +16,15 @@
   ``momentum`` is the complement) and the unbiased variance ``v * n / (n -
   1)``.  A bf16 statistic adds into f32 buffers, which stay f32.
 
+Inside :func:`batch_stats_over` (``parallel.sharded.ShardedTrainStep``
+opens it around each rank's forward) a training batch norm takes the
+statistics of the global batch, whose equal slices the ranks hold: the
+per-channel sums (and sums of squared deviations) of the rank's slice go
+through the given differentiable sum over the ranks, then divide by the
+global count; the running statistics update from those.  As on one rank,
+the statistics accumulate in f32 whatever the input's dtype (reference
+``_mean_var_1pass``), an f64 input's too.
+
 ``F.batch_norm`` is not used: it takes one statistic pass of its own and
 refuses some of the O2 mixes (bf16 input and weight, f32 running stats).
 In evaluation the running stats are cast to the input's dtype before they
@@ -36,7 +45,10 @@ epsilon)`` (an all-zero row's gradient is NaN, in both packages).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +57,23 @@ from paddle_tpu_torch.amp import amp_op
 from paddle_tpu_torch.framework.replay import replaying
 
 __all__ = ["layer_norm", "batch_norm", "instance_norm", "group_norm",
-           "local_response_norm", "normalize"]
+           "local_response_norm", "normalize", "batch_stats_over"]
+
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stats_over(reduce_sum, ranks: int):
+    """Inside, a training batch norm normalises by the statistics of a
+    batch cut into ``ranks`` equal slices, this thread's rank holding one:
+    ``reduce_sum(t)`` returns the sum of ``t`` over the ranks, with its
+    gradient."""
+    prev = getattr(_STATS, "over", None)
+    _STATS.over = (reduce_sum, int(ranks))
+    try:
+        yield
+    finally:
+        _STATS.over = prev
 
 
 @amp_op("layer_norm")
@@ -75,6 +103,24 @@ def _mean_var(a, axes, keepdims=False):
     return m.to(a.dtype), v.to(a.dtype)
 
 
+def _global_mean_var(a, axes, reduce_sum, ranks):
+    """``_mean_var`` over the global batch of ``ranks`` equal slices, a
+    of this rank's: its numerics, the sums taken across the ranks."""
+    af = a.float()
+    n = math.prod(a.shape[ax] for ax in axes) * ranks
+    if a.dtype in (torch.float32, torch.float64):
+        m = reduce_sum(af.sum(axes)) / n
+        shape = [1] * a.dim()
+        c_axis = next(i for i in range(a.dim()) if i not in axes)
+        shape[c_axis] = a.shape[c_axis]
+        v = reduce_sum((af - m.reshape(shape)).square().sum(axes)) / n
+    else:
+        s = reduce_sum(torch.stack([af.sum(axes), (af * af).sum(axes)]))
+        m = s[0] / n
+        v = (s[1] / n - m * m).clamp_min(0.0)
+    return m.to(a.dtype), v.to(a.dtype)
+
+
 @amp_op("batch_norm")
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
@@ -90,7 +136,10 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     axes = tuple(i for i in range(x.dim()) if i != c_axis)
     shape = [1] * x.dim()
     shape[c_axis] = x.shape[c_axis]
-    if use_batch_stats:
+    over = getattr(_STATS, "over", None) if use_batch_stats else None
+    if over is not None:
+        m, v = _global_mean_var(x, axes, *over)
+    elif use_batch_stats:
         m, v = _mean_var(x, axes)
     else:
         m, v = running_mean.to(x.dtype), running_var.to(x.dtype)
@@ -100,9 +149,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if bias is not None:
         out = out + bias.reshape(shape)
     if use_batch_stats and running_mean is not None and not replaying():
-        n = 1
-        for ax in axes:
-            n *= x.shape[ax]
+        n = math.prod(x.shape[ax] for ax in axes) * (
+            1 if over is None else over[1])
         with torch.no_grad():
             unbiased = v.detach() * (n / max(n - 1, 1))
             running_mean.copy_(momentum * running_mean

@@ -29,7 +29,7 @@ from paddle_tpu_torch.nn.layer.loss import (  # noqa: F401
 from paddle_tpu_torch.nn.layer.norm import (  # noqa: F401
     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
     InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
-    LocalResponseNorm, SpectralNorm)
+    LocalResponseNorm, SpectralNorm, SyncBatchNorm)
 from paddle_tpu_torch.nn.layer.pooling import (  # noqa: F401
     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,

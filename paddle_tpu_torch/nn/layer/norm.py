@@ -8,7 +8,13 @@ A batch norm keeps its running statistics as the buffers ``_mean``
 (``bn1._mean``, ...), in f32 whatever the dtype of the input; its weight
 is ones and its bias zeros.  ``train()`` and ``eval()`` (PyTorch's
 ``training`` flag) choose the batch's statistics, which update the
-buffers in place, or the running ones.  ``SyncBatchNorm`` is not ported.
+buffers in place, or the running ones.  ``SyncBatchNorm`` is the
+reference's (``:92-115``): a batch norm with no forward of its own, and
+``convert_sync_batchnorm``, which swaps every other batch norm of a layer
+tree for one, carrying weight, bias and running statistics across (and
+the training flag).  Its statistics span the ranks only where every
+batch norm's do, inside ``parallel.ShardedTrainStep`` (the global batch);
+under the ``dp_meta`` steps each rank normalises by its own slice.
 
 ``GroupNorm`` and the instance norms hold a weight of ones and a bias of
 zeros (``weight_attr`` / ``bias_attr`` False drop them) and no running
@@ -34,7 +40,7 @@ from paddle_tpu_torch.nn.layer.common import make_param
 from paddle_tpu_torch.nn.layer.layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+           "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
            "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm"]
 
 
@@ -129,6 +135,39 @@ class BatchNorm2D(_BatchNormBase):
 
 class BatchNorm3D(_BatchNormBase):
     pass
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-replica batch norm (reference ``nn/layer/norm.py:92``): the
+    statistics of the global batch where the step's program spans it
+    (``ShardedTrainStep``), the rank's own slice's elsewhere, as every
+    batch norm."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every batch norm below it (not ``layer`` itself)
+        replaced by a ``SyncBatchNorm`` of its features, momentum,
+        epsilon and data format, its weight, bias, mean and variance
+        copied in (reference ``:99-115``); returns ``layer``."""
+        for name, sub in list(layer.named_children()):
+            if isinstance(sub, _BatchNormBase) and not isinstance(
+                    sub, SyncBatchNorm):
+                new = SyncBatchNorm(sub._num_features, sub._momentum,
+                                    sub._epsilon,
+                                    data_format=sub._data_format,
+                                    device=sub._mean.device)
+                with torch.no_grad():
+                    for dst, src in ((new.weight, sub.weight),
+                                     (new.bias, sub.bias),
+                                     (new._mean, sub._mean),
+                                     (new._variance, sub._variance)):
+                        if src is not None:
+                            dst.data = src.detach().clone()
+                new.train(sub.training)
+                setattr(layer, name, new)
+            else:
+                cls.convert_sync_batchnorm(sub)
+        return layer
 
 
 class GroupNorm(Layer):

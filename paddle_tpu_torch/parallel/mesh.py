@@ -1,17 +1,34 @@
-"""The data-parallel mesh over torch.distributed (port of the ``dp`` part
-of paddle_tpu/parallel/mesh.py and dp_meta.py ``_require_pure_dp``).
+"""The device mesh over torch.distributed (port of paddle_tpu/parallel/
+mesh.py :55-282).
 
 The reference names a mesh of devices and lets ``shard_map`` place one
 replica on each; here each replica is a process (a rank), and a
-:class:`Mesh` is the dp axis size with the group that its collectives run
-over.  The steps of ``parallel/zero.py`` and ``parallel/dp_meta.py`` use
-three primitives of that group:
+:class:`Mesh` names the axes the ranks are laid out on (``{"dp": 2,
+"sharding": 2}``), row-major in the reference's axis order (``pp``
+outermost, then ``dp``, ``sharding``, ``mp``, ``sp``, ``ep``), with the
+group of all its ranks (``mesh.group``) and, on demand, the group of the
+ranks that share this rank's coordinates on every other axis
+(:meth:`Mesh.axis_group`): the reference's collectives over named axes.
+
+A group offers the primitives the steps and the collective API build on:
 
 - ``all_to_all(x)``: x (n, ...) -> out (n, ...) with ``out[j]`` rank j's
   ``x[rank]``;
 - ``all_gather(x)``: x (...) -> (n, ...), rank j's x at j;
 - ``ring_shift(bufs)``: send each tensor to rank + 1 and receive the same
-  shapes from rank - 1, one neighbour hop.
+  shapes from rank - 1, one neighbour hop;
+- ``send(x, dst)`` / ``recv(x, src)``: one tensor between two ranks;
+- ``split(rank_lists)``: the subgroup, among the given partition of the
+  group's world ranks, that holds this rank.
+
+The reductions build on them in one order: :func:`ordered_sum` adds the
+ranks' values in rank order, and :func:`sum_over` / :func:`mean_over`
+reduce a tensor over a group as a reduce-scatter (an all-to-all, then
+each rank's ordered sum of its chunk) and an all-gather of the chunks.
+That is a ring all-reduce's traffic, 2 (n - 1) / n of the tensor a
+rank, and a few copies of it whatever n, where an all-gather of the
+whole would hold n; and the same bits on every rank, backend and layout
+(NCCL's and gloo's own all-reduce each choose their order).
 
 :class:`DistGroup` runs them over a ``torch.distributed`` process group
 (the default group unless one is given): NCCL for a model on the card,
@@ -19,25 +36,68 @@ gloo for ``device="cpu"`` (:func:`init_process_group` picks the backend).
 :class:`LoopbackWorld` runs n ranks as threads of one process, each rank
 on its own replica, with the same primitives by exchange in memory: the
 way to run dp >= 2 on a machine with one card, where NCCL refuses two
-ranks on one device.
+ranks on one device.  Each rank thread has its own current mesh
+(:func:`get_mesh` inside ``LoopbackWorld.run`` answers the rank's).
 
-Only the ``dp`` axis is ported: a mesh with another axis of size > 1
-raises (mesh shardings, pipeline and sequence parallelism come later).
+A mesh may name ``mp`` and ``pp`` (the topology arithmetic of
+:class:`HybridTopology` and fleet reads them); the train steps that
+would run them are ROADMAP item 3b and raise.  ``DistAttr`` and
+``shard_spec`` keep the reference's annotations (a tuple of axis names a
+dim is split over) for the parallel layers of item 3b; the ported steps
+read none.
 """
 from __future__ import annotations
 
+import math
+import queue
 import threading
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "DistGroup", "LoopbackWorld", "make_mesh", "set_mesh",
-           "get_mesh", "init_process_group"]
+           "ordered_sum", "sum_over", "mean_over",
+           "get_mesh", "init_process_group", "auto_mesh", "mesh_axis_size",
+           "shard_spec", "DistAttr", "HybridTopology", "AXIS_ORDER"]
+
+# canonical axis order (reference :51): pipeline outermost, model innermost
+AXIS_ORDER = ("pp", "dp", "sharding", "mp", "sp", "ep")
+
+
+def ordered_sum(stacked: torch.Tensor) -> torch.Tensor:
+    """``stacked[0] + stacked[1] + ...`` added in that order, in stacked's
+    dtype."""
+    acc = stacked[0].clone()
+    for j in range(1, stacked.shape[0]):
+        acc += stacked[j]
+    return acc
+
+
+def sum_over(group, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the group's ranks, added in rank order in t's
+    dtype: the all-to-all of t's n chunks (t flattened, padded to a
+    multiple of n), the ordered sum of this rank's chunk, the all-gather
+    of the chunks."""
+    n = group.size
+    if n == 1:
+        return t.clone()
+    flat = t.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % n)])
+    part = ordered_sum(group.all_to_all(flat.reshape(n, -1)))
+    return group.all_gather(part).reshape(-1)[:t.numel()].reshape(t.shape)
+
+
+def mean_over(group, t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over the group's ranks (the reference's
+    ``pmean``), summed as :func:`sum_over` sums, in t's dtype promoted to
+    at least f32: the caller casts back."""
+    acc = torch.promote_types(t.dtype, torch.float32)
+    return sum_over(group, t.to(acc)) / group.size
 
 
 class DistGroup:
-    """The three collective primitives over a torch.distributed group."""
+    """The collective primitives over a torch.distributed group."""
 
     def __init__(self, group=None):
         if not dist.is_initialized():
@@ -48,6 +108,8 @@ class DistGroup:
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
+        self.ranks = (list(range(self.size)) if group is None
+                      else dist.get_process_group_ranks(group))
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(x)
@@ -61,8 +123,8 @@ class DistGroup:
         return out
 
     def ring_shift(self, bufs) -> List[torch.Tensor]:
-        nxt = (self.rank + 1) % self.size
-        prv = (self.rank - 1) % self.size
+        nxt = self.ranks[(self.rank + 1) % self.size]
+        prv = self.ranks[(self.rank - 1) % self.size]
         recv = [torch.empty_like(b) for b in bufs]
         ops = ([dist.P2POp(dist.isend, b.contiguous(), nxt, self.group)
                 for b in bufs]
@@ -71,38 +133,99 @@ class DistGroup:
             req.wait()
         return recv
 
+    def send(self, x: torch.Tensor, dst: int):
+        dist.send(x.contiguous(), self.ranks[dst], group=self.group)
+
+    def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        dist.recv(x, self.ranks[src], group=self.group)
+        return x
+
+    def barrier(self):
+        dist.barrier(group=self.group)
+
+    def split(self, rank_lists: Sequence[Sequence[int]]) -> "DistGroup":
+        """Every rank of the group calls this with the same lists:
+        ``dist.new_group`` is collective over the world.  None where this
+        rank is in no list."""
+        mine = None
+        for ranks in rank_lists:
+            g = dist.new_group(list(ranks))
+            if self.ranks[self.rank] in ranks:
+                mine = g
+        return None if mine is None else DistGroup(mine)
+
+
+class _Exchange:
+    """The rendezvous of a set of loopback ranks: slots and a barrier."""
+
+    def __init__(self, n: int, timeout: float):
+        self.slots: list = [None] * n
+        self.barrier = threading.Barrier(n, timeout=timeout)
+
+    def __call__(self, idx: int, obj, read=list):
+        """Post ``obj``, then ``read`` the ranks' posts (copy what it
+        keeps: a rank may write its tensor in place once every rank has
+        read)."""
+        self.slots[idx] = obj
+        self.barrier.wait()
+        got = read(self.slots)
+        self.barrier.wait()              # every rank has read the slots
+        return got
+
 
 class LoopbackWorld:
     """``n`` ranks in one process: :meth:`run` calls ``fn(rank, mesh)`` on
     n threads and returns their results in rank order.  The collectives
     meet at a barrier and exchange tensors by reference, on the one device
     all ranks share (work on one CUDA stream stays in its order).  A rank
-    that raises breaks the barrier, so the others raise too, and the first
-    error is re-raised."""
+    that raises breaks the barriers, so the others raise too, and the
+    first error is re-raised."""
 
     def __init__(self, n: int, timeout: float = 600.0):
         self.n = int(n)
-        self._slots: list = [None] * self.n
-        self._barrier = threading.Barrier(self.n, timeout=timeout)
+        self.timeout = timeout
+        self._lock = threading.Lock()
+        self._exchanges: Dict[Tuple[int, ...], _Exchange] = {}
+        self._mailboxes: Dict[Tuple[int, int], queue.Queue] = {}
+        self._aborted = False
 
-    def _exchange(self, rank: int, obj) -> list:
-        self._slots[rank] = obj
-        self._barrier.wait()
-        got = list(self._slots)
-        self._barrier.wait()              # every rank has read the slots
-        return got
+    def _exchange(self, ranks: Tuple[int, ...]) -> _Exchange:
+        with self._lock:
+            ex = self._exchanges.get(ranks)
+            if ex is None:
+                ex = self._exchanges[ranks] = _Exchange(len(ranks),
+                                                        self.timeout)
+                if self._aborted:
+                    ex.barrier.abort()
+            return ex
 
-    def run(self, fn: Callable) -> list:
+    def _mailbox(self, src: int, dst: int) -> queue.Queue:
+        with self._lock:
+            return self._mailboxes.setdefault((src, dst), queue.Queue())
+
+    def _abort(self):
+        with self._lock:
+            self._aborted = True
+            for ex in self._exchanges.values():
+                ex.barrier.abort()
+
+    def run(self, fn: Callable, axes: Optional[Dict[str, int]] = None
+            ) -> list:
+        """``axes`` lays the n ranks out on a mesh ({"dp": n} when None)."""
         results: list = [None] * self.n
         errors: list = [None] * self.n
+        world = tuple(range(self.n))
 
         def body(rank):
+            _LOCAL.world = True
             try:
-                results[rank] = fn(rank, Mesh({"dp": self.n},
-                                              _LoopbackGroup(self, rank)))
+                mesh = Mesh(axes or {"dp": self.n},
+                            _LoopbackGroup(self, world, rank))
+                _LOCAL.mesh = mesh
+                results[rank] = fn(rank, mesh)
             except BaseException as e:    # noqa: BLE001 - re-raised below
                 errors[rank] = e
-                self._barrier.abort()
+                self._abort()
 
         threads = [threading.Thread(target=body, args=(r,),
                                     name=f"dp-rank-{r}")
@@ -121,37 +244,110 @@ class LoopbackWorld:
 
 
 class _LoopbackGroup:
-    def __init__(self, world: LoopbackWorld, rank: int):
+    """The group of world ranks ``ranks`` of a :class:`LoopbackWorld`, seen
+    from world rank ``me``."""
+
+    def __init__(self, world: LoopbackWorld, ranks: Tuple[int, ...],
+                 me: int):
         self.world = world
-        self.rank = rank
-        self.size = world.n
+        self.ranks = list(ranks)
+        self.rank = self.ranks.index(me)
+        self.size = len(ranks)
+        self._ex = world._exchange(tuple(ranks))
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        got = self.world._exchange(self.rank, x)
-        return torch.stack([got[j][self.rank] for j in range(self.size)])
+        return self._ex(self.rank, x, lambda got: torch.stack(
+            [got[j][self.rank] for j in range(self.size)]))
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.stack(self.world._exchange(self.rank, x))
+        return self._ex(self.rank, x, torch.stack)
 
     def ring_shift(self, bufs) -> List[torch.Tensor]:
-        got = self.world._exchange(self.rank, list(bufs))
-        return [b.clone() for b in got[(self.rank - 1) % self.size]]
+        prv = (self.rank - 1) % self.size
+        return self._ex(self.rank, list(bufs),
+                        lambda got: [b.clone() for b in got[prv]])
+
+    def send(self, x: torch.Tensor, dst: int):
+        self.world._mailbox(self.ranks[self.rank], self.ranks[dst]).put(
+            x.detach().clone())
+
+    def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        got = self.world._mailbox(self.ranks[src], self.ranks[self.rank]
+                                  ).get(timeout=self.world.timeout)
+        x.copy_(got)
+        return x
+
+    def barrier(self):
+        self._ex(self.rank, None)
+
+    def split(self, rank_lists: Sequence[Sequence[int]]) -> "_LoopbackGroup":
+        me = self.ranks[self.rank]
+        mine = next((tuple(r) for r in rank_lists if me in r), None)
+        return None if mine is None else _LoopbackGroup(self.world, mine, me)
+
+
+def _ordered_axes(names) -> List[str]:
+    return [a for a in AXIS_ORDER if a in names] + [
+        a for a in names if a not in AXIS_ORDER]
 
 
 class Mesh:
-    """A data-parallel mesh: ``shape`` ({"dp": n}) and ``group``, the
-    collectives of this rank (``rank``) among the n."""
+    """Named axes over ``group``'s ranks: ``shape`` ({axis: size}, in the
+    reference's axis order; the sizes multiply to the group's size) and
+    ``group``, the collectives of this rank (``rank``) among them all."""
 
     def __init__(self, shape: Dict[str, int], group):
-        self.shape = dict(shape)
+        names = _ordered_axes(shape)
+        self.shape = {a: int(shape[a]) for a in names}
+        self.axis_names = tuple(names)
         self.group = group
-        if group.size != self.shape.get("dp", 1):
-            raise ValueError(f"mesh dp={self.shape.get('dp', 1)} does not "
-                             f"match the group's {group.size} ranks")
+        if math.prod(self.shape.values()) != group.size:
+            raise ValueError(f"mesh axes {self.shape} do not lay out the "
+                             f"group's {group.size} ranks")
+        self._axis_groups: Dict[Tuple[str, ...], object] = {}
+        self.registry: dict = {}          # collective.new_group's groups
 
     @property
     def rank(self) -> int:
         return self.group.rank
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    def axes_of(self, axes) -> Tuple[str, ...]:
+        """``axes`` (a name, a tuple of names, or None for all) as the
+        mesh's own axes in mesh order; absent names are dropped."""
+        if axes is None:
+            return self.axis_names
+        want = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in want)
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self.axes_of(axes))
+
+    def axis_group(self, axes):
+        """The group of the ranks that share this rank's coordinates on
+        every axis but ``axes``, in row-major order of ``axes`` (the
+        reference's collectives over those mesh axes).  Built once an axis
+        set, on every rank in the same order (``dist.new_group`` is
+        collective)."""
+        key = self.axes_of(axes)
+        if key not in self._axis_groups:
+            topo = HybridTopology(self)
+            if self.axis_size(key) == self.size:
+                g = self.group
+            else:
+                lists, seen = [], set()
+                for r in range(self.size):
+                    if r in seen:
+                        continue
+                    members = topo.group_ranks(r, key)
+                    seen.update(members)
+                    lists.append([self.group.ranks[m] for m in members])
+                g = self.group.split(lists)
+            self._axis_groups[key] = g
+        return self._axis_groups[key]
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -165,6 +361,17 @@ def _require_pure_dp(mesh: Mesh, who: str = "this strategy"):
         raise ValueError(
             f"{who} is a pure data-parallel strategy (as in the reference "
             f"meta-opt DAG); mesh also has {extra}")
+
+
+def require_no_model_parallel(mesh: Mesh, who: str):
+    """Raise NotImplementedError when ``mesh`` has a model-parallel axis
+    (``mp``, ``pp``, ``sp``, ``ep``) of size > 1: ROADMAP item 3b."""
+    extra = {a: s for a, s in mesh.shape.items()
+             if a not in ("dp", "sharding") and s > 1}
+    if extra:
+        raise NotImplementedError(
+            f"{who} over the model-parallel axes {extra} is ROADMAP Queue 1 "
+            "item 3b (model parallelism), not ported yet")
 
 
 def init_process_group(device="cuda", *, rank: int, world_size: int,
@@ -185,32 +392,204 @@ def init_process_group(device="cuda", *, rank: int, world_size: int,
                             world_size=world_size)
 
 
+_LOCAL = threading.local()
+
+
+def in_loopback() -> bool:
+    """Whether the calling thread is a rank of a :class:`LoopbackWorld`."""
+    return getattr(_LOCAL, "world", False)
+
+
+def world_group():
+    """This rank's group of all ranks: the loopback rank's world, else the
+    default torch.distributed group (raises when it is not initialised)."""
+    if in_loopback():
+        return _LOCAL.mesh.group
+    return DistGroup(None)
+
+
 def make_mesh(axes: Dict[str, int], group=None) -> Mesh:
-    """A dp mesh over ``group`` (a torch.distributed group, the default
-    one when None); ``{"dp": -1}`` takes the group's size.  Axes other
-    than ``dp`` of size > 1 are not ported and raise."""
-    extra = {a: s for a, s in axes.items() if a != "dp" and s != 1}
-    if extra:
-        raise NotImplementedError(
-            f"mesh axes {extra}: only the dp axis is ported")
-    g = DistGroup(group)
-    dp = axes.get("dp", -1)
-    return Mesh({"dp": g.size if dp == -1 else int(dp)}, g)
+    """A mesh of the named axes over ``group`` (the calling rank's world
+    when None); a size of -1 takes what the others leave.  The sizes must
+    lay out every rank of the group: the port's ranks each hold a replica,
+    so a sub-mesh over fewer ranks (the reference's ``devices[:need]``)
+    raises."""
+    g = world_group() if group is None else (
+        group if hasattr(group, "all_gather") else DistGroup(group))
+    names = _ordered_axes(axes)
+    sizes = [int(axes[a]) for a in names]
+    if -1 in sizes:
+        known = math.prod(s for s in sizes if s != -1)
+        sizes[sizes.index(-1)] = g.size // known
+    shape = dict(zip(names, sizes)) or {"dp": g.size}
+    if math.prod(shape.values()) != g.size:
+        raise ValueError(f"mesh axes {shape} do not lay out the "
+                         f"{g.size} ranks of the world")
+    return Mesh(shape, g)
+
+
+def auto_mesh(dp: int = -1, mp: int = 1, pp: int = 1, sharding: int = 1,
+              sp: int = 1, ep: int = 1, group=None) -> Mesh:
+    """Fleet-style mesh from hybrid degrees (reference :81)."""
+    axes = {}
+    for name, size in (("pp", pp), ("dp", dp), ("sharding", sharding),
+                       ("mp", mp), ("sp", sp), ("ep", ep)):
+        if size != 1:
+            axes[name] = size
+    return make_mesh(axes or {"dp": -1}, group)
 
 
 _global_mesh: Optional[Mesh] = None
 
 
 def set_mesh(mesh: Mesh) -> Mesh:
+    """Make ``mesh`` the active one: the rank's own inside a
+    :class:`LoopbackWorld`, the process's otherwise."""
     global _global_mesh
-    _global_mesh = mesh
+    if in_loopback():
+        _LOCAL.mesh = mesh
+    else:
+        _global_mesh = mesh
     return mesh
 
 
 def get_mesh() -> Mesh:
-    """The active mesh; by default a dp mesh over the whole default
-    group."""
+    """The active mesh; by default a dp mesh over the whole world."""
     global _global_mesh
+    if in_loopback():
+        return _LOCAL.mesh
     if _global_mesh is None:
         _global_mesh = make_mesh({"dp": -1})
     return _global_mesh
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The active mesh, or None where none is set and torch.distributed is
+    not initialised (a lone process)."""
+    if in_loopback():
+        return _LOCAL.mesh
+    if _global_mesh is None and not dist.is_initialized():
+        return None
+    return get_mesh()
+
+
+def mesh_axis_size(axis: str, mesh: Optional[Mesh] = None) -> int:
+    mesh = mesh or get_mesh()
+    return mesh.shape.get(axis, 1)
+
+
+def _clean_axes(axes, mesh: Mesh) -> tuple:
+    """Drop axes absent from ``mesh`` (they become replicated) and the
+    trailing Nones (reference :109)."""
+    cleaned = []
+    for a in axes:
+        if a is None:
+            cleaned.append(None)
+        elif isinstance(a, (tuple, list)):
+            keep = tuple(x for x in a if x in mesh.shape)
+            cleaned.append(keep if keep else None)
+        else:
+            cleaned.append(a if a in mesh.shape else None)
+    while cleaned and cleaned[-1] is None:
+        cleaned.pop()
+    return tuple(cleaned)
+
+
+def shard_spec(*axes) -> tuple:
+    """Mesh-tolerant partition spec over the active mesh (a tuple, the
+    reference's ``PartitionSpec`` entries)."""
+    return _clean_axes(axes, get_mesh())
+
+
+class DistAttr:
+    """Sharding annotation carried by a parameter (reference :186): the
+    mesh axes each of its dims is split over.  The ported steps shard
+    only over the data axes and read none; the parallel layers of item 3b
+    will."""
+
+    __slots__ = ("spec",)
+
+    def __init__(self, spec: Sequence):
+        self.spec = tuple(spec)
+
+    def sharding(self, mesh: Optional[Mesh] = None) -> tuple:
+        return _clean_axes(self.spec, mesh or get_mesh())
+
+    def __repr__(self):
+        return f"DistAttr({self.spec})"
+
+
+class HybridTopology:
+    """Rank-coordinate bookkeeping over a named mesh (reference :210):
+    world rank -> coordinates (row-major over the mesh's axes), the ranks
+    of a rank's group along an axis, the degrees."""
+
+    def __init__(self, mesh: Optional[Mesh] = None):
+        self._mesh = mesh or get_mesh()
+        self._names = list(self._mesh.axis_names)
+        self._sizes = [self._mesh.shape[n] for n in self._names]
+        self._n = math.prod(self._sizes)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self._mesh
+
+    def world_size(self) -> int:
+        return self._n
+
+    def coordinate(self, rank: int) -> Tuple[int, ...]:
+        coord = []
+        rem = rank
+        for size in reversed(self._sizes):
+            coord.append(rem % size)
+            rem //= size
+        return tuple(reversed(coord))
+
+    def rank_of(self, coord: Sequence[int]) -> int:
+        rank = 0
+        for c, size in zip(coord, self._sizes):
+            rank = rank * size + c
+        return rank
+
+    def _axis_idx(self, axis: str) -> int:
+        if axis not in self._names:
+            raise ValueError(f"axis {axis!r} not in mesh {self._names}")
+        return self._names.index(axis)
+
+    def get_degree(self, axis: str) -> int:
+        return self._sizes[self._axis_idx(axis)] if axis in self._names else 1
+
+    def axis_rank(self, rank: int, axis: str) -> int:
+        """This rank's index along ``axis`` (e.g. its pipeline stage)."""
+        if axis not in self._names:
+            return 0
+        return self.coordinate(rank)[self._axis_idx(axis)]
+
+    def group_ranks(self, rank: int, axes) -> List[int]:
+        """All world ranks in ``rank``'s communicator along ``axes`` (one
+        name or several), in row-major order of those axes (reference
+        ``topology.py`` get_comm_group)."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = [self._axis_idx(a) for a in names]
+        idx.sort()
+        coord = list(self.coordinate(rank))
+        out = []
+        for flat in range(math.prod(self._sizes[i] for i in idx)):
+            rem = flat
+            for i in reversed(idx):
+                coord[i] = rem % self._sizes[i]
+                rem //= self._sizes[i]
+            out.append(self.rank_of(coord))
+        return out
+
+    def get_data_parallel_world_size(self):
+        return self.get_degree("dp")
+
+    def get_model_parallel_world_size(self):
+        return self.get_degree("mp")
+
+    def get_pipe_parallel_world_size(self):
+        return self.get_degree("pp")
+
+    def get_sharding_parallel_world_size(self):
+        return self.get_degree("sharding")

@@ -28,18 +28,9 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                dequantize_rows_torch,
                                                normalize_wire,
                                                quantize_rows_torch)
+from paddle_tpu_torch.parallel.mesh import ordered_sum
 
-__all__ = ["ring_reduce_scatter", "ring_all_gather", "ordered_sum"]
-
-
-def ordered_sum(stacked: torch.Tensor) -> torch.Tensor:
-    """Sum of ``stacked[0], stacked[1], ...`` added in that order, in f32:
-    the same bits on every backend and for every layout of the same
-    values."""
-    acc = stacked[0].to(torch.float32).clone()
-    for j in range(1, stacked.shape[0]):
-        acc += stacked[j]
-    return acc
+__all__ = ["ring_reduce_scatter", "ring_all_gather"]
 
 
 def _blocks(flat: torch.Tensor, chunk: int) -> torch.Tensor:

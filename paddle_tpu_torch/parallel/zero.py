@@ -33,10 +33,11 @@ quantized ring of ``parallel/ring.py``: the same wire bytes, one
 neighbour hop at a time.  The f32 wire keeps the plain legs either way.
 
 Exactness: the f32 reduce-scatter is an all-to-all then the ascending sum
-over the ranks divided by dp (``ring.ordered_sum``), the replicated step's
-mean (``dp_meta.CompressedAllReduceTrainStep``) an all-gather then the same
-sum: the two agree bitwise on gloo and NCCL alike, whose own
-``reduce_scatter`` and ``all_reduce`` choose their order.  On a CUDA tensor
+over the ranks divided by dp (``mesh.ordered_sum``), the replicated step's
+mean (``dp_meta.CompressedAllReduceTrainStep``, ``mesh.mean_over``) the
+same reduce-scatter then an all-gather: the two agree bitwise on gloo
+and NCCL alike, whose own ``reduce_scatter`` and ``all_reduce`` choose
+their order.  On a CUDA tensor
 every int8 / int4 encode runs kernel #9 (``ops/cuda/ring_quant.py``): one
 launch a parameter in each unfused leg.
 
@@ -67,12 +68,14 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                wire_nbytes)
 from paddle_tpu_torch.jit import loss_and_grads, loss_closure
 from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, average_buffers,
-                                               local_batch, mean_over_ranks)
-from paddle_tpu_torch.parallel.mesh import _require_pure_dp, get_mesh
-from paddle_tpu_torch.parallel.ring import (ordered_sum, ring_all_gather,
+                                               local_batch)
+from paddle_tpu_torch.parallel.mesh import (_require_pure_dp, get_mesh,
+                                            mean_over, ordered_sum)
+from paddle_tpu_torch.parallel.ring import (ring_all_gather,
                                             ring_reduce_scatter)
 
-__all__ = ["ShardSpec", "ShardedUpdateTrainStep", "build_shard_specs"]
+__all__ = ["ShardSpec", "ShardedUpdateTrainStep", "build_shard_specs",
+           "init_state_shards", "f32_all_gather", "sharded_clip"]
 
 
 class ShardSpec(NamedTuple):
@@ -95,6 +98,58 @@ def build_shard_specs(params: Dict[str, torch.Tensor], dp: int,
         padded = int(math.ceil(size / q) * q)
         specs[n] = ShardSpec(size=size, padded=padded, shard_len=padded // dp)
     return specs
+
+
+def init_state_shards(optimizer, params: Dict[str, torch.Tensor],
+                      specs: Dict[str, ShardSpec], rank: int) -> dict:
+    """The optimizer's state for the flat chunk ``rank`` owns of every
+    parameter: {name: {slot: (shard_len,) chunk or scalar}} (reference
+    ``:150-175``)."""
+    shards = {}
+    for n, p in params.items():
+        if not p.is_floating_point():
+            raise TypeError(f"sharded update needs floating params; "
+                            f"{n!r} is {p.dtype}")
+        spec = specs[n]
+        flat = F.pad(p.detach().reshape(-1), (0, spec.padded - spec.size))
+        slots = {}
+        # the in-tree optimizers' states are elementwise or scalars, so
+        # the flat init is the flattened full init
+        for k, v in optimizer.init_state(flat).items():
+            if v.dim() == 1 and v.shape[0] == spec.padded:
+                slots[k] = v[rank * spec.shard_len:
+                             (rank + 1) * spec.shard_len].clone()
+            elif v.dim() == 0:
+                slots[k] = v
+            else:
+                raise TypeError(
+                    f"optimizer slot {k!r} for {n!r} has shape "
+                    f"{tuple(v.shape)}: neither elementwise nor scalar; "
+                    "the sharded update cannot place it")
+        shards[n] = slots
+    return shards
+
+
+def f32_all_gather(shard: torch.Tensor, group) -> torch.Tensor:
+    """The f32 leg: (shard_len,) chunk -> (padded,) vector of every rank's
+    chunk in rank order."""
+    return group.all_gather(shard).reshape(-1)
+
+
+def sharded_clip(optimizer, gshards: dict, group) -> dict:
+    """The optimizer's global-norm clip over the sharded gradients: the
+    ranks' sums of squares added in rank order (padding adds exact
+    zeros), reference ``:340-354``."""
+    clip = getattr(optimizer, "_grad_clip", None)
+    if clip is None:
+        return gshards
+    if not hasattr(clip, "clip_norm"):
+        return clip.functional_clip(gshards)
+    sq = sum(torch.sum(g.float() ** 2) for g in gshards.values())
+    gn = torch.sqrt(ordered_sum(group.all_gather(sq)))
+    scale = torch.clamp(clip.clip_norm / torch.clamp(gn, min=1e-12),
+                        max=1.0)
+    return {n: (g * scale).to(g.dtype) for n, g in gshards.items()}
 
 
 class ShardedUpdateTrainStep:
@@ -158,33 +213,9 @@ class ShardedUpdateTrainStep:
     def _ensure_state(self):
         if self._opt_shards is not None:
             return
-        params = self._params()
-        for n, p in params.items():
-            if not p.is_floating_point():
-                raise TypeError(f"sharded update needs floating params; "
-                                f"{n!r} is {p.dtype}")
         self._ensure_specs()
-        lo = self.mesh.rank
-        shards = {}
-        for n, p in params.items():
-            spec = self._specs[n]
-            flat = F.pad(p.detach().reshape(-1), (0, spec.padded - spec.size))
-            slots = {}
-            # the in-tree optimizers' states are elementwise or scalars, so
-            # the flat init is the flattened full init
-            for k, v in self.optimizer.init_state(flat).items():
-                if v.dim() == 1 and v.shape[0] == spec.padded:
-                    slots[k] = v[lo * spec.shard_len:
-                                 (lo + 1) * spec.shard_len].clone()
-                elif v.dim() == 0:
-                    slots[k] = v
-                else:
-                    raise TypeError(
-                        f"optimizer slot {k!r} for {n!r} has shape "
-                        f"{tuple(v.shape)}: neither elementwise nor scalar; "
-                        "the sharded update cannot place it")
-            shards[n] = slots
-        self._opt_shards = shards
+        self._opt_shards = init_state_shards(self.optimizer, self._params(),
+                                             self._specs, self.mesh.rank)
 
     @property
     def _opt_states(self):
@@ -221,7 +252,7 @@ class ShardedUpdateTrainStep:
                                        wire=wire) / dp
         if wire == "f32":
             return ordered_sum(mesh.group.all_to_all(gflat.reshape(dp, -1))
-                               ) / dp
+                               .float()) / dp
         bufs = quantize_rows_torch(gflat.reshape(dp, -1, self.chunk), wire)
         ex = tuple(mesh.group.all_to_all(b) for b in bufs)
         return ordered_sum(dequantize_rows_torch(ex, wire)).reshape(-1) / dp
@@ -233,25 +264,13 @@ class ShardedUpdateTrainStep:
         if self.ring:
             return ring_all_gather(shard, mesh, chunk=self.chunk, wire=wire)
         if wire == "f32":
-            return mesh.group.all_gather(shard).reshape(-1)
+            return f32_all_gather(shard, mesh.group)
         bufs = quantize_rows_torch(shard.reshape(-1, self.chunk), wire)
         got = tuple(mesh.group.all_gather(b) for b in bufs)
         return dequantize_rows_torch(got, wire).reshape(-1)
 
     def _clip(self, gshards: dict) -> dict:
-        """The optimizer's global-norm clip over the sharded gradients: the
-        ranks' sums of squares added in rank order (padding adds exact
-        zeros), reference ``:340-354``."""
-        clip = getattr(self.optimizer, "_grad_clip", None)
-        if clip is None:
-            return gshards
-        if not hasattr(clip, "clip_norm"):
-            return clip.functional_clip(gshards)
-        sq = sum(torch.sum(g.float() ** 2) for g in gshards.values())
-        gn = torch.sqrt(ordered_sum(self.mesh.group.all_gather(sq)))
-        scale = torch.clamp(clip.clip_norm / torch.clamp(gn, min=1e-12),
-                            max=1.0)
-        return {n: (g * scale).to(g.dtype) for n, g in gshards.items()}
+        return sharded_clip(self.optimizer, gshards, self.mesh.group)
 
     # -- the step -----------------------------------------------------------
     def __call__(self, *inputs):
@@ -280,6 +299,6 @@ class ShardedUpdateTrainStep:
                 full = self._all_gather(new_pshards[n].to(p.dtype))
                 p.copy_(full[:self._specs[n].size].view_as(p))
             average_buffers(self.model, self.mesh)
-            loss = mean_over_ranks(loss, self.mesh)
+            loss = mean_over(self.mesh.group, loss)
         self.optimizer._global_step += 1
         return loss

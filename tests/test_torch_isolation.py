@@ -58,7 +58,12 @@ def test_every_module_imports_with_jax_blocked():
               "tensor.search", "tensor.manipulation", "tensor.random",
               "tensor.sequence", "autograd", "framework.io", "static",
               "static.nn", "jit.dy2static", "jit.static",
-              "framework.crypto", "inference", "quantization"):
+              "framework.crypto", "inference", "quantization",
+              "distributed.collective", "distributed.parallel",
+              "distributed.spawn", "distributed.fleet.strategy",
+              "distributed.fleet.role_maker", "distributed.fleet.topology",
+              "distributed.fleet.strategy_compiler",
+              "distributed.fleet.metrics", "parallel.sharded"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"

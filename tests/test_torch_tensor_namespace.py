@@ -117,7 +117,8 @@ TOP_LEVEL = (
     "CUDAPinnedPlace is_compiled_with_cuda is_compiled_with_xpu "
     "is_compiled_with_tpu get_cudnn_version optimizer jit vision models "
     "parallel nn framework static inference quantization creation math "
-    "linalg logic manipulation random search sequence stat").split()
+    "linalg logic manipulation random search sequence stat distributed "
+    "DataParallel").split()
 # what the reference's paddle_tpu.framework re-exports (:15-30)
 FRAMEWORK = ("save load seed Generator default_generator get_rng_state "
              "set_rng_state Parameter Tensor no_grad CPUPlace CUDAPlace "
@@ -128,7 +129,7 @@ def test_top_level_names():
     missing = [n for n in TOP_LEVEL if not hasattr(paddle_tpu_torch, n)]
     assert not missing, missing
     assert all(hasattr(paddle, n) for n in TOP_LEVEL)
-    for n in ("TPUPlace", "XPUPlace", "DataParallel"):
+    for n in ("TPUPlace", "XPUPlace"):
         assert hasattr(paddle, n) and not hasattr(paddle_tpu_torch, n), n
     assert paddle_tpu_torch.float32 is torch.float32
     assert paddle_tpu_torch.seed is T.random.seed
@@ -147,14 +148,17 @@ def test_subpackages_resolve_after_the_top_level_import_alone():
             "paddle.inference.Config.__name__, "
             "paddle.quantization.convert_to_int8_inference.__name__, "
             "paddle.vision.models.resnet18.__name__, "
-            "paddle.models.GPT.__name__)\n")
+            "paddle.models.GPT.__name__, "
+            "paddle.distributed.init_parallel_env.__name__, "
+            "paddle.distributed.fleet.DistributedStrategy.__name__)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["AdamW", "norm", "to_static", "InputSpec",
                                   "Config", "convert_to_int8_inference",
-                                  "resnet18", "GPT"]
+                                  "resnet18", "GPT", "init_parallel_env",
+                                  "DistributedStrategy"]
     for n in FRAMEWORK:
         assert hasattr(paddle.framework, n), n
         assert getattr(paddle_tpu_torch.framework, n) is \
