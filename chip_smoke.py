@@ -507,6 +507,28 @@ Phases, in order; any failure ends the script with a non-zero exit:
              set to 0 before each of phases 45-46 and their launches join
              the kernel table's.
 
+48. tp-gpt — GPT-2 345M (24 layers, B=8, S=1024, remat=False) at mp = 2
+             on two LoopbackWorld ranks (threads on the one card: every
+             time is the simulation's, NCCL at two or more ranks is
+             unmeasured): bf16 serving, the gathered logits and the loss
+             against mp = 1, beside a planted qkv shard cut contiguously
+             instead of by head; 3 ShardedTrainStep steps (O2 bf16,
+             AdamW(1e-4)) against the train phase's losses and a one-rank
+             TrainStep's parameters, both ranks' gathered parameters
+             bitwise equal, each rank's parameter bytes, the host hop's
+             bytes, step ms, peak bytes, 24 launches of #1-#3 a rank a
+             step; dp x mp x sp = 2 x 2 x 2 (8 threads, 2 layers, f32,
+             SGD) against one-rank TrainStep on the global batch; fleet
+             with hybrid_configs {"mp_degree": 2} builds that step.
+49. sp-ring — ring attention on bench_longseq_flash's layer (B*H = 8,
+             S = 8192, D = 128, causal, bf16) at sp = 2 and 4 against
+             #1-#3 on the whole sequence, r + 1 launches of each on rank
+             r, beside three planted faults (every chunk causal, a merge
+             without the chunks' lse, delta from a chunk's output); GPT-2
+             345M at sp = 2 served against sp = 1 and trained 3 steps
+             against the train phase's losses.  The launches of phases
+             48-49 join the kernel table's and are its tp_sp_launches.
+
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -514,6 +536,7 @@ prints no result.  It imports no JAX and nothing of paddle_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -8736,6 +8759,676 @@ def syncbn_phase(resnet18, resnet50, power):
     return row
 
 
+# -- tensor and sequence parallelism (phases 48-49) ---------------------------
+# Ranks are LoopbackWorld threads on the one card: every time below is the
+# simulation's (both ranks' work on one card, and the host hop of the
+# functions whose backward is a collective); NCCL at two or more ranks is
+# unmeasured.  tp-gpt (48) holds mp = 2 at GPT-2 345M's full width and depth
+# to mp = 1 twice.  In f32 the two differ only in the order of their sums:
+# the served logits by ||error|| / ||logits|| at TOL_F32, one SGD(DP2_LR)
+# step's gathered parameters by TOL_DP2_LOSS / TOL_DP2_MOVE, as the 2-layer
+# dp x mp x sp check.  In bf16 that order is rounded through 24 layers: the
+# served logits by ||error|| / ||logits|| at TP_LOGITS_NORM (the max |error|
+# logged beside it, 4 ulps of the largest logit), TOL_LOSS_BF16 on the loss;
+# 3 O2 AdamW(1e-4) steps against the train phase's TrainStep, the losses
+# within TOL_LOSS_BF16 and the gathered parameters by the L2 of the move's
+# error over the move at TP_MOVE_L2 (the whole-move max logged: Adam
+# normalises each gradient entry, so an entry whose bf16 gradient sits
+# near 0 may move the other way under another summation order).  Each
+# limit sits between the sound reading and a planted fault's: the qkv
+# shard cut contiguously instead of by head (serving), copy_to without
+# its sum over mp (training; sp-ring's: the gradients' sum over sp
+# skipped); each is the geometric mean of the two, one digit, rounded
+# down.  On an H100 (700 W): logits 0.0158 (sp = 2 0.0107) against the qkv cut's
+# 0.832; the move 0.0638 (sp = 2 0.0497) against the faults' 1.08 (sp
+# 0.791); in f32 the logits read 2.5e-6, the SGD step's move 3.4e-5.
+TP_STEPS = 3
+TP_LOGITS_NORM = 0.1
+TP_MOVE_L2 = 0.2
+# dp = 2 x mp = 2 x sp = 2 (8 threads) at 2 layers of GPT-2's width, f32,
+# SGD(DP2_LR), against one-rank TrainStep on the global batch by
+# TOL_DP2_LOSS / TOL_DP2_MOVE
+TP_3D_AXES = {"dp": 2, "mp": 2, "sp": 2}
+# sp-ring (49): bench_longseq_flash's layer, B*H = 8, S = 8192, D = 128,
+# causal, bf16, at sp = 2 and 4, held to #1-#3 on the whole sequence: out
+# by TOL_BF16 (absolute) and TOL_FWD_BF16 (the relative measure), dq, dk,
+# dv by TOL_GRAD_BF16; the planted faults (every chunk causal, a merge
+# without the chunks' lse, delta taken from the diagonal chunk's output)
+# must read above them
+RING_SPS = (2, 4)
+RING_REPS = 3
+
+
+def _tp_counts(fa):
+    c = fa_counts(fa)[:3]
+    return {"flash_attention_fwd": c[0], "flash_attention_bwd_dq": c[1],
+            "flash_attention_bwd_dkv": c[2]}
+
+
+def _norm_err(got, want):
+    """||got - want|| / ||want|| in f32."""
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _move_l2(got, want, init):
+    """||got - want|| / ||want - init|| over every parameter (f32)."""
+    num = sum(float((got[n].float() - want[n].float()).pow(2).sum())
+              for n in want)
+    den = sum(float((want[n].float() - init[n].float()).pow(2).sum())
+              for n in want)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def _contiguous_qkv(model, full):
+    """The planted fault: this rank's qkv cut contiguously from the full
+    arrays (rank 0 gets all of q and half of k at mp = 2)."""
+    import torch
+    from paddle_tpu_torch.parallel import tp
+    with torch.no_grad():
+        for name in ("qkv_w", "qkv_b"):
+            p = getattr(model, name)
+            split, n, idx = p.mp_split
+            p.copy_(tp.Split(split.dim).take(full[name].to(p.device, p.dtype),
+                                             n, idx))
+
+
+def _serve_ranks(models, axes, ids_t, fault=None):
+    """Each rank's gathered logits (rank 0's) and loss under
+    inference_mode, the host seconds of the run."""
+    import torch
+    from paddle_tpu_torch.models import gpt_loss
+    from paddle_tpu_torch.parallel import LoopbackWorld
+
+    def fn(rank, mesh):
+        m = models[rank]
+        m.apply_mesh(mesh)
+        if fault is not None:
+            fault(m)
+        with torch.inference_mode():
+            lg = m(ids_t)
+            loss = float(gpt_loss(m, ids_t, ids_t))
+        torch.cuda.synchronize()
+        return (lg if rank == 0 else None), loss
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = LoopbackWorld(len(models)).run(fn, axes=axes)
+    return out[0][0], [o[1] for o in out], time.perf_counter() - t0
+
+
+def _train_ranks(models, axes, ids_t, make_opt, steps, plant=None, **kw):
+    """``steps`` ShardedTrainStep steps on each rank: ([each rank's (losses,
+    gathered parameters: rank 0's on the host, parameter bytes, host-hop
+    bytes a step)], the host seconds a step).  ``plant(step)`` plants a
+    fault in each rank's step."""
+    import torch
+    from paddle_tpu_torch.models import gpt_loss
+    from paddle_tpu_torch.parallel import LoopbackWorld, ShardedTrainStep
+    from paddle_tpu_torch.parallel import tp
+
+    def fn(rank, mesh):
+        m = models[rank]
+        step = ShardedTrainStep(m, gpt_loss, make_opt(), mesh=mesh, **kw)
+        if plant is not None:
+            plant(step)
+        pbytes = sum(p.numel() * p.element_size() for p in m.parameters())
+        tp.reset_host_bytes()
+        losses = [float(step(ids_t, ids_t)) for _ in range(steps)]
+        hop = tp.host_bytes() / steps
+        full = step.gather_params()
+        full = {n: t.detach().cpu() for n, t in full.items()} \
+            if rank == 0 else {n: t.detach().clone() for n, t in full.items()}
+        return losses, full, pbytes, hop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = LoopbackWorld(len(models)).run(fn, axes=axes)
+    wall = (time.perf_counter() - t0) / steps
+    return out, wall
+
+
+@contextlib.contextmanager
+def copy_to_without_sum():
+    """The planted training fault at mp > 1: ``tp.copy_to``'s backward
+    hands on this rank's gradient without the sum over mp (the replicated
+    activations' and parameters' gradients lose the other ranks' part)."""
+    from paddle_tpu_torch.parallel import tp
+    sound = tp._Copy
+
+    class NoSum(sound):
+        @staticmethod
+        def backward(ctx, g):
+            return tp._back(g, ctx.device, ctx.hop), None, None
+    tp._Copy = NoSum
+    try:
+        yield
+    finally:
+        tp._Copy = sound
+
+
+def skip_sp_sum(step):
+    """The planted training fault at sp > 1: the step leaves each rank's
+    partial gradients unsummed over sp."""
+    step._spgroup = None
+
+
+def _ranks_equal(out):
+    """Whether every rank's gathered parameters are rank 0's, bitwise."""
+    import torch
+    full0 = out[0][1]
+    return all(torch.equal(full0[n], o[1][n].cpu()) for o in out[1:]
+               for n in full0)
+
+
+def one_rank_o2(base, ids_t, want_losses):
+    """The one-rank TrainStep (O2 bf16, AdamW(1e-4)) that phases 48-49
+    hold their training to: TP_STEPS steps of a copy of ``base``, which
+    must give the train phase's losses.  Returns (its parameters, base's),
+    both on the host."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import gpt_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    init = {n: p.detach().cpu() for n, p in base.named_parameters()}
+    one = copy.deepcopy(base)
+    ts = TrainStep(one, gpt_loss, AdamW(learning_rate=1e-4),
+                   amp_level="O2", amp_dtype="bfloat16")
+    losses = [float(ts(ids_t, ids_t)) for _ in range(TP_STEPS)]
+    want = {n: p.detach().cpu() for n, p in one.named_parameters()}
+    del ts, one
+    torch.cuda.empty_cache()
+    if losses != want_losses[:TP_STEPS]:
+        fail(f"tp-gpt: one-rank TrainStep {losses} is not the train phase's "
+             f"{want_losses[:TP_STEPS]}")
+    return want, init
+
+
+def _serve_pair(base, axes, ids_t, fa, dtype):
+    """``base`` in ``dtype`` served (the logits and the loss) on one rank
+    and on the ranks of ``axes``: ({the gathered logits' ||error|| /
+    ||logits|| and max |error|, the max |logit|, the loss's error, the
+    ranks' losses, host ms, #1-#3's launches on the ranks}, the one-rank
+    model, its logits, its loss)."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.models import gpt_loss
+    one = copy.deepcopy(base).to(dtype)
+    with torch.inference_mode():
+        want_lg = one(ids_t)
+        want_loss = float(gpt_loss(one, ids_t, ids_t))
+    reset_fa(fa)
+    lg, losses, sec = _serve_ranks(
+        [copy.deepcopy(one) for _ in range(math.prod(axes.values()))], axes,
+        ids_t)
+    row = {"logits_err": _norm_err(lg, want_lg),
+           "logits_abs_err": float((lg.float() - want_lg.float()).abs().max()),
+           "max_logit": float(want_lg.float().abs().max()),
+           "loss_err": max(abs(x - want_loss) for x in losses),
+           "losses": losses, "logits_and_loss_ms": sec * 1e3,
+           "launches": _tp_counts(fa)}
+    return row, one, want_lg, want_loss
+
+
+def tp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
+    """Phase 48: GPT-2 345M at mp = 2 (served in f32 and bf16, one f32 SGD
+    step, 3 O2 steps against ``ref``, ``one_rank_o2``'s parameters) against
+    mp = 1; the planted contiguous qkv cut and copy_to without its sum;
+    dp x mp x sp = 2 x 2 x 2 at 2 layers against one-rank TrainStep;
+    fleet with mp_degree = 2.  Returns the readings and #1-#3's
+    launches."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    from paddle_tpu_torch.parallel import LoopbackWorld, ShardedTrainStep
+    from paddle_tpu_torch.parallel import set_mesh
+    L = cfg.num_layers
+    row, launches = {}, {}
+    t_phase = time.perf_counter()
+    whole_bytes = sum(p.numel() * p.element_size() for p in base.parameters())
+    log(f"tp-gpt: GPT-2 345M, B={B}, S={S}, remat=False, at mp = 2 on two "
+        "LoopbackWorld ranks (threads) on the one card: every time is the "
+        "simulation's, NCCL at two or more ranks is unmeasured")
+
+    # serve in f32 (the order of the sums alone) and in bf16 (that order
+    # rounded), the gathered logits and the loss against mp = 1; in bf16
+    # the planted contiguous qkv cut
+    for dtype, lim in ((torch.float32, TOL_F32),
+                       (torch.bfloat16, TP_LOGITS_NORM)):
+        sv, one, want_lg, want_loss = _serve_pair(base, {"mp": 2}, ids_t, fa,
+                                                  dtype)
+        _add(launches, sv["launches"])
+        what = str(dtype).split(".")[1]
+        # the logits and the loss: two forwards a rank
+        if sv["launches"]["flash_attention_fwd"] != 2 * 2 * L:
+            fail(f"tp-gpt serve {what}: #1 launched {sv['launches']}, not "
+                 f"{L} a rank a forward")
+        if sv["losses"][0] != sv["losses"][1]:
+            fail(f"tp-gpt serve {what}: the ranks' losses differ "
+                 f"{sv['losses']}")
+        if dtype == torch.bfloat16:
+            full = {n: p.detach() for n, p in one.named_parameters()}
+            flg, f_losses, _ = _serve_ranks(
+                [copy.deepcopy(one) for _ in range(2)], {"mp": 2}, ids_t,
+                fault=lambda m: _contiguous_qkv(m, full))
+            sv["fault_contiguous_qkv_logits_err"] = _norm_err(flg, want_lg)
+            sv["fault_contiguous_qkv_loss_err"] = max(
+                abs(x - want_loss) for x in f_losses)
+            del flg, full
+        log(f"tp-gpt serve at mp = 2 ({what}): gathered logits against "
+            f"mp = 1 {sv['logits_err']:.4g} in norm (limit {lim}; max |err| "
+            f"{sv['logits_abs_err']:.4g}, max |logit| {sv['max_logit']:.4g})"
+            f", loss {sv['losses'][0]:.6f} ({sv['loss_err']:.3g}, limit "
+            f"{TOL_LOSS_BF16}); {sv['logits_and_loss_ms']:.1f} ms for both "
+            f"forwards (host clock, both ranks); planted contiguous qkv cut "
+            f"{sv.get('fault_contiguous_qkv_logits_err', '-')} on the logits,"
+            f" {sv.get('fault_contiguous_qkv_loss_err', '-')} on the loss "
+            f"[{power}]")
+        if sv["logits_err"] > lim or sv["loss_err"] > TOL_LOSS_BF16:
+            fail(f"tp-gpt: the mp = 2 forward disagrees with mp = 1 ({what})")
+        if dtype == torch.bfloat16 and not (
+                sv["fault_contiguous_qkv_logits_err"] > lim
+                or sv["fault_contiguous_qkv_loss_err"] > TOL_LOSS_BF16):
+            fail("tp-gpt: the planted contiguous qkv cut was not caught")
+        row[f"serve_{what}"] = sv
+        del one, want_lg
+        torch.cuda.empty_cache()
+
+    # one f32 SGD step: the gradients, their sums in another order only
+    init = _snap(base)
+    one = copy.deepcopy(base)
+    ts = TrainStep(one, gpt_loss, SGD(learning_rate=DP2_LR))
+    want_l = float(ts(ids_t, ids_t))
+    want_s = _snap(one)
+    del ts, one
+    torch.cuda.empty_cache()
+    reset_fa(fa)
+    out, sgd_s = _train_ranks([copy.deepcopy(base) for _ in range(2)],
+                              {"mp": 2}, ids_t,
+                              lambda: SGD(learning_rate=DP2_LR), 1)
+    _add(launches, _tp_counts(fa))
+    got = {n: t.cuda() for n, t in out[0][1].items()}
+    f32 = {"loss_err": abs(out[0][0][0] - want_l),
+           "move_err": _move_errs(got, want_s, init)[1],
+           "move_l2_err": _move_l2(got, want_s, init),
+           "ranks_equal": _ranks_equal(out), "step_ms": sgd_s * 1e3}
+    log(f"tp-gpt one f32 SGD({DP2_LR}) step at mp = 2 against one-rank "
+        f"TrainStep: loss {f32['loss_err']:.3g} (limit {TOL_DP2_LOSS}), "
+        f"whole-move measure {f32['move_err']:.4g} (limit {TOL_DP2_MOVE}), "
+        f"the move's L2 error {f32['move_l2_err']:.4g}; both ranks' "
+        f"gathered parameters bitwise equal: {f32['ranks_equal']}; "
+        f"{sgd_s * 1e3:.1f} ms (host clock, both ranks) [{power}]")
+    if f32["loss_err"] > TOL_DP2_LOSS or f32["move_err"] > TOL_DP2_MOVE or \
+            not f32["ranks_equal"]:
+        fail("tp-gpt: the f32 mp = 2 step disagrees with one-rank TrainStep")
+    row["train_f32_sgd"] = f32
+    del out, got, want_s, init
+    torch.cuda.empty_cache()
+
+    # train: O2 bf16 AdamW(1e-4), against one-rank TrainStep; then the
+    # planted copy_to without its sum over mp
+    want_p, init_h = ref
+
+    def adamw():
+        return AdamW(learning_rate=1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa(fa)
+    out, step_s = _train_ranks([copy.deepcopy(base) for _ in range(2)],
+                               {"mp": 2}, ids_t, adamw, TP_STEPS,
+                               amp_level="O2", amp_dtype="bfloat16")
+    peak = torch.cuda.max_memory_allocated()
+    train_launch = _tp_counts(fa)
+    _add(launches, train_launch)
+    with copy_to_without_sum():
+        fout, _ = _train_ranks([copy.deepcopy(base) for _ in range(2)],
+                               {"mp": 2}, ids_t, adamw, TP_STEPS,
+                               amp_level="O2", amp_dtype="bfloat16")
+    losses = out[0][0]
+    loss_err = max(abs(a - b) for a, b in zip(losses, want_losses))
+    l2 = _move_l2(out[0][1], want_p, init_h)
+    _, whole_move, _ = _move_errs(out[0][1], want_p, init_h)
+    same = _ranks_equal(out)
+    fault = {"loss_err": max(abs(a - b) for a, b in zip(fout[0][0],
+                                                       want_losses)),
+             "move_l2_err": _move_l2(fout[0][1], want_p, init_h),
+             "ranks_equal": _ranks_equal(fout)}
+    rank_bytes = [o[2] for o in out]
+    hop = [o[3] for o in out]
+    want_n = (2 * L * TP_STEPS,) * 3
+    if tuple(train_launch.values()) != want_n:
+        fail(f"tp-gpt train: #1-#3 launched {train_launch}, not "
+             f"{L} each a rank a step")
+    log(f"tp-gpt train at mp = 2 (O2 bf16, AdamW(1e-4), {TP_STEPS} "
+        f"steps): losses {losses} against the train phase's "
+        f"{want_losses[:TP_STEPS]} (max {loss_err:.3g}, limit "
+        f"{TOL_LOSS_BF16}); gathered parameters: the move's error "
+        f"{l2:.4g} of the move in L2 (limit {TP_MOVE_L2}), whole-move "
+        f"measure {whole_move:.4g}; both ranks' gathered parameters "
+        f"bitwise equal: {same}; the planted copy_to without its sum reads "
+        f"{fault}; parameter bytes a rank {rank_bytes} "
+        f"against {whole_bytes} whole; host hop {hop[0]:.0f} bytes a rank a "
+        f"step; {step_s * 1e3:.1f} ms a step (host clock, both ranks: the "
+        f"simulation's cost), max_memory_allocated {peak} bytes (both "
+        f"ranks); #1-#3 {train_launch} [{power}]")
+    if loss_err > TOL_LOSS_BF16 or l2 > TP_MOVE_L2 or not same:
+        fail("tp-gpt: mp = 2 training disagrees with one-rank TrainStep")
+    if not (fault["loss_err"] > TOL_LOSS_BF16
+            or fault["move_l2_err"] > TP_MOVE_L2 or not fault["ranks_equal"]):
+        fail("tp-gpt: the planted copy_to without its sum was not caught")
+    row["train"] = {"losses": losses, "loss_err": loss_err,
+                    "move_l2_err": l2, "whole_move_err": whole_move,
+                    "param_bytes_per_rank": rank_bytes,
+                    "param_bytes_whole": whole_bytes,
+                    "host_hop_bytes_per_rank_step": hop,
+                    "step_ms": step_s * 1e3, "peak_bytes": peak,
+                    "launches": train_launch,
+                    "fault_copy_to_without_sum": fault}
+    del out, fout
+    torch.cuda.empty_cache()
+
+    # dp x mp x sp = 2 x 2 x 2 at 2 layers, f32, SGD: against one rank
+    cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+                     vocab_size=cfg.vocab_size, max_seq_len=cfg.max_seq_len,
+                     num_layers=ZERO_DP2_LAYERS, remat=False)
+    one = GPT(cfg2, device="cuda")
+    init2 = _snap(one)
+    ranks8 = [copy.deepcopy(one) for _ in range(8)]
+    ts = TrainStep(one, gpt_loss, SGD(learning_rate=DP2_LR))
+    want_l = [float(ts(ids_t, ids_t)) for _ in range(ZERO_DP2_STEPS)]
+    want2 = _snap(one)
+    del ts, one
+    reset_fa(fa)
+
+    def sgd():
+        return SGD(learning_rate=DP2_LR)
+    out, step3 = _train_ranks(ranks8, TP_3D_AXES, ids_t, sgd, ZERO_DP2_STEPS)
+    d3_launch = _tp_counts(fa)
+    _add(launches, d3_launch)
+    got3 = {n: t.cuda() for n, t in out[0][1].items()}
+    loss3 = max(abs(a - b) for a, b in zip(out[0][0], want_l))
+    _, move3, _ = _move_errs(got3, want2, init2)
+    # sp coordinate j launches j + 1 chunks a layer: 4 ranks at each j
+    per = 4 * (1 + 2) * ZERO_DP2_LAYERS * ZERO_DP2_STEPS
+    log(f"tp-gpt dp x mp x sp = 2 x 2 x 2 (8 threads, {ZERO_DP2_LAYERS} "
+        f"layers, f32, SGD({DP2_LR})): losses {out[0][0]} against one-rank "
+        f"TrainStep on the global batch {want_l}: loss {loss3:.3g} (limit "
+        f"{TOL_DP2_LOSS}), whole-move measure {move3:.3g} (limit "
+        f"{TOL_DP2_MOVE}); {step3 * 1e3:.1f} ms a step (host clock, 8 "
+        f"ranks); #1-#3 {d3_launch} [{power}]")
+    if loss3 > TOL_DP2_LOSS or move3 > TOL_DP2_MOVE:
+        fail("tp-gpt: dp x mp x sp disagrees with one-rank TrainStep")
+    if tuple(d3_launch.values()) != (per,) * 3:
+        fail(f"tp-gpt dp x mp x sp: #1-#3 launched {d3_launch}, not {per}")
+    row["dp_mp_sp"] = {"losses": out[0][0], "loss_err": loss3,
+                       "move_err": move3, "step_ms": step3 * 1e3,
+                       "launches": d3_launch}
+    del out, got3, ranks8, init2, want2
+    torch.cuda.empty_cache()
+
+    # fleet with hybrid_configs={"mp_degree": 2} builds that step
+    small = GPT(cfg2, device="cuda")
+    fl_models = [copy.deepcopy(small) for _ in range(2)]
+    del small
+
+    def fleet_fn(rank, mesh):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {"mp_degree": 2}
+        fleet.init(is_collective=True, strategy=s)
+        try:
+            fleet.distributed_optimizer(SGD(learning_rate=DP2_LR))
+            step = fleet.train_step(fl_models[rank], gpt_loss)
+            ok = (isinstance(step, ShardedTrainStep)
+                  and dict(step.mesh.shape) == {"mp": 2}
+                  and fl_models[rank].wte.shape[0] == cfg.vocab_size // 2)
+            return ok, float(step(ids_t, ids_t))
+        finally:
+            set_mesh(None)
+    fl = LoopbackWorld(2).run(fleet_fn)
+    log(f"tp-gpt fleet(hybrid_configs={{'mp_degree': 2}}): ShardedTrainStep "
+        f"over {{'mp': 2}} with the rank's shards: {fl[0][0]}; one step's "
+        f"loss {fl[0][1]:.6f} (rank 1 {fl[1][1]:.6f})")
+    if not (fl[0][0] and fl[1][0]) or fl[0][1] != fl[1][1]:
+        fail("tp-gpt: fleet with mp_degree 2 did not build its step")
+    row["fleet_mp2_loss"] = fl[0][1]
+    del fl_models
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row, launches
+
+
+RING_FAULTS = ("all_causal", "merge_without_lse", "delta_from_chunk")
+
+
+@contextlib.contextmanager
+def ring_fault(name):
+    """Plant one of the ring's faults (``RING_FAULTS``) in
+    ``parallel/ring_attention.py`` while the block runs: "all_causal"
+    runs every chunk causal, "merge_without_lse" averages the chunks'
+    outputs, "delta_from_chunk" takes the backward's delta from the
+    diagonal chunk's output instead of the merged one."""
+    import importlib
+    # (the package binds the name ring_attention to the function)
+    ra = importlib.import_module("paddle_tpu_torch.parallel.ring_attention")
+    fa = ra._fa
+    saved = []
+
+    def patch(mod, attr, new):
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, new)
+    if name == "all_causal":
+        fwd, bwd = ra._chunk_fwd, ra._chunk_bwd
+        patch(ra, "_chunk_fwd",
+              lambda qt, kt, vt, scale, causal, flash:
+              fwd(qt, kt, vt, scale, True, flash))
+        patch(ra, "_chunk_bwd", lambda *a: bwd(*a[:8], True, a[9]))
+    elif name == "merge_without_lse":
+        merge = ra._merge
+
+        def averaged(outs, lses, dtype):
+            out, lse = merge(outs, lses, dtype)
+            return (sum(o.float() for o in outs) / len(outs)).to(dtype), lse
+        patch(ra, "_merge", averaged)
+    elif name == "delta_from_chunk":
+        merge, delta, diag = ra._merge, fa._delta, {}
+
+        def keep_diagonal(outs, lses, dtype):
+            out, lse = merge(outs, lses, dtype)
+            diag[out.data_ptr()] = outs[0]       # step 0: the diagonal
+            return out, lse
+        patch(ra, "_merge", keep_diagonal)
+        patch(fa, "_delta",
+              lambda dot, ot: delta(dot, diag.get(ot.data_ptr(), ot)))
+    else:
+        raise ValueError(f"unknown ring fault {name!r}")
+    try:
+        yield
+    finally:
+        for mod, attr, old in reversed(saved):
+            setattr(mod, attr, old)
+
+
+def _ring_case(g, sp, fa, fault=None, timed=True):
+    """The ring at sp ranks on bench_longseq_flash's layer, against #1-#3
+    on the whole sequence: (out abs err, out rel err, grad rel errs, the
+    ring's #1-#3 launches, forward ms, forward + backward ms)."""
+    import torch
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    from paddle_tpu_torch.parallel.ring_attention import _ring
+    b, h, s, d = LONG_B, LONG_HEADS, LONG_S, LONG_WIDTH // LONG_HEADS
+    bf16 = torch.bfloat16
+    q, k, v, do = (rand(g, (b, s, h, d), bf16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    qt, kt, vt, dot = (fa._fold(t) for t in (q, k, v, do))
+    ot, lse = fa._launch(qt, kt, vt, scale, True)
+    delta = fa._delta(dot, ot)
+    dq = fa._launch_dq(qt, kt, vt, dot, lse, delta, scale, True)
+    dk, dv = fa._launch_dkv(qt, kt, vt, dot, lse, delta, scale, True)
+    want = [fa._unfold(t, b, h) for t in (ot, dq, dk, dv)]
+    w = s // sp
+
+    def fn(rank, mesh, backward=True):
+        sl = slice(rank * w, (rank + 1) * w)
+        xs = [t[:, sl].detach().clone().requires_grad_(backward)
+              for t in (q, k, v)]
+        group = mesh.axis_group("sp")
+        out = _ring(*xs, True, scale, group)
+        if backward:
+            out.backward(do[:, sl])
+        torch.cuda.synchronize()
+        return [out.detach()] + ([x.grad for x in xs] if backward else [])
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    with ring_fault(fault) if fault else contextlib.nullcontext():
+        got = LoopbackWorld(sp).run(fn, axes={"sp": sp})
+    counts = _tp_counts(fa)
+    parts = [torch.cat([r[i] for r in got], 1) for i in range(4)]
+    out_abs = float((parts[0].float() - want[0].float()).abs().max())
+    out_rel = grad_err(parts[0], want[0])[0]
+    grads = [grad_err(a, b_)[0] for a, b_ in zip(parts[1:], want[1:])]
+    times = [None, None]
+    for backward in (False, True) if timed else ():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RING_REPS):
+            LoopbackWorld(sp).run(lambda r, m: fn(r, m, backward),
+                                  axes={"sp": sp})
+        times[backward] = (time.perf_counter() - t0) / RING_REPS * 1e3
+    return out_abs, out_rel, grads, counts, times[0], times[1]
+
+
+def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
+    """Phase 49: ring attention at S = 8192 (sp = 2, 4) against #1-#3 on
+    the whole sequence, with its planted faults; GPT-2 345M at sp = 2
+    served (f32, bf16) against sp = 1 and trained against ``ref``
+    (``one_rank_o2``'s parameters), with the planted skip of the sum over
+    sp.  Returns the readings and #1-#3's launches."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.models import gpt_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    L = cfg.num_layers
+    row, launches = {}, {}
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(49)
+    for sp in RING_SPS:
+        out_abs, out_rel, grads, counts, fwd_ms, fb_ms = _ring_case(g, sp, fa)
+        _add(launches, counts)
+        n_chunks = sp * (sp + 1) // 2
+        log(f"sp-ring sp = {sp} (B*H = {LONG_B * LONG_HEADS}, S = {LONG_S}, "
+            f"D = {LONG_WIDTH // LONG_HEADS}, causal, bf16; {sp} LoopbackWorld threads): out "
+            f"max |err| {out_abs:.4g} (limit {TOL_BF16}), relative "
+            f"{out_rel:.4g} (limit {TOL_FWD_BF16}); dq, dk, dv "
+            f"{[round(x, 5) for x in grads]} (limit {TOL_GRAD_BF16}); "
+            f"#1-#3 {counts} (want {n_chunks} each); forward "
+            f"{fwd_ms:.3f} ms, forward + backward {fb_ms:.3f} ms (host "
+            f"clock, all ranks, the simulation's cost) beside longseq's "
+            f"whole-sequence 0.2260 / 0.3411 / 0.5299 ms [{power}]")
+        if out_abs > TOL_BF16 or out_rel > TOL_FWD_BF16 or \
+                max(grads) > TOL_GRAD_BF16:
+            fail(f"sp-ring sp = {sp}: the ring disagrees with the whole "
+                 "sequence")
+        if tuple(counts.values()) != (n_chunks,) * 3:
+            fail(f"sp-ring sp = {sp}: #1-#3 launched {counts}, not "
+                 f"{n_chunks} each")
+        faults = {}
+        for fault in RING_FAULTS:
+            _, f_rel, f_grads, _, _, _ = _ring_case(g, sp, fa, fault,
+                                                    timed=False)
+            faults[fault] = {"out_rel": f_rel, "grads": f_grads}
+            if not (f_rel > TOL_FWD_BF16 or max(f_grads) > TOL_GRAD_BF16):
+                fail(f"sp-ring sp = {sp}: the planted {fault} read out "
+                     f"{f_rel:.3g}, grads {f_grads}: not caught")
+        log(f"sp-ring sp = {sp}: planted faults read (out relative, dq / "
+            f"dk / dv) {faults}: caught")
+        row[f"ring_sp{sp}"] = {"out_abs_err": out_abs, "out_rel_err": out_rel,
+                               "grad_errs": grads, "launches": counts,
+                               "fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms,
+                               "faults": faults}
+    torch.cuda.empty_cache()
+
+    # GPT-2 345M at sp = 2: served in f32 and bf16 against sp = 1, trained
+    # against the train phase's TrainStep (``ref``); then the planted skip
+    # of the gradients' sum over sp
+    for dtype, lim in ((torch.float32, TOL_F32),
+                       (torch.bfloat16, TP_LOGITS_NORM)):
+        sv, one, want_lg, _ = _serve_pair(base, {"sp": 2}, ids_t, fa, dtype)
+        _add(launches, sv["launches"])
+        what = str(dtype).split(".")[1]
+        log(f"sp-ring GPT-2 345M serve at sp = 2 (512 positions a rank, "
+            f"{what}): gathered logits {sv['logits_err']:.4g} in norm (limit "
+            f"{lim}; max |err| {sv['logits_abs_err']:.4g}), loss "
+            f"{sv['loss_err']:.3g} (limit {TOL_LOSS_BF16}); "
+            f"{sv['logits_and_loss_ms']:.1f} ms for the logits and the loss "
+            f"(host clock); #1 {sv['launches']['flash_attention_fwd']} "
+            f"[{power}]")
+        if sv["logits_err"] > lim or sv["loss_err"] > TOL_LOSS_BF16:
+            fail(f"sp-ring: the sp = 2 forward disagrees with sp = 1 ({what})")
+        # rank j attends j + 1 chunks a layer, two forwards a rank
+        if sv["launches"]["flash_attention_fwd"] != 2 * 3 * L:
+            fail(f"sp-ring serve {what}: #1 launched {sv['launches']}, not "
+                 f"{2 * 3 * L}")
+        row[f"gpt_sp2_serve_{what}"] = sv
+        del one, want_lg
+        torch.cuda.empty_cache()
+    want_p, init_h = ref
+
+    def adamw():
+        return AdamW(learning_rate=1e-4)
+    reset_fa(fa)
+    out, step_s = _train_ranks([copy.deepcopy(base) for _ in range(2)],
+                               {"sp": 2}, ids_t, adamw, TP_STEPS,
+                               amp_level="O2", amp_dtype="bfloat16")
+    train_launch = _tp_counts(fa)
+    _add(launches, train_launch)
+    fout, _ = _train_ranks([copy.deepcopy(base) for _ in range(2)],
+                           {"sp": 2}, ids_t, adamw, TP_STEPS,
+                           plant=skip_sp_sum, amp_level="O2",
+                           amp_dtype="bfloat16")
+    losses = out[0][0]
+    loss_err = max(abs(a - b) for a, b in zip(losses, want_losses))
+    l2 = _move_l2(out[0][1], want_p, init_h)
+    _, whole_move, _ = _move_errs(out[0][1], want_p, init_h)
+    same = _ranks_equal(out)
+    fault = {"loss_err": max(abs(a - b) for a, b in zip(fout[0][0],
+                                                       want_losses)),
+             "move_l2_err": _move_l2(fout[0][1], want_p, init_h),
+             "ranks_equal": _ranks_equal(fout)}
+    log(f"sp-ring GPT-2 345M train at sp = 2 (O2 bf16, AdamW(1e-4)): losses "
+        f"{losses} against the train phase's {want_losses[:TP_STEPS]} (max "
+        f"{loss_err:.3g}, limit {TOL_LOSS_BF16}); gathered parameters: the "
+        f"move's error {l2:.4g} of the move in L2 (limit {TP_MOVE_L2}), "
+        f"whole-move measure {whole_move:.4g}; both ranks' gathered "
+        f"parameters bitwise equal: {same}; the planted skip of the sum "
+        f"over sp reads {fault}; host hop {out[0][3]:.0f} bytes a rank a "
+        f"step; {step_s * 1e3:.1f} ms a step (host clock, both ranks); "
+        f"#1-#3 {train_launch} [{power}]")
+    if loss_err > TOL_LOSS_BF16 or out[0][0] != out[1][0] or \
+            l2 > TP_MOVE_L2 or not same:
+        fail("sp-ring: sp = 2 training disagrees with one-rank TrainStep")
+    if not (fault["loss_err"] > TOL_LOSS_BF16
+            or fault["move_l2_err"] > TP_MOVE_L2 or not fault["ranks_equal"]):
+        fail("sp-ring: the planted skip of the sum over sp was not caught")
+    if tuple(train_launch.values()) != (3 * L * TP_STEPS,) * 3:
+        fail(f"sp-ring train: #1-#3 launched {train_launch}, not "
+             f"{3 * L * TP_STEPS} each")
+    row["gpt_sp2_train"] = {"losses": losses, "loss_err": loss_err,
+                            "move_l2_err": l2, "whole_move_err": whole_move,
+                            "ranks_equal": same,
+                            "host_hop_bytes_per_rank_step": out[0][3],
+                            "step_ms": step_s * 1e3,
+                            "launches": train_launch,
+                            "fault_skip_sp_sum": fault}
+    del out, fout
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row, launches
+
+
 def vision_loss_of(out, y):
     from paddle_tpu_torch.nn.functional import cross_entropy
     return cross_entropy(out, y).mean()
@@ -10497,6 +11190,30 @@ def main() -> int:
             k["launches"] += extra.get(k["name"], 0)
     log(f"data-parallel phases (45-47): {dp_row['dp_phases_s']:.1f} s of "
         f"wall time; launches {fleet_launch}, {meta_launch}")
+
+    # -- 48. tp-gpt -----------------------------------------------------------
+    # -- 49. sp-ring ----------------------------------------------------------
+    # tensor and sequence parallelism: GPT-2 345M at mp = 2 and sp = 2, the
+    # ring on #1-#3 at S = 8192; each run sets the counters to 0 and reads
+    # them, and its launches join the kernel table's (tp_sp_launches)
+    t_tp = time.perf_counter()
+    tp_base = GPT(cfg, device="cuda")                 # f32, seed 0
+    tp_ref = one_rank_o2(tp_base, ids_t, train_row["train_losses"])
+    tp_sp_row = {}
+    tp_sp_row["tp_gpt"], tp_launch = tp_gpt_phase(
+        tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
+    tp_sp_row["sp_ring"], ring_launch = sp_ring_phase(
+        tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
+    del tp_base, tp_ref
+    torch.cuda.empty_cache()
+    tp_sp_row["tp_sp_phases_s"] = time.perf_counter() - t_tp
+    for k in kernels:
+        extra = tp_launch.get(k["name"], 0) + ring_launch.get(k["name"], 0)
+        k["launches"] += extra
+        k["tp_sp_launches"] = extra
+    log(f"tensor and sequence parallel phases (48-49): "
+        f"{tp_sp_row['tp_sp_phases_s']:.1f} s of wall time; launches "
+        f"{tp_launch}, {ring_launch}")
     for row in table:
         log(json.dumps(row))
 
@@ -10550,6 +11267,7 @@ def main() -> int:
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
         **det_row, **tensor_row, **second_row, **deploy_row, **dp_row,
+        "tp_sp_row": tp_sp_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

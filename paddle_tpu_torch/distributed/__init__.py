@@ -2,11 +2,11 @@
 __init__.py): the collective API over the mesh's groups
 (``collective.py``), ``ParallelEnv``, ``init_parallel_env`` and
 ``DataParallel`` (``parallel.py``), ``spawn``, ``fleet`` in collective
-mode, and the wire codecs of the collectives (``wire.py``).  Not ported
-yet, each raising ``NotImplementedError`` naming its ROADMAP item:
-``split`` and the tensor-parallel layers (item 3b), the parameter server
-``ps`` and the ``dataset`` names (item 4), ``checkpoint`` (item 5),
-``elastic`` and ``launch`` (item 6)."""
+mode, the wire codecs of the collectives (``wire.py``), ``split`` and
+the tensor-parallel layers (``tp_layers.py``).  Not ported yet, each
+raising ``NotImplementedError`` naming its ROADMAP item: the parameter
+server ``ps`` and the ``dataset`` names (item 4), ``checkpoint`` (item
+5), ``elastic`` and ``launch`` (item 6)."""
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, get_rank, get_world_size,
@@ -18,12 +18,11 @@ from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401
 from paddle_tpu_torch.distributed import fleet  # noqa: F401
 from paddle_tpu_torch._pending import pending, pending_modules
 
-ColumnParallelLinear = pending("ColumnParallelLinear", "3b",
-                               "tensor parallelism")
-RowParallelLinear = pending("RowParallelLinear", "3b", "tensor parallelism")
-VocabParallelEmbedding = pending("VocabParallelEmbedding", "3b",
-                                 "tensor parallelism")
-shard_tensor = pending("shard_tensor", "3b", "tensor parallelism")
+from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    mark_sharding)
+
+shard_tensor = mark_sharding
 DatasetFactory = pending("DatasetFactory", "4", "the PS datasets")
 InMemoryDataset = pending("InMemoryDataset", "4", "the PS datasets")
 QueueDataset = pending("QueueDataset", "4", "the PS datasets")

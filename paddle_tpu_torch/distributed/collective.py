@@ -31,8 +31,7 @@ as the reference maps it (``:247``).
 
 Where the reference cannot express them, ``send`` and ``recv`` move one
 tensor between two ranks here (the port's ranks are processes).
-``split`` builds the tensor-parallel layers of ROADMAP item 3b and
-raises until they are ported.
+``split`` builds the tensor-parallel layers (``tp_layers.py``).
 """
 from __future__ import annotations
 
@@ -368,7 +367,28 @@ def wait(tensor, group=None, use_calc_stream=True):
 def split(x, size, operation: str, axis: int = 0, num_partitions: int = 1,
           gather_out: bool = True, weight_attr=None, bias_attr=None,
           name=None):
-    """Megatron-style parallel linear / embedding (reference ``:443``)."""
-    raise NotImplementedError(
-        "distributed.split builds the tensor-parallel layers (tp_layers.py), "
-        "ROADMAP Queue 1 item 3b (model parallelism), not ported yet")
+    """Megatron-style parallel linear / embedding (reference ``:443``):
+    ``"linear"`` with ``axis`` 1 or -1 a ``ColumnParallelLinear`` (its
+    output gathered when ``gather_out``), any other axis a
+    ``RowParallelLinear``; ``"embedding"`` a ``VocabParallelEmbedding``;
+    any other operation raises ``ValueError``.  ``size`` is (in, out) or
+    (vocabulary, width).  Returns the layer applied to ``x`` when x is a
+    tensor, else the layer."""
+    from paddle_tpu_torch.distributed.tp_layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    if operation == "linear":
+        in_f, out_f = size
+        if axis in (1, -1):
+            layer = ColumnParallelLinear(in_f, out_f,
+                                         gather_output=gather_out,
+                                         weight_attr=weight_attr,
+                                         bias_attr=bias_attr)
+        else:
+            layer = RowParallelLinear(in_f, out_f, weight_attr=weight_attr,
+                                      bias_attr=bias_attr)
+    elif operation == "embedding":
+        n, d = size
+        layer = VocabParallelEmbedding(n, d, weight_attr=weight_attr)
+    else:
+        raise ValueError(f"unsupported split operation {operation!r}")
+    return layer(x) if isinstance(x, torch.Tensor) else layer

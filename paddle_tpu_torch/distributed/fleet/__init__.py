@@ -7,8 +7,9 @@ strategy's mesh (``distributed.init_parallel_env``), and keeps the role
 maker and the ``HybridCommunicateGroup``.  ``distributed_optimizer``
 wraps the user's optimizer (swapped for Lamb or LarsMomentum where the
 strategy says so); ``train_step`` builds the step the strategy
-compiles to: ``ShardedTrainStep`` over ``dp`` and ``sharding`` by
-default, the ``dp_meta`` steps for LocalSGD, DGC and fp16_allreduce.
+compiles to: ``ShardedTrainStep`` over ``dp``, ``sharding`` and ``mp``
+(``mp_degree``) by default, the ``dp_meta`` steps for LocalSGD, DGC and
+fp16_allreduce.
 ``distributed_model`` wraps a layer in ``DataParallel``.  ``metrics`` and
 ``utils`` (``recompute``) are the reference's modules.
 

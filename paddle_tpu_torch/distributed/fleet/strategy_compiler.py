@@ -15,8 +15,11 @@ strategies that own the gradient exchange and ``ShardedTrainStep``
 otherwise; ``maybe_swap_optimizer`` puts ``Lamb`` or ``LarsMomentum`` in
 place of the user's optimizer for the lamb and lars switches.
 
-A strategy whose ``mp`` or ``pp`` degree is > 1 raises: model
-parallelism is ROADMAP item 3b.  Where the reference runs a sub-mesh over
+A strategy's ``mp_degree`` gives the mesh an ``mp`` axis, and the step is
+``ShardedTrainStep`` over it (tensor parallelism: the model must be
+mp-aware, as ``GPT`` and the layers of ``distributed/tp_layers.py`` are).
+A ``pp_degree`` > 1 raises: the pipeline is ROADMAP item 3c.  Where the
+reference runs a sub-mesh over
 fewer devices than it has, the port's ranks each hold a replica and the
 degrees must lay out the whole world.
 """
@@ -125,11 +128,10 @@ def compile_strategy(strategy: Optional[DistributedStrategy],
     this rank's world when None), its mesh made over the world."""
     strategy = strategy or DistributedStrategy()
     axes = _mesh_axes_from(strategy, _world_size(devices))
-    model_par = {a: s for a, s in axes.items() if a in ("mp", "pp")}
-    if model_par:
+    if axes.get("pp", 1) > 1:
         raise NotImplementedError(
-            f"a strategy of {model_par} degrees is model parallelism: "
-            "ROADMAP Queue 1 item 3b, not ported yet")
+            f"a strategy of pp_degree {axes['pp']} is pipeline parallelism: "
+            "ROADMAP Queue 1 item 3c, not ported yet")
     mesh = make_mesh(axes)
 
     applied: List[str] = []

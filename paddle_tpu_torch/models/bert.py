@@ -14,7 +14,9 @@ ignored), and ``remat`` (the default): each layer, the padding bias
 passed in, is one recompute region under autograd (``jit/recompute.py``,
 the reference's ``jax.checkpoint(layer)``, ``:219``).  What differs, as in
 the GPT port: a Python loop over layers stands in for ``lax.scan``, and
-there are no meshes or shardings.
+BERT has no tensor-parallel path: its parameters carry the reference's
+``DistAttr``s (``:94-120``), and ``ShardedTrainStep`` on a mesh with
+``mp`` > 1 refuses them (ROADMAP item 3c) rather than keep them whole.
 
 Attention dispatches as the reference's ``_bert_forward`` does, by rule
 and device and never by catching an error (the reference's ``try/except``
@@ -44,6 +46,7 @@ from paddle_tpu_torch.jit.recompute import recompute
 from paddle_tpu_torch.nn.functional.attention import _xla_attention
 from paddle_tpu_torch.nn.layer.layers import Layer
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
+from paddle_tpu_torch.parallel.mesh import DistAttr
 
 __all__ = ["BertConfig", "Bert", "bert_base", "bert_tiny",
            "bert_pretrain_loss", "Ernie", "ErnieConfig"]
@@ -134,15 +137,25 @@ def init_params(c: BertConfig) -> dict:
     return {n: p[n] for n in _PARAM_ORDER}
 
 
+# the reference's annotations (bert.py:94-120)
+DIST_ATTRS = {"wte": ("mp", None), "ln1_w": ("pp",), "ln1_b": ("pp",),
+              "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
+              "prj_w": ("pp", "mp", None), "prj_b": ("pp",),
+              "ln2_w": ("pp",), "ln2_b": ("pp",), "fc_w": ("pp", None, "mp"),
+              "fc_b": ("pp", "mp"), "out_w": ("pp", "mp", None),
+              "out_b": ("pp",), "mlm_bias": ("mp",)}
+
+
 class Bert(Layer):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
         for name, value in init_params(config).items():
-            self.register_parameter(
-                name, Parameter(torch.from_numpy(value).to(dev),
-                                name=f"bert.{name}"))
+            p = Parameter(torch.from_numpy(value).to(dev), name=f"bert.{name}")
+            if name in DIST_ATTRS:
+                p.dist_attr = DistAttr(DIST_ATTRS[name])
+            self.register_parameter(name, p)
 
     def load_jax_params(self, np_params: dict) -> "Bert":
         """Copy the reference model's parameters in (``np.asarray`` of

@@ -14,16 +14,25 @@ ref.named_parameters()}`` and load them with :func:`load_named_params`;
 their buffers (BatchNorm's ``_mean`` and ``_variance``) likewise from
 ``ref.named_buffers()`` with :func:`load_named_buffers`.  An eager
 optimizer's ``state_dict()`` comes across with :func:`state_dict_from_jax`.
+
+Under tensor parallelism a rank holds shards (``parallel/tp.py``):
+:func:`load_named_params` and ``GPT.load_jax_params`` take a sharded
+parameter's slice of the full array.  :func:`shard_params` and
+:func:`shard_opt_states` cut the reference's full parameters and
+optimizer state into one ``mp`` rank's shards (GPT's ``qkv`` head-aligned,
+``gpt.MP_SPLITS``), and :func:`full_params` / :func:`full_opt_states` put
+the ranks' shards back into the reference's layout.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.models.gpt import _PARAM_ORDER
+from paddle_tpu_torch.models.gpt import _PARAM_ORDER, MP_SPLITS
 
 __all__ = ["params_from_jax", "opt_states_from_jax", "state_dict_from_jax",
-           "load_named_params", "load_named_buffers"]
+           "load_named_params", "load_named_buffers", "shard_params",
+           "shard_opt_states", "full_params", "full_opt_states"]
 
 # each in-tree optimizer's state keys: Adam and AdamW; Momentum and
 # LarsMomentum; Adamax; Adagrad; Adadelta; RMSProp, centred and not; Lamb's
@@ -65,6 +74,9 @@ def _load_named(kind, tensors: dict, np_named: dict):
     with torch.no_grad():
         for name, p in tensors.items():
             t = torch.from_numpy(np.array(np_named[name], copy=True))
+            split = getattr(p, "mp_split", None)
+            if split is not None:
+                t = split[0].take(t, *split[1:])
             if p.shape != t.shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} does not "
                                  f"match {tuple(p.shape)}")
@@ -112,3 +124,44 @@ def state_dict_from_jax(state_dict: dict) -> dict:
     dtype."""
     return {k: _to_torch(v) if isinstance(v, np.ndarray) else v
             for k, v in state_dict.items()}
+
+
+def shard_params(params: dict, mp: int, rank: int, splits=None) -> dict:
+    """{name: full np.ndarray} -> {name: CPU tensor}, ``mp`` rank
+    ``rank``'s shards: a name in ``splits`` ({name: tp.Split}, GPT's
+    ``MP_SPLITS`` by default) cut as it says, the rest whole copies."""
+    splits = MP_SPLITS if splits is None else splits
+    return {n: splits[n].take(_to_torch(a), mp, rank) if n in splits
+            else _to_torch(a) for n, a in params.items()}
+
+
+def shard_opt_states(states: dict, params: dict, mp: int, rank: int,
+                     splits=None) -> dict:
+    """The reference's optimizer state {name: {slot: np.ndarray}} ->
+    ``mp`` rank ``rank``'s, as ``opt_states_from_jax`` gives it: each slot
+    shaped as its full parameter (``params`` {name: full array}) cut as
+    the parameter is, the scalars whole."""
+    splits = MP_SPLITS if splits is None else splits
+    return {n: {k: splits[n].take(v, mp, rank)
+                if n in splits and v.shape == np.shape(params[n]) else v
+                for k, v in st.items()}
+            for n, st in opt_states_from_jax(states).items()}
+
+
+def full_params(shards, splits=None) -> dict:
+    """The ranks' shard dicts, in ``mp`` rank order -> {name: the full
+    tensor}: split names assembled, the rest taken from rank 0."""
+    splits = MP_SPLITS if splits is None else splits
+    return {n: splits[n].assemble([s[n] for s in shards]) if n in splits
+            else shards[0][n] for n in shards[0]}
+
+
+def full_opt_states(shards, params: dict, splits=None) -> dict:
+    """The ranks' optimizer states, in ``mp`` rank order -> the full one:
+    a slot shaped as its parameter's shard assembled, scalars from rank
+    0.  ``params`` is one rank's {name: shard}, to tell the slots."""
+    splits = MP_SPLITS if splits is None else splits
+    return {n: {k: splits[n].assemble([s[n][k] for s in shards])
+                if n in splits and v.shape == params[n].shape else v
+                for k, v in st.items()}
+            for n, st in shards[0].items()}

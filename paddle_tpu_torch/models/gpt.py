@@ -19,8 +19,40 @@ default): each layer is one recompute region under autograd
 the final LN and the head keep theirs.  ``bench.py``'s GPT-2 legs run
 ``remat=False``.  What differs: a Python loop over layers stands in for
 ``lax.scan`` (``scan_unroll`` is accepted and means nothing in eager
-PyTorch), and there are no meshes, shardings, pipeline or ring
-attention.
+PyTorch), and the pipeline (``pp``, ROADMAP item 3c) is not ported.
+
+Tensor and sequence parallelism (reference ``:115-140``, ``:155-194``,
+``:246-274``).  Every parameter carries the reference's ``DistAttr``.
+Built under an active mesh whose ``mp`` or ``sp`` axis has size > 1, or
+given one by :meth:`GPT.apply_mesh` (``ShardedTrainStep`` does), a GPT
+runs on it; where ``mp`` has size m > 1 it holds this rank's shards:
+``wte`` by vocabulary range, ``qkv_w`` / ``qkv_b`` /
+``fc_w`` / ``fc_b`` by output columns, ``prj_w`` / ``out_w`` by input
+rows, the rest whole.  ``qkv``'s shard is head-aligned where the
+reference's spec cuts the fused 3H axis contiguously: rank r holds heads
+[r nh/m, (r + 1) nh/m) of q, of k and of v (GSPMD reshards the
+contiguous cut before the head reshape; a hand-written program cannot),
+and the converters (``models/convert.py``) permute the reference's layout
+in and out.  ``num_heads``, the vocabulary and the FFN width must divide
+by m.  On a rank at ``sp`` coordinate j of n the forward embeds the
+rank's positions [j S/n, (j + 1) S/n) of the whole sequence it is given
+(the vocabulary-parallel lookup, ``wpe`` at the rank's offset), attends
+on its heads through ``ring_attention`` over ``sp`` when n > 1, sums
+``prj`` and ``out`` over ``mp`` (row-parallel), and ends in the tied
+head's (B, S/n, V/m) logit slice.  :meth:`GPT.forward` all-gathers the
+full (B, S, V) logits; :func:`gpt_loss` is a vocabulary-parallel cross
+entropy (``parallel.tp.vocab_parallel_ce``): no rank holds the (B, S, V)
+logits; the next-token labels are shifted over the whole sequence (-1 on
+the global last position, reference ``:299-301``), each rank takes its
+slice, and the partial sums over ``sp`` divide by the global B (S - 1).
+The mesh is read once a forward (a ``_Plan``); with no mesh, or one
+whose ``mp`` and ``sp`` are 1, it is ``_ONE``, on which every collective
+is the identity and the loss is the plain mean.
+``FLAGS_gpt_fused_ce`` takes the fused head only where the mesh has one
+rank (reference ``:377-378``).  ``remat=True`` at mp or sp > 1 replays the
+collectives in the backward: it runs on the CPU and on one rank a
+process, and raises on ``LoopbackWorld`` ranks on the card, where the
+replay would meet them on autograd's one device thread.
 
 Attention dispatches by rule, not by catching errors: sequences the
 blockwise kernel serves (``flash_attention.supported``: head dim 64 or
@@ -43,7 +75,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,6 +90,10 @@ from paddle_tpu_torch.nn.functional.attention import _xla_attention
 from paddle_tpu_torch.nn.layer.layers import Layer
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 from paddle_tpu_torch.ops.cuda import fused_ce
+from paddle_tpu_torch.parallel import tp
+from paddle_tpu_torch.parallel.mesh import (DistAttr, current_mesh,
+                                            in_loopback,
+                                            require_no_model_parallel)
 
 __all__ = ["GPTConfig", "GPT", "gpt_loss", "gpt_tiny", "gpt2_small",
            "gpt2_medium", "gpt2_345m"]
@@ -119,6 +155,33 @@ _PARAM_ORDER = ("wte", "wpe", "ln1_w", "ln1_b", "qkv_w", "qkv_b", "prj_w",
                 "lnf_w", "lnf_b")
 _LAYER_PARAMS = _PARAM_ORDER[2:14]
 
+# the reference's annotations (gpt.py:122-140)
+DIST_ATTRS = {"wte": ("mp", None), "ln1_w": ("pp",), "ln1_b": ("pp",),
+              "qkv_w": ("pp", None, "mp"), "qkv_b": ("pp", "mp"),
+              "prj_w": ("pp", "mp", None), "prj_b": ("pp",),
+              "ln2_w": ("pp",), "ln2_b": ("pp",), "fc_w": ("pp", None, "mp"),
+              "fc_b": ("pp", "mp"), "out_w": ("pp", "mp", None),
+              "out_b": ("pp",)}
+# how the port cuts each mp-split parameter: qkv head-aligned (three
+# blocks, q / k / v), the rest contiguously
+MP_SPLITS = {"wte": tp.Split(0), "qkv_w": tp.Split(2, 3),
+             "qkv_b": tp.Split(1, 3), "fc_w": tp.Split(2),
+             "fc_b": tp.Split(1), "prj_w": tp.Split(1), "out_w": tp.Split(1)}
+
+
+class _Plan(NamedTuple):
+    """One forward's view of the mesh: the ``mp`` and ``sp`` groups (None
+    where the axis has size 1) and this rank's place on each."""
+    mp: int
+    mp_rank: int
+    mp_group: object
+    sp: int
+    sp_rank: int
+    sp_group: object
+
+
+_ONE = _Plan(1, 0, None, 1, 0, None)                  # no mesh, one rank
+
 
 def init_params(c: GPTConfig) -> dict:
     """The reference's initial parameters as numpy arrays: the same
@@ -153,22 +216,83 @@ def init_params(c: GPTConfig) -> dict:
 
 
 class GPT(Layer):
-    def __init__(self, config: GPTConfig, device=None):
+    # on a mesh with sp > 1 each rank runs its positions of the sequence
+    # (ShardedTrainStep sums its gradients over sp)
+    splits_sequence = True
+
+    def __init__(self, config: GPTConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
         for name, value in init_params(config).items():
-            self.register_parameter(
-                name, Parameter(torch.from_numpy(value).to(dev),
-                                name=f"gpt.{name}"))
+            p = Parameter(torch.from_numpy(value).to(dev), name=f"gpt.{name}")
+            if name in DIST_ATTRS:
+                p.dist_attr = DistAttr(DIST_ATTRS[name])
+            self.register_parameter(name, p)
+        self._mesh = None
+        self._mp = 1
+        mesh = mesh if mesh is not None else current_mesh()
+        if mesh is not None and (mesh.shape.get("mp", 1) > 1
+                                 or mesh.shape.get("sp", 1) > 1):
+            self.apply_mesh(mesh)
+
+    def apply_mesh(self, mesh) -> "GPT":
+        """Run on ``mesh`` from now on: where its ``mp`` axis has size
+        m > 1, hold this rank's shards (once; a second mesh must have the
+        same m).  ``pp`` and ``ep`` raise (ROADMAP item 3c)."""
+        require_no_model_parallel(mesh, "GPT")
+        c = self.config
+        m = mesh.shape.get("mp", 1)
+        if m != self._mp and self._mp != 1:
+            raise ValueError(f"GPT holds {self._mp} mp shards; the mesh has "
+                             f"mp={m}")
+        if m > 1 and self._mp == 1:
+            for what, size in (("num_heads", c.num_heads),
+                               ("vocab_size", c.vocab_size),
+                               ("ffn_size", c.ffn_size)):
+                if size % m:
+                    raise ValueError(f"GPT at mp={m}: {what}={size} does not "
+                                     f"divide by {m}")
+            idx = mesh.axis_index("mp")
+            for name, split in MP_SPLITS.items():
+                tp.shard_parameter(getattr(self, name), split, m, idx)
+            self._mp = m
+        s = mesh.shape.get("sp", 1)
+        if s > 1 and c.max_seq_len % s:
+            raise ValueError(f"GPT at sp={s}: max_seq_len={c.max_seq_len} "
+                             f"does not divide by {s}")
+        self._mesh = mesh
+        return self
+
+    def _plan(self) -> _Plan:
+        """The mesh read once a forward: ``_ONE`` where mp = sp = 1."""
+        mesh = self._mesh if self._mesh is not None else current_mesh()
+        if mesh is None:
+            return _ONE
+        m, s = mesh.shape.get("mp", 1), mesh.shape.get("sp", 1)
+        if m == 1 and s == 1:
+            return _ONE
+        if m != self._mp:
+            raise ValueError(f"GPT holds {self._mp} mp shards; the mesh has "
+                             f"mp={m}: build it under the mesh or call "
+                             "apply_mesh")
+        require_no_model_parallel(mesh, "GPT")
+        return _Plan(m, mesh.axis_index("mp") if m > 1 else 0,
+                     mesh.axis_group("mp") if m > 1 else None,
+                     s, mesh.axis_index("sp") if s > 1 else 0,
+                     mesh.axis_group("sp") if s > 1 else None)
 
     def load_jax_params(self, np_params: dict) -> "GPT":
         """Copy the reference model's parameters in (``np.asarray`` of
-        each ``model._parameters[n]._data``), keyed by ``_PARAM_ORDER``."""
+        each ``model._parameters[n]._data``), keyed by ``_PARAM_ORDER``;
+        a sharded GPT takes its shards of them."""
         from paddle_tpu_torch.models.convert import params_from_jax
         with torch.no_grad():
             for name, t in params_from_jax(np_params).items():
                 p = getattr(self, name)
+                split = getattr(p, "mp_split", None)
+                if split is not None:
+                    t = split[0].take(t, *split[1:])
                 if p.shape != t.shape:
                     raise ValueError(f"{name}: shape {tuple(t.shape)} does "
                                      f"not match {tuple(p.shape)}")
@@ -177,12 +301,16 @@ class GPT(Layer):
 
     def forward(self, input_ids) -> torch.Tensor:
         """input_ids (B, S) int -> logits (B, S, V).  One op for
-        ``amp.auto_cast``, as the reference's ``gpt_forward``."""
+        ``amp.auto_cast``, as the reference's ``gpt_forward``.  Under mp or
+        sp > 1 every rank returns the full logits (all-gathered)."""
         ids = self._ids(input_ids)
+        plan = self._plan()
         params = amp_cast_for_op("gpt_forward", self._param_list())
         with _op_scope():
-            return _gpt_forward(self.config, dict(zip(_PARAM_ORDER, params)),
-                                ids)
+            lg = _gpt_forward(self.config, dict(zip(_PARAM_ORDER, params)),
+                              ids, plan=plan)
+            return tp.gather(tp.gather(lg, plan.mp_group, -1),
+                             plan.sp_group, 1)
 
     def _param_list(self) -> list:
         return [getattr(self, n) for n in _PARAM_ORDER]
@@ -197,44 +325,93 @@ def _ln(x, w, b, eps=1e-5):
     return (x - mu) * torch.rsqrt(var + eps) * w + b
 
 
-def _attention(cfg: GPTConfig, q, k, v):
-    """(B, S, nh, hd) causal attention: the blockwise kernel where the
-    reference's rule sends it, else the dense fallback."""
+def _attention(cfg: GPTConfig, q, k, v, plan: _Plan):
+    """(B, S, nh, hd) causal attention: the ring over ``sp`` where the
+    sequence is split, else the blockwise kernel where the reference's
+    rule sends it, else the dense fallback."""
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    if plan.sp > 1:
+        from paddle_tpu_torch.parallel.ring_attention import _ring
+        return _ring(q, k, v, True, scale, plan.sp_group)
     if cfg.use_flash_attention and _fa.supported(
             tuple(q.shape), tuple(k.shape), causal=True, dtype=q.dtype):
         return _fa.flash_attention(q, k, v, causal=True, scale=scale)
     return _xla_attention(q, k, v, None, scale, True)
 
 
-def _layer(cfg: GPTConfig, x, lp):
+def _layer(cfg: GPTConfig, x, lp, plan: _Plan):
+    """One block on this rank's heads and FFN columns: the column-split
+    products take the replicated input through ``tp.copy_to``, the
+    row-split ones sum over ``mp`` before the replicated bias (each the
+    identity on one rank)."""
     b, s = x.shape[:2]
-    H, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
-    h = _ln(x, lp["ln1_w"], lp["ln1_b"])
-    qkv = h @ lp["qkv_w"] + lp["qkv_b"]                 # (b,s,3H)
-    q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(H, dim=-1))
-    a = _attention(cfg, q, k, v).reshape(b, s, H)
-    x = x + a @ lp["prj_w"] + lp["prj_b"]
-    h2 = _ln(x, lp["ln2_w"], lp["ln2_b"])
+    nh, hd = cfg.num_heads // plan.mp, cfg.head_dim
+    g = plan.mp_group
+    h = tp.copy_to(_ln(x, lp["ln1_w"], lp["ln1_b"]), g)
+    qkv = h @ lp["qkv_w"] + lp["qkv_b"]                 # (b,s,3H/m)
+    q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(nh * hd, dim=-1))
+    a = _attention(cfg, q, k, v, plan).reshape(b, s, nh * hd)
+    x = x + tp.reduce(a @ lp["prj_w"], g) + lp["prj_b"]
+    h2 = tp.copy_to(_ln(x, lp["ln2_w"], lp["ln2_b"]), g)
     ff = F.gelu(h2 @ lp["fc_w"] + lp["fc_b"], approximate="tanh")
-    return x + ff @ lp["out_w"] + lp["out_b"]
+    return x + tp.reduce(ff @ lp["out_w"], g) + lp["out_b"]
 
 
-def _gpt_forward(cfg: GPTConfig, p: dict, ids, features_only: bool = False):
+def _positions(plan: _Plan, s: int):
+    """This rank's slice [off, off + s/n) of a sequence of s positions."""
+    if s % plan.sp:
+        raise ValueError(f"sequence {s} does not divide over sp={plan.sp}")
+    w = s // plan.sp
+    return plan.sp_rank * w, w
+
+
+def _gpt_forward(cfg: GPTConfig, p: dict, ids, features_only: bool = False,
+                 plan: _Plan = _ONE):
     """The forward over the parameters ``p`` ({name in _PARAM_ORDER:
-    tensor})."""
-    S = ids.shape[1]
-    x = p["wte"][ids] + p["wpe"][:S][None, :, :]
+    tensor}) on one rank of an mp x sp mesh (``plan``): ids (B, S) the
+    whole sequence -> this rank's (B, S/n, V/m) logits (or its (B, S/n, H)
+    final hidden states)."""
+    off, w = _positions(plan, ids.shape[1])
+    ids = ids[:, off:off + w]
+    if plan.mp > 1:
+        from paddle_tpu_torch.distributed.tp_layers import vocab_lookup
+        x = vocab_lookup(p["wte"], ids, plan.mp_group)
+    else:
+        x = p["wte"][ids]
+    x = x + p["wpe"][off:off + w][None, :, :]
     # one unbind per stacked parameter: its backward is one stack, where
     # indexing each layer would sum L full-size gradients per parameter
     per_layer = {n: p[n].unbind(0) for n in _LAYER_PARAMS}
+    if cfg.remat and plan is not _ONE and torch.is_grad_enabled() and \
+            in_loopback() and p["wte"].is_cuda:
+        # the replay would meet the collectives on autograd's one device
+        # thread, where one rank's wait blocks the other's
+        raise NotImplementedError(
+            "GPT(remat=True) at mp or sp > 1 on LoopbackWorld ranks on the "
+            "card: build it with remat=False, or run one rank a process")
     layer = functools.partial(recompute, _layer) if cfg.remat else _layer
     for i in range(cfg.num_layers):
-        x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS})
+        x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS}, plan)
     x = _ln(x, p["lnf_w"], p["lnf_b"])
     if features_only:
         return x
-    return x @ p["wte"].T                              # tied head
+    return tp.copy_to(x, plan.mp_group) @ p["wte"].T   # tied head
+
+
+def _gpt_loss_tp(lg, labels, plan: _Plan):
+    """The causal-LM loss at mp or sp > 1: the vocabulary-parallel CE of
+    this rank's logits (B, S/n, V/m) against its slice of the globally
+    shifted labels (B, S), the partial sums over ``sp`` divided by the
+    global B (S - 1)."""
+    B, S = labels.shape
+    off, w = _positions(plan, S)
+    lab = torch.cat([labels[:, 1:], labels.new_full((B, 1), -1)], dim=1)
+    lab = lab[:, off:off + w].reshape(-1)
+    per = tp.vocab_parallel_ce(lg.float().reshape(lab.shape[0], -1), lab,
+                               plan.mp_rank * lg.shape[-1], plan.mp_group)
+    part = torch.where(lab >= 0, per, torch.zeros_like(per)).sum() / (
+        B * (S - 1))
+    return tp.reduce(part, plan.sp_group)
 
 
 def _gpt_fused_ce_loss(cfg: GPTConfig, p: dict, ids, labels):
@@ -259,8 +436,19 @@ def gpt_loss(model: GPT, input_ids, labels):
     cfg = model.config
     ids, labels = model._ids(input_ids), model._ids(labels)
     B, S = ids.shape
-    if flag("gpt_fused_ce") and fused_ce.supported(
-            B * S, cfg.hidden_size, model.wte.dtype):
+    plan = model._plan()
+    if plan is not _ONE:
+        # the (B, S, V) logits are on no rank: the vocabulary-parallel CE
+        params = amp_cast_for_op("gpt_forward", model._param_list())
+        with _op_scope():
+            lg = _gpt_forward(cfg, dict(zip(_PARAM_ORDER, params)), ids,
+                              plan=plan)
+        (lg,) = amp_cast_for_op("gpt_loss", [lg])
+        with _op_scope():
+            return _gpt_loss_tp(lg, labels, plan)
+    mesh = current_mesh()
+    if flag("gpt_fused_ce") and (mesh is None or mesh.size == 1) and \
+            fused_ce.supported(B * S, cfg.hidden_size, model.wte.dtype):
         params = amp_cast_for_op("gpt_loss_fused", model._param_list())
         with _op_scope():
             return _gpt_fused_ce_loss(

@@ -39,15 +39,18 @@ way to run dp >= 2 on a machine with one card, where NCCL refuses two
 ranks on one device.  Each rank thread has its own current mesh
 (:func:`get_mesh` inside ``LoopbackWorld.run`` answers the rank's).
 
-A mesh may name ``mp`` and ``pp`` (the topology arithmetic of
-:class:`HybridTopology` and fleet reads them); the train steps that
-would run them are ROADMAP item 3b and raise.  ``DistAttr`` and
-``shard_spec`` keep the reference's annotations (a tuple of axis names a
-dim is split over) for the parallel layers of item 3b; the ported steps
-read none.
+A mesh may name ``mp`` and ``sp`` too: ``ShardedTrainStep``, the
+tensor-parallel layers and GPT run them (``parallel/tp.py``,
+``parallel/ring_attention.py``); ``pp`` (ROADMAP item 3c) and ``ep`` (no
+user in the reference) raise.  ``DistAttr`` and ``shard_spec`` keep the
+reference's annotations (a tuple of axis names a dim is split over).
+The port's program is manual on every rank, so :func:`constrain` only
+checks its spec, and :func:`shard_map_compat` runs a function on each
+rank's slices of its inputs and all-gathers its outputs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import queue
 import threading
@@ -59,7 +62,8 @@ import torch.distributed as dist
 __all__ = ["Mesh", "DistGroup", "LoopbackWorld", "make_mesh", "set_mesh",
            "ordered_sum", "sum_over", "mean_over",
            "get_mesh", "init_process_group", "auto_mesh", "mesh_axis_size",
-           "shard_spec", "DistAttr", "HybridTopology", "AXIS_ORDER"]
+           "shard_spec", "DistAttr", "HybridTopology", "AXIS_ORDER",
+           "constrain", "manual_region", "shard_map_compat"]
 
 # canonical axis order (reference :51): pipeline outermost, model innermost
 AXIS_ORDER = ("pp", "dp", "sharding", "mp", "sp", "ep")
@@ -349,6 +353,15 @@ class Mesh:
             self._axis_groups[key] = g
         return self._axis_groups[key]
 
+    def axis_index(self, axes) -> int:
+        """This rank's index along ``axes`` (row-major over them in mesh
+        order), its place in :meth:`axis_group` of the same axes."""
+        topo = HybridTopology(self)
+        idx = 0
+        for a in self.axes_of(axes):
+            idx = idx * self.shape[a] + topo.axis_rank(self.rank, a)
+        return idx
+
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
 
@@ -364,14 +377,16 @@ def _require_pure_dp(mesh: Mesh, who: str = "this strategy"):
 
 
 def require_no_model_parallel(mesh: Mesh, who: str):
-    """Raise NotImplementedError when ``mesh`` has a model-parallel axis
-    (``mp``, ``pp``, ``sp``, ``ep``) of size > 1: ROADMAP item 3b."""
+    """Raise NotImplementedError when ``mesh`` has a ``pp`` axis (ROADMAP
+    item 3c, the pipeline) or an ``ep`` axis (expert parallelism, which no
+    model of the reference runs) of size > 1.  ``mp`` and ``sp`` run."""
     extra = {a: s for a, s in mesh.shape.items()
-             if a not in ("dp", "sharding") and s > 1}
+             if a not in ("dp", "sharding", "mp", "sp") and s > 1}
     if extra:
         raise NotImplementedError(
-            f"{who} over the model-parallel axes {extra} is ROADMAP Queue 1 "
-            "item 3b (model parallelism), not ported yet")
+            f"{who} over the axes {extra}: the pipeline (pp) is ROADMAP "
+            "Queue 1 item 3c, not ported yet; expert parallelism (ep) has "
+            "no user in the reference")
 
 
 def init_process_group(device="cuda", *, rank: int, world_size: int,
@@ -503,9 +518,10 @@ def shard_spec(*axes) -> tuple:
 
 class DistAttr:
     """Sharding annotation carried by a parameter (reference :186): the
-    mesh axes each of its dims is split over.  The ported steps shard
-    only over the data axes and read none; the parallel layers of item 3b
-    will."""
+    mesh axes each of its dims is split over.  ``ShardedTrainStep`` reads
+    it on a mesh with ``mp`` > 1: a parameter split over ``mp`` must be
+    held in shards by an mp-aware layer or model (its ``mp_split``, set by
+    ``parallel.tp.shard_parameter``), else the step raises."""
 
     __slots__ = ("spec",)
 
@@ -517,6 +533,91 @@ class DistAttr:
 
     def __repr__(self):
         return f"DistAttr({self.spec})"
+
+
+_MANUAL = threading.local()
+
+
+@contextlib.contextmanager
+def manual_region():
+    """Mark a region run on each rank's slices (reference :139):
+    :func:`constrain` checks nothing inside it."""
+    prev = getattr(_MANUAL, "depth", 0)
+    _MANUAL.depth = prev + 1
+    try:
+        yield
+    finally:
+        _MANUAL.depth = prev
+
+
+def in_manual_region() -> bool:
+    return getattr(_MANUAL, "depth", 0) > 0
+
+
+class _OneRank:
+    shape = {"dp": 1}
+
+
+def constrain(arr, *axes, strip=()):
+    """The reference's sharding constraint (``:161``).  The port's program
+    is already manual on each rank, so the tensor comes back as it is; the
+    spec is still checked against it as the reference checks it: axes
+    absent from the active mesh (or in ``strip``) are dropped, and a spec
+    longer than the tensor's rank raises."""
+    if in_manual_region():
+        return arr
+    axes = tuple(None if a in strip else a for a in axes)
+    spec = _clean_axes(axes, current_mesh() or _OneRank())
+    if len(spec) > arr.dim():
+        raise ValueError(f"sharding spec {spec} has rank {len(spec)} > "
+                         f"array rank {arr.dim()}")
+    return arr
+
+
+def _spec_dims(spec, mesh: Mesh):
+    """[(dim, axes)] of the dims a spec splits over the mesh's axes."""
+    out = []
+    for d, a in enumerate(_clean_axes(tuple(spec or ()), mesh)):
+        if a is not None and mesh.axis_size(a) > 1:
+            out.append((d, mesh.axes_of(a)))
+    return out
+
+
+def _local_slice(t, spec, mesh: Mesh):
+    for d, axes in _spec_dims(spec, mesh):
+        n = mesh.axis_size(axes)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"over {axes} ({n} ranks)")
+        w = t.shape[d] // n
+        t = t.narrow(d, mesh.axis_index(axes) * w, w)
+    return t
+
+
+def _assemble(t, spec, mesh: Mesh):
+    for d, axes in reversed(_spec_dims(spec, mesh)):
+        t = torch.cat(list(mesh.axis_group(axes).all_gather(
+            t.contiguous()).unbind(0)), d)
+    return t
+
+
+def shard_map_compat(f, mesh: Mesh, in_specs, out_specs):
+    """``f`` over the ranks' slices (reference ``:31``): the returned
+    function takes the global inputs, gives ``f`` this rank's slice of
+    each (``in_specs``, one spec a input: a tuple of the axes each dim is
+    split over), and assembles each output by all-gathering it over the
+    axes its spec names (``out_specs``: one spec, or a sequence of them
+    where ``f`` returns a tuple).  Every rank of the mesh calls it; a dim
+    no spec splits comes back as this rank's value."""
+    def mapped(*args):
+        local = [_local_slice(a, s, mesh) for a, s in zip(args, in_specs)]
+        with manual_region():
+            out = f(*local)
+        if isinstance(out, (tuple, list)):
+            return type(out)(_assemble(o, s, mesh)
+                             for o, s in zip(out, out_specs))
+        return _assemble(out, out_specs, mesh)
+    return mapped
 
 
 class HybridTopology:

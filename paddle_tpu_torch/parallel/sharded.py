@@ -34,14 +34,39 @@ program by hand on each rank, and at any data-axis size gives what
   parameters are empty then) and all-gathers them before the forward:
   :meth:`ShardedTrainStep.gather_params` puts them back for reading.
 
-Raising: a mesh with an ``mp``, ``pp``, ``sp`` or ``ep`` axis of size > 1
-and ``input_specs`` (ROADMAP item 3b); a per-parameter-norm optimizer
+Tensor and sequence parallelism (reference ``:120-158``): on a mesh with
+``mp`` or ``sp`` > 1 the step hands the mesh to every mp-aware module
+(``apply_mesh``: ``GPT``, the layers of ``distributed/tp_layers.py``),
+which then hold this rank's shards of their split parameters.  The data
+axes stay ``dp`` and ``sharding``: the ``mp`` and ``sp`` ranks of one
+data coordinate take the same batch rows (GPT's ``sp`` ranks take
+different positions of them).  A parameter split over ``mp`` keeps its
+rank-local gradient; a replicated one's is the same on every ``mp`` rank
+(bitwise: the sums inside the model run in rank order); where a module
+splits the sequence (``splits_sequence``, GPT) every gradient is summed
+over ``sp`` (the sp ranks of any other model are replicas), then
+averaged over the data axes.  The loss is the global one on every rank.
+ZeRO stages 1-3 chunk each rank's mp shard over ``sharding`` (or
+``dp``).  :meth:`ShardedTrainStep.gather_params`
+returns the reference's full layout ({name: tensor}, GPT's ``qkv``
+permutation undone).  ``input_specs`` gives each input the axes each of
+its dims is split over (one spec an input, as the reference's
+``PartitionSpec``); the rank takes its slice along each, the default
+being dim 0 over the data axes.
+
+Raising: a mesh with a ``pp`` (ROADMAP item 3c) or ``ep`` axis of size >
+1; a parameter whose ``DistAttr`` splits it over ``mp`` (> 1) but which
+no mp-aware layer or model holds in shards (BERT's, a plain ``Linear``
+under ``shard_module`` rules: item 3c's list), rather than keeping it
+whole; at ``mp`` > 1 a gradient clip other than ``ClipGradByValue`` (its
+norms would be taken over shards); a per-parameter-norm optimizer
 (``Lamb``, ``LarsMomentum``) whose state is sharded over more than one
 rank (its norms would be taken over chunks); ``lower_hlo``, the
-reference's XLA text (item 8); ``recompute=True`` for a model with batch
-norms on the card on ranks simulated by a ``LoopbackWorld`` (the replay
-would run the statistic sums on the autograd engine's one device thread,
-where one rank's wait blocks the other's).
+reference's XLA text (item 8); ``recompute=True`` on the card on ranks
+simulated by a ``LoopbackWorld`` for a model with batch norms, or on a
+mesh with ``mp`` or ``sp`` > 1 (the replay would run the ranks' sums on
+the autograd engine's one device thread, where one rank's wait blocks
+the other's).
 """
 from __future__ import annotations
 
@@ -56,10 +81,13 @@ from paddle_tpu_torch.jit import TrainStep, apply_functional_update, \
     loss_and_grads
 from paddle_tpu_torch.nn.functional.norm import batch_stats_over
 from paddle_tpu_torch.nn.layer.norm import _BatchNormBase
+from paddle_tpu_torch.parallel import tp
 from paddle_tpu_torch.parallel.mesh import (DistAttr, HybridTopology,
-                                            get_mesh, in_loopback,
-                                            mean_over, ordered_sum,
-                                            require_no_model_parallel)
+                                            _local_slice, get_mesh,
+                                            in_loopback, mean_over,
+                                            ordered_sum,
+                                            require_no_model_parallel,
+                                            sum_over)
 from paddle_tpu_torch.parallel.zero import (build_shard_specs,
                                             f32_all_gather,
                                             init_state_shards, sharded_clip)
@@ -134,10 +162,17 @@ class ShardedTrainStep(TrainStep):
                          **kwargs)
         self.mesh = mesh or get_mesh()
         require_no_model_parallel(self.mesh, "ShardedTrainStep")
-        if input_specs is not None:
-            raise NotImplementedError(
-                "ShardedTrainStep(input_specs=...) lays inputs out over the "
-                "model-parallel axes: ROADMAP Queue 1 item 3b, not ported")
+        self.input_specs = (None if input_specs is None
+                            else [tuple(s or ()) for s in input_specs])
+        self._mp = self.mesh.shape.get("mp", 1)
+        self._sp = self.mesh.shape.get("sp", 1)
+        if self._mp > 1 or self._sp > 1:
+            self._model_parallel(model, optimizer, recompute)
+        # the sp ranks of a model that splits the sequence hold partial
+        # gradients; any other model's sp ranks are replicas
+        self._spgroup = (self.mesh.axis_group("sp") if self._sp > 1 and any(
+            getattr(m, "splits_sequence", False) for m in model.modules())
+            else None)
         if sharding_stage not in (0, 1, 2, 3):
             raise ValueError(f"sharding_stage must be 0-3, got "
                              f"{sharding_stage!r}")
@@ -179,10 +214,59 @@ class ShardedTrainStep(TrainStep):
         self._pshards: Dict[str, torch.Tensor] = {}
         self._shapes: Dict[str, torch.Size] = {}
 
+    def _model_parallel(self, model, optimizer, recompute):
+        """Hand the mesh to the mp-aware modules, then refuse what the
+        step cannot split."""
+        mesh = self.mesh
+        for m in model.modules():
+            if hasattr(m, "apply_mesh"):
+                m.apply_mesh(mesh)
+        if self._mp > 1:
+            for n, p in model.named_parameters():
+                attr = getattr(p, "dist_attr", None)
+                axes = [] if attr is None else [
+                    a for e in attr.sharding(mesh) if e is not None
+                    for a in ((e,) if isinstance(e, str) else e)]
+                if "mp" in axes and getattr(p, "mp_split", None) is None:
+                    raise NotImplementedError(
+                        f"parameter {n!r} carries {attr} over mp="
+                        f"{self._mp}, but no mp-aware layer or model holds "
+                        "it in shards (ROADMAP Queue 1 item 3c lists "
+                        "BERT's mp path); the step does not keep it whole")
+            clip = getattr(optimizer, "_grad_clip", None)
+            if clip is not None and type(clip).__name__ != \
+                    "ClipGradByValue":
+                raise NotImplementedError(
+                    f"{type(clip).__name__} at mp={self._mp} would take its "
+                    "norms over this rank's shards: not ported")
+        if recompute and in_loopback() and any(
+                p.is_cuda for p in model.parameters()):
+            raise NotImplementedError(
+                "ShardedTrainStep(recompute=True) at mp or sp > 1 on "
+                "LoopbackWorld ranks on the card cannot replay the ranks' "
+                "sums: run without recompute, or one rank a process")
+
     # -- the rank's part of the batch ---------------------------------------
-    def _slice(self, t: torch.Tensor) -> torch.Tensor:
+    def _slice_spec(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's part of an input by its ``input_specs`` entry, in
+        each of the ``accumulate_steps`` micro-batches."""
+        if t.dim() == 0:
+            return t
+        if len(spec) > t.dim():
+            raise ValueError(f"input spec {spec} is longer than the input's "
+                             f"{t.dim()} dims")
+        micro = self.accumulate_steps
+        if micro == 1:
+            return _local_slice(t, spec, self.mesh)
+        m = t.reshape((micro, -1) + tuple(t.shape[1:]))
+        parts = [_local_slice(m[k], spec, self.mesh) for k in range(micro)]
+        return torch.cat(parts, 0)
+
+    def _slice(self, t: torch.Tensor, spec=None) -> torch.Tensor:
         """This rank's slice of each of the ``accumulate_steps``
         micro-batches of a global-batch input (reference ``:151-157``)."""
+        if spec is not None:
+            return self._slice_spec(t, spec)
         if t.dim() == 0 or self._nd == 1:
             return t
         micro, nd = self.accumulate_steps, self._nd
@@ -254,7 +338,17 @@ class ShardedTrainStep(TrainStep):
                     self._pshards[n] = self._chunk(p.detach(), n).clone()
                     p.data = p.data.new_empty(0)
 
-    def gather_params(self):
+    def gather_params(self) -> dict:
+        """All-gather stage 3's chunks back into the module, then return
+        {name: the reference's full tensor}: a parameter split over ``mp``
+        all-gathered and assembled (GPT's ``qkv`` head permutation undone),
+        the others as they are.  Every rank calls it."""
+        self._gather_chunks()
+        group = self.mesh.axis_group("mp") if self._mp > 1 else None
+        with torch.no_grad():
+            return tp.full_parameters(self.model, group)
+
+    def _gather_chunks(self):
         """All-gather the parameters' chunks back into the module (every
         rank calls it); a no-op unless stage 3 holds chunks."""
         with torch.no_grad():
@@ -267,7 +361,7 @@ class ShardedTrainStep(TrainStep):
     # -- the step -----------------------------------------------------------
     def _run(self, inputs, steps, what):
         self._ensure_state(self._params())
-        self.gather_params()
+        self._gather_chunks()
         try:
             return super()._run(inputs, steps, what)
         finally:
@@ -276,7 +370,11 @@ class ShardedTrainStep(TrainStep):
 
     def _one_step(self, params: dict, inputs, lr, states):
         micro = self.accumulate_steps
-        parts = [self._slice(i) for i in inputs]
+        specs = self.input_specs or [None] * len(inputs)
+        if len(specs) != len(inputs):
+            raise ValueError(f"{len(specs)} input_specs for {len(inputs)} "
+                             "inputs")
+        parts = [self._slice(i, s) for i, s in zip(inputs, specs)]
         parts = [p if p.dim() == 0 else p.reshape(
             (micro, -1) + tuple(p.shape[1:])) for p in parts]
         losses, grads = [], None
@@ -292,6 +390,9 @@ class ShardedTrainStep(TrainStep):
             grads = {n: g / micro for n, g in grads.items()}
         with torch.no_grad(), torch.profiler.record_function(
                 "TrainStep.update"):
+            if self._spgroup is not None:
+                grads = {n: sum_over(self._spgroup, g)
+                         for n, g in grads.items()}
             loss = self._mean(torch.stack(losses)).mean()
             if self.sharding_stage == 0:
                 grads = {n: self._mean(g) for n, g in grads.items()}

@@ -274,7 +274,8 @@ def test_new_group_of_ranks_send_recv_and_topology():
 def test_mesh_helpers_and_the_lone_process():
     """auto_mesh / mesh_axis_size / shard_spec as the reference's; in a
     lone process every collective is the identity of one rank, and split
-    raises naming item 3b."""
+    (item 3b, ported) builds the plain layer of one rank: the layer, or
+    its output for a tensor; an unknown operation raises."""
     def fn(rank, m):
         mesh = set_mesh(auto_mesh(sharding=2))
         return (dict(mesh.shape), mesh_axis_size("sharding"),
@@ -294,8 +295,20 @@ def test_mesh_helpers_and_the_lone_process():
     assert dist.is_initialized()
     dist.barrier()
     assert torch.equal(dist.wait(t), t)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        dist.split(t, (2, 2), "linear")
+    from paddle_tpu_torch import device as tdevice
+    was = tdevice.get_device()
+    tdevice.set_device("cpu")
+    try:
+        col = dist.split(None, (2, 3), "linear", axis=1)
+        assert type(col).__name__ == "ColumnParallelLinear"
+        assert col.weight.shape == (2, 3)
+        assert dist.split(t, (2, 3), "linear").shape == (3,)
+        assert dist.split(torch.tensor([1, 0]), (4, 3),
+                          "embedding").shape == (2, 3)
+        with pytest.raises(ValueError, match="unsupported split"):
+            dist.split(t, (2, 2), "conv")
+    finally:
+        tdevice._default = was
 
 
 def test_parallel_env_and_spawn_read_the_protocol(monkeypatch):

@@ -115,13 +115,16 @@ def test_compile_strategy_matches_reference(name, n, settings):
 
 
 def test_model_parallel_degrees_raise_naming_item_3b():
+    """An mp degree now compiles to ShardedTrainStep over an mp axis (item
+    3b is ported); a pp degree raises naming item 3c, the pipeline."""
     s = DistributedStrategy()
     s.hybrid_configs = {"mp_degree": 2}
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        LoopbackWorld(2).run(lambda r, m: compile_strategy(s))
+    got = LoopbackWorld(2).run(lambda r, m: dict(compile_strategy(s)
+                                                 .mesh.shape))
+    assert got == [{"mp": 2}] * 2
     s = DistributedStrategy()
     s.hybrid_configs = {"pp_degree": 2}
-    with pytest.raises(NotImplementedError, match="item 3b"):
+    with pytest.raises(NotImplementedError, match="item 3c"):
         compile_strategy(s, devices=2)
 
 
@@ -368,11 +371,13 @@ def test_fleet_trains_as_the_reference_fleet():
     assert fleet.utils.recompute is fleet.recompute
 
 
-PENDING = [("distributed", n, "3b") for n in (
+# item 3b's names are ported (None): real, not stand-ins
+PENDING = [("distributed", n, None) for n in (
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
-    "shard_tensor", "split")] + [("parallel", n, "3b") for n in (
-        "make_pipeline_train_1f1b", "pipeline_forward", "ring_attention",
-        "shard_map_compat", "pipeline")] + [
+    "shard_tensor", "split")] + [("parallel", n, "3c") for n in (
+        "make_pipeline_train_1f1b", "pipeline_forward")] + [
+    ("parallel", n, None) for n in ("ring_attention", "shard_map_compat")] + [
+    ("parallel", "pipeline", "3c")] + [
     ("distributed", n, "4") for n in ("DatasetFactory", "InMemoryDataset",
                                       "QueueDataset", "train_from_dataset",
                                       "ps")] + [
@@ -389,15 +394,19 @@ PENDING = [("distributed", n, "3b") for n in (
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 3b, 4, 5 and 6 raises
+    """Every reference name left for items 3c, 4, 5 and 6 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; a name neither package has is an AttributeError."""
+    it; item 3b's names (item None) are real, not stand-ins; a name
+    neither package has is an AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")
     assert hasattr(ref, name) or importlib.util.find_spec(
         f"paddle_tpu.{module}.{name}") is not None
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        getattr(mod, name)(None, (2, 2), "linear")
+    if item is None:
+        assert getattr(mod, name).__module__ != "paddle_tpu_torch._pending"
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+            getattr(mod, name)(None, (2, 2), "linear")
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")

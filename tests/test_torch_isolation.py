@@ -63,7 +63,9 @@ def test_every_module_imports_with_jax_blocked():
               "distributed.spawn", "distributed.fleet.strategy",
               "distributed.fleet.role_maker", "distributed.fleet.topology",
               "distributed.fleet.strategy_compiler",
-              "distributed.fleet.metrics", "parallel.sharded"):
+              "distributed.fleet.metrics", "parallel.sharded",
+              "parallel.tp", "parallel.ring_attention",
+              "distributed.tp_layers"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
@@ -85,6 +87,19 @@ def test_gpt_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         tdevice.set_device("cuda")
     assert GPT(gpt_tiny(num_layers=1), device="cpu").wte.device.type == "cpu"
+
+
+def test_tp_entry_points_default_to_cuda(monkeypatch):
+    """The tensor-parallel layers land on the card unless asked otherwise,
+    and raise without it."""
+    from paddle_tpu_torch import distributed as tdist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda d: tdist.ColumnParallelLinear(4, 8, device=d),
+                 lambda d: tdist.RowParallelLinear(4, 8, device=d),
+                 lambda d: tdist.VocabParallelEmbedding(16, 4, device=d)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make(None)
+        assert make("cpu").weight.device.type == "cpu"
 
 
 def test_seq2seq_entry_points_default_to_cuda(monkeypatch):

@@ -319,18 +319,25 @@ def test_masked_lm_loss_is_the_mean_of_the_ranks_losses():
 
 
 def test_refusals():
-    """Model-parallel axes and input_specs raise naming item 3b; a batch
-    that does not divide, a sharded Lamb and lower_hlo raise."""
+    """A pipeline axis raises naming item 3c (mp and input_specs now run:
+    the MLP, with no mp annotation, trains on a dp x mp mesh as on its dp
+    ranks, and input_specs naming dim 0 over dp is the default layout); a
+    batch that does not divide, a sharded Lamb and lower_hlo raise."""
     _, w, _ = _reference(False)
     x, y = _data(n=6)
+    xs, ys = _data(n=8)
 
     def fn(rank, mesh):
         m = _port(False, w)
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            ShardedTrainStep(m, _ce, SGD(), mesh=Mesh({"dp": 2, "mp": 2},
+        with pytest.raises(NotImplementedError, match="item 3c"):
+            ShardedTrainStep(m, _ce, SGD(), mesh=Mesh({"pp": 2, "dp": 2},
                                                       mesh.group))
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            ShardedTrainStep(m, _ce, SGD(), input_specs=[("dp",)])
+        mixed = ShardedTrainStep(_port(False, w), _ce, SGD(),
+                                 mesh=Mesh({"dp": 2, "mp": 2}, mesh.group))
+        plain = ShardedTrainStep(_port(False, w), _ce, SGD(),
+                                 mesh=Mesh({"dp": 2, "mp": 2}, mesh.group),
+                                 input_specs=[("dp",), ("dp",)])
+        assert float(mixed(xs, ys)) == float(plain(xs, ys))
         with pytest.raises(TypeError, match="norm-per-parameter"):
             ShardedTrainStep(m, _ce, Lamb(), sharding_stage=1)
         ShardedTrainStep(m, _ce, Lamb(), sharding_stage=0)
