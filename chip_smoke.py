@@ -528,6 +528,19 @@ Phases, in order; any failure ends the script with a non-zero exit:
              345M at sp = 2 served against sp = 1 and trained 3 steps
              against the train phase's losses.  The launches of phases
              48-49 join the kernel table's and are its tp_sp_launches.
+50. pp-gpt — GPT-2 345M at pp = 2 (12 layers a stage on two
+             LoopbackWorld threads, 4 microbatches of 2 rows) in both
+             schedules (F-then-B, 1F1B): f32 and bf16 serving against
+             pp = 1; one f32 SGD step and 3 O2 bf16 AdamW(1e-4) steps
+             against one-rank TrainStep, 48 launches each of #1-#3 a rank
+             a step, the live microbatch graphs by stage (4 under
+             F-then-B, 2 and 1 under 1F1B), peak bytes by schedule, beside
+             three planted faults (the boundary's input gradient not sent
+             back, the last stage's labels a microbatch off, wte's
+             gradient summed over the stages); pp = 4 in 1F1B; dp x pp x
+             mp = 2 x 2 x 2 and pp x sp = 2 x 2 at 2 layers (f32, SGD)
+             against one-rank TrainStep.  Its launches join the kernel
+             table's and are its pp_launches.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -8859,12 +8872,13 @@ def _serve_ranks(models, axes, ids_t, fault=None):
 def _train_ranks(models, axes, ids_t, make_opt, steps, plant=None, **kw):
     """``steps`` ShardedTrainStep steps on each rank: ([each rank's (losses,
     gathered parameters: rank 0's on the host, parameter bytes, host-hop
-    bytes a step)], the host seconds a step).  ``plant(step)`` plants a
-    fault in each rank's step."""
+    bytes a step, the most pipeline microbatch graphs it held)], the host
+    seconds a step).  ``plant(step)`` plants a fault in each rank's
+    step."""
     import torch
     from paddle_tpu_torch.models import gpt_loss
     from paddle_tpu_torch.parallel import LoopbackWorld, ShardedTrainStep
-    from paddle_tpu_torch.parallel import tp
+    from paddle_tpu_torch.parallel import pipeline, tp
 
     def fn(rank, mesh):
         m = models[rank]
@@ -8873,12 +8887,13 @@ def _train_ranks(models, axes, ids_t, make_opt, steps, plant=None, **kw):
             plant(step)
         pbytes = sum(p.numel() * p.element_size() for p in m.parameters())
         tp.reset_host_bytes()
+        pipeline.reset_live_graphs()
         losses = [float(step(ids_t, ids_t)) for _ in range(steps)]
         hop = tp.host_bytes() / steps
         full = step.gather_params()
         full = {n: t.detach().cpu() for n, t in full.items()} \
             if rank == 0 else {n: t.detach().clone() for n, t in full.items()}
-        return losses, full, pbytes, hop
+        return losses, full, pbytes, hop, pipeline.peak_live_graphs()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = LoopbackWorld(len(models)).run(fn, axes=axes)
@@ -9424,6 +9439,378 @@ def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
                             "launches": train_launch,
                             "fault_skip_sp_sum": fault}
     del out, fout
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row, launches
+
+
+# -- the pipeline (phase 50) --------------------------------------------------
+# Ranks are LoopbackWorld threads on the one card, each stage a thread:
+# every time below is the simulation's (the stages' work runs one after
+# another on one card, so no bubble can be read), and NCCL's p2p at two or
+# more ranks is unmeasured.  pp-gpt (50) holds GPT-2 345M at pp = 2 (12
+# layers a stage, PP_MICRO microbatches of 2 rows) to one rank.  Served:
+# the gathered logits by ||error|| / ||logits|| at TOL_F32 in f32 and at
+# TP_LOGITS_NORM in bf16 (phase 48's limit for the same logits), the loss
+# at TOL_LOSS_BF16.  Trained: one f32 SGD(DP2_LR) step in each schedule,
+# the loss and the whole move (max |error| over the largest leaf's largest
+# move) at PP_F32; PP_STEPS O2 AdamW(1e-4) steps in each schedule against
+# ``one_rank_o2``'s parameters, the losses at TOL_LOSS_BF16 and the move's
+# L2 error at PP_MOVE_L2.  The planted faults each limit must catch: the
+# boundary's input gradient not sent back (stage 0's layers and the
+# embedding do not move; bf16, F-then-B), the last stage's labels one
+# microbatch off (bf16, 1F1B), wte's gradient summed over the stages
+# instead of counted once (f32 SGD: Adam's move is blind to a gradient's
+# scale).  PP_MOVE_L2 is the geometric mean of the sound and the planted
+# bf16 readings, one significant digit, rounded down, as phase 48's.  On
+# an H100 (700 W): the bf16 logits read 0 (the same bits as pp = 1), f32
+# 2.6e-6; the f32 step's whole move 1.7e-5 / 3.4e-5 (F-then-B / 1F1B),
+# wte summed over the stages 0.063; the O2 move 0.0108 / 0.0335 in L2
+# (pp = 4 0.0350) against the faults' 0.783 (gradient not sent back) and
+# 1.076 (labels off): sqrt(0.0350 * 0.783) = 0.166 -> 0.1.
+PP_STEPS = 3
+PP_MICRO = 4
+PP_F32 = 1e-4
+PP_MOVE_L2 = 0.1
+# pp = 4 (6 layers a stage, 8 microbatches of 1 row), 1F1B, bf16
+PP4_MICRO = 8
+# at ZERO_DP2_LAYERS layers in f32 with SGD(DP2_LR), against one-rank
+# TrainStep on the global batch by TOL_DP2_LOSS / TOL_DP2_MOVE
+PP_3D_AXES = {"dp": 2, "pp": 2, "mp": 2}
+PP_SP_AXES = {"pp": 2, "sp": 2}
+
+
+@contextlib.contextmanager
+def grad_not_sent_back():
+    """The planted fault: every stage hands the previous one zeros for its
+    input's gradient (stage 0's layers and the embedding before the
+    pipeline get none)."""
+    import torch
+    from paddle_tpu_torch.parallel import pipeline
+    sound = pipeline._send_back
+
+    def zeros(group, g, dst, pending):
+        sound(group, torch.zeros_like(g), dst, pending)
+    pipeline._send_back = zeros
+    try:
+        yield
+    finally:
+        pipeline._send_back = sound
+
+
+@contextlib.contextmanager
+def labels_one_microbatch_off():
+    """The planted fault: the 1F1B program's last stage scores microbatch
+    m against microbatch m + 1's labels."""
+    from paddle_tpu_torch.parallel import pipeline
+    sound = pipeline.make_pipeline_train_1f1b
+
+    def shifted(stage_fn, head_loss_fn, n_micro, *args, **kwargs):
+        fn = sound(stage_fn, head_loss_fn, n_micro, *args, **kwargs)
+
+        def loss_fn(stacked, head, x, labels):
+            return fn(stacked, head, x,
+                      labels.roll(-(labels.shape[0] // n_micro), 0))
+        return loss_fn
+    pipeline.make_pipeline_train_1f1b = shifted
+    try:
+        yield
+    finally:
+        pipeline.make_pipeline_train_1f1b = sound
+
+
+@contextlib.contextmanager
+def wte_grad_on_every_stage():
+    """The planted fault: the step sums the tied embedding's gradient over
+    the stages, each of which already holds the whole of it."""
+    from paddle_tpu_torch.parallel import sharded
+    from paddle_tpu_torch.parallel.mesh import get_mesh, sum_over
+    sound = sharded.loss_and_grads
+
+    def counted(loss_from, params, inputs):
+        loss, grads = sound(loss_from, params, inputs)
+        grads["wte"] = sum_over(get_mesh().axis_group("pp"), grads["wte"])
+        return loss, grads
+    sharded.loss_and_grads = counted
+    try:
+        yield
+    finally:
+        sharded.loss_and_grads = sound
+
+
+def _pp_copies(model, n, mode, micro):
+    """n deep copies of ``model`` set to ``schedule_mode`` ``mode`` and
+    ``micro`` microbatches (each rank's model)."""
+    import copy
+    out = []
+    for _ in range(n):
+        m = copy.deepcopy(model)
+        m.config.schedule_mode = mode
+        m.config.n_microbatches = micro
+        out.append(m)
+    return out
+
+
+def _pp_train(base, axes, mode, micro, ids_t, make_opt, steps, fa, **kw):
+    """``steps`` ShardedTrainStep steps of copies of ``base`` on ``axes``
+    in ``mode``: (_train_ranks' ranks, host ms a step, #1-#3 launches,
+    max_memory_allocated of the run)."""
+    import torch
+    n = math.prod(axes.values())
+    models = _pp_copies(base, n, mode, micro)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_fa(fa)
+    out, step_s = _train_ranks(models, axes, ids_t, make_opt, steps, **kw)
+    launch = _tp_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    del models
+    torch.cuda.empty_cache()
+    return out, step_s * 1e3, launch, peak
+
+
+def pp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
+    """Phase 50: GPT-2 345M at pp = 2 served (f32, bf16) against pp = 1;
+    one f32 SGD step in each schedule and 3 O2 AdamW steps in each
+    against ``ref`` (``one_rank_o2``'s parameters), with the planted
+    faults; pp = 4 in 1F1B; dp x pp x mp = 2 x 2 x 2 and pp x sp = 2 x 2
+    at 2 layers against one-rank TrainStep.  Returns the readings and
+    #1-#3's launches."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    L = cfg.num_layers
+    row, launches = {}, {}
+    t_phase = time.perf_counter()
+    log(f"pp-gpt: GPT-2 345M, B={B}, S={S}, remat=False, at pp = 2 on two "
+        f"LoopbackWorld ranks (threads) on the one card, {PP_MICRO} "
+        "microbatches: every time is the simulation's (the stages run one "
+        "after another on one card), NCCL at two or more ranks is "
+        "unmeasured")
+    # each forward of a rank: its L / 2 layers on each microbatch
+    per_fwd = L // 2 * PP_MICRO
+
+    # serve in f32 and bf16: the gathered logits and the loss against
+    # pp = 1, in each schedule (mode 1's loss is the 1F1B program's
+    # evaluation: the pipeline, then the head a microbatch)
+    for dtype, lim in ((torch.float32, TOL_F32),
+                       (torch.bfloat16, TP_LOGITS_NORM)):
+        what = str(dtype).split(".")[1]
+        for mode in (0, 1):
+            m0 = copy.deepcopy(base)
+            m0.config.schedule_mode, m0.config.n_microbatches = mode, \
+                PP_MICRO
+            sv, one, _, _ = _serve_pair(m0, {"pp": 2}, ids_t, fa, dtype)
+            del m0, one
+            _add(launches, sv["launches"])
+            if sv["launches"]["flash_attention_fwd"] != 2 * 2 * per_fwd:
+                fail(f"pp-gpt serve {what} mode {mode}: #1 launched "
+                     f"{sv['launches']}, not {per_fwd} a rank a forward")
+            if sv["losses"][0] != sv["losses"][1]:
+                fail(f"pp-gpt serve {what}: the stages' losses differ "
+                     f"{sv['losses']}")
+            log(f"pp-gpt serve at pp = 2 ({what}, schedule_mode {mode}): "
+                f"gathered logits against pp = 1 {sv['logits_err']:.4g} in "
+                f"norm (limit {lim}; max |err| {sv['logits_abs_err']:.4g}, "
+                f"max |logit| {sv['max_logit']:.4g}), loss "
+                f"{sv['losses'][0]:.6f} ({sv['loss_err']:.3g}, limit "
+                f"{TOL_LOSS_BF16}); {sv['logits_and_loss_ms']:.1f} ms for "
+                f"both forwards (host clock, both ranks); #1 "
+                f"{sv['launches']['flash_attention_fwd']} [{power}]")
+            if sv["logits_err"] > lim or sv["loss_err"] > TOL_LOSS_BF16:
+                fail(f"pp-gpt: the pp = 2 forward disagrees with pp = 1 "
+                     f"({what}, mode {mode})")
+            row[f"serve_{what}_mode{mode}"] = sv
+            torch.cuda.empty_cache()
+
+    # one f32 SGD step in each schedule: the gradients in another order
+    # only; then the planted wte gradient summed over the stages
+    init = _snap(base)
+    one = copy.deepcopy(base)
+    ts = TrainStep(one, gpt_loss, SGD(learning_rate=DP2_LR))
+    want_l = float(ts(ids_t, ids_t))
+    want_s = _snap(one)
+    del ts, one
+    torch.cuda.empty_cache()
+
+    def sgd():
+        return SGD(learning_rate=DP2_LR)
+
+    def f32_reading(mode, fault=None):
+        with fault() if fault else contextlib.nullcontext():
+            out, ms, launch, _ = _pp_train(base, {"pp": 2}, mode, PP_MICRO,
+                                           ids_t, sgd, 1, fa)
+        got = {n: t.cuda() for n, t in out[0][1].items()}
+        r = {"loss_err": abs(out[0][0][0] - want_l),
+             "move_err": _move_errs(got, want_s, init)[1],
+             "move_l2_err": _move_l2(got, want_s, init),
+             "ranks_equal": _ranks_equal(out), "step_ms": ms,
+             "launches": launch}
+        del out, got
+        torch.cuda.empty_cache()
+        return r
+    for mode in (0, 1):
+        f32 = f32_reading(mode)
+        _add(launches, f32["launches"])
+        log(f"pp-gpt one f32 SGD({DP2_LR}) step at pp = 2, schedule_mode "
+            f"{mode}, against one-rank TrainStep: loss {f32['loss_err']:.3g},"
+            f" whole-move measure {f32['move_err']:.4g} (limits {PP_F32}), "
+            f"the move's L2 error {f32['move_l2_err']:.4g}; both stages' "
+            f"gathered parameters bitwise equal: {f32['ranks_equal']}; "
+            f"{f32['step_ms']:.1f} ms (host clock, both ranks); #1-#3 "
+            f"{f32['launches']} [{power}]")
+        if f32["loss_err"] > PP_F32 or f32["move_err"] > PP_F32 or \
+                not f32["ranks_equal"]:
+            fail(f"pp-gpt: the f32 pp = 2 step (mode {mode}) disagrees with "
+                 "one-rank TrainStep")
+        row[f"train_f32_sgd_mode{mode}"] = f32
+    fault = f32_reading(0, wte_grad_on_every_stage)
+    _add(launches, fault["launches"])
+    log(f"pp-gpt planted: wte's gradient summed over the stages (f32 SGD, "
+        f"F-then-B): loss {fault['loss_err']:.3g}, whole move "
+        f"{fault['move_err']:.4g}, L2 {fault['move_l2_err']:.4g}")
+    if not (fault["loss_err"] > PP_F32 or fault["move_err"] > PP_F32):
+        fail("pp-gpt: the planted wte gradient on every stage was not "
+             "caught")
+    row["fault_wte_every_stage"] = fault
+    del init, want_s
+
+    # O2 bf16 AdamW(1e-4), PP_STEPS steps in each schedule, against
+    # one-rank TrainStep; the planted gradient not sent back (F-then-B)
+    # and labels one microbatch off (1F1B)
+    want_p, init_h = ref
+
+    def adamw():
+        return AdamW(learning_rate=1e-4)
+
+    def bf16_reading(axes, mode, micro, fault=None):
+        with fault() if fault else contextlib.nullcontext():
+            out, ms, launch, peak = _pp_train(
+                base, axes, mode, micro, ids_t, adamw, PP_STEPS, fa,
+                amp_level="O2", amp_dtype="bfloat16")
+        r = {"losses": out[0][0],
+             "loss_err": max(abs(a - b) for a, b in zip(out[0][0],
+                                                        want_losses)),
+             "move_l2_err": _move_l2(out[0][1], want_p, init_h),
+             "whole_move_err": _move_errs(out[0][1], want_p, init_h)[1],
+             "ranks_equal": _ranks_equal(out),
+             "losses_equal": all(o[0] == out[0][0] for o in out),
+             "param_bytes_per_rank": [o[2] for o in out],
+             "host_hop_bytes_per_rank_step": [o[3] for o in out],
+             "peak_live_graphs": [o[4] for o in out], "step_ms": ms,
+             "peak_bytes": peak, "launches": launch}
+        del out
+        torch.cuda.empty_cache()
+        return r
+    for mode in (0, 1):
+        tr = bf16_reading({"pp": 2}, mode, PP_MICRO)
+        _add(launches, tr["launches"])
+        per_rank = {k: v // 2 // PP_STEPS for k, v in tr["launches"].items()}
+        live = [PP_MICRO] * 2 if mode == 0 else [2, 1]
+        log(f"pp-gpt train at pp = 2, schedule_mode {mode} (O2 bf16, "
+            f"AdamW(1e-4), {PP_STEPS} steps): losses {tr['losses']} against "
+            f"the train phase's {want_losses[:PP_STEPS]} (max "
+            f"{tr['loss_err']:.3g}, limit {TOL_LOSS_BF16}); the move's error "
+            f"{tr['move_l2_err']:.4g} of the move in L2 (limit {PP_MOVE_L2})"
+            f", whole-move measure {tr['whole_move_err']:.4g}; both stages' "
+            f"gathered parameters bitwise equal: {tr['ranks_equal']}; live "
+            f"microbatch graphs at most {tr['peak_live_graphs']} by stage "
+            f"(want {live}); parameter bytes a rank "
+            f"{tr['param_bytes_per_rank']}; host hop "
+            f"{tr['host_hop_bytes_per_rank_step']} bytes a rank a step; "
+            f"{tr['step_ms']:.1f} ms a step (host clock, both ranks: the "
+            f"simulation's cost), max_memory_allocated {tr['peak_bytes']} "
+            f"bytes (both ranks); #1-#3 a rank a step {per_rank} [{power}]")
+        if tr["loss_err"] > TOL_LOSS_BF16 or tr["move_l2_err"] > PP_MOVE_L2 \
+                or not tr["ranks_equal"] or not tr["losses_equal"]:
+            fail(f"pp-gpt: pp = 2 training (mode {mode}) disagrees with "
+                 "one-rank TrainStep")
+        if tuple(tr["launches"].values()) != (2 * PP_STEPS * per_fwd,) * 3:
+            fail(f"pp-gpt train mode {mode}: #1-#3 launched "
+                 f"{tr['launches']}, not {per_fwd} each a rank a step")
+        if tr["peak_live_graphs"] != live:
+            fail(f"pp-gpt train mode {mode}: live microbatch graphs "
+                 f"{tr['peak_live_graphs']}, not {live}")
+        row[f"train_mode{mode}"] = tr
+    for name, mode, plant in (("grad_not_sent_back", 0, grad_not_sent_back),
+                              ("labels_one_microbatch_off", 1,
+                               labels_one_microbatch_off)):
+        fr = bf16_reading({"pp": 2}, mode, PP_MICRO, plant)
+        _add(launches, fr["launches"])
+        log(f"pp-gpt planted: {name} (O2 bf16, schedule_mode {mode}): "
+            f"losses {fr['losses']} ({fr['loss_err']:.3g}), the move's L2 "
+            f"error {fr['move_l2_err']:.4g}, whole move "
+            f"{fr['whole_move_err']:.4g}")
+        if not (fr["loss_err"] > TOL_LOSS_BF16
+                or fr["move_l2_err"] > PP_MOVE_L2):
+            fail(f"pp-gpt: the planted {name} was not caught")
+        row[f"fault_{name}"] = {k: fr[k] for k in (
+            "losses", "loss_err", "move_l2_err", "whole_move_err")}
+
+    # pp = 4: 6 layers a stage, 8 microbatches of one row, 1F1B
+    tr = bf16_reading({"pp": 4}, 1, PP4_MICRO)
+    _add(launches, tr["launches"])
+    per4 = L // 4 * PP4_MICRO
+    log(f"pp-gpt train at pp = 4 (1F1B, {PP4_MICRO} microbatches, O2 bf16, "
+        f"AdamW(1e-4)): losses {tr['losses']} (max {tr['loss_err']:.3g}); "
+        f"the move's L2 error {tr['move_l2_err']:.4g} (limit {PP_MOVE_L2}); "
+        f"stages bitwise equal: {tr['ranks_equal']}; live graphs "
+        f"{tr['peak_live_graphs']}; {tr['step_ms']:.1f} ms a step (host "
+        f"clock, 4 ranks), max_memory_allocated {tr['peak_bytes']} bytes; "
+        f"#1-#3 {tr['launches']} [{power}]")
+    if tr["loss_err"] > TOL_LOSS_BF16 or tr["move_l2_err"] > PP_MOVE_L2 \
+            or not tr["ranks_equal"] or not tr["losses_equal"]:
+        fail("pp-gpt: pp = 4 training disagrees with one-rank TrainStep")
+    if tuple(tr["launches"].values()) != (4 * PP_STEPS * per4,) * 3 or \
+            tr["peak_live_graphs"] != [4, 3, 2, 1]:
+        fail(f"pp-gpt pp = 4: #1-#3 {tr['launches']} (want "
+             f"{4 * PP_STEPS * per4} each), live {tr['peak_live_graphs']}")
+    row["train_pp4"] = tr
+
+    # dp x pp x mp = 2 x 2 x 2 (1F1B) and pp x sp = 2 x 2 (both schedules)
+    # at 2 layers, f32, SGD: against one-rank TrainStep
+    cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+                     vocab_size=cfg.vocab_size, max_seq_len=cfg.max_seq_len,
+                     num_layers=ZERO_DP2_LAYERS, remat=False)
+    small = GPT(cfg2, device="cuda")
+    init2 = _snap(small)
+    one = copy.deepcopy(small)
+    ts = TrainStep(one, gpt_loss, SGD(learning_rate=DP2_LR))
+    want_l2 = [float(ts(ids_t, ids_t)) for _ in range(ZERO_DP2_STEPS)]
+    want2 = _snap(one)
+    del ts, one
+    # M = max(1, pp) = 2 microbatches: at dp x pp x mp 1 layer x 2 a rank
+    # a step; at pp x sp the ring's 1 + 2 chunks a layer over the two sp
+    # coordinates, on each of 2 stages and 2 microbatches
+    for axes, mode, per in ((PP_3D_AXES, 1, 8 * 2),
+                            (PP_SP_AXES, 0, 2 * 3 * 2),
+                            (PP_SP_AXES, 1, 2 * 3 * 2)):
+        out, ms, launch, _ = _pp_train(small, axes, mode, 1, ids_t, sgd,
+                                       ZERO_DP2_STEPS, fa)
+        _add(launches, launch)
+        got = {n: t.cuda() for n, t in out[0][1].items()}
+        loss_e = max(abs(a - b) for a, b in zip(out[0][0], want_l2))
+        move_e = _move_errs(got, want2, init2)[1]
+        name = "_x_".join(f"{a}{s}" for a, s in axes.items())
+        log(f"pp-gpt {name} (schedule_mode {mode}, {math.prod(axes.values())}"
+            f" threads, {ZERO_DP2_LAYERS} layers, f32, SGD({DP2_LR})): losses"
+            f" {out[0][0]} against one-rank TrainStep {want_l2}: loss "
+            f"{loss_e:.3g} (limit {TOL_DP2_LOSS}), whole move {move_e:.3g} "
+            f"(limit {TOL_DP2_MOVE}); {ms:.1f} ms a step (host clock); "
+            f"#1-#3 {launch} [{power}]")
+        if loss_e > TOL_DP2_LOSS or move_e > TOL_DP2_MOVE:
+            fail(f"pp-gpt: {name} disagrees with one-rank TrainStep")
+        if tuple(launch.values()) != (per * ZERO_DP2_STEPS,) * 3:
+            fail(f"pp-gpt {name}: #1-#3 launched {launch}, not "
+                 f"{per * ZERO_DP2_STEPS} each")
+        row[f"{name}_mode{mode}"] = {"losses": out[0][0], "loss_err": loss_e,
+                                     "move_err": move_e, "step_ms": ms,
+                                     "launches": launch}
+        del out, got
+    del small, init2, want2
     torch.cuda.empty_cache()
     row["phase_s"] = time.perf_counter() - t_phase
     return row, launches
@@ -11204,8 +11591,6 @@ def main() -> int:
         tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
     tp_sp_row["sp_ring"], ring_launch = sp_ring_phase(
         tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
-    del tp_base, tp_ref
-    torch.cuda.empty_cache()
     tp_sp_row["tp_sp_phases_s"] = time.perf_counter() - t_tp
     for k in kernels:
         extra = tp_launch.get(k["name"], 0) + ring_launch.get(k["name"], 0)
@@ -11214,6 +11599,22 @@ def main() -> int:
     log(f"tensor and sequence parallel phases (48-49): "
         f"{tp_sp_row['tp_sp_phases_s']:.1f} s of wall time; launches "
         f"{tp_launch}, {ring_launch}")
+
+    # -- 50. pp-gpt -----------------------------------------------------------
+    # the pipeline: GPT-2 345M at pp = 2 and 4 in both schedules, with mp,
+    # dp and sp at 2 layers; its runs set the counters to 0 and read them,
+    # and its launches join the kernel table's (pp_launches)
+    t_pp = time.perf_counter()
+    tp_sp_row["pp_gpt"], pp_launch = pp_gpt_phase(
+        tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
+    del tp_base, tp_ref
+    torch.cuda.empty_cache()
+    tp_sp_row["pp_phase_s"] = time.perf_counter() - t_pp
+    for k in kernels:
+        k["launches"] += pp_launch.get(k["name"], 0)
+        k["pp_launches"] = pp_launch.get(k["name"], 0)
+    log(f"pipeline phase (50): {tp_sp_row['pp_phase_s']:.1f} s of wall "
+        f"time; launches {pp_launch}")
     for row in table:
         log(json.dumps(row))
 

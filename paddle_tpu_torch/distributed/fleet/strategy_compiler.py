@@ -17,11 +17,13 @@ place of the user's optimizer for the lamb and lars switches.
 
 A strategy's ``mp_degree`` gives the mesh an ``mp`` axis, and the step is
 ``ShardedTrainStep`` over it (tensor parallelism: the model must be
-mp-aware, as ``GPT`` and the layers of ``distributed/tp_layers.py`` are).
-A ``pp_degree`` > 1 raises: the pipeline is ROADMAP item 3c.  Where the
-reference runs a sub-mesh over
-fewer devices than it has, the port's ranks each hold a replica and the
-degrees must lay out the whole world.
+mp-aware, as ``GPT`` and the layers of ``distributed/tp_layers.py`` are);
+a ``pp_degree`` > 1 a ``pp`` axis, outermost (the pipeline: ``GPT`` holds
+its stage), and ``strategy.pipeline`` with ``pipeline_configs`` sets the
+model's ``schedule_mode`` in ``train_step`` ("1F1B" or "1" -> 1, else 0,
+reference ``:44-52``) and raises ``accumulate_steps`` to theirs.  Where
+the reference runs a sub-mesh over fewer devices than it has, the port's
+ranks each hold a replica and the degrees must lay out the whole world.
 """
 from __future__ import annotations
 
@@ -49,6 +51,14 @@ class CompiledStrategy:
         optimizer = maybe_swap_optimizer(optimizer, self)
         kwargs = dict(self.step_kwargs)
         kwargs.update(overrides)
+        if self.strategy.pipeline and hasattr(
+                getattr(model, "config", None), "schedule_mode"):
+            # the pipeline's schedule reaches the model (the reference's
+            # section_worker schedule_mode, set by pipeline_configs)
+            mode = self.strategy.pipeline_configs.get("schedule_mode",
+                                                      "1F1B")
+            model.config.schedule_mode = 1 if str(mode).upper() in (
+                "1F1B", "1") else 0
         dp_meta_kw = {k: v for k, v in kwargs.items()
                       if k in ("amp_level", "amp_dtype", "recompute")}
         if "LocalSGDOptimizer" in self.applied_meta_list or \
@@ -128,10 +138,6 @@ def compile_strategy(strategy: Optional[DistributedStrategy],
     this rank's world when None), its mesh made over the world."""
     strategy = strategy or DistributedStrategy()
     axes = _mesh_axes_from(strategy, _world_size(devices))
-    if axes.get("pp", 1) > 1:
-        raise NotImplementedError(
-            f"a strategy of pp_degree {axes['pp']} is pipeline parallelism: "
-            "ROADMAP Queue 1 item 3c, not ported yet")
     mesh = make_mesh(axes)
 
     applied: List[str] = []

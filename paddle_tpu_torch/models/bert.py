@@ -16,7 +16,7 @@ the reference's ``jax.checkpoint(layer)``, ``:219``).  What differs, as in
 the GPT port: a Python loop over layers stands in for ``lax.scan``, and
 BERT has no tensor-parallel path: its parameters carry the reference's
 ``DistAttr``s (``:94-120``), and ``ShardedTrainStep`` on a mesh with
-``mp`` > 1 refuses them (ROADMAP item 3c) rather than keep them whole.
+``mp`` > 1 refuses them (ROADMAP item 3d) rather than keep them whole.
 
 Attention dispatches as the reference's ``_bert_forward`` does, by rule
 and device and never by catching an error (the reference's ``try/except``

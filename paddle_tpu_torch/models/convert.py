@@ -21,14 +21,18 @@ parameter's slice of the full array.  :func:`shard_params` and
 :func:`shard_opt_states` cut the reference's full parameters and
 optimizer state into one ``mp`` rank's shards (GPT's ``qkv`` head-aligned,
 ``gpt.MP_SPLITS``), and :func:`full_params` / :func:`full_opt_states` put
-the ranks' shards back into the reference's layout.
+the ranks' shards back into the reference's layout.  Under the pipeline
+each takes ``pp`` and ``stage`` too: a stage holds its L/pp layers of the
+stacked parameters (GPT's twelve ``(L, ...)`` ones, ``gpt.STAGE_SPLIT``)
+before its mp cut, and the full layout concatenates the stages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from paddle_tpu_torch.models.gpt import _PARAM_ORDER, MP_SPLITS
+from paddle_tpu_torch.models.gpt import _PARAM_ORDER, MP_SPLITS, STAGE_SPLIT
+from paddle_tpu_torch.parallel.pipeline import stage_part
 
 __all__ = ["params_from_jax", "opt_states_from_jax", "state_dict_from_jax",
            "load_named_params", "load_named_buffers", "shard_params",
@@ -126,42 +130,69 @@ def state_dict_from_jax(state_dict: dict) -> dict:
             for k, v in state_dict.items()}
 
 
-def shard_params(params: dict, mp: int, rank: int, splits=None) -> dict:
+def _cut(t: torch.Tensor, name, splits, mp, rank, pp, stage):
+    """The part of a whole tensor of parameter ``name`` that mp rank
+    ``rank`` of stage ``stage`` holds: its stage's layers, then its mp
+    shard."""
+    if pp > 1 and name in STAGE_SPLIT:
+        t = stage_part(t, pp, stage)
+    return splits[name].take(t, mp, rank) if name in splits else t
+
+
+def _join(parts: list, name, splits, mp, pp):
+    """The whole tensor of parameter ``name`` from its parts, stage-major
+    (pp x mp of them): each stage's mp shards assembled, the stages
+    concatenated."""
+    per_stage = [splits[name].assemble(parts[s * mp:(s + 1) * mp])
+                 if name in splits else parts[s * mp] for s in range(pp)]
+    return torch.cat(per_stage, 0) if pp > 1 and name in STAGE_SPLIT \
+        else per_stage[0]
+
+
+def shard_params(params: dict, mp: int, rank: int, splits=None, pp: int = 1,
+                 stage: int = 0) -> dict:
     """{name: full np.ndarray} -> {name: CPU tensor}, ``mp`` rank
-    ``rank``'s shards: a name in ``splits`` ({name: tp.Split}, GPT's
-    ``MP_SPLITS`` by default) cut as it says, the rest whole copies."""
+    ``rank``'s shards of pipeline stage ``stage`` of ``pp``: a stacked
+    name (``gpt.STAGE_SPLIT``) cut to its stage's layers, a name in
+    ``splits`` ({name: tp.Split}, GPT's ``MP_SPLITS`` by default) cut as
+    it says, the rest whole copies."""
     splits = MP_SPLITS if splits is None else splits
-    return {n: splits[n].take(_to_torch(a), mp, rank) if n in splits
-            else _to_torch(a) for n, a in params.items()}
+    return {n: _cut(_to_torch(a), n, splits, mp, rank, pp, stage)
+            for n, a in params.items()}
 
 
 def shard_opt_states(states: dict, params: dict, mp: int, rank: int,
-                     splits=None) -> dict:
+                     splits=None, pp: int = 1, stage: int = 0) -> dict:
     """The reference's optimizer state {name: {slot: np.ndarray}} ->
-    ``mp`` rank ``rank``'s, as ``opt_states_from_jax`` gives it: each slot
-    shaped as its full parameter (``params`` {name: full array}) cut as
-    the parameter is, the scalars whole."""
+    ``mp`` rank ``rank``'s of stage ``stage``, as ``opt_states_from_jax``
+    gives it: each slot shaped as its full parameter (``params`` {name:
+    full array}) cut as the parameter is, the scalars whole."""
     splits = MP_SPLITS if splits is None else splits
-    return {n: {k: splits[n].take(v, mp, rank)
-                if n in splits and v.shape == np.shape(params[n]) else v
+    return {n: {k: _cut(v, n, splits, mp, rank, pp, stage)
+                if v.shape == np.shape(params[n]) else v
                 for k, v in st.items()}
             for n, st in opt_states_from_jax(states).items()}
 
 
-def full_params(shards, splits=None) -> dict:
-    """The ranks' shard dicts, in ``mp`` rank order -> {name: the full
-    tensor}: split names assembled, the rest taken from rank 0."""
+def full_params(shards, splits=None, pp: int = 1) -> dict:
+    """The ranks' shard dicts, stage-major (``pp`` stages of the mp
+    ranks in order; one stage by default) -> {name: the full tensor}:
+    split names assembled, stacked names concatenated over the stages,
+    the rest taken from rank 0."""
     splits = MP_SPLITS if splits is None else splits
-    return {n: splits[n].assemble([s[n] for s in shards]) if n in splits
-            else shards[0][n] for n in shards[0]}
+    mp = len(shards) // pp
+    return {n: _join([s[n] for s in shards], n, splits, mp, pp)
+            for n in shards[0]}
 
 
-def full_opt_states(shards, params: dict, splits=None) -> dict:
-    """The ranks' optimizer states, in ``mp`` rank order -> the full one:
-    a slot shaped as its parameter's shard assembled, scalars from rank
-    0.  ``params`` is one rank's {name: shard}, to tell the slots."""
+def full_opt_states(shards, params: dict, splits=None, pp: int = 1) -> dict:
+    """The ranks' optimizer states, stage-major as :func:`full_params`
+    takes them -> the full one: a slot shaped as its parameter's shard
+    assembled, scalars from rank 0.  ``params`` is one rank's {name:
+    shard}, to tell the slots."""
     splits = MP_SPLITS if splits is None else splits
-    return {n: {k: splits[n].assemble([s[n][k] for s in shards])
-                if n in splits and v.shape == params[n].shape else v
+    mp = len(shards) // pp
+    return {n: {k: _join([s[n][k] for s in shards], n, splits, mp, pp)
+                if v.shape == params[n].shape else v
                 for k, v in st.items()}
             for n, st in shards[0].items()}

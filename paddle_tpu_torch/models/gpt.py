@@ -19,7 +19,7 @@ default): each layer is one recompute region under autograd
 the final LN and the head keep theirs.  ``bench.py``'s GPT-2 legs run
 ``remat=False``.  What differs: a Python loop over layers stands in for
 ``lax.scan`` (``scan_unroll`` is accepted and means nothing in eager
-PyTorch), and the pipeline (``pp``, ROADMAP item 3c) is not ported.
+PyTorch).
 
 Tensor and sequence parallelism (reference ``:115-140``, ``:155-194``,
 ``:246-274``).  Every parameter carries the reference's ``DistAttr``.
@@ -53,6 +53,27 @@ rank (reference ``:377-378``).  ``remat=True`` at mp or sp > 1 replays the
 collectives in the backward: it runs on the CPU and on one rank a
 process, and raises on ``LoopbackWorld`` ranks on the card, where the
 replay would meet them on autograd's one device thread.
+
+The pipeline (reference ``:246-329``, ``:361-374``).  Under a mesh whose
+``pp`` axis has size P > 1 a GPT holds only its stage's L/P layers of
+each stacked parameter (``p.pp_split``, ``parallel.pipeline.shard_stage``;
+``wte``, ``wpe`` and ``lnf_*`` whole on every stage), composed with the
+mp shards.  The trunk runs through the pipeline in M =
+max(``n_microbatches``, P) microbatches of the rank's batch, each stage's
+layers on the mp and sp path above (the ring over ``sp`` inside a
+stage).  ``schedule_mode`` 0 (F-then-B): ``GPT.forward`` and
+:func:`gpt_loss` embed on every stage, run the trunk through
+``pipeline_forward`` (every stage gets the last stage's output) and end
+in the final LN and the tied head on every stage, so a replicated
+parameter's gradient is the same on each (the embedding's from stage 0's
+input gradient, which reaches every stage).  ``schedule_mode`` 1:
+:func:`gpt_loss` is the 1F1B program (``make_pipeline_train_1f1b``) with
+the reference's head on the last stage (final LN, f32 tied logits, the
+vocabulary-parallel CE against the globally shifted labels, summed over
+the rank's positions and divided by the global mb (S - 1)), the head's
+gradient summed over ``pp``.  The data and sequence ranks' sums stay
+``ShardedTrainStep``'s.  ``remat=True`` at pp > 1 runs where the mesh
+has no mp or sp (a layer's replay holds no collective).
 
 Attention dispatches by rule, not by catching errors: sequences the
 blockwise kernel serves (``flash_attention.supported``: head dim 64 or
@@ -90,7 +111,7 @@ from paddle_tpu_torch.nn.functional.attention import _xla_attention
 from paddle_tpu_torch.nn.layer.layers import Layer
 from paddle_tpu_torch.ops.cuda import flash_attention as _fa
 from paddle_tpu_torch.ops.cuda import fused_ce
-from paddle_tpu_torch.parallel import tp
+from paddle_tpu_torch.parallel import pipeline, tp
 from paddle_tpu_torch.parallel.mesh import (DistAttr, current_mesh,
                                             in_loopback,
                                             require_no_model_parallel)
@@ -115,8 +136,8 @@ class GPTConfig:
         self.initializer_range = initializer_range
         # recompute each layer in the backward (jit/recompute.py)
         self.remat = remat
-        # accepted for parity with the reference; the port runs a Python
-        # loop over layers and has no pipeline or schedule
+        # the pipeline's microbatches (max(n_microbatches, pp)) and its
+        # schedule (0 F-then-B, 1 1F1B) under a mesh with pp > 1
         self.n_microbatches = n_microbatches
         self.use_flash_attention = use_flash_attention
         self.seed = seed
@@ -154,6 +175,8 @@ _PARAM_ORDER = ("wte", "wpe", "ln1_w", "ln1_b", "qkv_w", "qkv_b", "prj_w",
                 "prj_b", "ln2_w", "ln2_b", "fc_w", "fc_b", "out_w", "out_b",
                 "lnf_w", "lnf_b")
 _LAYER_PARAMS = _PARAM_ORDER[2:14]
+# the parameters a pipeline stage holds its layers of (leading dim L)
+STAGE_SPLIT = frozenset(_LAYER_PARAMS)
 
 # the reference's annotations (gpt.py:122-140)
 DIST_ATTRS = {"wte": ("mp", None), "ln1_w": ("pp",), "ln1_b": ("pp",),
@@ -170,14 +193,19 @@ MP_SPLITS = {"wte": tp.Split(0), "qkv_w": tp.Split(2, 3),
 
 
 class _Plan(NamedTuple):
-    """One forward's view of the mesh: the ``mp`` and ``sp`` groups (None
-    where the axis has size 1) and this rank's place on each."""
+    """One forward's view of the mesh: the ``mp``, ``sp`` and ``pp``
+    groups (None where the axis has size 1), this rank's place on each,
+    and the mesh."""
     mp: int
     mp_rank: int
     mp_group: object
     sp: int
     sp_rank: int
     sp_group: object
+    pp: int = 1
+    pp_rank: int = 0
+    pp_group: object = None
+    mesh: object = None
 
 
 _ONE = _Plan(1, 0, None, 1, 0, None)                  # no mesh, one rank
@@ -230,22 +258,35 @@ class GPT(Layer):
                 p.dist_attr = DistAttr(DIST_ATTRS[name])
             self.register_parameter(name, p)
         self._mesh = None
-        self._mp = 1
+        self._mp = self._pp = 1
         mesh = mesh if mesh is not None else current_mesh()
-        if mesh is not None and (mesh.shape.get("mp", 1) > 1
-                                 or mesh.shape.get("sp", 1) > 1):
+        if mesh is not None and any(mesh.shape.get(a, 1) > 1
+                                    for a in ("mp", "sp", "pp")):
             self.apply_mesh(mesh)
 
     def apply_mesh(self, mesh) -> "GPT":
-        """Run on ``mesh`` from now on: where its ``mp`` axis has size
-        m > 1, hold this rank's shards (once; a second mesh must have the
-        same m).  ``pp`` and ``ep`` raise (ROADMAP item 3c)."""
+        """Run on ``mesh`` from now on: where its ``pp`` axis has size
+        P > 1, hold this rank's stage of the stacked parameters, and where
+        its ``mp`` axis has size m > 1, this rank's shards (each once; a
+        second mesh must have the same P and m).  ``ep`` raises."""
         require_no_model_parallel(mesh, "GPT")
         c = self.config
         m = mesh.shape.get("mp", 1)
         if m != self._mp and self._mp != 1:
             raise ValueError(f"GPT holds {self._mp} mp shards; the mesh has "
                              f"mp={m}")
+        P = mesh.shape.get("pp", 1)
+        if P != self._pp and self._pp != 1:
+            raise ValueError(f"GPT holds one of {self._pp} pipeline stages; "
+                             f"the mesh has pp={P}")
+        if P > 1 and self._pp == 1:
+            if c.num_layers % P:
+                raise ValueError(f"GPT at pp={P}: num_layers={c.num_layers} "
+                                 f"does not divide by {P}")
+            stage = mesh.axis_index("pp")
+            for name in _LAYER_PARAMS:
+                pipeline.shard_stage(getattr(self, name), P, stage)
+            self._pp = P
         if m > 1 and self._mp == 1:
             for what, size in (("num_heads", c.num_heads),
                                ("vocab_size", c.vocab_size),
@@ -265,22 +306,25 @@ class GPT(Layer):
         return self
 
     def _plan(self) -> _Plan:
-        """The mesh read once a forward: ``_ONE`` where mp = sp = 1."""
+        """The mesh read once a forward: ``_ONE`` where mp = sp = pp = 1."""
         mesh = self._mesh if self._mesh is not None else current_mesh()
         if mesh is None:
             return _ONE
-        m, s = mesh.shape.get("mp", 1), mesh.shape.get("sp", 1)
-        if m == 1 and s == 1:
+        m, s, P = (mesh.shape.get(a, 1) for a in ("mp", "sp", "pp"))
+        if m == 1 and s == 1 and P == 1:
             return _ONE
-        if m != self._mp:
-            raise ValueError(f"GPT holds {self._mp} mp shards; the mesh has "
-                             f"mp={m}: build it under the mesh or call "
+        if m != self._mp or P != self._pp:
+            raise ValueError(f"GPT holds {self._mp} mp shards and one of "
+                             f"{self._pp} stages; the mesh has mp={m}, "
+                             f"pp={P}: build it under the mesh or call "
                              "apply_mesh")
         require_no_model_parallel(mesh, "GPT")
-        return _Plan(m, mesh.axis_index("mp") if m > 1 else 0,
-                     mesh.axis_group("mp") if m > 1 else None,
-                     s, mesh.axis_index("sp") if s > 1 else 0,
-                     mesh.axis_group("sp") if s > 1 else None)
+
+        def place(axis, size):
+            return ((mesh.axis_index(axis), mesh.axis_group(axis))
+                    if size > 1 else (0, None))
+        return _Plan(m, *place("mp", m), s, *place("sp", s), P,
+                     *place("pp", P), mesh)
 
     def load_jax_params(self, np_params: dict) -> "GPT":
         """Copy the reference model's parameters in (``np.asarray`` of
@@ -290,6 +334,7 @@ class GPT(Layer):
         with torch.no_grad():
             for name, t in params_from_jax(np_params).items():
                 p = getattr(self, name)
+                t = pipeline.stage_slice(t, p)
                 split = getattr(p, "mp_split", None)
                 if split is not None:
                     t = split[0].take(t, *split[1:])
@@ -365,12 +410,9 @@ def _positions(plan: _Plan, s: int):
     return plan.sp_rank * w, w
 
 
-def _gpt_forward(cfg: GPTConfig, p: dict, ids, features_only: bool = False,
-                 plan: _Plan = _ONE):
-    """The forward over the parameters ``p`` ({name in _PARAM_ORDER:
-    tensor}) on one rank of an mp x sp mesh (``plan``): ids (B, S) the
-    whole sequence -> this rank's (B, S/n, V/m) logits (or its (B, S/n, H)
-    final hidden states)."""
+def _embed(p: dict, ids, plan: _Plan):
+    """ids (B, S) the whole sequence -> this rank's (B, S/n, H) embedding
+    of its positions (the vocabulary-parallel lookup at mp > 1)."""
     off, w = _positions(plan, ids.shape[1])
     ids = ids[:, off:off + w]
     if plan.mp > 1:
@@ -378,39 +420,103 @@ def _gpt_forward(cfg: GPTConfig, p: dict, ids, features_only: bool = False,
         x = vocab_lookup(p["wte"], ids, plan.mp_group)
     else:
         x = p["wte"][ids]
-    x = x + p["wpe"][off:off + w][None, :, :]
-    # one unbind per stacked parameter: its backward is one stack, where
-    # indexing each layer would sum L full-size gradients per parameter
-    per_layer = {n: p[n].unbind(0) for n in _LAYER_PARAMS}
-    if cfg.remat and plan is not _ONE and torch.is_grad_enabled() and \
-            in_loopback() and p["wte"].is_cuda:
+    return x + p["wpe"][off:off + w][None, :, :]
+
+
+def _stage(cfg: GPTConfig, plan: _Plan, stacked: dict, x):
+    """The trunk's layers held in ``stacked`` ({name: (L', ...)}, this
+    stage's at pp > 1) over x, each one recompute region with remat."""
+    if cfg.remat and (plan.mp > 1 or plan.sp > 1) and \
+            torch.is_grad_enabled() and in_loopback() and x.is_cuda:
         # the replay would meet the collectives on autograd's one device
         # thread, where one rank's wait blocks the other's
         raise NotImplementedError(
             "GPT(remat=True) at mp or sp > 1 on LoopbackWorld ranks on the "
             "card: build it with remat=False, or run one rank a process")
+    # one unbind per stacked parameter: its backward is one stack, where
+    # indexing each layer would sum L full-size gradients per parameter
+    per_layer = {n: stacked[n].unbind(0) for n in _LAYER_PARAMS}
     layer = functools.partial(recompute, _layer) if cfg.remat else _layer
-    for i in range(cfg.num_layers):
+    for i in range(stacked["ln1_w"].shape[0]):
         x = layer(cfg, x, {n: per_layer[n][i] for n in _LAYER_PARAMS}, plan)
+    return x
+
+
+def _n_micro(cfg: GPTConfig, plan: _Plan) -> int:
+    """The pipeline's M (reference ``:264``, ``:308``)."""
+    return max(cfg.n_microbatches, plan.pp)
+
+
+def _gpt_forward(cfg: GPTConfig, p: dict, ids, features_only: bool = False,
+                 plan: _Plan = _ONE):
+    """The forward over the parameters ``p`` ({name in _PARAM_ORDER:
+    tensor}, the stacked ones this rank's stage at pp > 1) on one rank of
+    a pp x mp x sp mesh (``plan``): ids (B, S) the whole sequence -> this
+    rank's (B, S/n, V/m) logits (or its (B, S/n, H) final hidden
+    states)."""
+    x = _embed(p, ids, plan)
+    stacked = {n: p[n] for n in _LAYER_PARAMS}
+    stage = functools.partial(_stage, cfg, plan)
+    if plan.pp > 1:
+        x = pipeline.pipeline_forward(stage, stacked, x,
+                                      _n_micro(cfg, plan),
+                                      mesh=plan.mesh)
+    else:
+        x = stage(stacked, x)
     x = _ln(x, p["lnf_w"], p["lnf_b"])
     if features_only:
         return x
     return tp.copy_to(x, plan.mp_group) @ p["wte"].T   # tied head
 
 
-def _gpt_loss_tp(lg, labels, plan: _Plan):
-    """The causal-LM loss at mp or sp > 1: the vocabulary-parallel CE of
-    this rank's logits (B, S/n, V/m) against its slice of the globally
-    shifted labels (B, S), the partial sums over ``sp`` divided by the
-    global B (S - 1)."""
+def _shifted(labels, plan: _Plan):
+    """The next-token labels (-1 on the global last position, reference
+    ``:299-301``), this rank's positions."""
     B, S = labels.shape
     off, w = _positions(plan, S)
     lab = torch.cat([labels[:, 1:], labels.new_full((B, 1), -1)], dim=1)
-    lab = lab[:, off:off + w].reshape(-1)
+    return lab[:, off:off + w]
+
+
+def _ce_sum(lg, lab, plan: _Plan, denominator: int):
+    """The vocabulary-parallel CE of this rank's (b, s, V/m) logits in f32
+    against ``lab`` (b, s), summed where lab >= 0, over ``denominator``."""
+    lab = lab.reshape(-1)
     per = tp.vocab_parallel_ce(lg.float().reshape(lab.shape[0], -1), lab,
                                plan.mp_rank * lg.shape[-1], plan.mp_group)
-    part = torch.where(lab >= 0, per, torch.zeros_like(per)).sum() / (
-        B * (S - 1))
+    return torch.where(lab >= 0, per, torch.zeros_like(per)).sum() / \
+        denominator
+
+
+def _gpt_1f1b_loss(cfg: GPTConfig, p: dict, ids, labels, plan: _Plan):
+    """The loss under schedule_mode 1 at pp > 1 (reference ``:277-329``):
+    the embedding on every stage, the trunk and the head through the 1F1B
+    program, the head on the last stage at B time (final LN, f32 tied
+    logits, the vocabulary-parallel CE, summed over the rank's positions
+    over the global mb (S - 1)); summed over ``sp``."""
+    S = labels.shape[1]
+    x = _embed(p, ids, plan)
+
+    def head_loss(hp, y, lab):
+        h = _ln(y, hp["lnf_w"], hp["lnf_b"])
+        lg = tp.copy_to(h, plan.mp_group) @ hp["wte"].T
+        return _ce_sum(lg, lab, plan, y.shape[0] * (S - 1))
+    fn = pipeline.make_pipeline_train_1f1b(
+        functools.partial(_stage, cfg, plan), head_loss,
+        _n_micro(cfg, plan), mesh=plan.mesh, data_axes=())
+    loss = fn({n: p[n] for n in _LAYER_PARAMS},
+              {n: p[n] for n in ("wte", "lnf_w", "lnf_b")}, x,
+              _shifted(labels, plan))
+    return tp.reduce(loss, plan.sp_group)
+
+
+def _gpt_loss_tp(lg, labels, plan: _Plan):
+    """The causal-LM loss at mp, sp or pp > 1: the vocabulary-parallel CE
+    of this rank's logits (B, S/n, V/m) against its slice of the globally
+    shifted labels (B, S), the partial sums over ``sp`` divided by the
+    global B (S - 1)."""
+    B, S = labels.shape
+    part = _ce_sum(lg, _shifted(labels, plan), plan, B * (S - 1))
     return tp.reduce(part, plan.sp_group)
 
 
@@ -430,13 +536,20 @@ def _gpt_fused_ce_loss(cfg: GPTConfig, p: dict, ids, labels):
 
 def gpt_loss(model: GPT, input_ids, labels):
     """Causal-LM cross entropy (f32 softmax); labels == input tokens,
-    shifted internally.  With ``FLAGS_gpt_fused_ce`` the head and CE run as
-    the fused kernel where its rule takes the head (``fused_ce.supported``:
-    f32 or bf16), and the (B, S, V) logits are never materialised."""
+    shifted internally.  Under pp > 1 with ``schedule_mode`` 1 the trunk,
+    head and loss run as the 1F1B program.  With ``FLAGS_gpt_fused_ce``
+    the head and CE run as the fused kernel where its rule takes the head
+    (``fused_ce.supported``: f32 or bf16), and the (B, S, V) logits are
+    never materialised."""
     cfg = model.config
     ids, labels = model._ids(input_ids), model._ids(labels)
     B, S = ids.shape
     plan = model._plan()
+    if plan.pp > 1 and cfg.schedule_mode == 1:
+        params = amp_cast_for_op("gpt_loss_1f1b", model._param_list())
+        with _op_scope():
+            return _gpt_1f1b_loss(cfg, dict(zip(_PARAM_ORDER, params)), ids,
+                                  labels, plan)
     if plan is not _ONE:
         # the (B, S, V) logits are on no rank: the vocabulary-parallel CE
         params = amp_cast_for_op("gpt_forward", model._param_list())

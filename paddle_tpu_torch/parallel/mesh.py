@@ -17,7 +17,9 @@ A group offers the primitives the steps and the collective API build on:
 - ``all_gather(x)``: x (...) -> (n, ...), rank j's x at j;
 - ``ring_shift(bufs)``: send each tensor to rank + 1 and receive the same
   shapes from rank - 1, one neighbour hop;
-- ``send(x, dst)`` / ``recv(x, src)``: one tensor between two ranks;
+- ``send(x, dst)`` / ``recv(x, src)``: one tensor between two ranks
+  (``isend`` returns without waiting for the receiver: the pipeline's
+  stages send to each other in one tick);
 - ``split(rank_lists)``: the subgroup, among the given partition of the
   group's world ranks, that holds this rank.
 
@@ -39,10 +41,10 @@ way to run dp >= 2 on a machine with one card, where NCCL refuses two
 ranks on one device.  Each rank thread has its own current mesh
 (:func:`get_mesh` inside ``LoopbackWorld.run`` answers the rank's).
 
-A mesh may name ``mp`` and ``sp`` too: ``ShardedTrainStep``, the
-tensor-parallel layers and GPT run them (``parallel/tp.py``,
-``parallel/ring_attention.py``); ``pp`` (ROADMAP item 3c) and ``ep`` (no
-user in the reference) raise.  ``DistAttr`` and ``shard_spec`` keep the
+A mesh may name ``mp``, ``sp`` and ``pp`` too: ``ShardedTrainStep``,
+the tensor-parallel layers and GPT run them (``parallel/tp.py``,
+``parallel/ring_attention.py``, ``parallel/pipeline.py``); ``ep`` (no
+user in the reference) raises.  ``DistAttr`` and ``shard_spec`` keep the
 reference's annotations (a tuple of axis names a dim is split over).
 The port's program is manual on every rank, so :func:`constrain` only
 checks its spec, and :func:`shard_map_compat` runs a function on each
@@ -139,6 +141,11 @@ class DistGroup:
 
     def send(self, x: torch.Tensor, dst: int):
         dist.send(x.contiguous(), self.ranks[dst], group=self.group)
+
+    def isend(self, x: torch.Tensor, dst: int):
+        """``send`` without waiting: the work to ``wait()`` on (x must stay
+        alive and unchanged until then)."""
+        return dist.isend(x.contiguous(), self.ranks[dst], group=self.group)
 
     def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
         dist.recv(x, self.ranks[src], group=self.group)
@@ -275,6 +282,10 @@ class _LoopbackGroup:
         self.world._mailbox(self.ranks[self.rank], self.ranks[dst]).put(
             x.detach().clone())
 
+    def isend(self, x: torch.Tensor, dst: int):
+        """``send``, which never waits here: nothing to wait on."""
+        self.send(x, dst)
+
     def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
         got = self.world._mailbox(self.ranks[src], self.ranks[self.rank]
                                   ).get(timeout=self.world.timeout)
@@ -377,16 +388,15 @@ def _require_pure_dp(mesh: Mesh, who: str = "this strategy"):
 
 
 def require_no_model_parallel(mesh: Mesh, who: str):
-    """Raise NotImplementedError when ``mesh`` has a ``pp`` axis (ROADMAP
-    item 3c, the pipeline) or an ``ep`` axis (expert parallelism, which no
-    model of the reference runs) of size > 1.  ``mp`` and ``sp`` run."""
+    """Raise NotImplementedError when ``mesh`` has an axis of size > 1
+    the port does not run: ``ep`` (expert parallelism, which no model of
+    the reference runs).  ``mp``, ``sp`` and ``pp`` run."""
     extra = {a: s for a, s in mesh.shape.items()
-             if a not in ("dp", "sharding", "mp", "sp") and s > 1}
+             if a not in ("dp", "sharding", "mp", "sp", "pp") and s > 1}
     if extra:
         raise NotImplementedError(
-            f"{who} over the axes {extra}: the pipeline (pp) is ROADMAP "
-            "Queue 1 item 3c, not ported yet; expert parallelism (ep) has "
-            "no user in the reference")
+            f"{who} over the axes {extra}: expert parallelism (ep) has no "
+            "user in the reference")
 
 
 def init_process_group(device="cuda", *, rank: int, world_size: int,

@@ -54,19 +54,32 @@ its dims is split over (one spec an input, as the reference's
 ``PartitionSpec``); the rank takes its slice along each, the default
 being dim 0 over the data axes.
 
-Raising: a mesh with a ``pp`` (ROADMAP item 3c) or ``ep`` axis of size >
-1; a parameter whose ``DistAttr`` splits it over ``mp`` (> 1) but which
-no mp-aware layer or model holds in shards (BERT's, a plain ``Linear``
-under ``shard_module`` rules: item 3c's list), rather than keeping it
-whole; at ``mp`` > 1 a gradient clip other than ``ClipGradByValue`` (its
-norms would be taken over shards); a per-parameter-norm optimizer
+The pipeline (reference ``:120-158`` with ``parallel/pipeline.py``): on a
+mesh with ``pp`` > 1 the step hands the mesh to the pipeline-aware
+modules (``GPT``), each ``pp`` rank then holding its stage's layers;
+the ``pp`` ranks of one data coordinate take the same rows and each data
+group runs its own pipeline.  A parameter every stage holds whole (GPT's
+``wte``, ``wpe``, ``lnf_*``) gets the same gradient on each (the model's
+schedule hands each stage the last stage's head gradient and stage 0's
+embedding gradient), so it is neither summed nor averaged over ``pp``;
+the gradients are averaged over the data axes as at pp = 1.  ZeRO stages
+1-3 chunk each rank's stage over ``sharding`` (or ``dp``);
+:meth:`ShardedTrainStep.gather_params` concatenates the stages.
+
+Raising: a mesh with an ``ep`` axis of size > 1; a parameter whose
+``DistAttr`` splits it over ``mp`` (> 1) but which no mp-aware layer or
+model holds in shards (BERT's, a plain ``Linear`` under
+``shard_module`` rules: ROADMAP item 3d), rather than keeping it whole;
+at ``mp`` or ``pp`` > 1 a gradient clip other than ``ClipGradByValue``
+(its norms would be taken over shards or one stage's layers); a
+per-parameter-norm optimizer
 (``Lamb``, ``LarsMomentum``) whose state is sharded over more than one
 rank (its norms would be taken over chunks); ``lower_hlo``, the
 reference's XLA text (item 8); ``recompute=True`` on the card on ranks
 simulated by a ``LoopbackWorld`` for a model with batch norms, or on a
-mesh with ``mp`` or ``sp`` > 1 (the replay would run the ranks' sums on
-the autograd engine's one device thread, where one rank's wait blocks
-the other's).
+mesh with ``mp``, ``sp`` or ``pp`` > 1 (the replay would run the ranks'
+sums or the stages' sends on the autograd engine's one device thread,
+where one rank's wait blocks the other's).
 """
 from __future__ import annotations
 
@@ -88,6 +101,7 @@ from paddle_tpu_torch.parallel.mesh import (DistAttr, HybridTopology,
                                             ordered_sum,
                                             require_no_model_parallel,
                                             sum_over)
+from paddle_tpu_torch.parallel.pipeline import full_stages
 from paddle_tpu_torch.parallel.zero import (build_shard_specs,
                                             f32_all_gather,
                                             init_state_shards, sharded_clip)
@@ -166,7 +180,8 @@ class ShardedTrainStep(TrainStep):
                             else [tuple(s or ()) for s in input_specs])
         self._mp = self.mesh.shape.get("mp", 1)
         self._sp = self.mesh.shape.get("sp", 1)
-        if self._mp > 1 or self._sp > 1:
+        self._pp = self.mesh.shape.get("pp", 1)
+        if self._mp > 1 or self._sp > 1 or self._pp > 1:
             self._model_parallel(model, optimizer, recompute)
         # the sp ranks of a model that splits the sequence hold partial
         # gradients; any other model's sp ranks are replicas
@@ -231,18 +246,19 @@ class ShardedTrainStep(TrainStep):
                     raise NotImplementedError(
                         f"parameter {n!r} carries {attr} over mp="
                         f"{self._mp}, but no mp-aware layer or model holds "
-                        "it in shards (ROADMAP Queue 1 item 3c lists "
-                        "BERT's mp path); the step does not keep it whole")
-            clip = getattr(optimizer, "_grad_clip", None)
-            if clip is not None and type(clip).__name__ != \
-                    "ClipGradByValue":
-                raise NotImplementedError(
-                    f"{type(clip).__name__} at mp={self._mp} would take its "
-                    "norms over this rank's shards: not ported")
+                        "it in shards (ROADMAP Queue 1 item 3d is BERT's "
+                        "mp path); the step does not keep it whole")
+        clip = getattr(optimizer, "_grad_clip", None)
+        if (self._mp > 1 or self._pp > 1) and clip is not None and \
+                type(clip).__name__ != "ClipGradByValue":
+            raise NotImplementedError(
+                f"{type(clip).__name__} at mp={self._mp}, pp={self._pp} "
+                "would take its norms over this rank's shards or stage: "
+                "not ported")
         if recompute and in_loopback() and any(
                 p.is_cuda for p in model.parameters()):
             raise NotImplementedError(
-                "ShardedTrainStep(recompute=True) at mp or sp > 1 on "
+                "ShardedTrainStep(recompute=True) at mp, sp or pp > 1 on "
                 "LoopbackWorld ranks on the card cannot replay the ranks' "
                 "sums: run without recompute, or one rank a process")
 
@@ -342,11 +358,16 @@ class ShardedTrainStep(TrainStep):
         """All-gather stage 3's chunks back into the module, then return
         {name: the reference's full tensor}: a parameter split over ``mp``
         all-gathered and assembled (GPT's ``qkv`` head permutation undone),
-        the others as they are.  Every rank calls it."""
+        one split over ``pp`` concatenated over the stages, the others as
+        they are.  Every rank calls it."""
         self._gather_chunks()
         group = self.mesh.axis_group("mp") if self._mp > 1 else None
         with torch.no_grad():
-            return tp.full_parameters(self.model, group)
+            full = tp.full_parameters(self.model, group)
+            if self._pp > 1:
+                full = full_stages(self.model, full,
+                                   self.mesh.axis_group("pp"))
+            return full
 
     def _gather_chunks(self):
         """All-gather the parameters' chunks back into the module (every

@@ -115,17 +115,22 @@ def test_compile_strategy_matches_reference(name, n, settings):
 
 
 def test_model_parallel_degrees_raise_naming_item_3b():
-    """An mp degree now compiles to ShardedTrainStep over an mp axis (item
-    3b is ported); a pp degree raises naming item 3c, the pipeline."""
+    """An mp degree compiles to ShardedTrainStep over an mp axis (item 3b
+    is ported), and a pp degree over a pp axis outermost (item 3c, the
+    pipeline, is ported), as the reference's meshes on 2 and 4 devices."""
     s = DistributedStrategy()
     s.hybrid_configs = {"mp_degree": 2}
     got = LoopbackWorld(2).run(lambda r, m: dict(compile_strategy(s)
                                                  .mesh.shape))
     assert got == [{"mp": 2}] * 2
-    s = DistributedStrategy()
-    s.hybrid_configs = {"pp_degree": 2}
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        compile_strategy(s, devices=2)
+    for n, hybrid in ((2, {"pp_degree": 2}),
+                      (4, {"pp_degree": 2, "mp_degree": 2})):
+        s = DistributedStrategy()
+        s.hybrid_configs = hybrid
+        got = LoopbackWorld(n).run(lambda r, m: list(compile_strategy(s)
+                                                     .mesh.shape.items()))
+        want = _reference_compile(n, {"hybrid_configs": hybrid})[3]
+        assert got == [list(want.items())] * n and got[0][0] == ("pp", 2)
 
 
 def test_strategy_validation_and_file_round_trip(tmp_path):
@@ -371,13 +376,13 @@ def test_fleet_trains_as_the_reference_fleet():
     assert fleet.utils.recompute is fleet.recompute
 
 
-# item 3b's names are ported (None): real, not stand-ins
+# item 3b's and 3c's names are ported (None): real, not stand-ins
 PENDING = [("distributed", n, None) for n in (
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
-    "shard_tensor", "split")] + [("parallel", n, "3c") for n in (
+    "shard_tensor", "split")] + [("parallel", n, None) for n in (
         "make_pipeline_train_1f1b", "pipeline_forward")] + [
     ("parallel", n, None) for n in ("ring_attention", "shard_map_compat")] + [
-    ("parallel", "pipeline", "3c")] + [
+    ("parallel", "pipeline", None)] + [
     ("distributed", n, "4") for n in ("DatasetFactory", "InMemoryDataset",
                                       "QueueDataset", "train_from_dataset",
                                       "ps")] + [
@@ -394,17 +399,20 @@ PENDING = [("distributed", n, None) for n in (
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 3c, 4, 5 and 6 raises
+    """Every reference name left for items 4, 5 and 6 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; item 3b's names (item None) are real, not stand-ins; a name
-    neither package has is an AttributeError."""
+    it; item 3b's and 3c's names (item None) are real, not stand-ins (the
+    ``pipeline`` submodule a module); a name neither package has is an
+    AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")
     assert hasattr(ref, name) or importlib.util.find_spec(
         f"paddle_tpu.{module}.{name}") is not None
     if item is None:
-        assert getattr(mod, name).__module__ != "paddle_tpu_torch._pending"
+        got = getattr(mod, name)
+        assert getattr(got, "__module__", getattr(got, "__name__", None)) \
+            not in ("paddle_tpu_torch._pending", None)
     else:
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             getattr(mod, name)(None, (2, 2), "linear")

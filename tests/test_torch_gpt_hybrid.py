@@ -29,7 +29,7 @@ from paddle_tpu_torch.jit import loss_and_grads, loss_closure
 from paddle_tpu_torch.models import (GPT, GPTConfig, Bert, bert_tiny,
                                      gpt_loss, shard_params)
 from paddle_tpu_torch.models.gpt import _PARAM_ORDER
-from paddle_tpu_torch.nn import Linear
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByValue, Linear
 from paddle_tpu_torch.optimizer import SGD, Adam
 from paddle_tpu_torch.parallel import (LoopbackWorld, Mesh, ShardedTrainStep,
                                        shard_module, tp)
@@ -244,14 +244,16 @@ def test_dist_attr_specs_match_reference():
 def test_refusals():
     """A parameter split over mp by its DistAttr that no mp-aware layer
     holds in shards raises naming it (a plain Linear under shard_module
-    rules, BERT's); a pipeline axis raises naming item 3c; heads that do
-    not divide over mp raise."""
+    rules, BERT's, whose mp path is item 3d); a pipeline axis now runs
+    (item 3c: GPT holds its stage's layer), with a clip by value only
+    (a global norm would be taken over one stage); heads that do not
+    divide over mp raise, as layers that do not divide over pp do."""
     def fn(rank, mesh):
         lin = shard_module(torch.nn.Sequential(Linear(4, 4, device="cpu")),
                            {r"0\.weight": (None, "mp")})
         with pytest.raises(NotImplementedError, match="0.weight"):
             ShardedTrainStep(lin, lambda m, x: m(x).sum(), SGD(), mesh=mesh)
-        with pytest.raises(NotImplementedError, match="'wte'.*item 3c"):
+        with pytest.raises(NotImplementedError, match="'wte'.*item 3d"):
             ShardedTrainStep(Bert(bert_tiny(), device="cpu"),
                              lambda m, x: x, SGD(), mesh=mesh)
         with pytest.raises(ValueError, match="num_heads=3"):
@@ -262,8 +264,17 @@ def test_refusals():
     assert LoopbackWorld(2).run(fn, axes={"mp": 2}) == [True] * 2
 
     def pp(rank, mesh):
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            GPT(GPTConfig(**CFG), device="cpu").apply_mesh(
-                Mesh({"pp": 2}, mesh.group))
-        return True
-    assert LoopbackWorld(2).run(pp) == [True] * 2
+        model = GPT(GPTConfig(**CFG), device="cpu").apply_mesh(
+            Mesh({"pp": 2}, mesh.group))
+        with pytest.raises(ValueError, match="num_layers=3"):
+            GPT(GPTConfig(**dict(CFG, num_layers=3)), device="cpu"
+                ).apply_mesh(Mesh({"pp": 2}, mesh.group))
+        with pytest.raises(NotImplementedError,
+                           match="ClipGradByGlobalNorm at mp=1, pp=2"):
+            ShardedTrainStep(model, gpt_loss, SGD(
+                grad_clip=ClipGradByGlobalNorm(1.0)), mesh=model._mesh)
+        ShardedTrainStep(model, gpt_loss, SGD(grad_clip=ClipGradByValue(
+            1.0)), mesh=model._mesh)
+        return tuple(model.qkv_w.shape), model.qkv_w.pp_split
+    assert LoopbackWorld(2).run(pp) == [((1, 128, 384), (2, r))
+                                        for r in range(2)]

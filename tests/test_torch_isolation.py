@@ -65,7 +65,7 @@ def test_every_module_imports_with_jax_blocked():
               "distributed.fleet.strategy_compiler",
               "distributed.fleet.metrics", "parallel.sharded",
               "parallel.tp", "parallel.ring_attention",
-              "distributed.tp_layers"):
+              "distributed.tp_layers", "parallel.pipeline"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
@@ -87,6 +87,21 @@ def test_gpt_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         tdevice.set_device("cuda")
     assert GPT(gpt_tiny(num_layers=1), device="cpu").wte.device.type == "cpu"
+
+
+def test_gpt_pipeline_defaults_to_cuda(monkeypatch):
+    """GPT on a mesh with pp > 1 lands on the card unless asked otherwise,
+    and raises without it; on the CPU each rank holds its stage."""
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def fn(rank, mesh):
+        with pytest.raises(RuntimeError, match="is_available"):
+            GPT(gpt_tiny(num_layers=2), mesh=mesh)
+        m = GPT(gpt_tiny(num_layers=2), device="cpu", mesh=mesh)
+        return m.qkv_w.device.type, m.qkv_w.shape[0], m.qkv_w.pp_split
+    assert LoopbackWorld(2).run(fn, axes={"pp": 2}) == [
+        ("cpu", 1, (2, r)) for r in range(2)]
 
 
 def test_tp_entry_points_default_to_cuda(monkeypatch):

@@ -319,19 +319,23 @@ def test_masked_lm_loss_is_the_mean_of_the_ranks_losses():
 
 
 def test_refusals():
-    """A pipeline axis raises naming item 3c (mp and input_specs now run:
-    the MLP, with no mp annotation, trains on a dp x mp mesh as on its dp
-    ranks, and input_specs naming dim 0 over dp is the default layout); a
-    batch that does not divide, a sharded Lamb and lower_hlo raise."""
+    """A pipeline axis runs (item 3c is ported: the MLP, no stage-aware
+    model, trains on a pp x dp mesh as on its dp ranks, each pp rank a
+    replica), and so do mp and input_specs (the MLP, with no mp
+    annotation, trains on a dp x mp mesh as on its dp ranks, and
+    input_specs naming dim 0 over dp is the default layout); a batch that
+    does not divide, a sharded Lamb and lower_hlo raise."""
     _, w, _ = _reference(False)
     x, y = _data(n=6)
     xs, ys = _data(n=8)
 
     def fn(rank, mesh):
         m = _port(False, w)
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            ShardedTrainStep(m, _ce, SGD(), mesh=Mesh({"pp": 2, "dp": 2},
-                                                      mesh.group))
+        piped = ShardedTrainStep(_port(False, w), _ce, SGD(),
+                                 mesh=Mesh({"pp": 2, "dp": 2}, mesh.group))
+        alone = ShardedTrainStep(_port(False, w), _ce, SGD(),
+                                 mesh=Mesh({"dp": 2, "mp": 2}, mesh.group))
+        assert float(piped(xs, ys)) == float(alone(xs, ys))
         mixed = ShardedTrainStep(_port(False, w), _ce, SGD(),
                                  mesh=Mesh({"dp": 2, "mp": 2}, mesh.group))
         plain = ShardedTrainStep(_port(False, w), _ce, SGD(),
