@@ -541,6 +541,36 @@ Phases, in order; any failure ends the script with a non-zero exit:
              mp = 2 x 2 x 2 and pp x sp = 2 x 2 at 2 layers (f32, SGD)
              against one-rank TrainStep.  Its launches join the kernel
              table's and are its pp_launches.
+51. bert-mp — BERT-base (12 layers, B=128, S=128, remat=False) at mp = 2
+             on two LoopbackWorld threads, 6 heads a rank, unpadded and
+             padded: bf16 serving, the gathered MLM logits and the loss
+             against mp = 1, beside the qkv shard cut contiguously; 3
+             ShardedTrainStep steps (O2 bf16, AdamW(1e-4)) against
+             one-rank TrainStep, both ranks' gathered parameters bitwise
+             equal, beside copy_to without its sum; 12 launches each of
+             #1-#3 (masked on the padded batch) a rank a step, the bytes
+             a rank, the host hop, step ms and peak bytes.  Its launches
+             join the kernel table's and are its bert_mp_launches.
+52. widedeep — bench.py's bench_widedeep: WideDeep(1,000,000, 16, 26,
+             13), B=4096, Adam(1e-3) under TrainStep, then DeepFM at the
+             same shape: examples/s, peak bytes, idle share; at
+             bench.py's CPU size card against CPU for 3 steps, and rows
+             touched only by the first batch must move later, beside a
+             planted lazy table update.
+53. widedeep-ps — bench.py's bench_widedeep_ps first leg:
+             WideDeepHost(64, 26, 13) over a 100,000,000 x 65 adagrad host
+             table (async pushes), B=16384, ids zipf(1.3) % V, PSTrainStep
+             unpipelined then prefetched: examples/s, the host ms of the
+             unique prep, pull and push, the idle share, the table's host
+             bytes and init seconds; a step's pushed gradient against the
+             per-slot gradients summed over each id, beside a push that
+             does not sum them; card against CPU at bench.py's CPU size.
+54. widedeep-device — bench.py's bench_widedeep_device:
+             MeshShardedEmbedding(10,000,000, 65) on the card, B=16384,
+             DeviceEmbeddingTrainStep at K = 1: examples/s, peak bytes,
+             idle share; at bench.py's CPU size K = 2 (two threads)
+             against K = 1, untouched rows unchanged, beside a dense Adam
+             over the table and an exchange without the owner mask.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -9816,6 +9846,764 @@ def pp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
     return row, launches
 
 
+# -- BERT's mp path and the parameter server (phases 51-54) ------------------
+# bert-mp (51) holds BERT-base at mp = 2 to mp = 1 by tp-gpt's rules:
+# served in bf16, the gathered MLM logits by ||error|| / ||logits|| at
+# BERT_MP_LOGITS_NORM and the loss at TOL_LOSS_BF16, beside the qkv shard
+# cut contiguously; BERT_MP_STEPS O2 AdamW(1e-4) steps (remat=False: the
+# replay of the collectives raises on loopback ranks on the card) against
+# one-rank TrainStep, the losses at TOL_LOSS_BF16 and the move's L2 error
+# at BERT_MP_MOVE_L2, beside copy_to without its sum.  The parameter server's
+# phases (52-54) run bench.py's Wide&Deep legs at their sizes, timed as
+# bench.py times them (PS_WARM warm-up steps, then PS_ITERS, the host's
+# clock to a read of the last loss), and hold the card to the port's CPU
+# path at bench.py's CPU size in f32 (TOL_PS_F32, relative to the largest
+# value), each beside a planted fault.
+BERT_MP_STEPS = 3
+# bert-mp's limits by tp-gpt's rule (the geometric mean of the sound
+# reading and the planted fault's, one digit, rounded down), from the
+# first H100 (700 W) readings: the logits 0.0080 against the contiguous
+# qkv cut's 0.134 (BERT's attention output is a small part of its post-LN
+# residual, so the cut reads under GPT's 0.832); the move 0.0255 against
+# copy_to without its sum's 0.624
+BERT_MP_LOGITS_NORM = 0.03
+BERT_MP_MOVE_L2 = 0.1
+PS_WARM, PS_ITERS = 2, 20
+TOL_PS_F32 = 1e-4
+# the host-table leg's shapes (bench.py:440-485): 100M ids x (64 + 1)
+PS_B, PS_V, PS_E = 16384, 100_000_000, 64
+PS_FIELDS, PS_DENSE = 26, 13
+# a pushed gradient against the per-slot gradients summed over each id,
+# both bf16 (one rounding of a sum in another order): max |error| over
+# max |want|
+TOL_PS_PUSH = 2e-2
+
+
+def _bert_serve_ranks(models, args, fault=None):
+    """Each rank's gathered MLM logits (rank 0's) and loss under
+    inference_mode at mp = 2, and the host seconds of the run."""
+    import torch
+    from paddle_tpu_torch.models import bert_pretrain_loss
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    mask = args[3] if len(args) > 3 else None
+
+    def fn(rank, mesh):
+        m = models[rank]
+        m.apply_mesh(mesh)
+        if fault is not None:
+            fault(m)
+        with torch.inference_mode():
+            lg = m(args[0], attention_mask=mask)[0]
+            loss = float(bert_pretrain_loss(m, *args[:3],
+                                            attention_mask=mask))
+        torch.cuda.synchronize()
+        return (lg if rank == 0 else None), loss
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = LoopbackWorld(len(models)).run(fn, axes={"mp": 2})
+    return out[0][0], [o[1] for o in out], time.perf_counter() - t0
+
+
+def _bert_train_ranks(base, args, steps):
+    """``steps`` O2 ShardedTrainStep steps of two copies of ``base`` at
+    mp = 2: ([each rank's (losses, gathered parameters (rank 0's on the
+    host), parameter bytes, host-hop bytes a step)], host s a step)."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.models import bert_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import LoopbackWorld, ShardedTrainStep, tp
+    models = [copy.deepcopy(base) for _ in range(2)]
+    mask = args[3] if len(args) > 3 else None
+
+    def loss(m, ids, mlm, nsp):
+        return bert_pretrain_loss(m, ids, mlm, nsp, attention_mask=mask)
+
+    def fn(rank, mesh):
+        m = models[rank]
+        step = ShardedTrainStep(m, loss, AdamW(learning_rate=1e-4),
+                                mesh=mesh, amp_level="O2",
+                                amp_dtype="bfloat16")
+        pbytes = sum(p.numel() * p.element_size() for p in m.parameters())
+        tp.reset_host_bytes()
+        losses = [float(step(*args[:3])) for _ in range(steps)]
+        hop = tp.host_bytes() / steps
+        full = step.gather_params()
+        full = {n: t.detach().cpu() for n, t in full.items()} \
+            if rank == 0 else {n: t.detach().clone() for n, t in full.items()}
+        return losses, full, pbytes, hop
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = LoopbackWorld(2).run(fn, axes={"mp": 2})
+    return out, (time.perf_counter() - t0) / steps
+
+
+def bert_mp_phase(fa, fused_ce, power):
+    """Phase 51: BERT-base (B=128, S=128, remat=False) at mp = 2 on two
+    LoopbackWorld ranks, unpadded and padded: served in bf16 against
+    mp = 1 beside the contiguous qkv cut; trained BERT_MP_STEPS O2 steps
+    against one-rank TrainStep beside copy_to without its sum.  Returns
+    the readings and the launches of #1-#3 (masked and not)."""
+    import copy
+
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import Bert, bert_base, bert_pretrain_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    t_phase = time.perf_counter()
+    cfg = bert_base(max_seq_len=BERT_S, remat=False)
+    L = cfg.num_layers
+    base = Bert(cfg, device="cuda")                   # f32, seed 0
+    init = {n: p.detach().cpu() for n, p in base.named_parameters()}
+    whole_bytes = sum(p.numel() * p.element_size() for p in base.parameters())
+    ids, mlm, nsp, amask, mlm_pad = (
+        torch.as_tensor(a, device="cuda")
+        for a in bert_batch(cfg.vocab_size, BERT_B, BERT_S))
+    batches = {"unpadded": (ids, mlm, nsp), "padded": (ids, mlm_pad, nsp,
+                                                       amask)}
+    log(f"bert-mp: BERT-base ({L} layers, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}, V={cfg.vocab_size}), B={BERT_B}, S={BERT_S}, "
+        f"remat=False, at mp = 2 on two LoopbackWorld ranks (threads) on the "
+        f"one card, {cfg.num_heads // 2} heads a rank: every time is the "
+        "simulation's")
+    row, launches = {}, {}
+    one = copy.deepcopy(base).to(torch.bfloat16)
+    full = {n: p.detach() for n, p in one.named_parameters()}
+    for kind, args in batches.items():
+        mask = args[3] if len(args) > 3 else None
+        with torch.inference_mode():
+            want_lg = one(ids, attention_mask=mask)[0]
+            want_loss = float(bert_pretrain_loss(one, *args[:3],
+                                                 attention_mask=mask))
+        reset_counts(fa, fused_ce)
+        lg, losses, sec = _bert_serve_ranks(
+            [copy.deepcopy(one) for _ in range(2)], args)
+        counts = kernel_counts(fa, fused_ce)
+        _add(launches, counts)
+        name = "flash_attention_fwd" + ("_masked" if mask is not None
+                                        else "")
+        flg, f_losses, _ = _bert_serve_ranks(
+            [copy.deepcopy(one) for _ in range(2)], args,
+            fault=lambda m: _contiguous_qkv(m, full))
+        sv = {"logits_err": _norm_err(lg, want_lg),
+              "logits_abs_err": float((lg.float() - want_lg.float()).abs()
+                                      .max()),
+              "loss_err": max(abs(x - want_loss) for x in losses),
+              "losses": losses, "logits_and_loss_ms": sec * 1e3,
+              "launches": {k: v for k, v in counts.items() if v},
+              "fault_contiguous_qkv_logits_err": _norm_err(flg, want_lg),
+              "fault_contiguous_qkv_loss_err": max(abs(x - want_loss)
+                                                   for x in f_losses)}
+        del flg, lg, want_lg
+        log(f"bert-mp serve {kind} (bf16): gathered MLM logits against "
+            f"mp = 1 {sv['logits_err']:.4g} in norm (limit "
+            f"{BERT_MP_LOGITS_NORM}; max |err| {sv['logits_abs_err']:.4g}), "
+            f"loss "
+            f"{losses[0]:.6f} ({sv['loss_err']:.3g}, limit {TOL_LOSS_BF16}); "
+            f"{sec * 1e3:.1f} ms for both forwards (host clock, both ranks); "
+            f"planted contiguous qkv cut "
+            f"{sv['fault_contiguous_qkv_logits_err']:.4g} on the logits, "
+            f"{sv['fault_contiguous_qkv_loss_err']:.4g} on the loss; "
+            f"launches {sv['launches']} [{power}]")
+        if counts[name] != 2 * 2 * L or sum(counts.values()) != 2 * 2 * L:
+            fail(f"bert-mp serve {kind}: launches {counts}, not {L} of "
+                 f"{name} a rank a forward and nothing else")
+        if losses[0] != losses[1]:
+            fail(f"bert-mp serve {kind}: the ranks' losses differ {losses}")
+        if sv["logits_err"] > BERT_MP_LOGITS_NORM or \
+                sv["loss_err"] > TOL_LOSS_BF16:
+            fail(f"bert-mp: the mp = 2 forward disagrees with mp = 1 "
+                 f"({kind})")
+        if not (sv["fault_contiguous_qkv_logits_err"] > BERT_MP_LOGITS_NORM or
+                sv["fault_contiguous_qkv_loss_err"] > TOL_LOSS_BF16):
+            fail("bert-mp: the planted contiguous qkv cut was not caught")
+        row[f"serve_{kind}"] = sv
+        torch.cuda.empty_cache()
+    del one, full
+
+    for kind, args in batches.items():
+        mask = args[3] if len(args) > 3 else None
+        ref = copy.deepcopy(base)
+        ts = TrainStep(ref, bert_pretrain_loss, AdamW(learning_rate=1e-4),
+                       amp_level="O2", amp_dtype="bfloat16")
+        want_l = [float(ts(*args)) for _ in range(BERT_MP_STEPS)]
+        want_p = {n: p.detach().cpu() for n, p in ref.named_parameters()}
+        del ts, ref
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts(fa, fused_ce)
+        out, step_s = _bert_train_ranks(base, args, BERT_MP_STEPS)
+        peak = torch.cuda.max_memory_allocated() - held
+        counts = {k: v for k, v in kernel_counts(fa, fused_ce).items() if v}
+        _add(launches, counts)
+        losses = out[0][0]
+        loss_err = max(abs(a - b) for a, b in zip(losses, want_l))
+        l2 = _move_l2(out[0][1], want_p, init)
+        same = _ranks_equal(out)
+        tr = {"losses": losses, "one_rank_losses": want_l,
+              "loss_err": loss_err, "move_l2_err": l2, "ranks_equal": same,
+              "param_bytes_per_rank": [o[2] for o in out],
+              "param_bytes_whole": whole_bytes,
+              "host_hop_bytes_per_rank_step": [o[3] for o in out],
+              "step_ms": step_s * 1e3, "peak_bytes": peak,
+              "launches_per_rank_step": {
+                  k: v / (2 * BERT_MP_STEPS) for k, v in counts.items()}}
+        del out
+        torch.cuda.empty_cache()
+        if mask is not None:
+            with copy_to_without_sum():
+                fout, _ = _bert_train_ranks(base, args, BERT_MP_STEPS)
+            tr["fault_copy_to_without_sum"] = {
+                "loss_err": max(abs(a - b) for a, b in zip(fout[0][0],
+                                                           want_l)),
+                "move_l2_err": _move_l2(fout[0][1], want_p, init)}
+            del fout
+            torch.cuda.empty_cache()
+        log(f"bert-mp train {kind} at mp = 2 (O2 bf16, AdamW(1e-4), "
+            f"{BERT_MP_STEPS} steps): losses {losses} against one-rank "
+            f"TrainStep {want_l} (max {loss_err:.3g}, limit {TOL_LOSS_BF16}); "
+            f"gathered parameters: the move's error {l2:.4g} of the move in "
+            f"L2 (limit {BERT_MP_MOVE_L2}); both ranks' gathered parameters "
+            f"bitwise equal: {same}; planted copy_to without its sum "
+            f"{tr.get('fault_copy_to_without_sum', '-')}; parameter bytes a "
+            f"rank {tr['param_bytes_per_rank']} against {whole_bytes} whole; "
+            f"host hop {tr['host_hop_bytes_per_rank_step'][0]:.0f} bytes a "
+            f"rank a step; {step_s * 1e3:.1f} ms a step (host clock, both "
+            f"ranks), peak bytes {peak} above the {held} held before (both "
+            f"ranks); launches a rank a step {tr['launches_per_rank_step']} "
+            f"[{power}]")
+        sfx = "_masked" if mask is not None else ""
+        want_n = {f"flash_attention_fwd{sfx}": L,
+                  f"flash_attention_bwd_dq{sfx}": L,
+                  f"flash_attention_bwd_dkv{sfx}": L}
+        if tr["launches_per_rank_step"] != want_n:
+            fail(f"bert-mp train {kind}: launches a rank a step "
+                 f"{tr['launches_per_rank_step']}, not {want_n}")
+        if loss_err > TOL_LOSS_BF16 or l2 > BERT_MP_MOVE_L2 or not same:
+            fail(f"bert-mp: mp = 2 training disagrees with one-rank "
+                 f"TrainStep ({kind})")
+        fault = tr.get("fault_copy_to_without_sum")
+        if fault is not None and not (fault["loss_err"] > TOL_LOSS_BF16 or
+                                      fault["move_l2_err"] > BERT_MP_MOVE_L2):
+            fail("bert-mp: the planted copy_to without its sum was not "
+                 "caught")
+        row[f"train_{kind}"] = tr
+    del base
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row, launches
+
+
+def device_top(fn, n=4):
+    """The ``n`` kernels with the most device time in one fn() traced by
+    torch.profiler: [(name (cut to 60 characters), ms)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key[:60], e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    return [(k, round(ms, 3)) for k, ms in rows[:n]]
+
+
+def _bce(m, a, x, y):
+    from paddle_tpu_torch.nn import functional as TF
+    return TF.binary_cross_entropy_with_logits(m(a, x), y).mean()
+
+
+def _timed_steps(step, args):
+    """bench.py's _timeit: PS_WARM steps, then PS_ITERS timed on the host's
+    clock to a read of the last loss.  Returns (ms a step, last loss)."""
+    for _ in range(PS_WARM):
+        step(*args)
+    last = None
+    t0 = time.perf_counter()
+    for _ in range(PS_ITERS):
+        last = step(*args)
+    last = float(last)
+    return (time.perf_counter() - t0) * 1e3 / PS_ITERS, last
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want| (f32, host arrays or tensors)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _small_rank_run(cls, device, init, batches, lazy=False):
+    """3 Adam(1e-2) TrainStep steps of a small rank model from ``init``
+    (bench.py's CPU size) on three batches: (losses, final parameters on
+    the host, whether each table's rows touched only by the first batch
+    moved at the later steps).  ``lazy`` plants the lazy table update:
+    after each step the rows the batch did not touch are put back."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import load_named_params
+    from paddle_tpu_torch.optimizer import Adam
+    model = cls(10_000, 16, 26, 13, device=device)
+    load_named_params(model, init)
+    step = TrainStep(model, _bce, Adam(learning_rate=1e-2))
+    tables = [p for n, p in model.named_parameters()
+              if n.endswith(".weight") and p.shape[0] == 10_000]
+    losses, after_one = [], None
+    for j, (ids, x, y) in enumerate(batches):
+        args = [torch.as_tensor(a, device=device) for a in (ids, x, y)]
+        before = [t.detach().clone() for t in tables]
+        losses.append(float(step(*args)))
+        if lazy:
+            keep = torch.ones(10_000, dtype=torch.bool, device=device)
+            keep[args[0].reshape(-1).long()] = False
+            with torch.no_grad():
+                for t, b in zip(tables, before):
+                    t[keep] = b[keep]
+        if j == 0:
+            after_one = [t.detach().clone() for t in tables]
+    only_first = np.setdiff1d(batches[0][0], np.concatenate(
+        [b[0].ravel() for b in batches[1:]]))
+    idx = torch.as_tensor(only_first, device=device).long()
+    moved = all(bool((t.detach()[idx] != a[idx]).any(dim=1).all())
+                for t, a in zip(tables, after_one))
+    return losses, {n: p.detach().cpu() for n, p in
+                    model.named_parameters()}, moved
+
+
+def widedeep_phase(power):
+    """Phase 52: bench.py's bench_widedeep cell, WideDeep(1,000,000, 16,
+    26, 13), B=4096, Adam(1e-3) under TrainStep, then DeepFM at the same
+    shape: examples/s, peak bytes, idle share; each at bench.py's CPU size
+    (10,000 features, B=256) card against CPU for 3 steps, beside the
+    planted lazy table update."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import DeepFM, WideDeep
+    from paddle_tpu_torch.optimizer import Adam
+    t_phase = time.perf_counter()
+    B, feats = 4096, 1_000_000
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, feats, size=(B, 26)).astype(
+        np.int32), device="cuda")
+    x = torch.as_tensor(rng.standard_normal((B, 13)).astype(np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rng.integers(0, 2, size=(B, 1)).astype(np.float32),
+                        device="cuda")
+    small = []
+    srng = np.random.default_rng(1)
+    for _ in range(3):
+        small.append((srng.integers(0, 10_000, size=(256, 26)).astype(
+            np.int64), srng.standard_normal((256, 13)).astype(np.float32),
+            srng.integers(0, 2, size=(256, 1)).astype(np.float32)))
+    row = {}
+    for name, cls in (("widedeep", WideDeep), ("deepfm", DeepFM)):
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = cls(feats, 16, 26, 13, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        step = TrainStep(model, _bce, Adam(learning_rate=1e-3))
+        first = float(step(ids, x, y))
+        ms, last = _timed_steps(step, (ids, x, y))
+        busy, _ = device_busy_ms(lambda: step(ids, x, y))
+        peak = torch.cuda.max_memory_allocated() - held
+        del step, model
+        torch.cuda.empty_cache()
+        init = {n: p.detach() for n, p in cls(
+            10_000, 16, 26, 13, device="cpu").named_parameters()}
+        c_l, c_p, c_moved = _small_rank_run(cls, "cuda", init, small)
+        h_l, h_p, _ = _small_rank_run(cls, "cpu", init, small)
+        _, _, lazy_moved = _small_rank_run(cls, "cuda", init, small,
+                                           lazy=True)
+        err = max(_rel_err(c_l, h_l), _move_l2(c_p, h_p, init))
+        r = {"examples_per_s": B / ms * 1e3, "step_ms": ms,
+             "first_loss": first, "last_loss": last, "peak_bytes": peak,
+             "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / ms),
+             "build_s": build_s, "small_card_vs_cpu_err": err,
+             "small_first_only_rows_moved": c_moved,
+             "fault_lazy_update_rows_moved": lazy_moved}
+        metric = ("widedeep_sparse_train_examples_per_sec_per_chip"
+                  if name == "widedeep" else "deepfm_train_examples_per_sec")
+        log(f"{name}: {cls.__name__}(1,000,000, 16, 26, 13), B={B}, "
+            f"Adam(1e-3), TrainStep: {metric} {r['examples_per_s']:.1f} "
+            f"({ms:.3f} ms a step, host clock over {PS_ITERS} after "
+            f"{PS_WARM} warm-ups), loss {first:.5f} -> {last:.5f}, "
+            f"peak bytes {peak} above those held before, device busy "
+            f"{busy:.3f} ms "
+            f"(idle share {r['idle_share']:.3f}), built in {build_s:.1f} s; "
+            f"at 10,000 features, B=256, 3 Adam(1e-2) steps card vs CPU "
+            f"{err:.3g} (the losses relative, the parameters the move's L2 "
+            f"error; limit {TOL_PS_F32}); rows touched only by the first "
+            f"batch moved later: {c_moved} (planted lazy update: "
+            f"{lazy_moved}) [{power}]")
+        if not (math.isfinite(first) and last < first):
+            fail(f"{name}: the loss did not fall ({first} -> {last})")
+        if err > TOL_PS_F32:
+            fail(f"{name}: the card disagrees with the CPU ({err:.3g})")
+        if not c_moved or lazy_moved:
+            fail(f"{name}: rows touched once moved later {c_moved}, under "
+                 f"the planted lazy update {lazy_moved}")
+        row[name] = r
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
+def _ps_small(device, init, data, piped, fault_push=False):
+    """3 PSTrainStep steps of WideDeepHost(8, 26, 13, hidden (16,)) over a
+    50,000 x 9 sync adagrad table (bench.py's CPU size, f32 transfer):
+    (losses, the table, the model's parameters)."""
+    import torch
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import WideDeepHost, load_named_params
+    from paddle_tpu_torch.optimizer import Adam
+    emb = ps.DistributedEmbedding(50_000, 9, mode="sync", device=device)
+    model = WideDeepHost(8, 26, 13, hidden=(16,), device=device)
+    load_named_params(model, init)
+    step = ps.PSTrainStep(model, _bce, Adam(learning_rate=1e-3), emb,
+                          transfer_dtype="float32",
+                          prefetch_depth=1 if piped else 0, device=device)
+    ids, x, y = data
+    if piped:
+        step.prefetch(ids[0])
+    losses = []
+    for j in range(3):
+        if piped and j < 2:
+            step.prefetch(ids[j + 1])
+        losses.append(float(step(ids[j], torch.as_tensor(x[j], device=device),
+                                 torch.as_tensor(y[j], device=device))))
+    step.flush()
+    return losses, emb.table._table.copy(), {
+        n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def widedeep_ps_phase(power):
+    """Phase 53: bench.py's bench_widedeep_ps first leg, WideDeepHost(64,
+    26, 13) over a DistributedEmbedding(100,000,000, 65, adagrad, 0.05,
+    async) host table, B=16384, ids zipf(1.3) % V, PSTrainStep unpipelined
+    then prefetched: examples/s, the host ms of the unique prep, pull and
+    push, the device's idle share, the table's host bytes and init
+    seconds; one step's pushed gradient against the per-slot gradients
+    summed over each id, beside a push that does not sum them; the card
+    against the CPU at bench.py's CPU size, unpipelined and prefetched."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import WideDeepHost
+    from paddle_tpu_torch.optimizer import Adam
+    t_phase = time.perf_counter()
+    row = {}
+    # the card against the CPU at bench.py's CPU size first (small)
+    init = {n: p.detach() for n, p in WideDeepHost(
+        8, 26, 13, hidden=(16,), device="cpu").named_parameters()}
+    srng = np.random.default_rng(1)
+    data = ((srng.zipf(1.3, size=(3, 256, 26)) % 50_000).astype(np.int64),
+            srng.standard_normal((3, 256, 13)).astype(np.float32),
+            srng.integers(0, 2, size=(3, 256, 1)).astype(np.float32))
+    for piped in (False, True):
+        c = _ps_small("cuda", init, data, piped)
+        h = _ps_small("cpu", init, data, piped)
+        err = max(_rel_err(c[0], h[0]), _rel_err(c[1], h[1]),
+                  max(_rel_err(c[2][n], h[2][n]) for n in h[2]))
+        what = "prefetched" if piped else "unpipelined"
+        row[f"small_{what}_card_vs_cpu_err"] = err
+        log(f"widedeep-ps at 50,000 x 9, B=256, f32 transfer, {what}: "
+            f"3 steps card vs CPU (losses, table, dense) {err:.3g} (limit "
+            f"{TOL_PS_F32})")
+        if err > TOL_PS_F32:
+            fail(f"widedeep-ps: the card disagrees with the CPU ({what})")
+
+    t0 = time.perf_counter()
+    emb = ps.DistributedEmbedding(PS_V, PS_E + 1, optimizer="adagrad",
+                                  learning_rate=0.05, mode="async",
+                                  device="cuda")
+    init_s = time.perf_counter() - t0
+    table = emb.table
+    table_bytes = table._table.nbytes + table._g2.nbytes
+    model = WideDeepHost(PS_E, PS_FIELDS, PS_DENSE, device="cuda")
+    step = ps.PSTrainStep(model, _bce, Adam(learning_rate=1e-3), emb)
+    rng = np.random.default_rng(0)
+    ids = (rng.zipf(1.3, size=(PS_B, PS_FIELDS)) % PS_V).astype(np.int64)
+    x = torch.as_tensor(rng.standard_normal((PS_B, PS_DENSE)).astype(
+        np.float32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, 2, size=(PS_B, 1)).astype(
+        np.float32), device="cuda")
+    uniq, inv, uniq_p = ps.PSTrainStep._unique_prep(ids)
+    log(f"widedeep-ps: host table {PS_V:,} x {PS_E + 1} adagrad, "
+        f"{table_bytes} bytes of host RAM (table {table._table.nbytes}, "
+        f"accumulator {table._g2.nbytes}), drawn in {init_s:.1f} s; B={PS_B}"
+        f", {PS_FIELDS} fields, {len(uniq)} unique ids of {ids.size}, padded "
+        f"to {len(uniq_p)}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    first = float(step(ids, x, y))
+    ms, last = _timed_steps(step, (ids, x, y))
+    step.flush()
+    busy, traced = device_busy_ms(lambda: step(ids, x, y))
+    top = device_top(lambda: step(ids, x, y))
+    step.flush()
+
+    def piped():
+        step.prefetch(ids)
+        return step(ids, x, y)
+    step.prefetch(ids)
+    p_ms, p_last = _timed_steps(piped, ())
+    step.flush()
+    step.prefetch(ids)
+    p_busy, _ = device_busy_ms(piped)
+    step.flush()
+    peak = torch.cuda.max_memory_allocated() - held
+    # the host's parts of a step, each alone on this batch (mean of 5)
+    host = {}
+    for name, fn in (("unique_prep", lambda: ps.PSTrainStep._unique_prep(
+            ids)), ("pull", lambda: table.pull(uniq_p)),
+            ("push", lambda: table.push(uniq, np.zeros(
+                (len(uniq), PS_E + 1), np.float32)))):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        host[name] = (time.perf_counter() - t0) * 1e3 / 5
+
+    # one step's pushed gradient against the per-slot gradients summed
+    # over each id (the gather's backward), both bf16; the planted push
+    # that does not sum them keeps each id's last slot
+    pushed = []
+    real_push = emb.communicator.push
+    emb.communicator.push = lambda i, g: pushed.append((i, g))
+    rows = ps.bf16_rows(table.pull(ids)).to("cuda").float().requires_grad_()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss = _bce(model, rows, x, y)
+    per_slot = torch.autograd.grad(loss, rows)[0].reshape(-1, PS_E + 1)
+    del rows
+    inv_t = torch.as_tensor(inv, device="cuda")
+    want = torch.zeros(len(uniq), PS_E + 1, device="cuda").index_add_(
+        0, inv_t, per_slot).to(torch.bfloat16).float().cpu().numpy()
+    last_slot = torch.zeros(len(uniq), PS_E + 1, device="cuda")
+    last_slot[inv_t] = per_slot
+    last_slot = last_slot.to(torch.bfloat16).float().cpu().numpy()
+    step.prefetch_depth = 0
+    step(ids, x, y)
+    emb.communicator.push = real_push
+    step.flush()
+    moved = any(not torch.equal(p, params[n])
+                for n, p in model.named_parameters())
+    push_err = _rel_err(pushed[0][1], want)
+    fault_err = _rel_err(last_slot, want)
+    r = {"unpipelined_examples_per_s": PS_B / ms * 1e3,
+         "unpipelined_step_ms": ms, "prefetched_examples_per_s":
+         PS_B / p_ms * 1e3, "prefetched_step_ms": p_ms,
+         "first_loss": first, "last_loss": last, "prefetched_last_loss":
+         p_last, "unpipelined_device_busy_ms": busy,
+         "unpipelined_traced_wall_ms": traced,
+         "unpipelined_idle_share": max(0.0, 1 - busy / ms),
+         "prefetched_device_busy_ms": p_busy,
+         "prefetched_idle_share": max(0.0, 1 - p_busy / p_ms),
+         "host_ms": host, "table_host_bytes": table_bytes,
+         "table_init_s": init_s, "unique_ids": len(uniq),
+         "padded_ids": len(uniq_p), "peak_bytes": peak,
+         "push_err": push_err, "fault_push_without_sum_err": fault_err,
+         "top_kernels": top}
+    row.update(r)
+    log(f"widedeep-ps: widedeep_ps_host_table_100M_examples_per_sec "
+        f"{r['unpipelined_examples_per_s']:.1f} ({ms:.3f} ms a step, host "
+        f"clock over {PS_ITERS} after {PS_WARM} warm-ups; loss {first:.5f} "
+        f"-> {last:.5f}); prefetched {r['prefetched_examples_per_s']:.1f} "
+        f"({p_ms:.3f} ms a step); host ms of the unique prep, pull and push "
+        f"alone {host}; device busy {busy:.3f} ms a step (idle share "
+        f"{r['unpipelined_idle_share']:.3f}; prefetched {p_busy:.3f}, "
+        f"{r['prefetched_idle_share']:.3f}; top kernels {top}); peak bytes "
+        f"{peak} above those held before; the pushed gradient against the "
+        f"summed per-slot gradients "
+        f"{push_err:.3g} (limit {TOL_PS_PUSH}), the planted push without the"
+        f" sum {fault_err:.3g} [{power}]")
+    # judged at the end of both legs: the async pushes of the unpipelined
+    # leg run behind its steps (a push alone takes about a step's time),
+    # so its rows may be many pushes stale and its loss above the first
+    if not (math.isfinite(first) and p_last < first):
+        fail(f"widedeep-ps: the loss did not fall ({first} -> {last}, "
+             f"{p_last})")
+    if push_err > TOL_PS_PUSH or not fault_err > TOL_PS_PUSH or not moved:
+        fail("widedeep-ps: the pushed gradient is not the sum over each id, "
+             "or the planted push without the sum passes")
+    del step, emb, table, model
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
+@contextlib.contextmanager
+def exchange_without_owner_mask():
+    """The planted exchange fault: every rank sends the rows at its
+    clipped offsets for every request, owned or not."""
+    from paddle_tpu_torch.distributed.ps import device_table as dtab
+    sound = dtab._Exchange.rows
+    dtab._Exchange.rows = lambda self, w: w[self.clipped]
+    try:
+        yield
+    finally:
+        dtab._Exchange.rows = sound
+
+
+def _dense_table_adam(step):
+    """The planted dense-optimizer fault: the table updated as a dense
+    parameter by Adam (its moments carry every row touched once)."""
+    import torch
+    state = {}
+
+    def push(ex, dmine, rows_per):
+        g = torch.zeros_like(step._w)
+        dall = torch.where(ex.owned[:, None], dmine, torch.zeros_like(dmine))
+        g.index_add_(0, ex.clipped, dall)
+        m = state.setdefault("m", torch.zeros_like(g))
+        v = state.setdefault("v", torch.zeros_like(g))
+        m.mul_(0.9).add_(g, alpha=0.1)
+        v.mul_(0.999).addcmul_(g, g, value=0.001)
+        step._w.sub_(step.table_lr * m / (v.sqrt() + 1e-8))
+    step._push = push
+
+
+def _device_small(k, init, data, sum_loss, plant=None):
+    """3 DeviceEmbeddingTrainStep steps of WideDeepHost(8, 26, 13,
+    hidden (16,)) from ``init`` over a 50,000 x 9 table on the card, on k
+    LoopbackWorld ranks (one rank with no mesh at k = 1): (rank 0's
+    losses, the whole table, whether the rows each step left untouched
+    stayed unchanged)."""
+    import torch
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import WideDeepHost, load_named_params
+    from paddle_tpu_torch.optimizer import SGD, Adam
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    ids, x, y = data
+
+    def loss(m, rows, xb, yb):
+        if sum_loss:
+            from paddle_tpu_torch.nn import functional as TF
+            return TF.binary_cross_entropy_with_logits(
+                m(rows, xb), yb, reduction="sum")
+        return _bce(m, rows, xb, yb)
+
+    def fn(rank, mesh):
+        model = WideDeepHost(8, 26, 13, hidden=(16,), device="cuda")
+        load_named_params(model, init)
+        emb = ps.MeshShardedEmbedding(50_000, 9, device="cuda")
+        opt = SGD(learning_rate=0.0) if sum_loss else Adam(1e-3)
+        step = ps.DeviceEmbeddingTrainStep(model, loss, opt, emb)
+        if plant is not None:
+            plant(step)
+        losses, still = [], True
+        for j in range(3):
+            before = step._w.clone()
+            losses.append(float(step(*(torch.as_tensor(a[j], device="cuda")
+                                       for a in (ids, x, y)))))
+            lo = (rank if mesh is not None else 0) * step._w.shape[0]
+            hit = torch.zeros(step._w.shape[0], dtype=torch.bool,
+                              device="cuda")
+            local = torch.as_tensor(ids[j], device="cuda").reshape(-1) - lo
+            hit[local[(local >= 0) & (local < hit.numel())]] = True
+            still = still and torch.equal(step._w[~hit], before[~hit])
+        return losses, step.sync_table().detach().cpu(), still
+    out = (LoopbackWorld(k).run(fn) if k > 1 else [fn(0, None)])
+    return out[0][0], torch.cat([o[1] for o in out]).numpy(), all(
+        o[2] for o in out)
+
+
+def widedeep_device_phase(power):
+    """Phase 54: bench.py's bench_widedeep_device cell,
+    MeshShardedEmbedding(10,000,000, 65) on the card, WideDeepHost(64, 26,
+    13), B=16384, DeviceEmbeddingTrainStep at K = 1: examples/s, peak
+    bytes, idle share; then at bench.py's CPU size K = 2 (LoopbackWorld
+    threads) against K = 1 with a sum loss, the untouched rows unchanged,
+    beside a dense Adam over the table and an exchange without the owner
+    mask."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import WideDeepHost
+    from paddle_tpu_torch.optimizer import Adam
+    t_phase = time.perf_counter()
+    B, V, E = PS_B, 10_000_000, PS_E
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    emb = ps.MeshShardedEmbedding(V, E + 1, mesh_axis="dp", seed=0,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = WideDeepHost(E, PS_FIELDS, PS_DENSE, device="cuda")
+    step = ps.DeviceEmbeddingTrainStep(model, _bce, Adam(learning_rate=1e-3),
+                                       emb, table_lr=0.05)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor((rng.zipf(1.3, size=(B, PS_FIELDS)) % V).astype(
+        np.int32), device="cuda")
+    x = torch.as_tensor(rng.standard_normal((B, PS_DENSE)).astype(
+        np.float32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, 2, size=(B, 1)).astype(np.float32),
+                        device="cuda")
+    first = float(step(ids, x, y))
+    ms, last = _timed_steps(step, (ids, x, y))
+    busy, _ = device_busy_ms(lambda: step(ids, x, y))
+    top = device_top(lambda: step(ids, x, y))
+    peak = torch.cuda.max_memory_allocated() - held
+    table_bytes = step._w.numel() * 4
+    del step, emb, model
+    torch.cuda.empty_cache()
+
+    srng = np.random.default_rng(2)
+    data = ((srng.zipf(1.3, size=(3, 256, 26)) % 50_000).astype(np.int64),
+            srng.standard_normal((3, 256, 13)).astype(np.float32),
+            srng.integers(0, 2, size=(3, 256, 1)).astype(np.float32))
+    init = {n: p.detach() for n, p in WideDeepHost(
+        8, 26, 13, hidden=(16,), device="cpu").named_parameters()}
+    l1, w1, still1 = _device_small(1, init, data, True)
+    l2, w2, still2 = _device_small(2, init, data, True)
+    k2_err = max(_rel_err(w2, w1), _rel_err([2 * v for v in l2], l1))
+    with exchange_without_owner_mask():
+        _, fw, _ = _device_small(2, init, data, True)
+    mask_err = _rel_err(fw, w1)
+    _, _, dense_still = _device_small(1, init, data, False,
+                                      plant=_dense_table_adam)
+    _, _, adam_still = _device_small(1, init, data, False)
+    r = {"examples_per_s": B / ms * 1e3, "step_ms": ms, "first_loss": first,
+         "last_loss": last, "peak_bytes": peak, "table_bytes": table_bytes,
+         "table_init_s": init_s, "device_busy_ms": busy,
+         "idle_share": max(0.0, 1 - busy / ms), "top_kernels": top,
+         "small_k2_vs_k1_err": k2_err,
+         "small_untouched_rows_still": [still1, still2, adam_still],
+         "fault_exchange_without_owner_mask_err": mask_err,
+         "fault_dense_table_adam_untouched_still": dense_still}
+    log(f"widedeep-device: MeshShardedEmbedding({V:,}, {E + 1}) on the card "
+        f"({table_bytes} bytes, drawn in {init_s:.1f} s), WideDeepHost, "
+        f"B={B}, DeviceEmbeddingTrainStep at K = 1: "
+        f"widedeep_device_sharded_10M_examples_per_sec "
+        f"{r['examples_per_s']:.1f} ({ms:.3f} ms a step, host clock over "
+        f"{PS_ITERS} after {PS_WARM} warm-ups; loss {first:.5f} -> "
+        f"{last:.5f}), peak bytes {peak} above those held before, device "
+        f"busy "
+        f"{busy:.3f} ms (idle share {r['idle_share']:.3f}; top kernels "
+        f"{top}); at 50,000 x 9, "
+        f"B=256, a sum loss: K = 2 against K = 1 {k2_err:.3g} (limit "
+        f"{TOL_PS_F32}), untouched rows unchanged "
+        f"{r['small_untouched_rows_still']}; planted exchange without the "
+        f"owner mask {mask_err:.3g}, dense "
+        f"Adam over the table leaves untouched rows unchanged: "
+        f"{dense_still} [{power}]")
+    if not (math.isfinite(first) and last < first):
+        fail(f"widedeep-device: the loss did not fall ({first} -> {last})")
+    if k2_err > TOL_PS_F32 or not (still1 and still2 and adam_still):
+        fail("widedeep-device: K = 2 disagrees with K = 1, or an untouched "
+             "row moved")
+    if not mask_err > TOL_PS_F32 or dense_still:
+        fail("widedeep-device: a planted fault was not caught")
+    row = dict(r)
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
 def vision_loss_of(out, y):
     from paddle_tpu_torch.nn.functional import cross_entropy
     return cross_entropy(out, y).mean()
@@ -11615,6 +12403,26 @@ def main() -> int:
         k["pp_launches"] = pp_launch.get(k["name"], 0)
     log(f"pipeline phase (50): {tp_sp_row['pp_phase_s']:.1f} s of wall "
         f"time; launches {pp_launch}")
+
+    # -- 51. bert-mp ----------------------------------------------------------
+    # -- 52. widedeep ---------------------------------------------------------
+    # -- 53. widedeep-ps ------------------------------------------------------
+    # -- 54. widedeep-device --------------------------------------------------
+    # BERT's mp path, then the parameter server's tiers; bert-mp's runs set
+    # the counters to 0 and read them, and its launches of #1-#3 join the
+    # kernel table's (bert_mp_launches); no kernel lies on the PS tiers
+    t_ps = time.perf_counter()
+    ps_row = {}
+    ps_row["bert_mp"], bmp_launch = bert_mp_phase(fa, fused_ce, power)
+    for k in kernels:
+        k["launches"] += bmp_launch.get(k["name"], 0)
+        k["bert_mp_launches"] = bmp_launch.get(k["name"], 0)
+    ps_row["widedeep"] = widedeep_phase(power)
+    ps_row["widedeep_ps"] = widedeep_ps_phase(power)
+    ps_row["widedeep_device"] = widedeep_device_phase(power)
+    ps_row["phases_s"] = time.perf_counter() - t_ps
+    log(f"bert-mp and parameter-server phases (51-54): "
+        f"{ps_row['phases_s']:.1f} s of wall time; launches {bmp_launch}")
     for row in table:
         log(json.dumps(row))
 
@@ -11668,7 +12476,7 @@ def main() -> int:
         "seq2seq_rnn_phases_s": t_s2s, **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
         **det_row, **tensor_row, **second_row, **deploy_row, **dp_row,
-        "tp_sp_row": tp_sp_row,
+        "tp_sp_row": tp_sp_row, "bert_mp_ps_row": ps_row,
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

@@ -3,10 +3,11 @@ __init__.py): the collective API over the mesh's groups
 (``collective.py``), ``ParallelEnv``, ``init_parallel_env`` and
 ``DataParallel`` (``parallel.py``), ``spawn``, ``fleet`` in collective
 mode, the wire codecs of the collectives (``wire.py``), ``split`` and
-the tensor-parallel layers (``tp_layers.py``).  Not ported yet, each
-raising ``NotImplementedError`` naming its ROADMAP item: the parameter
-server ``ps`` and the ``dataset`` names (item 4), ``checkpoint`` (item
-5), ``elastic`` and ``launch`` (item 6)."""
+the tensor-parallel layers (``tp_layers.py``), and the parameter server's
+in-process tiers ``ps`` (item 4a).  Not ported yet, each raising
+``NotImplementedError`` naming its ROADMAP item: the ``dataset`` names and
+``ps.service`` / ``ps.graph`` (item 4b), ``checkpoint`` (item 5),
+``elastic`` and ``launch`` (item 6)."""
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, get_rank, get_world_size,
@@ -16,6 +17,7 @@ from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
     DataParallel, ParallelEnv, init_parallel_env)
 from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401
 from paddle_tpu_torch.distributed import fleet  # noqa: F401
+from paddle_tpu_torch.distributed import ps  # noqa: F401
 from paddle_tpu_torch._pending import pending, pending_modules
 
 from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
@@ -23,12 +25,12 @@ from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
     mark_sharding)
 
 shard_tensor = mark_sharding
-DatasetFactory = pending("DatasetFactory", "4", "the PS datasets")
-InMemoryDataset = pending("InMemoryDataset", "4", "the PS datasets")
-QueueDataset = pending("QueueDataset", "4", "the PS datasets")
-train_from_dataset = pending("train_from_dataset", "4", "the PS datasets")
+DatasetFactory = pending("DatasetFactory", "4b", "the PS datasets")
+InMemoryDataset = pending("InMemoryDataset", "4b", "the PS datasets")
+QueueDataset = pending("QueueDataset", "4b", "the PS datasets")
+train_from_dataset = pending("train_from_dataset", "4b", "the PS datasets")
 __getattr__ = pending_modules("paddle_tpu_torch.distributed", {
-    "ps": ("4", "the parameter server"), "checkpoint": ("5", "checkpoints"),
+    "checkpoint": ("5", "checkpoints"),
     "durable": ("5", "checkpoints"), "elastic": ("6", "elastic training"),
     "launch": ("6", "the launcher")})
 
@@ -37,6 +39,7 @@ __all__ = [
     "get_rank", "get_world_size", "is_initialized", "new_group", "get_group",
     "destroy_process_group", "Group", "ReduceOp", "all_reduce", "all_gather",
     "broadcast", "reduce", "scatter", "reduce_scatter", "alltoall",
-    "barrier", "send", "recv", "wait", "split", "fleet", "shard_tensor",
+    "barrier", "send", "recv", "wait", "split", "fleet", "ps",
+    "shard_tensor",
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
 ]

@@ -14,7 +14,7 @@ fp16_allreduce.
 ``utils`` (``recompute``) are the reference's modules.
 
 The parameter-server lifecycle (``init_worker``, ``ps_client``,
-``init_server``, ``run_server``, ``stop_worker``) is ROADMAP item 4 and
+``init_server``, ``run_server``, ``stop_worker``) is ROADMAP item 4b and
 the inference and persistable savers item 5: each raises
 ``NotImplementedError`` naming its item.  ``fleet.utils.fs`` waits for
 item 5 too.
@@ -142,11 +142,16 @@ def barrier_worker():
     _require_init().role_maker.barrier_worker()
 
 
-init_worker = pending("fleet.init_worker", "4", "the parameter server")
-ps_client = pending("fleet.ps_client", "4", "the parameter server")
-init_server = pending("fleet.init_server", "4", "the parameter server")
-run_server = pending("fleet.run_server", "4", "the parameter server")
-stop_worker = pending("fleet.stop_worker", "4", "the parameter server")
+init_worker = pending("fleet.init_worker", "4b",
+                      "the parameter server's lifecycle")
+ps_client = pending("fleet.ps_client", "4b",
+                    "the parameter server's lifecycle")
+init_server = pending("fleet.init_server", "4b",
+                      "the parameter server's lifecycle")
+run_server = pending("fleet.run_server", "4b",
+                     "the parameter server's lifecycle")
+stop_worker = pending("fleet.stop_worker", "4b",
+                      "the parameter server's lifecycle")
 save_inference_model = pending("fleet.save_inference_model", "5",
                                "checkpoints; jit.save exports a model")
 save_persistables = pending("fleet.save_persistables", "5",

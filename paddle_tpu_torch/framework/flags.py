@@ -81,3 +81,13 @@ define_flag("check_nan_inf", False,
             "left changed without donation, after the write-back with it.  "
             "One read of the losses from the device a call when armed, "
             "none when not")
+define_flag("ps_prefetch_depth", 1,
+            "max in-flight prefetched pulls in PSTrainStep's pipeline "
+            "(distributed/ps PSTrainStep.prefetch): 0 disables the "
+            "pipeline, 1 is the double buffer: the next batch's pull runs "
+            "on a background thread while the card runs the current step, "
+            "after the previous step's push")
+define_flag("ps_hot_row_k", 0,
+            "bounded top-k hot-row sketch per host embedding table "
+            "(space-saving counters over pulled ids, "
+            "distributed/ps/device_table.py HotRowSketch); 0 disables it")

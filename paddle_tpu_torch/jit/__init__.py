@@ -74,8 +74,11 @@ __all__ = ["TrainStep", "functional_loss_call", "apply_functional_update",
 
 
 def functional_loss_call(model, loss_fn, params: dict, inputs,
-                         amp: bool = False, amp_dtype=torch.bfloat16):
-    """``loss_fn(model, *inputs)`` as an f32 scalar on autograd's tape.
+                         amp: bool = False, amp_dtype=torch.bfloat16,
+                         lead_tensors=()):
+    """``loss_fn(model, *lead_tensors, *inputs)`` as an f32 scalar on
+    autograd's tape.  ``lead_tensors`` go in as they are (the parameter
+    server's pulled rows, ``distributed.ps``), never cast.
     With ``amp``, floating parameters of ``ndim >= 1`` and floating inputs
     are cast to ``amp_dtype`` for the call; ``params`` ({name: parameter})
     stay the leaves that receive the gradient.  Without it, ``params``
@@ -85,6 +88,9 @@ def functional_loss_call(model, loss_fn, params: dict, inputs,
     forward, as they are: never cast.  Every gradient is dense,
     ``embedding(sparse=True)``'s included, as under the reference's
     trace."""
+    inputs = list(inputs)
+    if not amp:
+        inputs = [*lead_tensors, *inputs]
     with dense_gradients():
         if not amp and all(isinstance(p, nn.Parameter)
                            for p in params.values()):
@@ -98,8 +104,9 @@ def functional_loss_call(model, loss_fn, params: dict, inputs,
                                    if p.is_floating_point() and p.dim() >= 1
                                    else p)
                     for n, p in params.items()}
-            inputs = [i.to(amp_dtype) if i.is_floating_point() else i
-                      for i in inputs]
+            inputs = [*lead_tensors] + [
+                i.to(amp_dtype) if i.is_floating_point() else i
+                for i in inputs]
             loss = substituted_call(model, loss_fn, cast, inputs)
     return loss.float()
 

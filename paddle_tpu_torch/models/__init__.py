@@ -5,6 +5,9 @@ from paddle_tpu_torch.models.bert import (  # noqa: F401
     Bert, BertConfig, Ernie, ErnieConfig, bert_base, bert_pretrain_loss,
     bert_tiny)
 from paddle_tpu_torch.models.convert import (  # noqa: F401
-    full_opt_states, full_params, load_named_buffers, load_named_params,
-    opt_states_from_jax, params_from_jax, shard_opt_states, shard_params,
+    BERT_MP_SPLITS, full_opt_states, full_params, load_embedding_table,
+    load_named_buffers, load_named_params, opt_states_from_jax,
+    params_from_jax, ps_tables_from_jax, shard_opt_states, shard_params,
     state_dict_from_jax)
+from paddle_tpu_torch.models.rank import (  # noqa: F401
+    DeepFM, WideDeep, WideDeepHost)

@@ -20,8 +20,10 @@ Under tensor parallelism a rank holds shards (``parallel/tp.py``):
 parameter's slice of the full array.  :func:`shard_params` and
 :func:`shard_opt_states` cut the reference's full parameters and
 optimizer state into one ``mp`` rank's shards (GPT's ``qkv`` head-aligned,
-``gpt.MP_SPLITS``), and :func:`full_params` / :func:`full_opt_states` put
-the ranks' shards back into the reference's layout.  Under the pipeline
+``gpt.MP_SPLITS``; BERT's with ``splits=BERT_MP_SPLITS``, the same
+head-aligned cut and ``mlm_bias`` by vocabulary range), and
+:func:`full_params` / :func:`full_opt_states` put the ranks' shards back
+into the reference's layout.  Under the pipeline
 each takes ``pp`` and ``stage`` too: a stage holds its L/pp layers of the
 stacked parameters (GPT's twelve ``(L, ...)`` ones, ``gpt.STAGE_SPLIT``)
 before its mp cut, and the full layout concatenates the stages.
@@ -31,12 +33,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paddle_tpu_torch.models.bert import MP_SPLITS as BERT_MP_SPLITS
 from paddle_tpu_torch.models.gpt import _PARAM_ORDER, MP_SPLITS, STAGE_SPLIT
 from paddle_tpu_torch.parallel.pipeline import stage_part
 
 __all__ = ["params_from_jax", "opt_states_from_jax", "state_dict_from_jax",
            "load_named_params", "load_named_buffers", "shard_params",
-           "shard_opt_states", "full_params", "full_opt_states"]
+           "shard_opt_states", "full_params", "full_opt_states",
+           "BERT_MP_SPLITS", "ps_tables_from_jax", "load_embedding_table"]
 
 # each in-tree optimizer's state keys: Adam and AdamW; Momentum and
 # LarsMomentum; Adamax; Adagrad; Adadelta; RMSProp, centred and not; Lamb's
@@ -196,3 +200,36 @@ def full_opt_states(shards, params: dict, splits=None, pp: int = 1) -> dict:
                 if v.shape == params[n].shape else v
                 for k, v in st.items()}
             for n, st in shards[0].items()}
+
+
+def ps_tables_from_jax(src):
+    """The parameter server's tables of the reference as numpy: a host
+    table (``HostEmbeddingTable``, ``HashEmbeddingTable``) -> copies of its
+    ``state_dict()``, for the port's ``set_state_dict``; a
+    ``ShardedEmbedding`` or ``MeshShardedEmbedding`` -> a copy of its whole
+    (V, E) table, for :func:`load_embedding_table`."""
+    if hasattr(src, "push") and hasattr(src, "state_dict"):
+        return {k: np.array(v, copy=True) if isinstance(v, np.ndarray)
+                else v for k, v in src.state_dict().items()}
+    return np.array(src.weight._data, copy=True)
+
+
+def load_embedding_table(layer, table) -> None:
+    """Copy a whole (V, E) table (numpy) into a port ``ShardedEmbedding``
+    or ``MeshShardedEmbedding``: this rank's row block where the layer
+    holds one (its ``mp`` shard; its range of the padded table)."""
+    t = torch.from_numpy(np.array(table, np.float32, copy=True))
+    w = layer.weight
+    split = getattr(w, "mp_split", None)
+    if split is not None:
+        t = split[0].take(t, *split[1:])
+    elif t.shape[0] != w.shape[0]:
+        mesh, axis = getattr(layer, "mesh", None), layer.mesh_axis
+        lo = (mesh.axis_index(axis) if mesh is not None and
+              mesh.shape.get(axis, 1) > 1 else 0) * w.shape[0]
+        t = t[lo:lo + w.shape[0]]
+    if t.shape != w.shape:
+        raise ValueError(f"table {tuple(t.shape)} does not match "
+                         f"{tuple(w.shape)}")
+    with torch.no_grad():
+        w.copy_(t)

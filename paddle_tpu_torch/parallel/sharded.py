@@ -68,8 +68,9 @@ the gradients are averaged over the data axes as at pp = 1.  ZeRO stages
 
 Raising: a mesh with an ``ep`` axis of size > 1; a parameter whose
 ``DistAttr`` splits it over ``mp`` (> 1) but which no mp-aware layer or
-model holds in shards (BERT's, a plain ``Linear`` under
-``shard_module`` rules: ROADMAP item 3d), rather than keeping it whole;
+model holds in shards (a plain ``Linear`` under ``shard_module`` rules;
+GPT, Bert, the tensor-parallel layers and ``ps.ShardedEmbedding`` hold
+theirs), rather than keeping it whole;
 at ``mp`` or ``pp`` > 1 a gradient clip other than ``ClipGradByValue``
 (its norms would be taken over shards or one stage's layers); a
 per-parameter-norm optimizer
@@ -246,8 +247,7 @@ class ShardedTrainStep(TrainStep):
                     raise NotImplementedError(
                         f"parameter {n!r} carries {attr} over mp="
                         f"{self._mp}, but no mp-aware layer or model holds "
-                        "it in shards (ROADMAP Queue 1 item 3d is BERT's "
-                        "mp path); the step does not keep it whole")
+                        "it in shards; the step does not keep it whole")
         clip = getattr(optimizer, "_grad_clip", None)
         if (self._mp > 1 or self._pp > 1) and clip is not None and \
                 type(clip).__name__ != "ClipGradByValue":

@@ -376,19 +376,20 @@ def test_fleet_trains_as_the_reference_fleet():
     assert fleet.utils.recompute is fleet.recompute
 
 
-# item 3b's and 3c's names are ported (None): real, not stand-ins
+# item 3b's, 3c's and 4a's names are ported (None): real, not stand-ins
 PENDING = [("distributed", n, None) for n in (
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
     "shard_tensor", "split")] + [("parallel", n, None) for n in (
         "make_pipeline_train_1f1b", "pipeline_forward")] + [
     ("parallel", n, None) for n in ("ring_attention", "shard_map_compat")] + [
     ("parallel", "pipeline", None)] + [
-    ("distributed", n, "4") for n in ("DatasetFactory", "InMemoryDataset",
-                                      "QueueDataset", "train_from_dataset",
-                                      "ps")] + [
-    ("distributed.fleet", n, "4") for n in ("init_worker", "ps_client",
-                                            "init_server", "run_server",
-                                            "stop_worker")] + [
+    ("distributed", "ps", None)] + [
+    ("distributed", n, "4b") for n in ("DatasetFactory", "InMemoryDataset",
+                                       "QueueDataset", "train_from_dataset")
+] + [("distributed.ps", n, "4b") for n in ("service", "graph")] + [
+    ("distributed.fleet", n, "4b") for n in ("init_worker", "ps_client",
+                                             "init_server", "run_server",
+                                             "stop_worker")] + [
     ("distributed.fleet", "save_inference_model", "5"),
     ("distributed.fleet", "save_persistables", "5"),
     ("distributed", "checkpoint", "5"), ("distributed.fleet.utils", "fs", "5"),
@@ -399,11 +400,11 @@ PENDING = [("distributed", n, None) for n in (
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 4, 5 and 6 raises
+    """Every reference name left for items 4b, 5 and 6 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; item 3b's and 3c's names (item None) are real, not stand-ins (the
-    ``pipeline`` submodule a module); a name neither package has is an
-    AttributeError."""
+    it; item 3b's, 3c's and 4a's names (item None) are real, not stand-ins
+    (the ``pipeline`` and ``ps`` submodules modules); a name neither
+    package has is an AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")

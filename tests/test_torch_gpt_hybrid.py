@@ -244,7 +244,8 @@ def test_dist_attr_specs_match_reference():
 def test_refusals():
     """A parameter split over mp by its DistAttr that no mp-aware layer
     holds in shards raises naming it (a plain Linear under shard_module
-    rules, BERT's, whose mp path is item 3d); a pipeline axis now runs
+    rules), while BERT's are held in shards (item 3d: the step builds,
+    each rank holding half the vocabulary); a pipeline axis now runs
     (item 3c: GPT holds its stage's layer), with a clip by value only
     (a global norm would be taken over one stage); heads that do not
     divide over mp raise, as layers that do not divide over pp do."""
@@ -253,9 +254,9 @@ def test_refusals():
                            {r"0\.weight": (None, "mp")})
         with pytest.raises(NotImplementedError, match="0.weight"):
             ShardedTrainStep(lin, lambda m, x: m(x).sum(), SGD(), mesh=mesh)
-        with pytest.raises(NotImplementedError, match="'wte'.*item 3d"):
-            ShardedTrainStep(Bert(bert_tiny(), device="cpu"),
-                             lambda m, x: x, SGD(), mesh=mesh)
+        bert = Bert(bert_tiny(), device="cpu")
+        ShardedTrainStep(bert, lambda m, x: x, SGD(), mesh=mesh)
+        assert tuple(bert.wte.shape) == (128, 64)
         with pytest.raises(ValueError, match="num_heads=3"):
             GPT(GPTConfig(vocab_size=64, hidden_size=48, num_layers=1,
                           num_heads=3, max_seq_len=16), device="cpu",

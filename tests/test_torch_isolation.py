@@ -65,7 +65,9 @@ def test_every_module_imports_with_jax_blocked():
               "distributed.fleet.strategy_compiler",
               "distributed.fleet.metrics", "parallel.sharded",
               "parallel.tp", "parallel.ring_attention",
-              "distributed.tp_layers", "parallel.pipeline"):
+              "distributed.tp_layers", "parallel.pipeline",
+              "distributed.ps", "distributed.ps.device_table",
+              "models.rank"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
@@ -115,6 +117,50 @@ def test_tp_entry_points_default_to_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="is_available"):
             make(None)
         assert make("cpu").weight.device.type == "cpu"
+
+
+def test_bert_mp_and_ps_entry_points_default_to_cuda(monkeypatch):
+    """Bert at mp = 2, ShardedEmbedding, the rank models, the pulled rows
+    of DistributedEmbedding, PSTrainStep, MeshShardedEmbedding and
+    DeviceEmbeddingTrainStep land on the card unless asked otherwise, and
+    raise without it; on the CPU Bert at mp = 2 holds its shards."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.models import (Bert, DeepFM, WideDeep,
+                                         WideDeepHost, bert_tiny)
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def fn(rank, mesh):
+        with pytest.raises(RuntimeError, match="is_available"):
+            Bert(bert_tiny(), mesh=mesh)
+        m = Bert(bert_tiny(), device="cpu", mesh=mesh)
+        return m.wte.device.type, tuple(m.wte.shape)
+    assert LoopbackWorld(2).run(fn, axes={"mp": 2}) == [
+        ("cpu", (128, 64))] * 2
+    for make in (lambda d: ps.ShardedEmbedding(8, 2, device=d),
+                 lambda d: WideDeep(16, 2, 2, 1, (4,), device=d),
+                 lambda d: DeepFM(16, 2, 2, 1, (4,), device=d),
+                 lambda d: WideDeepHost(2, 2, 1, (4,), device=d),
+                 lambda d: ps.MeshShardedEmbedding(8, 2, device=d)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make(None)
+        assert list(make("cpu").parameters())[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="is_available"):
+        ps.DistributedEmbedding(8, 2)
+    emb = ps.DistributedEmbedding(8, 2, device="cpu")
+    assert emb(np.array([[1, 2]])).device.type == "cpu"
+    model = WideDeepHost(1, 2, 1, (4,), device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        ps.PSTrainStep(model, None, SGD(), emb)
+    assert ps.PSTrainStep(model, None, SGD(), emb,
+                          device="cpu").device.type == "cpu"
+    table = ps.MeshShardedEmbedding(8, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        ps.DeviceEmbeddingTrainStep(model, None, SGD(), table)
+    assert ps.DeviceEmbeddingTrainStep(model, None, SGD(), table,
+                                       device="cpu").device.type == "cpu"
 
 
 def test_seq2seq_entry_points_default_to_cuda(monkeypatch):
