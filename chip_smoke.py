@@ -571,6 +571,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
              idle share; at bench.py's CPU size K = 2 (two threads)
              against K = 1, untouched rows unchanged, beside a dense Adam
              over the table and an exchange without the owner mask.
+55. planes — the host planes on GPT-2 345M's O2 TrainStep: 3 steps under
+             the tracer, a memory sample a step and the profiler: one
+             train.step span a step, the step statistics, one compile and
+             the cache hits, the memory gauge equal to the allocator at
+             the sample, the flash kernels in the profiler's trace as
+             often as their counters rose, each inside a TrainStep range;
+             the synchronisations of 3 steps equal with the planes off and
+             on, beside a planted loss read in the hook; zero.collective
+             armed on a small ShardedUpdateTrainStep, retried bitwise.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -580,8 +589,11 @@ prints no result.  It imports no JAX and nothing of paddle_tpu.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -10604,6 +10616,300 @@ def widedeep_device_phase(power):
     return row
 
 
+# -- the host planes (phase 55) ----------------------------------------------
+PLANES_STEPS = 3               # planes: GPT-2 345M steps under the profiler
+PLANES_SYNC_STEPS = 3          # planes: steps whose synchronisations count
+# the flash kernels' names in the profiler's trace, by their launch counter
+PLANES_KERNELS = (("launches", "fa_fwd_wgmma_kernel"),
+                  ("launches_dq", "fa_bwd_dq_wgmma_kernel"),
+                  ("launches_dkv", "fa_bwd_dkv_wgmma_kernel"))
+
+
+def planes_reset():
+    """A clean slate of the host planes: statistics and histograms at 0,
+    no detectors, compile sites or memory samples, an empty flight ring."""
+    from paddle_tpu_torch.framework import health, monitor, observability
+    monitor.reset_all_stats()
+    monitor.reset_all_histograms()
+    health.reset()
+    observability.flight.clear()
+
+
+def count_syncs(fn):
+    """(the synchronising CUDA calls fn() makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them, fn's host
+    ms)."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught), ms
+
+
+@contextlib.contextmanager
+def loss_read_in_hook(tjit):
+    """Planted fault: the step's statistics hook reads the loss back to the
+    host (``.item()``), a synchronisation the planes must not add."""
+    record = tjit._record_step
+
+    def reading(step, losses, steps, t_start):
+        float(losses.sum())
+        return record(step, losses, steps, t_start)
+    tjit._record_step = reading
+    try:
+        yield
+    finally:
+        tjit._record_step = record
+
+
+def kernels_in_range(path, fragments, range_name):
+    """Of a torch.profiler chrome trace: {fragment: (kernels whose name
+    holds it, those whose launch call lies inside a ``range_name`` host
+    range)}, and the number of such ranges.  A kernel meets its launch
+    call by the trace's correlation id."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == range_name and e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in (e.get("args") or {})}
+    out = {}
+    for frag in fragments:
+        ks = [e for e in events
+              if e.get("cat") == "kernel" and frag in e.get("name", "")]
+        inside = sum(any(a <= launch_ts.get(
+            (k.get("args") or {}).get("correlation"), -1.0) <= b
+            for a, b in ranges) for k in ks)
+        out[frag] = (len(ks), inside)
+    return out, len(ranges)
+
+
+def planes_phase(cfg, ids_t, fa, power):
+    """Phase 55: the host planes on GPT-2 345M's O2 TrainStep (AdamW
+    1e-4), as the train phase builds it.  PLANES_STEPS steps run under the
+    tracer, a memory sample every step and ``profiler.start_profiler
+    ("All")``: the span file's train.step spans and ``span_summary``, the
+    step statistics, the compile site (one compile, the rest cache hits),
+    the memory gauge against the allocator read at the sample, the
+    watermark event, and the flash kernels in the profiler's chrome trace
+    as many times as their launch counters rose, each launched inside a
+    ``TrainStep`` range.  Then the synchronisations of PLANES_SYNC_STEPS
+    steps under ``set_sync_debug_mode("warn")`` with the planes off and on
+    (tracer, memory sample, detectors, profiler table) must be equal, and
+    a hook planted to read the loss must raise them.  Last, a small GPT
+    under ShardedUpdateTrainStep at world size 1 (a one-rank
+    LoopbackWorld) with ``zero.collective`` armed nth=1 gives the unarmed
+    run's losses and parameters bitwise, with one retry counted."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    import paddle_tpu_torch.jit as tjit
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework import (chaos, health, monitor,
+                                            observability)
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.models import GPT, gpt_loss, gpt_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    from paddle_tpu_torch.parallel.zero import ShardedUpdateTrainStep
+    t_phase = time.perf_counter()
+    tracer = observability.tracer
+    tmp = tempfile.mkdtemp(prefix="planes_")
+    trace_dir, prof_dir = os.path.join(tmp, "trace"), os.path.join(tmp,
+                                                                   "prof")
+    saved = get_flags(["health_mem_sample_every", "health_detectors"])
+    model = GPT(cfg, device="cuda")
+    step = tjit.TrainStep(model, gpt_loss, AdamW(learning_rate=1e-4),
+                          amp_level="O2", amp_dtype="bfloat16")
+    torch.cuda.synchronize()
+    planes_reset()
+    reset_fa(fa)
+    at_sample = []                  # the allocator, read at each sample
+
+    def sample(tags=None):
+        got = health.MemoryTracker.sample(health.memory, tags)
+        at_sample.append(torch.cuda.memory_allocated())
+        return got
+    health.memory.sample = sample
+    set_flags({"health_mem_sample_every": 1})
+    tracer.enable(trace_dir, label="planes")
+    profiler.start_profiler("All", trace_dir=prof_dir)
+    try:
+        for _ in range(PLANES_STEPS):
+            step(ids_t, ids_t)
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop_profiler(profile_path=os.path.join(tmp, "host.json"))
+        tracer.disable()
+        del health.memory.sample
+        set_flags(saved)
+    counts = dict(zip(FA_COUNTERS, fa_counts(fa)))
+    stats = monitor.all_stats()
+    r = {"steps": PLANES_STEPS}
+    with open(os.path.join(trace_dir, "trace_planes.jsonl")) as f:
+        spans = [json.loads(line) for line in f]
+    r["train_step_span_steps"] = [s["attrs"]["step"] for s in spans
+                                  if s.get("name") == "train.step"]
+    r["span_summary"] = {row["name"]: row["count"] for row in
+                         observability.span_summary(trace_dir)}
+    r["train_steps_total"] = stats.get("train_steps_total")
+    r["train_step_ms_count"] = monitor.all_histograms()[
+        "train_step_ms"]["count"]
+    rep = health.compile_report()["TrainStep"]
+    r["compile"] = {k: rep[k] for k in ("calls", "compiles", "causes")}
+    r["cache_hits"] = stats.get("jit_cache_hits_total")
+    r["compile_ms"] = rep["compile_ms_total"]
+    r["mem_live_bytes"] = stats["device_mem_live_bytes"]
+    r["mem_allocated_at_sample"] = at_sample[-1]
+    r["mem_peak_bytes"] = stats["device_mem_peak_bytes"]
+    r["mem_params_bytes"] = stats["device_mem_params_bytes"]
+    params_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    r["watermarks"] = len(observability.flight.recent(
+        50, kind="health.mem_watermark"))
+    traces = glob.glob(os.path.join(prof_dir, "device_trace.*.json"))
+    frags = [name for _, name in PLANES_KERNELS]
+    in_trace, n_ranges = kernels_in_range(traces[0], frags, "TrainStep") \
+        if len(traces) == 1 else ({f: (0, 0) for f in frags}, 0)
+    r["trace_kernels"] = {f: list(v) for f, v in in_trace.items()}
+    r["trace_train_step_ranges"] = n_ranges
+    r["launch_counters"] = {c: counts[c] for c, _ in PLANES_KERNELS}
+    log(f"planes: {PLANES_STEPS} O2 steps under the tracer, a memory sample "
+        f"a step and start_profiler('All'): train.step spans "
+        f"{r['train_step_span_steps']}, span_summary {r['span_summary']}, "
+        f"train_steps_total {r['train_steps_total']}, train_step_ms count "
+        f"{r['train_step_ms_count']}; compile site {r['compile']} "
+        f"({r['compile_ms']:.1f} ms), cache hits {r['cache_hits']}; "
+        f"device_mem_live_bytes {r['mem_live_bytes']} (allocator at the "
+        f"sample {r['mem_allocated_at_sample']}), peak {r['mem_peak_bytes']}, "
+        f"params {r['mem_params_bytes']} (model {params_bytes}), "
+        f"{r['watermarks']} watermark event(s); profiler trace "
+        f"{len(traces)} file(s), {n_ranges} TrainStep ranges, kernels "
+        f"(in trace, launched inside a TrainStep range) "
+        f"{r['trace_kernels']} vs launch counters {r['launch_counters']}")
+    if r["train_step_span_steps"] != list(range(PLANES_STEPS)) or \
+            r["span_summary"].get("train.step") != PLANES_STEPS:
+        fail("planes: the trace does not hold one train.step span a step")
+    if r["train_steps_total"] != PLANES_STEPS or \
+            r["train_step_ms_count"] != PLANES_STEPS:
+        fail("planes: train_steps_total or train_step_ms miscounts")
+    if r["compile"]["compiles"] != 1 or r["compile"]["causes"] != {
+            "new_signature": 1} or r["cache_hits"] != PLANES_STEPS - 1:
+        fail("planes: the TrainStep compile site miscounts")
+    if r["mem_live_bytes"] != r["mem_allocated_at_sample"] or \
+            r["mem_peak_bytes"] < r["mem_live_bytes"] or \
+            r["mem_params_bytes"] != params_bytes or not r["watermarks"]:
+        fail("planes: the memory gauge disagrees with the allocator")
+    for counter, frag in PLANES_KERNELS:
+        n, inside = in_trace[frag]
+        if not n or n != counts[counter] or inside != n:
+            fail(f"planes: the profiler's trace holds {n} {frag} ({inside} "
+                 f"inside a TrainStep range), the counter rose "
+                 f"{counts[counter]}")
+
+    # the synchronisations of the steps, planes off and on
+    def steps():
+        for _ in range(PLANES_SYNC_STEPS):
+            step(ids_t, ids_t)
+    torch.cuda.synchronize()
+    planes_reset()
+    off_syncs, off_ms = count_syncs(steps)
+    torch.cuda.synchronize()
+    set_flags({"health_mem_sample_every": 1, "health_detectors": "default"})
+    health._monitor.arm_from_flags(force=True)
+    tracer.enable(trace_dir, label="planes_sync")
+    profiler.start_profiler("CPU")
+    try:
+        on_syncs, on_ms = count_syncs(steps)
+        torch.cuda.synchronize()
+        with loss_read_in_hook(tjit):
+            planted_syncs, _ = count_syncs(steps)
+        torch.cuda.synchronize()
+    finally:
+        profiler.stop_profiler(profile_path=os.path.join(tmp, "host2.json"))
+        tracer.disable()
+        set_flags(saved)
+        health.reset()
+    r["syncs_unarmed"], r["syncs_armed"] = off_syncs, on_syncs
+    r["syncs_planted_loss_read"] = planted_syncs
+    r["host_ms_per_step_unarmed"] = off_ms / PLANES_SYNC_STEPS
+    r["host_ms_per_step_armed"] = on_ms / PLANES_SYNC_STEPS
+    log(f"planes: synchronisations of {PLANES_SYNC_STEPS} steps "
+        f"(set_sync_debug_mode('warn')) unarmed {off_syncs}, armed "
+        f"{on_syncs}, planted loss read in the hook {planted_syncs}; host "
+        f"ms a step unarmed {r['host_ms_per_step_unarmed']:.2f}, armed "
+        f"{r['host_ms_per_step_armed']:.2f} [{power}]")
+    if on_syncs != off_syncs:
+        fail("planes: the hooks add a device synchronisation")
+    if planted_syncs <= off_syncs:
+        fail("planes: a loss read in the hook was not counted")
+    del step, model
+    torch.cuda.empty_cache()
+
+    # zero.collective armed on a small GPT at world size 1
+    small = gpt_tiny(num_layers=2, max_seq_len=128)
+    torch.manual_seed(0)
+    base = GPT(small, device="cuda")
+    ids_small = torch.as_tensor(np.random.default_rng(1).integers(
+        0, small.vocab_size, (4, 128)), device="cuda")
+
+    def zero_run(spec):
+        def fn(rank, mesh):
+            m = copy.deepcopy(base)
+            zs = ShardedUpdateTrainStep(m, gpt_loss,
+                                        AdamW(learning_rate=1e-3),
+                                        mesh=mesh, wire_dtype="f32")
+            losses = [zs(ids_small, ids_small).clone() for _ in range(2)]
+            return losses, [p.detach().clone() for p in m.parameters()]
+        if spec is None:
+            return LoopbackWorld(1).run(fn)[0]
+        with chaos.inject("zero.collective", mode="error", **spec):
+            return LoopbackWorld(1).run(fn)[0]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = zero_run(None)
+        planes_reset()
+        armed = zero_run({"nth": 1})
+    finally:
+        torch.use_deterministic_algorithms(was)
+    counts = dict(zip(FA_COUNTERS, fa_counts(fa)))
+    r["zero_retries_total"] = monitor.get_stat(
+        "zero_collective_retries_total")
+    r["zero_losses"] = [float(x) for x in armed[0]]
+    r["zero_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        plain[0] + plain[1], armed[0] + armed[1]))
+    log(f"planes: ShardedUpdateTrainStep (gpt_tiny, 2 layers, world size 1) "
+        f"with zero.collective armed nth=1: losses {r['zero_losses']}, "
+        f"losses and parameters bitwise the unarmed run's "
+        f"{r['zero_bitwise']}, zero_collective_retries_total "
+        f"{r['zero_retries_total']}")
+    if not r["zero_bitwise"] or r["zero_retries_total"] != 1:
+        fail("planes: the retried zero.collective fault changed the step "
+             "or miscounted")
+    del base
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"planes phase (55): {r['phase_s']:.1f} s of wall time")
+    return r, {"flash_attention_fwd": counts["launches"],
+               "flash_attention_bwd_dq": counts["launches_dq"],
+               "flash_attention_bwd_dkv": counts["launches_dkv"]}
+
+
 def vision_loss_of(out, y):
     from paddle_tpu_torch.nn.functional import cross_entropy
     return cross_entropy(out, y).mean()
@@ -12423,6 +12729,16 @@ def main() -> int:
     ps_row["phases_s"] = time.perf_counter() - t_ps
     log(f"bert-mp and parameter-server phases (51-54): "
         f"{ps_row['phases_s']:.1f} s of wall time; launches {bmp_launch}")
+
+    # -- 55. planes -----------------------------------------------------------
+    # the host planes on GPT-2 345M's O2 TrainStep: spans, statistics,
+    # compile site, memory gauge, the profiler's trace, no added
+    # synchronisation; its runs set the counters to 0 and read them, and
+    # its launches join the kernel table's (planes_launches)
+    ps_row["planes"], pl_launch = planes_phase(cfg, ids_t, fa, power)
+    for k in kernels:
+        k["launches"] += pl_launch.get(k["name"], 0)
+        k["planes_launches"] = pl_launch.get(k["name"], 0)
     for row in table:
         log(json.dumps(row))
 

@@ -15,7 +15,7 @@ port's: ``is_compiled_with_cuda`` says whether this PyTorch was built
 with CUDA, ``get_cudnn_version`` gives cuDNN's version, and the places
 are ``torch.device``s.  The reference's ``TPUPlace`` and ``XPUPlace``
 name devices the port does not have and are left out; so are the names
-of modules still to port (``hapi``, ``io``, ``monitor``).  The ported subpackages are bound at
+of modules still to port (``hapi``, ``io``).  The ported subpackages are bound at
 import, as the reference binds its own (``paddle_tpu/__init__.py:55-77``),
 and so are the nine tensor submodules (``paddle.linalg.norm``).
 """
@@ -39,6 +39,8 @@ from paddle_tpu_torch import (  # noqa: F401,E402
     distributed, framework, inference, jit, models, nn, optimizer, parallel,
     quantization, static, vision)
 from paddle_tpu_torch.distributed.parallel import DataParallel  # noqa: F401,E402,E501
+from paddle_tpu_torch import profiler  # noqa: F401,E402
+from paddle_tpu_torch.framework import monitor  # noqa: F401,E402
 
 import torch as _torch
 
@@ -109,6 +111,46 @@ def in_dynamic_mode():
 
 
 in_dygraph_mode = in_dynamic_mode
+
+
+def enable_static():
+    static.enable_static()
+
+
+def disable_static():
+    static.disable_static()
+
+
+def enable_dygraph(place=None):
+    disable_static()
+
+
+def disable_dygraph():
+    enable_static()
+
+
+def data(name, shape, dtype="float32", lod_level=0):
+    """The static data layer as an ``InputSpec`` (reference ``:292``)."""
+    return static.InputSpec(shape, dtype=dtype, name=name)
+
+
+class VarDesc:
+    """``VarDesc.VarType.FP32``-style dtype enums (reference
+    ``core.py:115``), here the ``torch.dtype``s."""
+
+    class VarType:
+        FP16 = _torch.float16
+        BF16 = _torch.bfloat16
+        FP32 = _torch.float32
+        FP64 = _torch.float64
+        INT8 = _torch.int8
+        UINT8 = _torch.uint8
+        INT16 = _torch.int16
+        INT32 = _torch.int32
+        INT64 = _torch.int64
+        BOOL = _torch.bool
+        COMPLEX64 = _torch.complex64
+        COMPLEX128 = _torch.complex128
 
 
 def disable_signal_handler():

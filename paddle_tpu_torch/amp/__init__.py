@@ -283,8 +283,17 @@ class GradScaler:
             optimizer.step()
 
     def update(self):
+        """The dynamic scale's state machine (reference ``:219-251``), its
+        scale exported as the ``amp_loss_scale`` statistic; every K
+        consecutive downscales (``FLAGS_numerics_scale_collapse_k``) record
+        a ``numerics.scale_collapse`` flight event and count into
+        ``amp_scale_collapses_total``."""
         if not self._enable or not self._dynamic:
             return
+        # local imports: amp loads before the framework's planes
+        from paddle_tpu_torch.framework import monitor
+        from paddle_tpu_torch.framework.flags import flag
+        from paddle_tpu_torch.framework.observability import flight
         if self._found_inf:
             self._bad_steps += 1
             self._good_steps = 0
@@ -292,6 +301,15 @@ class GradScaler:
                 self._scale = max(self._scale * self._decr_ratio, 1.0)
                 self._bad_steps = 0
                 self._consecutive_downscales += 1
+                k = int(flag("numerics_scale_collapse_k"))
+                cd = self._consecutive_downscales
+                if k > 0 and cd >= k and cd % k == 0:
+                    # K downscales with no good step between them: the
+                    # overflow is systematic, not a transient batch
+                    flight.record("numerics.scale_collapse",
+                                  severity="warn", scale=self._scale,
+                                  consecutive_downscales=cd)
+                    monitor.stat_add("amp_scale_collapses_total")
         else:
             self._good_steps += 1
             self._bad_steps = 0
@@ -299,6 +317,7 @@ class GradScaler:
             if self._good_steps >= self._incr_every:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
+        monitor.stat_set("amp_loss_scale", self._scale)
         self._found_inf = False
 
     def tighten_growth(self, factor: float = 4.0) -> dict:

@@ -7,7 +7,7 @@ the tensor-parallel layers (``tp_layers.py``), and the parameter server's
 in-process tiers ``ps`` (item 4a).  Not ported yet, each raising
 ``NotImplementedError`` naming its ROADMAP item: the ``dataset`` names and
 ``ps.service`` / ``ps.graph`` (item 4b), ``checkpoint`` (item 5),
-``elastic`` and ``launch`` (item 6)."""
+``elastic`` and ``launch`` (item 6b)."""
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, get_rank, get_world_size,
@@ -31,8 +31,8 @@ QueueDataset = pending("QueueDataset", "4b", "the PS datasets")
 train_from_dataset = pending("train_from_dataset", "4b", "the PS datasets")
 __getattr__ = pending_modules("paddle_tpu_torch.distributed", {
     "checkpoint": ("5", "checkpoints"),
-    "durable": ("5", "checkpoints"), "elastic": ("6", "elastic training"),
-    "launch": ("6", "the launcher")})
+    "durable": ("5", "checkpoints"), "elastic": ("6b", "elastic training"),
+    "launch": ("6b", "the launcher")})
 
 __all__ = [
     "init_parallel_env", "ParallelEnv", "DataParallel", "spawn",

@@ -247,8 +247,16 @@ def all_reduce(tensor, op=ReduceOp.SUM, group: Optional[Group] = None,
 def all_gather(tensor_list, tensor, group: Optional[Group] = None,
                sync_op=True):
     """Appends each rank's ``tensor`` to ``tensor_list`` (when given) and
-    returns them stacked, (n, ...)."""
-    out = _comm(group).all_gather(tensor.detach())
+    returns them stacked, (n, ...).  In a lone process (no mesh, no
+    group) the list gets ``tensor`` and ``tensor`` itself comes back, shape
+    X, as the reference's eager world of one rank returns it
+    (``collective.py:235-240``)."""
+    comm = _comm(group)
+    if comm is _SOLO:
+        if tensor_list is not None:
+            tensor_list.append(tensor)
+        return tensor.detach()
+    out = comm.all_gather(tensor.detach())
     if tensor_list is not None:
         tensor_list.extend(out[i] for i in range(out.shape[0]))
     return out
@@ -298,9 +306,12 @@ def reduce_scatter(tensor, tensor_or_list, op=ReduceOp.SUM,
 def scatter(tensor, tensor_list=None, src: int = 0,
             group: Optional[Group] = None, sync_op=True):
     """``tensor`` replaced by the group rank ``src``'s ``tensor_list``
-    entry for this rank; only ``src`` needs to pass the list."""
+    entry for this rank; only ``src`` needs to pass the list.  At one rank
+    without a list ``tensor`` stays as it is (reference ``:319-322``)."""
     comm = _comm(group)
     n = comm.size
+    if n == 1 and not tensor_list:
+        return tensor
     stacked = (torch.stack([t.detach() for t in tensor_list]) if tensor_list
                else torch.zeros((n,) + tuple(tensor.shape),
                                 dtype=tensor.dtype, device=tensor.device))

@@ -5,7 +5,7 @@ Roles come from the ``PADDLE_*`` launch protocol (``PADDLE_TRAINER_ID``,
 parameter-server roles ``TRAINING_ROLE``, ``PADDLE_PSERVER_ID``,
 ``PADDLE_PSERVERS_IP_PORT_LIST``), or from this rank of the world where
 they are unset.  ``refresh()`` re-reads the environment; a rendezvous
-store (``refresh(store=...)``) is elastic training's, ROADMAP item 6, and
+store (``refresh(store=...)``) is elastic training's, ROADMAP item 6b, and
 raises until it is ported.  ``barrier_worker`` is the collective
 ``barrier`` over the world.
 """
@@ -108,7 +108,7 @@ class PaddleCloudRoleMaker(RoleMakerBase):
         if store is not None:
             raise NotImplementedError(
                 "refresh(store=...) re-forms the world from an elastic "
-                "rendezvous: ROADMAP Queue 1 item 6, not ported yet")
+                "rendezvous: ROADMAP Queue 1 item 6b, not ported yet")
         self._read_env()
         return self
 

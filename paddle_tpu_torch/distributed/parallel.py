@@ -110,7 +110,7 @@ def init_parallel_env(mesh_axes: Optional[dict] = None, device=None):
             raise ValueError(
                 f"init_parallel_env: a world of {env.world_size} ranks needs "
                 "PADDLE_TRAINER_ENDPOINTS for its rendezvous")
-        _mesh.init_process_group(device or "cuda", rank=env.rank,
+        _mesh.init_process_group(device, rank=env.rank,
                                  world_size=env.world_size,
                                  init_method=addr)
     _mesh.set_mesh(_mesh.make_mesh(mesh_axes or {"dp": -1}))

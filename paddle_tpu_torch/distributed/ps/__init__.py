@@ -26,19 +26,32 @@ it.  No Pallas kernel lies on these tiers: the reference computes them
 with XLA gathers, scatters and collectives, the port with PyTorch tensor
 ops and the mesh's collectives.
 
+The host planes see ``PSTrainStep`` as the reference's (``:593-894``): a
+``train.step`` span per call, a detached ``ps.prefetch`` span per
+background pull (closed "ok" when a step takes its rows, with an error and
+its reason when the rows are discarded), ``ps_prefetch_hits_total`` /
+``ps_prefetch_misses_total`` and the ``ps_prefetch_miss`` health signal,
+the ``PSTrainStep`` compile site, and the ``ps.pipeline`` fault point at
+the head of each prefetch: a failed prefetch makes the step replay its
+push and pull synchronously, so every gradient reaches the table once and
+in order (the synchronous pull comes after the previous step's deferred
+push, which the prefetch's pull would have preceded, as in the
+reference).  The host tables take tracked locks
+(``ps.host_table``, ``ps.dynamic_table``).
+
 Not ported here, each raising ``NotImplementedError`` naming ROADMAP
 item 4b: the TCP transport ``ps.service`` (``RemoteEmbeddingTable``,
 ``PsServer``, ``PsClient``) and ``ps.graph``.  A remote table's epoch
 fence and ``push_pull`` coalescing are item 4b's too; with a local table
-PSTrainStep pushes, then pulls.  The reference's telemetry and chaos
-hooks inside ``PSTrainStep`` and the tables (``monitor``, ``health``,
-``numerics``, ``incident``, ``autopilot``, tracer spans, the
-``ps.pipeline`` fault point) are items 5-6; none changes a result.
+PSTrainStep pushes, then pulls.  The reference's ``numerics``,
+``incident`` and ``autopilot`` hooks are items 5 and 6b; none changes a
+result.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 import weakref
 from collections import deque
 from typing import Dict, Optional
@@ -52,7 +65,9 @@ from paddle_tpu_torch.distributed.tp_layers import vocab_lookup
 from paddle_tpu_torch.distributed.ps.device_table import (
     DeviceEmbeddingTrainStep, HotRowSketch, MeshShardedEmbedding,
     _require_on, clamped_rows, gather_rows, init_table, mesh_sharded_lookup)
+from paddle_tpu_torch.framework import chaos, health, locks, monitor
 from paddle_tpu_torch.framework.flags import flag
+from paddle_tpu_torch.framework.observability import tracer
 from paddle_tpu_torch.framework.parameter import Parameter
 from paddle_tpu_torch.jit import not_to_static
 from paddle_tpu_torch.nn.layer.layers import Layer
@@ -158,7 +173,7 @@ class HostEmbeddingTable:
             self._g2 = np.zeros((num_embeddings,), np.float32)
         elif optimizer != "sgd":
             raise ValueError(f"unsupported table optimizer {optimizer!r}")
-        self._lock = threading.Lock()
+        self._lock = locks.lock("ps.host_table")
         k = int(flag("ps_hot_row_k"))
         self.hot_rows = HotRowSketch(k) if k > 0 else None
 
@@ -372,7 +387,7 @@ class HashEmbeddingTable:
             raise ValueError(f"unsupported table optimizer {optimizer!r}")
         self._rows: Dict[int, np.ndarray] = {}
         self._g2: Dict[int, float] = {}
-        self._lock = threading.Lock()
+        self._lock = locks.lock("ps.dynamic_table")
         k = int(flag("ps_hot_row_k"))
         self.hot_rows = HotRowSketch(k) if k > 0 else None
 
@@ -494,6 +509,7 @@ class PSTrainStep:
         # nothing left to issue does not drop the previous one's
         self._pending_push: list = []
         self._prefetch_pool = None
+        self._signatures: set = set()
 
     @staticmethod
     def _unique_prep(ids_np):
@@ -522,11 +538,22 @@ class PSTrainStep:
             return
         self._announced.append(_ids_np(ids))
 
-    def _prefetch_task(self, table, ids_np, push):
-        uniq, inv, uniq_p = self._unique_prep(ids_np)
-        if push is not None:
-            table.push(*push)
-        return uniq, inv, uniq_p, table.pull(uniq_p)
+    def _prefetch_task(self, table, ids_np, push, span=None):
+        """The background pull (after the deferred push), under the
+        ``ps.prefetch`` span opened when it was issued."""
+        with tracer.activate(span.context() if span is not None else None):
+            chaos.fault_point("ps.pipeline",
+                              meta={"n_ids": int(ids_np.size),
+                                    "coalesced_push": push is not None})
+            uniq, inv, uniq_p = self._unique_prep(ids_np)
+            if push is not None:
+                table.push(*push)
+            rows = table.pull(uniq_p)
+            if span is not None:
+                # when the work finished (epoch us): the span stays open
+                # until a step takes the rows
+                span.set_attr("done_ts", time.time() * 1e6)
+            return uniq, inv, uniq_p, rows
 
     def _take_pending_push(self):
         """The deferred pushes as one (ids, grads), or None."""
@@ -550,13 +577,54 @@ class PSTrainStep:
                 self._prefetch_pool = ThreadPoolExecutor(
                     max_workers=max(1, self.prefetch_depth),
                     thread_name_prefix="ps-prefetch")
-            self._inflight.append((ids_np, self._prefetch_pool.submit(
-                self._prefetch_task, self.embedding.table, ids_np, push)))
+            # the span covers the whole flight, issue to settle
+            span = tracer.start_span(
+                "ps.prefetch", detached=True,
+                attrs={"n_ids": int(ids_np.size),
+                       "coalesced_push": push is not None})
+            span = span if span.span_id is not None else None
+            self._inflight.append({
+                "key": ids_np, "push": push, "span": span,
+                "future": self._prefetch_pool.submit(
+                    self._prefetch_task, self.embedding.table, ids_np, push,
+                    span)})
 
-    def _consume_prefetch(self, ids_np):
+    @staticmethod
+    def _end_prefetch_span(inf, status, **attrs):
+        if inf["span"] is not None:
+            inf["span"].end(status=status, **attrs)
+
+    def _settle_inflight(self, inf):
+        """The prefetch's result, or None when it failed: its push (which
+        had not run) is then replayed synchronously, so no gradient is
+        lost (reference ``:682-718``)."""
+        try:
+            return inf["future"].result()
+        except RuntimeError as e:
+            self._end_prefetch_span(inf, "error", reason="server_error",
+                                    exc=repr(e))
+        except (ConnectionError, OSError) as e:
+            self._end_prefetch_span(inf, "error", reason="transport",
+                                    exc=repr(e))
+        if inf["push"] is not None:
+            self.embedding.table.push(*inf["push"])
+        return None
+
+    @staticmethod
+    def _link_prefetch(inf, step_span, kind):
+        if inf["span"] is not None:
+            step_span.link(inf["span"].span_id, kind)
+
+    def _miss(self, inf, step_span):
+        self._link_prefetch(inf, step_span, "sync_fallback")
+        monitor.stat_add("ps_prefetch_misses_total")
+        health.observe("ps_prefetch_miss", 1.0)
+
+    def _consume_prefetch(self, ids_np, step_span):
         """The head prefetch's (uniq, inv, uniq_p, rows) for this batch, or
-        None: pull synchronously (nothing prefetched, or another batch's
-        rows)."""
+        None: pull synchronously (nothing prefetched, the prefetch failed,
+        or another batch's rows).  The step's span links to the prefetch
+        either way."""
         if not self._inflight:
             # the announcement may be this batch's own (the warm-up call
             # before the first step): drop it
@@ -564,15 +632,39 @@ class PSTrainStep:
                                                   ids_np):
                 self._announced.popleft()
             return None
-        key, future = self._inflight.popleft()
-        got = future.result()
-        return got if np.array_equal(key, ids_np) else None
+        inf = self._inflight.popleft()
+        got = self._settle_inflight(inf)
+        if got is None:                # the settle closed the span
+            self._miss(inf, step_span)
+            return None
+        if not np.array_equal(inf["key"], ids_np):
+            self._end_prefetch_span(inf, "error", reason="reordered")
+            self._miss(inf, step_span)
+            return None
+        self._end_prefetch_span(inf, "ok")
+        self._link_prefetch(inf, step_span, "prefetch")
+        monitor.stat_add("ps_prefetch_hits_total")
+        health.observe("ps_prefetch_miss", 0.0)
+        return got
 
     def __call__(self, ids, *inputs):
+        t_start = time.perf_counter()
+        step_span = tracer.start_span(
+            "train.step",
+            attrs={"step": int(getattr(self.optimizer, "_global_step", 0))})
+        with step_span:
+            loss = self._call_inner(ids, step_span, *inputs)
+        step_ms = (time.perf_counter() - t_start) * 1e3
+        monitor.observe("train_step_ms", step_ms)
+        monitor.stat_add("train_steps_total")
+        health.observe("train_step_ms", step_ms)
+        return loss
+
+    def _call_inner(self, ids, step_span, *inputs):
         from paddle_tpu_torch.jit import (apply_functional_update,
                                           functional_loss_call)
         ids_np = _ids_np(ids)
-        got = self._consume_prefetch(ids_np)
+        got = self._consume_prefetch(ids_np, step_span)
         pipelined = got is not None
         table = self.embedding.table
         if got is None:
@@ -588,33 +680,46 @@ class PSTrainStep:
             rows_t = bf16_rows(rows_u)
         else:
             rows_t = torch.from_numpy(np.ascontiguousarray(rows_u))
-        rows_d = rows_t.to(dev, non_blocking=True).requires_grad_()
-        inv_d = torch.from_numpy(inv.reshape(-1)).to(dev, non_blocking=True)
         arrs = [torch.as_tensor(i).to(dev) for i in inputs]
-        params = {n: p for n, p in self.model.named_parameters()
-                  if p.requires_grad}
-        if self._opt_states is None:
-            self._opt_states = self.optimizer.functional_init_states(
-                {n: p.detach() for n, p in params.items()})
-        with torch.enable_grad():
-            rows = gather_rows(rows_d.float(), inv_d).reshape(
-                ids_np.shape + (rows_d.shape[-1],))
-            loss = functional_loss_call(self.model, self.loss_fn, params,
-                                        arrs, lead_tensors=(rows,))
-            grads = torch.autograd.grad(loss, [*params.values(), rows_d],
-                                        allow_unused=True)
-        dparams = {n: torch.zeros_like(p) if g is None else g
-                   for (n, p), g in zip(params.items(), grads[:-1])}
-        with torch.no_grad():
-            lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
-                            device=dev)
-            new_params, self._opt_states = apply_functional_update(
-                self.optimizer, dparams,
-                {n: p.detach() for n, p in params.items()},
-                self._opt_states, lr, donate=self.donate)
-            for n, p in params.items():
-                if new_params[n].data_ptr() != p.data_ptr():
-                    p.copy_(new_params[n])
+        # the reference's cache key (:870-880): a new one is a compile
+        sig = (tuple(rows_t.shape), str(rows_t.dtype).replace("torch.", ""),
+               ids_np.shape, tuple((tuple(a.shape),
+                                    str(a.dtype).replace("torch.", ""))
+                                   for a in arrs))
+        cause = None
+        if sig in self._signatures:
+            health.note_cache_hit("PSTrainStep")
+        else:
+            cause = health.classify_recompile(sig, list(self._signatures))
+            self._signatures.add(sig)
+        with health.timed_compile("PSTrainStep", cause):
+            rows_d = rows_t.to(dev, non_blocking=True).requires_grad_()
+            inv_d = torch.from_numpy(inv.reshape(-1)).to(dev,
+                                                         non_blocking=True)
+            params = {n: p for n, p in self.model.named_parameters()
+                      if p.requires_grad}
+            if self._opt_states is None:
+                self._opt_states = self.optimizer.functional_init_states(
+                    {n: p.detach() for n, p in params.items()})
+            with torch.enable_grad():
+                rows = gather_rows(rows_d.float(), inv_d).reshape(
+                    ids_np.shape + (rows_d.shape[-1],))
+                loss = functional_loss_call(self.model, self.loss_fn, params,
+                                            arrs, lead_tensors=(rows,))
+                grads = torch.autograd.grad(
+                    loss, [*params.values(), rows_d], allow_unused=True)
+            dparams = {n: torch.zeros_like(p) if g is None else g
+                       for (n, p), g in zip(params.items(), grads[:-1])}
+            with torch.no_grad():
+                lr = torch.full((), self.optimizer.get_lr(),
+                                dtype=torch.float32, device=dev)
+                new_params, self._opt_states = apply_functional_update(
+                    self.optimizer, dparams,
+                    {n: p.detach() for n, p in params.items()},
+                    self._opt_states, lr, donate=self.donate)
+                for n, p in params.items():
+                    if new_params[n].data_ptr() != p.data_ptr():
+                        p.copy_(new_params[n])
         # the card is busy until the gradient's read below: the announced
         # next pull (after the previous push) runs meanwhile
         self._issue_prefetch()
@@ -631,7 +736,9 @@ class PSTrainStep:
         push), the deferred pushes, then the communicator's queue."""
         self._announced.clear()
         while self._inflight:
-            self._inflight.popleft()[1].result()
+            inf = self._inflight.popleft()
+            if self._settle_inflight(inf) is not None:
+                self._end_prefetch_span(inf, "ok", drained=True)
         while self._pending_push:
             self.embedding.table.push(*self._pending_push.pop(0))
         if self._prefetch_pool is not None:

@@ -1,19 +1,37 @@
-"""Framework plumbing of the PyTorch port (flags, io, dtypes, crypto) and
-the reference's re-exports (``paddle_tpu/framework/__init__.py:15-30``),
-each the object of the same name at the package's top level, resolved at
-first use (the top level imports this package)."""
+"""Framework plumbing of the PyTorch port (flags, io, dtypes, crypto, the
+host planes) and the reference's re-exports
+(``paddle_tpu/framework/__init__.py:9-30``): ``monitor``, ``chaos`` and
+``observability`` bound as the reference binds them, ``locks`` and
+``health`` importable as submodules, and the top level's objects of the
+same names, resolved at first use (the top level imports this package).
+The reference's framework modules still to port raise, naming their
+ROADMAP item."""
+from paddle_tpu_torch._pending import pending_modules
+from paddle_tpu_torch.framework import flags  # noqa: F401
+from paddle_tpu_torch.framework import monitor  # noqa: F401
+from paddle_tpu_torch.framework import chaos  # noqa: F401
+from paddle_tpu_torch.framework import observability  # noqa: F401
 
 _REEXPORTS = ("save", "load", "seed", "Generator", "default_generator",
               "get_rng_state", "set_rng_state", "Parameter", "Tensor",
               "no_grad", "CPUPlace", "CUDAPlace", "get_default_dtype",
               "set_default_dtype", "in_dygraph_mode")
 
+_pending_module = pending_modules("paddle_tpu_torch.framework", {
+    "numerics": ("5", "the model-numerics plane"),
+    "auto_checkpoint": ("5", "checkpoints"),
+    "incident": ("6b", "the incident recorder"),
+    "resilient": ("6b", "the resilient train step"),
+    "ResilientTrainStep": ("6b", "the resilient train step"),
+    "errors": ("7", "the error types"),
+    "analysis": ("8", "the analysis planes")})
+
 
 def __getattr__(name):
     if name in _REEXPORTS:
         import paddle_tpu_torch
         return getattr(paddle_tpu_torch, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return _pending_module(name)
 
 
 def __dir__():

@@ -91,3 +91,77 @@ define_flag("ps_hot_row_k", 0,
             "bounded top-k hot-row sketch per host embedding table "
             "(space-saving counters over pulled ids, "
             "distributed/ps/device_table.py HotRowSketch); 0 disables it")
+
+# the host planes (framework/{chaos,observability,locks,health}.py and
+# profiler): the reference's names, defaults and environment seeding
+define_flag("chaos_spec", "",
+            "JSON {fault_point: schedule} armed into framework.chaos at "
+            "first use, e.g. '{\"zero.collective\": {\"mode\": \"error\", "
+            "\"nth\": 1}}'.  The environment form arms a whole tree of "
+            "child processes; empty = chaos off")
+define_flag("chaos_seed", 0,
+            "seed of the chaos probability schedules")
+define_flag("trace_dir", "",
+            "directory of the distributed-tracing span files; non-empty "
+            "enables the process-wide Tracer, which appends finished spans "
+            "to trace_<label>.jsonl there (label from PADDLE_TRACE_LABEL)")
+define_flag("trace_max_mb", 0.0,
+            "size cap (MB) of a span-file segment: past it the segment "
+            "rotates to trace_<label>.jsonl.1 (one previous segment kept) "
+            "and a fresh one opens; 0 = unbounded")
+define_flag("flight_capacity", 512,
+            "flight recorder ring size: the last N structured events kept "
+            "for crash dumps")
+define_flag("flight_dir", "",
+            "directory of flight_<worker>.json crash dumps "
+            "(install_crash_handler); empty = the current directory")
+define_flag("metrics_export_interval", 30.0,
+            "seconds between MetricsReporter writes of "
+            "monitor.export_prometheus() to its file (tmp + rename)")
+define_flag("lock_watchdog", False,
+            "arm the runtime lock-order watchdog over every tracked lock "
+            "(framework/locks.py): held-before graph, locks.cycle and "
+            "locks.long_hold flight events, lock_waits_total and "
+            "lock_hold_ms.  Off: one flag read per acquire")
+define_flag("lock_hold_warn_ms", 1000.0,
+            "hold time (ms) past which an armed watchdog records "
+            "locks.long_hold on release; 0 disables the check")
+define_flag("health_detectors", "",
+            "streaming anomaly detectors (framework/health.py): '' = off, "
+            "'default' arms the built-in signal set, or a JSON object "
+            "'{\"signal\": {detector kwargs}}'")
+define_flag("health_warmup", 16,
+            "baseline samples a health.Detector collects before it scores")
+define_flag("health_z_threshold", 8.0,
+            "robust MAD z-score at which a health.Detector flags an "
+            "anomaly")
+define_flag("health_compile_warmup_calls", 10,
+            "calls per compile site within which a new signature counts as "
+            "warm-up; past it a recompile is steady-state "
+            "(jit_recompiles_steady_total)")
+define_flag("health_compile_storm_k", 3,
+            "post-warm-up recompiles at one site that make a compile storm "
+            "(health.compile_storm flight event)")
+define_flag("health_mem_sample_every", 0,
+            "sample the device memory into the device_mem_* gauges every N "
+            "train steps (health.MemoryTracker); 0 disables the per-step "
+            "hook")
+define_flag("numerics_scale_collapse_k", 4,
+            "consecutive GradScaler downscales that make a loss-scale "
+            "collapse: a numerics.scale_collapse flight event every K "
+            "consecutive decreases")
+define_flag("flight_storm_window", 1.0,
+            "seconds within which identical (kind, attrs) flight events "
+            "are deduplicated once flight_storm_k of them landed; 0 "
+            "disables the guard")
+define_flag("flight_storm_k", 8,
+            "identical (kind, attrs) flight events tolerated per "
+            "flight_storm_window before further ones are suppressed")
+define_flag("ckpt_emergency_deadline", 10.0,
+            "seconds a SIGTERM emergency callback (observability."
+            "on_sigterm) may take before the handler goes on to the crash "
+            "dump")
+define_flag("profiler_max_spans", 100000,
+            "cap on the host spans a profiling session keeps for its chrome "
+            "trace; past it spans are dropped and counted while the "
+            "aggregate report counts every event")

@@ -17,6 +17,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.profiler import RecordEvent
+
 __all__ = ["Config", "Predictor", "create_predictor", "PredictorTensor"]
 
 
@@ -133,7 +135,7 @@ class Predictor:
             if h._value is None:
                 raise RuntimeError(f"input {name} not set")
             args.append(torch.as_tensor(h._value, device=self._layer.device))
-        span = torch.profiler.record_function("Predictor.run") \
+        span = RecordEvent("Predictor.run") \
             if self.config._enable_profile else contextlib.nullcontext()
         with torch.no_grad(), span:
             out = self._layer(*args)

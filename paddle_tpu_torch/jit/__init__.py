@@ -45,6 +45,13 @@ first and put back.  With ``donate=True`` the raise comes after the
 write-back, as the reference's donated buffers force.  Disarmed, the step
 reads nothing back.
 
+The host planes (``framework/{monitor,health,observability}.py``,
+``profiler``) see each call as the reference's (``:548-636``): a
+``train.step`` span, a ``TrainStep`` / ``TrainStep.multi_step`` profiler
+range, the first call under a new signature (the reference's cache key)
+timed as a compile, ``train_step_ms``, ``train_steps_total``, the health
+detector and the memory sample; no device synchronisation is added.
+
 Not ported, and raising ``NotImplementedError``: a gradient clip without
 ``functional_clip``, which the reference's step silently skips.
 
@@ -57,16 +64,21 @@ ported and raise.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import time
 from typing import Callable, Optional
 
 import torch
 from torch import nn
 
+from paddle_tpu_torch.framework import health, monitor
 from paddle_tpu_torch.framework.flags import flag
+from paddle_tpu_torch.framework.observability import tracer
 from paddle_tpu_torch.framework.selected_rows import dense_gradients
 from paddle_tpu_torch.jit import recompute as _recompute
 from paddle_tpu_torch.jit.recompute import substituted_call
+from paddle_tpu_torch.profiler import RecordEvent
 
 __all__ = ["TrainStep", "functional_loss_call", "apply_functional_update",
            "loss_closure", "loss_and_grads", "to_static", "not_to_static",
@@ -157,6 +169,40 @@ def apply_functional_update(opt, grads: dict, params: dict, opt_states, lr,
                                  donate=donate)
 
 
+def _sig_of(tensors, tag: str) -> tuple:
+    """The reference's signature leaves (``jit/__init__.py:44``): (tag,
+    shape, dtype name), ``"T"`` for a parameter, ``"A"`` for an input."""
+    return tuple((tag, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                 for t in tensors)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _record_step(step, losses, steps: Optional[int], t_start: float):
+    """The statistics of one ``TrainStep`` call, after its commit
+    (reference ``:570``, ``:626-636``): a multi_step adds its K steps to
+    ``train_steps_total``; a step records its host wall time into
+    ``train_step_ms`` and the health detector, and the memory sample
+    attributes the parameters', optimizer state's and buffers' bytes.
+    Reads nothing from the device: ``losses`` stays where it is."""
+    if steps is not None:
+        monitor.stat_add("train_steps_total", steps)
+        return
+    step_ms = (time.perf_counter() - t_start) * 1e3
+    monitor.observe("train_step_ms", step_ms)
+    monitor.stat_add("train_steps_total")
+    health.observe("train_step_ms", step_ms)
+    model = step.model
+    health.maybe_sample_memory(lambda: {
+        "params": _nbytes(model.parameters()),
+        "opt_state": _nbytes(t for st in (step._opt_states or {}).values()
+                             for t in st.values()
+                             if isinstance(t, torch.Tensor)),
+        "buffers": _nbytes(model.buffers())})
+
+
 class TrainStep:
     """One training step per call: forward, backward, optimizer update.
 
@@ -197,6 +243,7 @@ class TrainStep:
         self._loss_from = loss_closure(model, loss_fn, amp_level,
                                        self.amp_dtype, recompute)
         self._opt_states: Optional[dict] = None
+        self._signatures: set = set()
 
     def _params(self) -> dict:
         return {n: p for n, p in self.model.named_parameters()
@@ -245,18 +292,55 @@ class TrainStep:
                 if new_params[n].data_ptr() != p.data_ptr():
                     p.copy_(new_params[n])
 
-    def _run(self, inputs, steps: Optional[int], what: str) -> torch.Tensor:
+    def _note_signature(self, sig: tuple, site: str):
+        """The compile cause of a first call under ``sig`` at ``site``
+        (None on a repeat, counted as a cache hit): the reference's cache
+        keys (``:548-601``), each multi_step key classified against the
+        multi_step keys only and each ``__call__`` key against the
+        others."""
+        if sig in self._signatures:
+            health.note_cache_hit(site)
+            return None
+        multi = bool(sig) and sig[0] == "multi"
+        cause = health.classify_recompile(
+            sig, [s for s in self._signatures
+                  if (bool(s) and s[0] == "multi") == multi])
+        self._signatures.add(sig)
+        return cause
+
+    def _run(self, inputs, steps: Optional[int], what: str,
+             unroll: bool = False) -> torch.Tensor:
         """The dispatch shared by ``__call__`` (``steps`` None) and
         ``multi_step`` (``steps`` = K, a leading axis on every input): the
         learning rate read once, the step bodies, then the check_nan_inf
         sweep over their losses (reference ``_commit_step``) and the
-        global step.  Returns the (K,) f32 losses, or the one loss."""
+        global step.  Returns the (K,) f32 losses, or the one loss.
+
+        The host planes see it as the reference's step: a ``train.step``
+        span (``__call__``) and a ``TrainStep`` / ``TrainStep.multi_step``
+        profiler range around the bodies, the first call under a new
+        signature timed as a compile, then ``train_step_ms`` (host wall
+        time of the call: no synchronisation is added),
+        ``train_steps_total``, the health detector and the memory sample.
+        On the ranks of a ``LoopbackWorld`` only rank 0's thread records
+        (``parallel.mesh.lead_thread``)."""
+        from paddle_tpu_torch.parallel.mesh import lead_thread
+        t_start = time.perf_counter()
+        lead = lead_thread()
         params = self._params()
         dev = next(iter(params.values())).device
         if self._opt_states is None:
             self._opt_states = self.optimizer.functional_init_states(
                 {n: p.detach() for n, p in params.items()})
         inputs = [torch.as_tensor(i).to(dev) for i in inputs]
+        site = "TrainStep" if steps is None else "TrainStep.multi_step"
+        cause = None
+        if lead:
+            named = [p for _, p in self.model.named_parameters()]
+            sig = _sig_of(named, "T") + _sig_of(inputs, "A")
+            if steps is not None:
+                sig = ("multi", bool(unroll)) + sig
+            cause = self._note_signature(sig, site)
         # a fill kernel: the rate reaches the card as a launch argument
         lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
                         device=dev)
@@ -270,14 +354,20 @@ class TrainStep:
         batches = ([inputs] if steps is None else
                    [[i[j] for i in inputs] for j in range(steps)])
         cur, states, losses = params, self._opt_states, []
-        for batch in batches:
-            loss, new_params, states = self._one_step(cur, batch, lr, states)
-            losses.append(loss)
-            if hold:
-                cur = {n: t.requires_grad_() for n, t in new_params.items()}
-            else:
-                self._write(params, new_params)
-                self._opt_states = states
+        span = tracer.start_span(
+            "train.step", attrs={"step": int(self.optimizer._global_step)}
+        ) if lead and steps is None else contextlib.nullcontext()
+        with span, RecordEvent(site), health.timed_compile(site, cause):
+            for batch in batches:
+                loss, new_params, states = self._one_step(cur, batch, lr,
+                                                          states)
+                losses.append(loss)
+                if hold:
+                    cur = {n: t.requires_grad_()
+                           for n, t in new_params.items()}
+                else:
+                    self._write(params, new_params)
+                    self._opt_states = states
         losses = losses[0] if steps is None else torch.stack(losses)
         if check and not bool(torch.isfinite(losses).all()):
             if hold:
@@ -290,6 +380,8 @@ class TrainStep:
             self._write(params, cur)
             self._opt_states = states
         self.optimizer._global_step += 1 if steps is None else steps
+        if lead:
+            _record_step(self, losses, steps, t_start)
         return losses
 
     def __call__(self, *inputs):
@@ -326,7 +418,8 @@ class TrainStep:
         if len(ks) != 1:
             raise ValueError(f"multi_step inputs disagree on the leading "
                              f"steps axis: {sorted(ks)}")
-        return self._run(inputs, ks.pop(), "TrainStep.multi_step")
+        return self._run(inputs, ks.pop(), "TrainStep.multi_step",
+                         unroll=unroll)
 
 
 from paddle_tpu_torch.jit.static import (  # noqa: E402,F401

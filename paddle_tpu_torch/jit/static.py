@@ -62,6 +62,9 @@ from torch import nn
 from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils import _pytree as pytree
 
+from paddle_tpu_torch.framework import health
+from paddle_tpu_torch.nn.layer.layers import Layer
+
 __all__ = ["StaticFunction", "to_static", "not_to_static", "save", "load",
            "TranslatedLayer"]
 
@@ -70,7 +73,10 @@ _FORMAT = "paddle_tpu_torch.pdmodel"
 
 
 def _sig_of(args) -> tuple:
-    return tuple(("T", tuple(a.shape), str(a.dtype), str(a.device))
+    """The reference's signature leaves (shape, dtype name) with the
+    device the capture is specialised to."""
+    return tuple(("T", tuple(a.shape), str(a.dtype).replace("torch.", ""),
+                  str(a.device))
                  if isinstance(a, torch.Tensor) else ("S", a) for a in args)
 
 
@@ -252,12 +258,27 @@ class StaticFunction:
                + _sig_of(tensor_args)
                + tuple(_hashable(s) for k, s in static_args if k == "static")
                + (training, _hashable(kwargs)))
+        # a capture is the compile of the health plane's site: its cause
+        # is classified against the signatures captured before it, and
+        # the capture and first run are timed into compile_ms
+        site = f"to_static:{getattr(self._function, '__name__', '?')}"
         entry = self._cache.get(sig)
+        cause = None
         if entry is None:
-            entry = self._capture(named_params, named_buffers, static_args,
-                                  tensor_args, kwargs)
-            self._cache[sig] = entry
-            self.captures += 1
+            cause = health.classify_recompile(sig, list(self._cache))
+        else:
+            health.note_cache_hit(site)
+        with health.timed_compile(site, cause):
+            if entry is None:
+                entry = self._capture(named_params, named_buffers,
+                                      static_args, tensor_args, kwargs)
+                self._cache[sig] = entry
+                self.captures += 1
+            return self._run_captured(entry, named_params, named_buffers,
+                                      tensor_args)
+
+    @staticmethod
+    def _run_captured(entry, named_params, named_buffers, tensor_args):
         graph, out_spec = entry
         state = [p for _, p in named_params] + [b for _, b in named_buffers]
         n_state = len(state)
@@ -310,8 +331,8 @@ def not_to_static(func):
 # ---------------------------------------------------------------------------
 
 
-class TranslatedLayer(nn.Module):
-    """A loaded artifact, called like a Layer (reference ``:712``): the
+class TranslatedLayer(Layer):
+    """A loaded artifact, an ``nn.Layer`` (reference ``:712``): the
     exported graph run on the ``.pdparams`` tensors, in the state dict's
     order, then the inputs.  One output comes back as a tensor, several
     as a list.  ``device`` is where it runs: an input tensor on another

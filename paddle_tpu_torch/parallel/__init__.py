@@ -7,7 +7,7 @@ with ZeRO stages 0-3; LocalSGD, DGC and the compressed all-reduce in
 primitives (``tp``), ring attention over ``sp`` (``ring_attention``) and
 ``shard_map_compat``; the pipeline's schedules over ``pp``
 (``pipeline``: ``pipeline_forward`` F-then-B, ``make_pipeline_train_1f1b``).
-``parity`` is ROADMAP item 6: it raises ``NotImplementedError`` naming
+``parity`` is ROADMAP item 6b: it raises ``NotImplementedError`` naming
 its item."""
 from paddle_tpu_torch.parallel.mesh import (  # noqa: F401
     DistAttr, HybridTopology, LoopbackWorld, Mesh, auto_mesh, get_mesh,
@@ -24,4 +24,4 @@ from paddle_tpu_torch.parallel.pipeline import (  # noqa: F401
 from paddle_tpu_torch._pending import pending_modules  # noqa: E402
 
 __getattr__ = pending_modules("paddle_tpu_torch.parallel", {
-    "parity": ("6", "the replica parity probe")})
+    "parity": ("6b", "the replica parity probe")})

@@ -61,6 +61,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from paddle_tpu_torch.device import resolve_device
+
 __all__ = ["Mesh", "DistGroup", "LoopbackWorld", "make_mesh", "set_mesh",
            "ordered_sum", "sum_over", "mean_over",
            "get_mesh", "init_process_group", "auto_mesh", "mesh_axis_size",
@@ -229,6 +231,7 @@ class LoopbackWorld:
 
         def body(rank):
             _LOCAL.world = True
+            _LOCAL.world_rank = rank
             try:
                 mesh = Mesh(axes or {"dp": self.n},
                             _LoopbackGroup(self, world, rank))
@@ -399,13 +402,16 @@ def require_no_model_parallel(mesh: Mesh, who: str):
             "user in the reference")
 
 
-def init_process_group(device="cuda", *, rank: int, world_size: int,
+def init_process_group(device=None, *, rank: int, world_size: int,
                        init_method: str):
     """``torch.distributed.init_process_group`` with the backend of the
-    model's device: NCCL for ``"cuda"`` (after selecting the card
-    ``rank % device_count``), gloo for ``"cpu"``.  ``init_method`` is an
-    address such as ``tcp://localhost:<port>``."""
-    dev = torch.device(device)
+    model's device (the default device when None): NCCL for ``"cuda"``
+    (after selecting the card ``rank % device_count``), gloo for
+    ``"cpu"``.  ``init_method`` is an
+    address such as ``tcp://localhost:<port>``.  The device is checked as
+    every entry point checks it (``device.resolve_device``): CUDA asked
+    for where there is none raises."""
+    dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
         backend = "nccl"
@@ -423,6 +429,15 @@ _LOCAL = threading.local()
 def in_loopback() -> bool:
     """Whether the calling thread is a rank of a :class:`LoopbackWorld`."""
     return getattr(_LOCAL, "world", False)
+
+
+def lead_thread() -> bool:
+    """Whether the calling thread speaks for its process in the host
+    planes (spans, statistics, compile sites): any thread but the ranks of
+    a :class:`LoopbackWorld` other than rank 0.  The reference's single
+    controller records a step once; the port's loopback ranks run it on n
+    threads of one process, and record it once."""
+    return not in_loopback() or _LOCAL.world_rank == 0
 
 
 def world_group():

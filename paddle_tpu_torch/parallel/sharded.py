@@ -380,11 +380,11 @@ class ShardedTrainStep(TrainStep):
                     p.data = full[:size].reshape(self._shapes[n])
 
     # -- the step -----------------------------------------------------------
-    def _run(self, inputs, steps, what):
+    def _run(self, inputs, steps, what, unroll=False):
         self._ensure_state(self._params())
         self._gather_chunks()
         try:
-            return super()._run(inputs, steps, what)
+            return super()._run(inputs, steps, what, unroll)
         finally:
             if self.sharding_stage == 3:
                 self._release_params()

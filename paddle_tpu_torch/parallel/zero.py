@@ -47,15 +47,31 @@ ranks after the update, in f32 and cast back, never on the wire
 makes each rank's loss one recompute region, as in ``jit.TrainStep``
 (``jit.loss_closure``; reference ``:139``, ``:174``, ``:287``).
 
+The host planes see a step as the reference's (``:441-558``): the
+``zero.collective`` fault point once per leg at the head of the step, an
+injected drop re-issued up to ``collective_retries`` times before any leg
+runs (so a retried step is bit-identical; ``zero_collective_retries_total``,
+and a ``zero.collective_failed`` flight event when the retries run out);
+a ``zero.step`` span holding ``zero.reduce_scatter`` / ``zero.update`` /
+``zero.all_gather`` spans with the legs' wire bytes, around the host's
+issue of each leg (the reference waits for the device inside them when
+tracing, the port adds no synchronisation); ``opt_state_bytes_per_replica``,
+``zero_collective_bytes_per_step`` / ``_total``, ``train_step_ms``,
+``train_steps_total``, the health detector and the memory sample.  On the
+ranks of a ``LoopbackWorld`` only rank 0's thread consults the fault point
+and records, as the reference's one controller does.
+
 Not ported, each raising or absent: LARS (``LarsMomentum``, rejected by
 name: its per-parameter norms would be taken over 1/dp chunks), a grad clip
 without ``functional_clip`` (the reference skips it), checkpoint interop
-(``checkpoint_extra_meta``, ``adopt_opt_state``), the chaos, tracer,
-monitor and parity hooks, and ``analyze``.
+(``checkpoint_extra_meta``, ``adopt_opt_state``), the parity probe (item
+6b) and ``analyze``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -66,11 +82,14 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                normalize_wire,
                                                quantize_rows_torch,
                                                wire_nbytes)
+from paddle_tpu_torch.framework import chaos, health, monitor
+from paddle_tpu_torch.framework.observability import flight, tracer
 from paddle_tpu_torch.jit import loss_and_grads, loss_closure
 from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, average_buffers,
                                                local_batch)
 from paddle_tpu_torch.parallel.mesh import (_require_pure_dp, get_mesh,
-                                            mean_over, ordered_sum)
+                                            lead_thread, mean_over,
+                                            ordered_sum)
 from paddle_tpu_torch.parallel.ring import (ring_all_gather,
                                             ring_reduce_scatter)
 
@@ -162,7 +181,7 @@ class ShardedUpdateTrainStep:
                  wire_dtype: Optional[str] = None, chunk: int = 256,
                  amp_level=None, amp_dtype="bfloat16",
                  recompute: bool = False, donate: bool = True,
-                 ring: Optional[bool] = None):
+                 ring: Optional[bool] = None, collective_retries: int = 2):
         from paddle_tpu_torch.framework.flags import flag
         if type(optimizer).__name__ == "LarsMomentum":
             # LARS takes a trust ratio from per-parameter norms; over 1/dp
@@ -195,6 +214,7 @@ class ShardedUpdateTrainStep:
         self.amp_level = amp_level
         self.amp_dtype = _amp_dtype(amp_dtype)
         self.donate = donate
+        self.collective_retries = int(collective_retries)
         self._loss_from = loss_closure(model, loss_fn, amp_level,
                                        self.amp_dtype, recompute)
         self._specs: Optional[Dict[str, ShardSpec]] = None
@@ -216,6 +236,9 @@ class ShardedUpdateTrainStep:
         self._ensure_specs()
         self._opt_shards = init_state_shards(self.optimizer, self._params(),
                                              self._specs, self.mesh.rank)
+        if lead_thread():
+            monitor.stat_set("opt_state_bytes_per_replica",
+                             self.opt_state_bytes_per_replica())
 
     @property
     def _opt_states(self):
@@ -272,33 +295,95 @@ class ShardedUpdateTrainStep:
     def _clip(self, gshards: dict) -> dict:
         return sharded_clip(self.optimizer, gshards, self.mesh.group)
 
+    # -- chaos (reference :455-475) -----------------------------------------
+    def _collective_guard(self):
+        """Consult ``zero.collective`` once a leg at the head of the step.
+        Nothing has run yet, so an injected drop is simply re-issued
+        (bounded): the step that follows is the one without the fault."""
+        for leg in ("reduce_scatter", "all_gather"):
+            attempt = 0
+            while True:
+                try:
+                    chaos.fault_point("zero.collective", meta={"leg": leg})
+                    break
+                except chaos.InjectedFault:
+                    attempt += 1
+                    monitor.stat_add("zero_collective_retries_total")
+                    if attempt > self.collective_retries:
+                        flight.record("zero.collective_failed",
+                                      severity="error", leg=leg,
+                                      attempts=attempt)
+                        raise
+
     # -- the step -----------------------------------------------------------
     def __call__(self, *inputs):
+        t_start = time.perf_counter()
+        lead = lead_thread()
         params = self._params()
         self._ensure_state()
+        wire_bytes = self.collective_wire_bytes()
+        span = tracer.start_span if lead else _no_span
+        with span("zero.step", attrs={
+                "step": int(self.optimizer._global_step), "wire": self.wire,
+                "dp": self.dp, "ring": self.ring}):
+            if lead:
+                self._collective_guard()
+            loss = self._step(params, inputs, span, wire_bytes)
+        self.optimizer._global_step += 1
+        if lead:
+            per_step = (wire_bytes["reduce_scatter"]
+                        + wire_bytes["all_gather"])
+            monitor.stat_set("zero_collective_bytes_per_step", per_step)
+            monitor.stat_add("zero_collective_bytes_total", per_step)
+            step_ms = (time.perf_counter() - t_start) * 1e3
+            monitor.observe("train_step_ms", step_ms)
+            monitor.stat_add("train_steps_total")
+            health.observe("train_step_ms", step_ms)
+            health.maybe_sample_memory(lambda: {
+                "params": sum(p.numel() * p.element_size()
+                              for p in self.model.parameters()),
+                "opt_state": self.opt_state_bytes_per_replica(),
+                "buffers": sum(b.numel() * b.element_size()
+                               for b in self.model.buffers())})
+        return loss
+
+    def _step(self, params, inputs, span, wire_bytes):
         dev = next(iter(params.values())).device
         lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
                         device=dev)
         loss, grads = loss_and_grads(self._loss_from, params,
                                      local_batch(inputs, self.mesh, dev))
         lo = self.mesh.rank
+        leg = {"category": "collective", "wire": self.wire,
+               "ring": self.ring}
         with torch.no_grad():
             gshards, pshards = {}, {}
-            for n, p in params.items():
-                spec = self._specs[n]
-                pad = (0, spec.padded - spec.size)
-                g = grads.pop(n)
-                gshards[n] = self._reduce_scatter(
-                    F.pad(g.reshape(-1), pad)).to(g.dtype)
-                pshards[n] = F.pad(p.detach().reshape(-1), pad)[
-                    lo * spec.shard_len:(lo + 1) * spec.shard_len]
-            new_pshards, self._opt_shards = self.optimizer.functional_update(
-                pshards, self._clip(gshards), self._opt_shards, lr=lr,
-                donate=self.donate)
-            for n, p in params.items():
-                full = self._all_gather(new_pshards[n].to(p.dtype))
-                p.copy_(full[:self._specs[n].size].view_as(p))
+            with span("zero.reduce_scatter", attrs={
+                    **leg, "bytes": wire_bytes["reduce_scatter"]}):
+                for n, p in params.items():
+                    spec = self._specs[n]
+                    pad = (0, spec.padded - spec.size)
+                    g = grads.pop(n)
+                    gshards[n] = self._reduce_scatter(
+                        F.pad(g.reshape(-1), pad)).to(g.dtype)
+                    pshards[n] = F.pad(p.detach().reshape(-1), pad)[
+                        lo * spec.shard_len:(lo + 1) * spec.shard_len]
+            with span("zero.update", attrs={
+                    "opt_state_bytes_per_replica":
+                        monitor.get_stat("opt_state_bytes_per_replica")}):
+                new_pshards, self._opt_shards = \
+                    self.optimizer.functional_update(
+                        pshards, self._clip(gshards), self._opt_shards,
+                        lr=lr, donate=self.donate)
+            with span("zero.all_gather", attrs={
+                    **leg, "bytes": wire_bytes["all_gather"]}):
+                for n, p in params.items():
+                    full = self._all_gather(new_pshards[n].to(p.dtype))
+                    p.copy_(full[:self._specs[n].size].view_as(p))
             average_buffers(self.model, self.mesh)
-            loss = mean_over(self.mesh.group, loss)
-        self.optimizer._global_step += 1
-        return loss
+            return mean_over(self.mesh.group, loss)
+
+
+def _no_span(name, attrs=None):
+    """The span of a thread that does not record (``lead_thread``)."""
+    return contextlib.nullcontext()

@@ -61,9 +61,11 @@ def fake_quantize_dequantize_abs_max(x, bits: int = 8, name=None):
 def fake_channel_wise_quantize_dequantize_abs_max(x, bits: int = 8,
                                                   quant_axis: int = 0,
                                                   name=None):
-    """Reference ``:63``: one scale per slice along ``quant_axis``."""
+    """Reference ``:63``: one scale per slice along ``quant_axis``.  The
+    axis is taken as it is, as the reference takes it: a negative one
+    matches no axis, so the whole tensor shares one scale."""
     qm = _qmax(bits)
-    axes = tuple(i for i in range(x.ndim) if i != quant_axis % x.ndim)
+    axes = tuple(i for i in range(x.ndim) if i != quant_axis)
     xd = x.detach()
     scale = torch.clamp_min(xd.abs().amax(dim=axes, keepdim=True), 1e-8)
     q = torch.round(xd / scale * qm) / qm * scale

@@ -291,6 +291,20 @@ def test_mesh_helpers_and_the_lone_process():
     out = []
     dist.all_gather(out, t)
     assert len(out) == 1 and torch.equal(out[0], t)
+    # all_gather(None, t) is t's shape X and scatter without a list leaves
+    # t as it is, as the reference's lone process returns them
+    import paddle_tpu as jpaddle
+    import paddle_tpu.distributed as jdist
+    jt = jpaddle.to_tensor(t.numpy())
+    assert tuple(np.asarray(jdist.all_gather(None, jt)).shape) == (2,)
+    assert dist.all_gather(None, t).shape == t.shape
+    assert torch.equal(dist.all_gather(None, t), t)
+    assert np.array_equal(np.asarray(jdist.scatter(jt).numpy()), t.numpy())
+    s = t.clone()
+    assert torch.equal(dist.scatter(s), t) and torch.equal(s, t)
+    # inside a region of n ranks all_gather stays (n, *X)
+    assert LoopbackWorld(2).run(
+        lambda r, m: tuple(dist.all_gather(None, t).shape)) == [(2, 2)] * 2
     assert dist.get_rank() == 0 and dist.get_world_size() == 1
     assert dist.is_initialized()
     dist.barrier()

@@ -241,7 +241,7 @@ def _role_readings(rm):
 def test_role_makers_read_the_environment_as_the_reference(monkeypatch):
     """PaddleCloudRoleMaker (collective and PS roles) and
     UserDefinedRoleMaker give the reference's readings; refresh() re-reads
-    the environment, refresh(store=...) raises naming item 6."""
+    the environment, refresh(store=...) raises naming item 6b."""
     from paddle_tpu.distributed.fleet import role_maker as jrm
     for k, v in ENV.items():
         monkeypatch.setenv(k, v)
@@ -259,7 +259,7 @@ def test_role_makers_read_the_environment_as_the_reference(monkeypatch):
     rm = PaddleCloudRoleMaker(is_collective=True)
     monkeypatch.setenv("PADDLE_TRAINER_ID", "2")
     assert rm.worker_index() == 1 and rm.refresh().worker_index() == 2
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         rm.refresh(store=object())
 
 
@@ -393,18 +393,23 @@ PENDING = [("distributed", n, None) for n in (
     ("distributed.fleet", "save_inference_model", "5"),
     ("distributed.fleet", "save_persistables", "5"),
     ("distributed", "checkpoint", "5"), ("distributed.fleet.utils", "fs", "5"),
-    ("distributed", "elastic", "6"), ("distributed", "launch", "6"),
-    ("parallel", "parity", "6")]
+    ("distributed", "elastic", "6b"), ("distributed", "launch", "6b"),
+    ("parallel", "parity", "6b")] + [
+    ("framework", n, "5") for n in ("numerics", "auto_checkpoint")] + [
+    ("framework", n, "6b") for n in ("incident", "resilient",
+                                     "ResilientTrainStep")] + [
+    ("framework", "errors", "7"), ("framework", "analysis", "8")] + [
+    ("framework", n, None) for n in ("monitor", "chaos", "observability")]
 
 
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 4b, 5 and 6 raises
+    """Every reference name left for items 4b, 5, 6b, 7 and 8 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; item 3b's, 3c's and 4a's names (item None) are real, not stand-ins
-    (the ``pipeline`` and ``ps`` submodules modules); a name neither
-    package has is an AttributeError."""
+    it; item 3b's, 3c's, 4a's and 6a's names (item None) are real, not
+    stand-ins (the ``pipeline`` and ``ps`` submodules, the planes); a name
+    neither package has is an AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")

@@ -67,7 +67,9 @@ def test_every_module_imports_with_jax_blocked():
               "parallel.tp", "parallel.ring_attention",
               "distributed.tp_layers", "parallel.pipeline",
               "distributed.ps", "distributed.ps.device_table",
-              "models.rank"):
+              "models.rank", "framework.monitor", "framework.locks",
+              "framework.chaos", "framework.observability",
+              "framework.health", "profiler"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
@@ -161,6 +163,37 @@ def test_bert_mp_and_ps_entry_points_default_to_cuda(monkeypatch):
         ps.DeviceEmbeddingTrainStep(model, None, SGD(), table)
     assert ps.DeviceEmbeddingTrainStep(model, None, SGD(), table,
                                        device="cpu").device.type == "cpu"
+
+
+def test_fleet_init_and_init_parallel_env_default_to_cuda(monkeypatch):
+    """fleet.init() and init_parallel_env() start their process group on
+    the default device, the card, and raise without it (where a division
+    by the count of cards once died) before any group is started; the
+    reference's fleet.init runs on its own default device there."""
+    import torch.distributed as tdist_
+
+    import paddle_tpu.distributed.fleet as jfleet
+    from paddle_tpu_torch import distributed as tdist
+    from paddle_tpu_torch.distributed import fleet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for var in ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM",
+                "PADDLE_TRAINER_ENDPOINTS"):
+        monkeypatch.delenv(var, raising=False)
+    assert not tdist_.is_initialized()
+    with pytest.raises(RuntimeError, match="is_available"):
+        fleet.init()
+    with pytest.raises(RuntimeError, match="is_available"):
+        tdist.init_parallel_env()
+    assert not tdist_.is_initialized()
+    from paddle_tpu.parallel import get_mesh, set_mesh
+    prev_mesh, prev_state = get_mesh(), dict(vars(jfleet._state))
+    try:
+        jfleet.init(is_collective=True)
+        assert jfleet.worker_num() == 1
+    finally:
+        set_mesh(prev_mesh)
+        vars(jfleet._state).clear()
+        vars(jfleet._state).update(prev_state)
 
 
 def test_seq2seq_entry_points_default_to_cuda(monkeypatch):

@@ -125,6 +125,48 @@ def test_translated_layer_gives_the_reference_outputs(reference_saved,
                            loaded(torch.from_numpy(X)))
 
 
+def test_translated_layer_is_an_nn_layer(reference_saved, tmp_path):
+    """A loaded artifact is an nn.Layer in both packages, and each of the
+    13 Layer methods the reference's offers runs on the port's with the
+    reference's outcome."""
+    p, _, _, _ = reference_saved
+    ref = jjit.load(p)
+    port = _tmlp()
+    port.set_state_dict(tpt.load(p + ".pdparams"))
+    q = str(tmp_path / "port")
+    tjit.save(port, q, input_spec=[InputSpec([None, 4], "float32")])
+    loaded = tjit.load(q)
+    assert isinstance(ref, jnn.Layer) and isinstance(loaded, tnn.Layer)
+    for name in ("set_state_dict", "set_dict", "load_dict"):
+        assert getattr(ref, name)({}) == ([], [])
+        assert getattr(loaded, name)({}) == ([], [])
+    assert ref.full_name() == loaded.full_name() == "translatedlayer"
+    assert ref.sublayers() == loaded.sublayers() == []
+    assert list(ref.named_sublayers()) == list(
+        loaded.named_sublayers()) == []
+    ref.register_forward_post_hook(lambda lay, i, o: o * 2)
+    loaded.register_forward_post_hook(lambda lay, i, o: o * 2)
+    np.testing.assert_allclose(
+        loaded(torch.from_numpy(X)).numpy(),
+        np.asarray(ref(paddle.to_tensor(X))._data), atol=2 * ATOL, rtol=0)
+    np.testing.assert_allclose(loaded(torch.from_numpy(X)).numpy(),
+                               2 * port(torch.from_numpy(X)).detach().numpy(),
+                               atol=ATOL, rtol=0)
+    ref.add_sublayer("extra", jnn.Linear(2, 2))
+    loaded.add_sublayer("extra", tnn.Linear(2, 2))
+    assert len(ref.sublayers()) == len(loaded.sublayers()) == 1
+    w_ref, w_port = ref.create_parameter([2]), loaded.create_parameter([2])
+    assert list(w_ref.shape) == list(w_port.shape) == [2]
+    ref.add_parameter("w", w_ref)
+    loaded.add_parameter("w", w_port)
+    assert ref.clear_gradients() is None and loaded.clear_gradients() is None
+    assert ref.astype("float32") is ref
+    assert loaded.astype("float32") is loaded
+    (pr, br), (pt, bt) = ref.functional_state(), loaded.functional_state()
+    assert sorted(pr) == sorted(pt) == ["extra.bias", "extra.weight", "w"]
+    assert br == bt == {}
+
+
 def test_the_reference_pdmodel_is_refused_by_name(reference_saved):
     with pytest.raises(ValueError, match="StableHLO"):
         tjit.load(reference_saved[0])

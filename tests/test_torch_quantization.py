@@ -89,6 +89,27 @@ def test_fake_quantizers_and_straight_through_gradient(kind):
     np.testing.assert_array_equal(_np(jx.grad), tx.grad.numpy())
 
 
+@pytest.mark.parametrize("quant_axis", [-1, -2])
+def test_channel_wise_negative_axis_takes_one_scale(quant_axis):
+    """The reference reduces over every axis i != quant_axis, which a
+    negative axis never equals: one scale for the whole tensor, the
+    per-tensor quantizer's.  The port takes the axis as it is too."""
+    rng = np.random.default_rng(3)
+    x = (rng.uniform(-1, 1, (3, 4, 5))
+         * np.geomspace(0.1, 1000, 5)).astype(np.float32)
+    yj = _np(jq.fake_channel_wise_quantize_dequantize_abs_max(
+        paddle.to_tensor(x), quant_axis=quant_axis))
+    whole = _np(jq.fake_quantize_dequantize_abs_max(paddle.to_tensor(x)))
+    np.testing.assert_array_equal(yj, whole)
+    yt = _np(tq.fake_channel_wise_quantize_dequantize_abs_max(
+        torch.from_numpy(x), quant_axis=quant_axis))
+    # 2 f32 ulps at 1000, as on the positive axes
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1.25e-4)
+    per_channel = _np(tq.fake_channel_wise_quantize_dequantize_abs_max(
+        torch.from_numpy(x), quant_axis=quant_axis % 3))
+    assert np.abs(per_channel - yj).max() > 1.0
+
+
 def test_quant_aware_swap_forward_and_backward():
     class J(jnn.Layer):
         def __init__(self):

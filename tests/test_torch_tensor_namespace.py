@@ -118,7 +118,8 @@ TOP_LEVEL = (
     "is_compiled_with_tpu get_cudnn_version optimizer jit vision models "
     "parallel nn framework static inference quantization creation math "
     "linalg logic manipulation random search sequence stat distributed "
-    "DataParallel").split()
+    "DataParallel enable_static disable_static enable_dygraph "
+    "disable_dygraph data VarDesc monitor profiler").split()
 # what the reference's paddle_tpu.framework re-exports (:15-30)
 FRAMEWORK = ("save load seed Generator default_generator get_rng_state "
              "set_rng_state Parameter Tensor no_grad CPUPlace CUDAPlace "
@@ -133,6 +134,45 @@ def test_top_level_names():
         assert hasattr(paddle, n) and not hasattr(paddle_tpu_torch, n), n
     assert paddle_tpu_torch.float32 is torch.float32
     assert paddle_tpu_torch.seed is T.random.seed
+
+
+def test_static_switches_data_and_vardesc_as_the_reference():
+    """enable_/disable_static and enable_/disable_dygraph flip the mode as
+    the reference's do, data is an InputSpec, VarDesc names the dtypes;
+    monitor and profiler are the planes, and framework binds monitor,
+    chaos and observability with locks and health as submodules."""
+    for mod in (paddle, paddle_tpu_torch):
+        mod.enable_static()
+        try:
+            assert not mod.in_dynamic_mode()
+            mod.enable_dygraph()
+            assert mod.in_dynamic_mode()
+            mod.disable_dygraph()
+            assert not mod.in_dynamic_mode()
+        finally:
+            mod.disable_static()
+        assert mod.in_dynamic_mode()
+    want = paddle.data("x", [None, 4], "int64")
+    got = paddle_tpu_torch.data("x", [None, 4], "int64")
+    assert type(got).__name__ == type(want).__name__ == "InputSpec"
+    assert (got.name, list(got.shape)) == (want.name, list(want.shape))
+    assert str(got.dtype).replace("torch.", "") == str(want.dtype)
+    for n in ("FP16", "BF16", "FP32", "FP64", "INT8", "UINT8", "INT16",
+              "INT32", "INT64", "BOOL", "COMPLEX64", "COMPLEX128"):
+        assert str(getattr(paddle_tpu_torch.VarDesc.VarType, n)).replace(
+            "torch.", "").replace("bool", "bool_") == str(
+            getattr(paddle.VarDesc.VarType, n)).replace("bool", "bool_"), n
+    import paddle_tpu_torch.framework.health as th
+    import paddle_tpu_torch.framework.locks as tl
+    assert paddle_tpu_torch.monitor.__name__ == \
+        "paddle_tpu_torch.framework.monitor"
+    assert paddle_tpu_torch.profiler.__name__ == "paddle_tpu_torch.profiler"
+    for n in ("monitor", "chaos", "observability"):
+        assert getattr(paddle_tpu_torch.framework, n).__name__ == \
+            f"paddle_tpu_torch.framework.{n}"
+        assert hasattr(paddle.framework, n)
+    assert paddle_tpu_torch.framework.locks is tl
+    assert paddle_tpu_torch.framework.health is th
 
 
 def test_subpackages_resolve_after_the_top_level_import_alone():
