@@ -580,6 +580,25 @@ Phases, in order; any failure ends the script with a non-zero exit:
              the synchronisations of 3 steps equal with the planes off and
              on, beside a planted loss read in the hook; zero.collective
              armed on a small ShardedUpdateTrainStep, retried bitwise.
+56. widedeep-filefed — bench.py's bench_widedeep_ps file-fed leg: its
+             slot files (98,304 examples) in a temporary directory, the
+             native datafeed's drain at 4 threads, its 1-thread batches
+             bitwise a plain Python parse, phase 53's PSTrainStep fed from
+             the files, train_from_dataset through a QueueDataset and an
+             InMemoryDataset after local_shuffle: examples/s, MB/s,
+             finite falling losses.
+57. widedeep-remote — bench.py's remote leg: a PS server process through
+             SERVER_BOOT with its own 100,000,000 x 65 table, PsClient on
+             the bf16 wire, PSTrainStep prefetched every step: examples/s,
+             measured wire MB a step against the analytic f32 one, the
+             server absent from the card's compute apps; at the small size
+             remote bitwise local, unpipelined, prefetched and with ps.rpc
+             armed nth=1.
+58. graph — a graph at ogbn-arxiv's size sharded over two PsServers,
+             GraphSAGE one-hop sampling at fanout 25 for 1,024 roots, the
+             mean by segment_sum and Linear(256, 40) on the card, 20 Adam
+             steps: roots/s, host ms of sampling and feature pull, idle
+             share; two 8-node cliques card against CPU.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -589,6 +608,7 @@ prints no result.  It imports no JAX and nothing of paddle_tpu.
 from __future__ import annotations
 
 import contextlib
+import gc
 import glob
 import json
 import math
@@ -10267,15 +10287,17 @@ def widedeep_phase(power):
     return row
 
 
-def _ps_small(device, init, data, piped, fault_push=False):
+def _ps_small(device, init, data, piped, table=None):
     """3 PSTrainStep steps of WideDeepHost(8, 26, 13, hidden (16,)) over a
-    50,000 x 9 sync adagrad table (bench.py's CPU size, f32 transfer):
-    (losses, the table, the model's parameters)."""
+    50,000 x 9 sync adagrad table (bench.py's CPU size, f32 transfer), a
+    local one or ``table`` (a remote one): (losses, the local table or
+    None, the model's parameters)."""
     import torch
     from paddle_tpu_torch.distributed import ps
     from paddle_tpu_torch.models import WideDeepHost, load_named_params
     from paddle_tpu_torch.optimizer import Adam
-    emb = ps.DistributedEmbedding(50_000, 9, mode="sync", device=device)
+    emb = ps.DistributedEmbedding(50_000, 9, mode="sync", table=table,
+                                  device=device)
     model = WideDeepHost(8, 26, 13, hidden=(16,), device=device)
     load_named_params(model, init)
     step = ps.PSTrainStep(model, _bce, Adam(learning_rate=1e-3), emb,
@@ -10291,7 +10313,8 @@ def _ps_small(device, init, data, piped, fault_push=False):
         losses.append(float(step(ids[j], torch.as_tensor(x[j], device=device),
                                  torch.as_tensor(y[j], device=device))))
     step.flush()
-    return losses, emb.table._table.copy(), {
+    local = getattr(emb.table, "_table", None)
+    return losses, None if local is None else local.copy(), {
         n: p.detach().cpu() for n, p in model.named_parameters()}
 
 
@@ -10443,9 +10466,10 @@ def widedeep_ps_phase(power):
     if push_err > TOL_PS_PUSH or not fault_err > TOL_PS_PUSH or not moved:
         fail("widedeep-ps: the pushed gradient is not the sum over each id, "
              "or the planted push without the sum passes")
-    del step, emb, table, model
     row["phase_s"] = time.perf_counter() - t_phase
-    return row
+    # the step and its table train on in widedeep-filefed (56), as
+    # bench.py's file-fed leg reuses its first leg's step
+    return row, {"step": step, "emb": emb}
 
 
 @contextlib.contextmanager
@@ -10908,6 +10932,598 @@ def planes_phase(cfg, ids_t, fa, power):
     return r, {"flash_attention_fwd": counts["launches"],
                "flash_attention_bwd_dq": counts["launches_dq"],
                "flash_attention_bwd_dkv": counts["launches_dkv"]}
+
+
+# -- the PS transport, datasets and graph table (phases 56-58) ---------------
+FF_FILES = 4                   # widedeep-filefed: slot files, as bench.py
+FF_EPOCHS = 2                  # widedeep-filefed: train_from_dataset passes
+# ogbn-arxiv's published size (nodes, directed edges, feature width,
+# classes); drawn from the seed, no data is read
+GRAPH_N, GRAPH_E, GRAPH_D, GRAPH_C = 169_343, 1_166_243, 128, 40
+# GraphSAGE's first-layer fanout S1, roots a batch, steps
+GRAPH_FANOUT, GRAPH_ROOTS, GRAPH_STEPS = 25, 1024, 20
+
+
+def _write_slot_files(root, n_ex, fields, dense_dim, vocab):
+    """bench.py's _gen_slot_dataset: FF_FILES multi-slot text files of
+    ``fields`` one-id slots (zipf(1.3) % vocab), a ``dense_dim``-float
+    slot and a label, from default_rng(11).  Returns the paths."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    per = n_ex // FF_FILES
+    paths = []
+    for fi in range(FF_FILES):
+        ids = (rng.zipf(1.3, size=(per, fields)) % vocab).astype(np.int64)
+        dense = rng.standard_normal((per, dense_dim)).astype(np.float32)
+        y = rng.integers(0, 2, size=(per,))
+        path = os.path.join(root, f"part-{fi:03d}.txt")
+        with open(path, "w") as f:
+            for r in range(per):
+                parts = [f"1 {v}" for v in ids[r]]
+                parts.append(f"{dense_dim} " + " ".join(
+                    f"{v:.4f}" for v in dense[r]))
+                parts.append(f"1 {y[r]}")
+                f.write(" ".join(parts) + "\n")
+        paths.append(path)
+    return paths
+
+
+def _plain_slot_parse(paths, slots):
+    """Every record of ``paths`` in order, parsed in Python: {name: float32
+    (n, dim)} for a dense slot, {name: (ids, lengths)} for a sparse one."""
+    import numpy as np
+    vals = {name: [] for name, _, _ in slots}
+    lens = {name: [] for name, kind, _ in slots if kind == "u"}
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                tok = line.split()
+                i = 0
+                for name, kind, _ in slots:
+                    n = int(tok[i])
+                    vals[name].extend(tok[i + 1:i + 1 + n])
+                    if kind == "u":
+                        lens[name].append(n)
+                    i += 1 + n
+    out = {}
+    for name, kind, dim in slots:
+        if kind == "f":
+            out[name] = np.asarray([float(v) for v in vals[name]],
+                                   np.float64).astype(np.float32).reshape(
+                                       -1, dim)
+        else:
+            out[name] = (np.asarray([int(v) for v in vals[name]], np.int64),
+                         np.asarray(lens[name], np.int64))
+    return out
+
+
+def widedeep_filefed_phase(power, keep, ps_row):
+    """Phase 56: bench.py's bench_widedeep_ps file-fed leg. 98,304
+    examples (B * 6) in bench.py's slot files under a temporary directory:
+    the native datafeed's drain at 4 threads (examples/s, MB/s), its
+    batches at 1 thread against a plain Python parse of the same files,
+    phase 53's PSTrainStep (100,000,000 x 65 adagrad host table, B=16384)
+    fed from the files (examples/s and its ratio to phase 53's
+    unpipelined step), then train_from_dataset through a QueueDataset
+    and through an InMemoryDataset after local_shuffle, the 26 slots
+    stacked as bench.py's batches(), 2 epochs each: finite losses, the
+    last epoch's mean below the first's (the labels are random: the model
+    learns the examples it has seen).  Drops phase 53's step and table at
+    the end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import DatasetFactory, train_from_dataset
+    from paddle_tpu_torch.ops.native import MultiSlotDataFeed, lib_path
+    t_phase = time.perf_counter()
+    step = keep["step"]
+    n_ex = PS_B * 6
+    slots = [(f"c{i}", "u", 1) for i in range(PS_FIELDS)] + [
+        ("dense", "f", PS_DENSE), ("label", "f", 1)]
+    root = tempfile.mkdtemp(prefix="widedeep_filefed_")
+    r = {}
+    try:
+        t0 = time.perf_counter()
+        files = _write_slot_files(root, n_ex, PS_FIELDS, PS_DENSE, PS_V)
+        r["write_s"] = time.perf_counter() - t0
+        slot_bytes = sum(os.path.getsize(f) for f in files)
+        r["slot_bytes"] = slot_bytes
+        t0 = time.perf_counter()
+        MultiSlotDataFeed(slots, 1, files=[])     # builds the library
+        r["datafeed_build_s"] = time.perf_counter() - t0
+        log(f"widedeep-filefed: {n_ex} examples in {FF_FILES} files, "
+            f"{slot_bytes} bytes, written in {r['write_s']:.2f} s; datafeed "
+            f"library {lib_path()} ready in {r['datafeed_build_s']:.2f} s "
+            f"[{power}]")
+
+        n_p = 0
+        t0 = time.perf_counter()
+        for b in MultiSlotDataFeed(slots, PS_B, files=files, nthreads=4):
+            n_p += len(b["label"])
+        dt = time.perf_counter() - t0
+        r["ingest_examples_per_s"] = n_p / dt
+        r["ingest_mb_per_s"] = slot_bytes / dt / 1e6
+        log(f"widedeep-filefed: datafeed_ingest_examples_per_sec "
+            f"{r['ingest_examples_per_s']:.1f}, datafeed_ingest_mb_per_sec "
+            f"{r['ingest_mb_per_s']:.2f} ({n_p} examples, 4 threads, "
+            f"B={PS_B}, {dt:.3f} s) [{power}]")
+        if n_p != n_ex:
+            fail(f"widedeep-filefed: the datafeed gave {n_p} of {n_ex}")
+
+        t0 = time.perf_counter()
+        one = list(MultiSlotDataFeed(slots, PS_B, files=files, nthreads=1))
+        t1 = time.perf_counter()
+        plain = _plain_slot_parse(files, slots)
+        t2 = time.perf_counter()
+        same = [len(b["label"]) for b in one] == [PS_B] * 6
+        for name, kind, _ in slots:
+            if kind == "f":
+                same = same and np.array_equal(
+                    np.concatenate([b[name] for b in one]), plain[name])
+            else:
+                for j in range(2):
+                    same = same and np.array_equal(np.concatenate(
+                        [b[name][j] for b in one]), plain[name][j])
+        r["one_thread_s"], r["plain_parse_s"] = t1 - t0, t2 - t1
+        r["parse_check_bitwise"] = bool(same)
+        log(f"widedeep-filefed: 1-thread datafeed {len(one)} batches in "
+            f"{t1 - t0:.3f} s, bitwise a plain Python parse of the files "
+            f"({t2 - t1:.2f} s): {same} [{power}]")
+        del one, plain
+        if not same:
+            fail("widedeep-filefed: the datafeed's batches differ from the "
+                 "plain parse")
+
+        def stacked(b):
+            return (np.stack([b[f"c{i}"][0] for i in range(PS_FIELDS)], 1),
+                    torch.as_tensor(b["dense"], device="cuda"),
+                    torch.as_tensor(b["label"], device="cuda"))
+
+        def batches():
+            for b in MultiSlotDataFeed(slots, PS_B, files=files, nthreads=4):
+                if len(b["label"]) == PS_B:
+                    yield stacked(b)
+
+        loss = step(*next(batches()))          # warm, as bench.py
+        float(loss)
+        n_t = 0
+        t0 = time.perf_counter()
+        for args in batches():
+            loss = step(*args)
+            n_t += PS_B
+        float(loss)
+        step.flush()
+        dt = time.perf_counter() - t0
+        r["filefed_examples_per_s"] = n_t / dt
+        r["filefed_vs_unpipelined"] = r["filefed_examples_per_s"] / ps_row[
+            "unpipelined_examples_per_s"]
+        log(f"widedeep-filefed: widedeep_ps_filefed_examples_per_sec "
+            f"{r['filefed_examples_per_s']:.1f} ({n_t} examples in "
+            f"{dt:.3f} s, ingest inside the timed loop), "
+            f"{r['filefed_vs_unpipelined']:.3f} of phase 53's unpipelined "
+            f"{ps_row['unpipelined_examples_per_s']:.1f} [{power}]")
+
+        losses = {}
+        for kind in ("QueueDataset", "InMemoryDataset"):
+            ds = DatasetFactory().create_dataset(kind)
+            ds.set_batch_size(PS_B)
+            ds.set_thread(4)
+            ds.set_filelist(files)
+            ds.set_use_var(slots)
+            load_s = 0.0
+            if kind == "InMemoryDataset":
+                t0 = time.perf_counter()
+                ds.load_into_memory()
+                ds.local_shuffle()
+                load_s = time.perf_counter() - t0
+            seen = []
+            t0 = time.perf_counter()
+            means = train_from_dataset(
+                step, ds, converter=lambda b: list(stacked(b)),
+                epochs=FF_EPOCHS, print_period=1,
+                fetch_handler=lambda i, v: seen.append(v))
+            step.flush()
+            dt = time.perf_counter() - t0
+            losses[kind] = means
+            r[f"{kind}_s"] = dt
+            r[f"{kind}_load_s"] = load_s
+            r[f"{kind}_examples_per_s"] = FF_EPOCHS * n_ex / dt
+            r[f"{kind}_epoch_losses"] = means
+            r[f"{kind}_losses"] = seen
+            log(f"widedeep-filefed: train_from_dataset over {kind}, "
+                f"{FF_EPOCHS} epochs of {len(seen) // FF_EPOCHS} batches: "
+                f"{FF_EPOCHS * n_ex / dt:.1f} examples/s ({dt:.3f} s; "
+                f"load_into_memory and local_shuffle {load_s:.2f} s), epoch "
+                f"mean losses {means}, batch losses {seen} [{power}]")
+        # the labels are random: the loss falls as the model learns the
+        # examples it has seen, epoch over epoch
+        for kind, means in losses.items():
+            if not (all(math.isfinite(v) for v in r[f"{kind}_losses"])
+                    and means[-1] < means[0]):
+                fail(f"widedeep-filefed: train_from_dataset's losses over "
+                     f"{kind} are not finite and falling: {means}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        keep.clear()
+        del step
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"widedeep-filefed phase (56): {r['phase_s']:.1f} s of wall time")
+    return r
+
+
+def _compute_apps():
+    """The card's compute processes as nvidia-smi lists them: [(pid,
+    used memory)].  Inside a PID namespace the pids are the host's, so a
+    process is told by the count of entries, not by its own pid."""
+    smi = subprocess.run(["nvidia-smi",
+                          "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return [tuple(x.strip() for x in line.split(","))
+            for line in smi.stdout.splitlines() if line.strip()]
+
+
+def widedeep_remote_phase(power, ps_row):
+    """Phase 57: bench.py's bench_widedeep_ps remote leg.  A server process
+    started through SERVER_BOOT with --table emb:100000000:65:adagrad:0.05
+    --n-workers 1 (it draws its table while the small runs go); while it
+    draws, at phase 53's small size (50,000 x 9, B=256, f32 wire,
+    disjoint batches) 3 steps on the card against a remote table are
+    bitwise 3 steps against a local one, unpipelined and prefetched, and
+    once more with ps.rpc armed nth=1 (one retry).  Then PsClient on the
+    default bf16 wire, DistributedEmbedding(async) over
+    RemoteEmbeddingTable, WideDeepHost(64, 26, 13), Adam(1e-3),
+    PSTrainStep looped with a prefetch before every step: examples/s and
+    its ratio to phase 53's, the measured wire MB a step against
+    bench.py's analytic f32 formula, device busy ms and idle share, the
+    loss falls; the server adds no process to the card's compute apps,
+    and it exits after the bye."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps.service import (
+        SERVER_BOOT, PsClient, PsServer, RemoteEmbeddingTable)
+    from paddle_tpu_torch.framework import chaos
+    from paddle_tpu_torch.models import WideDeepHost
+    from paddle_tpu_torch.optimizer import Adam
+    t_phase = time.perf_counter()
+    r = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    err = tempfile.TemporaryFile(mode="w+")
+    apps_before = _compute_apps()          # this trainer's context alone
+    t_boot = time.perf_counter()
+    srv = subprocess.Popen(
+        [sys.executable, "-c", SERVER_BOOT, "--port", "0", "--table",
+         f"emb:{PS_V}:{PS_E + 1}:adagrad:0.05", "--n-workers", "1"],
+        stdout=subprocess.PIPE, stderr=err, text=True, cwd=here)
+    try:
+        # the card against a remote table at the small size, bitwise
+        init = {n: p.detach() for n, p in WideDeepHost(
+            8, 26, 13, hidden=(16,), device="cpu").named_parameters()}
+        perm = np.random.default_rng(2).permutation(50_000)[:3 * 256 * 26]
+        srng = np.random.default_rng(3)
+        data = (perm.reshape(3, 256, 26).astype(np.int64),
+                srng.standard_normal((3, 256, 13)).astype(np.float32),
+                srng.integers(0, 2, size=(3, 256, 1)).astype(np.float32))
+
+        def remote_small(piped):
+            s = PsServer({"emb": ps.HostEmbeddingTable(50_000, 9)}).start()
+            try:
+                c = PsClient([f"127.0.0.1:{s.port}"], wire_dtype="f32",
+                             backoff_base=0.01)
+                out = _ps_small("cuda", init, data, piped,
+                                table=RemoteEmbeddingTable(c, "emb", 9))
+                errors = c.transport_stats()["errors"]
+                c.bye()
+            finally:
+                s.shutdown()
+            return out[0], s.tables["emb"]._table, out[2], errors
+
+        def same(a, b):
+            return a[0] == b[0] and np.array_equal(a[1], b[1]) and all(
+                torch.equal(a[2][n], b[2][n]) for n in a[2])
+
+        clean = {}
+        for piped in (False, True):
+            what = "prefetched" if piped else "unpipelined"
+            local = _ps_small("cuda", init, data, piped)
+            clean[piped] = remote_small(piped)
+            ok = same(local, clean[piped])
+            r[f"small_{what}_remote_bitwise_local"] = ok
+            log(f"widedeep-remote at 50,000 x 9, B=256, f32 wire, disjoint "
+                f"batches, {what}: 3 steps on the card against a remote "
+                f"table bitwise a local one (losses, table, dense): {ok}; "
+                f"losses {clean[piped][0]} [{power}]")
+            if not ok:
+                fail(f"widedeep-remote: the remote table's run differs from "
+                     f"the local one ({what})")
+        chaos.reset(0)
+        with chaos.inject("ps.rpc", mode="error", nth=1):
+            faulted = remote_small(True)
+            trips = chaos.stats()["ps.rpc"]["trips"]
+        chaos.reset(0)
+        ok = same(faulted, clean[True]) and trips == 1 and faulted[3] == 1
+        r["small_rpc_fault_bitwise"] = ok
+        log(f"widedeep-remote: ps.rpc armed nth=1 on the prefetched run: "
+            f"{trips} trip, {faulted[3]} transport error retried, bitwise "
+            f"the clean run: {ok} [{power}]")
+        if not ok:
+            fail("widedeep-remote: the retried ps.rpc fault changed the run")
+
+        line = srv.stdout.readline()
+        r["server_ready_s"] = time.perf_counter() - t_boot
+        if not line.startswith("PS_READY"):
+            err.seek(0)
+            fail(f"widedeep-remote: the server did not start: {line!r} "
+                 f"{err.read()[-800:]}")
+        ep = line.split()[1]
+        log(f"widedeep-remote: server pid {srv.pid} ready at {ep} "
+            f"{r['server_ready_s']:.1f} s after its start (its "
+            f"{PS_V:,} x {PS_E + 1} adagrad table drawn meanwhile)")
+        client = PsClient([ep])
+        emb = ps.DistributedEmbedding(
+            PS_V, PS_E + 1, mode="async",
+            table=RemoteEmbeddingTable(client, "emb", PS_E + 1),
+            device="cuda")
+        model = WideDeepHost(PS_E, PS_FIELDS, PS_DENSE, device="cuda")
+        step = ps.PSTrainStep(model, _bce, Adam(learning_rate=1e-3), emb)
+        rng = np.random.default_rng(0)
+        ids = (rng.zipf(1.3, size=(PS_B, PS_FIELDS)) % PS_V).astype(np.int64)
+        x = torch.as_tensor(rng.standard_normal((PS_B, PS_DENSE)).astype(
+            np.float32), device="cuda")
+        y = torch.as_tensor(rng.integers(0, 2, size=(PS_B, 1)).astype(
+            np.float32), device="cuda")
+        first = float(step(ids, x, y))
+
+        def piped():
+            step.prefetch(ids)
+            return step(ids, x, y)
+        step.flush()
+        snap0 = client.transport_stats()
+        step.prefetch(ids)
+        ms, last = _timed_steps(piped, ())
+        step.flush()
+        snap1 = client.transport_stats()
+        uniq = len(np.unique(ids))
+        cap = max(256, 1 << int(np.ceil(np.log2(uniq))))
+        analytic_f32_mb = cap * (8 + 2 * (PS_E + 1) * 4 + 8) / 1e6
+        wire_mb = ((snap1["bytes_sent"] - snap0["bytes_sent"])
+                   + (snap1["bytes_recv"] - snap0["bytes_recv"])) / (
+                       PS_WARM + PS_ITERS) / 1e6
+        step.prefetch(ids)
+        busy, _ = device_busy_ms(piped)
+        step.flush()
+        apps = _compute_apps()
+        r.update({
+            "remote_examples_per_s": PS_B / ms * 1e3, "remote_step_ms": ms,
+            "remote_vs_unpipelined": PS_B / ms * 1e3 / ps_row[
+                "unpipelined_examples_per_s"],
+            "remote_vs_prefetched": PS_B / ms * 1e3 / ps_row[
+                "prefetched_examples_per_s"],
+            "first_loss": first, "last_loss": last,
+            "wire_mb_per_step": wire_mb, "analytic_f32_mb": analytic_f32_mb,
+            "wire_vs_analytic_f32": wire_mb / analytic_f32_mb,
+            "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / ms),
+            "rpc_latency_ms": {op: v for op, v in snap1["latency_ms"].items()
+                               if op in ("pull", "push", "push_pull")},
+            "compute_apps_before": apps_before, "compute_apps": apps,
+            "server_on_card": len(apps) != len(apps_before)
+            or any(a[0] == str(srv.pid) for a in apps)})
+        log(f"widedeep-remote: widedeep_ps_remote_examples_per_sec "
+            f"{r['remote_examples_per_s']:.1f} ({ms:.3f} ms a step, host "
+            f"clock over {PS_ITERS} after {PS_WARM} warm-ups, a prefetch "
+            f"before every step), {r['remote_vs_unpipelined']:.3f} of phase "
+            f"53's unpipelined and {r['remote_vs_prefetched']:.3f} of its "
+            f"prefetched; loss {first:.5f} -> {last:.5f} [{power}]")
+        log(f"widedeep-remote: widedeep_ps_remote_wire_mb_per_step "
+            f"{wire_mb:.4f} measured on the bf16 wire, "
+            f"{r['wire_vs_analytic_f32']:.3f} of bench.py's analytic f32 "
+            f"{analytic_f32_mb:.4f} ({uniq} unique ids padded to {cap}) "
+            f"[{power}]")
+        log(f"widedeep-remote: device busy {busy:.3f} ms a step, idle share "
+            f"{r['idle_share']:.3f}; RPC latency ms {r['rpc_latency_ms']} "
+            f"[{power}]")
+        log(f"widedeep-remote: the card's compute apps (pid, memory) "
+            f"{apps}, before the server started {apps_before}: the server "
+            f"(pid {srv.pid} here) holds a context: {r['server_on_card']} "
+            f"[{power}]")
+        client.bye()
+        r["server_exit"] = srv.wait(timeout=120)
+        del step, emb, model
+        if not (math.isfinite(first) and last < first):
+            fail(f"widedeep-remote: the loss did not fall ({first} -> "
+                 f"{last})")
+        if r["server_on_card"] or r["server_exit"] != 0:
+            fail("widedeep-remote: the server touched the card or did not "
+                 "exit after the bye")
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait(timeout=60)
+        err.close()
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"widedeep-remote phase (57): {r['phase_s']:.1f} s of wall time")
+    return r
+
+
+def _clique_samples(steps):
+    """Two 8-node cliques (tests/test_graph_service.py's graph): their
+    features, labels and ``steps`` draws of 4 neighbours a node as
+    (neighbour features with the missing ones 0, max(count, 1))."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.ps.graph import GraphTable
+    rng = np.random.default_rng(0)
+    g = GraphTable()
+    for base in (0, 8):
+        for i in range(8):
+            for j in range(i + 1, 8):
+                g.add_edges([base + i], [base + j], bidirectional=True)
+    feats = rng.standard_normal((16, 6)).astype(np.float32)
+    feats[:8] += 1.5
+    feats[8:] -= 1.5
+    g.set_node_feat(np.arange(16), feats)
+    draws = []
+    for _ in range(steps):
+        nbrs, counts = g.sample_neighbors(np.arange(16), 4)
+        flat = nbrs.reshape(-1)
+        valid = flat >= 0
+        nf = g.get_node_feat(np.where(valid, flat, 0))
+        nf[~valid] = 0.0
+        draws.append((nf, np.maximum(counts, 1).astype(np.float32)[:, None]))
+    return feats, np.array([0] * 8 + [1] * 8, np.int64), draws
+
+
+def _sage_step(lin, opt, root_f, nbr_f, denom, labels, seg, n):
+    """One GraphSAGE-mean step: the neighbours' mean by segment_sum, the
+    root's features beside it, a linear classifier, cross-entropy, Adam."""
+    import torch
+    import paddle_tpu_torch as tpt
+    from paddle_tpu_torch.nn import functional as TF
+    agg = tpt.segment_sum(nbr_f, seg, num_segments=n) / denom
+    loss = TF.cross_entropy(lin(torch.cat([root_f, agg], 1)), labels).mean()
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def graph_phase(power):
+    """Phase 58: the graph table at ogbn-arxiv's published size (169,343
+    nodes, 1,166,243 edges added both ways, 128 f32 features, 40 classes),
+    drawn from the seed, sharded id % 2 over two PsServers on 127.0.0.1
+    and read through RemoteGraphTable: one-hop sampling at fanout 25
+    (GraphSAGE's S1) for batches of 1,024 roots, the neighbours' mean by
+    segment_sum on the card, Linear(256, 40), Adam, 20 steps with finite,
+    falling losses: roots/s, host ms of sampling and of the feature pull,
+    device busy ms and idle share.  At the reference test's size (two
+    8-node cliques) the card and the CPU run the same samples within
+    TOL_PS_F32."""
+    import copy
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed.ps.graph import (GraphTable,
+                                                       RemoteGraphTable)
+    from paddle_tpu_torch.distributed.ps.service import PsClient, PsServer
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import Adam
+    t_phase = time.perf_counter()
+    r = {}
+    # card against CPU on the same samples, small
+    feats, labels, draws = _clique_samples(25)
+    torch.manual_seed(0)
+    lin_c = Linear(12, 2, device="cpu")
+    lin_g = copy.deepcopy(lin_c).to("cuda")
+    seg16 = np.repeat(np.arange(16), 4)
+    got = {}
+    for key, dev, lin in (("cpu", "cpu", lin_c), ("card", "cuda", lin_g)):
+        opt = Adam(learning_rate=0.1, parameters=lin.parameters())
+        to = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+        got[key] = [float(_sage_step(lin, opt, to(feats), to(nf), to(dn),
+                                     to(labels), to(seg16), 16))
+                    for nf, dn in draws]
+    err = _rel_err(got["card"], got["cpu"])
+    r["small_card_vs_cpu_err"] = err
+    log(f"graph at two 8-node cliques: 25 GraphSAGE steps on the same "
+        f"samples, card vs CPU losses {err:.3g} (limit {TOL_PS_F32}); "
+        f"losses {got['card'][0]:.5f} -> {got['card'][-1]:.5f} [{power}]")
+    if err > TOL_PS_F32 or not got["card"][-1] < got["card"][0] * 0.2:
+        fail("graph: the card disagrees with the CPU at the cliques, or "
+             "they did not separate")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, GRAPH_N, GRAPH_E)
+    dst = rng.integers(0, GRAPH_N, GRAPH_E)
+    feat = rng.standard_normal((GRAPH_N, GRAPH_D)).astype(np.float32)
+    w_true = rng.standard_normal((GRAPH_D, GRAPH_C)).astype(np.float32)
+    label = (feat @ w_true).argmax(1).astype(np.int64)
+    a, b = np.concatenate([src, dst]), np.concatenate([dst, src])
+    servers = []
+    for s in range(2):
+        g = GraphTable(embedding_dim=GRAPH_D, seed=s)
+        keep = a % 2 == s
+        g.add_edges(a[keep], b[keep])
+        own = np.arange(s, GRAPH_N, 2)
+        g.set_node_feat(own, feat[own])
+        servers.append(PsServer({"g": g}).start())
+    r["build_s"] = time.perf_counter() - t0
+    log(f"graph: {GRAPH_N:,} nodes, {GRAPH_E:,} edges both ways, "
+        f"{GRAPH_D}-wide features, {GRAPH_C} classes, sharded id % 2 over "
+        f"two PsServers, built in {r['build_s']:.2f} s")
+    client = PsClient([f"127.0.0.1:{s.port}" for s in servers])
+    try:
+        rg = RemoteGraphTable(client, "g")
+        torch.manual_seed(0)
+        lin = Linear(2 * GRAPH_D, GRAPH_C, device="cuda")
+        opt = Adam(learning_rate=0.01, parameters=lin.parameters())
+        seg = torch.arange(GRAPH_ROOTS, device="cuda").repeat_interleave(
+            GRAPH_FANOUT)
+        label_d = torch.as_tensor(label, device="cuda")
+        host = {"sample_ms": [], "pull_ms": []}
+
+        def one(roots):
+            t0 = time.perf_counter()
+            nbrs, counts = rg.sample_neighbors(roots, GRAPH_FANOUT)
+            t1 = time.perf_counter()
+            flat = nbrs.reshape(-1)
+            valid = flat >= 0
+            f = rg.get_node_feat(np.concatenate(
+                [roots, np.where(valid, flat, 0)]))
+            t2 = time.perf_counter()
+            host["sample_ms"].append((t1 - t0) * 1e3)
+            host["pull_ms"].append((t2 - t1) * 1e3)
+            nf = f[GRAPH_ROOTS:]
+            nf[~valid] = 0.0
+            return _sage_step(
+                lin, opt, torch.as_tensor(f[:GRAPH_ROOTS], device="cuda"),
+                torch.as_tensor(nf, device="cuda"),
+                torch.as_tensor(np.maximum(counts, 1).astype(
+                    np.float32)[:, None], device="cuda"),
+                label_d[torch.as_tensor(roots, device="cuda")], seg,
+                GRAPH_ROOTS)
+
+        batches = [rng.choice(GRAPH_N, GRAPH_ROOTS, replace=False)
+                   for _ in range(GRAPH_STEPS + 1)]
+        float(one(batches[-1]))               # warm
+        host = {"sample_ms": [], "pull_ms": []}
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for roots in batches[:GRAPH_STEPS]:
+            losses.append(one(roots))
+        losses = [float(v) for v in losses]
+        dt = time.perf_counter() - t0
+        step_ms = dt * 1e3 / GRAPH_STEPS
+        busy, _ = device_busy_ms(lambda: one(batches[0]))
+        r.update({
+            "roots_per_s": GRAPH_ROOTS * GRAPH_STEPS / dt,
+            "step_ms": step_ms,
+            "sample_host_ms": float(np.mean(host["sample_ms"][:GRAPH_STEPS])),
+            "feature_pull_host_ms": float(np.mean(
+                host["pull_ms"][:GRAPH_STEPS])),
+            "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / step_ms),
+            "losses": losses})
+        log(f"graph: {r['roots_per_s']:.1f} roots/s ({step_ms:.3f} ms a step "
+            f"of {GRAPH_ROOTS} roots at fanout {GRAPH_FANOUT}, host clock "
+            f"over {GRAPH_STEPS} steps) [{power}]")
+        log(f"graph: host ms a step of the sampling "
+            f"{r['sample_host_ms']:.3f} and of the feature pull "
+            f"{r['feature_pull_host_ms']:.3f}; device busy {busy:.3f} ms, "
+            f"idle share {r['idle_share']:.3f} [{power}]")
+        log(f"graph: losses {losses} [{power}]")
+        client.bye()
+    finally:
+        for s in servers:
+            s.shutdown()
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        fail(f"graph: the losses are not finite and falling: {losses}")
+    r["phase_s"] = time.perf_counter() - t_phase
+    log(f"graph phase (58): {r['phase_s']:.1f} s of wall time")
+    return r
 
 
 def vision_loss_of(out, y):
@@ -12724,7 +13340,7 @@ def main() -> int:
         k["launches"] += bmp_launch.get(k["name"], 0)
         k["bert_mp_launches"] = bmp_launch.get(k["name"], 0)
     ps_row["widedeep"] = widedeep_phase(power)
-    ps_row["widedeep_ps"] = widedeep_ps_phase(power)
+    ps_row["widedeep_ps"], ps_keep = widedeep_ps_phase(power)
     ps_row["widedeep_device"] = widedeep_device_phase(power)
     ps_row["phases_s"] = time.perf_counter() - t_ps
     log(f"bert-mp and parameter-server phases (51-54): "
@@ -12739,6 +13355,24 @@ def main() -> int:
     for k in kernels:
         k["launches"] += pl_launch.get(k["name"], 0)
         k["planes_launches"] = pl_launch.get(k["name"], 0)
+
+    # -- 56. widedeep-filefed -------------------------------------------------
+    # -- 57. widedeep-remote --------------------------------------------------
+    # -- 58. graph ------------------------------------------------------------
+    # the PS transport, the datasets over the native datafeed and the graph
+    # table; no kernel lies on them.  Phase 53's step and its 26.4 GB table
+    # train on in 56 and are dropped before 57's server draws its own
+    t_ps2 = time.perf_counter()
+    ps_row["widedeep_filefed"] = widedeep_filefed_phase(
+        power, ps_keep, ps_row["widedeep_ps"])
+    del ps_keep
+    gc.collect()
+    ps_row["widedeep_remote"] = widedeep_remote_phase(
+        power, ps_row["widedeep_ps"])
+    ps_row["graph"] = graph_phase(power)
+    ps_row["phases_56_58_s"] = time.perf_counter() - t_ps2
+    log(f"parameter-server transport, dataset and graph phases (56-58): "
+        f"{ps_row['phases_56_58_s']:.1f} s of wall time")
     for row in table:
         log(json.dumps(row))
 

@@ -3,11 +3,12 @@ __init__.py): the collective API over the mesh's groups
 (``collective.py``), ``ParallelEnv``, ``init_parallel_env`` and
 ``DataParallel`` (``parallel.py``), ``spawn``, ``fleet`` in collective
 mode, the wire codecs of the collectives (``wire.py``), ``split`` and
-the tensor-parallel layers (``tp_layers.py``), and the parameter server's
-in-process tiers ``ps`` (item 4a).  Not ported yet, each raising
-``NotImplementedError`` naming its ROADMAP item: the ``dataset`` names and
-``ps.service`` / ``ps.graph`` (item 4b), ``checkpoint`` (item 5),
-``elastic`` and ``launch`` (item 6b)."""
+the tensor-parallel layers (``tp_layers.py``), the parameter server
+``ps`` (its tiers, TCP transport ``ps.service`` and graph table
+``ps.graph``) and its datasets (``dataset.py``: ``DatasetFactory``,
+``QueueDataset``, ``InMemoryDataset``, ``train_from_dataset``).  Not
+ported yet, each raising ``NotImplementedError`` naming its ROADMAP item:
+``checkpoint`` (item 5), ``elastic`` and ``launch`` (item 6b)."""
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, get_rank, get_world_size,
@@ -18,17 +19,15 @@ from paddle_tpu_torch.distributed.parallel import (  # noqa: F401
 from paddle_tpu_torch.distributed.spawn import spawn  # noqa: F401
 from paddle_tpu_torch.distributed import fleet  # noqa: F401
 from paddle_tpu_torch.distributed import ps  # noqa: F401
-from paddle_tpu_torch._pending import pending, pending_modules
+from paddle_tpu_torch.distributed.dataset import (  # noqa: F401
+    DatasetFactory, InMemoryDataset, QueueDataset, train_from_dataset)
+from paddle_tpu_torch._pending import pending_modules
 
 from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     mark_sharding)
 
 shard_tensor = mark_sharding
-DatasetFactory = pending("DatasetFactory", "4b", "the PS datasets")
-InMemoryDataset = pending("InMemoryDataset", "4b", "the PS datasets")
-QueueDataset = pending("QueueDataset", "4b", "the PS datasets")
-train_from_dataset = pending("train_from_dataset", "4b", "the PS datasets")
 __getattr__ = pending_modules("paddle_tpu_torch.distributed", {
     "checkpoint": ("5", "checkpoints"),
     "durable": ("5", "checkpoints"), "elastic": ("6b", "elastic training"),

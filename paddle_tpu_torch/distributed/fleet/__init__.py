@@ -13,11 +13,16 @@ fp16_allreduce.
 ``distributed_model`` wraps a layer in ``DataParallel``.  ``metrics`` and
 ``utils`` (``recompute``) are the reference's modules.
 
-The parameter-server lifecycle (``init_worker``, ``ps_client``,
-``init_server``, ``run_server``, ``stop_worker``) is ROADMAP item 4b and
-the inference and persistable savers item 5: each raises
-``NotImplementedError`` naming its item.  ``fleet.utils.fs`` waits for
-item 5 too.
+The parameter-server lifecycle: ``init_worker`` connects a trainer to the
+shards of ``PADDLE_PSERVERS_IP_PORT_LIST`` (``ps_client()``) and starts
+its heartbeat, ``stop_worker`` says bye; ``init_server`` builds this
+rank's shard (``ps.service.PsServer``) and ``run_server`` serves it until
+every worker has said bye.  A server role (``TRAINING_ROLE=PSERVER``)
+keeps to the host, as the reference's whose ``init`` joins nothing across
+processes: its ``init`` starts no process group and installs no mesh, so
+it never touches a card.  The inference and persistable savers are
+ROADMAP item 5 and raise ``NotImplementedError`` naming it;
+``fleet.utils.fs`` waits for item 5 too.
 """
 from __future__ import annotations
 
@@ -55,6 +60,8 @@ class _FleetState:
         self.user_optimizer = None
         self.hcg: Optional[HybridCommunicateGroup] = None
         self.initialized = False
+        self.ps_client = None
+        self.ps_server = None
 
 
 _GLOBAL = _FleetState()
@@ -83,13 +90,20 @@ def init(role_maker: Optional[RoleMakerBase] = None,
          strategy: Optional[DistributedStrategy] = None, device=None):
     """fleet.init (reference fleet_base.py:130): the process group (NCCL,
     or gloo for ``device="cpu"``) from the ``PADDLE_*`` environment, then
-    the strategy's mesh."""
+    the strategy's mesh.  A parameter server's role starts neither."""
     from paddle_tpu_torch.distributed.parallel import init_parallel_env
-    init_parallel_env(device=device)
     _state = _st()
-    _state.role_maker = role_maker or PaddleCloudRoleMaker(
-        is_collective=is_collective)
-    _compile(strategy or DistributedStrategy())
+    if role_maker is None and not is_collective:
+        role_maker = PaddleCloudRoleMaker()
+    if role_maker is not None and role_maker.is_server():
+        _state.role_maker = role_maker
+        _state.strategy = strategy or DistributedStrategy()
+        _state.compiled = _state.hcg = None
+    else:
+        init_parallel_env(device=device)
+        _state.role_maker = role_maker or PaddleCloudRoleMaker(
+            is_collective=is_collective)
+        _compile(strategy or DistributedStrategy())
     _state.user_optimizer = None
     _state.initialized = True
 
@@ -142,16 +156,62 @@ def barrier_worker():
     _require_init().role_maker.barrier_worker()
 
 
-init_worker = pending("fleet.init_worker", "4b",
-                      "the parameter server's lifecycle")
-ps_client = pending("fleet.ps_client", "4b",
-                    "the parameter server's lifecycle")
-init_server = pending("fleet.init_server", "4b",
-                      "the parameter server's lifecycle")
-run_server = pending("fleet.run_server", "4b",
-                     "the parameter server's lifecycle")
-stop_worker = pending("fleet.stop_worker", "4b",
-                      "the parameter server's lifecycle")
+def init_worker():
+    """Connect this trainer to the PS shards of
+    ``PADDLE_PSERVERS_IP_PORT_LIST`` and start its heartbeat; the client
+    is ``ps_client()``."""
+    _state = _require_init()
+    from paddle_tpu_torch.distributed.ps.service import PsClient
+    eps = _state.role_maker.get_pserver_endpoints()
+    if not eps:
+        raise RuntimeError("init_worker: PADDLE_PSERVERS_IP_PORT_LIST empty")
+    _state.ps_client = PsClient(
+        eps, worker_id=f"trainer-{_state.role_maker.worker_index()}")
+    _state.ps_client.start_heartbeat()
+
+
+def ps_client():
+    c = _require_init().ps_client
+    if c is None:
+        raise RuntimeError("call fleet.init_worker() first")
+    return c
+
+
+def init_server(tables=None, **kwargs):
+    """Build this rank's PS shard on its endpoint of
+    ``PADDLE_PSERVERS_IP_PORT_LIST`` (127.0.0.1, any port, without one).
+    ``tables``: {name: a host table, or (rows, dim[, optimizer, lr])};
+    ``kwargs`` go to ``PsServer``."""
+    _state = _require_init()
+    from paddle_tpu_torch.distributed.ps import HostEmbeddingTable
+    from paddle_tpu_torch.distributed.ps.service import PsServer
+    built = {name: t if isinstance(t, HostEmbeddingTable)
+             else HostEmbeddingTable(*t)
+             for name, t in (tables or {}).items()}
+    eps = _state.role_maker.get_pserver_endpoints()
+    idx = _state.role_maker.server_index()
+    host, port = (eps[idx].rsplit(":", 1) if eps else ("127.0.0.1", "0"))
+    _state.ps_server = PsServer(
+        built, host=host, port=int(port),
+        n_workers=_state.role_maker.worker_num(), **kwargs)
+    return _state.ps_server
+
+
+def run_server():
+    """Serve until every worker has said bye, or a shutdown."""
+    srv = _require_init().ps_server
+    if srv is None:
+        raise RuntimeError("call fleet.init_server() first")
+    srv.serve_forever()
+
+
+def stop_worker():
+    _state = _require_init()
+    if _state.ps_client is not None:
+        _state.ps_client.bye()
+        _state.ps_client = None
+
+
 save_inference_model = pending("fleet.save_inference_model", "5",
                                "checkpoints; jit.save exports a model")
 save_persistables = pending("fleet.save_persistables", "5",

@@ -19,7 +19,9 @@ one process (its ranks ``LoopbackWorld`` threads or processes of a
   worker thread, geo folds every k steps), :class:`DistributedEmbedding`
   (pull in the forward, push from a hook on the pulled leaf) and
   :class:`PSTrainStep`, the worker's pull, dense step and push, with a
-  prefetch pipeline.
+  prefetch pipeline; the host tables served over TCP by ``ps.service``
+  (``PsServer``, ``PsClient``, ``RemoteEmbeddingTable``), and the graph
+  table ``ps.graph``.
 
 A table that takes the same pushes as the reference's is bitwise equal to
 it.  No Pallas kernel lies on these tiers: the reference computes them
@@ -39,16 +41,19 @@ push, which the prefetch's pull would have preceded, as in the
 reference).  The host tables take tracked locks
 (``ps.host_table``, ``ps.dynamic_table``).
 
-Not ported here, each raising ``NotImplementedError`` naming ROADMAP
-item 4b: the TCP transport ``ps.service`` (``RemoteEmbeddingTable``,
-``PsServer``, ``PsClient``) and ``ps.graph``.  A remote table's epoch
-fence and ``push_pull`` coalescing are item 4b's too; with a local table
-PSTrainStep pushes, then pulls.  The reference's ``numerics``,
-``incident`` and ``autopilot`` hooks are items 5 and 6b; none changes a
-result.
+Over a remote table (one with ``push_pull``) the deferred push rides the
+pull's RPC, stamped once with a dedup ``seq`` that any replay re-sends and
+linked to the step spans that produced it; a prefetch issued under an
+older membership epoch than the client's at consume time is discarded and
+pulled again (``reason="stale_epoch"``), a coalesced push the server's
+epoch fence rejected stays dropped, and any other failure replays the
+push synchronously.  With a local table a prefetch pushes, then pulls.
+The reference's ``numerics``, ``incident`` and ``autopilot`` hooks are
+items 5 and 6b; none changes a result.
 """
 from __future__ import annotations
 
+import importlib
 import queue
 import threading
 import time
@@ -59,7 +64,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from paddle_tpu_torch._pending import pending_modules
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.distributed.tp_layers import vocab_lookup
 from paddle_tpu_torch.distributed.ps.device_table import (
@@ -79,9 +83,13 @@ __all__ = ["HashEmbeddingTable", "MeshShardedEmbedding",
            "ShardedEmbedding", "HostEmbeddingTable", "DistributedEmbedding",
            "AsyncCommunicator", "PSTrainStep", "mesh_sharded_lookup"]
 
-__getattr__ = pending_modules("paddle_tpu_torch.distributed.ps", {
-    "service": ("4b", "the parameter server's TCP transport"),
-    "graph": ("4b", "the parameter server's graph table")})
+
+
+def __getattr__(name):
+    # the transport and the graph table import this module: load on use
+    if name in ("service", "graph"):
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class ShardedEmbedding(Layer):
@@ -480,8 +488,10 @@ class PSTrainStep:
     runs on a background thread, after the previous step's push, so rows
     pulled for step N + 1 reflect every push up to step N - 1
     (``prefetch_depth``, ``FLAGS_ps_prefetch_depth``, bounds the pulls in
-    flight; 0 turns the pipeline off).  Unpipelined, each step's push goes
-    through the embedding's communicator.  :meth:`flush` drains both.
+    flight; 0 turns the pipeline off).  A remote table's ``push_pull``
+    carries the push and the pull in one RPC a shard, also on the
+    synchronous path.  Unpipelined, each step's push goes through the
+    embedding's communicator.  :meth:`flush` drains both.
 
     ``device`` is where the dense step runs: the card unless the caller
     asks for the CPU; the model must lie there.  The step runs through
@@ -538,17 +548,54 @@ class PSTrainStep:
             return
         self._announced.append(_ids_np(ids))
 
+    def _client(self):
+        return getattr(self.embedding.table, "client", None)
+
+    def _tracer(self):
+        """The PS client's tracer (so step and RPC spans share a file), or
+        the process's."""
+        t = getattr(self._client(), "tracer", None)
+        return t if t is not None else tracer
+
+    @staticmethod
+    def _push_links(push):
+        """A ``deferred_push`` link to each step span whose gradient the
+        push carries, for the RPC span that carries it (None without)."""
+        if push is None or not push[3]:
+            return None
+        return [{"span": sid, "kind": "deferred_push"} for sid in push[3]]
+
+    def _push_pull(self, table, push, uniq_p):
+        """The deferred push and the pull: one ``push_pull`` where the
+        table has it, else the push (replayed with its stamp), then the
+        pull."""
+        if push is not None and hasattr(table, "push_pull"):
+            return table.push_pull(push[0], push[1], uniq_p, seq=push[2],
+                                   links=self._push_links(push))
+        if push is not None:
+            self._replay_push(push)
+        return table.pull(uniq_p)
+
+    def _replay_push(self, push):
+        """Send a deferred push; to a remote table with its original stamp,
+        so the server drops it where an earlier attempt landed."""
+        table = self.embedding.table
+        if self._client() is not None and push[2] is not None:
+            table.push(push[0], push[1], seq=push[2],
+                       links=self._push_links(push))
+        else:
+            table.push(push[0], push[1])
+
     def _prefetch_task(self, table, ids_np, push, span=None):
         """The background pull (after the deferred push), under the
         ``ps.prefetch`` span opened when it was issued."""
-        with tracer.activate(span.context() if span is not None else None):
+        with self._tracer().activate(
+                span.context() if span is not None else None):
             chaos.fault_point("ps.pipeline",
                               meta={"n_ids": int(ids_np.size),
                                     "coalesced_push": push is not None})
             uniq, inv, uniq_p = self._unique_prep(ids_np)
-            if push is not None:
-                table.push(*push)
-            rows = table.pull(uniq_p)
+            rows = self._push_pull(table, push, uniq_p)
             if span is not None:
                 # when the work finished (epoch us): the span stays open
                 # until a step takes the rows
@@ -556,16 +603,21 @@ class PSTrainStep:
             return uniq, inv, uniq_p, rows
 
     def _take_pending_push(self):
-        """The deferred pushes as one (ids, grads), or None."""
+        """The deferred pushes as one (ids, grads, seq, producing step
+        span ids), or None.  A remote table's dedup ``seq`` is drawn here,
+        once, so a replay re-sends it."""
         if not self._pending_push:
             return None
         if len(self._pending_push) == 1:
-            push = self._pending_push[0]
+            ids_p, g_p = self._pending_push[0][:2]
         else:
-            push = (np.concatenate([p[0] for p in self._pending_push]),
-                    np.concatenate([p[1] for p in self._pending_push]))
+            ids_p = np.concatenate([p[0] for p in self._pending_push])
+            g_p = np.concatenate([p[1] for p in self._pending_push])
+        sids = [p[2] for p in self._pending_push if p[2] is not None]
         self._pending_push.clear()
-        return push
+        client = self._client()
+        seq = client._next_seq() if client is not None else None
+        return ids_p, g_p, seq, sids
 
     def _issue_prefetch(self):
         while (self.prefetch_depth > 0 and self._announced
@@ -578,13 +630,14 @@ class PSTrainStep:
                     max_workers=max(1, self.prefetch_depth),
                     thread_name_prefix="ps-prefetch")
             # the span covers the whole flight, issue to settle
-            span = tracer.start_span(
+            span = self._tracer().start_span(
                 "ps.prefetch", detached=True,
                 attrs={"n_ids": int(ids_np.size),
                        "coalesced_push": push is not None})
             span = span if span.span_id is not None else None
             self._inflight.append({
                 "key": ids_np, "push": push, "span": span,
+                "epoch": getattr(self._client(), "epoch", None),
                 "future": self._prefetch_pool.submit(
                     self._prefetch_task, self.embedding.table, ids_np, push,
                     span)})
@@ -595,24 +648,27 @@ class PSTrainStep:
             inf["span"].end(status=status, **attrs)
 
     def _settle_inflight(self, inf):
-        """The prefetch's result, or None when it failed: its push (which
-        had not run) is then replayed synchronously, so no gradient is
-        lost (reference ``:682-718``)."""
+        """The prefetch's result, or None when it failed (reference
+        ``:685-718``): its push is then replayed synchronously with its
+        stamp (the server drops a copy that landed), except a push the
+        epoch fence rejected, which stays dropped."""
         try:
             return inf["future"].result()
         except RuntimeError as e:
             self._end_prefetch_span(inf, "error", reason="server_error",
                                     exc=repr(e))
+            if "stale membership epoch" in str(e):
+                return None
         except (ConnectionError, OSError) as e:
             self._end_prefetch_span(inf, "error", reason="transport",
                                     exc=repr(e))
         if inf["push"] is not None:
-            self.embedding.table.push(*inf["push"])
+            self._replay_push(inf["push"])
         return None
 
     @staticmethod
     def _link_prefetch(inf, step_span, kind):
-        if inf["span"] is not None:
+        if inf["span"] is not None and step_span is not None:
             step_span.link(inf["span"].span_id, kind)
 
     def _miss(self, inf, step_span):
@@ -620,11 +676,11 @@ class PSTrainStep:
         monitor.stat_add("ps_prefetch_misses_total")
         health.observe("ps_prefetch_miss", 1.0)
 
-    def _consume_prefetch(self, ids_np, step_span):
+    def _consume_prefetch(self, ids_np, step_span=None):
         """The head prefetch's (uniq, inv, uniq_p, rows) for this batch, or
         None: pull synchronously (nothing prefetched, the prefetch failed,
-        or another batch's rows).  The step's span links to the prefetch
-        either way."""
+        another batch's rows, or rows of an older membership epoch).  The
+        step's span links to the prefetch either way."""
         if not self._inflight:
             # the announcement may be this batch's own (the warm-up call
             # before the first step): drop it
@@ -641,6 +697,13 @@ class PSTrainStep:
             self._end_prefetch_span(inf, "error", reason="reordered")
             self._miss(inf, step_span)
             return None
+        client = self._client()
+        if client is not None and inf["epoch"] != client.epoch:
+            self._end_prefetch_span(inf, "error", reason="stale_epoch",
+                                    issued_epoch=inf["epoch"],
+                                    epoch=client.epoch)
+            self._miss(inf, step_span)
+            return None
         self._end_prefetch_span(inf, "ok")
         self._link_prefetch(inf, step_span, "prefetch")
         monitor.stat_add("ps_prefetch_hits_total")
@@ -649,7 +712,7 @@ class PSTrainStep:
 
     def __call__(self, ids, *inputs):
         t_start = time.perf_counter()
-        step_span = tracer.start_span(
+        step_span = self._tracer().start_span(
             "train.step",
             attrs={"step": int(getattr(self.optimizer, "_global_step", 0))})
         with step_span:
@@ -669,10 +732,8 @@ class PSTrainStep:
         table = self.embedding.table
         if got is None:
             uniq, inv, uniq_p = self._unique_prep(ids_np)
-            push = self._take_pending_push()
-            if push is not None:
-                table.push(*push)
-            rows_u = table.pull(uniq_p)
+            rows_u = self._push_pull(table, self._take_pending_push(),
+                                     uniq_p)
         else:
             uniq, inv, uniq_p, rows_u = got
         dev = self.device
@@ -726,7 +787,8 @@ class PSTrainStep:
         grads_host = grads[-1][:len(uniq)].float().cpu().numpy()
         if self.prefetch_depth > 0 and (pipelined or self._inflight
                                         or self._announced):
-            self._pending_push.append((uniq, grads_host))
+            self._pending_push.append((uniq, grads_host,
+                                       step_span.span_id))
         else:
             self.embedding.communicator.push(uniq, grads_host)
         return loss.detach()
@@ -740,7 +802,7 @@ class PSTrainStep:
             if self._settle_inflight(inf) is not None:
                 self._end_prefetch_span(inf, "ok", drained=True)
         while self._pending_push:
-            self.embedding.table.push(*self._pending_push.pop(0))
+            self.embedding.table.push(*self._pending_push.pop(0)[:2])
         if self._prefetch_pool is not None:
             self._prefetch_pool.shutdown(wait=True)
             self._prefetch_pool = None

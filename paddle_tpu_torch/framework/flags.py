@@ -92,6 +92,29 @@ define_flag("ps_hot_row_k", 0,
             "(space-saving counters over pulled ids, "
             "distributed/ps/device_table.py HotRowSketch); 0 disables it")
 
+# the parameter server's TCP transport (distributed/ps/service.py)
+define_flag("ps_rpc_timeout", 30.0,
+            "socket timeout (s) of one PS RPC")
+define_flag("ps_rpc_max_retries", 3,
+            "retries of a PS RPC after a transport failure before its "
+            "endpoint is reported dead")
+define_flag("ps_rpc_backoff_base", 0.05,
+            "exponential backoff base (s): sleep base * 2^attempt between "
+            "PS RPC retries")
+define_flag("ps_wire_dtype", "bf16",
+            "encoding of the PS pull rows and push gradients: 'bf16' (half "
+            "the f32 bytes), 'int8' (a quarter, one f32 scale a row), "
+            "'int4' (an eighth, packed nibbles and one scale a row) or "
+            "'f32' (exact).  Negotiated a peer at a time: a pull decodes "
+            "what its reply declares, int4 pulls and every quantized push "
+            "wait for a hello handshake listing the dtype, so a server "
+            "that predates it keeps the link at f32")
+define_flag("collector_endpoint", "",
+            "host:port of the cluster telemetry collector; "
+            "PADDLE_COLLECTOR_ENDPOINT takes precedence.  The collector "
+            "push is ROADMAP item 6b: a PS server started with either set "
+            "raises")
+
 # the host planes (framework/{chaos,observability,locks,health}.py and
 # profiler): the reference's names, defaults and environment seeding
 define_flag("chaos_spec", "",

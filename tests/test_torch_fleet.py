@@ -376,7 +376,8 @@ def test_fleet_trains_as_the_reference_fleet():
     assert fleet.utils.recompute is fleet.recompute
 
 
-# item 3b's, 3c's and 4a's names are ported (None): real, not stand-ins
+# item 3b's, 3c's, 4a's and 4b's names are ported (None): real, not
+# stand-ins
 PENDING = [("distributed", n, None) for n in (
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
     "shard_tensor", "split")] + [("parallel", n, None) for n in (
@@ -384,10 +385,10 @@ PENDING = [("distributed", n, None) for n in (
     ("parallel", n, None) for n in ("ring_attention", "shard_map_compat")] + [
     ("parallel", "pipeline", None)] + [
     ("distributed", "ps", None)] + [
-    ("distributed", n, "4b") for n in ("DatasetFactory", "InMemoryDataset",
+    ("distributed", n, None) for n in ("DatasetFactory", "InMemoryDataset",
                                        "QueueDataset", "train_from_dataset")
-] + [("distributed.ps", n, "4b") for n in ("service", "graph")] + [
-    ("distributed.fleet", n, "4b") for n in ("init_worker", "ps_client",
+] + [("distributed.ps", n, None) for n in ("service", "graph")] + [
+    ("distributed.fleet", n, None) for n in ("init_worker", "ps_client",
                                              "init_server", "run_server",
                                              "stop_worker")] + [
     ("distributed.fleet", "save_inference_model", "5"),
@@ -405,11 +406,12 @@ PENDING = [("distributed", n, None) for n in (
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 4b, 5, 6b, 7 and 8 raises
+    """Every reference name left for items 5, 6b, 7 and 8 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; item 3b's, 3c's, 4a's and 6a's names (item None) are real, not
-    stand-ins (the ``pipeline`` and ``ps`` submodules, the planes); a name
-    neither package has is an AttributeError."""
+    it; item 3b's, 3c's, 4a's, 4b's and 6a's names (item None) are real,
+    not stand-ins (the ``pipeline``, ``ps``, ``ps.service`` and
+    ``ps.graph`` submodules, the datasets, fleet's PS lifecycle, the
+    planes); a name neither package has is an AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")

@@ -69,7 +69,8 @@ def test_every_module_imports_with_jax_blocked():
               "distributed.ps", "distributed.ps.device_table",
               "models.rank", "framework.monitor", "framework.locks",
               "framework.chaos", "framework.observability",
-              "framework.health", "profiler"):
+              "framework.health", "profiler", "distributed.ps.service",
+              "distributed.ps.graph", "distributed.dataset", "ops.native"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
@@ -79,6 +80,63 @@ def test_every_module_imports_with_jax_blocked():
             "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_ps_transport_graph_and_datasets_run_with_jax_blocked(tmp_path):
+    """The PS server and client, the graph table served remotely, the
+    native datafeed, the datasets, train_from_dataset and fleet's server
+    role run in a process where jax, ml_dtypes and paddle_tpu cannot be
+    imported, and leave none of them in sys.modules."""
+    data = tmp_path / "part-0"
+    data.write_text("".join(f"1 {i % 7} 1 {i % 2}\n" for i in range(12)))
+    code = f"""
+import os, sys, threading
+for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):
+    sys.modules[name] = None
+import numpy as np, torch
+from paddle_tpu_torch.distributed import (DatasetFactory, fleet,
+                                          train_from_dataset)
+from paddle_tpu_torch.distributed.ps import HostEmbeddingTable
+from paddle_tpu_torch.distributed.ps.graph import GraphTable, RemoteGraphTable
+from paddle_tpu_torch.distributed.ps.service import (PsClient, PsServer,
+                                                     RemoteEmbeddingTable)
+from paddle_tpu_torch.ops.native import MultiSlotDataFeed
+g = GraphTable(embedding_dim=2)
+g.add_edges([0, 0], [1, 2], bidirectional=True)
+srv = PsServer({{"emb": HostEmbeddingTable(8, 2), "g": g}}).start()
+c = PsClient([f"127.0.0.1:{{srv.port}}"])
+t = RemoteEmbeddingTable(c, "emb", 2)
+t.push_pull(np.array([1]), np.ones((1, 2), np.float32), np.arange(4))
+assert RemoteGraphTable(c, "g").sample_neighbors(np.array([0]), 2)[1][0] == 2
+c.bye()
+srv.shutdown()
+slots = [("ids", "u", 0), ("label", "f", 1)]
+assert len(list(MultiSlotDataFeed(slots, 4, files=[{str(data)!r}]))) == 3
+ds = DatasetFactory().create_dataset("QueueDataset")
+ds.set_batch_size(4)
+ds.set_filelist([{str(data)!r}])
+ds.set_use_var(slots)
+assert train_from_dataset(lambda *a: a[2].sum(), ds, device="cpu") == [2.0]
+os.environ.update(TRAINING_ROLE="PSERVER",
+                  PADDLE_PSERVERS_IP_PORT_LIST="127.0.0.1:0")
+fleet.init()
+s = fleet.init_server({{"emb": (4, 2)}})
+th = threading.Thread(target=fleet.run_server)
+th.start()
+c = PsClient([f"127.0.0.1:{{s.port}}"])
+c.bye()
+th.join(5)
+assert not th.is_alive()
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')
+       and sys.modules[m] is not None]
+print("ok" if not bad else bad)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
 
