@@ -600,6 +600,32 @@ Phases, in order; any failure ends the script with a non-zero exit:
              steps: roots/s, host ms of sampling and feature pull, idle
              share; two 8-node cliques card against CPU.
 
+59. resnet50-filefed — bench.py's bench_resnet50_filefed: 768 JPEGs of
+             256x256 from default_rng(7) in a temporary directory,
+             DatasetFolder with RandomResizedCrop(224) and
+             RandomHorizontalFlip (draws from random.Random), B=128,
+             bench.py's collate, through IngestPipeline onto the card
+             (pinned, non_blocking copies on a side stream): the pipelined
+             drain (examples/s, MB/s), one process worker collating in the
+             worker (timed from its first batch), the cached epoch, and
+             cached-epoch O2 bf16 ResNet-50 training with Momentum(0.1,
+             0.9) (samples/s, input_stall_pct); the pipelined and worker
+             streams bitwise the sequential loader's, every training batch
+             on the card bitwise its host array, the worker absent from
+             the card's compute apps, finite losses, every parameter moved.
+60. gpt-durable — bench_gpt2_345m's step (B=8, S=1024, remat=False, O2
+             bf16, AdamW(1e-4)) through the durable-state plane: a sync
+             generation after 2 steps, an async one while a step runs
+             (its files the sync serialization of that moment by crc32
+             and bytes, deep-verified), a fresh step restored from it
+             taking the next 2 steps bitwise, a flipped byte walking the
+             restore back a generation (ckpt_fallback_total), ZeRO at
+             world size 1 loaded into a replicated TrainStep stepping on
+             bitwise, numerics armed for 3 steps within 1e-5 of an f64
+             recompute, a NaN in lnf_b's gradient named by
+             first_bad_leaf, the synchronisations of a step armed and
+             disarmed; save and load GB/s, bytes on disk, free space.
+
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -11526,6 +11552,523 @@ def graph_phase(power):
     return r
 
 
+FILEFED_B = 128                # resnet50-filefed: bench.py's batch
+FILEFED_HW = 224               # resnet50-filefed: crop size
+FILEFED_IMAGES = 768           # resnet50-filefed: JPEGs of FILEFED_HW + 32
+FILEFED_CLASSES = 10           # resnet50-filefed: class folders
+
+
+def filefed_pil_loader(path):
+    """bench.py's ``_pil_loader``: module-level, so a spawned DataLoader
+    worker unpickles the DatasetFolder that references it."""
+    import numpy as np
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def filefed_batch_collate(batch):
+    """``filefed_collate`` over a list of (image, label) samples: the
+    DataLoader's collate_fn, module-level for a spawned worker."""
+    return filefed_collate([s[0] for s in batch], [s[1] for s in batch])
+
+
+def filefed_images(root, n_images, size, classes):
+    """bench.py's ``_gen_image_dataset``: a folder a class of JPEGs drawn
+    from default_rng(7), quality 85; returns their bytes."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(7)
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"class_{c:02d}"), exist_ok=True)
+    for i in range(n_images):
+        arr = rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+        Image.fromarray(arr).save(
+            os.path.join(root, f"class_{i % classes:02d}", f"{i:05d}.jpg"),
+            quality=85)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+def filefed_dataset(root, seed):
+    """The JPEG folder with bench.py's augmentation, its draws from
+    random.Random(seed)."""
+    import random
+
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import DatasetFolder
+    g = random.Random(seed)
+    aug = T.Compose([T.RandomResizedCrop(FILEFED_HW, generator=g),
+                     T.RandomHorizontalFlip(generator=g)])
+    return DatasetFolder(root, loader=filefed_pil_loader,
+                         extensions=(".jpg",), transform=aug)
+
+
+def filefed_loader(ds, seed, **kw):
+    """A shuffled DataLoader (order from ``seed``), B = FILEFED_B,
+    drop_last, bench.py's collate."""
+    from paddle_tpu_torch import io
+    sampler = io.BatchSampler(sampler=io.RandomSampler(ds, generator=seed),
+                              batch_size=FILEFED_B, drop_last=True)
+    return io.DataLoader(ds, batch_sampler=sampler,
+                         collate_fn=filefed_batch_collate, **kw)
+
+
+class KeepHost:
+    """A loader whose host batches are kept as they are handed on."""
+
+    def __init__(self, loader):
+        self.loader, self.host = loader, []
+
+    def __iter__(self):
+        for b in self.loader:
+            self.host.append(b)
+            yield b
+
+
+def _host_stream(loader):
+    return [(x.copy(), y.copy()) for x, y in loader]
+
+
+def _card_equal(card, host, what):
+    """Every (x, y) on the card bitwise the host batch."""
+    import numpy as np
+    import torch
+    if len(card) != len(host):
+        fail(f"{what}: {len(card)} batches, the sequential loader "
+             f"{len(host)}")
+    for i, ((x, y), (hx, hy)) in enumerate(zip(card, host)):
+        if x.dtype != torch.float32 or y.dtype != torch.int64 or \
+                not np.array_equal(x.cpu().numpy(), hx) or \
+                not np.array_equal(y.cpu().numpy(), hy):
+            fail(f"{what}: batch {i} on the card is not the host batch "
+                 "bitwise")
+
+
+def resnet50_filefed_phase(power, dev="cuda"):
+    """Phase 59: bench.py's bench_resnet50_filefed through the port: 768
+    JPEGs of 256x256, DatasetFolder with RandomResizedCrop(224) and
+    RandomHorizontalFlip (draws from a seeded random.Random), B = 128,
+    bench.py's collate, its four legs each timed (pipelined drain with no
+    cache; one process worker collating in the worker, timed from its
+    first batch; the cached epoch, recorded by the sequential pass;
+    cached-epoch O2 bf16 ResNet-50 training with Momentum(0.1, 0.9)).  The pipelined and worker streams are held
+    bitwise to the sequential loader's, every training batch on the card
+    to the host array it came from; the worker is absent from the card's
+    compute apps; the losses are finite and every parameter moves."""
+    import shutil as _sh
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.io import IngestPipeline
+    from paddle_tpu_torch.io.pipeline import CachedDataset, SampleCache
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="filefed_images_")
+    r = {}
+    try:
+        t0 = time.perf_counter()
+        jpeg_bytes = filefed_images(root, FILEFED_IMAGES, FILEFED_HW + 32,
+                                    FILEFED_CLASSES)
+        r["write_s"] = time.perf_counter() - t0
+        r["jpeg_bytes"] = jpeg_bytes
+        # the sequential stream, which also records the decoded-sample
+        # cache (epoch 1 of leg 3)
+        cache = SampleCache(mode="memory", max_bytes=2 << 30)
+        cds = CachedDataset(filefed_dataset(root, 1), cache)
+        t0 = time.perf_counter()
+        want = _host_stream(filefed_loader(cds, 0))
+        r["sequential_examples_per_s"] = FILEFED_IMAGES / (
+            time.perf_counter() - t0)
+
+        def drain(pipe, from_first=False, probe=None):
+            out, n, t0 = [], 0, time.perf_counter()
+            for xb, yb in pipe:
+                if from_first and not out:
+                    if probe is not None:
+                        probe()
+                    t0 = time.perf_counter()
+                out.append((xb, yb))
+                n += int(xb.shape[0])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            return out, (n - FILEFED_B if from_first else n) / dt, dt
+
+        # 1) pipelined ingest drain, cache off
+        got, rate, dt = drain(IngestPipeline(
+            filefed_loader(filefed_dataset(root, 1), 0), device=dev))
+        _card_equal(got, want, "resnet50-filefed pipelined stream")
+        r["ingest_examples_per_s"] = rate
+        r["ingest_mb_per_s"] = jpeg_bytes / dt / 1e6
+        del got
+
+        # 2) one process worker, collate in the worker
+        apps_before = _compute_apps()
+        seen = {}
+        wl = filefed_loader(filefed_dataset(root, 1), 0, num_workers=1,
+                            use_process_workers=True, collate_in_worker=True)
+        got, rate_w, _ = drain(
+            IngestPipeline(wl, device=dev), from_first=True,
+            probe=lambda: seen.setdefault("apps", _compute_apps()))
+        _card_equal(got, want, "resnet50-filefed worker stream")
+        del got
+        if len(seen["apps"]) != len(apps_before):
+            fail(f"resnet50-filefed: the card's compute apps went from "
+                 f"{apps_before} to {seen['apps']} with the DataLoader "
+                 "worker running: the worker holds a CUDA context")
+        r["worker_examples_per_s"] = rate_w
+        r["worker_vs_pipelined"] = rate_w / rate
+        r["worker_stage_ms"] = {k: v for k, v in wl.last_stage_ms.items()
+                                if k.endswith("_ms")}
+        r["compute_apps"] = [len(apps_before), len(seen["apps"])]
+
+        # 3) the decoded-sample cache: the sequential pass recorded epoch
+        # 1, this epoch hits
+        _, rate_c, _ = drain(IngestPipeline(filefed_loader(cds, 1),
+                                            device=dev))
+        if cache.hits != FILEFED_IMAGES or cache.misses != FILEFED_IMAGES:
+            fail(f"resnet50-filefed: cache hits {cache.hits}, misses "
+                 f"{cache.misses}, want {FILEFED_IMAGES} each")
+        r["cached_examples_per_s"] = rate_c
+        r["cache_vs_pipelined"] = rate_c / rate
+        r["cache_bytes"] = cache.bytes_used
+
+        # 4) cached-epoch training
+        model = resnet50(num_classes=1000)
+        step = TrainStep(model, lambda m, x, y: vision_loss_of(m(x), y),
+                         Momentum(learning_rate=0.1, momentum=0.9),
+                         amp_level="O2", amp_dtype="bfloat16")
+        for xb, yb in IngestPipeline(filefed_loader(cds, 2), device=dev):
+            float(step(xb, yb))             # warm: one batch
+            break
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        monitor.reset_all_histograms()
+        keep = KeepHost(filefed_loader(cds, 3))
+        pipe = IngestPipeline(keep, device=dev)
+        losses, used, n = [], [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for xb, yb in pipe:
+            losses.append(step(xb, yb))
+            used.append((xb, yb))
+            n += int(xb.shape[0])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _card_equal(used, keep.host, "resnet50-filefed training batches")
+        losses = [float(v) for v in losses]
+        if not all(np.isfinite(losses)):
+            fail(f"resnet50-filefed: non-finite losses {losses}")
+        still = [k for k, p in model.named_parameters()
+                 if torch.equal(p.detach(), p0[k])]
+        if still:
+            fail(f"resnet50-filefed: {len(still)} parameters did not move, "
+                 f"e.g. {still[:3]}")
+        r["train_samples_per_s"] = n / dt
+        r["train_step_ms"] = dt / len(losses) * 1e3
+        r["input_stall_pct"] = pipe.input_stall_pct
+        hists = monitor.all_histograms()
+        r["train_ingest_mean_ms"] = {
+            k: hists[k]["mean"] for k in ("ingest_decode_ms",
+                                          "ingest_transfer_ms",
+                                          "ingest_wait_ms") if k in hists}
+        r["losses"] = losses
+    finally:
+        _sh.rmtree(root, ignore_errors=True)
+    r["phase_s"] = time.perf_counter() - t_phase
+    r["power"] = power
+    log("resnet50-filefed: " + json.dumps(r))
+    return r
+
+
+DURABLE_KEEP = 2               # gpt-durable: generations the manager keeps
+DURABLE_ZERO_LAYERS = 4        # gpt-durable: ZeRO interop at 345M's width
+DURABLE_NUMERICS_STEPS = 3     # gpt-durable: armed numerics steps
+TOL_NUMERICS = 1e-5            # gpt-durable: norms against the f64 recompute
+NUMERICS_BAD_LEAF = "lnf_b"    # gpt-durable: the leaf whose gradient is NaN
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _params_host(model):
+    return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def _serialized_stamps(step, generation):
+    """{file: (crc32, bytes)} a sync save of ``step`` at ``generation``
+    would write, from the same serialization, without writing."""
+    import zlib
+
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    state, _ = ck._capture_train_state(step, generation, None)
+    leaves = []
+    ck._leafify(state, leaves, "")
+    out = {}
+    for i, (_, arr) in enumerate(leaves):
+        if isinstance(arr, torch.Tensor):
+            fname = ck._shard_fname(i, (slice(None),) * arr.dim())
+        else:
+            fname = f"leaf{i}.full.npy"
+        head, body = ck._npy_parts(arr)
+        out[fname] = (zlib.crc32(body, zlib.crc32(head)) & 0xFFFFFFFF,
+                      len(head) + body.nbytes)
+    return out
+
+
+def _stamps_on_disk(path):
+    with open(os.path.join(path, "metadata.json")) as f:
+        meta = json.load(f)
+    return {sh["file"]: (sh["crc32"], sh["bytes"])
+            for rec in meta["leaves"] for sh in rec["shards"]}
+
+
+def gpt_durable_phase(cfg, fa, power, dev="cuda"):
+    """Phase 60: bench_gpt2_345m's step (GPT-2 345M, B = 8, S = 1024,
+    remat=False, O2 bf16, AdamW(1e-4), on #1-#3) saved and restored
+    through the durable-state plane: 2 steps, a sync generation, 1 step,
+    an async generation while one more step runs; the async files are a
+    sync save of the same snapshot (their crc32 and byte stamps against
+    the serialization of that moment) and verify deeply; a fresh step
+    restored from it takes the next 2 steps bitwise the uninterrupted
+    run's; a flipped byte in the newest generation walks the restore back
+    one generation (ckpt_fallback_total); ZeRO at world size 1
+    (DURABLE_ZERO_LAYERS layers at 345M's width) saved and loaded into a
+    replicated TrainStep steps on bitwise alike; numerics armed for 3 steps holds the global grad, param and
+    update norms within TOL_NUMERICS of an f64 recompute from the same
+    gradients, a NaN planted in lnf_b's gradient is named by
+    first_bad_leaf, and the synchronisations of a step are counted armed
+    and disarmed.  Save and load GB/s, bytes on disk and free space are
+    printed; the directory is removed at the end."""
+    import shutil as _sh
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed.durable import CheckpointManager
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep, loss_and_grads
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import LoopbackWorld
+    from paddle_tpu_torch.parallel.zero import ShardedUpdateTrainStep
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(60)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int64)).to(dev)
+        for _ in range(6)]
+
+    def make_step():
+        return TrainStep(GPT(cfg, device=dev), gpt_loss,
+                         AdamW(learning_rate=1e-4), amp_level="O2",
+                         amp_dtype="bfloat16")
+
+    def run(step, ids):
+        return step(ids, ids)
+
+    root = tempfile.mkdtemp(prefix="gpt_durable_")
+    r = {"free_bytes_at_start": _sh.disk_usage(root).free}
+    reset_fa(fa)
+    planes_reset()
+    try:
+        part = time.perf_counter()
+        step = make_step()
+        mgr = CheckpointManager(root, keep_last=DURABLE_KEEP)
+        for ids in batches[:2]:
+            run(step, ids)
+        torch.cuda.synchronize()
+        r["build_and_2_steps_s"] = time.perf_counter() - part
+        t0 = time.perf_counter()
+        mgr.save(step, 1)
+        r["save_sync_s"] = time.perf_counter() - t0
+        r["generation_bytes"] = _dir_bytes(mgr.generation_dir(1))
+        r["save_sync_gbps"] = r["generation_bytes"] / r["save_sync_s"] / 1e9
+        run(step, batches[2])
+        torch.cuda.synchronize()
+        part = time.perf_counter()
+        want = _serialized_stamps(step, 2)
+        r["stamps_s"] = time.perf_counter() - part
+        t0 = time.perf_counter()
+        handle = mgr.save(step, 2, mode="async")
+        r["save_async_call_s"] = time.perf_counter() - t0
+        cont = [run(step, batches[3])]       # while the async save writes
+        handle.wait()
+        ck.wait_pending_saves()
+        r["save_async_total_s"] = time.perf_counter() - t0
+        got = _stamps_on_disk(mgr.generation_dir(2))
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))
+            fail(f"gpt-durable: the async generation is not the sync save "
+                 f"of its snapshot: {bad[:4]}")
+        problems = ck.verify_checkpoint(mgr.generation_dir(2), deep=True)
+        if problems or not ck.is_committed(mgr.generation_dir(2)):
+            fail(f"gpt-durable: generation 2 does not verify: {problems[:3]}")
+        cont.append(run(step, batches[4]))
+        cont = [float(v) for v in cont]
+        final = _params_host(step.model)
+        r["bytes_on_disk"] = _dir_bytes(root)
+        r["free_bytes_with_generations"] = _sh.disk_usage(root).free
+        r["generations"] = mgr.generations()
+
+        fresh = make_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mgr.restore(fresh, deep=False) != 2:
+            fail("gpt-durable: the restore did not take generation 2")
+        torch.cuda.synchronize()
+        r["load_s"] = time.perf_counter() - t0
+        r["load_gbps"] = r["generation_bytes"] / r["load_s"] / 1e9
+        resumed = [float(run(fresh, ids)) for ids in batches[3:5]]
+        if resumed != cont:
+            fail(f"gpt-durable: resumed losses {resumed}, the uninterrupted "
+                 f"run's {cont}")
+        moved = [n for n, p in fresh.model.named_parameters()
+                 if not torch.equal(p.detach().cpu(), final[n])]
+        if moved:
+            fail(f"gpt-durable: resumed parameters differ from the "
+                 f"uninterrupted run's: {moved[:4]}")
+        r["resumed_losses"] = resumed
+
+        shard = sorted(f for f in os.listdir(mgr.generation_dir(2))
+                       if f.endswith(".npy"))[0]
+        path = os.path.join(mgr.generation_dir(2), shard)
+        with open(path, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        before = monitor.get_stat("ckpt_fallback_total")
+        part = time.perf_counter()
+        if mgr.restore(fresh) != 1:
+            fail("gpt-durable: a flipped byte in generation 2 did not walk "
+                 "the restore back to generation 1")
+        r["walk_back_s"] = time.perf_counter() - part
+        r["fallbacks_counted"] = monitor.get_stat("ckpt_fallback_total") \
+            - before
+        if r["fallbacks_counted"] != 1:
+            fail(f"gpt-durable: ckpt_fallback_total rose by "
+                 f"{r['fallbacks_counted']}, want 1")
+        del fresh
+        _sh.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        torch.cuda.empty_cache()
+
+        # ZeRO at world size 1 into a replicated TrainStep
+        part = time.perf_counter()
+        zdir = os.path.join(root, "zero")
+
+        zcfg = GPTConfig(hidden_size=cfg.hidden_size,
+                         num_heads=cfg.num_heads, vocab_size=cfg.vocab_size,
+                         max_seq_len=cfg.max_seq_len,
+                         num_layers=DURABLE_ZERO_LAYERS, remat=False)
+
+        def zero_rank(rank, mesh):
+            z = ShardedUpdateTrainStep(
+                GPT(zcfg, device=dev), gpt_loss, AdamW(learning_rate=1e-4),
+                mesh=mesh, wire_dtype="f32", amp_level="O2",
+                amp_dtype="bfloat16")
+            z(batches[0], batches[0])
+            ck.save_train_state(z, zdir, commit=True)
+            loss = float(z(batches[1], batches[1]))
+            return z, loss
+        z, z_loss = LoopbackWorld(1).run(zero_rank)[0]
+        rep = TrainStep(GPT(zcfg, device=dev), gpt_loss,
+                        AdamW(learning_rate=1e-4), amp_level="O2",
+                        amp_dtype="bfloat16")
+        ck.load_train_state(rep, zdir)
+        rep_loss = float(run(rep, batches[1]))
+        if rep_loss != z_loss:
+            fail(f"gpt-durable: the replicated step from the ZeRO "
+                 f"checkpoint took loss {rep_loss}, ZeRO {z_loss}")
+        diff = [n for (n, p), q in zip(rep.model.named_parameters(),
+                                       z.model.parameters())
+                if not torch.equal(p.detach(), q.detach())]
+        if diff:
+            fail(f"gpt-durable: replicated and ZeRO parameters differ after "
+                 f"the step from the checkpoint: {diff[:4]}")
+        r["zero_interop_loss"] = z_loss
+        r["zero_interop_s"] = time.perf_counter() - part
+        del z, rep
+        torch.cuda.empty_cache()
+
+        # numerics, armed and disarmed
+        part = time.perf_counter()
+        syncs_off, _ = count_syncs(lambda: run(step, batches[5]))
+        set_flags({"numerics": True})
+        try:
+            rows = []
+            for k in range(DURABLE_NUMERICS_STEPS):
+                ids = batches[k]
+                params = step._params()
+                before_p = {n: p.detach().clone() for n, p in params.items()}
+                _, grads = loss_and_grads(step._loss_from, params, [ids, ids])
+                f64 = {
+                    "grad_norm": math.sqrt(sum(float((g.double() ** 2).sum())
+                                               for g in grads.values())),
+                    "param_norm": math.sqrt(sum(float((p.double() ** 2).sum())
+                                                for p in before_p.values()))}
+                del grads
+                if k == DURABLE_NUMERICS_STEPS - 1:
+                    syncs_on, _ = count_syncs(lambda: run(step, ids))
+                else:
+                    run(step, ids)
+                rec = step.last_numerics
+                f64["update_norm"] = math.sqrt(sum(
+                    float(((p.detach().double() - before_p[n].double()) ** 2)
+                          .sum()) for n, p in params.items()))
+                del before_p
+                errs = {k2: abs(getattr(rec, k2) - v) / v
+                        for k2, v in f64.items()}
+                rows.append(errs)
+                if max(errs.values()) > TOL_NUMERICS or not rec.finite():
+                    fail(f"gpt-durable: numerics step {k}: relative errors "
+                         f"{errs} against the f64 recompute, finite "
+                         f"{rec.finite()}")
+            r["numerics_rel_err"] = rows
+            r["numerics_grad_norm"] = rec.grad_norm
+            r["syncs_per_step"] = {"disarmed": syncs_off, "armed": syncs_on}
+            if syncs_on != syncs_off + 1:
+                fail(f"gpt-durable: armed numerics synchronised {syncs_on} "
+                     f"times a step, disarmed {syncs_off}: the packed aux "
+                     "must be its one read")
+            hook = dict(step.model.named_parameters())[
+                NUMERICS_BAD_LEAF].register_hook(
+                    lambda g: torch.full_like(g, float("nan")))
+            try:
+                run(step, batches[0])
+            finally:
+                hook.remove()
+            bad = step.last_numerics
+            r["numerics_first_bad_leaf"] = bad.first_bad_leaf()
+            if bad.first_bad_leaf() != NUMERICS_BAD_LEAF or bad.finite():
+                fail(f"gpt-durable: a NaN in {NUMERICS_BAD_LEAF}'s gradient "
+                     f"was named {bad.first_bad_leaf()!r}")
+        finally:
+            set_flags({"numerics": False})
+        r["numerics_s"] = time.perf_counter() - part
+        del step
+        torch.cuda.empty_cache()
+    finally:
+        _sh.rmtree(root, ignore_errors=True)
+    launches = _flash_launches(fa)
+    if min(launches.values()) == 0:
+        fail(f"gpt-durable: a flash kernel was not launched: {launches}")
+    r["launches"] = launches
+    r["phase_s"] = time.perf_counter() - t_phase
+    r["power"] = power
+    log("gpt-durable: " + json.dumps(r))
+    return r, launches
+
+
 def vision_loss_of(out, y):
     from paddle_tpu_torch.nn.functional import cross_entropy
     return cross_entropy(out, y).mean()
@@ -13373,6 +13916,24 @@ def main() -> int:
     ps_row["phases_56_58_s"] = time.perf_counter() - t_ps2
     log(f"parameter-server transport, dataset and graph phases (56-58): "
         f"{ps_row['phases_56_58_s']:.1f} s of wall time")
+
+    # -- 59. resnet50-filefed -------------------------------------------------
+    # -- 60. gpt-durable ------------------------------------------------------
+    # the data and state planes: the file-fed ResNet-50 through the ingest
+    # pipeline (no kernel of the table lies on it), then GPT-2 345M saved,
+    # restored and watched by numerics on #1-#3; gpt-durable sets the flash
+    # counters to 0 and reads them, its launches join the kernel table's
+    # (durable_launches)
+    t_dsp = time.perf_counter()
+    ps_row["resnet50_filefed"] = resnet50_filefed_phase(power)
+    ps_row["gpt_durable"], dur_launch = gpt_durable_phase(cfg, fa, power)
+    for k in kernels:
+        k["launches"] += dur_launch.get(k["name"], 0)
+        k["durable_launches"] = dur_launch.get(k["name"], 0)
+    ps_row["phases_59_60_s"] = time.perf_counter() - t_dsp
+    log(f"data and state plane phases (59-60): "
+        f"{ps_row['phases_59_60_s']:.1f} s of wall time; launches "
+        f"{dur_launch}")
     for row in table:
         log(json.dumps(row))
 

@@ -15,7 +15,9 @@ port's: ``is_compiled_with_cuda`` says whether this PyTorch was built
 with CUDA, ``get_cudnn_version`` gives cuDNN's version, and the places
 are ``torch.device``s.  The reference's ``TPUPlace`` and ``XPUPlace``
 name devices the port does not have and are left out; so are the names
-of modules still to port (``hapi``, ``io``).  The ported subpackages are bound at
+of modules still to port (``hapi``, ``metric``).  The data plane is bound
+as the reference binds it: ``io``, ``dataset``, ``reader`` with
+``batch``, and ``text``.  The ported subpackages are bound at
 import, as the reference binds its own (``paddle_tpu/__init__.py:55-77``),
 and so are the nine tensor submodules (``paddle.linalg.norm``).
 """
@@ -41,6 +43,8 @@ from paddle_tpu_torch import (  # noqa: F401,E402
 from paddle_tpu_torch.distributed.parallel import DataParallel  # noqa: F401,E402,E501
 from paddle_tpu_torch import profiler  # noqa: F401,E402
 from paddle_tpu_torch.framework import monitor  # noqa: F401,E402
+from paddle_tpu_torch import dataset, io, reader, text  # noqa: F401,E402
+from paddle_tpu_torch.reader import batch  # noqa: F401,E402
 
 import torch as _torch
 

@@ -6,9 +6,10 @@ mode, the wire codecs of the collectives (``wire.py``), ``split`` and
 the tensor-parallel layers (``tp_layers.py``), the parameter server
 ``ps`` (its tiers, TCP transport ``ps.service`` and graph table
 ``ps.graph``) and its datasets (``dataset.py``: ``DatasetFactory``,
-``QueueDataset``, ``InMemoryDataset``, ``train_from_dataset``).  Not
-ported yet, each raising ``NotImplementedError`` naming its ROADMAP item:
-``checkpoint`` (item 5), ``elastic`` and ``launch`` (item 6b)."""
+``QueueDataset``, ``InMemoryDataset``, ``train_from_dataset``), the
+sharded checkpoints (``checkpoint``) and their generations
+(``durable``).  Not ported yet, each raising ``NotImplementedError``
+naming its ROADMAP item: ``elastic`` and ``launch`` (item 6b)."""
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, get_rank, get_world_size,
@@ -21,6 +22,7 @@ from paddle_tpu_torch.distributed import fleet  # noqa: F401
 from paddle_tpu_torch.distributed import ps  # noqa: F401
 from paddle_tpu_torch.distributed.dataset import (  # noqa: F401
     DatasetFactory, InMemoryDataset, QueueDataset, train_from_dataset)
+from paddle_tpu_torch.distributed import checkpoint  # noqa: F401
 from paddle_tpu_torch._pending import pending_modules
 
 from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
@@ -29,8 +31,7 @@ from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
 
 shard_tensor = mark_sharding
 __getattr__ = pending_modules("paddle_tpu_torch.distributed", {
-    "checkpoint": ("5", "checkpoints"),
-    "durable": ("5", "checkpoints"), "elastic": ("6b", "elastic training"),
+    "elastic": ("6b", "elastic training"),
     "launch": ("6b", "the launcher")})
 
 __all__ = [

@@ -20,16 +20,15 @@ rank's shard (``ps.service.PsServer``) and ``run_server`` serves it until
 every worker has said bye.  A server role (``TRAINING_ROLE=PSERVER``)
 keeps to the host, as the reference's whose ``init`` joins nothing across
 processes: its ``init`` starts no process group and installs no mesh, so
-it never touches a card.  The inference and persistable savers are
-ROADMAP item 5 and raise ``NotImplementedError`` naming it;
-``fleet.utils.fs`` waits for item 5 too.
+it never touches a card.  The inference and persistable savers raise,
+as the reference's, naming the port's ``jit.save`` and ``save``;
+``fleet.utils.fs`` holds the file systems.
 """
 from __future__ import annotations
 
 import threading
 from typing import Callable, Optional
 
-from paddle_tpu_torch._pending import pending
 from paddle_tpu_torch.distributed.fleet.role_maker import (
     PaddleCloudRoleMaker, Role, RoleMakerBase, UserDefinedRoleMaker)
 from paddle_tpu_torch.distributed.fleet.strategy import DistributedStrategy
@@ -212,11 +211,19 @@ def stop_worker():
         _state.ps_client = None
 
 
-save_inference_model = pending("fleet.save_inference_model", "5",
-                               "checkpoints; jit.save exports a model")
-save_persistables = pending("fleet.save_persistables", "5",
-                            "checkpoints; paddle_tpu_torch.save saves the "
-                            "state dict")
+def save_inference_model(executor=None, dirname=None, *args, **kwargs):
+    """Raises, as the reference's (``fleet/__init__.py:265-268``): the
+    export is ``jit.save``."""
+    raise NotImplementedError(
+        "use paddle_tpu_torch.jit.save for inference export")
+
+
+def save_persistables(executor=None, dirname=None, main_program=None,
+                      **kwargs):
+    """Raises, as the reference's (``fleet/__init__.py:271-272``): save
+    the state dict, or a TrainStep with ``distributed.checkpoint``."""
+    raise NotImplementedError(
+        "use paddle_tpu_torch.save(model.state_dict(), ...)")
 
 
 class DistributedOptimizer:
@@ -298,3 +305,4 @@ def get_hybrid_communicate_group() -> HybridCommunicateGroup:
 from paddle_tpu_torch.distributed.fleet import metrics  # noqa: F401,E402
 from paddle_tpu_torch.distributed.fleet import utils  # noqa: F401,E402
 from paddle_tpu_torch.distributed.fleet.utils import recompute  # noqa: F401,E402,E501
+from paddle_tpu_torch.distributed.fleet.utils import fs  # noqa: F401,E402

@@ -10,11 +10,11 @@ snapshot and then puts them back; gradients that reach the tensor
 arguments and the parameters the function captures; tuple and
 pass-through outputs.  Inside
 ``jit.TrainStep`` it replays under the step's AMP cast, so a module called
-in the block reads the same cast weights in both runs.
+in the block reads the same cast weights in both runs.  ``fs`` holds the
+file systems (``LocalFS`` with its crash-safe ``atomic_write``,
+``HDFSClient`` over the ``hadoop`` command).
 """
-from paddle_tpu_torch._pending import pending_modules
+from paddle_tpu_torch.distributed.fleet.utils import fs  # noqa: F401
 from paddle_tpu_torch.jit.recompute import recompute_capturing as recompute
 
-__all__ = ["recompute"]
-__getattr__ = pending_modules("paddle_tpu_torch.distributed.fleet.utils", {
-    "fs": ("5", "the file systems of checkpoints")})
+__all__ = ["recompute", "fs"]

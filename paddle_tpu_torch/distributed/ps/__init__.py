@@ -69,7 +69,7 @@ from paddle_tpu_torch.distributed.tp_layers import vocab_lookup
 from paddle_tpu_torch.distributed.ps.device_table import (
     DeviceEmbeddingTrainStep, HotRowSketch, MeshShardedEmbedding,
     _require_on, clamped_rows, gather_rows, init_table, mesh_sharded_lookup)
-from paddle_tpu_torch.framework import chaos, health, locks, monitor
+from paddle_tpu_torch.framework import chaos, health, locks, monitor, numerics
 from paddle_tpu_torch.framework.flags import flag
 from paddle_tpu_torch.framework.observability import tracer
 from paddle_tpu_torch.framework.parameter import Parameter
@@ -742,11 +742,13 @@ class PSTrainStep:
         else:
             rows_t = torch.from_numpy(np.ascontiguousarray(rows_u))
         arrs = [torch.as_tensor(i).to(dev) for i in inputs]
+        armed = numerics.enabled()
         # the reference's cache key (:870-880): a new one is a compile
         sig = (tuple(rows_t.shape), str(rows_t.dtype).replace("torch.", ""),
                ids_np.shape, tuple((tuple(a.shape),
                                     str(a.dtype).replace("torch.", ""))
-                                   for a in arrs))
+                                   for a in arrs)) \
+            + (("numerics",) if armed else ())
         cause = None
         if sig in self._signatures:
             health.note_cache_hit("PSTrainStep")
@@ -774,6 +776,9 @@ class PSTrainStep:
             with torch.no_grad():
                 lr = torch.full((), self.optimizer.get_lr(),
                                 dtype=torch.float32, device=dev)
+                before = {n: p.detach() for n, p in params.items()}
+                if armed and self.donate:
+                    before = {n: t.clone() for n, t in before.items()}
                 new_params, self._opt_states = apply_functional_update(
                     self.optimizer, dparams,
                     {n: p.detach() for n, p in params.items()},
@@ -781,9 +786,25 @@ class PSTrainStep:
                 for n, p in params.items():
                     if new_params[n].data_ptr() != p.data_ptr():
                         p.copy_(new_params[n])
+                aux = None
+                if armed:
+                    # the pulled rows are a leaf of the numerics view
+                    # (reference :799-812): their update happens on the
+                    # host table, so their update term is an exact zero
+                    rows_f = rows_d.detach().float()
+                    aux = numerics.compute_aux(
+                        {**dparams, "embedding.rows": grads[-1]},
+                        {**before, "embedding.rows": rows_f},
+                        {**new_params, "embedding.rows": rows_f}, loss)
         # the card is busy until the gradient's read below: the announced
         # next pull (after the previous push) runs meanwhile
         self._issue_prefetch()
+        if aux is not None:
+            rec = numerics.NumericsRecord(
+                list(params) + ["embedding.rows"], aux,
+                step=int(getattr(self.optimizer, "_global_step", 0)))
+            numerics.publish(rec)
+            self.last_numerics = rec
         grads_host = grads[-1][:len(uniq)].float().cpu().numpy()
         if self.prefetch_depth > 0 and (pipelined or self._inflight
                                         or self._announced):

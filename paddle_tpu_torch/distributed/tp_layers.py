@@ -161,6 +161,7 @@ def vocab_lookup(table: torch.Tensor, ids, group, padding_idx=None):
     keep = (local >= 0) & (local < vr)
     if padding_idx is not None:
         keep = keep & (ids != padding_idx)
-    rows = table[local.clamp(0, vr - 1)]
+    # torch's embedding: its CPU backward sums each row in index order
+    rows = torch.nn.functional.embedding(local.clamp(0, vr - 1), table)
     rows = rows * keep[..., None].to(rows.dtype)
     return tp.reduce(rows, group)

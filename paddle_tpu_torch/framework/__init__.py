@@ -1,9 +1,11 @@
 """Framework plumbing of the PyTorch port (flags, io, dtypes, crypto, the
 host planes) and the reference's re-exports
 (``paddle_tpu/framework/__init__.py:9-30``): ``monitor``, ``chaos`` and
-``observability`` bound as the reference binds them, ``locks`` and
-``health`` importable as submodules, and the top level's objects of the
-same names, resolved at first use (the top level imports this package).
+``observability`` bound as the reference binds them, ``locks``,
+``health`` and ``numerics`` importable as submodules,
+``auto_checkpoint`` and the top level's objects of the same names
+resolved at first use (the top level imports this package, and
+``auto_checkpoint`` imports ``distributed``).
 The reference's framework modules still to port raise, naming their
 ROADMAP item."""
 from paddle_tpu_torch._pending import pending_modules
@@ -18,8 +20,6 @@ _REEXPORTS = ("save", "load", "seed", "Generator", "default_generator",
               "set_default_dtype", "in_dygraph_mode")
 
 _pending_module = pending_modules("paddle_tpu_torch.framework", {
-    "numerics": ("5", "the model-numerics plane"),
-    "auto_checkpoint": ("5", "checkpoints"),
     "incident": ("6b", "the incident recorder"),
     "resilient": ("6b", "the resilient train step"),
     "ResilientTrainStep": ("6b", "the resilient train step"),
@@ -28,6 +28,9 @@ _pending_module = pending_modules("paddle_tpu_torch.framework", {
 
 
 def __getattr__(name):
+    if name in ("auto_checkpoint", "numerics"):
+        import importlib
+        return importlib.import_module(f"paddle_tpu_torch.framework.{name}")
     if name in _REEXPORTS:
         import paddle_tpu_torch
         return getattr(paddle_tpu_torch, name)
@@ -35,4 +38,5 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(list(globals()) + list(_REEXPORTS))
+    return sorted(list(globals()) + list(_REEXPORTS)
+                  + ["auto_checkpoint", "numerics"])

@@ -169,6 +169,39 @@ define_flag("health_mem_sample_every", 0,
             "sample the device memory into the device_mem_* gauges every N "
             "train steps (health.MemoryTracker); 0 disables the per-step "
             "hook")
+define_flag("numerics", False,
+            "arm the model-numerics plane: TrainStep, PSTrainStep and "
+            "ShardedUpdateTrainStep compute per-leaf and global grad / "
+            "param norms, update ratios, max-abs and non-finite counts on "
+            "the device and publish them as monitor gauges / histograms "
+            "and health signals.  Off (default): the steps do no extra "
+            "work and no extra synchronisation")
+define_flag("numerics_sample_every", 10,
+            "per-leaf numerics export cadence: the numerics_*[<leaf>] "
+            "gauges refresh every Nth published step and on every "
+            "non-finite step (when > 0); 0 turns the per-leaf export off, "
+            "the global gauges and histograms still publish every step")
+define_flag("ingest_prefetch_depth", 1,
+            "max in-flight batches in IngestPipeline's double buffer "
+            "(fetch and copy to the device on a background executor while "
+            "the device runs the current step); 0 disables the overlap, 1 "
+            "is the classic double buffer")
+define_flag("ingest_cache_mode", "",
+            "decoded-sample cache for epoch >= 2: '' (off), 'memory' "
+            "(bounded in-RAM dict), or 'disk' (one crash-safe tmp+rename "
+            "file per sample under FLAGS_ingest_cache_dir)")
+define_flag("ingest_cache_dir", "",
+            "directory of the disk-backed decoded-sample cache; empty = an "
+            "'ingest_cache' dir under the current directory")
+define_flag("ingest_cache_bytes", 1 << 30,
+            "byte bound on the decoded-sample cache (memory or disk): "
+            "inserts stop once the recorded payload bytes reach it")
+define_flag("ckpt_keep_last", 2,
+            "checkpoint generations the GC always keeps (newest first); "
+            "the newest verified commit is kept on top of this")
+define_flag("ckpt_keep_every", 0,
+            "additionally keep every Nth generation (by generation "
+            "number) as a long-horizon archive; 0 disables")
 define_flag("numerics_scale_collapse_k", 4,
             "consecutive GradScaler downscales that make a loss-scale "
             "collapse: a numerics.scale_collapse flight event every K "

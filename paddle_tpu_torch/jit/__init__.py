@@ -72,7 +72,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from paddle_tpu_torch.framework import health, monitor
+from paddle_tpu_torch.framework import health, monitor, numerics
 from paddle_tpu_torch.framework.flags import flag
 from paddle_tpu_torch.framework.observability import tracer
 from paddle_tpu_torch.framework.selected_rows import dense_gradients
@@ -260,12 +260,16 @@ class TrainStep:
             n: {k: t.to(params[n].device) for k, t in st.items()}
             for n, st in states.items()}
 
-    def _one_step(self, params: dict, inputs, lr, states):
+    def _one_step(self, params: dict, inputs, lr, states,
+                  numerics_aux: bool = False):
         """The step body of ``__call__`` and ``multi_step`` (the reference's
         ``_build_one_step`` :347-410): the loss and gradients of each
         micro-batch, their mean, the clip and the update.  Returns the f32
         loss, the new parameters and the new optimizer state; the caller
-        writes them."""
+        writes them.  With ``numerics_aux`` (``FLAGS_numerics``, reference
+        ``:403-405``) a fourth item: ``numerics.compute_aux`` of the
+        pre-clip gradients, the parameters before and after the update
+        (copied first when the update writes them in place)."""
         micro = self.accumulate_steps
         parts = [i.reshape((micro, -1) + tuple(i.shape[1:])) for i in inputs]
         losses, grads = [], None
@@ -277,13 +281,20 @@ class TrainStep:
                 n: grads[n] + g_k[n] for n in grads}
         if micro > 1:
             grads = {n: g / micro for n, g in grads.items()}
+        loss = torch.stack(losses).mean()
         with torch.no_grad(), torch.profiler.record_function(
                 "TrainStep.update"):
+            before = {n: p.detach() for n, p in params.items()}
+            if numerics_aux and self.donate:
+                before = {n: t.clone() for n, t in before.items()}
             new_params, states = apply_functional_update(
                 self.optimizer, grads,
                 {n: p.detach() for n, p in params.items()}, states, lr,
                 donate=self.donate)
-        return torch.stack(losses).mean(), new_params, states
+            if numerics_aux:
+                return loss, new_params, states, numerics.compute_aux(
+                    grads, before, new_params, loss)
+        return loss, new_params, states
 
     @staticmethod
     def _write(params: dict, new_params: dict):
@@ -334,12 +345,15 @@ class TrainStep:
                 {n: p.detach() for n, p in params.items()})
         inputs = [torch.as_tensor(i).to(dev) for i in inputs]
         site = "TrainStep" if steps is None else "TrainStep.multi_step"
+        armed = steps is None and numerics.enabled()
         cause = None
         if lead:
             named = [p for _, p in self.model.named_parameters()]
             sig = _sig_of(named, "T") + _sig_of(inputs, "A")
             if steps is not None:
                 sig = ("multi", bool(unroll)) + sig
+            if armed:
+                sig = sig + ("numerics",)
             cause = self._note_signature(sig, site)
         # a fill kernel: the rate reaches the card as a launch argument
         lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
@@ -359,8 +373,8 @@ class TrainStep:
         ) if lead and steps is None else contextlib.nullcontext()
         with span, RecordEvent(site), health.timed_compile(site, cause):
             for batch in batches:
-                loss, new_params, states = self._one_step(cur, batch, lr,
-                                                          states)
+                loss, new_params, states, *aux = self._one_step(
+                    cur, batch, lr, states, numerics_aux=armed)
                 losses.append(loss)
                 if hold:
                     cur = {n: t.requires_grad_()
@@ -369,6 +383,13 @@ class TrainStep:
                     self._write(params, new_params)
                     self._opt_states = states
         losses = losses[0] if steps is None else torch.stack(losses)
+        if armed and lead and aux:
+            # published before the check_nan_inf raise below, so the
+            # provenance record is readable after it (reference :596-606)
+            rec = numerics.NumericsRecord(
+                list(params), aux[0], step=int(self.optimizer._global_step))
+            numerics.publish(rec)
+            self.last_numerics = rec
         if check and not bool(torch.isfinite(losses).all()):
             if hold:
                 with torch.no_grad():

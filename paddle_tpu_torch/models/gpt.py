@@ -419,7 +419,10 @@ def _embed(p: dict, ids, plan: _Plan):
         from paddle_tpu_torch.distributed.tp_layers import vocab_lookup
         x = vocab_lookup(p["wte"], ids, plan.mp_group)
     else:
-        x = p["wte"][ids]
+        # F.embedding, not wte[ids]: its CPU backward adds each row's
+        # gradients in index order, where index_put_'s sums in thread
+        # order, and every pp stage must compute the same wte gradient
+        x = F.embedding(ids, p["wte"])
     return x + p["wpe"][off:off + w][None, :, :]
 
 

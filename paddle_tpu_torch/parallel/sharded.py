@@ -389,7 +389,10 @@ class ShardedTrainStep(TrainStep):
             if self.sharding_stage == 3:
                 self._release_params()
 
-    def _one_step(self, params: dict, inputs, lr, states):
+    def _one_step(self, params: dict, inputs, lr, states,
+                  numerics_aux: bool = False):
+        # FLAGS_numerics is not read here: the mp / pp / sharding shards
+        # would need their sums gathered over the mesh (ROADMAP)
         micro = self.accumulate_steps
         specs = self.input_specs or [None] * len(inputs)
         if len(specs) != len(inputs):

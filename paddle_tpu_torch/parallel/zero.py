@@ -61,11 +61,23 @@ tracing, the port adds no synchronisation); ``opt_state_bytes_per_replica``,
 ranks of a ``LoopbackWorld`` only rank 0's thread consults the fault point
 and records, as the reference's one controller does.
 
+``FLAGS_numerics`` arms the numerics plane (reference ``:376-389``,
+``:441-513``): ``numerics.compute_aux`` of the pre-clip gradient chunks
+and the chunks before and after the update, its sums taken over the dp
+group in rank order and its maxima over it, so every rank holds the
+replicated step's global vectors; rank 0 publishes the record.
+
+Checkpoint interop (reference ``:572-640``): ``checkpoint_extra_meta``
+stamps the shard bookkeeping, ``checkpoint_opt_states`` hands
+``distributed.checkpoint`` each rank's moment chunks under their index
+windows (every rank writes its own files, the reference's names), and
+``load_checkpoint_state`` / ``adopt_opt_state`` take moments saved at any
+dp width, or by a replicated step, onto this step's own chunks.
+
 Not ported, each raising or absent: LARS (``LarsMomentum``, rejected by
 name: its per-parameter norms would be taken over 1/dp chunks), a grad clip
-without ``functional_clip`` (the reference skips it), checkpoint interop
-(``checkpoint_extra_meta``, ``adopt_opt_state``), the parity probe (item
-6b) and ``analyze``.
+without ``functional_clip`` (the reference skips it), the parity probe
+(item 6b) and ``analyze``.
 """
 from __future__ import annotations
 
@@ -82,7 +94,7 @@ from paddle_tpu_torch.distributed.wire import (COLLECTIVE_WIRE_DTYPES,
                                                normalize_wire,
                                                quantize_rows_torch,
                                                wire_nbytes)
-from paddle_tpu_torch.framework import chaos, health, monitor
+from paddle_tpu_torch.framework import chaos, health, monitor, numerics
 from paddle_tpu_torch.framework.observability import flight, tracer
 from paddle_tpu_torch.jit import loss_and_grads, loss_closure
 from paddle_tpu_torch.parallel.dp_meta import (_amp_dtype, average_buffers,
@@ -316,19 +328,118 @@ class ShardedUpdateTrainStep:
                         raise
 
     # -- the step -----------------------------------------------------------
+    # -- checkpoint interop (reference :572-640) ----------------------------
+    def checkpoint_extra_meta(self) -> dict:
+        """Shard bookkeeping stamped into the checkpoint's metadata, so a
+        restore at another dp width strips the save-time padding."""
+        self._ensure_state()
+        return {"zero": {
+            "dp": self.dp, "chunk": self.chunk, "wire": self.wire,
+            "leaves": {n: {"size": s.size, "padded": s.padded}
+                       for n, s in self._specs.items()}}}
+
+    def checkpoint_group(self):
+        """The ranks that write one checkpoint together."""
+        return self.mesh.group
+
+    def checkpoint_opt_states(self) -> dict:
+        """This rank's optimizer state for ``distributed.checkpoint``:
+        each elementwise slot a ``ShardedLeaf`` window of the (padded,)
+        vector (the whole vector at dp = 1, as the reference's
+        unsplit shard), scalars as they are."""
+        from paddle_tpu_torch.distributed.checkpoint import ShardedLeaf
+        self._ensure_state()
+        r = self.mesh.rank
+        out = {}
+        for n, slots in self._opt_shards.items():
+            spec = self._specs[n]
+            window = (slice(None),) if self.dp == 1 else (
+                slice(r * spec.shard_len, (r + 1) * spec.shard_len),)
+            out[n] = {k: ShardedLeaf((spec.padded,), v.dtype,
+                                     [(window, v)]) if v.dim() == 1 else v
+                      for k, v in slots.items()}
+        return out
+
+    def adopt_opt_state(self, tree, zero_meta: Optional[dict] = None):
+        """Install checkpointed moments, resharding as needed: flat padded
+        vectors of a ZeRO checkpoint at any save-time dp
+        (``zero_meta["leaves"]`` names the logical sizes) or
+        parameter-shaped leaves of a replicated step's; scalars whole."""
+        self._ensure_state()
+        saved = (zero_meta or {}).get("leaves", {})
+        r = self.mesh.rank
+        new = {}
+        for n, slots in tree.items():
+            if n not in self._specs:
+                raise ValueError(f"checkpoint moment {n!r} has no "
+                                 "matching parameter")
+            spec = self._specs[n]
+            dev = self._opt_shards[n][next(iter(self._opt_shards[n]))].device
+            out = {}
+            for k, v in slots.items():
+                if v.dim() == 0:
+                    out[k] = v.to(dev)
+                    continue
+                flat = v.reshape(-1)
+                meta_pad = saved.get(n, {}).get("padded")
+                if flat.numel() == spec.size:
+                    pass                     # replicated / logical leaf
+                elif flat.numel() in (meta_pad, spec.padded):
+                    flat = flat[:spec.size]  # strip save-time padding
+                else:
+                    raise ValueError(
+                        f"moment {n!r}/{k!r} has {flat.numel()} elements; "
+                        f"expected {spec.size} (logical) or a padded "
+                        f"length ({meta_pad or spec.padded})")
+                flat = F.pad(flat, (0, spec.padded - spec.size))
+                out[k] = flat[r * spec.shard_len:
+                              (r + 1) * spec.shard_len].to(dev).clone()
+            new[n] = out
+        self._opt_shards = new
+        if lead_thread():
+            monitor.stat_set("opt_state_bytes_per_replica",
+                             self.opt_state_bytes_per_replica())
+
+    def load_checkpoint_state(self, state: dict,
+                              zero_meta: Optional[dict] = None):
+        """Install a full checkpoint ``state`` tree (params, buffers,
+        opt_states, global_step): ``checkpoint.load_train_state``'s hook
+        for this step."""
+        with torch.no_grad():
+            for n, p in self.model.named_parameters():
+                p.copy_(state["params"][n].to(p.device))
+            for n, b in self.model.named_buffers():
+                if b is not None and n in state.get("buffers", {}):
+                    b.copy_(state["buffers"][n].to(b.device))
+        self._specs = None
+        self._opt_shards = None
+        self._ensure_state()
+        opt_states = state.get("opt_states") or {}
+        if opt_states:
+            self.adopt_opt_state(opt_states, zero_meta)
+        self.optimizer._global_step = int(state.get("global_step", 0))
+        return state
+
     def __call__(self, *inputs):
         t_start = time.perf_counter()
         lead = lead_thread()
         params = self._params()
         self._ensure_state()
         wire_bytes = self.collective_wire_bytes()
+        armed = numerics.enabled()
         span = tracer.start_span if lead else _no_span
         with span("zero.step", attrs={
                 "step": int(self.optimizer._global_step), "wire": self.wire,
                 "dp": self.dp, "ring": self.ring}):
             if lead:
                 self._collective_guard()
-            loss = self._step(params, inputs, span, wire_bytes)
+            loss, aux = self._step(params, inputs, span, wire_bytes, armed)
+            if armed and lead:
+                rec = numerics.NumericsRecord(
+                    list(self._specs), aux,
+                    step=int(self.optimizer._global_step))
+                numerics.publish(rec)
+                self.last_numerics = rec
         self.optimizer._global_step += 1
         if lead:
             per_step = (wire_bytes["reduce_scatter"]
@@ -347,7 +458,7 @@ class ShardedUpdateTrainStep:
                                for b in self.model.buffers())})
         return loss
 
-    def _step(self, params, inputs, span, wire_bytes):
+    def _step(self, params, inputs, span, wire_bytes, armed=False):
         dev = next(iter(params.values())).device
         lr = torch.full((), self.optimizer.get_lr(), dtype=torch.float32,
                         device=dev)
@@ -368,6 +479,10 @@ class ShardedUpdateTrainStep:
                         F.pad(g.reshape(-1), pad)).to(g.dtype)
                     pshards[n] = F.pad(p.detach().reshape(-1), pad)[
                         lo * spec.shard_len:(lo + 1) * spec.shard_len]
+            # the numerics view: the PRE-clip chunks (reference :336-339)
+            # and the chunks before the update writes them in place
+            before = ({n: t.clone() for n, t in pshards.items()}
+                      if armed else None)
             with span("zero.update", attrs={
                     "opt_state_bytes_per_replica":
                         monitor.get_stat("opt_state_bytes_per_replica")}):
@@ -381,7 +496,11 @@ class ShardedUpdateTrainStep:
                     full = self._all_gather(new_pshards[n].to(p.dtype))
                     p.copy_(full[:self._specs[n].size].view_as(p))
             average_buffers(self.model, self.mesh)
-            return mean_over(self.mesh.group, loss)
+            loss = mean_over(self.mesh.group, loss)
+            aux = numerics.compute_aux(
+                gshards, before, new_pshards, loss,
+                group=self.mesh.group) if armed else None
+            return loss, aux
 
 
 def _no_span(name, attrs=None):

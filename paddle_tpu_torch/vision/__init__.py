@@ -1,9 +1,10 @@
 """Vision of the port (port of paddle_tpu/vision): the models, the image
-transforms, the detection ops (``ops``: box utilities, RoI ops, the NMS
-family, the proposal and target stages) and the image-backend switch."""
-from paddle_tpu_torch.vision import models, ops, transforms  # noqa: F401
+transforms, the datasets (local files only), the detection ops (``ops``:
+box utilities, RoI ops, the NMS family, the proposal and target stages)
+and the image-backend switch."""
+from paddle_tpu_torch.vision import datasets, models, ops, transforms  # noqa: F401,E501
 
-__all__ = ["models", "transforms", "ops", "set_image_backend",
+__all__ = ["models", "datasets", "transforms", "ops", "set_image_backend",
            "get_image_backend"]
 
 

@@ -391,12 +391,13 @@ PENDING = [("distributed", n, None) for n in (
     ("distributed.fleet", n, None) for n in ("init_worker", "ps_client",
                                              "init_server", "run_server",
                                              "stop_worker")] + [
-    ("distributed.fleet", "save_inference_model", "5"),
-    ("distributed.fleet", "save_persistables", "5"),
-    ("distributed", "checkpoint", "5"), ("distributed.fleet.utils", "fs", "5"),
+    ("distributed.fleet", "save_inference_model", None),
+    ("distributed.fleet", "save_persistables", None),
+    ("distributed", "checkpoint", None),
+    ("distributed.fleet.utils", "fs", None),
     ("distributed", "elastic", "6b"), ("distributed", "launch", "6b"),
     ("parallel", "parity", "6b")] + [
-    ("framework", n, "5") for n in ("numerics", "auto_checkpoint")] + [
+    ("framework", n, None) for n in ("numerics", "auto_checkpoint")] + [
     ("framework", n, "6b") for n in ("incident", "resilient",
                                      "ResilientTrainStep")] + [
     ("framework", "errors", "7"), ("framework", "analysis", "8")] + [
@@ -406,12 +407,13 @@ PENDING = [("distributed", n, None) for n in (
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 5, 6b, 7 and 8 raises
+    """Every reference name left for items 6b, 7 and 8 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; item 3b's, 3c's, 4a's, 4b's and 6a's names (item None) are real,
-    not stand-ins (the ``pipeline``, ``ps``, ``ps.service`` and
-    ``ps.graph`` submodules, the datasets, fleet's PS lifecycle, the
-    planes); a name neither package has is an AttributeError."""
+    it; item 3b's, 3c's, 4a's, 4b's, 5's and 6a's names (item None) are
+    real, not stand-ins (the ``pipeline``, ``ps``, ``ps.service`` and
+    ``ps.graph`` submodules, the datasets, fleet's PS lifecycle and
+    savers, the checkpoints, ``fs``, numerics, the planes); a name
+    neither package has is an AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")

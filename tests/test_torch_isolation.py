@@ -70,7 +70,16 @@ def test_every_module_imports_with_jax_blocked():
               "models.rank", "framework.monitor", "framework.locks",
               "framework.chaos", "framework.observability",
               "framework.health", "profiler", "distributed.ps.service",
-              "distributed.ps.graph", "distributed.dataset", "ops.native"):
+              "distributed.ps.graph", "distributed.dataset", "ops.native",
+              "io", "io._worker", "io.dataset_cache", "io.pipeline",
+              "vision.datasets", "text", "text.datasets", "dataset",
+              "dataset.common", "dataset.mnist", "dataset.cifar",
+              "dataset.imdb", "dataset.imikolov", "dataset.uci_housing",
+              "dataset.movielens", "dataset.flowers", "dataset.voc2012",
+              "dataset.wmt14", "dataset.wmt16", "dataset.conll05",
+              "reader", "distributed.fleet.utils.fs",
+              "distributed.checkpoint", "distributed.durable",
+              "framework.numerics", "framework.auto_checkpoint"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"
@@ -423,3 +432,41 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_data_and_state_planes_run_with_jax_blocked(tmp_path):
+    """A DataLoader through the ingest pipeline into an armed TrainStep,
+    a committed generation saved and restored, in a process where jax,
+    ml_dtypes and paddle_tpu cannot be imported."""
+    code = f"""
+import sys
+for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):
+    sys.modules[name] = None
+import numpy as np, torch
+from paddle_tpu_torch import io
+from paddle_tpu_torch.distributed.durable import CheckpointManager
+from paddle_tpu_torch.framework.flags import set_flags
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.optimizer import Adam
+set_flags({{"numerics": True}})
+x = np.arange(24, dtype=np.float32).reshape(8, 3)
+ds = io.TensorDataset([x, x[:, :1]])
+loader = io.DataLoader(ds, batch_size=4, collate_fn=io.numpy_collate)
+step = TrainStep(torch.nn.Linear(3, 1), lambda m, a, b: ((m(a) - b) ** 2).mean(),
+                 Adam(learning_rate=0.1))
+for a, b in io.IngestPipeline(loader, device="cpu"):
+    step(a, b)
+assert step.last_numerics.finite()
+mgr = CheckpointManager({str(tmp_path)!r})
+mgr.save(step, 1)
+fresh = TrainStep(torch.nn.Linear(3, 1), step.loss_fn, Adam(learning_rate=0.1))
+assert mgr.restore(fresh) == 1
+assert torch.equal(fresh.model.weight, step.model.weight)
+assert not any(m in sys.modules and sys.modules[m] is not None
+               for m in ('jax', 'paddle_tpu', 'ml_dtypes'))
+print('ok')
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
