@@ -507,16 +507,18 @@ Phases, in order; any failure ends the script with a non-zero exit:
              set to 0 before each of phases 45-46 and their launches join
              the kernel table's.
 
-48. tp-gpt — GPT-2 345M (24 layers, B=8, S=1024, remat=False) at mp = 2
+48. tp-gpt — GPT-2 345M's width at 8 layers (B=8, S=1024, remat=False;
+             the depth cut from 24, each rank's path the same) at mp = 2
              on two LoopbackWorld ranks (threads on the one card: every
              time is the simulation's, NCCL at two or more ranks is
              unmeasured): bf16 serving, the gathered logits and the loss
              against mp = 1, beside a planted qkv shard cut contiguously
              instead of by head; 3 ShardedTrainStep steps (O2 bf16,
-             AdamW(1e-4)) against the train phase's losses and a one-rank
-             TrainStep's parameters, both ranks' gathered parameters
-             bitwise equal, each rank's parameter bytes, the host hop's
-             bytes, step ms, peak bytes, 24 launches of #1-#3 a rank a
+             AdamW(1e-4)) against a one-rank TrainStep's losses and
+             parameters (that run twice, bitwise), both ranks' gathered
+             parameters bitwise equal, each rank's parameter bytes, the
+             host hop's bytes, step ms, peak bytes, 8 launches of #1-#3 a
+             rank a
              step; dp x mp x sp = 2 x 2 x 2 (8 threads, 2 layers, f32,
              SGD) against one-rank TrainStep on the global batch; fleet
              with hybrid_configs {"mp_degree": 2} builds that step.
@@ -524,15 +526,15 @@ Phases, in order; any failure ends the script with a non-zero exit:
              S = 8192, D = 128, causal, bf16) at sp = 2 and 4 against
              #1-#3 on the whole sequence, r + 1 launches of each on rank
              r, beside three planted faults (every chunk causal, a merge
-             without the chunks' lse, delta from a chunk's output); GPT-2
-             345M at sp = 2 served against sp = 1 and trained 3 steps
-             against the train phase's losses.  The launches of phases
+             without the chunks' lse, delta from a chunk's output); phase
+             48's model at sp = 2 served against sp = 1 and trained 3 steps
+             against one-rank TrainStep.  The launches of phases
              48-49 join the kernel table's and are its tp_sp_launches.
-50. pp-gpt — GPT-2 345M at pp = 2 (12 layers a stage on two
+50. pp-gpt — phase 48's model at pp = 2 (4 layers a stage on two
              LoopbackWorld threads, 4 microbatches of 2 rows) in both
              schedules (F-then-B, 1F1B): f32 and bf16 serving against
              pp = 1; one f32 SGD step and 3 O2 bf16 AdamW(1e-4) steps
-             against one-rank TrainStep, 48 launches each of #1-#3 a rank
+             against one-rank TrainStep, 16 launches each of #1-#3 a rank
              a step, the live microbatch graphs by stage (4 under
              F-then-B, 2 and 1 under 1F1B), peak bytes by schedule, beside
              three planted faults (the boundary's input gradient not sent
@@ -613,8 +615,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
              streams bitwise the sequential loader's, every training batch
              on the card bitwise its host array, the worker absent from
              the card's compute apps, finite losses, every parameter moved.
-60. gpt-durable — bench_gpt2_345m's step (B=8, S=1024, remat=False, O2
-             bf16, AdamW(1e-4)) through the durable-state plane: a sync
+60. gpt-durable — bench_gpt2_345m's step at 8 of its 24 layers (B=8,
+             S=1024, remat=False, O2 bf16, AdamW(1e-4); a 1.8 GB
+             generation) through the durable-state plane: a sync
              generation after 2 steps, an async one while a step runs
              (its files the sync serialization of that moment by crc32
              and bytes, deep-verified), a fresh step restored from it
@@ -625,6 +628,32 @@ Phases, in order; any failure ends the script with a non-zero exit:
              recompute, a NaN in lnf_b's gradient named by
              first_bad_leaf, the synchronisations of a step armed and
              disarmed; save and load GB/s, bytes on disk, free space.
+61. resilient-gpt — bench_gpt2_345m's step in ResilientTrainStep
+             (snapshot_every=1, attach_durable) with the incident ring,
+             numerics and replica parity armed, 6 calls, the 3rd
+             poisoned by the chaos point train.step_grads: one skip and
+             one restore, losses and parameters bitwise an unwrapped run
+             without the poisoned batch, first_bad_leaf named, the
+             incident bundle verified and referencing generation 1,
+             tools/replay.py and its --bisect naming the leaf and the
+             step; a run ledger record, blame of the spans and of the
+             profiler's trace, a MetricsReporter pushing to a
+             CollectorServer; snapshot GB/s, ms and synchronisations a
+             call armed and disarmed.
+62. parity-numerics — the replica parity probe at dp = 2 (LoopbackWorld
+             threads, GPT-2 345M's width, 2 layers, ShardedUpdateTrainStep
+             on the f32 wire): the device hash bitwise the host's, a bit
+             flipped in one replica named, disarmed bitwise and with no
+             added synchronisation; then ShardedTrainStep's numerics
+             record at mp = 2 against an f64 recompute, beside a planted
+             record without the other rank's shard.
+63. ops-planes — python -m paddle_tpu_torch.distributed.launch with an
+             ElasticAgent on a FileStore runs one worker (GPT-2 345M's
+             width, 4 layers) that commits generations;
+             elastic.worker_hang trips the progress deadline, and the
+             replacement resumes from the newest generation bitwise the
+             uninterrupted run; seconds to recover; the agent holds no
+             context on the card.  (The autopilot leg runs in phase 57.)
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with the kernel table, and the result line
@@ -948,6 +977,72 @@ def log(msg):
 
 def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+class PhaseClock:
+    """Each phase's wall time, logged as ``<name> phase (<n>): <s> s of
+    wall time`` when the next phase begins (or at ``end()``); every phase
+    of main() runs under it, and the JSON row carries the seconds as
+    ``phase_wall_s``."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._open = None
+
+    def begin(self, n, name):
+        self.end()
+        self._open = (n, name, time.perf_counter())
+
+    def end(self):
+        if self._open is None:
+            return
+        n, name, t0 = self._open
+        self._open = None
+        self.seconds[n] = time.perf_counter() - t0
+        log(f"{name} phase ({n}): {self.seconds[n]:.1f} s of wall time")
+
+
+INIT_DRAWS_KEPT = 6             # configurations whose initial draws are kept
+
+
+def draw_once():
+    """Make GPT's and BERT's ``init_params`` draw each configuration's
+    initial parameters once in this process: the script builds GPT-2 345M
+    from the same seed many times, and each draw of its 355 M normals
+    takes ~8 s of one host core.  A later build gets a copy of the same
+    arrays (the values are those of a fresh draw: one seeded stream a
+    configuration); the newest INIT_DRAWS_KEPT configurations are kept.
+    The draws run on one background thread; returns ``prefetch(config)``,
+    which starts a configuration's draw without waiting for it (main
+    starts GPT-2 345M's and BERT-base's while nvcc builds the kernels)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.models import bert, gpt
+    pool = ThreadPoolExecutor(1)
+    modules = {}
+    for mod, fields in ((gpt, ()), (bert, ("type_vocab_size",))):
+        draw, kept, lock = mod.init_params, {}, threading.Lock()
+
+        def drawn(c, draw=draw, kept=kept, lock=lock, fields=fields):
+            key = tuple(getattr(c, f) for f in (
+                "seed", "initializer_range", "num_layers", "hidden_size",
+                "ffn_size", "vocab_size", "max_seq_len") + fields)
+            with lock:
+                if key not in kept:
+                    if len(kept) >= INIT_DRAWS_KEPT:
+                        kept.pop(next(iter(kept)))
+                    kept[key] = pool.submit(draw, c)
+                kept[key] = kept.pop(key)            # the newest last
+                return kept[key]
+
+        def init_params(c, drawn=drawn):
+            return {n: a.copy() for n, a in drawn(c).result().items()}
+        mod.init_params = init_params
+        modules[mod.__name__.rsplit(".", 1)[1]] = drawn
+
+    def prefetch(c):
+        modules["bert" if hasattr(c, "type_vocab_size") else "gpt"](c)
+    return prefetch
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -4289,11 +4384,13 @@ def nn_breadth(F, power):
         ins = [t.detach().to("cuda") for t in inputs]
         wg = w.to("cuda")
         outs, grads, _ = breadth_run(fn, ins, wg)
-        val = scaled_err(outs[0].cpu(), cpu_out[0])
-        exact = all(torch.equal(a.cpu(), b)
+        # the CPU's results go to the card, where the measures are taken
+        val = scaled_err(outs[0], cpu_out[0].to("cuda"))
+        exact = all(torch.equal(a, b.to("cuda"))
                     for a, b in zip(outs[1:], cpu_out[1:]))
-        grad = max((scaled_err(a.cpu(), b) for a, b in zip(grads, cpu_grads)
-                    if b is not None), default=0.0)
+        grad = max((scaled_err(a, b.to("cuda"))
+                    for a, b in zip(grads, cpu_grads) if b is not None),
+                   default=0.0)
         ms = cuda_ms(lambda: breadth_run(fn, ins, wg), reps=3, warmup=1)
         rows[name] = {"fwd_bwd_ms": ms, "value_err": val, "grad_err": grad,
                       "exact_outputs_equal": exact}
@@ -4614,26 +4711,39 @@ def sparse_embedding_phase(nn, topt, SelectedRows, power):
     return rows
 
 
-def norm_cases(nn, F, dev, dtype):
-    """norm-breadth's (name, fn, inputs) at ResNet-50 stage 2's
-    activation NB_SHAPE in ``dtype`` on ``dev``, inputs from
-    default_rng(0): each fn returns its output and the tensors whose
-    gradient is compared."""
+def norm_draws():
+    """norm-breadth's inputs as numpy f32 arrays from default_rng(0),
+    drawn once for both devices and both dtypes: x at ResNet-50 stage 2's
+    activation NB_SHAPE, the norms' weight and bias, the 1x1 conv's
+    weight."""
     import numpy as np
-    import torch
     r = np.random.default_rng(0)
     c = NB_SHAPE[1]
 
     def n(*shape, scale=1.0, shift=0.0):
-        a = r.standard_normal(shape).astype(np.float32) * scale + shift
-        return torch.as_tensor(a, device=dev).to(dtype)
+        return r.standard_normal(shape).astype(np.float32) * scale + shift
     x = n(*NB_SHAPE, shift=0.5)
     w, b = n(c, scale=0.2, shift=1.0), n(c)
+    conv_w = r.standard_normal((NB_CONV_OUT, c, 1, 1)).astype(
+        np.float32) * 0.05
+    return x, w, b, conv_w
+
+
+def norm_cases(nn, F, dev, dtype, draws):
+    """norm-breadth's (name, fn, inputs) from ``draws`` (norm_draws) in
+    ``dtype`` on ``dev``: each fn returns its output and the tensors
+    whose gradient is compared."""
+    import torch
+    x_np, w_np, b_np, conv_w = draws
+    c = NB_SHAPE[1]
+
+    def t(a):
+        return torch.as_tensor(a, device=dev).to(dtype)
+    x, w, b = t(x_np), t(w_np), t(b_np)
     xh = x.permute(0, 2, 3, 1).contiguous()
     conv = nn.Conv2D(c, NB_CONV_OUT, 1, device="cpu")
     with torch.no_grad():
-        conv.weight.copy_(torch.as_tensor(r.standard_normal(
-            (NB_CONV_OUT, c, 1, 1)).astype(np.float32) * 0.05))
+        conv.weight.copy_(torch.as_tensor(conv_w))
     conv = nn.utils.weight_norm(conv.to(dev, dtype))
 
     def wn_conv(a):
@@ -4652,16 +4762,26 @@ def norm_cases(nn, F, dev, dtype):
     ]
 
 
-def norm_run(fn, inputs, w=None):
+def norm_run(fn, inputs, w=None, weights=None):
     """fn(*inputs) with every input differentiated: (output, gradients of
-    sum(out * w) over the inputs and the tensors fn names, w)."""
+    sum(out * w) over the inputs and the tensors fn names, w).  Without
+    ``w``, w is randn of the output's shape from a generator seeded 1,
+    drawn once a shape into ``weights`` (the same values every case and
+    dtype would draw)."""
     import torch
     ins = [t.detach().requires_grad_() for t in inputs]
     out = fn(*ins)
     out, extra = out if isinstance(out, tuple) else (out, [])
     if w is None:
-        w = torch.randn(out.shape, generator=torch.Generator().manual_seed(
-            1)).to(out.dtype)
+        key = tuple(out.shape)
+        if weights is None or key not in weights:
+            drawn = torch.randn(out.shape, generator=torch.Generator(
+                ).manual_seed(1))
+            if weights is not None:
+                weights[key] = drawn
+        else:
+            drawn = weights[key]
+        w = drawn.to(out.dtype)
     grads = torch.autograd.grad((out * w.to(out.device)).sum(),
                                 ins + extra)
     return out.detach(), grads, w
@@ -4673,20 +4793,23 @@ def norm_breadth(nn, F, power):
     (bf16) and every gradient within TOL_F32 (f32) or TOL_GRAD_BF16 (bf16)
     by scaled_err, and the forward + backward ms on the card; a planted
     fault must be above each dtype's limit: PyTorch's own LRN (alpha over
-    size) in f32, group_norm over 16 groups in bf16."""
+    size) in f32, group_norm over 16 groups in bf16.  The inputs and the
+    output weights are drawn once for every case and dtype."""
     import torch
     rows = {}
+    draws, weights = norm_draws(), {}
     for dt, (tv, tg) in ((torch.float32, (TOL_BREADTH, TOL_F32)),
                          (torch.bfloat16, (TOL_BF16, TOL_GRAD_BF16))):
         tag = str(dt).replace("torch.", "")
-        want_cases = norm_cases(nn, F, "cpu", dt)
-        for (name, fn, ins), (_, gfn, gins) in zip(
-                want_cases, norm_cases(nn, F, "cuda", dt)):
-            want, wgrads, w = norm_run(fn, ins)
+        want_cases = norm_cases(nn, F, "cpu", dt, draws)
+        check_cases = norm_cases(nn, F, "cuda", dt, draws)
+        for (name, fn, ins), (_, gfn, gins) in zip(want_cases, check_cases):
+            want, wgrads, w = norm_run(fn, ins, weights=weights)
             wg = w.to("cuda")
             got, grads, _ = norm_run(gfn, gins, wg)
-            val = scaled_err(got.float().cpu(), want.float())
-            grad = max(scaled_err(a.float().cpu(), b.float())
+            # the CPU's results go to the card, where the measure is taken
+            val = scaled_err(got, want.to("cuda"))
+            grad = max(scaled_err(a, b.to("cuda"))
                        for a, b in zip(grads, wgrads))
             ms = cuda_ms(lambda: norm_run(gfn, gins, wg), reps=3, warmup=1)
             rows[f"{name} {tag}"] = {"fwd_bwd_ms": ms, "value_err": val,
@@ -4703,23 +4826,23 @@ def norm_breadth(nn, F, power):
             if name == "local_response_norm":
                 lrn_want = want
             del want, wgrads, got, grads, wg
-        x, w_, b_ = norm_cases(nn, F, "cuda", dt)[1][2]
+        x, w_, b_ = check_cases[1][2]
         with torch.no_grad():
             if dt == torch.float32:
                 fault = "torch.nn.functional.local_response_norm"
                 err = scaled_err(torch.nn.functional.local_response_norm(
-                    x, 5, 1e-4, 0.75, 2.0).cpu(), lrn_want)
+                    x, 5, 1e-4, 0.75, 2.0), lrn_want.to("cuda"))
             else:
                 fault = "group_norm over 16 groups"
-                err = scaled_err(F.group_norm(x, 16, 1e-5, w_, b_).float()
-                                 .cpu(), gn_want.float())
+                err = scaled_err(F.group_norm(x, 16, 1e-5, w_, b_),
+                                 gn_want.to("cuda"))
         rows[f"fault {tag}"] = err
         log(f"norm-breadth: planted fault ({fault}) {tag}: {err:.3g} (tol "
             f"{tv:g})")
         if err <= tv:
             fail(f"norm-breadth: the planted {tag} fault is within the "
                  "limit")
-        del x, w_, b_, want_cases
+        del x, w_, b_, want_cases, check_cases
         torch.cuda.empty_cache()
     return rows
 
@@ -4791,9 +4914,10 @@ def rnn_amp_phase(nn, amp, power):
                      f"expected {op} in {dt}")
             tv, tg = ((TOL_RNN_BF16, TOL_RNN_GRAD_BF16) if bf
                       else (TOL_F32, TOL_F32))
-            e_out = max(scaled_err(a.float().cpu(), b.float())
+            # the CPU's results go to the card, where the measure is taken
+            e_out = max(scaled_err(a, b.to(a.device))
                         for a, b in zip(outs_g, outs_c))
-            e_grad = max(scaled_err(a.cpu(), b)
+            e_grad = max(scaled_err(a, b.to(a.device))
                          for a, b in zip(grads_g, grads_c))
             ms = cuda_ms(lambda: run(gpu, level, white), reps=3, warmup=1)
             name = f"{kind} {level}" + (" +lstm_cell" if white else "")
@@ -4802,7 +4926,7 @@ def rnn_amp_phase(nn, amp, power):
                 "ops": [list(o) for o in ops], "op_calls": len(trace)}
             if level == "O2":
                 row["fault_out_err"] = max(
-                    scaled_err(a.float().cpu(), b.float())
+                    scaled_err(a, b.to(a.device))
                     for a, b in zip(run(faulty, level, white)[0], outs_c))
             log(f"rnn-amp: {name} (B={RNN_B}, T={RNN_T}, hidden {RNN_H}), "
                 f"ops {ops} x{len(trace)}; card vs CPU: outputs and states "
@@ -6396,7 +6520,6 @@ def gpt_eval_phase(T, model, cfg, gpt_loss, set_flags, gpt_forward, power):
     embedding wte in f32, the token ids)."""
     import numpy as np
     import torch
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S)), device="cuda")
@@ -6504,12 +6627,10 @@ def gpt_eval_phase(T, model, cfg, gpt_loss, set_flags, gpt_forward, power):
     with torch.inference_mode():
         ms = {k: cuda_ms(fn, reps=3, warmup=1) for k, fn in groups.items()}
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     log(f"gpt-eval: ms a call group at the full shape {ms}; "
         f"{n / sum(ms[k] for k in ('nll', 'accuracy')) * 1e3:.0f} scored "
-        f"tokens/s (nll + accuracy); peak {peak} bytes; {wall:.1f} s of "
-        f"wall time [{power}]")
-    row = {"ms": ms, "peak_bytes": peak, "wall_s": wall, "nll": nll,
+        f"tokens/s (nll + accuracy); peak {peak} bytes [{power}]")
+    row = {"ms": ms, "peak_bytes": peak, "nll": nll,
            "gpt_loss": loss_ref, "perplexity": ppl, "accuracy1": acc1,
            "accuracy5": acc5, "quantiles": q, "median": float(out["median"]),
            "cpu_max_scaled_err": max(e for _, e in errs.values()),
@@ -6777,7 +6898,6 @@ def breadth_faults(T):
 def tensor_probe_phase(T, Constant, hidden, wte, ids, power):
     """tensor-probe (38).  Returns the phase's row."""
     import torch
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     H = hidden.shape[-1]
     X = hidden[:, :-1].reshape(-1, H).float()
@@ -6934,10 +7054,9 @@ def tensor_probe_phase(T, Constant, hidden, wte, ids, power):
     if not all(caught.values()):
         fail(f"a naive call passes the breadth check: {caught}")
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     log(f"tensor-probe: ms a call group at the full shape {ms}; peak "
-        f"{peak} bytes; {wall:.1f} s of wall time [{power}]")
-    return {"ms": ms, "peak_bytes": peak, "wall_s": wall,
+        f"{peak} bytes [{power}]")
+    return {"ms": ms, "peak_bytes": peak,
             "lambda": float(lam), "cond": cond, "rank": rank,
             "residual": resid, "agreement": agree, "invariants": inv,
             "checks": checks, "cpu64": cpu64, "breadth_err": worst,
@@ -7012,7 +7131,6 @@ def gpt_checkpoint_phase(base, gpt_loss, amp, AdamW, CosineAnnealingDecay, fa,
     import os
     import tempfile
     import torch
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
 
     def make():
@@ -7097,7 +7215,6 @@ def gpt_checkpoint_phase(base, gpt_loss, amp, AdamW, CosineAnnealingDecay, fa,
                 "flash_attention_bwd_dkv": fa.launches_dkv,
                 "fused_adam_bf16": fused_adam.launches_bf16}
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     log(f"gpt-checkpoint: GPT-2 345M decorate(O2), AdamW(CosineAnnealing"
         f"Decay({EAGER_LR:g}), beta2=0.99, use_fused=True), GradScaler, "
         f"B={ids_t.shape[0]}, S={ids_t.shape[1]}: losses {losses}; "
@@ -7111,7 +7228,7 @@ def gpt_checkpoint_phase(base, gpt_loss, amp, AdamW, CosineAnnealingDecay, fa,
         f"{loss_r!r}, the original repeated {loss_rep!r}; entries that "
         f"differ and the largest difference over scale: resumed "
         f"{diff_r}, repeat {diff_rep}; launches {launches}; peak {peak} "
-        f"bytes; {wall:.1f} s of wall time [{power}]")
+        f"bytes [{power}]")
     if any(bad.values()):
         fail(f"gpt-checkpoint: a loaded tensor is not the saved one: {bad}")
     if not all(caught.values()):
@@ -7132,8 +7249,7 @@ def gpt_checkpoint_phase(base, gpt_loss, amp, AdamW, CosineAnnealingDecay, fa,
            "load_gb_per_s": nbytes / t_load / 1e9, "losses": losses,
            "step3_losses": [loss_o, loss_r, loss_rep],
            "resumed_diff": list(diff_r), "repeat_diff": list(diff_rep),
-           "planted_faults_caught": caught, "peak_bytes": peak,
-           "wall_s": wall}
+           "planted_faults_caught": caught, "peak_bytes": peak}
     del orig, resumed, saved_m, saved_o, after_o
     torch.cuda.empty_cache()
     return row, launches
@@ -7179,7 +7295,6 @@ def gpt_sample_phase(tpt, F, base, fa, power):
     import numpy as np
     import torch
     T = tpt.tensor
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model = copy.deepcopy(base)
     v = model.config.vocab_size
@@ -7218,7 +7333,6 @@ def gpt_sample_phase(tpt, F, base, fa, power):
         naive_outside = outside_nucleus(lasts, naive)
     caught = {"sampler ignoring the nucleus": naive_outside > 0}
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     step_ms = gen_s / SAMPLE_NEW * 1e3
     log(f"gpt-sample: GPT-2 345M (bf16), {B} x {SAMPLE_PROMPT} prompt, "
         f"{SAMPLE_NEW} tokens a row by full re-forward, topk({SAMPLE_TOPK}) "
@@ -7228,8 +7342,7 @@ def gpt_sample_phase(tpt, F, base, fa, power):
         f"set_rng_state replays {replay}; tokens outside the kept set "
         f"{outside} (the nucleus ignored: {naive_outside}); {step_ms:.3f} ms "
         f"a step of {B} tokens, {B * SAMPLE_NEW / gen_s:.1f} generated "
-        f"tokens/s; launches {launches}; peak {peak} bytes; {wall:.1f} s "
-        f"of wall time [{power}]")
+        f"tokens/s; launches {launches}; peak {peak} bytes [{power}]")
     if not torch.equal(first, again) or torch.equal(first, other):
         fail("gpt-sample: a seed does not fix the tokens")
     if not replay or outside:
@@ -7241,7 +7354,7 @@ def gpt_sample_phase(tpt, F, base, fa, power):
             model.config.num_layers:
         fail(f"gpt-sample: {launches} flash forward launches")
     row = {"ms_a_step": step_ms, "generated_tokens_per_s":
-           B * SAMPLE_NEW / gen_s, "peak_bytes": peak, "wall_s": wall,
+           B * SAMPLE_NEW / gen_s, "peak_bytes": peak,
            "planted_faults_caught": caught,
            "naive_tokens_outside": naive_outside}
     del model
@@ -7494,7 +7607,6 @@ def bert_ragged_phase(tpt, Bert, bert_base, fa, power):
     import torch
     T = tpt.tensor
     F = tpt.nn.functional
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     dev, bsz, s_len = "cuda", BERT_B, BERT_S
     cfg = bert_base(max_seq_len=s_len)
@@ -7592,7 +7704,6 @@ def bert_ragged_phase(tpt, Bert, bert_base, fa, power):
     torch.cuda.synchronize()
     float((torch.ones(8, device=dev) * 2).sum())
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     log(f"bert-ragged: BERT-base (bf16) over {bsz} sentences of "
         f"{RAGGED_MIN}-{s_len} tokens ({int(lens_np.sum())} in all) padded "
         f"to {bsz} x {s_len}: {fwd_launches} masked forward launches, "
@@ -7606,7 +7717,7 @@ def bert_ragged_phase(tpt, Bert, bert_base, fa, power):
         f"{'; differ: ' + str(bad_b) if bad_b else ''}; samplers "
         f"({SAMPLER_DRAWS} draws) {stats}; double backward card vs CPU "
         f"{dbl}; top-level aliases card vs CPU {alias}; ms {ms}; peak "
-        f"{peak} bytes; {wall:.1f} s of wall time [{power}]")
+        f"{peak} bytes [{power}]")
     # the backward replays each remat layer's forward
     want = {"flash_attention_fwd_masked": cfg.num_layers * (1 + cfg.remat),
             "flash_attention_bwd_dq_masked": cfg.num_layers,
@@ -7624,7 +7735,7 @@ def bert_ragged_phase(tpt, Bert, bert_base, fa, power):
         fail(f"breadth: names not run {missing}, samplers {stats}")
     if not dbl[0] or dbl[1] > TOL_F32 or not alias[0] or alias[1] > TOL_F32:
         fail(f"breadth: double backward {dbl}, aliases {alias}")
-    row = {"ms": ms, "peak_bytes": peak, "wall_s": wall,
+    row = {"ms": ms, "peak_bytes": peak,
            "tokens": int(lens_np.sum()),
            "cpu_max_scaled_err": max(e for _, e in errs.values()),
            "breadth_err": worst, "embedding_bag_vs_pooled": bag_err,
@@ -7713,7 +7824,6 @@ def int8_resnet18_phase(resnet18, tjit, quant, power):
 
     import numpy as np
     import torch
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     torch.manual_seed(0)
     net = resnet18(num_classes=1000, device="cuda")
@@ -7792,7 +7902,6 @@ def int8_resnet18_phase(resnet18, tjit, quant, power):
     if captures != (1, 1):
         fail(f"int8-resnet18: {captures} captures at one signature")
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     row = {"top1_agreement": agree, "f32_captured_vs_eager_err": f32_err,
            "f32_captured_bitwise": f32_bitwise,
            "accumulators_bitwise": bitwise, "fc_epilogue_err": epi_err,
@@ -7801,8 +7910,7 @@ def int8_resnet18_phase(resnet18, tjit, quant, power):
            "f32_images_per_s": INT8_B / f32_ms * 1e3,
            "int8_images_per_s": INT8_B / q_ms * 1e3,
            "int8_vs_f32": f32_ms / q_ms, "f32_capture_s": f32_capture_s,
-           "int8_capture_s": q_capture_s, "peak_bytes": peak,
-           "wall_s": wall}
+           "int8_capture_s": q_capture_s, "peak_bytes": peak}
     log(f"int8-resnet18: ResNet-18, 1,000 classes, B={INT8_B} at "
         f"{INT8_HW}^2, eval; top-1 agreement {agree:.4f} (gate "
         f"{INT8_AGREE}); captured f32 vs eager {f32_err:.3e} (bitwise "
@@ -7812,8 +7920,8 @@ def int8_resnet18_phase(resnet18, tjit, quant, power):
         f"captured f32 {f32_ms:.3f} ms ({row['f32_images_per_s']:.1f} "
         f"images/s), int8 {q_ms:.3f} ms ({row['int8_images_per_s']:.1f} "
         f"images/s), int8 / f32 speed {row['int8_vs_f32']:.4f}; captures "
-        f"{f32_capture_s:.2f} s / {q_capture_s:.2f} s; peak {peak} bytes; "
-        f"{wall:.1f} s of wall time [{power}]")
+        f"{f32_capture_s:.2f} s / {q_capture_s:.2f} s; peak {peak} bytes "
+        f"[{power}]")
     del net, eager, net_q, qnet, f32, q, x, want, ref, got
     torch.cuda.empty_cache()
     return row
@@ -7843,7 +7951,6 @@ def gpt_deploy_phase(base, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
 
     import numpy as np
     import torch
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     n_layers = base.config.num_layers
     ids = torch.as_tensor(np.random.default_rng(43).integers(
@@ -7962,7 +8069,6 @@ def gpt_deploy_phase(base, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
     if not all(caught.values()):
         fail(f"gpt-deploy: a planted fault passes the check: {caught}")
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     row = {"export_s": export_s, "save_s": save_s, "load_s": load_s,
            "file_bytes": nbytes, "logits_err": errs,
            "logits_bitwise": logits_bitwise, "captures": [one, two],
@@ -7970,8 +8076,7 @@ def gpt_deploy_phase(base, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
            "loss": loss_rows, "served": served,
            "predictor_run_ms": run_ms,
            "predictor_tokens_per_s": B * S / run_ms * 1e3,
-           "planted_faults_caught": caught, "peak_bytes": peak,
-           "wall_s": wall}
+           "planted_faults_caught": caught, "peak_bytes": peak}
     log(f"gpt-deploy: GPT-2 345M (bf16), B={B}, S={S}: to_static logits "
         f"vs eager {errs['logits']:.3e} (bitwise {logits_bitwise}), B=4 "
         f"{errs['logits_b4']:.3e}, captures {one} then {two}, {cap_fwd} #1 "
@@ -7981,8 +8086,7 @@ def gpt_deploy_phase(base, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
         f"({nbytes} bytes), export {export_s:.2f} s (the to_static "
         f"capture), load {load_s:.2f} s; Predictor {served}, "
         f"{run_ms:.3f} ms a run at B={B}; planted faults told apart "
-        f"{caught}; launches {launches}; peak {peak} bytes; {wall:.1f} s "
-        f"of wall time [{power}]")
+        f"{caught}; launches {launches}; peak {peak} bytes [{power}]")
     del model, pred, bad, want
     torch.cuda.empty_cache()
     return row, launches
@@ -8042,7 +8146,6 @@ def capture_breadth_phase(tpt, tnn, tjit, static, inference, crypto, fa,
     import torch
 
     from paddle_tpu_torch.jit.dy2static import convert_to_static
-    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     bf16 = torch.bfloat16
     launches = {}
@@ -8184,7 +8287,6 @@ def capture_breadth_phase(tpt, tnn, tjit, static, inference, crypto, fa,
     if not (unique_ok and ns_ok):
         fail(f"capture-breadth: unique of NaNs {u}, namespace {ns_ok}")
     peak = torch.cuda.max_memory_allocated()
-    wall = time.perf_counter() - t_phase
     row = {"control_flow_err": {k: v[1] for k, v in flow.items()},
            "encoder_grad_err": enc_err, "encoder_dbias_err": dbias_err,
            "encrypted_bitwise": enc_bitwise, "raised": raised,
@@ -8192,7 +8294,7 @@ def capture_breadth_phase(tpt, tnn, tjit, static, inference, crypto, fa,
            "aes_encrypt_mb_per_s": AES_BYTES / enc_s / 1e6,
            "aes_decrypt_mb_per_s": AES_BYTES / dec_s / 1e6,
            "unique_nan_ok": unique_ok, "namespace_ok": ns_ok,
-           "peak_bytes": peak, "wall_s": wall}
+           "peak_bytes": peak}
     log(f"capture-breadth: dy2static and static.nn captured on the card vs "
         f"the CPU {row['control_flow_err']}; the learned-bias encoder (2 "
         f"layers of BERT-base's width, bf16, B=8, S={BERT_S}) captured: "
@@ -8203,8 +8305,8 @@ def capture_breadth_phase(tpt, tnn, tjit, static, inference, crypto, fa,
         f"AES-CTR + "
         f"HMAC {row['aes_encrypt_mb_per_s']:.4f} MB/s encrypt, "
         f"{row['aes_decrypt_mb_per_s']:.4f} MB/s decrypt; unique keeps one "
-        f"NaN {unique_ok}; the namespace {ns_ok}; peak {peak} bytes; "
-        f"{wall:.1f} s of wall time [{power}]")
+        f"NaN {unique_ok}; the namespace {ns_ok}; peak {peak} bytes "
+        f"[{power}]")
     torch.cuda.empty_cache()
     return row, launches
 
@@ -8884,6 +8986,9 @@ def syncbn_phase(resnet18, resnet50, power):
 # 0.832; the move 0.0638 (sp = 2 0.0497) against the faults' 1.08 (sp
 # 0.791); in f32 the logits read 2.5e-6, the SGD step's move 3.4e-5.
 TP_STEPS = 3
+# tp-gpt, sp-ring and pp-gpt: GPT-2 345M's width at this depth (each rank's
+# path is the same at 24; 8 divides by pp = 2 and 4)
+PAR_LAYERS = 8
 TP_LOGITS_NORM = 0.1
 TP_MOVE_L2 = 0.2
 # dp = 2 x mp = 2 x sp = 2 (8 threads) at 2 layers of GPT-2's width, f32,
@@ -9022,11 +9127,11 @@ def _ranks_equal(out):
                for n in full0)
 
 
-def one_rank_o2(base, ids_t, want_losses):
-    """The one-rank TrainStep (O2 bf16, AdamW(1e-4)) that phases 48-49
-    hold their training to: TP_STEPS steps of a copy of ``base``, which
-    must give the train phase's losses.  Returns (its parameters, base's),
-    both on the host."""
+def one_rank_o2(base, ids_t):
+    """The one-rank TrainStep (O2 bf16, AdamW(1e-4)) that phases 48-50
+    hold their training to: TP_STEPS steps of a copy of ``base``, twice,
+    the second run bitwise the first.  Returns (its losses, (its
+    parameters, base's)), the parameters on the host."""
     import copy
 
     import torch
@@ -9034,17 +9139,22 @@ def one_rank_o2(base, ids_t, want_losses):
     from paddle_tpu_torch.models import gpt_loss
     from paddle_tpu_torch.optimizer import AdamW
     init = {n: p.detach().cpu() for n, p in base.named_parameters()}
-    one = copy.deepcopy(base)
-    ts = TrainStep(one, gpt_loss, AdamW(learning_rate=1e-4),
-                   amp_level="O2", amp_dtype="bfloat16")
-    losses = [float(ts(ids_t, ids_t)) for _ in range(TP_STEPS)]
-    want = {n: p.detach().cpu() for n, p in one.named_parameters()}
-    del ts, one
-    torch.cuda.empty_cache()
-    if losses != want_losses[:TP_STEPS]:
-        fail(f"tp-gpt: one-rank TrainStep {losses} is not the train phase's "
-             f"{want_losses[:TP_STEPS]}")
-    return want, init
+    runs = []
+    for _ in range(2):
+        one = copy.deepcopy(base)
+        ts = TrainStep(one, gpt_loss, AdamW(learning_rate=1e-4),
+                       amp_level="O2", amp_dtype="bfloat16")
+        losses = [float(ts(ids_t, ids_t)) for _ in range(TP_STEPS)]
+        runs.append((losses, {n: p.detach().cpu()
+                              for n, p in one.named_parameters()}))
+        del ts, one
+        torch.cuda.empty_cache()
+    (losses, want), (again, want2) = runs
+    if again != losses or any(not torch.equal(want[n], want2[n])
+                              for n in want):
+        fail(f"tp-gpt: one-rank TrainStep is not bitwise itself: {losses}, "
+             f"{again}")
+    return losses, (want, init)
 
 
 def _serve_pair(base, axes, ids_t, fa, dtype):
@@ -9075,7 +9185,7 @@ def _serve_pair(base, axes, ids_t, fa, dtype):
 
 
 def tp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
-    """Phase 48: GPT-2 345M at mp = 2 (served in f32 and bf16, one f32 SGD
+    """Phase 48: GPT-2 345M's width at PAR_LAYERS layers at mp = 2 (served in f32 and bf16, one f32 SGD
     step, 3 O2 steps against ``ref``, ``one_rank_o2``'s parameters) against
     mp = 1; the planted contiguous qkv cut and copy_to without its sum;
     dp x mp x sp = 2 x 2 x 2 at 2 layers against one-rank TrainStep;
@@ -9092,9 +9202,9 @@ def tp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
     from paddle_tpu_torch.parallel import set_mesh
     L = cfg.num_layers
     row, launches = {}, {}
-    t_phase = time.perf_counter()
     whole_bytes = sum(p.numel() * p.element_size() for p in base.parameters())
-    log(f"tp-gpt: GPT-2 345M, B={B}, S={S}, remat=False, at mp = 2 on two "
+    log(f"tp-gpt: GPT-2 345M's width at {L} layers, B={B}, S={S}, "
+        f"remat=False, at mp = 2 on two "
         "LoopbackWorld ranks (threads) on the one card: every time is the "
         "simulation's, NCCL at two or more ranks is unmeasured")
 
@@ -9207,7 +9317,7 @@ def tp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
         fail(f"tp-gpt train: #1-#3 launched {train_launch}, not "
              f"{L} each a rank a step")
     log(f"tp-gpt train at mp = 2 (O2 bf16, AdamW(1e-4), {TP_STEPS} "
-        f"steps): losses {losses} against the train phase's "
+        f"steps): losses {losses} against one-rank TrainStep's "
         f"{want_losses[:TP_STEPS]} (max {loss_err:.3g}, limit "
         f"{TOL_LOSS_BF16}); gathered parameters: the move's error "
         f"{l2:.4g} of the move in L2 (limit {TP_MOVE_L2}), whole-move "
@@ -9300,7 +9410,6 @@ def tp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
     row["fleet_mp2_loss"] = fl[0][1]
     del fl_models
     torch.cuda.empty_cache()
-    row["phase_s"] = time.perf_counter() - t_phase
     return row, launches
 
 
@@ -9405,7 +9514,8 @@ def _ring_case(g, sp, fa, fault=None, timed=True):
 
 def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
     """Phase 49: ring attention at S = 8192 (sp = 2, 4) against #1-#3 on
-    the whole sequence, with its planted faults; GPT-2 345M at sp = 2
+    the whole sequence, with its planted faults; GPT-2 345M's width at
+    PAR_LAYERS layers at sp = 2
     served (f32, bf16) against sp = 1 and trained against ``ref``
     (``one_rank_o2``'s parameters), with the planted skip of the sum over
     sp.  Returns the readings and #1-#3's launches."""
@@ -9416,7 +9526,6 @@ def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
     from paddle_tpu_torch.optimizer import AdamW
     L = cfg.num_layers
     row, launches = {}, {}
-    t_phase = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(49)
     for sp in RING_SPS:
         out_abs, out_rel, grads, counts, fwd_ms, fb_ms = _ring_case(g, sp, fa)
@@ -9454,15 +9563,15 @@ def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
                                "faults": faults}
     torch.cuda.empty_cache()
 
-    # GPT-2 345M at sp = 2: served in f32 and bf16 against sp = 1, trained
-    # against the train phase's TrainStep (``ref``); then the planted skip
+    # GPT-2 345M's width at sp = 2: served in f32 and bf16 against sp = 1, trained
+    # against one-rank TrainStep (``ref``); then the planted skip
     # of the gradients' sum over sp
     for dtype, lim in ((torch.float32, TOL_F32),
                        (torch.bfloat16, TP_LOGITS_NORM)):
         sv, one, want_lg, _ = _serve_pair(base, {"sp": 2}, ids_t, fa, dtype)
         _add(launches, sv["launches"])
         what = str(dtype).split(".")[1]
-        log(f"sp-ring GPT-2 345M serve at sp = 2 (512 positions a rank, "
+        log(f"sp-ring GPT-2 345M's width ({L} layers) serve at sp = 2 (512 positions a rank, "
             f"{what}): gathered logits {sv['logits_err']:.4g} in norm (limit "
             f"{lim}; max |err| {sv['logits_abs_err']:.4g}), loss "
             f"{sv['loss_err']:.3g} (limit {TOL_LOSS_BF16}); "
@@ -9501,8 +9610,8 @@ def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
                                                        want_losses)),
              "move_l2_err": _move_l2(fout[0][1], want_p, init_h),
              "ranks_equal": _ranks_equal(fout)}
-    log(f"sp-ring GPT-2 345M train at sp = 2 (O2 bf16, AdamW(1e-4)): losses "
-        f"{losses} against the train phase's {want_losses[:TP_STEPS]} (max "
+    log(f"sp-ring GPT-2 345M's width ({L} layers) train at sp = 2 (O2 bf16, AdamW(1e-4)): losses "
+        f"{losses} against one-rank TrainStep's {want_losses[:TP_STEPS]} (max "
         f"{loss_err:.3g}, limit {TOL_LOSS_BF16}); gathered parameters: the "
         f"move's error {l2:.4g} of the move in L2 (limit {TP_MOVE_L2}), "
         f"whole-move measure {whole_move:.4g}; both ranks' gathered "
@@ -9528,7 +9637,6 @@ def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
                             "fault_skip_sp_sum": fault}
     del out, fout
     torch.cuda.empty_cache()
-    row["phase_s"] = time.perf_counter() - t_phase
     return row, launches
 
 
@@ -9536,8 +9644,9 @@ def sp_ring_phase(base, cfg, ids_t, fa, want_losses, ref, power):
 # Ranks are LoopbackWorld threads on the one card, each stage a thread:
 # every time below is the simulation's (the stages' work runs one after
 # another on one card, so no bubble can be read), and NCCL's p2p at two or
-# more ranks is unmeasured.  pp-gpt (50) holds GPT-2 345M at pp = 2 (12
-# layers a stage, PP_MICRO microbatches of 2 rows) to one rank.  Served:
+# more ranks is unmeasured.  pp-gpt (50) holds GPT-2 345M's width at
+# PAR_LAYERS layers at pp = 2 (4 layers a stage, PP_MICRO microbatches of
+# 2 rows) to one rank.  Served:
 # the gathered logits by ||error|| / ||logits|| at TOL_F32 in f32 and at
 # TP_LOGITS_NORM in bf16 (phase 48's limit for the same logits), the loss
 # at TOL_LOSS_BF16.  Trained: one f32 SGD(DP2_LR) step in each schedule,
@@ -9658,7 +9767,7 @@ def _pp_train(base, axes, mode, micro, ids_t, make_opt, steps, fa, **kw):
 
 
 def pp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
-    """Phase 50: GPT-2 345M at pp = 2 served (f32, bf16) against pp = 1;
+    """Phase 50: GPT-2 345M's width at PAR_LAYERS layers at pp = 2 served (f32, bf16) against pp = 1;
     one f32 SGD step in each schedule and 3 O2 AdamW steps in each
     against ``ref`` (``one_rank_o2``'s parameters), with the planted
     faults; pp = 4 in 1F1B; dp x pp x mp = 2 x 2 x 2 and pp x sp = 2 x 2
@@ -9672,8 +9781,8 @@ def pp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
     from paddle_tpu_torch.optimizer import SGD, AdamW
     L = cfg.num_layers
     row, launches = {}, {}
-    t_phase = time.perf_counter()
-    log(f"pp-gpt: GPT-2 345M, B={B}, S={S}, remat=False, at pp = 2 on two "
+    log(f"pp-gpt: GPT-2 345M's width at {L} layers, B={B}, S={S}, "
+        f"remat=False, at pp = 2 on two "
         f"LoopbackWorld ranks (threads) on the one card, {PP_MICRO} "
         "microbatches: every time is the simulation's (the stages run one "
         "after another on one card), NCCL at two or more ranks is "
@@ -9800,7 +9909,7 @@ def pp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
         live = [PP_MICRO] * 2 if mode == 0 else [2, 1]
         log(f"pp-gpt train at pp = 2, schedule_mode {mode} (O2 bf16, "
             f"AdamW(1e-4), {PP_STEPS} steps): losses {tr['losses']} against "
-            f"the train phase's {want_losses[:PP_STEPS]} (max "
+            f"one-rank TrainStep's {want_losses[:PP_STEPS]} (max "
             f"{tr['loss_err']:.3g}, limit {TOL_LOSS_BF16}); the move's error "
             f"{tr['move_l2_err']:.4g} of the move in L2 (limit {PP_MOVE_L2})"
             f", whole-move measure {tr['whole_move_err']:.4g}; both stages' "
@@ -9900,7 +10009,6 @@ def pp_gpt_phase(base, cfg, ids_t, fa, want_losses, ref, power):
         del out, got
     del small, init2, want2
     torch.cuda.empty_cache()
-    row["phase_s"] = time.perf_counter() - t_phase
     return row, launches
 
 
@@ -10009,7 +10117,6 @@ def bert_mp_phase(fa, fused_ce, power):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import Bert, bert_base, bert_pretrain_loss
     from paddle_tpu_torch.optimizer import AdamW
-    t_phase = time.perf_counter()
     cfg = bert_base(max_seq_len=BERT_S, remat=False)
     L = cfg.num_layers
     base = Bert(cfg, device="cuda")                   # f32, seed 0
@@ -10150,7 +10257,6 @@ def bert_mp_phase(fa, fused_ce, power):
         row[f"train_{kind}"] = tr
     del base
     torch.cuda.empty_cache()
-    row["phase_s"] = time.perf_counter() - t_phase
     return row, launches
 
 
@@ -10244,7 +10350,6 @@ def widedeep_phase(power):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import DeepFM, WideDeep
     from paddle_tpu_torch.optimizer import Adam
-    t_phase = time.perf_counter()
     B, feats = 4096, 1_000_000
     rng = np.random.default_rng(0)
     ids = torch.as_tensor(rng.integers(0, feats, size=(B, 26)).astype(
@@ -10309,15 +10414,15 @@ def widedeep_phase(power):
             fail(f"{name}: rows touched once moved later {c_moved}, under "
                  f"the planted lazy update {lazy_moved}")
         row[name] = r
-    row["phase_s"] = time.perf_counter() - t_phase
     return row
 
 
-def _ps_small(device, init, data, piped, table=None):
+def _ps_small(device, init, data, piped, table=None, after_step=None):
     """3 PSTrainStep steps of WideDeepHost(8, 26, 13, hidden (16,)) over a
     50,000 x 9 sync adagrad table (bench.py's CPU size, f32 transfer), a
     local one or ``table`` (a remote one): (losses, the local table or
-    None, the model's parameters)."""
+    None, the model's parameters).  ``after_step(step)`` runs after each
+    step."""
     import torch
     from paddle_tpu_torch.distributed import ps
     from paddle_tpu_torch.models import WideDeepHost, load_named_params
@@ -10338,6 +10443,8 @@ def _ps_small(device, init, data, piped, table=None):
             step.prefetch(ids[j + 1])
         losses.append(float(step(ids[j], torch.as_tensor(x[j], device=device),
                                  torch.as_tensor(y[j], device=device))))
+        if after_step is not None:
+            after_step(step)
     step.flush()
     local = getattr(emb.table, "_table", None)
     return losses, None if local is None else local.copy(), {
@@ -10358,7 +10465,6 @@ def widedeep_ps_phase(power):
     from paddle_tpu_torch.distributed import ps
     from paddle_tpu_torch.models import WideDeepHost
     from paddle_tpu_torch.optimizer import Adam
-    t_phase = time.perf_counter()
     row = {}
     # the card against the CPU at bench.py's CPU size first (small)
     init = {n: p.detach() for n, p in WideDeepHost(
@@ -10492,7 +10598,6 @@ def widedeep_ps_phase(power):
     if push_err > TOL_PS_PUSH or not fault_err > TOL_PS_PUSH or not moved:
         fail("widedeep-ps: the pushed gradient is not the sum over each id, "
              "or the planted push without the sum passes")
-    row["phase_s"] = time.perf_counter() - t_phase
     # the step and its table train on in widedeep-filefed (56), as
     # bench.py's file-fed leg reuses its first leg's step
     return row, {"step": step, "emb": emb}
@@ -10587,7 +10692,6 @@ def widedeep_device_phase(power):
     from paddle_tpu_torch.distributed import ps
     from paddle_tpu_torch.models import WideDeepHost
     from paddle_tpu_torch.optimizer import Adam
-    t_phase = time.perf_counter()
     B, V, E = PS_B, 10_000_000, PS_E
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -10662,7 +10766,6 @@ def widedeep_device_phase(power):
     if not mask_err > TOL_PS_F32 or dense_still:
         fail("widedeep-device: a planted fault was not caught")
     row = dict(r)
-    row["phase_s"] = time.perf_counter() - t_phase
     return row
 
 
@@ -10775,7 +10878,6 @@ def planes_phase(cfg, ids_t, fa, power):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import LoopbackWorld
     from paddle_tpu_torch.parallel.zero import ShardedUpdateTrainStep
-    t_phase = time.perf_counter()
     tracer = observability.tracer
     tmp = tempfile.mkdtemp(prefix="planes_")
     trace_dir, prof_dir = os.path.join(tmp, "trace"), os.path.join(tmp,
@@ -10953,8 +11055,6 @@ def planes_phase(cfg, ids_t, fa, power):
     del base
     torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
-    r["phase_s"] = time.perf_counter() - t_phase
-    log(f"planes phase (55): {r['phase_s']:.1f} s of wall time")
     return r, {"flash_attention_fwd": counts["launches"],
                "flash_attention_bwd_dq": counts["launches_dq"],
                "flash_attention_bwd_dkv": counts["launches_dkv"]}
@@ -11042,7 +11142,6 @@ def widedeep_filefed_phase(power, keep, ps_row):
     import torch
     from paddle_tpu_torch.distributed import DatasetFactory, train_from_dataset
     from paddle_tpu_torch.ops.native import MultiSlotDataFeed, lib_path
-    t_phase = time.perf_counter()
     step = keep["step"]
     n_ex = PS_B * 6
     slots = [(f"c{i}", "u", 1) for i in range(PS_FIELDS)] + [
@@ -11173,8 +11272,6 @@ def widedeep_filefed_phase(power, keep, ps_row):
         shutil.rmtree(root, ignore_errors=True)
         keep.clear()
         del step
-    r["phase_s"] = time.perf_counter() - t_phase
-    log(f"widedeep-filefed phase (56): {r['phase_s']:.1f} s of wall time")
     return r
 
 
@@ -11190,7 +11287,28 @@ def _compute_apps():
             for line in smi.stdout.splitlines() if line.strip()]
 
 
-def widedeep_remote_phase(power, ps_row):
+def start_remote_server():
+    """Phase 57's server process, started ahead of the phase so its
+    PS_V x (PS_E + 1) table draws while phases 54-56 run: (the process,
+    its stderr file, its start time, the card's compute apps before it).
+    It is killed at exit if the phase never ends it."""
+    import atexit
+    import tempfile
+
+    from paddle_tpu_torch.distributed.ps.service import SERVER_BOOT
+    here = os.path.dirname(os.path.abspath(__file__))
+    err = tempfile.TemporaryFile(mode="w+")
+    apps_before = _compute_apps()          # this trainer's context alone
+    t_boot = time.perf_counter()
+    srv = subprocess.Popen(
+        [sys.executable, "-c", SERVER_BOOT, "--port", "0", "--table",
+         f"emb:{PS_V}:{PS_E + 1}:adagrad:0.05", "--n-workers", "1"],
+        stdout=subprocess.PIPE, stderr=err, text=True, cwd=here)
+    atexit.register(lambda: srv.poll() is None and srv.kill())
+    return srv, err, t_boot, apps_before
+
+
+def widedeep_remote_phase(power, ps_row, server=None):
     """Phase 57: bench.py's bench_widedeep_ps remote leg.  A server process
     started through SERVER_BOOT with --table emb:100000000:65:adagrad:0.05
     --n-workers 1 (it draws its table while the small runs go); while it
@@ -11204,27 +11322,18 @@ def widedeep_remote_phase(power, ps_row):
     its ratio to phase 53's, the measured wire MB a step against
     bench.py's analytic f32 formula, device busy ms and idle share, the
     loss falls; the server adds no process to the card's compute apps,
-    and it exits after the bye."""
-    import tempfile
-
+    and it exits after the bye.  ``server``: start_remote_server()'s
+    process, started earlier (a new one otherwise)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.distributed import ps
     from paddle_tpu_torch.distributed.ps.service import (
-        SERVER_BOOT, PsClient, PsServer, RemoteEmbeddingTable)
+        PsClient, PsServer, RemoteEmbeddingTable)
     from paddle_tpu_torch.framework import chaos
     from paddle_tpu_torch.models import WideDeepHost
     from paddle_tpu_torch.optimizer import Adam
-    t_phase = time.perf_counter()
     r = {}
-    here = os.path.dirname(os.path.abspath(__file__))
-    err = tempfile.TemporaryFile(mode="w+")
-    apps_before = _compute_apps()          # this trainer's context alone
-    t_boot = time.perf_counter()
-    srv = subprocess.Popen(
-        [sys.executable, "-c", SERVER_BOOT, "--port", "0", "--table",
-         f"emb:{PS_V}:{PS_E + 1}:adagrad:0.05", "--n-workers", "1"],
-        stdout=subprocess.PIPE, stderr=err, text=True, cwd=here)
+    srv, err, t_boot, apps_before = server or start_remote_server()
     try:
         # the card against a remote table at the small size, bitwise
         init = {n: p.detach() for n, p in WideDeepHost(
@@ -11235,13 +11344,14 @@ def widedeep_remote_phase(power, ps_row):
                 srng.standard_normal((3, 256, 13)).astype(np.float32),
                 srng.integers(0, 2, size=(3, 256, 1)).astype(np.float32))
 
-        def remote_small(piped):
+        def remote_small(piped, after_step=None):
             s = PsServer({"emb": ps.HostEmbeddingTable(50_000, 9)}).start()
             try:
                 c = PsClient([f"127.0.0.1:{s.port}"], wire_dtype="f32",
                              backoff_base=0.01)
                 out = _ps_small("cuda", init, data, piped,
-                                table=RemoteEmbeddingTable(c, "emb", 9))
+                                table=RemoteEmbeddingTable(c, "emb", 9),
+                                after_step=after_step)
                 errors = c.transport_stats()["errors"]
                 c.bye()
             finally:
@@ -11356,6 +11466,22 @@ def widedeep_remote_phase(power, ps_row):
             f"{apps}, before the server started {apps_before}: the server "
             f"(pid {srv.pid} here) holds a context: {r['server_on_card']} "
             f"[{power}]")
+
+        def dry_small():
+            from paddle_tpu_torch.framework import autopilot
+            held = {}
+
+            def tick(st):
+                if "ctl" not in held:
+                    held["ctl"] = autopilot.Controller(
+                        step=st, dry_run=True, interval_steps=1,
+                        hysteresis=1, cooldown_s=0.0, max_prefetch_depth=4,
+                        blame_source=lambda: {"per_step_ms": {
+                            "ps_wait": 30.0, "compute": 10.0}})
+                held["ctl"].tick()
+            got = remote_small(True, after_step=tick)
+            return same(got, clean[True]), held["ctl"].decisions
+        r["autopilot"] = autopilot_leg(step, ids, x, y, dry_small, power)
         client.bye()
         r["server_exit"] = srv.wait(timeout=120)
         del step, emb, model
@@ -11370,8 +11496,6 @@ def widedeep_remote_phase(power, ps_row):
             srv.kill()
             srv.wait(timeout=60)
         err.close()
-    r["phase_s"] = time.perf_counter() - t_phase
-    log(f"widedeep-remote phase (57): {r['phase_s']:.1f} s of wall time")
     return r
 
 
@@ -11436,7 +11560,6 @@ def graph_phase(power):
     from paddle_tpu_torch.distributed.ps.service import PsClient, PsServer
     from paddle_tpu_torch.nn import Linear
     from paddle_tpu_torch.optimizer import Adam
-    t_phase = time.perf_counter()
     r = {}
     # card against CPU on the same samples, small
     feats, labels, draws = _clique_samples(25)
@@ -11547,8 +11670,6 @@ def graph_phase(power):
             s.shutdown()
     if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
         fail(f"graph: the losses are not finite and falling: {losses}")
-    r["phase_s"] = time.perf_counter() - t_phase
-    log(f"graph phase (58): {r['phase_s']:.1f} s of wall time")
     return r
 
 
@@ -11667,7 +11788,6 @@ def resnet50_filefed_phase(power, dev="cuda"):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
-    t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="filefed_images_")
     r = {}
     try:
@@ -11778,13 +11898,13 @@ def resnet50_filefed_phase(power, dev="cuda"):
         r["losses"] = losses
     finally:
         _sh.rmtree(root, ignore_errors=True)
-    r["phase_s"] = time.perf_counter() - t_phase
     r["power"] = power
     log("resnet50-filefed: " + json.dumps(r))
     return r
 
 
 DURABLE_KEEP = 2               # gpt-durable: generations the manager keeps
+DURABLE_LAYERS = 8             # gpt-durable: GPT-2 345M's width at this depth
 DURABLE_ZERO_LAYERS = 4        # gpt-durable: ZeRO interop at 345M's width
 DURABLE_NUMERICS_STEPS = 3     # gpt-durable: armed numerics steps
 TOL_NUMERICS = 1e-5            # gpt-durable: norms against the f64 recompute
@@ -11830,8 +11950,9 @@ def _stamps_on_disk(path):
 
 
 def gpt_durable_phase(cfg, fa, power, dev="cuda"):
-    """Phase 60: bench_gpt2_345m's step (GPT-2 345M, B = 8, S = 1024,
-    remat=False, O2 bf16, AdamW(1e-4), on #1-#3) saved and restored
+    """Phase 60: bench_gpt2_345m's step (GPT-2 345M's width at
+    cfg.num_layers, DURABLE_LAYERS in main; B = 8, S = 1024, remat=False,
+    O2 bf16, AdamW(1e-4), on #1-#3) saved and restored
     through the durable-state plane: 2 steps, a sync generation, 1 step,
     an async generation while one more step runs; the async files are a
     sync save of the same snapshot (their crc32 and byte stamps against
@@ -11860,7 +11981,6 @@ def gpt_durable_phase(cfg, fa, power, dev="cuda"):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import LoopbackWorld
     from paddle_tpu_torch.parallel.zero import ShardedUpdateTrainStep
-    t_phase = time.perf_counter()
     rng = np.random.default_rng(60)
     batches = [torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (B, S), dtype=np.int64)).to(dev)
@@ -12063,10 +12183,806 @@ def gpt_durable_phase(cfg, fa, power, dev="cuda"):
     if min(launches.values()) == 0:
         fail(f"gpt-durable: a flash kernel was not launched: {launches}")
     r["launches"] = launches
-    r["phase_s"] = time.perf_counter() - t_phase
     r["power"] = power
     log("gpt-durable: " + json.dumps(r))
     return r, launches
+
+
+# -- the operations planes (phases 61-63) ------------------------------------
+RESILIENT_CALLS = 6            # resilient-gpt: wrapped calls, one poisoned
+RESILIENT_POISON = 3           # resilient-gpt: the poisoned call (1-based)
+RESILIENT_RING = 2             # resilient-gpt: FLAGS_incident_ring on the card
+RESILIENT_SEED = 61            # resilient-gpt: its batches
+# resilient-gpt: its weights, phase 3's draw (kept by draw_once)
+RESILIENT_WEIGHTS_SEED = 0
+RESILIENT_STATE_CAP_MB = 64.0  # resilient-gpt: FLAGS_incident_state_cap_mb
+PARITY_LAYERS = 2              # parity-numerics: GPT-2 345M's width, 2 layers
+PARITY_STEPS = 3               # parity-numerics: armed steps a run
+PARITY_FLIP_LEAF = "lnf_b"     # parity-numerics: the leaf whose bit flips
+ELASTIC_LAYERS = 4             # ops-planes: the elastic worker's GPT depth
+ELASTIC_STEPS = 4              # ops-planes: the worker's steps
+# ops-planes: the agent's progress deadline (s); a beat waits for the
+# worker's sync generation (1.2 GB, ~3.4 s at the 0.36 GB/s gpt-durable reads)
+ELASTIC_DEADLINE = 10.0
+AUTOPILOT_INTERVAL = 3         # widedeep-remote: steps an autopilot interval
+AUTOPILOT_INTERVALS = 3        # widedeep-remote: intervals of the live leg
+
+
+def resilient_loss(model, ids, labels, scale):
+    """gpt_loss times the mean of ``scale`` (a float input of ones): the
+    input ``train.step_grads`` poisons, so a NaN reaches the loss and
+    every gradient through the real backward."""
+    from paddle_tpu_torch.models import gpt_loss
+    return gpt_loss(model, ids, labels) * scale.mean()
+
+
+def _resilient_step(seed=RESILIENT_WEIGHTS_SEED):
+    """bench_gpt2_345m's step (GPT-2 345M, remat=False, O2 bf16,
+    AdamW(1e-4)) on resilient_loss, its weights drawn from ``seed``."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPT, gpt2_345m
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_345m(max_seq_len=S, remat=False)
+    cfg.seed = int(seed)
+    return TrainStep(GPT(cfg, device="cuda"), resilient_loss,
+                     AdamW(learning_rate=1e-4), amp_level="O2",
+                     amp_dtype="bfloat16")
+
+
+def resilient_program(seed=RESILIENT_WEIGHTS_SEED):
+    """Phase 61's step in ResilientTrainStep(snapshot_every=1): the replay
+    builder of its incident bundle (``chip_smoke:resilient_program``)."""
+    from paddle_tpu_torch.framework import incident
+    from paddle_tpu_torch.framework.resilient import ResilientTrainStep
+    incident.set_program("chip_smoke:resilient_program", seed=int(seed))
+    return ResilientTrainStep(_resilient_step(seed), snapshot_every=1)
+
+
+def resilient_gpt_phase(fa, power, planes_row):
+    """Phase 61: bench_gpt2_345m's step (GPT-2 345M, B = 8, S = 1024,
+    remat=False, O2 bf16, AdamW(1e-4)) in
+    ResilientTrainStep(snapshot_every=1) with attach_durable (generation
+    1 after the first call), FLAGS_incident
+    (a ring of RESILIENT_RING) and FLAGS_numerics armed, RESILIENT_CALLS
+    calls with ``train.step_grads`` poisoning the loss scale at call
+    RESILIENT_POISON: one skip and one restore; the good losses and the
+    final parameters bitwise an unwrapped run fed the same batches
+    without the poisoned one; first_bad_leaf named; the bundle verified,
+    its state a reference to generation 1 (the state is above the cap);
+    paddle_tpu_torch/tools/replay.py on the card reproduces first_bad_leaf
+    and --bisect names the poisoned call's step.  The run feeds a run
+    ledger record, the blame of the steps' spans and of the profiler's
+    trace, and a MetricsReporter pushing to an in-process CollectorServer
+    (the worker, its step statistics and the incident notice in its view;
+    the reporter's Prometheus file is monitor.export_prometheus()).
+    Readings: snapshot ms and GB/s, ms a call wrapped (armed and
+    disarmed) and unwrapped, and the synchronisations of a call; the
+    TrainStep call with the planes disarmed adds none to phase 55's."""
+    import contextlib
+    import io
+    import shutil as _sh
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed.durable import CheckpointManager
+    from paddle_tpu_torch.framework import (blame, chaos, incident, monitor,
+                                            observability, runlog)
+    from paddle_tpu_torch.framework.collector import CollectorServer
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.models import gpt2_345m
+    from paddle_tpu_torch.tools import replay
+    r = {}
+    rng = np.random.default_rng(RESILIENT_SEED)
+    cfg = gpt2_345m(max_seq_len=S, remat=False)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int64)).to("cuda")
+        for _ in range(RESILIENT_CALLS)]
+    scale = torch.ones(1, device="cuda")
+    root = tempfile.mkdtemp(prefix="resilient_gpt_")
+    names = ["incident", "incident_ring", "incident_dir", "numerics",
+             "runlog_dir", "incident_state_cap_mb", "replica_parity",
+             "replica_parity_every", "incident_kinds"]
+    saved = get_flags(names)
+    tracer = observability.tracer
+    reset_fa(fa)
+    planes_reset()
+    incident.reset()
+    try:
+        # the unwrapped run: the same batches without the poisoned one
+        plain = _resilient_step()
+        want, plain_ms = [], []
+        for i, ids in enumerate(batches):
+            if i == RESILIENT_POISON - 1:
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want.append(float(plain(ids, ids, scale)))
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        want_params = _params_host(plain.model)
+        syncs_plain, _ = count_syncs(lambda: plain(batches[0], batches[0],
+                                                   scale))
+        del plain
+        torch.cuda.empty_cache()
+        per_step_55 = planes_row["syncs_unarmed"] / PLANES_SYNC_STEPS
+        r["syncs_trainstep_disarmed"] = syncs_plain
+        if syncs_plain != per_step_55:
+            fail(f"resilient-gpt: a TrainStep call with the planes disarmed "
+                 f"synchronised {syncs_plain} times, phase 55's {per_step_55}")
+
+        # the wrapped run, every plane armed
+        set_flags({"incident": True, "incident_ring": RESILIENT_RING,
+                   "incident_dir": os.path.join(root, "incidents"),
+                   "numerics": True, "incident_kinds": "",
+                   "runlog_dir": os.path.join(root, "runlog"),
+                   "incident_state_cap_mb": RESILIENT_STATE_CAP_MB,
+                   "replica_parity": True,
+                   "replica_parity_every": 1})
+        tdir = os.path.join(root, "trace")
+        tracer.enable(tdir, label="resilient")
+        srv = CollectorServer().start()
+        prom = os.path.join(root, "metrics.prom")
+        reporter = observability.MetricsReporter(
+            prom, interval=3600.0, collector=srv.endpoint,
+            worker="resilient-gpt", role="trainer").start()
+        res = resilient_program()
+        mgr = CheckpointManager(os.path.join(root, "gens"), keep_last=8)
+        res.attach_durable(mgr, every=0, arm_preemption=False)
+        chaos.reset(0)
+        chaos.arm("train.step_grads", mode="nan", nth=RESILIENT_POISON,
+                  n_times=1, payload_index=2)
+        got, skipped, call_ms = [], [], []
+        prof_dir = os.path.join(root, "prof")
+        profiling = False
+        try:
+            for i, ids in enumerate(batches):
+                if i == RESILIENT_CALLS - 2:
+                    profiler.start_profiler("All", trace_dir=prof_dir)
+                    profiling = True
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(res(ids, ids, scale))
+                call_ms.append((time.perf_counter() - t0) * 1e3)
+                skipped.append(res.last_step_skipped)
+                if not res.last_step_skipped:
+                    got.append(loss)
+                if i == 0:
+                    t0 = time.perf_counter()
+                    mgr.save(res.step, 1, mode="sync")
+                    r["generation_save_s"] = time.perf_counter() - t0
+        finally:
+            if profiling:
+                profiler.stop_profiler(
+                    profile_path=os.path.join(root, "prof.txt"))
+            chaos.reset(0)
+            tracer.disable()
+        bad_leaf = res.last_bad_leaf
+        r["skipped"] = skipped
+        r["first_bad_leaf"] = bad_leaf
+        r["restores"] = monitor.get_stat("train_restores_total")
+        log(f"resilient-gpt: {RESILIENT_CALLS} calls, call "
+            f"{RESILIENT_POISON} poisoned: skipped {skipped}, restores "
+            f"{r['restores']}, first_bad_leaf {bad_leaf!r}; losses {got} "
+            f"against the unwrapped run's {want} [{power}]")
+        if skipped != [i == RESILIENT_POISON - 1
+                       for i in range(RESILIENT_CALLS)] or \
+                res.skipped_steps != 1 or r["restores"] != 1:
+            fail(f"resilient-gpt: skips {skipped}, restores {r['restores']}")
+        if got != want:
+            fail(f"resilient-gpt: the wrapped run's losses {got} are not the "
+                 f"unwrapped run's {want}")
+        moved = [n for n, p in res.step.model.named_parameters()
+                 if not torch.equal(p.detach().cpu(), want_params[n])]
+        if moved:
+            fail(f"resilient-gpt: final parameters differ from the unwrapped "
+                 f"run's: {moved[:4]}")
+        if not bad_leaf:
+            fail("resilient-gpt: the skipped step named no first_bad_leaf")
+
+        # the snapshot's cost, and the calls' synchronisations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res.snapshot()
+        snap_s = time.perf_counter() - t0
+        r["snapshot_ms"] = snap_s * 1e3
+        r["snapshot_bytes"] = res.snapshot_bytes()
+        r["snapshot_gbps"] = r["snapshot_bytes"] / snap_s / 1e9
+        r["call_ms_armed"] = call_ms
+        r["step_ms_unwrapped"] = plain_ms
+        syncs_armed, _ = count_syncs(lambda: res(batches[1], batches[1],
+                                                 scale))
+        set_flags({"incident": False, "numerics": False,
+                   "replica_parity": False})
+        syncs_wrapped, wrapped_ms = count_syncs(
+            lambda: res(batches[1], batches[1], scale))
+        r["call_ms_disarmed"] = wrapped_ms
+        r["syncs_per_call"] = {"wrapped_armed": syncs_armed,
+                               "wrapped_disarmed": syncs_wrapped,
+                               "trainstep_disarmed": syncs_plain}
+        log(f"resilient-gpt: snapshot of {r['snapshot_bytes']} bytes "
+            f"(parameters, buffers, AdamW state) to pinned host buffers "
+            f"{r['snapshot_ms']:.1f} ms, {r['snapshot_gbps']:.2f} GB/s; ms a "
+            f"call wrapped with every plane armed "
+            f"{[round(v, 1) for v in call_ms]}, wrapped disarmed "
+            f"{wrapped_ms:.1f}, unwrapped "
+            f"{[round(v, 1) for v in plain_ms]}; synchronisations a call "
+            f"{r['syncs_per_call']} [{power}]")
+
+        # the bundle, then the replay tool on the card
+        bundle = incident.recorder.last_bundle
+        problems = incident.verify_bundle(bundle) if bundle else ["none"]
+        man = incident.read_manifest(bundle) if bundle else {}
+        r["bundle_state"] = man.get("state")
+        log(f"resilient-gpt: incident bundle {bundle}: problems {problems}, "
+            f"event {man.get('event', {}).get('kind')}, state "
+            f"{man.get('state')}, ring steps "
+            f"{[e['step'] for e in man.get('ring', [])]}")
+        if problems or man["state"].get("inline") or \
+                (man["state"].get("ref") or {}).get("generation") != 1:
+            fail(f"resilient-gpt: the bundle does not verify or its state is "
+                 f"not a reference to generation 1: {problems} "
+                 f"{man.get('state')}")
+        verdicts = {}
+        for args in ([bundle], [bundle, "--bisect"]):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = replay.main(args)
+            line = out.getvalue().strip().splitlines()[-1]
+            verdicts[args[-1] == "--bisect"] = (
+                rc, line, time.perf_counter() - t0)
+            chaos.reset(0)
+            torch.cuda.empty_cache()
+        r["replay"] = verdicts[False]
+        r["bisect"] = verdicts[True]
+        log(f"resilient-gpt: replay.py on the card: {verdicts[False]}; "
+            f"--bisect: {verdicts[True]} [{power}]")
+        if verdicts[False][0] != 0 or \
+                f"first_bad_leaf={bad_leaf}" not in verdicts[False][1]:
+            fail(f"resilient-gpt: the replay did not reproduce "
+                 f"{bad_leaf!r}: {verdicts[False]}")
+        if verdicts[True][0] != 0 or f"step={RESILIENT_POISON - 1} " not in \
+                verdicts[True][1]:
+            fail(f"resilient-gpt: --bisect did not name step "
+                 f"{RESILIENT_POISON - 1}: {verdicts[True]}")
+
+        # the ledger, blame and the collector
+        res_blame = blame.compute_blame(blame.load_trace_dir(tdir))
+        rec = runlog.capture("resilient_gpt", label="chip_smoke",
+                             trace_dir=tdir, blame_result=res_blame)
+        led = runlog.RunLedger(runlog.default_ledger_path())
+        led.append(rec)
+        kinds = [x["kind"] for x in led.read()]
+        traces = [f for f in os.listdir(prof_dir)
+                  if f.startswith("device_trace")]
+        with open(os.path.join(prof_dir, traces[0])) as f:
+            chrome = json.load(f)
+        prof_blame = blame.compute_blame(blame.from_chrome_trace(chrome),
+                                         step_span="TrainStep")
+        r["blame_spans"] = {"n_steps": res_blame["n_steps"],
+                            "per_step_ms": res_blame["per_step_ms"],
+                            "top": res_blame["top_category"]}
+        r["blame_profiler"] = {"n_steps": prof_blame["n_steps"],
+                               "per_step_ms": prof_blame["per_step_ms"],
+                               "top": prof_blame["top_category"]}
+        reporter.stop()
+        view = srv.view()
+        srv.shutdown()
+        worker = view["workers"].get("resilient-gpt") or {}
+        notices = [n.get("id") for n in view.get("incidents", [])]
+        # the reporter's own file write, the collector down and the push
+        # thread stopped: nothing else moves the statistics meanwhile
+        reporter._collector = None
+        reporter.write_once()
+        prom_same = open(prom).read() == monitor.export_prometheus()
+        r["ledger_kinds"] = kinds
+        r["collector"] = {"steps_total": worker.get("steps_total"),
+                          "incidents": notices, "prometheus_same": prom_same}
+        log(f"resilient-gpt: run ledger kinds {kinds}; blame of the span "
+            f"file {r['blame_spans']}, of the profiler's trace (TrainStep "
+            f"ranges) {r['blame_profiler']}; the collector's view: steps "
+            f"{worker.get('steps_total')}, incidents {notices}; the "
+            f"reporter's Prometheus file is monitor.export_prometheus(): "
+            f"{prom_same} [{power}]")
+        if "incident" not in kinds or "resilient_gpt" not in kinds:
+            fail(f"resilient-gpt: the run ledger holds {kinds}")
+        if res_blame["n_steps"] != RESILIENT_CALLS or \
+                prof_blame["n_steps"] < 2:
+            fail(f"resilient-gpt: blame found {res_blame['n_steps']} span "
+                 f"steps and {prof_blame['n_steps']} profiler steps")
+        if not worker.get("steps_total") or not notices or not prom_same:
+            fail(f"resilient-gpt: the collector's view {worker} incidents "
+                 f"{notices}, Prometheus file equal {prom_same}")
+        del res
+    finally:
+        set_flags(saved)
+        incident.uninstall()
+        incident.reset()
+        _sh.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launches = _flash_launches(fa)
+    if min(launches.values()) == 0:
+        fail(f"resilient-gpt: a flash kernel was not launched: {launches}")
+    r["launches"] = launches
+    r["power"] = power
+    log("resilient-gpt: " + json.dumps(r, default=str))
+    return r, launches
+
+
+def _f64_partials(grads, before, after, split):
+    """Each leaf's f64 sums of squares (gradient, parameter before, update)
+    of this rank's pieces, the leaves whole on every rank zeroed on ranks
+    other than 0 (``split[n]`` false and ``lead`` false)."""
+    out = {}
+    for n in sorted(grads):
+        move = after[n].detach().double() - before[n].double()
+        out[n] = (float((grads[n].double() ** 2).sum()),
+                  float((before[n].double() ** 2).sum()),
+                  float((move ** 2).sum()), split[n])
+    return out
+
+
+def parity_numerics_phase(cfg, ids_t, fa, power):
+    """Phase 62: at GPT-2 345M's width and PARITY_LAYERS layers on two
+    LoopbackWorld ranks (threads) on the one card.  (a) dp = 2,
+    ShardedUpdateTrainStep on the f32 wire with FLAGS_replica_parity armed
+    every step for PARITY_STEPS steps: no divergence; each rank's device
+    hash of every replicated leaf bitwise leaf_hash_host of its host copy;
+    the probe's ms; one bit flipped in rank 1's copy of PARITY_FLIP_LEAF
+    gives one parity.divergence naming it; disarmed, the losses are the
+    armed run's bitwise and a step synchronises as often as with the hook
+    taken out.  (b) ShardedTrainStep at mp = 2 with FLAGS_numerics armed:
+    each step's record (grad, param and update norms) within TOL_NUMERICS
+    of an f64 recompute from the same gradients and parameters and equal
+    on both ranks, beside a planted record that leaves out the sum over
+    mp.  Returns the readings and #1-#3's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.framework import monitor, numerics, observability
+    from paddle_tpu_torch.framework.flags import get_flags, set_flags
+    from paddle_tpu_torch.jit import loss_and_grads
+    from paddle_tpu_torch.models import GPT, GPTConfig, gpt_loss, \
+        shard_params
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import (LoopbackWorld, ShardedTrainStep,
+                                           parity, sharded)
+    from paddle_tpu_torch.parallel.zero import ShardedUpdateTrainStep
+    r = {}
+    saved = get_flags(["replica_parity", "replica_parity_every",
+                       "numerics"])
+    cfg2 = GPTConfig(hidden_size=cfg.hidden_size, num_heads=cfg.num_heads,
+                     vocab_size=cfg.vocab_size, max_seq_len=S,
+                     num_layers=PARITY_LAYERS, remat=False)
+    init = {n: p.detach().clone()
+            for n, p in GPT(cfg2, device="cuda").named_parameters()}
+    amp = {"amp_level": "O2", "amp_dtype": "bfloat16"}
+    reset_fa(fa)
+    planes_reset()
+
+    def dp_run(armed, flip=False, hook=True, steps=PARITY_STEPS):
+        set_flags({"replica_parity": armed, "replica_parity_every": 1})
+
+        def fn(rank, mesh):
+            m = GPT(cfg2, device="cuda")
+            with torch.no_grad():
+                for n, p in m.named_parameters():
+                    p.copy_(init[n])
+            step = ShardedUpdateTrainStep(m, gpt_loss,
+                                          AdamW(learning_rate=1e-4),
+                                          mesh=mesh, wire_dtype="f32", **amp)
+            losses = [float(step(ids_t, ids_t)) for _ in range(steps)]
+            out = {"losses": losses}
+            if armed:
+                tree = parity._state_tree(step, replicated_only=True)
+                probe = step._parity_probe
+                dev = probe.hashes(tree).cpu().tolist()
+                host = [parity.leaf_hash_host(tree[n]) for n in sorted(tree)]
+                out["device_is_host"] = dev == host
+                out["leaves"] = len(tree)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                probe.check(tree)
+                out["probe_ms"] = (time.perf_counter() - t0) * 1e3
+                if flip:
+                    if rank == 1:
+                        with torch.no_grad():
+                            p = dict(m.named_parameters())[PARITY_FLIP_LEAF]
+                            p.view(-1)[:1].view(torch.int32).bitwise_xor_(1)
+                    out["flip_record"] = parity.maybe_observe(step,
+                                                              mesh=mesh)
+            return out
+        return LoopbackWorld(2).run(fn)
+
+    try:
+        armed = dp_run(True, flip=True)
+        checks = monitor.get_stat("parity_checks_total")
+        div = monitor.get_stat("parity_divergence_total")
+        ev = observability.flight.recent(8, kind="parity.divergence")
+        named = ev[-1]["attrs"]["first_bad_leaf"] if ev else None
+        r["dp2_losses"] = armed[0]["losses"]
+        r["device_hash_is_host"] = [a["device_is_host"] for a in armed]
+        r["probe_ms"] = [a["probe_ms"] for a in armed]
+        r["probed_leaves"] = armed[0]["leaves"]
+        r["parity_checks"], r["divergence_named"] = checks, named
+        log(f"parity: dp = 2 ShardedUpdateTrainStep (f32 wire), GPT-2 345M's "
+            f"width, {PARITY_LAYERS} layers, {PARITY_STEPS} steps armed "
+            f"every step: {checks} probes (the last after a flipped bit), "
+            f"{div} divergence naming {named!r}; each rank's device hash of "
+            f"its {r['probed_leaves']} replicated leaves is leaf_hash_host "
+            f"of its host copy: {r['device_hash_is_host']}; probe ms "
+            f"{[round(v, 2) for v in r['probe_ms']]} [{power}]")
+        if not all(r["device_hash_is_host"]):
+            fail("parity: a device hash differs from leaf_hash_host")
+        if checks != PARITY_STEPS + 1 or div != 1 or \
+                named != PARITY_FLIP_LEAF:
+            fail(f"parity: {checks} checks, {div} divergences naming "
+                 f"{named!r}; want {PARITY_STEPS + 1}, 1, "
+                 f"{PARITY_FLIP_LEAF!r}")
+        del armed
+        planes_reset()
+        plain = dp_run(False)
+        same = plain[0]["losses"] == r["dp2_losses"]
+        r["disarmed_losses_bitwise"] = same
+        # the synchronisations of one step, disarmed and with the hook out
+        syncs = {}
+        for what in ("disarmed", "hook_out"):
+            real = parity.maybe_observe
+            if what == "hook_out":
+                parity.maybe_observe = lambda *a, **k: None
+            try:
+                syncs[what], _ = count_syncs(lambda: dp_run(False, steps=1))
+            finally:
+                parity.maybe_observe = real
+        r["syncs_dp2_step"] = syncs
+        log(f"parity: disarmed, the losses are the armed run's bitwise: "
+            f"{same}; synchronisations of a dp = 2 run of one step (both "
+            f"ranks, the build included) {syncs} [{power}]")
+        if not same or syncs["disarmed"] != syncs["hook_out"]:
+            fail("parity: the disarmed probe changed the losses or added a "
+                 "synchronisation")
+        del plain
+
+        # (b) ShardedTrainStep at mp = 2 with numerics armed
+        set_flags({"replica_parity": False, "numerics": True})
+        init_np = {n: t.cpu() for n, t in init.items()}
+
+        def mp_fn(rank, mesh, steps=PARITY_STEPS, plant=False):
+            m = GPT(cfg2, device="cuda", mesh=mesh)
+            shards = shard_params(init_np, 2, mesh.axis_index("mp"))
+            with torch.no_grad():
+                for n, p in m.named_parameters():
+                    p.copy_(shards[n])
+            step = ShardedTrainStep(m, gpt_loss, AdamW(learning_rate=1e-4),
+                                    mesh=mesh, **amp)
+            split = {n: getattr(p, "mp_split", None) is not None
+                     for n, p in m.named_parameters()}
+            rows = []
+            for _ in range(steps):
+                params = step._params()
+                before = {n: p.detach().clone() for n, p in params.items()}
+                _, grads = loss_and_grads(step._loss_from, params,
+                                          [ids_t, ids_t])
+                step(ids_t, ids_t)
+                rec = step.last_numerics
+                rows.append((_f64_partials(grads, before, params, split),
+                             rec.grad_norm, rec.param_norm, rec.update_norm,
+                             rec.per_leaf()))
+                del grads, before
+            return rows
+        out = LoopbackWorld(2).run(mp_fn, axes={"mp": 2})
+        errs = []
+        for k in range(PARITY_STEPS):
+            tot = [0.0, 0.0, 0.0]
+            for rank, rows in enumerate(out):
+                for g2, p2, u2, is_split in rows[k][0].values():
+                    if is_split or rank == 0:
+                        tot[0] += g2
+                        tot[1] += p2
+                        tot[2] += u2
+            want = [math.sqrt(v) for v in tot]
+            got = out[0][k][1:4]
+            errs.append([abs(a - b) / b for a, b in zip(got, want)])
+            if out[1][k][1:] != out[0][k][1:]:
+                fail(f"numerics at mp = 2: the ranks' records differ at "
+                     f"step {k}")
+        r["mp2_numerics_rel_err"] = errs
+        # the planted record: the sum over mp left out
+        real = sharded.numerics.sum_aux_over
+
+        def no_mp(aux, axes):
+            return real(aux, [a for a in axes if not (
+                any(a[1]) and not all(a[1]))])
+        sharded.numerics.sum_aux_over = no_mp
+        try:
+            bad = LoopbackWorld(2).run(
+                lambda rank, mesh: mp_fn(rank, mesh, steps=1), axes={"mp": 2})
+        finally:
+            sharded.numerics.sum_aux_over = real
+        tot = sum(g2 for rank, rows in enumerate(bad)
+                  for g2, _, _, s in rows[0][0].values() if s or rank == 0)
+        r["mp2_planted_rel_err"] = abs(bad[0][0][1] - math.sqrt(tot)) / \
+            math.sqrt(tot)
+        log(f"numerics at mp = 2 (ShardedTrainStep, GPT-2 345M's width, "
+            f"{PARITY_LAYERS} layers, O2): grad / param / update norms "
+            f"against the f64 recompute, relative errors a step {errs} "
+            f"(tol {TOL_NUMERICS:g}), equal on both ranks; the planted "
+            f"record without the sum over mp: grad norm off by "
+            f"{r['mp2_planted_rel_err']:.3g} [{power}]")
+        if max(max(e) for e in errs) > TOL_NUMERICS:
+            fail("numerics at mp = 2: a norm is off the f64 recompute")
+        if r["mp2_planted_rel_err"] <= TOL_NUMERICS:
+            fail("numerics at mp = 2: the planted record is within the "
+                 "tolerance")
+    finally:
+        set_flags(saved)
+        torch.cuda.empty_cache()
+    launches = _flash_launches(fa)
+    r["launches"] = launches
+    return r, launches
+
+
+def _elastic_step():
+    """The elastic worker's step: GPT-2 345M's width at ELASTIC_LAYERS
+    layers, B = 8, S = 1024, remat=False, O2 bf16, AdamW(1e-4)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPT, gpt2_345m, gpt_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_345m(max_seq_len=S, remat=False)
+    cfg.num_layers, cfg.seed = ELASTIC_LAYERS, 63
+    return TrainStep(GPT(cfg, device="cuda"), gpt_loss,
+                     AdamW(learning_rate=1e-4), amp_level="O2",
+                     amp_dtype="bfloat16")
+
+
+def _elastic_batches():
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(63)
+    return [torch.from_numpy(rng.integers(0, 50304, (B, S), dtype=np.int64))
+            .to("cuda") for _ in range(ELASTIC_STEPS)]
+
+
+def _leaf_hashes(model):
+    from paddle_tpu_torch.parallel.parity import leaf_hash_device
+    return {n: int(leaf_hash_device(p)) for n, p in model.named_parameters()}
+
+
+def elastic_gpt_worker(root):
+    """The worker phase 63 launches through ``paddle_tpu_torch.distributed.
+    launch`` under an ElasticAgent: it resumes from the newest committed
+    generation under ``root``, trains to ELASTIC_STEPS, commits a
+    generation after every 2nd step but the last, beats the store after
+    each step, and (its first incarnation only) hangs in the beat of the
+    last step (``elastic.worker_hang``): the first incarnation is the
+    uninterrupted run.  Each step appends {pid, restored, step, loss,
+    time} to ``root/steps.jsonl``; the last step writes the parameters'
+    hashes to ``root/final_<pid>.json`` before its beat."""
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.distributed.durable import CheckpointManager
+    from paddle_tpu_torch.framework import chaos
+    store = elastic.FileStore(
+        os.environ["PADDLE_ELASTIC_STORE"],
+        ttl=float(os.environ["PADDLE_ELASTIC_LEASE_TTL"]))
+    ctx = elastic.ElasticWorkerContext(
+        store, os.environ["PADDLE_ELASTIC_WORKER_ID"], renew_interval=0.0)
+    step = _elastic_step()
+    mgr = CheckpointManager(os.path.join(root, "gens"), keep_last=4)
+    start = mgr.restore(step) or 0
+    marker = os.path.join(root, "hang_armed")
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        chaos.arm("elastic.worker_hang", mode="latency", latency=600.0,
+                  nth=ELASTIC_STEPS, n_times=1)
+    batches = _elastic_batches()
+    for t in range(start, ELASTIC_STEPS):
+        loss = float(step(batches[t], batches[t]))
+        with open(os.path.join(root, "steps.jsonl"), "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "restored": start,
+                                "step": t, "loss": loss,
+                                "time": time.time()}) + "\n")
+        if t % 2 == 1 and t < ELASTIC_STEPS - 1:
+            mgr.save(step, t + 1, mode="sync")
+        if t == ELASTIC_STEPS - 1:
+            with open(os.path.join(root, f"final_{os.getpid()}.json"),
+                      "w") as f:
+                json.dump(_leaf_hashes(step.model), f)
+        ctx.step_done(t)
+
+
+_ELASTIC_BOOT = """import os, sys
+card = os.environ.pop("ELASTIC_WORKER_CARD")
+if card == "-":
+    os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+else:
+    os.environ["CUDA_VISIBLE_DEVICES"] = card
+sys.path.insert(0, {here!r})
+import chip_smoke
+chip_smoke.elastic_gpt_worker(sys.argv[1])
+"""
+
+
+def elastic_phase(fa, power):
+    """Phase 63 (elastic and launch): ``python -m paddle_tpu_torch.
+    distributed.launch --elastic_store ...`` runs an ElasticAgent on a
+    FileStore over one worker (elastic_gpt_worker) on the card, the
+    launcher itself with the card hidden.  The worker trains GPT-2 345M's
+    width at ELASTIC_LAYERS layers and commits generations;
+    ``elastic.worker_hang`` stalls its beat of the last step past
+    the agent's ELASTIC_DEADLINE; the agent kills it and starts a
+    replacement, which resumes from the newest committed generation and
+    ends bitwise the uninterrupted run (the first incarnation, which
+    finished every step before its last beat hung: the losses of the
+    steps taken again and the parameters' hashes).  Readings: seconds to
+    recover (the hung beat to the replacement's first step), seconds from
+    the launch to the first worker's first step and of the whole job, the
+    card's compute apps while the worker trains (the launcher and its
+    agent are not among them)."""
+    import shutil as _sh
+    import tempfile
+    r = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="elastic_gpt_")
+    try:
+        worker = os.path.join(root, "worker.py")
+        with open(worker, "w") as f:
+            f.write(_ELASTIC_BOOT.format(here=here))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   ELASTIC_WORKER_CARD=os.environ.get(
+                       "CUDA_VISIBLE_DEVICES", "-"),
+                   PYTHONPATH=os.pathsep.join(
+                       [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        apps_before = _compute_apps()
+        t0, w0 = time.perf_counter(), time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--elastic_store", os.path.join(root, "es"),
+             "--elastic_retries", "1", "--hang_deadline",
+             str(ELASTIC_DEADLINE), "--lease_ttl", "600",
+             "--restart_backoff", "0.2", "--log_dir",
+             os.path.join(root, "log"), worker, root],
+            cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        steps_file = os.path.join(root, "steps.jsonl")
+        apps = None
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < 600:
+                if apps is None and os.path.exists(steps_file):
+                    apps = _compute_apps()
+                time.sleep(0.2)
+            out, _ = proc.communicate(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        r["launcher_rc"] = proc.returncode
+        r["job_s"] = time.perf_counter() - t0
+        rows = [json.loads(x) for x in open(steps_file)]
+        pids = sorted({x["pid"] for x in rows}, key=lambda p: min(
+            x["time"] for x in rows if x["pid"] == p))
+        first = [x for x in rows if x["pid"] == pids[0]]
+        second = [x for x in rows if x["pid"] == pids[-1]]
+        want = [x["loss"] for x in first]
+        got = {x["step"]: x["loss"] for x in rows}
+        finals = [os.path.join(root, f"final_{p}.json") for p in pids]
+        want_hash, final = (json.load(open(f)) if os.path.exists(f) else {}
+                            for f in (finals[0], finals[-1]))
+        r["incarnations"] = len(pids)
+        r["restored_generation"] = second[0]["restored"] if second else None
+        r["recover_s"] = second[0]["time"] - first[-1]["time"] \
+            if len(pids) > 1 else None
+        r["first_step_s"] = first[0]["time"] - w0
+        r["losses"] = [got.get(t) for t in range(ELASTIC_STEPS)]
+        r["compute_apps_before"], r["compute_apps"] = apps_before, apps
+        r["agent_on_card"] = apps is None or len(apps) != \
+            len(apps_before) + 1
+        log(f"elastic: launch --elastic_store (ElasticAgent over a "
+            f"FileStore) ran one worker (GPT-2 345M's width, "
+            f"{ELASTIC_LAYERS} layers, O2) for {ELASTIC_STEPS} steps: rc "
+            f"{r['launcher_rc']}, {r['incarnations']} incarnations, the "
+            f"replacement restored generation {r['restored_generation']}, "
+            f"{r['recover_s'] and round(r['recover_s'], 2)} s from the hung "
+            f"beat to the replacement's first step (deadline "
+            f"{ELASTIC_DEADLINE:g} s; {r['first_step_s']:.2f} s from the "
+            f"launch to the first worker's first step; the job "
+            f"{r['job_s']:.2f} s), losses {r['losses']} against the "
+            f"uninterrupted first incarnation's {want}; the replacement's "
+            f"final parameters hash as the first's: {final == want_hash}; "
+            f"the card's compute apps while the "
+            f"worker trained {apps}, before {apps_before} [{power}]")
+        ok_hash = bool(final) and final == want_hash
+        r["final_bitwise"] = ok_hash
+        if r["launcher_rc"] != 0 or r["incarnations"] != 2:
+            fail(f"elastic: the launcher ended {r['launcher_rc']} after "
+                 f"{r['incarnations']} incarnations: {out[-1500:]}")
+        if r["restored_generation"] != ELASTIC_STEPS - 2:
+            fail(f"elastic: the replacement restored generation "
+                 f"{r['restored_generation']}, not {ELASTIC_STEPS - 2}")
+        if r["losses"] != want or not ok_hash:
+            fail("elastic: the resumed run is not the uninterrupted run "
+                 "bitwise")
+        if r["agent_on_card"]:
+            fail(f"elastic: the card's compute apps {apps} (before "
+                 f"{apps_before}): the agent holds a context")
+    finally:
+        _sh.rmtree(root, ignore_errors=True)
+    return r
+
+
+def autopilot_leg(step, ids, x, y, dry_small, power):
+    """Phase 57's autopilot leg (ROADMAP item 6b, the third of phase 63's
+    parts), on the phase's remote PSTrainStep with the server up.  A dry
+    run at the small size (``dry_small``: the remote prefetched run with a
+    dry-run controller ticking every step) gives the autopilot-off run's
+    losses, table and parameters bitwise.  Live: the step starts
+    unpipelined (prefetch depth 0) under the tracer; the controller reads
+    each interval's blame from the span file and takes ``prefetch.deepen``
+    under ps_wait; examples/s before and after the action, and the
+    guarded rollback's verdict one interval later."""
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.framework import autopilot, blame, observability
+    r = {}
+    ok, decisions = dry_small()
+    r["dry_run_bitwise"] = ok
+    r["dry_run_decisions"] = [d["kind"] for d in decisions]
+    log(f"autopilot: a dry run (decisions {r['dry_run_decisions']}, every "
+        f"one dry) on the small remote prefetched run is the autopilot-off "
+        f"run bitwise: {ok} [{power}]")
+    if not ok or "taken" not in r["dry_run_decisions"]:
+        fail("autopilot: the dry run moved the run or decided nothing")
+    tdir = tempfile.mkdtemp(prefix="autopilot_trace_")
+    tracer = observability.tracer
+    step.flush()
+    step.set_prefetch_depth(0)
+
+    def interval_blame():
+        res = blame.compute_blame(blame.load_trace_dir(tdir))
+        rows = res["steps"][-AUTOPILOT_INTERVAL:]
+        return {"per_step_ms": {c: sum(w["blame_ms"][c] for w in rows)
+                                / max(len(rows), 1)
+                                for c in blame.CATEGORIES}}
+    ctl = autopilot.Controller(
+        step=step, blame_source=interval_blame, dry_run=False,
+        interval_steps=AUTOPILOT_INTERVAL, hysteresis=1, cooldown_s=0.0,
+        max_actions=2, rollback_intervals=1, rollback_tolerance=0.25,
+        max_prefetch_depth=1)
+    tracer.enable(tdir, label="autopilot")
+    ms, taken_at = [], None
+    try:
+        for i in range(AUTOPILOT_INTERVAL * AUTOPILOT_INTERVALS):
+            step.prefetch(ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step(ids, x, y))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            made = ctl.tick()
+            if taken_at is None and any(d["kind"] == "taken" for d in made):
+                taken_at = i + 1
+    finally:
+        tracer.disable()
+        step.flush()
+    kinds = [(d["kind"], d["action"]) for d in ctl.decisions]
+    r["decisions"] = kinds
+    r["depth_after"] = step.prefetch_depth
+    if taken_at is not None:
+        before, after = ms[:taken_at], ms[taken_at:]
+        r["examples_per_s_before"] = PS_B / (sum(before) / len(before)) * 1e3
+        r["examples_per_s_after"] = PS_B / (sum(after) / len(after)) * 1e3
+    r["rollback_verdict"] = "reverted" if ("reverted", "prefetch.deepen") \
+        in kinds else "kept"
+    log(f"autopilot: live on the remote step (B={PS_B}), intervals of "
+        f"{AUTOPILOT_INTERVAL} steps: decisions {kinds}; examples/s before "
+        f"the action {r.get('examples_per_s_before')}, after "
+        f"{r.get('examples_per_s_after')}; the rollback guard's verdict "
+        f"{r['rollback_verdict']}, prefetch depth now {r['depth_after']} "
+        f"[{power}]")
+    if ("taken", "prefetch.deepen") not in kinds:
+        fail(f"autopilot: prefetch.deepen was not taken under ps_wait: "
+             f"{kinds}")
+    return r
 
 
 def vision_loss_of(out, y):
@@ -12076,6 +12992,7 @@ def vision_loss_of(out, y):
 
 def main() -> int:
     t_start = time.perf_counter()
+    clock = PhaseClock()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -12114,13 +13031,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bf16, f32 = torch.bfloat16, torch.float32
+    prefetch = draw_once()
     card = torch.cuda.get_device_name(0)
     power = card_power()
     log(f"device: {card}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}; nvidia-smi: {power}")
 
     # -- 1. build -----------------------------------------------------------
+    clock.begin(1, "build")
     t0 = time.perf_counter()
+    # the first GPT-2 345M (phase 3) and BERT-base (phase 7) draw meanwhile
+    prefetch(gpt2_345m(max_seq_len=S, remat=False))
+    prefetch(bert_base(max_seq_len=BERT_S))
     logs = _build.build_all()
     log(f"build: {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -12141,6 +13063,7 @@ def main() -> int:
                  + " | ".join(serial))
 
     # -- 2. check -----------------------------------------------------------
+    clock.begin(2, "check")
     g = torch.Generator(device="cuda").manual_seed(0)
     H_ = 16
     fa_err = max(check_flash(g, fa, c) for c in [
@@ -12319,7 +13242,6 @@ def main() -> int:
         f"included) max_abs_err={e_enc:.3g} (tol {TOL_F32:g})")
     if e_enc > TOL_F32:
         fail("small learned-bias encoder on the card disagrees with the CPU")
-    t_vision = time.perf_counter()
     sv = check_small_vision(g, resnet18, TrainStep, Momentum)
     log(f"check small vision (resnet18, B={SMALL_VISION_B}, "
         f"{SMALL_VISION_HW}x{SMALL_VISION_HW}) card vs CPU: training-mode "
@@ -12344,9 +13266,9 @@ def main() -> int:
     if sv["conv_f32"] > TOL_CONV_F32 or sv["tf32_conv"] <= TOL_CONV_F32:
         fail("the port's f32 convolution is not IEEE f32 on the card, or "
              "TF32 would pass TOL_CONV_F32")
-    t_vision = time.perf_counter() - t_vision
 
     # -- 3. serve -----------------------------------------------------------
+    clock.begin(3, "serve")
     # bench.py's GPT-2 legs run remat=False (bench.py:299, :345): serve,
     # train, train-fused and zero measure what they measured before the
     # port honoured remat; the remat phase runs the other forms
@@ -12421,6 +13343,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. train -----------------------------------------------------------
+    clock.begin(4, "train")
     t0 = time.perf_counter()
     tmodel = GPT(cfg, device="cuda")                  # f32 masters
     step = TrainStep(tmodel, gpt_loss, AdamW(learning_rate=1e-4),
@@ -12474,6 +13397,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. train-fused -----------------------------------------------------
+    clock.begin(5, "train-fused")
     t0 = time.perf_counter()
     tmodel = GPT(cfg, device="cuda")                  # f32 masters
     torch.cuda.synchronize()
@@ -12586,6 +13510,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. remat -----------------------------------------------------------
+    clock.begin(6, "remat")
     sb_ids, _, sb_nsp, sb_amask, sb_mlm = bert_batch(512, 4, 128, seed=5)
     small_models = [
         ("GPT", lambda r, d: GPT(gpt_tiny(
@@ -12713,6 +13638,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 7. bert-serve ------------------------------------------------------
+    clock.begin(7, "bert-serve")
     bcfg = bert_base(max_seq_len=BERT_S)
     BL = bcfg.num_layers
     t0 = time.perf_counter()
@@ -12762,6 +13688,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8. bert-train ------------------------------------------------------
+    clock.begin(8, "bert-train")
     # bench_bert's configuration (remat=True, the default; bench.py:214),
     # then, in the same call, the remat=False run this phase measured
     # before the port honoured remat
@@ -12858,6 +13785,7 @@ def main() -> int:
                     for k, r in ratios.items()))
 
     # -- 9. encoder-bias ----------------------------------------------------
+    clock.begin(9, "encoder-bias")
     enc = biased_encoder(tnn, 768, BERT_HEADS, 3072, BL, BERT_S, None)
     estep = TrainStep(enc, mse_loss, AdamW(learning_rate=1e-4),
                       amp_level="O2", amp_dtype="bfloat16")
@@ -12906,10 +13834,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 10. zero -----------------------------------------------------------
+    clock.begin(10, "zero")
     z = zero_phase(g, cfg, ids_t, fa)
     grows, quant_err, zero_launch = z["grows"], z["quant_err"], z["launches"]
 
     # -- 11. longseq --------------------------------------------------------
+    clock.begin(11, "longseq")
     # bench_longseq_flash's accelerator leg.  First one layer's flash
     # kernels at both of its shapes against their plain versions (at
     # S=8192 the f32 scores, 2.1 GB, fit), with the planted faults: at
@@ -12992,6 +13922,7 @@ def main() -> int:
         f"gpt_longseq8k_flashattn_train_tokens_per_sec and its vs_baseline)")
 
     # -- 12. masked-flash ---------------------------------------------------
+    clock.begin(12, "masked-flash")
     # bench_masked_flash: q, k, v and the lengths drawn in its order
     rng_m = np.random.default_rng(0)
     mq, mk, mv = (torch.as_tensor(rng_m.standard_normal(
@@ -13044,7 +13975,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 13. resnet50-train ------------------------------------------------
-    t_phases = time.perf_counter()
+    clock.begin(13, "resnet50-train")
     rmodel = resnet50(num_classes=1000)             # f32 masters, NCHW
     rstep = TrainStep(rmodel, vision_loss, Momentum(learning_rate=0.1,
                                                     momentum=0.9),
@@ -13087,6 +14018,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 14. resnet50-eval --------------------------------------------------
+    clock.begin(14, "resnet50-eval")
     rnamed = dict(rmodel.named_parameters())
 
     def r_forward():
@@ -13116,6 +14048,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 15. lenet-train ----------------------------------------------------
+    clock.begin(15, "lenet-train")
     lmodel = LeNet(num_classes=10)
     lstep = TrainStep(lmodel, vision_loss, Adam(learning_rate=1e-3))
     lx, ly = (torch.as_tensor(a, device="cuda")
@@ -13140,10 +14073,6 @@ def main() -> int:
         fail("LeNet did not train: the last loss is not below the first")
     del lstep, lmodel, lx, ly
     torch.cuda.empty_cache()
-    t_phases = time.perf_counter() - t_phases
-    log(f"vision: the new phases took {t_vision + t_phases:.1f} s of wall "
-        f"time (small-vision check {t_vision:.1f} s, resnet50-train, -eval "
-        f"and lenet-train {t_phases:.1f} s)")
     vision_row = {"resnet50_train_step_ms": r_ms,
                   "resnet50_train_samples_per_s": VISION_B / r_ms * 1e3,
                   "resnet50_train_peak_bytes": r_mem,
@@ -13156,7 +14085,7 @@ def main() -> int:
                   "small_vision": sv}
 
     # -- 16. seq2seq-small --------------------------------------------------
-    t_s2s = time.perf_counter()
+    clock.begin(16, "seq2seq-small")
     s_err, s_falls, s_lens = seq2seq_small(tnn, fa, TrainStep, Adam)
     log(f"seq2seq-small (2 + 2 layers, d_model 128, 2 heads of 64, V=512, "
         f"S={S2S_SRC} -> {S2S_TGT}, f32) card vs CPU: max_abs_err logits="
@@ -13174,6 +14103,7 @@ def main() -> int:
         fail("the small seq2seq model's loss did not fall")
 
     # -- 17. seq2seq-train --------------------------------------------------
+    clock.begin(17, "seq2seq-train")
     s2s_bias = torch.as_tensor(seq2seq_batch(S2S_V, S2S_B, S2S_SRC,
                                              S2S_TGT)[3], device="cuda")
     s2s_err = seq2seq_kernel_checks(g, fa, s2s_bias)
@@ -13181,17 +14111,17 @@ def main() -> int:
                                                    power)
 
     # -- 18. seq2seq-serve --------------------------------------------------
+    clock.begin(18, "seq2seq-serve")
     serve_row, serve_launch = seq2seq_serve(tnn, fa, s2s_model, power)
     del s2s_model
     torch.cuda.empty_cache()
 
     # -- 19. rnn ------------------------------------------------------------
+    clock.begin(19, "rnn")
     rnn_rows = rnn_phase(tnn, power)
-    t_s2s = time.perf_counter() - t_s2s
-    log(f"seq2seq and rnn: the new phases took {t_s2s:.1f} s of wall time")
 
     # -- 20. eager-small ----------------------------------------------------
-    t_eager = time.perf_counter()
+    clock.begin(20, "eager-small")
     opt_errs = eager_small_optimizers(tnn, topt, regularizer, tnn.ParamAttr)
     log(f"eager-small: every optimizer's eager step, {MLP_STEPS} f32 steps "
         f"of a ParamAttr MLP (rate scale, L1 and L2 regularisers, a frozen "
@@ -13206,6 +14136,7 @@ def main() -> int:
         f"each: {json.dumps(amp_seen)}")
 
     # -- 21. eager-gpt ------------------------------------------------------
+    clock.begin(21, "eager-gpt")
     eager_row, eager_launch = eager_gpt(GPT, cfg, gpt_loss, amp, AdamW, fa,
                                         fused_adam, ids_t, power)
     log(f"eager-gpt beside the train phase's TrainStep O2 step (same "
@@ -13217,12 +14148,12 @@ def main() -> int:
         f"{train_row['train_peak_bytes']} bytes")
 
     # -- 22. eager-vision ---------------------------------------------------
+    clock.begin(22, "eager-vision")
     eager_row.update(eager_vision(mobilenet_v1, mobilenet_v2, vgg16, amp,
                                   tnn.functional, topt, regularizer, power))
-    eager_row["eager_phases_s"] = time.perf_counter() - t_eager
-    log(f"eager phases: {eager_row['eager_phases_s']:.1f} s of wall time")
 
     # -- 23. timing ---------------------------------------------------------
+    clock.begin(23, "timing")
     table, kernels = [], []
     qt = rand(g, (B * H_, S, 64), bf16)
     kt, vt = rand(g, (B * H_, S, 64), bf16), rand(g, (B * H_, S, 64), bf16)
@@ -13668,74 +14599,70 @@ def main() -> int:
     # -- 26. nn-breadth -----------------------------------------------------
     # no hand-written kernel lies on these paths; the launch counters stay
     # as the main path left them
-    t_dense = time.perf_counter()
+    clock.begin(24, "transforms-resnet50")
     dense_row = transforms_resnet50(T, resnet50, TrainStep, Momentum, power)
+    clock.begin(25, "dcgan")
     dense_row.update(dcgan_phase(tnn, topt, power))
+    clock.begin(26, "nn-breadth")
     dense_row["nn_breadth"] = nn_breadth(tnn.functional, power)
-    dense_row["dense_phases_s"] = time.perf_counter() - t_dense
-    log(f"dense nn phases (24-26): {dense_row['dense_phases_s']:.1f} s of "
-        "wall time")
 
     # -- 27. resnet50-gn ----------------------------------------------------
     # -- 28. sn-dcgan -------------------------------------------------------
     # -- 29. sparse-embedding -----------------------------------------------
     # -- 30. norm-breadth and rnn-amp ---------------------------------------
     # the Layer slice: no hand-written kernel lies on these paths either
-    t_layer = time.perf_counter()
-    layer_row = {
-        "resnet50_gn": resnet50_gn_phase(tnn, tnn.functional, resnet18,
-                                         resnet50, TrainStep, Momentum,
-                                         power, r_ms),
-        "sn_dcgan": sn_dcgan_phase(tnn, topt, power,
-                                   dense_row["dcgan_iteration_ms"]),
-        "sparse_embedding": sparse_embedding_phase(tnn, topt, SelectedRows,
-                                                   power),
-        "norm_breadth": norm_breadth(tnn, tnn.functional, power),
-        "rnn_amp": rnn_amp_phase(tnn, amp, power)}
-    layer_row["layer_phases_s"] = time.perf_counter() - t_layer
-    log(f"layer phases (27-30): {layer_row['layer_phases_s']:.1f} s of "
-        "wall time")
+    clock.begin(27, "resnet50-gn")
+    layer_row = {"resnet50_gn": resnet50_gn_phase(
+        tnn, tnn.functional, resnet18, resnet50, TrainStep, Momentum, power,
+        r_ms)}
+    clock.begin(28, "sn-dcgan")
+    layer_row["sn_dcgan"] = sn_dcgan_phase(tnn, topt, power,
+                                           dense_row["dcgan_iteration_ms"])
+    clock.begin(29, "sparse-embedding")
+    layer_row["sparse_embedding"] = sparse_embedding_phase(
+        tnn, topt, SelectedRows, power)
+    clock.begin(30, "norm-breadth and rnn-amp")
+    layer_row["norm_breadth"] = norm_breadth(tnn, tnn.functional, power)
+    layer_row["rnn_amp"] = rnn_amp_phase(tnn, amp, power)
 
     # -- 31. yolov3-dcn train -----------------------------------------------
     # -- 32. yolov3-dcn serve -----------------------------------------------
     # -- 33. det-ops --------------------------------------------------------
     # vision.ops: no hand-written kernel lies on these paths either
-    t_det = time.perf_counter()
+    clock.begin(31, "yolov3-dcn train")
     yolo, yolo_train = yolov3_train_phase(tnn, tnn.functional, vops,
                                           resnet18, resnet50, Momentum,
                                           regularizer.L2Decay, power)
     small = yolo_train["small"]
+    clock.begin(32, "yolov3-dcn serve")
     det_row = {"yolov3_dcn_train": yolo_train,
                "yolov3_dcn_serve": yolov3_serve_phase(
                    vops, yolo, power, small, lambda: yolov3_dcn(
                        tnn, tnn.functional, vops, resnet50, YOLO_CLASSES))}
     del yolo
+    clock.begin(33, "det-ops")
     det_row["det_ops"] = det_ops_phase(vops, power)
-    det_row["det_phases_s"] = time.perf_counter() - t_det
-    log(f"detection phases (31-33): {det_row['det_phases_s']:.1f} s of "
-        "wall time")
 
     # -- 34. faster-rcnn train ----------------------------------------------
     # -- 35. faster-rcnn serve ----------------------------------------------
     # -- 36. det-tail -------------------------------------------------------
     # vision.ops' second half: no hand-written kernel lies on these paths
-    t_two = time.perf_counter()
+    clock.begin(34, "faster-rcnn train")
     frcnn, last, frcnn_gts, det_row["faster_rcnn_train"] = frcnn_train_phase(
         tnn, tnn.functional, vops, resnet18, resnet50, Momentum,
         regularizer.L2Decay, topt.lr.LinearWarmup, power)
+    clock.begin(35, "faster-rcnn serve")
     det_row["faster_rcnn_serve"] = frcnn_serve_phase(vops, tnn.functional,
                                                      frcnn, power)
     del frcnn
     torch.cuda.empty_cache()
+    clock.begin(36, "det-tail")
     det_row["det_tail"] = det_tail_phase(vops, power, last, frcnn_gts)
-    det_row["two_stage_phases_s"] = time.perf_counter() - t_two
-    log(f"two-stage detection phases (34-36): "
-        f"{det_row['two_stage_phases_s']:.1f} s of wall time")
 
     # -- 37. gpt-eval ---------------------------------------------------------
     # -- 38. tensor-probe -----------------------------------------------------
     # the tensor library: no hand-written kernel lies on these paths
-    t_tensor = time.perf_counter()
+    clock.begin(37, "gpt-eval")
     tensor_row = {}
     # phase 3's GPT-2 345M in bf16, built once for phases 37, 39 and 40
     t0 = time.perf_counter()
@@ -13744,12 +14671,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     tensor_row["gpt_eval"], hidden, wte, eval_ids = gpt_eval_phase(
         ttensor, gpt_bf16, cfg, gpt_loss, set_flags, final_hidden, power)
+    clock.begin(38, "tensor-probe")
     tensor_row["tensor_probe"] = tensor_probe_phase(
         ttensor, Constant, hidden, wte, eval_ids, power)
     del hidden, wte
-    tensor_row["tensor_phases_s"] = time.perf_counter() - t_tensor
-    log(f"tensor phases (37-38): {tensor_row['tensor_phases_s']:.1f} s of "
-        "wall time")
 
     # -- 39. gpt-checkpoint ---------------------------------------------------
     # -- 40. gpt-sample -------------------------------------------------------
@@ -13759,22 +14684,22 @@ def main() -> int:
     # the kernel table's
     import paddle_tpu_torch as tpt
     from paddle_tpu_torch.framework import io as tio
-    t_second = time.perf_counter()
     second_row = {}
+    clock.begin(39, "gpt-checkpoint")
     second_row["gpt_checkpoint"], ck_launch = gpt_checkpoint_phase(
         gpt_bf16, gpt_loss, amp, AdamW, topt.lr.CosineAnnealingDecay, fa,
         fused_adam, ids_t, tio, power)
+    clock.begin(40, "gpt-sample")
     second_row["gpt_sample"], sample_launch = gpt_sample_phase(
         tpt, tnn.functional, gpt_bf16, fa, power)
+    clock.begin(41, "bert-ragged and breadth")
     second_row["bert_ragged"], ragged_launch = bert_ragged_phase(
         tpt, Bert, bert_base, fa, power)
-    second_row["second_half_phases_s"] = time.perf_counter() - t_second
     for k in kernels:
         for extra in (ck_launch, sample_launch, ragged_launch):
             k["launches"] += extra.get(k["name"], 0)
-    log(f"second-half phases (39-41): "
-        f"{second_row['second_half_phases_s']:.1f} s of wall time; launches "
-        f"{ck_launch}, {sample_launch}, {ragged_launch}")
+    log(f"second-half phases (39-41): launches {ck_launch}, "
+        f"{sample_launch}, {ragged_launch}")
 
     # -- 42. int8-resnet18 ----------------------------------------------------
     # -- 43. gpt-deploy -------------------------------------------------------
@@ -13785,17 +14710,18 @@ def main() -> int:
     from paddle_tpu_torch import inference, quantization, static
     from paddle_tpu_torch import jit as tjit
     from paddle_tpu_torch.framework import crypto
-    t_deploy = time.perf_counter()
+    clock.begin(42, "int8-resnet18")
     deploy_row = {"int8_resnet18": int8_resnet18_phase(
         resnet18, tjit, quantization, power)}
+    clock.begin(43, "gpt-deploy")
     deploy_row["gpt_deploy"], deploy_launch = gpt_deploy_phase(
         gpt_bf16, tnn, gpt_loss, set_flags, fa, fused_ce, tjit,
         static.InputSpec, inference, power)
     del gpt_bf16
     torch.cuda.empty_cache()
+    clock.begin(44, "capture-breadth")
     deploy_row["capture_breadth"], breadth_launch = capture_breadth_phase(
         tpt, tnn, tjit, static, inference, crypto, fa, fused_ce, power)
-    deploy_row["deploy_phases_s"] = time.perf_counter() - t_deploy
     captured = {}
     for extra in (deploy_launch, breadth_launch):
         for name, n in extra.items():
@@ -13806,9 +14732,8 @@ def main() -> int:
     missing = [n for n in CAPTURE_KERNELS if captured.get(n, 0) <= 0]
     if missing:
         fail(f"{missing} launched no time inside a captured or loaded graph")
-    log(f"deployment phases (42-44): {deploy_row['deploy_phases_s']:.1f} s "
-        f"of wall time; launches inside captured and loaded graphs "
-        f"{captured}")
+    log(f"deployment phases (42-44): launches inside captured and loaded "
+        f"graphs {captured}")
 
     # -- 45. fleet-gpt --------------------------------------------------------
     # -- 46. dp-meta ----------------------------------------------------------
@@ -13817,57 +14742,58 @@ def main() -> int:
     # LocalSGD, DGC, SyncBatchNorm; #1-#3 run under every GPT step, each
     # phase sets the counters to 0 and reads them, and its launches join
     # the kernel table's
-    t_dp = time.perf_counter()
     dp_row = {}
+    clock.begin(45, "fleet-gpt")
     dp_row["fleet_gpt"], fleet_launch = fleet_gpt_phase(
         cfg, ids_t, fa, train_row["train_losses"], train_final, power)
     del train_final
+    clock.begin(46, "dp-meta")
     dp_row["dp_meta"], meta_launch = dp_meta_phase(cfg, ids_t, fa, power)
+    clock.begin(47, "syncbn")
     dp_row["syncbn"] = syncbn_phase(resnet18, resnet50, power)
-    dp_row["dp_phases_s"] = time.perf_counter() - t_dp
     for k in kernels:
         for extra in (fleet_launch, meta_launch):
             k["launches"] += extra.get(k["name"], 0)
-    log(f"data-parallel phases (45-47): {dp_row['dp_phases_s']:.1f} s of "
-        f"wall time; launches {fleet_launch}, {meta_launch}")
+    log(f"data-parallel phases (45-47): launches {fleet_launch}, "
+        f"{meta_launch}")
 
     # -- 48. tp-gpt -----------------------------------------------------------
     # -- 49. sp-ring ----------------------------------------------------------
-    # tensor and sequence parallelism: GPT-2 345M at mp = 2 and sp = 2, the
-    # ring on #1-#3 at S = 8192; each run sets the counters to 0 and reads
-    # them, and its launches join the kernel table's (tp_sp_launches)
-    t_tp = time.perf_counter()
-    tp_base = GPT(cfg, device="cuda")                 # f32, seed 0
-    tp_ref = one_rank_o2(tp_base, ids_t, train_row["train_losses"])
+    # tensor and sequence parallelism: GPT-2 345M's width at PAR_LAYERS
+    # layers at mp = 2 and sp = 2, the ring on #1-#3 at S = 8192; each run
+    # sets the counters to 0 and reads them, and its launches join the
+    # kernel table's (tp_sp_launches)
+    clock.begin(48, "tp-gpt")
+    pcfg = gpt2_345m(max_seq_len=S, remat=False)
+    pcfg.num_layers = PAR_LAYERS
+    tp_base = GPT(pcfg, device="cuda")                # f32, seed 0
+    tp_losses, tp_ref = one_rank_o2(tp_base, ids_t)
     tp_sp_row = {}
     tp_sp_row["tp_gpt"], tp_launch = tp_gpt_phase(
-        tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
+        tp_base, pcfg, ids_t, fa, tp_losses, tp_ref, power)
+    clock.begin(49, "sp-ring")
     tp_sp_row["sp_ring"], ring_launch = sp_ring_phase(
-        tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
-    tp_sp_row["tp_sp_phases_s"] = time.perf_counter() - t_tp
+        tp_base, pcfg, ids_t, fa, tp_losses, tp_ref, power)
     for k in kernels:
         extra = tp_launch.get(k["name"], 0) + ring_launch.get(k["name"], 0)
         k["launches"] += extra
         k["tp_sp_launches"] = extra
-    log(f"tensor and sequence parallel phases (48-49): "
-        f"{tp_sp_row['tp_sp_phases_s']:.1f} s of wall time; launches "
+    log(f"tensor and sequence parallel phases (48-49): launches "
         f"{tp_launch}, {ring_launch}")
 
     # -- 50. pp-gpt -----------------------------------------------------------
-    # the pipeline: GPT-2 345M at pp = 2 and 4 in both schedules, with mp,
+    clock.begin(50, "pp-gpt")
+    # the pipeline: the same at pp = 2 and 4 in both schedules, with mp,
     # dp and sp at 2 layers; its runs set the counters to 0 and read them,
     # and its launches join the kernel table's (pp_launches)
-    t_pp = time.perf_counter()
     tp_sp_row["pp_gpt"], pp_launch = pp_gpt_phase(
-        tp_base, cfg, ids_t, fa, train_row["train_losses"], tp_ref, power)
+        tp_base, pcfg, ids_t, fa, tp_losses, tp_ref, power)
     del tp_base, tp_ref
     torch.cuda.empty_cache()
-    tp_sp_row["pp_phase_s"] = time.perf_counter() - t_pp
     for k in kernels:
         k["launches"] += pp_launch.get(k["name"], 0)
         k["pp_launches"] = pp_launch.get(k["name"], 0)
-    log(f"pipeline phase (50): {tp_sp_row['pp_phase_s']:.1f} s of wall "
-        f"time; launches {pp_launch}")
+    log(f"pipeline phase (50): launches {pp_launch}")
 
     # -- 51. bert-mp ----------------------------------------------------------
     # -- 52. widedeep ---------------------------------------------------------
@@ -13876,24 +14802,28 @@ def main() -> int:
     # BERT's mp path, then the parameter server's tiers; bert-mp's runs set
     # the counters to 0 and read them, and its launches of #1-#3 join the
     # kernel table's (bert_mp_launches); no kernel lies on the PS tiers
-    t_ps = time.perf_counter()
     ps_row = {}
+    clock.begin(51, "bert-mp")
     ps_row["bert_mp"], bmp_launch = bert_mp_phase(fa, fused_ce, power)
     for k in kernels:
         k["launches"] += bmp_launch.get(k["name"], 0)
         k["bert_mp_launches"] = bmp_launch.get(k["name"], 0)
+    log(f"bert-mp phase (51): launches {bmp_launch}")
+    clock.begin(52, "widedeep")
     ps_row["widedeep"] = widedeep_phase(power)
+    clock.begin(53, "widedeep-ps")
     ps_row["widedeep_ps"], ps_keep = widedeep_ps_phase(power)
+    # phase 57's server draws its table while phases 54-56 run
+    remote_server = start_remote_server()
+    clock.begin(54, "widedeep-device")
     ps_row["widedeep_device"] = widedeep_device_phase(power)
-    ps_row["phases_s"] = time.perf_counter() - t_ps
-    log(f"bert-mp and parameter-server phases (51-54): "
-        f"{ps_row['phases_s']:.1f} s of wall time; launches {bmp_launch}")
 
     # -- 55. planes -----------------------------------------------------------
     # the host planes on GPT-2 345M's O2 TrainStep: spans, statistics,
     # compile site, memory gauge, the profiler's trace, no added
     # synchronisation; its runs set the counters to 0 and read them, and
     # its launches join the kernel table's (planes_launches)
+    clock.begin(55, "planes")
     ps_row["planes"], pl_launch = planes_phase(cfg, ids_t, fa, power)
     for k in kernels:
         k["launches"] += pl_launch.get(k["name"], 0)
@@ -13904,36 +14834,64 @@ def main() -> int:
     # -- 58. graph ------------------------------------------------------------
     # the PS transport, the datasets over the native datafeed and the graph
     # table; no kernel lies on them.  Phase 53's step and its 26.4 GB table
-    # train on in 56 and are dropped before 57's server draws its own
-    t_ps2 = time.perf_counter()
+    # train on in 56 and are dropped before 57 begins; 57's server has
+    # drawn its own table since before 54 (the host holds both meanwhile)
+    clock.begin(56, "widedeep-filefed")
     ps_row["widedeep_filefed"] = widedeep_filefed_phase(
         power, ps_keep, ps_row["widedeep_ps"])
     del ps_keep
     gc.collect()
+    clock.begin(57, "widedeep-remote")
     ps_row["widedeep_remote"] = widedeep_remote_phase(
-        power, ps_row["widedeep_ps"])
+        power, ps_row["widedeep_ps"], remote_server)
+    clock.begin(58, "graph")
     ps_row["graph"] = graph_phase(power)
-    ps_row["phases_56_58_s"] = time.perf_counter() - t_ps2
-    log(f"parameter-server transport, dataset and graph phases (56-58): "
-        f"{ps_row['phases_56_58_s']:.1f} s of wall time")
 
     # -- 59. resnet50-filefed -------------------------------------------------
     # -- 60. gpt-durable ------------------------------------------------------
     # the data and state planes: the file-fed ResNet-50 through the ingest
-    # pipeline (no kernel of the table lies on it), then GPT-2 345M saved,
-    # restored and watched by numerics on #1-#3; gpt-durable sets the flash
-    # counters to 0 and reads them, its launches join the kernel table's
-    # (durable_launches)
-    t_dsp = time.perf_counter()
+    # pipeline (no kernel of the table lies on it), then GPT-2 345M's width
+    # at DURABLE_LAYERS layers saved, restored and watched by numerics on
+    # #1-#3; gpt-durable sets the flash counters to 0 and reads them, its
+    # launches join the kernel table's (durable_launches)
+    clock.begin(59, "resnet50-filefed")
     ps_row["resnet50_filefed"] = resnet50_filefed_phase(power)
-    ps_row["gpt_durable"], dur_launch = gpt_durable_phase(cfg, fa, power)
+    clock.begin(60, "gpt-durable")
+    dcfg = gpt2_345m(max_seq_len=S, remat=False)
+    dcfg.num_layers = DURABLE_LAYERS
+    ps_row["gpt_durable"], dur_launch = gpt_durable_phase(dcfg, fa, power)
     for k in kernels:
         k["launches"] += dur_launch.get(k["name"], 0)
         k["durable_launches"] = dur_launch.get(k["name"], 0)
-    ps_row["phases_59_60_s"] = time.perf_counter() - t_dsp
-    log(f"data and state plane phases (59-60): "
-        f"{ps_row['phases_59_60_s']:.1f} s of wall time; launches "
-        f"{dur_launch}")
+    log(f"gpt-durable phase (60): launches {dur_launch}")
+
+    # -- 61. resilient-gpt ----------------------------------------------------
+    # -- 62. parity-numerics --------------------------------------------------
+    # -- 63. ops-planes -------------------------------------------------------
+    # the operations planes: ResilientTrainStep with the incident ring, its
+    # replay, the run ledger, blame and the collector on bench_gpt2_345m's
+    # step; the parity probe at dp = 2 and numerics under ShardedTrainStep
+    # at mp = 2; the elastic agent and the launcher (phase 63's autopilot leg
+    # ran inside phase 57).  61 and 62 set the flash counters to 0 and read
+    # them; their launches join the kernel table's (ops_launches)
+    ops_row = {}
+    clock.begin(61, "resilient-gpt")
+    ops_row["resilient_gpt"], res_launch = resilient_gpt_phase(
+        fa, power, ps_row["planes"])
+    clock.begin(62, "parity-numerics")
+    ops_row["parity_numerics"], par_launch = parity_numerics_phase(
+        cfg, ids_t, fa, power)
+    clock.begin(63, "ops-planes")
+    ops_row["ops_planes"] = elastic_phase(fa, power)
+    clock.end()
+    ops_row["ops_planes"]["autopilot"] = ps_row["widedeep_remote"].get(
+        "autopilot")
+    for k in kernels:
+        extra = res_launch.get(k["name"], 0) + par_launch.get(k["name"], 0)
+        k["launches"] += extra
+        k["ops_launches"] = extra
+    log(f"operations plane phases (61-62): launches {res_launch}, "
+        f"{par_launch}")
     for row in table:
         log(json.dumps(row))
 
@@ -13984,10 +14942,12 @@ def main() -> int:
         "seq2seq_small_err": s_err, "seq2seq_small_losses": s_falls,
         "seq2seq_check_max_abs_err": list(s2s_err),
         "seq2seq_attention": s2s_att, "rnn": rnn_rows,
-        "seq2seq_rnn_phases_s": t_s2s, **eager_row,
+        **eager_row,
         "eager_small_optimizer_err": opt_errs, **dense_row, **layer_row,
         **det_row, **tensor_row, **second_row, **deploy_row, **dp_row,
         "tp_sp_row": tp_sp_row, "bert_mp_ps_row": ps_row,
+        "ops_row": ops_row,
+        "phase_wall_s": {str(n): v for n, v in clock.seconds.items()},
         "chip_smoke_wall_s": time.perf_counter() - t_start}))
 
     log(card_power())

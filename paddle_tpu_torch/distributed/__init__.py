@@ -8,8 +8,9 @@ the tensor-parallel layers (``tp_layers.py``), the parameter server
 ``ps.graph``) and its datasets (``dataset.py``: ``DatasetFactory``,
 ``QueueDataset``, ``InMemoryDataset``, ``train_from_dataset``), the
 sharded checkpoints (``checkpoint``) and their generations
-(``durable``).  Not ported yet, each raising ``NotImplementedError``
-naming its ROADMAP item: ``elastic`` and ``launch`` (item 6b)."""
+(``durable``), elastic training (``elastic``: the rendezvous stores, the
+agent, ``reform``) and the launcher (``launch``), both loaded at first
+use."""
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     destroy_process_group, get_group, get_rank, get_world_size,
@@ -23,16 +24,21 @@ from paddle_tpu_torch.distributed import ps  # noqa: F401
 from paddle_tpu_torch.distributed.dataset import (  # noqa: F401
     DatasetFactory, InMemoryDataset, QueueDataset, train_from_dataset)
 from paddle_tpu_torch.distributed import checkpoint  # noqa: F401
-from paddle_tpu_torch._pending import pending_modules
-
 from paddle_tpu_torch.distributed.tp_layers import (  # noqa: F401
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     mark_sharding)
 
 shard_tensor = mark_sharding
-__getattr__ = pending_modules("paddle_tpu_torch.distributed", {
-    "elastic": ("6b", "elastic training"),
-    "launch": ("6b", "the launcher")})
+
+
+def __getattr__(name):
+    # the launcher's plain path imports nothing of the framework: neither
+    # it nor elastic is imported with the package
+    if name in ("elastic", "launch"):
+        import importlib
+        return importlib.import_module(f"paddle_tpu_torch.distributed.{name}")
+    raise AttributeError(
+        f"module 'paddle_tpu_torch.distributed' has no attribute {name!r}")
 
 __all__ = [
     "init_parallel_env", "ParallelEnv", "DataParallel", "spawn",

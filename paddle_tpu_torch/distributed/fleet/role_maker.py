@@ -4,9 +4,9 @@ Roles come from the ``PADDLE_*`` launch protocol (``PADDLE_TRAINER_ID``,
 ``PADDLE_TRAINER_ENDPOINTS``, ``PADDLE_TRAINERS_NUM``, and for the
 parameter-server roles ``TRAINING_ROLE``, ``PADDLE_PSERVER_ID``,
 ``PADDLE_PSERVERS_IP_PORT_LIST``), or from this rank of the world where
-they are unset.  ``refresh()`` re-reads the environment; a rendezvous
-store (``refresh(store=...)``) is elastic training's, ROADMAP item 6b, and
-raises until it is ported.  ``barrier_worker`` is the collective
+they are unset.  ``refresh()`` re-reads the environment;
+``refresh(store=...)`` takes the world from an elastic rendezvous store's
+live member list (``distributed/elastic.py``).  ``barrier_worker`` is the collective
 ``barrier`` over the world.
 """
 from __future__ import annotations
@@ -79,6 +79,8 @@ class PaddleCloudRoleMaker(RoleMakerBase):
     def __init__(self, is_collective: bool = False, **kwargs):
         super().__init__()
         self._is_collective = is_collective
+        self._elastic_epoch: Optional[int] = None
+        self._elastic_worker_id: Optional[str] = None
         self._read_env()
 
     def _read_env(self):
@@ -103,16 +105,42 @@ class PaddleCloudRoleMaker(RoleMakerBase):
             self._server_endpoints = seps.split(",") if seps else []
 
     def refresh(self, store=None, worker_id: Optional[str] = None):
-        """Re-read the ``PADDLE_*`` environment (a relaunched job exports
-        a fresh block).  A rendezvous ``store`` is elastic training's."""
-        if store is not None:
-            raise NotImplementedError(
-                "refresh(store=...) re-forms the world from an elastic "
-                "rendezvous: ROADMAP Queue 1 item 6b, not ported yet")
-        self._read_env()
+        """Rebuild the role and the world from the current source
+        (reference ``:106-141``; ``elastic.reform`` calls it on every
+        membership epoch).  Without a store, re-read the ``PADDLE_*``
+        environment.  With a rendezvous ``store`` the live member list is
+        the world: the rank is this worker's position among the sorted
+        member ids, the endpoints are the members' registrations, and
+        ``worker_num`` follows the list.  Raises ``elastic.Evicted`` when
+        this worker is not a member."""
+        if store is None:
+            self._read_env()
+            return self
+        wid = worker_id or self._elastic_worker_id \
+            or os.getenv("PADDLE_ELASTIC_WORKER_ID")
+        if wid is None:
+            raise ValueError("refresh(store=...) needs worker_id (or "
+                             "PADDLE_ELASTIC_WORKER_ID) to find this "
+                             "worker's rank in the membership")
+        epoch, members, endpoints = store.membership()
+        if wid not in members:
+            from paddle_tpu_torch.distributed.elastic import Evicted
+            raise Evicted(
+                f"worker {wid!r} is not in membership epoch {epoch} "
+                f"({members}): its lease expired; re-register to rejoin")
+        self._elastic_worker_id = wid
+        self._elastic_epoch = epoch
+        self._current_id = members.index(wid)
+        self._worker_endpoints = [e if e is not None else w
+                                  for w, e in zip(members, endpoints)]
+        self._role = Role.WORKER
         return self
 
     def worker_num(self) -> int:
+        if self._elastic_epoch is not None:
+            # refreshed from a rendezvous store: the live member list
+            # holds, not the launcher's environment block
+            return RoleMakerBase.worker_num(self)
         n = os.getenv("PADDLE_TRAINERS_NUM")
         if n:
             return int(n)
@@ -128,6 +156,8 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
                  server_endpoints: Optional[List[str]] = None, **kwargs):
         RoleMakerBase.__init__(self)
         self._is_collective = is_collective
+        self._elastic_epoch: Optional[int] = None
+        self._elastic_worker_id: Optional[str] = None
         self._current_id = current_id
         self._role = role
         self._worker_endpoints = worker_endpoints or []

@@ -49,7 +49,9 @@ pulled again (``reason="stale_epoch"``), a coalesced push the server's
 epoch fence rejected stays dropped, and any other failure replays the
 push synchronously.  With a local table a prefetch pushes, then pulls.
 The reference's ``numerics``, ``incident`` and ``autopilot`` hooks are
-items 5 and 6b; none changes a result.
+here: the numerics record of the dense leaves and the pulled rows, the
+incident ring of the pulled ids and the dense batch, and the tuned
+profile applied at construction; none changes a result.
 """
 from __future__ import annotations
 
@@ -502,6 +504,11 @@ class PSTrainStep:
                  embedding: DistributedEmbedding, donate: bool = True,
                  transfer_dtype="bfloat16",
                  prefetch_depth: Optional[int] = None, device=None):
+        # the tuned profile first: the prefetch_depth default below reads
+        # the flag the profile may set (reference :491-494)
+        from paddle_tpu_torch.framework.autopilot import \
+            maybe_apply_tuned_profile
+        maybe_apply_tuned_profile(source="PSTrainStep")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -711,6 +718,10 @@ class PSTrainStep:
         return got
 
     def __call__(self, ids, *inputs):
+        # the postmortem ring: the pulled ids are the sparse tier's step
+        # input (reference :822-826); one flag lookup disarmed
+        from paddle_tpu_torch.framework import incident
+        incident.maybe_note(self, (ids,) + tuple(inputs))
         t_start = time.perf_counter()
         step_span = self._tracer().start_span(
             "train.step",

@@ -39,7 +39,9 @@ from __future__ import annotations
 
 import heapq
 import math
+import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -298,14 +300,38 @@ class MeshShardedEmbedding(Layer):
                                    mesh=self.mesh, capacity=self.capacity)
 
 
+DRAW_BLOCK = 1 << 24            # init_table: values a block of the draw
+
+
 def init_table(rows: int, dim: int, initializer_range: float,
                seed: int) -> np.ndarray:
     """The reference tables' draw: float32 ``rng.random`` scaled in place
     to [-r, r) (no float64 temporary; reference ``:286-292`` and
-    ``ps/__init__.py:104-110``)."""
-    t = np.random.default_rng(seed).random((rows, dim), dtype=np.float32)
-    t *= np.float32(2.0 * initializer_range)
-    t -= np.float32(initializer_range)
+    ``ps/__init__.py:104-110``).
+
+    The draw runs in blocks of DRAW_BLOCK values on the host's cores,
+    bitwise the one stream: PCG64 gives two float32 from each 64-bit
+    output, so a block that starts at an even value starts on a whole
+    output, and its generator is the seed's advanced by half its start
+    (a 100M x 65 table, 26 GB, takes ~41 s on one core)."""
+    r2, r = np.float32(2.0 * initializer_range), np.float32(initializer_range)
+    t = np.empty((rows, dim), np.float32)
+    flat = t.reshape(-1)
+    block = DRAW_BLOCK + DRAW_BLOCK % 2
+
+    def fill(start):
+        part = flat[start:start + block]
+        bits = np.random.PCG64(seed)
+        bits.advance(start // 2)
+        np.random.Generator(bits).random(out=part, dtype=np.float32)
+        part *= r2
+        part -= r
+
+    starts = range(0, flat.size, block)
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else os.cpu_count() or 1
+    with ThreadPoolExecutor(max(1, min(cores, len(starts)))) as pool:
+        list(pool.map(fill, starts))
     return t
 
 

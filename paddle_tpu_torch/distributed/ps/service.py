@@ -26,9 +26,8 @@ attempt (its context on the header, re-opened by the server as
 
 The server is host-tier only: :data:`SERVER_BOOT` hides the card from
 the child process before torch is imported, so a server never creates a
-CUDA context.  ``serve()`` raises ``NotImplementedError`` naming ROADMAP
-item 6b when a collector endpoint is configured (the reference pushes
-its telemetry there); with none it runs as the reference's.
+CUDA context.  ``serve()`` pushes the shard's telemetry to the cluster
+collector when an endpoint is configured, as the reference's does.
 """
 from __future__ import annotations
 
@@ -46,7 +45,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch._pending import _message
 from paddle_tpu_torch.distributed.ps import HostEmbeddingTable
 from paddle_tpu_torch.distributed.wire import (
     WIRE_DTYPES, dequantize_rows, normalize_wire, quantize_rows)
@@ -1037,13 +1035,10 @@ def serve(port: int, table_specs: Sequence[str], host: str = "127.0.0.1",
           announce=print):
     """Serve host tables until ``n_workers`` byes or a shutdown; a table
     spec is ``name:rows:dim[:optimizer[:lr]]``.  Announces ``PS_READY
-    host:port`` once listening."""
-    if os.environ.get("PADDLE_COLLECTOR_ENDPOINT") or flag(
-            "collector_endpoint"):
-        raise NotImplementedError(_message(
-            "the PS server's push to the cluster collector", "6b",
-            "the cluster collector; unset PADDLE_COLLECTOR_ENDPOINT and "
-            "FLAGS_collector_endpoint"))
+    host:port`` once listening.  With a collector endpoint configured
+    (``PADDLE_COLLECTOR_ENDPOINT`` or ``FLAGS_collector_endpoint``) the
+    shard pushes its telemetry, its tables' request counts and hot rows
+    included, to the cluster collector, fire and forget."""
     tables = {}
     for spec in table_specs:
         parts = spec.split(":")
@@ -1053,8 +1048,16 @@ def serve(port: int, table_specs: Sequence[str], host: str = "127.0.0.1",
         tables[name] = HostEmbeddingTable(rows, dim, optim, lr)
     srv = PsServer(tables, host=host, port=port,
                    heartbeat_timeout=heartbeat_timeout, n_workers=n_workers)
+    from paddle_tpu_torch.framework import collector
+    reporter = collector.auto_reporter(
+        role="server",
+        payload_extra=lambda: {"tables": srv.table_telemetry()})
     announce(f"PS_READY {srv.host}:{srv.port}", flush=True)
-    srv.serve_forever()
+    try:
+        srv.serve_forever()
+    finally:
+        if reporter is not None:
+            reporter.stop(final_write=True)
 
 
 # The spawn recipe of a server process: it hides every card from the

@@ -43,7 +43,7 @@ def latest_checkpoint(checkpoint_dir: str, verify: bool = True):
     OTHER slot (the previous epoch, its own metadata supplying the
     epoch number) instead of surfacing a raw IO error deep in restore.
     The reference's elastic re-form path restores from it when the job
-    shrinks or grows (``elastic`` is ROADMAP item 6b in the port)."""
+    shrinks or grows (``distributed/elastic.py``)."""
     try:
         with open(os.path.join(checkpoint_dir, _STATUS)) as f:
             s = json.load(f)
@@ -168,6 +168,26 @@ class TrainEpochRange:
                     now - self._last_save >= self.save_checkpoint_inter or
                     epoch == self.max_epoch_num - 1):
                 self.save_checkpoint(epoch)
+        self._append_run_record(start)
+
+    def _append_run_record(self, start_epoch: int):
+        """A completed epoch range appends one ``train_epoch`` record to
+        the run ledger when ``FLAGS_runlog_dir`` is set (reference
+        ``:171-189``); the ledger never fails the loop it records."""
+        try:
+            from paddle_tpu_torch.framework import runlog
+            path = runlog.default_ledger_path()
+            if not path:
+                return
+            rec = runlog.capture(
+                "train_epoch", label=self.name,
+                extra={"epochs": {"start": start_epoch,
+                                  "end": self.max_epoch_num - 1,
+                                  "restored": self.restored_epoch}})
+            runlog.RunLedger(path).append(rec)
+        except Exception:          # noqa: BLE001 - the recorder never
+            # crashes the loop
+            pass
 
 
 def train_epoch_range(max_epoch_num: int, name: str = "default",

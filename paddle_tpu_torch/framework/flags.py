@@ -9,9 +9,10 @@ import os
 import threading
 from typing import Any, Dict
 
-__all__ = ["define_flag", "flag", "get_flags", "set_flags"]
+__all__ = ["define_flag", "flag", "get_flags", "set_flags", "overrides"]
 
 _registry: Dict[str, Any] = {}
+_defaults: Dict[str, Any] = {}
 _lock = threading.Lock()
 
 
@@ -29,6 +30,7 @@ def define_flag(name: str, default, help_str: str = ""):
             value = env
     with _lock:
         _registry[name] = value
+        _defaults[name] = default
     return value
 
 
@@ -54,6 +56,15 @@ def set_flags(flags: dict):
 
 def flag(name: str):
     return _registry[name]
+
+
+def overrides() -> Dict[str, Any]:
+    """Every flag whose value differs from its registered default, set
+    from the environment or at run time (reference ``flags.overrides``):
+    what the run ledger and the incident bundles stamp."""
+    with _lock:
+        return {n: v for n, v in _registry.items()
+                if n in _defaults and v != _defaults[n]}
 
 
 define_flag("gpt_fused_ce", False,
@@ -110,10 +121,27 @@ define_flag("ps_wire_dtype", "bf16",
             "wait for a hello handshake listing the dtype, so a server "
             "that predates it keeps the link at f32")
 define_flag("collector_endpoint", "",
-            "host:port of the cluster telemetry collector; "
-            "PADDLE_COLLECTOR_ENDPOINT takes precedence.  The collector "
-            "push is ROADMAP item 6b: a PS server started with either set "
-            "raises")
+            "host:port of the cluster telemetry collector "
+            "(framework/collector.py CollectorServer); "
+            "PADDLE_COLLECTOR_ENDPOINT takes precedence.  Non-empty arms "
+            "collector.auto_reporter(): the process pushes "
+            "monitor.snapshot() deltas and flight-event deltas, fire and "
+            "forget (bounded queue, drop counter, collector.rpc chaos "
+            "point).  The launcher exports it to every child")
+define_flag("collector_interval", 5.0,
+            "seconds between telemetry pushes to the collector "
+            "(MetricsReporter push mode / collector.auto_reporter)")
+define_flag("collector_queue_capacity", 64,
+            "bound on the collector push queue: a payload enqueued while "
+            "the queue is full is dropped and counted "
+            "(collector_dropped_total)")
+define_flag("collector_timeout", 2.0,
+            "socket timeout (s) of one collector push attempt; a timed-out "
+            "push is a drop, never a retry")
+define_flag("collector_straggler_ratio", 2.0,
+            "straggler threshold: a worker whose per-interval step mean "
+            "exceeds this multiple of the cluster median is named a "
+            "straggler in the collector's view")
 
 # the host planes (framework/{chaos,observability,locks,health}.py and
 # profiler): the reference's names, defaults and environment seeding
@@ -221,3 +249,93 @@ define_flag("profiler_max_spans", 100000,
             "cap on the host spans a profiling session keeps for its chrome "
             "trace; past it spans are dropped and counted while the "
             "aggregate report counts every event")
+
+# the operations planes (parallel/parity.py, framework/{runlog,autopilot,
+# incident}.py): the reference's names, defaults and environment seeding
+define_flag("replica_parity", False,
+            "arm the replica-parity probe: the train-step classes hash "
+            "every replicated parameter and optimizer-state leaf bitwise "
+            "on each replica every FLAGS_replica_parity_every steps and "
+            "compare the hashes across the dp axis; a divergent leaf fires "
+            "a parity.divergence flight event naming the first one and "
+            "counts parity_divergence_total.  The probe never raises.  "
+            "Off: one flag lookup a step")
+define_flag("replica_parity_every", 16,
+            "replica-parity probe cadence: hash-compare the replicated "
+            "state every Nth step of each armed train-step object")
+define_flag("runlog_dir", "",
+            "directory of the persistent run ledger "
+            "(<runlog_dir>/ledger.jsonl, append-only JSONL).  Non-empty "
+            "arms the implicit producers: TrainEpochRange appends a run "
+            "record when an epoch range completes.  Empty = off")
+define_flag("autopilot", False,
+            "arm the runtime autopilot controller (framework/autopilot.py):"
+            " telemetry the planes publish maps through the policy table "
+            "onto the bounded actuators (prefetch depth, wire dtype, "
+            "GradScaler growth, snapshot and restore, straggler shrink).  "
+            "Off: attach() returns None")
+define_flag("autopilot_dry_run", False,
+            "autopilot decisions are logged (flight events and ledger "
+            "action records) but no actuator fires: the trajectory is "
+            "bitwise that of an autopilot-off run")
+define_flag("autopilot_interval_steps", 8,
+            "steps between autopilot evaluation intervals")
+define_flag("autopilot_hysteresis", 2,
+            "consecutive confirming evaluation intervals before a policy's "
+            "action fires (per-policy override in the policy table)")
+define_flag("autopilot_cooldown_s", 30.0,
+            "per-action cooldown: after an actuator fires (or is "
+            "reverted) the same action is suppressed this many seconds")
+define_flag("autopilot_max_actions", 4,
+            "global action budget: at most this many actions a "
+            "autopilot_window_s rolling window; excess decisions are "
+            "suppressed (reason='budget')")
+define_flag("autopilot_window_s", 300.0,
+            "rolling window (s) of the autopilot_max_actions budget")
+define_flag("autopilot_rollback_intervals", 1,
+            "evaluation intervals after an action before the rollback "
+            "guard re-measures its objective and reverts an action that "
+            "made things worse")
+define_flag("autopilot_rollback_tolerance", 0.25,
+            "relative objective worsening the rollback guard tolerates "
+            "before reverting; any anomaly or NaN-rate increase reverts "
+            "regardless")
+define_flag("autopilot_max_prefetch_depth", 4,
+            "ceiling the prefetch.deepen actuator never pushes "
+            "PSTrainStep.prefetch_depth past")
+define_flag("autopilot_straggler_deadline", 60.0,
+            "seconds a collector-flagged straggler must stay flagged "
+            "before the elastic.shrink actuator may invoke "
+            "ElasticAgent.enforce_straggler_policy")
+define_flag("autotune_profile", "",
+            "path of a tuned-knob profile JSON; non-empty makes TrainStep "
+            "and PSTrainStep apply the profile's knobs (ps_prefetch_depth, "
+            "ps_wire_dtype, zero_wire_dtype) through set_flags once a "
+            "process at the first step construction.  A missing or "
+            "corrupt profile is a counted autopilot.profile_error flight "
+            "event, never a crash")
+define_flag("incident", False,
+            "arm the postmortem plane: ResilientTrainStep and PSTrainStep "
+            "keep a host ring of recent step inputs, rng state, pre-step "
+            "training state and chaos schedule, and a subscribed flight "
+            "kind (FLAGS_incident_kinds) firing writes a crash-safe "
+            "incident bundle under FLAGS_incident_dir that "
+            "paddle_tpu_torch/tools/replay.py re-executes.  Capture never "
+            "raises and never changes the trajectory.  Off: one flag "
+            "lookup a step")
+define_flag("incident_kinds", "",
+            "comma-separated flight kinds that trigger incident capture; "
+            "empty = the built-in subscription (train.nan_skip, "
+            "health.anomaly, numerics.scale_collapse, parity.divergence, "
+            "pallas.divergence, autopilot.action, autopilot.revert)")
+define_flag("incident_dir", "",
+            "directory incident bundles land under (incident_<NNNNNN>/ a "
+            "capture); empty = 'incidents' under the current directory")
+define_flag("incident_ring", 4,
+            "steps of input history the armed IncidentRecorder keeps; the "
+            "bundle replays this window and --bisect walks it")
+define_flag("incident_state_cap_mb", 64.0,
+            "inline-state size cap (MB) of an incident bundle: below it "
+            "the ring's oldest pre-step state is embedded; above it the "
+            "bundle records a {root, generation} reference to the newest "
+            "verified checkpoint generation.  0 forces the reference")

@@ -54,7 +54,7 @@ import torch
 from paddle_tpu_torch.framework import chaos, monitor
 from paddle_tpu_torch.framework.flags import flag
 
-__all__ = ["AUX_KEYS", "DRIFT_SIGNALS", "enabled", "sample_every",
+__all__ = ["AUX_KEYS", "sum_aux_over", "DRIFT_SIGNALS", "enabled", "sample_every",
            "compute_aux", "NumericsRecord", "publish", "watch_defaults",
            "reset"]
 
@@ -140,6 +140,40 @@ def compute_aux(grads: dict, params: dict, new_params: dict, loss,
     packed = torch.cat([gsq.double(), psq.double(), usq.double(),
                         gmax.double(), gnf.double(), pnf.double(),
                         lnf.double().reshape(1)])
+    views = [packed[i * L:(i + 1) * L] for i in range(6)]
+    views.append(packed[6 * L])
+    return dict(zip(AUX_KEYS, views))
+
+
+def sum_aux_over(aux: dict, axes) -> dict:
+    """The global aux of a step whose leaves are spread over mesh axes
+    (``ShardedTrainStep`` at mp, pp or a ZeRO stage), from each rank's
+    :func:`compute_aux` of its local pieces.
+
+    ``axes`` is a sequence of ``(group, split)``: ``split[i]`` says leaf
+    i (sorted order) is split over the group's axis, so its partial sums
+    of squares and non-finite counts add over the group; a leaf that is
+    whole on every rank of the axis counts once (the axis rank 0's).
+    Sums run in rank order (``mesh.sum_over``) in float64, axis after
+    axis; max-abs is the maximum over each group.  Every rank leaves with
+    the identical vectors, packed in one buffer as :func:`compute_aux`
+    packs them (one read for the record)."""
+    from paddle_tpu_torch.parallel.mesh import sum_over
+    L = aux["grad_sq"].numel()
+    gsq, psq, usq, gmax, gnf, pnf = (aux[k].double() for k in AUX_KEYS[:6])
+    for group, split in axes:
+        if group is None or group.size == 1:
+            continue
+        m = torch.tensor([1.0 if s or group.rank == 0 else 0.0
+                          for s in split], dtype=torch.float64,
+                         device=gsq.device)
+        summed = sum_over(group, torch.cat(
+            [t * m for t in (gsq, psq, usq, gnf, pnf)]))
+        gsq, psq, usq, gnf, pnf = (summed[i * L:(i + 1) * L]
+                                   for i in range(5))
+        gmax = group.all_gather(gmax).amax(0)
+    packed = torch.cat([gsq, psq, usq, gmax, gnf, pnf,
+                        aux[AUX_KEYS[6]].double().reshape(1)])
     views = [packed[i * L:(i + 1) * L] for i in range(6)]
     views.append(packed[6 * L])
     return dict(zip(AUX_KEYS, views))

@@ -21,8 +21,8 @@ distributed tracing, the flight recorder, the metrics export.
 * **Metrics export**: :class:`MetricsReporter` writes
   ``monitor.export_prometheus()`` to a file on an interval, atomically
   (tmp + fsync + rename); :func:`validate_prometheus` checks a rendering
-  against the exposition grammar.  Its push to the cluster collector is
-  ROADMAP item 6b and raises.
+  against the exposition grammar; with ``collector=`` it also pushes to
+  the cluster collector (``framework/collector.py``).
 """
 from __future__ import annotations
 
@@ -33,9 +33,9 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-from paddle_tpu_torch._pending import pending
 from paddle_tpu_torch.framework import locks, monitor
 from paddle_tpu_torch.framework.flags import flag
+
 
 def _atomic_write(path: str, data: str):
     """Write ``data`` to ``path`` so a reader sees the old file or the
@@ -903,18 +903,22 @@ class MetricsReporter:
     collector never sees a torn file.  ``write_once()`` is the synchronous
     form (tests, final flush).
 
-    The reference's push mode (``collector=``, the cluster collector of
-    ``framework/collector.py``) is ROADMAP item 6b: passing a collector
-    raises ``NotImplementedError``."""
+    Push mode (``collector=``, reference ``:903-914``): additionally (or,
+    with ``path=None``, only) ship each interval's telemetry to the
+    cluster collector (``framework/collector.py``): ``monitor.snapshot()``
+    deltas, span summaries and flight-event deltas, stamped with a
+    per-process push seq, fire and forget through a bounded queue (drop
+    counter, ``collector.rpc`` chaos point).  ``collector`` is a
+    ``host:port`` string or a ``collector.CollectorClient``; ``role`` /
+    ``worker`` label the payloads (default the launcher's
+    ``PADDLE_ROLE`` / ``PADDLE_TRACE_LABEL``)."""
 
     def __init__(self, path: Optional[str], interval: Optional[float] = None,
                  collector=None, worker: Optional[str] = None,
                  role: Optional[str] = None, payload_extra=None):
-        if collector is not None:
-            pending("MetricsReporter(collector=...)", "6b",
-                    "the push to the cluster telemetry collector")()
-        if path is None:
-            raise ValueError("MetricsReporter needs a path")
+        if path is None and collector is None:
+            raise ValueError("MetricsReporter needs a path, a collector "
+                             "endpoint, or both")
         self.path = path
         self.interval = float(flag("metrics_export_interval")) \
             if interval is None else float(interval)
@@ -922,21 +926,41 @@ class MetricsReporter:
         self._thread: Optional[threading.Thread] = None
         self.writes = 0
         self.pushes = 0
+        self._collector = None
+        self._payload_extra = payload_extra
+        if collector is not None:
+            from paddle_tpu_torch.framework import collector as _coll
+            self._collector = _coll.CollectorClient(
+                collector, worker=worker, role=role) \
+                if isinstance(collector, str) else collector
 
     @property
     def collector(self):
-        """The push-mode client: always None until item 6b."""
-        return None
+        """The push-mode CollectorClient (None in file-only mode)."""
+        return self._collector
 
     def write_once(self) -> str:
-        text = monitor.export_prometheus()
-        d = os.path.dirname(self.path)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        _atomic_write(self.path, text)
-        # start()'s first write precedes the thread and stop()'s last one
-        # follows the join: never concurrent with _loop
-        self.writes += 1
+        text = ""
+        if self.path is not None:
+            text = monitor.export_prometheus()
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            _atomic_write(self.path, text)
+            # start()'s first write precedes the thread and stop()'s last
+            # one follows the join: never concurrent with _loop
+            self.writes += 1
+        if self._collector is not None:
+            from paddle_tpu_torch.framework import collector as _coll
+            extra = None
+            if self._payload_extra is not None:
+                try:
+                    extra = self._payload_extra()
+                except Exception:  # noqa: BLE001 - telemetry never crashes
+                    extra = None
+            self._collector.push(_coll.local_payload(
+                since_seq=self._collector.flight_seq_sent, extra=extra))
+            self.pushes += 1
         return text
 
     def _loop(self):
@@ -965,6 +989,8 @@ class MetricsReporter:
                 self.write_once()
             except OSError:
                 pass
+        if self._collector is not None:
+            self._collector.stop()
 
 
 # ---------------------------------------------------------------------------

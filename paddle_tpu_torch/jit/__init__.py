@@ -51,6 +51,11 @@ The host planes (``framework/{monitor,health,observability}.py``,
 range, the first call under a new signature (the reference's cache key)
 timed as a compile, ``train_step_ms``, ``train_steps_total``, the health
 detector and the memory sample; no device synchronisation is added.
+After the commit the replica-parity probe runs (``FLAGS_replica_parity``,
+``parallel/parity.py``; a one-replica step probes nothing), and the
+construction applies ``FLAGS_autotune_profile`` once a process
+(``framework/autopilot.py``).  ``ResilientTrainStep``
+(``framework/resilient.py``) is exported here, as in the reference.
 
 Not ported, and raising ``NotImplementedError``: a gradient clip without
 ``functional_clip``, which the reference's step silently skips.
@@ -80,7 +85,7 @@ from paddle_tpu_torch.jit import recompute as _recompute
 from paddle_tpu_torch.jit.recompute import substituted_call
 from paddle_tpu_torch.profiler import RecordEvent
 
-__all__ = ["TrainStep", "functional_loss_call", "apply_functional_update",
+__all__ = ["TrainStep", "ResilientTrainStep", "functional_loss_call", "apply_functional_update",
            "loss_closure", "loss_and_grads", "to_static", "not_to_static",
            "StaticFunction", "save", "load", "TranslatedLayer"]
 
@@ -231,6 +236,11 @@ class TrainStep:
         if int(accumulate_steps) != accumulate_steps or accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be a positive integer, "
                              f"got {accumulate_steps!r}")
+        # the tuned startup profile (FLAGS_autotune_profile, reference
+        # :329-332) lands before any flag-derived knob is read
+        from paddle_tpu_torch.framework.autopilot import \
+            maybe_apply_tuned_profile
+        maybe_apply_tuned_profile(source="TrainStep")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -383,12 +393,15 @@ class TrainStep:
                     self._write(params, new_params)
                     self._opt_states = states
         losses = losses[0] if steps is None else torch.stack(losses)
-        if armed and lead and aux:
+        if armed and aux:
             # published before the check_nan_inf raise below, so the
-            # provenance record is readable after it (reference :596-606)
+            # provenance record is readable after it (reference :596-606);
+            # every rank of a LoopbackWorld keeps its record, its lead
+            # thread publishes
             rec = numerics.NumericsRecord(
                 list(params), aux[0], step=int(self.optimizer._global_step))
-            numerics.publish(rec)
+            if lead:
+                numerics.publish(rec)
             self.last_numerics = rec
         if check and not bool(torch.isfinite(losses).all()):
             if hold:
@@ -403,6 +416,11 @@ class TrainStep:
         self.optimizer._global_step += 1 if steps is None else steps
         if lead:
             _record_step(self, losses, steps, t_start)
+        # the replica-parity probe (FLAGS_replica_parity, reference
+        # :637-642): one flag lookup disarmed; a one-replica mesh probes
+        # nothing
+        from paddle_tpu_torch.parallel import parity
+        parity.maybe_observe(self, mesh=getattr(self, "mesh", None))
         return losses
 
     def __call__(self, *inputs):
@@ -446,3 +464,5 @@ class TrainStep:
 from paddle_tpu_torch.jit.static import (  # noqa: E402,F401
     StaticFunction, TranslatedLayer, _cipher_for, _read_artifact, load,
     not_to_static, save, to_static)
+from paddle_tpu_torch.framework.resilient import (  # noqa: E402,F401
+    ResilientTrainStep)

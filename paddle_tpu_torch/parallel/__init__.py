@@ -7,8 +7,7 @@ with ZeRO stages 0-3; LocalSGD, DGC and the compressed all-reduce in
 primitives (``tp``), ring attention over ``sp`` (``ring_attention``) and
 ``shard_map_compat``; the pipeline's schedules over ``pp``
 (``pipeline``: ``pipeline_forward`` F-then-B, ``make_pipeline_train_1f1b``).
-``parity`` is ROADMAP item 6b: it raises ``NotImplementedError`` naming
-its item."""
+``parity``: the replica-parity probe (``FLAGS_replica_parity``)."""
 from paddle_tpu_torch.parallel.mesh import (  # noqa: F401
     DistAttr, HybridTopology, LoopbackWorld, Mesh, auto_mesh, get_mesh,
     init_process_group, make_mesh, mesh_axis_size, set_mesh,
@@ -21,7 +20,4 @@ from paddle_tpu_torch.parallel.zero import ShardedUpdateTrainStep  # noqa: F401
 from paddle_tpu_torch.parallel.ring_attention import ring_attention  # noqa: F401
 from paddle_tpu_torch.parallel.pipeline import (  # noqa: F401
     make_pipeline_train_1f1b, pipeline_forward)
-from paddle_tpu_torch._pending import pending_modules  # noqa: E402
-
-__getattr__ = pending_modules("paddle_tpu_torch.parallel", {
-    "parity": ("6b", "the replica parity probe")})
+from paddle_tpu_torch.parallel import parity  # noqa: F401

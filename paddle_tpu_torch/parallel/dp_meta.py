@@ -211,6 +211,10 @@ class CompressedAllReduceTrainStep(_LocalDPStep):
             average_buffers(self.model, self.mesh)
             loss = mean_over(self.mesh.group, loss)
         self.optimizer._global_step += 1
+        # the replica-parity probe (reference :384-387): a compressed
+        # reduce that drifted the replicas apart shows here
+        from paddle_tpu_torch.parallel import parity
+        parity.maybe_observe(self, mesh=self.mesh)
         return loss
 
 

@@ -66,6 +66,13 @@ the gradients are averaged over the data axes as at pp = 1.  ZeRO stages
 1-3 chunk each rank's stage over ``sharding`` (or ``dp``);
 :meth:`ShardedTrainStep.gather_params` concatenates the stages.
 
+``FLAGS_numerics`` (reference ``:161-176``): each rank computes the
+numerics aux of its pieces, and the sums of squares and non-finite counts
+add over ``mp`` for the split leaves, over ``pp`` for the stacked layers
+and over the ZeRO group for the chunks, in rank order
+(``numerics.sum_aux_over``), so every rank holds the reference's
+replicated record; disarmed, the step is unchanged.
+
 Raising: a mesh with an ``ep`` axis of size > 1; a parameter whose
 ``DistAttr`` splits it over ``mp`` (> 1) but which no mp-aware layer or
 model holds in shards (a plain ``Linear`` under ``shard_module`` rules;
@@ -91,6 +98,7 @@ from typing import Callable, Dict
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.framework import numerics
 from paddle_tpu_torch.jit import TrainStep, apply_functional_update, \
     loss_and_grads
 from paddle_tpu_torch.nn.functional.norm import batch_stats_over
@@ -389,10 +397,32 @@ class ShardedTrainStep(TrainStep):
             if self.sharding_stage == 3:
                 self._release_params()
 
+    def _numerics(self, grads: dict, before: dict, after: dict, loss,
+                  chunked: bool) -> dict:
+        """The step's numerics aux (``FLAGS_numerics``, reference
+        ``:161-176``): each rank's :func:`numerics.compute_aux` of its
+        pieces, summed over ``mp`` for the leaves split there, over
+        ``pp`` for the stacked layers, and over the ZeRO group for the
+        chunks (``chunked``), so every rank holds the reference's
+        replicated record."""
+        aux = numerics.compute_aux(grads, before, after, loss)
+        names = sorted(grads)
+        params = dict(self.model.named_parameters())
+        axes = []
+        if self._mp > 1:
+            axes.append((self.mesh.axis_group("mp"), [
+                getattr(params[n], "mp_split", None) is not None
+                for n in names]))
+        if self._pp > 1:
+            axes.append((self.mesh.axis_group("pp"), [
+                getattr(params[n], "pp_split", None) is not None
+                for n in names]))
+        if chunked:
+            axes.append((self._zgroup, [True] * len(names)))
+        return numerics.sum_aux_over(aux, axes)
+
     def _one_step(self, params: dict, inputs, lr, states,
                   numerics_aux: bool = False):
-        # FLAGS_numerics is not read here: the mp / pp / sharding shards
-        # would need their sums gathered over the mesh (ROADMAP)
         micro = self.accumulate_steps
         specs = self.input_specs or [None] * len(inputs)
         if len(specs) != len(inputs):
@@ -420,10 +450,16 @@ class ShardedTrainStep(TrainStep):
             loss = self._mean(torch.stack(losses)).mean()
             if self.sharding_stage == 0:
                 grads = {n: self._mean(g) for n, g in grads.items()}
+                before = {n: p.detach() for n, p in params.items()}
+                if numerics_aux and self.donate:
+                    before = {n: t.clone() for n, t in before.items()}
                 new_params, states = apply_functional_update(
                     self.optimizer, grads,
                     {n: p.detach() for n, p in params.items()}, states, lr,
                     donate=self.donate)
+                if numerics_aux:
+                    return loss, new_params, states, self._numerics(
+                        grads, before, new_params, loss, chunked=False)
                 return loss, new_params, states
             gshards, pshards = {}, {}
             for n, p in params.items():
@@ -435,6 +471,8 @@ class ShardedTrainStep(TrainStep):
                 else:
                     gshards[n] = self._chunk(self._mean(g), n)
                 pshards[n] = self._chunk(p.detach(), n)
+            before = ({n: t.clone() for n, t in pshards.items()}
+                      if numerics_aux and self.donate else pshards)
             new_shards, states = self.optimizer.functional_update(
                 pshards, sharded_clip(self.optimizer, gshards, self._zgroup),
                 states, lr=lr, donate=self.donate)
@@ -442,6 +480,9 @@ class ShardedTrainStep(TrainStep):
                 n: f32_all_gather(new_shards[n].to(p.dtype), self._zgroup)[
                     :self._specs[n].size].view_as(p)
                 for n, p in params.items()}
+            if numerics_aux:
+                return loss, new_params, states, self._numerics(
+                    gshards, before, new_shards, loss, chunked=True)
         return loss, new_params, states
 
     def lower_hlo(self, *inputs):

@@ -74,10 +74,13 @@ windows (every rank writes its own files, the reference's names), and
 ``load_checkpoint_state`` / ``adopt_opt_state`` take moments saved at any
 dp width, or by a replicated step, onto this step's own chunks.
 
+The replica-parity probe (``parallel/parity.py``) checks the replicated
+parameters after each step when ``FLAGS_replica_parity`` is armed (the
+moment chunks differ by design and are skipped).
+
 Not ported, each raising or absent: LARS (``LarsMomentum``, rejected by
 name: its per-parameter norms would be taken over 1/dp chunks), a grad clip
-without ``functional_clip`` (the reference skips it), the parity probe
-(item 6b) and ``analyze``.
+without ``functional_clip`` (the reference skips it) and ``analyze``.
 """
 from __future__ import annotations
 
@@ -456,6 +459,10 @@ class ShardedUpdateTrainStep:
                 "opt_state": self.opt_state_bytes_per_replica(),
                 "buffers": sum(b.numel() * b.element_size()
                                for b in self.model.buffers())})
+        # the replica-parity probe over the replicated parameters
+        # (reference :565-568); the moment chunks differ by design
+        from paddle_tpu_torch.parallel import parity
+        parity.maybe_observe(self, mesh=self.mesh)
         return loss
 
     def _step(self, params, inputs, span, wire_bytes, armed=False):

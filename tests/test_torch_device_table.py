@@ -281,3 +281,20 @@ def test_train_step_refusals():
     with pytest.raises(ValueError, match="lies on"):
         dt.DeviceEmbeddingTrainStep(_Head().to("meta"), None, SGD(), emb,
                                     device="cpu")
+
+
+@pytest.mark.parametrize("rows, dim, block", [(1000, 65, 2), (999, 9, 64),
+                                              (3001, 65, 4096), (3, 1, 2),
+                                              (10, 3, 1000), (0, 65, 64)])
+def test_init_table_in_blocks_is_the_reference_draw(monkeypatch, rows, dim,
+                                                    block):
+    """A table drawn in blocks (each on its own thread, from the seed's
+    stream advanced to the block's start) is bitwise the reference's one
+    stream: odd widths, blocks that end inside a row, one block, none."""
+    monkeypatch.setattr(dt, "DRAW_BLOCK", block)
+    r = 0.05
+    want = np.random.default_rng(7).random((rows, dim), dtype=np.float32)
+    want *= np.float32(2.0 * r)
+    want -= np.float32(r)
+    got = dt.init_table(rows, dim, r, 7)
+    assert got.dtype == np.float32 and np.array_equal(got, want)

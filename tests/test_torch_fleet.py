@@ -241,7 +241,8 @@ def _role_readings(rm):
 def test_role_makers_read_the_environment_as_the_reference(monkeypatch):
     """PaddleCloudRoleMaker (collective and PS roles) and
     UserDefinedRoleMaker give the reference's readings; refresh() re-reads
-    the environment, refresh(store=...) raises naming item 6b."""
+    the environment, refresh(store=...) takes the rank and the world from
+    a rendezvous store's live members as the reference's does."""
     from paddle_tpu.distributed.fleet import role_maker as jrm
     for k, v in ENV.items():
         monkeypatch.setenv(k, v)
@@ -259,8 +260,20 @@ def test_role_makers_read_the_environment_as_the_reference(monkeypatch):
     rm = PaddleCloudRoleMaker(is_collective=True)
     monkeypatch.setenv("PADDLE_TRAINER_ID", "2")
     assert rm.worker_index() == 1 and rm.refresh().worker_index() == 2
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        rm.refresh(store=object())
+    from paddle_tpu.distributed import elastic as jel
+    from paddle_tpu_torch.distributed import elastic as tel
+    readings = []
+    for el, mk in ((tel, PaddleCloudRoleMaker),
+                   (jel, jrm.PaddleCloudRoleMaker)):
+        store = el.DictStore(ttl=5.0, clock=lambda: 0.0)
+        for w in ("w0", "w1", "w2"):
+            store.register(w, endpoint=f"h{w[1]}:1")
+        r = mk(is_collective=True).refresh(store=store, worker_id="w1")
+        readings.append((r.worker_index(), r.worker_num(),
+                         r.get_trainer_endpoints(), r._elastic_epoch))
+        with pytest.raises(el.Evicted):
+            mk(is_collective=True).refresh(store=store, worker_id="w9")
+    assert readings[0] == readings[1] == (1, 3, ["h0:1", "h1:1", "h2:1"], 3)
 
 
 def test_metrics_merge_over_the_ranks():
@@ -395,10 +408,10 @@ PENDING = [("distributed", n, None) for n in (
     ("distributed.fleet", "save_persistables", None),
     ("distributed", "checkpoint", None),
     ("distributed.fleet.utils", "fs", None),
-    ("distributed", "elastic", "6b"), ("distributed", "launch", "6b"),
-    ("parallel", "parity", "6b")] + [
+    ("distributed", "elastic", None), ("distributed", "launch", None),
+    ("parallel", "parity", None)] + [
     ("framework", n, None) for n in ("numerics", "auto_checkpoint")] + [
-    ("framework", n, "6b") for n in ("incident", "resilient",
+    ("framework", n, None) for n in ("incident", "resilient",
                                      "ResilientTrainStep")] + [
     ("framework", "errors", "7"), ("framework", "analysis", "8")] + [
     ("framework", n, None) for n in ("monitor", "chaos", "observability")]
@@ -407,13 +420,14 @@ PENDING = [("distributed", n, None) for n in (
 @pytest.mark.parametrize("module,name,item", PENDING,
                          ids=[f"{m}.{n}" for m, n, _ in PENDING])
 def test_names_left_for_later_items_raise_naming_them(module, name, item):
-    """Every reference name left for items 6b, 7 and 8 raises
+    """Every reference name left for items 7 and 8 raises
     NotImplementedError naming its ROADMAP item, where the reference has
-    it; item 3b's, 3c's, 4a's, 4b's, 5's and 6a's names (item None) are
-    real, not stand-ins (the ``pipeline``, ``ps``, ``ps.service`` and
+    it; item 3b's, 3c's, 4a's, 4b's, 5's, 6a's and 6b's names (item None)
+    are real, not stand-ins (the ``pipeline``, ``ps``, ``ps.service`` and
     ``ps.graph`` submodules, the datasets, fleet's PS lifecycle and
-    savers, the checkpoints, ``fs``, numerics, the planes); a name
-    neither package has is an AttributeError."""
+    savers, the checkpoints, ``fs``, numerics, the planes, ``elastic``,
+    ``launch``, ``parity``, ``incident``, ``resilient``); a name neither
+    package has is an AttributeError."""
     import importlib
     mod = importlib.import_module(f"paddle_tpu_torch.{module}")
     ref = importlib.import_module(f"paddle_tpu.{module}")

@@ -79,7 +79,11 @@ def test_every_module_imports_with_jax_blocked():
               "dataset.wmt14", "dataset.wmt16", "dataset.conll05",
               "reader", "distributed.fleet.utils.fs",
               "distributed.checkpoint", "distributed.durable",
-              "framework.numerics", "framework.auto_checkpoint"):
+              "framework.numerics", "framework.auto_checkpoint",
+              "parallel.parity", "framework.blame", "framework.runlog",
+              "framework.incident", "framework.resilient",
+              "framework.collector", "framework.autopilot",
+              "distributed.elastic", "distributed.launch", "tools.replay"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'):\n"

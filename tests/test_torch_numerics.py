@@ -313,3 +313,209 @@ def test_ps_train_step_record_matches_reference():
     assert "embedding.rows" in got.names
     assert got.per_leaf()["embedding.rows"]["update_ratio"] == 0.0
     _same_record(got, want)
+
+
+SH_CFG = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+              max_seq_len=64, remat=False)
+
+
+def _sh_ids():
+    return np.random.default_rng(9).integers(0, 256, (4, 64)).astype(
+        np.int64)
+
+
+@pytest.fixture(scope="module")
+def sharded_reference():
+    """The reference's ShardedTrainStep at mp = 2 (2 of the 8 virtual
+    devices), one Adam step armed: its initial parameters and record."""
+    from paddle_tpu.models.gpt import _PARAM_ORDER
+    from paddle_tpu.parallel.sharded import ShardedTrainStep as JSharded
+    with clean_planes({"numerics": True}):
+        model = jgpt.GPT(jgpt.GPTConfig(**SH_CFG))
+        init = {n: np.asarray(model._parameters[n]._data)
+                for n in _PARAM_ORDER}
+        prev = get_mesh()
+        mesh = set_mesh(make_mesh({"mp": 2}))
+        try:
+            step = JSharded(model, jgpt.gpt_loss, jopt.Adam(
+                learning_rate=1e-3, parameters=model.parameters()),
+                mesh=mesh)
+            ids = paddle.to_tensor(_sh_ids())
+            step(ids, ids)
+        finally:
+            set_mesh(prev)
+        rec = step.last_numerics
+        rec.to_dict()                       # read while the planes are set
+        return init, rec
+
+
+def _port_sharded(init, axes, stage, armed):
+    from paddle_tpu_torch.models import GPTConfig, shard_params
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    ids = torch.from_numpy(_sh_ids())
+
+    def fn(rank, mesh):
+        model = GPT(GPTConfig(**SH_CFG), device="cpu", mesh=mesh)
+        shards = shard_params(init, mesh.shape.get("mp", 1),
+                              mesh.axis_index("mp"))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(shards[name])
+        step = ShardedTrainStep(model, gpt_loss, Adam(learning_rate=1e-3),
+                                mesh=mesh, sharding_stage=stage)
+        loss = step(ids, ids)
+        rec = getattr(step, "last_numerics", None)
+        if rec is not None:
+            rec.to_dict()
+        return (loss.numpy(), {k: v.numpy() for k, v in
+                               step.gather_params().items()}, rec)
+    with clean_planes({"numerics": armed}):
+        return LoopbackWorld(int(np.prod(list(axes.values())))).run(
+            fn, axes=axes)
+
+
+@pytest.mark.parametrize("axes,stage", [({"mp": 2}, 0),
+                                        ({"dp": 2, "mp": 2}, 2)])
+def test_sharded_step_record_matches_reference(sharded_reference, axes,
+                                               stage):
+    """ShardedTrainStep with FLAGS_numerics at mp = 2 (alone, and with
+    dp = 2 at ZeRO stage 2): every rank's record equals rank 0's bitwise
+    (the sums over mp and the ZeRO group run in rank order) and matches
+    the reference's record within 1e-5 on every norm, ratio and count.
+    Disarmed, the step leaves no record and its loss and parameters are
+    bitwise the armed run's."""
+    init, want = sharded_reference
+    got = _port_sharded(init, axes, stage, armed=True)
+    for r in got:
+        assert r[2].per_leaf() == got[0][2].per_leaf()
+    _same_record(got[0][2], want)
+    plain = _port_sharded(init, axes, stage, armed=False)
+    assert plain[0][2] is None
+    assert np.array_equal(plain[0][0], got[0][0])
+    for k, v in got[0][1].items():
+        assert np.array_equal(plain[0][1][k], v), k
+
+
+def test_sharded_record_needs_the_mp_sum(sharded_reference):
+    """A planted fault: leaving out the sum over mp for the split leaves
+    (each rank's record then holds its own shard's norms) moves the
+    split leaves' norms off the reference's."""
+    from paddle_tpu_torch.parallel import sharded
+    init, want = sharded_reference
+    real = tnum.sum_aux_over
+
+    def no_mp(aux, axes):
+        return real(aux, [a for a in axes if a[0].size != 2 or
+                          not any(a[1]) or all(a[1])])
+    sharded.numerics.sum_aux_over = no_mp
+    try:
+        got = _port_sharded(init, {"mp": 2}, 0, armed=True)
+    finally:
+        sharded.numerics.sum_aux_over = real
+    wl, gl = want.per_leaf(), got[0][2].per_leaf()
+    off = [n for n in wl if abs(gl[n]["grad_norm"] - wl[n]["grad_norm"])
+           > REL * wl[n]["grad_norm"]]
+    assert "qkv_w" in off and "wpe" not in off, off
+
+
+PP_RUNS = {"pp2_mode0": ({"pp": 2}, 0),
+           "pp2_mp2_mode1": ({"pp": 2, "mp": 2}, 1)}
+
+
+@pytest.fixture(scope="module")
+def pp_reference():
+    """The reference's ShardedTrainStep (stage 1, as the pipeline tests
+    run it) at pp = 2 in F-then-B and at pp x mp in 1F1B, two
+    microbatches, one Adam step armed: its initial parameters and
+    record, by run."""
+    from paddle_tpu.models.gpt import _PARAM_ORDER
+    from paddle_tpu.parallel.sharded import ShardedTrainStep as JSharded
+    out = {}
+    for name, (axes, mode) in PP_RUNS.items():
+        with clean_planes({"numerics": True}):
+            model = jgpt.GPT(jgpt.GPTConfig(n_microbatches=2,
+                                            schedule_mode=mode, **SH_CFG))
+            init = {n: np.asarray(model._parameters[n]._data)
+                    for n in _PARAM_ORDER}
+            prev = get_mesh()
+            mesh = set_mesh(make_mesh(axes))
+            try:
+                step = JSharded(model, jgpt.gpt_loss, jopt.Adam(
+                    learning_rate=1e-3, parameters=model.parameters()),
+                    mesh=mesh, sharding_stage=1)
+                ids = paddle.to_tensor(_sh_ids())
+                step(ids, ids)
+            finally:
+                set_mesh(prev)
+            rec = step.last_numerics
+            rec.to_dict()
+            out[name] = (init, rec)
+    return out
+
+
+def _port_pp(init, axes, mode):
+    """The port's ShardedTrainStep (stage 1) on LoopbackWorld ranks laid
+    out as ``axes``, each holding its stage and mp shards of ``init``,
+    one step armed: each rank's record."""
+    from paddle_tpu_torch.models import GPTConfig, shard_params
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import ShardedTrainStep
+    ids = torch.from_numpy(_sh_ids())
+
+    def fn(rank, mesh):
+        model = GPT(GPTConfig(n_microbatches=2, schedule_mode=mode,
+                              **SH_CFG), device="cpu", mesh=mesh)
+        part = shard_params(init, mesh.shape.get("mp", 1),
+                            mesh.axis_index("mp"), pp=mesh.shape["pp"],
+                            stage=mesh.axis_index("pp"))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(part[name])
+        step = ShardedTrainStep(model, gpt_loss, Adam(learning_rate=1e-3),
+                                mesh=mesh, sharding_stage=1)
+        step(ids, ids)
+        rec = step.last_numerics
+        rec.to_dict()
+        return rec
+    with clean_planes({"numerics": True}):
+        return LoopbackWorld(int(np.prod(list(axes.values())))).run(
+            fn, axes=axes)
+
+
+@pytest.mark.parametrize("run", list(PP_RUNS))
+def test_pp_sharded_record_matches_reference(pp_reference, run):
+    """ShardedTrainStep with FLAGS_numerics at pp = 2 (F-then-B) and pp x
+    mp (1F1B): every rank's record equals rank 0's bitwise, and matches
+    the reference's within 1e-5 on every norm, ratio and count (the
+    stacked layers summed over pp, the leaves outside the stack, the
+    tied wte among them, counted once)."""
+    axes, mode = PP_RUNS[run]
+    init, want = pp_reference[run]
+    got = _port_pp(init, axes, mode)
+    for r in got:
+        assert r.per_leaf() == got[0].per_leaf()
+    _same_record(got[0], want)
+
+
+def test_pp_record_needs_the_pp_sum(pp_reference):
+    """A planted fault: leaving out the sum over pp (each stage's record
+    then holds its own layer's norms) moves the stacked leaves' norms off
+    the reference's, and no other leaf's."""
+    from paddle_tpu_torch.parallel import sharded
+    init, want = pp_reference["pp2_mode0"]
+    real = tnum.sum_aux_over
+
+    def no_pp(aux, axes):
+        return real(aux, [a for a in axes if a[0].size != 2 or all(a[1])])
+    sharded.numerics.sum_aux_over = no_pp
+    try:
+        got = _port_pp(init, {"pp": 2}, 0)
+    finally:
+        sharded.numerics.sum_aux_over = real
+    wl, gl = want.per_leaf(), got[0].per_leaf()
+    off = {n for n in wl if abs(gl[n]["grad_norm"] - wl[n]["grad_norm"])
+           > REL * wl[n]["grad_norm"]}
+    stacked = {"ln1_w", "ln1_b", "qkv_w", "qkv_b", "prj_w", "prj_b",
+               "ln2_w", "ln2_b", "fc_w", "fc_b", "out_w", "out_b"}
+    assert off == stacked, off

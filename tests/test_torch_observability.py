@@ -13,7 +13,7 @@ CPU, and the spans and statistics the port's steps record:
 - ``install_crash_handler``'s SIGTERM hook in a child process runs the
   ``on_sigterm`` callbacks, dumps the ring and still dies of SIGTERM;
 - ``MetricsReporter`` writes the exposition text atomically, and its
-  collector push raises naming item 6b;
+  collector push mode drops against a dead collector;
 - ``TrainStep`` records as the reference's: one ``train.step`` span a
   call with its step, one ``jit.compile``, ``train_steps_total``,
   ``train_step_ms``, the compile counters; at dp = 2 on ``LoopbackWorld``
@@ -176,8 +176,16 @@ def test_crash_hook_and_metrics_reporter(tmp_path):
         assert rep.writes == 2 and rep.collector is None
         assert path.read_text() == PORT.monitor.export_prometheus()
         assert not [p for p in os.listdir(path.parent) if ".tmp" in p]
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        PORT.obs.MetricsReporter(str(path), collector="127.0.0.1:1")
+    # push mode: a collector client is built, and a push to a dead
+    # endpoint is a counted drop, never an error in the caller
+    with clean_planes({"collector_timeout": 0.2}):
+        rep = PORT.obs.MetricsReporter(str(path), interval=60.0,
+                                       collector="127.0.0.1:1")
+        assert rep.collector is not None
+        rep.write_once()
+        rep.stop()
+        assert rep.pushes == 2 and rep.writes == 2
+        assert PORT.monitor.get_stat("collector_dropped_total") >= 1
 
 
 # -- the steps' spans and statistics -----------------------------------------

@@ -391,11 +391,35 @@ def test_server_role_joins_no_group_and_touches_no_card(monkeypatch):
 
 
 def test_serve_raises_on_a_collector_endpoint(monkeypatch):
-    """The collector push is item 6b: serve() with an endpoint configured
-    raises naming it instead of skipping the push."""
-    monkeypatch.setenv("PADDLE_COLLECTOR_ENDPOINT", "127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        svc.serve(0, ["emb:4:2"], announce=lambda *a, **k: None)
+    """serve() with a collector endpoint configured pushes the shard's
+    telemetry there (the tables' request counts included), as the
+    reference's server does, and stops its reporter when it stops."""
+    from paddle_tpu_torch.framework.collector import CollectorServer
+    col = CollectorServer().start()
+    monkeypatch.setenv("PADDLE_COLLECTOR_ENDPOINT", col.endpoint)
+    ready = threading.Event()
+    addr = {}
+
+    def announce(msg, **_):
+        addr["ep"] = msg.split()[1]
+        ready.set()
+    th = threading.Thread(target=svc.serve, args=(0, ["emb:4:2"]),
+                          kwargs={"n_workers": 1, "announce": announce},
+                          daemon=True)
+    th.start()
+    try:
+        assert ready.wait(10)
+        client = svc.PsClient([addr["ep"]])
+        client.pull("emb", np.array([1, 2]))
+        client.bye()
+        th.join(timeout=10)
+        assert not th.is_alive()
+        view = col.view()
+        servers = [w for w, r in view["workers"].items()
+                   if r.get("role") == "server"]
+        assert servers, view["workers"]
+    finally:
+        col.shutdown()
 
 
 def test_subprocess_server_through_server_boot():
